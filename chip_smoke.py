@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port (paddle_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing one JSON line; any failure ends the run with a
+non-zero exit code and no final "ok" line:
+
+  device    the card's name, and its name and power limit as nvidia-smi
+            reports them (also printed alone on a line)
+  build     nvcc builds both kernels from paddle_tpu_torch/csrc, in
+            parallel; seconds taken
+  kernels   each kernel at the main path's shapes against its plain
+            PyTorch version (max abs error within the stated bound),
+            timed with CUDA events beside the plain version, one PyTorch
+            library call computing the same function (a yardstick the
+            port never calls) and the least time the card could take
+  generate  lm_generate on the full-width Transformer-base LM (vocab
+            32000, d_model 512, 8 heads, dff 2048, 6 layers), batch 32,
+            prompt 32, max_len 160, greedy: the flash kernel launches
+            once per layer; two rows are held against the same call on
+            the CPU (plain versions)
+  serve     the port's HTTP server over the same trunk (8 slots, max_len
+            256, chunk 8) answers 12 concurrent staggered /v1/generate
+            requests, some streamed: the chunk kernel launches once per
+            layer per step; each stream is held against lm_generate on
+            the card
+Then the kernel summary line, the nvidia-smi line, and last:
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+
+Without a CUDA device, or run from a directory that holds this script
+and nothing else of the repository, it exits non-zero and prints no
+result.
+"""
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores (both kernels compute in f32)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+# Kernel vs plain version on the same inputs: float32 with TF32 off on
+# both sides, summed in different orders (tiled online softmax vs a
+# materialized softmax); observed differences are ~1e-6, so 1e-4 bounds
+# them with room and still catches any indexing or masking fault (those
+# give O(1) errors on N(0, 1) inputs).
+KERNEL_TOL = 1e-4
+# Engine stream vs lm_generate, and card vs CPU: the two paths round
+# differently (chunked slab step vs prefill + decode step; kernel vs
+# plain attention), moving logits by ~1e-5.  A token is compared only
+# while the reference's top-1/top-2 logit margin exceeds this; past the
+# first smaller margin the two may legitimately diverge.  Random weights
+# give small margins, so the number of tokens compared is reported.
+MARGIN_TOL = 2e-3
+
+LAYERS, HEADS, VOCAB, D_MODEL, DFF = 6, 8, 32000, 512, 2048
+SLOTS, SERVE_MAX_LEN, CHUNK = 8, 256, 8
+GEN_BATCH, GEN_PROMPT, GEN_MAX_LEN = 32, 32, 160
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg):
+    raise RuntimeError(msg)
+
+
+def time_ms(torch, fn, samples=50, reps=10):
+    """Median over ``samples`` of the mean device time of ``reps``
+    back-to-back calls between two CUDA events, after a warm-up."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------- kernels
+
+def chunk_qpos(t):
+    """Per-lane positions [8, 8] mixing the row kinds the serving step
+    sees: decode rows (one live lane), full 8-lane prompt chunks, a
+    ragged chunk tail (clamped lanes repeat the last live position), a
+    row ending at T-1 and a free row at 0."""
+    rows = [[100] * 8,                                   # decode row
+            list(range(0, 8)),                           # first chunk
+            list(range(40, 48)),                         # full chunk
+            [120, 121, 122, 123, 124, 124, 124, 124],    # ragged tail
+            [t - 1] * 8,                                 # decode at T-1
+            [0] * 8,                                     # free row at 0
+            list(range(t - 8, t)),                       # chunk to T-1
+            [17] * 8]                                    # decode row
+    return np.asarray(rows, np.int32)
+
+
+def check_decode_kernel(torch, dev, rng, hkv):
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    s, kk, t, d, h = 8, CHUNK, SERVE_MAX_LEN, D_MODEL, HEADS
+    dkv = d // h * hkv
+    q = torch.tensor(normal(rng, (s, kk, d)), device=dev)
+    k = torch.tensor(normal(rng, (s, t, dkv)),
+                     device=dev)
+    v = torch.tensor(normal(rng, (s, t, dkv)),
+                     device=dev)
+    qpos_np = chunk_qpos(t)
+    qpos = torch.tensor(qpos_np, device=dev)
+    out = dk.decode_attention_slab_chunk(q, k, v, qpos, h)
+    ref = dk.decode_attention_slab_chunk_plain(q, k, v, qpos, h)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    decode_rows = qpos_np[:, -1] == qpos_np[:, 0]
+    zeros_ok = bool((out[torch.tensor(decode_rows, device=dev), 1:] == 0)
+                    .all())
+    if not err <= KERNEL_TOL or not zeros_ok:
+        fail(f"decode_attention_slab_chunk (Hkv={hkv}) disagrees with its "
+             f"plain version: max abs err {err} (bound {KERNEL_TOL}), "
+             f"decode-row dead lanes exact zero: {zeros_ok}")
+    row = {"name": dk.NAME, "hkv": hkv, "max_abs_err": err}
+    if hkv != h:
+        return row
+    # this run's work: each row streams K and V up to its furthest lane;
+    # a decode row reads q and computes for lane 0 only (its other lanes
+    # are written as zeros), every other row all K lanes
+    dh = d // h
+    span = qpos_np[:, -1].astype(np.int64) + 1
+    live = np.where(decode_rows[:, None], np.arange(kk)[None] == 0, True)
+    nbytes = (4 * (s * kk * d + int(live.sum()) * d + s * kk)
+              + 4 * 2 * int(span.sum()) * dkv)
+    flops = 4 * dh * h * int(((qpos_np + 1) * live).sum())
+    mask = (torch.arange(t, device=dev)[None, None, :]
+            <= qpos.long()[:, :, None])[:, None]
+    qh = q.reshape(s, kk, h, dh).transpose(1, 2).contiguous()
+    kh = k.reshape(s, t, h, dh).transpose(1, 2).contiguous()
+    vh = v.reshape(s, t, h, dh).transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row.update(
+        shape={"S": s, "K": kk, "T": t, "D": d, "H": h, "Hkv": hkv},
+        ms=time_ms(torch, lambda: dk.decode_attention_slab_chunk(
+            q, k, v, qpos, h)),
+        plain_ms=time_ms(torch, lambda: dk.decode_attention_slab_chunk_plain(
+            q, k, v, qpos, h)),
+        library_ms=time_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask)),
+        bytes=nbytes, flops=flops)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    return row
+
+
+def check_flash_kernel(torch, dev, rng, b, t, timed):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    h, dh = HEADS, D_MODEL // HEADS
+    q, k, v = (torch.tensor(normal(rng, (b, h, t, dh)),
+                            device=dev) for _ in range(3))
+    o, lse = fk.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = fk.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max(float((o - o_ref).abs().max()),
+              float((lse - lse_ref).abs().max()))
+    if not err <= KERNEL_TOL:
+        fail(f"flash_attention (B={b}, T={t}) disagrees with its plain "
+             f"version: max abs err {err} (bound {KERNEL_TOL})")
+    row = {"name": fk.NAME, "T": t, "max_abs_err": err}
+    if not timed:
+        return row
+    nbytes = 4 * (4 * b * h * t * dh + b * h * t)
+    flops = 4 * dh * b * h * (t * (t + 1) // 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row.update(
+        shape={"B": b, "H": h, "T": t, "dh": dh, "causal": True},
+        ms=time_ms(torch, lambda: fk.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(torch, lambda: fk.flash_attention_plain(
+            q, k, v, causal=True)),
+        library_ms=time_ms(torch, lambda: sdpa(q, k, v, is_causal=True)),
+        bytes=nbytes, flops=flops)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    return row
+
+
+def check_head_dims(torch, dev, rng):
+    """Both kernels at every other head dim they take (16, 32, 128), on
+    small ragged shapes: GQA, K = 5 lanes over T = 77 for kernel A;
+    causal T = 45 and non-causal Tq = 19, Tk = 45 for kernel B."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    errs = {}
+    for dh in (16, 32, 128):
+        h, hkv, kk, t = 4, 2, 5, 77
+        q = torch.tensor(normal(rng, (3, kk, h * dh)), device=dev)
+        k = torch.tensor(normal(rng, (3, t, hkv * dh)), device=dev)
+        v = torch.tensor(normal(rng, (3, t, hkv * dh)), device=dev)
+        live = np.asarray([1, 5, 3])
+        start = np.asarray([40, 0, t - 3])
+        qpos = torch.tensor(start[:, None] + np.minimum(
+            np.arange(kk)[None], live[:, None] - 1), dtype=torch.int32,
+            device=dev)
+        a = dk.decode_attention_slab_chunk(q, k, v, qpos, h)
+        errs[f"decode_attention_slab_chunk/dh{dh}"] = float(
+            (a - dk.decode_attention_slab_chunk_plain(q, k, v, qpos, h))
+            .abs().max())
+        for causal, tq in ((True, 45), (False, 19)):
+            q = torch.tensor(normal(rng, (1, 2, tq, dh)), device=dev)
+            k = torch.tensor(normal(rng, (1, 2, 45, dh)), device=dev)
+            v = torch.tensor(normal(rng, (1, 2, 45, dh)), device=dev)
+            o, lse = fk.flash_attention_fwd(q, k, v, causal=causal)
+            o_ref, lse_ref = fk.flash_attention_plain(q, k, v, causal=causal)
+            errs[f"flash_attention/dh{dh}/causal{int(causal)}"] = max(
+                float((o - o_ref).abs().max()),
+                float((lse - lse_ref).abs().max()))
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in errs.items() if not e <= KERNEL_TOL}
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad} (bound "
+             f"{KERNEL_TOL})")
+    return errs
+
+
+# ------------------------------------------------------------- paths
+
+def margins(torch, transformer, params, ids):
+    """Top-1 minus top-2 logit at every position of ``ids`` [B, T]
+    (teacher-forced: one prefill over the whole sequence)."""
+    hidden, _ = transformer.lm_prefill(params, ids, ids.shape[1],
+                                       num_heads=HEADS)
+    top2 = torch.topk(transformer._lm_project(params, hidden), 2, dim=-1)
+    return (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
+
+
+def compare(got, ref, margin):
+    """Tokens compared (up to the first position whose reference margin
+    is below MARGIN_TOL) and whether they all match."""
+    n = 0
+    for g, r, m in zip(got, ref, margin):
+        if m < MARGIN_TOL:
+            break
+        if g != r:
+            return n, False
+        n += 1
+    return n, True
+
+
+def run_generate(torch, dev, transformer, kernels, params, rng):
+    prompt = rng.randint(3, VOCAB, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    transformer.lm_generate(params, prompt[:2], GEN_PROMPT + 4, HEADS)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids = transformer.lm_generate(params, prompt, GEN_MAX_LEN, HEADS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"flash_attention": kernels.flash_attention.launches,
+                "decode_attention_slab_chunk":
+                    kernels.decode_attention.launches}
+    if launches["flash_attention"] != LAYERS:
+        fail(f"lm_generate launched flash_attention "
+             f"{launches['flash_attention']} times, want {LAYERS} (one "
+             "prefill)")
+    ids_np = ids.cpu().numpy()
+    if ids_np.shape != (GEN_BATCH, GEN_MAX_LEN) \
+            or not (ids_np[:, :GEN_PROMPT] == prompt).all() \
+            or ids_np.min() < 0 or ids_np.max() >= VOCAB:
+        fail("lm_generate output is malformed")
+    # two rows against the same call on the CPU, where every kernel
+    # takes its plain version
+    cpu_params = transformer.tree_map(lambda x: x.cpu(), params)
+    ref = transformer.lm_generate(cpu_params, prompt[:2], GEN_MAX_LEN,
+                                  HEADS)
+    marg = margins(torch, transformer, cpu_params, ref)
+    ref_np = ref.numpy()
+    checked = 0
+    for r in range(2):
+        n, ok = compare(ids_np[r, GEN_PROMPT:], ref_np[r, GEN_PROMPT:],
+                        marg[r, GEN_PROMPT - 1:])
+        if not ok:
+            fail(f"lm_generate row {r}: card and CPU disagree within the "
+                 f"first {n + 1} tokens above margin {MARGIN_TOL}")
+        checked += n
+    out = {"phase": "generate", "batch": GEN_BATCH, "prompt": GEN_PROMPT,
+           "max_len": GEN_MAX_LEN, "seconds": dt,
+           "emitted_tokens_per_s": GEN_BATCH * (GEN_MAX_LEN - GEN_PROMPT)
+           / dt,
+           "launches": launches, "cpu_tokens_checked": checked,
+           "cpu_tokens_total": 2 * (GEN_MAX_LEN - GEN_PROMPT)}
+    emit(out)
+    return launches
+
+
+def run_serve(torch, dev, transformer, kernels, params, rng):
+    from paddle_tpu_torch.serving import (DecodeEngine, GenerationBatcher,
+                                          make_server)
+    engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                          max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                          name="base_lm", device=dev)
+    gen = GenerationBatcher(engine, default_max_tokens=32)
+    httpd = make_server(gen, port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.port}/v1/generate"
+    n_req, n_tok = 12, 32
+    lengths = np.linspace(3, 120, n_req).astype(int)
+    prompts = [rng.randint(3, VOCAB, n).tolist() for n in lengths]
+    results, gaps, errors = [None] * n_req, [], []
+
+    def client(i):
+        time.sleep(0.03 * i)       # staggered: admissions land mid-decode
+        body = {"prompt": prompts[i], "max_tokens": n_tok,
+                "stream": i % 3 == 0}
+        req = urllib.request.Request(base, data=json.dumps(body).encode(),
+                                     headers={"Content-Type":
+                                              "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if not body["stream"]:
+                    results[i] = (r.status, json.loads(r.read())["tokens"])
+                    return
+                toks, stamps = [], []
+                for line in r:
+                    rec = json.loads(line)
+                    if "token" in rec:
+                        toks.append(rec["token"])
+                        stamps.append(time.perf_counter())
+                    elif rec.get("done"):
+                        results[i] = (r.status, toks)
+                gaps.extend(np.diff(stamps).tolist())
+        except Exception as e:    # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    kernels.reset_launches()
+    steps0 = engine.metrics.decode_steps_total
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_req)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"flash_attention": kernels.flash_attention.launches,
+                "decode_attention_slab_chunk":
+                    kernels.decode_attention.launches}
+    steps = engine.metrics.decode_steps_total - steps0
+    snap = engine.metrics.snapshot()
+    httpd.shutdown()
+    httpd.server_close()
+    gen.close()
+    server.join(30)
+    if errors or any(r is None or r[0] != 200 or len(r[1]) != n_tok
+                     for r in results):
+        fail(f"serve: not every request completed with 200 and {n_tok} "
+             f"tokens: {errors or results}")
+    if launches["decode_attention_slab_chunk"] != LAYERS * steps:
+        fail(f"serve: chunk kernel launched "
+             f"{launches['decode_attention_slab_chunk']} times over {steps} "
+             f"steps, want {LAYERS * steps}")
+    checked = 0
+    for i, (_, toks) in enumerate(results):
+        p = np.asarray([prompts[i]], np.int32)
+        ref = transformer.lm_generate(params, p, p.shape[1] + n_tok, HEADS)
+        marg = margins(torch, transformer, params, ref)[0]
+        n, ok = compare(toks, ref[0, p.shape[1]:].tolist(),
+                        marg[p.shape[1] - 1:])
+        if not ok:
+            fail(f"serve: request {i} (prompt {p.shape[1]}) disagrees with "
+                 f"lm_generate within its first {n + 1} tokens above margin "
+                 f"{MARGIN_TOL}")
+        checked += n
+    emit({"phase": "serve", "requests": n_req, "max_tokens": n_tok,
+          "prompt_lengths": lengths.tolist(), "seconds": dt,
+          "steps": steps, "launches": launches,
+          "tokens_per_s": n_req * n_tok / dt,
+          "stream_inter_token_ms": {
+              "p50": float(np.percentile(gaps, 50)) * 1e3,
+              "p99": float(np.percentile(gaps, 99)) * 1e3},
+          "step_ms": snap["tpot_ms"], "ttft_ms": snap["ttft_ms"],
+          "tokens_checked_vs_lm_generate": checked,
+          "tokens_total": n_req * n_tok,
+          "note": "tokens compared up to each stream's first reference "
+                  f"top-1/top-2 margin below {MARGIN_TOL} (random weights "
+                  "give small margins)"})
+    return launches
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    from paddle_tpu_torch import device as _device
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels
+    dev = _device.resolve("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "kind": kind, "count":
+          torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    libs = kernels.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": sorted(libs)})
+
+    rng = np.random.RandomState(args.seed)
+    chunk = check_decode_kernel(torch, dev, rng, hkv=HEADS)
+    chunk_gqa = check_decode_kernel(torch, dev, rng, hkv=2)
+    flash = check_flash_kernel(torch, dev, rng, GEN_BATCH, GEN_PROMPT,
+                               timed=True)
+    flash_ragged = check_flash_kernel(torch, dev, rng, 4, 200, timed=False)
+    emit({"phase": "kernels", "tolerance": KERNEL_TOL,
+          "checks": [chunk, chunk_gqa, flash, flash_ragged],
+          "other_head_dims": check_head_dims(torch, dev, rng)})
+
+    params = transformer.init_lm(
+        torch.Generator().manual_seed(args.seed), VOCAB, D_MODEL, HEADS,
+        DFF, LAYERS, SERVE_MAX_LEN, device=dev)
+    gen_launches = run_generate(torch, dev, transformer, kernels, params,
+                                rng)
+    serve_launches = run_serve(torch, dev, transformer, kernels, params,
+                               rng)
+
+    summary = []
+    for row, mod, launches in (
+            (chunk, kernels.decode_attention,
+             serve_launches["decode_attention_slab_chunk"]),
+            (flash, kernels.flash_attention,
+             gen_launches["flash_attention"])):
+        summary.append({
+            "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    emit({"kernels": summary})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,191 @@
+// Chunked slab decode attention for Hopper (sm_90a), float32.
+//
+// Replaces: paddle_tpu/ops/pallas/decode_attention.py ::
+//   decode_attention_slab_chunk (pallas_call at :605; body _chunk_kernel
+//   :315 and _accumulate :187) -- the attention of the default serving
+//   step, lm_decode_chunk_slots.
+//
+// Computes: q [S, K, D] (K query lanes per slot row), k/v [S, T, Dkv]
+//   (the row's slab stripe, already holding this step's writes), qpos
+//   [S, K] int32 -> out [S, K, D].  Lane i of row r attends columns
+//   <= qpos[r, i] with a masked online softmax (masked scores sit at
+//   -1e30, whose exp is exactly 0), finalized as acc / max(l, 1e-30).
+//   GQA: query head h reads KV head h / (H / Hkv).  Decode-row fast
+//   path: when qpos[r, K-1] == qpos[r, 0] the row has one live lane;
+//   only lane 0 is computed and lanes 1..K-1 are written as exact zeros.
+//
+// Bound on this card: bytes.  Each (row, KV head) stripe of K and V is
+//   read from device memory once, up to the row's furthest lane; the
+//   work per byte is a few FLOPs, far below the H100's ~20 FLOP/byte
+//   float32 ridge.
+//
+// Design: one CTA per (row r, KV head g, group of 8 query vectors), 8
+//   warps, one query vector (lane i, head h) per warp.  Hopper runs CTAs
+//   in no order, so the TPU kernel's sequential (S, T/blk) grid with
+//   scratch carried across steps becomes a loop inside the CTA over
+//   32-row K/V tiles of the head's dh-column stripe, from column 0 to the
+//   CTA's furthest live lane (the clamp).  Tiles are loaded with
+//   coalesced 16-byte loads into shared memory (row stride dh + 1, so the
+//   per-lane score reads are bank-conflict free) and shared by all
+//   warps.  Within a tile, lane c of a warp scores column t0 + c; the
+//   running max / sum live in registers, the accumulator is spread over
+//   the lanes (dh / 32 values each).  Every query vector of the row's
+//   group shares the K/V tile, so GQA costs no widened K/V.  A tile past
+//   a warp's own position is skipped: on the TPU that visit is a
+//   bit-exact no-op (every score masked, alpha = 1).
+//   Later work (ROADMAP): split-KV for the small main-path grid, TMA
+//   loads, and a tensor-core product.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kTile = 32;
+constexpr float kNeg = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWarps * 32)
+chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ qpos,
+             float* __restrict__ out, int K, int T, int H, int Hkv,
+             float scale) {
+  constexpr int kPerLane = (DH + 31) / 32;   // accumulator values per lane
+  constexpr int kLd = DH + 1;                // padded shared row stride
+  constexpr int kVec = DH / 4;               // float4s per K/V row
+  __shared__ float ks[kTile * kLd];
+  __shared__ float vs[kTile * kLd];
+  __shared__ float qs[kWarps][DH];
+  __shared__ int s_hi;
+
+  const int r = blockIdx.x;
+  const int g = blockIdx.y;
+  const int group = H / Hkv;
+  const int nq = K * group;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.z * kWarps + warp;   // query vector of this warp
+  const int D = H * DH;
+  const int Dkv = Hkv * DH;
+  const int* pos_row = qpos + (size_t)r * K;
+  const bool decode_row = pos_row[K - 1] == pos_row[0];
+  const int i = j / group;                    // query lane
+  const int h = g * group + j % group;        // query head
+  const bool live = j < nq && (!decode_row || i == 0);
+  const int pos = live ? pos_row[i] : -1;
+
+  if (threadIdx.x == 0) s_hi = -1;
+  __syncthreads();
+  if (live && lane == 0) atomicMax(&s_hi, pos);
+  if (live) {
+    const float* qrow = q + ((size_t)r * K + i) * D + (size_t)h * DH;
+    for (int d = lane; d < DH; d += 32) qs[warp][d] = qrow[d];
+  }
+  __syncthreads();
+  const int hi = min(s_hi, T - 1);            // the clamp
+
+  const float* kb = k + (size_t)r * T * Dkv + (size_t)g * DH;
+  const float* vb = v + (size_t)r * T * Dkv + (size_t)g * DH;
+  float m = kNeg, l = 0.f;
+  float acc[kPerLane];
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) acc[u] = 0.f;
+
+  for (int t0 = 0; t0 <= hi; t0 += kTile) {
+    for (int e = threadIdx.x; e < kTile * kVec; e += kWarps * 32) {
+      const int row = e / kVec, c = (e % kVec) * 4, t = t0 + row;
+      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
+      if (t < T) {
+        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)t * Dkv + c);
+        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)t * Dkv + c);
+      }
+      float* kd = ks + row * kLd + c;
+      float* vd = vs + row * kLd + c;
+      kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
+      vd[0] = vv4.x; vd[1] = vv4.y; vd[2] = vv4.z; vd[3] = vv4.w;
+    }
+    __syncthreads();
+    if (live && t0 <= pos) {
+      const float* kr = ks + lane * kLd;
+      float s = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) s = fmaf(qs[warp][d], kr[d], s);
+      s *= scale;
+      if (t0 + lane > pos) s = kNeg;
+      const float m_new = fmaxf(m, warp_max(s));
+      const float p = expf(s - m_new);
+      const float alpha = expf(m - m_new);
+      l = l * alpha + warp_sum(p);
+      m = m_new;
+#pragma unroll
+      for (int u = 0; u < kPerLane; ++u) acc[u] *= alpha;
+#pragma unroll 8
+      for (int c = 0; c < kTile; ++c) {
+        const float pc = __shfl_sync(kFull, p, c);
+#pragma unroll
+        for (int u = 0; u < kPerLane; ++u) {
+          const int d = lane + 32 * u;
+          if (d < DH) acc[u] = fmaf(pc, vs[c * kLd + d], acc[u]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (j < nq) {
+    float* o = out + ((size_t)r * K + i) * D + (size_t)h * DH;
+    const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) {
+      const int d = lane + 32 * u;
+      if (d < DH) o[d] = live ? acc[u] / den : 0.f;
+    }
+  }
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int decode_attention_slab_chunk_f32(
+    const float* q, const float* k, const float* v, const int* qpos,
+    float* out, int S, int K, int T, int H, int Hkv, int dh, float scale,
+    void* stream) {
+  const int nq = K * (H / Hkv);
+  const dim3 grid(S, Hkv, (nq + kWarps - 1) / kWarps);
+  const dim3 block(kWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16:
+      chunk_kernel<16><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
+                                               Hkv, scale);
+      break;
+    case 32:
+      chunk_kernel<32><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
+                                               Hkv, scale);
+      break;
+    case 64:
+      chunk_kernel<64><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
+                                               Hkv, scale);
+      break;
+    case 128:
+      chunk_kernel<128><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
+                                                Hkv, scale);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

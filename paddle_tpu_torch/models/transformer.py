@@ -1,0 +1,507 @@
+"""Decoder-only LM trunk — the LM half of ``paddle_tpu/models/transformer.py``.
+
+Pre-LN blocks over a tied token embedding, learned or rotary positions,
+grouped-query attention carried by the weight shapes (``wk``/``wv``
+project to ``num_kv_heads * head_dim``).  Parameters are a nested dict of
+tensors with the JAX pytree's keys, so carrying JAX weights over is a
+mapping (``params_from_numpy``):
+
+    {"src_emb": [V, d], "pos": [max_len, d] (learned only),
+     "enc": [{"ln1": {"g", "b"}, "attn": {"wq", "wk", "wv", "wo"},
+              "ln2": {"g", "b"}, "ffn": {"w1", "b1", "w2", "b2"}}, ...],
+     "ln_f": {"g", "b"}}
+
+Weights are ``[in, out]``.  Where the JAX functions return a new KV cache
+(and the engine donated the old one), these write the cache in place and
+return the same list.  Two attention kernels carry this file:
+``decode_attention_slab_chunk`` in the chunked serving step and
+``flash_attention`` in the prefill's batched causal pass; both dispatch
+on the device of the tensors they are handed.
+
+Not ported in this slice (ROADMAP): MoE blocks, int8 weights and KV,
+the seq2seq encoder-decoder, the paged layout and tensor-parallel
+``shard_axis``.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.ops import attention as attn_ops
+from paddle_tpu_torch.ops import embedding as emb_ops
+from paddle_tpu_torch.ops import linear
+from paddle_tpu_torch.ops.kernels import decode_attention as _decode_kernel
+from paddle_tpu_torch.ops.kernels import flash_attention as _flash_kernel
+from paddle_tpu_torch.ops.norm import layer_norm
+from paddle_tpu_torch.quant.weights import (is_quantized_tree as _quantized,
+                                            maybe_dequant as _maybe_dequant,
+                                            weight_shape as _w_shape)
+
+_ROADMAP = "not yet ported to paddle_tpu_torch (ROADMAP)"
+
+
+# ------------------------------------------------------------- params
+
+def _dense(gen, din, dout, scale=None):
+    s = scale or (1.0 / math.sqrt(din))
+    return s * torch.randn((din, dout), generator=gen, device=gen.device)
+
+
+def _norm(d, dev):
+    return {"g": torch.ones(d, device=dev), "b": torch.zeros(d, device=dev)}
+
+
+def init_lm(generator, vocab, d_model, num_heads, dff, layers, max_len,
+            num_kv_heads=None, pos_type="learned", device=None):
+    """Random decoder-only trunk drawn from ``generator`` (the port's own
+    init — it does not reproduce JAX's random bits).  Normal weights
+    scaled 1/sqrt(fan_in), embedding and learned positions at 0.02, layer
+    norms at (1, 0), biases 0 — the JAX ``init`` scheme with
+    ``dec_layers=0``."""
+    dev = _device.resolve(device)
+    if pos_type not in ("learned", "rope"):
+        raise ValueError(f"pos_type must be 'learned' or 'rope', got "
+                         f"{pos_type!r}")
+    if d_model % num_heads:
+        raise ValueError(f"num_heads={num_heads} does not divide "
+                         f"d_model={d_model}")
+    d_kv = d_model
+    if num_kv_heads is not None:
+        if num_heads % num_kv_heads:
+            raise ValueError(f"num_heads={num_heads} not divisible by "
+                             f"num_kv_heads={num_kv_heads}")
+        d_kv = (d_model // num_heads) * num_kv_heads
+    gen = generator
+    params = {"src_emb": _dense(gen, vocab, d_model, scale=0.02)}
+    if pos_type == "learned":
+        params["pos"] = 0.02 * torch.randn((max_len, d_model), generator=gen,
+                                           device=gen.device)
+    params["enc"] = [{
+        "ln1": _norm(d_model, gen.device),
+        "attn": {"wq": _dense(gen, d_model, d_model),
+                 "wk": _dense(gen, d_model, d_kv),
+                 "wv": _dense(gen, d_model, d_kv),
+                 "wo": _dense(gen, d_model, d_model)},
+        "ln2": _norm(d_model, gen.device),
+        "ffn": {"w1": _dense(gen, d_model, dff),
+                "b1": torch.zeros(dff, device=gen.device),
+                "w2": _dense(gen, dff, d_model),
+                "b2": torch.zeros(d_model, device=gen.device)},
+    } for _ in range(layers)]
+    params["ln_f"] = _norm(d_model, gen.device)
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a param or cache tree (nested
+    dicts and lists), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_numpy(tree, device=None):
+    """The JAX LM param tree as numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, params)``) -> the port's dict,
+    same keys and ``[in, out]`` layout, float32 on ``device``.  The JAX
+    tree's unused ``trg_emb``/``out`` leaves and empty ``dec`` list are
+    dropped; ``dec`` layers, ``moe`` blocks and int8 leaves raise."""
+    dev = _device.resolve(device)
+    if tree.get("dec"):
+        raise ValueError("params_from_numpy takes the decoder-only LM trunk "
+                         "(init dec_layers=0); this tree has a seq2seq "
+                         "decoder stack")
+    if _quantized(tree):
+        raise NotImplementedError(f"int8 weight trees are {_ROADMAP}")
+    for i, blk in enumerate(tree["enc"]):
+        if "moe" in blk:
+            raise NotImplementedError(f"enc[{i}] is a MoE block; MoE is "
+                                      f"{_ROADMAP}")
+    keep = {"src_emb": tree["src_emb"], "enc": [
+        {k: blk[k] for k in ("ln1", "attn", "ln2", "ffn")}
+        for blk in tree["enc"]], "ln_f": tree["ln_f"]}
+    if "pos" in tree:
+        keep["pos"] = tree["pos"]
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+                                       device=dev), keep)
+
+
+# ------------------------------------------------------------- blocks
+
+def _ln(p, x):
+    return layer_norm(x, p["g"], p["b"])
+
+
+def _ffn(blk, x):
+    h = torch.relu(linear.matmul(x, blk["w1"]) + blk["b1"])
+    return linear.matmul(h, blk["w2"]) + blk["b2"]
+
+
+def _block_ffn(blk, h):
+    """The block's dense FFN (a MoE block raises)."""
+    if "moe" in blk:
+        raise NotImplementedError(f"MoE blocks are {_ROADMAP}")
+    return _ffn(blk["ffn"], h)
+
+
+def _lm_project(params, h):
+    """Final LN + tied-embedding projection -> logits [..., V]."""
+    return linear.matmul(_ln(params["ln_f"], h), params["src_emb"].T)
+
+
+def _lm_embed(params, ids):
+    return emb_ops.embedding_lookup(params["src_emb"], ids)
+
+
+def _attend(q, k, v, num_heads, mask):
+    """q [B, Tq, D] against k/v [B, T, Dkv] under mask [B, T] (shared by
+    every query lane) or [B, Tq, T] (per lane) -> [B, Tq, D]: the masked
+    plain path; grouped KV heads are repeated up to full heads here."""
+    b, tq, d = q.shape
+    tk, dkv = k.shape[1], k.shape[2]
+    dh = d // num_heads
+    hkv = dkv // dh
+    qh = q.reshape(b, tq, num_heads, dh).transpose(1, 2)
+    kh = attn_ops.repeat_kv_heads(k.reshape(b, tk, hkv, dh).transpose(1, 2),
+                                  num_heads)
+    vh = attn_ops.repeat_kv_heads(v.reshape(b, tk, hkv, dh).transpose(1, 2),
+                                  num_heads)
+    mh = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
+    out = attn_ops.dot_product_attention(qh, kh, vh, mask=mh)
+    return out.transpose(1, 2).reshape(b, tq, d)
+
+
+def _rope_flat(x_btd, positions, head_dim):
+    """Rope on a flat [B, T, H*head_dim] projection (cached K is stored
+    rotated)."""
+    b, t, d = x_btd.shape
+    xh = x_btd.reshape(b, t, d // head_dim, head_dim).transpose(1, 2)
+    xh = attn_ops.rope(xh, positions)
+    return xh.transpose(1, 2).reshape(b, t, d)
+
+
+# ------------------------------------------------------------- KV cache
+
+def _kv_writes(c, k_new, v_new):
+    """The float path of the quantize-on-write decision: K/V pass through
+    (scales None).  An int8 cache raises."""
+    if "ks" in c:
+        raise NotImplementedError(f"int8 KV caches are {_ROADMAP}")
+    return k_new, v_new, None, None
+
+
+def _kv_view(k, ks):
+    """The matching read: identity on the float path."""
+    if ks is not None:
+        raise NotImplementedError(f"int8 KV caches are {_ROADMAP}")
+    return k
+
+
+def _kv_commit(c, upd, k_set, v_set, sk, sv):
+    """Apply the K/V writes through ``upd(buffer, value)``, which writes
+    in place (the JAX callers donate the cache).  Returns ``(c, None,
+    None)`` — the cache and the float path's absent scales."""
+    if sk is not None or sv is not None:
+        raise NotImplementedError(f"int8 KV caches are {_ROADMAP}")
+    upd(c["k"], k_set)
+    upd(c["v"], v_set)
+    return c, None, None
+
+
+def _kv_layer_buffers(params, lead_shape, kv_dtype):
+    if kv_dtype == "int8":
+        raise NotImplementedError(f"kv_dtype='int8' is {_ROADMAP}")
+    if kv_dtype not in (None, "float32"):
+        raise ValueError(f"kv_dtype={kv_dtype!r} (supported: 'float32', "
+                         "'int8')")
+    emb = params["src_emb"]
+    return [{"k": torch.zeros(lead_shape + (_w_shape(blk["attn"]["wk"])[1],),
+                              dtype=emb.dtype, device=emb.device),
+             "v": torch.zeros(lead_shape + (_w_shape(blk["attn"]["wv"])[1],),
+                              dtype=emb.dtype, device=emb.device)}
+            for blk in params["enc"]]
+
+
+def init_lm_cache(params, batch, max_len, kv_dtype=None, num_heads=None):
+    """Per-layer K/V buffers ``{"k", "v"}`` of [batch, max_len, Dkv] on
+    the params' device (Dkv from each block's ``wk``/``wv``, so a GQA
+    trunk gets the smaller cache).  A learned positional table caps
+    ``max_len``."""
+    del num_heads     # sizes the int8 scale sidecars only
+    if "pos" in params and max_len > _w_shape(params["pos"])[0]:
+        raise ValueError(
+            f"lm decode max_len {max_len} exceeds the positional table "
+            f"({_w_shape(params['pos'])[0]}); re-init with a larger max_len "
+            "or use pos_type='rope'")
+    return _kv_layer_buffers(params, (batch, max_len), kv_dtype)
+
+
+def _check_pos_type(params, pos_type):
+    if (pos_type == "learned") != ("pos" in params):
+        raise ValueError(
+            f"pos_type={pos_type!r} but params were initialized "
+            f"{'with' if 'pos' in params else 'without'} a learned "
+            "positional table — pass the SAME pos_type used at init")
+
+
+def _ids(x, dev):
+    """Token ids / positions as an int32 tensor on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.int32)
+    return torch.tensor(np.asarray(x), dtype=torch.int32, device=dev)
+
+
+# ------------------------------------------------------------- prefill
+
+def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
+               pos_type="learned", kv_dtype=None):
+    """Batched causal pass over the whole prompt [B, Tp]: returns
+    (hidden states [B, Tp, D], cache) with every position's K/V written
+    into fresh [B, max_len, Dkv] buffers.  The attention is the
+    ``flash_attention`` kernel, causal, over GQA heads repeated to full
+    width first."""
+    del moe_top_k     # MoE blocks raise in _block_ffn
+    params = _maybe_dequant(params)
+    _check_pos_type(params, pos_type)
+    dev = params["src_emb"].device
+    prompt = _ids(prompt, dev)
+    b, tp = prompt.shape
+    cache = init_lm_cache(params, b, max_len, kv_dtype=kv_dtype)
+    x = _lm_embed(params, prompt)
+    x = x * math.sqrt(x.shape[-1])
+    if pos_type == "learned":
+        x = x + params["pos"][:tp][None]
+    arange = torch.arange(tp, device=dev)
+    for blk, c in zip(params["enc"], cache):
+        h = _ln(blk["ln1"], x)
+        k = linear.matmul(h, blk["attn"]["wk"])
+        v = linear.matmul(h, blk["attn"]["wv"])
+        q = linear.matmul(h, blk["attn"]["wq"])
+        d = q.shape[-1]
+        dh = d // num_heads
+        if pos_type == "rope":
+            k = _rope_flat(k, arange, dh)
+            q = _rope_flat(q, arange, dh)
+        hkv = k.shape[-1] // dh
+        k_set, v_set, sk, sv = _kv_writes(c, k, v)
+
+        def split(a, hh):
+            return a.reshape(b, tp, hh, dh).transpose(1, 2)
+
+        att = _flash_kernel.flash_attention(
+            split(q, num_heads).contiguous(),
+            attn_ops.repeat_kv_heads(split(k, hkv), num_heads).contiguous(),
+            attn_ops.repeat_kv_heads(split(v, hkv), num_heads).contiguous(),
+            causal=True)
+        att = att.transpose(1, 2).reshape(b, tp, d)
+        x = x + linear.matmul(att, blk["attn"]["wo"])
+        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+        _kv_commit(c, lambda buf, val: buf[:, :tp].copy_(val),
+                   k_set, v_set, sk, sv)
+    return x, cache
+
+
+# ------------------------------------------------------------- decode
+
+def _cached_self_attn(blk, x, c, t, pos_mask, num_heads, rope_pos=None):
+    """One position's self-attention over the cache: write this
+    position's K/V at ``t`` (in place), attend cols <= t, residual-add."""
+    h = _ln(blk["ln1"], x)
+    k_new = linear.matmul(h, blk["attn"]["wk"])
+    q = linear.matmul(h, blk["attn"]["wq"])
+    if rope_pos is not None:
+        dh = q.shape[-1] // num_heads
+        k_new = _rope_flat(k_new, rope_pos, dh)
+        q = _rope_flat(q, rope_pos, dh)
+    v_new = linear.matmul(h, blk["attn"]["wv"])
+    k_set, v_set, sk, sv = _kv_writes(c, k_new, v_new)
+    _kv_commit(c, lambda buf, val: buf[:, t:t + 1].copy_(val),
+               k_set, v_set, sk, sv)
+    att = _attend(q, _kv_view(c["k"], None), _kv_view(c["v"], None),
+                  num_heads, pos_mask)
+    return x + linear.matmul(att, blk["attn"]["wo"])
+
+
+def lm_decode_step(params, prev_ids, t, cache, num_heads=8, moe_top_k=2,
+                   pos_type="learned"):
+    """One incremental position for the whole batch at shared position
+    ``t`` (a Python int): prev_ids [B] -> (logits [B, V], cache), the
+    cache written in place.  The attention is the masked plain path, as
+    in the JAX package (no kernel)."""
+    del moe_top_k
+    params = _maybe_dequant(params)
+    dev = params["src_emb"].device
+    prev_ids = _ids(prev_ids, dev)
+    b = prev_ids.shape[0]
+    max_len = cache[0]["k"].shape[1]
+    x = _lm_embed(params, prev_ids)[:, None]
+    x = x * math.sqrt(x.shape[-1])
+    if pos_type == "learned":
+        x = x + params["pos"][t][None, None]
+    rope_pos = (torch.tensor([t], device=dev) if pos_type == "rope"
+                else None)
+    pos_mask = (torch.arange(max_len, device=dev) <= t)[None].expand(
+        b, max_len)
+    for blk, c in zip(params["enc"], cache):
+        x = _cached_self_attn(blk, x, c, t, pos_mask, num_heads, rope_pos)
+        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+    return _lm_project(params, x)[:, 0], cache
+
+
+def _chunk_lanes(positions, lengths, kk):
+    """(clamped lane indices [S, K], per-lane query positions [S, K]),
+    both int32.  Lanes past a row's ``lengths`` clamp to its LAST active
+    lane: they re-compute (and re-write) the last real token's K/V —
+    identical values at an identical target."""
+    lane = torch.arange(kk, device=positions.device,
+                        dtype=torch.int32)[None, :]
+    li = torch.minimum(lane, lengths[:, None] - 1)
+    return li, (positions[:, None] + li).contiguous()
+
+
+def _cached_self_attn_chunk(blk, x, c, li, qpos, num_heads, rope_pos=None):
+    """Self-attention for K lanes per row: lane i of row r writes its K/V
+    at ``qpos[r, i]`` (in place) and attends cols <= qpos[r, i] through
+    the ``decode_attention_slab_chunk`` kernel.  Writes happen before the
+    attention, so causality within the chunk falls out of the masked
+    cache read."""
+    s = x.shape[0]
+    h = _ln(blk["ln1"], x)
+    k_new = linear.matmul(h, blk["attn"]["wk"])
+    q = linear.matmul(h, blk["attn"]["wq"])
+    if rope_pos is not None:
+        dh = q.shape[-1] // num_heads
+        k_new = _rope_flat(k_new, rope_pos, dh)
+        q = _rope_flat(q, rope_pos, dh)
+    v_new = linear.matmul(h, blk["attn"]["wv"])
+    # clamped-lane selection: inactive lanes take the last active lane's
+    # values, so their duplicate-target writes are identical — the one
+    # reason the unordered duplicate scatter below is deterministic
+    sel = li.long()[:, :, None]
+    k_sel = torch.gather(k_new, 1, sel.expand(-1, -1, k_new.shape[-1]))
+    v_sel = torch.gather(v_new, 1, sel.expand(-1, -1, v_new.shape[-1]))
+    k_set, v_set, sk, sv = _kv_writes(c, k_sel, v_sel)
+    index = (torch.arange(s, device=x.device)[:, None], qpos.long())
+    _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
+               k_set, v_set, sk, sv)
+    att = _decode_kernel.decode_attention_slab_chunk(
+        q, _kv_view(c["k"], None), _kv_view(c["v"], None), qpos, num_heads)
+    return x + linear.matmul(att, blk["attn"]["wo"])
+
+
+def lm_decode_chunk_slots(params, tokens, positions, lengths, cache,
+                          num_heads=8, moe_top_k=2, pos_type="learned",
+                          all_lanes=False):
+    """Every slot row advances ``lengths[r]`` (1..K) positions in one
+    step: tokens [S, K] (lanes >= lengths[r] ignored), positions [S]
+    (lane 0's position), lengths [S]; cache as ``init_lm_cache``, written
+    in place -> (logits [S, V] at each row's last fed lane, cache).
+    ``all_lanes=True`` projects every lane -> logits [S, K, V]; lanes
+    past a row's ``lengths`` are not meaningful there (a decode row's
+    dead lanes attend to the kernel's zeros)."""
+    del moe_top_k
+    params = _maybe_dequant(params)
+    dev = params["src_emb"].device
+    tokens = _ids(tokens, dev)
+    positions = _ids(positions, dev)
+    lengths = _ids(lengths, dev)
+    s, kk = tokens.shape
+    li, qpos = _chunk_lanes(positions, lengths, kk)
+    x = _lm_embed(params, tokens)
+    x = x * math.sqrt(x.shape[-1])
+    if pos_type == "learned":
+        x = x + params["pos"][qpos.long()]
+    rope_pos = qpos if pos_type == "rope" else None
+    for blk, c in zip(params["enc"], cache):
+        x = _cached_self_attn_chunk(blk, x, c, li, qpos, num_heads,
+                                    rope_pos)
+        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+    if all_lanes:
+        return _lm_project(params, x), cache
+    h_last = x[torch.arange(s, device=dev), (lengths - 1).long()]
+    return _lm_project(params, h_last), cache
+
+
+# ------------------------------------------------------------- generate
+
+def lm_generate(params, prompt, max_len, num_heads=8, temperature=0.0,
+                top_k=0, generator=None, eos_id=None, prompt_lengths=None,
+                moe_top_k=2, pos_type="learned", kv_dtype=None):
+    """Autoregressive generation: prompt [B, Tp] ids -> ids [B, max_len]
+    (int32, on the params' device) beginning with each row's prompt.
+
+    ``prompt_lengths`` [B] makes the prompts ragged (rows padded to Tp;
+    the pad value never matters).  One ``lm_prefill`` consumes the
+    prompt; the per-token loop starts at the SHORTEST row's length and
+    re-feeds longer rows' remaining prompt tokens (their K/V rewrites
+    are identical).  ``temperature=0`` is greedy argmax; otherwise
+    categorical sampling over logits / temperature from ``generator``
+    (a ``torch.Generator`` on the params' device), optionally cut to
+    the ``top_k`` largest logits.  ``eos_id``: a row that GENERATES it
+    keeps emitting it."""
+    params = _maybe_dequant(params)
+    dev = params["src_emb"].device
+    prompt = _ids(prompt, dev)
+    b, tp = prompt.shape
+    if not 0 < tp <= max_len:
+        raise ValueError(f"prompt length {tp} must be in [1, {max_len}]")
+    if temperature and generator is None:
+        raise ValueError("temperature > 0 sampling needs generator="
+                         "torch.Generator(...)")
+    vocab = _w_shape(params["src_emb"])[0]
+    if top_k and not 0 < top_k <= vocab:
+        raise ValueError(f"top_k={top_k} must be in [1, vocab={vocab}]")
+    if prompt_lengths is None:
+        lengths_np = np.full((b,), tp, np.int32)
+    else:
+        lengths_np = np.asarray(prompt_lengths, np.int32).reshape(b)
+        if lengths_np.min() < 1 or lengths_np.max() > tp:
+            raise ValueError(
+                f"prompt_lengths must be in [1, {tp}] (got "
+                f"[{int(lengths_np.min())}, {int(lengths_np.max())}])")
+    t_start = int(lengths_np.min())
+    lengths = torch.as_tensor(lengths_np, device=dev)
+    rows = torch.arange(b, device=dev)
+
+    def sample(logits):
+        if not temperature:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        logits = logits / temperature
+        if top_k:
+            kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits < kth,
+                                 logits.new_tensor(float("-inf")), logits)
+        return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                 generator=generator)[:, 0].to(torch.int32)
+
+    hidden, cache = lm_prefill(params, prompt, max_len, num_heads,
+                               moe_top_k, pos_type, kv_dtype=kv_dtype)
+    # each row's first generated token comes from ITS last real position
+    # — gather before the d_model x vocab projection
+    first = sample(_lm_project(params, hidden[rows, (lengths - 1).long()]))
+    ids = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+    ids[:, :tp] = prompt
+    # a row whose prompt already fills max_len keeps its prompt value
+    seed_pos = torch.clamp(lengths, max=max_len - 1).long()
+    ids[rows, seed_pos] = torch.where(lengths < max_len, first,
+                                      ids[rows, seed_pos])
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    for t in range(t_start, max_len - 1):
+        # the token at t is generated for rows with lengths <= t, still
+        # prompt for longer rows (re-fed; identical K/V rewrite)
+        tok = ids[:, t]
+        logits, cache = lm_decode_step(params, tok, t, cache, num_heads,
+                                       moe_top_k, pos_type)
+        nxt = sample(logits)
+        if eos_id is not None:
+            # only a GENERATED eos pins a row
+            done = done | ((tok == eos_id) & (t >= lengths))
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+        # rows whose prompt extends past t keep their given token; the
+        # slot at a row's own length was seeded from the prefill logits
+        ids[:, t + 1] = torch.where(t + 1 <= lengths, ids[:, t + 1], nxt)
+    return ids

@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels (``csrc/*.cu``) and their wrappers.
+
+Each wrapper module holds the kernel's plain PyTorch version beside it
+and a plain integer ``launches`` that the wrapper bumps where it
+launches the kernel, and nowhere else.  Dispatch is by the device of the
+tensors handed in: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises — there is no fallback."""
+
+from paddle_tpu_torch.ops.kernels import decode_attention, flash_attention
+
+KERNELS = ("decode_attention", "flash_attention")
+
+
+def build():
+    """Build every kernel library now (one ``nvcc`` per source, all in
+    parallel); returns {name: library path}."""
+    from paddle_tpu_torch.ops.kernels import _build
+    return _build.build_all(KERNELS)
+
+
+def reset_launches():
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+
+
+__all__ = ["decode_attention", "flash_attention", "KERNELS", "build",
+           "reset_launches"]

@@ -1,0 +1,35 @@
+"""Argument checks shared by the kernel wrappers: the same checks run
+whichever device the tensors are on, so a call the card's kernel would
+refuse also fails on the CPU."""
+
+import torch
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def tensors(name, dtypes, **named):
+    """Every tensor on one device, of its dtype, contiguous, 16-byte
+    aligned (the kernels load float4s).  Returns the device."""
+    dev = None
+    for arg, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {arg} must be a torch.Tensor")
+        if t.dtype != dtypes[arg]:
+            raise TypeError(f"{name}: {arg} must be {dtypes[arg]}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {dev} (takes cpu or cuda)")
+    return dev
+
+
+def head_dim(name, dh):
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dh} not in {HEAD_DIMS}")

@@ -1,0 +1,109 @@
+"""Where the serving step's time goes on the card.
+
+    python -m paddle_tpu_torch.scripts.profile_step [--seed N] [--steps N]
+
+Builds the full-width Transformer-base trunk (vocab 32000, d_model 512,
+8 heads, dff 2048, 6 layers; random weights from --seed) behind the
+serving engine's step (8 slots, max_len 256, chunk K = 8) and runs the
+step on a fixed slot mix: six decode rows spread over the slab and two
+rows ingesting full 8-token prompt chunks.  Prints one JSON line with,
+per step: the host wall time (the step ends in its one host sync), the
+device time between two CUDA events around it, the device time the
+profiler attributes to kernels, the device's idle share (1 - kernel
+time / wall time), and the kernels with the most device time.  Needs a
+CUDA device.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.serving.server import BASE_LM
+from paddle_tpu_torch.serving.decode_engine import DecodeEngine
+
+SLOTS, MAX_LEN, CHUNK = 8, 256, 8
+
+
+def slot_mix():
+    """(tokens [S, K], positions [S], lengths [S]) for the fixed mix."""
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(3, BASE_LM["vocab"], (SLOTS, CHUNK)).astype(np.int32)
+    pos = np.asarray([40, 70, 100, 130, 160, 200, 16, 120], np.int32)
+    lens = np.asarray([1, 1, 1, 1, 1, 1, CHUNK, CHUNK], np.int32)
+    return tokens, pos, lens
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=50)
+    args = ap.parse_args(argv)
+    dev = _device.resolve("cuda")
+    params = transformer.init_lm(
+        torch.Generator().manual_seed(args.seed), BASE_LM["vocab"],
+        BASE_LM["d_model"], BASE_LM["num_heads"], BASE_LM["dff"],
+        BASE_LM["layers"], MAX_LEN, device=dev)
+    engine = DecodeEngine(params, num_heads=BASE_LM["num_heads"],
+                          num_slots=SLOTS, max_len=MAX_LEN,
+                          prefill_chunk=CHUNK, device=dev)
+    tokens, pos, lens = slot_mix()
+    for _ in range(10):
+        engine._run(tokens, pos, lens)
+
+    walls, device_ms = [], []
+    for _ in range(args.steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        engine._run(tokens, pos, lens)
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+
+    # device activity only: kernel times per name (the profiler's own
+    # host cost inflates the wall clock, so the idle share below is taken
+    # against the unprofiled step wall time)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            engine._run(tokens, pos, lens)
+    kernels = []
+    for evt in prof.key_averages():
+        t = evt.self_device_time_total
+        if t > 0 and getattr(evt, "device_type", None) \
+                == torch.autograd.DeviceType.CUDA:
+            kernels.append((t / 1e3 / args.steps, evt.count // args.steps,
+                            evt.key))
+    kernels.sort(reverse=True)
+    busy = sum(t for t, _, _ in kernels)
+    wall = float(np.median(walls))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({
+        "card": smi, "slots": SLOTS, "max_len": MAX_LEN, "chunk": CHUNK,
+        "mix": "6 decode rows + 2 rows of 8 prompt lanes",
+        "steps": args.steps,
+        "step_wall_ms": {"p50": wall,
+                         "p99": float(np.percentile(walls, 99))},
+        "step_event_ms_p50": float(np.median(device_ms)),
+        "kernel_ms_per_step": busy,
+        "kernel_launches_per_step": sum(n for _, n, _ in kernels),
+        "device_idle_share": 1.0 - busy / wall,
+        "top_kernels": [{"ms_per_step": t, "launches_per_step": n,
+                         "name": k[:80]} for t, n, k in kernels[:12]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,215 @@
+"""Live generation-serving metrics — the parts of ``paddle_tpu/serving/
+metrics.py::ServingMetrics`` that the port's engine, batcher and
+``/metrics`` use: request/response/rejection counters, TTFT, per-step
+time (TPOT), slot occupancy, chunked-prefill lanes and slot evictions.
+
+One instance is shared by the engine, the batcher and the HTTP front-end.
+``render_prometheus()`` is the ``/metrics`` text; ``snapshot()`` the same
+data as a dict."""
+
+import threading
+
+from paddle_tpu_torch.utils.stats import Histogram
+
+# submit() rejection reasons — keys are part of the /metrics surface
+REJECT_REASONS = ("overload", "deadline", "invalid", "shutdown")
+
+# decode-slot eviction reasons: eos = the model emitted the stop token,
+# length = max_tokens reached, error = the slot's request failed with its
+# step, shutdown = close(drain=False), abandoned = the caller went away
+EVICT_REASONS = ("eos", "length", "error", "shutdown", "abandoned")
+
+_QUANTILES = (50, 95, 99)
+
+
+class ServingMetrics:
+    """Thread-safe counters + latency histograms for one engine."""
+
+    def __init__(self, name="paddle_tpu_torch_serving", max_samples=100000):
+        self.name = name
+        self._lock = threading.Lock()
+        self.requests_total = 0          # accepted into the queue
+        self.responses_total = 0         # futures resolved with a result
+        self.errors_total = 0            # futures failed by a step error
+        self.rejected = {r: 0 for r in REJECT_REASONS}
+        # request wall latency submit -> future resolved (seconds)
+        self.latency = Histogram(f"{name}_latency", max_samples)
+        # time to first token: submit -> the request's first emission
+        self.ttft = Histogram(f"{name}_ttft", max_samples)
+        # one decode step's wall time — every active request emits at most
+        # one token per step, so this is the per-token latency of a stream
+        self.tpot = Histogram(f"{name}_tpot", max_samples)
+        self.gen_tokens_total = 0        # delivered tokens
+        self.decode_steps_total = 0
+        self.active_slot_steps_total = 0  # sum of active slots over steps
+        self.slot_count = 0              # gauge, set by the engine
+        self.prefill_chunks_total = 0    # chunks loaded into steps
+        self.prefill_chunk_lanes_total = 0  # teacher-forced lanes loaded
+        self.prefill_lane_steps_total = 0   # sum of per-step chunk lanes
+        self.prefill_chunk_size = 0      # gauge: engine K
+        self.evictions = {r: 0 for r in EVICT_REASONS}
+        # each batcher contributes a zero-arg callable -> its queue depth
+        self.queue_depth_fns = []
+
+    # ------------------------------------------------------------ record
+
+    def accepted(self):
+        with self._lock:
+            self.requests_total += 1
+
+    def reject(self, reason):
+        with self._lock:
+            self.rejected[reason] = self.rejected.get(reason, 0) + 1
+
+    def observe_response(self, latency_s):
+        with self._lock:
+            self.responses_total += 1
+            self.latency.add(latency_s)
+
+    def observe_error(self, n=1):
+        with self._lock:
+            self.errors_total += int(n)
+
+    def observe_ttft(self, seconds):
+        with self._lock:
+            self.ttft.add(seconds)
+
+    def observe_decode_step(self, n_active, n_slots, seconds,
+                            prefill_lanes=0):
+        """One slab step: n_active of n_slots held live requests;
+        prefill_lanes = teacher-forced lanes fed beyond each slot's own
+        token."""
+        with self._lock:
+            self.decode_steps_total += 1
+            self.active_slot_steps_total += int(n_active)
+            self.slot_count = int(n_slots)
+            self.prefill_lane_steps_total += int(prefill_lanes)
+            self.tpot.add(seconds)
+
+    def observe_prefill_chunk(self, lanes):
+        with self._lock:
+            self.prefill_chunks_total += 1
+            self.prefill_chunk_lanes_total += int(lanes)
+
+    def set_prefill_chunk(self, k):
+        with self._lock:
+            self.prefill_chunk_size = int(k)
+
+    def observe_gen_tokens(self, n=1):
+        with self._lock:
+            self.gen_tokens_total += int(n)
+
+    def evict_slot(self, reason):
+        with self._lock:
+            self.evictions[reason] = self.evictions.get(reason, 0) + 1
+
+    # ------------------------------------------------------------ derive
+
+    @property
+    def mean_slot_occupancy(self):
+        """Active slots per decode step."""
+        with self._lock:
+            return (self.active_slot_steps_total / self.decode_steps_total
+                    if self.decode_steps_total else 0.0)
+
+    @property
+    def mean_prefill_chunk_occupancy(self):
+        """Fraction of the per-step chunk-lane capacity (slots * (K - 1)
+        teacher-forced lanes) actually fed."""
+        with self._lock:
+            cap = (self.decode_steps_total * self.slot_count
+                   * max(0, self.prefill_chunk_size - 1))
+            return (self.prefill_lane_steps_total / cap) if cap else 0.0
+
+    def queue_depth(self):
+        return sum(int(fn()) for fn in list(self.queue_depth_fns))
+
+    def _percentiles_ms(self, hist):
+        with self._lock:
+            pct = hist.percentiles(_QUANTILES)
+        return {f"p{q}": v * 1e3 for q, v in pct.items()}
+
+    def snapshot(self):
+        """All metrics as one dict."""
+        with self._lock:
+            out = {
+                "requests_total": self.requests_total,
+                "responses_total": self.responses_total,
+                "errors_total": self.errors_total,
+                "rejected": dict(self.rejected),
+                "gen_tokens_total": self.gen_tokens_total,
+                "decode_steps_total": self.decode_steps_total,
+                "slot_count": self.slot_count,
+                "prefill_chunks_total": self.prefill_chunks_total,
+                "prefill_chunk_lanes_total": self.prefill_chunk_lanes_total,
+                "prefill_chunk_size": self.prefill_chunk_size,
+                "evictions": dict(self.evictions),
+            }
+        out["queue_depth"] = self.queue_depth()
+        out["mean_slot_occupancy"] = self.mean_slot_occupancy
+        out["mean_prefill_chunk_occupancy"] = \
+            self.mean_prefill_chunk_occupancy
+        out["latency_ms"] = self._percentiles_ms(self.latency)
+        out["ttft_ms"] = self._percentiles_ms(self.ttft)
+        out["tpot_ms"] = self._percentiles_ms(self.tpot)
+        return out
+
+    # ------------------------------------------------------------ render
+
+    def render_prometheus(self):
+        """Prometheus text exposition for the /metrics endpoint."""
+        n = self.name
+        snap = self.snapshot()
+        lines = []
+
+        def emit(metric, value, help_, mtype="gauge"):
+            lines.append(f"# HELP {n}_{metric} {help_}")
+            lines.append(f"# TYPE {n}_{metric} {mtype}")
+            lines.append(f"{n}_{metric} {value}")
+
+        for metric, help_ in (
+                ("requests_total", "requests accepted into the queue"),
+                ("responses_total", "requests answered with a result"),
+                ("errors_total", "requests failed by a step error"),
+                ("gen_tokens_total", "generated tokens delivered"),
+                ("decode_steps_total", "slab decode steps executed"),
+                ("prefill_chunks_total",
+                 "prompt chunks fed through the decode step"),
+                ("prefill_chunk_lanes_total",
+                 "teacher-forced chunk lanes fed through the decode step")):
+            emit(metric, snap[metric], help_, mtype="counter")
+        for label, counts, help_ in (
+                ("rejected_total", snap["rejected"],
+                 "requests rejected before the queue, by reason"),
+                ("slot_evictions_total", snap["evictions"],
+                 "decode slots evicted, by reason")):
+            lines.append(f"# HELP {n}_{label} {help_}")
+            lines.append(f"# TYPE {n}_{label} counter")
+            for reason in sorted(counts):
+                lines.append(f'{n}_{label}{{reason="{reason}"}} '
+                             f"{counts[reason]}")
+        emit("queue_depth", snap["queue_depth"], "requests waiting in queue")
+        emit("slot_count", snap["slot_count"], "decode slots in the slab")
+        emit("slot_occupancy_mean", f"{snap['mean_slot_occupancy']:.6f}",
+             "mean active slots per decode step")
+        emit("prefill_chunk_size", snap["prefill_chunk_size"],
+             "chunked-prefill lanes per step (K)")
+        emit("prefill_chunk_occupancy_mean",
+             f"{snap['mean_prefill_chunk_occupancy']:.6f}",
+             "fraction of per-step chunk-lane capacity fed")
+        for hist, metric, help_ in (
+                (self.latency, "latency_seconds",
+                 "request wall latency (submit to response)"),
+                (self.ttft, "ttft_seconds",
+                 "time to first token (submit to first token)"),
+                (self.tpot, "tpot_seconds",
+                 "per-output-token latency (one slab decode step)")):
+            with self._lock:
+                pct, count = hist.percentiles(_QUANTILES), hist.count
+            lines.append(f"# HELP {n}_{metric} {help_}, recent-window "
+                         "quantiles")
+            lines.append(f"# TYPE {n}_{metric} summary")
+            for q, v in pct.items():
+                lines.append(f'{n}_{metric}{{quantile="0.{q}"}} {v:.6f}')
+            lines.append(f"{n}_{metric}_count {count}")
+        return "\n".join(lines) + "\n"
