@@ -8,10 +8,14 @@ non-zero exit code and no final "ok" line:
 
   device    the card's name, and its name and power limit as nvidia-smi
             reports them (also printed alone on a line)
-  build     nvcc builds both kernels from paddle_tpu_torch/csrc, in
-            parallel; seconds taken
+  build     nvcc builds every kernel library from paddle_tpu_torch/csrc
+            (decode attention, flash attention, LSTM), one nvcc per
+            source, in parallel; seconds taken
   kernels   each kernel at the main path's shapes against its plain
-            PyTorch version (max abs error within the stated bound),
+            PyTorch version (max abs error within the stated bound; the
+            LSTM pair on a ragged mask with an empty row, timed on the
+            train batch's full rows, also at D=128 and 256 and through
+            a reverse LSTM),
             timed with CUDA events beside the plain version, one PyTorch
             library call computing the same function (a yardstick the
             port never calls) and the least time the card could take
@@ -25,6 +29,14 @@ non-zero exit code and no final "ok" line:
             requests, some streamed: the chunk kernel launches once per
             layer per step; each stream is held against lm_generate on
             the card
+  train     the headline benchmark, bench.py's bench_lstm ported
+            (scripts/bench.bench_lstm): the LSTM text classifier at vocab
+            30000, embedding 128, 2 x LSTM h=512, batch 64, length 100,
+            Momentum, on one fixed batch.  Its first step is held
+            against the same step on the CPU (plain versions: loss and
+            every gradient leaf), then warm-up and timed steps: each
+            step launches the LSTM forward and backward kernels once per
+            layer, the loss is finite and falls
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -36,7 +48,6 @@ result.
 import argparse
 import json
 import math
-import subprocess
 import sys
 import threading
 import time
@@ -66,6 +77,30 @@ MARGIN_TOL = 2e-3
 LAYERS, HEADS, VOCAB, D_MODEL, DFF = 6, 8, 32000, 512, 2048
 SLOTS, SERVE_MAX_LEN, CHUNK = 8, 256, 8
 GEN_BATCH, GEN_PROMPT, GEN_MAX_LEN = 32, 32, 160
+
+# The LSTM kernels at the train path's shape (bench_lstm: T=100, B=64,
+# h=512) against their plain versions on the same inputs, at the JAX
+# tests' scale (x*0.3, W_r*0.1, checks*0.1).  Both sides are float32 but
+# sum the recurrent products in different orders, and the differences
+# ride the recurrence for 100 steps: 1e-4 absolute bounds hs, c_fin, cs,
+# acts and dxs (O(0.1-1) values) with room and still catches an indexing
+# or masking fault, which moves values by O(0.1).  dW_r and dchecks sum
+# T*B = 6400 terms each, so they are held relative to max |ref|.
+LSTM_T, LSTM_B, LSTM_D = 100, 64, 512
+LSTM_TOL = 1e-4
+LSTM_REL_TOL = 1e-4
+# Card (kernels) vs CPU (plain versions) on the first train step: the
+# loss, every gradient leaf, and every param leaf and ``mom`` slot after
+# the in-place Momentum update, each relative to the leaf's max |CPU
+# value|.  The two run the same float32 arithmetic in different
+# summation orders through 2 x 100 recurrent steps forward and back;
+# 1e-3 leaves room for that drift while a wrong gradient or slot is off
+# by O(1).  A param moves by about 1e-4 of itself in one step, too little
+# for a param comparison to see a wrong update, so the card's params are
+# also held to its own step, p0 + mom (mom starts at 0), relative to max
+# |mom|: that catches a wrong sign, step size or a slot not applied.
+TRAIN_REL_TOL = 1e-3
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 
 
 def emit(obj):
@@ -243,6 +278,150 @@ def check_head_dims(torch, dev, rng):
     return errs
 
 
+def lstm_inputs(torch, dev, rng, t, b, d, ragged):
+    """(lengths, xs [T, B, 4D], mask [T, B], w_r, checks) at the JAX
+    tests' scale.  Ragged: random lengths with one empty row and one
+    full row; else every row full, as the train path's batch is."""
+    lengths = np.full(b, t)
+    if ragged:
+        lengths = rng.randint(1, t + 1, b)
+        lengths[0] = 0
+        lengths[-1] = t
+    mask = (np.arange(t)[:, None] < lengths[None, :]).astype(np.float32)
+    return (lengths,
+            torch.tensor(normal(rng, (t, b, 4 * d)) * 0.3, device=dev),
+            torch.tensor(mask, device=dev),
+            torch.tensor(normal(rng, (d, 4 * d)) * 0.1, device=dev),
+            torch.tensor(normal(rng, (3, d)) * 0.1, device=dev))
+
+
+def lstm_cost(lengths, t, d):
+    """(bytes, flops) of the forward with residuals and of the backward
+    with dW_r on these inputs.  Bytes: each input read once, each output
+    written once.  Operations: the recurrent products these lengths
+    need.  The forward needs h_{t-1} @ W_r at every step t >= 1 of a row
+    that ever started (acts are outputs even where the mask is 0; an
+    empty row's h stays 0); the backward needs dgates_t @ W_r^T and
+    h_{t-1}^T dgates_t only where the mask is 1 and t >= 1 (elsewhere
+    dgates_t is 0).  The cell's ~30 elementwise operations per unit and
+    step are under 1 % of it."""
+    b, g = len(lengths), 4 * d
+    fwd_bytes = 4 * (2 * t * b * g + d * g + 3 * d + t * b + 2 * t * b * d
+                     + b * d)
+    bwd_bytes = 4 * (2 * t * b * g + 3 * t * b * d + 2 * d * g + 3 * d
+                     + t * b + b * d + 3 * b * d)
+    fwd_rows = (t - 1) * int((lengths > 0).sum())
+    bwd_rows = int(np.maximum(lengths - 1, 0).sum())
+    return ((fwd_bytes, 2 * fwd_rows * d * g),
+            (bwd_bytes, 2 * 2 * bwd_rows * d * g))
+
+
+def lstm_pair(torch, dev, rng, t, b, d, ragged):
+    """Forward (both variants) and backward kernels against their plain
+    versions on one set of inputs; the backward gets the plain forward's
+    residuals on both sides so that its check stands alone.  Returns the
+    two result rows and the four calls (kernel, plain) x (fwd, bwd)."""
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    lengths, xs, mask, w_r, checks = lstm_inputs(torch, dev, rng, t, b, d,
+                                                 ragged)
+    ref = lk.lstm_fwd_plain(xs, mask, w_r, checks, True)
+    got = lk.lstm_fwd(xs, mask, w_r, checks, True)
+    lean = lk.lstm_fwd(xs, mask, w_r, checks, False)
+    dh_out = torch.tensor(normal(rng, (t, b, d)), device=dev)
+    dcfin = torch.tensor(normal(rng, (b, d)), device=dev)
+    _, _, cs, acts = ref
+    bwd_args = (acts, cs, ref[0], w_r, checks, mask, dh_out, dcfin)
+    gb = lk.lstm_bwd(*bwd_args)
+    rb = lk.lstm_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+
+    def err(x, y):
+        return float((x - y).abs().max())
+
+    fwd_err = max([err(x, y) for x, y in zip(got, ref)]
+                  + [err(lean[0], ref[0]), err(lean[1], ref[1])])
+    dxs_err = err(gb[0], rb[0])
+    rel = {"dW_r": err(gb[1], rb[1]) / float(rb[1].abs().max()),
+           "dchecks": err(gb[2], rb[2]) / float(rb[2].abs().max())}
+    if not fwd_err <= LSTM_TOL or not dxs_err <= LSTM_TOL \
+            or not max(rel.values()) <= LSTM_REL_TOL:
+        fail(f"LSTM kernels (T={t}, B={b}, D={d}, ragged={ragged}) disagree "
+             f"with their plain versions: forward max abs err {fwd_err}, "
+             f"dxs {dxs_err} (bound {LSTM_TOL}); relative {rel} (bound "
+             f"{LSTM_REL_TOL})")
+    rows = [{"name": lk.NAME_FWD, "D": d, "ragged": ragged,
+             "max_abs_err": fwd_err},
+            {"name": lk.NAME_BWD, "D": d, "ragged": ragged,
+             "max_abs_err": max(dxs_err, err(gb[1], rb[1]),
+                                err(gb[2], rb[2])),
+             "dxs_max_abs_err": dxs_err, "rel_err": rel}]
+    calls = ((lambda: lk.lstm_fwd(xs, mask, w_r, checks, True),
+              lambda: lk.lstm_fwd_plain(xs, mask, w_r, checks, True)),
+             (lambda: lk.lstm_bwd(*bwd_args),
+              lambda: lk.lstm_bwd_plain(*bwd_args)))
+    return rows, calls, lstm_cost(lengths, t, d)
+
+
+def check_lstm_kernels(torch, dev, rng, t, b, d, timed):
+    """The LSTM pair on a ragged mask (with an empty row); when timed,
+    also on the train path's own data (every row full length), which is
+    what the times and the bound are taken on."""
+    rows, _, _ = lstm_pair(torch, dev, rng, t, b, d, ragged=True)
+    if not timed:
+        return rows
+    full, calls, costs = lstm_pair(torch, dev, rng, t, b, d, ragged=False)
+    library = ("no single PyTorch call computes this function: cuDNN's "
+               "LSTM has no peepholes and no masked carry freeze")
+    for row, row_full, (fn, plain), (nbytes, flops) in zip(rows, full, calls,
+                                                           costs):
+        row.update(max_abs_err=max(row["max_abs_err"],
+                                   row_full["max_abs_err"]),
+                   full_rows_check=row_full,
+                   shape={"T": t, "B": b, "D": d, "timed_on": "full rows"},
+                   ms=time_ms(torch, fn, samples=20, reps=5),
+                   plain_ms=time_ms(torch, plain, samples=5, reps=2),
+                   library_ms=None, library_note=library,
+                   bytes=nbytes, flops=flops)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    return rows
+
+
+def check_lstm_reverse(torch, dev, rng):
+    """rnn.lstm(reverse=True) on the card (kernels, through LstmFused)
+    against the same call on the CPU (plain versions): loss and every
+    gradient, on a ragged batch with an empty row and an odd B."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import rnn
+    t, b, d = 30, 5, 128
+    x = normal(rng, (b, t, 4 * d)) * 0.3
+    lengths = np.asarray([0, 30, 7, 19, 1], np.int32)
+    w_r = normal(rng, (d, 4 * d)) * 0.1
+    rest = [normal(rng, (d,)) * 0.1 for _ in range(3)] \
+        + [normal(rng, (4 * d,)) * 0.1]
+
+    def run(device):
+        args = [torch.tensor(a, device=device, requires_grad=True)
+                for a in (x, w_r, *rest)]
+        out, final = rnn.lstm(
+            SequenceBatch(args[0], torch.tensor(lengths, device=device)),
+            args[1], bias=args[5], check_i=args[2], check_f=args[3],
+            check_o=args[4], reverse=True)
+        loss = (out.data ** 2).sum() + (final.c ** 2).sum() + final.h.sum()
+        loss.backward()
+        return float(loss.detach()), [a.grad.cpu() for a in args]
+
+    loss_c, grads_c = run(dev)
+    loss_r, grads_r = run("cpu")
+    worst = max(float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(grads_c, grads_r))
+    loss_err = abs(loss_c - loss_r) / abs(loss_r)
+    if not worst <= LSTM_REL_TOL or not loss_err <= LSTM_REL_TOL:
+        fail(f"reverse rnn.lstm: card vs CPU relative error loss {loss_err}, "
+             f"grads {worst} (bound {LSTM_REL_TOL})")
+    return {"reverse_lstm_D": d, "loss_rel_err": loss_err,
+            "grad_rel_err": worst}
+
+
 # ------------------------------------------------------------- paths
 
 def margins(torch, transformer, params, ids):
@@ -409,6 +588,78 @@ def run_serve(torch, dev, transformer, kernels, params, rng):
     return launches
 
 
+def run_train(torch, dev, kernels):
+    """bench_lstm on the card: the first step against the CPU, then
+    warm-up and TRAIN_STEPS timed steps with the launch counts read."""
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    def rel(got, want):
+        return [float((g.detach().cpu() - w.detach()).abs().max()
+                      / w.detach().abs().max()) for g, w in zip(got, want)]
+
+    card_run = bench.bench_lstm(device=dev)
+    cpu_run = bench.bench_lstm(device="cpu")
+    before = [p.detach().clone() for p in tree_leaves(cpu_run.params)]
+    first = float(card_run.train_step())
+    first_cpu = float(cpu_run.train_step())
+    card_leaves = tree_leaves(card_run.params)
+    cpu_leaves = tree_leaves(cpu_run.params)
+    card_mom = [m.cpu() for m in
+                tree_leaves(card_run.opt_state["slots"]["mom"])]
+    leaf_err = rel([p.grad for p in card_leaves],
+                   [q.grad for q in cpu_leaves])
+    param_err = rel(card_leaves, cpu_leaves)
+    mom_err = rel(card_mom, tree_leaves(cpu_run.opt_state["slots"]["mom"]))
+    # both sides start from the same params (made on the host from one
+    # seed); the card's step must have added its slot to them.  Held as
+    # p1 - (p0 + mom), both sides rounded alike, not as (p1 - p0) vs mom,
+    # where p1's own rounding is already 1 % of the step.
+    step_err = [float((p.detach().cpu() - (w + m)).abs().max()
+                      / m.abs().max())
+                for p, w, m in zip(card_leaves, before, card_mom)]
+    loss_err = abs(first - first_cpu) / abs(first_cpu)
+    worst = max(leaf_err + param_err + mom_err + step_err + [loss_err])
+    if not worst <= TRAIN_REL_TOL:
+        fail(f"train: first step on the card vs the CPU: loss rel err "
+             f"{loss_err}, per-leaf rel err of grads {leaf_err}, of params "
+             f"{param_err}, of mom {mom_err}, of the card's step vs its "
+             f"mom {step_err} (bound {TRAIN_REL_TOL})")
+    for _ in range(TRAIN_WARMUP):
+        card_run.train_step()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = card_run.train_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = {"lstm_fwd": kernels.lstm.launches_fwd,
+                "lstm_bwd": kernels.lstm.launches_bwd}
+    want = bench.NUM_LAYERS * TRAIN_STEPS
+    if launches != {"lstm_fwd": want, "lstm_bwd": want}:
+        fail(f"train: LSTM kernels launched {launches} over {TRAIN_STEPS} "
+             f"steps, want {want} each (one per layer per step)")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < first:
+        fail(f"train: loss not finite or not falling: first {first}, "
+             f"timed steps {losses}")
+    emit({"phase": "train", "config": {
+        "vocab": 30000, "emb": bench.EMB_DIM, "hidden": card_run.hidden,
+        "layers": bench.NUM_LAYERS, "batch": 64, "seq_len": 100},
+        "warmup": 1 + TRAIN_WARMUP, "steps": TRAIN_STEPS,
+        "ms_per_batch": float(np.median(times)),
+        "ms_per_batch_min_max": [min(times), max(times)],
+        "launches": launches, "loss_first": first, "loss_last": losses[-1],
+        "first_step_vs_cpu": {"loss_rel_err": loss_err,
+                              "grad_rel_err_max": max(leaf_err),
+                              "param_rel_err_max": max(param_err),
+                              "mom_rel_err_max": max(mom_err),
+                              "step_vs_mom_rel_err_max": max(step_err),
+                              "bound": TRAIN_REL_TOL}})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -424,10 +675,7 @@ def main(argv=None):
     from paddle_tpu_torch.ops import kernels
     dev = _device.resolve("cuda")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _device.card()
     emit({"phase": "device", "kind": kind, "count":
           torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -443,9 +691,16 @@ def main(argv=None):
     flash = check_flash_kernel(torch, dev, rng, GEN_BATCH, GEN_PROMPT,
                                timed=True)
     flash_ragged = check_flash_kernel(torch, dev, rng, 4, 200, timed=False)
+    lstm_fwd, lstm_bwd = check_lstm_kernels(torch, dev, rng, LSTM_T, LSTM_B,
+                                            LSTM_D, timed=True)
+    lstm_small = [row for d in (128, 256) for row in check_lstm_kernels(
+        torch, dev, rng, 37, 13, d, timed=False)]
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
-          "checks": [chunk, chunk_gqa, flash, flash_ragged],
-          "other_head_dims": check_head_dims(torch, dev, rng)})
+          "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
+          "checks": [chunk, chunk_gqa, flash, flash_ragged, lstm_fwd,
+                     lstm_bwd, *lstm_small],
+          "other_head_dims": check_head_dims(torch, dev, rng),
+          "lstm_reverse": check_lstm_reverse(torch, dev, rng)})
 
     params = transformer.init_lm(
         torch.Generator().manual_seed(args.seed), VOCAB, D_MODEL, HEADS,
@@ -454,6 +709,8 @@ def main(argv=None):
                                 rng)
     serve_launches = run_serve(torch, dev, transformer, kernels, params,
                                rng)
+    del params
+    train_launches = run_train(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -467,6 +724,16 @@ def main(argv=None):
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for row, replaces in ((lstm_fwd, kernels.lstm.REPLACES_FWD),
+                          (lstm_bwd, kernels.lstm.REPLACES_BWD)):
+        summary.append({
+            "name": row["name"], "route": "cuda",
+            "source": kernels.lstm.SOURCE, "replaces": replaces,
+            "launches": train_launches[row["name"]],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "library_note": row["library_note"]})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

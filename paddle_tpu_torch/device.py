@@ -10,6 +10,8 @@ float32 convolutions in TF32 through cuDNN by default, so both TF32
 switches are set off here, where the device is set up.
 """
 
+import subprocess
+
 import torch
 
 
@@ -31,3 +33,13 @@ def resolve(device=None):
         raise ValueError(f"device {device!r}: the port runs on 'cuda' or "
                          "'cpu'")
     return dev
+
+
+def card():
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them: the
+    line every number measured on the card is written beside."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]

@@ -38,6 +38,7 @@ from paddle_tpu_torch.ops.norm import layer_norm
 from paddle_tpu_torch.quant.weights import (is_quantized_tree as _quantized,
                                             maybe_dequant as _maybe_dequant,
                                             weight_shape as _w_shape)
+from paddle_tpu_torch.utils.tree import tree_map
 
 _ROADMAP = "not yet ported to paddle_tpu_torch (ROADMAP)"
 
@@ -92,16 +93,6 @@ def init_lm(generator, vocab, d_model, num_heads, dff, layers, max_len,
     } for _ in range(layers)]
     params["ln_f"] = _norm(d_model, gen.device)
     return tree_map(lambda t: t.to(dev), params)
-
-
-def tree_map(fn, tree):
-    """``fn`` applied to every tensor of a param or cache tree (nested
-    dicts and lists), keeping the structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def params_from_numpy(tree, device=None):

@@ -7,8 +7,9 @@ tensors handed in: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises — there is no fallback."""
 
 from paddle_tpu_torch.ops.kernels import decode_attention, flash_attention
+from paddle_tpu_torch.ops.kernels import lstm
 
-KERNELS = ("decode_attention", "flash_attention")
+KERNELS = ("decode_attention", "flash_attention", "lstm")
 
 
 def build():
@@ -21,7 +22,9 @@ def build():
 def reset_launches():
     decode_attention.launches = 0
     flash_attention.launches = 0
+    lstm.launches_fwd = 0
+    lstm.launches_bwd = 0
 
 
-__all__ = ["decode_attention", "flash_attention", "KERNELS", "build",
+__all__ = ["decode_attention", "flash_attention", "lstm", "KERNELS", "build",
            "reset_launches"]

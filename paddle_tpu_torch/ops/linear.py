@@ -1,4 +1,4 @@
-"""Dense matmul (``paddle_tpu/ops/linear.py``).
+"""Dense matmul and fc (``paddle_tpu/ops/linear.py``).
 
 The JAX package feeds the TPU's matrix unit bf16 operands with an f32
 accumulator.  This slice computes in float32 on both devices (TF32 off,
@@ -9,7 +9,17 @@ package left it to XLA."""
 
 import torch
 
+from paddle_tpu_torch.ops import activations
+
 
 def matmul(x, w):
     """x [..., in] @ w [in, out] -> [..., out], float32."""
     return torch.matmul(x, w)
+
+
+def fc(x, w, b=None, act=None):
+    """y = act(x @ w + b).  x [..., in], w [in, out], b [out]."""
+    y = matmul(x, w)
+    if b is not None:
+        y = y + b
+    return activations.get(act)(y)

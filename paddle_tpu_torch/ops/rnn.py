@@ -1,0 +1,136 @@
+"""The LSTM of ``paddle_tpu/ops/rnn.py``: cell, masked scan, the fused
+whole-sequence route, bidirectional concat.
+
+Reference: LstmLayer/LstmCompute + hl_lstm_ops.cuh:46-66 (gate order
+[a, input_gate, forget_gate, output_gate], peepholes checkI/F/O).  The
+input-to-hidden projection for all steps is hoisted out by the caller;
+masked steps carry the state through unchanged, so padded batches match
+the reference's padding-free semantics.
+
+Dispatch has no mode flag.  With the default activations
+(tanh / sigmoid / tanh) and no initial state, ``lstm`` runs the fused
+route (``ops/kernels/lstm.LstmFused``): the CUDA kernels on the card
+(which raise on a hidden size they do not take), their plain versions on
+the CPU.  Anything else runs the Python scan on the CPU and raises
+``ConfigError`` on the card, where no plain scan stands in for a kernel.  GRU, simple RNN,
+``recurrent_group`` and ``md_lstm_2d`` are not ported yet (ROADMAP).
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.ops import activations
+from paddle_tpu_torch.ops.kernels import lstm as _kernel
+from paddle_tpu_torch.ops.linear import matmul
+from paddle_tpu_torch.utils.error import ConfigError
+
+
+class LstmState(NamedTuple):
+    h: torch.Tensor  # [B, D] hidden (output)
+    c: torch.Tensor  # [B, D] cell state
+
+
+def lstm_cell(x4, state: LstmState, w_r, check_i=None, check_f=None,
+              check_o=None, act="tanh", gate_act="sigmoid", state_act="tanh"):
+    """One LSTM step.  x4 [B, 4D] is the projected input in gate order
+    [a, i, f, o]; w_r [D, 4D]; check_* [D] peepholes (optional)."""
+    gates = x4 + matmul(state.h, w_r)
+    a, ig, fg, og = torch.chunk(gates, 4, dim=-1)
+    gate_f = activations.get(gate_act)
+    a = activations.get(act)(a)
+    if check_i is not None:
+        ig = ig + state.c * check_i
+    if check_f is not None:
+        fg = fg + state.c * check_f
+    i = gate_f(ig)
+    f = gate_f(fg)
+    c = a * i + state.c * f
+    if check_o is not None:
+        og = og + c * check_o
+    h = gate_f(og) * activations.get(state_act)(c)
+    return LstmState(h=h, c=c)
+
+
+def _masked_scan(step, init_carry, xs_tm, ms_tm, reverse=False):
+    """Loop over time; where the mask is 0 the carry (a tuple of [B, ...]
+    tensors) passes through unchanged.  Returns (final carry, carries
+    stacked over time in their time order)."""
+    carry, outs = init_carry, [None] * xs_tm.shape[0]
+    order = range(xs_tm.shape[0] - 1, -1, -1) if reverse \
+        else range(xs_tm.shape[0])
+    for t in order:
+        new = step(carry, xs_tm[t])
+        m = ms_tm[t] > 0
+        carry = type(carry)(*(
+            torch.where(m.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+            for n, o in zip(new, carry)))
+        outs[t] = carry
+    return carry, type(carry)(*(torch.stack(xs) for xs in zip(*outs)))
+
+
+def _fused_seq_apply(seq, xs, ms, reverse, kernel_fn):
+    """reverse = the forward kernel over time-flipped arrays, flipped back
+    (valid because sequences are left-aligned and masked steps freeze the
+    carry either way).  Returns (SequenceBatch, final state) from
+    kernel_fn(xs_tm, ms_tm)."""
+    if reverse:
+        xs, ms = torch.flip(xs, [0]), torch.flip(ms, [0])
+    hs_tm, final = kernel_fn(xs, ms)
+    if reverse:
+        hs_tm = torch.flip(hs_tm, [0])
+    out = hs_tm.transpose(0, 1) * seq.mask(hs_tm.dtype)[..., None]
+    return SequenceBatch(data=out, lengths=seq.lengths), final
+
+
+def _fused(device, act, gate_act, state_act, init_state):
+    """True where ``lstm`` takes the fused route.  The scan is the CPU's
+    alone: on the card an unported configuration raises."""
+    default = ((act, gate_act, state_act) == ("tanh", "sigmoid", "tanh")
+               and init_state is None)
+    if device.type == "cuda" and not default:
+        raise ConfigError(
+            f"lstm with act={act!r}, gate_act={gate_act!r}, "
+            f"state_act={state_act!r}, init_state="
+            f"{'given' if init_state is not None else None} runs the "
+            "plain scan, which is not yet ported to the card (ROADMAP)")
+    return default
+
+
+def lstm(seq: SequenceBatch, w_r, bias=None, check_i=None, check_f=None,
+         check_o=None, reverse=False, act="tanh", gate_act="sigmoid",
+         state_act="tanh", init_state=None):
+    """Whole-sequence LSTM (reference LstmLayer + SequenceToBatch).
+
+    seq.data [B, T, 4D] pre-projected gate inputs; bias [4D].  Returns
+    (SequenceBatch of h [B, T, D] zeroed at padding, final LstmState)."""
+    b, _, d4 = seq.data.shape
+    d = d4 // 4
+    x = seq.data if bias is None else seq.data + bias
+    xs = x.transpose(0, 1)                         # time-major [T, B, 4D]
+    ms = seq.mask(x.dtype).transpose(0, 1)         # [T, B]
+
+    if _fused(x.device, act, gate_act, state_act, init_state):
+        sb, (fh, fc) = _fused_seq_apply(
+            seq, xs, ms, reverse,
+            lambda x_, m_: _kernel.lstm_fused(x_, m_, w_r, check_i, check_f,
+                                              check_o))
+        return sb, LstmState(h=fh, c=fc)
+
+    if init_state is None:
+        init_state = LstmState(h=x.new_zeros((b, d)), c=x.new_zeros((b, d)))
+
+    def step(state, x4):
+        return lstm_cell(x4, state, w_r, check_i, check_f, check_o,
+                         act, gate_act, state_act)
+
+    final, hs = _masked_scan(step, init_state, xs, ms, reverse=reverse)
+    out = hs.h.transpose(0, 1) * seq.mask(hs.h.dtype)[..., None]
+    return SequenceBatch(data=out, lengths=seq.lengths), final
+
+
+def bidirectional(fwd_out: SequenceBatch, bwd_out: SequenceBatch):
+    """Concat forward and reverse passes (reference bidirectional_lstm)."""
+    return SequenceBatch(data=torch.cat([fwd_out.data, bwd_out.data], dim=-1),
+                         lengths=fwd_out.lengths)

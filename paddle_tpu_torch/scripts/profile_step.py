@@ -16,7 +16,6 @@ CUDA device.
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -39,6 +38,53 @@ def slot_mix():
     return tokens, pos, lens
 
 
+def measure(step, steps):
+    """Per-step timings of ``step()`` (already warmed up) over ``steps``
+    calls, each ending in a synchronize: host wall p50/p99, device time
+    between CUDA events, and — from a second, profiled run — the kernel
+    time and launches by name and the device's idle share."""
+    walls, device_ms = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+
+    # device activity only: kernel times per name (the profiler's own
+    # host cost inflates the wall clock, so the idle share below is taken
+    # against the unprofiled step wall time)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = []
+    for evt in prof.key_averages():
+        t = evt.self_device_time_total
+        if t > 0 and getattr(evt, "device_type", None) \
+                == torch.autograd.DeviceType.CUDA:
+            kernels.append((t / 1e3 / steps, evt.count / steps, evt.key))
+    kernels.sort(reverse=True)
+    busy = sum(t for t, _, _ in kernels)
+    wall = float(np.median(walls))
+    return {
+        "card": _device.card(), "steps": steps,
+        "step_wall_ms": {"p50": wall,
+                         "p99": float(np.percentile(walls, 99))},
+        "step_event_ms_p50": float(np.median(device_ms)),
+        "kernel_ms_per_step": busy,
+        "kernel_launches_per_step": sum(n for _, n, _ in kernels),
+        "device_idle_share": 1.0 - busy / wall,
+        "top_kernels": [{"ms_per_step": t, "launches_per_step": n,
+                         "name": k[:80]} for t, n, k in kernels[:14]],
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -55,52 +101,10 @@ def main(argv=None):
     tokens, pos, lens = slot_mix()
     for _ in range(10):
         engine._run(tokens, pos, lens)
-
-    walls, device_ms = [], []
-    for _ in range(args.steps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        engine._run(tokens, pos, lens)
-        end.record()
-        end.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        device_ms.append(start.elapsed_time(end))
-
-    # device activity only: kernel times per name (the profiler's own
-    # host cost inflates the wall clock, so the idle share below is taken
-    # against the unprofiled step wall time)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.steps):
-            engine._run(tokens, pos, lens)
-    kernels = []
-    for evt in prof.key_averages():
-        t = evt.self_device_time_total
-        if t > 0 and getattr(evt, "device_type", None) \
-                == torch.autograd.DeviceType.CUDA:
-            kernels.append((t / 1e3 / args.steps, evt.count // args.steps,
-                            evt.key))
-    kernels.sort(reverse=True)
-    busy = sum(t for t, _, _ in kernels)
-    wall = float(np.median(walls))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "card": smi, "slots": SLOTS, "max_len": MAX_LEN, "chunk": CHUNK,
+        "slots": SLOTS, "max_len": MAX_LEN, "chunk": CHUNK,
         "mix": "6 decode rows + 2 rows of 8 prompt lanes",
-        "steps": args.steps,
-        "step_wall_ms": {"p50": wall,
-                         "p99": float(np.percentile(walls, 99))},
-        "step_event_ms_p50": float(np.median(device_ms)),
-        "kernel_ms_per_step": busy,
-        "kernel_launches_per_step": sum(n for _, n, _ in kernels),
-        "device_idle_share": 1.0 - busy / wall,
-        "top_kernels": [{"ms_per_step": t, "launches_per_step": n,
-                         "name": k[:80]} for t, n, k in kernels[:12]],
+        **measure(lambda: engine._run(tokens, pos, lens), args.steps),
     }), flush=True)
     return 0
 
