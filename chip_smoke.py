@@ -15,10 +15,12 @@ non-zero exit code and no final "ok" line:
             PyTorch version (max abs error within the stated bound; the
             LSTM pair on a ragged mask with an empty row, timed on the
             train batch's full rows, also at D=128 and 256 and through
-            a reverse LSTM),
-            timed with CUDA events beside the plain version, one PyTorch
-            library call computing the same function (a yardstick the
-            port never calls) and the least time the card could take
+            a reverse LSTM; the paged pair over a 129-block pool with
+            shuffled ids, shared leading blocks and a free row on block
+            0, and the Tq=1 slab kernel), timed with CUDA events beside
+            the plain version, one PyTorch library call computing the
+            same function (a yardstick the port never calls) and the
+            least time the card could take
   generate  lm_generate on the full-width Transformer-base LM (vocab
             32000, d_model 512, 8 heads, dff 2048, 6 layers), batch 32,
             prompt 32, max_len 160, greedy: the flash kernel launches
@@ -29,6 +31,18 @@ non-zero exit code and no final "ok" line:
             requests, some streamed: the chunk kernel launches once per
             layer per step; each stream is held against lm_generate on
             the card
+  serve_paged  the same server on the paged KV layout (block size 16) with
+            a pool a quarter of the slab's size: 12 requests, half sharing
+            a 64-token preamble, two exact duplicates, most in one burst.
+            The paged chunk kernel launches once per layer per step; the
+            prefix cache hits, a shared block is forked (copy-on-write)
+            and a dry pool preempts a slot; every stream is held against
+            lm_generate
+  ladder    the legacy prefill ladder (prefill_chunk=0, buckets 32/64) on
+            the slab and the paged layout, 8 staggered requests each: the
+            flash kernel launches once per layer per prefill batch, the
+            Tq=1 slab / paged kernel once per layer per step; streams are
+            held against lm_generate
   train     the headline benchmark, bench.py's bench_lstm ported
             (scripts/bench.bench_lstm): the LSTM text classifier at vocab
             30000, embedding 128, 2 x LSTM h=512, batch 64, length 100,
@@ -77,6 +91,14 @@ MARGIN_TOL = 2e-3
 LAYERS, HEADS, VOCAB, D_MODEL, DFF = 6, 8, 32000, 512, 2048
 SLOTS, SERVE_MAX_LEN, CHUNK = 8, 256, 8
 GEN_BATCH, GEN_PROMPT, GEN_MAX_LEN = 32, 32, 160
+# the paged layout: block size 16 (the JAX default); the kernels phase
+# uses the slab-equivalent pool (8 rows x 16 blocks + scratch), the
+# serve_paged phase a quarter of it, so that the pool runs dry
+PAGE_BS = 16
+PAGE_BLOCKS = SLOTS * SERVE_MAX_LEN // PAGE_BS + 1
+PAGED_POOL = (PAGE_BLOCKS - 1) // 4 + 1
+PREAMBLE = 64
+LADDER_PROMPTS, LADDER_TOKENS = (5, 17, 32, 40, 64, 9, 50, 23), 24
 
 # The LSTM kernels at the train path's shape (bench_lstm: T=100, B=64,
 # h=512) against their plain versions on the same inputs, at the JAX
@@ -210,6 +232,136 @@ def check_decode_kernel(torch, dev, rng, hkv):
     return row
 
 
+def paged_tables(rng, last, nb_row, num_blocks):
+    """Block tables [S, nb_row] int32 for rows whose furthest positions
+    are ``last`` [S]: each row's blocks drawn from a shuffled pool (ids
+    1..num_blocks-1), row 3 sharing row 0's leading blocks, the free row
+    (row 5, at position 0) all on scratch block 0, and the entries past a
+    row's last block pointing at blocks the row must never read."""
+    ids = list(rng.permutation(np.arange(1, num_blocks)))
+    tables = rng.randint(1, num_blocks, (len(last), nb_row)).astype(np.int32)
+    need = last // PAGE_BS + 1
+    for r in range(len(last)):
+        tables[r, :need[r]] = [ids.pop() for _ in range(need[r])]
+    share = min(need[0], need[3])
+    tables[3, :share] = tables[0, :share]
+    tables[5] = 0
+    return tables
+
+
+def check_paged_kernels(torch, dev, rng, hkv):
+    """The paged chunk kernel at the paged serving step's shapes (8 rows
+    of K = 8 lanes, chunk_qpos, over a 129-block pool of 16 positions,
+    16 blocks per row; paged_tables), and the Tq=1 pair at each row's
+    furthest position: decode_attention_slab over [8, 256] slab rows,
+    decode_attention_paged over the same pool.  Each against its plain
+    version; timed when Hkv = H.  The library yardstick is one masked
+    scaled_dot_product_attention, over the gathered chain on the pool
+    (the gather included)."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    s, kk, t, d, h = 8, CHUNK, SERVE_MAX_LEN, D_MODEL, HEADS
+    dh, nb_row = d // h, t // PAGE_BS
+    dkv = dh * hkv
+    qpos_np = chunk_qpos(t)
+    last = qpos_np[:, -1].astype(np.int64)
+    tables_np = paged_tables(rng, last, nb_row, PAGE_BLOCKS)
+    q = torch.tensor(normal(rng, (s, kk, d)), device=dev)
+    q1 = torch.tensor(normal(rng, (s, d)), device=dev)
+    pool_k, pool_v = (torch.tensor(normal(rng, (PAGE_BLOCKS, PAGE_BS, dkv)),
+                                   device=dev) for _ in range(2))
+    slab_k, slab_v = (torch.tensor(normal(rng, (s, t, dkv)), device=dev)
+                      for _ in range(2))
+    qpos = torch.tensor(qpos_np, device=dev)
+    pos = torch.tensor(qpos_np[:, -1].copy(), device=dev)
+    tables = torch.tensor(tables_np, device=dev)
+    calls = {
+        dk.NAME_PAGED_CHUNK: (
+            lambda: dk.decode_attention_paged_chunk(q, pool_k, pool_v, qpos,
+                                                    tables, h),
+            lambda: dk.decode_attention_paged_chunk_plain(
+                q, pool_k, pool_v, qpos, tables, h)),
+        dk.NAME_SLAB: (
+            lambda: dk.decode_attention_slab(q1, slab_k, slab_v, pos, h),
+            lambda: dk.decode_attention_slab_plain(q1, slab_k, slab_v, pos,
+                                                   h)),
+        dk.NAME_PAGED: (
+            lambda: dk.decode_attention_paged(q1, pool_k, pool_v, pos,
+                                              tables, h),
+            lambda: dk.decode_attention_paged_plain(q1, pool_k, pool_v, pos,
+                                                    tables, h))}
+    rows = {}
+    decode_rows = qpos_np[:, -1] == qpos_np[:, 0]
+    for name, (fn, plain) in calls.items():
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        zeros_ok = name != dk.NAME_PAGED_CHUNK or bool(
+            (out[torch.tensor(decode_rows, device=dev), 1:] == 0).all())
+        if not err <= KERNEL_TOL or not zeros_ok:
+            fail(f"{name} (Hkv={hkv}) disagrees with its plain version: max "
+                 f"abs err {err} (bound {KERNEL_TOL}), decode-row dead "
+                 f"lanes exact zero: {zeros_ok}")
+        rows[name] = {"name": name, "hkv": hkv, "max_abs_err": err}
+    if hkv != h:
+        return rows
+    # this run's work.  Bytes: q for the lanes computed, out, positions
+    # and table words, and each pool block some row's furthest lane
+    # reaches, once (shared blocks are one input); the slab kernel reads
+    # each row up to its position.  Operations: QK and PV per live lane
+    # per column <= its position.
+    live = np.where(decode_rows[:, None], np.arange(kk)[None] == 0, True)
+    need = last // PAGE_BS + 1
+    reached = {int(tables_np[r, j]) for r in range(s) for j in range(need[r])}
+    pool_bytes = 4 * 2 * len(reached) * PAGE_BS * dkv
+    tq1_flops = 4 * dh * h * int((last + 1).sum())
+    costs = {
+        dk.NAME_PAGED_CHUNK: (
+            4 * (int(live.sum()) * d + s * kk * d + s * kk + int(need.sum()))
+            + pool_bytes, 4 * dh * h * int(((qpos_np + 1) * live).sum())),
+        dk.NAME_SLAB: (4 * (2 * s * d + s) + 4 * 2 * int((last + 1).sum())
+                       * dkv, tq1_flops),
+        dk.NAME_PAGED: (4 * (2 * s * d + s + int(need.sum())) + pool_bytes,
+                        tq1_flops)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cols = torch.arange(t, device=dev)
+    chunk_mask = (cols[None, None, :] <= qpos.long()[:, :, None])[:, None]
+    tq1_mask = (cols[None, :] <= pos.long()[:, None])[:, None, None]
+    qh = q.reshape(s, kk, h, dh).transpose(1, 2)
+    q1h = q1.reshape(s, 1, h, dh).transpose(1, 2)
+
+    def heads(rows_):           # [S, T, D] -> [S, H, T, dh]
+        return rows_.reshape(s, t, h, dh).transpose(1, 2)
+
+    def chain(pool):            # the gather the library call needs
+        return heads(pool[tables.long()])
+
+    library = {
+        dk.NAME_PAGED_CHUNK: lambda: sdpa(qh, chain(pool_k), chain(pool_v),
+                                          attn_mask=chunk_mask),
+        dk.NAME_SLAB: lambda: sdpa(q1h, heads(slab_k), heads(slab_v),
+                                   attn_mask=tq1_mask),
+        dk.NAME_PAGED: lambda: sdpa(q1h, chain(pool_k), chain(pool_v),
+                                    attn_mask=tq1_mask)}
+    for name, (fn, plain) in calls.items():
+        nbytes, flops = costs[name]
+        row = rows[name]
+        row.update(
+            shape={"S": s, "K": 1 if name == dk.NAME_SLAB
+                   or name == dk.NAME_PAGED else kk, "T": t, "D": d, "H": h,
+                   "Hkv": hkv, "block_size": PAGE_BS,
+                   "pool_blocks": PAGE_BLOCKS, "blocks_reached":
+                   len(reached)},
+            ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, library[name]), bytes=nbytes,
+            flops=flops)
+        if name != dk.NAME_SLAB:
+            row["library_note"] = ("one masked scaled_dot_product_attention "
+                                   "over each row's chain gathered from the "
+                                   "pool, the gather included")
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    return rows
+
+
 def check_flash_kernel(torch, dev, rng, b, t, timed):
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
     h, dh = HEADS, D_MODEL // HEADS
@@ -241,14 +393,21 @@ def check_flash_kernel(torch, dev, rng, b, t, timed):
 
 
 def check_head_dims(torch, dev, rng):
-    """Both kernels at every other head dim they take (16, 32, 128), on
-    small ragged shapes: GQA, K = 5 lanes over T = 77 for kernel A;
-    causal T = 45 and non-causal Tq = 19, Tk = 45 for kernel B."""
+    """Every kernel of the attention family at every other head dim it
+    takes (16, 32, 128), on small ragged shapes: GQA, K = 5 lanes over T
+    = 77 for the slab chunk kernel, the same rows over a shuffled pool of
+    8-position blocks for the paged chunk kernel, lane 0 of each row for
+    the Tq=1 pair; causal T = 45 and non-causal Tq = 19, Tk = 45 for the
+    flash kernel."""
     from paddle_tpu_torch.ops.kernels import decode_attention as dk
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
     errs = {}
+
+    def err(name, dh, got, want):
+        errs[f"{name}/dh{dh}"] = float((got - want).abs().max())
+
     for dh in (16, 32, 128):
-        h, hkv, kk, t = 4, 2, 5, 77
+        h, hkv, kk, t, bs = 4, 2, 5, 77, 8
         q = torch.tensor(normal(rng, (3, kk, h * dh)), device=dev)
         k = torch.tensor(normal(rng, (3, t, hkv * dh)), device=dev)
         v = torch.tensor(normal(rng, (3, t, hkv * dh)), device=dev)
@@ -257,10 +416,24 @@ def check_head_dims(torch, dev, rng):
         qpos = torch.tensor(start[:, None] + np.minimum(
             np.arange(kk)[None], live[:, None] - 1), dtype=torch.int32,
             device=dev)
-        a = dk.decode_attention_slab_chunk(q, k, v, qpos, h)
-        errs[f"decode_attention_slab_chunk/dh{dh}"] = float(
-            (a - dk.decode_attention_slab_chunk_plain(q, k, v, qpos, h))
-            .abs().max())
+        err(dk.NAME, dh, dk.decode_attention_slab_chunk(q, k, v, qpos, h),
+            dk.decode_attention_slab_chunk_plain(q, k, v, qpos, h))
+        nb_row = -(-t // bs)
+        tables = torch.tensor(rng.permutation(np.arange(1, 3 * nb_row + 1))
+                              .reshape(3, nb_row), dtype=torch.int32,
+                              device=dev)
+        tables[2, :4] = tables[1, :4]               # shared leading blocks
+        pk, pv = (torch.tensor(normal(rng, (3 * nb_row + 1, bs, hkv * dh)),
+                               device=dev) for _ in range(2))
+        err(dk.NAME_PAGED_CHUNK, dh,
+            dk.decode_attention_paged_chunk(q, pk, pv, qpos, tables, h),
+            dk.decode_attention_paged_chunk_plain(q, pk, pv, qpos, tables, h))
+        q1, pos = q[:, 0].contiguous(), qpos[:, 0].contiguous()
+        err(dk.NAME_PAGED, dh,
+            dk.decode_attention_paged(q1, pk, pv, pos, tables, h),
+            dk.decode_attention_paged_plain(q1, pk, pv, pos, tables, h))
+        err(dk.NAME_SLAB, dh, dk.decode_attention_slab(q1, k, v, pos, h),
+            dk.decode_attention_slab_plain(q1, k, v, pos, h))
         for causal, tq in ((True, 45), (False, 19)):
             q = torch.tensor(normal(rng, (1, 2, tq, dh)), device=dev)
             k = torch.tensor(normal(rng, (1, 2, 45, dh)), device=dev)
@@ -492,24 +665,50 @@ def run_generate(torch, dev, transformer, kernels, params, rng):
     return launches
 
 
-def run_serve(torch, dev, transformer, kernels, params, rng):
-    from paddle_tpu_torch.serving import (DecodeEngine, GenerationBatcher,
-                                          make_server)
-    engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
-                          max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
-                          name="base_lm", device=dev)
-    gen = GenerationBatcher(engine, default_max_tokens=32)
+def launch_counts(kernels):
+    dk = kernels.decode_attention
+    return {"flash_attention": kernels.flash_attention.launches,
+            dk.NAME: dk.launches, dk.NAME_SLAB: dk.launches_slab,
+            dk.NAME_PAGED: dk.launches_paged,
+            dk.NAME_PAGED_CHUNK: dk.launches_paged_chunk}
+
+
+def check_streams(torch, transformer, params, prompts, outs, what):
+    """Each stream against lm_generate on the card, up to its first
+    reference margin below MARGIN_TOL; returns the tokens compared."""
+    checked = 0
+    for i, (prompt, toks) in enumerate(zip(prompts, outs)):
+        p = np.asarray([prompt], np.int32)
+        ref = transformer.lm_generate(params, p, p.shape[1] + len(toks),
+                                      HEADS)
+        marg = margins(torch, transformer, params, ref)[0]
+        n, ok = compare(toks, ref[0, p.shape[1]:].tolist(),
+                        marg[p.shape[1] - 1:])
+        if not ok:
+            fail(f"{what}: request {i} (prompt {p.shape[1]}) disagrees with "
+                 f"lm_generate within its first {n + 1} tokens above margin "
+                 f"{MARGIN_TOL}")
+        checked += n
+    return checked
+
+
+def serve_http(torch, kernels, engine, prompts, n_tok, starts):
+    """Put ``engine`` behind the HTTP server and POST each prompt to
+    /v1/generate from its own thread ``starts[i]`` seconds in, every
+    third streamed.  Returns the run's record: results [(status,
+    tokens)], inter-token gaps of the streamed ones (s), errors, seconds,
+    steps, launches (counts set to 0 just before), the metrics snapshot,
+    and the batcher (still open)."""
+    from paddle_tpu_torch.serving import GenerationBatcher, make_server
+    gen = GenerationBatcher(engine, default_max_tokens=n_tok)
     httpd = make_server(gen, port=0)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     base = f"http://127.0.0.1:{httpd.port}/v1/generate"
-    n_req, n_tok = 12, 32
-    lengths = np.linspace(3, 120, n_req).astype(int)
-    prompts = [rng.randint(3, VOCAB, n).tolist() for n in lengths]
-    results, gaps, errors = [None] * n_req, [], []
+    results, gaps, errors = [None] * len(prompts), [], []
 
     def client(i):
-        time.sleep(0.03 * i)       # staggered: admissions land mid-decode
+        time.sleep(starts[i])
         body = {"prompt": prompts[i], "max_tokens": n_tok,
                 "stream": i % 3 == 0}
         req = urllib.request.Request(base, data=json.dumps(body).encode(),
@@ -529,62 +728,203 @@ def run_serve(torch, dev, transformer, kernels, params, rng):
                     elif rec.get("done"):
                         results[i] = (r.status, toks)
                 gaps.extend(np.diff(stamps).tolist())
-        except Exception as e:    # noqa: BLE001 — reported below
+        except Exception as e:    # noqa: BLE001 — reported by the caller
             errors.append(f"request {i}: {type(e).__name__}: {e}")
 
     kernels.reset_launches()
     steps0 = engine.metrics.decode_steps_total
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(i,))
-               for i in range(n_req)]
+               for i in range(len(prompts))]
     for th in threads:
         th.start()
     for th in threads:
         th.join(600)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"flash_attention": kernels.flash_attention.launches,
-                "decode_attention_slab_chunk":
-                    kernels.decode_attention.launches}
-    steps = engine.metrics.decode_steps_total - steps0
-    snap = engine.metrics.snapshot()
+    run = {"seconds": time.perf_counter() - t0,
+           "launches": launch_counts(kernels),
+           "steps": engine.metrics.decode_steps_total - steps0,
+           "snapshot": engine.metrics.snapshot(), "results": results,
+           "gaps": gaps, "errors": errors, "gen": gen}
     httpd.shutdown()
     httpd.server_close()
-    gen.close()
     server.join(30)
-    if errors or any(r is None or r[0] != 200 or len(r[1]) != n_tok
-                     for r in results):
-        fail(f"serve: not every request completed with 200 and {n_tok} "
-             f"tokens: {errors or results}")
+    return run
+
+
+def serve_record(run, n_tok):
+    """The timing half of a serve phase's line."""
+    n_req = len(run["results"])
+    snap = run["snapshot"]
+    return {"requests": n_req, "max_tokens": n_tok,
+            "seconds": run["seconds"], "steps": run["steps"],
+            "launches": run["launches"],
+            "tokens_per_s": n_req * n_tok / run["seconds"],
+            "stream_inter_token_ms": {
+                "p50": float(np.percentile(run["gaps"], 50)) * 1e3,
+                "p99": float(np.percentile(run["gaps"], 99)) * 1e3},
+            "step_ms": snap["tpot_ms"], "ttft_ms": snap["ttft_ms"]}
+
+
+def check_served(run, n_tok, what):
+    if run["errors"] or any(r is None or r[0] != 200 or len(r[1]) != n_tok
+                            for r in run["results"]):
+        fail(f"{what}: not every request completed with 200 and {n_tok} "
+             f"tokens: {run['errors'] or run['results']}")
+
+
+def run_serve(torch, dev, transformer, kernels, params, rng):
+    from paddle_tpu_torch.serving import DecodeEngine
+    engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                          max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                          name="base_lm", device=dev)
+    n_req, n_tok = 12, 32
+    lengths = np.linspace(3, 120, n_req).astype(int)
+    prompts = [rng.randint(3, VOCAB, n).tolist() for n in lengths]
+    # staggered: admissions land mid-decode
+    run = serve_http(torch, kernels, engine, prompts, n_tok,
+                     [0.03 * i for i in range(n_req)])
+    run["gen"].close()
+    check_served(run, n_tok, "serve")
+    launches, steps = run["launches"], run["steps"]
     if launches["decode_attention_slab_chunk"] != LAYERS * steps:
         fail(f"serve: chunk kernel launched "
              f"{launches['decode_attention_slab_chunk']} times over {steps} "
              f"steps, want {LAYERS * steps}")
-    checked = 0
-    for i, (_, toks) in enumerate(results):
-        p = np.asarray([prompts[i]], np.int32)
-        ref = transformer.lm_generate(params, p, p.shape[1] + n_tok, HEADS)
-        marg = margins(torch, transformer, params, ref)[0]
-        n, ok = compare(toks, ref[0, p.shape[1]:].tolist(),
-                        marg[p.shape[1] - 1:])
-        if not ok:
-            fail(f"serve: request {i} (prompt {p.shape[1]}) disagrees with "
-                 f"lm_generate within its first {n + 1} tokens above margin "
-                 f"{MARGIN_TOL}")
-        checked += n
-    emit({"phase": "serve", "requests": n_req, "max_tokens": n_tok,
-          "prompt_lengths": lengths.tolist(), "seconds": dt,
-          "steps": steps, "launches": launches,
-          "tokens_per_s": n_req * n_tok / dt,
-          "stream_inter_token_ms": {
-              "p50": float(np.percentile(gaps, 50)) * 1e3,
-              "p99": float(np.percentile(gaps, 99)) * 1e3},
-          "step_ms": snap["tpot_ms"], "ttft_ms": snap["ttft_ms"],
+    checked = check_streams(torch, transformer, params, prompts,
+                            [r[1] for r in run["results"]], "serve")
+    emit({"phase": "serve", "prompt_lengths": lengths.tolist(),
+          **serve_record(run, n_tok),
           "tokens_checked_vs_lm_generate": checked,
           "tokens_total": n_req * n_tok,
           "note": "tokens compared up to each stream's first reference "
                   f"top-1/top-2 margin below {MARGIN_TOL} (random weights "
                   "give small margins)"})
+    return launches
+
+
+def paged_prompts(rng):
+    """12 prompts: six share a 64-token preamble (request 3 is the
+    preamble alone); requests 2 and 7 repeat requests 0 and 1 exactly."""
+    pre = rng.randint(3, VOCAB, PREAMBLE).tolist()
+    prompts = []
+    for i, (shared, n) in enumerate(((1, 13), (0, 30), (1, 0), (1, 0),
+                                     (0, 55), (1, 25), (0, 90), (0, 0),
+                                     (1, 41), (0, 120), (1, 3), (0, 17))):
+        if i == 2 or i == 7:
+            prompts.append(list(prompts[i - 2 if i == 2 else 1]))
+        else:
+            prompts.append((pre if shared else [])
+                           + rng.randint(3, VOCAB, n).tolist())
+    return prompts
+
+
+def run_serve_paged(torch, dev, transformer, kernels, params, rng):
+    """The server on the paged layout with a pool a quarter of the slab's
+    size.  Requests 0 and 1 come first, request 2 (0's duplicate: a
+    prefix hit whose first write forks the shared tail block) and 3 after
+    them, the other eight in one burst whose growth outruns the pool."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                          max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                          kv_layout="paged", kv_block_size=PAGE_BS,
+                          kv_num_blocks=PAGED_POOL, name="base_lm_paged",
+                          device=dev)
+    n_tok = 32
+    prompts = paged_prompts(rng)
+    starts = [0.0, 0.0, 0.15, 0.15] + [0.3] * 8
+    run = serve_http(torch, kernels, engine, prompts, n_tok, starts)
+    outs = [r[1] if r else None for r in run["results"]]
+    check_served(run, n_tok, "serve_paged")
+    gen, burst = run["gen"], []
+    if not run["snapshot"]["evictions"]["pool_exhausted"]:
+        # arrival timing did not run the pool dry: eight long requests at
+        # once through the same engine do (8 x 10 blocks > 32)
+        burst = [rng.randint(3, VOCAB, 120).tolist() for _ in range(SLOTS)]
+        steps0 = engine.metrics.decode_steps_total
+        futs = [gen.submit(p, max_tokens=n_tok) for p in burst]
+        outs += [f.result(timeout=300)["tokens"] for f in futs]
+        torch.cuda.synchronize()
+        run["steps"] += engine.metrics.decode_steps_total - steps0
+        run["launches"] = launch_counts(kernels)
+    gen.close()
+    snap = engine.metrics.snapshot()
+    engine._paged.check()
+    launches, steps = run["launches"], run["steps"]
+    if launches["decode_attention_paged_chunk"] != LAYERS * steps:
+        fail(f"serve_paged: paged chunk kernel launched "
+             f"{launches['decode_attention_paged_chunk']} times over "
+             f"{steps} steps, want {LAYERS * steps}")
+    counts = {"prefix_cache_hits": snap["prefix_cache_hits_total"],
+              "prefix_cache_misses": snap["prefix_cache_misses_total"],
+              "cow_forks": snap["cow_forks_total"],
+              "preemptions": snap["evictions"]["pool_exhausted"],
+              "reseats": snap["slot_reprefills_total"]}
+    if not (counts["prefix_cache_hits"] > 0 and counts["cow_forks"] > 0
+            and counts["preemptions"] > 0):
+        fail(f"serve_paged: want prefix hits, copy-on-write forks and a "
+             f"pool-exhausted preemption, got {counts}")
+    checked = check_streams(torch, transformer, params, prompts + burst,
+                            outs, "serve_paged")
+    emit({"phase": "serve_paged", "block_size": PAGE_BS,
+          "pool_blocks": PAGED_POOL, "slab_equivalent_blocks": PAGE_BLOCKS,
+          "prompt_lengths": [len(p) for p in prompts],
+          **serve_record(run, n_tok), "burst_requests": len(burst),
+          **counts, "kv_blocks_free_after": snap["kv_blocks_free"],
+          "tokens_checked_vs_lm_generate": checked,
+          "tokens_total": len(outs) * n_tok})
+    return launches
+
+
+def run_ladder(torch, dev, transformer, kernels, params, rng):
+    """The legacy prefill ladder on both layouts: 8 staggered requests
+    straight to the batcher.  Returns each layout's launches."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    from paddle_tpu_torch.serving import DecodeEngine, GenerationBatcher
+    prompts = [rng.randint(3, VOCAB, n).tolist() for n in LADDER_PROMPTS]
+    record, launches = {"phase": "ladder", "prompt_lengths":
+                        list(LADDER_PROMPTS)}, {}
+    for layout, step_kernel in (("slab", dk.NAME_SLAB),
+                                ("paged", dk.NAME_PAGED)):
+        engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                              max_len=SERVE_MAX_LEN, prefill_chunk=0,
+                              kv_layout=layout, kv_block_size=PAGE_BS,
+                              name=f"ladder_{layout}", device=dev)
+        gen = GenerationBatcher(engine)
+        kernels.reset_launches()
+        steps0 = engine.metrics.decode_steps_total
+        batches0 = engine.prefill_batches_total
+        t0 = time.perf_counter()
+        futs = []
+        for p in prompts:
+            futs.append(gen.submit(p, max_tokens=LADDER_TOKENS))
+            time.sleep(0.01)
+        outs = [f.result(timeout=300)["tokens"] for f in futs]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = launch_counts(kernels)
+        steps = engine.metrics.decode_steps_total - steps0
+        batches = engine.prefill_batches_total - batches0
+        snap = engine.metrics.snapshot()
+        gen.close()
+        want = {"flash_attention": LAYERS * batches,
+                step_kernel: LAYERS * steps}
+        if any(got[k] != n for k, n in want.items()) \
+                or any(len(o) != LADDER_TOKENS for o in outs):
+            fail(f"ladder ({layout}): launches {got} over {batches} prefill "
+                 f"batches and {steps} steps, want {want}; tokens "
+                 f"{[len(o) for o in outs]}")
+        record[layout] = {
+            "seconds": dt, "steps": steps, "prefill_batches": batches,
+            "launches": got,
+            "tokens_per_s": len(prompts) * LADDER_TOKENS / dt,
+            "step_ms": snap["tpot_ms"], "ttft_ms": snap["ttft_ms"],
+            "tokens_checked_vs_lm_generate": check_streams(
+                torch, transformer, params, prompts, outs,
+                f"ladder ({layout})"),
+            "tokens_total": len(prompts) * LADDER_TOKENS}
+        launches[layout] = got
+    emit(record)
     return launches
 
 
@@ -695,10 +1035,13 @@ def main(argv=None):
                                             LSTM_D, timed=True)
     lstm_small = [row for d in (128, 256) for row in check_lstm_kernels(
         torch, dev, rng, 37, 13, d, timed=False)]
+    paged = check_paged_kernels(torch, dev, rng, hkv=HEADS)
+    paged_gqa = check_paged_kernels(torch, dev, rng, hkv=2)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
           "checks": [chunk, chunk_gqa, flash, flash_ragged, lstm_fwd,
-                     lstm_bwd, *lstm_small],
+                     lstm_bwd, *lstm_small, *paged.values(),
+                     *paged_gqa.values()],
           "other_head_dims": check_head_dims(torch, dev, rng),
           "lstm_reverse": check_lstm_reverse(torch, dev, rng)})
 
@@ -709,6 +1052,10 @@ def main(argv=None):
                                 rng)
     serve_launches = run_serve(torch, dev, transformer, kernels, params,
                                rng)
+    paged_launches = run_serve_paged(torch, dev, transformer, kernels,
+                                     params, rng)
+    ladder_launches = run_ladder(torch, dev, transformer, kernels, params,
+                                 rng)
     del params
     train_launches = run_train(torch, dev, kernels)
 
@@ -734,6 +1081,25 @@ def main(argv=None):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "library_note": row["library_note"]})
+    dk = kernels.decode_attention
+    for name, replaces, launches in (
+            (dk.NAME_SLAB, dk.REPLACES_SLAB,
+             ladder_launches["slab"][dk.NAME_SLAB]),
+            (dk.NAME_PAGED, dk.REPLACES_PAGED,
+             ladder_launches["paged"][dk.NAME_PAGED]),
+            (dk.NAME_PAGED_CHUNK, dk.REPLACES_PAGED_CHUNK,
+             paged_launches[dk.NAME_PAGED_CHUNK])):
+        row = paged[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": dk.SOURCE,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(row["max_abs_err"],
+                               paged_gqa[name]["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            **({"library_note": row["library_note"]}
+               if "library_note" in row else {})})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,18 +1,28 @@
-// Chunked slab decode attention for Hopper (sm_90a), float32.
+// Decode attention for Hopper (sm_90a), float32: the four float32
+// decode-attention kernels of the serving steps, one template.
 //
 // Replaces: paddle_tpu/ops/pallas/decode_attention.py ::
-//   decode_attention_slab_chunk (pallas_call at :605; body _chunk_kernel
-//   :315 and _accumulate :187) -- the attention of the default serving
-//   step, lm_decode_chunk_slots.
+//   decode_attention_slab_chunk   (pallas_call at :605; _chunk_kernel :315)
+//   decode_attention_slab         (:454; _slab_kernel :274)
+//   decode_attention_paged_chunk  (:675; _paged_chunk_kernel :376, index
+//                                  map _kv_map :649)
+//   decode_attention_paged        (:530; _paged_kernel :307)
+// all built on _accumulate :187 (the masked online softmax).
 //
-// Computes: q [S, K, D] (K query lanes per slot row), k/v [S, T, Dkv]
-//   (the row's slab stripe, already holding this step's writes), qpos
-//   [S, K] int32 -> out [S, K, D].  Lane i of row r attends columns
-//   <= qpos[r, i] with a masked online softmax (masked scores sit at
-//   -1e30, whose exp is exactly 0), finalized as acc / max(l, 1e-30).
-//   GQA: query head h reads KV head h / (H / Hkv).  Decode-row fast
-//   path: when qpos[r, K-1] == qpos[r, 0] the row has one live lane;
-//   only lane 0 is computed and lanes 1..K-1 are written as exact zeros.
+// Computes: q [S, K, D] (K query lanes per row; K = 1 for the Tq=1
+//   kernels, whose q is [S, D]), qpos [S, K] int32 -> out [S, K, D].  Lane
+//   i of row r attends the row's logical K/V columns <= qpos[r, i] with a
+//   masked online softmax (masked scores sit at -1e30, whose exp is
+//   exactly 0), finalized as acc / max(l, 1e-30).  GQA: query head h
+//   reads KV head h / (H / Hkv).  Decode-row fast path: when
+//   qpos[r, K-1] == qpos[r, 0] the row has one live lane; only lane 0 is
+//   computed and lanes 1..K-1 are written as exact zeros (for K = 1 this
+//   is just the one lane).
+//   K/V source: slab — k/v [S, T, Dkv], row r's column t at row r, t;
+//   paged — the shared pool k/v [NB, bs, Dkv] and tables [S, nb_row]
+//   int32, row r's column t at pool block tables[r, t / bs], offset
+//   t % bs.  Several rows may read one pool block (a shared prefix): the
+//   kernel only reads.
 //
 // Bound on this card: bytes.  Each (row, KV head) stripe of K and V is
 //   read from device memory once, up to the row's furthest lane; the
@@ -23,18 +33,27 @@
 //   warps, one query vector (lane i, head h) per warp.  Hopper runs CTAs
 //   in no order, so the TPU kernel's sequential (S, T/blk) grid with
 //   scratch carried across steps becomes a loop inside the CTA over
-//   32-row K/V tiles of the head's dh-column stripe, from column 0 to the
-//   CTA's furthest live lane (the clamp).  Tiles are loaded with
-//   coalesced 16-byte loads into shared memory (row stride dh + 1, so the
-//   per-lane score reads are bank-conflict free) and shared by all
-//   warps.  Within a tile, lane c of a warp scores column t0 + c; the
-//   running max / sum live in registers, the accumulator is spread over
-//   the lanes (dh / 32 values each).  Every query vector of the row's
-//   group shares the K/V tile, so GQA costs no widened K/V.  A tile past
-//   a warp's own position is skipped: on the TPU that visit is a
-//   bit-exact no-op (every score masked, alpha = 1).
+//   32-column K/V tiles of the head's dh-column stripe, from column 0 to
+//   the CTA's furthest live lane (the clamp, as the TPU index maps clamp
+//   at qpos[r, K-1]).  Before each tile the first warp turns the tile's
+//   32 logical columns into row offsets in shared memory: the column
+//   itself on the slab, tables[r, t / bs] * bs + t % bs on the pool (one
+//   table word per column, the 16 columns of a bs = 16 block reading the
+//   same word); columns past the clamp get no offset and load as zeros,
+//   so no table entry past the row's furthest block is ever read and a
+//   free row (position 0, table all scratch) reads block 0 only.  Tiles
+//   are loaded with coalesced 16-byte loads into shared memory (row
+//   stride dh + 1, so the per-lane score reads are bank-conflict free)
+//   and shared by all warps.  Within a tile, lane c of a warp scores
+//   column t0 + c; the running max / sum live in registers, the
+//   accumulator is spread over the lanes (dh / 32 values each).  Every
+//   query vector of the row's group shares the K/V tile, so GQA costs no
+//   widened K/V.  A tile past a warp's own position is skipped: on the
+//   TPU that visit is a bit-exact no-op (every score masked, alpha = 1).
+//   A bs = 16 pool row walks up to 16 small blocks, two to a tile; the
+//   tile is not resized to the block.
 //   Later work (ROADMAP): split-KV for the small main-path grid, TMA
-//   loads, and a tensor-core product.
+//   loads, a tensor-core product, fewer warps for the Tq=1 grids.
 
 #include <cuda_runtime.h>
 
@@ -57,18 +76,22 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int DH>
+// kPaged: K/V from the pool through the row's block table (span =
+// nb_row * bs logical columns); else from the row's slab stripe (span =
+// T, bs and tables unused).
+template <int DH, bool kPaged>
 __global__ void __launch_bounds__(kWarps * 32)
-chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const int* __restrict__ qpos,
-             float* __restrict__ out, int K, int T, int H, int Hkv,
-             float scale) {
+attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const int* __restrict__ qpos,
+            const int* __restrict__ tables, float* __restrict__ out, int K,
+            int span, int bs, int nb_row, int H, int Hkv, float scale) {
   constexpr int kPerLane = (DH + 31) / 32;   // accumulator values per lane
   constexpr int kLd = DH + 1;                // padded shared row stride
   constexpr int kVec = DH / 4;               // float4s per K/V row
   __shared__ float ks[kTile * kLd];
   __shared__ float vs[kTile * kLd];
   __shared__ float qs[kWarps][DH];
+  __shared__ long long s_row[kTile];         // source row of each column
   __shared__ int s_hi;
 
   const int r = blockIdx.x;
@@ -95,22 +118,35 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = lane; d < DH; d += 32) qs[warp][d] = qrow[d];
   }
   __syncthreads();
-  const int hi = min(s_hi, T - 1);            // the clamp
+  const int hi = min(s_hi, span - 1);         // the clamp
 
-  const float* kb = k + (size_t)r * T * Dkv + (size_t)g * DH;
-  const float* vb = v + (size_t)r * T * Dkv + (size_t)g * DH;
+  const int* tbl = kPaged ? tables + (size_t)r * nb_row : nullptr;
+  const float* kb = k + (size_t)g * DH;
+  const float* vb = v + (size_t)g * DH;
+  const size_t slab_row0 = kPaged ? 0 : (size_t)r * span;
   float m = kNeg, l = 0.f;
   float acc[kPerLane];
 #pragma unroll
   for (int u = 0; u < kPerLane; ++u) acc[u] = 0.f;
 
   for (int t0 = 0; t0 <= hi; t0 += kTile) {
+    if (threadIdx.x < kTile) {
+      const int t = t0 + threadIdx.x;
+      long long src = -1;
+      if (t <= hi) {
+        src = kPaged ? (long long)tbl[t / bs] * bs + t % bs
+                     : (long long)(slab_row0 + t);
+      }
+      s_row[threadIdx.x] = src;
+    }
+    __syncthreads();
     for (int e = threadIdx.x; e < kTile * kVec; e += kWarps * 32) {
-      const int row = e / kVec, c = (e % kVec) * 4, t = t0 + row;
+      const int row = e / kVec, c = (e % kVec) * 4;
+      const long long src = s_row[row];
       float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (t < T) {
-        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)t * Dkv + c);
-        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)t * Dkv + c);
+      if (src >= 0) {
+        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)src * Dkv + c);
+        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)src * Dkv + c);
       }
       float* kd = ks + row * kLd + c;
       float* vd = vs + row * kLd + c;
@@ -156,36 +192,75 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int decode_attention_slab_chunk_f32(
-    const float* q, const float* k, const float* v, const int* qpos,
-    float* out, int S, int K, int T, int H, int Hkv, int dh, float scale,
-    void* stream) {
+template <bool kPaged>
+int launch(const float* q, const float* k, const float* v, const int* qpos,
+           const int* tables, float* out, int S, int K, int span, int bs,
+           int nb_row, int H, int Hkv, int dh, float scale, void* stream) {
   const int nq = K * (H / Hkv);
   const dim3 grid(S, Hkv, (nq + kWarps - 1) / kWarps);
   const dim3 block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16:
-      chunk_kernel<16><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
-                                               Hkv, scale);
+      attn_kernel<16, kPaged><<<grid, block, 0, st>>>(
+          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
       break;
     case 32:
-      chunk_kernel<32><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
-                                               Hkv, scale);
+      attn_kernel<32, kPaged><<<grid, block, 0, st>>>(
+          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
       break;
     case 64:
-      chunk_kernel<64><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
-                                               Hkv, scale);
+      attn_kernel<64, kPaged><<<grid, block, 0, st>>>(
+          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
       break;
     case 128:
-      chunk_kernel<128><<<grid, block, 0, st>>>(q, k, v, qpos, out, K, T, H,
-                                                Hkv, scale);
+      attn_kernel<128, kPaged><<<grid, block, 0, st>>>(
+          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each entry returns cudaGetLastError() after the launch (0 = launched).
+
+// q [S, K, D], k/v [S, T, Dkv], qpos [S, K] -> out [S, K, D]
+extern "C" int decode_attention_slab_chunk_f32(
+    const float* q, const float* k, const float* v, const int* qpos,
+    float* out, int S, int K, int T, int H, int Hkv, int dh, float scale,
+    void* stream) {
+  return launch<false>(q, k, v, qpos, nullptr, out, S, K, T, 1, 1, H, Hkv,
+                       dh, scale, stream);
+}
+
+// q [S, D], k/v [S, T, Dkv], positions [S] -> out [S, D]
+extern "C" int decode_attention_slab_f32(
+    const float* q, const float* k, const float* v, const int* positions,
+    float* out, int S, int T, int H, int Hkv, int dh, float scale,
+    void* stream) {
+  return launch<false>(q, k, v, positions, nullptr, out, S, 1, T, 1, 1, H,
+                       Hkv, dh, scale, stream);
+}
+
+// q [S, K, D], pool k/v [NB, bs, Dkv], qpos [S, K], tables [S, nb_row]
+// -> out [S, K, D]
+extern "C" int decode_attention_paged_chunk_f32(
+    const float* q, const float* k, const float* v, const int* qpos,
+    const int* tables, float* out, int S, int K, int bs, int nb_row, int H,
+    int Hkv, int dh, float scale, void* stream) {
+  return launch<true>(q, k, v, qpos, tables, out, S, K, nb_row * bs, bs,
+                      nb_row, H, Hkv, dh, scale, stream);
+}
+
+// q [S, D], pool k/v [NB, bs, Dkv], positions [S], tables [S, nb_row]
+// -> out [S, D]
+extern "C" int decode_attention_paged_f32(
+    const float* q, const float* k, const float* v, const int* positions,
+    const int* tables, float* out, int S, int bs, int nb_row, int H,
+    int Hkv, int dh, float scale, void* stream) {
+  return launch<true>(q, k, v, positions, tables, out, S, 1, nb_row * bs,
+                      bs, nb_row, H, Hkv, dh, scale, stream);
 }

@@ -13,14 +13,18 @@ mapping (``params_from_numpy``):
 
 Weights are ``[in, out]``.  Where the JAX functions return a new KV cache
 (and the engine donated the old one), these write the cache in place and
-return the same list.  Two attention kernels carry this file:
-``decode_attention_slab_chunk`` in the chunked serving step and
-``flash_attention`` in the prefill's batched causal pass; both dispatch
-on the device of the tensors they are handed.
+return the same list.  The KV cache is a slab ``[S, max_len, Dkv]`` per
+layer (``init_lm_cache``) or a shared block pool ``[num_blocks,
+block_size, Dkv]`` walked through per-row block tables
+(``init_lm_cache_paged``).  Five attention kernels carry this file, one
+per step kind — ``decode_attention_slab_chunk`` / ``_paged_chunk`` (the
+chunked serving steps), ``decode_attention_slab`` / ``_paged`` (the
+Tq=1 steps of the legacy ladder) — and ``flash_attention`` in the
+prefill's batched causal pass; each dispatches on the device of the
+tensors it is handed.
 
 Not ported in this slice (ROADMAP): MoE blocks, int8 weights and KV,
-the seq2seq encoder-decoder, the paged layout and tensor-parallel
-``shard_axis``.
+the seq2seq encoder-decoder and tensor-parallel ``shard_axis``.
 """
 
 import math
@@ -231,6 +235,29 @@ def init_lm_cache(params, batch, max_len, kv_dtype=None, num_heads=None):
     return _kv_layer_buffers(params, (batch, max_len), kv_dtype)
 
 
+def init_lm_cache_paged(params, num_blocks, block_size, max_len=None,
+                        kv_dtype=None, num_heads=None):
+    """Per-layer K/V block pools ``{"k", "v"}`` of ``[num_blocks,
+    block_size, Dkv]`` — the paged twin of ``init_lm_cache``.  Block 0 is
+    the scratch block free rows read and write; the allocator
+    (``serving/kv_pool.BlockPool``) hands out ids ``1..num_blocks-1``.
+    ``max_len``: the logical per-row span, capped by a learned positional
+    table exactly like ``init_lm_cache``."""
+    del num_heads     # sizes the int8 scale sidecars only
+    if num_blocks < 2 or block_size < 1:
+        raise ValueError(
+            f"paged cache needs num_blocks >= 2 (one is the reserved "
+            f"scratch block) and block_size >= 1; got {num_blocks}, "
+            f"{block_size}")
+    if max_len is not None and "pos" in params \
+            and max_len > _w_shape(params["pos"])[0]:
+        raise ValueError(
+            f"lm decode max_len {max_len} exceeds the positional table "
+            f"({_w_shape(params['pos'])[0]}); re-init with a larger max_len "
+            "or use pos_type='rope'")
+    return _kv_layer_buffers(params, (num_blocks, block_size), kv_dtype)
+
+
 def _check_pos_type(params, pos_type):
     if (pos_type == "learned") != ("pos" in params):
         raise ValueError(
@@ -343,6 +370,122 @@ def lm_decode_step(params, prev_ids, t, cache, num_heads=8, moe_top_k=2,
     return _lm_project(params, x)[:, 0], cache
 
 
+def _qkv(blk, x, num_heads, rope_pos):
+    """(q, k_new, v_new) projections of ``x`` [S, Tq, D], rope applied
+    to q and k at ``rope_pos`` (None: learned positions)."""
+    h = _ln(blk["ln1"], x)
+    k_new = linear.matmul(h, blk["attn"]["wk"])
+    q = linear.matmul(h, blk["attn"]["wq"])
+    if rope_pos is not None:
+        dh = q.shape[-1] // num_heads
+        k_new = _rope_flat(k_new, rope_pos, dh)
+        q = _rope_flat(q, rope_pos, dh)
+    return q, k_new, linear.matmul(h, blk["attn"]["wv"])
+
+
+def _step_embed(params, ids, positions, pos_type):
+    """Embedded ``ids`` [S] or [S, K] at ``positions`` of the same shape
+    -> [S, 1, D] or [S, K, D], scaled by sqrt(D), learned positions
+    added."""
+    x = _lm_embed(params, ids)
+    x = x * math.sqrt(x.shape[-1])
+    if pos_type == "learned":
+        x = x + params["pos"][positions.long()]
+    return x if ids.dim() == 2 else x[:, None]
+
+
+def _cached_self_attn_slots(blk, x, c, positions, num_heads, rope_pos=None):
+    """One position per slot row, each at its own ``positions[r]``: row r
+    writes its K/V at (r, positions[r]) in place and its query attends
+    cols <= positions[r] through the ``decode_attention_slab`` kernel.
+    Row r computes exactly ``_cached_self_attn`` at t = positions[r]."""
+    q, k_new, v_new = _qkv(blk, x, num_heads, rope_pos)
+    rows = torch.arange(x.shape[0], device=x.device)
+    k_set, v_set, sk, sv = _kv_writes(c, k_new[:, 0], v_new[:, 0])
+    index = (rows, positions.long())
+    _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
+               k_set, v_set, sk, sv)
+    att = _decode_kernel.decode_attention_slab(
+        q[:, 0].contiguous(), _kv_view(c["k"], None), _kv_view(c["v"], None),
+        positions, num_heads)
+    return x + linear.matmul(att[:, None], blk["attn"]["wo"])
+
+
+def lm_decode_step_slots(params, prev_ids, positions, cache, num_heads=8,
+                         moe_top_k=2, pos_type="learned"):
+    """One decode position for EVERY row of a slot slab, each row at its
+    OWN position — the continuous-batching twin of ``lm_decode_step``
+    (the legacy ladder engine's step).  prev_ids [S], positions [S];
+    cache as ``init_lm_cache``, written in place -> (logits [S, V],
+    cache)."""
+    del moe_top_k
+    params = _maybe_dequant(params)
+    dev = params["src_emb"].device
+    prev_ids = _ids(prev_ids, dev)
+    positions = _ids(positions, dev)
+    x = _step_embed(params, prev_ids, positions, pos_type)
+    rope_pos = positions[:, None] if pos_type == "rope" else None
+    for blk, c in zip(params["enc"], cache):
+        x = _cached_self_attn_slots(blk, x, c, positions, num_heads,
+                                    rope_pos)
+        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+    return _lm_project(params, x)[:, 0], cache
+
+
+def _paged_targets(tables, qpos, block_size):
+    """(block ids, offsets) where positions ``qpos`` ([S] or [S, K]) of
+    each row live in the pool: ``tables[r, p // bs]``, ``p % bs``."""
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    if qpos.dim() == 2:
+        rows = rows[:, None]
+    qpos = qpos.long()
+    return tables.long()[rows, qpos // block_size], qpos % block_size
+
+
+def _cached_self_attn_paged(blk, x, c, positions, tables, num_heads,
+                            rope_pos=None):
+    """``_cached_self_attn_slots`` over the block pool: row r writes its
+    K/V at ``pool[tables[r, p // bs], p % bs]`` (p = positions[r]) in
+    place and attends its own chain through the
+    ``decode_attention_paged`` kernel.  The host makes every block an
+    active row writes exclusive first (``kv_pool.write_plan``).  Free
+    rows' tables are all scratch block 0 at position 0, so they write
+    (block 0, offset 0) — several free rows write one target with
+    different values, harmlessly: no active row ever reads block 0."""
+    q, k_new, v_new = _qkv(blk, x, num_heads, rope_pos)
+    index = _paged_targets(tables, positions, c["k"].shape[1])
+    k_set, v_set, sk, sv = _kv_writes(c, k_new[:, 0], v_new[:, 0])
+    _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
+               k_set, v_set, sk, sv)
+    att = _decode_kernel.decode_attention_paged(
+        q[:, 0].contiguous(), _kv_view(c["k"], None), _kv_view(c["v"], None),
+        positions, tables, num_heads)
+    return x + linear.matmul(att[:, None], blk["attn"]["wo"])
+
+
+def lm_decode_step_paged(params, prev_ids, positions, cache, tables,
+                         num_heads=8, moe_top_k=2, pos_type="learned"):
+    """The block-pool twin of ``lm_decode_step_slots``: cache as
+    ``init_lm_cache_paged`` (written in place), tables [S,
+    blocks_per_row] int32 physical block ids -> (logits [S, V], cache).
+    Row r computes exactly ``lm_decode_step_slots``'s result at
+    t = positions[r]; the table is data, so admission, eviction and
+    copy-on-write churn between steps change no shape."""
+    del moe_top_k
+    params = _maybe_dequant(params)
+    dev = params["src_emb"].device
+    prev_ids = _ids(prev_ids, dev)
+    positions = _ids(positions, dev)
+    tables = _ids(tables, dev)
+    x = _step_embed(params, prev_ids, positions, pos_type)
+    rope_pos = positions[:, None] if pos_type == "rope" else None
+    for blk, c in zip(params["enc"], cache):
+        x = _cached_self_attn_paged(blk, x, c, positions, tables, num_heads,
+                                    rope_pos)
+        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+    return _lm_project(params, x)[:, 0], cache
+
+
 def _chunk_lanes(positions, lengths, kk):
     """(clamped lane indices [S, K], per-lane query positions [S, K]),
     both int32.  Lanes past a row's ``lengths`` clamp to its LAST active
@@ -361,20 +504,7 @@ def _cached_self_attn_chunk(blk, x, c, li, qpos, num_heads, rope_pos=None):
     attention, so causality within the chunk falls out of the masked
     cache read."""
     s = x.shape[0]
-    h = _ln(blk["ln1"], x)
-    k_new = linear.matmul(h, blk["attn"]["wk"])
-    q = linear.matmul(h, blk["attn"]["wq"])
-    if rope_pos is not None:
-        dh = q.shape[-1] // num_heads
-        k_new = _rope_flat(k_new, rope_pos, dh)
-        q = _rope_flat(q, rope_pos, dh)
-    v_new = linear.matmul(h, blk["attn"]["wv"])
-    # clamped-lane selection: inactive lanes take the last active lane's
-    # values, so their duplicate-target writes are identical — the one
-    # reason the unordered duplicate scatter below is deterministic
-    sel = li.long()[:, :, None]
-    k_sel = torch.gather(k_new, 1, sel.expand(-1, -1, k_new.shape[-1]))
-    v_sel = torch.gather(v_new, 1, sel.expand(-1, -1, v_new.shape[-1]))
+    q, k_sel, v_sel = _chunk_qkv(blk, x, li, num_heads, rope_pos)
     k_set, v_set, sk, sv = _kv_writes(c, k_sel, v_sel)
     index = (torch.arange(s, device=x.device)[:, None], qpos.long())
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
@@ -382,6 +512,60 @@ def _cached_self_attn_chunk(blk, x, c, li, qpos, num_heads, rope_pos=None):
     att = _decode_kernel.decode_attention_slab_chunk(
         q, _kv_view(c["k"], None), _kv_view(c["v"], None), qpos, num_heads)
     return x + linear.matmul(att, blk["attn"]["wo"])
+
+
+def _chunk_qkv(blk, x, li, num_heads, rope_pos):
+    """(q, k_sel, v_sel) for K lanes per row: the K/V each lane writes,
+    with inactive lanes (li clamped) taking the last active lane's
+    values, so their duplicate-target writes are identical — the one
+    reason the unordered duplicate scatter after it is deterministic."""
+    q, k_new, v_new = _qkv(blk, x, num_heads, rope_pos)
+    sel = li.long()[:, :, None]
+    k_sel = torch.gather(k_new, 1, sel.expand(-1, -1, k_new.shape[-1]))
+    v_sel = torch.gather(v_new, 1, sel.expand(-1, -1, v_new.shape[-1]))
+    return q, k_sel, v_sel
+
+
+def _cached_self_attn_chunk_paged(blk, x, c, li, qpos, tables, num_heads,
+                                  rope_pos=None):
+    """``_cached_self_attn_chunk`` over the block pool: lane i of row r
+    writes into ``pool[tables[r, qpos // bs], qpos % bs]`` in place (the
+    host provisions exclusive blocks for the whole span before the step)
+    and attends its own chain through the ``decode_attention_paged_chunk``
+    kernel.  Clamped lanes re-write identical values to identical
+    targets; free rows all target scratch block 0, which no active row
+    reads."""
+    q, k_sel, v_sel = _chunk_qkv(blk, x, li, num_heads, rope_pos)
+    index = _paged_targets(tables, qpos, c["k"].shape[1])
+    k_set, v_set, sk, sv = _kv_writes(c, k_sel, v_sel)
+    _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
+               k_set, v_set, sk, sv)
+    att = _decode_kernel.decode_attention_paged_chunk(
+        q, _kv_view(c["k"], None), _kv_view(c["v"], None), qpos, tables,
+        num_heads)
+    return x + linear.matmul(att, blk["attn"]["wo"])
+
+
+def _chunk_step(params, tokens, positions, lengths, cache, pos_type,
+                all_lanes, attn):
+    """The chunked step around ``attn(blk, x, c, li, qpos, rope_pos)``,
+    one layer's cached self-attention (slab or paged)."""
+    params = _maybe_dequant(params)
+    dev = params["src_emb"].device
+    tokens = _ids(tokens, dev)
+    positions = _ids(positions, dev)
+    lengths = _ids(lengths, dev)
+    s, kk = tokens.shape
+    li, qpos = _chunk_lanes(positions, lengths, kk)
+    x = _step_embed(params, tokens, qpos, pos_type)
+    rope_pos = qpos if pos_type == "rope" else None
+    for blk, c in zip(params["enc"], cache):
+        x = attn(blk, x, c, li, qpos, rope_pos)
+        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+    if all_lanes:
+        return _lm_project(params, x), cache
+    h_last = x[torch.arange(s, device=dev), (lengths - 1).long()]
+    return _lm_project(params, h_last), cache
 
 
 def lm_decode_chunk_slots(params, tokens, positions, lengths, cache,
@@ -395,26 +579,29 @@ def lm_decode_chunk_slots(params, tokens, positions, lengths, cache,
     past a row's ``lengths`` are not meaningful there (a decode row's
     dead lanes attend to the kernel's zeros)."""
     del moe_top_k
-    params = _maybe_dequant(params)
-    dev = params["src_emb"].device
-    tokens = _ids(tokens, dev)
-    positions = _ids(positions, dev)
-    lengths = _ids(lengths, dev)
-    s, kk = tokens.shape
-    li, qpos = _chunk_lanes(positions, lengths, kk)
-    x = _lm_embed(params, tokens)
-    x = x * math.sqrt(x.shape[-1])
-    if pos_type == "learned":
-        x = x + params["pos"][qpos.long()]
-    rope_pos = qpos if pos_type == "rope" else None
-    for blk, c in zip(params["enc"], cache):
-        x = _cached_self_attn_chunk(blk, x, c, li, qpos, num_heads,
-                                    rope_pos)
-        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+    return _chunk_step(
+        params, tokens, positions, lengths, cache, pos_type, all_lanes,
+        lambda blk, x, c, li, qpos, rope: _cached_self_attn_chunk(
+            blk, x, c, li, qpos, num_heads, rope))
+
+
+def lm_decode_chunk_paged(params, tokens, positions, lengths, cache, tables,
+                          num_heads=8, moe_top_k=2, pos_type="learned",
+                          all_lanes=False):
+    """The block-pool twin of ``lm_decode_chunk_slots`` (same lane
+    semantics): cache as ``init_lm_cache_paged``, written in place;
+    tables [S, blocks_per_row] int32 -> (logits [S, V] at each row's last
+    fed lane, cache).  ``all_lanes`` (the speculative verify surface) is
+    not ported and raises."""
+    del moe_top_k
     if all_lanes:
-        return _lm_project(params, x), cache
-    h_last = x[torch.arange(s, device=dev), (lengths - 1).long()]
-    return _lm_project(params, h_last), cache
+        raise NotImplementedError(f"all_lanes on the paged step is "
+                                  f"{_ROADMAP}")
+    tables = _ids(tables, cache[0]["k"].device)
+    return _chunk_step(
+        params, tokens, positions, lengths, cache, pos_type, False,
+        lambda blk, x, c, li, qpos, rope: _cached_self_attn_chunk_paged(
+            blk, x, c, li, qpos, tables, num_heads, rope))
 
 
 # ------------------------------------------------------------- generate

@@ -21,6 +21,9 @@ def build():
 
 def reset_launches():
     decode_attention.launches = 0
+    decode_attention.launches_slab = 0
+    decode_attention.launches_paged = 0
+    decode_attention.launches_paged_chunk = 0
     flash_attention.launches = 0
     lstm.launches_fwd = 0
     lstm.launches_bwd = 0

@@ -1,12 +1,17 @@
 """Where the serving step's time goes on the card.
 
     python -m paddle_tpu_torch.scripts.profile_step [--seed N] [--steps N]
+        [--kv-layout slab|paged]
 
 Builds the full-width Transformer-base trunk (vocab 32000, d_model 512,
 8 heads, dff 2048, 6 layers; random weights from --seed) behind the
 serving engine's step (8 slots, max_len 256, chunk K = 8) and runs the
-step on a fixed slot mix: six decode rows spread over the slab and two
-rows ingesting full 8-token prompt chunks.  Prints one JSON line with,
+step on a fixed slot mix: six decode rows spread over the cache and two
+rows ingesting full 8-token prompt chunks.  On the paged layout (block
+size 16, the slab-equivalent pool of 129 blocks) each slot holds a
+private chain covering its positions, and a step is the engine's
+``prepare_step`` (the host's block provisioning) plus the step with its
+block tables uploaded.  Prints one JSON line with,
 per step: the host wall time (the step ends in its one host sync), the
 device time between two CUDA events around it, the device time the
 profiler attributes to kernels, the device's idle share (1 - kernel
@@ -26,7 +31,7 @@ from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.serving.server import BASE_LM
 from paddle_tpu_torch.serving.decode_engine import DecodeEngine
 
-SLOTS, MAX_LEN, CHUNK = 8, 256, 8
+SLOTS, MAX_LEN, CHUNK, BLOCK_SIZE = 8, 256, 8, 16
 
 
 def slot_mix():
@@ -89,6 +94,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--kv-layout", default="slab", choices=("slab", "paged"))
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
     params = transformer.init_lm(
@@ -97,14 +103,29 @@ def main(argv=None):
         BASE_LM["layers"], MAX_LEN, device=dev)
     engine = DecodeEngine(params, num_heads=BASE_LM["num_heads"],
                           num_slots=SLOTS, max_len=MAX_LEN,
-                          prefill_chunk=CHUNK, device=dev)
+                          prefill_chunk=CHUNK, kv_layout=args.kv_layout,
+                          kv_block_size=BLOCK_SIZE, device=dev)
     tokens, pos, lens = slot_mix()
-    for _ in range(10):
+    # every slot active at the mix's positions (paged: a private chain
+    # covering the positions this step writes)
+    engine._free = []
+    engine._pos[:] = pos
+    engine._len[:] = lens
+    if engine._paged is not None:
+        for slot in range(SLOTS):
+            engine._paged.seat_fresh(slot, int(pos[slot] + lens[slot]))
+
+    def step():
+        engine.prepare_step()
         engine._run(tokens, pos, lens)
+
+    for _ in range(10):
+        step()
     print(json.dumps({
         "slots": SLOTS, "max_len": MAX_LEN, "chunk": CHUNK,
+        "kv_layout": args.kv_layout,
         "mix": "6 decode rows + 2 rows of 8 prompt lanes",
-        **measure(lambda: engine._run(tokens, pos, lens), args.steps),
+        **measure(step, args.steps),
     }), flush=True)
     return 0
 

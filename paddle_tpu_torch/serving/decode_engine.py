@@ -1,31 +1,49 @@
 """Continuous-batching generation: the slot-based KV-cache decode engine
 and its request front (``paddle_tpu/serving/decode_engine.py``).
 
-* ``DecodeEngine`` — a fixed-shape KV-cache SLAB ``[num_slots, max_len,
-  Dkv]`` per layer plus per-slot host state in numpy.  ONE static-shape
-  step (``lm_decode_chunk_slots`` + argmax) advances every slot: decode
-  rows by one token, admitting rows by up to K prompt tokens (unified
-  chunked prefill — prompt ingestion rides the decode step as K-lane
-  chunks, their re-derived emissions swallowed until the last chunk,
-  whose output is the first real token).  Tokens, positions and lane
-  counts are data, so admission and eviction never change the step's
-  shapes; they happen between steps, on the host.  The step writes the
-  cache in place where the JAX engine donated it.
+* ``DecodeEngine`` — a KV cache per layer plus per-slot host state in
+  numpy.  ONE static-shape step plus argmax advances every slot; tokens,
+  positions, lane counts and block tables are data, so admission and
+  eviction never change the step's shapes — they happen between steps,
+  on the host.  The step writes the cache in place where the JAX engine
+  donated it.  Two layouts:
+
+  - ``kv_layout="slab"``: one ``[num_slots, max_len, Dkv]`` row per slot;
+  - ``kv_layout="paged"``: a shared ``[kv_num_blocks, kv_block_size,
+    Dkv]`` block pool plus per-slot block tables, managed on the host by
+    ``serving/kv_pool.py`` (free list, refcounts, a prefix index, and
+    copy-on-write forks).  Memory is committed per block as a stream
+    grows, requests sharing a prompt prefix admit by reference to the
+    resident blocks, and a dry pool preempts the youngest slot, whose
+    request re-seats later with its stream unchanged.
+
+  And two ways to ingest a prompt:
+
+  - ``prefill_chunk = K > 0`` (the serving CLI default): unified chunked
+    prefill — prompts ride the decode step as up-to-K-lane chunks, their
+    re-derived emissions swallowed until the last chunk, whose output is
+    the first real token;
+  - ``prefill_chunk = 0``, the legacy ladder: prompts are padded to a
+    length bucket (``prefill_buckets``) and a batch bucket
+    (``prefill_batch_buckets``), run through ``lm_prefill`` (the
+    ``flash_attention`` kernel), their rows written into the slot, and
+    the first token emitted at admission; the step is the Tq=1 one.
 
 * ``GenerationBatcher`` — the request front: bounded queue, per-request
   deadlines, continuous admission into free slots, streaming
   ``on_token`` callbacks, graceful drain, and batch-failure isolation (a
   failed step fails only the requests in flight; the engine resets and
-  keeps serving).
+  keeps serving).  On the paged layout, requests the pool cannot hold
+  yet wait (``_waiting``) and preempted ones re-seat (``_preempted``).
 
-Greedy decode only (argmax inside the step).  Ported here: the slab
-layout with ``prefill_chunk = K > 0`` and a float32 KV cache.  The paged
-layout, the legacy prefill ladder (``prefill_chunk=0``), speculative
-decoding, tensor-parallel meshes, the host KV tier, int8 KV, supervised
-recovery, continuation replay, fault injection and trace spans are not
-ported yet (ROADMAP) and raise ``ConfigError`` where they are options.
+Greedy decode only (argmax inside the step), float32 KV.  Not ported yet
+(ROADMAP), each raising ``ConfigError`` where it is an option:
+speculative decoding, tensor-parallel meshes, the host KV tier, int8 KV,
+supervised recovery, continuation replay; and fault injection and trace
+spans.
 """
 
+import collections
 import queue
 import threading
 import time
@@ -41,9 +59,14 @@ from paddle_tpu_torch.serving.errors import (BatchExecutionError,
                                              DeadlineExceededError,
                                              InvalidRequestError,
                                              OverloadedError, ShutdownError)
+from paddle_tpu_torch.serving.kv_pool import (InsufficientBlocksError,
+                                              PagedKVState,
+                                              slab_equivalent_blocks)
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.logging import logger
+
+DEFAULT_PREFILL_BUCKETS = (32, 64)
 
 
 def _not_ported(what):
@@ -51,34 +74,52 @@ def _not_ported(what):
                        "(ROADMAP)")
 
 
+def _buckets(name, values):
+    out = tuple(sorted({int(b) for b in values}))
+    if not out or out[0] < 1:
+        raise ConfigError(f"bad {name} {values!r}")
+    return out
+
+
 class DecodeEngine:
     """Slot-based continuous-batching decoder over a decoder-only LM trunk
     (``models/transformer`` params).
 
     params: the trunk dict (moved to ``device``); num_slots: concurrent
-    requests the slab holds; max_len: slab length — every request must
-    satisfy ``len(prompt) + max_tokens <= max_len``; prefill_chunk: K,
-    the token lanes per slot per step (the serving CLI default 8; the
-    JAX engine's legacy ``0`` is not ported); prefill_chunk_budget: max
-    teacher-forced lanes one step may feed across all slots (0 =
-    unbounded); eos_id: default stop token.  device: ``None`` = the
-    card (raises without one), or ``"cpu"``.
+    requests; max_len: per-slot span — every request must satisfy
+    ``len(prompt) + max_tokens <= max_len``; eos_id: default stop token.
+    device: ``None`` = the card (raises without one), or ``"cpu"``.
 
-    Slot lifecycle: FREE -> seated at position 0 (``seat_chunked``) ->
-    prompt chunks -> one emitted token per step -> EVICTED (eos | length
-    | error | shutdown | abandoned) -> FREE.
+    prefill_chunk: K, the token lanes per slot per step (the serving CLI
+    default 8), or 0 for the legacy prefill ladder; prefill_chunk_budget:
+    max teacher-forced lanes one step may feed across all slots (0 =
+    unbounded).  prefill_buckets: the ladder's prompt-length buckets
+    (prompts pad up to the nearest; the top one caps prompt length);
+    prefill_batch_buckets: the batch sizes one ladder prefill pads to.
+
+    kv_layout: ``"slab"`` or ``"paged"``.  Paged only: kv_block_size
+    (positions per block); kv_num_blocks (pool size including the
+    scratch block 0; 0 = the slab-equivalent ``num_slots * ceil(max_len
+    / block_size) + 1``); prefix_cache (share resident prompt-prefix
+    blocks across requests, copy-on-write on divergence).
+
+    Slot lifecycle: FREE -> seated (chunked: at position 0 with the
+    prompt as its feed; ladder: prefilled, at position len(prompt)) ->
+    one emitted token per step -> EVICTED (eos | length | error |
+    shutdown | abandoned | pool_exhausted) -> FREE.
     """
 
     def __init__(self, params, *, num_heads=8, num_slots=8, max_len=256,
-                 eos_id=None, moe_top_k=2, pos_type="learned", metrics=None,
-                 name="lm", warm=True, kv_layout="slab", prefill_chunk=8,
-                 prefill_chunk_budget=0, kv_dtype="float32", speculate_k=0,
-                 draft=None, mesh=None, kv_host_bytes=0, device=None):
-        if kv_layout != "slab":
-            raise _not_ported(f"kv_layout={kv_layout!r} is")
-        if not prefill_chunk:
-            raise _not_ported("prefill_chunk=0 (the legacy prefill ladder) "
-                              "is")
+                 prefill_buckets=DEFAULT_PREFILL_BUCKETS,
+                 prefill_batch_buckets=(1, 4), eos_id=None, moe_top_k=2,
+                 pos_type="learned", metrics=None, name="lm", warm=True,
+                 kv_layout="slab", kv_block_size=16, kv_num_blocks=0,
+                 prefix_cache=True, prefill_chunk=8, prefill_chunk_budget=0,
+                 kv_dtype="float32", speculate_k=0, draft=None, mesh=None,
+                 kv_host_bytes=0, device=None):
+        if kv_layout not in ("slab", "paged"):
+            raise ConfigError(f"kv_layout={kv_layout!r} (supported: "
+                              "'slab', 'paged')")
         if kv_dtype != "float32":
             raise _not_ported(f"kv_dtype={kv_dtype!r} is")
         if speculate_k or draft is not None:
@@ -101,33 +142,73 @@ class DecodeEngine:
         self.moe_top_k = moe_top_k
         self.pos_type = pos_type
         self.name = name
-        self.prefill_chunk = int(prefill_chunk)
+        self.kv_layout = kv_layout
+        self.prefill_chunk = int(prefill_chunk or 0)
         self.prefill_chunk_budget = int(prefill_chunk_budget or 0)
-        if not 0 < self.prefill_chunk <= self.max_len:
+        if not 0 <= self.prefill_chunk <= self.max_len:
             raise ConfigError(f"prefill_chunk={prefill_chunk} must be in "
-                              f"[1, max_len={self.max_len}]")
+                              f"[0, max_len={self.max_len}]")
+        self.prefill_buckets = _buckets("prefill ladder", prefill_buckets)
+        self.prefill_batch_buckets = _buckets("prefill batch ladder",
+                                              prefill_batch_buckets)
+        if not self.prefill_chunk \
+                and self.prefill_buckets[-1] >= self.max_len:
+            raise ConfigError(
+                f"prefill bucket top {self.prefill_buckets[-1]} leaves no "
+                f"room to generate within max_len={self.max_len}")
         if self.num_slots < 1:
             raise ConfigError("num_slots must be >= 1")
         self.metrics = metrics or ServingMetrics()
         self.metrics.set_prefill_chunk(self.prefill_chunk)
-        # init_lm_cache validates max_len against the positional table
-        self._cache = transformer.init_lm_cache(self.params, self.num_slots,
-                                                self.max_len)
-        # host-side slot state: the K token lanes fed at the NEXT step,
-        # the lanes each slot feeds, and lane 0's position.  Free slots
-        # idle at (token 0, position 0, 1 lane): their compute is
-        # discarded and their cache row is rewritten as a new request
-        # advances through it.
-        self._tokens = np.zeros((self.num_slots, self.prefill_chunk),
-                                np.int32)
-        self._len = np.ones((self.num_slots,), np.int32)
+        self._paged = None
+        if kv_layout == "paged":
+            self.block_size = int(kv_block_size)
+            if self.block_size < 1:
+                raise ConfigError("kv_block_size must be >= 1")
+            num_blocks = (int(kv_num_blocks) if kv_num_blocks
+                          else slab_equivalent_blocks(
+                              self.num_slots, self.max_len, self.block_size))
+            self._paged = PagedKVState(self.num_slots, num_blocks,
+                                       self.block_size, self.max_len,
+                                       prefix_cache=prefix_cache)
+        self._cache = self._new_cache()
+        self.prefill_batches_total = 0     # ladder lm_prefill calls
+        # host-side slot state: the token(s) fed at the NEXT step ([S] on
+        # the ladder, [S, K] lanes when chunked), the lanes each slot
+        # feeds (chunked), and lane 0's position.  Free slots idle at
+        # (token 0, position 0, 1 lane): their compute is discarded.
+        if self.prefill_chunk:
+            self._tokens = np.zeros((self.num_slots, self.prefill_chunk),
+                                    np.int32)
+            self._len = np.ones((self.num_slots,), np.int32)
+        else:
+            self._tokens = np.zeros((self.num_slots,), np.int32)
+            self._len = None
         self._pos = np.zeros((self.num_slots,), np.int32)
         self._free = list(range(self.num_slots))[::-1]   # pop() -> slot 0
         self._warm = False
         if warm:
             self.warmup()
 
+    def _new_cache(self):
+        """A zeroed slab, or a zeroed pool with the pool gauges set (a
+        learned positional table caps max_len either way)."""
+        if self._paged is None:
+            return transformer.init_lm_cache(self.params, self.num_slots,
+                                             self.max_len)
+        pool = self._paged.pool
+        self.metrics.set_kv_pool(pool.num_free, pool.num_allocatable)
+        return transformer.init_lm_cache_paged(
+            self.params, pool.num_blocks, self.block_size,
+            max_len=self.max_len)
+
     # ------------------------------------------------------------ slots
+
+    @property
+    def chunked(self):
+        """True when prompts ride the unified chunked step, False on the
+        legacy prefill ladder."""
+        return self.prefill_chunk > 0
 
     @property
     def free_slots(self):
@@ -142,30 +223,61 @@ class DecodeEngine:
         return self._warm
 
     def _arm(self, slot, token, pos):
-        """Point a slot at (token, position) with one lane for the next
-        step."""
-        self._tokens[slot, :] = 0
-        self._tokens[slot, 0] = token
-        self._len[slot] = 1
+        """Point a slot at (token, position) for the next step — the one
+        place the two token layouts ([S] and [S, K]) meet."""
+        if self.prefill_chunk:
+            self._tokens[slot, :] = 0
+            self._tokens[slot, 0] = token
+            self._len[slot] = 1
+        else:
+            self._tokens[slot] = token
         self._pos[slot] = pos
 
     def seat_chunked(self, full):
         """Seat one request for chunked ingestion: arm a free slot at
         (``full[0]``, position 0) and return ``(slot, feed)`` where
         ``feed = full[1:]`` is what the batcher chunk-loads through the
-        step.  No device state is touched."""
+        step.  The slab touches no device state; the paged layout seats
+        an EMPTY chain that ``prepare_step`` grows block by block."""
         if not self._free:
             raise RuntimeError(f"{self.name}: no free decode slot")
         full = np.asarray(full, np.int32)
         slot = self._free.pop()
+        if self._paged is not None:
+            try:
+                self._paged.seat_fresh(slot, 0)
+            except InsufficientBlocksError:
+                self._free.append(slot)
+                raise
         self._arm(slot, full[0], 0)
         return slot, [int(t) for t in full[1:]]
 
+    def seat_cached(self, full, covered, chain):
+        """Seat a request whose leading ``covered`` positions are RESIDENT
+        in ``chain`` (a prefix-cache hit, paged only): take shared
+        references — no prefill, no copy — arm the slot at ``pre =
+        min(covered, len(full) - 1)`` with ``full[pre]``, and return
+        ``(slot, feed)``, feed = ``full[pre+1:]`` teacher-forced with its
+        emissions swallowed.  A first write inside the last shared block
+        is forked by ``prepare_step`` before the step touches it."""
+        if not self._free:
+            raise RuntimeError(f"{self.name}: no free decode slot")
+        full = np.asarray(full, np.int32)
+        pre = min(int(covered), full.size - 1)
+        slot = self._free.pop()
+        try:
+            self._paged.seat_shared(slot, chain, pre + 1)
+        except Exception:
+            self._free.append(slot)
+            raise
+        self._arm(slot, full[pre], pre)
+        return slot, [int(t) for t in full[pre + 1:]]
+
     def load_chunk(self, slot, toks):
         """Arm lanes 1..n of ``slot`` for the NEXT step (the next
-        teacher-forced prompt tokens after the slot's current token)."""
+        teacher-forced tokens after the slot's current token)."""
         n = len(toks)
-        if n >= self.prefill_chunk:
+        if not self.prefill_chunk or n >= self.prefill_chunk:
             raise RuntimeError(f"{self.name}: load_chunk({n}) needs "
                                f"prefill_chunk > {n} (engine has "
                                f"{self.prefill_chunk})")
@@ -174,74 +286,391 @@ class DecodeEngine:
         self.metrics.observe_prefill_chunk(n)
 
     def chunk_len(self, slot):
-        """Lanes the next/current step feeds for ``slot``."""
-        return int(self._len[slot])
+        """Lanes the next/current step feeds for ``slot`` (1 = decode)."""
+        return int(self._len[slot]) if self.prefill_chunk else 1
+
+    def register_context(self, slot, tokens):
+        """Publish a fully ingested prompt's prefixes into the paged
+        prefix index (no-op on the slab or with the cache off)."""
+        if self._paged is not None:
+            self._paged.register_prefix(np.asarray(tokens, np.int32), slot)
 
     def evict(self, slot, reason):
-        """Free a slot between steps (its cache row is left as-is; the
-        next occupant rewrites each position before unmasking it)."""
+        """Free a slot between steps.  Slab: the row is left as-is (the
+        next occupant rewrites each position before unmasking it).
+        Paged: the slot's block references release (shared blocks stay
+        for their other sharers / the prefix index)."""
+        if self._paged is not None:
+            self._paged.evict(slot)
         self._arm(slot, 0, 0)
         self._free.append(slot)
         self.metrics.evict_slot(reason)
 
-    def _run(self, tokens, pos, lens):
-        """The step on the device: next token per slot as a host array.
-        The one host synchronization is the argmax result's copy."""
+    # ------------------------------------------------------------ ladder
+
+    def prefill_bucket_for(self, n):
+        """Smallest prompt-length bucket >= n, or None beyond the top."""
+        for b in self.prefill_buckets:
+            if b >= n:
+                return b
+        return None
+
+    def _batch_bucket(self, n):
+        for b in self.prefill_batch_buckets:
+            if b >= n:
+                return b
+        return self.prefill_batch_buckets[-1]
+
+    def _prefill_batch(self, prompts, lengths):
+        """One ``lm_prefill`` over padded prompts [B, bucket] (the
+        ``flash_attention`` kernel runs there): (first tokens [B] on the
+        host, the bucket-length cache [B, bucket, Dkv] per layer).  Each
+        row's first token comes from its last real position's hidden
+        state, gathered before the d_model x vocab projection as
+        ``lm_generate`` does."""
         dev = self.device
-        logits, self._cache = transformer.lm_decode_chunk_slots(
-            self.params, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(pos).to(dev), torch.from_numpy(lens).to(dev),
-            self._cache, self.num_heads, self.moe_top_k, self.pos_type)
+        hidden, cache = transformer.lm_prefill(
+            self.params, torch.from_numpy(prompts).to(dev), prompts.shape[1],
+            self.num_heads, self.moe_top_k, self.pos_type)
+        last = torch.from_numpy(lengths - 1).to(dev).long()
+        h_last = hidden[torch.arange(len(lengths), device=dev), last]
+        logits = transformer._lm_project(self.params, h_last)
+        return torch.argmax(logits, -1).to(torch.int32).cpu().numpy(), cache
+
+    def prefill(self, prompts, lengths):
+        """Run prompts through the length-bucketed ladder.  prompts
+        [n, L] int32 (rows padded to a common L <= the ladder top; the
+        pad value is irrelevant), lengths [n] real lengths.  Rows pad to
+        the length bucket and, in groups of at most the top batch bucket,
+        to a batch bucket.  Returns (first tokens [n], per-row cache rows:
+        a list of n per-layer ``{"k", "v"}`` of [bucket, Dkv] on the
+        device — what ``admit`` writes)."""
+        prompts = np.asarray(prompts, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        n, t = prompts.shape
+        bucket = self.prefill_bucket_for(t)
+        if bucket is None:
+            raise InvalidRequestError(
+                f"prompt length {t} exceeds the prefill ladder top "
+                f"{self.prefill_buckets[-1]}")
+        top = self.prefill_batch_buckets[-1]
+        firsts, rows = [], []
+        for i0 in range(0, n, top):
+            m = min(top, n - i0)
+            nb = self._batch_bucket(m)
+            padded = np.zeros((nb, bucket), np.int32)
+            padded[:m, :t] = prompts[i0:i0 + m]
+            lens = np.ones((nb,), np.int32)
+            lens[:m] = lengths[i0:i0 + m]
+            first, cache = self._prefill_batch(padded, lens)
+            self.prefill_batches_total += 1
+            firsts.append(first[:m])
+            rows += [[{"k": c["k"][i], "v": c["v"][i]} for c in cache]
+                     for i in range(m)]
+        return np.concatenate(firsts), rows
+
+    def admit(self, first_token, cache_row, length, tokens=None):
+        """Seat one prefilled request and arm a free slot at
+        (first_token, position=length); returns the slot.
+
+        Slab: write the bucket-length rows into positions [0, bucket) of
+        the slot's row (the tail keeps the previous occupant's values,
+        each rewritten by the step in the same step that first unmasks
+        it).  Paged: claim ``ceil(length / block_size)`` private blocks
+        and write the rows into them block by block (zero-padded past the
+        bucket), then, given ``tokens`` (the real prefix ids), publish
+        the prefixes to the index.  Raises ``InsufficientBlocksError``
+        (nothing claimed) when the pool is dry."""
+        if not self._free:
+            raise RuntimeError(f"{self.name}: no free decode slot")
+        slot = self._free.pop()
+        if self._paged is not None:
+            try:
+                chain = self._paged.seat_fresh(slot, int(length))
+            except InsufficientBlocksError:
+                self._free.append(slot)
+                raise
+            self._write_blocks(chain, cache_row)
+            if tokens is not None:
+                self._paged.register_prefix(
+                    np.asarray(tokens)[:int(length)], slot)
+        else:
+            for c, row in zip(self._cache, cache_row):
+                n = row["k"].shape[0]
+                c["k"][slot, :n].copy_(row["k"])
+                c["v"][slot, :n].copy_(row["v"])
+        self._arm(slot, first_token, length)
+        return slot
+
+    def _write_blocks(self, chain, cache_row):
+        """Blocks ``chain`` of every layer's pool <- the row's positions
+        [0, len(chain) * block_size), zero-padded past the row."""
+        if not chain:
+            return
+        bs, nb = self.block_size, len(chain)
+        idx = torch.tensor(chain, dtype=torch.long, device=self.device)
+        for c, row in zip(self._cache, cache_row):
+            for key in ("k", "v"):
+                src = row[key][:nb * bs]
+                chunk = src.new_zeros((nb * bs, src.shape[-1]))
+                chunk[:src.shape[0]] = src
+                c[key].index_copy_(0, idx, chunk.view(nb, bs, -1))
+
+    # ------------------------------------------------------------ seating
+
+    def seat_prefilled(self, fulls):
+        """THE seat-prefix helper (paged prefix-cache admission, pool-
+        pressure re-seating and every chunked admission): for each 1-D
+        ``full`` context, seat a slot holding K/V for its prefix with the
+        following token armed, WITHOUT re-emitting anything:
+
+        1. paged + prefix cache: a resident chain seats by REFERENCE
+           (``seat_cached``);
+        2. otherwise chunked: ``seat_chunked`` with the whole context as
+           the feed; on the ladder: re-prefill the longest ladder-covered
+           prefix ``full[:min(len(full) - 1, top)]`` (same-bucket items
+           as one batch) and ``admit`` it.
+
+        The remainder returns as the teacher-forced feed, its re-derived
+        emissions swallowed by the batcher; greedy decode being
+        deterministic, the slot ends at its target state.  Returns a list
+        aligned with ``fulls``: ``(slot, feed)`` per seated item, or the
+        exception that failed it (``InsufficientBlocksError`` means
+        "defer and retry", not "fail")."""
+        results = [None] * len(fulls)
+        prep = []
+        for i, full in enumerate(fulls):
+            full = np.asarray(full, np.int32)
+            pre = (full.size if self.prefill_chunk
+                   else min(full.size - 1, self.prefill_buckets[-1]))
+            if self._paged is not None:
+                covered, chain = self._paged.lookup_prefix(full)
+                if covered and self.cached_seat_worthwhile(covered,
+                                                           full.size):
+                    try:
+                        results[i] = self.seat_cached(full, covered, chain)
+                    except Exception as e:    # noqa: BLE001 — isolate
+                        results[i] = e        # to this item
+                    continue
+                # pool-dry fast path: defer before burning any work
+                if not self.can_admit(pre + 1):
+                    results[i] = InsufficientBlocksError(
+                        f"pool cannot hold {pre + 1} positions yet")
+                    continue
+            if self.prefill_chunk:
+                try:
+                    results[i] = self.seat_chunked(full)
+                except Exception as e:    # noqa: BLE001 — per-item
+                    results[i] = e
+                continue
+            prep.append((i, full, pre))
+        groups = {}
+        for item in prep:
+            groups.setdefault(self.prefill_bucket_for(item[2]),
+                              []).append(item)
+        for bucket, items in sorted(groups.items()):
+            prompts = np.zeros((len(items), bucket), np.int32)
+            lengths = np.zeros((len(items),), np.int32)
+            for j, (_i, full, pre) in enumerate(items):
+                prompts[j, :pre] = full[:pre]
+                lengths[j] = pre
+            try:
+                _first, rows = self.prefill(prompts, lengths)
+            except Exception as e:      # noqa: BLE001 — crosses to the
+                for i, _full, _pre in items:    # caller per item
+                    results[i] = e
+                continue
+            for j, (i, full, pre) in enumerate(items):
+                try:
+                    # arm with the recorded stream's next token
+                    slot = self.admit(full[pre], rows[j], pre,
+                                      tokens=full[:pre])
+                except Exception as e:  # noqa: BLE001
+                    results[i] = e
+                    continue
+                results[i] = (slot, [int(t) for t in full[pre + 1:]])
+        return results
+
+    def cached_seat_worthwhile(self, covered, size):
+        """Seat through the prefix cache only when it pays.  Chunked: any
+        coverage shrinks the feed.  Ladder: the uncovered remainder
+        teacher-forces ONE STEP PER TOKEN, so coverage must save at least
+        half the ladder-covered prefill, or the request seats faster as
+        an ordinary miss."""
+        if self.prefill_chunk:
+            return covered > 0
+        return covered * 2 >= min(int(size) - 1, self.prefill_buckets[-1])
+
+    def prefix_lookup(self, prompt):
+        """``(covered_positions, chain)`` of the longest cached prefix of
+        ``prompt`` — ``(0, [])`` on a miss or on the slab.  Read-only (an
+        LRU touch); seating takes the references."""
+        if self._paged is None:
+            return 0, []
+        return self._paged.lookup_prefix(np.asarray(prompt))
+
+    def can_admit(self, n_positions):
+        """Paged admission gate: could the pool produce blocks covering
+        ``n_positions`` now (free list + evictable prefix entries)?
+        Always True on the slab."""
+        if self._paged is None:
+            return True
+        return self._paged.can_admit(int(n_positions))
+
+    def kv_blocks_free(self):
+        """Free blocks in the paged pool (None on the slab)."""
+        return None if self._paged is None else self._paged.pool.num_free
+
+    def kv_blocks_for(self, n_positions):
+        return self._paged.blocks_for(n_positions)
+
+    # ------------------------------------------------------------ stepping
+
+    def prepare_step(self):
+        """Paged: make every active slot's write positions of the next
+        step exclusive — grow chains into fresh blocks and copy-on-write
+        fork blocks still shared (``cow_forks_total``); the fork is a
+        block copy on the step's stream, before the step.  Under pool
+        exhaustion, preempt victim slots youngest first
+        (``evictions{reason="pool_exhausted"}``) and return their ids —
+        the batcher re-seats those requests later, their streams
+        unchanged.  Slab: no-op."""
+        if self._paged is None:
+            return []
+        victims = []
+        free_set = set(self._free)
+        bs = self.block_size
+        for slot in range(self.num_slots):
+            if slot in free_set or slot in victims:
+                continue
+            pos = int(self._pos[slot])
+            # a chunked step writes a SPAN (lanes 0 .. _len-1): provision
+            # every touched block in order, each fork copied at once so a
+            # mid-span exhaustion never orphans a planned fork
+            n = int(self._len[slot]) if self.prefill_chunk else 1
+            for j in range(pos // bs, (pos + n - 1) // bs + 1):
+                p = pos if j == pos // bs else j * bs
+                while True:
+                    try:
+                        plan = self._paged.write_plan(slot, p)
+                    except InsufficientBlocksError:
+                        v = self._paged.victim(
+                            exclude=set(victims) | {slot})
+                        if v is None:
+                            raise     # one request outgrew the pool:
+                            #           validate_request bounds this
+                        self.evict(v, "pool_exhausted")
+                        victims.append(v)
+                        continue
+                    break
+                if plan is not None and plan[0] == "cow":
+                    _tag, _j, src, dst = plan
+                    for c in self._cache:
+                        c["k"][dst].copy_(c["k"][src])
+                        c["v"][dst].copy_(c["v"][src])
+                    self.metrics.observe_cow_fork()
+        return victims
+
+    def _run(self, tokens, pos, lens):
+        """The step on the device: next token per slot as a host array
+        (lens is None on the ladder).  The one host synchronization is
+        the argmax result's copy."""
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(a).to(dev)
+
+        tables = (put(self._paged.tables.copy()) if self._paged is not None
+                  else None)
+        common = (self.num_heads, self.moe_top_k, self.pos_type)
+        if self.prefill_chunk and tables is not None:
+            logits, self._cache = transformer.lm_decode_chunk_paged(
+                self.params, put(tokens), put(pos), put(lens), self._cache,
+                tables, *common)
+        elif self.prefill_chunk:
+            logits, self._cache = transformer.lm_decode_chunk_slots(
+                self.params, put(tokens), put(pos), put(lens), self._cache,
+                *common)
+        elif tables is not None:
+            logits, self._cache = transformer.lm_decode_step_paged(
+                self.params, put(tokens), put(pos), self._cache, tables,
+                *common)
+        else:
+            logits, self._cache = transformer.lm_decode_step_slots(
+                self.params, put(tokens), put(pos), self._cache, *common)
         return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
     def step(self):
         """Advance EVERY slot (free slots compute too — fixed shape);
         returns the next token per slot ([num_slots] np.int32).  Callers
         then bump their active slots via ``advance``."""
-        tokens, pos, lens = self._tokens.copy(), self._pos.copy(), \
-            self._len.copy()
+        tokens, pos = self._tokens.copy(), self._pos.copy()
+        lens = self._len.copy() if self.prefill_chunk else None
         t0 = time.perf_counter()
         nxt = self._run(tokens, pos, lens)
         self.metrics.observe_decode_step(
             self.num_active, self.num_slots, time.perf_counter() - t0,
-            prefill_lanes=int(lens.sum() - self.num_slots))
+            prefill_lanes=(int(lens.sum() - self.num_slots)
+                           if lens is not None else 0))
+        if self._paged is not None:
+            self.metrics.set_kv_pool(self._paged.pool.num_free,
+                                     self._paged.pool.num_allocatable)
         return nxt
 
     def advance(self, slot, token, consumed=1):
         """Record the token fed at the next step for ``slot``, advanced
         past the ``consumed`` lanes the last step processed."""
-        self._tokens[slot, 0] = token
-        self._len[slot] = 1
+        if self.prefill_chunk:
+            self._tokens[slot, 0] = token
+            self._len[slot] = 1
+        else:
+            self._tokens[slot] = token
         self._pos[slot] += consumed
 
     def reset(self):
-        """Drop all slot state and re-zero the slab (the batch-failure
-        isolation path: a failed step must not leak a poisoned slab into
-        the next batch)."""
-        self._cache = transformer.init_lm_cache(self.params, self.num_slots,
-                                                self.max_len)
+        """Drop all slot state and re-zero the cache (the batch-failure
+        isolation path: a failed step must not leak a poisoned cache into
+        the next batch).  Paged: a fresh allocator and an empty prefix
+        index, since every cached chain died with the old pool."""
+        if self._paged is not None:
+            old = self._paged
+            self._paged = PagedKVState(
+                self.num_slots, old.pool.num_blocks, self.block_size,
+                self.max_len, prefix_cache=old.index is not None)
+        self._cache = self._new_cache()
         self._tokens[:] = 0
         self._pos[:] = 0
-        self._len[:] = 1
+        if self.prefill_chunk:
+            self._len[:] = 1
         self._free = list(range(self.num_slots))[::-1]
 
     def warmup(self):
-        """Run the step once on the idle slab before traffic: on the card
-        this builds and loads the kernels, so the first request does not
-        pay for ``nvcc``.  No metrics are recorded."""
-        if not self._warm:
-            self._run(self._tokens, self._pos, self._len)
-            self._warm = True
-            logger.info("decode[%s]: warm on %s (%d slots, max_len %d, "
-                        "chunk K=%d)", self.name, self.device,
-                        self.num_slots, self.max_len, self.prefill_chunk)
+        """Run the step once on the idle cache (and, on the ladder, one
+        prefill) before traffic: on the card this builds and loads the
+        kernels, so the first request does not pay for ``nvcc``.  No
+        metrics are recorded."""
+        if self._warm:
+            return
+        if not self.prefill_chunk:
+            b = self.prefill_batch_buckets[0]
+            self._prefill_batch(
+                np.zeros((b, self.prefill_buckets[0]), np.int32),
+                np.ones((b,), np.int32))
+        self._run(self._tokens, self._pos, self._len)
+        self._warm = True
+        logger.info("decode[%s]: warm on %s (%d slots, max_len %d, kv %s, "
+                    "%s)", self.name, self.device, self.num_slots,
+                    self.max_len, self.kv_layout,
+                    f"chunk K={self.prefill_chunk}" if self.prefill_chunk
+                    else f"prefill ladder {list(self.prefill_buckets)}")
 
     # ------------------------------------------------------------ validate
 
     def validate_request(self, prompt, max_tokens):
         """Admission checks, raised BEFORE the queue: a non-empty 1-D
-        in-vocab id sequence, an int max_tokens >= 1, and
-        ``len(prompt) + max_tokens <= max_len``."""
+        in-vocab id sequence (at most the ladder top on the ladder), an
+        int max_tokens >= 1, ``len(prompt) + max_tokens <= max_len``, and
+        on the paged layout a request that fits the pool alone."""
         ids = np.asarray(prompt)
         if ids.ndim != 1 or ids.size < 1:
             raise InvalidRequestError(
@@ -255,6 +684,10 @@ class DecodeEngine:
             raise InvalidRequestError(
                 f"prompt ids must be in [0, {vocab}); got "
                 f"[{int(ids.min())}, {int(ids.max())}]")
+        if not self.prefill_chunk and ids.size > self.prefill_buckets[-1]:
+            raise InvalidRequestError(
+                f"prompt length {ids.size} exceeds the prefill ladder top "
+                f"{self.prefill_buckets[-1]}")
         try:
             max_tokens = int(max_tokens)
         except (TypeError, ValueError):
@@ -267,13 +700,27 @@ class DecodeEngine:
             raise InvalidRequestError(
                 f"prompt ({ids.size}) + max_tokens ({max_tokens}) exceeds "
                 f"the engine max_len ({self.max_len})")
+        self._check_pool_fit(ids.size + max_tokens)
         return ids.astype(np.int32), max_tokens
+
+    def _check_pool_fit(self, n_positions):
+        """Paged: one request must fit the pool ALONE (preemption can
+        evict every other slot but never this one)."""
+        if self._paged is None:
+            return
+        need = self._paged.blocks_for(n_positions)
+        if need > self._paged.pool.num_allocatable:
+            raise InvalidRequestError(
+                f"request needs {need} KV blocks of {self.block_size} "
+                f"positions but the pool only holds "
+                f"{self._paged.pool.num_allocatable}")
 
 
 class _GenRequest:
     __slots__ = ("prompt", "max_tokens", "eos_id", "future", "deadline",
                  "t_submit", "t_first", "on_token", "tokens", "slot",
-                 "abandoned", "feed")
+                 "abandoned", "feed", "started", "admit_covered",
+                 "prefix_counted")
 
     def __init__(self, prompt, max_tokens, eos_id, deadline, on_token):
         self.prompt = prompt
@@ -287,7 +734,13 @@ class _GenRequest:
         self.tokens = []
         self.slot = None
         self.abandoned = False
-        self.feed = []                    # prompt tokens still to ingest
+        self.feed = []                    # context tokens still to ingest
+        self.started = False              # future marked running (a pool-
+        #                                   deferred request re-enters
+        #                                   admission; it fires once)
+        self.admit_covered = 0            # this admission pass's prefix-
+        #                                   cache coverage
+        self.prefix_counted = False       # prefix hit/miss observed once
 
     def fail(self, exc):
         try:
@@ -312,12 +765,13 @@ class _GenRequest:
 class GenerationBatcher:
     """Continuous-batching front for a ``DecodeEngine``.
 
-    ONE worker thread runs the loop: seat queued requests into free
-    slots, arm each ingesting slot's next prompt chunk, run one step,
-    deliver each emitting slot's token, evict finished slots.  Admission
-    happens strictly between steps, so the step never changes shape.
-    The worker issues all device work; the step synchronizes once, on
-    the argmax tokens.  ``supervisor`` must be None: supervised
+    ONE worker thread runs the loop: seat queued requests into free slots
+    (on the ladder, prefilling same-bucket prompts together and emitting
+    their first token), arm each ingesting slot's next prompt chunk,
+    provision the paged blocks (``prepare_step``), run one step, deliver
+    each emitting slot's token, evict finished slots.  Admission happens
+    strictly between steps, so the step never changes shape.  The worker
+    issues all device work.  ``supervisor`` must be None: supervised
     recovery is not ported yet (ROADMAP)."""
 
     def __init__(self, engine, queue_size=256, default_deadline_ms=None,
@@ -338,6 +792,14 @@ class GenerationBatcher:
         self._drain = True
         self._admit_lock = threading.Lock()
         self._by_slot = {}          # slot -> _GenRequest
+        self._abandoned = set()     # futures abandoned while running but
+        #                             not seated (deferred, preempted)
+        # paged-layout overflow lanes (worker-thread only): _waiting holds
+        # popped requests the pool cannot seat yet (retried ahead of the
+        # queue); _preempted holds requests whose slot was evicted under
+        # pool pressure — they re-seat from prompt + delivered tokens
+        self._waiting = collections.deque()
+        self._preempted = []
         self.name = name or f"gen_batcher[{engine.name}]"
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=self.name)
@@ -391,17 +853,29 @@ class GenerationBatcher:
     def abandon(self, future):
         """The caller behind ``future`` is gone: a still-queued request is
         cancelled outright; a seated one is flagged and evicted at the
-        next token boundary."""
+        next token boundary; one running but not seated (deferred,
+        preempted, mid-prefill) is flagged for admission to drop."""
         if future.done() or future.cancel():
             return
         for req in list(self._by_slot.values()):
             if req.future is future:
                 req.abandoned = True
                 return
+        self._abandoned.add(future)
 
     # ------------------------------------------------------------ worker
 
+    def _pull(self, block):
+        if self._waiting:               # pool-deferred requests go first
+            return self._waiting.popleft()
+        try:
+            return (self._q.get(timeout=0.05) if block
+                    else self._q.get_nowait())
+        except queue.Empty:
+            return None
+
     def _resolve(self, req, reason):
+        self._abandoned.discard(req.future)
         ttft = (req.t_first - req.t_submit) if req.t_first else 0.0
         self.metrics.observe_response(time.perf_counter() - req.t_submit)
         try:
@@ -418,15 +892,31 @@ class GenerationBatcher:
         req.slot = None
         self._resolve(req, reason)
 
+    def _flag_abandoned(self, req):
+        """Fold an ``abandon()`` made while unseated into the flag."""
+        if req.future in self._abandoned:
+            self._abandoned.discard(req.future)
+            req.abandoned = True
+        return req.abandoned
+
     def _admit_from_queue(self, block):
-        """Seat queued requests into free slots (strictly between
-        steps).  Expired or cancelled requests never take a slot."""
-        while self.engine.free_slots:
-            try:
-                req = (self._q.get(timeout=0.05) if block
-                       else self._q.get_nowait())
-            except queue.Empty:
-                return
+        """Fill free slots from the queue (strictly between steps).
+        Expired or cancelled requests never take a slot.
+
+        Chunked: every request seats through ``engine.seat_prefilled``
+        and its prompt drains through the step as chunks.  Ladder: fresh
+        prompts prefill WHOLE in same-bucket groups and their first token
+        is delivered at admission; paged prefix-cache hits seat through
+        ``seat_prefilled`` instead.  On the paged layout, requests the
+        pool cannot hold yet are DEFERRED (``_waiting``), never failed."""
+        self._reseat_preempted()
+        block = block and not self._preempted
+        picked, stashed = [], []
+        kv_budget = self.engine.kv_blocks_free()
+        while self.engine.free_slots > len(picked):
+            req = self._pull(block and not picked)
+            if req is None:
+                break
             block = False
             now = time.perf_counter()
             if req.deadline is not None and now > req.deadline:
@@ -435,13 +925,158 @@ class GenerationBatcher:
                     f"deadline exceeded after "
                     f"{(now - req.t_submit) * 1e3:.1f}ms in queue"))
                 continue
-            if not req.future.set_running_or_notify_cancel():
-                continue        # client cancelled while queued
-            req.slot, req.feed = self.engine.seat_chunked(req.prompt)
-            self._by_slot[req.slot] = req
+            if not req.started:
+                if not req.future.set_running_or_notify_cancel():
+                    continue        # client cancelled while queued
+                req.started = True
+            covered = 0
+            if kv_budget is not None:
+                covered = self.engine.prefix_lookup(req.prompt)[0]
+                if not self.engine.cached_seat_worthwhile(
+                        covered, req.prompt.size):
+                    covered = 0    # route (and budget) it as a miss
+                if not covered:
+                    # a miss claims blocks for its whole prompt: defer it
+                    # while the pool (less what this round already
+                    # earmarked) cannot hold them
+                    need = self.engine.kv_blocks_for(req.prompt.size + 1)
+                    if need > kv_budget and not self.engine.can_admit(
+                            req.prompt.size + 1):
+                        stashed.append(req)
+                        continue
+                    kv_budget -= need
+            req.admit_covered = covered
+            picked.append(req)
+        self._waiting.extend(stashed)
+        if not picked:
+            return
+        fresh, recon = [], []
+        for req in picked:
+            if kv_budget is not None and not req.prefix_counted:
+                req.prefix_counted = True
+                self.metrics.observe_prefix_cache(hit=req.admit_covered > 0)
+            if self.engine.chunked or req.admit_covered:
+                recon.append(req)
+            else:
+                fresh.append(req)
+        self._seat_reconstructed(recon)
+        self._prefill_fresh(fresh)
+
+    def _prefill_fresh(self, fresh):
+        """Ladder: prefill fresh prompts in same-bucket groups, deliver
+        each first token, and seat the requests that go on."""
+        groups = {}
+        for req in fresh:
+            groups.setdefault(self.engine.prefill_bucket_for(req.prompt.size),
+                              []).append(req)
+        for bucket, reqs in sorted(groups.items()):
+            prompts = np.zeros((len(reqs), bucket), np.int32)
+            lengths = np.zeros((len(reqs),), np.int32)
+            for i, req in enumerate(reqs):
+                prompts[i, :req.prompt.size] = req.prompt
+                lengths[i] = req.prompt.size
+            try:
+                first, rows = self.engine.prefill(prompts, lengths)
+            except Exception as e:    # noqa: BLE001 — isolate to THIS group
+                logger.warning("%s: prefill of %d failed: %s: %s",
+                               self.name, len(reqs), type(e).__name__, e)
+                self.metrics.observe_error(len(reqs))
+                for req in reqs:
+                    req.fail(BatchExecutionError(
+                        f"prefill failed: {type(e).__name__}: {e}"))
+                continue
+            for i, req in enumerate(reqs):
+                self._flag_abandoned(req)
+                req.emit(first[i], self.name)
+                self.metrics.observe_ttft(req.t_first - req.t_submit)
+                self.metrics.observe_gen_tokens(1)
+                if req.abandoned:
+                    self._resolve(req, "abandoned")
+                elif req.eos_id is not None \
+                        and int(first[i]) == req.eos_id:
+                    self._resolve(req, "eos")
+                elif req.max_tokens == 1:
+                    self._resolve(req, "length")
+                else:
+                    try:
+                        req.slot = self.engine.admit(first[i], rows[i],
+                                                     lengths[i],
+                                                     tokens=req.prompt)
+                    except InsufficientBlocksError:
+                        # the pool raced the budget: the token is out, so
+                        # the request continues as a preemption
+                        self._preempted.append(req)
+                        continue
+                    except Exception as e:    # noqa: BLE001 — a device
+                        # write failed: fail everything in flight, reset
+                        self._fail_all_inflight(
+                            e, extra=[req] + reqs[i + 1:])
+                        break
+                    self._by_slot[req.slot] = req
+
+    def _seat_outcomes(self, reqs, outcomes, deferred, what):
+        """Apply ``seat_prefilled`` outcomes: seat, defer (space, not
+        failure) into ``deferred``, or fail; a hard failure (a device op
+        that may have left the cache half written) fails everything in
+        flight and resets the engine."""
+        hard, seated = None, []
+        for req, out in zip(reqs, outcomes):
+            if isinstance(out, InsufficientBlocksError):
+                deferred.append(req)
+            elif isinstance(out, BaseException):
+                hard = out
+                self.metrics.observe_error(1)
+                req.fail(BatchExecutionError(
+                    f"{what} failed: {type(out).__name__}: {out}"))
+            else:
+                req.slot, req.feed = out
+                self._by_slot[req.slot] = req
+                seated.append(req)
+        if hard is not None:
+            self._fail_all_inflight(hard)
+        return seated
+
+    def _seat_reconstructed(self, reqs):
+        """Seat chunked admissions and paged prefix-cache hits through
+        ``engine.seat_prefilled``; pool-dry items defer to ``_waiting``."""
+        live = []
+        for req in reqs:
+            if self._flag_abandoned(req):
+                self._resolve(req, "abandoned")
+            else:
+                live.append(req)
+        if live:
+            self._seat_outcomes(
+                live, self.engine.seat_prefilled([r.prompt for r in live]),
+                self._waiting, "seat")
+
+    def _reseat_preempted(self):
+        """Re-seat pool-preempted requests (oldest first) from prompt +
+        delivered tokens: the teacher-forced feed swallows every
+        re-derived emission, so the client's stream continues unchanged.
+        Items the pool still cannot hold stay preempted."""
+        if not self._preempted or not self.engine.free_slots:
+            return
+        batch = self._preempted[:self.engine.free_slots]
+        self._preempted = self._preempted[len(batch):]
+        live = []
+        for req in batch:
+            if self._flag_abandoned(req):
+                self._resolve(req, "abandoned")
+            else:
+                live.append(req)
+        if not live:
+            return
+        fulls = [np.concatenate([r.prompt, np.asarray(r.tokens, np.int32)])
+                 for r in live]
+        seated = self._seat_outcomes(live, self.engine.seat_prefilled(fulls),
+                                     self._preempted,
+                                     "re-seat after pool preemption")
+        if seated:
+            self.metrics.observe_slot_reprefill(len(seated))
 
     def _load_chunks(self):
-        """Arm each ingesting slot's next up-to-(K-1)-token chunk, within
+        """Arm each feeding slot's next up-to-(K-1)-token chunk, within
         the engine's per-step chunk budget.  A slot that gets no lanes
         still advances one token through its lane 0."""
         kk = self.engine.prefill_chunk
@@ -458,40 +1093,46 @@ class GenerationBatcher:
             self.engine.load_chunk(slot, req.feed[:n])
             used += n
 
-    def _fail_all_inflight(self, e):
-        """The step failed: fail every in-flight request with the cause,
-        reset the engine, keep serving."""
-        victims = list(self._by_slot.values())
-        logger.warning("%s: step over %d request(s) failed: %s: %s",
+    def _fail_all_inflight(self, e, extra=()):
+        """A device operation failed: fail every in-flight request (plus
+        ``extra`` ones caught mid-admission) with the cause, reset the
+        engine, keep serving."""
+        victims = list(self._by_slot.values()) + list(extra)
+        logger.warning("%s: device op over %d request(s) failed: %s: %s",
                        self.name, len(victims), type(e).__name__, e)
         self.metrics.observe_error(len(victims))
         for req in victims:
             req.fail(BatchExecutionError(
                 f"decode batch failed: {type(e).__name__}: {e}"))
+        for _ in self._by_slot:
             self.metrics.evict_slot("error")
         self._by_slot.clear()
         self.engine.reset()
 
     def _deliver(self, nxt):
         for slot, req in list(self._by_slot.items()):
-            if req.abandoned:
+            if self._flag_abandoned(req):
                 self._finish(req, "abandoned")
                 continue
             consumed = self.engine.chunk_len(slot)
             if len(req.feed) >= consumed:
                 # still ingesting: this step's emission re-derives a
-                # known prompt token — swallow it and feed the prompt
+                # known token — swallow it and feed the context
                 self.engine.advance(slot, req.feed[consumed - 1], consumed)
                 del req.feed[:consumed]
                 continue
             # the feed drained at this step's last lane: its emission is
-            # the first real one
+            # a real one
             del req.feed[:]
             tok = int(nxt[slot])
             first = req.t_first is None
             req.emit(tok, self.name)
             if first:
                 self.metrics.observe_ttft(req.t_first - req.t_submit)
+                if self.engine.chunked:
+                    # the prompt's K/V is fully resident exactly now:
+                    # publish it to the paged prefix index (no-op on slab)
+                    self.engine.register_context(slot, req.prompt)
             self.metrics.observe_gen_tokens(1)
             if req.eos_id is not None and tok == req.eos_id:
                 self._finish(req, "eos")
@@ -508,14 +1149,31 @@ class GenerationBatcher:
                         "generation batcher closed without drain"))
                     self.engine.evict(slot, "shutdown")
                 self._by_slot.clear()
+                for req in self._preempted + list(self._waiting):
+                    req.fail(ShutdownError(
+                        "generation batcher closed without drain"))
+                self._preempted, self._waiting = [], collections.deque()
                 return
             self._admit_from_queue(block=not self._by_slot)
             if not self._by_slot:
-                if self._closed.is_set() and self._q.empty():
+                if self._closed.is_set() and self._q.empty() \
+                        and not self._waiting and not self._preempted:
                     return
+                if self._waiting or self._preempted:
+                    time.sleep(0.005)   # all runnable work is deferred
                 continue
-            self._load_chunks()
+            if self.engine.chunked:
+                self._load_chunks()
             try:
+                # paged: provision every active slot's write blocks
+                # (growth + copy-on-write); a dry pool preempts the
+                # youngest slots, whose requests re-seat later
+                for slot in self.engine.prepare_step():
+                    req = self._by_slot.pop(slot)
+                    req.slot = None
+                    self._preempted.append(req)
+                if not self._by_slot:
+                    continue
                 nxt = self.engine.step()
             except Exception as e:    # noqa: BLE001 — isolate to the
                 # requests in flight; the loop keeps serving

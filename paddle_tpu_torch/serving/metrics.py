@@ -1,7 +1,8 @@
 """Live generation-serving metrics — the parts of ``paddle_tpu/serving/
 metrics.py::ServingMetrics`` that the port's engine, batcher and
 ``/metrics`` use: request/response/rejection counters, TTFT, per-step
-time (TPOT), slot occupancy, chunked-prefill lanes and slot evictions.
+time (TPOT), slot occupancy, chunked-prefill lanes, slot evictions, and
+the paged KV pool's gauges and prefix-sharing counters.
 
 One instance is shared by the engine, the batcher and the HTTP front-end.
 ``render_prometheus()`` is the ``/metrics`` text; ``snapshot()`` the same
@@ -16,8 +17,11 @@ REJECT_REASONS = ("overload", "deadline", "invalid", "shutdown")
 
 # decode-slot eviction reasons: eos = the model emitted the stop token,
 # length = max_tokens reached, error = the slot's request failed with its
-# step, shutdown = close(drain=False), abandoned = the caller went away
-EVICT_REASONS = ("eos", "length", "error", "shutdown", "abandoned")
+# step, shutdown = close(drain=False), abandoned = the caller went away,
+# pool_exhausted = the paged KV pool ran dry and the slot was preempted
+# (its request re-seats and continues)
+EVICT_REASONS = ("eos", "length", "error", "shutdown", "abandoned",
+                 "pool_exhausted")
 
 _QUANTILES = (50, 95, 99)
 
@@ -48,6 +52,15 @@ class ServingMetrics:
         self.prefill_lane_steps_total = 0   # sum of per-step chunk lanes
         self.prefill_chunk_size = 0      # gauge: engine K
         self.evictions = {r: 0 for r in EVICT_REASONS}
+        # paged KV cache: block-pool gauges (set by the engine after each
+        # step) and prefix-sharing / copy-on-write counters
+        self.kv_blocks_total = 0         # gauge: allocatable pool blocks
+        self.kv_blocks_free = 0          # gauge: free-list depth
+        self.prefix_cache_hits = 0       # fresh admissions seated from
+        #                                  resident prefix blocks
+        self.prefix_cache_misses = 0     # fresh admissions that prefilled
+        self.cow_forks = 0               # copy-on-write block forks
+        self.slot_reprefills_total = 0   # preempted slots re-seated
         # each batcher contributes a zero-arg callable -> its queue depth
         self.queue_depth_fns = []
 
@@ -103,6 +116,29 @@ class ServingMetrics:
         with self._lock:
             self.evictions[reason] = self.evictions.get(reason, 0) + 1
 
+    def observe_prefix_cache(self, hit):
+        """One fresh admission's prefix-cache outcome: seated from
+        resident blocks (hit) or prefilled (miss)."""
+        with self._lock:
+            if hit:
+                self.prefix_cache_hits += 1
+            else:
+                self.prefix_cache_misses += 1
+
+    def observe_cow_fork(self, n=1):
+        with self._lock:
+            self.cow_forks += int(n)
+
+    def set_kv_pool(self, free, total):
+        """Snapshot the block pool's free/allocatable gauges."""
+        with self._lock:
+            self.kv_blocks_free = int(free)
+            self.kv_blocks_total = int(total)
+
+    def observe_slot_reprefill(self, n=1):
+        with self._lock:
+            self.slot_reprefills_total += int(n)
+
     # ------------------------------------------------------------ derive
 
     @property
@@ -144,6 +180,18 @@ class ServingMetrics:
                 "prefill_chunk_lanes_total": self.prefill_chunk_lanes_total,
                 "prefill_chunk_size": self.prefill_chunk_size,
                 "evictions": dict(self.evictions),
+                "kv_blocks_total": self.kv_blocks_total,
+                "kv_blocks_free": self.kv_blocks_free,
+                "kv_blocks_used": self.kv_blocks_total
+                - self.kv_blocks_free,
+                "kv_block_utilization": round(
+                    (self.kv_blocks_total - self.kv_blocks_free)
+                    / self.kv_blocks_total, 3) if self.kv_blocks_total
+                else 0.0,
+                "prefix_cache_hits_total": self.prefix_cache_hits,
+                "prefix_cache_misses_total": self.prefix_cache_misses,
+                "cow_forks_total": self.cow_forks,
+                "slot_reprefills_total": self.slot_reprefills_total,
             }
         out["queue_depth"] = self.queue_depth()
         out["mean_slot_occupancy"] = self.mean_slot_occupancy
@@ -176,7 +224,16 @@ class ServingMetrics:
                 ("prefill_chunks_total",
                  "prompt chunks fed through the decode step"),
                 ("prefill_chunk_lanes_total",
-                 "teacher-forced chunk lanes fed through the decode step")):
+                 "teacher-forced chunk lanes fed through the decode step"),
+                ("prefix_cache_hits_total",
+                 "fresh admissions seated from resident prefix blocks "
+                 "(paged KV cache)"),
+                ("prefix_cache_misses_total",
+                 "fresh admissions that prefilled (paged KV cache)"),
+                ("cow_forks_total",
+                 "copy-on-write KV block forks (paged KV cache)"),
+                ("slot_reprefills_total",
+                 "preempted decode slots re-seated")):
             emit(metric, snap[metric], help_, mtype="counter")
         for label, counts, help_ in (
                 ("rejected_total", snap["rejected"],
@@ -193,10 +250,18 @@ class ServingMetrics:
         emit("slot_occupancy_mean", f"{snap['mean_slot_occupancy']:.6f}",
              "mean active slots per decode step")
         emit("prefill_chunk_size", snap["prefill_chunk_size"],
-             "chunked-prefill lanes per step (K)")
+             "chunked-prefill lanes per step (K; 0 = legacy ladder)")
         emit("prefill_chunk_occupancy_mean",
              f"{snap['mean_prefill_chunk_occupancy']:.6f}",
              "fraction of per-step chunk-lane capacity fed")
+        emit("kv_blocks_total", snap["kv_blocks_total"],
+             "allocatable KV blocks in the paged pool (0 = slab layout)")
+        emit("kv_blocks_free", snap["kv_blocks_free"],
+             "free KV blocks in the paged pool")
+        emit("kv_blocks_used", snap["kv_blocks_used"],
+             "KV blocks held by slot chains / the prefix index")
+        emit("kv_block_utilization", f"{snap['kv_block_utilization']:.6f}",
+             "fraction of the paged KV pool in use")
         for hist, metric, help_ in (
                 (self.latency, "latency_seconds",
                  "request wall latency (submit to response)"),

@@ -22,7 +22,10 @@ CLI (``python -m paddle_tpu_torch.serving``): serves the Transformer-base
 decoder-only LM (vocab 32000, d_model 512, 8 heads, dff 2048, 6 layers,
 learned positions, tied embedding) with random weights drawn from
 ``--seed``, on the card unless ``--device cpu``; 8 slots, max_len 256,
-chunk K = 8 by default.  SIGTERM/SIGINT drain gracefully.
+chunk K = 8 by default (``--prefill-chunk 0``: the legacy prefill
+ladder), over the slab KV layout or, with ``--kv-layout paged``, the
+paged block pool (``--kv-block-size``, ``--kv-num-blocks``,
+``--kv-prefix-cache``).  SIGTERM/SIGINT drain gracefully.
 """
 
 import argparse
@@ -196,9 +199,11 @@ BASE_LM = dict(vocab=32000, d_model=512, num_heads=8, dff=2048, layers=6)
 
 def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
                       max_tokens=64, queue_size=256, device=None,
-                      metrics=None, **model):
+                      metrics=None, kv_layout="slab", kv_block_size=16,
+                      kv_num_blocks=0, kv_prefix_cache=True, **model):
     """The full-width trunk from ``seed`` behind a ``DecodeEngine`` +
-    ``GenerationBatcher`` (``model`` overrides ``BASE_LM`` keys)."""
+    ``GenerationBatcher`` (``model`` overrides ``BASE_LM`` keys;
+    ``prefill_chunk=0`` selects the legacy prefill ladder)."""
     from paddle_tpu_torch import device as _device
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
@@ -212,7 +217,10 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
     engine = DecodeEngine(params, num_heads=cfg["num_heads"],
                           num_slots=slots, max_len=max_len,
                           prefill_chunk=prefill_chunk, metrics=metrics,
-                          name="base_lm", device=dev)
+                          kv_layout=kv_layout, kv_block_size=kv_block_size,
+                          kv_num_blocks=kv_num_blocks,
+                          prefix_cache=kv_prefix_cache, name="base_lm",
+                          device=dev)
     return GenerationBatcher(engine, queue_size=queue_size,
                              default_max_tokens=max_tokens)
 
@@ -229,7 +237,21 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--prefill-chunk", type=int, default=8)
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="prompt lanes per slot per step (0 = the legacy "
+                         "prefill ladder)")
+    ap.add_argument("--kv-layout", default="slab",
+                    choices=("slab", "paged"),
+                    help="decode KV-cache layout: slab reserves max_len "
+                         "per slot; paged packs a shared block pool with "
+                         "prefix sharing")
+    ap.add_argument("--kv-block-size", type=int, default=16)
+    ap.add_argument("--kv-num-blocks", type=int, default=0,
+                    help="paged pool size incl. the scratch block "
+                         "(0 = the slab-equivalent byte budget)")
+    ap.add_argument("--kv-prefix-cache",
+                    type=lambda v: v.lower() in ("1", "true", "yes"),
+                    default=True)
     ap.add_argument("--max-tokens", type=int, default=64,
                     help="default per-request emission cap")
     ap.add_argument("--queue-size", type=int, default=256)
@@ -238,7 +260,11 @@ def main(argv=None):
                             max_len=args.max_len,
                             prefill_chunk=args.prefill_chunk,
                             max_tokens=args.max_tokens,
-                            queue_size=args.queue_size, device=args.device)
+                            queue_size=args.queue_size, device=args.device,
+                            kv_layout=args.kv_layout,
+                            kv_block_size=args.kv_block_size,
+                            kv_num_blocks=args.kv_num_blocks,
+                            kv_prefix_cache=args.kv_prefix_cache)
     httpd = make_server(gen, host=args.host, port=args.port)
     logger.info("serving on http://%s:%d (/v1/generate)", args.host,
                 httpd.port)

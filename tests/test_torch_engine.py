@@ -239,8 +239,9 @@ def test_close_drains_inflight_then_rejects(params):
         gen.submit([1, 2], max_tokens=2)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="paged"),
-                                dict(prefill_chunk=0),
+@pytest.mark.parametrize("kw", [dict(kv_layout="paged",
+                                     kv_host_bytes=1 << 20),
+                                dict(kv_layout="paged", kv_dtype="int8"),
                                 dict(kv_dtype="int8"),
                                 dict(speculate_k=2),
                                 dict(mesh=object()),
