@@ -17,10 +17,14 @@ non-zero exit code and no final "ok" line:
             train batch's full rows, also at D=128 and 256 and through
             a reverse LSTM; the paged pair over a 129-block pool with
             shuffled ids, shared leading blocks and a free row on block
-            0, and the Tq=1 slab kernel), timed with CUDA events beside
-            the plain version, one PyTorch library call computing the
-            same function (a yardstick the port never calls) and the
-            least time the card could take
+            0, and the Tq=1 slab kernel; the int8 instances of the four
+            decode kernels at the same shapes and flash_attention_quant
+            at B=32, T=32 and a ragged T=200 with Hkv=2, each also held
+            bit for bit against its float32 kernel on the dequantized
+            cache), timed with CUDA events beside the plain version, one
+            PyTorch library call computing the same function (a
+            yardstick the port never calls; none exists for the int8
+            kernels) and the least time the card could take
   generate  lm_generate on the full-width Transformer-base LM (vocab
             32000, d_model 512, 8 heads, dff 2048, 6 layers), batch 32,
             prompt 32, max_len 160, greedy: the flash kernel launches
@@ -43,6 +47,21 @@ non-zero exit code and no final "ok" line:
             flash kernel launches once per layer per prefill batch, the
             Tq=1 slab / paged kernel once per layer per step; streams are
             held against lm_generate
+  generate_int8  lm_generate over an int8 KV cache at the generate phase's
+            shape: flash_attention_quant launches once per layer; the int8
+            prefill's logits within the budget (0.06) of the float32
+            twin's; the greedy prefix shared with the float32 stream is
+            reported; two rows are held against the same call on the CPU
+  serve_int8  the serve phase over an int8 KV cache: the int8 chunk kernel
+            once per layer per step, /metrics shows kv_cache_int8 1,
+            streams held against the int8 lm_generate
+  serve_paged_int8  the paged layout over an int8 KV cache with the auto
+            pool (twice the float32 slab's blocks, fewer bytes): the 12
+            serve_paged requests; prefix hits and copy-on-write forks of
+            int8 blocks; the pool's KV bytes beside the float32 slab's
+  ladder_int8  the ladder phase over an int8 KV cache, both layouts:
+            flash_attention_quant once per layer per prefill batch, the
+            int8 Tq=1 slab / paged kernel once per layer per step
   train     the headline benchmark, bench.py's bench_lstm ported
             (scripts/bench.bench_lstm): the LSTM text classifier at vocab
             30000, embedding 128, 2 x LSTM h=512, batch 64, length 100,
@@ -392,19 +411,197 @@ def check_flash_kernel(torch, dev, rng, b, t, timed):
     return row
 
 
+def quantized(torch, dev, rng, shape, hkv):
+    """(codes int8, scales f32) of a seeded N(0, 1) K/V on the card, as
+    the int8 cache holds them."""
+    from paddle_tpu_torch.quant import kv as kvq
+    return kvq.quantize_heads(torch.tensor(normal(rng, shape), device=dev),
+                              hkv)
+
+
+I8_LIBRARY_NOTE = ("no single PyTorch call attends over int8 codes with "
+                   "per-(position, head) scales")
+
+
+def check_int8_decode_kernels(torch, dev, rng, hkv):
+    """The four int8 instances at the main path's shapes (the slab chunk
+    kernel at row 1's, the paged pair and the Tq=1 slab kernel at rows
+    3-5's: chunk_qpos over [8, 256] slab rows and over the 129-block pool
+    of 16-position blocks with shuffled ids, shared leading blocks and a
+    free row on block 0).  Each is held bit for bit against its float32
+    kernel run on dequantize_heads(cache), and within KERNEL_TOL against
+    its plain version; timed beside the float32 kernel when Hkv = H."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    from paddle_tpu_torch.quant.kv import dequantize_heads
+    s, kk, t, d, h = 8, CHUNK, SERVE_MAX_LEN, D_MODEL, HEADS
+    dh, nb_row = d // h, t // PAGE_BS
+    dkv = dh * hkv
+    qpos_np = chunk_qpos(t)
+    last = qpos_np[:, -1].astype(np.int64)
+    tables_np = paged_tables(rng, last, nb_row, PAGE_BLOCKS)
+    q = torch.tensor(normal(rng, (s, kk, d)), device=dev)
+    q1 = torch.tensor(normal(rng, (s, d)), device=dev)
+    (sk, sks), (sv, svs) = (quantized(torch, dev, rng, (s, t, dkv), hkv)
+                            for _ in range(2))
+    (pk, pks), (pv, pvs) = (quantized(torch, dev, rng,
+                                      (PAGE_BLOCKS, PAGE_BS, dkv), hkv)
+                            for _ in range(2))
+    slab = dict(kscale=sks, vscale=svs)
+    pool = dict(kscale=pks, vscale=pvs)
+    sk_w, sv_w = dequantize_heads(sk, sks), dequantize_heads(sv, svs)
+    pk_w, pv_w = dequantize_heads(pk, pks), dequantize_heads(pv, pvs)
+    qpos = torch.tensor(qpos_np, device=dev)
+    pos = torch.tensor(qpos_np[:, -1].copy(), device=dev)
+    tables = torch.tensor(tables_np, device=dev)
+    # name -> (int8 kernel, float32 kernel on the dequantized cache, plain)
+    calls = {
+        dk.NAME_I8: (
+            lambda: dk.decode_attention_slab_chunk(q, sk, sv, qpos, h, **slab),
+            lambda: dk.decode_attention_slab_chunk(q, sk_w, sv_w, qpos, h),
+            lambda: dk.decode_attention_slab_chunk_plain(q, sk, sv, qpos, h,
+                                                         **slab)),
+        dk.NAME_SLAB_I8: (
+            lambda: dk.decode_attention_slab(q1, sk, sv, pos, h, **slab),
+            lambda: dk.decode_attention_slab(q1, sk_w, sv_w, pos, h),
+            lambda: dk.decode_attention_slab_plain(q1, sk, sv, pos, h,
+                                                   **slab)),
+        dk.NAME_PAGED_I8: (
+            lambda: dk.decode_attention_paged(q1, pk, pv, pos, tables, h,
+                                              **pool),
+            lambda: dk.decode_attention_paged(q1, pk_w, pv_w, pos, tables,
+                                              h),
+            lambda: dk.decode_attention_paged_plain(q1, pk, pv, pos, tables,
+                                                    h, **pool)),
+        dk.NAME_PAGED_CHUNK_I8: (
+            lambda: dk.decode_attention_paged_chunk(q, pk, pv, qpos, tables,
+                                                    h, **pool),
+            lambda: dk.decode_attention_paged_chunk(q, pk_w, pv_w, qpos,
+                                                    tables, h),
+            lambda: dk.decode_attention_paged_chunk_plain(
+                q, pk, pv, qpos, tables, h, **pool))}
+    rows = {}
+    for name, (fn, f32, plain) in calls.items():
+        out, twin, ref = fn(), f32(), plain()
+        torch.cuda.synchronize()
+        exact = float((out - twin).abs().max())
+        err = float((out - ref).abs().max())
+        if exact != 0.0 or not err <= KERNEL_TOL:
+            fail(f"{name} (Hkv={hkv}): max abs err {exact} against the "
+                 f"float32 kernel on the dequantized cache (want 0), {err} "
+                 f"against its plain version (bound {KERNEL_TOL})")
+        rows[name] = {"name": name, "hkv": hkv, "max_abs_err": err,
+                      "err_vs_f32_kernel_on_dequantized": exact}
+    if hkv != h:
+        return rows
+    # this run's work, as the float32 rows count it, with each K/V value
+    # one byte and each (position, KV head) two f32 scales beside it
+    decode_rows = qpos_np[:, -1] == qpos_np[:, 0]
+    live = np.where(decode_rows[:, None], np.arange(kk)[None] == 0, True)
+    need = last // PAGE_BS + 1
+    reached = {int(tables_np[r, j]) for r in range(s) for j in range(need[r])}
+    per_pos = 2 * dkv + 2 * 4 * hkv
+    pool_bytes = per_pos * len(reached) * PAGE_BS
+    tq1_flops = 4 * dh * h * int((last + 1).sum())
+    chunk_flops = 4 * dh * h * int(((qpos_np + 1) * live).sum())
+    span = int((last + 1).sum())
+    costs = {
+        dk.NAME_I8: (4 * (s * kk * d + int(live.sum()) * d + s * kk)
+                     + per_pos * span, chunk_flops),
+        dk.NAME_SLAB_I8: (4 * (2 * s * d + s) + per_pos * span, tq1_flops),
+        dk.NAME_PAGED_I8: (4 * (2 * s * d + s + int(need.sum()))
+                           + pool_bytes, tq1_flops),
+        dk.NAME_PAGED_CHUNK_I8: (
+            4 * (int(live.sum()) * d + s * kk * d + s * kk + int(need.sum()))
+            + pool_bytes, chunk_flops)}
+    for name, (fn, f32, plain) in calls.items():
+        nbytes, flops = costs[name]
+        rows[name].update(
+            shape={"S": s, "K": kk if name in (dk.NAME_I8,
+                                               dk.NAME_PAGED_CHUNK_I8) else 1,
+                   "T": t, "D": d, "H": h, "Hkv": hkv,
+                   "block_size": PAGE_BS, "pool_blocks": PAGE_BLOCKS,
+                   "blocks_reached": len(reached)},
+            ms=time_ms(torch, fn), f32_kernel_ms=time_ms(torch, f32),
+            plain_ms=time_ms(torch, plain), library_ms=None,
+            library_note=I8_LIBRARY_NOTE, bytes=nbytes, flops=flops)
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound(nbytes, flops)
+    return rows
+
+
+def check_flash_quant_kernel(torch, dev, rng, b, t, hkv, timed):
+    """flash_attention_quant on q [B, T, D] and an int8 cache [B, T, Dkv]:
+    bit for bit against the float32 flash kernel on the dequantized,
+    head-repeated K/V, within KERNEL_TOL of its plain version."""
+    from paddle_tpu_torch.ops import attention as attn_ops
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    from paddle_tpu_torch.quant.kv import dequantize_heads
+    h, dh = HEADS, D_MODEL // HEADS
+    q = torch.tensor(normal(rng, (b, t, h * dh)), device=dev)
+    (k, ks), (v, vs) = (quantized(torch, dev, rng, (b, t, hkv * dh), hkv)
+                        for _ in range(2))
+
+    def heads(x, n):
+        return x.reshape(b, t, n, dh).transpose(1, 2)
+
+    qh = heads(q, h).contiguous()
+    kw = attn_ops.repeat_kv_heads(heads(dequantize_heads(k, ks), hkv),
+                                  h).contiguous()
+    vw = attn_ops.repeat_kv_heads(heads(dequantize_heads(v, vs), hkv),
+                                  h).contiguous()
+
+    def run():
+        return fk.flash_attention_quant(q, k, v, ks, vs, h, causal=True)
+
+    def f32():
+        return fk.flash_attention(qh, kw, vw, causal=True)
+
+    def plain():
+        return fk.flash_attention_quant_plain(q, k, v, ks, vs, h, causal=True)
+
+    out, twin, ref = run(), f32(), plain()
+    torch.cuda.synchronize()
+    exact = float((out - twin).abs().max())
+    err = float((out - ref).abs().max())
+    if exact != 0.0 or not err <= KERNEL_TOL:
+        fail(f"flash_attention_quant (B={b}, T={t}, Hkv={hkv}): max abs err "
+             f"{exact} against the float32 kernel on the dequantized K/V "
+             f"(want 0), {err} against its plain version (bound "
+             f"{KERNEL_TOL})")
+    row = {"name": fk.NAME_QUANT, "T": t, "hkv": hkv, "max_abs_err": err,
+           "err_vs_f32_kernel_on_dequantized": exact}
+    if not timed:
+        return row
+    nbytes = (4 * b * t * h * dh + b * t * (2 * hkv * dh + 2 * 4 * hkv)
+              + 4 * b * h * t * dh)
+    flops = 4 * dh * b * h * (t * (t + 1) // 2)
+    row.update(
+        shape={"B": b, "H": h, "Hkv": hkv, "T": t, "dh": dh, "causal": True},
+        ms=time_ms(torch, run), f32_kernel_ms=time_ms(torch, f32),
+        plain_ms=time_ms(torch, plain), library_ms=None,
+        library_note=I8_LIBRARY_NOTE, bytes=nbytes, flops=flops)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    return row
+
+
 def check_head_dims(torch, dev, rng):
     """Every kernel of the attention family at every other head dim it
     takes (16, 32, 128), on small ragged shapes: GQA, K = 5 lanes over T
     = 77 for the slab chunk kernel, the same rows over a shuffled pool of
     8-position blocks for the paged chunk kernel, lane 0 of each row for
     the Tq=1 pair; causal T = 45 and non-causal Tq = 19, Tk = 45 for the
-    flash kernel."""
+    flash kernel; the int8 instance of each of the four on the same rows
+    and flash_attention_quant at causal T = 45, Hkv = 2."""
+    from paddle_tpu_torch.ops import attention as attn_ops
     from paddle_tpu_torch.ops.kernels import decode_attention as dk
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
-    errs = {}
+    from paddle_tpu_torch.quant.kv import dequantize_heads
+    errs, exacts = {}, {}
 
     def err(name, dh, got, want):
         errs[f"{name}/dh{dh}"] = float((got - want).abs().max())
+
+    def exact(name, dh, got, want):
+        exacts[f"{name}/dh{dh}"] = float((got - want).abs().max())
 
     for dh in (16, 32, 128):
         h, hkv, kk, t, bs = 4, 2, 5, 77, 8
@@ -434,6 +631,29 @@ def check_head_dims(torch, dev, rng):
             dk.decode_attention_paged_plain(q1, pk, pv, pos, tables, h))
         err(dk.NAME_SLAB, dh, dk.decode_attention_slab(q1, k, v, pos, h),
             dk.decode_attention_slab_plain(q1, k, v, pos, h))
+        # the int8 instances: bit for bit against the float32 kernels on
+        # the dequantized cache
+        (k8, k8s), (v8, v8s) = (quantized(torch, dev, rng, k.shape, hkv)
+                                for _ in range(2))
+        (p8, p8s), (w8, w8s) = (quantized(torch, dev, rng, pk.shape, hkv)
+                                for _ in range(2))
+        slab, pool = dict(kscale=k8s, vscale=v8s), dict(kscale=p8s,
+                                                       vscale=w8s)
+        kw, vw = dequantize_heads(k8, k8s), dequantize_heads(v8, v8s)
+        pw, ww = dequantize_heads(p8, p8s), dequantize_heads(w8, w8s)
+        exact(dk.NAME_I8, dh,
+              dk.decode_attention_slab_chunk(q, k8, v8, qpos, h, **slab),
+              dk.decode_attention_slab_chunk(q, kw, vw, qpos, h))
+        exact(dk.NAME_PAGED_CHUNK_I8, dh,
+              dk.decode_attention_paged_chunk(q, p8, w8, qpos, tables, h,
+                                              **pool),
+              dk.decode_attention_paged_chunk(q, pw, ww, qpos, tables, h))
+        exact(dk.NAME_PAGED_I8, dh,
+              dk.decode_attention_paged(q1, p8, w8, pos, tables, h, **pool),
+              dk.decode_attention_paged(q1, pw, ww, pos, tables, h))
+        exact(dk.NAME_SLAB_I8, dh,
+              dk.decode_attention_slab(q1, k8, v8, pos, h, **slab),
+              dk.decode_attention_slab(q1, kw, vw, pos, h))
         for causal, tq in ((True, 45), (False, 19)):
             q = torch.tensor(normal(rng, (1, 2, tq, dh)), device=dev)
             k = torch.tensor(normal(rng, (1, 2, 45, dh)), device=dev)
@@ -443,12 +663,36 @@ def check_head_dims(torch, dev, rng):
             errs[f"flash_attention/dh{dh}/causal{int(causal)}"] = max(
                 float((o - o_ref).abs().max()),
                 float((lse - lse_ref).abs().max()))
+        # flash_attention_quant, ragged T = 45 with GQA: bit for bit
+        # against the float32 kernel on the dequantized, repeated heads
+        qf = torch.tensor(normal(rng, (2, 45, h * dh)), device=dev)
+        (kq, kqs), (vq, vqs) = (quantized(torch, dev, rng,
+                                          (2, 45, hkv * dh), hkv)
+                                for _ in range(2))
+
+        def heads(x, n):
+            return x.reshape(2, 45, n, dh).transpose(1, 2)
+
+        exact(fk.NAME_QUANT, dh,
+              fk.flash_attention_quant(qf, kq, vq, kqs, vqs, h),
+              fk.flash_attention(
+                  heads(qf, h).contiguous(),
+                  attn_ops.repeat_kv_heads(
+                      heads(dequantize_heads(kq, kqs), hkv), h).contiguous(),
+                  attn_ops.repeat_kv_heads(
+                      heads(dequantize_heads(vq, vqs), hkv), h).contiguous(),
+                  causal=True))
+        err(fk.NAME_QUANT, dh,
+            fk.flash_attention_quant(qf, kq, vq, kqs, vqs, h),
+            fk.flash_attention_quant_plain(qf, kq, vq, kqs, vqs, h))
     torch.cuda.synchronize()
     bad = {k: e for k, e in errs.items() if not e <= KERNEL_TOL}
+    bad.update({k: e for k, e in exacts.items() if e != 0.0})
     if bad:
-        fail(f"kernels disagree with their plain versions: {bad} (bound "
-             f"{KERNEL_TOL})")
-    return errs
+        fail(f"kernels disagree with their plain versions (bound "
+             f"{KERNEL_TOL}) or, int8, with their float32 kernels on the "
+             f"dequantized cache (want 0): {bad}")
+    return {"vs_plain": errs, "int8_vs_f32_kernel": exacts}
 
 
 def lstm_inputs(torch, dev, rng, t, b, d, ragged):
@@ -597,11 +841,12 @@ def check_lstm_reverse(torch, dev, rng):
 
 # ------------------------------------------------------------- paths
 
-def margins(torch, transformer, params, ids):
+def margins(torch, transformer, params, ids, kv_dtype=None):
     """Top-1 minus top-2 logit at every position of ``ids`` [B, T]
-    (teacher-forced: one prefill over the whole sequence)."""
+    (teacher-forced: one prefill over the whole sequence, over an int8
+    cache when ``kv_dtype="int8"``)."""
     hidden, _ = transformer.lm_prefill(params, ids, ids.shape[1],
-                                       num_heads=HEADS)
+                                       num_heads=HEADS, kv_dtype=kv_dtype)
     top2 = torch.topk(transformer._lm_project(params, hidden), 2, dim=-1)
     return (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
 
@@ -666,22 +911,28 @@ def run_generate(torch, dev, transformer, kernels, params, rng):
 
 
 def launch_counts(kernels):
-    dk = kernels.decode_attention
-    return {"flash_attention": kernels.flash_attention.launches,
+    dk, fk = kernels.decode_attention, kernels.flash_attention
+    return {"flash_attention": fk.launches,
+            fk.NAME_QUANT: fk.launches_quant,
             dk.NAME: dk.launches, dk.NAME_SLAB: dk.launches_slab,
             dk.NAME_PAGED: dk.launches_paged,
-            dk.NAME_PAGED_CHUNK: dk.launches_paged_chunk}
+            dk.NAME_PAGED_CHUNK: dk.launches_paged_chunk,
+            dk.NAME_I8: dk.launches_i8, dk.NAME_SLAB_I8: dk.launches_slab_i8,
+            dk.NAME_PAGED_I8: dk.launches_paged_i8,
+            dk.NAME_PAGED_CHUNK_I8: dk.launches_paged_chunk_i8}
 
 
-def check_streams(torch, transformer, params, prompts, outs, what):
-    """Each stream against lm_generate on the card, up to its first
-    reference margin below MARGIN_TOL; returns the tokens compared."""
+def check_streams(torch, transformer, params, prompts, outs, what,
+                  kv_dtype=None):
+    """Each stream against lm_generate (over the same KV dtype) on the
+    card, up to its first reference margin below MARGIN_TOL; returns the
+    tokens compared."""
     checked = 0
     for i, (prompt, toks) in enumerate(zip(prompts, outs)):
         p = np.asarray([prompt], np.int32)
         ref = transformer.lm_generate(params, p, p.shape[1] + len(toks),
-                                      HEADS)
-        marg = margins(torch, transformer, params, ref)[0]
+                                      HEADS, kv_dtype=kv_dtype)
+        marg = margins(torch, transformer, params, ref, kv_dtype)[0]
         n, ok = compare(toks, ref[0, p.shape[1]:].tolist(),
                         marg[p.shape[1] - 1:])
         if not ok:
@@ -698,7 +949,7 @@ def serve_http(torch, kernels, engine, prompts, n_tok, starts):
     third streamed.  Returns the run's record: results [(status,
     tokens)], inter-token gaps of the streamed ones (s), errors, seconds,
     steps, launches (counts set to 0 just before), the metrics snapshot,
-    and the batcher (still open)."""
+    the /metrics text, and the batcher (still open)."""
     from paddle_tpu_torch.serving import GenerationBatcher, make_server
     gen = GenerationBatcher(engine, default_max_tokens=n_tok)
     httpd = make_server(gen, port=0)
@@ -746,6 +997,9 @@ def serve_http(torch, kernels, engine, prompts, n_tok, starts):
            "steps": engine.metrics.decode_steps_total - steps0,
            "snapshot": engine.metrics.snapshot(), "results": results,
            "gaps": gaps, "errors": errors, "gen": gen}
+    with urllib.request.urlopen(base.replace("/v1/generate", "/metrics"),
+                                timeout=60) as r:
+        run["metrics_text"] = r.read().decode()
     httpd.shutdown()
     httpd.server_close()
     server.join(30)
@@ -773,11 +1027,20 @@ def check_served(run, n_tok, what):
              f"tokens: {run['errors'] or run['results']}")
 
 
-def run_serve(torch, dev, transformer, kernels, params, rng):
+def run_serve(torch, dev, transformer, kernels, params, rng,
+              kv_dtype="float32"):
+    """The HTTP server on the chunked slab step (phase "serve", or
+    "serve_int8" over an int8 KV cache): 12 staggered requests, the chunk
+    kernel of the cache's dtype once per layer per step, each stream held
+    against lm_generate over the same cache dtype."""
     from paddle_tpu_torch.serving import DecodeEngine
+    dk = kernels.decode_attention
+    int8 = kv_dtype == "int8"
+    phase, kernel = ("serve_int8", dk.NAME_I8) if int8 else ("serve",
+                                                             dk.NAME)
     engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
                           max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
-                          name="base_lm", device=dev)
+                          kv_dtype=kv_dtype, name="base_lm", device=dev)
     n_req, n_tok = 12, 32
     lengths = np.linspace(3, 120, n_req).astype(int)
     prompts = [rng.randint(3, VOCAB, n).tolist() for n in lengths]
@@ -785,18 +1048,24 @@ def run_serve(torch, dev, transformer, kernels, params, rng):
     run = serve_http(torch, kernels, engine, prompts, n_tok,
                      [0.03 * i for i in range(n_req)])
     run["gen"].close()
-    check_served(run, n_tok, "serve")
+    check_served(run, n_tok, phase)
     launches, steps = run["launches"], run["steps"]
-    if launches["decode_attention_slab_chunk"] != LAYERS * steps:
-        fail(f"serve: chunk kernel launched "
-             f"{launches['decode_attention_slab_chunk']} times over {steps} "
-             f"steps, want {LAYERS * steps}")
+    other = dk.NAME if int8 else dk.NAME_I8
+    if launches[kernel] != LAYERS * steps or launches[other]:
+        fail(f"{phase}: chunk kernels launched {kernel} "
+             f"{launches[kernel]}, {other} {launches[other]} times over "
+             f"{steps} steps, want {LAYERS * steps} and 0")
+    int8_line = f"{engine.metrics.name}_kv_cache_int8 {int(int8)}"
+    if int8_line not in run["metrics_text"].splitlines():
+        fail(f"{phase}: /metrics lacks the line {int8_line!r}")
     checked = check_streams(torch, transformer, params, prompts,
-                            [r[1] for r in run["results"]], "serve")
-    emit({"phase": "serve", "prompt_lengths": lengths.tolist(),
+                            [r[1] for r in run["results"]], phase,
+                            kv_dtype)
+    emit({"phase": phase, "kv_dtype": kv_dtype,
+          "prompt_lengths": lengths.tolist(),
           **serve_record(run, n_tok),
           "tokens_checked_vs_lm_generate": checked,
-          "tokens_total": n_req * n_tok,
+          "tokens_total": n_req * n_tok, "metrics_line": int8_line,
           "note": "tokens compared up to each stream's first reference "
                   f"top-1/top-2 margin below {MARGIN_TOL} (random weights "
                   "give small margins)"})
@@ -876,20 +1145,29 @@ def run_serve_paged(torch, dev, transformer, kernels, params, rng):
     return launches
 
 
-def run_ladder(torch, dev, transformer, kernels, params, rng):
-    """The legacy prefill ladder on both layouts: 8 staggered requests
-    straight to the batcher.  Returns each layout's launches."""
-    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+def run_ladder(torch, dev, transformer, kernels, params, rng,
+               kv_dtype="float32"):
+    """The legacy prefill ladder on both layouts (phase "ladder", or
+    "ladder_int8" over an int8 KV cache): 8 staggered requests straight
+    to the batcher; the prefill's flash kernel once per layer per prefill
+    batch, the Tq=1 kernel once per layer per step, both of the cache's
+    dtype.  Returns each layout's launches."""
     from paddle_tpu_torch.serving import DecodeEngine, GenerationBatcher
+    dk, fk = kernels.decode_attention, kernels.flash_attention
+    int8 = kv_dtype == "int8"
     prompts = [rng.randint(3, VOCAB, n).tolist() for n in LADDER_PROMPTS]
-    record, launches = {"phase": "ladder", "prompt_lengths":
-                        list(LADDER_PROMPTS)}, {}
-    for layout, step_kernel in (("slab", dk.NAME_SLAB),
-                                ("paged", dk.NAME_PAGED)):
+    record = {"phase": "ladder_int8" if int8 else "ladder",
+              "kv_dtype": kv_dtype, "prompt_lengths": list(LADDER_PROMPTS)}
+    launches = {}
+    flash = fk.NAME_QUANT if int8 else "flash_attention"
+    for layout, step_kernel in (
+            ("slab", dk.NAME_SLAB_I8 if int8 else dk.NAME_SLAB),
+            ("paged", dk.NAME_PAGED_I8 if int8 else dk.NAME_PAGED)):
         engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
                               max_len=SERVE_MAX_LEN, prefill_chunk=0,
                               kv_layout=layout, kv_block_size=PAGE_BS,
-                              name=f"ladder_{layout}", device=dev)
+                              kv_dtype=kv_dtype, name=f"ladder_{layout}",
+                              device=dev)
         gen = GenerationBatcher(engine)
         kernels.reset_launches()
         steps0 = engine.metrics.decode_steps_total
@@ -907,24 +1185,157 @@ def run_ladder(torch, dev, transformer, kernels, params, rng):
         batches = engine.prefill_batches_total - batches0
         snap = engine.metrics.snapshot()
         gen.close()
-        want = {"flash_attention": LAYERS * batches,
-                step_kernel: LAYERS * steps}
-        if any(got[k] != n for k, n in want.items()) \
+        want = {flash: LAYERS * batches, step_kernel: LAYERS * steps}
+        if any(got[k] != want.get(k, 0) for k in got) \
                 or any(len(o) != LADDER_TOKENS for o in outs):
-            fail(f"ladder ({layout}): launches {got} over {batches} prefill "
-                 f"batches and {steps} steps, want {want}; tokens "
-                 f"{[len(o) for o in outs]}")
+            fail(f"{record['phase']} ({layout}): launches {got} over "
+                 f"{batches} prefill batches and {steps} steps, want {want} "
+                 f"and no other; tokens {[len(o) for o in outs]}")
         record[layout] = {
             "seconds": dt, "steps": steps, "prefill_batches": batches,
-            "launches": got,
+            "launches": {k: n for k, n in got.items() if n},
             "tokens_per_s": len(prompts) * LADDER_TOKENS / dt,
             "step_ms": snap["tpot_ms"], "ttft_ms": snap["ttft_ms"],
             "tokens_checked_vs_lm_generate": check_streams(
                 torch, transformer, params, prompts, outs,
-                f"ladder ({layout})"),
+                f"{record['phase']} ({layout})", kv_dtype),
             "tokens_total": len(prompts) * LADDER_TOKENS}
         launches[layout] = got
     emit(record)
+    return launches
+
+
+def run_generate_int8(torch, dev, transformer, kernels, params, rng):
+    """lm_generate over an int8 KV cache at the generate phase's shape:
+    flash_attention_quant once per layer (the float32 flash kernel not
+    at all); the int8 prefill's logits within LOGIT_ERR_BUDGET of its
+    float32 twin's; the greedy prefix each stream shares with the float32
+    stream reported; two rows held against the same call on the CPU."""
+    from paddle_tpu_torch.quant import kv as kvq
+    fk = kernels.flash_attention
+    prompt = rng.randint(3, VOCAB, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    transformer.lm_generate(params, prompt[:2], GEN_PROMPT + 4, HEADS,
+                            kv_dtype="int8")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids = transformer.lm_generate(params, prompt, GEN_MAX_LEN, HEADS,
+                                  kv_dtype="int8")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    if launches[fk.NAME_QUANT] != LAYERS or launches["flash_attention"]:
+        fail(f"lm_generate(kv_dtype='int8') launched flash_attention_quant "
+             f"{launches[fk.NAME_QUANT]} and flash_attention "
+             f"{launches['flash_attention']} times, want {LAYERS} and 0")
+    ids_np = ids.cpu().numpy()
+    if ids_np.shape != (GEN_BATCH, GEN_MAX_LEN) \
+            or not (ids_np[:, :GEN_PROMPT] == prompt).all() \
+            or ids_np.min() < 0 or ids_np.max() >= VOCAB:
+        fail("lm_generate(kv_dtype='int8') output is malformed")
+    # the int8 prefill against its float32 twin on the same prompts
+    h8, _ = transformer.lm_prefill(params, prompt, GEN_PROMPT, HEADS,
+                                   kv_dtype="int8")
+    h32, _ = transformer.lm_prefill(params, prompt, GEN_PROMPT, HEADS)
+    err = kvq.logit_err(transformer._lm_project(params, h32),
+                        transformer._lm_project(params, h8))
+    if not float(err.max()) <= kvq.LOGIT_ERR_BUDGET:
+        fail(f"int8 lm_prefill logit error {float(err.max())} exceeds the "
+             f"budget {kvq.LOGIT_ERR_BUDGET}")
+    f32_ids = transformer.lm_generate(params, prompt, GEN_MAX_LEN,
+                                      HEADS).cpu().numpy()
+    prefix = [kvq.greedy_prefix_len(a[GEN_PROMPT:], b[GEN_PROMPT:])
+              for a, b in zip(ids_np, f32_ids)]
+    cpu_params = transformer.tree_map(lambda x: x.cpu(), params)
+    ref = transformer.lm_generate(cpu_params, prompt[:2], GEN_MAX_LEN,
+                                  HEADS, kv_dtype="int8")
+    marg = margins(torch, transformer, cpu_params, ref, "int8")
+    ref_np = ref.numpy()
+    checked = 0
+    for r in range(2):
+        n, ok = compare(ids_np[r, GEN_PROMPT:], ref_np[r, GEN_PROMPT:],
+                        marg[r, GEN_PROMPT - 1:])
+        if not ok:
+            fail(f"lm_generate(kv_dtype='int8') row {r}: card and CPU "
+                 f"disagree within the first {n + 1} tokens above margin "
+                 f"{MARGIN_TOL}")
+        checked += n
+    emit({"phase": "generate_int8", "batch": GEN_BATCH, "prompt": GEN_PROMPT,
+          "max_len": GEN_MAX_LEN, "seconds": dt,
+          "emitted_tokens_per_s": GEN_BATCH * (GEN_MAX_LEN - GEN_PROMPT)
+          / dt, "launches": {k: n for k, n in launches.items() if n},
+          "prefill_logit_err_vs_f32": {"max": float(err.max()),
+                                       "mean": float(err.mean()),
+                                       "budget": kvq.LOGIT_ERR_BUDGET},
+          "greedy_prefix_vs_f32": {"min": min(prefix),
+                                   "median": float(np.median(prefix)),
+                                   "max": max(prefix),
+                                   "of": GEN_MAX_LEN - GEN_PROMPT},
+          "cpu_tokens_checked": checked,
+          "cpu_tokens_total": 2 * (GEN_MAX_LEN - GEN_PROMPT)})
+    return launches
+
+
+def run_serve_paged_int8(torch, dev, transformer, kernels, params, rng):
+    """The server on the paged layout over an int8 KV cache with the auto
+    pool (twice the float32 slab's block count in fewer bytes): the 12
+    paged_prompts requests with their shared 64-token preamble and two
+    exact duplicates.  The int8 paged chunk kernel launches once per layer
+    per step; the prefix cache hits and an int8 block is forked
+    (copy-on-write, its scales with it); every stream is held against the
+    int8 lm_generate; the pool's KV bytes are reported beside the float32
+    slab's."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    dk = kernels.decode_attention
+    engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                          max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                          kv_layout="paged", kv_block_size=PAGE_BS,
+                          kv_dtype="int8", name="base_lm_paged_int8",
+                          device=dev)
+    blocks = engine._paged.pool.num_blocks
+    if blocks != 2 * (PAGE_BLOCKS - 1) + 1:
+        fail(f"serve_paged_int8: auto pool of {blocks} blocks, want "
+             f"{2 * (PAGE_BLOCKS - 1) + 1}")
+    pool_bytes = sum(t.numel() * t.element_size() for c in engine._cache
+                     for t in c.values())
+    slab_bytes = LAYERS * 2 * SLOTS * SERVE_MAX_LEN * D_MODEL * 4
+    n_tok = 32
+    prompts = paged_prompts(rng)
+    starts = [0.0, 0.0, 0.15, 0.15] + [0.3] * 8
+    run = serve_http(torch, kernels, engine, prompts, n_tok, starts)
+    run["gen"].close()
+    check_served(run, n_tok, "serve_paged_int8")
+    snap = engine.metrics.snapshot()
+    engine._paged.check()
+    launches, steps = run["launches"], run["steps"]
+    if launches[dk.NAME_PAGED_CHUNK_I8] != LAYERS * steps \
+            or launches[dk.NAME_PAGED_CHUNK]:
+        fail(f"serve_paged_int8: int8 paged chunk kernel launched "
+             f"{launches[dk.NAME_PAGED_CHUNK_I8]} times over {steps} steps "
+             f"(want {LAYERS * steps}), float32 "
+             f"{launches[dk.NAME_PAGED_CHUNK]} (want 0)")
+    counts = {"prefix_cache_hits": snap["prefix_cache_hits_total"],
+              "prefix_cache_misses": snap["prefix_cache_misses_total"],
+              "cow_forks": snap["cow_forks_total"],
+              "preemptions": snap["evictions"]["pool_exhausted"]}
+    if not (counts["prefix_cache_hits"] > 0 and counts["cow_forks"] > 0):
+        fail(f"serve_paged_int8: want prefix hits and copy-on-write forks "
+             f"of int8 blocks, got {counts}")
+    if f"{engine.metrics.name}_kv_cache_int8 1" \
+            not in run["metrics_text"].splitlines():
+        fail("serve_paged_int8: /metrics does not show kv_cache_int8 1")
+    checked = check_streams(torch, transformer, params, prompts,
+                            [r[1] for r in run["results"]],
+                            "serve_paged_int8", "int8")
+    emit({"phase": "serve_paged_int8", "kv_dtype": "int8",
+          "block_size": PAGE_BS, "pool_blocks": blocks,
+          "f32_slab_equivalent_blocks": PAGE_BLOCKS,
+          "pool_kv_bytes": pool_bytes, "f32_slab_kv_bytes": slab_bytes,
+          "prompt_lengths": [len(p) for p in prompts],
+          **serve_record(run, n_tok), **counts,
+          "kv_blocks_free_after": snap["kv_blocks_free"],
+          "tokens_checked_vs_lm_generate": checked,
+          "tokens_total": len(prompts) * n_tok})
     return launches
 
 
@@ -1037,11 +1448,19 @@ def main(argv=None):
         torch, dev, rng, 37, 13, d, timed=False)]
     paged = check_paged_kernels(torch, dev, rng, hkv=HEADS)
     paged_gqa = check_paged_kernels(torch, dev, rng, hkv=2)
+    int8 = check_int8_decode_kernels(torch, dev, rng, hkv=HEADS)
+    int8_gqa = check_int8_decode_kernels(torch, dev, rng, hkv=2)
+    flash_q = check_flash_quant_kernel(torch, dev, rng, GEN_BATCH,
+                                       GEN_PROMPT, HEADS, timed=True)
+    flash_q_ragged = check_flash_quant_kernel(torch, dev, rng, 4, 200, 2,
+                                              timed=False)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
+          "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
           "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
           "checks": [chunk, chunk_gqa, flash, flash_ragged, lstm_fwd,
                      lstm_bwd, *lstm_small, *paged.values(),
-                     *paged_gqa.values()],
+                     *paged_gqa.values(), *int8.values(),
+                     *int8_gqa.values(), flash_q, flash_q_ragged],
           "other_head_dims": check_head_dims(torch, dev, rng),
           "lstm_reverse": check_lstm_reverse(torch, dev, rng)})
 
@@ -1056,6 +1475,14 @@ def main(argv=None):
                                      params, rng)
     ladder_launches = run_ladder(torch, dev, transformer, kernels, params,
                                  rng)
+    gen8_launches = run_generate_int8(torch, dev, transformer, kernels,
+                                      params, rng)
+    serve8_launches = run_serve(torch, dev, transformer, kernels, params,
+                                rng, kv_dtype="int8")
+    paged8_launches = run_serve_paged_int8(torch, dev, transformer, kernels,
+                                           params, rng)
+    ladder8_launches = run_ladder(torch, dev, transformer, kernels, params,
+                                  rng, kv_dtype="int8")
     del params
     train_launches = run_train(torch, dev, kernels)
 
@@ -1100,6 +1527,33 @@ def main(argv=None):
             "library_ms": row["library_ms"],
             **({"library_note": row["library_note"]}
                if "library_note" in row else {})})
+    fk = kernels.flash_attention
+    for name, replaces, launches, row, gqa in (
+            (dk.NAME_I8, dk.REPLACES, serve8_launches[dk.NAME_I8],
+             int8[dk.NAME_I8], int8_gqa[dk.NAME_I8]),
+            (dk.NAME_SLAB_I8, dk.REPLACES_SLAB,
+             ladder8_launches["slab"][dk.NAME_SLAB_I8],
+             int8[dk.NAME_SLAB_I8], int8_gqa[dk.NAME_SLAB_I8]),
+            (dk.NAME_PAGED_I8, dk.REPLACES_PAGED,
+             ladder8_launches["paged"][dk.NAME_PAGED_I8],
+             int8[dk.NAME_PAGED_I8], int8_gqa[dk.NAME_PAGED_I8]),
+            (dk.NAME_PAGED_CHUNK_I8, dk.REPLACES_PAGED_CHUNK,
+             paged8_launches[dk.NAME_PAGED_CHUNK_I8],
+             int8[dk.NAME_PAGED_CHUNK_I8], int8_gqa[dk.NAME_PAGED_CHUNK_I8]),
+            (fk.NAME_QUANT, fk.REPLACES_QUANT, gen8_launches[fk.NAME_QUANT],
+             flash_q, flash_q_ragged)):
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": fk.SOURCE if name == fk.NAME_QUANT else dk.SOURCE,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(row["max_abs_err"], gqa["max_abs_err"]),
+            "err_vs_f32_kernel_on_dequantized": max(
+                row["err_vs_f32_kernel_on_dequantized"],
+                gqa["err_vs_f32_kernel_on_dequantized"]),
+            "ms": row["ms"], "f32_kernel_ms": row["f32_kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "library_note": row["library_note"]})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

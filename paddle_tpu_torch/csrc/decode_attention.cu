@@ -1,5 +1,6 @@
-// Decode attention for Hopper (sm_90a), float32: the four float32
-// decode-attention kernels of the serving steps, one template.
+// Decode attention for Hopper (sm_90a): the four decode-attention kernels
+// of the serving steps, one template, each over a float32 or an int8 KV
+// cache.
 //
 // Replaces: paddle_tpu/ops/pallas/decode_attention.py ::
 //   decode_attention_slab_chunk   (pallas_call at :605; _chunk_kernel :315)
@@ -7,7 +8,9 @@
 //   decode_attention_paged_chunk  (:675; _paged_chunk_kernel :376, index
 //                                  map _kv_map :649)
 //   decode_attention_paged        (:530; _paged_kernel :307)
-// all built on _accumulate :187 (the masked online softmax).
+// all built on _accumulate :187 (the masked online softmax), with the
+// int8 operands kscale/vscale of each (_check_scales :383; widened in
+// _accumulate at :212-213 and :230-231).
 //
 // Computes: q [S, K, D] (K query lanes per row; K = 1 for the Tq=1
 //   kernels, whose q is [S, D]), qpos [S, K] int32 -> out [S, K, D].  Lane
@@ -23,11 +26,18 @@
 //   int32, row r's column t at pool block tables[r, t / bs], offset
 //   t % bs.  Several rows may read one pool block (a shared prefix): the
 //   kernel only reads.
+//   Int8 cache (kInt8): k/v hold int8 codes and kscale/vscale the f32
+//   scale of each (position, KV head), laid out as k/v with Hkv in place
+//   of Dkv ([S, T, Hkv] or [NB, bs, Hkv]).  Each code is widened as
+//   float(code) * scale before it is stored to shared memory — exactly
+//   quant/kv.dequantize_heads' product — and everything after the store
+//   is the float32 kernel's, so the int8 kernel equals the float32
+//   kernel run on the dequantized cache bit for bit.
 //
 // Bound on this card: bytes.  Each (row, KV head) stripe of K and V is
 //   read from device memory once, up to the row's furthest lane; the
 //   work per byte is a few FLOPs, far below the H100's ~20 FLOP/byte
-//   float32 ridge.
+//   float32 ridge.  The int8 cache reads 1/4 + 1/dh of those bytes.
 //
 // Design: one CTA per (row r, KV head g, group of 8 query vectors), 8
 //   warps, one query vector (lane i, head h) per warp.  Hopper runs CTAs
@@ -39,23 +49,26 @@
 //   32 logical columns into row offsets in shared memory: the column
 //   itself on the slab, tables[r, t / bs] * bs + t % bs on the pool (one
 //   table word per column, the 16 columns of a bs = 16 block reading the
-//   same word); columns past the clamp get no offset and load as zeros,
-//   so no table entry past the row's furthest block is ever read and a
-//   free row (position 0, table all scratch) reads block 0 only.  Tiles
-//   are loaded with coalesced 16-byte loads into shared memory (row
-//   stride dh + 1, so the per-lane score reads are bank-conflict free)
-//   and shared by all warps.  Within a tile, lane c of a warp scores
-//   column t0 + c; the running max / sum live in registers, the
-//   accumulator is spread over the lanes (dh / 32 values each).  Every
-//   query vector of the row's group shares the K/V tile, so GQA costs no
-//   widened K/V.  A tile past a warp's own position is skipped: on the
-//   TPU that visit is a bit-exact no-op (every score masked, alpha = 1).
-//   A bs = 16 pool row walks up to 16 small blocks, two to a tile; the
-//   tile is not resized to the block.
+//   same word); on an int8 cache it also reads each column's two scales
+//   at that row offset (the scale pool rides the same table walk).
+//   Columns past the clamp get no offset and load as zeros (code 0,
+//   scale 0), so no table entry past the row's furthest block is ever
+//   read and a free row (position 0, table all scratch) reads block 0
+//   only.  Tiles are loaded with coalesced 16-byte loads (4 floats, or
+//   16 int8 codes) into shared memory (row stride dh + 1, so the per-lane
+//   score reads are bank-conflict free) and shared by all warps.  Within
+//   a tile, lane c of a warp scores column t0 + c; the running max / sum
+//   live in registers, the accumulator is spread over the lanes (dh / 32
+//   values each).  Every query vector of the row's group shares the K/V
+//   tile, so GQA costs no widened K/V.  A tile past a warp's own position
+//   is skipped: on the TPU that visit is a bit-exact no-op (every score
+//   masked, alpha = 1).  A bs = 16 pool row walks up to 16 small blocks,
+//   two to a tile; the tile is not resized to the block.
 //   Later work (ROADMAP): split-KV for the small main-path grid, TMA
 //   loads, a tensor-core product, fewer warps for the Tq=1 grids.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -78,20 +91,24 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // kPaged: K/V from the pool through the row's block table (span =
 // nb_row * bs logical columns); else from the row's slab stripe (span =
-// T, bs and tables unused).
-template <int DH, bool kPaged>
+// T, bs and tables unused).  kInt8: k/v are int8 codes with per-(row,
+// KV head) scales kscale/vscale; else float32 and the scales unused.
+template <int DH, bool kPaged, bool kInt8>
 __global__ void __launch_bounds__(kWarps * 32)
-attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const int* __restrict__ qpos,
+attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
+            const void* __restrict__ v, const float* __restrict__ kscale,
+            const float* __restrict__ vscale, const int* __restrict__ qpos,
             const int* __restrict__ tables, float* __restrict__ out, int K,
             int span, int bs, int nb_row, int H, int Hkv, float scale) {
   constexpr int kPerLane = (DH + 31) / 32;   // accumulator values per lane
   constexpr int kLd = DH + 1;                // padded shared row stride
-  constexpr int kVec = DH / 4;               // float4s per K/V row
+  constexpr int kVec = kInt8 ? DH / 16 : DH / 4;   // 16-byte loads per row
   __shared__ float ks[kTile * kLd];
   __shared__ float vs[kTile * kLd];
   __shared__ float qs[kWarps][DH];
   __shared__ long long s_row[kTile];         // source row of each column
+  __shared__ float s_ksc[kTile];             // its scales (int8 cache)
+  __shared__ float s_vsc[kTile];
   __shared__ int s_hi;
 
   const int r = blockIdx.x;
@@ -121,8 +138,6 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hi = min(s_hi, span - 1);         // the clamp
 
   const int* tbl = kPaged ? tables + (size_t)r * nb_row : nullptr;
-  const float* kb = k + (size_t)g * DH;
-  const float* vb = v + (size_t)g * DH;
   const size_t slab_row0 = kPaged ? 0 : (size_t)r * span;
   float m = kNeg, l = 0.f;
   float acc[kPerLane];
@@ -138,20 +153,52 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      : (long long)(slab_row0 + t);
       }
       s_row[threadIdx.x] = src;
+      if constexpr (kInt8) {
+        s_ksc[threadIdx.x] = src >= 0 ? kscale[src * Hkv + g] : 0.f;
+        s_vsc[threadIdx.x] = src >= 0 ? vscale[src * Hkv + g] : 0.f;
+      }
     }
     __syncthreads();
     for (int e = threadIdx.x; e < kTile * kVec; e += kWarps * 32) {
-      const int row = e / kVec, c = (e % kVec) * 4;
+      const int row = e / kVec;
       const long long src = s_row[row];
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (src >= 0) {
-        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)src * Dkv + c);
-        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)src * Dkv + c);
+      float* kd = ks + row * kLd;
+      float* vd = vs + row * kLd;
+      if constexpr (kInt8) {
+        // 16 codes per load at byte offset src * Dkv + g * DH + c, a
+        // multiple of 16 (the wrapper checks Dkv % 16 == 0)
+        const int c = (e % kVec) * 16;
+        int4 kc = make_int4(0, 0, 0, 0), vc = kc;
+        if (src >= 0) {
+          const size_t off = (size_t)src * Dkv + (size_t)g * DH + c;
+          kc = *reinterpret_cast<const int4*>(
+              static_cast<const int8_t*>(k) + off);
+          vc = *reinterpret_cast<const int4*>(
+              static_cast<const int8_t*>(v) + off);
+        }
+        const float sk = s_ksc[row], sv = s_vsc[row];
+        const int8_t* k8 = reinterpret_cast<const int8_t*>(&kc);
+        const int8_t* v8 = reinterpret_cast<const int8_t*>(&vc);
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          kd[c + u] = __fmul_rn(static_cast<float>(k8[u]), sk);
+          vd[c + u] = __fmul_rn(static_cast<float>(v8[u]), sv);
+        }
+      } else {
+        const int c = (e % kVec) * 4;
+        float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
+        if (src >= 0) {
+          const size_t off = (size_t)src * Dkv + (size_t)g * DH + c;
+          kv4 = *reinterpret_cast<const float4*>(
+              static_cast<const float*>(k) + off);
+          vv4 = *reinterpret_cast<const float4*>(
+              static_cast<const float*>(v) + off);
+        }
+        kd[c] = kv4.x; kd[c + 1] = kv4.y; kd[c + 2] = kv4.z;
+        kd[c + 3] = kv4.w;
+        vd[c] = vv4.x; vd[c + 1] = vv4.y; vd[c + 2] = vv4.z;
+        vd[c + 3] = vv4.w;
       }
-      float* kd = ks + row * kLd + c;
-      float* vd = vs + row * kLd + c;
-      kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
-      vd[0] = vv4.x; vd[1] = vv4.y; vd[2] = vv4.z; vd[3] = vv4.w;
     }
     __syncthreads();
     if (live && t0 <= pos) {
@@ -192,30 +239,44 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool kPaged>
-int launch(const float* q, const float* k, const float* v, const int* qpos,
+template <int DH, bool kPaged, bool kInt8>
+void start(dim3 grid, cudaStream_t st, const float* q, const void* k,
+           const void* v, const float* kscale, const float* vscale,
+           const int* qpos, const int* tables, float* out, int K, int span,
+           int bs, int nb_row, int H, int Hkv, float scale) {
+  attn_kernel<DH, kPaged, kInt8><<<grid, kWarps * 32, 0, st>>>(
+      q, k, v, kscale, vscale, qpos, tables, out, K, span, bs, nb_row, H,
+      Hkv, scale);
+}
+
+template <bool kPaged, bool kInt8>
+int launch(const float* q, const void* k, const void* v,
+           const float* kscale, const float* vscale, const int* qpos,
            const int* tables, float* out, int S, int K, int span, int bs,
            int nb_row, int H, int Hkv, int dh, float scale, void* stream) {
   const int nq = K * (H / Hkv);
   const dim3 grid(S, Hkv, (nq + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16:
-      attn_kernel<16, kPaged><<<grid, block, 0, st>>>(
-          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
+      start<16, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
+                               tables, out, K, span, bs, nb_row, H, Hkv,
+                               scale);
       break;
     case 32:
-      attn_kernel<32, kPaged><<<grid, block, 0, st>>>(
-          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
+      start<32, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
+                               tables, out, K, span, bs, nb_row, H, Hkv,
+                               scale);
       break;
     case 64:
-      attn_kernel<64, kPaged><<<grid, block, 0, st>>>(
-          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
+      start<64, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
+                               tables, out, K, span, bs, nb_row, H, Hkv,
+                               scale);
       break;
     case 128:
-      attn_kernel<128, kPaged><<<grid, block, 0, st>>>(
-          q, k, v, qpos, tables, out, K, span, bs, nb_row, H, Hkv, scale);
+      start<128, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
+                                tables, out, K, span, bs, nb_row, H, Hkv,
+                                scale);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -226,14 +287,24 @@ int launch(const float* q, const float* k, const float* v, const int* qpos,
 }  // namespace
 
 // Each entry returns cudaGetLastError() after the launch (0 = launched).
+// The _i8 entries take int8 k/v and their f32 scales ks/vs, shaped as
+// k/v with Hkv in place of Dkv.
 
 // q [S, K, D], k/v [S, T, Dkv], qpos [S, K] -> out [S, K, D]
 extern "C" int decode_attention_slab_chunk_f32(
     const float* q, const float* k, const float* v, const int* qpos,
     float* out, int S, int K, int T, int H, int Hkv, int dh, float scale,
     void* stream) {
-  return launch<false>(q, k, v, qpos, nullptr, out, S, K, T, 1, 1, H, Hkv,
-                       dh, scale, stream);
+  return launch<false, false>(q, k, v, nullptr, nullptr, qpos, nullptr, out,
+                              S, K, T, 1, 1, H, Hkv, dh, scale, stream);
+}
+
+extern "C" int decode_attention_slab_chunk_i8(
+    const float* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* qpos, float* out, int S, int K, int T, int H,
+    int Hkv, int dh, float scale, void* stream) {
+  return launch<false, true>(q, k, v, ks, vs, qpos, nullptr, out, S, K, T, 1,
+                             1, H, Hkv, dh, scale, stream);
 }
 
 // q [S, D], k/v [S, T, Dkv], positions [S] -> out [S, D]
@@ -241,8 +312,16 @@ extern "C" int decode_attention_slab_f32(
     const float* q, const float* k, const float* v, const int* positions,
     float* out, int S, int T, int H, int Hkv, int dh, float scale,
     void* stream) {
-  return launch<false>(q, k, v, positions, nullptr, out, S, 1, T, 1, 1, H,
-                       Hkv, dh, scale, stream);
+  return launch<false, false>(q, k, v, nullptr, nullptr, positions, nullptr,
+                              out, S, 1, T, 1, 1, H, Hkv, dh, scale, stream);
+}
+
+extern "C" int decode_attention_slab_i8(
+    const float* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* positions, float* out, int S, int T, int H,
+    int Hkv, int dh, float scale, void* stream) {
+  return launch<false, true>(q, k, v, ks, vs, positions, nullptr, out, S, 1,
+                             T, 1, 1, H, Hkv, dh, scale, stream);
 }
 
 // q [S, K, D], pool k/v [NB, bs, Dkv], qpos [S, K], tables [S, nb_row]
@@ -251,8 +330,19 @@ extern "C" int decode_attention_paged_chunk_f32(
     const float* q, const float* k, const float* v, const int* qpos,
     const int* tables, float* out, int S, int K, int bs, int nb_row, int H,
     int Hkv, int dh, float scale, void* stream) {
-  return launch<true>(q, k, v, qpos, tables, out, S, K, nb_row * bs, bs,
-                      nb_row, H, Hkv, dh, scale, stream);
+  return launch<true, false>(q, k, v, nullptr, nullptr, qpos, tables, out, S,
+                             K, nb_row * bs, bs, nb_row, H, Hkv, dh, scale,
+                             stream);
+}
+
+extern "C" int decode_attention_paged_chunk_i8(
+    const float* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* qpos, const int* tables, float* out, int S,
+    int K, int bs, int nb_row, int H, int Hkv, int dh, float scale,
+    void* stream) {
+  return launch<true, true>(q, k, v, ks, vs, qpos, tables, out, S, K,
+                            nb_row * bs, bs, nb_row, H, Hkv, dh, scale,
+                            stream);
 }
 
 // q [S, D], pool k/v [NB, bs, Dkv], positions [S], tables [S, nb_row]
@@ -261,6 +351,17 @@ extern "C" int decode_attention_paged_f32(
     const float* q, const float* k, const float* v, const int* positions,
     const int* tables, float* out, int S, int bs, int nb_row, int H,
     int Hkv, int dh, float scale, void* stream) {
-  return launch<true>(q, k, v, positions, tables, out, S, 1, nb_row * bs,
-                      bs, nb_row, H, Hkv, dh, scale, stream);
+  return launch<true, false>(q, k, v, nullptr, nullptr, positions, tables,
+                             out, S, 1, nb_row * bs, bs, nb_row, H, Hkv, dh,
+                             scale, stream);
+}
+
+extern "C" int decode_attention_paged_i8(
+    const float* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* positions, const int* tables, float* out,
+    int S, int bs, int nb_row, int H, int Hkv, int dh, float scale,
+    void* stream) {
+  return launch<true, true>(q, k, v, ks, vs, positions, tables, out, S, 1,
+                            nb_row * bs, bs, nb_row, H, Hkv, dh, scale,
+                            stream);
 }

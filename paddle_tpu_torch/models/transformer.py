@@ -16,15 +16,20 @@ Weights are ``[in, out]``.  Where the JAX functions return a new KV cache
 return the same list.  The KV cache is a slab ``[S, max_len, Dkv]`` per
 layer (``init_lm_cache``) or a shared block pool ``[num_blocks,
 block_size, Dkv]`` walked through per-row block tables
-(``init_lm_cache_paged``).  Five attention kernels carry this file, one
-per step kind — ``decode_attention_slab_chunk`` / ``_paged_chunk`` (the
+(``init_lm_cache_paged``), float32 or, with ``kv_dtype="int8"``, int8
+codes plus f32 scale sidecars ``{"ks", "vs"}`` per (position, KV head)
+(``quant/kv.py``): each position's K/V is quantized on the write and
+every read, the step's own write included, sees the quantize ->
+dequantize round trip.  Five attention kernels carry this file, one per
+step kind — ``decode_attention_slab_chunk`` / ``_paged_chunk`` (the
 chunked serving steps), ``decode_attention_slab`` / ``_paged`` (the
-Tq=1 steps of the legacy ladder) — and ``flash_attention`` in the
-prefill's batched causal pass; each dispatches on the device of the
-tensors it is handed.
+Tq=1 steps of the legacy ladder), each handed the int8 cache and its
+sidecars as they are — and ``flash_attention`` (``flash_attention_quant``
+on an int8 cache) in the prefill's batched causal pass; each dispatches
+on the device of the tensors it is handed.
 
-Not ported in this slice (ROADMAP): MoE blocks, int8 weights and KV,
-the seq2seq encoder-decoder and tensor-parallel ``shard_axis``.
+Not ported in this slice (ROADMAP): MoE blocks, int8 weights, the
+seq2seq encoder-decoder and tensor-parallel ``shard_axis``.
 """
 
 import math
@@ -39,6 +44,7 @@ from paddle_tpu_torch.ops import linear
 from paddle_tpu_torch.ops.kernels import decode_attention as _decode_kernel
 from paddle_tpu_torch.ops.kernels import flash_attention as _flash_kernel
 from paddle_tpu_torch.ops.norm import layer_norm
+from paddle_tpu_torch.quant import kv as kvq
 from paddle_tpu_torch.quant.weights import (is_quantized_tree as _quantized,
                                             maybe_dequant as _maybe_dequant,
                                             weight_shape as _w_shape)
@@ -182,57 +188,92 @@ def _rope_flat(x_btd, positions, head_dim):
 # ------------------------------------------------------------- KV cache
 
 def _kv_writes(c, k_new, v_new):
-    """The float path of the quantize-on-write decision: K/V pass through
-    (scales None).  An int8 cache raises."""
+    """The one quantize-on-write decision every cached-attention variant
+    shares: an int8 cache (``"ks" in c``) quantizes the new K/V per
+    (position, KV head) and returns the codes plus their scales; a float
+    cache passes them through (scales None)."""
     if "ks" in c:
-        raise NotImplementedError(f"int8 KV caches are {_ROADMAP}")
+        k_set, sk = kvq.quantize_heads(k_new, c["ks"].shape[-1])
+        v_set, sv = kvq.quantize_heads(v_new, c["vs"].shape[-1])
+        return k_set, v_set, sk, sv
     return k_new, v_new, None, None
 
 
 def _kv_view(k, ks):
-    """The matching read: identity on the float path."""
-    if ks is not None:
-        raise NotImplementedError(f"int8 KV caches are {_ROADMAP}")
-    return k
+    """The matching read: an int8 buffer dequantized by its sidecar,
+    identity on the float path.  Only the plain paths read it; a kernel
+    is handed the codes and scales as they are."""
+    return kvq.dequantize_heads(k, ks) if ks is not None else k
 
 
 def _kv_commit(c, upd, k_set, v_set, sk, sv):
-    """Apply the K/V writes through ``upd(buffer, value)``, which writes
-    in place (the JAX callers donate the cache).  Returns ``(c, None,
-    None)`` — the cache and the float path's absent scales."""
-    if sk is not None or sv is not None:
-        raise NotImplementedError(f"int8 KV caches are {_ROADMAP}")
+    """Apply the K/V (and sidecar) writes through ``upd(buffer, value)``,
+    which writes in place (the JAX callers donate the cache).  Readers
+    then take the sidecars as ``c.get("ks")``/``c.get("vs")``, None on
+    the float path."""
     upd(c["k"], k_set)
     upd(c["v"], v_set)
-    return c, None, None
+    if sk is not None:
+        upd(c["ks"], sk)
+        upd(c["vs"], sv)
 
 
-def _kv_layer_buffers(params, lead_shape, kv_dtype):
-    if kv_dtype == "int8":
-        raise NotImplementedError(f"kv_dtype='int8' is {_ROADMAP}")
-    if kv_dtype not in (None, "float32"):
-        raise ValueError(f"kv_dtype={kv_dtype!r} (supported: 'float32', "
-                         "'int8')")
+def _kv_layer_buffers(params, lead_shape, kv_dtype, num_heads):
+    """One layer list of K/V buffers ``lead_shape + (Dkv,)``; int8 adds
+    the f32 scale sidecars ``{"ks", "vs"}`` of ``lead_shape + (Hkv,)``,
+    sized from ``num_heads`` (required: a wrong head count would
+    quantize at the wrong granularity)."""
+    if kv_dtype not in (None,) + kvq.KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r} (supported: "
+                         f"{kvq.KV_DTYPES})")
     emb = params["src_emb"]
-    return [{"k": torch.zeros(lead_shape + (_w_shape(blk["attn"]["wk"])[1],),
-                              dtype=emb.dtype, device=emb.device),
-             "v": torch.zeros(lead_shape + (_w_shape(blk["attn"]["wv"])[1],),
-                              dtype=emb.dtype, device=emb.device)}
-            for blk in params["enc"]]
+    d = _w_shape(emb)[1]
+    int8 = kv_dtype == "int8"
+    if int8:
+        if num_heads is None:
+            raise ValueError(
+                "kv_dtype='int8' needs the trunk's num_heads: the "
+                "per-(position, head) scale sidecar is sized Hkv = "
+                "Dkv / (d_model / num_heads)")
+        if d % num_heads:
+            raise ValueError(f"num_heads={num_heads} does not divide "
+                             f"d_model={d}")
+    layers = []
+    for blk in params["enc"]:
+        dkv = _w_shape(blk["attn"]["wk"])[1]
+        dkv_v = _w_shape(blk["attn"]["wv"])[1]
+        dt = torch.int8 if int8 else emb.dtype
+        c = {"k": torch.zeros(lead_shape + (dkv,), dtype=dt,
+                              device=emb.device),
+             "v": torch.zeros(lead_shape + (dkv_v,), dtype=dt,
+                              device=emb.device)}
+        if int8:
+            dh = d // num_heads
+            if dkv % dh or dkv_v % dh:
+                raise ValueError(
+                    f"head_dim {dh} (d_model {d} / num_heads {num_heads}) "
+                    f"does not divide Dkv {dkv}/{dkv_v}")
+            c["ks"] = torch.zeros(lead_shape + (dkv // dh,),
+                                  dtype=torch.float32, device=emb.device)
+            c["vs"] = torch.zeros(lead_shape + (dkv_v // dh,),
+                                  dtype=torch.float32, device=emb.device)
+        layers.append(c)
+    return layers
 
 
 def init_lm_cache(params, batch, max_len, kv_dtype=None, num_heads=None):
     """Per-layer K/V buffers ``{"k", "v"}`` of [batch, max_len, Dkv] on
     the params' device (Dkv from each block's ``wk``/``wv``, so a GQA
     trunk gets the smaller cache).  A learned positional table caps
-    ``max_len``."""
-    del num_heads     # sizes the int8 scale sidecars only
+    ``max_len``.  ``kv_dtype="int8"`` (with the trunk's ``num_heads``):
+    int8 buffers plus f32 sidecars ``{"ks", "vs"}`` of [batch, max_len,
+    Hkv]."""
     if "pos" in params and max_len > _w_shape(params["pos"])[0]:
         raise ValueError(
             f"lm decode max_len {max_len} exceeds the positional table "
             f"({_w_shape(params['pos'])[0]}); re-init with a larger max_len "
             "or use pos_type='rope'")
-    return _kv_layer_buffers(params, (batch, max_len), kv_dtype)
+    return _kv_layer_buffers(params, (batch, max_len), kv_dtype, num_heads)
 
 
 def init_lm_cache_paged(params, num_blocks, block_size, max_len=None,
@@ -242,8 +283,8 @@ def init_lm_cache_paged(params, num_blocks, block_size, max_len=None,
     the scratch block free rows read and write; the allocator
     (``serving/kv_pool.BlockPool``) hands out ids ``1..num_blocks-1``.
     ``max_len``: the logical per-row span, capped by a learned positional
-    table exactly like ``init_lm_cache``."""
-    del num_heads     # sizes the int8 scale sidecars only
+    table exactly like ``init_lm_cache``.  ``kv_dtype="int8"``: int8
+    pools plus f32 sidecar pools ``[num_blocks, block_size, Hkv]``."""
     if num_blocks < 2 or block_size < 1:
         raise ValueError(
             f"paged cache needs num_blocks >= 2 (one is the reserved "
@@ -255,7 +296,8 @@ def init_lm_cache_paged(params, num_blocks, block_size, max_len=None,
             f"lm decode max_len {max_len} exceeds the positional table "
             f"({_w_shape(params['pos'])[0]}); re-init with a larger max_len "
             "or use pos_type='rope'")
-    return _kv_layer_buffers(params, (num_blocks, block_size), kv_dtype)
+    return _kv_layer_buffers(params, (num_blocks, block_size), kv_dtype,
+                             num_heads)
 
 
 def _check_pos_type(params, pos_type):
@@ -281,14 +323,19 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
     (hidden states [B, Tp, D], cache) with every position's K/V written
     into fresh [B, max_len, Dkv] buffers.  The attention is the
     ``flash_attention`` kernel, causal, over GQA heads repeated to full
-    width first."""
+    width first.  ``kv_dtype="int8"`` quantizes each position's K/V on
+    the way into the cache and attends the just-quantized codes through
+    ``flash_attention_quant`` (GQA in the kernel): the quantize ->
+    dequantize round trip that sequential int8 steps attend, so the cache
+    equals theirs."""
     del moe_top_k     # MoE blocks raise in _block_ffn
     params = _maybe_dequant(params)
     _check_pos_type(params, pos_type)
     dev = params["src_emb"].device
     prompt = _ids(prompt, dev)
     b, tp = prompt.shape
-    cache = init_lm_cache(params, b, max_len, kv_dtype=kv_dtype)
+    cache = init_lm_cache(params, b, max_len, kv_dtype=kv_dtype,
+                          num_heads=num_heads)
     x = _lm_embed(params, prompt)
     x = x * math.sqrt(x.shape[-1])
     if pos_type == "learned":
@@ -310,11 +357,17 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
         def split(a, hh):
             return a.reshape(b, tp, hh, dh).transpose(1, 2)
 
-        att = _flash_kernel.flash_attention(
-            split(q, num_heads).contiguous(),
-            attn_ops.repeat_kv_heads(split(k, hkv), num_heads).contiguous(),
-            attn_ops.repeat_kv_heads(split(v, hkv), num_heads).contiguous(),
-            causal=True)
+        if sk is not None:
+            att = _flash_kernel.flash_attention_quant(
+                q.contiguous(), k_set, v_set, sk, sv, num_heads, causal=True)
+        else:
+            att = _flash_kernel.flash_attention(
+                split(q, num_heads).contiguous(),
+                attn_ops.repeat_kv_heads(split(k, hkv),
+                                         num_heads).contiguous(),
+                attn_ops.repeat_kv_heads(split(v, hkv),
+                                         num_heads).contiguous(),
+                causal=True)
         att = att.transpose(1, 2).reshape(b, tp, d)
         x = x + linear.matmul(att, blk["attn"]["wo"])
         x = x + _block_ffn(blk, _ln(blk["ln2"], x))
@@ -339,7 +392,8 @@ def _cached_self_attn(blk, x, c, t, pos_mask, num_heads, rope_pos=None):
     k_set, v_set, sk, sv = _kv_writes(c, k_new, v_new)
     _kv_commit(c, lambda buf, val: buf[:, t:t + 1].copy_(val),
                k_set, v_set, sk, sv)
-    att = _attend(q, _kv_view(c["k"], None), _kv_view(c["v"], None),
+    att = _attend(q, _kv_view(c["k"], c.get("ks")),
+                  _kv_view(c["v"], c.get("vs")),
                   num_heads, pos_mask)
     return x + linear.matmul(att, blk["attn"]["wo"])
 
@@ -348,8 +402,9 @@ def lm_decode_step(params, prev_ids, t, cache, num_heads=8, moe_top_k=2,
                    pos_type="learned"):
     """One incremental position for the whole batch at shared position
     ``t`` (a Python int): prev_ids [B] -> (logits [B, V], cache), the
-    cache written in place.  The attention is the masked plain path, as
-    in the JAX package (no kernel)."""
+    cache (float32 or int8, ``init_lm_cache``) written in place.  The
+    attention is the masked plain path over ``_kv_view``, as in the JAX
+    package (no kernel)."""
     del moe_top_k
     params = _maybe_dequant(params)
     dev = params["src_emb"].device
@@ -406,8 +461,8 @@ def _cached_self_attn_slots(blk, x, c, positions, num_heads, rope_pos=None):
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
     att = _decode_kernel.decode_attention_slab(
-        q[:, 0].contiguous(), _kv_view(c["k"], None), _kv_view(c["v"], None),
-        positions, num_heads)
+        q[:, 0].contiguous(), c["k"], c["v"], positions, num_heads,
+        kscale=c.get("ks"), vscale=c.get("vs"))
     return x + linear.matmul(att[:, None], blk["attn"]["wo"])
 
 
@@ -458,8 +513,8 @@ def _cached_self_attn_paged(blk, x, c, positions, tables, num_heads,
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
     att = _decode_kernel.decode_attention_paged(
-        q[:, 0].contiguous(), _kv_view(c["k"], None), _kv_view(c["v"], None),
-        positions, tables, num_heads)
+        q[:, 0].contiguous(), c["k"], c["v"], positions, tables, num_heads,
+        kscale=c.get("ks"), vscale=c.get("vs"))
     return x + linear.matmul(att[:, None], blk["attn"]["wo"])
 
 
@@ -510,7 +565,8 @@ def _cached_self_attn_chunk(blk, x, c, li, qpos, num_heads, rope_pos=None):
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
     att = _decode_kernel.decode_attention_slab_chunk(
-        q, _kv_view(c["k"], None), _kv_view(c["v"], None), qpos, num_heads)
+        q, c["k"], c["v"], qpos, num_heads, kscale=c.get("ks"),
+        vscale=c.get("vs"))
     return x + linear.matmul(att, blk["attn"]["wo"])
 
 
@@ -518,7 +574,9 @@ def _chunk_qkv(blk, x, li, num_heads, rope_pos):
     """(q, k_sel, v_sel) for K lanes per row: the K/V each lane writes,
     with inactive lanes (li clamped) taking the last active lane's
     values, so their duplicate-target writes are identical — the one
-    reason the unordered duplicate scatter after it is deterministic."""
+    reason the unordered duplicate scatter after it is deterministic (on
+    an int8 cache identical values quantize to identical codes and
+    scales, so that holds there too)."""
     q, k_new, v_new = _qkv(blk, x, num_heads, rope_pos)
     sel = li.long()[:, :, None]
     k_sel = torch.gather(k_new, 1, sel.expand(-1, -1, k_new.shape[-1]))
@@ -541,8 +599,8 @@ def _cached_self_attn_chunk_paged(blk, x, c, li, qpos, tables, num_heads,
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
     att = _decode_kernel.decode_attention_paged_chunk(
-        q, _kv_view(c["k"], None), _kv_view(c["v"], None), qpos, tables,
-        num_heads)
+        q, c["k"], c["v"], qpos, tables, num_heads, kscale=c.get("ks"),
+        vscale=c.get("vs"))
     return x + linear.matmul(att, blk["attn"]["wo"])
 
 

@@ -24,7 +24,12 @@ def reset_launches():
     decode_attention.launches_slab = 0
     decode_attention.launches_paged = 0
     decode_attention.launches_paged_chunk = 0
+    decode_attention.launches_i8 = 0
+    decode_attention.launches_slab_i8 = 0
+    decode_attention.launches_paged_i8 = 0
+    decode_attention.launches_paged_chunk_i8 = 0
     flash_attention.launches = 0
+    flash_attention.launches_quant = 0
     lstm.launches_fwd = 0
     lstm.launches_bwd = 0
 

@@ -3,8 +3,10 @@
 ``lm_decode_chunk_paged``, ``lm_decode_step_slots`` and
 ``lm_decode_step_paged``).
 
-Port of ``paddle_tpu/ops/pallas/decode_attention.py``'s four float32
-kernels (same signatures and contracts):
+Port of ``paddle_tpu/ops/pallas/decode_attention.py``'s four kernels
+(same signatures and contracts), each over a float32 cache or, given the
+keyword operands ``kscale``/``vscale``, an int8 one
+(``quant/kv.py``: int8 codes plus f32 scales per (position, KV head)):
 
 * ``decode_attention_slab_chunk`` — K query lanes per row over the row's
   slab stripe (the default chunked step);
@@ -16,8 +18,10 @@ kernels (same signatures and contracts):
 
 The kernels are one template in ``csrc/decode_attention.cu``; each
 ``*_plain`` function is its kernel's plain PyTorch version, which the CPU
-takes and which ``chip_smoke.py`` holds the kernel against on the card.
-Each kernel has its own ``launches`` counter.
+takes and which ``chip_smoke.py`` holds the kernel against on the card
+(an int8 cache is dequantized with ``quant/kv.dequantize_heads`` first,
+the product the int8 kernels form in registers).  Each kernel, float32
+and int8, has its own ``launches`` counter.
 """
 
 import ctypes
@@ -27,6 +31,7 @@ import torch
 
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops.kernels import _build, _check
+from paddle_tpu_torch.quant.kv import dequantize_heads
 
 SOURCE = "paddle_tpu_torch/csrc/decode_attention.cu"
 _PALLAS = "paddle_tpu/ops/pallas/decode_attention.py"
@@ -38,6 +43,12 @@ NAME_PAGED = "decode_attention_paged"
 REPLACES_PAGED = f"{_PALLAS}:530"
 NAME_PAGED_CHUNK = "decode_attention_paged_chunk"
 REPLACES_PAGED_CHUNK = f"{_PALLAS}:675"
+# the int8-cache instances of the same four (one pallas_call each on the
+# TPU, with the kscale/vscale operands)
+NAME_I8 = f"{NAME}_int8"
+NAME_SLAB_I8 = f"{NAME_SLAB}_int8"
+NAME_PAGED_I8 = f"{NAME_PAGED}_int8"
+NAME_PAGED_CHUNK_I8 = f"{NAME_PAGED_CHUNK}_int8"
 
 # kernel launches since the last reset, one counter per kernel (bumped
 # only where the kernel is launched; the plain versions never count)
@@ -45,15 +56,23 @@ launches = 0                 # decode_attention_slab_chunk
 launches_slab = 0
 launches_paged = 0
 launches_paged_chunk = 0
+launches_i8 = 0              # decode_attention_slab_chunk, int8 cache
+launches_slab_i8 = 0
+launches_paged_i8 = 0
+launches_paged_chunk_i8 = 0
 
 _entries = {}
 
 # C entry -> (pointer args, int args): every entry ends (float scale,
-# cudaStream_t)
+# cudaStream_t); an _i8 entry takes the two scale pointers after k/v
 _SIGNATURES = {"decode_attention_slab_chunk_f32": (5, 6),
                "decode_attention_slab_f32": (5, 5),
                "decode_attention_paged_chunk_f32": (6, 7),
-               "decode_attention_paged_f32": (6, 6)}
+               "decode_attention_paged_f32": (6, 6),
+               "decode_attention_slab_chunk_i8": (7, 6),
+               "decode_attention_slab_i8": (7, 5),
+               "decode_attention_paged_chunk_i8": (8, 7),
+               "decode_attention_paged_i8": (8, 6)}
 
 
 def _entry(name):
@@ -126,6 +145,35 @@ def _paged_shapes(name, q, k, v, qpos, tables, num_heads):
     return (s, kk, nb, bs, nb_row) + _heads(name, d, dkv, num_heads)
 
 
+def _check_scales(name, kscale, vscale, k, v, hkv):
+    """True when ``kscale``/``vscale`` mark an int8 cache (JAX's
+    ``_check_scales``): both or neither, each shaped as k/v with Hkv in
+    place of Dkv, k/v int8 with Dkv a multiple of 16 (the kernels read a
+    head's codes with 16-byte loads).  Raises ValueError otherwise."""
+    if kscale is None and vscale is None:
+        return False
+    if kscale is None or vscale is None:
+        raise ValueError(f"{name}: kscale and vscale come together")
+    want = tuple(k.shape[:-1]) + (hkv,)
+    if tuple(kscale.shape) != want or tuple(vscale.shape) != want:
+        raise ValueError(f"{name}: scale sidecars must be {want}, got "
+                         f"{tuple(kscale.shape)}/{tuple(vscale.shape)}")
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError(f"{name}: k/v must be int8 beside scale sidecars, "
+                         f"got {k.dtype}/{v.dtype}")
+    if k.shape[-1] % 16:
+        raise ValueError(f"{name}: int8 Dkv={k.shape[-1]} is not a multiple "
+                         "of 16")
+    return True
+
+
+def _widen(k, v, kscale, vscale):
+    """The float32 K/V the kernels attend: an int8 cache dequantized."""
+    if kscale is None:
+        return k, v
+    return dequantize_heads(k, kscale), dequantize_heads(v, vscale)
+
+
 def _chain(pool, tables, span_end):
     """Each row's chain gathered to a contiguous [S, nb_row * bs, Dkv]
     view, zeroed past the row's last position ``span_end[r]``: the
@@ -164,32 +212,45 @@ def _masked(q, k, v, qpos, num_heads):
 
 # ------------------------------------------------------------- plain versions
 
-def decode_attention_slab_chunk_plain(q, k, v, qpos, num_heads):
+def decode_attention_slab_chunk_plain(q, k, v, qpos, num_heads, *,
+                                      kscale=None, vscale=None):
     """The contract written as masked softmax attention: lane (r, i)
     attends row r's stripe at cols <= qpos[r, i]; a decode row's lanes
     1..K-1 are exact zeros, as the kernel's fast path writes them."""
-    _slab_shapes(NAME, q, k, v, qpos, num_heads)
-    return _masked(q, k, v, qpos, num_heads)
+    hkv = _slab_shapes(NAME, q, k, v, qpos, num_heads)[4]
+    _check_scales(NAME, kscale, vscale, k, v, hkv)
+    return _masked(q, *_widen(k, v, kscale, vscale), qpos, num_heads)
 
 
-def decode_attention_slab_plain(q, k, v, positions, num_heads):
+def decode_attention_slab_plain(q, k, v, positions, num_heads, *,
+                                kscale=None, vscale=None):
     """Row r's one query attends its stripe at cols <= positions[r]."""
-    _slab_shapes(NAME_SLAB, q, k, v, positions, num_heads)
-    return _masked(q[:, None], k, v, positions[:, None], num_heads)[:, 0]
+    hkv = _slab_shapes(NAME_SLAB, q, k, v, positions, num_heads)[4]
+    _check_scales(NAME_SLAB, kscale, vscale, k, v, hkv)
+    return _masked(q[:, None], *_widen(k, v, kscale, vscale),
+                   positions[:, None], num_heads)[:, 0]
 
 
-def decode_attention_paged_chunk_plain(q, k, v, qpos, tables, num_heads):
+def decode_attention_paged_chunk_plain(q, k, v, qpos, tables, num_heads, *,
+                                       kscale=None, vscale=None):
     """``decode_attention_slab_chunk_plain`` over each row's block chain
     ``pool[tables[r]]``, read up to the row's furthest lane."""
-    _paged_shapes(NAME_PAGED_CHUNK, q, k, v, qpos, tables, num_heads)
+    hkv = _paged_shapes(NAME_PAGED_CHUNK, q, k, v, qpos, tables,
+                        num_heads)[6]
+    _check_scales(NAME_PAGED_CHUNK, kscale, vscale, k, v, hkv)
+    k, v = _widen(k, v, kscale, vscale)
     end = qpos[:, -1]
     return _masked(q, _chain(k, tables, end), _chain(v, tables, end), qpos,
                    num_heads)
 
 
-def decode_attention_paged_plain(q, k, v, positions, tables, num_heads):
+def decode_attention_paged_plain(q, k, v, positions, tables, num_heads, *,
+                                 kscale=None, vscale=None):
     """``decode_attention_slab_plain`` over each row's block chain."""
-    _paged_shapes(NAME_PAGED, q, k, v, positions, tables, num_heads)
+    hkv = _paged_shapes(NAME_PAGED, q, k, v, positions, tables,
+                        num_heads)[6]
+    _check_scales(NAME_PAGED, kscale, vscale, k, v, hkv)
+    k, v = _widen(k, v, kscale, vscale)
     return _masked(q[:, None], _chain(k, tables, positions),
                    _chain(v, tables, positions), positions[:, None],
                    num_heads)[:, 0]
@@ -198,6 +259,17 @@ def decode_attention_paged_plain(q, k, v, positions, tables, num_heads):
 # ------------------------------------------------------------- wrappers
 
 _F32, _I32 = torch.float32, torch.int32
+_DTYPES = {"q": _F32, "qpos": _I32, "positions": _I32, "tables": _I32,
+           "kscale": _F32, "vscale": _F32}
+
+
+def _device(name, quant, **named):
+    """Check every operand given (one device, dtype, contiguous, 16-byte
+    aligned): k/v int8 on an int8 cache, float32 otherwise.  Returns the
+    device."""
+    kv = torch.int8 if quant else _F32
+    return _check.tensors(name, dict(_DTYPES, k=kv, v=kv),
+                          **{a: t for a, t in named.items() if t is not None})
 
 
 def _launch(entry, *args):
@@ -207,80 +279,114 @@ def _launch(entry, *args):
     _build.check(entry, _entry(entry)(*ptrs, stream))
 
 
-def decode_attention_slab_chunk(q, k, v, qpos, num_heads):
-    """q [S, K, D] f32, k/v [S, T, Dkv] f32 (the cache, already holding
-    this step's writes), qpos [S, K] int32 per-lane positions
-    (non-decreasing per row) -> [S, K, D].  CUDA tensors launch the
-    kernel; CPU tensors take the plain version."""
-    global launches
-    dev = _check.tensors(NAME, {"q": _F32, "k": _F32, "v": _F32,
-                                "qpos": _I32}, q=q, k=k, v=v, qpos=qpos)
+def decode_attention_slab_chunk(q, k, v, qpos, num_heads, *, kscale=None,
+                                vscale=None):
+    """q [S, K, D] f32, k/v [S, T, Dkv] (the cache, already holding this
+    step's writes), qpos [S, K] int32 per-lane positions (non-decreasing
+    per row) -> [S, K, D].  k/v float32, or int8 with kscale/vscale
+    [S, T, Hkv] f32.  CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    global launches, launches_i8
     s, kk, t, h, hkv, dh = _slab_shapes(NAME, q, k, v, qpos, num_heads)
+    quant = _check_scales(NAME, kscale, vscale, k, v, hkv)
+    dev = _device(NAME, quant, q=q, k=k, v=v, qpos=qpos, kscale=kscale,
+                  vscale=vscale)
     if dev.type == "cpu":
-        return decode_attention_slab_chunk_plain(q, k, v, qpos, num_heads)
+        return decode_attention_slab_chunk_plain(
+            q, k, v, qpos, num_heads, kscale=kscale, vscale=vscale)
     out = torch.empty_like(q)
-    _launch("decode_attention_slab_chunk_f32", q, k, v, qpos, out, s, kk, t,
-            h, hkv, dh, 1.0 / math.sqrt(dh))
-    launches += 1
+    scale = 1.0 / math.sqrt(dh)
+    if quant:
+        _launch("decode_attention_slab_chunk_i8", q, k, v, kscale, vscale,
+                qpos, out, s, kk, t, h, hkv, dh, scale)
+        launches_i8 += 1
+    else:
+        _launch("decode_attention_slab_chunk_f32", q, k, v, qpos, out, s, kk,
+                t, h, hkv, dh, scale)
+        launches += 1
     return out
 
 
-def decode_attention_slab(q, k, v, positions, num_heads):
-    """q [S, D] f32, k/v [S, T, Dkv] f32, positions [S] int32 -> [S, D]:
-    row r's query attends its stripe at cols <= positions[r]."""
-    global launches_slab
-    dev = _check.tensors(NAME_SLAB, {"q": _F32, "k": _F32, "v": _F32,
-                                     "positions": _I32},
-                         q=q, k=k, v=v, positions=positions)
+def decode_attention_slab(q, k, v, positions, num_heads, *, kscale=None,
+                          vscale=None):
+    """q [S, D] f32, k/v [S, T, Dkv] (float32, or int8 with kscale/vscale
+    [S, T, Hkv]), positions [S] int32 -> [S, D]: row r's query attends
+    its stripe at cols <= positions[r]."""
+    global launches_slab, launches_slab_i8
     s, _kk, t, h, hkv, dh = _slab_shapes(NAME_SLAB, q, k, v, positions,
                                          num_heads)
+    quant = _check_scales(NAME_SLAB, kscale, vscale, k, v, hkv)
+    dev = _device(NAME_SLAB, quant, q=q, k=k, v=v, positions=positions,
+                  kscale=kscale, vscale=vscale)
     if dev.type == "cpu":
-        return decode_attention_slab_plain(q, k, v, positions, num_heads)
+        return decode_attention_slab_plain(q, k, v, positions, num_heads,
+                                           kscale=kscale, vscale=vscale)
     out = torch.empty_like(q)
-    _launch("decode_attention_slab_f32", q, k, v, positions, out, s, t, h,
-            hkv, dh, 1.0 / math.sqrt(dh))
-    launches_slab += 1
+    scale = 1.0 / math.sqrt(dh)
+    if quant:
+        _launch("decode_attention_slab_i8", q, k, v, kscale, vscale,
+                positions, out, s, t, h, hkv, dh, scale)
+        launches_slab_i8 += 1
+    else:
+        _launch("decode_attention_slab_f32", q, k, v, positions, out, s, t,
+                h, hkv, dh, scale)
+        launches_slab += 1
     return out
 
 
-def decode_attention_paged_chunk(q, k, v, qpos, tables, num_heads):
-    """q [S, K, D] f32, the pool k/v [NB, bs, Dkv] f32 (already holding
-    this step's writes), qpos [S, K] int32, tables [S, blocks_per_row]
-    int32 physical block ids -> [S, K, D].  Row r's position p lives at
-    ``pool[tables[r, p // bs], p % bs]``; the kernel walks the table up
-    to the row's furthest lane only."""
-    global launches_paged_chunk
-    dev = _check.tensors(NAME_PAGED_CHUNK,
-                         {"q": _F32, "k": _F32, "v": _F32, "qpos": _I32,
-                          "tables": _I32},
-                         q=q, k=k, v=v, qpos=qpos, tables=tables)
+def decode_attention_paged_chunk(q, k, v, qpos, tables, num_heads, *,
+                                 kscale=None, vscale=None):
+    """q [S, K, D] f32, the pool k/v [NB, bs, Dkv] (already holding this
+    step's writes; float32, or int8 with kscale/vscale [NB, bs, Hkv]),
+    qpos [S, K] int32, tables [S, blocks_per_row] int32 physical block
+    ids -> [S, K, D].  Row r's position p lives at ``pool[tables[r, p //
+    bs], p % bs]``; the kernel walks the table up to the row's furthest
+    lane only, the scale pool along with it."""
+    global launches_paged_chunk, launches_paged_chunk_i8
     s, kk, _nb, bs, nb_row, h, hkv, dh = _paged_shapes(
         NAME_PAGED_CHUNK, q, k, v, qpos, tables, num_heads)
+    quant = _check_scales(NAME_PAGED_CHUNK, kscale, vscale, k, v, hkv)
+    dev = _device(NAME_PAGED_CHUNK, quant, q=q, k=k, v=v, qpos=qpos,
+                  tables=tables, kscale=kscale, vscale=vscale)
     if dev.type == "cpu":
-        return decode_attention_paged_chunk_plain(q, k, v, qpos, tables,
-                                                  num_heads)
+        return decode_attention_paged_chunk_plain(
+            q, k, v, qpos, tables, num_heads, kscale=kscale, vscale=vscale)
     out = torch.empty_like(q)
-    _launch("decode_attention_paged_chunk_f32", q, k, v, qpos, tables, out,
-            s, kk, bs, nb_row, h, hkv, dh, 1.0 / math.sqrt(dh))
-    launches_paged_chunk += 1
+    scale = 1.0 / math.sqrt(dh)
+    if quant:
+        _launch("decode_attention_paged_chunk_i8", q, k, v, kscale, vscale,
+                qpos, tables, out, s, kk, bs, nb_row, h, hkv, dh, scale)
+        launches_paged_chunk_i8 += 1
+    else:
+        _launch("decode_attention_paged_chunk_f32", q, k, v, qpos, tables,
+                out, s, kk, bs, nb_row, h, hkv, dh, scale)
+        launches_paged_chunk += 1
     return out
 
 
-def decode_attention_paged(q, k, v, positions, tables, num_heads):
-    """q [S, D] f32, the pool k/v [NB, bs, Dkv], positions [S] int32,
-    tables [S, blocks_per_row] int32 -> [S, D]."""
-    global launches_paged
-    dev = _check.tensors(NAME_PAGED,
-                         {"q": _F32, "k": _F32, "v": _F32,
-                          "positions": _I32, "tables": _I32},
-                         q=q, k=k, v=v, positions=positions, tables=tables)
+def decode_attention_paged(q, k, v, positions, tables, num_heads, *,
+                           kscale=None, vscale=None):
+    """q [S, D] f32, the pool k/v [NB, bs, Dkv] (float32, or int8 with
+    kscale/vscale [NB, bs, Hkv]), positions [S] int32, tables [S,
+    blocks_per_row] int32 -> [S, D]."""
+    global launches_paged, launches_paged_i8
     s, _kk, _nb, bs, nb_row, h, hkv, dh = _paged_shapes(
         NAME_PAGED, q, k, v, positions, tables, num_heads)
+    quant = _check_scales(NAME_PAGED, kscale, vscale, k, v, hkv)
+    dev = _device(NAME_PAGED, quant, q=q, k=k, v=v, positions=positions,
+                  tables=tables, kscale=kscale, vscale=vscale)
     if dev.type == "cpu":
         return decode_attention_paged_plain(q, k, v, positions, tables,
-                                            num_heads)
+                                            num_heads, kscale=kscale,
+                                            vscale=vscale)
     out = torch.empty_like(q)
-    _launch("decode_attention_paged_f32", q, k, v, positions, tables, out,
-            s, bs, nb_row, h, hkv, dh, 1.0 / math.sqrt(dh))
-    launches_paged += 1
+    scale = 1.0 / math.sqrt(dh)
+    if quant:
+        _launch("decode_attention_paged_i8", q, k, v, kscale, vscale,
+                positions, tables, out, s, bs, nb_row, h, hkv, dh, scale)
+        launches_paged_i8 += 1
+    else:
+        _launch("decode_attention_paged_f32", q, k, v, positions, tables,
+                out, s, bs, nb_row, h, hkv, dh, scale)
+        launches_paged += 1
     return out

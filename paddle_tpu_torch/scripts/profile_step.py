@@ -1,7 +1,7 @@
 """Where the serving step's time goes on the card.
 
     python -m paddle_tpu_torch.scripts.profile_step [--seed N] [--steps N]
-        [--kv-layout slab|paged]
+        [--kv-layout slab|paged] [--kv-dtype float32|int8]
 
 Builds the full-width Transformer-base trunk (vocab 32000, d_model 512,
 8 heads, dff 2048, 6 layers; random weights from --seed) behind the
@@ -11,7 +11,9 @@ rows ingesting full 8-token prompt chunks.  On the paged layout (block
 size 16, the slab-equivalent pool of 129 blocks) each slot holds a
 private chain covering its positions, and a step is the engine's
 ``prepare_step`` (the host's block provisioning) plus the step with its
-block tables uploaded.  Prints one JSON line with,
+block tables uploaded.  ``--kv-dtype int8`` runs the same step over an
+int8 KV cache (the int8 kernels; the paged auto pool then has 257
+blocks).  Prints one JSON line with,
 per step: the host wall time (the step ends in its one host sync), the
 device time between two CUDA events around it, the device time the
 profiler attributes to kernels, the device's idle share (1 - kernel
@@ -95,6 +97,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--kv-layout", default="slab", choices=("slab", "paged"))
+    ap.add_argument("--kv-dtype", default="float32",
+                    choices=("float32", "int8"))
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
     params = transformer.init_lm(
@@ -104,7 +108,8 @@ def main(argv=None):
     engine = DecodeEngine(params, num_heads=BASE_LM["num_heads"],
                           num_slots=SLOTS, max_len=MAX_LEN,
                           prefill_chunk=CHUNK, kv_layout=args.kv_layout,
-                          kv_block_size=BLOCK_SIZE, device=dev)
+                          kv_block_size=BLOCK_SIZE, kv_dtype=args.kv_dtype,
+                          device=dev)
     tokens, pos, lens = slot_mix()
     # every slot active at the mix's positions (paged: a private chain
     # covering the positions this step writes)
@@ -123,7 +128,7 @@ def main(argv=None):
         step()
     print(json.dumps({
         "slots": SLOTS, "max_len": MAX_LEN, "chunk": CHUNK,
-        "kv_layout": args.kv_layout,
+        "kv_layout": args.kv_layout, "kv_dtype": args.kv_dtype,
         "mix": "6 decode rows + 2 rows of 8 prompt lanes",
         **measure(step, args.steps),
     }), flush=True)

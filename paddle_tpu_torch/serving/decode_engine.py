@@ -36,11 +36,15 @@ and its request front (``paddle_tpu/serving/decode_engine.py``).
   keeps serving).  On the paged layout, requests the pool cannot hold
   yet wait (``_waiting``) and preempted ones re-seat (``_preempted``).
 
-Greedy decode only (argmax inside the step), float32 KV.  Not ported yet
-(ROADMAP), each raising ``ConfigError`` where it is an option:
-speculative decoding, tensor-parallel meshes, the host KV tier, int8 KV,
-supervised recovery, continuation replay; and fault injection and trace
-spans.
+Either layout and either ingestion stores K/V as float32 or, with
+``kv_dtype="int8"``, as int8 codes with per-(position, KV head) f32
+scales (``quant/kv.py``); every cache copy (admission rows, block
+writes, copy-on-write forks) carries the scales with their codes.
+
+Greedy decode only (argmax inside the step).  Not ported yet (ROADMAP),
+each raising ``ConfigError`` where it is an option: speculative
+decoding, tensor-parallel meshes, the host KV tier, supervised recovery,
+continuation replay; and fault injection and trace spans.
 """
 
 import collections
@@ -54,6 +58,7 @@ import torch
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.quant.kv import KV_DTYPES
 from paddle_tpu_torch.quant.weights import weight_shape as _w_shape
 from paddle_tpu_torch.serving.errors import (BatchExecutionError,
                                              DeadlineExceededError,
@@ -100,8 +105,12 @@ class DecodeEngine:
     kv_layout: ``"slab"`` or ``"paged"``.  Paged only: kv_block_size
     (positions per block); kv_num_blocks (pool size including the
     scratch block 0; 0 = the slab-equivalent ``num_slots * ceil(max_len
-    / block_size) + 1``); prefix_cache (share resident prompt-prefix
-    blocks across requests, copy-on-write on divergence).
+    / block_size) + 1``, doubled for int8 KV); prefix_cache (share
+    resident prompt-prefix blocks across requests, copy-on-write on
+    divergence).
+
+    kv_dtype: ``"float32"`` or ``"int8"`` (quantized KV on either layout
+    and either ingestion; the int8 kernels read the codes and scales).
 
     Slot lifecycle: FREE -> seated (chunked: at position 0 with the
     prompt as its feed; ladder: prefilled, at position len(prompt)) ->
@@ -120,8 +129,9 @@ class DecodeEngine:
         if kv_layout not in ("slab", "paged"):
             raise ConfigError(f"kv_layout={kv_layout!r} (supported: "
                               "'slab', 'paged')")
-        if kv_dtype != "float32":
-            raise _not_ported(f"kv_dtype={kv_dtype!r} is")
+        if kv_dtype not in KV_DTYPES:
+            raise ConfigError(f"kv_dtype={kv_dtype!r} (supported: "
+                              f"{KV_DTYPES})")
         if speculate_k or draft is not None:
             raise _not_ported("speculative decoding (speculate_k, draft) is")
         if mesh is not None:
@@ -143,6 +153,7 @@ class DecodeEngine:
         self.pos_type = pos_type
         self.name = name
         self.kv_layout = kv_layout
+        self.kv_dtype = kv_dtype
         self.prefill_chunk = int(prefill_chunk or 0)
         self.prefill_chunk_budget = int(prefill_chunk_budget or 0)
         if not 0 <= self.prefill_chunk <= self.max_len:
@@ -160,6 +171,7 @@ class DecodeEngine:
             raise ConfigError("num_slots must be >= 1")
         self.metrics = metrics or ServingMetrics()
         self.metrics.set_prefill_chunk(self.prefill_chunk)
+        self.metrics.set_kv_dtype(kv_dtype)
         self._paged = None
         if kv_layout == "paged":
             self.block_size = int(kv_block_size)
@@ -167,7 +179,8 @@ class DecodeEngine:
                 raise ConfigError("kv_block_size must be >= 1")
             num_blocks = (int(kv_num_blocks) if kv_num_blocks
                           else slab_equivalent_blocks(
-                              self.num_slots, self.max_len, self.block_size))
+                              self.num_slots, self.max_len, self.block_size,
+                              kv_dtype))
             self._paged = PagedKVState(self.num_slots, num_blocks,
                                        self.block_size, self.max_len,
                                        prefix_cache=prefix_cache)
@@ -194,13 +207,15 @@ class DecodeEngine:
         """A zeroed slab, or a zeroed pool with the pool gauges set (a
         learned positional table caps max_len either way)."""
         if self._paged is None:
-            return transformer.init_lm_cache(self.params, self.num_slots,
-                                             self.max_len)
+            return transformer.init_lm_cache(
+                self.params, self.num_slots, self.max_len,
+                kv_dtype=self.kv_dtype, num_heads=self.num_heads)
         pool = self._paged.pool
         self.metrics.set_kv_pool(pool.num_free, pool.num_allocatable)
         return transformer.init_lm_cache_paged(
             self.params, pool.num_blocks, self.block_size,
-            max_len=self.max_len)
+            max_len=self.max_len, kv_dtype=self.kv_dtype,
+            num_heads=self.num_heads)
 
     # ------------------------------------------------------------ slots
 
@@ -331,7 +346,8 @@ class DecodeEngine:
         dev = self.device
         hidden, cache = transformer.lm_prefill(
             self.params, torch.from_numpy(prompts).to(dev), prompts.shape[1],
-            self.num_heads, self.moe_top_k, self.pos_type)
+            self.num_heads, self.moe_top_k, self.pos_type,
+            kv_dtype=self.kv_dtype)
         last = torch.from_numpy(lengths - 1).to(dev).long()
         h_last = hidden[torch.arange(len(lengths), device=dev), last]
         logits = transformer._lm_project(self.params, h_last)
@@ -344,7 +360,8 @@ class DecodeEngine:
         the length bucket and, in groups of at most the top batch bucket,
         to a batch bucket.  Returns (first tokens [n], per-row cache rows:
         a list of n per-layer ``{"k", "v"}`` of [bucket, Dkv] on the
-        device — what ``admit`` writes)."""
+        device, with ``{"ks", "vs"}`` of [bucket, Hkv] on an int8 cache —
+        what ``admit`` writes)."""
         prompts = np.asarray(prompts, np.int32)
         lengths = np.asarray(lengths, np.int32)
         n, t = prompts.shape
@@ -365,8 +382,8 @@ class DecodeEngine:
             first, cache = self._prefill_batch(padded, lens)
             self.prefill_batches_total += 1
             firsts.append(first[:m])
-            rows += [[{"k": c["k"][i], "v": c["v"][i]} for c in cache]
-                     for i in range(m)]
+            rows += [[{key: buf[i] for key, buf in c.items()}
+                      for c in cache] for i in range(m)]
         return np.concatenate(firsts), rows
 
     def admit(self, first_token, cache_row, length, tokens=None):
@@ -396,22 +413,22 @@ class DecodeEngine:
                     np.asarray(tokens)[:int(length)], slot)
         else:
             for c, row in zip(self._cache, cache_row):
-                n = row["k"].shape[0]
-                c["k"][slot, :n].copy_(row["k"])
-                c["v"][slot, :n].copy_(row["v"])
+                for key, src in row.items():
+                    c[key][slot, :src.shape[0]].copy_(src)
         self._arm(slot, first_token, length)
         return slot
 
     def _write_blocks(self, chain, cache_row):
-        """Blocks ``chain`` of every layer's pool <- the row's positions
-        [0, len(chain) * block_size), zero-padded past the row."""
+        """Blocks ``chain`` of every layer's pool (and scale pool) <- the
+        row's positions [0, len(chain) * block_size), zero-padded past the
+        row."""
         if not chain:
             return
         bs, nb = self.block_size, len(chain)
         idx = torch.tensor(chain, dtype=torch.long, device=self.device)
         for c, row in zip(self._cache, cache_row):
-            for key in ("k", "v"):
-                src = row[key][:nb * bs]
+            for key, full in row.items():
+                src = full[:nb * bs]
                 chunk = src.new_zeros((nb * bs, src.shape[-1]))
                 chunk[:src.shape[0]] = src
                 c[key].index_copy_(0, idx, chunk.view(nb, bs, -1))
@@ -565,9 +582,10 @@ class DecodeEngine:
                     break
                 if plan is not None and plan[0] == "cow":
                     _tag, _j, src, dst = plan
+                    # every leaf: an int8 block's scales fork with it
                     for c in self._cache:
-                        c["k"][dst].copy_(c["k"][src])
-                        c["v"][dst].copy_(c["v"][src])
+                        for buf in c.values():
+                            buf[dst].copy_(buf[src])
                     self.metrics.observe_cow_fork()
         return victims
 
@@ -658,9 +676,9 @@ class DecodeEngine:
                 np.ones((b,), np.int32))
         self._run(self._tokens, self._pos, self._len)
         self._warm = True
-        logger.info("decode[%s]: warm on %s (%d slots, max_len %d, kv %s, "
-                    "%s)", self.name, self.device, self.num_slots,
-                    self.max_len, self.kv_layout,
+        logger.info("decode[%s]: warm on %s (%d slots, max_len %d, kv %s "
+                    "%s, %s)", self.name, self.device, self.num_slots,
+                    self.max_len, self.kv_layout, self.kv_dtype,
                     f"chunk K={self.prefill_chunk}" if self.prefill_chunk
                     else f"prefill ladder {list(self.prefill_buckets)}")
 

@@ -37,13 +37,20 @@ from paddle_tpu_torch.utils.error import ConfigError
 SCRATCH_BLOCK = 0
 
 
-def slab_equivalent_blocks(num_slots, max_len, block_size):
-    """Auto pool size (``DecodeEngine(kv_num_blocks=0)``) at the slab's
-    float32 byte budget: ``num_slots * ceil(max_len / block_size)``
-    blocks (the same KV bytes, strictly more packable), +1 for the
-    scratch block."""
+def slab_equivalent_blocks(num_slots, max_len, block_size,
+                           kv_dtype="float32"):
+    """Auto pool size (``DecodeEngine(kv_num_blocks=0)``) at the float32
+    slab's byte budget: ``num_slots * ceil(max_len / block_size)``
+    blocks (the same KV bytes, strictly more packable).  ``kv_dtype=
+    "int8"`` doubles the count inside that budget: an int8 block and its
+    f32 scale sidecar cost ``1/4 + 1/head_dim`` of a float32 block
+    (``quant/kv.kv_bytes_per_position``), at most half for head_dim >= 4.
+    +1 for the scratch block."""
     per_row = -(-int(max_len) // int(block_size))
-    return int(num_slots) * per_row + 1
+    blocks = int(num_slots) * per_row
+    if kv_dtype == "int8":
+        blocks *= 2
+    return blocks + 1
 
 
 class InsufficientBlocksError(RuntimeError):

@@ -1,8 +1,9 @@
 """Live generation-serving metrics — the parts of ``paddle_tpu/serving/
 metrics.py::ServingMetrics`` that the port's engine, batcher and
 ``/metrics`` use: request/response/rejection counters, TTFT, per-step
-time (TPOT), slot occupancy, chunked-prefill lanes, slot evictions, and
-the paged KV pool's gauges and prefix-sharing counters.
+time (TPOT), slot occupancy, chunked-prefill lanes, slot evictions, the
+paged KV pool's gauges and prefix-sharing counters, and the KV cache's
+storage dtype.
 
 One instance is shared by the engine, the batcher and the HTTP front-end.
 ``render_prometheus()`` is the ``/metrics`` text; ``snapshot()`` the same
@@ -56,6 +57,8 @@ class ServingMetrics:
         # step) and prefix-sharing / copy-on-write counters
         self.kv_blocks_total = 0         # gauge: allocatable pool blocks
         self.kv_blocks_free = 0          # gauge: free-list depth
+        self.kv_dtype = "float32"        # gauge: cache storage dtype
+        #                                  ("int8" = quantized serving)
         self.prefix_cache_hits = 0       # fresh admissions seated from
         #                                  resident prefix blocks
         self.prefix_cache_misses = 0     # fresh admissions that prefilled
@@ -135,6 +138,12 @@ class ServingMetrics:
             self.kv_blocks_free = int(free)
             self.kv_blocks_total = int(total)
 
+    def set_kv_dtype(self, kv_dtype):
+        """Gauge: the engine's KV-cache storage dtype ("int8" ->
+        ``kv_cache_int8 1`` on /metrics)."""
+        with self._lock:
+            self.kv_dtype = str(kv_dtype)
+
     def observe_slot_reprefill(self, n=1):
         with self._lock:
             self.slot_reprefills_total += int(n)
@@ -182,6 +191,7 @@ class ServingMetrics:
                 "evictions": dict(self.evictions),
                 "kv_blocks_total": self.kv_blocks_total,
                 "kv_blocks_free": self.kv_blocks_free,
+                "kv_dtype": self.kv_dtype,
                 "kv_blocks_used": self.kv_blocks_total
                 - self.kv_blocks_free,
                 "kv_block_utilization": round(
@@ -262,6 +272,9 @@ class ServingMetrics:
              "KV blocks held by slot chains / the prefix index")
         emit("kv_block_utilization", f"{snap['kv_block_utilization']:.6f}",
              "fraction of the paged KV pool in use")
+        emit("kv_cache_int8", int(snap["kv_dtype"] == "int8"),
+             "1 when the KV cache stores int8 codes + per-head scale "
+             "sidecars (quantized serving)")
         for hist, metric, help_ in (
                 (self.latency, "latency_seconds",
                  "request wall latency (submit to response)"),

@@ -25,7 +25,8 @@ learned positions, tied embedding) with random weights drawn from
 chunk K = 8 by default (``--prefill-chunk 0``: the legacy prefill
 ladder), over the slab KV layout or, with ``--kv-layout paged``, the
 paged block pool (``--kv-block-size``, ``--kv-num-blocks``,
-``--kv-prefix-cache``).  SIGTERM/SIGINT drain gracefully.
+``--kv-prefix-cache``), with a float32 or (``--kv-dtype int8``) an int8
+KV cache.  SIGTERM/SIGINT drain gracefully.
 """
 
 import argparse
@@ -200,10 +201,12 @@ BASE_LM = dict(vocab=32000, d_model=512, num_heads=8, dff=2048, layers=6)
 def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
                       max_tokens=64, queue_size=256, device=None,
                       metrics=None, kv_layout="slab", kv_block_size=16,
-                      kv_num_blocks=0, kv_prefix_cache=True, **model):
+                      kv_num_blocks=0, kv_prefix_cache=True,
+                      kv_dtype="float32", **model):
     """The full-width trunk from ``seed`` behind a ``DecodeEngine`` +
     ``GenerationBatcher`` (``model`` overrides ``BASE_LM`` keys;
-    ``prefill_chunk=0`` selects the legacy prefill ladder)."""
+    ``prefill_chunk=0`` selects the legacy prefill ladder; ``kv_dtype=
+    "int8"`` the quantized KV cache)."""
     from paddle_tpu_torch import device as _device
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
@@ -219,8 +222,8 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
                           prefill_chunk=prefill_chunk, metrics=metrics,
                           kv_layout=kv_layout, kv_block_size=kv_block_size,
                           kv_num_blocks=kv_num_blocks,
-                          prefix_cache=kv_prefix_cache, name="base_lm",
-                          device=dev)
+                          prefix_cache=kv_prefix_cache, kv_dtype=kv_dtype,
+                          name="base_lm", device=dev)
     return GenerationBatcher(engine, queue_size=queue_size,
                              default_max_tokens=max_tokens)
 
@@ -252,6 +255,10 @@ def main(argv=None):
     ap.add_argument("--kv-prefix-cache",
                     type=lambda v: v.lower() in ("1", "true", "yes"),
                     default=True)
+    ap.add_argument("--kv-dtype", default="float32",
+                    choices=("float32", "int8"),
+                    help="KV-cache storage: int8 codes + per-(position, "
+                         "head) f32 scales, or float32")
     ap.add_argument("--max-tokens", type=int, default=64,
                     help="default per-request emission cap")
     ap.add_argument("--queue-size", type=int, default=256)
@@ -264,7 +271,8 @@ def main(argv=None):
                             kv_layout=args.kv_layout,
                             kv_block_size=args.kv_block_size,
                             kv_num_blocks=args.kv_num_blocks,
-                            kv_prefix_cache=args.kv_prefix_cache)
+                            kv_prefix_cache=args.kv_prefix_cache,
+                            kv_dtype=args.kv_dtype)
     httpd = make_server(gen, host=args.host, port=args.port)
     logger.info("serving on http://%s:%d (/v1/generate)", args.host,
                 httpd.port)

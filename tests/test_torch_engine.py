@@ -241,8 +241,8 @@ def test_close_drains_inflight_then_rejects(params):
 
 @pytest.mark.parametrize("kw", [dict(kv_layout="paged",
                                      kv_host_bytes=1 << 20),
-                                dict(kv_layout="paged", kv_dtype="int8"),
-                                dict(kv_dtype="int8"),
+                                dict(kv_layout="paged", speculate_k=2),
+                                dict(kv_dtype="int8", mesh=object()),
                                 dict(speculate_k=2),
                                 dict(mesh=object()),
                                 dict(kv_host_bytes=1 << 20)])

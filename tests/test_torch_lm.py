@@ -230,8 +230,8 @@ def test_init_lm_shapes_and_no_silent_cpu_fallback():
     rope = torch_tf.init_lm(gen, VOCAB, 32, 2, DFF, 1, 8, pos_type="rope",
                             device="cpu")
     assert "pos" not in rope
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_tf.init_lm_cache(p, 1, 8, kv_dtype="int8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        torch_tf.init_lm_cache(p, 1, 8, kv_dtype="bf16")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_tf.init_lm(gen, VOCAB, 32, 2, DFF, 1, 8)
