@@ -21,7 +21,10 @@ non-zero exit code and no final "ok" line:
             decode kernels at the same shapes and flash_attention_quant
             at B=32, T=32 and a ragged T=200 with Hkv=2, each also held
             bit for bit against its float32 kernel on the dequantized
-            cache), timed with CUDA events beside the plain version, one
+            cache; the flash forward and its backward pair at the MT
+            train shape B=32, H=8, T=256, dh=64, causal and not, the pair
+            also ragged and at dh 16/32/128 and repeated bit for bit),
+            timed with CUDA events beside the plain version, one
             PyTorch library call computing the same function (a
             yardstick the port never calls; none exists for the int8
             kernels) and the least time the card could take
@@ -70,6 +73,20 @@ non-zero exit code and no final "ok" line:
             every gradient leaf), then warm-up and timed steps: each
             step launches the LSTM forward and backward kernels once per
             layer, the loss is finite and falls
+  train_transformer  bench.py's bench_transformer ported
+            (scripts/bench.bench_transformer): the Transformer-base MT
+            model at vocab 32000, d_model 512, 8 heads, dff 2048, 6+6
+            layers, length 256, Adam lr 1e-4, label smoothing 0.1,
+            full_seq.  One step at batch 2 is held against the same step
+            on the CPU: its FFN pre-activations, the ReLU sign flips
+            between the two counted; loss, every gradient leaf and m/v
+            slot against a CPU step that keeps the card's ReLU
+            decisions, and by relative L2 against the plain CPU step; a
+            TF32 control step must fail these checks.  Adam's update on
+            the card is held against its own slots; then
+            warm-up and timed steps at batch 32, each launching the flash
+            forward, dK/dV and dQ kernels 18 times (6 encoder, 6 decoder
+            self-, 6 cross-attentions); the loss is finite and falls
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -79,6 +96,7 @@ result.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -142,6 +160,39 @@ LSTM_REL_TOL = 1e-4
 # |mom|: that catches a wrong sign, step size or a slot not applied.
 TRAIN_REL_TOL = 1e-3
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# The flash kernels at the MT train path's shape (bench_transformer: B 32,
+# H 8, T 256, dh 64).  The backward's dq, dk and dv sum up to T terms of
+# products of O(1) values; each is held relative to its largest magnitude
+# (as the LSTM backward's sums are), 1e-4, which an indexing or masking
+# fault exceeds by orders of magnitude.  The train phase's first step at
+# batch 2 (card vs CPU) is held at TRAIN_REL_TOL, and Adam's update on
+# the card to its own m/v slots.  Then MT_WARMUP + MT_STEPS steps at
+# batch 32, each launching the flash forward, dK/dV and dQ kernels once
+# per attention: 6 encoder self-, 6 decoder self- and 6 cross-attentions.
+MT_BATCH, MT_SEQ, MT_HEADS, MT_DH = 32, 256, 8, 64
+MT_REL_TOL = 1e-4
+# The MT model's FFNs are ReLUs.  Card and CPU round their products
+# differently, so at batch 2 a few of the 6.3 M FFN pre-activations lie
+# close enough to 0 to fall on the other side of the kink: each such
+# flip moves one token's whole contribution to its layer's w1/b1
+# gradient and, through the residual stream, gradients upstream of it
+# (the embedding rows of that token).  The first step therefore shows
+# and takes out that cause before it holds the gradients:
+#   - every FFN pre-activation on the card within MT_PRE_TOL of the
+#     CPU's, relative to its layer's largest (1.6e-6 on an H100), so
+#     each flip lies within that distance of 0; the flips are counted;
+#   - every gradient leaf and m/v slot within TRAIN_REL_TOL of its
+#     largest magnitude of a CPU witness step that keeps the card's
+#     ReLU decisions (the same step with each FFN's mask given);
+#   - against the plain CPU step, each gradient leaf and slot by its
+#     relative L2 error at MT_GRAD_TOL, which the flips' share (1.3e-3
+#     on an H100) stays well under.
+# A TF32 control step on the card (matrix products at 10-bit mantissa)
+# must fail these checks, or they could not tell it from float32.
+MT_PRE_TOL = 2e-5
+MT_GRAD_TOL = 4e-3
+MT_WARMUP, MT_STEPS = 2, 10
+MT_ATTENTIONS = 18
 
 
 def emit(obj):
@@ -409,6 +460,125 @@ def check_flash_kernel(torch, dev, rng, b, t, timed):
         bytes=nbytes, flops=flops)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     return row
+
+
+def flash_bwd_cost(bh, tq, tk, dh, causal):
+    """(bytes, flops) of the forward, the dK/dV and the dQ kernel: each
+    input read once and each output written once (lse and delta [BH, Tq]
+    besides the [BH, T, dh] operands), and the products over the (q, k)
+    pairs the mask leaves (a causal row t needs t + 1 columns): the
+    forward 2 (s, p v), dK/dV 4 (s, dp, dv, dk), dQ 3 (s, dp, dq), each
+    2 * dh FLOPs per pair."""
+    pairs = bh * (tq * (tq + 1) // 2 if causal else tq * tk)
+    q_side, k_side, row = bh * tq * dh, bh * tk * dh, bh * tq
+    return {"fwd": (4 * (2 * q_side + 2 * k_side + row), 4 * dh * pairs),
+            "dkv": (4 * (2 * q_side + 4 * k_side + 2 * row), 8 * dh * pairs),
+            "dq": (4 * (3 * q_side + 2 * k_side + 2 * row), 6 * dh * pairs)}
+
+
+def flash_bwd_pair(torch, dev, rng, b, h, tq, tk, dh, causal):
+    """The backward pair against flash_attention_bwd_plain on one set of
+    inputs (both given the plain forward's o and lse, so the check
+    stands alone): each of dq, dk, dv relative to its largest magnitude;
+    then a second run, which must equal the first bit for bit."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    q = torch.tensor(normal(rng, (b, h, tq, dh)), device=dev)
+    k, v = (torch.tensor(normal(rng, (b, h, tk, dh)), device=dev)
+            for _ in range(2))
+    do = torch.tensor(normal(rng, (b, h, tq, dh)), device=dev)
+    o, lse = fk.flash_attention_plain(q, k, v, causal=causal)
+    got = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ref = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    rel = {n: float((g - r).abs().max() / r.abs().max())
+           for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    where = (f"B={b}, H={h}, Tq={tq}, Tk={tk}, dh={dh}, "
+             f"causal={causal}")
+    if not max(rel.values()) <= MT_REL_TOL:
+        fail(f"flash backward ({where}) disagrees with its plain version: "
+             f"relative errors {rel} (bound {MT_REL_TOL})")
+    if not same:
+        fail(f"flash backward ({where}): two runs differ")
+    return {"shape": where, "rel_err": rel, "bitwise_repeatable": same,
+            "max_abs_err": max(float((g - r).abs().max())
+                               for g, r in zip(got, ref))}, \
+        (q, k, v, o, lse, do)
+
+
+def check_flash_train(torch, dev, rng):
+    """The flash kernels at the MT train path's shape: the forward
+    non-causal and causal (max abs err, bound KERNEL_TOL), the backward
+    pair causal and not, ragged (non-causal Tq 200 / Tk 136, causal T
+    200) and at dh 16, 32 and 128 (each output relative to its largest
+    magnitude, bound MT_REL_TOL, and bit for bit equal over two runs);
+    timed at the train shape beside the plain versions, the bound and
+    the library's scaled_dot_product_attention (its backward timed
+    alone: autograd.grad over a retained graph)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    b, h, t, dh = MT_BATCH, MT_HEADS, MT_SEQ, MT_DH
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_rows, checks, rows = {}, [], {}
+    for causal in (False, True):
+        q, k, v = (torch.tensor(normal(rng, (b, h, t, dh)), device=dev)
+                   for _ in range(3))
+        o, lse = fk.flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = fk.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = max(float((o - o_ref).abs().max()),
+                  float((lse - lse_ref).abs().max()))
+        if not err <= KERNEL_TOL:
+            fail(f"flash_attention (B={b}, T={t}, causal={causal}) disagrees "
+                 f"with its plain version: max abs err {err} (bound "
+                 f"{KERNEL_TOL})")
+        cost = flash_bwd_cost(b * h, t, t, dh, causal)
+        fwd = {"causal": causal, "max_abs_err": err,
+               "ms": time_ms(torch, lambda: fk.flash_attention_fwd(
+                   q, k, v, causal=causal), samples=20, reps=5),
+               "plain_ms": time_ms(torch, lambda: fk.flash_attention_plain(
+                   q, k, v, causal=causal), samples=10, reps=2),
+               "library_ms": time_ms(torch, lambda: sdpa(
+                   q, k, v, is_causal=causal), samples=20, reps=5),
+               "bytes": cost["fwd"][0], "flops": cost["fwd"][1]}
+        fwd["bound_ms"], fwd["bound_by"] = bound(*cost["fwd"])
+        fwd_rows[causal] = fwd
+
+        row, (q, k, v, o, lse, do) = flash_bwd_pair(torch, dev, rng, b, h,
+                                                    t, t, dh, causal)
+        checks.append(row)
+        scale = 1.0 / math.sqrt(dh)
+        delta = (do * o).sum(-1)
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        lib_out = sdpa(qg, kg, vg, is_causal=causal)
+        library = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), do, retain_graph=True), samples=20,
+            reps=5)
+        plain = time_ms(torch, lambda: fk.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, scale, causal), samples=10, reps=2)
+        for name, fn in (
+                (fk.NAME_BWD_DKV, lambda: fk.bwd_dkv_kernel(
+                    q, k, v, do, lse, delta, scale, causal)),
+                (fk.NAME_BWD_DQ, lambda: fk.bwd_dq_kernel(
+                    q, k, v, do, lse, delta, scale, causal))):
+            key = "dkv" if name == fk.NAME_BWD_DKV else "dq"
+            r = {"causal": causal, "ms": time_ms(torch, fn, samples=20,
+                                                  reps=5),
+                 "plain_ms": plain, "library_ms": library,
+                 "bytes": cost[key][0], "flops": cost[key][1],
+                 "rel_err": row["rel_err"],
+                 "max_abs_err": row["max_abs_err"]}
+            r["bound_ms"], r["bound_by"] = bound(*cost[key])
+            rows.setdefault(name, {})[causal] = r
+    for bb, hh, tq, tk, d, causal in ((2, 2, 200, 136, MT_DH, False),
+                                      (2, 2, 200, 200, MT_DH, True),
+                                      *((1, 2, 77, 77, d, True)
+                                        for d in (16, 32, 128)),
+                                      *((1, 2, 45, 77, d, False)
+                                        for d in (16, 32, 128))):
+        checks.append(flash_bwd_pair(torch, dev, rng, bb, hh, tq, tk, d,
+                                     causal)[0])
+    return fwd_rows, rows, checks
 
 
 def quantized(torch, dev, rng, shape, hkv):
@@ -1411,6 +1581,213 @@ def run_train(torch, dev, kernels):
     return launches
 
 
+def leaf_names(tree, prefix=""):
+    """Each leaf's path, in ``tree_leaves``' order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}.{k}" if prefix
+                                    else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+@contextlib.contextmanager
+def ffn_probe(torch, transformer, record, signs=None):
+    """Within it, the model's FFNs append each ReLU pre-activation (on
+    the CPU, in call order) to ``record``; with ``signs`` (masks in the
+    same order) each FFN keeps the positions its mask gives instead of
+    its own positive ones: relu's value and gradient wherever the two
+    agree, the other side's decision where they do not."""
+    plain = transformer._ffn
+    given = None if signs is None else iter(signs)
+
+    def ffn(blk, x):
+        pre = transformer.linear.matmul(x, blk["w1"]) + blk["b1"]
+        record.append(pre.detach().cpu())
+        h = (torch.relu(pre) if given is None
+             else pre * next(given).to(pre.device))
+        return transformer.linear.matmul(h, blk["w2"]) + blk["b2"]
+
+    transformer._ffn = ffn
+    try:
+        yield
+    finally:
+        transformer._ffn = plain
+
+
+def first_step(torch, transformer, run, record, signs=None):
+    """One train step of ``run`` under ``ffn_probe``: (loss, grads on
+    the CPU, m slots, v slots)."""
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    with ffn_probe(torch, transformer, record, signs):
+        loss = float(run.train_step())
+    slots = run.opt_state["slots"]
+    return (loss, [p.grad.cpu() for p in tree_leaves(run.params)],
+            [m.cpu() for m in tree_leaves(slots["m"])],
+            [v.cpu() for v in tree_leaves(slots["v"])])
+
+
+def run_train_transformer(torch, dev, kernels):
+    """bench_transformer on the card: one step at batch 2 against the
+    same step on the CPU, the CPU step that keeps the card's ReLU
+    decisions, and a TF32 control; then MT_WARMUP + MT_STEPS steps at
+    batch 32 with each step's flash launches read."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    fk = kernels.flash_attention
+    card_run = bench.bench_transformer(batch=2, device=dev)
+    cpu_run = bench.bench_transformer(batch=2, device="cpu")
+    names = leaf_names(cpu_run.params)
+    n_enc = len(cpu_run.params["enc"])
+    before = [p.detach().clone() for p in tree_leaves(cpu_run.params)]
+    card_pre, cpu_pre, witness_pre = [], [], []
+    first, card_g, card_m, card_v = first_step(torch, transformer, card_run,
+                                               card_pre)
+    first_cpu, cpu_g, cpu_m, cpu_v = first_step(torch, transformer,
+                                                cpu_run, cpu_pre)
+    del cpu_run
+    witness = first_step(torch, transformer,
+                         bench.bench_transformer(batch=2, device="cpu"),
+                         witness_pre, [p > 0 for p in card_pre])
+
+    def l2(got, want):
+        return [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
+
+    def largest(got, want):
+        return [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want)]
+
+    def pre_err(pres):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(pres, cpu_pre)]
+
+    grad_err = l2(card_g, cpu_g)
+    slot_err = l2(card_m + card_v, cpu_m + cpu_v)
+    grad_max_err = largest(card_g, cpu_g)
+    witness_err = largest(card_g + card_m + card_v,
+                          witness[1] + witness[2] + witness[3])
+    slot_names = [f"{kind} {n}" for kind in ("grad", "m", "v")
+                  for n in names]
+    card_pre_err = pre_err(card_pre)
+    layers = [f"enc[{i}]" if i < n_enc else f"dec[{i - n_enc}]"
+              for i in range(len(cpu_pre))]
+    flips, flip_dist = {}, {}
+    for name, a, b in zip(layers, card_pre, cpu_pre):
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            flips[name] = int(flip.sum())
+            flip_dist[name] = float(b[flip].abs().max() / b.abs().max())
+    # Adam's first step from the card's own slots, in float64: p1 - p0 =
+    # -lr * m_hat / (sqrt(v_hat) + eps) with m_hat = m / (1 - 0.9) and
+    # v_hat = v / (1 - 0.999).  p1 is float32: its own rounding (up to
+    # one spacing of p1, 1.2e-7 for a layer-norm gain near 1 against a
+    # step of ~1e-4) is taken off before the difference is held
+    # relative to the leaf's largest step.
+    step_err = []
+    for p, p0, m, v in zip(tree_leaves(card_run.params), before, card_m,
+                           card_v):
+        p1 = p.detach().cpu()
+        want = (-1e-4 * (m.double() / (1 - 0.9))
+                / ((v.double() / (1 - 0.999)).sqrt() + 1e-8))
+        spacing = (torch.nextafter(p1, torch.tensor(math.inf))
+                   - p1).double()
+        miss = ((p1.double() - p0.double() - want).abs()
+                - spacing).clamp(min=0)
+        step_err.append(float(miss.max() / want.abs().max()))
+    loss_err = abs(first - first_cpu) / abs(first_cpu)
+    witness_loss_err = abs(first - witness[0]) / abs(witness[0])
+    if len(cpu_pre) != len(card_pre) or len(witness_pre) != len(cpu_pre) \
+            or not max(card_pre_err) <= MT_PRE_TOL \
+            or not max(step_err + [loss_err, witness_loss_err]
+                       + witness_err) <= TRAIN_REL_TOL \
+            or not max(grad_err + slot_err) <= MT_GRAD_TOL:
+        fail(f"train_transformer: first step at batch 2 on the card vs the "
+             f"CPU: FFN pre-activations per layer {card_pre_err} (bound "
+             f"{MT_PRE_TOL}, {len(card_pre)}/{len(cpu_pre)}/"
+             f"{len(witness_pre)} FFN calls), sign flips {flips}; loss rel "
+             f"err {loss_err}, {witness_loss_err} vs the witness; card's "
+             f"step vs its slots {step_err}; largest-entry err of grads "
+             f"and m/v vs the witness "
+             f"{dict(zip(slot_names, witness_err))} (bound "
+             f"{TRAIN_REL_TOL}); relative L2 err vs the plain CPU step of "
+             f"grads {dict(zip(names, grad_err))}, of m/v {slot_err} "
+             f"(bound {MT_GRAD_TOL})")
+    del card_run, witness, before
+    # the control: the same step with TF32 matrix products on the card
+    # (switched on after bench_transformer, whose device.resolve sets
+    # them off)
+    control, control_pre = bench.bench_transformer(batch=2, device=dev), []
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, tf32_g, _, _ = first_step(torch, transformer, control,
+                                     control_pre)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del control
+    tf32 = {"ffn_pre_rel_err_max": max(pre_err(control_pre)),
+            "grad_rel_l2_err_max": max(l2(tf32_g, cpu_g)),
+            "grad_largest_entry_rel_err_max": max(largest(tf32_g, cpu_g))}
+    if not (tf32["ffn_pre_rel_err_max"] > MT_PRE_TOL
+            or tf32["grad_rel_l2_err_max"] > MT_GRAD_TOL):
+        fail(f"train_transformer: the TF32 control step passes the first "
+             f"step's checks: {tf32}")
+    del tf32_g, control_pre, card_pre, cpu_pre, witness_pre
+    over = {n: e for n, e in zip(names, grad_max_err) if e > TRAIN_REL_TOL}
+    run = bench.bench_transformer(device=dev)
+    losses, times, per_step = [], [], []
+    for i in range(MT_WARMUP + MT_STEPS):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss = run.train_step()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        if i >= MT_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append((fk.launches, fk.launches_bwd_dkv,
+                             fk.launches_bwd_dq))
+    want = (MT_ATTENTIONS,) * 3
+    if any(n != want for n in per_step):
+        fail(f"train_transformer: per-step (forward, dK/dV, dQ) launches "
+             f"{per_step}, want {want} each step")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"train_transformer: loss not finite or not falling: {losses}")
+    ms = float(np.median(times))
+    launches = dict(zip((fk.NAME, fk.NAME_BWD_DKV, fk.NAME_BWD_DQ),
+                        map(sum, zip(*per_step))))
+    emit({"phase": "train_transformer", "config": {
+        "vocab": 32000, "d_model": 512, "heads": MT_HEADS, "dff": 2048,
+        "layers": "6+6", "batch": MT_BATCH, "seq_len": MT_SEQ,
+        "optimizer": "Adam lr 1e-4", "label_smoothing": 0.1,
+        "full_seq": True},
+        "warmup": MT_WARMUP, "steps": MT_STEPS, "ms_per_batch": ms,
+        "ms_per_batch_min_max": [min(times), max(times)],
+        "tokens_per_s": run.tokens_per_step / (ms / 1e3),
+        "launches": launches,
+        "launches_per_step": dict(zip(launches, want)),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "first_step_vs_cpu": {
+            "batch": 2, "loss_rel_err": loss_err,
+            "ffn_pre_rel_err_max": max(card_pre_err),
+            "ffn_pre_bound": MT_PRE_TOL,
+            "relu_sign_flips": flips,
+            "flip_distance_from_0_rel_max": flip_dist,
+            "vs_witness_largest_entry_rel_err_max": max(witness_err),
+            "witness_loss_rel_err": witness_loss_err,
+            "step_vs_slots_rel_err_max": max(step_err),
+            "bound": TRAIN_REL_TOL,
+            "grad_rel_l2_err_max": max(grad_err),
+            "m_v_rel_l2_err_max": max(slot_err),
+            "l2_bound": MT_GRAD_TOL,
+            "grad_largest_entry_rel_err_max": max(grad_max_err),
+            "leaves_over_bound_by_largest_entry": over,
+            "tf32_control": tf32}})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1454,6 +1831,8 @@ def main(argv=None):
                                        GEN_PROMPT, HEADS, timed=True)
     flash_q_ragged = check_flash_quant_kernel(torch, dev, rng, 4, 200, 2,
                                               timed=False)
+    flash_train, flash_bwd, flash_bwd_checks = check_flash_train(torch, dev,
+                                                                 rng)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
           "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
@@ -1461,6 +1840,11 @@ def main(argv=None):
                      lstm_bwd, *lstm_small, *paged.values(),
                      *paged_gqa.values(), *int8.values(),
                      *int8_gqa.values(), flash_q, flash_q_ragged],
+          "flash_train_shape": {"forward": list(flash_train.values()),
+                                "backward": [r for rows in flash_bwd.values()
+                                             for r in rows.values()],
+                                "backward_checks": flash_bwd_checks,
+                                "backward_rel_tolerance": MT_REL_TOL},
           "other_head_dims": check_head_dims(torch, dev, rng),
           "lstm_reverse": check_lstm_reverse(torch, dev, rng)})
 
@@ -1485,6 +1869,7 @@ def main(argv=None):
                                   rng, kv_dtype="int8")
     del params
     train_launches = run_train(torch, dev, kernels)
+    mt_launches = run_train_transformer(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -1498,6 +1883,38 @@ def main(argv=None):
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the forward on the train path: its launches in train_transformer
+    # and its non-causal time at the train shape beside the prefill row
+    train_fwd = flash_train[False]
+    summary[-1]["train"] = {
+        "launches": mt_launches[kernels.flash_attention.NAME],
+        "shape": {"B": MT_BATCH, "H": MT_HEADS, "T": MT_SEQ, "dh": MT_DH,
+                  "causal": False},
+        **{key: train_fwd[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "causal_ms": flash_train[True]["ms"]}
+    fk = kernels.flash_attention
+    for name, replaces in ((fk.NAME_BWD_DKV, fk.REPLACES_BWD_DKV),
+                           (fk.NAME_BWD_DQ, fk.REPLACES_BWD_DQ)):
+        row, causal_row = flash_bwd[name][False], flash_bwd[name][True]
+        summary.append({
+            "name": name, "route": "cuda", "source": fk.SOURCE,
+            "replaces": replaces, "launches": mt_launches[name],
+            "max_abs_err": max(row["max_abs_err"],
+                               causal_row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": {"B": MT_BATCH, "H": MT_HEADS, "T": MT_SEQ,
+                      "dh": MT_DH, "causal": False},
+            "causal": {key: causal_row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "library_note": "scaled_dot_product_attention's backward alone "
+                            "(autograd.grad over a retained graph): it "
+                            "computes dq, dk and dv together, so the same "
+                            "time stands on both rows; plain_ms likewise "
+                            "is the whole plain backward"})
     for row, replaces in ((lstm_fwd, kernels.lstm.REPLACES_FWD),
                           (lstm_bwd, kernels.lstm.REPLACES_BWD)):
         summary.append({
@@ -1527,7 +1944,6 @@ def main(argv=None):
             "library_ms": row["library_ms"],
             **({"library_note": row["library_note"]}
                if "library_note" in row else {})})
-    fk = kernels.flash_attention
     for name, replaces, launches, row, gqa in (
             (dk.NAME_I8, dk.REPLACES, serve8_launches[dk.NAME_I8],
              int8[dk.NAME_I8], int8_gqa[dk.NAME_I8]),

@@ -1,4 +1,6 @@
-"""Decoder-only LM trunk — the LM half of ``paddle_tpu/models/transformer.py``.
+"""Transformer-base (``paddle_tpu/models/transformer.py``): the decoder-only
+LM trunk that serves, and the seq2seq MT model with the full-sequence
+training entry (``loss``, ``lm_logits``, ``lm_loss``).
 
 Pre-LN blocks over a tied token embedding, learned or rotary positions,
 grouped-query attention carried by the weight shapes (``wk``/``wv``
@@ -10,6 +12,10 @@ mapping (``params_from_numpy``):
      "enc": [{"ln1": {"g", "b"}, "attn": {"wq", "wk", "wv", "wo"},
               "ln2": {"g", "b"}, "ffn": {"w1", "b1", "w2", "b2"}}, ...],
      "ln_f": {"g", "b"}}
+
+and the seq2seq tree (``init``) adds ``"trg_emb": [V_trg, d]``,
+``"dec": [{... as "enc", plus "ln_x": {"g", "b"}, "xattn": {"wq", "wk",
+"wv", "wo"}}, ...]`` and ``"out": [d, V_trg]``.
 
 Weights are ``[in, out]``.  Where the JAX functions return a new KV cache
 (and the engine donated the old one), these write the cache in place and
@@ -26,10 +32,15 @@ chunked serving steps), ``decode_attention_slab`` / ``_paged`` (the
 Tq=1 steps of the legacy ladder), each handed the int8 cache and its
 sidecars as they are — and ``flash_attention`` (``flash_attention_quant``
 on an int8 cache) in the prefill's batched causal pass; each dispatches
-on the device of the tensors it is handed.
+on the device of the tensors it is handed.  The training path
+(``encode``/``decode`` with ``full_seq=True``) attends through
+``ops/attention.dot_product_attention``'s flash route: the flash forward
+and its dK/dV and dQ kernels, through ``FlashAttention``.
 
-Not ported in this slice (ROADMAP): MoE blocks, int8 weights, the
-seq2seq encoder-decoder and tensor-parallel ``shard_axis``.
+Not ported (ROADMAP): MoE blocks, int8 weights, tensor-parallel
+``shard_axis``, ``remat``, the sequence-parallel ring (``mesh``,
+``zigzag``), packed rows (``segment_ids``/``positions``) and beam-search
+generation.
 """
 
 import math
@@ -40,7 +51,7 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops import embedding as emb_ops
-from paddle_tpu_torch.ops import linear
+from paddle_tpu_torch.ops import linear, losses
 from paddle_tpu_torch.ops.kernels import decode_attention as _decode_kernel
 from paddle_tpu_torch.ops.kernels import flash_attention as _flash_kernel
 from paddle_tpu_torch.ops.norm import layer_norm
@@ -64,6 +75,37 @@ def _norm(d, dev):
     return {"g": torch.ones(d, device=dev), "b": torch.zeros(d, device=dev)}
 
 
+def _kv_width(d_model, num_heads, num_kv_heads):
+    if d_model % num_heads:
+        raise ValueError(f"num_heads={num_heads} does not divide "
+                         f"d_model={d_model}")
+    if num_kv_heads is None:
+        return d_model
+    if num_heads % num_kv_heads:
+        raise ValueError(f"num_heads={num_heads} not divisible by "
+                         f"num_kv_heads={num_kv_heads}")
+    return (d_model // num_heads) * num_kv_heads
+
+
+def _block(gen, d, dff, d_kv, cross=False):
+    """One pre-LN block drawn from ``gen``: self-attention and dense FFN,
+    plus ``ln_x``/``xattn`` (cross-attention) for a decoder block."""
+    dev = gen.device
+    blk = {
+        "ln1": _norm(d, dev),
+        "attn": {"wq": _dense(gen, d, d), "wk": _dense(gen, d, d_kv),
+                 "wv": _dense(gen, d, d_kv), "wo": _dense(gen, d, d)},
+        "ln2": _norm(d, dev),
+        "ffn": {"w1": _dense(gen, d, dff), "b1": torch.zeros(dff, device=dev),
+                "w2": _dense(gen, dff, d), "b2": torch.zeros(d, device=dev)},
+    }
+    if cross:
+        blk["ln_x"] = _norm(d, dev)
+        blk["xattn"] = {key: _dense(gen, d, d)
+                        for key in ("wq", "wk", "wv", "wo")}
+    return blk
+
+
 def init_lm(generator, vocab, d_model, num_heads, dff, layers, max_len,
             num_kv_heads=None, pos_type="learned", device=None):
     """Random decoder-only trunk drawn from ``generator`` (the port's own
@@ -75,47 +117,52 @@ def init_lm(generator, vocab, d_model, num_heads, dff, layers, max_len,
     if pos_type not in ("learned", "rope"):
         raise ValueError(f"pos_type must be 'learned' or 'rope', got "
                          f"{pos_type!r}")
-    if d_model % num_heads:
-        raise ValueError(f"num_heads={num_heads} does not divide "
-                         f"d_model={d_model}")
-    d_kv = d_model
-    if num_kv_heads is not None:
-        if num_heads % num_kv_heads:
-            raise ValueError(f"num_heads={num_heads} not divisible by "
-                             f"num_kv_heads={num_kv_heads}")
-        d_kv = (d_model // num_heads) * num_kv_heads
+    d_kv = _kv_width(d_model, num_heads, num_kv_heads)
     gen = generator
     params = {"src_emb": _dense(gen, vocab, d_model, scale=0.02)}
     if pos_type == "learned":
         params["pos"] = 0.02 * torch.randn((max_len, d_model), generator=gen,
                                            device=gen.device)
-    params["enc"] = [{
-        "ln1": _norm(d_model, gen.device),
-        "attn": {"wq": _dense(gen, d_model, d_model),
-                 "wk": _dense(gen, d_model, d_kv),
-                 "wv": _dense(gen, d_model, d_kv),
-                 "wo": _dense(gen, d_model, d_model)},
-        "ln2": _norm(d_model, gen.device),
-        "ffn": {"w1": _dense(gen, d_model, dff),
-                "b1": torch.zeros(dff, device=gen.device),
-                "w2": _dense(gen, dff, d_model),
-                "b2": torch.zeros(d_model, device=gen.device)},
-    } for _ in range(layers)]
+    params["enc"] = [_block(gen, d_model, dff, d_kv) for _ in range(layers)]
     params["ln_f"] = _norm(d_model, gen.device)
     return tree_map(lambda t: t.to(dev), params)
 
 
-def params_from_numpy(tree, device=None):
-    """The JAX LM param tree as numpy arrays
-    (``jax.tree_util.tree_map(np.asarray, params)``) -> the port's dict,
-    same keys and ``[in, out]`` layout, float32 on ``device``.  The JAX
-    tree's unused ``trg_emb``/``out`` leaves and empty ``dec`` list are
-    dropped; ``dec`` layers, ``moe`` blocks and int8 leaves raise."""
+def init(generator, src_vocab=30000, trg_vocab=30000, d_model=512,
+         num_heads=8, dff=2048, enc_layers=6, dec_layers=6, max_len=512,
+         device=None):
+    """Random seq2seq tree drawn from ``generator`` (the port's own init,
+    as ``init_lm``): source and target embeddings, learned positions,
+    ``enc_layers`` encoder and ``dec_layers`` decoder blocks, the final
+    norm and the output projection.  (A JAX tree with GQA encoder blocks
+    or rope positions runs too, through ``params_from_numpy``.)"""
     dev = _device.resolve(device)
-    if tree.get("dec"):
-        raise ValueError("params_from_numpy takes the decoder-only LM trunk "
-                         "(init dec_layers=0); this tree has a seq2seq "
-                         "decoder stack")
+    _kv_width(d_model, num_heads, None)
+    gen = generator
+    params = {"src_emb": _dense(gen, src_vocab, d_model, scale=0.02),
+              "trg_emb": _dense(gen, trg_vocab, d_model, scale=0.02),
+              "pos": 0.02 * torch.randn((max_len, d_model), generator=gen,
+                                        device=gen.device)}
+    params["enc"] = [_block(gen, d_model, dff, d_model)
+                     for _ in range(enc_layers)]
+    params["dec"] = [_block(gen, d_model, dff, d_model, cross=True)
+                     for _ in range(dec_layers)]
+    params["ln_f"] = _norm(d_model, gen.device)
+    params["out"] = _dense(gen, d_model, trg_vocab)
+    return tree_map(lambda t: t.to(dev), params)
+
+
+_DEC_KEYS = ("ln1", "attn", "ln_x", "xattn", "ln2", "ffn")
+
+
+def params_from_numpy(tree, device=None):
+    """A JAX param tree as numpy arrays (``jax.tree_util.tree_map(
+    np.asarray, params)``) -> the port's dict, same keys and ``[in,
+    out]`` layout, float32 on ``device``.  An LM tree (empty ``dec``)
+    drops the unused ``trg_emb``/``out`` leaves; a seq2seq tree keeps
+    them and its decoder blocks, each of which must carry ``ln_x`` and
+    ``xattn``.  ``moe`` blocks and int8 leaves raise."""
+    dev = _device.resolve(device)
     if _quantized(tree):
         raise NotImplementedError(f"int8 weight trees are {_ROADMAP}")
     for i, blk in enumerate(tree["enc"]):
@@ -127,6 +174,15 @@ def params_from_numpy(tree, device=None):
         for blk in tree["enc"]], "ln_f": tree["ln_f"]}
     if "pos" in tree:
         keep["pos"] = tree["pos"]
+    if tree.get("dec"):
+        for i, blk in enumerate(tree["dec"]):
+            missing = [k for k in _DEC_KEYS if k not in blk]
+            if missing:
+                raise ValueError(f"dec[{i}] is not a seq2seq decoder block: "
+                                 f"it lacks {missing}")
+        keep["dec"] = [{k: blk[k] for k in _DEC_KEYS} for blk in tree["dec"]]
+        keep["trg_emb"] = tree["trg_emb"]
+        keep["out"] = tree["out"]
     return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
                                        device=dev), keep)
 
@@ -741,3 +797,158 @@ def lm_generate(params, prompt, max_len, num_heads=8, temperature=0.0,
         # slot at a row's own length was seeded from the prefill logits
         ids[:, t + 1] = torch.where(t + 1 <= lengths, ids[:, t + 1], nxt)
     return ids
+
+
+# ------------------------------------------------- full-sequence training
+
+def _not_ported(**options):
+    for name, value in options.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(f"{name}= is {_ROADMAP}")
+
+
+def _check_full(seq):
+    """full_seq=True promises no padding; a batch that breaks it raises
+    instead of silently attending padded keys."""
+    t = seq.data.shape[1]
+    if bool((seq.lengths != t).any()):
+        raise ValueError(
+            f"full_seq=True but batch has lengths "
+            f"{(int(seq.lengths.min()), int(seq.lengths.max()))} < T={t}; "
+            "drop full_seq or pack the batch")
+
+
+def _mha(blk, xq, xkv, num_heads, key_mask=None, causal=False,
+         rope_positions=None):
+    return attn_ops.multi_head_attention(
+        xq, xkv, blk["wq"], blk["wk"], blk["wv"], blk["wo"], num_heads,
+        key_mask=key_mask, causal=causal, rope_positions=rope_positions)
+
+
+def _enc_block(blk, x, key_mask, num_heads, causal=False, rope_pos=None):
+    h = _ln(blk["ln1"], x)
+    x = x + _mha(blk["attn"], h, h, num_heads, key_mask=key_mask,
+                 causal=causal, rope_positions=rope_pos)
+    return x + _block_ffn(blk, _ln(blk["ln2"], x))
+
+
+def _dec_block(blk, x, enc_out, self_km, cross_km, num_heads):
+    h = _ln(blk["ln1"], x)
+    x = x + _mha(blk["attn"], h, h, num_heads, key_mask=self_km,
+                 causal=True)
+    x = x + _mha(blk["xattn"], _ln(blk["ln_x"], x), enc_out, num_heads,
+                 key_mask=cross_km)
+    return x + _ffn(blk["ffn"], _ln(blk["ln2"], x))
+
+
+def encode(params, src, num_heads=8, remat=False, full_seq=False, mesh=None,
+           segment_ids=None, positions=None, causal=False, zigzag=False,
+           pos_type="learned"):
+    """Encoder stack over ``src`` (a ``SequenceBatch`` of ids [B, T]) ->
+    hidden states [B, T, d].  ``causal=True`` is the decoder-only trunk
+    (``lm_logits``).  ``full_seq=True`` promises every row is T long
+    (checked) and drops the key mask, so the attention takes the flash
+    route where T allows it; otherwise keys are masked by ``src``'s
+    lengths.  ``remat``, ``mesh``, ``zigzag`` and packed rows
+    (``segment_ids``/``positions``) raise."""
+    params = _maybe_dequant(params)
+    _check_pos_type(params, pos_type)
+    _not_ported(remat=remat, mesh=mesh, zigzag=zigzag,
+                segment_ids=segment_ids, positions=positions)
+    t = src.data.shape[1]
+    x = emb_ops.embedding_lookup(params["src_emb"], src.data)
+    x = x * math.sqrt(x.shape[-1])
+    rope_pos = None
+    if pos_type == "rope":
+        rope_pos = torch.arange(t, device=x.device)
+    else:
+        x = x + params["pos"][:t][None]
+    key_mask = None if full_seq else src.mask()
+    if full_seq:
+        _check_full(src)
+    for blk in params["enc"]:
+        x = _enc_block(blk, x, key_mask, num_heads, causal, rope_pos)
+    return x
+
+
+def decode(params, enc_out, src_mask, trg_in, num_heads=8, remat=False,
+           full_seq=False, mesh=None, zigzag=False):
+    """Decoder stack: target ids ``trg_in`` (teacher forcing) against
+    ``enc_out`` under the source key mask ``src_mask`` [B, Ts] -> logits
+    [B, T, V_trg].  Causal self-attention, cross-attention, final norm
+    and output projection; ``full_seq`` as in ``encode``."""
+    _not_ported(remat=remat, mesh=mesh, zigzag=zigzag)
+    t = trg_in.data.shape[1]
+    x = emb_ops.embedding_lookup(params["trg_emb"], trg_in.data)
+    x = x * math.sqrt(x.shape[-1]) + params["pos"][:t][None]
+    self_km = None if full_seq else trg_in.mask()
+    cross_km = None if full_seq else src_mask
+    if full_seq:
+        _check_full(trg_in)
+    for blk in params["dec"]:
+        x = _dec_block(blk, x, enc_out, self_km, cross_km, num_heads)
+    return linear.matmul(_ln(params["ln_f"], x), params["out"])
+
+
+def forward(params, src, trg_in, num_heads=8, remat=False, full_seq=False,
+            mesh=None, zigzag=False):
+    enc_out = encode(params, src, num_heads, remat=remat, full_seq=full_seq,
+                     mesh=mesh)
+    return decode(params, enc_out, src.mask(), trg_in, num_heads,
+                  remat=remat, full_seq=full_seq, mesh=mesh, zigzag=zigzag)
+
+
+def _token_ce(logits, labels, label_smoothing):
+    """Per-token (optionally label-smoothed) cross-entropy: JAX's one-hot
+    form (a label outside [0, V) gets an all-zero one-hot row)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    if label_smoothing:
+        v = logits.shape[-1]
+        onehot = (labels[..., None] == torch.arange(
+            v, device=labels.device)).to(logp.dtype)
+        smoothed = onehot * (1 - label_smoothing) + label_smoothing / v
+        return -(smoothed * logp).sum(-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+
+
+def loss(params, src, trg_in, trg_next, num_heads=8, label_smoothing=0.1,
+         remat=False, full_seq=False, mesh=None, zigzag=False):
+    """Label-smoothed cross-entropy of ``forward``'s logits against
+    ``trg_next``, averaged over each row's valid target tokens, then over
+    the batch (a scalar)."""
+    logits = forward(params, src, trg_in, num_heads, remat=remat,
+                     full_seq=full_seq, mesh=mesh, zigzag=zigzag)
+    labels = trg_next.data
+    if labels.dim() == 3:
+        labels = labels[..., 0]
+    per_tok = _token_ce(logits, labels, label_smoothing)
+    per_seq = losses.masked_seq_mean(per_tok,
+                                     trg_in.mask(per_tok.dtype))
+    return per_seq.mean()
+
+
+def lm_logits(params, tokens, num_heads=8, **encode_kw):
+    """Full-sequence LM logits [B, T, V]: ``encode(causal=True)`` and the
+    tied-embedding projection.  ``full_seq=True`` takes the flash route
+    where T allows it."""
+    return _lm_project(params, encode(params, tokens, num_heads,
+                                      causal=True, **encode_kw))
+
+
+def lm_loss(params, tokens, num_heads=8, segment_ids=None, positions=None,
+            mesh=None, zigzag=False, remat=False, label_smoothing=0.0,
+            pos_type="learned"):
+    """Next-token cross-entropy of the decoder-only trunk, a token mean:
+    label t is token t + 1, which must be a real token."""
+    ids = tokens.data
+    b = ids.shape[0]
+    m = tokens.bool_mask()
+    valid = torch.cat([m[:, 1:], torch.zeros((b, 1), dtype=torch.bool,
+                                             device=m.device)], dim=1)
+    labels = torch.roll(ids, -1, dims=1)     # the wrap at T-1 is masked
+    logits = lm_logits(params, tokens, num_heads, remat=remat, mesh=mesh,
+                       segment_ids=segment_ids, positions=positions,
+                       zigzag=zigzag, pos_type=pos_type)
+    per_tok = _token_ce(logits, labels, label_smoothing)
+    w = valid.to(per_tok.dtype)
+    return (per_tok * w).sum() / torch.clamp(w.sum(), min=1.0)

@@ -30,6 +30,8 @@ def reset_launches():
     decode_attention.launches_paged_chunk_i8 = 0
     flash_attention.launches = 0
     flash_attention.launches_quant = 0
+    flash_attention.launches_bwd_dkv = 0
+    flash_attention.launches_bwd_dq = 0
     lstm.launches_fwd = 0
     lstm.launches_bwd = 0
 

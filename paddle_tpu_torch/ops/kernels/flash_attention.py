@@ -1,17 +1,22 @@
-"""Flash attention forward — the batched causal pass of
-``models/transformer.lm_prefill``.
+"""Flash attention — the batched causal pass of
+``models/transformer.lm_prefill`` and every attention of the training
+path (``ops/attention.dot_product_attention``'s flash route).
 
-Port of two kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
+Port of the kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
 
 * ``flash_attention`` (the forward; [B, H, T, dh] in and out) over a
   float32 cache;
+* its backward, ``flash_attention_bwd``: the dK/dV and the dQ kernel of
+  ``_bwd``, with ``FlashAttention`` (a ``torch.autograd.Function``) the
+  counterpart of ``_flash_bhtd``'s custom_vjp;
 * ``flash_attention_quant``: the same pass over the just-quantized int8
   cache (``lm_prefill(kv_dtype="int8")``), q [B, T, D] flat, k/v
   [B, T, Dkv] int8 with per-(position, KV head) f32 scales, grouped KV
   heads read in the kernel.
 
-Both are one template in ``csrc/flash_attention.cu``;
-``flash_attention_plain`` / ``flash_attention_quant_plain`` are their
+The two forwards are one template in ``csrc/flash_attention.cu``, the
+backward two more kernels there; ``flash_attention_plain`` /
+``flash_attention_bwd_plain`` / ``flash_attention_quant_plain`` are their
 plain PyTorch versions (materialized masked attention), which the CPU
 takes and which ``chip_smoke.py`` holds the kernels against.  Unlike the
 TPU wrappers, no shape falls back to a masked path: the kernels mask
@@ -32,17 +37,25 @@ SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:144"
 NAME_QUANT = "flash_attention_quant"
 REPLACES_QUANT = "paddle_tpu/ops/pallas/flash_attention.py:554"
+NAME_BWD_DKV = "flash_attention_bwd_dkv"
+REPLACES_BWD_DKV = "paddle_tpu/ops/pallas/flash_attention.py:276"
+NAME_BWD_DQ = "flash_attention_bwd_dq"
+REPLACES_BWD_DQ = "paddle_tpu/ops/pallas/flash_attention.py:304"
 
 # kernel launches since the last reset (bumped only where the kernel is
 # launched; the plain versions never count)
 launches = 0
 launches_quant = 0
+launches_bwd_dkv = 0
+launches_bwd_dq = 0
 
 _NEG = -1e30
 # C entry -> (pointer args, int args before the float scale); each entry
 # then takes (float scale, int causal, cudaStream_t)
 _SIGNATURES = {"flash_attention_fwd_f32": (5, 4),
-               "flash_attention_quant_i8": (6, 6)}
+               "flash_attention_quant_i8": (6, 6),
+               "flash_attention_bwd_dkv_f32": (8, 4),
+               "flash_attention_bwd_dq_f32": (7, 4)}
 _entries = {}
 
 
@@ -117,6 +130,118 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False):
 def flash_attention(q, k, v, scale=None, causal=False):
     """q [B, H, Tq, D], k/v [B, H, Tk, D] -> [B, H, Tq, D] (forward)."""
     return flash_attention_fwd(q, k, v, scale, causal)[0]
+
+
+# ------------------------------------------------------------- backward
+
+def _bwd_shapes(q, k, v, o, lse, do, causal):
+    b, h, tq, tk, d = _shapes(q, k, v, causal)
+    if o.shape != q.shape or do.shape != q.shape \
+            or tuple(lse.shape) != (b, h, tq):
+        raise ValueError(f"{NAME}: backward wants o/do {tuple(q.shape)} and "
+                         f"lse {(b, h, tq)}; got o {tuple(o.shape)} do "
+                         f"{tuple(do.shape)} lse {tuple(lse.shape)}")
+    return b, h, tq, tk, d
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, scale=None,
+                              causal=False):
+    """(dq, dk, dv) of ``flash_attention`` given its output ``o``, its
+    log-sum-exp ``lse`` [B, H, Tq] and the output gradient ``do``: the
+    TPU ``_bwd`` and its two kernel bodies line for line, materialized —
+    delta = rowsum(do o); p = exp(s - lse) from the masked scores; dv =
+    p^T do; dp = do v^T; ds = p (dp - delta) scale; dk = ds^T q; dq =
+    ds k."""
+    _bwd_shapes(q, k, v, o, lse, do, causal)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    delta = (do * o).sum(-1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        t = q.shape[2]
+        cm = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(cm, s, s.new_tensor(_NEG))
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False):
+    """(dq, dk, dv): the backward of ``flash_attention_fwd``.  CUDA
+    tensors: delta = rowsum(do o) as a plain reduction (the TPU ``_bwd``
+    leaves it to XLA), then the dK/dV kernel and the dQ kernel.  CPU
+    tensors take the plain version."""
+    f32 = torch.float32
+    dev = _check.tensors(NAME_BWD_DKV, {"q": f32, "k": f32, "v": f32,
+                                        "o": f32, "lse": f32, "do": f32},
+                         q=q, k=k, v=v, o=o, lse=lse, do=do)
+    _bwd_shapes(q, k, v, o, lse, do, causal)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal)
+    delta = (do * o).sum(-1)
+    dk, dv = bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal)
+    return bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal), dk, dv
+
+
+def _bwd_args(q, k, v, do, lse, delta, scale, causal):
+    b, h, tq, d = q.shape
+    return ([x.data_ptr() for x in (q, k, v, do, lse, delta)],
+            [b * h, tq, k.shape[2], d, scale, int(causal),
+             torch.cuda.current_stream(q.device).cuda_stream])
+
+
+def bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal):
+    """One launch of the dK/dV kernel on CUDA tensors already checked by
+    ``flash_attention_bwd`` -> (dk, dv)."""
+    global launches_bwd_dkv
+    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, scale, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _entry("flash_attention_bwd_dkv_f32")(*ptrs, dk.data_ptr(),
+                                               dv.data_ptr(), *rest)
+    _build.check(NAME_BWD_DKV, rc)
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal):
+    """One launch of the dQ kernel on CUDA tensors already checked by
+    ``flash_attention_bwd`` -> dq."""
+    global launches_bwd_dq
+    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, scale, causal)
+    dq = torch.empty_like(q)
+    rc = _entry("flash_attention_bwd_dq_f32")(*ptrs, dq.data_ptr(), *rest)
+    _build.check(NAME_BWD_DQ, rc)
+    launches_bwd_dq += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward kernels: the counterpart of
+    the TPU ``_flash_bhtd`` custom_vjp.  ``FlashAttention.apply(q, k, v,
+    scale, causal)``, q [B, H, Tq, D], k/v [B, H, Tk, D] in any strides
+    (the training path hands in transposed views; they are made
+    contiguous here, the wrappers' checks stay as they are).  The
+    forward saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale=None, causal=False):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 # ------------------------------------------------------------- int8 K/V

@@ -1,6 +1,7 @@
 """Cost ops (``paddle_tpu/ops/losses.py``; reference CostLayer).  Each
 returns a per-sample loss [B]; callers mean over the batch.  Only the
-multi-class cross-entropy of the training slice is ported (ROADMAP)."""
+multi-class cross-entropy and the per-sequence mean of the training
+slices are ported (ROADMAP)."""
 
 import torch
 
@@ -16,3 +17,9 @@ def classification_cost(logits_or_probs, label_ids, *, from_logits=True):
         logp = torch.log(torch.clamp(logits_or_probs, min=_EPS))
     ids = torch.clamp(label_ids.long(), 0, logp.shape[-1] - 1)
     return -torch.gather(logp, -1, ids[..., None])[..., 0]
+
+
+def masked_seq_mean(per_token_loss, mask):
+    """Average a [B, T] per-token loss over valid tokens, per sample."""
+    tot = (per_token_loss * mask).sum(-1)
+    return tot / torch.clamp(mask.sum(-1), min=1.0)

@@ -1,5 +1,5 @@
 """Optimizers and learning-rate schedules (``paddle_tpu/optim``)."""
 
-from paddle_tpu_torch.optim.optimizers import Momentum, Optimizer
+from paddle_tpu_torch.optim.optimizers import Adam, Momentum, Optimizer
 
-__all__ = ["Momentum", "Optimizer"]
+__all__ = ["Adam", "Momentum", "Optimizer"]

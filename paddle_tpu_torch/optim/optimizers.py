@@ -6,7 +6,7 @@ with ``init(params) -> {"step", "slots"}`` and ``update(grads, state,
 params) -> (params, state)`` over nested dicts of tensors.  The JAX step
 donates params and optimizer state (``bench.py:335``), so here the update
 writes both in place, under ``torch.no_grad()``, and returns the same
-trees.  Only Momentum is ported; the other optimizers and the sparse
+trees.  Momentum and Adam are ported; the other optimizers and the sparse
 ``row_init`` / ``row_update`` path (with its caller-supplied
 ``clip_scale``) are not yet (ROADMAP).
 """
@@ -94,5 +94,38 @@ def Momentum(learning_rate=0.01, momentum=0.9, nesterov=False,
                 p.add_(m, alpha=momentum).add_(g, alpha=-lr)
             else:
                 p.add_(m)
+
+    return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)
+
+
+def Adam(learning_rate=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8,
+         learning_rate_schedule=None, **kw):
+    """Reference AdamParameterOptimizer with bias correction, as the JAX
+    package writes it: t = step + 1 in float32, m and v scaled by
+    1 / (1 - beta^t), epsilon added after the square root.  One
+    multi-tensor call per operation over every leaf."""
+    def slots(params):
+        return {"m": tree_map(torch.zeros_like, params),
+                "v": tree_map(torch.zeros_like, params)}
+
+    def upd(grads, s, params, lr, step):
+        t = torch.tensor(step + 1, dtype=torch.float32)
+        mhat_scale = float(1.0 / (1.0 - beta1 ** t))
+        vhat_scale = float(1.0 / (1.0 - beta2 ** t))
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        ms, vs = tree_leaves(s["m"]), tree_leaves(s["v"])
+        torch._foreach_mul_(ms, beta1)
+        torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - beta1))
+        torch._foreach_mul_(vs, beta2)
+        g2 = torch._foreach_mul(gs, 1 - beta2)
+        torch._foreach_mul_(g2, gs)
+        torch._foreach_add_(vs, g2)
+        den = torch._foreach_mul(vs, vhat_scale)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, epsilon)
+        num = torch._foreach_mul(ms, mhat_scale)
+        torch._foreach_mul_(num, lr)
+        torch._foreach_div_(num, den)
+        torch._foreach_sub_(ps, num)
 
     return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)

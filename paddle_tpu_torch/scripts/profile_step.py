@@ -22,7 +22,10 @@ CUDA device.
 """
 
 import argparse
+import glob
 import json
+import os
+import re
 import time
 
 import numpy as np
@@ -30,6 +33,7 @@ import torch
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.serving.server import BASE_LM
 from paddle_tpu_torch.serving.decode_engine import DecodeEngine
 
@@ -45,11 +49,39 @@ def slot_mix():
     return tokens, pos, lens
 
 
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                     r"(\w+)\s*\(")
+
+
+def port_kernels():
+    """The names of the port's kernels: every ``__global__`` function
+    in ``csrc/*.cu``."""
+    names = set()
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        with open(path) as f:
+            names.update(_GLOBAL.findall(f.read()))
+    return names
+
+
+# the profiler's name of a kernel in csrc/*.cu, each in a top-level
+# anonymous namespace (a template's name carries "void " and its
+# arguments, a plain function's starts at the namespace); PyTorch's own
+# kernels sit in namespaces of their own
+_ANON = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]")
+
+
+def _is_port(key, names):
+    m = _ANON.match(key)
+    return m is not None and m.group(1) in names
+
+
 def measure(step, steps):
     """Per-step timings of ``step()`` (already warmed up) over ``steps``
     calls, each ending in a synchronize: host wall p50/p99, device time
     between CUDA events, and — from a second, profiled run — the kernel
-    time and launches by name and the device's idle share."""
+    time and launches by name, the kernel time by origin (the port's
+    own kernels, ``port_kernels()``; the library's matrix products; the
+    rest) and the device's idle share."""
     walls, device_ms = [], []
     for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -79,6 +111,11 @@ def measure(step, steps):
     kernels.sort(reverse=True)
     busy = sum(t for t, _, _ in kernels)
     wall = float(np.median(walls))
+    by_origin = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    names = port_kernels()
+    for t, _, key in kernels:
+        by_origin["port_kernels" if _is_port(key, names)
+                  else "gemm" if "gemm" in key else "other"] += t
     return {
         "card": _device.card(), "steps": steps,
         "step_wall_ms": {"p50": wall,
@@ -89,6 +126,7 @@ def measure(step, steps):
         "device_idle_share": 1.0 - busy / wall,
         "top_kernels": [{"ms_per_step": t, "launches_per_step": n,
                          "name": k[:80]} for t, n, k in kernels[:14]],
+        "kernel_ms_per_step_by_origin": by_origin,
     }
 
 

@@ -280,3 +280,24 @@ def test_entry_points_run_on_the_card_unless_asked():
         bench.bench_lstm(batch=2, seq_len=3, hidden=128, vocab=10)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sequence.pad_sequences([np.asarray([1])])
+
+
+@pytest.mark.parametrize("key, port", [
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<64>(float const*)",
+     True),
+    ("(anonymous namespace)::lstm_dwr_kernel(float const*, float const*)",
+     True),
+    ("void (anonymous namespace)::lstm_fwd_kernel(float const*)", True),
+    ("void at::native::(anonymous namespace)::attn_kernel<float>(float*)",
+     False),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8", False)])
+def test_profile_attributes_the_port_kernels_by_their_sources(key, port):
+    """The profiles' by-origin split takes the port's kernel names from
+    the ``__global__`` functions of csrc/*.cu, and matches a name in the
+    profiler's form of a template and of a plain function alike."""
+    from paddle_tpu_torch.scripts import profile_step
+    names = profile_step.port_kernels()
+    assert {"attn_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
+            "flash_bwd_dq_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
+            "lstm_dwr_kernel"} <= names
+    assert profile_step._is_port(key, names) == port
