@@ -9,7 +9,7 @@ non-zero exit code and no final "ok" line:
   device    the card's name, and its name and power limit as nvidia-smi
             reports them (also printed alone on a line)
   build     nvcc builds every kernel library from paddle_tpu_torch/csrc
-            (decode attention, flash attention, LSTM), one nvcc per
+            (decode attention, flash attention, GRU, LSTM), one nvcc per
             source, in parallel; seconds taken
   kernels   each kernel at the main path's shapes against its plain
             PyTorch version (max abs error within the stated bound; the
@@ -23,7 +23,11 @@ non-zero exit code and no final "ok" line:
             bit for bit against its float32 kernel on the dequantized
             cache; the flash forward and its backward pair at the MT
             train shape B=32, H=8, T=256, dh=64, causal and not, the pair
-            also ragged and at dh 16/32/128 and repeated bit for bit),
+            also ragged and at dh 16/32/128 and repeated bit for bit; the
+            GRU pair at the seq2seq train shape T=30, B=64, D=512 on full
+            rows and on a ragged mask with an empty row, at D=128 and 640
+            (B=64) and D=768 (B=8), and through a reverse rnn.gru, with
+            the cost of one grid barrier timed alone),
             timed with CUDA events beside the plain version, one
             PyTorch library call computing the same function (a
             yardstick the port never calls; none exists for the int8
@@ -87,6 +91,21 @@ non-zero exit code and no final "ok" line:
             warm-up and timed steps at batch 32, each launching the flash
             forward, dK/dV and dQ kernels 18 times (6 encoder, 6 decoder
             self-, 6 cross-attentions); the loss is finite and falls
+  train_seq2seq  bench.py's bench_seq2seq ported
+            (scripts/bench.bench_seq2seq): the attention NMT model at
+            vocab 30000 both sides, emb = hidden = attention 512, batch
+            64, lengths 30 / 30, Momentum.  Its first step is held against
+            the same step on the CPU (plain versions: loss, every
+            gradient leaf and momentum slot), then warm-up and timed
+            steps, each launching the GRU forward and backward kernels
+            twice (the encoder's two directions); the loss is finite and
+            falls.  Then greedy_generate at batch 64, max_len 30 on the
+            trained params: the lean GRU forward twice, no backward; its
+            tokens held against the same call on the CPU up to each
+            row's first step whose top-1/top-2 margin is below MARGIN_TOL,
+            and the whole sample on values: the encoder's outputs and
+            every step's log-probs teacher-forced on the CPU's tokens,
+            card vs CPU within S2S_REL_TOL
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -193,6 +212,25 @@ MT_PRE_TOL = 2e-5
 MT_GRAD_TOL = 4e-3
 MT_WARMUP, MT_STEPS = 2, 10
 MT_ATTENTIONS = 18
+# The GRU kernels at the seq2seq train path's shape (bench_seq2seq's
+# encoder: T=30, B=64, h=512) against their plain versions, held as the
+# LSTM pair is (hs, acts and dxs within LSTM_TOL absolute, dW_gate and
+# dW_state within LSTM_REL_TOL of their largest entry), and at the ends
+# of the range gru.supported admits: D 128 and 640 at B 64, D 768 at B 8.
+# The train phase's first step (card vs CPU) is held at TRAIN_REL_TOL:
+# the model has no ReLU, so card and CPU differ only by summation order.
+GRU_T, GRU_B, GRU_D = 30, 64, 512
+GRU_OTHER = ((64, 128), (64, 640), (8, 768))
+S2S_BATCH, S2S_LEN, S2S_VOCAB, S2S_HIDDEN = 64, 30, 30000, 512
+S2S_WARMUP, S2S_STEPS = 3, 10
+# greedy_generate card vs CPU on the trained params, beyond the tokens
+# the margins let through: the encoder's outputs (enc, proj, boot) and
+# the log-probs of every step teacher-forced on the CPU's tokens, each
+# relative to its largest magnitude.  Same float32 arithmetic in other
+# summation orders, through 30 encoder and 30 decoder steps without
+# updates; a wrong kernel or step moves them by O(1e-2) and more.
+S2S_REL_TOL = 1e-4
+S2S_DIRECTIONS = 2
 
 
 def emit(obj):
@@ -1009,6 +1047,174 @@ def check_lstm_reverse(torch, dev, rng):
             "grad_rel_err": worst}
 
 
+def gru_inputs(torch, dev, rng, t, b, d, ragged):
+    """(lengths, xs [T, B, 3D], mask [T, B], w_gate, w_state) at the JAX
+    tests' scale.  Ragged: random lengths with one empty row and one
+    full row; else every row full, as the train path's batch is."""
+    lengths = np.full(b, t)
+    if ragged:
+        lengths = rng.randint(1, t + 1, b)
+        lengths[0] = 0
+        lengths[-1] = t
+    mask = (np.arange(t)[:, None] < lengths[None, :]).astype(np.float32)
+    return (lengths,
+            torch.tensor(normal(rng, (t, b, 3 * d)) * 0.3, device=dev),
+            torch.tensor(mask, device=dev),
+            torch.tensor(normal(rng, (d, 2 * d)) * 0.1, device=dev),
+            torch.tensor(normal(rng, (d, d)) * 0.1, device=dev))
+
+
+def gru_cost(lengths, t, d):
+    """(bytes, flops) of the forward with residuals and of the backward
+    with dW_gate and dW_state on these inputs.  Bytes: each input read
+    once, each output written once.  Operations: the recurrent products
+    these lengths need, 6 D^2 a row and step each way.  The forward
+    needs h_{t-1} W_gate and (r h_{t-1}) W_state at every step t >= 1 of
+    a row that ever started (acts are outputs even where the mask is 0;
+    an empty row's h stays 0); the backward needs dccg W_state^T,
+    dgates W_gate^T and the two dW terms only where the mask is 1 and
+    t >= 1 (elsewhere dgates and dccg m are 0, and h_{-1} = 0)."""
+    b = len(lengths)
+    fwd_bytes = 4 * (7 * t * b * d + t * b + 3 * d * d)
+    bwd_bytes = 4 * (8 * t * b * d + t * b + 6 * d * d)
+    fwd_rows = (t - 1) * int((lengths > 0).sum())
+    bwd_rows = int(np.maximum(lengths - 1, 0).sum())
+    return ((fwd_bytes, 6 * d * d * fwd_rows),
+            (bwd_bytes, 12 * d * d * bwd_rows))
+
+
+def gru_pair(torch, dev, rng, t, b, d, ragged):
+    """Forward (both variants) and backward kernels against their plain
+    versions on one set of inputs; the backward gets the plain forward's
+    residuals on both sides so that its check stands alone.  Returns the
+    two result rows, the four calls (kernel, plain) x (fwd, bwd) and the
+    costs."""
+    from paddle_tpu_torch.ops.kernels import gru as gk
+    lengths, xs, mask, w_gate, w_state = gru_inputs(torch, dev, rng, t, b,
+                                                    d, ragged)
+    ref = gk.gru_fwd_plain(xs, mask, w_gate, w_state, True)
+    got = gk.gru_fwd(xs, mask, w_gate, w_state, True)
+    lean, _ = gk.gru_fwd(xs, mask, w_gate, w_state, False)
+    dh_out = torch.tensor(normal(rng, (t, b, d)), device=dev)
+    bwd_args = (ref[1], ref[0], w_gate, w_state, mask, dh_out)
+    gb = gk.gru_bwd(*bwd_args)
+    rb = gk.gru_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+
+    def err(x, y):
+        return float((x - y).abs().max())
+
+    fwd_err = max(err(got[0], ref[0]), err(got[1], ref[1]),
+                  err(lean, ref[0]))
+    dxs_err = err(gb[0], rb[0])
+    rel = {"dW_gate": err(gb[1], rb[1]) / float(rb[1].abs().max()),
+           "dW_state": err(gb[2], rb[2]) / float(rb[2].abs().max())}
+    if not fwd_err <= LSTM_TOL or not dxs_err <= LSTM_TOL \
+            or not max(rel.values()) <= LSTM_REL_TOL:
+        fail(f"GRU kernels (T={t}, B={b}, D={d}, ragged={ragged}) disagree "
+             f"with their plain versions: forward max abs err {fwd_err}, "
+             f"dxs {dxs_err} (bound {LSTM_TOL}); relative {rel} (bound "
+             f"{LSTM_REL_TOL})")
+    if ragged and (got[0][:, 0].any() or gb[0][:, 0].any()):
+        fail("GRU kernels: the empty row's hs or dxs is not exactly 0")
+    rows = [{"name": gk.NAME_FWD, "B": b, "D": d, "ragged": ragged,
+             "max_abs_err": fwd_err},
+            {"name": gk.NAME_BWD, "B": b, "D": d, "ragged": ragged,
+             "max_abs_err": max(dxs_err, err(gb[1], rb[1]),
+                                err(gb[2], rb[2])),
+             "dxs_max_abs_err": dxs_err, "rel_err": rel}]
+    calls = ((lambda: gk.gru_fwd(xs, mask, w_gate, w_state, True),
+              lambda: gk.gru_fwd_plain(xs, mask, w_gate, w_state, True)),
+             (lambda: gk.gru_bwd(*bwd_args),
+              lambda: gk.gru_bwd_plain(*bwd_args)))
+    return rows, calls, gru_cost(lengths, t, d)
+
+
+def check_gru_kernels(torch, dev, rng):
+    """The GRU pair at the train shape on a ragged mask (with an empty
+    row) and on the train path's own data (every row full length), which
+    the times and the bound are taken on; then ragged at GRU_OTHER."""
+    rows, _, _ = gru_pair(torch, dev, rng, GRU_T, GRU_B, GRU_D, ragged=True)
+    full, calls, costs = gru_pair(torch, dev, rng, GRU_T, GRU_B, GRU_D,
+                                  ragged=False)
+    library = ("no single PyTorch call computes this function: cuDNN's GRU "
+               "applies the reset gate after the recurrent product, "
+               "r (h W_hn + b_hn), where Paddle's applies it before, "
+               "(r h) W_state, and has no masked carry freeze")
+    for row, row_full, (fn, plain), (nbytes, flops) in zip(rows, full, calls,
+                                                           costs):
+        row.update(max_abs_err=max(row["max_abs_err"],
+                                   row_full["max_abs_err"]),
+                   full_rows_check=row_full,
+                   shape={"T": GRU_T, "B": GRU_B, "D": GRU_D,
+                          "timed_on": "full rows"},
+                   ms=time_ms(torch, fn, samples=20, reps=5),
+                   plain_ms=time_ms(torch, plain, samples=5, reps=2),
+                   library_ms=None, library_note=library,
+                   bytes=nbytes, flops=flops)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    other = [r for b, d in GRU_OTHER
+             for r in gru_pair(torch, dev, rng, GRU_T, b, d, True)[0]]
+    return rows, other
+
+
+def check_gru_reverse(torch, dev, rng, kernels):
+    """rnn.gru(reverse=True) at the train shape on the card (kernels,
+    through GruFused) against the same call on the CPU (plain versions):
+    loss and every gradient, on a ragged batch with an empty row."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import rnn
+    t, b, d = GRU_T, GRU_B, GRU_D
+    x = normal(rng, (b, t, 3 * d)) * 0.3
+    lengths = rng.randint(1, t + 1, b).astype(np.int32)
+    lengths[0] = 0
+    w_gate, w_state = normal(rng, (d, 2 * d)) * 0.1, normal(rng, (d, d)) * 0.1
+    bias = normal(rng, (3 * d,)) * 0.1
+
+    def run(device):
+        args = [torch.tensor(a, device=device, requires_grad=True)
+                for a in (x, w_gate, w_state, bias)]
+        out, final = rnn.gru(
+            SequenceBatch(args[0], torch.tensor(lengths, device=device)),
+            args[1], args[2], bias=args[3], reverse=True)
+        loss = (out.data ** 2).sum() + (final ** 2).sum()
+        loss.backward()
+        return float(loss.detach()), [a.grad.cpu() for a in args]
+
+    kernels.reset_launches()
+    loss_c, grads_c = run(dev)
+    launches = (kernels.gru.launches_fwd, kernels.gru.launches_bwd)
+    loss_r, grads_r = run("cpu")
+    worst = max(float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(grads_c, grads_r))
+    loss_err = abs(loss_c - loss_r) / abs(loss_r)
+    if launches != (1, 1) or not worst <= LSTM_REL_TOL \
+            or not loss_err <= LSTM_REL_TOL:
+        fail(f"reverse rnn.gru: launches {launches} (want 1, 1); card vs "
+             f"CPU relative error loss {loss_err}, grads {worst} (bound "
+             f"{LSTM_REL_TOL})")
+    return {"reverse_gru": {"T": t, "B": b, "D": d}, "loss_rel_err": loss_err,
+            "grad_rel_err": worst}
+
+
+def check_gru_barrier(torch):
+    """The device time of one grid-wide barrier at the GRU recurrences'
+    grid (128 CTAs): a cooperative launch of 2 (GRU_T - 1) barriers alone,
+    the count one train-shape launch makes, less an empty one."""
+    from paddle_tpu_torch.ops.kernels import _build
+    probe = _build.entry("gru", "gru_barrier_probe", 0, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    syncs = 2 * (GRU_T - 1)
+
+    def run(n):
+        _build.check("gru_barrier_probe", probe(n, stream))
+
+    with_syncs = time_ms(torch, lambda: run(syncs), samples=20, reps=5)
+    empty = time_ms(torch, lambda: run(0), samples=20, reps=5)
+    return {"barriers": syncs, "launch_ms": with_syncs, "empty_launch_ms":
+            empty, "us_per_barrier": (with_syncs - empty) / syncs * 1e3}
+
+
 # ------------------------------------------------------------- paths
 
 def margins(torch, transformer, params, ids, kv_dtype=None):
@@ -1788,6 +1994,128 @@ def run_train_transformer(torch, dev, kernels):
     return launches
 
 
+def run_train_seq2seq(torch, dev, kernels):
+    """bench_seq2seq on the card: the first step against the CPU, then
+    S2S_WARMUP + S2S_STEPS steps with each step's GRU launches read; then
+    greedy_generate on the trained params against the CPU."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.models import seq2seq
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+    gk = kernels.gru
+
+    def rel(got, want):
+        return [float((g.detach().cpu() - w.detach()).abs().max()
+                      / w.detach().abs().max()) for g, w in zip(got, want)]
+
+    card_run = bench.bench_seq2seq(device=dev)
+    cpu_run = bench.bench_seq2seq(device="cpu")
+    names = leaf_names(cpu_run.params)
+    losses, times, per_step = [], [], []
+    for i in range(1 + S2S_WARMUP + S2S_STEPS):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss = card_run.train_step()
+        torch.cuda.synchronize()
+        if i > S2S_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append((gk.launches_fwd, gk.launches_bwd))
+        if i == 0:    # the first step against the CPU's
+            loss_cpu = float(cpu_run.train_step())
+            grad_err = rel([p.grad for p in tree_leaves(card_run.params)],
+                           [p.grad for p in tree_leaves(cpu_run.params)])
+            mom_err = rel(tree_leaves(card_run.opt_state["slots"]["mom"]),
+                          tree_leaves(cpu_run.opt_state["slots"]["mom"]))
+            loss_err = abs(losses[0] - loss_cpu) / abs(loss_cpu)
+            if not max(grad_err + mom_err + [loss_err]) <= TRAIN_REL_TOL:
+                fail(f"train_seq2seq: first step on the card vs the CPU: "
+                     f"loss rel err {loss_err}, per-leaf rel err of grads "
+                     f"{dict(zip(names, grad_err))}, of mom "
+                     f"{dict(zip(names, mom_err))} (bound {TRAIN_REL_TOL})")
+            del cpu_run
+    want = (S2S_DIRECTIONS, S2S_DIRECTIONS)
+    if any(n != want for n in per_step):
+        fail(f"train_seq2seq: per-step (forward, backward) GRU launches "
+             f"{per_step}, want {want} each step")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"train_seq2seq: loss not finite or not falling: {losses}")
+
+    src = card_run.src
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tokens, lengths = seq2seq.greedy_generate(card_run.params, src,
+                                              max_len=S2S_LEN)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    gen_launches = (gk.launches_fwd, gk.launches_bwd)
+    if gen_launches != (S2S_DIRECTIONS, 0):
+        fail(f"train_seq2seq: greedy_generate launched the GRU kernels "
+             f"{gen_launches} (forward, backward), want ({S2S_DIRECTIONS}, "
+             f"0): the lean forward once per direction")
+    params_cpu = tree_map(lambda p: p.detach().cpu(), card_run.params)
+    src_cpu = SequenceBatch(src.data.cpu(), src.lengths.cpu())
+    ref_tokens, ref_lengths = seq2seq.greedy_generate(params_cpu, src_cpu,
+                                                      max_len=S2S_LEN)
+    with torch.no_grad():   # the CPU's logits at each of its steps
+        prev = torch.cat([torch.zeros_like(ref_tokens[:, :1]),
+                          ref_tokens[:, :-1]], dim=1)
+        logits = seq2seq.forward(params_cpu, src_cpu, SequenceBatch(
+            prev, torch.full_like(src_cpu.lengths, S2S_LEN)))
+    top2 = torch.topk(logits, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).numpy()
+    checked = [compare(g, r, m) for g, r, m in zip(
+        tokens.cpu().tolist(), ref_tokens.tolist(), margin)]
+    if not all(ok for _, ok in checked):
+        fail(f"train_seq2seq: greedy tokens differ from the CPU's within "
+             f"the margin {MARGIN_TOL}: compared/ok {checked}")
+    # the margins leave most tokens unchecked, so the whole sample is also
+    # held on the card's values: the encoder (lean kernels, under no_grad)
+    # and every step's log-probs, teacher-forced on the CPU's tokens
+    with torch.no_grad():
+        enc_c = seq2seq.encode(card_run.params, src)
+        enc_r = seq2seq.encode(params_cpu, src_cpu)
+        logp_c = torch.log_softmax(seq2seq.forward(
+            card_run.params, src, SequenceBatch(
+                prev.to(dev), torch.full_like(src.lengths, S2S_LEN))), -1)
+    enc_err = dict(zip(("enc", "proj", "boot"), rel(
+        [enc_c[0].data, enc_c[1].data, enc_c[2]],
+        [enc_r[0].data, enc_r[1].data, enc_r[2]])))
+    logp_err = rel([logp_c], [torch.log_softmax(logits, -1)])[0]
+    if not max(enc_err.values()) <= S2S_REL_TOL \
+            or not logp_err <= S2S_REL_TOL:
+        fail(f"train_seq2seq: card vs CPU on the trained params: encode "
+             f"rel err {enc_err}, log-probs on the CPU's tokens {logp_err} "
+             f"(bound {S2S_REL_TOL})")
+    launches = {gk.NAME_FWD: sum(f for f, _ in per_step),
+                gk.NAME_BWD: sum(b for _, b in per_step)}
+    ms = float(np.median(times))
+    emit({"phase": "train_seq2seq", "config": {
+        "vocab": S2S_VOCAB, "emb": S2S_HIDDEN, "hidden": S2S_HIDDEN,
+        "att": S2S_HIDDEN, "batch": S2S_BATCH, "src_len": S2S_LEN,
+        "trg_len": S2S_LEN, "optimizer": "Momentum lr 0.01 m 0.9"},
+        "warmup": 1 + S2S_WARMUP, "steps": S2S_STEPS, "ms_per_batch": ms,
+        "ms_per_batch_min_max": [min(times), max(times)],
+        "tokens_per_s": card_run.tokens_per_step / (ms / 1e3),
+        "launches": launches, "launches_per_step": [
+            dict(zip(launches, n)) for n in sorted(set(per_step))],
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "first_step_vs_cpu": {"loss_rel_err": loss_err,
+                              "grad_rel_err_max": max(grad_err),
+                              "mom_rel_err_max": max(mom_err),
+                              "bound": TRAIN_REL_TOL},
+        "greedy_generate": {
+            "batch": S2S_BATCH, "max_len": S2S_LEN, "ms": gen_ms,
+            "launches": dict(zip(launches, gen_launches)),
+            "tokens_compared": sum(n for n, _ in checked),
+            "tokens": S2S_BATCH * S2S_LEN,
+            "lengths_equal": bool((lengths.cpu() == ref_lengths).all()),
+            "encode_rel_err": enc_err, "log_prob_rel_err": logp_err,
+            "rel_bound": S2S_REL_TOL}})
+    return {"train": launches, "generate": dict(zip(launches, gen_launches))}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1833,6 +2161,7 @@ def main(argv=None):
                                               timed=False)
     flash_train, flash_bwd, flash_bwd_checks = check_flash_train(torch, dev,
                                                                  rng)
+    (gru_fwd, gru_bwd), gru_other = check_gru_kernels(torch, dev, rng)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
           "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
@@ -1846,7 +2175,10 @@ def main(argv=None):
                                 "backward_checks": flash_bwd_checks,
                                 "backward_rel_tolerance": MT_REL_TOL},
           "other_head_dims": check_head_dims(torch, dev, rng),
-          "lstm_reverse": check_lstm_reverse(torch, dev, rng)})
+          "lstm_reverse": check_lstm_reverse(torch, dev, rng),
+          "gru_train_shape": [gru_fwd, gru_bwd], "gru_other": gru_other,
+          "gru_reverse": check_gru_reverse(torch, dev, rng, kernels),
+          "gru_barrier": check_gru_barrier(torch)})
 
     params = transformer.init_lm(
         torch.Generator().manual_seed(args.seed), VOCAB, D_MODEL, HEADS,
@@ -1870,6 +2202,7 @@ def main(argv=None):
     del params
     train_launches = run_train(torch, dev, kernels)
     mt_launches = run_train_transformer(torch, dev, kernels)
+    s2s_launches = run_train_seq2seq(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -1925,6 +2258,22 @@ def main(argv=None):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "library_note": row["library_note"]})
+    for row, replaces in ((gru_fwd, kernels.gru.REPLACES_FWD),
+                          (gru_bwd, kernels.gru.REPLACES_BWD)):
+        name = row["name"]
+        summary.append({
+            "name": name, "route": "cuda", "source": kernels.gru.SOURCE,
+            "replaces": replaces,
+            "launches": s2s_launches["train"][name]
+            + s2s_launches["generate"][name],
+            "launches_by_path": {path: n[name]
+                                 for path, n in s2s_launches.items()},
+            "max_abs_err": max([row["max_abs_err"]]
+                               + [r["max_abs_err"] for r in gru_other
+                                  if r["name"] == name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "library_note": row["library_note"]})
     dk = kernels.decode_attention
     for name, replaces, launches in (
             (dk.NAME_SLAB, dk.REPLACES_SLAB,

@@ -1,4 +1,5 @@
-"""Attention (``paddle_tpu/ops/attention.py``): ``dot_product_attention``
+"""Attention (``paddle_tpu/ops/attention.py``): the additive (Bahdanau)
+scores and context of the attention NMT model, ``dot_product_attention``
 with its flash route and its dense masked path, ``multi_head_attention``
 for the local path, ``repeat_kv_heads`` for grouped KV heads, and rotary
 positions.  The sequence-parallel ring (``mesh``, ``zigzag``), packed
@@ -9,6 +10,7 @@ import math
 
 import torch
 
+from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops.kernels import _check
 from paddle_tpu_torch.ops.linear import matmul
 
@@ -17,6 +19,25 @@ _NEG = -1e30
 # which an unmasked pair of lengths goes to chunked_attention
 _CHUNKED_MIN = 2048 * 2048
 _ROADMAP = "not yet ported to paddle_tpu_torch (ROADMAP A2)"
+
+
+def additive_attention_scores(enc_proj: SequenceBatch, dec_state_proj, v):
+    """Bahdanau scores v . tanh(enc_proj + dec_proj): enc_proj.data
+    [B, T, A] (projected once per sequence, outside the decode loop),
+    dec_state_proj [B, A], v [A] -> [B, T], -1e30 at padding.  Plain
+    PyTorch, as in JAX: no kernel is involved."""
+    e = torch.tanh(enc_proj.data + dec_state_proj[:, None, :])
+    scores = torch.einsum("bta,a->bt", e, v)
+    return torch.where(enc_proj.bool_mask(), scores, scores.new_tensor(_NEG))
+
+
+def attention_context(scores, values: SequenceBatch):
+    """softmax(scores) @ values -> [B, D]; the weights are masked and
+    renormalised by max(sum, 1e-9), so an empty row gives zeros."""
+    w = torch.softmax(scores, dim=-1)
+    w = w * values.mask(w.dtype)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return torch.einsum("bt,btd->bd", w, values.data)
 
 
 def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,

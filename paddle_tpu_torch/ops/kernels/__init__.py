@@ -7,9 +7,9 @@ tensors handed in: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises — there is no fallback."""
 
 from paddle_tpu_torch.ops.kernels import decode_attention, flash_attention
-from paddle_tpu_torch.ops.kernels import lstm
+from paddle_tpu_torch.ops.kernels import gru, lstm
 
-KERNELS = ("decode_attention", "flash_attention", "lstm")
+KERNELS = ("decode_attention", "flash_attention", "gru", "lstm")
 
 
 def build():
@@ -32,9 +32,11 @@ def reset_launches():
     flash_attention.launches_quant = 0
     flash_attention.launches_bwd_dkv = 0
     flash_attention.launches_bwd_dq = 0
+    gru.launches_fwd = 0
+    gru.launches_bwd = 0
     lstm.launches_fwd = 0
     lstm.launches_bwd = 0
 
 
-__all__ = ["decode_attention", "flash_attention", "lstm", "KERNELS", "build",
-           "reset_launches"]
+__all__ = ["decode_attention", "flash_attention", "gru", "lstm", "KERNELS",
+           "build", "reset_launches"]

@@ -90,6 +90,18 @@ def load(name):
         return lib
 
 
+def entry(lib, name, n_ptr, n_int, *tail):
+    """The C entry ``name`` of ``csrc/<lib>.cu``, typed: ``n_ptr``
+    pointers, ``n_int`` ints, the ctypes in ``tail``, then the stream;
+    it returns a ``cudaError_t`` (an int)."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + list(tail) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(name, rc):
     """Raise on a non-zero ``cudaError_t`` returned by a C entry (the
     ``cudaGetLastError()`` right after the launch: a refused launch never

@@ -61,8 +61,6 @@ launches_slab_i8 = 0
 launches_paged_i8 = 0
 launches_paged_chunk_i8 = 0
 
-_entries = {}
-
 # C entry -> (pointer args, int args): every entry ends (float scale,
 # cudaStream_t); an _i8 entry takes the two scale pointers after k/v
 _SIGNATURES = {"decode_attention_slab_chunk_f32": (5, 6),
@@ -76,15 +74,8 @@ _SIGNATURES = {"decode_attention_slab_chunk_f32": (5, 6),
 
 
 def _entry(name):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("decode_attention"), name)
-        n_ptr, n_int = _SIGNATURES[name]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
+    return _build.entry("decode_attention", name, *_SIGNATURES[name],
+                        ctypes.c_float)
 
 
 def _heads(name, d, dkv, num_heads):

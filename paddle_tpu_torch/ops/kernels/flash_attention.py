@@ -56,19 +56,11 @@ _SIGNATURES = {"flash_attention_fwd_f32": (5, 4),
                "flash_attention_quant_i8": (6, 6),
                "flash_attention_bwd_dkv_f32": (8, 4),
                "flash_attention_bwd_dq_f32": (7, 4)}
-_entries = {}
 
 
 def _entry(name):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("flash_attention"), name)
-        n_ptr, n_int = _SIGNATURES[name]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
+    return _build.entry("flash_attention", name, *_SIGNATURES[name],
+                        ctypes.c_float, ctypes.c_int)
 
 
 def _shapes(q, k, v, causal):

@@ -16,8 +16,6 @@ B; a larger D is the blocked variant (ROADMAP B12).  The plain versions
 take any D.
 """
 
-import ctypes
-
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build, _check
@@ -35,19 +33,6 @@ HIDDEN = (128, 256, 512)
 # for its BPTT kernel and the dW_r product that follows it.
 launches_fwd = 0
 launches_bwd = 0
-
-_entries = {}
-
-
-def _entry(name, n_ptr, n_int):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("lstm"), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
 
 
 def _shapes(name, xs, mask, w_r, checks, dev):
@@ -159,7 +144,7 @@ def lstm_fwd(xs, mask, w_r, checks, save_residuals):
         cs = torch.empty((t, b, d), dtype=f32, device=dev)
         acts = torch.empty_like(xs)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _entry("lstm_fwd_f32", 8, 4)(
+    rc = _build.entry("lstm", "lstm_fwd_f32", 8, 4)(
         xs.data_ptr(), mask.data_ptr(), w_r.data_ptr(), checks.data_ptr(),
         hs.data_ptr(), cfin.data_ptr(), 0 if cs is None else cs.data_ptr(),
         0 if acts is None else acts.data_ptr(), t, b, d, int(save_residuals),
@@ -193,7 +178,7 @@ def lstm_bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin):
     dchk = torch.empty((b, 3 * d), dtype=f32, device=dev)
     carry = torch.empty((2, b, d), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _entry("lstm_bwd_f32", 13, 3)(
+    rc = _build.entry("lstm", "lstm_bwd_f32", 13, 3)(
         acts.data_ptr(), cs.data_ptr(), hs.data_ptr(), w_r.data_ptr(),
         checks.data_ptr(), mask.data_ptr(), dh_out.data_ptr(),
         dcfin.data_ptr(), dxs.data_ptr(), dwr.data_ptr(), dchk.data_ptr(),

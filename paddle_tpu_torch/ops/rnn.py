@@ -1,8 +1,10 @@
-"""The LSTM of ``paddle_tpu/ops/rnn.py``: cell, masked scan, the fused
-whole-sequence route, bidirectional concat.
+"""The LSTM and GRU of ``paddle_tpu/ops/rnn.py``: cells, masked scan,
+the fused whole-sequence routes, bidirectional concat.
 
 Reference: LstmLayer/LstmCompute + hl_lstm_ops.cuh:46-66 (gate order
-[a, input_gate, forget_gate, output_gate], peepholes checkI/F/O).  The
+[a, input_gate, forget_gate, output_gate], peepholes checkI/F/O) and
+GatedRecurrentLayer/GruCompute + hl_gru_ops.cuh:37-80 (gate order
+[update, reset, candidate], h = prev - u*prev + u*c~).  The
 input-to-hidden projection for all steps is hoisted out by the caller;
 masked steps carry the state through unchanged, so padded batches match
 the reference's padding-free semantics.
@@ -12,7 +14,11 @@ Dispatch has no mode flag.  With the default activations
 route (``ops/kernels/lstm.LstmFused``): the CUDA kernels on the card
 (which raise on a hidden size they do not take), their plain versions on
 the CPU.  Anything else runs the Python scan on the CPU and raises
-``ConfigError`` on the card, where no plain scan stands in for a kernel.  GRU, simple RNN,
+``ConfigError`` on the card, where no plain scan stands in for a kernel.
+``gru`` follows the JAX rule exactly, ``ops/kernels/gru.supported``: where
+it holds, the fused route (``GruFused``: the GRU kernels on the card,
+their plain versions on the CPU); where it fails, the masked scan of
+``gru_cell`` on either device, as the reference routes it.  Simple RNN,
 ``recurrent_group`` and ``md_lstm_2d`` are not ported yet (ROADMAP).
 """
 
@@ -22,6 +28,7 @@ import torch
 
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import activations
+from paddle_tpu_torch.ops.kernels import gru as _gru_kernel
 from paddle_tpu_torch.ops.kernels import lstm as _kernel
 from paddle_tpu_torch.ops.linear import matmul
 from paddle_tpu_torch.utils.error import ConfigError
@@ -30,6 +37,10 @@ from paddle_tpu_torch.utils.error import ConfigError
 class LstmState(NamedTuple):
     h: torch.Tensor  # [B, D] hidden (output)
     c: torch.Tensor  # [B, D] cell state
+
+
+class _GruCarry(NamedTuple):
+    h: torch.Tensor  # [B, D]: the scan's carry (a tuple of tensors)
 
 
 def lstm_cell(x4, state: LstmState, w_r, check_i=None, check_f=None,
@@ -51,6 +62,21 @@ def lstm_cell(x4, state: LstmState, w_r, check_i=None, check_f=None,
         og = og + c * check_o
     h = gate_f(og) * activations.get(state_act)(c)
     return LstmState(h=h, c=c)
+
+
+def gru_cell(x3, h_prev, w_gate, w_state, act="tanh", gate_act="sigmoid"):
+    """One GRU step (reference hl_gru_ops.cuh:37-80).  x3 [B, 3D] is the
+    projected input in gate order [update, reset, candidate]; w_gate
+    [D, 2D] (update | reset), w_state [D, D].
+    h = prev - u*prev + u*c~,  c~ = act(x_c + (r*prev) @ w_state)."""
+    d = h_prev.shape[-1]
+    xu, xr, xc = x3[..., :d], x3[..., d:2 * d], x3[..., 2 * d:]
+    ru = matmul(h_prev, w_gate)
+    gate_f = activations.get(gate_act)
+    u = gate_f(xu + ru[..., :d])
+    r = gate_f(xr + ru[..., d:])
+    c = activations.get(act)(xc + matmul(r * h_prev, w_state))
+    return h_prev - u * h_prev + u * c
 
 
 def _masked_scan(step, init_carry, xs_tm, ms_tm, reverse=False):
@@ -127,6 +153,37 @@ def lstm(seq: SequenceBatch, w_r, bias=None, check_i=None, check_f=None,
 
     final, hs = _masked_scan(step, init_state, xs, ms, reverse=reverse)
     out = hs.h.transpose(0, 1) * seq.mask(hs.h.dtype)[..., None]
+    return SequenceBatch(data=out, lengths=seq.lengths), final
+
+
+def gru(seq: SequenceBatch, w_gate, w_state, bias=None, reverse=False,
+        act="tanh", gate_act="sigmoid", init_state=None):
+    """Whole-sequence GRU (reference GatedRecurrentLayer).
+
+    seq.data [B, T, 3D] pre-projected [update | reset | candidate]
+    inputs; bias [3D].  Returns (SequenceBatch of h [B, T, D] zeroed at
+    padding, final h [B, D])."""
+    b, _, d3 = seq.data.shape
+    d = d3 // 3
+    x = seq.data if bias is None else seq.data + bias
+    xs = x.transpose(0, 1)                         # time-major [T, B, 3D]
+    ms = seq.mask(x.dtype).transpose(0, 1)         # [T, B]
+
+    if _gru_kernel.supported(b, d, act, gate_act, init_state):
+        return _fused_seq_apply(
+            seq, xs, ms, reverse,
+            lambda x_, m_: _gru_kernel.gru_fused(x_, m_, w_gate, w_state))
+
+    if init_state is None:
+        init_state = x.new_zeros((b, d))
+
+    def step(carry, x3):
+        return _GruCarry(gru_cell(x3, carry.h, w_gate, w_state, act,
+                                  gate_act))
+
+    (final,), (hs,) = _masked_scan(step, _GruCarry(init_state), xs, ms,
+                                   reverse=reverse)
+    out = hs.transpose(0, 1) * seq.mask(hs.dtype)[..., None]
     return SequenceBatch(data=out, lengths=seq.lengths), final
 
 

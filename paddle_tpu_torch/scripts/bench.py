@@ -1,7 +1,7 @@
 """The training benchmarks of ``bench.py``, ported: ``bench_lstm`` (the
-headline) and ``bench_transformer``.
+headline), ``bench_transformer`` and ``bench_seq2seq``.
 
-    python -m paddle_tpu_torch.scripts.bench [--model lstm|transformer]
+    python -m paddle_tpu_torch.scripts.bench [--model lstm|transformer|seq2seq]
 
 ``lstm`` (the default) trains the LSTM text classifier at the
 reference's benchmark config (vocab 30000, embedding 128, 2 stacked LSTMs
@@ -9,9 +9,12 @@ h=512, batch 64, length 100, Momentum lr 0.01 m 0.9); ``transformer``
 trains the Transformer-base MT model (vocab 32000, d_model 512, 8 heads,
 dff 2048, 6+6 layers, batch 32, length 256, Adam lr 1e-4, label
 smoothing 0.1, ``full_seq=True``: every attention through the flash
-kernels).  Each runs on one fixed random batch and prints one JSON line:
-ms/batch as the median of STEPS timed steps after WARMUP (and, for the
-transformer, tokens/s = batch * length / s, the bench's headline), the
+kernels); ``seq2seq`` trains the attention NMT model (vocab 30000 both
+sides, emb = hidden = attention 512, bi-GRU encoder through the GRU
+kernels, batch 64, lengths 30 / 30, Momentum lr 0.01 m 0.9).  Each runs
+on one fixed random batch and prints one JSON line: ms/batch as the
+median of STEPS timed steps after WARMUP (and, for the transformer and
+seq2seq, tokens/s = batch * target length / s, the bench's headline), the
 card's name and power limit as nvidia-smi gives them, and the kernel
 launches.  Runs on the card and raises without one.
 """
@@ -26,7 +29,7 @@ import torch
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core.sequence import SequenceBatch
-from paddle_tpu_torch.models import text_lstm, transformer
+from paddle_tpu_torch.models import seq2seq, text_lstm, transformer
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optim import Adam, Momentum
 from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -132,6 +135,59 @@ def bench_transformer(batch=32, seq_len=256, vocab=32000, d_model=512,
                             batch * seq_len)
 
 
+class Seq2SeqBench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    params: dict
+    opt_state: dict
+    src: SequenceBatch
+    trg: SequenceBatch
+    tokens_per_step: int
+
+
+def bench_seq2seq(batch=64, src_len=30, trg_len=30, vocab=30000, hidden=512,
+                  device=None):
+    """The config, data and optimizer of ``bench.py:435-482``: emb = h =
+    att = ``hidden``, source then target ids from
+    ``np.random.RandomState(0)`` in [3, vocab), every row full length,
+    params from a generator seeded 0, Momentum lr 0.01 m 0.9.
+    ``train_step()`` zeroes the grads, runs ``seq2seq.loss`` with ``trg``
+    as both the decoder input and the labels (as ``bench.py:462``
+    passes it), calls ``backward()``, applies Momentum in place and
+    returns the loss.  No reference baseline exists; tokens/s (batch x
+    trg_len per step) is the headline."""
+    dev = _device.resolve(device)
+    params = seq2seq.init(torch.Generator().manual_seed(0), src_vocab=vocab,
+                          trg_vocab=vocab, emb_dim=hidden, hidden=hidden,
+                          device=dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = Momentum(learning_rate=0.01, momentum=0.9)
+    opt_state = opt.init(params)
+    rng = np.random.RandomState(0)
+
+    def batch_of_ids(length):
+        return SequenceBatch(
+            data=torch.tensor(rng.randint(3, vocab, (batch, length)),
+                              dtype=torch.int32, device=dev),
+            lengths=torch.full((batch,), length, dtype=torch.int32,
+                               device=dev))
+
+    src = batch_of_ids(src_len)
+    trg = batch_of_ids(trg_len)
+
+    def train_step():
+        for p in leaves:
+            p.grad = None
+        loss = seq2seq.loss(params, src, trg, trg)
+        loss.backward()
+        opt.update(tree_map(lambda p: p.grad, params), opt_state, params)
+        return loss.detach()
+
+    return Seq2SeqBench(train_step, params, opt_state, src, trg,
+                        batch * trg_len)
+
+
 def _timed(train_step):
     """WARMUP steps, then STEPS timed ones (each ending in a synchronize)
     with the launch counters reset before them: (times ms, losses)."""
@@ -151,10 +207,28 @@ def _timed(train_step):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("lstm", "transformer"),
+    ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq"),
                     default="lstm")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
+    if args.model == "seq2seq":
+        bench = bench_seq2seq(device=dev)
+        times, losses = _timed(bench.train_step)
+        ms = float(np.median(times))
+        gk = kernels.gru
+        print(json.dumps({
+            "bench": "seq2seq_attention_nmt", "card": _device.card(),
+            "config": {"vocab": 30000, "emb": 512, "hidden": 512,
+                       "att": 512, "batch": 64, "src_len": 30,
+                       "trg_len": 30, "optimizer": "Momentum lr 0.01 m 0.9"},
+            "steps": STEPS, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "tokens_per_s": bench.tokens_per_step / (ms / 1e3),
+            "loss_first_last": [losses[0], losses[-1]],
+            "launches": {gk.NAME_FWD: gk.launches_fwd,
+                         gk.NAME_BWD: gk.launches_bwd},
+        }), flush=True)
+        return 0
     if args.model == "lstm":
         bench = bench_lstm(device=dev)
         times, losses = _timed(bench.train_step)

@@ -1,20 +1,23 @@
 """Where a train step's time goes on the card.
 
-    python -m paddle_tpu_torch.scripts.profile_train [--model lstm|transformer]
+    python -m paddle_tpu_torch.scripts.profile_train \
+        [--model lstm|transformer|seq2seq]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
 embedding 128, 2 x LSTM h=512, batch 64, length 100, Momentum; the
-default) or ``scripts/bench.bench_transformer`` at the bench's config
+default), ``scripts/bench.bench_transformer`` at the bench's config
 (vocab 32000, d_model 512, 8 heads, dff 2048, 6+6 layers, batch 32,
-length 256, Adam, full_seq) and runs its train step on the one fixed
-batch: WARMUP steps, then STEPS measured ones.  Prints one JSON line
-with, per step: the host wall time (each step ends in a synchronize),
-the device time between two CUDA events around it, the device time the
-profiler attributes to kernels, the device's idle share (1 - kernel time
-/ wall time), the kernels with the most device time, and the kernel
-time by origin: the port's kernels (for the transformer,
-the flash kernels), the library's matrix products and the rest
-(``profile_step.measure``).  Needs a CUDA device.
+length 256, Adam, full_seq) or ``scripts/bench.bench_seq2seq`` (vocab
+30000, emb = h = att 512, batch 64, lengths 30 / 30, Momentum) and runs
+its train step on the one fixed batch: WARMUP steps, then STEPS measured
+ones.  Prints one JSON line with, per step: the host wall time (each
+step ends in a synchronize), the device time between two CUDA events
+around it, the device time the profiler attributes to kernels, the
+device's idle share (1 - kernel time / wall time), the kernels with the
+most device time, and the kernel time by origin: the port's kernels
+(the flash kernels for the transformer, the GRU kernels for seq2seq),
+the library's matrix products and the rest (``profile_step.measure``).
+Needs a CUDA device.
 """
 
 import argparse
@@ -23,16 +26,17 @@ import json
 import torch
 
 from paddle_tpu_torch import device as _device
-from paddle_tpu_torch.scripts.bench import bench_lstm, bench_transformer
+from paddle_tpu_torch.scripts.bench import (bench_lstm, bench_seq2seq,
+                                            bench_transformer)
 from paddle_tpu_torch.scripts.profile_step import measure
 
 WARMUP = 5
-STEPS = {"lstm": 20, "transformer": 10}
+STEPS = {"lstm": 20, "transformer": 10, "seq2seq": 10}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("lstm", "transformer"),
+    ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq"),
                     default="lstm")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
@@ -40,6 +44,10 @@ def main(argv=None):
         bench = bench_lstm(device=dev)
         config = ("text_lstm vocab 30000, emb 128, 2 x LSTM h=512, batch 64, "
                   "length 100, Momentum")
+    elif args.model == "seq2seq":
+        bench = bench_seq2seq(device=dev)
+        config = ("seq2seq attention NMT vocab 30000, emb = h = att 512, "
+                  "bi-GRU encoder, batch 64, lengths 30 / 30, Momentum")
     else:
         bench = bench_transformer(device=dev)
         config = ("transformer MT vocab 32000, d_model 512, 8 heads, dff "
