@@ -9,8 +9,8 @@ non-zero exit code and no final "ok" line:
   device    the card's name, and its name and power limit as nvidia-smi
             reports them (also printed alone on a line)
   build     nvcc builds every kernel library from paddle_tpu_torch/csrc
-            (decode attention, flash attention, GRU, LSTM), one nvcc per
-            source, in parallel; seconds taken
+            (decode attention, flash attention, GRU, LSTM, gate-blocked
+            LSTM), one nvcc per source, in parallel; seconds taken
   kernels   each kernel at the main path's shapes against its plain
             PyTorch version (max abs error within the stated bound; the
             LSTM pair on a ragged mask with an empty row, timed on the
@@ -27,7 +27,13 @@ non-zero exit code and no final "ok" line:
             GRU pair at the seq2seq train shape T=30, B=64, D=512 on full
             rows and on a ragged mask with an empty row, at D=128 and 640
             (B=64) and D=768 (B=8), and through a reverse rnn.gru, with
-            the cost of one grid barrier timed alone),
+            the cost of one grid barrier timed alone; the gate-blocked
+            LSTM forward, both variants, at T=100, B=64, D=1280 and 2048
+            on full rows and on a ragged mask with an empty row, at D=640
+            and odd T (B=64), B=256 with D=512 and B=8 with D=3456; a
+            reverse rnn.lstm at B=8 through the resident kernels, and
+            rnn.lstm at B=5 and with act="relu" through the masked scan
+            on the card, held against the CPU, launching no kernel),
             timed with CUDA events beside the plain version, one
             PyTorch library call computing the same function (a
             yardstick the port never calls; none exists for the int8
@@ -77,6 +83,13 @@ non-zero exit code and no final "ok" line:
             every gradient leaf), then warm-up and timed steps: each
             step launches the LSTM forward and backward kernels once per
             layer, the loss is finite and falls
+  train_lstm1280, train_lstm2048  bench.py's lstm1280 / lstm2048 rows:
+            the same model and batch at h=1280 and 2048, whose LSTMs take
+            the gate-blocked route: the first step against the CPU (at
+            batch 8 for h=2048, the same route at an eighth of the
+            host's cost), then warm-up and timed steps at batch 64, each
+            launching the blocked forward once per layer and no resident
+            kernel; the loss is finite and falls
   train_transformer  bench.py's bench_transformer ported
             (scripts/bench.bench_transformer): the Transformer-base MT
             model at vocab 32000, d_model 512, 8 heads, dff 2048, 6+6
@@ -167,6 +180,20 @@ LADDER_PROMPTS, LADDER_TOKENS = (5, 17, 32, 40, 64, 9, 50, 23), 24
 LSTM_T, LSTM_B, LSTM_D = 100, 64, 512
 LSTM_TOL = 1e-4
 LSTM_REL_TOL = 1e-4
+# The gate-blocked LSTM forward at the lstm1280 / lstm2048 train shape
+# (T=100, B=64; timed at both D on full rows) and across the range
+# lstm_blocked.supported admits: D 640 and odd T at B 64, B 256 with
+# D 512, and the largest D at B 8 (3456), each on a ragged mask with an
+# empty row, against its plain version within KERNEL_TOL.  W_r is drawn
+# at the model's own init scale, std 1/sqrt(D) (text_lstm.init): at the
+# JAX tests' 0.1 the recurrent gain 0.1 sqrt(D) is 3.6 at D=1280, and
+# 100 steps of it amplify float32 rounding to O(0.1) between any two
+# summation orders, two plain versions included (BLK_GAIN_PROBE shows it
+# at D=1280: kernel vs plain beside plain on the card vs plain on the CPU).
+BLK_T, BLK_B = 100, 64
+BLK_TIMED = (1280, 2048)
+BLK_OTHER = ((100, 64, 640), (37, 64, 1280), (9, 256, 512), (15, 8, 3456))
+BLK_GAIN_PROBE = 0.1
 # Card (kernels) vs CPU (plain versions) on the first train step: the
 # loss, every gradient leaf, and every param leaf and ``mom`` slot after
 # the in-place Momentum update, each relative to the leaf's max |CPU
@@ -903,10 +930,11 @@ def check_head_dims(torch, dev, rng):
     return {"vs_plain": errs, "int8_vs_f32_kernel": exacts}
 
 
-def lstm_inputs(torch, dev, rng, t, b, d, ragged):
+def lstm_inputs(torch, dev, rng, t, b, d, ragged, w_scale=0.1):
     """(lengths, xs [T, B, 4D], mask [T, B], w_r, checks) at the JAX
-    tests' scale.  Ragged: random lengths with one empty row and one
-    full row; else every row full, as the train path's batch is."""
+    tests' scale (W_r at ``w_scale``).  Ragged: random lengths with one
+    empty row and one full row; else every row full, as the train path's
+    batch is."""
     lengths = np.full(b, t)
     if ragged:
         lengths = rng.randint(1, t + 1, b)
@@ -916,7 +944,7 @@ def lstm_inputs(torch, dev, rng, t, b, d, ragged):
     return (lengths,
             torch.tensor(normal(rng, (t, b, 4 * d)) * 0.3, device=dev),
             torch.tensor(mask, device=dev),
-            torch.tensor(normal(rng, (d, 4 * d)) * 0.1, device=dev),
+            torch.tensor(normal(rng, (d, 4 * d)) * w_scale, device=dev),
             torch.tensor(normal(rng, (3, d)) * 0.1, device=dev))
 
 
@@ -1011,15 +1039,14 @@ def check_lstm_kernels(torch, dev, rng, t, b, d, timed):
     return rows
 
 
-def check_lstm_reverse(torch, dev, rng):
-    """rnn.lstm(reverse=True) on the card (kernels, through LstmFused)
-    against the same call on the CPU (plain versions): loss and every
-    gradient, on a ragged batch with an empty row and an odd B."""
+def lstm_card_vs_cpu(torch, dev, rng, kernels, b, lengths, reverse, **kw):
+    """rnn.lstm (T 30, D 128) on the card against the same call on the
+    CPU: loss and every gradient, relative to each one's largest entry;
+    with the LSTM launches the card's call made."""
     from paddle_tpu_torch.core.sequence import SequenceBatch
     from paddle_tpu_torch.ops import rnn
-    t, b, d = 30, 5, 128
+    t, d = 30, 128
     x = normal(rng, (b, t, 4 * d)) * 0.3
-    lengths = np.asarray([0, 30, 7, 19, 1], np.int32)
     w_r = normal(rng, (d, 4 * d)) * 0.1
     rest = [normal(rng, (d,)) * 0.1 for _ in range(3)] \
         + [normal(rng, (4 * d,)) * 0.1]
@@ -1030,21 +1057,129 @@ def check_lstm_reverse(torch, dev, rng):
         out, final = rnn.lstm(
             SequenceBatch(args[0], torch.tensor(lengths, device=device)),
             args[1], bias=args[5], check_i=args[2], check_f=args[3],
-            check_o=args[4], reverse=True)
+            check_o=args[4], reverse=reverse, **kw)
         loss = (out.data ** 2).sum() + (final.c ** 2).sum() + final.h.sum()
         loss.backward()
         return float(loss.detach()), [a.grad.cpu() for a in args]
 
+    kernels.reset_launches()
     loss_c, grads_c = run(dev)
+    launches = {kernels.lstm.NAME_FWD: kernels.lstm.launches_fwd,
+                kernels.lstm.NAME_BWD: kernels.lstm.launches_bwd,
+                kernels.lstm_blocked.NAME_FWD:
+                    kernels.lstm_blocked.launches_fwd}
     loss_r, grads_r = run("cpu")
     worst = max(float((g - r).abs().max() / r.abs().max())
                 for g, r in zip(grads_c, grads_r))
-    loss_err = abs(loss_c - loss_r) / abs(loss_r)
-    if not worst <= LSTM_REL_TOL or not loss_err <= LSTM_REL_TOL:
-        fail(f"reverse rnn.lstm: card vs CPU relative error loss {loss_err}, "
-             f"grads {worst} (bound {LSTM_REL_TOL})")
-    return {"reverse_lstm_D": d, "loss_rel_err": loss_err,
-            "grad_rel_err": worst}
+    return abs(loss_c - loss_r) / abs(loss_r), worst, launches
+
+
+def check_lstm_reverse(torch, dev, rng, kernels):
+    """rnn.lstm(reverse=True) on the card (kernels, through LstmFused:
+    B 8, D 128 is the resident route's) against the same call on the CPU
+    (plain versions), on a ragged batch with an empty row."""
+    lengths = np.asarray([0, 30, 7, 19, 1, 12, 30, 3], np.int32)
+    loss_err, worst, launches = lstm_card_vs_cpu(
+        torch, dev, rng, kernels, len(lengths), lengths, True)
+    want = {kernels.lstm.NAME_FWD: 1, kernels.lstm.NAME_BWD: 1,
+            kernels.lstm_blocked.NAME_FWD: 0}
+    if launches != want or not worst <= LSTM_REL_TOL \
+            or not loss_err <= LSTM_REL_TOL:
+        fail(f"reverse rnn.lstm: launches {launches} (want {want}); card vs "
+             f"CPU relative error loss {loss_err}, grads {worst} (bound "
+             f"{LSTM_REL_TOL})")
+    return {"reverse_lstm": {"B": len(lengths), "D": 128},
+            "loss_rel_err": loss_err, "grad_rel_err": worst}
+
+
+def check_lstm_scan(torch, dev, rng, kernels):
+    """Where JAX's rules send rnn.lstm to the masked scan (B % 8 != 0, a
+    non-default activation), the card runs the scan too: it matches the
+    CPU's and launches no kernel."""
+    rows = []
+    for b, kw in ((5, {}), (8, {"act": "relu"})):
+        lengths = rng.randint(1, 31, b).astype(np.int32)
+        lengths[0] = 0
+        loss_err, worst, launches = lstm_card_vs_cpu(
+            torch, dev, rng, kernels, b, lengths, False, **kw)
+        if any(launches.values()) or not worst <= LSTM_REL_TOL \
+                or not loss_err <= LSTM_REL_TOL:
+            fail(f"rnn.lstm scan (B {b}, {kw}): launches {launches} (want "
+                 f"none); card vs CPU relative error loss {loss_err}, grads "
+                 f"{worst} (bound {LSTM_REL_TOL})")
+        rows.append({"B": b, "D": 128, **kw, "loss_rel_err": loss_err,
+                     "grad_rel_err": worst, "launches": launches})
+    return rows
+
+
+def blocked_check(torch, dev, rng, t, b, d, ragged):
+    """The blocked forward, both variants, against its plain version on
+    one set of inputs (W_r std 1/sqrt(D)).  Returns the result row, the
+    (kernel, plain) calls and the forward's (bytes, flops)."""
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    from paddle_tpu_torch.ops.kernels import lstm_blocked as bk
+    lengths, xs, mask, w_r, checks = lstm_inputs(
+        torch, dev, rng, t, b, d, ragged, w_scale=1.0 / math.sqrt(d))
+    ref = lk.lstm_fwd_plain(xs, mask, w_r, checks, True)
+    got = bk.lstm_blocked_fwd(xs, mask, w_r, checks, True)
+    lean = bk.lstm_blocked_fwd(xs, mask, w_r, checks, False)
+    torch.cuda.synchronize()
+    err = max([float((x - y).abs().max()) for x, y in zip(got, ref)]
+              + [float((lean[i] - ref[i]).abs().max()) for i in (0, 1)])
+    if not err <= KERNEL_TOL:
+        fail(f"lstm_blocked_fwd (T={t}, B={b}, D={d}, ragged={ragged}) "
+             f"disagrees with its plain version: max abs err {err} (bound "
+             f"{KERNEL_TOL})")
+    if ragged and got[0][:, 0].any():
+        fail("lstm_blocked_fwd: the empty row's hs is not exactly 0")
+    calls = (lambda: bk.lstm_blocked_fwd(xs, mask, w_r, checks, True),
+             lambda: lk.lstm_fwd_plain(xs, mask, w_r, checks, True))
+    return ({"name": bk.NAME_FWD, "T": t, "B": b, "D": d, "ragged": ragged,
+             "max_abs_err": err}, calls, lstm_cost(lengths, t, d)[0])
+
+
+def check_blocked_kernel(torch, dev, rng):
+    """The blocked forward at the train shape for each of BLK_TIMED on a
+    ragged mask (with an empty row) and on full rows, timed on the
+    latter (the train batch's rows) beside its plain version and its
+    bound; then ragged at BLK_OTHER; then the gain probe."""
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    from paddle_tpu_torch.ops.kernels import lstm_blocked as bk
+    timed = {}
+    for d in BLK_TIMED:
+        row, _, _ = blocked_check(torch, dev, rng, BLK_T, BLK_B, d, True)
+        full, (fn, plain), (nbytes, flops) = blocked_check(
+            torch, dev, rng, BLK_T, BLK_B, d, False)
+        row.update(
+            max_abs_err=max(row["max_abs_err"], full["max_abs_err"]),
+            full_rows_max_abs_err=full["max_abs_err"],
+            timed_on="full rows", ms=time_ms(torch, fn, samples=10, reps=3),
+            plain_ms=time_ms(torch, plain, samples=3, reps=2),
+            library_ms=None,
+            library_note="no single PyTorch call computes this function: "
+                         "cuDNN's LSTM has no peepholes and no masked "
+                         "carry freeze", bytes=nbytes, flops=flops)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        timed[d] = row
+    other = [blocked_check(torch, dev, rng, t, b, d, True)[0]
+             for t, b, d in BLK_OTHER]
+    # W_r at the JAX tests' 0.1: the kernel's distance from its plain
+    # version beside that of the plain version on the card from the same
+    # plain version on the CPU (reported, not bounded: a measure of the
+    # recurrence's gain, not of the kernel)
+    _, xs, mask, w_r, checks = lstm_inputs(torch, dev, rng, BLK_T, BLK_B,
+                                           BLK_TIMED[0], False,
+                                           w_scale=BLK_GAIN_PROBE)
+    ref = lk.lstm_fwd_plain(xs, mask, w_r, checks, False)[0]
+    got = bk.lstm_blocked_fwd(xs, mask, w_r, checks, False)[0]
+    cpu = lk.lstm_fwd_plain(*(a.cpu() for a in (xs, mask, w_r, checks)),
+                            False)[0]
+    probe = {"D": BLK_TIMED[0], "w_scale": BLK_GAIN_PROBE,
+             "kernel_vs_plain_hs": float((got - ref).abs().max()),
+             "plain_card_vs_plain_cpu_hs": float(
+                 (ref.cpu() - cpu).abs().max()),
+             "hs_max": float(cpu.abs().max())}
+    return timed, other, probe
 
 
 def gru_inputs(torch, dev, rng, t, b, d, ragged):
@@ -1715,17 +1850,24 @@ def run_serve_paged_int8(torch, dev, transformer, kernels, params, rng):
     return launches
 
 
-def run_train(torch, dev, kernels):
-    """bench_lstm on the card: the first step against the CPU, then
-    warm-up and TRAIN_STEPS timed steps with the launch counts read."""
+def run_train(torch, dev, kernels, hidden=LSTM_D, check_batch=None):
+    """bench_lstm at ``hidden`` on the card: the first step against the
+    CPU (at ``check_batch`` rows, the bench's 64 unless given: the route
+    is the same), then warm-up and TRAIN_STEPS timed steps at batch 64
+    with the launch counts read.  h=512 is the phase "train" (the
+    resident kernels); larger h are "train_lstm<h>" (the blocked
+    forward, the backward in plain torch)."""
     from paddle_tpu_torch.scripts import bench
     from paddle_tpu_torch.utils.tree import tree_leaves
+    phase = "train" if hidden == LSTM_D else f"train_lstm{hidden}"
+
     def rel(got, want):
         return [float((g.detach().cpu() - w.detach()).abs().max()
                       / w.detach().abs().max()) for g, w in zip(got, want)]
 
-    card_run = bench.bench_lstm(device=dev)
-    cpu_run = bench.bench_lstm(device="cpu")
+    kw = {} if check_batch is None else {"batch": check_batch}
+    card_run = bench.bench_lstm(hidden=hidden, device=dev, **kw)
+    cpu_run = bench.bench_lstm(hidden=hidden, device="cpu", **kw)
     before = [p.detach().clone() for p in tree_leaves(cpu_run.params)]
     first = float(card_run.train_step())
     first_cpu = float(cpu_run.train_step())
@@ -1747,10 +1889,14 @@ def run_train(torch, dev, kernels):
     loss_err = abs(first - first_cpu) / abs(first_cpu)
     worst = max(leaf_err + param_err + mom_err + step_err + [loss_err])
     if not worst <= TRAIN_REL_TOL:
-        fail(f"train: first step on the card vs the CPU: loss rel err "
+        fail(f"{phase}: first step on the card vs the CPU: loss rel err "
              f"{loss_err}, per-leaf rel err of grads {leaf_err}, of params "
              f"{param_err}, of mom {mom_err}, of the card's step vs its "
              f"mom {step_err} (bound {TRAIN_REL_TOL})")
+    del cpu_run
+    if check_batch is not None:
+        card_run = bench.bench_lstm(hidden=hidden, device=dev)
+        first = float(card_run.train_step())
     for _ in range(TRAIN_WARMUP):
         card_run.train_step()
     torch.cuda.synchronize()
@@ -1762,23 +1908,30 @@ def run_train(torch, dev, kernels):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    launches = {"lstm_fwd": kernels.lstm.launches_fwd,
-                "lstm_bwd": kernels.lstm.launches_bwd}
+    lk, bk = kernels.lstm, kernels.lstm_blocked
+    launches = {lk.NAME_FWD: lk.launches_fwd, lk.NAME_BWD: lk.launches_bwd,
+                bk.NAME_FWD: bk.launches_fwd}
     want = bench.NUM_LAYERS * TRAIN_STEPS
-    if launches != {"lstm_fwd": want, "lstm_bwd": want}:
-        fail(f"train: LSTM kernels launched {launches} over {TRAIN_STEPS} "
-             f"steps, want {want} each (one per layer per step)")
+    expect = ({lk.NAME_FWD: want, lk.NAME_BWD: want, bk.NAME_FWD: 0}
+              if hidden == LSTM_D else
+              {lk.NAME_FWD: 0, lk.NAME_BWD: 0, bk.NAME_FWD: want})
+    if launches != expect:
+        fail(f"{phase}: LSTM kernels launched {launches} over {TRAIN_STEPS} "
+             f"steps, want {expect} (one per layer per step)")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < first:
-        fail(f"train: loss not finite or not falling: first {first}, "
+        fail(f"{phase}: loss not finite or not falling: first {first}, "
              f"timed steps {losses}")
-    emit({"phase": "train", "config": {
+    ms = float(np.median(times))
+    emit({"phase": phase, "config": {
         "vocab": 30000, "emb": bench.EMB_DIM, "hidden": card_run.hidden,
         "layers": bench.NUM_LAYERS, "batch": 64, "seq_len": 100},
         "warmup": 1 + TRAIN_WARMUP, "steps": TRAIN_STEPS,
-        "ms_per_batch": float(np.median(times)),
+        "ms_per_batch": ms,
         "ms_per_batch_min_max": [min(times), max(times)],
+        "tflop_per_s": card_run.flops_per_step / (ms / 1e3) / 1e12,
         "launches": launches, "loss_first": first, "loss_last": losses[-1],
-        "first_step_vs_cpu": {"loss_rel_err": loss_err,
+        "first_step_vs_cpu": {"batch": check_batch or 64,
+                              "loss_rel_err": loss_err,
                               "grad_rel_err_max": max(leaf_err),
                               "param_rel_err_max": max(param_err),
                               "mom_rel_err_max": max(mom_err),
@@ -2162,6 +2315,7 @@ def main(argv=None):
     flash_train, flash_bwd, flash_bwd_checks = check_flash_train(torch, dev,
                                                                  rng)
     (gru_fwd, gru_bwd), gru_other = check_gru_kernels(torch, dev, rng)
+    blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
           "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
@@ -2175,7 +2329,11 @@ def main(argv=None):
                                 "backward_checks": flash_bwd_checks,
                                 "backward_rel_tolerance": MT_REL_TOL},
           "other_head_dims": check_head_dims(torch, dev, rng),
-          "lstm_reverse": check_lstm_reverse(torch, dev, rng),
+          "lstm_reverse": check_lstm_reverse(torch, dev, rng, kernels),
+          "lstm_scan": check_lstm_scan(torch, dev, rng, kernels),
+          "lstm_blocked_train_shape": list(blk_timed.values()),
+          "lstm_blocked_other": blk_other,
+          "lstm_blocked_gain_probe": blk_probe,
           "gru_train_shape": [gru_fwd, gru_bwd], "gru_other": gru_other,
           "gru_reverse": check_gru_reverse(torch, dev, rng, kernels),
           "gru_barrier": check_gru_barrier(torch)})
@@ -2201,6 +2359,9 @@ def main(argv=None):
                                   rng, kv_dtype="int8")
     del params
     train_launches = run_train(torch, dev, kernels)
+    blk_launches = {h: run_train(torch, dev, kernels, hidden=h,
+                                 check_batch=b)
+                    for h, b in ((1280, None), (2048, 8))}
     mt_launches = run_train_transformer(torch, dev, kernels)
     s2s_launches = run_train_seq2seq(torch, dev, kernels)
 
@@ -2258,6 +2419,23 @@ def main(argv=None):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "library_note": row["library_note"]})
+    bk = kernels.lstm_blocked
+    row = blk_timed[BLK_TIMED[0]]
+    summary.append({
+        "name": bk.NAME_FWD, "route": "cuda", "source": bk.SOURCE,
+        "replaces": bk.REPLACES_FWD,
+        "launches": sum(n[bk.NAME_FWD] for n in blk_launches.values()),
+        "launches_by_path": {f"train_lstm{h}": n[bk.NAME_FWD]
+                             for h, n in blk_launches.items()},
+        "max_abs_err": max([r["max_abs_err"] for r in blk_timed.values()]
+                           + [r["max_abs_err"] for r in blk_other]),
+        **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "library_note")},
+        "shape": {"T": BLK_T, "B": BLK_B, "D": BLK_TIMED[0]},
+        **{f"D{d}": {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}
+           for d, r in blk_timed.items() if d != BLK_TIMED[0]}})
     for row, replaces in ((gru_fwd, kernels.gru.REPLACES_FWD),
                           (gru_bwd, kernels.gru.REPLACES_BWD)):
         name = row["name"]

@@ -7,9 +7,10 @@ tensors handed in: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises — there is no fallback."""
 
 from paddle_tpu_torch.ops.kernels import decode_attention, flash_attention
-from paddle_tpu_torch.ops.kernels import gru, lstm
+from paddle_tpu_torch.ops.kernels import gru, lstm, lstm_blocked
 
-KERNELS = ("decode_attention", "flash_attention", "gru", "lstm")
+KERNELS = ("decode_attention", "flash_attention", "gru", "lstm",
+           "lstm_blocked")
 
 
 def build():
@@ -36,7 +37,8 @@ def reset_launches():
     gru.launches_bwd = 0
     lstm.launches_fwd = 0
     lstm.launches_bwd = 0
+    lstm_blocked.launches_fwd = 0
 
 
-__all__ = ["decode_attention", "flash_attention", "gru", "lstm", "KERNELS",
-           "build", "reset_launches"]
+__all__ = ["decode_attention", "flash_attention", "gru", "lstm",
+           "lstm_blocked", "KERNELS", "build", "reset_launches"]

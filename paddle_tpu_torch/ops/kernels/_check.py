@@ -1,10 +1,20 @@
 """Argument checks shared by the kernel wrappers: the same checks run
 whichever device the tensors are on, so a call the card's kernel would
-refuse also fails on the CPU."""
+refuse also fails on the CPU.  Also the constants of the recurrent
+routes' rules, which the wrappers share."""
 
 import torch
 
 HEAD_DIMS = (16, 32, 64, 128)
+# The TPU's lane width: the recurrent routes admit hidden sizes in
+# multiples of it.
+LANES = 128
+# The JAX package's default kernel VMEM budget
+# (``paddle_tpu/ops/pallas/common.py:24-31``), kept as a constant: the
+# recurrent routes must admit the same (B, D) as the reference, and the
+# TPU's override of it (``PADDLE_TPU_KERNEL_VMEM_MB``) has no meaning on
+# a GPU.
+VMEM_BUDGET = 14 * 1024 * 1024
 
 
 def tensors(name, dtypes, **named):

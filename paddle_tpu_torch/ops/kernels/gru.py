@@ -27,7 +27,8 @@ NAME_BWD = "gru_bwd"
 SOURCE = "paddle_tpu_torch/csrc/gru.cu"
 REPLACES_FWD = "paddle_tpu/ops/pallas/gru.py:129"
 REPLACES_BWD = "paddle_tpu/ops/pallas/gru.py:155"
-LANES = 128
+LANES = _check.LANES
+VMEM_BUDGET = _check.VMEM_BUDGET
 # the kernels keep D / 128 hidden units per CTA; 6 units (D = 768) is
 # the largest D the route admits under the default 14 MiB budget
 MAX_HIDDEN = 6 * LANES
@@ -37,13 +38,6 @@ MAX_HIDDEN = 6 * LANES
 # for its BPTT kernel and the two dW products that follow it.
 launches_fwd = 0
 launches_bwd = 0
-
-
-# The JAX package's default kernel VMEM budget
-# (``paddle_tpu/ops/pallas/common.py:24-31``), kept as a constant: the
-# route must admit the same (B, D) as the reference, and the TPU's
-# override of it (``PADDLE_TPU_KERNEL_VMEM_MB``) has no meaning on a GPU.
-VMEM_BUDGET = 14 * 1024 * 1024
 
 
 def vmem_bytes(b, d):

@@ -12,8 +12,10 @@ takes them, and ``chip_smoke.py`` holds the kernels against them.
 Shapes (time-major, float32): xs [T, B, 4D] (input projection plus
 bias, gate order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks
 [3, D] (peepholes i, f, o).  The kernels take D in 128/256/512 and any
-B; a larger D is the blocked variant (ROADMAP B12).  The plain versions
-take any D.
+B.  ``supported`` is the route's rule, the JAX package's: it also gives
+this route D = 384 (at B = 64, say) and D = 640 at B <= 32, which the
+kernels do not take yet (ROADMAP B9); larger D go to the gate-blocked
+variant (``lstm_blocked``).  The plain versions take any D.
 """
 
 import torch
@@ -27,12 +29,33 @@ SOURCE = "paddle_tpu_torch/csrc/lstm.cu"
 REPLACES_FWD = "paddle_tpu/ops/pallas/lstm.py:177"
 REPLACES_BWD = "paddle_tpu/ops/pallas/lstm.py:209"
 HIDDEN = (128, 256, 512)
+LANES = _check.LANES
 
 # kernel launches since the last reset (bumped only where a kernel is
 # launched; the plain versions never count).  A backward is one count
 # for its BPTT kernel and the dW_r product that follows it.
 launches_fwd = 0
 launches_bwd = 0
+
+
+def vmem_bytes(b, d):
+    """The TPU backward's VMEM estimate (``lstm.py:265-273``): W_r and
+    the dW_r accumulator (8 D^2 f32), the dh / dc / dchecks scratch and
+    the streamed per-step blocks."""
+    resident = 8 * d * d + 3 * d + 5 * b * d
+    streamed = 13 * b * d + LANES * b
+    return 4 * (resident + streamed)
+
+
+def supported(b, d, act, gate_act, state_act, init_state):
+    """The resident route's rule, ``lstm.py:276-285``: default
+    activations, no initial state, B % 8 == 0, D % 128 == 0, within the
+    VMEM guard (W_r alone is 26 MB at D = 1280).  ``rnn.lstm`` follows
+    it on both devices."""
+    return (act == "tanh" and gate_act == "sigmoid" and state_act == "tanh"
+            and init_state is None
+            and b % 8 == 0 and d % LANES == 0
+            and vmem_bytes(b, d) <= _check.VMEM_BUDGET)
 
 
 def _shapes(name, xs, mask, w_r, checks, dev):
@@ -52,10 +75,9 @@ def _shapes(name, xs, mask, w_r, checks, dev):
                          f"{tuple(mask.shape)}, w_r {tuple(w_r.shape)}, "
                          f"checks {tuple(checks.shape)}")
     if dev.type == "cuda" and d not in HIDDEN:
-        more = (" (a larger hidden size is the gate-blocked variant, "
-                "ROADMAP B12)" if d > max(HIDDEN) else "")
         raise ConfigError(f"{name}: hidden size {d} is not one the fused "
-                          f"kernel takes {HIDDEN}{more}")
+                          f"kernel takes {HIDDEN} (the others the route "
+                          f"admits are ROADMAP B9's later work)")
     return t, b, d
 
 

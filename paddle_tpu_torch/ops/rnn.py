@@ -9,17 +9,18 @@ input-to-hidden projection for all steps is hoisted out by the caller;
 masked steps carry the state through unchanged, so padded batches match
 the reference's padding-free semantics.
 
-Dispatch has no mode flag.  With the default activations
-(tanh / sigmoid / tanh) and no initial state, ``lstm`` runs the fused
-route (``ops/kernels/lstm.LstmFused``): the CUDA kernels on the card
-(which raise on a hidden size they do not take), their plain versions on
-the CPU.  Anything else runs the Python scan on the CPU and raises
-``ConfigError`` on the card, where no plain scan stands in for a kernel.
-``gru`` follows the JAX rule exactly, ``ops/kernels/gru.supported``: where
-it holds, the fused route (``GruFused``: the GRU kernels on the card,
-their plain versions on the CPU); where it fails, the masked scan of
-``gru_cell`` on either device, as the reference routes it.  Simple RNN,
-``recurrent_group`` and ``md_lstm_2d`` are not ported yet (ROADMAP).
+Dispatch has no mode flag: both follow the JAX package's rules exactly,
+on either device.  ``lstm`` tries the resident route's rule
+(``ops/kernels/lstm.supported``: ``LstmFused``), then the gate-blocked
+route's (``ops/kernels/lstm_blocked.supported``: ``LstmFusedBlocked``,
+for hidden sizes whose W_r does not stay on chip), then runs the masked
+scan of ``lstm_cell``.  ``gru`` follows ``ops/kernels/gru.supported``:
+where it holds, the fused route (``GruFused``), else the masked scan of
+``gru_cell``.  A fused route runs its CUDA kernels on the card (which
+raise on a shape they do not take) and their plain versions on the CPU;
+the scans run on either device, as the reference routes them.  Simple
+RNN, ``recurrent_group`` and ``md_lstm_2d`` are not ported yet
+(ROADMAP).
 """
 
 from typing import NamedTuple
@@ -30,8 +31,8 @@ from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops.kernels import gru as _gru_kernel
 from paddle_tpu_torch.ops.kernels import lstm as _kernel
+from paddle_tpu_torch.ops.kernels import lstm_blocked as _blocked
 from paddle_tpu_torch.ops.linear import matmul
-from paddle_tpu_torch.utils.error import ConfigError
 
 
 class LstmState(NamedTuple):
@@ -110,20 +111,6 @@ def _fused_seq_apply(seq, xs, ms, reverse, kernel_fn):
     return SequenceBatch(data=out, lengths=seq.lengths), final
 
 
-def _fused(device, act, gate_act, state_act, init_state):
-    """True where ``lstm`` takes the fused route.  The scan is the CPU's
-    alone: on the card an unported configuration raises."""
-    default = ((act, gate_act, state_act) == ("tanh", "sigmoid", "tanh")
-               and init_state is None)
-    if device.type == "cuda" and not default:
-        raise ConfigError(
-            f"lstm with act={act!r}, gate_act={gate_act!r}, "
-            f"state_act={state_act!r}, init_state="
-            f"{'given' if init_state is not None else None} runs the "
-            "plain scan, which is not yet ported to the card (ROADMAP)")
-    return default
-
-
 def lstm(seq: SequenceBatch, w_r, bias=None, check_i=None, check_f=None,
          check_o=None, reverse=False, act="tanh", gate_act="sigmoid",
          state_act="tanh", init_state=None):
@@ -137,11 +124,14 @@ def lstm(seq: SequenceBatch, w_r, bias=None, check_i=None, check_f=None,
     xs = x.transpose(0, 1)                         # time-major [T, B, 4D]
     ms = seq.mask(x.dtype).transpose(0, 1)         # [T, B]
 
-    if _fused(x.device, act, gate_act, state_act, init_state):
+    rule = (b, d, act, gate_act, state_act, init_state)
+    fused = (_kernel.lstm_fused if _kernel.supported(*rule)
+             else _blocked.lstm_fused_blocked if _blocked.supported(*rule)
+             else None)
+    if fused is not None:
         sb, (fh, fc) = _fused_seq_apply(
             seq, xs, ms, reverse,
-            lambda x_, m_: _kernel.lstm_fused(x_, m_, w_r, check_i, check_f,
-                                              check_o))
+            lambda x_, m_: fused(x_, m_, w_r, check_i, check_f, check_o))
         return sb, LstmState(h=fh, c=fc)
 
     if init_state is None:

@@ -2,10 +2,14 @@
 headline), ``bench_transformer`` and ``bench_seq2seq``.
 
     python -m paddle_tpu_torch.scripts.bench [--model lstm|transformer|seq2seq]
+                                             [--hidden 512|1280|2048]
 
 ``lstm`` (the default) trains the LSTM text classifier at the
 reference's benchmark config (vocab 30000, embedding 128, 2 stacked LSTMs
-h=512, batch 64, length 100, Momentum lr 0.01 m 0.9); ``transformer``
+h=512, batch 64, length 100, Momentum lr 0.01 m 0.9); ``--hidden`` sets
+its hidden size (``bench.py``'s ``lstm1280`` / ``lstm2048`` rows, whose
+LSTMs take the gate-blocked kernel), and its line adds the bench's own
+FLOP count (``bench.py:341-345``) and the FLOP/s achieved; ``transformer``
 trains the Transformer-base MT model (vocab 32000, d_model 512, 8 heads,
 dff 2048, 6+6 layers, batch 32, length 256, Adam lr 1e-4, label
 smoothing 0.1, ``full_seq=True``: every attention through the flash
@@ -48,6 +52,14 @@ class LstmBench(NamedTuple):
     ids: SequenceBatch
     labels: torch.Tensor
     hidden: int
+    flops_per_step: float
+
+
+def lstm_flops(batch, seq_len, hidden):
+    """``bench.py:341-345``'s count for one train step: the two layers'
+    input and recurrent products forward, 2 B T 4H (emb + H + H + H), and
+    the backward at twice the forward."""
+    return 3.0 * 2.0 * batch * seq_len * 4 * hidden * (EMB_DIM + 3 * hidden)
 
 
 def bench_lstm(batch=64, seq_len=100, hidden=512, vocab=30000, device=None):
@@ -80,7 +92,8 @@ def bench_lstm(batch=64, seq_len=100, hidden=512, vocab=30000, device=None):
         opt.update(tree_map(lambda p: p.grad, params), opt_state, params)
         return loss.detach()
 
-    return LstmBench(train_step, params, opt_state, ids, labels, hidden)
+    return LstmBench(train_step, params, opt_state, ids, labels, hidden,
+                     lstm_flops(batch, seq_len, hidden))
 
 
 class TransformerBench(NamedTuple):
@@ -209,6 +222,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq"),
                     default="lstm")
+    ap.add_argument("--hidden", type=int, default=512,
+                    help="the LSTM's hidden size (--model lstm)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
     if args.model == "seq2seq":
@@ -230,20 +245,27 @@ def main(argv=None):
         }), flush=True)
         return 0
     if args.model == "lstm":
-        bench = bench_lstm(device=dev)
+        bench = bench_lstm(hidden=args.hidden, device=dev)
         times, losses = _timed(bench.train_step)
+        ms = float(np.median(times))
+        lk, bk = kernels.lstm, kernels.lstm_blocked
         print(json.dumps({
             "bench": "lstm_textclass", "card": _device.card(),
             "config": {"vocab": 30000, "emb": EMB_DIM,
                        "hidden": bench.hidden, "layers": NUM_LAYERS,
                        "batch": 64, "seq_len": 100,
                        "optimizer": "Momentum lr 0.01 m 0.9"},
-            "steps": STEPS, "ms_per_batch": float(np.median(times)),
+            "steps": STEPS, "ms_per_batch": ms,
             "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "flops_per_step": bench.flops_per_step,
+            "tflop_per_s": bench.flops_per_step / (ms / 1e3) / 1e12,
             "loss_first_last": [losses[0], losses[-1]],
-            "launches": {"lstm_fwd": kernels.lstm.launches_fwd,
-                         "lstm_bwd": kernels.lstm.launches_bwd},
-            "reference_k40m_ms_per_batch": REFERENCE_K40M_MS,
+            "launches": {lk.NAME_FWD: lk.launches_fwd,
+                         lk.NAME_BWD: lk.launches_bwd,
+                         bk.NAME_FWD: bk.launches_fwd},
+            # the reference's K40m time is for its own config, h=512
+            **({"reference_k40m_ms_per_batch": REFERENCE_K40M_MS}
+               if bench.hidden == 512 else {}),
         }), flush=True)
         return 0
     bench = bench_transformer(device=dev)

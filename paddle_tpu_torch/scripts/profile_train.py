@@ -1,11 +1,11 @@
 """Where a train step's time goes on the card.
 
     python -m paddle_tpu_torch.scripts.profile_train \
-        [--model lstm|transformer|seq2seq]
+        [--model lstm|transformer|seq2seq] [--hidden 512|1280|2048]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
-embedding 128, 2 x LSTM h=512, batch 64, length 100, Momentum; the
-default), ``scripts/bench.bench_transformer`` at the bench's config
+embedding 128, 2 x LSTM h=512 or ``--hidden``, batch 64, length 100,
+Momentum; the default), ``scripts/bench.bench_transformer`` at the bench's config
 (vocab 32000, d_model 512, 8 heads, dff 2048, 6+6 layers, batch 32,
 length 256, Adam, full_seq) or ``scripts/bench.bench_seq2seq`` (vocab
 30000, emb = h = att 512, batch 64, lengths 30 / 30, Momentum) and runs
@@ -15,7 +15,8 @@ step ends in a synchronize), the device time between two CUDA events
 around it, the device time the profiler attributes to kernels, the
 device's idle share (1 - kernel time / wall time), the kernels with the
 most device time, and the kernel time by origin: the port's kernels
-(the flash kernels for the transformer, the GRU kernels for seq2seq),
+(the LSTM kernels, resident or gate-blocked by the hidden size; the
+flash kernels for the transformer; the GRU kernels for seq2seq),
 the library's matrix products and the rest (``profile_step.measure``).
 Needs a CUDA device.
 """
@@ -38,12 +39,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq"),
                     default="lstm")
+    ap.add_argument("--hidden", type=int, default=512,
+                    help="the LSTM's hidden size (--model lstm)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
     if args.model == "lstm":
-        bench = bench_lstm(device=dev)
-        config = ("text_lstm vocab 30000, emb 128, 2 x LSTM h=512, batch 64, "
-                  "length 100, Momentum")
+        bench = bench_lstm(hidden=args.hidden, device=dev)
+        config = (f"text_lstm vocab 30000, emb 128, 2 x LSTM h={args.hidden}, "
+                  "batch 64, length 100, Momentum")
     elif args.model == "seq2seq":
         bench = bench_seq2seq(device=dev)
         config = ("seq2seq attention NMT vocab 30000, emb = h = att 512, "

@@ -199,25 +199,36 @@ def test_bidirectional_matches_jax(np_rng):
 
 
 def test_route_by_device_and_config():
-    cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    # a default config takes the fused route on either device, whatever
-    # its hidden size (on the card the kernels' wrapper raises on one it
-    # does not take) ...
-    assert rnn._fused(cpu, "tanh", "sigmoid", "tanh", None)
-    assert rnn._fused(cuda, "tanh", "sigmoid", "tanh", None)
-    # ... anything else takes the scan on the CPU and raises on the card:
-    # no plain scan stands in for a kernel there
-    for act, gate_act, init in (("relu", "sigmoid", None),
-                                ("tanh", "relu", None),
-                                ("tanh", "sigmoid", object())):
-        assert not rnn._fused(cpu, act, gate_act, "tanh", init)
-        with pytest.raises(ConfigError, match="not yet ported"):
-            rnn._fused(cuda, act, gate_act, "tanh", init)
+    """The route follows the JAX package's rules on (B, D, activations,
+    initial state), whatever the device: the resident kernels' route at
+    B=8, D=128 on the CPU (plain versions) and on "meta" (where its
+    wrapper raises: no kernel takes meta tensors); the scan for other
+    activations, an initial state or B % 8 != 0, on both devices."""
+    def run(dev, b, **kw):
+        seq = SequenceBatch(torch.zeros(b, 2, 4 * D, device=dev),
+                            torch.full((b,), 2, dtype=torch.int32,
+                                       device=dev))
+        if kw.pop("init", False):
+            kw["init_state"] = rnn.LstmState(
+                h=torch.zeros(b, D, device=dev),
+                c=torch.zeros(b, D, device=dev))
+        out, _ = rnn.lstm(seq, torch.zeros(D, 4 * D, device=dev), **kw)
+        return out.data.shape
+
+    assert klstm.supported(8, D, "tanh", "sigmoid", "tanh", None)
+    assert run("cpu", 8) == (8, 2, D)
+    with pytest.raises(ValueError, match="lstm_fwd: tensors on meta"):
+        run("meta", 8)
+    for b, kw in ((8, dict(act="relu")), (8, dict(gate_act="relu")),
+                  (8, dict(init=True)), (5, {})):
+        for dev in ("cpu", "meta"):
+            assert run(dev, b, **dict(kw)) == (b, 2, D), (b, kw, dev)
 
 
 def test_small_hidden_takes_the_scan_on_cpu(np_rng):
-    """A hidden size the kernels do not take (16) runs the plain versions
-    on the CPU, and gives what the port's scan gives."""
+    """A hidden size no fused route takes (16, at B=3) runs the scan, on
+    the CPU as on the card, and gives what the port's scan gives with a
+    callable activation."""
     d = 16
     x = torch.tensor(np_rng.randn(3, 5, 4 * d).astype(np.float32))
     w_r = torch.tensor(np_rng.randn(d, 4 * d).astype(np.float32) * 0.1)
@@ -235,11 +246,13 @@ def test_small_hidden_takes_the_scan_on_cpu(np_rng):
 
 
 @pytest.mark.parametrize("d, exc, match", [
-    (1024, ConfigError, "ROADMAP B12"), (64, ConfigError, "hidden size 64")])
+    (384, ConfigError, "ROADMAP B9"), (64, ConfigError, "hidden size 64")])
 def test_wrapper_refuses_uncovered_hidden_sizes(d, exc, match):
     """The kernels take D in 128/256/512: the wrapper's shape check
     refuses any other for a CUDA tensor (checked here without a card on
-    the shapes alone), and lets the plain versions take it on the CPU."""
+    the shapes alone), naming B9's later work for the ones the route
+    admits (384 at B=64, say), and lets the plain versions take it on the
+    CPU."""
     xs, mask = torch.zeros(2, 3, 4 * d), torch.ones(2, 3)
     w_r, chk = torch.zeros(d, 4 * d), torch.zeros(3, d)
     with pytest.raises(exc, match=match):
