@@ -10,7 +10,8 @@ non-zero exit code and no final "ok" line:
             reports them (also printed alone on a line)
   build     nvcc builds every kernel library from paddle_tpu_torch/csrc
             (decode attention, flash attention, GRU, LSTM, gate-blocked
-            LSTM), one nvcc per source, in parallel; seconds taken
+            LSTM, simple RNN), one nvcc per source, in parallel; seconds
+            taken
   kernels   each kernel at the main path's shapes against its plain
             PyTorch version (max abs error within the stated bound; the
             LSTM pair on a ragged mask with an empty row, timed on the
@@ -33,7 +34,14 @@ non-zero exit code and no final "ok" line:
             and odd T (B=64), B=256 with D=512 and B=8 with D=3456; a
             reverse rnn.lstm at B=8 through the resident kernels, and
             rnn.lstm at B=5 and with act="relu" through the masked scan
-            on the card, held against the CPU, launching no kernel),
+            on the card, held against the CPU, launching no kernel; the
+            simple-RNN forward, BPTT and dW at the DSL slice's train shape
+            T=100, B=64, D=512 on full rows and on a ragged mask with an
+            empty row, at the ends of the rule's range (D 1152 at B 64,
+            D 1280 at B 8, B 4736 at D 128) and odd T, a reverse
+            rnn.simple_rnn through the kernels and rnn.simple_rnn at B 12
+            and with act="relu" through the scan on the card, held
+            against the CPU),
             timed with CUDA events beside the plain version, one
             PyTorch library call computing the same function (a
             yardstick the port never calls; none exists for the int8
@@ -119,6 +127,20 @@ non-zero exit code and no final "ok" line:
             and the whole sample on values: the encoder's outputs and
             every step's log-probs teacher-forced on the CPU's tokens,
             card vs CPU within S2S_REL_TOL
+  train_rnn  a layer-DSL config through trainer.SGD (models/text_rnn: the
+            RNN text classifier, vocab 30000, embedding 128, 2 x
+            [fc_layer(512) -> recurrent_layer(tanh)], max-pool, fc 2
+            softmax, classification_cost, batch 64, length 100,
+            Momentum): the first step against a CPU witness from the
+            same weights that max-pools at the card's argmax (loss, every
+            gradient, param and momentum leaf; the argmax flips counted,
+            each a near-tie), its update lowering its batch's cost; then
+            SGD.train over 20 batches, each step launching the simple-RNN
+            forward and backward kernels twice, the losses finite;
+            SGD.test on a held-out reader; the step's split into feed,
+            forward, backward and update; then `python -m
+            paddle_tpu_torch train` as a subprocess on a config file,
+            whose pass dir SGD.load restores bit for bit
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -258,6 +280,42 @@ S2S_WARMUP, S2S_STEPS = 3, 10
 # updates; a wrong kernel or step moves them by O(1e-2) and more.
 S2S_REL_TOL = 1e-4
 S2S_DIRECTIONS = 2
+# The vanilla-RNN kernels at the DSL slice's train shape
+# (models/text_rnn: T=100, B=64, h=512) against their plain versions on
+# the same inputs, W at the layer's own init std 1/sqrt(D)
+# (layers/recurrent.py, the recurrence's gain about 1) and x*0.3: hs and
+# dxs within KERNEL_TOL absolute, dW within KERNEL_TOL of its largest
+# entry (T*B = 6400 terms a sum).  Then at the ends of the range
+# simple_rnn.supported admits (D 1152 at B 64, D 1280 at B 8, B 4736 at
+# D 128) and at an odd T, each on a ragged mask with an empty row.
+RNN_T, RNN_B, RNN_D = 100, 64, 512
+RNN_OTHER = ((30, 64, 1152), (30, 8, 1280), (30, 4736, 128), (37, 64, 512))
+# The train_rnn phase: the first step on the card against the CPU at
+# TRAIN_REL_TOL, and its update must lower the cost of the batch it was
+# taken on (SGD.test before and after).  With the reference's Momentum
+# (lr 0.01, m 0.9) on random labels, a pass's losses wander and may
+# climb after a few steps, on the CPU as on the card, so the pass over
+# RNN_BATCHES batches is held to finite losses (reported) and 2 + 2
+# launches of the simple-RNN kernels a step.  The CLI runs
+# RNN_CLI_BATCHES batches.
+RNN_BATCHES, RNN_CLI_BATCHES = 20, 3
+# The model max-pools each hidden unit over 100 steps.  Card and CPU
+# round the recurrence differently (kernel vs plain hs agree to ~1e-6),
+# so a unit whose two largest steps lie closer than that may take the
+# other argmax: one such flip among the 32,768 pooled units sends that
+# unit's gradient down another step, which moves the weight gradients
+# by percents of a leaf's largest entry (the phase reports it against
+# the plain CPU step).  So, as the MT step does with its ReLU kinks, the
+# first step records each max-pool's argmax on the card (pool_probe)
+# and holds:
+#   - the pooled values, card vs CPU, within RNN_TIE_TOL of the largest;
+#   - every flipped unit's top-1/top-2 gap on the CPU within RNN_TIE_TOL
+#     of the largest pooled value (a tie within rounding, not a fault:
+#     a wrong kernel moves values by O(1e-2));
+#   - loss, every gradient, param and momentum leaf within TRAIN_REL_TOL
+#     of the largest entry of a CPU witness step that pools at the
+#     card's argmax; the plain CPU step's errors are reported.
+RNN_TIE_TOL = 1e-5
 
 
 def emit(obj):
@@ -1350,6 +1408,192 @@ def check_gru_barrier(torch):
             empty, "us_per_barrier": (with_syncs - empty) / syncs * 1e3}
 
 
+def rnn_inputs(torch, dev, rng, t, b, d, ragged):
+    """(lengths, xs [T, B, D], mask [T, B], W [D, D]).  Ragged: random
+    lengths with one empty row and one full row; else every row full, as
+    the train path's batch is."""
+    lengths = np.full(b, t)
+    if ragged:
+        lengths = rng.randint(1, t + 1, b)
+        lengths[0] = 0
+        lengths[-1] = t
+    mask = (np.arange(t)[:, None] < lengths[None, :]).astype(np.float32)
+    return (lengths,
+            torch.tensor(normal(rng, (t, b, d)) * 0.3, device=dev),
+            torch.tensor(mask, device=dev),
+            torch.tensor(normal(rng, (d, d)) / np.float32(math.sqrt(d)),
+                         device=dev))
+
+
+def rnn_cost(lengths, t, d):
+    """(bytes, flops) of the forward and of the backward with dW on these
+    inputs.  Bytes: each input read once, each output written once.
+    Operations: the products these lengths need, h_{t-1} W forward and
+    dg W^T and h_{t-1}^T dg backward, only where the mask is 1 and
+    t >= 1 (a masked step copies the carry, and h_{-1} = 0)."""
+    b = len(lengths)
+    rows = int(np.maximum(lengths - 1, 0).sum())
+    return ((4 * (2 * t * b * d + t * b + d * d), 2 * d * d * rows),
+            (4 * (3 * t * b * d + t * b + 2 * d * d), 4 * d * d * rows))
+
+
+def rnn_library(torch, dev, xs, w, dh_out):
+    """torch.nn.RNN (cuDNN RNN_TANH, no bias) computing the same
+    recurrence on full rows, W_ih = I and W_hh = W^T: (forward, backward
+    of input and W_hh by autograd.grad over a retained graph, its max
+    abs error against the plain forward).  A yardstick the port never
+    calls; its time includes the input product by I."""
+    d = w.shape[0]
+    lib = torch.nn.RNN(d, d, nonlinearity="tanh", bias=False).to(dev)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(d, device=dev))
+        lib.weight_hh_l0.copy_(w.T)
+    x = xs.clone().requires_grad_(True)
+    out = lib(x)[0]
+
+    def forward():
+        with torch.no_grad():
+            return lib(xs)
+    return (forward,
+            (lambda: torch.autograd.grad(out, (x, lib.weight_hh_l0), dh_out,
+                                         retain_graph=True)),
+            out.detach())
+
+
+def rnn_pair(torch, dev, rng, t, b, d, ragged):
+    """Forward, BPTT and dW kernels against their plain versions on one
+    set of inputs; the backward gets the plain forward's hs on both sides
+    so that its check stands alone.  Returns the two result rows, the
+    (kernel, plain) calls of each and the costs."""
+    from paddle_tpu_torch.ops.kernels import simple_rnn as rk
+    lengths, xs, mask, w = rnn_inputs(torch, dev, rng, t, b, d, ragged)
+    ref = rk.simple_rnn_fwd_plain(xs, mask, w)
+    got = rk.simple_rnn_fwd(xs, mask, w)
+    dh_out = torch.tensor(normal(rng, (t, b, d)), device=dev)
+    gb = rk.simple_rnn_bwd(ref, w, mask, dh_out)
+    rb = rk.simple_rnn_bwd_plain(ref, w, mask, dh_out)
+    torch.cuda.synchronize()
+
+    def err(x, y):
+        return float((x - y).abs().max())
+
+    fwd_err, dxs_err = err(got, ref), err(gb[0], rb[0])
+    dw_rel = err(gb[1], rb[1]) / float(rb[1].abs().max())
+    if not fwd_err <= KERNEL_TOL or not dxs_err <= KERNEL_TOL \
+            or not dw_rel <= KERNEL_TOL:
+        fail(f"simple-RNN kernels (T={t}, B={b}, D={d}, ragged={ragged}) "
+             f"disagree with their plain versions: hs max abs err "
+             f"{fwd_err}, dxs {dxs_err}, dW relative {dw_rel} (bound "
+             f"{KERNEL_TOL})")
+    if ragged and (got[:, 0].any() or gb[0][:, 0].any()):
+        fail("simple-RNN kernels: the empty row's hs or dxs is not "
+             "exactly 0")
+    rows = [{"name": rk.NAME_FWD, "T": t, "B": b, "D": d, "ragged": ragged,
+             "max_abs_err": fwd_err},
+            {"name": rk.NAME_BWD, "T": t, "B": b, "D": d, "ragged": ragged,
+             "max_abs_err": dxs_err, "dW_max_abs_err": err(gb[1], rb[1]),
+             "dW_rel_err": dw_rel}]
+    calls = ((lambda: rk.simple_rnn_fwd(xs, mask, w),
+              lambda: rk.simple_rnn_fwd_plain(xs, mask, w)),
+             (lambda: rk.simple_rnn_bwd(ref, w, mask, dh_out),
+              lambda: rk.simple_rnn_bwd_plain(ref, w, mask, dh_out)))
+    return rows, calls, rnn_cost(lengths, t, d), (xs, w, dh_out, ref)
+
+
+def check_rnn_kernels(torch, dev, rng):
+    """The simple-RNN kernels at the train shape on a ragged mask (with
+    an empty row) and on the train path's own data (every row full),
+    which the times, the bound and the cuDNN yardstick are taken on;
+    then ragged at RNN_OTHER."""
+    rows, _, _, _ = rnn_pair(torch, dev, rng, RNN_T, RNN_B, RNN_D, True)
+    full, calls, costs, (xs, w, dh_out, ref) = rnn_pair(
+        torch, dev, rng, RNN_T, RNN_B, RNN_D, False)
+    lib_fwd, lib_bwd, lib_out = rnn_library(torch, dev, xs, w, dh_out)
+    lib_err = float((lib_out - ref).abs().max())
+    note = ("torch.nn.RNN (cuDNN RNN_TANH, no bias) with W_ih = I and "
+            "W_hh = W^T on the same full rows: its time includes one "
+            "extra [T B, D] x [D, D] input product; the backward is "
+            "autograd.grad of the input and W_hh over a retained graph")
+    for row, row_full, (fn, plain), (nbytes, flops), lib in zip(
+            rows, full, calls, costs, (lib_fwd, lib_bwd)):
+        row.update(max_abs_err=max(row["max_abs_err"],
+                                   row_full["max_abs_err"]),
+                   full_rows_check=row_full,
+                   shape={"T": RNN_T, "B": RNN_B, "D": RNN_D,
+                          "timed_on": "full rows"},
+                   ms=time_ms(torch, fn, samples=20, reps=5),
+                   plain_ms=time_ms(torch, plain, samples=5, reps=2),
+                   library_ms=time_ms(torch, lib, samples=20, reps=5),
+                   library_note=note, library_fwd_max_abs_err=lib_err,
+                   bytes=nbytes, flops=flops)
+        if "dW_rel_err" in row:
+            row["dW_rel_err"] = max(row["dW_rel_err"],
+                                    row_full["dW_rel_err"])
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    other = [r for t, b, d in RNN_OTHER
+             for r in rnn_pair(torch, dev, rng, t, b, d, True)[0]]
+    return rows, other
+
+
+def rnn_card_vs_cpu(torch, dev, rng, kernels, t, b, d, lengths, reverse,
+                    **kw):
+    """rnn.simple_rnn on the card against the same call on the CPU: loss
+    and every gradient (x, W, bias) relative to each one's largest
+    entry, with the simple-RNN launches the card's call made."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import rnn
+    x = normal(rng, (b, t, d)) * 0.3
+    w = normal(rng, (d, d)) / np.float32(math.sqrt(d))
+    bias = normal(rng, (d,)) * 0.1
+
+    def run(device):
+        args = [torch.tensor(a, device=device, requires_grad=True)
+                for a in (x, w, bias)]
+        out, final = rnn.simple_rnn(
+            SequenceBatch(args[0], torch.tensor(lengths, device=device)),
+            args[1], bias=args[2], reverse=reverse, **kw)
+        loss = (out.data ** 2).sum() + (final ** 2).sum()
+        loss.backward()
+        return float(loss.detach()), [a.grad.cpu() for a in args]
+
+    kernels.reset_launches()
+    loss_c, grads_c = run(dev)
+    launches = (kernels.simple_rnn.launches_fwd,
+                kernels.simple_rnn.launches_bwd)
+    loss_r, grads_r = run("cpu")
+    worst = max(float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(grads_c, grads_r))
+    return abs(loss_c - loss_r) / abs(loss_r), worst, launches
+
+
+def check_rnn_routes(torch, dev, rng, kernels):
+    """rnn.simple_rnn(reverse=True) at the train shape through the kernels
+    (SimpleRnnFused), on a ragged batch with an empty row; then where
+    JAX's rule sends it to the masked scan (B 12; act="relu"), the card
+    runs the scan too: each matches the CPU's and the scan launches no
+    kernel."""
+    out = []
+    for t, b, d, reverse, kw, want in (
+            (RNN_T, RNN_B, RNN_D, True, {}, (1, 1)),
+            (30, 12, 128, False, {}, (0, 0)),
+            (30, 8, 128, False, {"act": "relu"}, (0, 0))):
+        lengths = rng.randint(1, t + 1, b).astype(np.int32)
+        lengths[0] = 0
+        loss_err, worst, launches = rnn_card_vs_cpu(
+            torch, dev, rng, kernels, t, b, d, lengths, reverse, **kw)
+        if launches != want or not worst <= LSTM_REL_TOL \
+                or not loss_err <= LSTM_REL_TOL:
+            fail(f"rnn.simple_rnn (T {t}, B {b}, D {d}, reverse {reverse}, "
+                 f"{kw}): launches {launches} (want {want}); card vs CPU "
+                 f"relative error loss {loss_err}, grads {worst} (bound "
+                 f"{LSTM_REL_TOL})")
+        out.append({"T": t, "B": b, "D": d, "reverse": reverse, **kw,
+                    "route": "kernels" if any(want) else "scan",
+                    "launches": list(launches), "loss_rel_err": loss_err,
+                    "grad_rel_err": worst})
+    return out
+
+
 # ------------------------------------------------------------- paths
 
 def margins(torch, transformer, params, ids, kv_dtype=None):
@@ -2269,6 +2513,273 @@ def run_train_seq2seq(torch, dev, kernels):
     return {"train": launches, "generate": dict(zip(launches, gen_launches))}
 
 
+@contextlib.contextmanager
+def pool_probe(torch, record, argmax=None):
+    """Swaps ``ops/sequence.seq_max_pool``: each call appends its argmax
+    over time [B, D], the top-1 minus top-2 gap and the pooled values to
+    ``record``.  With ``argmax`` (one [B, D] tensor per call, in call
+    order) it pools at those steps instead, gradient and all: a step
+    that keeps another run's decisions."""
+    from paddle_tpu_torch.ops import sequence as seq_ops
+    plain, given = seq_ops.seq_max_pool, iter(argmax or ())
+
+    def probe(seq):
+        valid = seq.mask(seq.data.dtype)[..., None] > 0
+        top = torch.where(valid, seq.data, -1e30).detach().topk(2, dim=1)
+        if argmax is None:
+            out = plain(seq)
+        else:
+            idx = next(given).to(seq.data.device)
+            out = torch.where((seq.lengths > 0)[:, None],
+                              seq.data.gather(1, idx[:, None, :])[:, 0], 0.0)
+        record.append({"argmax": top.indices[:, 0].cpu(),
+                       "gap": (top.values[:, 0] - top.values[:, 1]).cpu(),
+                       "pooled": out.detach().cpu()})
+        return out
+
+    seq_ops.seq_max_pool = probe
+    try:
+        yield
+    finally:
+        seq_ops.seq_max_pool = plain
+
+
+def rnn_first_step(torch, dev, kernels, batch):
+    """One SGD step of the slice's config on the card, on the CPU, and on
+    a CPU witness that max-pools at the card's argmax, all from the same
+    weights (SGD's seed) on ``batch``; held as RNN_TIE_TOL says.  Returns
+    the card's trainer and the result record."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    rk = kernels.simple_rnn
+
+    feeding = text_rnn.feeding()
+
+    def step(device, record, argmax=None):
+        tr = SGD(cost=text_rnn.build(), update_equation=text_rnn.optimizer(),
+                 device=device)
+        before = [p.detach().clone() for p in tr._leaves]
+        with pool_probe(torch, record, argmax):
+            total, _ = tr._forward(DataFeeder(feeding,
+                                              device=tr.device)(batch))
+        tr._backward(total)
+        grads = [p.grad.detach().cpu() for p in tr._leaves]
+        tr._update()
+        return tr, float(total.detach()), before, grads
+
+    def rel(got, want):
+        return [float((g.detach().cpu() - w.detach()).abs().max()
+                      / w.detach().abs().max()) for g, w in zip(got, want)]
+
+    kernels.reset_launches()
+    rec_c, rec_r, rec_w = [], [], []
+    card, loss_c, before_c, grads_c = step(dev, rec_c)
+    launches = (rk.launches_fwd, rk.launches_bwd)
+    # the update descends: the batch's cost after it, in test mode
+    after = card.test(lambda: iter([batch]), feeding=feeding)
+    _, loss_r, _, grads_r = step("cpu", rec_r)
+    witness, loss_w, _, grads_w = step("cpu", rec_w,
+                                       [r["argmax"] for r in rec_c])
+    names = leaf_names(witness.parameters)
+    (pc,), (pr,), (pw,) = rec_c, rec_r, rec_w
+    scale = float(pr["pooled"].abs().max())
+    pooled_err = float((pc["pooled"] - pr["pooled"]).abs().max()) / scale
+    flips = pc["argmax"] != pr["argmax"]
+    flip_gap = float(pr["gap"][flips].max()) / scale if flips.any() else 0.0
+    card_mom = [m.cpu() for m in tree_leaves(card.opt_state["slots"]["mom"])]
+    loss_err = abs(loss_c - loss_w) / abs(loss_w)
+    grad_err = rel(grads_c, grads_w)
+    param_err = rel(card._leaves, witness._leaves)
+    mom_err = rel(card_mom, tree_leaves(witness.opt_state["slots"]["mom"]))
+    # the card's update is its own momentum added to the same start
+    step_err = [float((p.detach().cpu() - (w.cpu() + m)).abs().max()
+                      / m.abs().max())
+                for p, w, m in zip(card._leaves, before_c, card_mom)]
+    worst = max(grad_err + param_err + mom_err + step_err + [loss_err])
+    if launches != (2, 2) or not pooled_err <= RNN_TIE_TOL \
+            or not flip_gap <= RNN_TIE_TOL or not worst <= TRAIN_REL_TOL \
+            or not after < loss_c:
+        fail(f"train_rnn: first step on the card: launches {launches} (want "
+             f"2, 2); the batch's cost {loss_c} before the update, {after} "
+             f"after (must fall); pooled values vs the CPU rel err "
+             f"{pooled_err}, "
+             f"{int(flips.sum())} argmax flips with CPU gaps up to "
+             f"{flip_gap} of the largest (bound {RNN_TIE_TOL}); vs the CPU "
+             f"witness: loss rel err {loss_err}, per-leaf rel err of grads "
+             f"{dict(zip(names, grad_err))}, of params "
+             f"{dict(zip(names, param_err))}, of mom "
+             f"{dict(zip(names, mom_err))}, of the card's step vs its mom "
+             f"{dict(zip(names, step_err))} (bound {TRAIN_REL_TOL})")
+    plain = {"loss_rel_err": abs(loss_c - loss_r) / abs(loss_r),
+             "grad_largest_entry_rel_err_max": max(rel(grads_c, grads_r)),
+             "grad_rel_l2_err_max": max(
+                 float((g - r).norm() / r.norm())
+                 for g, r in zip(grads_c, grads_r))}
+    return card, launches, {
+        "batch": text_rnn.BATCH, "cost_before_after_update": [loss_c, after],
+        "pooled_rel_err": pooled_err,
+        "argmax_flips": int(flips.sum()), "pooled_units": flips.numel(),
+        "flip_gap_rel_max": flip_gap, "tie_bound": RNN_TIE_TOL,
+        "vs_witness": {"loss_rel_err": loss_err,
+                       "grad_rel_err_max": max(grad_err),
+                       "param_rel_err_max": max(param_err),
+                       "mom_rel_err_max": max(mom_err),
+                       "step_vs_mom_rel_err_max": max(step_err),
+                       "bound": TRAIN_REL_TOL},
+        "vs_plain_cpu_step": plain}
+
+
+RNN_CLI_CONFIG = """\
+from paddle_tpu_torch.models import text_rnn
+
+
+def get_config():
+    return text_rnn.config(seed=int(CONFIG_ARGS["seed"]),
+                           n_batches=int(CONFIG_ARGS["batches"]))
+"""
+
+
+def rnn_cli(torch, dev, seed, trainer):
+    """``python -m paddle_tpu_torch train`` as a subprocess on a config
+    file written to a temp dir (the slice's config, RNN_CLI_BATCHES
+    batches, one pass): its pass dir must exist and ``SGD.load`` must
+    restore its parameters bit for bit; then ``trainer``'s own save and
+    load round trip, bit for bit too."""
+    import os
+    import subprocess
+    import tempfile
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.trainer import SGD, load_checkpoint
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def fresh():
+        return SGD(cost=text_rnn.build(), update_equation=text_rnn.optimizer(),
+                   device=dev)
+
+    def equal(params, tree):
+        return all(np.array_equal(params[k][n].detach().cpu().numpy(),
+                                  np.asarray(tree[k][n]))
+                   for k in tree for n in tree[k])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, save = os.path.join(tmp, "rnn_config.py"), os.path.join(tmp,
+                                                                    "out")
+        with open(cfg, "w") as f:
+            f.write(RNN_CLI_CONFIG)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch", "train", "--config",
+             cfg, "--config_args", f"seed={seed},batches={RNN_CLI_BATCHES}",
+             "--num_passes", "1", "--save_dir", save, "--log_period", "1",
+             "--device", dev.type],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        pass_dir = os.path.join(save, "pass-00000")
+        if run.returncode != 0 or not os.path.isdir(pass_dir):
+            fail(f"train_rnn: the CLI exited {run.returncode} and left "
+                 f"{os.listdir(save) if os.path.isdir(save) else None}: "
+                 f"{run.stderr[-3000:]}")
+        loaded = fresh()
+        meta = loaded.load(save)
+        params, opt_state, _, _ = load_checkpoint(save)
+        if not equal(loaded.parameters, params) \
+                or loaded.opt_state["step"] != RNN_CLI_BATCHES:
+            fail(f"train_rnn: SGD.load of the CLI's {pass_dir} does not "
+                 f"restore its parameters bit for bit (optimizer step "
+                 f"{loaded.opt_state['step']}, want {RNN_CLI_BATCHES})")
+        mine = os.path.join(tmp, "mine")
+        trainer.save(mine, 0)
+        again = fresh()
+        again.load(mine)
+        host = {k: {n: p.detach().cpu().numpy() for n, p in v.items()}
+                for k, v in trainer.parameters.items()}
+        if not equal(again.parameters, host):
+            fail("train_rnn: SGD.save then SGD.load does not restore the "
+                 "trained parameters bit for bit")
+        cost_lines = [line for line in run.stderr.splitlines()
+                      if " Cost " in line]
+    return {"seconds": cli_s, "pass_dir": os.path.basename(pass_dir),
+            "meta_pass_id": meta["pass_id"], "batches": RNN_CLI_BATCHES,
+            "log": cost_lines[-1].split("] ", 1)[-1] if cost_lines else None,
+            "load_bit_for_bit": True, "save_load_round_trip": True}
+
+
+def run_train_rnn(torch, dev, kernels, seed):
+    """The layer-DSL slice (models/text_rnn: 2 x recurrent_layer h=512)
+    through trainer.SGD on the card: the first step against the CPU from
+    the same weights, then ``SGD.train`` over RNN_BATCHES batches with
+    each step's simple-RNN launches and wall time read from the events,
+    ``SGD.test`` on a held-out reader, the step's split, and the CLI."""
+    from paddle_tpu_torch.data import DataFeeder, reader as reader_mod
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.trainer import events
+    rk = kernels.simple_rnn
+    feeding = text_rnn.feeding()
+    data = text_rnn.samples(seed, RNN_BATCHES * text_rnn.BATCH)
+
+    card, first_launches, first = rnn_first_step(
+        torch, dev, kernels, data[:text_rnn.BATCH])
+
+    record = {"ms": [], "loss": [], "launches": []}
+
+    def handler(e):
+        if isinstance(e, events.BeginIteration):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            record["t0"] = time.perf_counter()
+        elif isinstance(e, events.EndIteration):
+            record["loss"].append(float(e.cost))     # a synchronize
+            record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
+            record["launches"].append((rk.launches_fwd, rk.launches_bwd))
+
+    t0 = time.perf_counter()
+    card.train(reader_mod.batch(lambda: iter(data), text_rnn.BATCH),
+               num_passes=1, event_handler=handler, feeding=feeding,
+               log_period=0)
+    pass_s = time.perf_counter() - t0
+    losses, per_step = record["loss"], record["launches"]
+    if len(losses) != RNN_BATCHES or any(n != (2, 2) for n in per_step):
+        fail(f"train_rnn: {len(losses)} steps with per-step (forward, "
+             f"backward) launches {per_step}, want {RNN_BATCHES} steps of "
+             f"(2, 2): one of each per recurrent layer")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_rnn: loss not finite: {losses}")
+    test_cost = card.test(text_rnn.batches(seed + 1, text_rnn.TEST_BATCHES),
+                          feeding=feeding)
+    if not math.isfinite(test_cost):
+        fail(f"train_rnn: SGD.test cost {test_cost}")
+    feeder = DataFeeder(feeding, device=dev)
+    split = bench.step_split(card, feeder, list(reader_mod.batch(
+        lambda: iter(data), text_rnn.BATCH)()), 10)
+    cli = rnn_cli(torch, dev, seed, card)
+    timed = record["ms"][3:]
+    ms = float(np.median(timed))
+    launches = {rk.NAME_FWD: first_launches[0] + sum(f for f, _ in per_step),
+                rk.NAME_BWD: first_launches[1] + sum(b for _, b in per_step)}
+    emit({"phase": "train_rnn", "config": {
+        "model": "models/text_rnn (layer DSL)", "vocab": text_rnn.VOCAB,
+        "emb": text_rnn.EMB, "hidden": text_rnn.HIDDEN,
+        "layers": text_rnn.LAYERS, "batch": text_rnn.BATCH,
+        "seq_len": text_rnn.SEQ_LEN, "optimizer": "Momentum lr 0.01 m 0.9",
+        "entry": "trainer.SGD.train", "batches": RNN_BATCHES},
+        "steps_timed": len(timed), "ms_per_batch": ms,
+        "ms_per_batch_min_max": [min(timed), max(timed)],
+        "tokens_per_s": text_rnn.BATCH * text_rnn.SEQ_LEN / (ms / 1e3),
+        "tflop_per_s": bench.rnn_flops(text_rnn.BATCH, text_rnn.SEQ_LEN,
+                                       text_rnn.HIDDEN) / (ms / 1e3) / 1e12,
+        "pass_seconds": pass_s, "split_ms": split,
+        "launches": launches, "launches_per_step": [
+            dict(zip(launches, n)) for n in sorted(set(per_step))],
+        "losses": losses, "test_cost": test_cost,
+        "first_step_vs_cpu": first, "cli": cli})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2316,6 +2827,7 @@ def main(argv=None):
                                                                  rng)
     (gru_fwd, gru_bwd), gru_other = check_gru_kernels(torch, dev, rng)
     blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
+    (rnn_fwd, rnn_bwd), rnn_other = check_rnn_kernels(torch, dev, rng)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
           "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
@@ -2336,7 +2848,10 @@ def main(argv=None):
           "lstm_blocked_gain_probe": blk_probe,
           "gru_train_shape": [gru_fwd, gru_bwd], "gru_other": gru_other,
           "gru_reverse": check_gru_reverse(torch, dev, rng, kernels),
-          "gru_barrier": check_gru_barrier(torch)})
+          "gru_barrier": check_gru_barrier(torch),
+          "simple_rnn_train_shape": [rnn_fwd, rnn_bwd],
+          "simple_rnn_other": rnn_other,
+          "simple_rnn_routes": check_rnn_routes(torch, dev, rng, kernels)})
 
     params = transformer.init_lm(
         torch.Generator().manual_seed(args.seed), VOCAB, D_MODEL, HEADS,
@@ -2364,6 +2879,7 @@ def main(argv=None):
                     for h, b in ((1280, None), (2048, 8))}
     mt_launches = run_train_transformer(torch, dev, kernels)
     s2s_launches = run_train_seq2seq(torch, dev, kernels)
+    rnn_launches = run_train_rnn(torch, dev, kernels, args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -2452,6 +2968,24 @@ def main(argv=None):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "library_note": row["library_note"]})
+    for row, replaces in ((rnn_fwd, kernels.simple_rnn.REPLACES_FWD),
+                          (rnn_bwd, kernels.simple_rnn.REPLACES_BWD)):
+        name = row["name"]
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": kernels.simple_rnn.SOURCE, "replaces": replaces,
+            "launches": rnn_launches[name],
+            "max_abs_err": max([row["max_abs_err"]]
+                               + [r["max_abs_err"] for r in rnn_other
+                                  if r["name"] == name]),
+            **({"dW_rel_err": max([row["dW_rel_err"]]
+                                  + [r["dW_rel_err"] for r in rnn_other
+                                     if r["name"] == name])}
+               if name == kernels.simple_rnn.NAME_BWD else {}),
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "library_note")},
+            "shape": row["shape"]})
     dk = kernels.decode_attention
     for name, replaces, launches in (
             (dk.NAME_SLAB, dk.REPLACES_SLAB,

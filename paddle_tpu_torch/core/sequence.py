@@ -1,8 +1,9 @@
 """Ragged sequence batches as padded dense data plus lengths
 (``paddle_tpu/core/sequence.py``).
 
-``SequenceBatch`` — data [B, T, ...] + lengths [B], one sequence level.
-Nested batches, bucketing and packing are not ported yet (ROADMAP).
+``SequenceBatch`` — data [B, T, ...] + lengths [B], one sequence level;
+``bucket_for`` and ``pack_sequences`` (host-side numpy) for the data
+path.  Nested batches are not ported yet (ROADMAP).
 """
 
 from typing import NamedTuple, Optional, Sequence
@@ -54,3 +55,44 @@ def pad_sequences(seqs: Sequence[np.ndarray], max_len: Optional[int] = None,
     return SequenceBatch(data=torch.tensor(out, device=dev),
                          lengths=torch.tensor(np.minimum(lengths, tmax),
                                               device=dev))
+
+
+def bucket_for(length: int, bounds) -> int:
+    """The smallest bound >= ``length`` (the largest bound past them)."""
+    for b in bounds:
+        if length <= b:
+            return b
+    return bounds[-1]
+
+
+def pack_sequences(seqs, max_len, pad_value=0):
+    """Greedy first-fit packing of ragged sequences into [B, max_len]
+    rows: several short sequences share one row.  Returns (data [B,
+    max_len], segment_ids [B, max_len] — 1-based per row, 0 = padding —
+    and positions [B, max_len], the within-segment token index), numpy
+    arrays.  Sequences longer than max_len are truncated."""
+    rows = []          # list of (free, [seq, ...])
+    for s in seqs:
+        s = np.asarray(s)[:max_len]
+        placed = False
+        for row in rows:
+            if row[0] >= len(s):
+                row[1].append(s)
+                row[0] -= len(s)
+                placed = True
+                break
+        if not placed:
+            rows.append([max_len - len(s), [s]])
+    b = len(rows)
+    data = np.full((b, max_len), pad_value,
+                   rows[0][1][0].dtype if rows else np.int32)
+    seg = np.zeros((b, max_len), np.int32)
+    pos = np.zeros((b, max_len), np.int32)
+    for i, (_, members) in enumerate(rows):
+        t = 0
+        for j, s in enumerate(members):
+            data[i, t:t + len(s)] = s
+            seg[i, t:t + len(s)] = j + 1
+            pos[i, t:t + len(s)] = np.arange(len(s))
+            t += len(s)
+    return data, seg, pos

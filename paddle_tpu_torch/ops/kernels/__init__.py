@@ -7,10 +7,10 @@ tensors handed in: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises — there is no fallback."""
 
 from paddle_tpu_torch.ops.kernels import decode_attention, flash_attention
-from paddle_tpu_torch.ops.kernels import gru, lstm, lstm_blocked
+from paddle_tpu_torch.ops.kernels import gru, lstm, lstm_blocked, simple_rnn
 
 KERNELS = ("decode_attention", "flash_attention", "gru", "lstm",
-           "lstm_blocked")
+           "lstm_blocked", "simple_rnn")
 
 
 def build():
@@ -38,7 +38,10 @@ def reset_launches():
     lstm.launches_fwd = 0
     lstm.launches_bwd = 0
     lstm_blocked.launches_fwd = 0
+    simple_rnn.launches_fwd = 0
+    simple_rnn.launches_bwd = 0
 
 
 __all__ = ["decode_attention", "flash_attention", "gru", "lstm",
-           "lstm_blocked", "KERNELS", "build", "reset_launches"]
+           "lstm_blocked", "simple_rnn", "KERNELS", "build",
+           "reset_launches"]

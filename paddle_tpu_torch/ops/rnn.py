@@ -1,10 +1,11 @@
-"""The LSTM and GRU of ``paddle_tpu/ops/rnn.py``: cells, masked scan,
-the fused whole-sequence routes, bidirectional concat.
+"""The LSTM, GRU and vanilla RNN of ``paddle_tpu/ops/rnn.py``: cells,
+masked scan, the fused whole-sequence routes, bidirectional concat.
 
 Reference: LstmLayer/LstmCompute + hl_lstm_ops.cuh:46-66 (gate order
 [a, input_gate, forget_gate, output_gate], peepholes checkI/F/O) and
 GatedRecurrentLayer/GruCompute + hl_gru_ops.cuh:37-80 (gate order
-[update, reset, candidate], h = prev - u*prev + u*c~).  The
+[update, reset, candidate], h = prev - u*prev + u*c~) and
+RecurrentLayer (h = act(x + h_prev W)).  The
 input-to-hidden projection for all steps is hoisted out by the caller;
 masked steps carry the state through unchanged, so padded batches match
 the reference's padding-free semantics.
@@ -16,11 +17,12 @@ route's (``ops/kernels/lstm_blocked.supported``: ``LstmFusedBlocked``,
 for hidden sizes whose W_r does not stay on chip), then runs the masked
 scan of ``lstm_cell``.  ``gru`` follows ``ops/kernels/gru.supported``:
 where it holds, the fused route (``GruFused``), else the masked scan of
-``gru_cell``.  A fused route runs its CUDA kernels on the card (which
-raise on a shape they do not take) and their plain versions on the CPU;
-the scans run on either device, as the reference routes them.  Simple
-RNN, ``recurrent_group`` and ``md_lstm_2d`` are not ported yet
-(ROADMAP).
+``gru_cell``; ``simple_rnn`` likewise by ``ops/kernels/simple_rnn.
+supported`` (``SimpleRnnFused``), else the masked scan of
+``simple_rnn_cell``.  A fused route runs its CUDA kernels on the card
+(which raise on a shape they do not take) and their plain versions on
+the CPU; the scans run on either device, as the reference routes them.
+``recurrent_group`` and ``md_lstm_2d`` are not ported yet (ROADMAP).
 """
 
 from typing import NamedTuple
@@ -32,6 +34,7 @@ from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops.kernels import gru as _gru_kernel
 from paddle_tpu_torch.ops.kernels import lstm as _kernel
 from paddle_tpu_torch.ops.kernels import lstm_blocked as _blocked
+from paddle_tpu_torch.ops.kernels import simple_rnn as _rnn_kernel
 from paddle_tpu_torch.ops.linear import matmul
 
 
@@ -40,8 +43,8 @@ class LstmState(NamedTuple):
     c: torch.Tensor  # [B, D] cell state
 
 
-class _GruCarry(NamedTuple):
-    h: torch.Tensor  # [B, D]: the scan's carry (a tuple of tensors)
+class _HCarry(NamedTuple):
+    h: torch.Tensor  # [B, D]: the GRU's and RNN's scan carry (a tuple)
 
 
 def lstm_cell(x4, state: LstmState, w_r, check_i=None, check_f=None,
@@ -78,6 +81,11 @@ def gru_cell(x3, h_prev, w_gate, w_state, act="tanh", gate_act="sigmoid"):
     r = gate_f(xr + ru[..., d:])
     c = activations.get(act)(xc + matmul(r * h_prev, w_state))
     return h_prev - u * h_prev + u * c
+
+
+def simple_rnn_cell(x, h_prev, w_r, act="tanh"):
+    """Reference RecurrentLayer: h = act(x + h_prev @ w_r)."""
+    return activations.get(act)(x + matmul(h_prev, w_r))
 
 
 def _masked_scan(step, init_carry, xs_tm, ms_tm, reverse=False):
@@ -168,10 +176,38 @@ def gru(seq: SequenceBatch, w_gate, w_state, bias=None, reverse=False,
         init_state = x.new_zeros((b, d))
 
     def step(carry, x3):
-        return _GruCarry(gru_cell(x3, carry.h, w_gate, w_state, act,
+        return _HCarry(gru_cell(x3, carry.h, w_gate, w_state, act,
                                   gate_act))
 
-    (final,), (hs,) = _masked_scan(step, _GruCarry(init_state), xs, ms,
+    (final,), (hs,) = _masked_scan(step, _HCarry(init_state), xs, ms,
+                                   reverse=reverse)
+    out = hs.transpose(0, 1) * seq.mask(hs.dtype)[..., None]
+    return SequenceBatch(data=out, lengths=seq.lengths), final
+
+
+def simple_rnn(seq: SequenceBatch, w_r, bias=None, reverse=False, act="tanh",
+               init_state=None):
+    """Reference RecurrentLayer over a whole sequence.
+
+    seq.data [B, T, D] pre-projected inputs; bias [D].  Returns
+    (SequenceBatch of h [B, T, D] zeroed at padding, final h [B, D])."""
+    b, _, d = seq.data.shape
+    x = seq.data if bias is None else seq.data + bias
+    xs = x.transpose(0, 1)                         # time-major [T, B, D]
+    ms = seq.mask(x.dtype).transpose(0, 1)         # [T, B]
+
+    if _rnn_kernel.supported(b, d, act, init_state):
+        return _fused_seq_apply(
+            seq, xs, ms, reverse,
+            lambda x_, m_: _rnn_kernel.simple_rnn_fused(x_, m_, w_r))
+
+    if init_state is None:
+        init_state = x.new_zeros((b, d))
+
+    def step(carry, xt):
+        return _HCarry(simple_rnn_cell(xt, carry.h, w_r, act))
+
+    (final,), (hs,) = _masked_scan(step, _HCarry(init_state), xs, ms,
                                    reverse=reverse)
     out = hs.transpose(0, 1) * seq.mask(hs.dtype)[..., None]
     return SequenceBatch(data=out, lengths=seq.lengths), final

@@ -1,8 +1,9 @@
 """The training benchmarks of ``bench.py``, ported: ``bench_lstm`` (the
-headline), ``bench_transformer`` and ``bench_seq2seq``.
+headline), ``bench_transformer`` and ``bench_seq2seq``; and ``bench_rnn``,
+the layer-DSL slice through ``trainer.SGD``.
 
-    python -m paddle_tpu_torch.scripts.bench [--model lstm|transformer|seq2seq]
-                                             [--hidden 512|1280|2048]
+    python -m paddle_tpu_torch.scripts.bench
+        [--model lstm|transformer|seq2seq|rnn] [--hidden 512|1280|2048]
 
 ``lstm`` (the default) trains the LSTM text classifier at the
 reference's benchmark config (vocab 30000, embedding 128, 2 stacked LSTMs
@@ -15,8 +16,14 @@ dff 2048, 6+6 layers, batch 32, length 256, Adam lr 1e-4, label
 smoothing 0.1, ``full_seq=True``: every attention through the flash
 kernels); ``seq2seq`` trains the attention NMT model (vocab 30000 both
 sides, emb = hidden = attention 512, bi-GRU encoder through the GRU
-kernels, batch 64, lengths 30 / 30, Momentum lr 0.01 m 0.9).  Each runs
-on one fixed random batch and prints one JSON line: ms/batch as the
+kernels, batch 64, lengths 30 / 30, Momentum lr 0.01 m 0.9); ``rnn``
+trains ``models/text_rnn``'s DSL config (the same text classifier with
+two vanilla-RNN layers h=512 through the simple-RNN kernels, Momentum)
+through ``SGD.train_one_batch`` on a new batch each step, the feed
+included, and adds bench.py's FLOP convention (3 x the forward's
+products) and the step's split into feed, forward, backward and update.
+The others run on one fixed random batch.  Each prints one JSON line:
+ms/batch as the
 median of STEPS timed steps after WARMUP (and, for the transformer and
 seq2seq, tokens/s = batch * target length / s, the bench's headline), the
 card's name and power limit as nvidia-smi gives them, and the kernel
@@ -33,7 +40,8 @@ import torch
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core.sequence import SequenceBatch
-from paddle_tpu_torch.models import seq2seq, text_lstm, transformer
+from paddle_tpu_torch.data.feeder import DataFeeder
+from paddle_tpu_torch.models import seq2seq, text_lstm, text_rnn, transformer
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optim import Adam, Momentum
 from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -201,6 +209,74 @@ def bench_seq2seq(batch=64, src_len=30, trg_len=30, vocab=30000, hidden=512,
                         batch * trg_len)
 
 
+class RnnBench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    trainer: object
+    feeder: DataFeeder
+    batches: list
+    tokens_per_step: int
+    flops_per_step: float
+
+
+def rnn_flops(batch, seq_len, hidden):
+    """bench.py's convention for one train step: each layer's input and
+    recurrent products forward, 2 B T H (emb + H + H + H) for the two
+    layers, and the backward at twice the forward."""
+    return 3.0 * 2.0 * batch * seq_len * hidden * (text_rnn.EMB
+                                                   + 3 * hidden)
+
+
+def bench_rnn(batch=text_rnn.BATCH, seq_len=text_rnn.SEQ_LEN,
+              hidden=text_rnn.HIDDEN, vocab=text_rnn.VOCAB, n_batches=8,
+              seed=0, device=None):
+    """``trainer.SGD`` over ``models/text_rnn``'s config (params from a
+    generator seeded 1, SGD's default seed; ``n_batches`` batches of ids
+    drawn from ``seed``).  ``train_step()`` feeds the next batch through
+    ``SGD.train_one_batch`` (DataFeeder, forward, ``backward()``,
+    Momentum in place) and returns the loss."""
+    from paddle_tpu_torch.trainer import SGD
+    dev = _device.resolve(device)
+    trainer = SGD(cost=text_rnn.build(vocab=vocab, hidden=hidden),
+                  update_equation=text_rnn.optimizer(), device=dev)
+    feeder = DataFeeder(text_rnn.feeding(vocab), device=dev)
+    batches = list(text_rnn.batches(seed, n_batches, batch=batch,
+                                    seq_len=seq_len, vocab=vocab)())
+    count = [0]
+
+    def train_step():
+        i = count[0] % len(batches)
+        count[0] += 1
+        return trainer.train_one_batch(batches[i], feeder)
+
+    return RnnBench(train_step, trainer, feeder, batches, batch * seq_len,
+                    rnn_flops(batch, seq_len, hidden))
+
+
+def step_split(trainer, feeder, batches, steps):
+    """Median ms of each part of ``trainer``'s step over ``steps`` steps
+    on ``batches`` in turn, each part ending in a synchronize: the feed
+    (DataFeeder, host to device), the forward (graph walk and kernels),
+    ``backward()`` and the optimizer update."""
+    parts = {"feed": [], "forward": [], "backward": [], "update": []}
+    for i in range(steps):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        feed = feeder(batches[i % len(batches)])
+        mark()
+        total, _ = trainer._forward(feed)
+        mark()
+        trainer._backward(total)
+        mark()
+        trainer._update()
+        mark()
+        for name, a, b in zip(parts, marks, marks[1:]):
+            parts[name].append((b - a) * 1e3)
+    return {name: float(np.median(v)) for name, v in parts.items()}
+
+
 def _timed(train_step):
     """WARMUP steps, then STEPS timed ones (each ending in a synchronize)
     with the launch counters reset before them: (times ms, losses)."""
@@ -220,12 +296,36 @@ def _timed(train_step):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq"),
-                    default="lstm")
+    ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq",
+                                        "rnn"), default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
                     help="the LSTM's hidden size (--model lstm)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
+    if args.model == "rnn":
+        bench = bench_rnn(device=dev)
+        times, losses = _timed(bench.train_step)
+        ms = float(np.median(times))
+        rk = kernels.simple_rnn
+        print(json.dumps({
+            "bench": "rnn_textclass_dsl", "card": _device.card(),
+            "config": {"vocab": text_rnn.VOCAB, "emb": text_rnn.EMB,
+                       "hidden": text_rnn.HIDDEN, "layers": text_rnn.LAYERS,
+                       "batch": text_rnn.BATCH, "seq_len": text_rnn.SEQ_LEN,
+                       "optimizer": "Momentum lr 0.01 m 0.9",
+                       "entry": "trainer.SGD.train_one_batch"},
+            "steps": STEPS, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "tokens_per_s": bench.tokens_per_step / (ms / 1e3),
+            "flops_per_step": bench.flops_per_step,
+            "tflop_per_s": bench.flops_per_step / (ms / 1e3) / 1e12,
+            "loss_first_last": [losses[0], losses[-1]],
+            "launches": {rk.NAME_FWD: rk.launches_fwd,
+                         rk.NAME_BWD: rk.launches_bwd},
+            "split_ms": step_split(bench.trainer, bench.feeder,
+                                   bench.batches, STEPS),
+        }), flush=True)
+        return 0
     if args.model == "seq2seq":
         bench = bench_seq2seq(device=dev)
         times, losses = _timed(bench.train_step)

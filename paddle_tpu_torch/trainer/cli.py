@@ -1,0 +1,123 @@
+"""CLI driver: ``python -m paddle_tpu_torch train|test``
+(``paddle_tpu/trainer/cli.py``; reference trainer/TrainerMain.cpp).
+
+Usage:
+  python -m paddle_tpu_torch train --config my_config.py [--num_passes N]
+       [--save_dir DIR] [--config_args k=v,...] [--device cpu|cuda]
+  python -m paddle_tpu_torch test --config my_config.py --model_dir DIR
+
+The config file is a Python script defining ``get_config()`` returning a
+dict, with ``CONFIG_ARGS`` (the parsed ``--config_args``) in its
+namespace:
+  {"cost": LayerOutput, "optimizer": optim optimizer,
+   "train_reader": reader, "test_reader": reader (optional),
+   "feeding": {name: InputType}, "save_dir": DIR (optional)}
+Layers are built with ``paddle_tpu_torch.layers``.  The job runs on the
+card unless ``--device cpu``.  v1 ``trainer_config_helpers`` configs
+(``settings()`` / ``outputs()``) wait for ROADMAP A11; the JAX CLI's
+mesh, dtype, prefetch, profiling and ``time`` / ``checkgrad`` /
+``merge_model`` jobs wait for their items.
+"""
+
+import argparse
+import runpy
+import sys
+
+from paddle_tpu_torch.utils.error import ConfigError
+
+
+def _load_config(path, config_args):
+    """Run a config script defining ``get_config()``; return its dict."""
+    with open(path) as f:
+        src = f.read()
+    if "def get_config" not in src:
+        raise ConfigError(f"{path}: no get_config(); v1 "
+                          "trainer_config_helpers configs are not ported "
+                          "yet (ROADMAP A11)")
+    # fresh layer-name registry per invocation: a second main() in the
+    # same process (train then test) must mint the SAME layer names, or
+    # loaded params won't match the rebuilt graph
+    from paddle_tpu_torch.layers.graph import reset_names
+    reset_names()
+    ns = runpy.run_path(path, init_globals={"CONFIG_ARGS": config_args})
+    return ns["get_config"]()
+
+
+def _parse_config_args(s):
+    out = {}
+    if s:
+        for kv in s.split(","):
+            k, _, v = kv.partition("=")
+            out[k.strip()] = v.strip()
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="paddle_tpu_torch")
+    sub = parser.add_subparsers(dest="job", required=True)
+
+    def add_common(p):
+        p.add_argument("--config", required=True)
+        p.add_argument("--config_args", default="",
+                       help="k=v,k=v passed to the config script")
+        p.add_argument("--device", default=None, choices=["cpu", "cuda"],
+                       help="where the job runs (default: the card)")
+
+    t = sub.add_parser("train")
+    add_common(t)
+    t.add_argument("--num_passes", type=int, default=1)
+    t.add_argument("--save_dir", default=None)
+    t.add_argument("--saving_period", type=int, default=1)
+    t.add_argument("--save_only_one", action="store_true")
+    t.add_argument("--start_pass", type=int, default=0,
+                   help="load pass START_PASS - 1 of --save_dir before "
+                        "training")
+    t.add_argument("--log_period", type=int, default=100)
+    t.add_argument("--test_period", type=int, default=0)
+    t.add_argument("--show_parameter_stats_period", type=int, default=0)
+
+    te = sub.add_parser("test")
+    add_common(te)
+    te.add_argument("--model_dir", required=True)
+    te.add_argument("--test_pass", type=int, default=None)
+
+    args = parser.parse_args(argv)
+    cfg = _load_config(args.config, _parse_config_args(args.config_args))
+
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.trainer.trainer import SGD
+    optimizer = cfg.get("optimizer")
+    if optimizer is None:
+        # the JAX CLI's default (its v1 settings() default)
+        optimizer = optim.Momentum(learning_rate=1e-3, momentum=0.0)
+    trainer = SGD(cost=cfg["cost"], update_equation=optimizer,
+                  sharding_rules=cfg.get("sharding_rules"),
+                  evaluators=cfg.get("evaluators"), device=args.device)
+
+    if args.job == "train":
+        save_dir = args.save_dir or cfg.get("save_dir")
+        if args.start_pass:
+            if not save_dir:
+                raise SystemExit("--start_pass needs --save_dir (or a "
+                                 "save_dir in the config)")
+            trainer.load(save_dir, args.start_pass - 1)
+        trainer.train(cfg["train_reader"], num_passes=args.num_passes,
+                      feeding=cfg.get("feeding"), save_dir=save_dir,
+                      saving_period=args.saving_period,
+                      save_only_one=args.save_only_one,
+                      test_reader=cfg.get("test_reader"),
+                      test_period=args.test_period,
+                      log_period=args.log_period,
+                      show_parameter_stats_period=
+                      args.show_parameter_stats_period)
+        return 0
+
+    trainer.load(args.model_dir, args.test_pass)
+    cost = trainer.test(cfg.get("test_reader") or cfg["train_reader"],
+                        feeding=cfg.get("feeding"))
+    print(f"test cost: {cost:.5f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
