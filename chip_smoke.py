@@ -45,7 +45,10 @@ non-zero exit code and no final "ok" line:
             timed with CUDA events beside the plain version, one
             PyTorch library call computing the same function (a
             yardstick the port never calls; none exists for the int8
-            kernels) and the least time the card could take
+            kernels) and the least time the card could take (for the
+            3xTF32 flash forward, its int8 instance and dK/dV at the
+            tensor cores' rate, the float32 SIMT bound and the ratio to
+            the library call beside it)
   generate  lm_generate on the full-width Transformer-base LM (vocab
             32000, d_model 512, 8 heads, dff 2048, 6 layers), batch 32,
             prompt 32, max_len 160, greedy: the flash kernel launches
@@ -160,10 +163,16 @@ import urllib.request
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores (both kernels compute in f32)
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores (the SIMT kernels), and the
+# tensor cores' dense TF32 rate (495 TFLOP/s) over 3: the flash forward,
+# its int8 instance and the dK/dV kernel run each float32 product as
+# three TF32 ones (3xTF32), so their least time is the float32 FLOPs over
+# PEAK_3XTF32_FLOPS.  Their rows also keep the float32 SIMT bound beside
+# it (bound_f32_simt_ms), comparable with the earlier rows.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 
 # Kernel vs plain version on the same inputs: float32 with TF32 off on
 # both sides, summed in different orders (tiled online softmax vs a
@@ -349,10 +358,21 @@ def normal(rng, shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_bound(row, nbytes, flops):
+    """A 3xTF32 kernel's row: bound_ms / bound_by at the tensor-core
+    peak, bound_f32_simt_ms at the float32 SIMT one, and library_ratio =
+    ms / library_ms where both were timed."""
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                             PEAK_3XTF32_FLOPS)
+    row["bound_f32_simt_ms"] = bound(nbytes, flops)[0]
+    if row.get("library_ms"):
+        row["library_ratio"] = row["ms"] / row["library_ms"]
 
 
 # ------------------------------------------------------------- kernels
@@ -581,7 +601,7 @@ def check_flash_kernel(torch, dev, rng, b, t, timed):
             q, k, v, causal=True)),
         library_ms=time_ms(torch, lambda: sdpa(q, k, v, is_causal=True)),
         bytes=nbytes, flops=flops)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    tc_bound(row, nbytes, flops)
     return row
 
 
@@ -664,7 +684,7 @@ def check_flash_train(torch, dev, rng):
                "library_ms": time_ms(torch, lambda: sdpa(
                    q, k, v, is_causal=causal), samples=20, reps=5),
                "bytes": cost["fwd"][0], "flops": cost["fwd"][1]}
-        fwd["bound_ms"], fwd["bound_by"] = bound(*cost["fwd"])
+        tc_bound(fwd, *cost["fwd"])
         fwd_rows[causal] = fwd
 
         row, (q, k, v, o, lse, do) = flash_bwd_pair(torch, dev, rng, b, h,
@@ -691,7 +711,11 @@ def check_flash_train(torch, dev, rng):
                  "bytes": cost[key][0], "flops": cost[key][1],
                  "rel_err": row["rel_err"],
                  "max_abs_err": row["max_abs_err"]}
-            r["bound_ms"], r["bound_by"] = bound(*cost[key])
+            if key == "dkv":
+                tc_bound(r, *cost[key])
+            else:
+                r["bound_ms"], r["bound_by"] = bound(*cost[key])
+                r["library_ratio"] = r["ms"] / library
             rows.setdefault(name, {})[causal] = r
     for bb, hh, tq, tk, d, causal in ((2, 2, 200, 136, MT_DH, False),
                                       (2, 2, 200, 200, MT_DH, True),
@@ -872,7 +896,7 @@ def check_flash_quant_kernel(torch, dev, rng, b, t, hkv, timed):
         ms=time_ms(torch, run), f32_kernel_ms=time_ms(torch, f32),
         plain_ms=time_ms(torch, plain), library_ms=None,
         library_note=I8_LIBRARY_NOTE, bytes=nbytes, flops=flops)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    tc_bound(row, nbytes, flops)
     return row
 
 
@@ -2892,7 +2916,9 @@ def main(argv=None):
             "replaces": mod.REPLACES, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **{key: row[key] for key in ("bound_f32_simt_ms",
+                                         "library_ratio") if key in row}})
     # the forward on the train path: its launches in train_transformer
     # and its non-causal time at the train shape beside the prefill row
     train_fwd = flash_train[False]
@@ -2902,8 +2928,10 @@ def main(argv=None):
                   "causal": False},
         **{key: train_fwd[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
-        "causal_ms": flash_train[True]["ms"]}
+            "bound_f32_simt_ms", "library_ms", "library_ratio")},
+        "causal": {key: flash_train[True][key] for key in (
+            "ms", "bound_ms", "bound_f32_simt_ms", "library_ms",
+            "library_ratio")}}
     fk = kernels.flash_attention
     for name, replaces in ((fk.NAME_BWD_DKV, fk.REPLACES_BWD_DKV),
                            (fk.NAME_BWD_DQ, fk.REPLACES_BWD_DQ)):
@@ -2918,8 +2946,11 @@ def main(argv=None):
             "library_ms": row["library_ms"],
             "shape": {"B": MT_BATCH, "H": MT_HEADS, "T": MT_SEQ,
                       "dh": MT_DH, "causal": False},
+            **{key: row[key] for key in ("bound_f32_simt_ms",
+                                         "library_ratio") if key in row},
             "causal": {key: causal_row[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "bound_f32_simt_ms", "library_ratio") if key in causal_row},
             "library_note": "scaled_dot_product_attention's backward alone "
                             "(autograd.grad over a retained graph): it "
                             "computes dq, dk and dv together, so the same "
@@ -3030,7 +3061,8 @@ def main(argv=None):
             "ms": row["ms"], "f32_kernel_ms": row["f32_kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "library_note": row["library_note"]})
+            "library_note": row["library_note"],
+            **{key: row[key] for key in ("bound_f32_simt_ms",) if key in row}})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
