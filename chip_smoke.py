@@ -31,7 +31,8 @@ non-zero exit code and no final "ok" line:
             the cost of one grid barrier timed alone; the gate-blocked
             LSTM forward, both variants, at T=100, B=64, D=1280 and 2048
             on full rows and on a ragged mask with an empty row, at D=640
-            and odd T (B=64), B=256 with D=512 and B=8 with D=3456; a
+            and odd T (B=64), B=256 with D=512, B=8 with D=3456 and
+            B=72 with D=2432; a
             reverse rnn.lstm at B=8 through the resident kernels, and
             rnn.lstm at B=5 and with act="relu" through the masked scan
             on the card, held against the CPU, launching no kernel; the
@@ -46,9 +47,17 @@ non-zero exit code and no final "ok" line:
             PyTorch library call computing the same function (a
             yardstick the port never calls; none exists for the int8
             kernels) and the least time the card could take (for the
-            3xTF32 flash forward, its int8 instance and dK/dV at the
-            tensor cores' rate, the float32 SIMT bound and the ratio to
-            the library call beside it)
+            3xTF32 flash forward, its int8 instance, dK/dV, dQ and the
+            gate-blocked LSTM forward at the tensor cores' rate, the
+            float32 SIMT bound and the ratio to the library call beside
+            it; for the blocked forward also the time W_r takes to
+            stream from HBM once a step)
+  flash_dh96  the flash forward and backward pair at head dim 96, which
+            the wrappers zero-pad to the compiled 128, against the plain
+            versions at dh 96 (causal T 256, non-causal Tq 200 / Tk 136),
+            and dot_product_attention's flash route at B 2, H 8, T 256:
+            one launch of each flash kernel, gradients against autograd
+            of the plain forward
   generate  lm_generate on the full-width Transformer-base LM (vocab
             32000, d_model 512, 8 heads, dff 2048, 6 layers), batch 32,
             prompt 32, max_len 160, greedy: the flash kernel launches
@@ -166,10 +175,12 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
 # float32 FLOP/s outside the tensor cores (the SIMT kernels), and the
 # tensor cores' dense TF32 rate (495 TFLOP/s) over 3: the flash forward,
-# its int8 instance and the dK/dV kernel run each float32 product as
-# three TF32 ones (3xTF32), so their least time is the float32 FLOPs over
-# PEAK_3XTF32_FLOPS.  Their rows also keep the float32 SIMT bound beside
-# it (bound_f32_simt_ms), comparable with the earlier rows.
+# its int8 instance, the dK/dV and dQ kernels and the gate-blocked LSTM
+# forward run each float32 product as three TF32 ones (3xTF32), so their
+# least time is the float32 FLOPs over PEAK_3XTF32_FLOPS.  Their phase
+# rows also keep the float32 SIMT bound beside it (bound_f32_simt_ms),
+# comparable with the earlier rows; the `kernels` line carries bound_ms
+# alone.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
@@ -214,16 +225,23 @@ LSTM_REL_TOL = 1e-4
 # The gate-blocked LSTM forward at the lstm1280 / lstm2048 train shape
 # (T=100, B=64; timed at both D on full rows) and across the range
 # lstm_blocked.supported admits: D 640 and odd T at B 64, B 256 with
-# D 512, and the largest D at B 8 (3456), each on a ragged mask with an
-# empty row, against its plain version within KERNEL_TOL.  W_r is drawn
+# D 512, the largest D at B 8 (3456), and B 72 with D 2432, where the
+# kernel halves its pass to fit shared memory, each on a ragged mask
+# with an empty row, against its plain version within KERNEL_TOL.  W_r is drawn
 # at the model's own init scale, std 1/sqrt(D) (text_lstm.init): at the
 # JAX tests' 0.1 the recurrent gain 0.1 sqrt(D) is 3.6 at D=1280, and
 # 100 steps of it amplify float32 rounding to O(0.1) between any two
 # summation orders, two plain versions included (BLK_GAIN_PROBE shows it
 # at D=1280: kernel vs plain beside plain on the card vs plain on the CPU).
 BLK_T, BLK_B = 100, 64
+# Every blocked check is also held within BLK_TC_TOL, the gate that tells
+# 3xTF32 from one TF32 pass: at the train shapes one pass (a_big b_big)
+# lands at 6e-5 to 8e-5 from the plain version, under KERNEL_TOL, and
+# 3xTF32 at ~4e-7 (scripts/probe_lstm_blocked.py, `tf32_1x` and `kernel`).
+BLK_TC_TOL = 1e-5
 BLK_TIMED = (1280, 2048)
-BLK_OTHER = ((100, 64, 640), (37, 64, 1280), (9, 256, 512), (15, 8, 3456))
+BLK_OTHER = ((100, 64, 640), (37, 64, 1280), (9, 256, 512), (15, 8, 3456),
+             (5, 72, 2432))
 BLK_GAIN_PROBE = 0.1
 # Card (kernels) vs CPU (plain versions) on the first train step: the
 # loss, every gradient leaf, and every param leaf and ``mom`` slot after
@@ -270,6 +288,10 @@ MT_PRE_TOL = 2e-5
 MT_GRAD_TOL = 4e-3
 MT_WARMUP, MT_STEPS = 2, 10
 MT_ATTENTIONS = 18
+# The flash route at a head dim between the compiled ones (JAX's kernel
+# takes any up to 128; the port's wrappers pad it to the next compiled
+# width), held like the train shape's checks.
+FLASH_PADDED_DH = 96
 # The GRU kernels at the seq2seq train path's shape (bench_seq2seq's
 # encoder: T=30, B=64, h=512) against their plain versions, held as the
 # LSTM pair is (hs, acts and dxs within LSTM_TOL absolute, dW_gate and
@@ -608,15 +630,16 @@ def check_flash_kernel(torch, dev, rng, b, t, timed):
 def flash_bwd_cost(bh, tq, tk, dh, causal):
     """(bytes, flops) of the forward, the dK/dV and the dQ kernel: each
     input read once and each output written once (lse and delta [BH, Tq]
-    besides the [BH, T, dh] operands), and the products over the (q, k)
-    pairs the mask leaves (a causal row t needs t + 1 columns): the
-    forward 2 (s, p v), dK/dV 4 (s, dp, dv, dk), dQ 3 (s, dp, dq), each
-    2 * dh FLOPs per pair."""
+    besides the [BH, T, dh] operands; the dQ kernel reads q, do, o, k, v
+    and lse and writes dq and delta, which dK/dV reads beside q, do, k,
+    v and lse), and the products over the (q, k) pairs the mask leaves
+    (a causal row t needs t + 1 columns): the forward 2 (s, p v), dK/dV
+    4 (s, dp, dv, dk), dQ 3 (s, dp, dq), each 2 * dh FLOPs per pair."""
     pairs = bh * (tq * (tq + 1) // 2 if causal else tq * tk)
     q_side, k_side, row = bh * tq * dh, bh * tk * dh, bh * tq
     return {"fwd": (4 * (2 * q_side + 2 * k_side + row), 4 * dh * pairs),
             "dkv": (4 * (2 * q_side + 4 * k_side + 2 * row), 8 * dh * pairs),
-            "dq": (4 * (3 * q_side + 2 * k_side + 2 * row), 6 * dh * pairs)}
+            "dq": (4 * (4 * q_side + 2 * k_side + 2 * row), 6 * dh * pairs)}
 
 
 def flash_bwd_pair(torch, dev, rng, b, h, tq, tk, dh, causal):
@@ -691,7 +714,7 @@ def check_flash_train(torch, dev, rng):
                                                     t, t, dh, causal)
         checks.append(row)
         scale = 1.0 / math.sqrt(dh)
-        delta = (do * o).sum(-1)
+        _, delta = fk.bwd_dq_kernel(q, k, v, o, lse, do, scale, causal)
         qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
         lib_out = sdpa(qg, kg, vg, is_causal=causal)
         library = time_ms(torch, lambda: torch.autograd.grad(
@@ -703,7 +726,7 @@ def check_flash_train(torch, dev, rng):
                 (fk.NAME_BWD_DKV, lambda: fk.bwd_dkv_kernel(
                     q, k, v, do, lse, delta, scale, causal)),
                 (fk.NAME_BWD_DQ, lambda: fk.bwd_dq_kernel(
-                    q, k, v, do, lse, delta, scale, causal))):
+                    q, k, v, o, lse, do, scale, causal))):
             key = "dkv" if name == fk.NAME_BWD_DKV else "dq"
             r = {"causal": causal, "ms": time_ms(torch, fn, samples=20,
                                                   reps=5),
@@ -711,11 +734,7 @@ def check_flash_train(torch, dev, rng):
                  "bytes": cost[key][0], "flops": cost[key][1],
                  "rel_err": row["rel_err"],
                  "max_abs_err": row["max_abs_err"]}
-            if key == "dkv":
-                tc_bound(r, *cost[key])
-            else:
-                r["bound_ms"], r["bound_by"] = bound(*cost[key])
-                r["library_ratio"] = r["ms"] / library
+            tc_bound(r, *cost[key])
             rows.setdefault(name, {})[causal] = r
     for bb, hh, tq, tk, d, causal in ((2, 2, 200, 136, MT_DH, False),
                                       (2, 2, 200, 200, MT_DH, True),
@@ -726,6 +745,66 @@ def check_flash_train(torch, dev, rng):
         checks.append(flash_bwd_pair(torch, dev, rng, bb, hh, tq, tk, d,
                                      causal)[0])
     return fwd_rows, rows, checks
+
+
+def check_flash_padded(torch, dev, rng, kernels):
+    """The flash route at a head dim between the compiled ones (dh
+    FLASH_PADDED_DH, which the wrappers zero-pad to 128): the forward
+    (max abs err of o and lse, bound KERNEL_TOL) and the backward pair
+    (each output relative to its largest magnitude, bound MT_REL_TOL,
+    and bit for bit over two runs) against the plain versions computed
+    at the true dh, causal at the MT train shape's T 256 (B 2) and
+    non-causal Tq 200 / Tk 136; then dot_product_attention's flash route
+    forward and backward at B 2, H 8, T 256, causal, which must launch
+    the forward, dQ and dK/dV kernels once each, its gradients held
+    against autograd of the plain forward at MT_REL_TOL."""
+    from paddle_tpu_torch.ops import attention as attn_ops
+    fk = kernels.flash_attention
+    dh, b, h, t = FLASH_PADDED_DH, 2, MT_HEADS, MT_SEQ
+    fwd = {}
+    for causal, tq, tk in ((True, t, t), (False, 200, 136)):
+        q = torch.tensor(normal(rng, (b, h, tq, dh)), device=dev)
+        k, v = (torch.tensor(normal(rng, (b, h, tk, dh)), device=dev)
+                for _ in range(2))
+        o, lse = fk.flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = fk.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        fwd[f"causal{int(causal)}"] = max(
+            float((o - o_ref).abs().max()),
+            float((lse - lse_ref).abs().max()))
+    bad = {key: e for key, e in fwd.items() if not e <= KERNEL_TOL}
+    if bad:
+        fail(f"flash_attention at dh {dh} disagrees with its plain version:"
+             f" {bad} (bound {KERNEL_TOL})")
+    pairs = [flash_bwd_pair(torch, dev, rng, b, h, tq, tk, dh, causal)[0]
+             for causal, tq, tk in ((True, t, t), (False, 200, 136))]
+    q, k, v, do = (torch.tensor(normal(rng, (b, h, t, dh)), device=dev)
+                   for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kernels.reset_launches()
+    out = attn_ops.dot_product_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launched = {fk.NAME: fk.launches, fk.NAME_BWD_DQ: fk.launches_bwd_dq,
+                fk.NAME_BWD_DKV: fk.launches_bwd_dkv}
+    if launched != dict.fromkeys(launched, 1):
+        fail(f"dot_product_attention at dh {dh}: launches {launched}, "
+             "want one of each flash kernel")
+    ref_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = fk.flash_attention_plain(*ref_leaves, causal=True)[0]
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+    rel = {n: float((x.grad - r).abs().max() / r.abs().max())
+           for n, x, r in zip(("dq", "dk", "dv"), leaves, ref_grads)}
+    rel["o"] = float((out - ref).detach().abs().max()
+                     / ref.detach().abs().max())
+    if not max(rel.values()) <= MT_REL_TOL:
+        fail(f"dot_product_attention at dh {dh} disagrees with autograd of "
+             f"the plain forward: {rel} (bound {MT_REL_TOL})")
+    return {"phase": "flash_dh96", "dh": dh, "padded_to":
+            fk.padded_head_dim(dh), "forward_max_abs_err": fwd,
+            "backward_checks": pairs, "route": {
+                "shape": {"B": b, "H": h, "T": t, "causal": True},
+                "launches": launched, "rel_err_vs_autograd_of_plain": rel}}
 
 
 def quantized(torch, dev, rng, shape, hkv):
@@ -1212,6 +1291,10 @@ def blocked_check(torch, dev, rng, t, b, d, ragged):
         fail(f"lstm_blocked_fwd (T={t}, B={b}, D={d}, ragged={ragged}) "
              f"disagrees with its plain version: max abs err {err} (bound "
              f"{KERNEL_TOL})")
+    if not err <= BLK_TC_TOL:
+        fail(f"lstm_blocked_fwd (T={t}, B={b}, D={d}, ragged={ragged}): "
+             f"max abs err {err} exceeds the 3xTF32 gate {BLK_TC_TOL} (one "
+             f"TF32 pass lands above it)")
     if ragged and got[0][:, 0].any():
         fail("lstm_blocked_fwd: the empty row's hs is not exactly 0")
     calls = (lambda: bk.lstm_blocked_fwd(xs, mask, w_r, checks, True),
@@ -1241,7 +1324,11 @@ def check_blocked_kernel(torch, dev, rng):
             library_note="no single PyTorch call computes this function: "
                          "cuDNN's LSTM has no peepholes and no masked "
                          "carry freeze", bytes=nbytes, flops=flops)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        tc_bound(row, nbytes, flops)
+        # W_r read again at each of the T - 1 steps with a product, from
+        # HBM: what a W_r streamed every step costs where it outgrows L2
+        row["bound_w_r_streamed_ms"] = (BLK_T - 1) * 4 * d * 4 * d \
+            / PEAK_BYTES_S * 1e3
         timed[d] = row
     other = [blocked_check(torch, dev, rng, t, b, d, True)[0]
              for t, b, d in BLK_OTHER]
@@ -2853,6 +2940,7 @@ def main(argv=None):
     blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
     (rnn_fwd, rnn_bwd), rnn_other = check_rnn_kernels(torch, dev, rng)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
+          "lstm_blocked_3xtf32_tolerance": BLK_TC_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
           "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
           "checks": [chunk, chunk_gqa, flash, flash_ragged, lstm_fwd,
@@ -2876,6 +2964,8 @@ def main(argv=None):
           "simple_rnn_train_shape": [rnn_fwd, rnn_bwd],
           "simple_rnn_other": rnn_other,
           "simple_rnn_routes": check_rnn_routes(torch, dev, rng, kernels)})
+
+    emit(check_flash_padded(torch, dev, rng, kernels))
 
     params = transformer.init_lm(
         torch.Generator().manual_seed(args.seed), VOCAB, D_MODEL, HEADS,
@@ -2916,9 +3006,7 @@ def main(argv=None):
             "replaces": mod.REPLACES, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{key: row[key] for key in ("bound_f32_simt_ms",
-                                         "library_ratio") if key in row}})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     # the forward on the train path: its launches in train_transformer
     # and its non-causal time at the train shape beside the prefill row
     train_fwd = flash_train[False]
@@ -2928,10 +3016,9 @@ def main(argv=None):
                   "causal": False},
         **{key: train_fwd[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "bound_f32_simt_ms", "library_ms", "library_ratio")},
+            "library_ms")},
         "causal": {key: flash_train[True][key] for key in (
-            "ms", "bound_ms", "bound_f32_simt_ms", "library_ms",
-            "library_ratio")}}
+            "ms", "bound_ms", "bound_by", "library_ms")}}
     fk = kernels.flash_attention
     for name, replaces in ((fk.NAME_BWD_DKV, fk.REPLACES_BWD_DKV),
                            (fk.NAME_BWD_DQ, fk.REPLACES_BWD_DQ)):
@@ -2946,11 +3033,8 @@ def main(argv=None):
             "library_ms": row["library_ms"],
             "shape": {"B": MT_BATCH, "H": MT_HEADS, "T": MT_SEQ,
                       "dh": MT_DH, "causal": False},
-            **{key: row[key] for key in ("bound_f32_simt_ms",
-                                         "library_ratio") if key in row},
             "causal": {key: causal_row[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "bound_f32_simt_ms", "library_ratio") if key in causal_row},
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "library_note": "scaled_dot_product_attention's backward alone "
                             "(autograd.grad over a retained graph): it "
                             "computes dq, dk and dv together, so the same "
@@ -2980,8 +3064,8 @@ def main(argv=None):
                                      "bound_by", "library_ms",
                                      "library_note")},
         "shape": {"T": BLK_T, "B": BLK_B, "D": BLK_TIMED[0]},
-        **{f"D{d}": {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}
+        **{f"D{d}": {key: r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
            for d, r in blk_timed.items() if d != BLK_TIMED[0]}})
     for row, replaces in ((gru_fwd, kernels.gru.REPLACES_FWD),
                           (gru_bwd, kernels.gru.REPLACES_BWD)):
@@ -3061,8 +3145,7 @@ def main(argv=None):
             "ms": row["ms"], "f32_kernel_ms": row["f32_kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "library_note": row["library_note"],
-            **{key: row[key] for key in ("bound_f32_simt_ms",) if key in row}})
+            "library_note": row["library_note"]})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

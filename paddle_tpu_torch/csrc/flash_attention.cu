@@ -8,7 +8,8 @@
 //     and every attention of the training path (full_seq=True);
 //   flash_attention backward (_bwd :264): _bwd_dkv_kernel (body :172,
 //     pallas_call :276) and _bwd_dq_kernel (body :221, pallas_call :304)
-//     -- the custom_vjp of the training path;
+//     with _bwd's delta = rowsum(do * o) (:269) -- the custom_vjp of the
+//     training path;
 //   flash_attention_quant (:507; pallas_call :554; body _fwd_quant_kernel
 //     :458) -- the same pass of lm_prefill(kv_dtype="int8") over the
 //     just-quantized cache.
@@ -35,7 +36,7 @@
 //   (b, g) K/V stripe by row strides D and Dkv; the float32 entry is the
 //   case H = Hkv = 1 over BH batch rows.
 //
-// Products (forward and dK/dV): mma.sync.m16n8k8 TF32 tensor-core
+// Products (all four kernels): mma.sync.m16n8k8 TF32 tensor-core
 //   instructions in the 3xTF32 split, accumulated in float32 registers.
 //   Each float32 operand x is split into big = x rounded to TF32 (a
 //   10-bit mantissa; nearest, ties away from zero: what cvt.rna.tf32.f32
@@ -76,12 +77,14 @@
 //   operand element, per warp) and of the float32 adds beside the
 //   mma.sync pipe, at 2 CTAs an SM (registers).
 //
-// Backward (flash_attention_bwd_dkv_f32, flash_attention_bwd_dq_f32):
+// Backward (flash_attention_bwd_dq_f32, then flash_attention_bwd_dkv_f32):
 //   FlashAttention-2 as the TPU kernels compute it.  The caller supplies
-//   the forward's lse [BH, Tq] and delta = rowsum(do * o) [BH, Tq]; both
-//   kernels recompute s = q k^T * scale (masked at -1e30, so p is exactly
-//   0 there), p = exp(s - lse), dp = do v^T and ds = p (dp - delta) scale.
-//   dK/dV: dV = p^T do, dK = ds^T q.  dQ: dQ = ds k.
+//   the forward's o and lse [BH, Tq]; the dQ kernel, launched first,
+//   writes delta = rowsum(do * o) [BH, Tq] (the TPU _bwd leaves it to
+//   XLA) beside dq, and the dK/dV kernel reads it.  Both recompute s = q
+//   k^T * scale (masked at -1e30, so p is exactly 0 there), p = exp(s -
+//   lse), dp = do v^T and ds = p (dp - delta) scale.  dK/dV: dV = p^T
+//   do, dK = ds^T q.  dQ: dQ = ds k.
 //   Bound on this card: operations at the training shape (4 resp. 3
 //   products of T x T x dh per (b, h), ~40 FLOPs per byte moved).
 //   Every output row belongs to exactly one CTA (no atomics: the result
@@ -95,14 +98,18 @@
 //   rows as A fragments), turns them into P^T and dS^T in place, and
 //   accumulates dV += P^T dO and dK += dS^T Q in registers: four 3xTF32
 //   products.  What bounds it now: as the forward.
-//   dQ design (SIMT, unchanged): one CTA per (b*h, 32-row q tile); it
-//   loops over 32-row K/V tiles up to the diagonal (the tiles after it
-//   are skipped), each of 8 warps owning 4 q rows and lane c scoring K
-//   column c, and accumulates dQ += ds k with the ds broadcast by
-//   shuffle.  A q row past Tq contributes nothing (p = 0) and a K column
-//   past Tk gets p = 0.  Four 32 x (dh + 1) float tiles take 66 KB at dh
-//   128, so it uses dynamic shared memory too.  Later work (ROADMAP):
-//   tensor-core products for dQ, delta fused into it.
+//   dQ design: the forward's tiling -- one CTA per (b*h, 64 q rows), 16
+//   q rows a warp, a loop over 64-row K/V tiles up to the diagonal when
+//   causal, K/V through a kDqStages-deep cp.async ring (pitch dh + 4).
+//   The CTA's q and dO rows are staged once into shared memory, where
+//   the warp reads its A fragments at every k-step (held in registers
+//   they took 64 more floats a lane at dh 64 and spilled at 255:
+//   scripts/probe_flash.py, `dq_regs`).  Per K/V tile a warp computes S = Q K^T and dP = dO V^T,
+//   turns S into dS in registers and accumulates dQ += dS K with dS as
+//   the A fragment (the C -> A permutation of the forward's P V): three
+//   3xTF32 products.  delta comes from the staged dO and a read of o.
+//   A q row past Tq gets p = 0 and is not written; a K column past Tk
+//   is masked.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -688,175 +695,222 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------- backward dQ
 
-constexpr int kWarps = 8;
-constexpr int kTile = 32;
-constexpr int kBwdRows = kTile / kWarps;      // rows per warp (4)
+constexpr int kDqWarps = 4;       // 16 q rows each
+constexpr int kDqStages = 2;      // cp.async ring depth
+constexpr int kDqThreads = kDqWarps * 32;
 
 template <int DH>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * kTile * (DH + 1) + 2 * kTile);
+  return sizeof(float) * (DH + 4) * (2 * kDqWarps * 16 + kDqStages * 2 * kKv);
 }
 
-// Rows [r0, r0 + kTile) of a [T, DH] matrix into a shared tile with row
-// stride DH + 1, zero past T.
+// blockIdx.x = b*h, blockIdx.y = q tile.  q/do/o/dq [BH, Tq, DH], k/v
+// [BH, Tk, DH], lse [BH, Tq]; writes delta [BH, Tq] = rowsum(do o) for
+// the dK/dV kernel launched after it.
 template <int DH>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int T) {
-  constexpr int kVec = DH / 4;
-  for (int e = threadIdx.x; e < kTile * kVec; e += kWarps * 32) {
-    const int row = e / kVec, c = (e % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < T)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + row) * DH + c);
-    float* d = dst + row * (DH + 1) + c;
-    d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
-  }
-}
-
-// Entries [r0, r0 + kTile) of a [T] vector into shared memory, zero past T.
-__device__ __forceinline__ void stage_vec(float* dst, const float* src,
-                                          int r0, int T) {
-  if (threadIdx.x < kTile)
-    dst[threadIdx.x] = r0 + threadIdx.x < T ? src[r0 + threadIdx.x] : 0.f;
-}
-
-// blockIdx.x = b*h, blockIdx.y = q tile.  Layouts as flash_bwd_dkv_kernel;
-// dq [BH, Tq, DH].
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kDqThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int Tq, int Tk, float scale, int causal) {
-  constexpr int kPerLane = (DH + 31) / 32;
-  constexpr int kLd = DH + 1;
+                    const float* __restrict__ o,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    float* __restrict__ dq, int Tq, int Tk, float scale,
+                    int causal) {
+  constexpr int kP = DH + 4;
+  constexpr int kBq = kDqWarps * 16;
+  constexpr int kD8 = DH / 8;     // k-steps of S / dP, n-tiles of dQ
+  constexpr int kChunks = DH / 4;
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * kLd;
-  float* qs = vs + kTile * kLd;
-  float* dos = qs + kTile * kLd;
-  float* s_lse = dos + kTile * kLd;
-  float* s_delta = s_lse + kTile;
+  float* qs = smem;
+  float* dos = qs + kBq * kP;
+  float* ring = dos + kBq * kP;
 
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
+  const int q0 = blockIdx.y * kBq;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  stage_rows<DH>(qs, q + bh * Tq * DH, q0, Tq);
-  stage_rows<DH>(dos, dout + bh * Tq * DH, q0, Tq);
-  stage_vec(s_lse, lse + bh * Tq, q0, Tq);
-  stage_vec(s_delta, delta + bh * Tq, q0, Tq);
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w0 = warp * 16;                   // the warp's rows in the tile
+  const int r_lo = q0 + w0 + g, r_hi = r_lo + 8;
+  const float* kb = k + bh * Tk * DH;
+  const float* vb = v + bh * Tk * DH;
+  const int last = causal ? min(q0 + kBq - 1, Tk - 1) : Tk - 1;
+  const int n_tiles = last / kKv + 1;
 
-  float acc[kBwdRows][kPerLane];
-#pragma unroll
-  for (int rr = 0; rr < kBwdRows; ++rr)
-#pragma unroll
-    for (int u = 0; u < kPerLane; ++u) acc[rr][u] = 0.f;
+  // the tile's q and dO rows: the first cp.async group, zero past Tq
+  for (int e = threadIdx.x; e < kBq * kChunks; e += kDqThreads) {
+    const int row = e / kChunks, c = (e % kChunks) * 4;
+    const bool in = q0 + row < Tq;
+    const size_t off = in ? (bh * Tq + q0 + row) * DH + c : 0;
+    cp_async16(qs + row * kP + c, q + off, in);
+    cp_async16(dos + row * kP + c, dout + off, in);
+  }
+  cp_async_commit();
 
-  const float* qr = qs + warp * kBwdRows * kLd;
-  const float* dr = dos + warp * kBwdRows * kLd;
-  // last column any row of this tile needs; the tiles after it are skipped
-  const int k_end = causal ? min(q0 + kTile - 1, Tk - 1) : Tk - 1;
-  for (int t0 = 0; t0 <= k_end; t0 += kTile) {
-    __syncthreads();    // previous tile fully consumed (and q staged)
-    stage_rows<DH>(ks, k + bh * Tk * DH, t0, Tk);
-    stage_rows<DH>(vs, v + bh * Tk * DH, t0, Tk);
-    __syncthreads();
-    const int col = t0 + lane;                  // lane c scores column c
-    const float* kr = ks + lane * kLd;
-    const float* vr = vs + lane * kLd;
-    float s[kBwdRows], dp[kBwdRows];
-#pragma unroll
-    for (int rr = 0; rr < kBwdRows; ++rr) s[rr] = dp[rr] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float kd = kr[d], vd = vr[d];
-#pragma unroll
-      for (int rr = 0; rr < kBwdRows; ++rr) {
-        s[rr] = fmaf(qr[rr * kLd + d], kd, s[rr]);
-        dp[rr] = fmaf(dr[rr * kLd + d], vd, dp[rr]);
-      }
+  // K/V tile j into ring slot j % kDqStages, zero past Tk
+  auto stage = [&](int j) {
+    float* ks = ring + (j % kDqStages) * 2 * kKv * kP;
+    float* vs = ks + kKv * kP;
+    const int t0 = j * kKv;
+    for (int e = threadIdx.x; e < kKv * kChunks; e += kDqThreads) {
+      const int row = e / kChunks, c = (e % kChunks) * 4, t = t0 + row;
+      const bool in = t < Tk;
+      const size_t off = in ? (size_t)t * DH + c : 0;
+      cp_async16(ks + row * kP + c, kb + off, in);
+      cp_async16(vs + row * kP + c, vb + off, in);
     }
-    float ds[kBwdRows];
+  };
+  for (int j = 0; j < kDqStages - 1; ++j) {
+    if (j < n_tiles) stage(j);
+    cp_async_commit();
+  }
+  cp_async_wait<kDqStages - 1>();     // q and dO landed (this thread's)
+  __syncthreads();                    // ... every thread's
+
+  // delta = rowsum(dO o) in float32: a lane sums 4-column runs of rows
+  // r_lo and r_hi, the row's 4 lanes reduce by shuffle
+  const float* qw = qs + (w0 + g) * kP + t4;  // A fragment base, rows g
+  const float* dw = dos + (w0 + g) * kP + t4;
+  float dl_lo = 0.f, dl_hi = 0.f;
+  {
+    const float* o_lo = o + (bh * Tq + (r_lo < Tq ? r_lo : 0)) * DH;
+    const float* o_hi = o + (bh * Tq + (r_hi < Tq ? r_hi : 0)) * DH;
 #pragma unroll
-    for (int rr = 0; rr < kBwdRows; ++rr) {
-      const int r = warp * kBwdRows + rr;
-      float sc = s[rr] * scale;
-      if (col >= Tk || (causal && col > q0 + r)) sc = kNeg;
-      const float p = expf(sc - s_lse[r]);
-      ds[rr] = p * (dp[rr] - s_delta[r]) * scale;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsc[kBwdRows];
-#pragma unroll
-      for (int rr = 0; rr < kBwdRows; ++rr)
-        dsc[rr] = __shfl_sync(kFull, ds[rr], c);
-#pragma unroll
-      for (int u = 0; u < kPerLane; ++u) {
-        const int d = lane + 32 * u;
-        if (d < DH) {
-          const float kd = ks[c * kLd + d];
-#pragma unroll
-          for (int rr = 0; rr < kBwdRows; ++rr)
-            acc[rr][u] = fmaf(dsc[rr], kd, acc[rr][u]);
-        }
-      }
+    for (int c = 4 * t4; c < DH; c += 16) {
+      const float4 a = *reinterpret_cast<const float4*>(o_lo + c);
+      const float4 b = *reinterpret_cast<const float4*>(o_hi + c);
+      const float* d_lo = dos + (w0 + g) * kP + c;
+      const float* d_hi = d_lo + 8 * kP;
+      dl_lo = fmaf(d_lo[0], a.x, dl_lo);
+      dl_lo = fmaf(d_lo[1], a.y, dl_lo);
+      dl_lo = fmaf(d_lo[2], a.z, dl_lo);
+      dl_lo = fmaf(d_lo[3], a.w, dl_lo);
+      dl_hi = fmaf(d_hi[0], b.x, dl_hi);
+      dl_hi = fmaf(d_hi[1], b.y, dl_hi);
+      dl_hi = fmaf(d_hi[2], b.z, dl_hi);
+      dl_hi = fmaf(d_hi[3], b.w, dl_hi);
     }
   }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    dl_lo += __shfl_xor_sync(kFull, dl_lo, x);
+    dl_hi += __shfl_xor_sync(kFull, dl_hi, x);
+  }
+  if (t4 == 0) {
+    if (r_lo < Tq) delta[bh * Tq + r_lo] = dl_lo;
+    if (r_hi < Tq) delta[bh * Tq + r_hi] = dl_hi;
+  }
+  const float l_lo = r_lo < Tq ? lse[bh * Tq + r_lo] : 0.f;
+  const float l_hi = r_hi < Tq ? lse[bh * Tq + r_hi] : 0.f;
 
+  float acc[kD8][4];
 #pragma unroll
-  for (int rr = 0; rr < kBwdRows; ++rr) {
-    const int row = q0 + warp * kBwdRows + rr;
-    if (row >= Tq) continue;
-    float* out = dq + (bh * Tq + row) * DH;
+  for (int n = 0; n < kD8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kDqStages - 2>();     // tile j landed (this thread's)
+    __syncthreads();                    // ... all threads'; slot j - 1 free
+    if (j + kDqStages - 1 < n_tiles) stage(j + kDqStages - 1);
+    cp_async_commit();
+    const float* ks = ring + (j % kDqStages) * 2 * kKv * kP;
+    const float* vs = ks + kKv * kP;
+    const int t0 = j * kKv;
+
+    // S = Q K^T and dP = dO V^T over the tile's 64 columns (8 n-tiles)
+    float s[8][4], dp[8][4];
 #pragma unroll
-    for (int u = 0; u < kPerLane; ++u) {
-      const int d = lane + 32 * u;
-      if (d < DH) out[d] = acc[rr][u];
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD8; ++kk) {
+      uint32_t qb_[4], qs_[4], db_[4], ds_[4];
+      split4(qw[kk * 8], qw[8 * kP + kk * 8], qw[kk * 8 + 4],
+             qw[8 * kP + kk * 8 + 4], qb_, qs_);
+      split4(dw[kk * 8], dw[8 * kP + kk * 8], dw[kk * 8 + 4],
+             dw[8 * kP + kk * 8 + 4], db_, ds_);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float* kr = ks + (n * 8 + g) * kP + kk * 8 + t4;
+        const float* vr = vs + (n * 8 + g) * kP + kk * 8 + t4;
+        mma3(s[n], qb_, qs_, kr[0], kr[4]);
+        mma3(dp[n], db_, ds_, vr[0], vr[4]);
+      }
     }
+
+    // dS = P (dP - delta) scale in place of S, P = exp(S scale - lse);
+    // the mask only on a tile crossing Tk or this warp's diagonal, p = 0
+    // on q rows past Tq
+    const bool masked = t0 + kKv > Tk ||
+                        (causal && t0 + kKv - 1 > q0 + w0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = t0 + n * 8 + 2 * t4 + e;
+        float lo = s[n][e] * scale, hi = s[n][2 + e] * scale;
+        if (masked) {
+          if (col >= Tk || (causal && col > r_lo)) lo = kNeg;
+          if (col >= Tk || (causal && col > r_hi)) hi = kNeg;
+        }
+        const float p_lo = r_lo < Tq ? expf(lo - l_lo) : 0.f;
+        const float p_hi = r_hi < Tq ? expf(hi - l_hi) : 0.f;
+        s[n][e] = p_lo * (dp[n][e] - dl_lo) * scale;
+        s[n][2 + e] = p_hi * (dp[n][2 + e] - dl_hi) * scale;
+      }
+    }
+
+    // dQ += dS K: dS's k-step jj is S's n-tile jj under the permuted k
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      uint32_t ab[4], as[4];
+      split4(s[jj][0], s[jj][2], s[jj][1], s[jj][3], ab, as);
+      const float* kr = ks + (jj * 8 + 2 * t4) * kP + g;
+#pragma unroll
+      for (int n = 0; n < kD8; ++n)
+        mma3(acc[n], ab, as, kr[n * 8], kr[kP + n * 8]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (r_lo < Tq) {
+    float* out = dq + (bh * Tq + r_lo) * DH + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kD8; ++n)
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(acc[n][0], acc[n][1]);
+  }
+  if (r_hi < Tq) {
+    float* out = dq + (bh * Tq + r_hi) * DH + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kD8; ++n)
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(acc[n][2], acc[n][3]);
   }
 }
 
 template <int DH>
-int bwd(const float* q, const float* k, const float* v, const float* dout,
-        const float* lse, const float* delta, float* dq, float* dk,
-        float* dv, int BH, int Tq, int Tk, float scale, int causal,
-        cudaStream_t st) {
-  static std::atomic<unsigned> raised_dkv{0u}, raised_dq{0u};
-  if (dq == nullptr)
-    return launch_smem(flash_bwd_dkv_kernel<DH>, dkv_smem_bytes<DH>(),
-                       raised_dkv, dim3(BH, (Tk + kKv - 1) / kKv),
-                       kBwdThreads, st, q, k, v, dout, lse, delta, dk, dv, Tq,
-                       Tk, scale, causal);
-  return launch_smem(flash_bwd_dq_kernel<DH>, dq_smem_bytes<DH>(), raised_dq,
-                     dim3(BH, (Tq + kTile - 1) / kTile), kWarps * 32, st, q,
-                     k, v, dout, lse, delta, dq, Tq, Tk, scale, causal);
+int bwd_dkv(const float* q, const float* k, const float* v,
+            const float* dout, const float* lse, const float* delta,
+            float* dk, float* dv, int BH, int Tq, int Tk, float scale,
+            int causal, cudaStream_t st) {
+  static std::atomic<unsigned> raised{0u};
+  return launch_smem(flash_bwd_dkv_kernel<DH>, dkv_smem_bytes<DH>(), raised,
+                     dim3(BH, (Tk + kKv - 1) / kKv), kBwdThreads, st, q, k,
+                     v, dout, lse, delta, dk, dv, Tq, Tk, scale, causal);
 }
 
-// dq == nullptr launches the dK/dV kernel, else the dQ kernel.
-int bwd_dispatch(const float* q, const float* k, const float* v,
-                 const float* dout, const float* lse, const float* delta,
-                 float* dq, float* dk, float* dv, int BH, int Tq, int Tk,
-                 int dh, float scale, int causal, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16:
-      return bwd<16>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Tq, Tk,
-                     scale, causal, st);
-    case 32:
-      return bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Tq, Tk,
-                     scale, causal, st);
-    case 64:
-      return bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Tq, Tk,
-                     scale, causal, st);
-    case 128:
-      return bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Tq, Tk,
-                      scale, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int DH>
+int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
+           const float* o, const float* lse, float* delta, float* dq,
+           int BH, int Tq, int Tk, float scale, int causal,
+           cudaStream_t st) {
+  constexpr int kBq = kDqWarps * 16;
+  static std::atomic<unsigned> raised{0u};
+  return launch_smem(flash_bwd_dq_kernel<DH>, dq_smem_bytes<DH>(), raised,
+                     dim3(BH, (Tq + kBq - 1) / kBq), kDqThreads, st, q, k, v,
+                     dout, o, lse, delta, dq, Tq, Tk, scale, causal);
 }
 
 template <int DH>
@@ -901,20 +955,41 @@ extern "C" int flash_attention_bwd_dkv_f32(const float* q, const float* k,
                                            float* dv, int BH, int Tq, int Tk,
                                            int dh, float scale, int causal,
                                            void* stream) {
-  return bwd_dispatch(q, k, v, dout, lse, delta, nullptr, dk, dv, BH, Tq,
-                      Tk, dh, scale, causal, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return bwd_dkv<16>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
+                                Tk, scale, causal, st);
+    case 32: return bwd_dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
+                                Tk, scale, causal, st);
+    case 64: return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
+                                Tk, scale, causal, st);
+    case 128: return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
+                                  Tk, scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// the same inputs -> dq [BH, Tq, dh]
+// q/do/o [BH, Tq, dh], k/v [BH, Tk, dh], lse [BH, Tq] -> dq [BH, Tq, dh]
+// and delta = rowsum(do o) [BH, Tq], which the dK/dV launch then reads
 extern "C" int flash_attention_bwd_dq_f32(const float* q, const float* k,
                                           const float* v, const float* dout,
-                                          const float* lse,
-                                          const float* delta, float* dq,
-                                          int BH, int Tq, int Tk, int dh,
+                                          const float* o, const float* lse,
+                                          float* delta, float* dq, int BH,
+                                          int Tq, int Tk, int dh,
                                           float scale, int causal,
                                           void* stream) {
-  return bwd_dispatch(q, k, v, dout, lse, delta, dq, nullptr, nullptr, BH,
-                      Tq, Tk, dh, scale, causal, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return bwd_dq<16>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk,
+                               scale, causal, st);
+    case 32: return bwd_dq<32>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk,
+                               scale, causal, st);
+    case 64: return bwd_dq<64>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk,
+                               scale, causal, st);
+    case 128: return bwd_dq<128>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
+                                 Tk, scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Dynamic shared memory of one launch, in bytes: which 0 = the forward

@@ -19,6 +19,7 @@ _NEG = -1e30
 # which an unmasked pair of lengths goes to chunked_attention
 _CHUNKED_MIN = 2048 * 2048
 _ROADMAP = "not yet ported to paddle_tpu_torch (ROADMAP A2)"
+_LANES = _check.LANES
 
 
 def additive_attention_scores(enc_proj: SequenceBatch, dec_state_proj, v):
@@ -49,9 +50,11 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
     forward and backward) by JAX's rule — no mask, both lengths
     multiples of 128, causal only with Tq == Tk; the route is the same
     on both devices, since the kernel wrappers dispatch by device.  On
-    that route a head dim the kernels do not take (they take 16, 32, 64
-    and 128; the TPU kernel any up to 128) raises.  Otherwise the dense
-    masked path (the one ``_attend`` takes).  Masked
+    that route, as in JAX's ``flash_attention``, a head dim up to 128
+    runs the kernels (those between 16, 32, 64 and 128 zero-padded to
+    the next), a wider one that is not a multiple of 128 takes the dense
+    path, and a multiple of 128 above 128 raises (ROADMAP B8).
+    Otherwise the dense masked path (the one ``_attend`` takes).  Masked
     logits sit at -1e30, whose exp is exactly 0.0; ``mask`` broadcasts
     against [B, H, Tq, Tk]; ``key_mask`` [B, Tk] is per-key validity.
     Where JAX would take ``chunked_attention`` (no mask, Tq * Tk >=
@@ -67,12 +70,17 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
         use_flash = (mask is None and key_mask is None
                      and q.shape[2] % 128 == 0 and k.shape[2] % 128 == 0
                      and (not causal or q.shape[2] == k.shape[2]))
+    dh = q.shape[-1]
+    if use_flash and dh > _LANES and dh % _LANES:
+        # JAX's flash_attention leaves a head dim its lanes cannot tile
+        # to the dense path (paddle_tpu/ops/pallas/flash_attention.py:382)
+        use_flash = False
     if use_flash:
-        if q.shape[-1] not in _check.HEAD_DIMS:
+        if dh > _LANES:
             raise NotImplementedError(
-                f"the flash kernels at head dim {q.shape[-1]} (they take "
-                f"{_check.HEAD_DIMS}) are not yet ported to "
-                "paddle_tpu_torch (ROADMAP B8)")
+                f"the flash kernels at head dim {dh} (they take any up to "
+                f"{_LANES}) are not yet ported to paddle_tpu_torch "
+                "(ROADMAP B8)")
         from paddle_tpu_torch.ops.kernels.flash_attention import (
             FlashAttention)
         return FlashAttention.apply(q, k, v, scale, causal)
@@ -82,7 +90,6 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
             f"a mask) is {_ROADMAP}")
     if key_mask is not None:
         mask = key_mask[:, None, None, :] > 0
-    dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(float(dh))
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     neg = logits.new_tensor(_NEG)

@@ -21,6 +21,13 @@ plain PyTorch versions (materialized masked attention), which the CPU
 takes and which ``chip_smoke.py`` holds the kernels against.  Unlike the
 TPU wrappers, no shape falls back to a masked path: the kernels mask
 ragged edges themselves and raise on what they do not take.
+
+The kernels are compiled at head dims 16, 32, 64 and 128.  The float32
+forward and backward take any other head dim up to 128, as the TPU
+kernel does, by zero-padding q, k, v (and o, do) to the next compiled
+width and slicing the results back: zero columns add nothing to q k^T,
+and the padded columns of o, dq, dk and dv are zero.  The scale stays
+1/sqrt of the true head dim.  A wider head dim raises (ROADMAP B8).
 """
 
 import ctypes
@@ -55,12 +62,27 @@ _NEG = -1e30
 _SIGNATURES = {"flash_attention_fwd_f32": (5, 4),
                "flash_attention_quant_i8": (6, 6),
                "flash_attention_bwd_dkv_f32": (8, 4),
-               "flash_attention_bwd_dq_f32": (7, 4)}
+               "flash_attention_bwd_dq_f32": (8, 4)}
 
 
 def _entry(name):
     return _build.entry("flash_attention", name, *_SIGNATURES[name],
                         ctypes.c_float, ctypes.c_int)
+
+
+def padded_head_dim(dh):
+    """The compiled head dim the kernels run ``dh`` at: the smallest of
+    ``_check.HEAD_DIMS`` at or above it.  Raises above 128."""
+    for width in _check.HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"{NAME}: head dim {dh} above {_check.HEAD_DIMS[-1]} "
+                     "is not yet ported to paddle_tpu_torch (ROADMAP B8)")
+
+
+def _pad(x, width):
+    """x [..., dh] zero-padded to [..., width]."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 def _shapes(q, k, v, causal):
@@ -76,7 +98,7 @@ def _shapes(q, k, v, causal):
     if causal and tq != tk:
         raise ValueError(f"{NAME}: causal attention needs Tq == Tk (aligned "
                          f"starts); got Tq={tq}, Tk={tk}")
-    _check.head_dim(NAME, d)
+    padded_head_dim(d)
     return b, h, tq, tk, d
 
 
@@ -99,13 +121,19 @@ def flash_attention_plain(q, k, v, scale=None, causal=False):
 def flash_attention_fwd(q, k, v, scale=None, causal=False):
     """(o [B, H, Tq, D], lse [B, H, Tq] f32) — the forward with the
     log-sum-exp a backward needs.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version; a head dim between the compiled ones
+    is padded to the next on both."""
     global launches
     f32 = torch.float32
     dev = _check.tensors(NAME, {"q": f32, "k": f32, "v": f32},
                          q=q, k=k, v=v)
     b, h, tq, tk, d = _shapes(q, k, v, causal)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    width = padded_head_dim(d)
+    if width != d:
+        o, lse = flash_attention_fwd(*(_pad(x, width) for x in (q, k, v)),
+                                     scale, causal)
+        return o[..., :d].contiguous(), lse
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal)
     o = torch.empty_like(q)
@@ -163,53 +191,59 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale=None,
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False):
     """(dq, dk, dv): the backward of ``flash_attention_fwd``.  CUDA
-    tensors: delta = rowsum(do o) as a plain reduction (the TPU ``_bwd``
-    leaves it to XLA), then the dK/dV kernel and the dQ kernel.  CPU
-    tensors take the plain version."""
+    tensors: the dQ kernel, which also writes delta = rowsum(do o), then
+    the dK/dV kernel, which reads it.  CPU tensors take the plain
+    version; a head dim between the compiled ones is padded to the next
+    on both."""
     f32 = torch.float32
     dev = _check.tensors(NAME_BWD_DKV, {"q": f32, "k": f32, "v": f32,
                                         "o": f32, "lse": f32, "do": f32},
                          q=q, k=k, v=v, o=o, lse=lse, do=do)
     _bwd_shapes(q, k, v, o, lse, do, causal)
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(
-        q.shape[-1])
+    d = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    width = padded_head_dim(d)
+    if width != d:
+        qp, kp, vp, op, dop = (_pad(x, width) for x in (q, k, v, o, do))
+        return tuple(g[..., :d].contiguous() for g in flash_attention_bwd(
+            qp, kp, vp, op, lse, dop, scale, causal))
     if dev.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal)
-    delta = (do * o).sum(-1)
+    dq, delta = bwd_dq_kernel(q, k, v, o, lse, do, scale, causal)
     dk, dv = bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal)
-    return bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal), dk, dv
+    return dq, dk, dv
 
 
-def _bwd_args(q, k, v, do, lse, delta, scale, causal):
-    b, h, tq, d = q.shape
-    return ([x.data_ptr() for x in (q, k, v, do, lse, delta)],
-            [b * h, tq, k.shape[2], d, scale, int(causal),
-             torch.cuda.current_stream(q.device).cuda_stream])
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal):
     """One launch of the dK/dV kernel on CUDA tensors already checked by
-    ``flash_attention_bwd`` -> (dk, dv)."""
+    ``flash_attention_bwd``; ``delta`` is the dQ kernel's -> (dk, dv)."""
     global launches_bwd_dkv
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, scale, causal)
+    b, h, tq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _entry("flash_attention_bwd_dkv_f32")(*ptrs, dk.data_ptr(),
-                                               dv.data_ptr(), *rest)
+    rc = _entry("flash_attention_bwd_dkv_f32")(
+        *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)), b * h,
+        tq, k.shape[2], d, scale, int(causal), _stream(q))
     _build.check(NAME_BWD_DKV, rc)
     launches_bwd_dkv += 1
     return dk, dv
 
 
-def bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal):
+def bwd_dq_kernel(q, k, v, o, lse, do, scale, causal):
     """One launch of the dQ kernel on CUDA tensors already checked by
-    ``flash_attention_bwd`` -> dq."""
+    ``flash_attention_bwd`` -> (dq, delta [B, H, Tq] = rowsum(do o))."""
     global launches_bwd_dq
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, scale, causal)
-    dq = torch.empty_like(q)
-    rc = _entry("flash_attention_bwd_dq_f32")(*ptrs, dq.data_ptr(), *rest)
+    b, h, tq, d = q.shape
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    rc = _entry("flash_attention_bwd_dq_f32")(
+        *(x.data_ptr() for x in (q, k, v, do, o, lse, delta, dq)), b * h, tq,
+        k.shape[2], d, scale, int(causal), _stream(q))
     _build.check(NAME_BWD_DQ, rc)
     launches_bwd_dq += 1
-    return dq
+    return dq, delta
 
 
 class FlashAttention(torch.autograd.Function):

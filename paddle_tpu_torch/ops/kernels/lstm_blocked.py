@@ -16,10 +16,14 @@ takes it, and ``chip_smoke.py`` holds the kernel against it.
 
 Shapes (time-major, float32): xs [T, B, 4D] (input projection plus
 bias, gate order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks
-[3, D] (peepholes i, f, o).  The kernel takes any B and D a multiple of
-128 up to 4096, so every (B, D) that ``supported`` admits (B a multiple
-of 8 up to 1024, D up to 3456 at B = 8).  The plain versions take any D.
+[3, D] (peepholes i, f, o).  The kernel takes D a multiple of 128 up to
+4096 and every B whose staging ring fits in shared memory (it raises
+on another), which covers every (B, D) that ``supported`` admits (B a
+multiple of 8 up to 1024, D up to 3456 at B = 8).  The plain versions
+take any D.
 """
+
+import ctypes
 
 import torch
 
@@ -85,6 +89,14 @@ def _shapes(xs, mask, w_r, checks, dev):
     return t, b, d
 
 
+def _wpack_floats(d):
+    """Floats of the scratch the kernel repacks W_r's streamed rows into
+    (each CTA's columns, padded to a multiple of 8)."""
+    fn = _build.load("lstm_blocked").lstm_blocked_wpack_floats
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return fn(d)
+
+
 def lstm_blocked_fwd(xs, mask, w_r, checks, save_residuals):
     """(hs [T, B, D], c_fin [B, D], cs, acts) as ``lstm.lstm_fwd_plain``
     (cs / acts None in the lean variant).  CUDA tensors launch the
@@ -99,7 +111,7 @@ def lstm_blocked_fwd(xs, mask, w_r, checks, save_residuals):
         return lstm_fwd_plain(xs, mask, w_r, checks, save_residuals)
     hs = torch.empty((t, b, d), dtype=f32, device=dev)
     cfin = torch.empty((b, d), dtype=f32, device=dev)
-    wpack = torch.empty_like(w_r)
+    wpack = torch.empty(_wpack_floats(d), dtype=f32, device=dev)
     cs = acts = None
     if save_residuals:
         cs = torch.empty((t, b, d), dtype=f32, device=dev)

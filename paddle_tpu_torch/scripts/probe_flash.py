@@ -22,15 +22,22 @@ memory a launch takes:
   chained    each product accumulated in the tensor cores across k-steps
              (as it is: a fresh tile a k-step, added in float32)
   tf32_1x    one TF32 product (a_big b_big), the 3xTF32 terms dropped
+  dq_regs    dQ: the warp's q and dO A fragments held in registers (as
+             it is: read from the staged tile in shared memory at every
+             k-step)
+  dq_q32     dQ: 2 warps, 32 q rows a CTA (64 as it is)
+  dq_s3      dQ: a 3-stage K/V ring (2)
+  dq_mb3     dQ: registers capped for 3 CTAs an SM below dh 128
 
-Then every variant's forward and dK/dV kernel is held against the plain
-versions at the MT train shape (B 32, H 8, T 256, dh 64), causal and not
-(forward: max abs err of o and lse; dK/dV: relative to the largest
-entry), and timed there and at the prefill shape (B 32, H 8, T 32, dh
-64, causal), the variants interleaved, in forward and reverse order in
-turn, ``--rounds`` times, beside scaled_dot_product_attention's float32
-forward and backward (dq, dk, dv) on the same inputs.  Times are medians
-in ms.  One JSON line for the build, one per shape.  Needs a CUDA device.
+Then every variant's forward, dK/dV and dQ kernel is held against the
+plain versions at the MT train shape (B 32, H 8, T 256, dh 64), causal
+and not (forward: max abs err of o and lse; dK/dV and dQ: relative to
+the largest entry, dQ's delta too), and timed there and at the prefill
+shape (B 32, H 8, T 32, dh 64, causal), the variants interleaved, in
+forward and reverse order in turn, ``--rounds`` times, beside
+scaled_dot_product_attention's float32 forward and backward (dq, dk, dv)
+on the same inputs.  Times are medians in ms.  One JSON line for the
+build, one per shape.  Needs a CUDA device.
 """
 
 import argparse
@@ -60,6 +67,22 @@ _SPLIT5 = ("  big = __float_as_uint(x) + 0x1000u;\n"
            "  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
            "  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u)"
            " & 0xffffe000u;\n")
+_LHI = "  const float l_hi = r_hi < Tq ? lse[bh * Tq + r_hi] : 0.f;\n"
+_DQ_REGS = (
+    (_LHI, _LHI + "  float qa[kD8][4], da[kD8][4];\n"
+     "#pragma unroll\n  for (int kk = 0; kk < kD8; ++kk) {\n"
+     "    qa[kk][0] = qw[kk * 8];\n    qa[kk][1] = qw[8 * kP + kk * 8];\n"
+     "    qa[kk][2] = qw[kk * 8 + 4];\n"
+     "    qa[kk][3] = qw[8 * kP + kk * 8 + 4];\n"
+     "    da[kk][0] = dw[kk * 8];\n    da[kk][1] = dw[8 * kP + kk * 8];\n"
+     "    da[kk][2] = dw[kk * 8 + 4];\n"
+     "    da[kk][3] = dw[8 * kP + kk * 8 + 4];\n  }\n"),
+    ("      split4(qw[kk * 8], qw[8 * kP + kk * 8], qw[kk * 8 + 4],\n"
+     "             qw[8 * kP + kk * 8 + 4], qb_, qs_);\n"
+     "      split4(dw[kk * 8], dw[8 * kP + kk * 8], dw[kk * 8 + 4],\n"
+     "             dw[8 * kP + kk * 8 + 4], db_, ds_);\n",
+     "      split4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], qb_, qs_);\n"
+     "      split4(da[kk][0], da[kk][1], da[kk][2], da[kk][3], db_, ds_);\n"))
 EDITS = {
     "kernel": (),
     "fwd_q128": (("constexpr int kFwdWarps = 4;",
@@ -79,6 +102,13 @@ EDITS = {
                  "  mma_tf32(d, ab, bb0, bb1);\n"),),
     "tf32_1x": (("  mma_tf32(t, as, bb0, bb1);\n"
                  "  mma_tf32(t, ab, bs0, bs1);\n", ""),),
+    "dq_regs": _DQ_REGS,
+    "dq_q32": (("constexpr int kDqWarps = 4;",
+                "constexpr int kDqWarps = 2;"),),
+    "dq_s3": (("constexpr int kDqStages = 2;",
+               "constexpr int kDqStages = 3;"),),
+    "dq_mb3": (("__launch_bounds__(kDqThreads)",
+                "__launch_bounds__(kDqThreads, DH >= 128 ? 1 : 3)"),),
 }
 SHAPES = (("train", 32, 8, 256, 64, False), ("train", 32, 8, 256, 64, True),
           ("prefill", 32, 8, 32, 64, True))
@@ -144,14 +174,17 @@ def build():
 
 
 def entries(lib):
-    """(forward, dK/dV, shared-memory bytes) entries of one library."""
+    """(forward, dK/dV, dQ, shared-memory bytes) entries of one
+    library."""
     fwd, dkv = lib.flash_attention_fwd_f32, lib.flash_attention_bwd_dkv_f32
+    dq = lib.flash_attention_bwd_dq_f32
     tail = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + tail
     dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + tail
+    dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + tail
     smem = lib.flash_attention_smem_bytes
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fwd, dkv, smem
+    return fwd, dkv, dq, smem
 
 
 def timed(fn, reps=10):
@@ -177,9 +210,10 @@ def main(argv=None):
         "ptxas": {name: rep for name, (_, rep) in libs.items()},
         "dynamic_smem_bytes": {
             name: {f"{kind}/dh{dh}": smem(which, dh)
-                   for which, kind in ((0, "fwd"), (1, "bwd_dkv"))
+                   for which, kind in ((0, "fwd"), (1, "bwd_dkv"),
+                                       (2, "bwd_dq"))
                    for dh in (16, 32, 64, 128)}
-            for name, (_, _, smem) in calls.items()}}), flush=True)
+            for name, (_, _, _, smem) in calls.items()}}), flush=True)
 
     rng = np.random.RandomState(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -191,10 +225,12 @@ def main(argv=None):
         scale = 1.0 / math.sqrt(dh)
         o_ref, lse_ref = fk.flash_attention_plain(q, k, v, scale, causal)
         delta = (do * o_ref).sum(-1)
-        _, dk_ref, dv_ref = fk.flash_attention_bwd_plain(
+        dq_ref, dk_ref, dv_ref = fk.flash_attention_bwd_plain(
             q, k, v, o_ref, lse_ref, do, scale, causal)
         o, lse = torch.empty_like(q), torch.empty_like(lse_ref)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        dk, dv, dq = torch.empty_like(k), torch.empty_like(v), \
+            torch.empty_like(q)
+        dl = torch.empty_like(delta)
 
         def fwd_call(fn):
             _build.check("probe_flash", fn(
@@ -207,21 +243,32 @@ def main(argv=None):
                                          dv)),
                 b * h, t, t, dh, scale, int(causal), stream))
 
+        def dq_call(fn):
+            _build.check("probe_flash", fn(
+                *(x.data_ptr() for x in (q, k, v, do, o_ref, lse_ref, dl,
+                                         dq)),
+                b * h, t, t, dh, scale, int(causal), stream))
+
         errs = {}
         fns = {}
-        for name, (fwd, dkv, _) in calls.items():
+        for name, (fwd, dkv, dqf, _) in calls.items():
             fwd_call(fwd)
             dkv_call(dkv)
+            dq_call(dqf)
             torch.cuda.synchronize()
             errs[name] = {
                 "fwd_max_abs_err": max(float((o - o_ref).abs().max()),
                                        float((lse - lse_ref).abs().max())),
                 "dkv_rel_err": max(
                     float((dk - dk_ref).abs().max() / dk_ref.abs().max()),
-                    float((dv - dv_ref).abs().max() / dv_ref.abs().max()))}
+                    float((dv - dv_ref).abs().max() / dv_ref.abs().max())),
+                "dq_rel_err": max(
+                    float((dq - dq_ref).abs().max() / dq_ref.abs().max()),
+                    float((dl - delta).abs().max() / delta.abs().max()))}
             fns[f"{name}/fwd"] = (lambda f=fwd: fwd_call(f))
             if what == "train":
                 fns[f"{name}/dkv"] = (lambda f=dkv: dkv_call(f))
+                fns[f"{name}/dq"] = (lambda f=dqf: dq_call(f))
         fns["sdpa/fwd"] = lambda: sdpa(q, k, v, is_causal=causal)
         if what == "train":
             qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))

@@ -97,8 +97,8 @@ def test_cpu_wrapper_takes_plain_version_and_counts_nothing(np_rng):
     (lambda q, k, v: (q, k[:, :, :5].contiguous(),
                       v[:, :, :5].contiguous(), True), ValueError),
     (lambda q, k, v: (q.double(), k, v, False), TypeError),
-    (lambda q, k, v: (q[..., :8].contiguous(), k[..., :8].contiguous(),
-                      v[..., :8].contiguous(), False), ValueError),
+    (lambda q, k, v: (torch.cat([q] * 16, -1), torch.cat([k] * 16, -1),
+                      torch.cat([v] * 16, -1), False), ValueError),
     (lambda q, k, v: (q.transpose(1, 2), k, v, False), ValueError),
     (lambda q, k, v: (q, k, v[:, :1].contiguous(), False), ValueError),
 ])

@@ -1,5 +1,6 @@
 """The arithmetic of the tensor-core flash kernels (``csrc/flash_attention.cu``:
-the forward and the dK/dV kernel), emulated in plain torch on the CPU.
+the forward, the dK/dV and the dQ kernel), emulated in plain torch on the
+CPU.
 
 The kernels compute each float32 product in the 3xTF32 split: an operand
 x is split into big = tf32(x), which rounds the bit pattern to a 10-bit
@@ -8,14 +9,17 @@ gives), and small = x - big truncated to TF32 (the tensor cores drop
 the low 13 bits), and a b = a_small b_big + a_big b_small + a_big b_big
 (on the card each k-step's three in a fresh tile, added to the float32
 sum).  The forward walks 64-column K/V tiles with a
-running max and sum; the dK/dV kernel walks q tiles of 32 rows.  The
+running max and sum; the dK/dV kernel walks q tiles of 32 rows; the dQ
+kernel walks 64-column K/V tiles for each 64-row q tile, with delta =
+rowsum(do o) of its own.  The
 emulation below does the same, tile order and all, and is held within
 1e-5 of JAX's ``flash_attention`` (run as the JAX tests run
 it on the CPU: the Pallas kernel in interpret mode, or its masked path
 where the shape leaves it) and of ``flash_attention_plain`` /
-``flash_attention_bwd_plain``, for o, lse, dk and dv.  Single-pass TF32
-on the same inputs misses 1e-4 on o, so the tolerance the card's checks
-use (1e-4) tells the two apart.
+``flash_attention_bwd_plain``, for o, lse, dq, dk and dv.  Single-pass
+TF32 on the same inputs misses 1e-4 on o and on dq (relative to its
+largest entry, as the card holds the backward), so the tolerance the
+card's checks use (1e-4) tells the two apart.
 
 Tolerance 1e-5 absolute and relative: float32 sums in other orders over
 at most 128 terms of O(1) products, plus the split's ~2^-22 of each
@@ -127,6 +131,28 @@ def dkv_emulated(q, k, v, do, lse, delta, scale, causal, mm=mm3):
     return dk, dv
 
 
+def dq_emulated(q, k, v, o, do, lse, scale, causal, mm=mm3):
+    """(dq, delta) as the dQ kernel computes them: delta = rowsum(do o),
+    then per 64-column K/V tile S = Q K^T and dP = dO V^T, P = exp(S
+    scale - lse) (0 above the diagonal when causal), dS = P (dP - delta)
+    scale, dQ += dS K.  q rows are independent, so the kernel's 64-row
+    q tiles change no sum."""
+    tq, tk = q.shape[-2], k.shape[-2]
+    rows = torch.arange(tq)[:, None]
+    delta = (do * o).sum(-1)
+    dq = torch.zeros(q.shape)
+    for t0 in range(0, tk, KV_TILE):
+        kt, vt = k[..., t0:t0 + KV_TILE, :], v[..., t0:t0 + KV_TILE, :]
+        s = mm(q, kt.transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(t0, t0 + kt.shape[-2])[None]
+            s = torch.where(cols > rows, torch.tensor(_NEG), s)
+        p = torch.exp(s - lse[..., None])
+        dp = mm(do, vt.transpose(-1, -2))
+        dq = dq + mm(p * (dp - delta[..., None]) * scale, kt)
+    return dq, delta
+
+
 # ------------------------------------------------------------ references
 
 def _inputs(seed, b, h, tq, tk, dh):
@@ -137,14 +163,15 @@ def _inputs(seed, b, h, tq, tk, dh):
 
 
 def _jax(q, k, v, do, causal):
-    """(o, dk, dv) of JAX's flash_attention on the CPU: the Pallas kernels
-    in interpret mode (64-row blocks) where the shape takes them."""
+    """(o, dq, dk, dv) of JAX's flash_attention on the CPU: the Pallas
+    kernels in interpret mode (64-row blocks) where the shape takes
+    them."""
     def f(q, k, v):
         return jax_fa.flash_attention(q, k, v, causal=causal, block_q=64,
                                       block_k=64, interpret=True)
     o, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
-    _, dk, dv = vjp(jnp.asarray(do))
-    return [np.asarray(x) for x in (o, dk, dv)]
+    dq, dk, dv = vjp(jnp.asarray(do))
+    return [np.asarray(x) for x in (o, dq, dk, dv)]
 
 
 def _close(got, want):
@@ -164,12 +191,45 @@ def test_3xtf32_emulation_matches_jax_and_plain(b, h, tq, tk, dh, causal):
     dk, dv = dkv_emulated(tq_, tk_, tv_, tdo, lse, delta, scale, causal)
     _, dk_plain, dv_plain = fk.flash_attention_bwd_plain(
         tq_, tk_, tv_, o_plain, lse_plain, tdo, scale, causal)
-    o_jax, dk_jax, dv_jax = _jax(q, k, v, do, causal)
+    o_jax, _, dk_jax, dv_jax = _jax(q, k, v, do, causal)
     for got, plain, ref in ((o, o_plain, o_jax), (dk, dk_plain, dk_jax),
                             (dv, dv_plain, dv_jax)):
         _close(got, plain)
         _close(got, ref)
     _close(lse, lse_plain)
+
+
+@pytest.mark.parametrize("b, h, tq, tk, dh, causal", CASES)
+def test_3xtf32_dq_emulation_matches_jax_and_plain(b, h, tq, tk, dh,
+                                                   causal):
+    """dq and the delta the dQ kernel writes for the dK/dV kernel."""
+    q, k, v, do = _inputs(tq * dh + tk, b, h, tq, tk, dh)
+    tq_, tk_, tv_, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(dh)
+    o, lse = fk.flash_attention_plain(tq_, tk_, tv_, scale, causal)
+    dq, delta = dq_emulated(tq_, tk_, tv_, o, tdo, lse, scale, causal)
+    dq_plain = fk.flash_attention_bwd_plain(tq_, tk_, tv_, o, lse, tdo,
+                                            scale, causal)[0]
+    _close(dq, dq_plain)
+    _close(dq, _jax(q, k, v, do, causal)[1])
+    _close(delta, (tdo * o).sum(-1))
+
+
+def test_single_pass_tf32_misses_the_dq_gate():
+    """One TF32 pass is off by more than 1e-4 of dq's largest entry on
+    every case, where 3xTF32 stays within 1e-5 of it."""
+    for b, h, tq, tk, dh, causal in CASES:
+        q, k, v, do = (torch.tensor(x)
+                       for x in _inputs(tq * dh + tk, b, h, tq, tk, dh))
+        scale = 1.0 / math.sqrt(dh)
+        o, lse = fk.flash_attention_plain(q, k, v, scale, causal)
+        ref = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, scale,
+                                           causal)[0]
+        top = ref.abs().max()
+        one, three = (dq_emulated(q, k, v, o, do, lse, scale, causal,
+                                  mm=mm)[0] for mm in (mm1, mm3))
+        assert float((one - ref).abs().max() / top) > TF32_GAP
+        assert float((three - ref).abs().max() / top) < TOL
 
 
 def test_tf32_split_is_exact_to_float32_order():
