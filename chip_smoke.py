@@ -15,8 +15,14 @@ non-zero exit code and no final "ok" line:
   kernels   each kernel at the main path's shapes against its plain
             PyTorch version (max abs error within the stated bound; the
             LSTM pair on a ragged mask with an empty row, timed on the
-            train batch's full rows, also at D=128 and 256 and through
-            a reverse LSTM; the paged pair over a 129-block pool with
+            train batch's full rows with the backward's BPTT / dW_r split,
+            also across the (B, D) its rule admits (D 128 and 256 at
+            B 24, D 384 at B 64, D 640 at B 32, B 1448 at D 128, B 168 at
+            D 512) and through a reverse LSTM, every check also within
+            the 3xTF32 gate, which a one-TF32-pass build of the kernels
+            must fail at the train shape; the decode kernels also at
+            head dims 8, 96 and 256, the flash ones at 8 and 96; the
+            paged pair over a 129-block pool with
             shuffled ids, shared leading blocks and a free row on block
             0, and the Tq=1 slab kernel; the int8 instances of the four
             decode kernels at the same shapes and flash_attention_quant
@@ -222,6 +228,20 @@ LADDER_PROMPTS, LADDER_TOKENS = (5, 17, 32, 40, 64, 9, 50, 23), 24
 LSTM_T, LSTM_B, LSTM_D = 100, 64, 512
 LSTM_TOL = 1e-4
 LSTM_REL_TOL = 1e-4
+# Every resident LSTM check is also held within LSTM_TC_TOL, the gate
+# that tells 3xTF32 from one TF32 pass (hs, c_fin, cs, acts and dxs
+# absolute, dW_r and dchecks relative to their largest entry): at the
+# train shape one pass lands at 1.4e-3 (forward) and 3.6e-3 (dxs) from
+# the plain versions, 3xTF32 under 7e-6 (scripts/probe_lstm.py, `tf32_1x`
+# and `kernel`).  The tf32_1x variant, built from the source, must fail
+# it at the train shape.
+LSTM_TC_TOL = 1e-5
+# The resident kernels across the (B, D) lstm.supported admits, each on a
+# ragged mask with an empty row: D 128 and 256 at B 24 and odd T, D 384
+# at B 64, D 640 at B 32 (the largest B there), and the largest B at
+# D 128 (1448) and at D 512 (168), where a CTA walks several b-blocks.
+LSTM_OTHER = ((37, 24, 128), (37, 24, 256), (20, 64, 384), (20, 32, 640),
+              (5, 1448, 128), (9, 168, 512))
 # The gate-blocked LSTM forward at the lstm1280 / lstm2048 train shape
 # (T=100, B=64; timed at both D on full rows) and across the range
 # lstm_blocked.supported admits: D 640 and odd T at B 64, B 256 with
@@ -292,6 +312,11 @@ MT_ATTENTIONS = 18
 # takes any up to 128; the port's wrappers pad it to the next compiled
 # width), held like the train shape's checks.
 FLASH_PADDED_DH = 96
+# check_head_dims' widths: the decode kernels at each (6, 8, 24 and 96
+# padded inside the kernel, 6 loading one value at a time, 8 and 24 their
+# int8 codes one at a time; 256, 384 and 512 compiled widths), the flash
+# kernels up to 128
+HEAD_DIMS_CHECKED = (6, 8, 16, 24, 32, 96, 128, 256, 384, 512)
 # The GRU kernels at the seq2seq train path's shape (bench_seq2seq's
 # encoder: T=30, B=64, h=512) against their plain versions, held as the
 # LSTM pair is (hs, acts and dxs within LSTM_TOL absolute, dW_gate and
@@ -980,13 +1005,16 @@ def check_flash_quant_kernel(torch, dev, rng, b, t, hkv, timed):
 
 
 def check_head_dims(torch, dev, rng):
-    """Every kernel of the attention family at every other head dim it
-    takes (16, 32, 128), on small ragged shapes: GQA, K = 5 lanes over T
-    = 77 for the slab chunk kernel, the same rows over a shuffled pool of
-    8-position blocks for the paged chunk kernel, lane 0 of each row for
-    the Tq=1 pair; causal T = 45 and non-causal Tq = 19, Tk = 45 for the
-    flash kernel; the int8 instance of each of the four on the same rows
-    and flash_attention_quant at causal T = 45, Hkv = 2."""
+    """Every kernel of the attention family at other head dims it takes,
+    on small ragged shapes: the decode kernels at HEAD_DIMS_CHECKED (6, 8,
+    24 and 96 padded to a compiled width inside the kernel; 6 loads its
+    values, 8 and 24 their int8 codes, one at a time) -- GQA, K = 5 lanes over T = 77 for the
+    slab chunk kernel, the same rows over a shuffled pool of 8-position
+    blocks for the paged chunk kernel, lane 0 of each row for the Tq=1
+    pair, and the int8 instance of each of the four on the same rows; up
+    to 128, causal T = 45 and non-causal Tq = 19, Tk = 45 for the flash
+    kernel and flash_attention_quant at causal T = 45, Hkv = 2 (widths
+    between the compiled ones zero-padded by the wrappers)."""
     from paddle_tpu_torch.ops import attention as attn_ops
     from paddle_tpu_torch.ops.kernels import decode_attention as dk
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
@@ -999,7 +1027,7 @@ def check_head_dims(torch, dev, rng):
     def exact(name, dh, got, want):
         exacts[f"{name}/dh{dh}"] = float((got - want).abs().max())
 
-    for dh in (16, 32, 128):
+    for dh in HEAD_DIMS_CHECKED:
         h, hkv, kk, t, bs = 4, 2, 5, 77, 8
         q = torch.tensor(normal(rng, (3, kk, h * dh)), device=dev)
         k = torch.tensor(normal(rng, (3, t, hkv * dh)), device=dev)
@@ -1050,6 +1078,8 @@ def check_head_dims(torch, dev, rng):
         exact(dk.NAME_SLAB_I8, dh,
               dk.decode_attention_slab(q1, k8, v8, pos, h, **slab),
               dk.decode_attention_slab(q1, kw, vw, pos, h))
+        if dh > 128:    # the flash kernels' widths end at 128 (ROADMAP B8)
+            continue
         for causal, tq in ((True, 45), (False, 19)):
             q = torch.tensor(normal(rng, (1, 2, tq, dh)), device=dev)
             k = torch.tensor(normal(rng, (1, 2, 45, dh)), device=dev)
@@ -1134,7 +1164,9 @@ def lstm_pair(torch, dev, rng, t, b, d, ragged):
     """Forward (both variants) and backward kernels against their plain
     versions on one set of inputs; the backward gets the plain forward's
     residuals on both sides so that its check stands alone.  Returns the
-    two result rows and the four calls (kernel, plain) x (fwd, bwd)."""
+    two result rows, the four calls (kernel, plain) x (fwd, bwd) and the
+    call of the dW_r product alone."""
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import lstm as lk
     lengths, xs, mask, w_r, checks = lstm_inputs(torch, dev, rng, t, b, d,
                                                  ragged)
@@ -1163,16 +1195,33 @@ def lstm_pair(torch, dev, rng, t, b, d, ragged):
              f"with their plain versions: forward max abs err {fwd_err}, "
              f"dxs {dxs_err} (bound {LSTM_TOL}); relative {rel} (bound "
              f"{LSTM_REL_TOL})")
-    rows = [{"name": lk.NAME_FWD, "D": d, "ragged": ragged,
+    tc_err = max([fwd_err, dxs_err] + list(rel.values()))
+    if not tc_err <= LSTM_TC_TOL:
+        fail(f"LSTM kernels (T={t}, B={b}, D={d}, ragged={ragged}): error "
+             f"{tc_err} exceeds the 3xTF32 gate {LSTM_TC_TOL} (one TF32 "
+             f"pass lands above it)")
+    if ragged and got[0][:, 0].any():
+        fail("lstm_fwd: the empty row's hs is not exactly 0")
+    rows = [{"name": lk.NAME_FWD, "T": t, "B": b, "D": d, "ragged": ragged,
              "max_abs_err": fwd_err},
-            {"name": lk.NAME_BWD, "D": d, "ragged": ragged,
+            {"name": lk.NAME_BWD, "T": t, "B": b, "D": d, "ragged": ragged,
              "max_abs_err": max(dxs_err, err(gb[1], rb[1]),
                                 err(gb[2], rb[2])),
              "dxs_max_abs_err": dxs_err, "rel_err": rel}]
+    dwr = torch.empty_like(w_r)
+    dwr_entry = _build.entry("lstm", "lstm_dwr_f32", 3, 3)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def dwr_only():     # dW_r alone: the backward's second launch
+        _build.check(lk.NAME_BWD, dwr_entry(
+            ref[0].data_ptr(), gb[0].data_ptr(), dwr.data_ptr(), t, b, d,
+            stream))
+
     calls = ((lambda: lk.lstm_fwd(xs, mask, w_r, checks, True),
               lambda: lk.lstm_fwd_plain(xs, mask, w_r, checks, True)),
              (lambda: lk.lstm_bwd(*bwd_args),
-              lambda: lk.lstm_bwd_plain(*bwd_args)))
+              lambda: lk.lstm_bwd_plain(*bwd_args)),
+             dwr_only)
     return rows, calls, lstm_cost(lengths, t, d)
 
 
@@ -1186,8 +1235,8 @@ def check_lstm_kernels(torch, dev, rng, t, b, d, timed):
     full, calls, costs = lstm_pair(torch, dev, rng, t, b, d, ragged=False)
     library = ("no single PyTorch call computes this function: cuDNN's "
                "LSTM has no peepholes and no masked carry freeze")
-    for row, row_full, (fn, plain), (nbytes, flops) in zip(rows, full, calls,
-                                                           costs):
+    for row, row_full, (fn, plain), (nbytes, flops) in zip(rows, full,
+                                                           calls[:2], costs):
         row.update(max_abs_err=max(row["max_abs_err"],
                                    row_full["max_abs_err"]),
                    full_rows_check=row_full,
@@ -1196,8 +1245,39 @@ def check_lstm_kernels(torch, dev, rng, t, b, d, timed):
                    plain_ms=time_ms(torch, plain, samples=5, reps=2),
                    library_ms=None, library_note=library,
                    bytes=nbytes, flops=flops)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        tc_bound(row, nbytes, flops)
+    # the backward's split: dW_r alone (its second launch), BPTT the rest;
+    # dW_r's bound: hs and dxs read once, dW_r written once, its product
+    dwr_ms = time_ms(torch, calls[2], samples=20, reps=5)
+    dwr_flops = costs[1][1] // 2
+    dwr_bytes = 4 * ((t - 1) * b * (d + 4 * d) + 4 * d * d)
+    rows[1]["split"] = {"dW_r_ms": dwr_ms, "bptt_ms": rows[1]["ms"] - dwr_ms,
+                        "dW_r_bound_ms": bound(dwr_bytes, dwr_flops,
+                                               PEAK_3XTF32_FLOPS)[0]}
     return rows
+
+
+def check_lstm_tf32_control(torch, dev):
+    """The tf32_1x variant of csrc/lstm.cu (one TF32 product a k-step,
+    scripts/probe_lstm.py) and the kernels as built, on one set of train
+    shape inputs: the kernels pass LSTM_TC_TOL and the variant must not,
+    or the gate could not tell one pass from 3xTF32."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.scripts import probe_lstm
+    (control, _), = probe_lstm.build(["tf32_1x"]).values()
+    case = probe_lstm.Case(dev, np.random.RandomState(1), LSTM_T, LSTM_B,
+                           LSTM_D)
+    kernel = (_build.entry("lstm", "lstm_fwd_f32", 8, 4),
+              _build.entry("lstm", "lstm_bwd_f32", 14, 3),
+              _build.entry("lstm", "lstm_dwr_f32", 3, 3))
+    errs = {"kernel": case.errors(kernel), "tf32_1x": case.errors(control)}
+    worst = {name: max(e.values()) for name, e in errs.items()}
+    if not worst["kernel"] <= LSTM_TC_TOL or worst["tf32_1x"] <= LSTM_TC_TOL:
+        fail(f"3xTF32 gate {LSTM_TC_TOL}: the LSTM kernels read {errs['kernel']}"
+             f", the one-pass control {errs['tf32_1x']} (the control must "
+             "fail the gate, the kernels pass it)")
+    return {"shape": {"T": LSTM_T, "B": LSTM_B, "D": LSTM_D},
+            "gate": LSTM_TC_TOL, "errors": errs}
 
 
 def lstm_card_vs_cpu(torch, dev, rng, kernels, b, lengths, reverse, **kw):
@@ -2924,8 +3004,10 @@ def main(argv=None):
     flash_ragged = check_flash_kernel(torch, dev, rng, 4, 200, timed=False)
     lstm_fwd, lstm_bwd = check_lstm_kernels(torch, dev, rng, LSTM_T, LSTM_B,
                                             LSTM_D, timed=True)
-    lstm_small = [row for d in (128, 256) for row in check_lstm_kernels(
-        torch, dev, rng, 37, 13, d, timed=False)]
+    lstm_other = [row for t, b, d in LSTM_OTHER
+                  for row in check_lstm_kernels(torch, dev, rng, t, b, d,
+                                                timed=False)]
+    lstm_control = check_lstm_tf32_control(torch, dev)
     paged = check_paged_kernels(torch, dev, rng, hkv=HEADS)
     paged_gqa = check_paged_kernels(torch, dev, rng, hkv=2)
     int8 = check_int8_decode_kernels(torch, dev, rng, hkv=HEADS)
@@ -2942,9 +3024,10 @@ def main(argv=None):
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "lstm_blocked_3xtf32_tolerance": BLK_TC_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
-          "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL},
+          "lstm_tolerance": {"abs": LSTM_TOL, "rel": LSTM_REL_TOL,
+                             "3xtf32": LSTM_TC_TOL},
           "checks": [chunk, chunk_gqa, flash, flash_ragged, lstm_fwd,
-                     lstm_bwd, *lstm_small, *paged.values(),
+                     lstm_bwd, *lstm_other, *paged.values(),
                      *paged_gqa.values(), *int8.values(),
                      *int8_gqa.values(), flash_q, flash_q_ragged],
           "flash_train_shape": {"forward": list(flash_train.values()),
@@ -2953,6 +3036,7 @@ def main(argv=None):
                                 "backward_checks": flash_bwd_checks,
                                 "backward_rel_tolerance": MT_REL_TOL},
           "other_head_dims": check_head_dims(torch, dev, rng),
+          "lstm_3xtf32_control": lstm_control,
           "lstm_reverse": check_lstm_reverse(torch, dev, rng, kernels),
           "lstm_scan": check_lstm_scan(torch, dev, rng, kernels),
           "lstm_blocked_train_shape": list(blk_timed.values()),
@@ -3042,14 +3126,20 @@ def main(argv=None):
                             "is the whole plain backward"})
     for row, replaces in ((lstm_fwd, kernels.lstm.REPLACES_FWD),
                           (lstm_bwd, kernels.lstm.REPLACES_BWD)):
+        name = row["name"]
         summary.append({
-            "name": row["name"], "route": "cuda",
+            "name": name, "route": "cuda",
             "source": kernels.lstm.SOURCE, "replaces": replaces,
-            "launches": train_launches[row["name"]],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
-            "library_note": row["library_note"]})
+            "launches": train_launches[name],
+            "max_abs_err": max([row["max_abs_err"]]
+                               + [r["max_abs_err"] for r in lstm_other
+                                  if r["name"] == name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "library_note": row["library_note"],
+            "shape": row["shape"],
+            **({"dW_r_ms": row["split"]["dW_r_ms"]}
+               if "split" in row else {})})
     bk = kernels.lstm_blocked
     row = blk_timed[BLK_TIMED[0]]
     summary.append({

@@ -64,11 +64,23 @@
 //   is skipped: on the TPU that visit is a bit-exact no-op (every score
 //   masked, alpha = 1).  A bs = 16 pool row walks up to 16 small blocks,
 //   two to a tile; the tile is not resized to the block.
+//   Head dims: the template's DH is a compiled width (16, 32, 64, 128,
+//   256, 384, 512) and dh the head's own, any up to 128 or a multiple of
+//   128 up to 512 (the TPU kernel's lane-tileable widths).  A head
+//   narrower than its width runs the kPad instance, padded inside the
+//   kernel: the shared tiles' and the query's lanes past dh are zeros,
+//   so they add exactly 0 to every score and are never written out.  A
+//   head of a compiled width runs the instance with dh = DH folded in.
+//   Up to DH 128 the tiles are static shared memory, past it dynamic.  K/V load 16 bytes at a
+//   time where dh allows it (4 floats, or 16 int8 codes), else one value
+//   at a time (dh not a multiple of 4, or of 16 for int8 codes).
 //   Later work (ROADMAP): split-KV for the small main-path grid, TMA
 //   loads, a tensor-core product, fewer warps for the Tq=1 grids.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -76,6 +88,14 @@ constexpr int kWarps = 8;
 constexpr int kTile = 32;
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+
+constexpr size_t smem_bytes(int DH) {
+  return sizeof(float) * (2 * kTile * (DH + 1) + kWarps * DH);
+}
+
+// the tiles of width DH fit the 48 KB of static shared memory
+template <int DH>
+constexpr bool kStatic = smem_bytes(DH) <= 48 * 1024;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -93,19 +113,26 @@ __device__ __forceinline__ float warp_sum(float x) {
 // nb_row * bs logical columns); else from the row's slab stripe (span =
 // T, bs and tables unused).  kInt8: k/v are int8 codes with per-(row,
 // KV head) scales kscale/vscale; else float32 and the scales unused.
-template <int DH, bool kPaged, bool kInt8>
+// kPad: the head's dh_in < DH; else dh_in == DH.
+template <int DH, bool kPaged, bool kInt8, bool kPad>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
             const void* __restrict__ v, const float* __restrict__ kscale,
             const float* __restrict__ vscale, const int* __restrict__ qpos,
             const int* __restrict__ tables, float* __restrict__ out, int K,
-            int span, int bs, int nb_row, int H, int Hkv, float scale) {
+            int span, int bs, int nb_row, int H, int Hkv, int dh_in,
+            float scale) {
   constexpr int kPerLane = (DH + 31) / 32;   // accumulator values per lane
   constexpr int kLd = DH + 1;                // padded shared row stride
-  constexpr int kVec = kInt8 ? DH / 16 : DH / 4;   // 16-byte loads per row
-  __shared__ float ks[kTile * kLd];
-  __shared__ float vs[kTile * kLd];
-  __shared__ float qs[kWarps][DH];
+  constexpr int kLoad = kInt8 ? 16 : 4;      // values a 16-byte load
+  constexpr int kFloats = 2 * kTile * kLd + kWarps * DH;
+  // ks, vs [kTile][kLd] and qs [kWarps][DH]: static shared memory up to
+  // the 48 KB default, else dynamic (smem_bytes(DH))
+  __shared__ float s_tiles[kStatic<DH> ? kFloats : 1];
+  extern __shared__ float dsm[];
+  float* ks = kStatic<DH> ? s_tiles : dsm;
+  float* vs = ks + kTile * kLd;
+  float* qs = vs + kTile * kLd;
   __shared__ long long s_row[kTile];         // source row of each column
   __shared__ float s_ksc[kTile];             // its scales (int8 cache)
   __shared__ float s_vsc[kTile];
@@ -118,8 +145,10 @@ attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.z * kWarps + warp;   // query vector of this warp
-  const int D = H * DH;
-  const int Dkv = Hkv * DH;
+  const int dh = kPad ? dh_in : DH;
+  const int D = H * dh;
+  const int Dkv = Hkv * dh;
+  const bool vec = dh % kLoad == 0;          // 16-byte loads
   const int* pos_row = qpos + (size_t)r * K;
   const bool decode_row = pos_row[K - 1] == pos_row[0];
   const int i = j / group;                    // query lane
@@ -128,11 +157,15 @@ attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   const int pos = live ? pos_row[i] : -1;
 
   if (threadIdx.x == 0) s_hi = -1;
+  // a padded head's lanes past dh stay 0: tiles only ever write columns
+  // < dh (at dh == DH every column read is written)
+  if constexpr (kPad)
+    for (int e = threadIdx.x; e < 2 * kTile * kLd; e += kWarps * 32) ks[e] = 0.f;
   __syncthreads();
   if (live && lane == 0) atomicMax(&s_hi, pos);
   if (live) {
-    const float* qrow = q + ((size_t)r * K + i) * D + (size_t)h * DH;
-    for (int d = lane; d < DH; d += 32) qs[warp][d] = qrow[d];
+    const float* qrow = q + ((size_t)r * K + i) * D + (size_t)h * dh;
+    for (int d = lane; d < DH; d += 32) qs[warp * DH + d] = d < dh ? qrow[d] : 0.f;
   }
   __syncthreads();
   const int hi = min(s_hi, span - 1);         // the clamp
@@ -159,45 +192,70 @@ attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
       }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < kTile * kVec; e += kWarps * 32) {
-      const int row = e / kVec;
-      const long long src = s_row[row];
-      float* kd = ks + row * kLd;
-      float* vd = vs + row * kLd;
-      if constexpr (kInt8) {
-        // 16 codes per load at byte offset src * Dkv + g * DH + c, a
-        // multiple of 16 (the wrapper checks Dkv % 16 == 0)
-        const int c = (e % kVec) * 16;
-        int4 kc = make_int4(0, 0, 0, 0), vc = kc;
-        if (src >= 0) {
-          const size_t off = (size_t)src * Dkv + (size_t)g * DH + c;
-          kc = *reinterpret_cast<const int4*>(
-              static_cast<const int8_t*>(k) + off);
-          vc = *reinterpret_cast<const int4*>(
-              static_cast<const int8_t*>(v) + off);
-        }
-        const float sk = s_ksc[row], sv = s_vsc[row];
-        const int8_t* k8 = reinterpret_cast<const int8_t*>(&kc);
-        const int8_t* v8 = reinterpret_cast<const int8_t*>(&vc);
+    if (vec) {
+      // 16-byte loads, kVec a compiled row; those past dh are skipped
+      constexpr int kVec = DH / kLoad;
+      for (int e = threadIdx.x; e < kTile * kVec; e += kWarps * 32) {
+        const int row = e / kVec;
+        const int c = (e % kVec) * kLoad;
+        if (c >= dh) continue;
+        const long long src = s_row[row];
+        float* kd = ks + row * kLd;
+        float* vd = vs + row * kLd;
+        if constexpr (kInt8) {
+          // 16 codes per load at byte offset src * Dkv + g * dh + c, a
+          // multiple of 16 (dh is)
+          int4 kc = make_int4(0, 0, 0, 0), vc = kc;
+          if (src >= 0) {
+            const size_t off = (size_t)src * Dkv + (size_t)g * dh + c;
+            kc = *reinterpret_cast<const int4*>(
+                static_cast<const int8_t*>(k) + off);
+            vc = *reinterpret_cast<const int4*>(
+                static_cast<const int8_t*>(v) + off);
+          }
+          const float sk = s_ksc[row], sv = s_vsc[row];
+          const int8_t* k8 = reinterpret_cast<const int8_t*>(&kc);
+          const int8_t* v8 = reinterpret_cast<const int8_t*>(&vc);
 #pragma unroll
-        for (int u = 0; u < 16; ++u) {
-          kd[c + u] = __fmul_rn(static_cast<float>(k8[u]), sk);
-          vd[c + u] = __fmul_rn(static_cast<float>(v8[u]), sv);
+          for (int u = 0; u < 16; ++u) {
+            kd[c + u] = __fmul_rn(static_cast<float>(k8[u]), sk);
+            vd[c + u] = __fmul_rn(static_cast<float>(v8[u]), sv);
+          }
+        } else {
+          float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
+          if (src >= 0) {
+            const size_t off = (size_t)src * Dkv + (size_t)g * dh + c;
+            kv4 = *reinterpret_cast<const float4*>(
+                static_cast<const float*>(k) + off);
+            vv4 = *reinterpret_cast<const float4*>(
+                static_cast<const float*>(v) + off);
+          }
+          kd[c] = kv4.x; kd[c + 1] = kv4.y; kd[c + 2] = kv4.z;
+          kd[c + 3] = kv4.w;
+          vd[c] = vv4.x; vd[c + 1] = vv4.y; vd[c + 2] = vv4.z;
+          vd[c + 3] = vv4.w;
         }
-      } else {
-        const int c = (e % kVec) * 4;
-        float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
+      }
+    } else {
+      // one value a load (dh is not a multiple of kLoad, so dh < DH)
+      for (int e = threadIdx.x; e < kTile * DH; e += kWarps * 32) {
+        const int row = e / DH;
+        const int c = e % DH;
+        if (c >= dh) continue;
+        const long long src = s_row[row];
+        float kx = 0.f, vx = 0.f;
         if (src >= 0) {
-          const size_t off = (size_t)src * Dkv + (size_t)g * DH + c;
-          kv4 = *reinterpret_cast<const float4*>(
-              static_cast<const float*>(k) + off);
-          vv4 = *reinterpret_cast<const float4*>(
-              static_cast<const float*>(v) + off);
+          const size_t off = (size_t)src * Dkv + (size_t)g * dh + c;
+          if constexpr (kInt8) {
+            kx = __fmul_rn(static_cast<float>(static_cast<const int8_t*>(k)[off]), s_ksc[row]);
+            vx = __fmul_rn(static_cast<float>(static_cast<const int8_t*>(v)[off]), s_vsc[row]);
+          } else {
+            kx = static_cast<const float*>(k)[off];
+            vx = static_cast<const float*>(v)[off];
+          }
         }
-        kd[c] = kv4.x; kd[c + 1] = kv4.y; kd[c + 2] = kv4.z;
-        kd[c + 3] = kv4.w;
-        vd[c] = vv4.x; vd[c + 1] = vv4.y; vd[c + 2] = vv4.z;
-        vd[c + 3] = vv4.w;
+        ks[row * kLd + c] = kx;
+        vs[row * kLd + c] = vx;
       }
     }
     __syncthreads();
@@ -205,7 +263,7 @@ attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
       const float* kr = ks + lane * kLd;
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) s = fmaf(qs[warp][d], kr[d], s);
+      for (int d = 0; d < DH; ++d) s = fmaf(qs[warp * DH + d], kr[d], s);
       s *= scale;
       if (t0 + lane > pos) s = kNeg;
       const float m_new = fmaxf(m, warp_max(s));
@@ -229,24 +287,46 @@ attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   }
 
   if (j < nq) {
-    float* o = out + ((size_t)r * K + i) * D + (size_t)h * DH;
+    float* o = out + ((size_t)r * K + i) * D + (size_t)h * dh;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int u = 0; u < kPerLane; ++u) {
       const int d = lane + 32 * u;
-      if (d < DH) o[d] = live ? acc[u] / den : 0.f;
+      if (d < dh) o[d] = live ? acc[u] / den : 0.f;
     }
   }
 }
 
-template <int DH, bool kPaged, bool kInt8>
-void start(dim3 grid, cudaStream_t st, const float* q, const void* k,
-           const void* v, const float* kscale, const float* vscale,
-           const int* qpos, const int* tables, float* out, int K, int span,
-           int bs, int nb_row, int H, int Hkv, float scale) {
-  attn_kernel<DH, kPaged, kInt8><<<grid, kWarps * 32, 0, st>>>(
+
+// Launch one instance.  Past static shared memory (DH >= 256) its tiles
+// are dynamic and the instance's limit is raised first, once per
+// device: `raised` holds a bit for each device already set, as
+// cudaFuncSetAttribute costs microseconds of host time a launch.
+template <int DH, bool kPaged, bool kInt8, bool kPad>
+cudaError_t start(dim3 grid, cudaStream_t st, const float* q, const void* k,
+                  const void* v, const float* kscale, const float* vscale,
+                  const int* qpos, const int* tables, float* out, int K,
+                  int span, int bs, int nb_row, int H, int Hkv, int dh,
+                  float scale) {
+  constexpr size_t smem = kStatic<DH> ? 0 : smem_bytes(DH);
+  if constexpr (smem > 48 * 1024) {
+    static std::atomic<unsigned> raised{0u};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const unsigned bit = dev < 32 ? 1u << dev : 0u;
+    if (bit == 0u || !(raised.load() & bit)) {
+      e = cudaFuncSetAttribute(attn_kernel<DH, kPaged, kInt8, kPad>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      raised.fetch_or(bit);
+    }
+  }
+  attn_kernel<DH, kPaged, kInt8, kPad><<<grid, kWarps * 32, smem, st>>>(
       q, k, v, kscale, vscale, qpos, tables, out, K, span, bs, nb_row, H,
-      Hkv, scale);
+      Hkv, dh, scale);
+  return cudaSuccess;
 }
 
 template <bool kPaged, bool kInt8>
@@ -257,30 +337,33 @@ int launch(const float* q, const void* k, const void* v,
   const int nq = K * (H / Hkv);
   const dim3 grid(S, Hkv, (nq + kWarps - 1) / kWarps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16:
-      start<16, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
-                               tables, out, K, span, bs, nb_row, H, Hkv,
-                               scale);
-      break;
-    case 32:
-      start<32, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
-                               tables, out, K, span, bs, nb_row, H, Hkv,
-                               scale);
-      break;
-    case 64:
-      start<64, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
-                               tables, out, K, span, bs, nb_row, H, Hkv,
-                               scale);
-      break;
-    case 128:
-      start<128, kPaged, kInt8>(grid, st, q, k, v, kscale, vscale, qpos,
-                                tables, out, K, span, bs, nb_row, H, Hkv,
-                                scale);
-      break;
+  // the compiled width: the next of 16/32/64/128 up to 128, else dh
+  // itself (a multiple of 128 up to 512)
+  const int width = dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : dh;
+  cudaError_t e;
+#define PT_START(W, P)                                                       \
+  e = start<W, kPaged, kInt8, P>(grid, st, q, k, v, kscale, vscale, qpos,  \
+                                 tables, out, K, span, bs, nb_row, H, Hkv,  \
+                                 dh, scale)
+#define PT_WIDTH(W)           \
+  if (dh == W)                \
+    PT_START(W, false);       \
+  else                        \
+    PT_START(W, true)
+  switch (dh < 1 ? 0 : width) {
+    case 16: PT_WIDTH(16); break;
+    case 32: PT_WIDTH(32); break;
+    case 64: PT_WIDTH(64); break;
+    case 128: PT_WIDTH(128); break;
+    case 256: PT_START(256, false); break;
+    case 384: PT_START(384, false); break;
+    case 512: PT_START(512, false); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PT_WIDTH
+#undef PT_START
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,9 +30,11 @@ dequantize round trip.  Five attention kernels carry this file, one per
 step kind — ``decode_attention_slab_chunk`` / ``_paged_chunk`` (the
 chunked serving steps), ``decode_attention_slab`` / ``_paged`` (the
 Tq=1 steps of the legacy ladder), each handed the int8 cache and its
-sidecars as they are — and ``flash_attention`` (``flash_attention_quant``
-on an int8 cache) in the prefill's batched causal pass; each dispatches
-on the device of the tensors it is handed.  The training path
+sidecars as they are, at the head widths ``decode_attention.covers``
+admits (elsewhere the step attends through ``_attend``, as JAX's model
+does) — and ``flash_attention`` (``flash_attention_quant`` on an int8
+cache) in the prefill's batched causal pass; each dispatches on the
+device of the tensors it is handed.  The training path
 (``encode``/``decode`` with ``full_seq=True``) attends through
 ``ops/attention.dot_product_attention``'s flash route: the flash forward
 and its dK/dV and dQ kernels, through ``FlashAttention``.
@@ -232,6 +234,31 @@ def _attend(q, k, v, num_heads, mask):
     return out.transpose(1, 2).reshape(b, tq, d)
 
 
+def _kernel_covers(c, q, num_heads, paged=False):
+    """The decode kernels' route rule (``decode_attention.covers``, JAX's
+    ``covers``) for this layer's widths and, paged, its block size."""
+    return _decode_kernel.covers(num_heads, q.shape[-1], c["k"].shape[-1],
+                                 c["k"].shape[1] if paged else None)
+
+
+def _attend_cache(c, q, qpos, num_heads, tables=None):
+    """The reference's path where the decode kernels do not cover the
+    widths: lane (r, i) of q [S, K, D] attends row r's cache -- its
+    block chain of the pool when ``tables`` are given -- at cols <=
+    qpos[r, i] ([S, K]), an int8 cache dequantized."""
+    ks, vs = c.get("ks"), c.get("vs")
+    if tables is None:
+        k, v = _kv_view(c["k"], ks), _kv_view(c["v"], vs)
+    else:
+        s, idx = tables.shape[0], tables.long()
+        k = _kv_view(c["k"][idx], None if ks is None else ks[idx])
+        v = _kv_view(c["v"][idx], None if vs is None else vs[idx])
+        k, v = k.reshape(s, -1, k.shape[-1]), v.reshape(s, -1, v.shape[-1])
+    cols = torch.arange(k.shape[1], device=qpos.device)
+    return _attend(q, k, v, num_heads,
+                   cols[None, None, :] <= qpos.long()[:, :, None])
+
+
 def _rope_flat(x_btd, positions, head_dim):
     """Rope on a flat [B, T, H*head_dim] projection (cached K is stored
     rotated)."""
@@ -377,13 +404,16 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
                pos_type="learned", kv_dtype=None):
     """Batched causal pass over the whole prompt [B, Tp]: returns
     (hidden states [B, Tp, D], cache) with every position's K/V written
-    into fresh [B, max_len, Dkv] buffers.  The attention is the
-    ``flash_attention`` kernel, causal, over GQA heads repeated to full
-    width first.  ``kv_dtype="int8"`` quantizes each position's K/V on
-    the way into the cache and attends the just-quantized codes through
-    ``flash_attention_quant`` (GQA in the kernel): the quantize ->
-    dequantize round trip that sequential int8 steps attend, so the cache
-    equals theirs."""
+    into fresh [B, max_len, Dkv] buffers.  The attention is
+    ``dot_product_attention``'s flash route, causal, over GQA heads
+    repeated to full width first: the ``flash_attention`` kernel, or the
+    dense path at a head dim above 128 that is not a multiple of 128, as
+    in JAX.  ``kv_dtype="int8"`` quantizes each position's K/V on the way
+    into the cache and attends the just-quantized codes through
+    ``flash_attention_quant`` (GQA in the kernel) where
+    ``prefill_quant_covers`` admits the widths, else their dequantized
+    values on the float32 route: the quantize -> dequantize round trip
+    that sequential int8 steps attend, so the cache equals theirs."""
     del moe_top_k     # MoE blocks raise in _block_ffn
     params = _maybe_dequant(params)
     _check_pos_type(params, pos_type)
@@ -413,17 +443,20 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
         def split(a, hh):
             return a.reshape(b, tp, hh, dh).transpose(1, 2)
 
-        if sk is not None:
+        if sk is not None and _flash_kernel.prefill_quant_covers(
+                d, k.shape[-1], num_heads):
             att = _flash_kernel.flash_attention_quant(
                 q.contiguous(), k_set, v_set, sk, sv, num_heads, causal=True)
         else:
-            att = _flash_kernel.flash_attention(
-                split(q, num_heads).contiguous(),
-                attn_ops.repeat_kv_heads(split(k, hkv),
-                                         num_heads).contiguous(),
-                attn_ops.repeat_kv_heads(split(v, hkv),
-                                         num_heads).contiguous(),
-                causal=True)
+            if sk is not None:      # the quantize -> dequantize round trip
+                k, v = _kv_view(k_set, sk), _kv_view(v_set, sv)
+            # the flash route (a head dim above 128 that is not a
+            # multiple of 128 takes the dense path there, as in JAX)
+            att = attn_ops.dot_product_attention(
+                split(q, num_heads),
+                attn_ops.repeat_kv_heads(split(k, hkv), num_heads),
+                attn_ops.repeat_kv_heads(split(v, hkv), num_heads),
+                causal=True, use_flash=True)
         att = att.transpose(1, 2).reshape(b, tp, d)
         x = x + linear.matmul(att, blk["attn"]["wo"])
         x = x + _block_ffn(blk, _ln(blk["ln2"], x))
@@ -516,10 +549,13 @@ def _cached_self_attn_slots(blk, x, c, positions, num_heads, rope_pos=None):
     index = (rows, positions.long())
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
-    att = _decode_kernel.decode_attention_slab(
-        q[:, 0].contiguous(), c["k"], c["v"], positions, num_heads,
-        kscale=c.get("ks"), vscale=c.get("vs"))
-    return x + linear.matmul(att[:, None], blk["attn"]["wo"])
+    if _kernel_covers(c, q, num_heads):
+        att = _decode_kernel.decode_attention_slab(
+            q[:, 0].contiguous(), c["k"], c["v"], positions, num_heads,
+            kscale=c.get("ks"), vscale=c.get("vs"))[:, None]
+    else:
+        att = _attend_cache(c, q, positions[:, None], num_heads)
+    return x + linear.matmul(att, blk["attn"]["wo"])
 
 
 def lm_decode_step_slots(params, prev_ids, positions, cache, num_heads=8,
@@ -568,10 +604,13 @@ def _cached_self_attn_paged(blk, x, c, positions, tables, num_heads,
     k_set, v_set, sk, sv = _kv_writes(c, k_new[:, 0], v_new[:, 0])
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
-    att = _decode_kernel.decode_attention_paged(
-        q[:, 0].contiguous(), c["k"], c["v"], positions, tables, num_heads,
-        kscale=c.get("ks"), vscale=c.get("vs"))
-    return x + linear.matmul(att[:, None], blk["attn"]["wo"])
+    if _kernel_covers(c, q, num_heads, paged=True):
+        att = _decode_kernel.decode_attention_paged(
+            q[:, 0].contiguous(), c["k"], c["v"], positions, tables,
+            num_heads, kscale=c.get("ks"), vscale=c.get("vs"))[:, None]
+    else:
+        att = _attend_cache(c, q, positions[:, None], num_heads, tables)
+    return x + linear.matmul(att, blk["attn"]["wo"])
 
 
 def lm_decode_step_paged(params, prev_ids, positions, cache, tables,
@@ -620,9 +659,12 @@ def _cached_self_attn_chunk(blk, x, c, li, qpos, num_heads, rope_pos=None):
     index = (torch.arange(s, device=x.device)[:, None], qpos.long())
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
-    att = _decode_kernel.decode_attention_slab_chunk(
-        q, c["k"], c["v"], qpos, num_heads, kscale=c.get("ks"),
-        vscale=c.get("vs"))
+    if _kernel_covers(c, q, num_heads):
+        att = _decode_kernel.decode_attention_slab_chunk(
+            q, c["k"], c["v"], qpos, num_heads, kscale=c.get("ks"),
+            vscale=c.get("vs"))
+    else:
+        att = _attend_cache(c, q, qpos, num_heads)
     return x + linear.matmul(att, blk["attn"]["wo"])
 
 
@@ -654,9 +696,12 @@ def _cached_self_attn_chunk_paged(blk, x, c, li, qpos, tables, num_heads,
     k_set, v_set, sk, sv = _kv_writes(c, k_sel, v_sel)
     _kv_commit(c, lambda buf, val: buf.index_put_(index, val),
                k_set, v_set, sk, sv)
-    att = _decode_kernel.decode_attention_paged_chunk(
-        q, c["k"], c["v"], qpos, tables, num_heads, kscale=c.get("ks"),
-        vscale=c.get("vs"))
+    if _kernel_covers(c, q, num_heads, paged=True):
+        att = _decode_kernel.decode_attention_paged_chunk(
+            q, c["k"], c["v"], qpos, tables, num_heads, kscale=c.get("ks"),
+            vscale=c.get("vs"))
+    else:
+        att = _attend_cache(c, q, qpos, num_heads, tables)
     return x + linear.matmul(att, blk["attn"]["wo"])
 
 

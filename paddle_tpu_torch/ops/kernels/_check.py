@@ -17,6 +17,12 @@ LANES = 128
 VMEM_BUDGET = 14 * 1024 * 1024
 
 
+def lane_tileable(n):
+    """A width the TPU kernels' lanes slice (n <= 128) or tile (n % 128
+    == 0): the head dims the reference's attention kernels take."""
+    return n <= LANES or n % LANES == 0
+
+
 def tensors(name, dtypes, **named):
     """Every tensor on one device, of its dtype, contiguous, 16-byte
     aligned (the kernels load float4s).  Returns the device."""
@@ -39,7 +45,3 @@ def tensors(name, dtypes, **named):
         raise ValueError(f"{name}: tensors on {dev} (takes cpu or cuda)")
     return dev
 
-
-def head_dim(name, dh):
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {dh} not in {HEAD_DIMS}")

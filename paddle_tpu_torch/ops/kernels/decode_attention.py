@@ -22,6 +22,12 @@ takes and which ``chip_smoke.py`` holds the kernel against on the card
 (an int8 cache is dequantized with ``quant/kv.dequantize_heads`` first,
 the product the int8 kernels form in registers).  Each kernel, float32
 and int8, has its own ``launches`` counter.
+
+Head dims: any up to 128 and the multiples of 128 up to ``MAX_HEAD_DIM``
+-- the TPU kernels' lane-tileable widths (JAX's ``_mosaic_ok``); the
+kernel pads a head to its compiled width.  ``covers`` is the route's
+rule, JAX's ``covers``: where it fails the model attends through its
+masked plain path, as the reference does.
 """
 
 import ctypes
@@ -73,6 +79,32 @@ _SIGNATURES = {"decode_attention_slab_chunk_f32": (5, 6),
                "decode_attention_paged_i8": (8, 6)}
 
 
+# the widest head the kernels compile (shared memory: 148 KB a CTA)
+MAX_HEAD_DIM = 512
+
+
+def head_dim_ok(dh):
+    """A head width the kernels take: 1..128, or a multiple of 128 up to
+    ``MAX_HEAD_DIM``."""
+    return 1 <= dh <= MAX_HEAD_DIM and _check.lane_tileable(dh)
+
+
+def covers(num_heads, d, dkv, block_size=None):
+    """JAX's dispatch predicate (``decode_attention.py:699-734``) for the
+    port's kernels: the widths split into grouped heads of a width the
+    kernels take and, on the paged layout (``block_size`` given), a
+    lane-tileable block.  Where it fails, ``models/transformer`` attends
+    through ``_attend``, as the reference does."""
+    if num_heads < 1 or d % num_heads:
+        return False
+    dh = d // num_heads
+    if dh < 1 or dkv % dh or dkv // dh < 1 or num_heads % (dkv // dh):
+        return False
+    if block_size is not None and not _check.lane_tileable(block_size):
+        return False
+    return head_dim_ok(dh)
+
+
 def _entry(name):
     return _build.entry("decode_attention", name, *_SIGNATURES[name],
                         ctypes.c_float)
@@ -85,7 +117,10 @@ def _heads(name, d, dkv, num_heads):
         raise ValueError(f"{name}: num_heads={num_heads} does not divide "
                          f"D={d}")
     dh = d // num_heads
-    _check.head_dim(name, dh)
+    if not head_dim_ok(dh):
+        raise ValueError(f"{name}: head dim {dh} is not one the kernels "
+                         f"take (up to 128, or a multiple of 128 up to "
+                         f"{MAX_HEAD_DIM})")
     if dkv % dh or num_heads % (dkv // dh):
         raise ValueError(f"{name}: Dkv={dkv} is not a whole number of "
                          f"KV heads dividing {num_heads} query heads")
@@ -139,8 +174,7 @@ def _paged_shapes(name, q, k, v, qpos, tables, num_heads):
 def _check_scales(name, kscale, vscale, k, v, hkv):
     """True when ``kscale``/``vscale`` mark an int8 cache (JAX's
     ``_check_scales``): both or neither, each shaped as k/v with Hkv in
-    place of Dkv, k/v int8 with Dkv a multiple of 16 (the kernels read a
-    head's codes with 16-byte loads).  Raises ValueError otherwise."""
+    place of Dkv, k/v int8.  Raises ValueError otherwise."""
     if kscale is None and vscale is None:
         return False
     if kscale is None or vscale is None:
@@ -152,9 +186,6 @@ def _check_scales(name, kscale, vscale, k, v, hkv):
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise ValueError(f"{name}: k/v must be int8 beside scale sidecars, "
                          f"got {k.dtype}/{v.dtype}")
-    if k.shape[-1] % 16:
-        raise ValueError(f"{name}: int8 Dkv={k.shape[-1]} is not a multiple "
-                         "of 16")
     return True
 
 

@@ -286,7 +286,7 @@ def _quant_shapes(q, k, v, kscale, vscale, num_heads, causal):
         raise ValueError(f"{NAME_QUANT}: num_heads={num_heads} does not "
                          f"divide D={d}")
     dh = d // num_heads
-    _check.head_dim(NAME_QUANT, dh)
+    padded_head_dim(dh)
     if dkv % dh or num_heads % (dkv // dh):
         raise ValueError(f"{NAME_QUANT}: Dkv={dkv} is not a whole number of "
                          f"KV heads dividing {num_heads} query heads")
@@ -306,6 +306,22 @@ def _quant_shapes(q, k, v, kscale, vscale, num_heads, causal):
         raise ValueError(f"{NAME_QUANT}: causal attention needs Tq == Tk "
                          f"(aligned starts); got Tq={tq}, Tk={tk}")
     return b, tq, tk, num_heads, hkv, dh
+
+
+def prefill_quant_covers(d, dkv, num_heads):
+    """JAX's ``prefill_quant_covers`` (``flash_attention.py:585``) on
+    ``lm_prefill``'s head widths: D and Dkv split into grouped heads of
+    a lane-tileable width (up to 128, or a multiple of 128).  Where it
+    fails, ``lm_prefill`` dequantizes the just-written codes and attends
+    on the float32 route, as the reference does.  The port's kernel
+    takes any Tq == Tk, so the reference's block rule on T does not
+    apply."""
+    if num_heads < 1 or d % num_heads:
+        return False
+    dh = d // num_heads
+    if dkv % dh or num_heads % (dkv // dh):
+        return False
+    return _check.lane_tileable(dh)
 
 
 def flash_attention_quant_plain(q, k, v, kscale, vscale, num_heads,
@@ -332,7 +348,9 @@ def flash_attention_quant(q, k, v, kscale, vscale, num_heads, scale=None,
     k/v [B, Tk, Dkv] int8 (the cache layout), kscale/vscale [B, Tk, Hkv]
     f32 -> [B, H, Tq, dh].  Query head h reads KV head h // (H / Hkv) in
     the kernel.  CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
+    plain version; a head dim between the compiled ones is padded to the
+    next on both (each head's codes and query zero-extended: zero codes
+    dequantize to the float32 route's zero padding, bit for bit)."""
     global launches_quant
     f32 = torch.float32
     b, tq, tk, h, hkv, dh = _quant_shapes(q, k, v, kscale, vscale,
@@ -342,6 +360,15 @@ def flash_attention_quant(q, k, v, kscale, vscale, num_heads, scale=None,
                                       "vscale": f32},
                          q=q, k=k, v=v, kscale=kscale, vscale=vscale)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    width = padded_head_dim(dh)
+    if width != dh:
+        def heads(x, t, n):
+            return _pad(x.reshape(b, t, n, dh), width).reshape(b, t,
+                                                               n * width)
+        o = flash_attention_quant(heads(q, tq, h), heads(k, tk, hkv),
+                                  heads(v, tk, hkv), kscale, vscale,
+                                  num_heads, scale, causal)
+        return o[..., :dh].contiguous()
     if dev.type == "cpu":
         return flash_attention_quant_plain(q, k, v, kscale, vscale,
                                            num_heads, scale, causal)

@@ -11,10 +11,10 @@ takes them, and ``chip_smoke.py`` holds the kernels against them.
 
 Shapes (time-major, float32): xs [T, B, 4D] (input projection plus
 bias, gate order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks
-[3, D] (peepholes i, f, o).  The kernels take D in 128/256/512 and any
-B.  ``supported`` is the route's rule, the JAX package's: it also gives
-this route D = 384 (at B = 64, say) and D = 640 at B <= 32, which the
-kernels do not take yet (ROADMAP B9); larger D go to the gate-blocked
+[3, D] (peepholes i, f, o).  ``supported`` is the route's rule, the JAX
+package's, and on a CUDA device the wrappers take exactly the (B, D) it
+admits (D 128 to 640: B up to 1448 at D 128, 168 at D 512, 32 at D 640)
+and raise ``ConfigError`` on any other; larger D go to the gate-blocked
 variant (``lstm_blocked``).  The plain versions take any D.
 """
 
@@ -28,7 +28,6 @@ NAME_BWD = "lstm_bwd"
 SOURCE = "paddle_tpu_torch/csrc/lstm.cu"
 REPLACES_FWD = "paddle_tpu/ops/pallas/lstm.py:177"
 REPLACES_BWD = "paddle_tpu/ops/pallas/lstm.py:209"
-HIDDEN = (128, 256, 512)
 LANES = _check.LANES
 
 # kernel launches since the last reset (bumped only where a kernel is
@@ -47,15 +46,19 @@ def vmem_bytes(b, d):
     return 4 * (resident + streamed)
 
 
+def shape_supported(b, d):
+    """The (B, D) half of ``supported``: B % 8 == 0, D % 128 == 0,
+    within the VMEM guard (W_r alone is 26 MB at D = 1280)."""
+    return (b % 8 == 0 and d % LANES == 0
+            and vmem_bytes(b, d) <= _check.VMEM_BUDGET)
+
+
 def supported(b, d, act, gate_act, state_act, init_state):
     """The resident route's rule, ``lstm.py:276-285``: default
-    activations, no initial state, B % 8 == 0, D % 128 == 0, within the
-    VMEM guard (W_r alone is 26 MB at D = 1280).  ``rnn.lstm`` follows
-    it on both devices."""
+    activations, no initial state and ``shape_supported(b, d)``.
+    ``rnn.lstm`` follows it on both devices."""
     return (act == "tanh" and gate_act == "sigmoid" and state_act == "tanh"
-            and init_state is None
-            and b % 8 == 0 and d % LANES == 0
-            and vmem_bytes(b, d) <= _check.VMEM_BUDGET)
+            and init_state is None and shape_supported(b, d))
 
 
 def _shapes(name, xs, mask, w_r, checks, dev):
@@ -74,10 +77,11 @@ def _shapes(name, xs, mask, w_r, checks, dev):
                          f"[3, D] for xs {tuple(xs.shape)}; got mask "
                          f"{tuple(mask.shape)}, w_r {tuple(w_r.shape)}, "
                          f"checks {tuple(checks.shape)}")
-    if dev.type == "cuda" and d not in HIDDEN:
-        raise ConfigError(f"{name}: hidden size {d} is not one the fused "
-                          f"kernel takes {HIDDEN} (the others the route "
-                          f"admits are ROADMAP B9's later work)")
+    if dev.type == "cuda" and not shape_supported(b, d):
+        raise ConfigError(f"{name}: (B, D) = ({b}, {d}) is outside the "
+                          f"resident route's rule (B % 8 == 0, D % 128 == "
+                          f"0, within its VMEM guard), so the fused kernel "
+                          f"does not take it")
     return t, b, d
 
 
@@ -199,12 +203,15 @@ def lstm_bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin):
     dwr = torch.empty_like(w_r)
     dchk = torch.empty((b, 3 * d), dtype=f32, device=dev)
     carry = torch.empty((2, b, d), dtype=f32, device=dev)
+    # dh_prev's partial sums, one per 16-unit block, by step parity
+    part = torch.empty((2, d // 16, b, d), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("lstm", "lstm_bwd_f32", 13, 3)(
+    rc = _build.entry("lstm", "lstm_bwd_f32", 14, 3)(
         acts.data_ptr(), cs.data_ptr(), hs.data_ptr(), w_r.data_ptr(),
         checks.data_ptr(), mask.data_ptr(), dh_out.data_ptr(),
         dcfin.data_ptr(), dxs.data_ptr(), dwr.data_ptr(), dchk.data_ptr(),
-        carry[0].data_ptr(), carry[1].data_ptr(), t, b, d, stream)
+        carry[0].data_ptr(), carry[1].data_ptr(), part.data_ptr(), t, b, d,
+        stream)
     _build.check(NAME_BWD, rc)
     launches_bwd += 1
     return dxs, dwr, dchk.sum(0).reshape(3, d)

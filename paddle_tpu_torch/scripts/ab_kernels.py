@@ -1,22 +1,29 @@
 """Time the decode-attention kernels of two checkouts on one card.
 
-    python -m paddle_tpu_torch.scripts.ab_kernels OTHER_CHECKOUT
+    python -m paddle_tpu_torch.scripts.ab_kernels OTHER_CHECKOUT [ROUNDS]
 
 Runs ``chip_smoke.py``'s kernel checks (``check_decode_kernel`` at H =
 Hkv, and ``check_paged_kernels`` where the checkout has it) in a fresh
 process per run, each building its checkout's kernels, in the order
-other, this, this, other, repeated ``ROUNDS`` times: kernel times move
-between processes on one card, so two checkouts are compared only
-alternating within one call.  Prints one JSON line per run with the
-kernel times in ms.  Needs a CUDA device.
+other, this, this, other, repeated ROUNDS times (default ``ROUNDS``):
+kernel times move between processes on one card, so two checkouts are
+compared only alternating within one call.  Prints one JSON line per
+run with the kernel times in ms (``check_*``'s, which time the
+wrappers back to back and so hold the host's launch path too, and the
+slab kernels' device time alone, ``graph:``, from calls captured in a
+CUDA graph and replayed), then one summary line: for each kernel
+and checkout the median, least and largest time, and the median and
+range of the 2 x ROUNDS paired differences this - other (each run of
+this beside the run of other next to it).  Needs a CUDA device.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 
-ROUNDS = 2
+ROUNDS = 5
 
 _RUN = r'''
 import json, numpy as np, torch
@@ -27,27 +34,94 @@ ms = {"decode_attention_slab_chunk":
 if hasattr(cs, "check_paged_kernels"):
     rows = cs.check_paged_kernels(torch, dev, rng, cs.HEADS)
     ms.update({name: row["ms"] for name, row in rows.items()})
+
+# the slab kernels' device time alone: calls captured in a CUDA graph
+# and replayed, so the host's launch path is out of the reading
+def graph_ms(fn, calls=20, replays=30):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+from paddle_tpu_torch.ops.kernels import decode_attention as dk
+s, kk, t, d, h = 8, cs.CHUNK, cs.SERVE_MAX_LEN, cs.D_MODEL, cs.HEADS
+q = torch.tensor(cs.normal(rng, (s, kk, d)), device=dev)
+k, v = (torch.tensor(cs.normal(rng, (s, t, d)), device=dev)
+        for _ in range(2))
+qpos = torch.tensor(cs.chunk_qpos(t), device=dev)
+q1, pos = q[:, 0].contiguous(), qpos[:, 0].contiguous()
+try:
+    ms["graph:decode_attention_slab_chunk"] = graph_ms(
+        lambda: dk.decode_attention_slab_chunk(q, k, v, qpos, h))
+    ms["graph:decode_attention_slab"] = graph_ms(
+        lambda: dk.decode_attention_slab(q1, k, v, pos, h))
+except RuntimeError as e:     # a reading, not the port's path
+    ms["graph_error"] = str(e)[:500]
 print(json.dumps(ms))
 '''
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
+    if len(argv) not in (1, 2):
         raise SystemExit(__doc__)
+    rounds = int(argv[1]) if len(argv) == 2 else ROUNDS
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     trees = {"other": os.path.abspath(argv[0]), "this": here}
-    for _ in range(ROUNDS):
+    runs = []
+    for _ in range(rounds):
         for name in ("other", "this", "this", "other"):
             r = subprocess.run([sys.executable, "-c", _RUN], cwd=trees[name],
                                capture_output=True, text=True, timeout=600)
             if r.returncode:
                 raise SystemExit(f"{name} ({trees[name]}) failed:\n"
                                  f"{r.stderr[-4000:]}")
-            print(json.dumps({"checkout": name, "ms": json.loads(
-                r.stdout.strip().splitlines()[-1])}), flush=True)
+            runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+            print(json.dumps({"checkout": name, "ms": runs[-1]}), flush=True)
+    print(json.dumps({"summary": summary(runs)}), flush=True)
     return 0
+
+
+def summary(runs):
+    """Per kernel: each checkout's median / least / largest ms and the
+    paired differences this - other, from runs in the order other, this,
+    this, other, ... (pairs: runs 4i and 4i+1, runs 4i+2 and 4i+3)."""
+    out = {}
+    for kernel in (k for k, x in runs[0].items() if isinstance(x, float)):
+        sides = {"other": [], "this": []}
+        diffs = []
+        for i in range(0, len(runs), 4):
+            o0, t0, t1, o1 = (run.get(kernel) for run in runs[i:i + 4])
+            sides["other"] += [o0, o1]
+            sides["this"] += [t0, t1]
+            diffs += [t0 - o0, t1 - o1]
+        out[kernel] = {
+            **{side: {"median": statistics.median(v), "min": min(v),
+                      "max": max(v)} for side, v in sides.items()},
+            "this_minus_other": {"median": statistics.median(diffs),
+                                 "min": min(diffs), "max": max(diffs),
+                                 "this_faster": sum(d < 0 for d in diffs),
+                                 "pairs": len(diffs)}}
+    return out
 
 
 if __name__ == "__main__":

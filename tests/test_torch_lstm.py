@@ -154,6 +154,52 @@ def test_rnn_lstm_matches_jax_fused(np_rng, kind, reverse, peephole):
         _close(g, w, name)
 
 
+@pytest.mark.parametrize("b, d", [(64, 384), (32, 640)])
+def test_wide_resident_sizes_match_jax(np_rng, b, d):
+    """The resident route's widest sizes, which the CUDA kernels take
+    since their redesign (D 384 at B 64, D 640 at B 32, the largest B the
+    rule admits there): the plain versions against the Pallas kernels in
+    interpret mode, and rnn.lstm's loss and gradients against JAX's fused
+    route, on a ragged batch with an empty row (T 3)."""
+    t = 3
+    assert klstm.supported(b, d, "tanh", "sigmoid", "tanh", None)
+    assert pl_lstm.supported(b, d, "tanh", "sigmoid", "tanh", None)
+    lengths = np_rng.randint(1, t + 1, (b,)).astype(np.int32)
+    lengths[0] = 0
+    mask = (np.arange(t)[:, None] < lengths[None, :]).astype(np.float32)
+    xs = (np_rng.randn(t, b, 4 * d) * 0.3).astype(np.float32)
+    w_r = (np_rng.randn(d, 4 * d) * 0.1).astype(np.float32)
+    checks = (np_rng.randn(3, d) * 0.1).astype(np.float32)
+    want = pl_lstm._fwd(jnp.asarray(xs), jnp.asarray(w_r),
+                        jnp.asarray(checks), _lanes(mask), True, True)
+    got = klstm.lstm_fwd(*(torch.tensor(a) for a in (xs, mask, w_r,
+                                                     checks)), True)
+    for name, g, w in zip(("hs", "c_fin", "cs", "acts"), got,
+                          (want[0], want[1][0], want[2], want[3])):
+        _close(g, w, name)
+    dh_out = np_rng.randn(t, b, d).astype(np.float32)
+    dcfin = np_rng.randn(b, d).astype(np.float32)
+    res = (jnp.asarray(w_r), jnp.asarray(checks), _lanes(mask), want[0],
+           want[2], want[3])
+    want_b = pl_lstm._bwd(True, res, (jnp.asarray(dh_out),
+                                      jnp.asarray(dcfin)[None]))
+    got_b = klstm.lstm_bwd(*(torch.tensor(np.asarray(a)) for a in (
+        want[3], want[2], want[0], w_r, checks, mask, dh_out, dcfin)))
+    for name, g, w in zip(("dxs", "dW_r", "dchecks"), got_b, want_b[:3]):
+        _close(g, w, name)
+
+    x = np.ascontiguousarray(xs.transpose(1, 0, 2))
+    peep = [checks[i] for i in range(3)]
+    bias = (np_rng.randn(4 * d) * 0.1).astype(np.float32)
+    want_loss, (gx, gw, gc, gb) = _jax_lstm(x, lengths, w_r, peep, bias,
+                                            False, True)
+    loss, grads = _torch_lstm(x, lengths, w_r, peep, bias, False, True)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=2e-5)
+    for name, g, w in zip(["dx", "dw_r", "dcheck_i", "dcheck_f", "dcheck_o",
+                           "dbias"], grads, [gx, gw, *gc, gb]):
+        _close(g, w, name)
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_rnn_lstm_fused_matches_port_scan(np_rng, reverse):
     """The fused route against the port's own scan (a callable activation
@@ -245,21 +291,25 @@ def test_small_hidden_takes_the_scan_on_cpu(np_rng):
     torch.testing.assert_close(final.c, final_s.c, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("d, exc, match", [
-    (384, ConfigError, "ROADMAP B9"), (64, ConfigError, "hidden size 64")])
-def test_wrapper_refuses_uncovered_hidden_sizes(d, exc, match):
-    """The kernels take D in 128/256/512: the wrapper's shape check
-    refuses any other for a CUDA tensor (checked here without a card on
-    the shapes alone), naming B9's later work for the ones the route
-    admits (384 at B=64, say), and lets the plain versions take it on the
-    CPU."""
-    xs, mask = torch.zeros(2, 3, 4 * d), torch.ones(2, 3)
+@pytest.mark.parametrize("b, d, exc, match", [
+    (40, 640, ConfigError, r"\(B, D\) = \(40, 640\)"),
+    (8, 64, ConfigError, r"\(B, D\) = \(8, 64\)")])
+def test_wrapper_refuses_uncovered_hidden_sizes(b, d, exc, match):
+    """On CUDA the kernels take exactly the (B, D) the route's rule
+    admits: the wrapper's shape check refuses any other for a CUDA tensor
+    (checked here without a card on the shapes alone) -- D 640 at B 40,
+    past the VMEM guard, which the reference also keeps off this kernel,
+    and D 64, not a lane multiple -- and lets the plain versions take it
+    on the CPU."""
+    assert not klstm.shape_supported(b, d)
+    assert not pl_lstm.supported(b, d, "tanh", "sigmoid", "tanh", None)
+    xs, mask = torch.zeros(2, b, 4 * d), torch.ones(2, b)
     w_r, chk = torch.zeros(d, 4 * d), torch.zeros(3, d)
     with pytest.raises(exc, match=match):
         klstm._shapes(klstm.NAME_FWD, xs, mask, w_r, chk,
                       torch.device("cuda"))
     hs, cfin, _, _ = klstm.lstm_fwd(xs, mask, w_r, chk, False)
-    assert hs.shape == (2, 3, d) and not cfin.any()
+    assert hs.shape == (2, b, d) and not cfin.any()
 
 
 def test_wrapper_checks_dtype_and_shapes():

@@ -38,6 +38,7 @@ from paddle_tpu_torch.ops import rnn
 from paddle_tpu_torch.ops.kernels import lstm as klstm
 from paddle_tpu_torch.ops.kernels import lstm_blocked as kblk
 from paddle_tpu_torch.scripts import bench
+from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
 
 B, D = 8, 256
@@ -258,10 +259,18 @@ def test_route_rule_matches_jax_over_the_grid():
     assert all(routes[64, d] == "blocked" for d in (640, 1280, 2048))
     assert routes[64, 2944] == "scan" and routes[256, 512] == "blocked"
     assert routes[8, 3456] == "blocked" and routes[12, 1280] == "scan"
-    # the resident route's hidden sizes beyond the kernels' own: B9's
-    # later work, where the wrapper refuses on the card
+    # every (B, D) the resident route admits is one its kernels take on
+    # the card (D 384 and 640 included), and no other
+    for (b, d), r in routes.items():
+        args = (torch.zeros(1, b, 4 * d), torch.zeros(1, b),
+                torch.zeros(d, 4 * d), torch.zeros(3, d))
+        if r == "resident":
+            klstm._shapes(klstm.NAME_FWD, *args, torch.device("cuda"))
+        elif not klstm.shape_supported(b, d):
+            with pytest.raises(ConfigError):
+                klstm._shapes(klstm.NAME_FWD, *args, torch.device("cuda"))
     assert {d for (b, d), r in routes.items() if r == "resident"} \
-        - set(klstm.HIDDEN) == {384, 640}
+        >= {384, 640}
 
 
 @pytest.mark.parametrize("act, gate_act, state_act, init", [

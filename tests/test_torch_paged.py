@@ -145,13 +145,21 @@ def _good_paged(np_rng):
                 num_heads=h)
 
 
+def _dh160(args):
+    """One head of width 160: neither up to 128 nor a multiple of it."""
+    s, kk, _ = args["q"].shape
+    nb, bs, _ = args["k"].shape
+    return dict(args, q=torch.zeros(s, kk, 160), k=torch.zeros(nb, bs, 160),
+                v=torch.zeros(nb, bs, 160), num_heads=1)
+
+
 @pytest.mark.parametrize("bad, exc", [
     (lambda a: dict(a, tables=a["tables"].long()), TypeError),
     (lambda a: dict(a, tables=a["tables"][:-1].contiguous()), ValueError),
     (lambda a: dict(a, tables=a["tables"][:, 0].contiguous()), ValueError),
     (lambda a: dict(a, qpos=a["qpos"][:-1].contiguous()), ValueError),
     (lambda a: dict(a, v=a["v"][:-1].contiguous()), ValueError),
-    (lambda a: dict(a, num_heads=4), ValueError),     # head dim 8
+    (lambda a: _dh160(a), ValueError),    # head dim 160: JAX refuses too
 ])
 def test_paged_wrappers_bad_arguments_raise(np_rng, bad, exc):
     args = bad(_good_paged(np_rng))
