@@ -45,7 +45,10 @@ non-zero exit code and no final "ok" line:
             simple-RNN forward, BPTT and dW at the DSL slice's train shape
             T=100, B=64, D=512 on full rows and on a ragged mask with an
             empty row, at the ends of the rule's range (D 1152 at B 64,
-            D 1280 at B 8, B 4736 at D 128) and odd T, a reverse
+            D 1280 at B 8, B 4736 at D 128) and odd T, each also within
+            the 3xTF32 gate and bit for bit on a second launch, the
+            gate failed by a one-TF32-pass build at the train shape, the
+            backward timed with its BPTT / dW split; a reverse
             rnn.simple_rnn through the kernels and rnn.simple_rnn at B 12
             and with act="relu" through the scan on the card, held
             against the CPU),
@@ -53,8 +56,9 @@ non-zero exit code and no final "ok" line:
             PyTorch library call computing the same function (a
             yardstick the port never calls; none exists for the int8
             kernels) and the least time the card could take (for the
-            3xTF32 flash forward, its int8 instance, dK/dV, dQ and the
-            gate-blocked LSTM forward at the tensor cores' rate, the
+            3xTF32 flash forward, its int8 instance, dK/dV, dQ, the
+            gate-blocked LSTM forward and the simple-RNN kernels at the
+            tensor cores' rate, the
             float32 SIMT bound and the ratio to the library call beside
             it; for the blocked forward also the time W_r takes to
             stream from HBM once a step)
@@ -346,6 +350,18 @@ S2S_DIRECTIONS = 2
 # D 128) and at an odd T, each on a ragged mask with an empty row.
 RNN_T, RNN_B, RNN_D = 100, 64, 512
 RNN_OTHER = ((30, 64, 1152), (30, 8, 1280), (30, 4736, 128), (37, 64, 512))
+# Every simple-RNN check is also held within RNN_TC_TOL, the gate that
+# tells 3xTF32 from one TF32 pass: hs absolute (|h| < 1), dxs and dW
+# relative to their largest entry.  dxs is held relative because it
+# grows along the reversed recurrence (|dxs| reaches ~10 at the train
+# shape's full rows and ~40 on a ragged mask, where 3xTF32's absolute
+# error reaches ~1e-5 while its relative error stays under 1e-6).  At
+# the train shape one pass lands at 1.2e-3 on hs and 4.5e-4 / 5.1e-4 on
+# dxs / dW, 3xTF32 under 8e-7 (scripts/probe_simple_rnn.py, `tf32_1x`
+# and `kernel`); the tf32_1x variant, built from the source, must fail
+# it.  Two launches on the same inputs must give bit-identical hs, dxs
+# and dW: every sum runs in a fixed order.
+RNN_TC_TOL = 1e-5
 # The train_rnn phase: the first step on the card against the CPU at
 # TRAIN_REL_TOL, and its update must lower the cost of the batch it was
 # taken on (SGD.test before and after).  With the reference's Momentum
@@ -1669,6 +1685,7 @@ def rnn_pair(torch, dev, rng, t, b, d, ragged):
         return float((x - y).abs().max())
 
     fwd_err, dxs_err = err(got, ref), err(gb[0], rb[0])
+    dxs_rel = dxs_err / float(rb[0].abs().max())
     dw_rel = err(gb[1], rb[1]) / float(rb[1].abs().max())
     if not fwd_err <= KERNEL_TOL or not dxs_err <= KERNEL_TOL \
             or not dw_rel <= KERNEL_TOL:
@@ -1676,14 +1693,26 @@ def rnn_pair(torch, dev, rng, t, b, d, ragged):
              f"disagree with their plain versions: hs max abs err "
              f"{fwd_err}, dxs {dxs_err}, dW relative {dw_rel} (bound "
              f"{KERNEL_TOL})")
+    if not max(fwd_err, dxs_rel, dw_rel) <= RNN_TC_TOL:
+        fail(f"simple-RNN kernels (T={t}, B={b}, D={d}, ragged={ragged}): "
+             f"hs {fwd_err}, dxs relative {dxs_rel}, dW relative {dw_rel} "
+             f"exceed the 3xTF32 gate {RNN_TC_TOL} (one TF32 pass lands "
+             "above it)")
     if ragged and (got[:, 0].any() or gb[0][:, 0].any()):
         fail("simple-RNN kernels: the empty row's hs or dxs is not "
              "exactly 0")
+    again, again_b = (rk.simple_rnn_fwd(xs, mask, w),
+                      rk.simple_rnn_bwd(ref, w, mask, dh_out))
+    if not (torch.equal(again, got) and torch.equal(again_b[0], gb[0])
+            and torch.equal(again_b[1], gb[1])):
+        fail(f"simple-RNN kernels (T={t}, B={b}, D={d}, ragged={ragged}): "
+             "a second launch on the same inputs differs from the first")
     rows = [{"name": rk.NAME_FWD, "T": t, "B": b, "D": d, "ragged": ragged,
-             "max_abs_err": fwd_err},
+             "max_abs_err": fwd_err, "repeat": "bit for bit"},
             {"name": rk.NAME_BWD, "T": t, "B": b, "D": d, "ragged": ragged,
-             "max_abs_err": dxs_err, "dW_max_abs_err": err(gb[1], rb[1]),
-             "dW_rel_err": dw_rel}]
+             "max_abs_err": dxs_err, "dxs_rel_err": dxs_rel,
+             "dW_max_abs_err": err(gb[1], rb[1]), "dW_rel_err": dw_rel,
+             "repeat": "bit for bit"}]
     calls = ((lambda: rk.simple_rnn_fwd(xs, mask, w),
               lambda: rk.simple_rnn_fwd_plain(xs, mask, w)),
              (lambda: rk.simple_rnn_bwd(ref, w, mask, dh_out),
@@ -1691,11 +1720,13 @@ def rnn_pair(torch, dev, rng, t, b, d, ragged):
     return rows, calls, rnn_cost(lengths, t, d), (xs, w, dh_out, ref)
 
 
-def check_rnn_kernels(torch, dev, rng):
+def check_rnn_kernels(torch, dev, rng, libs=None):
     """The simple-RNN kernels at the train shape on a ragged mask (with
     an empty row) and on the train path's own data (every row full),
     which the times, the bound and the cuDNN yardstick are taken on;
-    then ragged at RNN_OTHER."""
+    then ragged at RNN_OTHER.  With ``libs`` (scripts/probe_simple_rnn.
+    build's, holding "kernel"), also the backward's split: dW alone and
+    BPTT the rest."""
     rows, _, _, _ = rnn_pair(torch, dev, rng, RNN_T, RNN_B, RNN_D, True)
     full, calls, costs, (xs, w, dh_out, ref) = rnn_pair(
         torch, dev, rng, RNN_T, RNN_B, RNN_D, False)
@@ -1717,13 +1748,49 @@ def check_rnn_kernels(torch, dev, rng):
                    library_ms=time_ms(torch, lib, samples=20, reps=5),
                    library_note=note, library_fwd_max_abs_err=lib_err,
                    bytes=nbytes, flops=flops)
-        if "dW_rel_err" in row:
-            row["dW_rel_err"] = max(row["dW_rel_err"],
-                                    row_full["dW_rel_err"])
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        for key in ("dxs_rel_err", "dW_rel_err"):
+            if key in row:
+                row[key] = max(row[key], row_full[key])
+        tc_bound(row, nbytes, flops)
+    if libs is not None:
+        # dW alone (the backward's second launch, the probe's entry on the
+        # same source); its bound: hs and dxs read once, dW written once
+        from paddle_tpu_torch.scripts import probe_simple_rnn
+        case = probe_simple_rnn.Case(dev, np.random.RandomState(2), RNN_T,
+                                     RNN_B, RNN_D)
+        entries = libs["kernel"][0]
+        case.bwd(entries)
+        dw_ms = time_ms(torch, lambda: case.dw(entries), samples=20, reps=5)
+        rows[1]["split"] = {
+            "dW_ms": dw_ms, "bptt_ms": rows[1]["ms"] - dw_ms,
+            "dW_bound_ms": bound(4 * (2 * (RNN_T - 1) * RNN_B * RNN_D
+                                      + RNN_D * RNN_D),
+                                 costs[1][1] // 2, PEAK_3XTF32_FLOPS)[0]}
     other = [r for t, b, d in RNN_OTHER
              for r in rnn_pair(torch, dev, rng, t, b, d, True)[0]]
     return rows, other
+
+
+def check_rnn_tf32_control(torch, dev, libs):
+    """The tf32_1x variant of csrc/simple_rnn.cu (one TF32 product a
+    k-step, scripts/probe_simple_rnn.py) and the kernels as built, on one
+    set of train shape inputs: the kernels pass RNN_TC_TOL and the
+    variant must not, or the gate could not tell one pass from 3xTF32."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.scripts import probe_simple_rnn
+    case = probe_simple_rnn.Case(dev, np.random.RandomState(1), RNN_T,
+                                 RNN_B, RNN_D)
+    kernel = (_build.entry("simple_rnn", "simple_rnn_fwd_f32", 4, 3),
+              _build.entry("simple_rnn", "simple_rnn_bwd_f32", 7, 3))
+    errs = {"kernel": case.errors(kernel),
+            "tf32_1x": case.errors(libs["tf32_1x"][0])}
+    worst = {name: max(e.values()) for name, e in errs.items()}
+    if not worst["kernel"] <= RNN_TC_TOL or worst["tf32_1x"] <= RNN_TC_TOL:
+        fail(f"3xTF32 gate {RNN_TC_TOL}: the simple-RNN kernels read "
+             f"{errs['kernel']}, the one-pass control {errs['tf32_1x']} (the "
+             "control must fail the gate, the kernels pass it)")
+    return {"shape": {"T": RNN_T, "B": RNN_B, "D": RNN_D},
+            "gate": RNN_TC_TOL, "errors": errs}
 
 
 def rnn_card_vs_cpu(torch, dev, rng, kernels, t, b, d, lengths, reverse,
@@ -3020,7 +3087,10 @@ def main(argv=None):
                                                                  rng)
     (gru_fwd, gru_bwd), gru_other = check_gru_kernels(torch, dev, rng)
     blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
-    (rnn_fwd, rnn_bwd), rnn_other = check_rnn_kernels(torch, dev, rng)
+    from paddle_tpu_torch.scripts import probe_simple_rnn
+    rnn_libs = probe_simple_rnn.build(["kernel", "tf32_1x"])
+    (rnn_fwd, rnn_bwd), rnn_other = check_rnn_kernels(torch, dev, rng,
+                                                      rnn_libs)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "lstm_blocked_3xtf32_tolerance": BLK_TC_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
@@ -3045,8 +3115,11 @@ def main(argv=None):
           "gru_train_shape": [gru_fwd, gru_bwd], "gru_other": gru_other,
           "gru_reverse": check_gru_reverse(torch, dev, rng, kernels),
           "gru_barrier": check_gru_barrier(torch),
+          "simple_rnn_3xtf32_tolerance": RNN_TC_TOL,
           "simple_rnn_train_shape": [rnn_fwd, rnn_bwd],
           "simple_rnn_other": rnn_other,
+          "simple_rnn_3xtf32_control": check_rnn_tf32_control(
+              torch, dev, rnn_libs),
           "simple_rnn_routes": check_rnn_routes(torch, dev, rng, kernels)})
 
     emit(check_flash_padded(torch, dev, rng, kernels))
@@ -3183,13 +3256,15 @@ def main(argv=None):
             "max_abs_err": max([row["max_abs_err"]]
                                + [r["max_abs_err"] for r in rnn_other
                                   if r["name"] == name]),
-            **({"dW_rel_err": max([row["dW_rel_err"]]
-                                  + [r["dW_rel_err"] for r in rnn_other
-                                     if r["name"] == name])}
+            **({key: max([row[key]] + [r[key] for r in rnn_other
+                                       if r["name"] == name])
+                for key in ("dxs_rel_err", "dW_rel_err")}
                if name == kernels.simple_rnn.NAME_BWD else {}),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms",
+                                         "bound_by", "bound_f32_simt_ms",
+                                         "library_ms", "library_ratio",
                                          "library_note")},
+            **({"dW_ms": row["split"]["dW_ms"]} if "split" in row else {}),
             "shape": row["shape"]})
     dk = kernels.decode_attention
     for name, replaces, launches in (

@@ -1,17 +1,22 @@
-"""Time the decode-attention kernels of two checkouts on one card.
+"""Time the kernels of two checkouts on one card.
 
     python -m paddle_tpu_torch.scripts.ab_kernels OTHER_CHECKOUT [ROUNDS]
+        [--rnn]
 
-Runs ``chip_smoke.py``'s kernel checks (``check_decode_kernel`` at H =
-Hkv, and ``check_paged_kernels`` where the checkout has it) in a fresh
-process per run, each building its checkout's kernels, in the order
-other, this, this, other, repeated ROUNDS times (default ``ROUNDS``):
-kernel times move between processes on one card, so two checkouts are
-compared only alternating within one call.  Prints one JSON line per
-run with the kernel times in ms (``check_*``'s, which time the
-wrappers back to back and so hold the host's launch path too, and the
-slab kernels' device time alone, ``graph:``, from calls captured in a
-CUDA graph and replayed), then one summary line: for each kernel
+Runs ``chip_smoke.py``'s kernel checks in a fresh process per run, each
+building its checkout's kernels, in the order other, this, this, other,
+repeated ROUNDS times (default ``ROUNDS``): kernel times move between
+processes on one card, so two checkouts are compared only alternating
+within one call.  By default the decode-attention kernels
+(``check_decode_kernel`` at H = Hkv, and ``check_paged_kernels`` where
+the checkout has it); with ``--rnn`` the simple-RNN forward and backward
+(BPTT + dW) at the DSL slice's train shape (``check_rnn_kernels``), with
+cuDNN's RNN_TANH timed beside them in the same process (the same
+function in both checkouts: its pairs show the call's noise).  Prints
+one JSON line per run with the kernel times in ms (``check_*``'s, which
+time the wrappers back to back and so hold the host's launch path too,
+and the slab kernels' device time alone, ``graph:``, from calls captured
+in a CUDA graph and replayed), then one summary line: for each kernel
 and checkout the median, least and largest time, and the median and
 range of the 2 x ROUNDS paired differences this - other (each run of
 this beside the run of other next to it).  Needs a CUDA device.
@@ -78,9 +83,21 @@ except RuntimeError as e:     # a reading, not the port's path
 print(json.dumps(ms))
 '''
 
+_RUN_RNN = r'''
+import json, numpy as np, torch
+import chip_smoke as cs
+dev, rng = torch.device("cuda"), np.random.RandomState(0)
+(fwd, bwd), _ = cs.check_rnn_kernels(torch, dev, rng)
+print(json.dumps({"simple_rnn_fwd": fwd["ms"], "simple_rnn_bwd": bwd["ms"],
+                  "cudnn_rnn_tanh_fwd": fwd["library_ms"],
+                  "cudnn_rnn_tanh_bwd": bwd["library_ms"]}))
+'''
+
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    run = _RUN_RNN if "--rnn" in argv else _RUN
+    argv = [a for a in argv if a != "--rnn"]
     if len(argv) not in (1, 2):
         raise SystemExit(__doc__)
     rounds = int(argv[1]) if len(argv) == 2 else ROUNDS
@@ -90,7 +107,7 @@ def main(argv=None):
     runs = []
     for _ in range(rounds):
         for name in ("other", "this", "this", "other"):
-            r = subprocess.run([sys.executable, "-c", _RUN], cwd=trees[name],
+            r = subprocess.run([sys.executable, "-c", run], cwd=trees[name],
                                capture_output=True, text=True, timeout=600)
             if r.returncode:
                 raise SystemExit(f"{name} ({trees[name]}) failed:\n"
