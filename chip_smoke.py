@@ -185,12 +185,12 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
 # float32 FLOP/s outside the tensor cores (the SIMT kernels), and the
 # tensor cores' dense TF32 rate (495 TFLOP/s) over 3: the flash forward,
-# its int8 instance, the dK/dV and dQ kernels and the gate-blocked LSTM
-# forward run each float32 product as three TF32 ones (3xTF32), so their
-# least time is the float32 FLOPs over PEAK_3XTF32_FLOPS.  Their phase
-# rows also keep the float32 SIMT bound beside it (bound_f32_simt_ms),
-# comparable with the earlier rows; the `kernels` line carries bound_ms
-# alone.
+# its int8 instance, the dK/dV and dQ kernels, the gate-blocked LSTM
+# forward, the resident LSTM and the vanilla-RNN kernels run each float32
+# product as three TF32 ones (3xTF32), so their least time is the float32
+# FLOPs over PEAK_3XTF32_FLOPS.  Their phase rows also keep the float32
+# SIMT bound beside it (bound_f32_simt_ms), comparable with the earlier
+# rows; the `kernels` line carries bound_ms alone.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
@@ -3261,8 +3261,7 @@ def main(argv=None):
                 for key in ("dxs_rel_err", "dW_rel_err")}
                if name == kernels.simple_rnn.NAME_BWD else {}),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "bound_f32_simt_ms",
-                                         "library_ms", "library_ratio",
+                                         "bound_by", "library_ms",
                                          "library_note")},
             **({"dW_ms": row["split"]["dW_ms"]} if "split" in row else {}),
             "shape": row["shape"]})

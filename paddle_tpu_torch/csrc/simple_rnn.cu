@@ -33,8 +33,7 @@
 //   products go to three fresh tiles, issued together, summed in float32
 //   and added to the float32 accumulator: chained in the tensor cores
 //   they truncate every sum, and chained in one fresh tile each waits on
-//   the last (scripts/probe_simple_rnn.py: the step products are
-//   latency-bound).
+//   the last (measured slower: the step products are latency-bound).
 //
 // Design: the TPU kernel's grid IS the time loop, with W (1 MB at D=512)
 //   resident in VMEM.  No SM holds W here, so each recurrence is ONE
@@ -91,27 +90,18 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnits = 16;             // hidden units a CTA owns
 constexpr int kRows = 16;              // batch rows of a b-block: one m16 tile
 
-// One b-block's step product: the 16 x 16 tile (2 n-tiles) over K = D of
-// the resident slice, the rows in KC-column chunks through an S-stage
-// ring, KG k-groups.
-template <int KG, int KC, int S>
-struct Prod {
-  static constexpr int kNt = kUnits / 8;
-  static constexpr int kNgroups = kWarps / KG;
-  static constexpr int kNtw = kNt / kNgroups;  // n-tiles a warp
-  static_assert(kNgroups * kNtw == kNt, "n-tiles split evenly over the n-groups");
-  static constexpr int kKs = KC / 8 / KG;      // k-steps a warp a chunk
-  static_assert(kKs >= 1, "every k-group has a k-step in each chunk");
-  static constexpr int kAP = KC + 4;           // staged row pitch
-  static constexpr int kStage = kRows * kAP;
-  static constexpr int kPP = kUnits + 4;       // partial tile row pitch
-  static constexpr int kPart = KG * kRows * kPP;
-  static constexpr int kRegion = S * kStage > kPart ? S * kStage : kPart;
-  static constexpr int kGroups = KG;
-  static constexpr int kChunk = KC;
-  static constexpr int kStages = S;
-};
-using Step = Prod<8, 128, 3>;
+// One b-block's step product: the 16 x 16 tile (2 n-tiles, both in every
+// warp) over K = D of the resident slice, the rows in 128-column chunks
+// through a 3-stage ring, the 8 warps 8 k-groups of 2 k-steps a chunk.
+constexpr int kNt = kUnits / 8;              // n-tiles
+constexpr int kChunk = 128;                  // columns a staged chunk
+constexpr int kStages = 3;                   // ring depth
+constexpr int kKs = kChunk / 8 / kWarps;     // k-steps a warp a chunk
+constexpr int kAP = kChunk + 4;              // staged row pitch
+constexpr int kStage = kRows * kAP;
+constexpr int kPP = kUnits + 4;              // partial tile row pitch
+constexpr int kRegion = kStages * kStage;    // the ring, then the partial tiles
+static_assert(kRegion >= kWarps * kRows * kPP, "the partial tiles fit in the ring");
 
 struct Args {
   const float* xs;      // [T, B, D]
@@ -171,28 +161,26 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The partial products of one b-block: part[q][r][n] (at region, pitch
-// P::kPP) = the sum over k-group q's k-steps of A[r0 + r][k] w[n][k], rows
+// kPP) = the sum over k-group q's k-steps of A[r0 + r][k] w[n][k], rows
 // r >= rows zero.  A is global with row stride lda (read through L2); w is
 // the resident slice [16][K + 4].  Ends with a __syncthreads: the partial
 // tiles are complete and the ring is free.
-template <class P>
 __device__ __forceinline__ void product(const float* A, int lda, int K, int r0, int rows,
                                         const float* w, float* region) {
-  constexpr int KC = P::kChunk, S = P::kStages;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int KC = kChunk, S = kStages;
+  const int tid = threadIdx.x, kq = tid >> 5, lane = tid & 31;  // k-group = warp
   const int g = lane >> 2, t4 = lane & 3;
-  const int kq = warp % P::kGroups, n_lo = warp / P::kGroups * P::kNtw;
   const int wp = K + 4, nk = K / KC;
-  float acc[P::kNtw][4];
+  float acc[kNt][4];
 #pragma unroll
-  for (int n = 0; n < P::kNtw; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < kNt; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   auto load = [&](int kc) {
-    float* s = region + (kc % S) * P::kStage;
+    float* s = region + (kc % S) * kStage;
     for (int e = tid; e < kRows * (KC / 4); e += kThreads) {
       const int r = e / (KC / 4), c = (e % (KC / 4)) * 4;
       const bool ok = r < rows;
-      cp_async16(s + r * P::kAP + c, A + (size_t)(r0 + (ok ? r : 0)) * lda + kc * KC + c, ok);
+      cp_async16(s + r * kAP + c, A + (size_t)(r0 + (ok ? r : 0)) * lda + kc * KC + c, ok);
     }
   };
 #pragma unroll
@@ -205,19 +193,19 @@ __device__ __forceinline__ void product(const float* A, int lda, int K, int r0, 
     __syncthreads();         // ... and every thread's; chunk kc - 1 consumed
     if (kc + S - 1 < nk) load(kc + S - 1);
     cp_async_commit();
-    const float* ac = region + (kc % S) * P::kStage + g * P::kAP + t4;
-    const float* wc = w + (size_t)(n_lo * 8 + g) * wp + kc * KC + t4;
+    const float* ac = region + (kc % S) * kStage + g * kAP + t4;
+    const float* wc = w + (size_t)g * wp + kc * KC + t4;
 #pragma unroll
-    for (int k8 = 0; k8 < P::kKs; ++k8) {
-      const int kk = (kq * P::kKs + k8) * 8;
+    for (int k8 = 0; k8 < kKs; ++k8) {
+      const int kk = (kq * kKs + k8) * 8;
       const float* ar = ac + kk;
       uint32_t ab[4], as[4];
       split(ar[0], ab[0], as[0]);
-      split(ar[8 * P::kAP], ab[1], as[1]);
+      split(ar[8 * kAP], ab[1], as[1]);
       split(ar[4], ab[2], as[2]);
-      split(ar[8 * P::kAP + 4], ab[3], as[3]);
+      split(ar[8 * kAP + 4], ab[3], as[3]);
 #pragma unroll
-      for (int n = 0; n < P::kNtw; ++n) {
+      for (int n = 0; n < kNt; ++n) {
         const float* wr = wc + (size_t)n * 8 * wp + kk;
         uint32_t bb0, bs0, bb1, bs1;
         split(wr[0], bb0, bs0);
@@ -228,22 +216,21 @@ __device__ __forceinline__ void product(const float* A, int lda, int K, int r0, 
   }
   cp_async_wait<0>();
   __syncthreads();  // every chunk consumed before the partial tiles overwrite the ring
-  float* pt = region + (kq * kRows + g) * P::kPP + n_lo * 8 + 2 * t4;
+  float* pt = region + (kq * kRows + g) * kPP + 2 * t4;
 #pragma unroll
-  for (int n = 0; n < P::kNtw; ++n) {
+  for (int n = 0; n < kNt; ++n) {
     *reinterpret_cast<float2*>(pt + n * 8) = make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(pt + 8 * P::kPP + n * 8) = make_float2(acc[n][2], acc[n][3]);
+    *reinterpret_cast<float2*>(pt + 8 * kPP + n * 8) = make_float2(acc[n][2], acc[n][3]);
   }
   __syncthreads();
 }
 
 // column n of a b-block's partial tiles, the k-groups summed first to last
-template <class P>
 __device__ __forceinline__ float part_sum(const float* region, int r, int n) {
-  const float* p = region + r * P::kPP + n;
+  const float* p = region + r * kPP + n;
   float s = p[0];
 #pragma unroll
-  for (int q = 1; q < P::kGroups; ++q) s += p[q * kRows * P::kPP];
+  for (int q = 1; q < kWarps; ++q) s += p[q * kRows * kPP];
   return s;
 }
 
@@ -281,9 +268,9 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_fwd_kernel(Args p) {
         m = p.mask[(size_t)t * B + b];
         if (t > 0) hp = hprev[hidx];  // written by this thread at t - 1
       }
-      if (t > 0) product<Step>(hprev, D, D, r0, rows, w, region);  // h_{-1} = 0 at t = 0
+      if (t > 0) product(hprev, D, D, r0, rows, w, region);  // h_{-1} = 0 at t = 0
       if (mine) {
-        const float g = t > 0 ? part_sum<Step>(region, cr, cu) : 0.f;
+        const float g = t > 0 ? part_sum(region, cr, cu) : 0.f;
         p.hs[tidx] = m * tanhf(x + g) + (1.f - m) * hp;
       }
       __syncthreads();  // the partial tiles read before the next b-block's ring loads
@@ -339,10 +326,10 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args p) {
         h = p.hs[pidx];
         m1 = p.mask[(size_t)(t - 1) * B + b];
       }
-      product<Step>(dg, D, D, r0, rows, w, region);
+      product(dg, D, D, r0, rows, w, region);
       if (mine) {
         // the carry into step t-1, then that step's first half
-        const float carry = m * part_sum<Step>(region, cr, cu) + (1.f - m) * dh;
+        const float carry = m * part_sum(region, cr, cu) + (1.f - m) * dh;
         const float dh1 = carry + dho;
         p.dxs[pidx] = dh1 * (1.f - h * h) * m1;
         p.dh_buf[hidx] = dh1;
@@ -458,7 +445,7 @@ __global__ void __launch_bounds__(256) simple_rnn_dw_kernel(const float* __restr
   }
 }
 
-size_t step_smem(int D) { return sizeof(float) * ((size_t)kUnits * (D + 4) + Step::kRegion); }
+size_t step_smem(int D) { return sizeof(float) * ((size_t)kUnits * (D + 4) + kRegion); }
 
 // D <= 1280 keeps step_smem under 108 KB
 bool shape_ok(int T, int B, int D) {

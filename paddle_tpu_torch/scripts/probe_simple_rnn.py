@@ -16,19 +16,13 @@ in turn, ``ROUNDS`` times:
              of 128-column chunks, 8 k-groups; dW in 3xTF32 tiles with
              K split across CTAs
   tf32_1x    one TF32 product (a_big b_big), the 3xTF32 terms dropped
-  chained    a k-step's three products chained in one fresh tile (three
-             fresh tiles issued together)
   no_mma     the products removed (staging, barrier, cell, and the
              split the compiler then drops)
   no_sync    the recurrences' grid barriers removed
   s2, s4     a 2- or 4-stage ring (3; 4 stages hold every chunk of
              D 512)
-  kc64       64-column chunks (one k-step a k-group a chunk)
-  kg4        4 k-groups of 2 warps, one n-tile a warp
-  w16        16 warps, 16 k-groups of one k-step a chunk (8 warps)
   dw_ks1     dW with no K-split (up to 8 splits a tile, 4 at D 512:
              as many as stay co-resident)
-  dw_2cta    dW capped at 128 registers, so that 2 CTAs fit an SM
 
 For each: the forward and the backward (BPTT + dW, one
 ``simple_rnn_bwd_f32`` call) in ms, median; dW alone and BPTT =
@@ -57,37 +51,16 @@ ROUNDS = 6
 TC_TOL = 1e-5     # chip_smoke.RNN_TC_TOL
 T, B, D = 100, 64, 512
 _MMA2 = ("  mma_tf32(s0, as, bb0, bb1);\n  mma_tf32(s1, ab, bs0, bs1);\n", "")
-_STEP = "using Step = Prod<8, 128, 3>;"
+_STAGES = "constexpr int kStages = 3;"
 _SPLITS = "constexpr int kDwSplits = 8;"
-_PAR = ("""  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(s0, as, bb0, bb1);
-  mma_tf32(s1, ab, bs0, bs1);
-  mma_tf32(t, ab, bb0, bb1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += (s0[i] + s1[i]) + t[i];
-""", """  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, as, bb0, bb1);
-  mma_tf32(t, ab, bs0, bs1);
-  mma_tf32(t, ab, bb0, bb1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += t[i];
-""")
 EDITS = {
     "kernel": (),
     "tf32_1x": (_MMA2,),
     "no_mma": (_MMA2, ("  mma_tf32(t, ab, bb0, bb1);\n", "")),
-    "chained": (_PAR,),
     "no_sync": (("grid.sync();", "(void)grid;"),),
-    "s2": ((_STEP, "using Step = Prod<8, 128, 2>;"),),
-    "s4": ((_STEP, "using Step = Prod<8, 128, 4>;"),),
-    "kc64": ((_STEP, "using Step = Prod<8, 64, 3>;"),),
-    "kg4": ((_STEP, "using Step = Prod<4, 128, 3>;"),),
-    "w16": (("constexpr int kThreads = 256;", "constexpr int kThreads = 512;"),
-            (_STEP, "using Step = Prod<16, 128, 3>;")),
+    "s2": ((_STAGES, "constexpr int kStages = 2;"),),
+    "s4": ((_STAGES, "constexpr int kStages = 4;"),),
     "dw_ks1": ((_SPLITS, "constexpr int kDwSplits = 1;"),),
-    "dw_2cta": (("__launch_bounds__(256) simple_rnn_dw_kernel",
-                 "__launch_bounds__(256, 2) simple_rnn_dw_kernel"),),
 }
 # the dW product alone, appended to every variant's source
 DW_ENTRY = """
