@@ -33,8 +33,13 @@ non-zero exit code and no final "ok" line:
             also ragged and at dh 16/32/128 and repeated bit for bit; the
             GRU pair at the seq2seq train shape T=30, B=64, D=512 on full
             rows and on a ragged mask with an empty row, at D=128 and 640
-            (B=64) and D=768 (B=8), and through a reverse rnn.gru, with
-            the cost of one grid barrier timed alone; the gate-blocked
+            (B=64), D=768 (B=8) and the largest B the rule admits at D 128,
+            512 and 768 (2536, 392, 16), each also within the 3xTF32 gate
+            and bit for bit on a second launch, the gate failed by a
+            one-TF32-pass build at the train shape, the backward timed
+            with its BPTT / dW split, and through a reverse rnn.gru, with
+            the cost of one grid barrier of the forward's grid timed
+            alone; the gate-blocked
             LSTM forward, both variants, at T=100, B=64, D=1280 and 2048
             on full rows and on a ragged mask with an empty row, at D=640
             and odd T (B=64), B=256 with D=512, B=8 with D=3456 and
@@ -57,10 +62,10 @@ non-zero exit code and no final "ok" line:
             yardstick the port never calls; none exists for the int8
             kernels) and the least time the card could take (for the
             3xTF32 flash forward, its int8 instance, dK/dV, dQ, the
-            gate-blocked LSTM forward and the simple-RNN kernels at the
-            tensor cores' rate, the
-            float32 SIMT bound and the ratio to the library call beside
-            it; for the blocked forward also the time W_r takes to
+            gate-blocked LSTM forward, the GRU and the simple-RNN
+            kernels at the tensor cores' rate, the float32 SIMT bound
+            and the ratio to the library call beside it; for the
+            blocked forward also the time W_r takes to
             stream from HBM once a step)
   flash_dh96  the flash forward and backward pair at head dim 96, which
             the wrappers zero-pad to the compiled 128, against the plain
@@ -173,6 +178,7 @@ result.
 
 import argparse
 import contextlib
+from concurrent.futures import ThreadPoolExecutor
 import json
 import math
 import sys
@@ -325,11 +331,23 @@ HEAD_DIMS_CHECKED = (6, 8, 16, 24, 32, 96, 128, 256, 384, 512)
 # encoder: T=30, B=64, h=512) against their plain versions, held as the
 # LSTM pair is (hs, acts and dxs within LSTM_TOL absolute, dW_gate and
 # dW_state within LSTM_REL_TOL of their largest entry), and at the ends
-# of the range gru.supported admits: D 128 and 640 at B 64, D 768 at B 8.
+# of the range gru.supported admits: D 128 and 640 at B 64, D 768 at B 8,
+# and the largest B at D 128, 512 and 768 (2536, 392, 16: B % 16 = 8 at
+# the first, half an m16 tile), where a CTA walks several b-blocks.
 # The train phase's first step (card vs CPU) is held at TRAIN_REL_TOL:
 # the model has no ReLU, so card and CPU differ only by summation order.
 GRU_T, GRU_B, GRU_D = 30, 64, 512
-GRU_OTHER = ((64, 128), (64, 640), (8, 768))
+GRU_OTHER = ((64, 128), (64, 640), (8, 768), (2536, 128), (392, 512),
+             (16, 768))
+# Every GRU check is also held within GRU_TC_TOL, the gate that tells
+# 3xTF32 from one TF32 pass: hs and acts absolute (|h| < 1), dxs, dW_gate
+# and dW_state relative to their largest entry (dxs grows along the
+# reversed recurrence, as the simple RNN's does).  The tf32_1x variant of
+# csrc/gru.cu (scripts/probe_gru.py), built from the source, must fail it
+# at the train shape.  Two launches on the same inputs must give
+# bit-identical hs, acts, dxs, dW_gate and dW_state: every sum runs in a
+# fixed order.
+GRU_TC_TOL = 1e-5
 S2S_BATCH, S2S_LEN, S2S_VOCAB, S2S_HIDDEN = 64, 30, 30000, 512
 S2S_WARMUP, S2S_STEPS = 3, 10
 # greedy_generate card vs CPU on the trained params, beyond the tokens
@@ -1486,9 +1504,10 @@ def gru_cost(lengths, t, d):
 def gru_pair(torch, dev, rng, t, b, d, ragged):
     """Forward (both variants) and backward kernels against their plain
     versions on one set of inputs; the backward gets the plain forward's
-    residuals on both sides so that its check stands alone.  Returns the
-    two result rows, the four calls (kernel, plain) x (fwd, bwd) and the
-    costs."""
+    residuals on both sides so that its check stands alone.  Each check
+    also within GRU_TC_TOL, and a second launch of each kernel bit for
+    bit the first.  Returns the two result rows, the calls (kernel,
+    plain) x (fwd, bwd) and the costs."""
     from paddle_tpu_torch.ops.kernels import gru as gk
     lengths, xs, mask, w_gate, w_state = gru_inputs(torch, dev, rng, t, b,
                                                     d, ragged)
@@ -1507,22 +1526,35 @@ def gru_pair(torch, dev, rng, t, b, d, ragged):
     fwd_err = max(err(got[0], ref[0]), err(got[1], ref[1]),
                   err(lean, ref[0]))
     dxs_err = err(gb[0], rb[0])
-    rel = {"dW_gate": err(gb[1], rb[1]) / float(rb[1].abs().max()),
+    rel = {"dxs": dxs_err / float(rb[0].abs().max()),
+           "dW_gate": err(gb[1], rb[1]) / float(rb[1].abs().max()),
            "dW_state": err(gb[2], rb[2]) / float(rb[2].abs().max())}
     if not fwd_err <= LSTM_TOL or not dxs_err <= LSTM_TOL \
-            or not max(rel.values()) <= LSTM_REL_TOL:
+            or not max(rel["dW_gate"], rel["dW_state"]) <= LSTM_REL_TOL:
         fail(f"GRU kernels (T={t}, B={b}, D={d}, ragged={ragged}) disagree "
              f"with their plain versions: forward max abs err {fwd_err}, "
              f"dxs {dxs_err} (bound {LSTM_TOL}); relative {rel} (bound "
              f"{LSTM_REL_TOL})")
+    if not max([fwd_err] + list(rel.values())) <= GRU_TC_TOL:
+        fail(f"GRU kernels (T={t}, B={b}, D={d}, ragged={ragged}): hs / "
+             f"acts {fwd_err}, relative {rel} exceed the 3xTF32 gate "
+             f"{GRU_TC_TOL} (one TF32 pass lands above it)")
     if ragged and (got[0][:, 0].any() or gb[0][:, 0].any()):
         fail("GRU kernels: the empty row's hs or dxs is not exactly 0")
-    rows = [{"name": gk.NAME_FWD, "B": b, "D": d, "ragged": ragged,
-             "max_abs_err": fwd_err},
-            {"name": gk.NAME_BWD, "B": b, "D": d, "ragged": ragged,
+    again = gk.gru_fwd(xs, mask, w_gate, w_state, True)
+    again_lean, _ = gk.gru_fwd(xs, mask, w_gate, w_state, False)
+    again_b = gk.gru_bwd(*bwd_args)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (*again, again_lean, *again_b), (*got, lean, *gb))):
+        fail(f"GRU kernels (T={t}, B={b}, D={d}, ragged={ragged}): a second "
+             "launch on the same inputs differs from the first")
+    rows = [{"name": gk.NAME_FWD, "T": t, "B": b, "D": d, "ragged": ragged,
+             "max_abs_err": fwd_err, "repeat": "bit for bit"},
+            {"name": gk.NAME_BWD, "T": t, "B": b, "D": d, "ragged": ragged,
              "max_abs_err": max(dxs_err, err(gb[1], rb[1]),
                                 err(gb[2], rb[2])),
-             "dxs_max_abs_err": dxs_err, "rel_err": rel}]
+             "dxs_max_abs_err": dxs_err, "rel_err": rel,
+             "repeat": "bit for bit"}]
     calls = ((lambda: gk.gru_fwd(xs, mask, w_gate, w_state, True),
               lambda: gk.gru_fwd_plain(xs, mask, w_gate, w_state, True)),
              (lambda: gk.gru_bwd(*bwd_args),
@@ -1530,10 +1562,12 @@ def gru_pair(torch, dev, rng, t, b, d, ragged):
     return rows, calls, gru_cost(lengths, t, d)
 
 
-def check_gru_kernels(torch, dev, rng):
+def check_gru_kernels(torch, dev, rng, libs):
     """The GRU pair at the train shape on a ragged mask (with an empty
     row) and on the train path's own data (every row full length), which
-    the times and the bound are taken on; then ragged at GRU_OTHER."""
+    the times and the bound are taken on, with the backward's split (dW
+    alone through ``libs["kernel"]``, scripts/probe_gru.build's entries
+    on the same source, and BPTT the rest); then ragged at GRU_OTHER."""
     rows, _, _ = gru_pair(torch, dev, rng, GRU_T, GRU_B, GRU_D, ragged=True)
     full, calls, costs = gru_pair(torch, dev, rng, GRU_T, GRU_B, GRU_D,
                                   ragged=False)
@@ -1552,10 +1586,47 @@ def check_gru_kernels(torch, dev, rng):
                    plain_ms=time_ms(torch, plain, samples=5, reps=2),
                    library_ms=None, library_note=library,
                    bytes=nbytes, flops=flops)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        if "rel_err" in row:
+            row["rel_err"] = {key: max(v, row_full["rel_err"][key])
+                              for key, v in row["rel_err"].items()}
+        tc_bound(row, nbytes, flops)
+    # dW alone (the backward's second launch); its bound: hs, s_all and
+    # dxs[1:] read once, dW_gate and dW_state written once, their product
+    from paddle_tpu_torch.scripts import probe_gru
+    case = probe_gru.Case(dev, np.random.RandomState(2), GRU_T, GRU_B, GRU_D)
+    entries = libs["kernel"][0]
+    case.bwd(entries)
+    dw_ms = time_ms(torch, lambda: case.dw(entries), samples=20, reps=5)
+    k = (GRU_T - 1) * GRU_B
+    rows[1]["split"] = {
+        "dW_ms": dw_ms, "bptt_ms": rows[1]["ms"] - dw_ms,
+        "dW_bound_ms": bound(4 * (k * 5 * GRU_D + 3 * GRU_D * GRU_D),
+                             costs[1][1] // 2, PEAK_3XTF32_FLOPS)[0]}
     other = [r for b, d in GRU_OTHER
              for r in gru_pair(torch, dev, rng, GRU_T, b, d, True)[0]]
     return rows, other
+
+
+def check_gru_tf32_control(torch, dev, libs):
+    """The tf32_1x variant of csrc/gru.cu (one TF32 product a k-step,
+    scripts/probe_gru.py) and the kernels as built, on one set of train
+    shape inputs: the kernels pass GRU_TC_TOL and the variant must not,
+    or the gate could not tell one pass from 3xTF32."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.scripts import probe_gru
+    case = probe_gru.Case(dev, np.random.RandomState(1), GRU_T, GRU_B,
+                          GRU_D)
+    kernel = (_build.entry("gru", "gru_fwd_f32", 7, 4),
+              _build.entry("gru", "gru_bwd_f32", 12, 3))
+    errs = {"kernel": case.errors(kernel),
+            "tf32_1x": case.errors(libs["tf32_1x"][0])}
+    worst = {name: max(e.values()) for name, e in errs.items()}
+    if not worst["kernel"] <= GRU_TC_TOL or worst["tf32_1x"] <= GRU_TC_TOL:
+        fail(f"3xTF32 gate {GRU_TC_TOL}: the GRU kernels read "
+             f"{errs['kernel']}, the one-pass control {errs['tf32_1x']} (the "
+             "control must fail the gate, the kernels pass it)")
+    return {"shape": {"T": GRU_T, "B": GRU_B, "D": GRU_D},
+            "gate": GRU_TC_TOL, "errors": errs}
 
 
 def check_gru_reverse(torch, dev, rng, kernels):
@@ -1598,16 +1669,18 @@ def check_gru_reverse(torch, dev, rng, kernels):
 
 
 def check_gru_barrier(torch):
-    """The device time of one grid-wide barrier at the GRU recurrences'
-    grid (128 CTAs): a cooperative launch of 2 (GRU_T - 1) barriers alone,
-    the count one train-shape launch makes, less an empty one."""
+    """The device time of one grid-wide barrier at the grid the GRU
+    forward launches at the train shape (D / 16 unit blocks times its
+    b-groups, 128 CTAs of one an SM on an H100): a cooperative launch of
+    2 (GRU_T - 1) barriers alone, the count one train-shape launch
+    makes, less an empty one."""
     from paddle_tpu_torch.ops.kernels import _build
-    probe = _build.entry("gru", "gru_barrier_probe", 0, 1)
+    probe = _build.entry("gru", "gru_barrier_probe", 0, 3)
     stream = torch.cuda.current_stream().cuda_stream
     syncs = 2 * (GRU_T - 1)
 
     def run(n):
-        _build.check("gru_barrier_probe", probe(n, stream))
+        _build.check("gru_barrier_probe", probe(n, GRU_B, GRU_D, stream))
 
     with_syncs = time_ms(torch, lambda: run(syncs), samples=20, reps=5)
     empty = time_ms(torch, lambda: run(0), samples=20, reps=5)
@@ -3058,10 +3131,18 @@ def main(argv=None):
           torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # every library and the probes' 3xTF32 controls, all nvcc at once
+    from paddle_tpu_torch.scripts import probe_gru, probe_simple_rnn
     t0 = time.perf_counter()
-    libs = kernels.build()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = (pool.submit(kernels.build),
+                pool.submit(probe_simple_rnn.build, ["kernel", "tf32_1x"]),
+                pool.submit(probe_gru.build, ["kernel", "tf32_1x"]))
+        libs, rnn_libs, gru_libs = (job.result() for job in jobs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(libs)})
+          "libraries": sorted(libs),
+          "probe_variants": {"simple_rnn": sorted(rnn_libs),
+                             "gru": sorted(gru_libs)}})
 
     rng = np.random.RandomState(args.seed)
     chunk = check_decode_kernel(torch, dev, rng, hkv=HEADS)
@@ -3085,10 +3166,9 @@ def main(argv=None):
                                               timed=False)
     flash_train, flash_bwd, flash_bwd_checks = check_flash_train(torch, dev,
                                                                  rng)
-    (gru_fwd, gru_bwd), gru_other = check_gru_kernels(torch, dev, rng)
+    (gru_fwd, gru_bwd), gru_other = check_gru_kernels(torch, dev, rng,
+                                                      gru_libs)
     blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
-    from paddle_tpu_torch.scripts import probe_simple_rnn
-    rnn_libs = probe_simple_rnn.build(["kernel", "tf32_1x"])
     (rnn_fwd, rnn_bwd), rnn_other = check_rnn_kernels(torch, dev, rng,
                                                       rnn_libs)
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
@@ -3112,7 +3192,10 @@ def main(argv=None):
           "lstm_blocked_train_shape": list(blk_timed.values()),
           "lstm_blocked_other": blk_other,
           "lstm_blocked_gain_probe": blk_probe,
+          "gru_3xtf32_tolerance": GRU_TC_TOL,
           "gru_train_shape": [gru_fwd, gru_bwd], "gru_other": gru_other,
+          "gru_3xtf32_control": check_gru_tf32_control(torch, dev,
+                                                       gru_libs),
           "gru_reverse": check_gru_reverse(torch, dev, rng, kernels),
           "gru_barrier": check_gru_barrier(torch),
           "simple_rnn_3xtf32_tolerance": RNN_TC_TOL,
@@ -3243,9 +3326,17 @@ def main(argv=None):
             "max_abs_err": max([row["max_abs_err"]]
                                + [r["max_abs_err"] for r in gru_other
                                   if r["name"] == name]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "library_note": row["library_note"]})
+            **({"rel_err": {key: max([row["rel_err"][key]]
+                                     + [r["rel_err"][key] for r in gru_other
+                                        if r["name"] == name])
+                            for key in row["rel_err"]}}
+               if name == kernels.gru.NAME_BWD else {}),
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "library_note")},
+            **({"dW_ms": row["split"]["dW_ms"]}
+               if name == kernels.gru.NAME_BWD else {}),
+            "shape": row["shape"]})
     for row, replaces in ((rnn_fwd, kernels.simple_rnn.REPLACES_FWD),
                           (rnn_bwd, kernels.simple_rnn.REPLACES_BWD)):
         name = row["name"]

@@ -29,13 +29,14 @@ REPLACES_FWD = "paddle_tpu/ops/pallas/gru.py:129"
 REPLACES_BWD = "paddle_tpu/ops/pallas/gru.py:155"
 LANES = _check.LANES
 VMEM_BUDGET = _check.VMEM_BUDGET
-# the kernels keep D / 128 hidden units per CTA; 6 units (D = 768) is
-# the largest D the route admits under the default 14 MiB budget
+# the largest D the route admits under the default 14 MiB budget; the
+# kernels keep a CTA's 48 rows of W_gate and W_state resident at pitch
+# D + 4, 170 KB of shared memory there
 MAX_HIDDEN = 6 * LANES
 
 # kernel launches since the last reset (bumped only where a kernel is
 # launched; the plain versions never count).  A backward is one count
-# for its BPTT kernel and the two dW products that follow it.
+# for its BPTT kernel and the dW_gate / dW_state product that follows it.
 launches_fwd = 0
 launches_bwd = 0
 
@@ -151,13 +152,13 @@ def gru_fwd(xs, mask, w_gate, w_state, save_residuals):
         return gru_fwd_plain(xs, mask, w_gate, w_state, save_residuals)
     hs = torch.empty((t, b, d), dtype=f32, device=dev)
     acts = torch.empty_like(xs) if save_residuals else None
-    scratch = torch.empty((2, b, d), dtype=f32, device=dev)
+    sbuf = torch.empty((b, d), dtype=f32, device=dev)   # r h_{t-1}
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("gru", "gru_fwd_f32", 8, 4)(
+    rc = _build.entry("gru", "gru_fwd_f32", 7, 4)(
         xs.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
         w_state.data_ptr(), hs.data_ptr(),
-        0 if acts is None else acts.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), t, b, d, int(save_residuals), stream)
+        0 if acts is None else acts.data_ptr(), sbuf.data_ptr(), t, b, d,
+        int(save_residuals), stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
     return hs, acts
@@ -165,7 +166,7 @@ def gru_fwd(xs, mask, w_gate, w_state, save_residuals):
 
 def gru_bwd(acts, hs, w_gate, w_state, mask, dh_out):
     """(dxs, dW_gate, dW_state) as ``gru_bwd_plain``.  CUDA tensors
-    launch the BPTT kernel and the dW products; CPU tensors take the
+    launch the BPTT kernel and the dW product; CPU tensors take the
     plain version."""
     global launches_bwd
     f32 = torch.float32
@@ -182,13 +183,16 @@ def gru_bwd(acts, hs, w_gate, w_state, mask, dh_out):
     dxs = torch.empty_like(acts)
     dwg = torch.empty_like(w_gate)
     dws = torch.empty_like(w_state)
-    scratch = torch.empty((2, b, d), dtype=f32, device=dev)
+    # the dh carry, part, and r_t h_{t-1} of steps 1..T-1 (dW_state's
+    # operand, written by the BPTT)
+    scratch = torch.empty((t + 1, b, d), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("gru", "gru_bwd_f32", 11, 3)(
+    rc = _build.entry("gru", "gru_bwd_f32", 12, 3)(
         acts.data_ptr(), hs.data_ptr(), w_gate.data_ptr(),
         w_state.data_ptr(), mask.data_ptr(), dh_out.data_ptr(),
         dxs.data_ptr(), dwg.data_ptr(), dws.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), t, b, d, stream)
+        scratch[0].data_ptr(), scratch[1].data_ptr(),
+        scratch[2:].data_ptr(), t, b, d, stream)
     _build.check(NAME_BWD, rc)
     launches_bwd += 1
     return dxs, dwg, dws

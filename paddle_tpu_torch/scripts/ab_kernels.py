@@ -1,7 +1,7 @@
 """Time the kernels of two checkouts on one card.
 
     python -m paddle_tpu_torch.scripts.ab_kernels OTHER_CHECKOUT [ROUNDS]
-        [--rnn]
+        [--rnn | --gru]
 
 Runs ``chip_smoke.py``'s kernel checks in a fresh process per run, each
 building its checkout's kernels, in the order other, this, this, other,
@@ -12,7 +12,10 @@ within one call.  By default the decode-attention kernels
 the checkout has it); with ``--rnn`` the simple-RNN forward and backward
 (BPTT + dW) at the DSL slice's train shape (``check_rnn_kernels``), with
 cuDNN's RNN_TANH timed beside them in the same process (the same
-function in both checkouts: its pairs show the call's noise).  Prints
+function in both checkouts: its pairs show the call's noise); with
+``--gru`` the GRU forward and backward (BPTT + dW) at the seq2seq
+encoder's train shape (``gru_pair`` on full rows, timed as
+``check_gru_kernels`` times them).  Prints
 one JSON line per run with the kernel times in ms (``check_*``'s, which
 time the wrappers back to back and so hold the host's launch path too,
 and the slab kernels' device time alone, ``graph:``, from calls captured
@@ -93,11 +96,22 @@ print(json.dumps({"simple_rnn_fwd": fwd["ms"], "simple_rnn_bwd": bwd["ms"],
                   "cudnn_rnn_tanh_bwd": bwd["library_ms"]}))
 '''
 
+_RUN_GRU = r'''
+import json, numpy as np, torch
+import chip_smoke as cs
+dev, rng = torch.device("cuda"), np.random.RandomState(0)
+_, calls, _ = cs.gru_pair(torch, dev, rng, cs.GRU_T, cs.GRU_B, cs.GRU_D,
+                          False)
+print(json.dumps({name: cs.time_ms(torch, call[0], samples=20, reps=5)
+                  for name, call in zip(("gru_fwd", "gru_bwd"), calls)}))
+'''
+_RUNS = {"--rnn": _RUN_RNN, "--gru": _RUN_GRU}
+
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    run = _RUN_RNN if "--rnn" in argv else _RUN
-    argv = [a for a in argv if a != "--rnn"]
+    run = next((_RUNS[a] for a in argv if a in _RUNS), _RUN)
+    argv = [a for a in argv if a not in _RUNS]
     if len(argv) not in (1, 2):
         raise SystemExit(__doc__)
     rounds = int(argv[1]) if len(argv) == 2 else ROUNDS

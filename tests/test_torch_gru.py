@@ -344,6 +344,31 @@ def test_c_entries_are_typed(monkeypatch):
     assert tail.argtypes == [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
 
+def test_gru_c_entries_match_the_source():
+    """Each C entry of ``csrc/gru.cu`` is typed where it is called (the
+    wrapper, chip_smoke.py's barrier probe) as its signature reads: the
+    pointer and int counts handed to ``_build.entry`` match the declared
+    parameters (all but the trailing stream), so ctypes passes no
+    pointer as a 32-bit int."""
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, kgru.SOURCE)) as f:
+        decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', f.read()))
+    calls = []
+    for path in (kgru.__file__, os.path.join(root, "chip_smoke.py")):
+        with open(path) as f:
+            calls += re.findall(r'_build\.entry\("gru", "(\w+)", (\d+), '
+                                r'(\d+)\)', f.read())
+    assert sorted({name for name, _, _ in calls}) == sorted(decls) == [
+        "gru_barrier_probe", "gru_bwd_f32", "gru_fwd_f32"]
+    for name, n_ptr, n_int in calls:
+        params = [p.strip() for p in decls[name].split(",")]
+        assert params[-1] == "void* stream"
+        kinds = ["ptr" if "*" in p else p.split()[0] for p in params[:-1]]
+        assert kinds == ["ptr"] * int(n_ptr) + ["int"] * int(n_int), name
+
+
 def test_cpu_takes_plain_versions_and_counts_no_launch():
     kgru.launches_fwd = kgru.launches_bwd = 0
     _torch_gru("ragged", False)          # residual forward + backward
