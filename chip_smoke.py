@@ -224,6 +224,14 @@ GEN_BATCH, GEN_PROMPT, GEN_MAX_LEN = 32, 32, 160
 PAGE_BS = 16
 PAGE_BLOCKS = SLOTS * SERVE_MAX_LEN // PAGE_BS + 1
 PAGED_POOL = (PAGE_BLOCKS - 1) // 4 + 1
+# The split-KV chunk kernels' long-span case: rows of chunk_qpos(2048),
+# its longest crossing 2048 / 128 = 16 splits at dh 64 (at least
+# SPLIT_MIN_SPLITS is checked), over a pool of 8 x 128 blocks + scratch
+SPLIT_LONG_T = 2048
+SPLIT_MIN_SPLITS = 16
+# the split-KV kernels' rows also carry their device time alone (CUDA-graph
+# replay) and scaled_dot_product_attention's, beside the wrapper-timed ms
+DEVICE_KEYS = ("device_ms", "library_device_ms")
 PREAMBLE = 64
 LADDER_PROMPTS, LADDER_TOKENS = (5, 17, 32, 40, 64, 9, 50, 23), 24
 
@@ -653,6 +661,179 @@ def check_paged_kernels(torch, dev, rng, hkv):
                                    "over each row's chain gathered from the "
                                    "pool, the gather included")
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    return rows
+
+
+def graph_ms(torch, fn, calls=20, replays=30):
+    """Median device ms a call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed, so that the host's launch path is out of
+    the reading (as ab_kernels.py's ``graph:`` rows)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def check_split_kernels(torch, dev, rng):
+    """The split-KV chunk kernels (slab and paged, float32 and int8 K/V)
+    at the main path's shape (chunk_qpos rows, S 8, K 8, T 256, D 512,
+    H = Hkv = 8; the paged over the 129-block pool): a second launch
+    equal to the first bit for bit; each row computed alone (S 1) and
+    inside a T 2048 span (the slab's first 256 columns, the table's
+    first 16 entries) equal to the same row of the S 8 batch bit for
+    bit; a long span (chunk_qpos(SPLIT_LONG_T) rows over T 2048, the
+    paged over 8 x 128 blocks) within KERNEL_TOL of the plain version,
+    each int8 instance bit for bit its float32 kernel on the dequantized
+    cache; and each kernel's device time alone (graph_ms) beside one
+    scaled_dot_product_attention over the same rows (the paged: over
+    each row's chain gathered from the pool, the gather included; none
+    for int8).  Returns {kernel: row}."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    from paddle_tpu_torch.quant.kv import dequantize_heads
+    s, kk, d, h = 8, CHUNK, D_MODEL, HEADS
+    dh, t, tl = d // h, SERVE_MAX_LEN, SPLIT_LONG_T
+    qpos_np, long_np = chunk_qpos(t), chunk_qpos(tl)
+    q = torch.tensor(normal(rng, (s, kk, d)), device=dev)
+    qpos = torch.tensor(qpos_np, device=dev)
+    qlong = torch.tensor(long_np, device=dev)
+    # the slab rows at T 2048; the main path's T 256 are their first
+    # columns (codes and scales alike)
+    kl, vl = (torch.tensor(normal(rng, (s, tl, d)), device=dev)
+              for _ in range(2))
+    (kl8, ksl8), (vl8, vsl8) = (quantized(torch, dev, rng, (s, tl, d), h)
+                                for _ in range(2))
+
+    def head(x):
+        return x[:, :t].contiguous()
+
+    slab = {False: ((kl, vl, None, None), tuple(
+                head(x) for x in (kl, vl)) + (None, None)),
+            True: ((kl8, vl8, ksl8, vsl8), tuple(
+                head(x) for x in (kl8, vl8, ksl8, vsl8)))}
+    pool_shape = (PAGE_BLOCKS, PAGE_BS, d)
+    pk, pv = (torch.tensor(normal(rng, pool_shape), device=dev)
+              for _ in range(2))
+    (p8, ps8), (w8, ws8) = (quantized(torch, dev, rng, pool_shape, h)
+                            for _ in range(2))
+    pool = {False: (pk, pv, None, None), True: (p8, w8, ps8, ws8)}
+    tables_np = paged_tables(rng, qpos_np[:, -1].astype(np.int64),
+                             t // PAGE_BS, PAGE_BLOCKS)
+    tables = torch.tensor(tables_np, device=dev)
+    # the same rows' tables at span 2048: entries past each row's
+    # furthest block point at pool blocks the row must never read
+    wide = torch.tensor(np.concatenate(
+        [tables_np, rng.randint(1, PAGE_BLOCKS, (s, (tl - t) // PAGE_BS))],
+        1).astype(np.int32), device=dev)
+    long_blocks = s * (tl // PAGE_BS) + 1
+    lpool_shape = (long_blocks, PAGE_BS, d)
+    lk, lv = (torch.tensor(normal(rng, lpool_shape), device=dev)
+              for _ in range(2))
+    (lk8, lks8), (lv8, lvs8) = (quantized(torch, dev, rng, lpool_shape, h)
+                                for _ in range(2))
+    lpool = {False: (lk, lv, None, None), True: (lk8, lv8, lks8, lvs8)}
+    ltables = torch.tensor(paged_tables(
+        rng, long_np[:, -1].astype(np.int64), tl // PAGE_BS, long_blocks),
+        device=dev)
+
+    def call(paged, kv, qp, tbl, rows=slice(None), widen=False, plain=False):
+        """One chunk kernel call (or its plain version) on ``rows``."""
+        k, v, ks, vs = kv
+        if ks is not None and widen:
+            k, v, ks, vs = (dequantize_heads(k, ks), dequantize_heads(v, vs),
+                            None, None)
+        extra = {} if ks is None else dict(kscale=ks, vscale=vs)
+        if paged:
+            fn = (dk.decode_attention_paged_chunk_plain if plain
+                  else dk.decode_attention_paged_chunk)
+            return fn(q[rows], k, v, qp[rows], tbl[rows], h, **extra)
+        fn = (dk.decode_attention_slab_chunk_plain if plain
+              else dk.decode_attention_slab_chunk)
+        return fn(q[rows], k[rows], v[rows], qp[rows], h,
+                  **{a: x[rows] for a, x in extra.items()})
+
+    n_split = dk._count("decode_attention_chunk_scratch", s, kk, tl, h, h,
+                        dh) // (s * h * 8 * (dh + 4))
+    if n_split < SPLIT_MIN_SPLITS:
+        fail(f"the long-span case crosses {n_split} splits (want at least "
+             f"{SPLIT_MIN_SPLITS})")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(t, device=dev)[None, None, :]
+            <= qpos.long()[:, :, None])[:, None]
+    qh = q.reshape(s, kk, h, dh).transpose(1, 2)
+
+    def heads(x):               # [S, T, D] -> [S, H, T, dh]
+        return x.reshape(s, t, h, dh).transpose(1, 2)
+
+    library = {
+        (False, False): lambda: sdpa(qh, heads(slab[False][1][0]),
+                                     heads(slab[False][1][1]),
+                                     attn_mask=mask),
+        (True, False): lambda: sdpa(qh, heads(pk[tables.long()]),
+                                    heads(pv[tables.long()]),
+                                    attn_mask=mask)}
+    rows = {}
+    for paged, int8 in ((False, False), (False, True), (True, False),
+                        (True, True)):
+        name = {(False, False): dk.NAME, (False, True): dk.NAME_I8,
+                (True, False): dk.NAME_PAGED_CHUNK,
+                (True, True): dk.NAME_PAGED_CHUNK_I8}[paged, int8]
+        main = pool[int8] if paged else slab[int8][1]
+        big = pool[int8] if paged else slab[int8][0]
+        tbl, tbl_wide = (tables, wide) if paged else (None, None)
+        first, second = call(paged, main, qpos, tbl), call(paged, main, qpos,
+                                                           tbl)
+        alone = [call(paged, main, qpos, tbl, slice(r, r + 1))
+                 for r in range(s)]
+        in_wide = call(paged, big, qpos, tbl_wide)
+        lkv = lpool[int8] if paged else slab[int8][0]
+        ltbl = ltables if paged else None
+        long_out = call(paged, lkv, qlong, ltbl)
+        long_ref = call(paged, lkv, qlong, ltbl, plain=True)
+        long_f32 = call(paged, lkv, qlong, ltbl, widen=True) if int8 else None
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(first, second))
+        row_alone = all(bool(torch.equal(a, first[r:r + 1]))
+                        for r, a in enumerate(alone))
+        row_wide = bool(torch.equal(in_wide, first))
+        long_err = float((long_out - long_ref).abs().max())
+        long_exact = (float((long_out - long_f32).abs().max()) if int8
+                      else None)
+        if not (repeat and row_alone and row_wide) \
+                or not long_err <= KERNEL_TOL or long_exact not in (None, 0.0):
+            fail(f"{name}: second launch bit for bit {repeat}, rows alone "
+                 f"(S 1) bit for bit {row_alone}, rows inside a T {tl} span "
+                 f"bit for bit {row_wide}; long span: max abs err "
+                 f"{long_err} (bound {KERNEL_TOL}), against the float32 "
+                 f"kernel on the dequantized cache {long_exact} (want 0)")
+        row = {"name": name, "repeat_bit_for_bit": repeat,
+               "rows_alone_bit_for_bit": row_alone,
+               f"rows_in_T{tl}_bit_for_bit": row_wide,
+               "long_span": {"T": tl, "splits_longest_row": n_split,
+                             "max_abs_err": long_err,
+                             "err_vs_f32_kernel_on_dequantized": long_exact},
+               "device_ms": graph_ms(torch, lambda: call(paged, main, qpos,
+                                                         tbl))}
+        lib = library.get((paged, int8))
+        row["library_device_ms"] = graph_ms(torch, lib) if lib else None
+        rows[name] = row
     return rows
 
 
@@ -3160,6 +3341,13 @@ def main(argv=None):
     paged_gqa = check_paged_kernels(torch, dev, rng, hkv=2)
     int8 = check_int8_decode_kernels(torch, dev, rng, hkv=HEADS)
     int8_gqa = check_int8_decode_kernels(torch, dev, rng, hkv=2)
+    split = check_split_kernels(torch, dev, rng)
+    # the device time alone beside the wrapper-timed ms of each row
+    for row in (chunk, paged[kernels.decode_attention.NAME_PAGED_CHUNK],
+                int8[kernels.decode_attention.NAME_I8],
+                int8[kernels.decode_attention.NAME_PAGED_CHUNK_I8]):
+        row.update({key: split[row["name"]][key]
+                    for key in ("device_ms", "library_device_ms")})
     flash_q = check_flash_quant_kernel(torch, dev, rng, GEN_BATCH,
                                        GEN_PROMPT, HEADS, timed=True)
     flash_q_ragged = check_flash_quant_kernel(torch, dev, rng, 4, 200, 2,
@@ -3185,6 +3373,7 @@ def main(argv=None):
                                              for r in rows.values()],
                                 "backward_checks": flash_bwd_checks,
                                 "backward_rel_tolerance": MT_REL_TOL},
+          "split_kv_chunk_kernels": list(split.values()),
           "other_head_dims": check_head_dims(torch, dev, rng),
           "lstm_3xtf32_control": lstm_control,
           "lstm_reverse": check_lstm_reverse(torch, dev, rng, kernels),
@@ -3246,7 +3435,8 @@ def main(argv=None):
             "replaces": mod.REPLACES, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **{key: row[key] for key in DEVICE_KEYS if key in row}})
     # the forward on the train path: its launches in train_transformer
     # and its non-causal time at the train shape beside the prefill row
     train_fwd = flash_train[False]
@@ -3373,6 +3563,7 @@ def main(argv=None):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            **{key: row[key] for key in DEVICE_KEYS if key in row},
             **({"library_note": row["library_note"]}
                if "library_note" in row else {})})
     for name, replaces, launches, row, gqa in (
@@ -3400,6 +3591,7 @@ def main(argv=None):
             "ms": row["ms"], "f32_kernel_ms": row["f32_kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
+            **{key: row[key] for key in DEVICE_KEYS if key in row},
             "library_note": row["library_note"]})
     emit({"kernels": summary})
     print(smi, flush=True)

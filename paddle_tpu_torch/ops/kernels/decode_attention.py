@@ -16,7 +16,11 @@ keyword operands ``kscale``/``vscale``, an int8 one
   same two over the shared block pool, each row's K/V found through its
   block table.
 
-The kernels are one template in ``csrc/decode_attention.cu``; each
+The kernels live in ``csrc/decode_attention.cu``: the two chunked ones
+split each row's span across CTAs (split-KV) and merge the splits in
+the same launch, the last CTA of a row's (KV head, vector group) found
+by a ticket; their wrappers pass the device's scratch and zeroed
+tickets.  Each
 ``*_plain`` function is its kernel's plain PyTorch version, which the CPU
 takes and which ``chip_smoke.py`` holds the kernel against on the card
 (an int8 cache is dequantized with ``quant/kv.dequantize_heads`` first,
@@ -31,6 +35,7 @@ masked plain path, as the reference does.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -68,14 +73,15 @@ launches_paged_i8 = 0
 launches_paged_chunk_i8 = 0
 
 # C entry -> (pointer args, int args): every entry ends (float scale,
-# cudaStream_t); an _i8 entry takes the two scale pointers after k/v
-_SIGNATURES = {"decode_attention_slab_chunk_f32": (5, 6),
+# cudaStream_t); an _i8 entry takes the two scale pointers after k/v, a
+# chunked entry its scratch and tickets after out
+_SIGNATURES = {"decode_attention_slab_chunk_f32": (7, 6),
                "decode_attention_slab_f32": (5, 5),
-               "decode_attention_paged_chunk_f32": (6, 7),
+               "decode_attention_paged_chunk_f32": (8, 7),
                "decode_attention_paged_f32": (6, 6),
-               "decode_attention_slab_chunk_i8": (7, 6),
+               "decode_attention_slab_chunk_i8": (9, 6),
                "decode_attention_slab_i8": (7, 5),
-               "decode_attention_paged_chunk_i8": (8, 7),
+               "decode_attention_paged_chunk_i8": (10, 7),
                "decode_attention_paged_i8": (8, 6)}
 
 
@@ -294,6 +300,60 @@ def _device(name, quant, **named):
                           **{a: t for a, t in named.items() if t is not None})
 
 
+# The chunked kernels' operands beside their inputs, one of each per
+# device, made or grown on the first call that needs them: the scratch
+# (each launch writes its own records before it reads them) and the
+# tickets (zeroed once; every launch leaves them all 0, the last CTA of
+# each row's (KV head, vector group) resetting its own).  So two launches
+# on one device must not run at once on two streams (every caller here
+# launches on one).  An outgrown buffer is kept: a captured CUDA graph
+# may still point at it.
+_scratch = {}
+_tickets = {}
+_outgrown = []
+
+
+def _count(name, *ints):
+    """An int the library computes from shapes (its C entry ``name``)."""
+    fn = getattr(_build.load("decode_attention"), name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(ints)
+        fn.restype = ctypes.c_longlong
+    return fn(*ints)
+
+
+@functools.lru_cache(maxsize=256)
+def _split_sizes(s, kk, span, h, hkv, dh):
+    """(scratch floats, tickets) of a chunked launch at these shapes."""
+    return (_count("decode_attention_chunk_scratch", s, kk, span, h, hkv,
+                   dh),
+            _count("decode_attention_chunk_tickets", s, kk, h, hkv))
+
+
+def _buffer(store, name, dev, n, dtype, make):
+    """``store``'s buffer for ``dev``, of at least ``n`` elements."""
+    buf = store.get(dev.index)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: its buffers would grow during a "
+                               "CUDA graph capture; call it once at these "
+                               "shapes before capturing")
+        if buf is not None:
+            _outgrown.append(buf)
+        buf = make(max(n, 1024), dtype=dtype, device=dev)
+        store[dev.index] = buf
+    return buf
+
+
+def _split_operands(name, dev, s, kk, span, h, hkv, dh):
+    """(scratch, tickets) of a chunked launch: this device's buffers; no
+    scratch (None) where one split covers the span."""
+    n, need = _split_sizes(s, kk, span, h, hkv, dh)
+    part = (_buffer(_scratch, name, dev, n, _F32, torch.empty) if n > 0
+            else None)
+    return part, _buffer(_tickets, name, dev, need, _I32, torch.zeros)
+
+
 def _launch(entry, *args):
     stream = torch.cuda.current_stream(args[0].device).cuda_stream
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -317,14 +377,15 @@ def decode_attention_slab_chunk(q, k, v, qpos, num_heads, *, kscale=None,
         return decode_attention_slab_chunk_plain(
             q, k, v, qpos, num_heads, kscale=kscale, vscale=vscale)
     out = torch.empty_like(q)
+    part, tickets = _split_operands(NAME, dev, s, kk, t, h, hkv, dh)
     scale = 1.0 / math.sqrt(dh)
     if quant:
         _launch("decode_attention_slab_chunk_i8", q, k, v, kscale, vscale,
-                qpos, out, s, kk, t, h, hkv, dh, scale)
+                qpos, out, part, tickets, s, kk, t, h, hkv, dh, scale)
         launches_i8 += 1
     else:
-        _launch("decode_attention_slab_chunk_f32", q, k, v, qpos, out, s, kk,
-                t, h, hkv, dh, scale)
+        _launch("decode_attention_slab_chunk_f32", q, k, v, qpos, out, part,
+                tickets, s, kk, t, h, hkv, dh, scale)
         launches += 1
     return out
 
@@ -374,14 +435,17 @@ def decode_attention_paged_chunk(q, k, v, qpos, tables, num_heads, *,
         return decode_attention_paged_chunk_plain(
             q, k, v, qpos, tables, num_heads, kscale=kscale, vscale=vscale)
     out = torch.empty_like(q)
+    part, tickets = _split_operands(NAME_PAGED_CHUNK, dev, s, kk,
+                                    nb_row * bs, h, hkv, dh)
     scale = 1.0 / math.sqrt(dh)
     if quant:
         _launch("decode_attention_paged_chunk_i8", q, k, v, kscale, vscale,
-                qpos, tables, out, s, kk, bs, nb_row, h, hkv, dh, scale)
+                qpos, tables, out, part, tickets, s, kk, bs, nb_row, h, hkv,
+                dh, scale)
         launches_paged_chunk_i8 += 1
     else:
         _launch("decode_attention_paged_chunk_f32", q, k, v, qpos, tables,
-                out, s, kk, bs, nb_row, h, hkv, dh, scale)
+                out, part, tickets, s, kk, bs, nb_row, h, hkv, dh, scale)
         launches_paged_chunk += 1
     return out
 

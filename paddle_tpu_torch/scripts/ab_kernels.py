@@ -18,8 +18,10 @@ encoder's train shape (``gru_pair`` on full rows, timed as
 ``check_gru_kernels`` times them).  Prints
 one JSON line per run with the kernel times in ms (``check_*``'s, which
 time the wrappers back to back and so hold the host's launch path too,
-and the slab kernels' device time alone, ``graph:``, from calls captured
-in a CUDA graph and replayed), then one summary line: for each kernel
+and the device time alone, ``graph:``, from calls captured in a CUDA
+graph and replayed, of the slab and paged kernels, Tq=1 and chunked,
+and of both int8 chunk instances, at chip_smoke.py's main path shapes),
+then one summary line: for each kernel
 and checkout the median, least and largest time, and the median and
 range of the 2 x ROUNDS paired differences this - other (each run of
 this beside the run of other next to it).  Needs a CUDA device.
@@ -74,13 +76,38 @@ s, kk, t, d, h = 8, cs.CHUNK, cs.SERVE_MAX_LEN, cs.D_MODEL, cs.HEADS
 q = torch.tensor(cs.normal(rng, (s, kk, d)), device=dev)
 k, v = (torch.tensor(cs.normal(rng, (s, t, d)), device=dev)
         for _ in range(2))
-qpos = torch.tensor(cs.chunk_qpos(t), device=dev)
+qpos_np = cs.chunk_qpos(t)
+qpos = torch.tensor(qpos_np, device=dev)
 q1, pos = q[:, 0].contiguous(), qpos[:, 0].contiguous()
+# the paged kernels over chip_smoke's pool; the int8 instances over
+# quantized caches of the same shapes
+pool = (cs.PAGE_BLOCKS, cs.PAGE_BS, d)
+pk, pv = (torch.tensor(cs.normal(rng, pool), device=dev) for _ in range(2))
+tables = torch.tensor(cs.paged_tables(rng, qpos_np[:, -1].astype(np.int64),
+                                      t // cs.PAGE_BS, cs.PAGE_BLOCKS),
+                      device=dev)
+(k8, ks8), (v8, vs8) = (cs.quantized(torch, dev, rng, (s, t, d), h)
+                        for _ in range(2))
+(p8, ps8), (w8, ws8) = (cs.quantized(torch, dev, rng, pool, h)
+                        for _ in range(2))
+graphs = {
+    "decode_attention_slab_chunk":
+        lambda: dk.decode_attention_slab_chunk(q, k, v, qpos, h),
+    "decode_attention_slab":
+        lambda: dk.decode_attention_slab(q1, k, v, pos, h),
+    "decode_attention_paged_chunk":
+        lambda: dk.decode_attention_paged_chunk(q, pk, pv, qpos, tables, h),
+    "decode_attention_paged":
+        lambda: dk.decode_attention_paged(q1, pk, pv, pos, tables, h),
+    "decode_attention_slab_chunk_int8":
+        lambda: dk.decode_attention_slab_chunk(q, k8, v8, qpos, h,
+                                               kscale=ks8, vscale=vs8),
+    "decode_attention_paged_chunk_int8":
+        lambda: dk.decode_attention_paged_chunk(q, p8, w8, qpos, tables, h,
+                                                kscale=ps8, vscale=ws8)}
 try:
-    ms["graph:decode_attention_slab_chunk"] = graph_ms(
-        lambda: dk.decode_attention_slab_chunk(q, k, v, qpos, h))
-    ms["graph:decode_attention_slab"] = graph_ms(
-        lambda: dk.decode_attention_slab(q1, k, v, pos, h))
+    for name, fn in graphs.items():
+        ms[f"graph:{name}"] = graph_ms(fn)
 except RuntimeError as e:     # a reading, not the port's path
     ms["graph_error"] = str(e)[:500]
 print(json.dumps(ms))
