@@ -21,10 +21,21 @@ non-zero exit code and no final "ok" line:
             D 512) and through a reverse LSTM, every check also within
             the 3xTF32 gate, which a one-TF32-pass build of the kernels
             must fail at the train shape; the decode kernels also at
-            head dims 8, 96 and 256, the flash ones at 8 and 96; the
+            head dims 6 to 512, the flash forward, its backward pair and
+            flash_attention_quant at the same widths (256, 384, 512 on
+            the wide instances); the
             paged pair over a 129-block pool with
             shuffled ids, shared leading blocks and a free row on block
-            0, and the Tq=1 slab kernel; the int8 instances of the four
+            0, and the Tq=1 slab kernel; the Tq=1 kernels on the split-KV
+            template (slab and paged, float32 and int8, H = Hkv and GQA)
+            bit for bit on a repeat, each row alone (S 1) and inside a
+            T 2048 span, a long span against the plain version, int8 bit
+            for bit its float32 kernel, with their device time alone
+            (CUDA-graph replay) beside SDPA's; the flash forward, dK/dV
+            and dQ at dh 256, 384 and 512 (B 4, H 2, T 512, causal and
+            full) within the 3xTF32 gate 1e-5, which a one-TF32-pass
+            build must fail, timed beside SDPA (naming its backend), and
+            flash_attention_quant at dh 256; the int8 instances of the four
             decode kernels at the same shapes and flash_attention_quant
             at B=32, T=32 and a ragged T=200 with Hkv=2, each also held
             bit for bit against its float32 kernel on the dequantized
@@ -110,6 +121,11 @@ non-zero exit code and no final "ok" line:
   ladder_int8  the ladder phase over an int8 KV cache, both layouts:
             flash_attention_quant once per layer per prefill batch, the
             int8 Tq=1 slab / paged kernel once per layer per step
+  ladder_dh256, ladder_dh256_int8  the ladder on the slab layout for an
+            LM at D 512 over 2 heads (dh 256; 2 layers), float32 and int8
+            KV: the wide flash instance (flash_attention_quant) once per
+            layer per prefill batch, the Tq=1 slab kernel at dh 256 once
+            per layer per step; streams held against lm_generate
   train     the headline benchmark, bench.py's bench_lstm ported
             (scripts/bench.bench_lstm): the LSTM text classifier at vocab
             30000, embedding 128, 2 x LSTM h=512, batch 64, length 100,
@@ -335,6 +351,16 @@ FLASH_PADDED_DH = 96
 # int8 codes one at a time; 256, 384 and 512 compiled widths), the flash
 # kernels up to 128
 HEAD_DIMS_CHECKED = (6, 8, 16, 24, 32, 96, 128, 256, 384, 512)
+# The flash kernels' wide instances (dh 256, 384, 512: the head dim split
+# across a CTA's warps, 3xTF32 products) at a timed shape, B 4, H 2, T 512
+# causal and full, each output within WIDE_TC_TOL of the plain version
+# (the forward's o and lse absolute, dq / dk / dv relative to their
+# largest entry), which a one-TF32-pass build (probe_flash.py's tf32_1x)
+# must fail on the same inputs.  The 2-head ladder runs the LM at D 512
+# with dh 256 through them and the Tq=1 kernels at that width.
+WIDE_TC_TOL = 1e-5
+WIDE_B, WIDE_H, WIDE_T = 4, 2, 512
+WIDE_HEADS, WIDE_LAYERS = 2, 2
 # The GRU kernels at the seq2seq train path's shape (bench_seq2seq's
 # encoder: T=30, B=64, h=512) against their plain versions, held as the
 # LSTM pair is (hs, acts and dxs within LSTM_TOL absolute, dW_gate and
@@ -692,33 +718,44 @@ def graph_ms(torch, fn, calls=20, replays=30):
     return float(np.median(times))
 
 
-def check_split_kernels(torch, dev, rng):
-    """The split-KV chunk kernels (slab and paged, float32 and int8 K/V)
-    at the main path's shape (chunk_qpos rows, S 8, K 8, T 256, D 512,
-    H = Hkv = 8; the paged over the 129-block pool): a second launch
-    equal to the first bit for bit; each row computed alone (S 1) and
-    inside a T 2048 span (the slab's first 256 columns, the table's
-    first 16 entries) equal to the same row of the S 8 batch bit for
-    bit; a long span (chunk_qpos(SPLIT_LONG_T) rows over T 2048, the
-    paged over 8 x 128 blocks) within KERNEL_TOL of the plain version,
-    each int8 instance bit for bit its float32 kernel on the dequantized
-    cache; and each kernel's device time alone (graph_ms) beside one
+def check_split_kernels(torch, dev, rng, tq1=False, h=HEADS, hkv=HEADS):
+    """The split-KV decode kernels (slab and paged, float32 and int8 K/V)
+    at the main path's shape (S 8, T 256, D 512, H heads over Hkv KV
+    heads; the paged over the 129-block pool): the chunked pair (K 8
+    lanes a row at chunk_qpos) or, ``tq1``, the Tq=1 pair (one query a
+    row at chunk_qpos' last positions).  Checks: within KERNEL_TOL of the
+    plain version; a second launch equal to the first bit for bit; each
+    row computed alone (S 1) and inside a T 2048 span (the slab's first
+    256 columns, the table's first 16 entries) equal to the same row of
+    the S 8 batch bit for bit; a long span (chunk_qpos(SPLIT_LONG_T)
+    rows over T 2048, the paged over 8 x 128 blocks; its longest row
+    crossing at least SPLIT_MIN_SPLITS splits) within KERNEL_TOL of the
+    plain version; each int8 instance bit for bit its float32 kernel on
+    the dequantized cache, at both spans.  At Hkv = H also each kernel's
+    device time alone (graph_ms) beside one
     scaled_dot_product_attention over the same rows (the paged: over
     each row's chain gathered from the pool, the gather included; none
     for int8).  Returns {kernel: row}."""
     from paddle_tpu_torch.ops.kernels import decode_attention as dk
     from paddle_tpu_torch.quant.kv import dequantize_heads
-    s, kk, d, h = 8, CHUNK, D_MODEL, HEADS
+    s, d = 8, D_MODEL
+    kk = 1 if tq1 else CHUNK
     dh, t, tl = d // h, SERVE_MAX_LEN, SPLIT_LONG_T
+    dkv = dh * hkv
     qpos_np, long_np = chunk_qpos(t), chunk_qpos(tl)
+    if tq1:
+        qpos_np, long_np = qpos_np[:, -1:], long_np[:, -1:]
     q = torch.tensor(normal(rng, (s, kk, d)), device=dev)
-    qpos = torch.tensor(qpos_np, device=dev)
-    qlong = torch.tensor(long_np, device=dev)
+    # the Tq=1 kernels take q [S, D] and positions [S]
+    qpos, qlong = (torch.tensor(x[:, 0] if tq1 else x, device=dev)
+                   for x in (qpos_np, long_np))
+    if tq1:
+        q = q[:, 0]
     # the slab rows at T 2048; the main path's T 256 are their first
     # columns (codes and scales alike)
-    kl, vl = (torch.tensor(normal(rng, (s, tl, d)), device=dev)
+    kl, vl = (torch.tensor(normal(rng, (s, tl, dkv)), device=dev)
               for _ in range(2))
-    (kl8, ksl8), (vl8, vsl8) = (quantized(torch, dev, rng, (s, tl, d), h)
+    (kl8, ksl8), (vl8, vsl8) = (quantized(torch, dev, rng, (s, tl, dkv), hkv)
                                 for _ in range(2))
 
     def head(x):
@@ -728,10 +765,10 @@ def check_split_kernels(torch, dev, rng):
                 head(x) for x in (kl, vl)) + (None, None)),
             True: ((kl8, vl8, ksl8, vsl8), tuple(
                 head(x) for x in (kl8, vl8, ksl8, vsl8)))}
-    pool_shape = (PAGE_BLOCKS, PAGE_BS, d)
+    pool_shape = (PAGE_BLOCKS, PAGE_BS, dkv)
     pk, pv = (torch.tensor(normal(rng, pool_shape), device=dev)
               for _ in range(2))
-    (p8, ps8), (w8, ws8) = (quantized(torch, dev, rng, pool_shape, h)
+    (p8, ps8), (w8, ws8) = (quantized(torch, dev, rng, pool_shape, hkv)
                             for _ in range(2))
     pool = {False: (pk, pv, None, None), True: (p8, w8, ps8, ws8)}
     tables_np = paged_tables(rng, qpos_np[:, -1].astype(np.int64),
@@ -743,44 +780,54 @@ def check_split_kernels(torch, dev, rng):
         [tables_np, rng.randint(1, PAGE_BLOCKS, (s, (tl - t) // PAGE_BS))],
         1).astype(np.int32), device=dev)
     long_blocks = s * (tl // PAGE_BS) + 1
-    lpool_shape = (long_blocks, PAGE_BS, d)
+    lpool_shape = (long_blocks, PAGE_BS, dkv)
     lk, lv = (torch.tensor(normal(rng, lpool_shape), device=dev)
               for _ in range(2))
-    (lk8, lks8), (lv8, lvs8) = (quantized(torch, dev, rng, lpool_shape, h)
+    (lk8, lks8), (lv8, lvs8) = (quantized(torch, dev, rng, lpool_shape, hkv)
                                 for _ in range(2))
     lpool = {False: (lk, lv, None, None), True: (lk8, lv8, lks8, lvs8)}
     ltables = torch.tensor(paged_tables(
         rng, long_np[:, -1].astype(np.int64), tl // PAGE_BS, long_blocks),
         device=dev)
+    fns = {(False, False): (dk.decode_attention_slab_chunk,
+                            dk.decode_attention_slab_chunk_plain),
+           (True, False): (dk.decode_attention_paged_chunk,
+                           dk.decode_attention_paged_chunk_plain),
+           (False, True): (dk.decode_attention_slab,
+                           dk.decode_attention_slab_plain),
+           (True, True): (dk.decode_attention_paged,
+                          dk.decode_attention_paged_plain)}
 
     def call(paged, kv, qp, tbl, rows=slice(None), widen=False, plain=False):
-        """One chunk kernel call (or its plain version) on ``rows``."""
+        """One kernel call (or its plain version) on ``rows``."""
         k, v, ks, vs = kv
         if ks is not None and widen:
             k, v, ks, vs = (dequantize_heads(k, ks), dequantize_heads(v, vs),
                             None, None)
         extra = {} if ks is None else dict(kscale=ks, vscale=vs)
+        qp = qp[rows].clone()       # a fresh, 16-byte aligned buffer
+        fn = fns[paged, tq1][plain]
         if paged:
-            fn = (dk.decode_attention_paged_chunk_plain if plain
-                  else dk.decode_attention_paged_chunk)
-            return fn(q[rows], k, v, qp[rows], tbl[rows], h, **extra)
-        fn = (dk.decode_attention_slab_chunk_plain if plain
-              else dk.decode_attention_slab_chunk)
-        return fn(q[rows], k[rows], v[rows], qp[rows], h,
+            return fn(q[rows], k, v, qp, tbl[rows], h, **extra)
+        return fn(q[rows], k[rows], v[rows], qp, h,
                   **{a: x[rows] for a, x in extra.items()})
 
-    n_split = dk._count("decode_attention_chunk_scratch", s, kk, tl, h, h,
-                        dh) // (s * h * 8 * (dh + 4))
+    # splits of the longest long-span row: the scratch holds a record a
+    # (row, query vector, KV head, split)
+    nq = kk * (h // hkv)
+    n_split = dk._count("decode_attention_chunk_scratch", s, kk, tl, h, hkv,
+                        dh) // (s * nq * hkv * (dh + 4))
     if n_split < SPLIT_MIN_SPLITS:
         fail(f"the long-span case crosses {n_split} splits (want at least "
              f"{SPLIT_MIN_SPLITS})")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = (torch.arange(t, device=dev)[None, None, :]
-            <= qpos.long()[:, :, None])[:, None]
+            <= qpos.long().reshape(s, kk)[:, :, None])[:, None]
     qh = q.reshape(s, kk, h, dh).transpose(1, 2)
 
-    def heads(x):               # [S, T, D] -> [S, H, T, dh]
-        return x.reshape(s, t, h, dh).transpose(1, 2)
+    def heads(x):               # [S, T, Dkv] -> [S, H, T, dh]
+        x = x.reshape(s, t, hkv, dh).transpose(1, 2)
+        return x if hkv == h else torch.repeat_interleave(x, h // hkv, 1)
 
     library = {
         (False, False): lambda: sdpa(qh, heads(slab[False][1][0]),
@@ -789,17 +836,20 @@ def check_split_kernels(torch, dev, rng):
         (True, False): lambda: sdpa(qh, heads(pk[tables.long()]),
                                     heads(pv[tables.long()]),
                                     attn_mask=mask)}
+    names = {(False, False): (dk.NAME, dk.NAME_SLAB),
+             (False, True): (dk.NAME_I8, dk.NAME_SLAB_I8),
+             (True, False): (dk.NAME_PAGED_CHUNK, dk.NAME_PAGED),
+             (True, True): (dk.NAME_PAGED_CHUNK_I8, dk.NAME_PAGED_I8)}
     rows = {}
     for paged, int8 in ((False, False), (False, True), (True, False),
                         (True, True)):
-        name = {(False, False): dk.NAME, (False, True): dk.NAME_I8,
-                (True, False): dk.NAME_PAGED_CHUNK,
-                (True, True): dk.NAME_PAGED_CHUNK_I8}[paged, int8]
+        name = names[paged, int8][tq1]
         main = pool[int8] if paged else slab[int8][1]
         big = pool[int8] if paged else slab[int8][0]
         tbl, tbl_wide = (tables, wide) if paged else (None, None)
         first, second = call(paged, main, qpos, tbl), call(paged, main, qpos,
                                                            tbl)
+        ref = call(paged, main, qpos, tbl, plain=True)
         alone = [call(paged, main, qpos, tbl, slice(r, r + 1))
                  for r in range(s)]
         in_wide = call(paged, big, qpos, tbl_wide)
@@ -807,32 +857,37 @@ def check_split_kernels(torch, dev, rng):
         ltbl = ltables if paged else None
         long_out = call(paged, lkv, qlong, ltbl)
         long_ref = call(paged, lkv, qlong, ltbl, plain=True)
-        long_f32 = call(paged, lkv, qlong, ltbl, widen=True) if int8 else None
+        f32 = (call(paged, main, qpos, tbl, widen=True),
+               call(paged, lkv, qlong, ltbl, widen=True)) if int8 else None
         torch.cuda.synchronize()
+        err = float((first - ref).abs().max())
         repeat = bool(torch.equal(first, second))
         row_alone = all(bool(torch.equal(a, first[r:r + 1]))
                         for r, a in enumerate(alone))
         row_wide = bool(torch.equal(in_wide, first))
         long_err = float((long_out - long_ref).abs().max())
-        long_exact = (float((long_out - long_f32).abs().max()) if int8
-                      else None)
-        if not (repeat and row_alone and row_wide) \
-                or not long_err <= KERNEL_TOL or long_exact not in (None, 0.0):
-            fail(f"{name}: second launch bit for bit {repeat}, rows alone "
-                 f"(S 1) bit for bit {row_alone}, rows inside a T {tl} span "
-                 f"bit for bit {row_wide}; long span: max abs err "
-                 f"{long_err} (bound {KERNEL_TOL}), against the float32 "
-                 f"kernel on the dequantized cache {long_exact} (want 0)")
-        row = {"name": name, "repeat_bit_for_bit": repeat,
+        exact = (max(float((first - f32[0]).abs().max()),
+                     float((long_out - f32[1]).abs().max()))
+                 if int8 else None)
+        if not (repeat and row_alone and row_wide) or not err <= KERNEL_TOL \
+                or not long_err <= KERNEL_TOL or exact not in (None, 0.0):
+            fail(f"{name} (H={h}, Hkv={hkv}, dh={dh}): max abs err {err}, "
+                 f"long span {long_err} (bound {KERNEL_TOL}); second launch "
+                 f"bit for bit {repeat}, rows alone (S 1) {row_alone}, rows "
+                 f"inside a T {tl} span {row_wide}; against the float32 "
+                 f"kernel on the dequantized cache {exact} (want 0)")
+        row = {"name": name, "h": h, "hkv": hkv, "dh": dh,
+               "max_abs_err": err, "repeat_bit_for_bit": repeat,
                "rows_alone_bit_for_bit": row_alone,
                f"rows_in_T{tl}_bit_for_bit": row_wide,
                "long_span": {"T": tl, "splits_longest_row": n_split,
-                             "max_abs_err": long_err,
-                             "err_vs_f32_kernel_on_dequantized": long_exact},
-               "device_ms": graph_ms(torch, lambda: call(paged, main, qpos,
-                                                         tbl))}
-        lib = library.get((paged, int8))
-        row["library_device_ms"] = graph_ms(torch, lib) if lib else None
+                             "max_abs_err": long_err},
+               "err_vs_f32_kernel_on_dequantized": exact}
+        if hkv == h:
+            row["device_ms"] = graph_ms(torch, lambda: call(paged, main, qpos,
+                                                            tbl))
+            lib = library.get((paged, int8))
+            row["library_device_ms"] = graph_ms(torch, lib) if lib else None
         rows[name] = row
     return rows
 
@@ -985,6 +1040,125 @@ def check_flash_train(torch, dev, rng):
         checks.append(flash_bwd_pair(torch, dev, rng, bb, hh, tq, tk, d,
                                      causal)[0])
     return fwd_rows, rows, checks
+
+
+def sdpa_backend(torch, q, k, v, causal):
+    """The backend scaled_dot_product_attention picks for these inputs
+    (its own dispatch rule, torch._fused_sdp_choice)."""
+    names = {0: "MATH", 1: "FLASH_ATTENTION", 2: "EFFICIENT_ATTENTION",
+             3: "CUDNN_ATTENTION", 4: "OVERRIDEABLE"}
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "not reported by this torch"
+    pick = int(choose(q, k, v, None, 0.0, causal))
+    return names.get(pick, str(pick))
+
+
+def check_flash_wide(torch, dev, rng, control):
+    """The flash forward, dK/dV and dQ kernels at the wide head dims
+    (_check.WIDE_HEAD_DIMS) at B WIDE_B, H WIDE_H, T WIDE_T, causal and
+    full: within WIDE_TC_TOL of the plain versions (the backward given
+    the plain forward's o and lse), bit for bit on a second run, and the
+    one-TF32-pass build ``control`` (probe_flash.py's tf32_1x library)
+    outside it on the same inputs; each timed beside the plain versions,
+    its bounds and one scaled_dot_product_attention call (forward, and
+    its backward alone: autograd.grad over a retained graph), naming the
+    backend SDPA picked.  Returns a list of rows."""
+    from paddle_tpu_torch.ops.kernels import _build, _check
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    from paddle_tpu_torch.scripts import probe_flash
+    one_fwd, one_dkv, one_dq, _ = probe_flash.entries(control)
+    b, h, t = WIDE_B, WIDE_H, WIDE_T
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for dh in _check.WIDE_HEAD_DIMS:
+        for causal in (False, True):
+            q, k, v, do = (torch.tensor(normal(rng, (b, h, t, dh)),
+                                        device=dev) for _ in range(4))
+            scale = 1.0 / math.sqrt(dh)
+            o, lse = fk.flash_attention_fwd(q, k, v, causal=causal)
+            o_ref, lse_ref = fk.flash_attention_plain(q, k, v, causal=causal)
+            got = fk.flash_attention_bwd(q, k, v, o_ref, lse_ref, do,
+                                         causal=causal)
+            again = fk.flash_attention_bwd(q, k, v, o_ref, lse_ref, do,
+                                           causal=causal)
+            ref = fk.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                               scale, causal)
+            # the one-pass control on the same inputs
+            o1, lse1 = torch.empty_like(q), torch.empty_like(lse_ref)
+            dq1, dk1, dv1 = (torch.empty_like(x) for x in (q, k, v))
+            delta1 = torch.empty_like(lse_ref)
+            _build.check("tf32_1x", one_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o1.data_ptr(),
+                lse1.data_ptr(), b * h, t, t, dh, scale, int(causal),
+                stream))
+            _build.check("tf32_1x", one_dq(
+                *(x.data_ptr() for x in (q, k, v, do, o_ref, lse_ref, delta1,
+                                         dq1)),
+                b * h, t, t, dh, scale, int(causal), stream))
+            _build.check("tf32_1x", one_dkv(
+                *(x.data_ptr() for x in (q, k, v, do, lse_ref, delta1, dk1,
+                                         dv1)),
+                b * h, t, t, dh, scale, int(causal), stream))
+            torch.cuda.synchronize()
+
+            def rel(x, r):
+                return float((x - r).abs().max() / r.abs().max())
+
+            err = {"fwd": max(float((o - o_ref).abs().max()),
+                              float((lse - lse_ref).abs().max())),
+                   "dq": rel(got[0], ref[0]),
+                   "dkv": max(rel(got[1], ref[1]), rel(got[2], ref[2]))}
+            one = {"fwd": max(float((o1 - o_ref).abs().max()),
+                              float((lse1 - lse_ref).abs().max())),
+                   "dq": rel(dq1, ref[0]),
+                   "dkv": max(rel(dk1, ref[1]), rel(dv1, ref[2]))}
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            where = f"B={b}, H={h}, T={t}, dh={dh}, causal={causal}"
+            if not max(err.values()) <= WIDE_TC_TOL or not same:
+                fail(f"flash kernels ({where}) disagree with their plain "
+                     f"versions: {err} (bound {WIDE_TC_TOL}); the backward "
+                     f"bit for bit on a second run: {same}")
+            if not min(one.values()) > WIDE_TC_TOL:
+                fail(f"flash kernels ({where}): the one-TF32-pass control "
+                     f"{one} passes the {WIDE_TC_TOL} gate")
+            _, delta = fk.bwd_dq_kernel(q, k, v, o_ref, lse_ref, do, scale,
+                                        causal)
+            qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+            lib_out = sdpa(qg, kg, vg, is_causal=causal)
+            cost = flash_bwd_cost(b * h, t, t, dh, causal)
+            plain_bwd = time_ms(torch, lambda: fk.flash_attention_bwd_plain(
+                q, k, v, o_ref, lse_ref, do, scale, causal), samples=10,
+                reps=2)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), do, retain_graph=True), samples=20,
+                reps=5)
+            row = {"dh": dh, "causal": causal,
+                   "shape": {"B": b, "H": h, "T": t},
+                   "sdpa_backend": sdpa_backend(torch, q, k, v, causal),
+                   "bitwise_repeatable": same, "one_tf32_pass_err": one}
+            for key, fn, plain, lib in (
+                    ("fwd", lambda: fk.flash_attention_fwd(
+                        q, k, v, causal=causal),
+                     time_ms(torch, lambda: fk.flash_attention_plain(
+                         q, k, v, causal=causal), samples=10, reps=2),
+                     time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal),
+                             samples=20, reps=5)),
+                    ("dkv", lambda: fk.bwd_dkv_kernel(
+                        q, k, v, do, lse_ref, delta, scale, causal),
+                     plain_bwd, lib_bwd),
+                    ("dq", lambda: fk.bwd_dq_kernel(
+                        q, k, v, o_ref, lse_ref, do, scale, causal),
+                     plain_bwd, lib_bwd)):
+                r = {"max_err": err[key],
+                     "ms": time_ms(torch, fn, samples=20, reps=5),
+                     "plain_ms": plain, "library_ms": lib,
+                     "bytes": cost[key][0], "flops": cost[key][1]}
+                tc_bound(r, *cost[key])
+                row[key] = r
+            rows.append(row)
+    return rows
 
 
 def check_flash_padded(torch, dev, rng, kernels):
@@ -1164,14 +1338,15 @@ def check_int8_decode_kernels(torch, dev, rng, hkv):
     return rows
 
 
-def check_flash_quant_kernel(torch, dev, rng, b, t, hkv, timed):
-    """flash_attention_quant on q [B, T, D] and an int8 cache [B, T, Dkv]:
-    bit for bit against the float32 flash kernel on the dequantized,
-    head-repeated K/V, within KERNEL_TOL of its plain version."""
+def check_flash_quant_kernel(torch, dev, rng, b, t, hkv, timed, h=HEADS,
+                             dh=D_MODEL // HEADS):
+    """flash_attention_quant on q [B, T, H * dh] and an int8 cache
+    [B, T, Hkv * dh]: bit for bit against the float32 flash kernel on the
+    dequantized, head-repeated K/V, within KERNEL_TOL of its plain
+    version."""
     from paddle_tpu_torch.ops import attention as attn_ops
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
     from paddle_tpu_torch.quant.kv import dequantize_heads
-    h, dh = HEADS, D_MODEL // HEADS
     q = torch.tensor(normal(rng, (b, t, h * dh)), device=dev)
     (k, ks), (v, vs) = (quantized(torch, dev, rng, (b, t, hkv * dh), hkv)
                         for _ in range(2))
@@ -1203,8 +1378,8 @@ def check_flash_quant_kernel(torch, dev, rng, b, t, hkv, timed):
              f"{exact} against the float32 kernel on the dequantized K/V "
              f"(want 0), {err} against its plain version (bound "
              f"{KERNEL_TOL})")
-    row = {"name": fk.NAME_QUANT, "T": t, "hkv": hkv, "max_abs_err": err,
-           "err_vs_f32_kernel_on_dequantized": exact}
+    row = {"name": fk.NAME_QUANT, "T": t, "hkv": hkv, "dh": dh,
+           "max_abs_err": err, "err_vs_f32_kernel_on_dequantized": exact}
     if not timed:
         return row
     nbytes = (4 * b * t * h * dh + b * t * (2 * hkv * dh + 2 * 4 * hkv)
@@ -1226,15 +1401,19 @@ def check_head_dims(torch, dev, rng):
     values, 8 and 24 their int8 codes, one at a time) -- GQA, K = 5 lanes over T = 77 for the
     slab chunk kernel, the same rows over a shuffled pool of 8-position
     blocks for the paged chunk kernel, lane 0 of each row for the Tq=1
-    pair, and the int8 instance of each of the four on the same rows; up
-    to 128, causal T = 45 and non-causal Tq = 19, Tk = 45 for the flash
-    kernel and flash_attention_quant at causal T = 45, Hkv = 2 (widths
-    between the compiled ones zero-padded by the wrappers)."""
+    pair (at GQA and at H = Hkv), and the int8 instance of each of the
+    four on the same rows;
+    causal T = 45 and non-causal Tq = 19, Tk = 45 for the flash forward
+    and its backward pair (each output relative to its largest entry,
+    bound MT_REL_TOL, and bit for bit on a second run), and
+    flash_attention_quant at causal T = 45, Hkv = 2 (widths between the
+    compiled ones zero-padded by the wrappers; 256, 384 and 512 the wide
+    instances)."""
     from paddle_tpu_torch.ops import attention as attn_ops
     from paddle_tpu_torch.ops.kernels import decode_attention as dk
     from paddle_tpu_torch.ops.kernels import flash_attention as fk
     from paddle_tpu_torch.quant.kv import dequantize_heads
-    errs, exacts = {}, {}
+    errs, exacts, bwd_rel = {}, {}, {}
 
     def err(name, dh, got, want):
         errs[f"{name}/dh{dh}"] = float((got - want).abs().max())
@@ -1293,8 +1472,28 @@ def check_head_dims(torch, dev, rng):
         exact(dk.NAME_SLAB_I8, dh,
               dk.decode_attention_slab(q1, k8, v8, pos, h, **slab),
               dk.decode_attention_slab(q1, kw, vw, pos, h))
-        if dh > 128:    # the flash kernels' widths end at 128 (ROADMAP B8)
-            continue
+        # the Tq=1 pair at H = Hkv = 2 (one query vector a CTA, the
+        # instance the grouped heads above do not launch), float32
+        # against the plain versions, int8 against the float32 kernels
+        qm = torch.tensor(normal(rng, (3, 2 * dh)), device=dev)
+        for paged in (False, True):
+            shape = (3 * nb_row + 1, bs, 2 * dh) if paged else (3, t, 2 * dh)
+            km, vm = (torch.tensor(normal(rng, shape), device=dev)
+                      for _ in range(2))
+            (k8, k8s), (v8, v8s) = (quantized(torch, dev, rng, shape, 2)
+                                    for _ in range(2))
+            kw, vw = dequantize_heads(k8, k8s), dequantize_heads(v8, v8s)
+            tbl = (tables,) if paged else ()
+            fn, plain, name, name8 = (
+                (dk.decode_attention_paged, dk.decode_attention_paged_plain,
+                 dk.NAME_PAGED, dk.NAME_PAGED_I8) if paged else
+                (dk.decode_attention_slab, dk.decode_attention_slab_plain,
+                 dk.NAME_SLAB, dk.NAME_SLAB_I8))
+            err(f"{name}/mha", dh, fn(qm, km, vm, pos, *tbl, 2),
+                plain(qm, km, vm, pos, *tbl, 2))
+            exact(f"{name8}/mha", dh,
+                  fn(qm, k8, v8, pos, *tbl, 2, kscale=k8s, vscale=v8s),
+                  fn(qm, kw, vw, pos, *tbl, 2))
         for causal, tq in ((True, 45), (False, 19)):
             q = torch.tensor(normal(rng, (1, 2, tq, dh)), device=dev)
             k = torch.tensor(normal(rng, (1, 2, 45, dh)), device=dev)
@@ -1304,6 +1503,8 @@ def check_head_dims(torch, dev, rng):
             errs[f"flash_attention/dh{dh}/causal{int(causal)}"] = max(
                 float((o - o_ref).abs().max()),
                 float((lse - lse_ref).abs().max()))
+            bwd_rel[f"dh{dh}/causal{int(causal)}"] = flash_bwd_pair(
+                torch, dev, rng, 1, 2, tq, 45, dh, causal)[0]["rel_err"]
         # flash_attention_quant, ragged T = 45 with GQA: bit for bit
         # against the float32 kernel on the dequantized, repeated heads
         qf = torch.tensor(normal(rng, (2, 45, h * dh)), device=dev)
@@ -1333,7 +1534,8 @@ def check_head_dims(torch, dev, rng):
         fail(f"kernels disagree with their plain versions (bound "
              f"{KERNEL_TOL}) or, int8, with their float32 kernels on the "
              f"dequantized cache (want 0): {bad}")
-    return {"vs_plain": errs, "int8_vs_f32_kernel": exacts}
+    return {"vs_plain": errs, "int8_vs_f32_kernel": exacts,
+            "flash_backward_rel_err": bwd_rel}
 
 
 def lstm_inputs(torch, dev, rng, t, b, d, ragged, w_scale=0.1):
@@ -2108,12 +2310,12 @@ def check_rnn_routes(torch, dev, rng, kernels):
 
 # ------------------------------------------------------------- paths
 
-def margins(torch, transformer, params, ids, kv_dtype=None):
+def margins(torch, transformer, params, ids, kv_dtype=None, heads=HEADS):
     """Top-1 minus top-2 logit at every position of ``ids`` [B, T]
     (teacher-forced: one prefill over the whole sequence, over an int8
     cache when ``kv_dtype="int8"``)."""
     hidden, _ = transformer.lm_prefill(params, ids, ids.shape[1],
-                                       num_heads=HEADS, kv_dtype=kv_dtype)
+                                       num_heads=heads, kv_dtype=kv_dtype)
     top2 = torch.topk(transformer._lm_project(params, hidden), 2, dim=-1)
     return (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
 
@@ -2190,7 +2392,7 @@ def launch_counts(kernels):
 
 
 def check_streams(torch, transformer, params, prompts, outs, what,
-                  kv_dtype=None):
+                  kv_dtype=None, heads=HEADS):
     """Each stream against lm_generate (over the same KV dtype) on the
     card, up to its first reference margin below MARGIN_TOL; returns the
     tokens compared."""
@@ -2198,8 +2400,8 @@ def check_streams(torch, transformer, params, prompts, outs, what,
     for i, (prompt, toks) in enumerate(zip(prompts, outs)):
         p = np.asarray([prompt], np.int32)
         ref = transformer.lm_generate(params, p, p.shape[1] + len(toks),
-                                      HEADS, kv_dtype=kv_dtype)
-        marg = margins(torch, transformer, params, ref, kv_dtype)[0]
+                                      heads, kv_dtype=kv_dtype)
+        marg = margins(torch, transformer, params, ref, kv_dtype, heads)[0]
         n, ok = compare(toks, ref[0, p.shape[1]:].tolist(),
                         marg[p.shape[1] - 1:])
         if not ok:
@@ -2413,24 +2615,30 @@ def run_serve_paged(torch, dev, transformer, kernels, params, rng):
 
 
 def run_ladder(torch, dev, transformer, kernels, params, rng,
-               kv_dtype="float32"):
-    """The legacy prefill ladder on both layouts (phase "ladder", or
-    "ladder_int8" over an int8 KV cache): 8 staggered requests straight
-    to the batcher; the prefill's flash kernel once per layer per prefill
-    batch, the Tq=1 kernel once per layer per step, both of the cache's
-    dtype.  Returns each layout's launches."""
+               kv_dtype="float32", heads=HEADS, layers=LAYERS,
+               layouts=("slab", "paged")):
+    """The legacy prefill ladder (phase "ladder", or "ladder_int8" over
+    an int8 KV cache; at another head count "ladder_dh<width>..."): 8
+    staggered requests straight to the batcher on each of ``layouts``;
+    the prefill's flash kernel once per layer per prefill batch, the
+    Tq=1 kernel once per layer per step, both of the cache's dtype.
+    Returns each layout's launches."""
     from paddle_tpu_torch.serving import DecodeEngine, GenerationBatcher
     dk, fk = kernels.decode_attention, kernels.flash_attention
     int8 = kv_dtype == "int8"
     prompts = [rng.randint(3, VOCAB, n).tolist() for n in LADDER_PROMPTS]
-    record = {"phase": "ladder_int8" if int8 else "ladder",
-              "kv_dtype": kv_dtype, "prompt_lengths": list(LADDER_PROMPTS)}
+    phase = "ladder" if heads == HEADS else f"ladder_dh{D_MODEL // heads}"
+    record = {"phase": phase + ("_int8" if int8 else ""),
+              "kv_dtype": kv_dtype, "heads": heads,
+              "head_dim": D_MODEL // heads, "layers": layers,
+              "prompt_lengths": list(LADDER_PROMPTS)}
     launches = {}
     flash = fk.NAME_QUANT if int8 else "flash_attention"
     for layout, step_kernel in (
-            ("slab", dk.NAME_SLAB_I8 if int8 else dk.NAME_SLAB),
-            ("paged", dk.NAME_PAGED_I8 if int8 else dk.NAME_PAGED)):
-        engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+            (lay, {"slab": dk.NAME_SLAB_I8 if int8 else dk.NAME_SLAB,
+                   "paged": dk.NAME_PAGED_I8 if int8 else dk.NAME_PAGED}[lay])
+            for lay in layouts):
+        engine = DecodeEngine(params, num_heads=heads, num_slots=SLOTS,
                               max_len=SERVE_MAX_LEN, prefill_chunk=0,
                               kv_layout=layout, kv_block_size=PAGE_BS,
                               kv_dtype=kv_dtype, name=f"ladder_{layout}",
@@ -2452,7 +2660,7 @@ def run_ladder(torch, dev, transformer, kernels, params, rng,
         batches = engine.prefill_batches_total - batches0
         snap = engine.metrics.snapshot()
         gen.close()
-        want = {flash: LAYERS * batches, step_kernel: LAYERS * steps}
+        want = {flash: layers * batches, step_kernel: layers * steps}
         if any(got[k] != want.get(k, 0) for k in got) \
                 or any(len(o) != LADDER_TOKENS for o in outs):
             fail(f"{record['phase']} ({layout}): launches {got} over "
@@ -2465,7 +2673,7 @@ def run_ladder(torch, dev, transformer, kernels, params, rng,
             "step_ms": snap["tpot_ms"], "ttft_ms": snap["ttft_ms"],
             "tokens_checked_vs_lm_generate": check_streams(
                 torch, transformer, params, prompts, outs,
-                f"{record['phase']} ({layout})", kv_dtype),
+                f"{record['phase']} ({layout})", kv_dtype, heads),
             "tokens_total": len(prompts) * LADDER_TOKENS}
         launches[layout] = got
     emit(record)
@@ -3313,17 +3521,23 @@ def main(argv=None):
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # every library and the probes' 3xTF32 controls, all nvcc at once
-    from paddle_tpu_torch.scripts import probe_gru, probe_simple_rnn
+    from paddle_tpu_torch.scripts import (probe_flash, probe_gru,
+                                          probe_simple_rnn)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = (pool.submit(kernels.build),
                 pool.submit(probe_simple_rnn.build, ["kernel", "tf32_1x"]),
-                pool.submit(probe_gru.build, ["kernel", "tf32_1x"]))
-        libs, rnn_libs, gru_libs = (job.result() for job in jobs)
+                pool.submit(probe_gru.build, ["kernel", "tf32_1x"]),
+                pool.submit(probe_flash.build, ["tf32_1x"]))
+        libs, rnn_libs, gru_libs, flash_libs = (job.result() for job in jobs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(libs),
           "probe_variants": {"simple_rnn": sorted(rnn_libs),
-                             "gru": sorted(gru_libs)}})
+                             "gru": sorted(gru_libs),
+                             "flash": sorted(flash_libs)},
+          "flash_wide_ptxas": {
+              name: rep for name, rep in flash_libs["tf32_1x"][1].items()
+              if int(name.split("/dh")[1].split("/")[0]) > 128}})
 
     rng = np.random.RandomState(args.seed)
     chunk = check_decode_kernel(torch, dev, rng, hkv=HEADS)
@@ -3342,11 +3556,19 @@ def main(argv=None):
     int8 = check_int8_decode_kernels(torch, dev, rng, hkv=HEADS)
     int8_gqa = check_int8_decode_kernels(torch, dev, rng, hkv=2)
     split = check_split_kernels(torch, dev, rng)
+    tq1 = check_split_kernels(torch, dev, rng, tq1=True)
+    tq1_gqa = check_split_kernels(torch, dev, rng, tq1=True, hkv=2)
+    # the Tq=1 instances the 2-head ladder's steps launch (dh 256)
+    tq1_wide = check_split_kernels(torch, dev, rng, tq1=True, h=WIDE_HEADS,
+                                   hkv=WIDE_HEADS)
     # the device time alone beside the wrapper-timed ms of each row
-    for row in (chunk, paged[kernels.decode_attention.NAME_PAGED_CHUNK],
-                int8[kernels.decode_attention.NAME_I8],
-                int8[kernels.decode_attention.NAME_PAGED_CHUNK_I8]):
-        row.update({key: split[row["name"]][key]
+    dk = kernels.decode_attention
+    for row, alone in (
+            (chunk, split), (paged[dk.NAME_PAGED_CHUNK], split),
+            (int8[dk.NAME_I8], split), (int8[dk.NAME_PAGED_CHUNK_I8], split),
+            (paged[dk.NAME_SLAB], tq1), (paged[dk.NAME_PAGED], tq1),
+            (int8[dk.NAME_SLAB_I8], tq1), (int8[dk.NAME_PAGED_I8], tq1)):
+        row.update({key: alone[row["name"]][key]
                     for key in ("device_ms", "library_device_ms")})
     flash_q = check_flash_quant_kernel(torch, dev, rng, GEN_BATCH,
                                        GEN_PROMPT, HEADS, timed=True)
@@ -3354,6 +3576,10 @@ def main(argv=None):
                                               timed=False)
     flash_train, flash_bwd, flash_bwd_checks = check_flash_train(torch, dev,
                                                                  rng)
+    flash_wide = check_flash_wide(torch, dev, rng, flash_libs["tf32_1x"][0])
+    flash_q_wide = check_flash_quant_kernel(
+        torch, dev, rng, WIDE_B, WIDE_T, WIDE_H, timed=True, h=WIDE_H,
+        dh=D_MODEL // WIDE_HEADS)
     (gru_fwd, gru_bwd), gru_other = check_gru_kernels(torch, dev, rng,
                                                       gru_libs)
     blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
@@ -3374,6 +3600,11 @@ def main(argv=None):
                                 "backward_checks": flash_bwd_checks,
                                 "backward_rel_tolerance": MT_REL_TOL},
           "split_kv_chunk_kernels": list(split.values()),
+          "split_kv_tq1_kernels": [*tq1.values(), *tq1_gqa.values(),
+                                   *tq1_wide.values()],
+          "flash_wide": {"tolerance_3xtf32": WIDE_TC_TOL,
+                         "rows": flash_wide,
+                         "flash_attention_quant": flash_q_wide},
           "other_head_dims": check_head_dims(torch, dev, rng),
           "lstm_3xtf32_control": lstm_control,
           "lstm_reverse": check_lstm_reverse(torch, dev, rng, kernels),
@@ -3416,6 +3647,17 @@ def main(argv=None):
     ladder8_launches = run_ladder(torch, dev, transformer, kernels, params,
                                   rng, kv_dtype="int8")
     del params
+    # the same ladder at D 512 over 2 heads (dh 256: the wide flash
+    # instances in the prefill, the Tq=1 kernels at that width), depth cut
+    params = transformer.init_lm(
+        torch.Generator().manual_seed(args.seed), VOCAB, D_MODEL,
+        WIDE_HEADS, DFF, WIDE_LAYERS, SERVE_MAX_LEN, device=dev)
+    wide_launches = {
+        kv: run_ladder(torch, dev, transformer, kernels, params, rng,
+                       kv_dtype=kv, heads=WIDE_HEADS, layers=WIDE_LAYERS,
+                       layouts=("slab",))["slab"]
+        for kv in ("float32", "int8")}
+    del params
     train_launches = run_train(torch, dev, kernels)
     blk_launches = {h: run_train(torch, dev, kernels, hidden=h,
                                  check_batch=b)
@@ -3437,6 +3679,7 @@ def main(argv=None):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{key: row[key] for key in DEVICE_KEYS if key in row}})
+    summary[-1]["launches_dh256"] = wide_launches["float32"]["flash_attention"]
     # the forward on the train path: its launches in train_transformer
     # and its non-causal time at the train shape beside the prefill row
     train_fwd = flash_train[False]
@@ -3470,6 +3713,16 @@ def main(argv=None):
                             "computes dq, dk and dv together, so the same "
                             "time stands on both rows; plain_ms likewise "
                             "is the whole plain backward"})
+    # the wide instances at WIDE_B, WIDE_H, WIDE_T: on the forward row
+    # and the two backward rows
+    for row, key in ((summary[1], "fwd"), (summary[2], "dkv"),
+                     (summary[3], "dq")):
+        row["wide"] = [{"dh": w["dh"], "causal": w["causal"],
+                        "sdpa_backend": w["sdpa_backend"],
+                        **{k: w[key][k] for k in (
+                            "max_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}}
+                       for w in flash_wide]
     for row, replaces in ((lstm_fwd, kernels.lstm.REPLACES_FWD),
                           (lstm_bwd, kernels.lstm.REPLACES_BWD)):
         name = row["name"]
@@ -3546,7 +3799,6 @@ def main(argv=None):
                                          "library_note")},
             **({"dW_ms": row["split"]["dW_ms"]} if "split" in row else {}),
             "shape": row["shape"]})
-    dk = kernels.decode_attention
     for name, replaces, launches in (
             (dk.NAME_SLAB, dk.REPLACES_SLAB,
              ladder_launches["slab"][dk.NAME_SLAB]),
@@ -3558,6 +3810,10 @@ def main(argv=None):
         summary.append({
             "name": name, "route": "cuda", "source": dk.SOURCE,
             "replaces": replaces, "launches": launches,
+            **({"launches_dh256": wide_launches["float32"][name],
+                "dh256": {key: tq1_wide[name][key] for key in (
+                    "max_abs_err", "device_ms")}}
+               if name == dk.NAME_SLAB else {}),
             "max_abs_err": max(row["max_abs_err"],
                                paged_gqa[name]["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3584,6 +3840,11 @@ def main(argv=None):
             "name": name, "route": "cuda",
             "source": fk.SOURCE if name == fk.NAME_QUANT else dk.SOURCE,
             "replaces": replaces, "launches": launches,
+            **({"launches_dh256": wide_launches["int8"][name]}
+               if name in (dk.NAME_SLAB_I8, fk.NAME_QUANT) else {}),
+            **({"dh256": {key: tq1_wide[name][key] for key in (
+                "max_abs_err", "err_vs_f32_kernel_on_dequantized",
+                "device_ms")}} if name == dk.NAME_SLAB_I8 else {}),
             "max_abs_err": max(row["max_abs_err"], gqa["max_abs_err"]),
             "err_vs_f32_kernel_on_dequantized": max(
                 row["err_vs_f32_kernel_on_dequantized"],
@@ -3593,6 +3854,9 @@ def main(argv=None):
             "bound_by": row["bound_by"], "library_ms": None,
             **{key: row[key] for key in DEVICE_KEYS if key in row},
             "library_note": row["library_note"]})
+    summary[-1]["dh256"] = {key: flash_q_wide[key] for key in (
+        "shape", "max_abs_err", "ms", "f32_kernel_ms", "plain_ms",
+        "bound_ms", "bound_by")}
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -110,6 +110,13 @@
 //   3xTF32 products.  delta comes from the staged dO and a read of o.
 //   A q row past Tq gets p = 0 and is not written; a K column past Tk
 //   is masked.
+//
+// Head dims: the kernels above are compiled at dh 16, 32, 64 and 128 (the
+//   wrappers zero-pad any other dh up to 128 to the next); dh 256, 384 and
+//   512 run the _wide kernels below (the same three contracts, the
+//   forward's int8 instance included), which split the head dim across
+//   the CTA's warps and sum the score tiles' partials through shared
+//   memory in warp order (their section says why and how).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -459,39 +466,6 @@ int launch_smem(Kernel kernel, size_t smem, std::atomic<unsigned>& raised,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH, bool kInt8>
-int launch(const float* q, const void* k, const void* v, const float* ks,
-           const float* vs, float* o, float* lse, int B, int H, int Hkv,
-           int Tq, int Tk, float scale, int causal, cudaStream_t st) {
-  constexpr int kBq = kFwdWarps * 16;
-  static std::atomic<unsigned> raised{0u};
-  return launch_smem(flash_fwd_kernel<DH, kInt8>, fwd_smem_bytes<DH>(),
-                     raised, dim3(B * H, (Tq + kBq - 1) / kBq), kFwdThreads,
-                     st, q, k, v, ks, vs, o, lse, H, Hkv, Tq, Tk, scale,
-                     causal);
-}
-
-template <bool kInt8>
-int dispatch(const float* q, const void* k, const void* v, const float* ks,
-             const float* vs, float* o, float* lse, int B, int H, int Hkv,
-             int Tq, int Tk, int dh, float scale, int causal, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16:
-      return launch<16, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                               scale, causal, st);
-    case 32:
-      return launch<32, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                               scale, causal, st);
-    case 64:
-      return launch<64, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                               scale, causal, st);
-    case 128:
-      return launch<128, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                                scale, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // ------------------------------------------------------- backward dK/dV
 
@@ -890,15 +864,765 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ wide head dims (256+)
+
+// At dh 256, 384 and 512 the templates above do not fit: the forward's
+// q tile and 64-row K/V ring take 66.5 KB + 266 KB of shared memory at
+// dh 256, and a warp owning 16 rows of an accumulator holds dh / 2
+// floats a lane (256 at dh 512).  The _wide kernels split the head dim
+// instead: each of kWideWarps warps owns kW = dh / kWideWarps columns of
+// the accumulators (o; dq; dk and dv) and forms the score tiles' partial
+// products over its columns; the partials meet in shared memory and are
+// summed in warp order, so that every warp then holds the same score
+// tile, bit for bit from run to run.  A CTA takes 16 rows (q rows, or
+// K/V rows for dK/dV) and streams the other side in tiles of
+// wide_rows<DH>() rows through a 2-stage cp.async ring.  The products
+// are mma3's 3xTF32.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+
+// rows a streamed tile: 32 at dh 256, 16 wider (the ring's two stages
+// of two tiles fit the 227 KB a CTA may have)
+template <int DH>
+__host__ __device__ constexpr int wide_rows() {
+  return DH <= 256 ? 32 : 16;
+}
+
+// floats of one [16][rows + 8] partial-sum tile (pitch rows + 8)
+template <int DH>
+__host__ __device__ constexpr int wide_part() {
+  return 16 * (wide_rows<DH>() + 8);
+}
+
+template <int DH>
+constexpr size_t wide_fwd_smem_bytes() {
+  return sizeof(float) * (2 * 2 * wide_rows<DH>() * (DH + 4) +
+                          (kWideWarps + 1) * wide_part<DH>());
+}
+template <int DH>
+constexpr size_t wide_dq_smem_bytes() {
+  return sizeof(float) * (2 * 2 * wide_rows<DH>() * (DH + 4) +
+                          2 * (kWideWarps + 1) * wide_part<DH>() +
+                          kWideWarps * 16);
+}
+template <int DH>
+constexpr size_t wide_dkv_smem_bytes() {
+  return sizeof(float) * (2 * (2 * wide_rows<DH>() * (DH + 4) +
+                               2 * wide_rows<DH>()) +
+                          2 * (kWideWarps + 1) * wide_part<DH>());
+}
+
+// The warp's partial score tiles (kN n-tiles of 8 columns each, as C
+// fragments) into its slots of `part`, a barrier, the sum over the warps
+// in warp order into `sum`, a barrier, and the full tiles read back into
+// `s` by every warp.  kTiles tiles [16][kN * 8]; kTiles * kWideWarps
+// slots in `part`, kTiles in `sum`.
+template <int kN, int kTiles>
+__device__ __forceinline__ void wide_sum(float (&s)[kTiles][kN][4],
+                                         float* part, float* sum, int warp,
+                                         int g, int t4) {
+  constexpr int kCols = kN * 8;
+  constexpr int kSP = kCols + 8;
+  constexpr int kTile = 16 * kSP;
+#pragma unroll
+  for (int x = 0; x < kTiles; ++x) {
+    float* pw = part + (x * kWideWarps + warp) * kTile;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      *reinterpret_cast<float2*>(pw + g * kSP + n * 8 + 2 * t4) =
+          make_float2(s[x][n][0], s[x][n][1]);
+      *reinterpret_cast<float2*>(pw + (g + 8) * kSP + n * 8 + 2 * t4) =
+          make_float2(s[x][n][2], s[x][n][3]);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kTiles * 16 * kCols; e += kWideThreads) {
+    const int x = e / (16 * kCols);
+    const int at = (e % (16 * kCols)) / kCols * kSP + e % kCols;
+    const float* px = part + x * kWideWarps * kTile + at;
+    float a = px[0];
+#pragma unroll
+    for (int w = 1; w < kWideWarps; ++w) a += px[w * kTile];
+    sum[x * kTile + at] = a;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int x = 0; x < kTiles; ++x) {
+    const float* sx = sum + x * kTile;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const float2 lo =
+          *reinterpret_cast<const float2*>(sx + g * kSP + n * 8 + 2 * t4);
+      const float2 hi = *reinterpret_cast<const float2*>(
+          sx + (g + 8) * kSP + n * 8 + 2 * t4);
+      s[x][n][0] = lo.x;
+      s[x][n][1] = lo.y;
+      s[x][n][2] = hi.x;
+      s[x][n][3] = hi.y;
+    }
+  }
+}
+
+// The forward at a wide head dim: flash_fwd_kernel's contract, one CTA
+// per (b * h, 16 q rows).
+template <int DH, bool kInt8>
+__global__ void __launch_bounds__(kWideThreads)
+flash_fwd_wide_kernel(const float* __restrict__ q, const void* __restrict__ k,
+                      const void* __restrict__ v,
+                      const float* __restrict__ kscale,
+                      const float* __restrict__ vscale,
+                      float* __restrict__ o, float* __restrict__ lse, int H,
+                      int Hkv, int Tq, int Tk, float scale, int causal) {
+  constexpr int kP = DH + 4;
+  constexpr int kR = wide_rows<DH>();   // K/V rows a tile
+  constexpr int kN = kR / 8;            // n-tiles of S, k-steps of P V
+  constexpr int kW = DH / kWideWarps;   // the warp's head-dim columns
+  constexpr int kW8 = kW / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                  // [2][K, V][kR][kP]
+  float* part = ring + 2 * 2 * kR * kP;                // [warps][16][kR + 8]
+  float* ssum = part + kWideWarps * wide_part<DH>();   // [16][kR + 8]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int grp = h / (H / Hkv);
+  const int D = H * DH;
+  const int Dkv = Hkv * DH;
+  const int q0 = blockIdx.y * 16;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = warp * kW;                 // the warp's first column
+  const int r_lo = q0 + g, r_hi = r_lo + 8;
+  const size_t kv_row0 = (size_t)b * Tk;
+  const int last = causal ? min(q0 + 15, Tk - 1) : Tk - 1;
+  const int n_tiles = last / kR + 1;
+
+  // K/V tile j into ring slot j % 2, zero past Tk
+  auto stage = [&](int j) {
+    float* ks = ring + (j % 2) * 2 * kR * kP;
+    float* vs = ks + kR * kP;
+    const int t0 = j * kR;
+    if constexpr (kInt8) {
+      constexpr int kChunks = DH / 16;
+      for (int e = threadIdx.x; e < kR * kChunks; e += kWideThreads) {
+        const int row = e / kChunks, c = (e % kChunks) * 16, t = t0 + row;
+        int4 kc = make_int4(0, 0, 0, 0), vc = kc;
+        float sk = 0.f, sv = 0.f;
+        if (t < Tk) {
+          const size_t off = (kv_row0 + t) * Dkv + (size_t)grp * DH + c;
+          kc = *reinterpret_cast<const int4*>(
+              static_cast<const int8_t*>(k) + off);
+          vc = *reinterpret_cast<const int4*>(
+              static_cast<const int8_t*>(v) + off);
+          sk = kscale[(kv_row0 + t) * Hkv + grp];
+          sv = vscale[(kv_row0 + t) * Hkv + grp];
+        }
+        const int8_t* k8 = reinterpret_cast<const int8_t*>(&kc);
+        const int8_t* v8 = reinterpret_cast<const int8_t*>(&vc);
+        float* kd = ks + row * kP + c;
+        float* vd = vs + row * kP + c;
+#pragma unroll
+        for (int u = 0; u < 16; u += 4) {
+          *reinterpret_cast<float4*>(kd + u) = make_float4(
+              __fmul_rn(static_cast<float>(k8[u]), sk),
+              __fmul_rn(static_cast<float>(k8[u + 1]), sk),
+              __fmul_rn(static_cast<float>(k8[u + 2]), sk),
+              __fmul_rn(static_cast<float>(k8[u + 3]), sk));
+          *reinterpret_cast<float4*>(vd + u) = make_float4(
+              __fmul_rn(static_cast<float>(v8[u]), sv),
+              __fmul_rn(static_cast<float>(v8[u + 1]), sv),
+              __fmul_rn(static_cast<float>(v8[u + 2]), sv),
+              __fmul_rn(static_cast<float>(v8[u + 3]), sv));
+        }
+      }
+    } else {
+      constexpr int kChunks = DH / 4;
+      for (int e = threadIdx.x; e < kR * kChunks; e += kWideThreads) {
+        const int row = e / kChunks, c = (e % kChunks) * 4, t = t0 + row;
+        const bool in = t < Tk;
+        const size_t off = in ? (kv_row0 + t) * Dkv + (size_t)grp * DH + c
+                              : 0;
+        cp_async16(ks + row * kP + c, static_cast<const float*>(k) + off, in);
+        cp_async16(vs + row * kP + c, static_cast<const float*>(v) + off, in);
+      }
+    }
+  };
+  stage(0);
+  cp_async_commit();
+
+  // the warp's columns of the CTA's 16 q rows as raw A fragments
+  const float* qb = q + (size_t)b * Tq * D + (size_t)h * DH + c0;
+  float qa[kW8][4];
+#pragma unroll
+  for (int kk = 0; kk < kW8; ++kk) {
+    const int c = kk * 8 + t4;
+    qa[kk][0] = r_lo < Tq ? qb[(size_t)r_lo * D + c] : 0.f;
+    qa[kk][1] = r_hi < Tq ? qb[(size_t)r_hi * D + c] : 0.f;
+    qa[kk][2] = r_lo < Tq ? qb[(size_t)r_lo * D + c + 4] : 0.f;
+    qa[kk][3] = r_hi < Tq ? qb[(size_t)r_hi * D + c + 4] : 0.f;
+  }
+
+  float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
+  float acc[kW8][4];
+#pragma unroll
+  for (int n = 0; n < kW8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();                 // tile j landed (this thread's)
+    __syncthreads();                    // ... all threads'; slot j - 1 free
+    if (j + 1 < n_tiles) stage(j + 1);
+    cp_async_commit();
+    const float* ks = ring + (j % 2) * 2 * kR * kP;
+    const float* vs = ks + kR * kP;
+    const int t0 = j * kR;
+
+    // S = Q K^T over the warp's columns, then summed over the warps
+    float s[1][kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+      s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kW8; ++kk) {
+      uint32_t ab[4], as[4];
+      split4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], ab, as);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float* kr = ks + (n * 8 + g) * kP + c0 + kk * 8 + t4;
+        mma3(s[0][n], ab, as, kr[0], kr[4]);
+      }
+    }
+    wide_sum<kN, 1>(s, part, ssum, warp, g, t4);
+
+    // scale, mask (a tile crossing Tk or the CTA's diagonal), the
+    // online softmax: every warp computes the same values
+    const bool masked = t0 + kR > Tk || (causal && t0 + kR - 1 > q0);
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = t0 + n * 8 + 2 * t4 + e;
+        float lo = s[0][n][e] * scale, hi = s[0][n][2 + e] * scale;
+        if (masked) {
+          if (col >= Tk || (causal && col > r_lo)) lo = kNeg;
+          if (col >= Tk || (causal && col > r_hi)) hi = kNeg;
+        }
+        s[0][n][e] = lo;
+        s[0][n][2 + e] = hi;
+        mx_lo = fmaxf(mx_lo, lo);
+        mx_hi = fmaxf(mx_hi, hi);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, x));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, x));
+    }
+    const float al_lo = expf(m_lo - mx_lo), al_hi = expf(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[0][n][e] = expf(s[0][n][e] - m_lo);
+        s[0][n][2 + e] = expf(s[0][n][2 + e] - m_hi);
+        sum_lo += s[0][n][e];
+        sum_hi += s[0][n][2 + e];
+      }
+    }
+    l_lo = l_lo * al_lo + sum_lo;
+    l_hi = l_hi * al_hi + sum_hi;
+#pragma unroll
+    for (int n = 0; n < kW8; ++n) {
+      acc[n][0] *= al_lo;
+      acc[n][1] *= al_lo;
+      acc[n][2] *= al_hi;
+      acc[n][3] *= al_hi;
+    }
+
+    // O += P V on the warp's columns
+#pragma unroll
+    for (int jj = 0; jj < kN; ++jj) {
+      uint32_t ab[4], as[4];
+      split4(s[0][jj][0], s[0][jj][2], s[0][jj][1], s[0][jj][3], ab, as);
+      const float* vr = vs + (jj * 8 + 2 * t4) * kP + c0 + g;
+#pragma unroll
+      for (int n = 0; n < kW8; ++n)
+        mma3(acc[n], ab, as, vr[n * 8], vr[kP + n * 8]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l_lo += __shfl_xor_sync(kFull, l_lo, x);
+    l_hi += __shfl_xor_sync(kFull, l_hi, x);
+  }
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+  if (r_lo < Tq) {
+    float* orow = o + ((size_t)bh * Tq + r_lo) * DH + c0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kW8; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(acc[n][0] / den_lo, acc[n][1] / den_lo);
+    if (lse != nullptr && warp == 0 && t4 == 0)
+      lse[(size_t)bh * Tq + r_lo] = m_lo + logf(den_lo);
+  }
+  if (r_hi < Tq) {
+    float* orow = o + ((size_t)bh * Tq + r_hi) * DH + c0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kW8; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(acc[n][2] / den_hi, acc[n][3] / den_hi);
+    if (lse != nullptr && warp == 0 && t4 == 0)
+      lse[(size_t)bh * Tq + r_hi] = m_hi + logf(den_hi);
+  }
+}
+
+// dQ at a wide head dim: flash_bwd_dq_kernel's contract (delta written
+// for the dK/dV launch after it), one CTA per (b * h, 16 q rows).
+template <int DH>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ o,
+                         const float* __restrict__ lse,
+                         float* __restrict__ delta, float* __restrict__ dq,
+                         int Tq, int Tk, float scale, int causal) {
+  constexpr int kP = DH + 4;
+  constexpr int kR = wide_rows<DH>();
+  constexpr int kN = kR / 8;
+  constexpr int kW = DH / kWideWarps;
+  constexpr int kW8 = kW / 8;
+  constexpr int kChunks = DH / 4;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                     // [2][K, V][kR][kP]
+  float* part = ring + 2 * 2 * kR * kP;                   // [2][warps][tile]
+  float* ssum = part + 2 * kWideWarps * wide_part<DH>();  // [2][tile]
+  float* dlp = ssum + 2 * wide_part<DH>();                // [warps][16]
+
+  const size_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * 16;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = warp * kW;
+  const int r_lo = q0 + g, r_hi = r_lo + 8;
+  const float* kb = k + bh * Tk * DH;
+  const float* vb = v + bh * Tk * DH;
+  const int last = causal ? min(q0 + 15, Tk - 1) : Tk - 1;
+  const int n_tiles = last / kR + 1;
+
+  // K/V tile j into ring slot j % 2, zero past Tk
+  auto stage = [&](int j) {
+    float* ks = ring + (j % 2) * 2 * kR * kP;
+    float* vs = ks + kR * kP;
+    const int t0 = j * kR;
+    for (int e = threadIdx.x; e < kR * kChunks; e += kWideThreads) {
+      const int row = e / kChunks, c = (e % kChunks) * 4, t = t0 + row;
+      const bool in = t < Tk;
+      const size_t off = in ? (size_t)t * DH + c : 0;
+      cp_async16(ks + row * kP + c, kb + off, in);
+      cp_async16(vs + row * kP + c, vb + off, in);
+    }
+  };
+  stage(0);
+  cp_async_commit();
+
+  // the warp's columns of q and dO as raw A fragments; delta = rowsum(dO
+  // o) over the warp's columns and its row's 4 lanes, then the warps'
+  // partials added in warp order
+  const float* qr = q + (bh * Tq) * DH + c0;
+  const float* dr = dout + (bh * Tq) * DH + c0;
+  const float* orw = o + (bh * Tq) * DH + c0;
+  float qa[kW8][4], da[kW8][4];
+  float dl_lo = 0.f, dl_hi = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kW8; ++kk) {
+    const int c = kk * 8 + t4;
+    const size_t lo = (size_t)r_lo * DH + c, hi = (size_t)r_hi * DH + c;
+    const bool in_lo = r_lo < Tq, in_hi = r_hi < Tq;
+    qa[kk][0] = in_lo ? qr[lo] : 0.f;
+    qa[kk][1] = in_hi ? qr[hi] : 0.f;
+    qa[kk][2] = in_lo ? qr[lo + 4] : 0.f;
+    qa[kk][3] = in_hi ? qr[hi + 4] : 0.f;
+    da[kk][0] = in_lo ? dr[lo] : 0.f;
+    da[kk][1] = in_hi ? dr[hi] : 0.f;
+    da[kk][2] = in_lo ? dr[lo + 4] : 0.f;
+    da[kk][3] = in_hi ? dr[hi + 4] : 0.f;
+    if (in_lo) {
+      dl_lo = fmaf(da[kk][0], orw[lo], dl_lo);
+      dl_lo = fmaf(da[kk][2], orw[lo + 4], dl_lo);
+    }
+    if (in_hi) {
+      dl_hi = fmaf(da[kk][1], orw[hi], dl_hi);
+      dl_hi = fmaf(da[kk][3], orw[hi + 4], dl_hi);
+    }
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    dl_lo += __shfl_xor_sync(kFull, dl_lo, x);
+    dl_hi += __shfl_xor_sync(kFull, dl_hi, x);
+  }
+  if (t4 == 0) {
+    dlp[warp * 16 + g] = dl_lo;
+    dlp[warp * 16 + g + 8] = dl_hi;
+  }
+  __syncthreads();
+  dl_lo = dlp[g];
+  dl_hi = dlp[g + 8];
+#pragma unroll
+  for (int w = 1; w < kWideWarps; ++w) {
+    dl_lo += dlp[w * 16 + g];
+    dl_hi += dlp[w * 16 + g + 8];
+  }
+  if (warp == 0 && t4 == 0) {
+    if (r_lo < Tq) delta[bh * Tq + r_lo] = dl_lo;
+    if (r_hi < Tq) delta[bh * Tq + r_hi] = dl_hi;
+  }
+  const float l_lo = r_lo < Tq ? lse[bh * Tq + r_lo] : 0.f;
+  const float l_hi = r_hi < Tq ? lse[bh * Tq + r_hi] : 0.f;
+
+  float acc[kW8][4];
+#pragma unroll
+  for (int n = 0; n < kW8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < n_tiles) stage(j + 1);
+    cp_async_commit();
+    const float* ks = ring + (j % 2) * 2 * kR * kP;
+    const float* vs = ks + kR * kP;
+    const int t0 = j * kR;
+
+    // S = Q K^T and dP = dO V^T over the warp's columns, then summed
+    float sp[2][kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sp[0][n][i] = sp[1][n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kW8; ++kk) {
+      uint32_t qb_[4], qs_[4], db_[4], ds_[4];
+      split4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], qb_, qs_);
+      split4(da[kk][0], da[kk][1], da[kk][2], da[kk][3], db_, ds_);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float* kr = ks + (n * 8 + g) * kP + c0 + kk * 8 + t4;
+        const float* vr = vs + (n * 8 + g) * kP + c0 + kk * 8 + t4;
+        mma3(sp[0][n], qb_, qs_, kr[0], kr[4]);
+        mma3(sp[1][n], db_, ds_, vr[0], vr[4]);
+      }
+    }
+    wide_sum<kN, 2>(sp, part, ssum, warp, g, t4);
+
+    // dS = P (dP - delta) scale in place of S
+    const bool masked = t0 + kR > Tk || (causal && t0 + kR - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = t0 + n * 8 + 2 * t4 + e;
+        float lo = sp[0][n][e] * scale, hi = sp[0][n][2 + e] * scale;
+        if (masked) {
+          if (col >= Tk || (causal && col > r_lo)) lo = kNeg;
+          if (col >= Tk || (causal && col > r_hi)) hi = kNeg;
+        }
+        const float p_lo = r_lo < Tq ? expf(lo - l_lo) : 0.f;
+        const float p_hi = r_hi < Tq ? expf(hi - l_hi) : 0.f;
+        sp[0][n][e] = p_lo * (sp[1][n][e] - dl_lo) * scale;
+        sp[0][n][2 + e] = p_hi * (sp[1][n][2 + e] - dl_hi) * scale;
+      }
+    }
+
+    // dQ += dS K on the warp's columns
+#pragma unroll
+    for (int jj = 0; jj < kN; ++jj) {
+      uint32_t ab[4], as[4];
+      split4(sp[0][jj][0], sp[0][jj][2], sp[0][jj][1], sp[0][jj][3], ab,
+             as);
+      const float* kr = ks + (jj * 8 + 2 * t4) * kP + c0 + g;
+#pragma unroll
+      for (int n = 0; n < kW8; ++n)
+        mma3(acc[n], ab, as, kr[n * 8], kr[kP + n * 8]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (r_lo < Tq) {
+    float* out = dq + (bh * Tq + r_lo) * DH + c0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kW8; ++n)
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(acc[n][0], acc[n][1]);
+  }
+  if (r_hi < Tq) {
+    float* out = dq + (bh * Tq + r_hi) * DH + c0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kW8; ++n)
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// dK/dV at a wide head dim: flash_bwd_dkv_kernel's contract, one CTA
+// per (b * h, 16 K/V rows), q tiles of wide_rows<DH>() rows streamed.
+template <int DH>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int Tq, int Tk, float scale, int causal) {
+  constexpr int kP = DH + 4;
+  constexpr int kBq = wide_rows<DH>();    // q rows a tile
+  constexpr int kN = kBq / 8;             // n-tiles of S^T, k-steps of dK/dV
+  constexpr int kW = DH / kWideWarps;
+  constexpr int kW8 = kW / 8;
+  constexpr int kChunks = DH / 4;
+  constexpr int kSlot = 2 * kBq * kP + 2 * kBq;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                     // [2][slot]
+  float* part = ring + 2 * kSlot;                         // [2][warps][tile]
+  float* ssum = part + 2 * kWideWarps * wide_part<DH>();  // [2][tile]
+
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * 16;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = warp * kW;
+  const int kr_lo = k0 + g, kr_hi = kr_lo + 8;
+  const float* qb = q + bh * Tq * DH;
+  const float* dob = dout + bh * Tq * DH;
+  const float* lseb = lse + bh * Tq;
+  const float* deltab = delta + bh * Tq;
+
+  // causal: q rows before k0 see none of this CTA's columns
+  const int qt0 = causal ? k0 / kBq : 0;
+  const int n_q = (Tq + kBq - 1) / kBq - qt0;
+
+  // q tile qt0 + j (q, do, lse, delta) into ring slot j % 2
+  auto stage = [&](int j) {
+    float* qs = ring + (j % 2) * kSlot;
+    float* dos = qs + kBq * kP;
+    float* ls = dos + kBq * kP;
+    float* dls = ls + kBq;
+    const int q0 = (qt0 + j) * kBq;
+    for (int e = threadIdx.x; e < kBq * kChunks; e += kWideThreads) {
+      const int row = e / kChunks, c = (e % kChunks) * 4;
+      const bool in = q0 + row < Tq;
+      const size_t off = in ? (size_t)(q0 + row) * DH + c : 0;
+      cp_async16(qs + row * kP + c, qb + off, in);
+      cp_async16(dos + row * kP + c, dob + off, in);
+    }
+    for (int e = threadIdx.x; e < kBq; e += kWideThreads) {
+      const bool in = q0 + e < Tq;
+      cp_async4(ls + e, lseb + (in ? q0 + e : 0), in);
+      cp_async4(dls + e, deltab + (in ? q0 + e : 0), in);
+    }
+  };
+  if (n_q > 0) stage(0);
+  cp_async_commit();
+
+  // the warp's columns of the CTA's 16 K and V rows as raw A fragments
+  const float* kw = k + bh * Tk * DH + c0;
+  const float* vw = v + bh * Tk * DH + c0;
+  float ka[kW8][4], va[kW8][4];
+#pragma unroll
+  for (int kk = 0; kk < kW8; ++kk) {
+    const int c = kk * 8 + t4;
+    const size_t lo = (size_t)kr_lo * DH + c, hi = (size_t)kr_hi * DH + c;
+    const bool in_lo = kr_lo < Tk, in_hi = kr_hi < Tk;
+    ka[kk][0] = in_lo ? kw[lo] : 0.f;
+    ka[kk][1] = in_hi ? kw[hi] : 0.f;
+    ka[kk][2] = in_lo ? kw[lo + 4] : 0.f;
+    ka[kk][3] = in_hi ? kw[hi + 4] : 0.f;
+    va[kk][0] = in_lo ? vw[lo] : 0.f;
+    va[kk][1] = in_hi ? vw[hi] : 0.f;
+    va[kk][2] = in_lo ? vw[lo + 4] : 0.f;
+    va[kk][3] = in_hi ? vw[hi + 4] : 0.f;
+  }
+
+  float dka[kW8][4], dva[kW8][4];
+#pragma unroll
+  for (int n = 0; n < kW8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+
+  for (int j = 0; j < n_q; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < n_q) stage(j + 1);
+    cp_async_commit();
+    const float* qs = ring + (j % 2) * kSlot;
+    const float* dos = qs + kBq * kP;
+    const float* ls = dos + kBq * kP;
+    const float* dls = ls + kBq;
+    const int q0 = (qt0 + j) * kBq;
+
+    // S^T = K Q^T and dP^T = V dO^T over the warp's columns, then summed
+    float sp[2][kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sp[0][n][i] = sp[1][n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kW8; ++kk) {
+      uint32_t kb[4], ksm[4], vb[4], vsm[4];
+      split4(ka[kk][0], ka[kk][1], ka[kk][2], ka[kk][3], kb, ksm);
+      split4(va[kk][0], va[kk][1], va[kk][2], va[kk][3], vb, vsm);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float* qr = qs + (n * 8 + g) * kP + c0 + kk * 8 + t4;
+        const float* dr = dos + (n * 8 + g) * kP + c0 + kk * 8 + t4;
+        mma3(sp[0][n], kb, ksm, qr[0], qr[4]);
+        mma3(sp[1][n], vb, vsm, dr[0], dr[4]);
+      }
+    }
+    wide_sum<kN, 2>(sp, part, ssum, warp, g, t4);
+
+    // P^T and dS^T in place; the mask only where the tile crosses the
+    // diagonal, p = 0 on q rows past Tq
+    const bool diag = causal && q0 < k0 + 15;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = n * 8 + 2 * t4 + e, qrow = q0 + qi;
+        const float l = ls[qi], dl = dls[qi];
+        float lo = sp[0][n][e] * scale, hi = sp[0][n][2 + e] * scale;
+        if (diag) {
+          if (kr_lo > qrow) lo = kNeg;
+          if (kr_hi > qrow) hi = kNeg;
+        }
+        const float p_lo = qrow < Tq ? expf(lo - l) : 0.f;
+        const float p_hi = qrow < Tq ? expf(hi - l) : 0.f;
+        sp[0][n][e] = p_lo;
+        sp[0][n][2 + e] = p_hi;
+        sp[1][n][e] = p_lo * (sp[1][n][e] - dl) * scale;
+        sp[1][n][2 + e] = p_hi * (sp[1][n][2 + e] - dl) * scale;
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q on the warp's columns
+#pragma unroll
+    for (int jj = 0; jj < kN; ++jj) {
+      uint32_t pb[4], ps[4], sb[4], ss[4];
+      split4(sp[0][jj][0], sp[0][jj][2], sp[0][jj][1], sp[0][jj][3], pb, ps);
+      split4(sp[1][jj][0], sp[1][jj][2], sp[1][jj][1], sp[1][jj][3], sb, ss);
+      const float* dr = dos + (jj * 8 + 2 * t4) * kP + c0 + g;
+      const float* qr = qs + (jj * 8 + 2 * t4) * kP + c0 + g;
+#pragma unroll
+      for (int n = 0; n < kW8; ++n) {
+        mma3(dva[n], pb, ps, dr[n * 8], dr[kP + n * 8]);
+        mma3(dka[n], sb, ss, qr[n * 8], qr[kP + n * 8]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (kr_lo < Tk) {
+    const size_t off = (bh * Tk + kr_lo) * DH + c0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kW8; ++n) {
+      *reinterpret_cast<float2*>(dk + off + n * 8) =
+          make_float2(dka[n][0], dka[n][1]);
+      *reinterpret_cast<float2*>(dv + off + n * 8) =
+          make_float2(dva[n][0], dva[n][1]);
+    }
+  }
+  if (kr_hi < Tk) {
+    const size_t off = (bh * Tk + kr_hi) * DH + c0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kW8; ++n) {
+      *reinterpret_cast<float2*>(dk + off + n * 8) =
+          make_float2(dka[n][2], dka[n][3]);
+      *reinterpret_cast<float2*>(dv + off + n * 8) =
+          make_float2(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
+template <int DH, bool kInt8>
+int launch(const float* q, const void* k, const void* v, const float* ks,
+           const float* vs, float* o, float* lse, int B, int H, int Hkv,
+           int Tq, int Tk, float scale, int causal, cudaStream_t st) {
+  static std::atomic<unsigned> raised{0u};
+  if constexpr (DH > 128) {
+    return launch_smem(flash_fwd_wide_kernel<DH, kInt8>,
+                       wide_fwd_smem_bytes<DH>(), raised,
+                       dim3(B * H, (Tq + 15) / 16), kWideThreads, st, q, k,
+                       v, ks, vs, o, lse, H, Hkv, Tq, Tk, scale, causal);
+  } else {
+    constexpr int kBq = kFwdWarps * 16;
+    return launch_smem(flash_fwd_kernel<DH, kInt8>, fwd_smem_bytes<DH>(),
+                       raised, dim3(B * H, (Tq + kBq - 1) / kBq),
+                       kFwdThreads, st, q, k, v, ks, vs, o, lse, H, Hkv, Tq,
+                       Tk, scale, causal);
+  }
+}
+
+template <bool kInt8>
+int dispatch(const float* q, const void* k, const void* v, const float* ks,
+             const float* vs, float* o, float* lse, int B, int H, int Hkv,
+             int Tq, int Tk, int dh, float scale, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16:
+      return launch<16, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
+                               scale, causal, st);
+    case 32:
+      return launch<32, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
+                               scale, causal, st);
+    case 64:
+      return launch<64, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
+                               scale, causal, st);
+    case 128:
+      return launch<128, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
+                                scale, causal, st);
+    case 256:
+      return launch<256, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
+                                scale, causal, st);
+    case 384:
+      return launch<384, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
+                                scale, causal, st);
+    case 512:
+      return launch<512, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
+                                scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int DH>
 int bwd_dkv(const float* q, const float* k, const float* v,
             const float* dout, const float* lse, const float* delta,
             float* dk, float* dv, int BH, int Tq, int Tk, float scale,
             int causal, cudaStream_t st) {
   static std::atomic<unsigned> raised{0u};
-  return launch_smem(flash_bwd_dkv_kernel<DH>, dkv_smem_bytes<DH>(), raised,
-                     dim3(BH, (Tk + kKv - 1) / kKv), kBwdThreads, st, q, k,
-                     v, dout, lse, delta, dk, dv, Tq, Tk, scale, causal);
+  if constexpr (DH > 128) {
+    return launch_smem(flash_bwd_dkv_wide_kernel<DH>,
+                       wide_dkv_smem_bytes<DH>(), raised,
+                       dim3(BH, (Tk + 15) / 16), kWideThreads, st, q, k, v,
+                       dout, lse, delta, dk, dv, Tq, Tk, scale, causal);
+  } else {
+    return launch_smem(flash_bwd_dkv_kernel<DH>, dkv_smem_bytes<DH>(),
+                       raised, dim3(BH, (Tk + kKv - 1) / kKv), kBwdThreads,
+                       st, q, k, v, dout, lse, delta, dk, dv, Tq, Tk, scale,
+                       causal);
+  }
 }
 
 template <int DH>
@@ -906,15 +1630,25 @@ int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
            const float* o, const float* lse, float* delta, float* dq,
            int BH, int Tq, int Tk, float scale, int causal,
            cudaStream_t st) {
-  constexpr int kBq = kDqWarps * 16;
   static std::atomic<unsigned> raised{0u};
-  return launch_smem(flash_bwd_dq_kernel<DH>, dq_smem_bytes<DH>(), raised,
-                     dim3(BH, (Tq + kBq - 1) / kBq), kDqThreads, st, q, k, v,
-                     dout, o, lse, delta, dq, Tq, Tk, scale, causal);
+  if constexpr (DH > 128) {
+    return launch_smem(flash_bwd_dq_wide_kernel<DH>, wide_dq_smem_bytes<DH>(),
+                       raised, dim3(BH, (Tq + 15) / 16), kWideThreads, st, q,
+                       k, v, dout, o, lse, delta, dq, Tq, Tk, scale, causal);
+  } else {
+    constexpr int kBq = kDqWarps * 16;
+    return launch_smem(flash_bwd_dq_kernel<DH>, dq_smem_bytes<DH>(), raised,
+                       dim3(BH, (Tq + kBq - 1) / kBq), kDqThreads, st, q, k,
+                       v, dout, o, lse, delta, dq, Tq, Tk, scale, causal);
+  }
 }
 
 template <int DH>
 int smem_bytes(int which) {
+  if constexpr (DH > 128)
+    return static_cast<int>(which == 0   ? wide_fwd_smem_bytes<DH>()
+                            : which == 1 ? wide_dkv_smem_bytes<DH>()
+                                         : wide_dq_smem_bytes<DH>());
   return static_cast<int>(which == 0   ? fwd_smem_bytes<DH>()
                           : which == 1 ? dkv_smem_bytes<DH>()
                                        : dq_smem_bytes<DH>());
@@ -965,6 +1699,12 @@ extern "C" int flash_attention_bwd_dkv_f32(const float* q, const float* k,
                                 Tk, scale, causal, st);
     case 128: return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
                                   Tk, scale, causal, st);
+    case 256: return bwd_dkv<256>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
+                                  Tk, scale, causal, st);
+    case 384: return bwd_dkv<384>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
+                                  Tk, scale, causal, st);
+    case 512: return bwd_dkv<512>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
+                                  Tk, scale, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -988,6 +1728,12 @@ extern "C" int flash_attention_bwd_dq_f32(const float* q, const float* k,
                                scale, causal, st);
     case 128: return bwd_dq<128>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
                                  Tk, scale, causal, st);
+    case 256: return bwd_dq<256>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
+                                 Tk, scale, causal, st);
+    case 384: return bwd_dq<384>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
+                                 Tk, scale, causal, st);
+    case 512: return bwd_dq<512>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
+                                 Tk, scale, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1000,6 +1746,9 @@ extern "C" int flash_attention_smem_bytes(int which, int dh) {
     case 32: return smem_bytes<32>(which);
     case 64: return smem_bytes<64>(which);
     case 128: return smem_bytes<128>(which);
+    case 256: return smem_bytes<256>(which);
+    case 384: return smem_bytes<384>(which);
+    case 512: return smem_bytes<512>(which);
     default: return -1;
   }
 }

@@ -407,13 +407,15 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
     into fresh [B, max_len, Dkv] buffers.  The attention is
     ``dot_product_attention``'s flash route, causal, over GQA heads
     repeated to full width first: the ``flash_attention`` kernel, or the
-    dense path at a head dim above 128 that is not a multiple of 128, as
-    in JAX.  ``kv_dtype="int8"`` quantizes each position's K/V on the way
-    into the cache and attends the just-quantized codes through
-    ``flash_attention_quant`` (GQA in the kernel) where
-    ``prefill_quant_covers`` admits the widths, else their dequantized
-    values on the float32 route: the quantize -> dequantize round trip
-    that sequential int8 steps attend, so the cache equals theirs."""
+    dense path at a head dim above 128 that is not 256, 384 or 512 (JAX
+    takes it there too, except at a multiple of 128 above 512, where its
+    kernel computes the same function).  ``kv_dtype="int8"`` quantizes
+    each position's K/V on the way into the cache and attends the
+    just-quantized codes through ``flash_attention_quant`` (GQA in the
+    kernel) where ``prefill_quant_covers`` admits the widths, else their
+    dequantized values on the float32 route: the quantize -> dequantize
+    round trip that sequential int8 steps attend, so the cache equals
+    theirs."""
     del moe_top_k     # MoE blocks raise in _block_ffn
     params = _maybe_dequant(params)
     _check_pos_type(params, pos_type)
@@ -450,8 +452,8 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
         else:
             if sk is not None:      # the quantize -> dequantize round trip
                 k, v = _kv_view(k_set, sk), _kv_view(v_set, sv)
-            # the flash route (a head dim above 128 that is not a
-            # multiple of 128 takes the dense path there, as in JAX)
+            # the flash route (a head dim its kernels do not take goes
+            # to the dense path there)
             att = attn_ops.dot_product_attention(
                 split(q, num_heads),
                 attn_ops.repeat_kv_heads(split(k, hkv), num_heads),

@@ -1,14 +1,16 @@
 """Attention (``paddle_tpu/ops/attention.py``): the additive (Bahdanau)
 scores and context of the attention NMT model, ``dot_product_attention``
-with its flash route and its dense masked path, ``multi_head_attention``
-for the local path, ``repeat_kv_heads`` for grouped KV heads, and rotary
-positions.  The sequence-parallel ring (``mesh``, ``zigzag``), packed
-rows (segment ids) and ``chunked_attention`` are not ported (ROADMAP
-A2, A12)."""
+with its flash route, ``chunked_attention`` (the O(T)-memory online
+softmax over key chunks, with packed rows' segment ids) and its dense
+masked path, ``multi_head_attention`` for the local path,
+``repeat_kv_heads`` for grouped KV heads, and rotary positions.  The
+sequence-parallel ring (``mesh``, ``zigzag``) is not ported (ROADMAP
+A12)."""
 
 import math
 
 import torch
+from torch.utils import checkpoint
 
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops.kernels import _check
@@ -18,8 +20,6 @@ _NEG = -1e30
 # the JAX package's default threshold (PADDLE_TPU_CHUNKED_ATTN_MIN) above
 # which an unmasked pair of lengths goes to chunked_attention
 _CHUNKED_MIN = 2048 * 2048
-_ROADMAP = "not yet ported to paddle_tpu_torch (ROADMAP A2)"
-_LANES = _check.LANES
 
 
 def additive_attention_scores(enc_proj: SequenceBatch, dec_state_proj, v):
@@ -41,54 +41,167 @@ def attention_context(scores, values: SequenceBatch):
     return torch.einsum("bt,btd->bd", w, values.data)
 
 
+def online_softmax_block(q, k, v, m_prev, l_prev, acc, mask=None,
+                         scale=1.0):
+    """One K/V block of the online softmax (JAX's
+    ``online_softmax_block``): q [..., Tq, D], k/v [..., Tk, D], m/l
+    [..., Tq], acc [..., Tq, D], mask optional bool [..., Tq, Tk] ->
+    the updated (m, l, acc).  A fully masked block's exp underflows to
+    0 and leaves the carry as it was."""
+    s = torch.einsum("...qd,...kd->...qk", q, k) * scale
+    if mask is not None:
+        s = torch.where(mask, s, s.new_tensor(_NEG))
+    m_new = torch.maximum(m_prev, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m_prev - m_new)
+    l_new = l_prev * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "...qk,...kd->...qd", p.to(v.dtype), v)
+    return m_new, l_new, acc_new
+
+
+def _no_kv_labels_alone(q_segment_ids, kv_segment_ids):
+    if kv_segment_ids is not None and q_segment_ids is None:
+        raise ValueError(
+            "kv_segment_ids without q_segment_ids: label the query side "
+            "too (a lone KV labeling would be silently dropped)")
+
+
+def chunked_attention(q, k, v, scale=None, causal=False, key_mask=None,
+                      q_chunk=512, k_chunk=512, q_segment_ids=None,
+                      kv_segment_ids=None):
+    """Attention as an online softmax over key chunks inside a loop over
+    query chunks (JAX's ``chunked_attention``): O(T) memory, no [Tq, Tk]
+    matrix.  q [B, H, Tq, D], k/v [B, H, Tk, D]; ``key_mask`` [B, Tk]
+    per-key validity; causal keeps key j for query i iff j <= i + Tk -
+    Tq (the dense path's tril offset), and skips key chunks wholly above
+    the diagonal.  ``q_segment_ids`` / ``kv_segment_ids`` [B, T] int
+    labels of packed rows: query i attends key j iff their labels match,
+    applied per chunk pair; padding rows of the last chunks carry labels
+    -1 (queries) and -2 (keys), which match nothing.  With gradients
+    on, each key chunk's update is recomputed in the backward
+    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``), so no
+    [Tq, Tk] intermediate is kept."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (float(d) ** 0.5)
+    q_chunk, k_chunk = min(q_chunk, tq), min(k_chunk, tk)
+    pq, pk_ = (-tq) % q_chunk, (-tk) % k_chunk
+    pad = torch.nn.functional.pad
+    if pq:
+        q = pad(q, (0, 0, 0, pq))
+    if pk_ or key_mask is None:
+        # padded keys are masked out through the O(T) validity vector
+        km = torch.ones((b, tk), dtype=q.dtype, device=q.device) \
+            if key_mask is None else key_mask.to(q.dtype)
+        key_mask = pad(km, (0, pk_))
+    if pk_:
+        k = pad(k, (0, 0, 0, pk_))
+        v = pad(v, (0, 0, 0, pk_))
+    _no_kv_labels_alone(q_segment_ids, kv_segment_ids)
+    segmented = q_segment_ids is not None
+    if segmented:
+        q_seg = pad(q_segment_ids.to(torch.int32), (0, pq), value=-1)
+        kv_seg = pad((q_segment_ids if kv_segment_ids is None
+                      else kv_segment_ids).to(torch.int32), (0, pk_),
+                     value=-2)
+    nq, nk = (tq + pq) // q_chunk, (tk + pk_) // k_chunk
+    off = tk - tq
+    acc_dtype = torch.promote_types(q.dtype, torch.float32)
+    dev = q.device
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+
+    def update(m, l, acc, q_blk, k_blk, v_blk, keep):
+        return online_softmax_block(q_blk, k_blk, v_blk, m, l, acc,
+                                    mask=keep, scale=scale)
+
+    outs = []
+    for qi in range(nq):
+        qs = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        q_blk = q[:, :, qs]
+        m = torch.full((b, h, q_chunk), _NEG, dtype=acc_dtype, device=dev)
+        l = torch.zeros((b, h, q_chunk), dtype=acc_dtype, device=dev)
+        acc = torch.zeros((b, h, q_chunk, d), dtype=acc_dtype, device=dev)
+        for ki in range(nk):
+            # key chunks wholly above the diagonal add nothing
+            if causal and qi * q_chunk + q_chunk - 1 + off < ki * k_chunk:
+                continue
+            ks = slice(ki * k_chunk, (ki + 1) * k_chunk)
+            keep = key_mask[:, None, None, ks] > 0
+            if segmented:
+                keep = keep & (q_seg[:, qs, None]
+                               == kv_seg[:, None, ks])[:, None]
+            if causal:
+                qpos = qi * q_chunk + torch.arange(q_chunk, device=dev) + off
+                kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)
+                keep = keep & (qpos[:, None] >= kpos[None, :])[None, None]
+            args = (m, l, acc, q_blk, k[:, :, ks], v[:, :, ks], keep)
+            m, l, acc = (checkpoint.checkpoint(update, *args,
+                                               use_reentrant=False)
+                         if remat else update(*args))
+        outs.append((acc / torch.clamp(l[..., None], min=1e-20))
+                    .to(q.dtype))
+    return torch.cat(outs, dim=2)[:, :, :tq]
+
+
+def segment_mask(q_segment_ids, kv_segment_ids=None):
+    """[B, Tq], [B, Tk] int labels -> [B, 1, Tq, Tk] block-diagonal mask
+    of packed rows (JAX's ``segment_mask``): label 0 is padding and
+    matches nothing.  O(T^2): at long context ``chunked_attention``
+    applies the labels per chunk pair instead."""
+    kv = q_segment_ids if kv_segment_ids is None else kv_segment_ids
+    same = q_segment_ids[:, None, :, None] == kv[:, None, None, :]
+    return same & (q_segment_ids[:, None, :, None] > 0) \
+        & (kv[:, None, None, :] > 0)
+
+
 def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
                           use_flash=None, key_mask=None,
                           q_segment_ids=None, kv_segment_ids=None):
-    """q [B, H, Tq, Dh], k/v [B, H, Tk, Dh] -> [B, H, Tq, Dh].
+    """q [B, H, Tq, Dh], k/v [B, H, Tk, Dh] -> [B, H, Tq, Dh], routed as
+    JAX's ``dot_product_attention``.
 
     ``use_flash=None`` takes ``FlashAttention`` (the flash kernels,
-    forward and backward) by JAX's rule — no mask, both lengths
-    multiples of 128, causal only with Tq == Tk; the route is the same
-    on both devices, since the kernel wrappers dispatch by device.  On
-    that route, as in JAX's ``flash_attention``, a head dim up to 128
-    runs the kernels (those between 16, 32, 64 and 128 zero-padded to
-    the next), a wider one that is not a multiple of 128 takes the dense
-    path, and a multiple of 128 above 128 raises (ROADMAP B8).
-    Otherwise the dense masked path (the one ``_attend`` takes).  Masked
-    logits sit at -1e30, whose exp is exactly 0.0; ``mask`` broadcasts
-    against [B, H, Tq, Tk]; ``key_mask`` [B, Tk] is per-key validity.
-    Where JAX would take ``chunked_attention`` (no mask, Tq * Tk >=
-    2048^2) this raises rather than build the [Tq, Tk] matrix."""
+    forward and backward) by JAX's rule — no mask, no segment ids, both
+    lengths multiples of 128, causal only with Tq == Tk; the route is
+    the same on both devices, since the kernel wrappers dispatch by
+    device.  On that route a head dim ``_check.flash_head_dim`` admits
+    runs the kernels; any other takes the path below.  Without a mask, Tq * Tk
+    >= 2048^2 takes ``chunked_attention``; otherwise the dense masked
+    path (the one ``_attend`` takes), with the segment ids' block mask.
+    Masked logits sit at -1e30, whose exp is exactly 0.0; ``mask``
+    broadcasts against [B, H, Tq, Tk]; ``key_mask`` [B, Tk] is per-key
+    validity; ``q_segment_ids`` / ``kv_segment_ids`` [B, T] label packed
+    rows (``segment_mask``)."""
     if mask is not None and key_mask is not None:
         raise ValueError("pass mask or key_mask, not both")
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(f"segment ids (packed rows) are {_ROADMAP}")
-    if use_flash and (mask is not None or key_mask is not None):
+    _no_kv_labels_alone(q_segment_ids, kv_segment_ids)
+    segmented = q_segment_ids is not None
+    if use_flash and (mask is not None or key_mask is not None
+                      or segmented):
         raise ValueError("the flash kernel has no mask support; drop "
                          "use_flash=True or the masking")
     if use_flash is None:
-        use_flash = (mask is None and key_mask is None
+        use_flash = (mask is None and key_mask is None and not segmented
                      and q.shape[2] % 128 == 0 and k.shape[2] % 128 == 0
                      and (not causal or q.shape[2] == k.shape[2]))
     dh = q.shape[-1]
-    if use_flash and dh > _LANES and dh % _LANES:
-        # JAX's flash_attention leaves a head dim its lanes cannot tile
-        # to the dense path (paddle_tpu/ops/pallas/flash_attention.py:382)
-        use_flash = False
-    if use_flash:
-        if dh > _LANES:
-            raise NotImplementedError(
-                f"the flash kernels at head dim {dh} (they take any up to "
-                f"{_LANES}) are not yet ported to paddle_tpu_torch "
-                "(ROADMAP B8)")
+    if use_flash and _check.flash_head_dim(dh):
         from paddle_tpu_torch.ops.kernels.flash_attention import (
             FlashAttention)
         return FlashAttention.apply(q, k, v, scale, causal)
     if mask is None and q.shape[2] * k.shape[2] >= _CHUNKED_MIN:
-        raise NotImplementedError(
-            f"chunked_attention (Tq={q.shape[2]} x Tk={k.shape[2]} without "
-            f"a mask) is {_ROADMAP}")
-    if key_mask is not None:
+        return chunked_attention(q, k, v, scale=scale, causal=causal,
+                                 key_mask=key_mask,
+                                 q_segment_ids=q_segment_ids,
+                                 kv_segment_ids=kv_segment_ids)
+    if segmented:
+        seg = segment_mask(q_segment_ids, kv_segment_ids)
+        mask = seg if mask is None else (mask & seg)
+        if key_mask is not None:
+            mask = mask & (key_mask[:, None, None, :] > 0)
+    elif key_mask is not None:
         mask = key_mask[:, None, None, :] > 0
     scale = scale if scale is not None else 1.0 / math.sqrt(float(dh))
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
@@ -124,8 +237,9 @@ def multi_head_attention(x_q, x_kv, wq, wk, wv, wo, num_heads, mask=None,
     [B, Tk, D], wq/wo [D, D], wk/wv [D, Dkv]: grouped KV heads are read
     from the weight shapes and repeated up to full heads before
     ``dot_product_attention``.  ``rope_positions`` rotates q and k
-    (self-attention only).  ``mesh``/``zigzag`` (the sequence-parallel
-    ring) raise."""
+    (self-attention only); ``q_segment_ids`` / ``kv_segment_ids`` label
+    packed rows (``dot_product_attention``).  ``mesh``/``zigzag`` (the
+    sequence-parallel ring) raise."""
     if mesh is not None or zigzag:
         raise NotImplementedError("sequence-parallel attention (mesh, "
                                   "zigzag) is not yet ported to "

@@ -6,6 +6,9 @@ routes' rules, which the wrappers share."""
 import torch
 
 HEAD_DIMS = (16, 32, 64, 128)
+# the flash kernels' wide compiled widths: the multiples of 128 above 128
+# that their own tiling (csrc/flash_attention.cu, the _wide kernels) takes
+WIDE_HEAD_DIMS = (256, 384, 512)
 # The TPU's lane width: the recurrent routes admit hidden sizes in
 # multiples of it.
 LANES = 128
@@ -21,6 +24,16 @@ def lane_tileable(n):
     """A width the TPU kernels' lanes slice (n <= 128) or tile (n % 128
     == 0): the head dims the reference's attention kernels take."""
     return n <= LANES or n % LANES == 0
+
+
+def flash_head_dim(dh):
+    """A head dim the flash route runs on the kernels: any up to 128
+    (padded to a compiled width) or a compiled wide one, 256, 384 or
+    512.  JAX's ``flash_attention`` runs its kernel at every
+    lane-tileable width and sends the others to the dense path; the
+    port does the same, and also sends a multiple of 128 above 512 there
+    (the same function; its kernels are not compiled that wide)."""
+    return dh <= LANES or dh in WIDE_HEAD_DIMS
 
 
 def tensors(name, dtypes, **named):

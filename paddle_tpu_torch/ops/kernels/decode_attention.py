@@ -16,11 +16,11 @@ keyword operands ``kscale``/``vscale``, an int8 one
   same two over the shared block pool, each row's K/V found through its
   block table.
 
-The kernels live in ``csrc/decode_attention.cu``: the two chunked ones
-split each row's span across CTAs (split-KV) and merge the splits in
-the same launch, the last CTA of a row's (KV head, vector group) found
-by a ticket; their wrappers pass the device's scratch and zeroed
-tickets.  Each
+The kernels live in ``csrc/decode_attention.cu``, all four on one
+template: each row's span split across CTAs (split-KV), the splits
+merged in the same launch, the last CTA of a row's (KV head, vector
+group) found by a ticket; the Tq=1 pair is the template at K = 1.
+Every wrapper passes the device's scratch and zeroed tickets.  Each
 ``*_plain`` function is its kernel's plain PyTorch version, which the CPU
 takes and which ``chip_smoke.py`` holds the kernel against on the card
 (an int8 cache is dequantized with ``quant/kv.dequantize_heads`` first,
@@ -73,19 +73,19 @@ launches_paged_i8 = 0
 launches_paged_chunk_i8 = 0
 
 # C entry -> (pointer args, int args): every entry ends (float scale,
-# cudaStream_t); an _i8 entry takes the two scale pointers after k/v, a
-# chunked entry its scratch and tickets after out
+# cudaStream_t); an _i8 entry takes the two scale pointers after k/v,
+# every entry its scratch and tickets after out
 _SIGNATURES = {"decode_attention_slab_chunk_f32": (7, 6),
-               "decode_attention_slab_f32": (5, 5),
+               "decode_attention_slab_f32": (7, 5),
                "decode_attention_paged_chunk_f32": (8, 7),
-               "decode_attention_paged_f32": (6, 6),
+               "decode_attention_paged_f32": (8, 6),
                "decode_attention_slab_chunk_i8": (9, 6),
-               "decode_attention_slab_i8": (7, 5),
+               "decode_attention_slab_i8": (9, 5),
                "decode_attention_paged_chunk_i8": (10, 7),
-               "decode_attention_paged_i8": (8, 6)}
+               "decode_attention_paged_i8": (10, 6)}
 
 
-# the widest head the kernels compile (shared memory: 148 KB a CTA)
+# the widest head the kernels compile
 MAX_HEAD_DIM = 512
 
 
@@ -300,8 +300,8 @@ def _device(name, quant, **named):
                           **{a: t for a, t in named.items() if t is not None})
 
 
-# The chunked kernels' operands beside their inputs, one of each per
-# device, made or grown on the first call that needs them: the scratch
+# The kernels' operands beside their inputs, one of each per device,
+# made or grown on the first call that needs them: the scratch
 # (each launch writes its own records before it reads them) and the
 # tickets (zeroed once; every launch leaves them all 0, the last CTA of
 # each row's (KV head, vector group) resetting its own).  So two launches
@@ -324,7 +324,8 @@ def _count(name, *ints):
 
 @functools.lru_cache(maxsize=256)
 def _split_sizes(s, kk, span, h, hkv, dh):
-    """(scratch floats, tickets) of a chunked launch at these shapes."""
+    """(scratch floats, tickets) of a launch at these shapes (K = 1 for
+    a Tq=1 one)."""
     return (_count("decode_attention_chunk_scratch", s, kk, span, h, hkv,
                    dh),
             _count("decode_attention_chunk_tickets", s, kk, h, hkv))
@@ -346,8 +347,8 @@ def _buffer(store, name, dev, n, dtype, make):
 
 
 def _split_operands(name, dev, s, kk, span, h, hkv, dh):
-    """(scratch, tickets) of a chunked launch: this device's buffers; no
-    scratch (None) where one split covers the span."""
+    """(scratch, tickets) of a launch: this device's buffers; no scratch
+    (None) where one split covers the span."""
     n, need = _split_sizes(s, kk, span, h, hkv, dh)
     part = (_buffer(_scratch, name, dev, n, _F32, torch.empty) if n > 0
             else None)
@@ -405,14 +406,15 @@ def decode_attention_slab(q, k, v, positions, num_heads, *, kscale=None,
         return decode_attention_slab_plain(q, k, v, positions, num_heads,
                                            kscale=kscale, vscale=vscale)
     out = torch.empty_like(q)
+    part, tickets = _split_operands(NAME_SLAB, dev, s, 1, t, h, hkv, dh)
     scale = 1.0 / math.sqrt(dh)
     if quant:
         _launch("decode_attention_slab_i8", q, k, v, kscale, vscale,
-                positions, out, s, t, h, hkv, dh, scale)
+                positions, out, part, tickets, s, t, h, hkv, dh, scale)
         launches_slab_i8 += 1
     else:
-        _launch("decode_attention_slab_f32", q, k, v, positions, out, s, t,
-                h, hkv, dh, scale)
+        _launch("decode_attention_slab_f32", q, k, v, positions, out, part,
+                tickets, s, t, h, hkv, dh, scale)
         launches_slab += 1
     return out
 
@@ -466,13 +468,16 @@ def decode_attention_paged(q, k, v, positions, tables, num_heads, *,
                                             num_heads, kscale=kscale,
                                             vscale=vscale)
     out = torch.empty_like(q)
+    part, tickets = _split_operands(NAME_PAGED, dev, s, 1, nb_row * bs, h,
+                                    hkv, dh)
     scale = 1.0 / math.sqrt(dh)
     if quant:
         _launch("decode_attention_paged_i8", q, k, v, kscale, vscale,
-                positions, tables, out, s, bs, nb_row, h, hkv, dh, scale)
+                positions, tables, out, part, tickets, s, bs, nb_row, h, hkv,
+                dh, scale)
         launches_paged_i8 += 1
     else:
         _launch("decode_attention_paged_f32", q, k, v, positions, tables,
-                out, s, bs, nb_row, h, hkv, dh, scale)
+                out, part, tickets, s, bs, nb_row, h, hkv, dh, scale)
         launches_paged += 1
     return out

@@ -22,12 +22,14 @@ takes and which ``chip_smoke.py`` holds the kernels against.  Unlike the
 TPU wrappers, no shape falls back to a masked path: the kernels mask
 ragged edges themselves and raise on what they do not take.
 
-The kernels are compiled at head dims 16, 32, 64 and 128.  The float32
-forward and backward take any other head dim up to 128, as the TPU
-kernel does, by zero-padding q, k, v (and o, do) to the next compiled
-width and slicing the results back: zero columns add nothing to q k^T,
-and the padded columns of o, dq, dk and dv are zero.  The scale stays
-1/sqrt of the true head dim.  A wider head dim raises (ROADMAP B8).
+The kernels are compiled at head dims 16, 32, 64 and 128, and at the
+wide 256, 384 and 512 (their own tiling: the head dim split across a
+CTA's warps).  The wrappers take any other head dim up to 128, as the
+TPU kernel does, by zero-padding q, k, v (and o, do) to the next
+compiled width and slicing the results back: zero columns add nothing
+to q k^T, and the padded columns of o, dq, dk and dv are zero.  The
+scale stays 1/sqrt of the true head dim.  Any other head dim raises;
+``ops/attention.dot_product_attention`` sends those to its dense path.
 """
 
 import ctypes
@@ -72,12 +74,16 @@ def _entry(name):
 
 def padded_head_dim(dh):
     """The compiled head dim the kernels run ``dh`` at: the smallest of
-    ``_check.HEAD_DIMS`` at or above it.  Raises above 128."""
+    ``_check.HEAD_DIMS`` at or above it, or ``dh`` itself where it is one
+    of ``_check.WIDE_HEAD_DIMS``.  Raises at any other dh."""
     for width in _check.HEAD_DIMS:
         if dh <= width:
             return width
-    raise ValueError(f"{NAME}: head dim {dh} above {_check.HEAD_DIMS[-1]} "
-                     "is not yet ported to paddle_tpu_torch (ROADMAP B8)")
+    if dh in _check.WIDE_HEAD_DIMS:
+        return dh
+    raise ValueError(f"{NAME}: head dim {dh} is not one the kernels take "
+                     f"(any up to {_check.HEAD_DIMS[-1]}, or one of "
+                     f"{_check.WIDE_HEAD_DIMS})")
 
 
 def _pad(x, width):
@@ -311,17 +317,18 @@ def _quant_shapes(q, k, v, kscale, vscale, num_heads, causal):
 def prefill_quant_covers(d, dkv, num_heads):
     """JAX's ``prefill_quant_covers`` (``flash_attention.py:585``) on
     ``lm_prefill``'s head widths: D and Dkv split into grouped heads of
-    a lane-tileable width (up to 128, or a multiple of 128).  Where it
-    fails, ``lm_prefill`` dequantizes the just-written codes and attends
-    on the float32 route, as the reference does.  The port's kernel
-    takes any Tq == Tk, so the reference's block rule on T does not
-    apply."""
+    a width the kernel takes (up to 128, or 256, 384, 512; JAX takes
+    every multiple of 128).  Where it fails, ``lm_prefill`` dequantizes
+    the just-written codes and attends on the float32 route, as the
+    reference does where its rule fails: the same function, which above
+    512 is the dense path.  The port's kernel takes any Tq == Tk, so the
+    reference's block rule on T does not apply."""
     if num_heads < 1 or d % num_heads:
         return False
     dh = d // num_heads
     if dkv % dh or num_heads % (dkv // dh):
         return False
-    return _check.lane_tileable(dh)
+    return _check.flash_head_dim(dh)
 
 
 def flash_attention_quant_plain(q, k, v, kscale, vscale, num_heads,

@@ -20,7 +20,7 @@ one JSON line per run with the kernel times in ms (``check_*``'s, which
 time the wrappers back to back and so hold the host's launch path too,
 and the device time alone, ``graph:``, from calls captured in a CUDA
 graph and replayed, of the slab and paged kernels, Tq=1 and chunked,
-and of both int8 chunk instances, at chip_smoke.py's main path shapes),
+float32 and int8, at chip_smoke.py's main path shapes),
 then one summary line: for each kernel
 and checkout the median, least and largest time, and the median and
 range of the 2 x ROUNDS paired differences this - other (each run of
@@ -104,7 +104,13 @@ graphs = {
                                                kscale=ks8, vscale=vs8),
     "decode_attention_paged_chunk_int8":
         lambda: dk.decode_attention_paged_chunk(q, p8, w8, qpos, tables, h,
-                                                kscale=ps8, vscale=ws8)}
+                                                kscale=ps8, vscale=ws8),
+    "decode_attention_slab_int8":
+        lambda: dk.decode_attention_slab(q1, k8, v8, pos, h, kscale=ks8,
+                                         vscale=vs8),
+    "decode_attention_paged_int8":
+        lambda: dk.decode_attention_paged(q1, p8, w8, pos, tables, h,
+                                          kscale=ps8, vscale=ws8)}
 try:
     for name, fn in graphs.items():
         ms[f"graph:{name}"] = graph_ms(fn)

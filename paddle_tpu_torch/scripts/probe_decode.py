@@ -1,30 +1,35 @@
-"""Where the chunked decode-attention kernels' time goes on the card.
+"""Where the decode-attention kernels' time goes on the card.
 
-    python -m paddle_tpu_torch.scripts.probe_decode
+    python -m paddle_tpu_torch.scripts.probe_decode [--parent REV_OR_DIR]
+        [--rounds N]
 
 Builds variants of ``csrc/decode_attention.cu`` from edited copies of
 the source (into ``_build/probe_decode/``, git-ignored), each with
-``nvcc -Xptxas -v`` (registers and spills printed) and with four more C
-entries appended, ``parent_{slab,paged}_chunk_{f32,i8}``, which launch
-the Tq=1 template ``attn_kernel`` at K lanes: the chunked kernels'
-design before the split-KV one.  Times each by device time alone (calls
-captured in a CUDA graph and replayed), the variants interleaved,
-forward and reverse order in turn, ``ROUNDS`` times (each time
-chip_smoke.py's ``graph_ms``):
+``nvcc -Xptxas -v`` (registers and spills printed), and ``parent``: the
+parent's source as it is (``--parent``: a git revision whose copy
+``git show`` gives, HEAD by default, or the root of a checkout of it),
+whose Tq=1 entries launch the design before the split-KV one
+(``attn_kernel``).  Times each by device time alone (calls captured in
+a CUDA graph and replayed), the variants interleaved, forward and
+reverse order in turn, ``--rounds`` times (each time chip_smoke.py's
+``graph_ms``):
 
   kernel     the source as it is: splits of 128 columns (dh <= 128), 4
-             query vectors a CTA, the split's K and V tiles in flight
-             through cp.async while q's scores and softmax run, the dot
-             and P.V cut into items that fill the CTA, the last CTA of a
-             (row, KV head) merging the splits' records in split order
-  split32, split64  splits of 32 or 64 columns at dh <= 128
+             query vectors a CTA (1 where a (row, KV head) has one: a
+             Tq=1 kernel at H = Hkv), the
+             split's K and V tiles in flight through cp.async
+             while q's scores and softmax run, the dot and P.V cut into
+             items that fill the CTA, the last CTA of a (row, KV head)
+             merging the splits' records in split order
+  split32, split64  splits of 32 or 64 columns
   sync       synchronous 16- and 4-byte loads in place of cp.async
-  vecs8, vecs2  8 or 2 query vectors a CTA (4): a chunk row's vectors
-             over fewer or more CTAs, each reading the split's K and V
+  vecs8, vecs2, vecs1  8, 2 or 1 query vectors a CTA (4)
+  tq1_vecs4  a Tq=1 kernel at H = Hkv with the chunked kernels' 4
+  threads128  128 threads a CTA (256)
   warp_vec   the dot and P.V items left whole (P = G = 1): a decode
              row's scores on 64 threads and its P.V on 16, about one warp
              a vector, as attn_kernel had it
-  parent     attn_kernel at K lanes, from the ``kernel`` build
+  parent     the parent's source
 
 and, to show where the time goes (their outputs are not computed, so
 their errors mean nothing):
@@ -36,12 +41,13 @@ their errors mean nothing):
   no_merge   a row's CTAs return once their records are written (no
              fence, ticket or merge)
 
-Cases: the slab and the paged chunk kernel, float32 and int8, at
-chip_smoke.py's main path shape (S 8, K 8, T 256, D 512, H = Hkv = 8,
-its ``chunk_qpos`` rows; the paged over its 129-block pool of 16-position
-blocks, ``paged_tables``), and the float32 slab kernel over a long span
-(T 2048, the same row kinds: its longest rows 16 splits).  For each: the
-max abs error against the plain version, whether each int8 instance
+Cases at chip_smoke.py's main path shape (S 8, T 256, D 512, H = Hkv =
+8; the paged over its 129-block pool of 16-position blocks,
+``paged_tables``): the Tq=1 kernels (one query a row at ``chunk_qpos``'
+last positions), slab and paged, float32 and int8, and the float32 slab
+one over a long span (T 2048, its longest rows 16 splits of 128); the
+chunked float32 slab and paged kernels at ``chunk_qpos``.  For each:
+the max abs error against the plain version, whether each int8 instance
 equals its float32 instance on the dequantized cache bit for bit, and
 the median device ms a call.  One JSON line for the build, one for the
 times.  Needs a CUDA device; run from the repository's root.
@@ -63,7 +69,9 @@ from paddle_tpu_torch.quant.kv import dequantize_heads
 
 ROUNDS = 6
 LONG_T = 2048
-_SPLIT = "return width <= 128 ? 128 : width == 256 ? 32 : 16;"
+SOURCE = "paddle_tpu_torch/csrc/decode_attention.cu"
+_SPLIT = ("constexpr int split_cols(int width) {\n"
+          "  return width <= 128 ? 128 :")
 _VECS = "constexpr int kVecs = 4;"
 _CP16 = ("""  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(s),
                "l"(src)
@@ -82,6 +90,11 @@ EDITS = {
     "sync": (_CP16, _CP4),
     "vecs8": ((_VECS, _VECS.replace("4", "8")),),
     "vecs2": ((_VECS, _VECS.replace("4", "2")),),
+    "vecs1": ((_VECS, _VECS.replace("4", "1")),),
+    "tq1_vecs4": (("  return K * (H / Hkv) == 1 ? 1 : kVecs;",
+                   "  return kVecs;"),),
+    "threads128": (("constexpr int kThreads = 256;",
+                    "constexpr int kThreads = 128;"),),
     "warp_vec": (
         ("  while (2 * P * nin <= kThreads && 2 * P <= kC4) P *= 2;\n", ""),
         ("  while (2 * G * nc <= kThreads && 2 * G <= nin) G *= 2;\n", "")),
@@ -103,40 +116,6 @@ EDITS = {
                   "  if (nv != -7) return;\n  __syncthreads();\n"
                   "  if (tid == 0) {\n    __threadfence();"),),
 }
-# attn_kernel at K lanes, appended to every variant's source
-PARENT_ENTRIES = """
-extern "C" int parent_slab_chunk_f32(
-    const float* q, const float* k, const float* v, const int* qpos,
-    float* out, int S, int K, int T, int H, int Hkv, int dh, float scale,
-    void* stream) {
-  return launch<false, false>(q, k, v, nullptr, nullptr, qpos, nullptr, out,
-                              S, K, T, 1, 1, H, Hkv, dh, scale, stream);
-}
-extern "C" int parent_slab_chunk_i8(
-    const float* q, const int8_t* k, const int8_t* v, const float* ks,
-    const float* vs, const int* qpos, float* out, int S, int K, int T, int H,
-    int Hkv, int dh, float scale, void* stream) {
-  return launch<false, true>(q, k, v, ks, vs, qpos, nullptr, out, S, K, T, 1,
-                             1, H, Hkv, dh, scale, stream);
-}
-extern "C" int parent_paged_chunk_f32(
-    const float* q, const float* k, const float* v, const int* qpos,
-    const int* tables, float* out, int S, int K, int bs, int nb_row, int H,
-    int Hkv, int dh, float scale, void* stream) {
-  return launch<true, false>(q, k, v, nullptr, nullptr, qpos, tables, out, S,
-                             K, nb_row * bs, bs, nb_row, H, Hkv, dh, scale,
-                             stream);
-}
-extern "C" int parent_paged_chunk_i8(
-    const float* q, const int8_t* k, const int8_t* v, const float* ks,
-    const float* vs, const int* qpos, const int* tables, float* out, int S,
-    int K, int bs, int nb_row, int H, int Hkv, int dh, float scale,
-    void* stream) {
-  return launch<true, true>(q, k, v, ks, vs, qpos, tables, out, S, K,
-                            nb_row * bs, bs, nb_row, H, Hkv, dh, scale,
-                            stream);
-}
-"""
 _KERNEL = re.compile(r"(split_kernel|attn_kernel)")
 
 
@@ -171,14 +150,25 @@ def _typed(lib, name, n_ptr, n_int):
     return fn
 
 
-def build(names=None):
+def parent_source(where):
+    """The parent's decode_attention.cu: ``where`` a checkout's root, or
+    a git revision of this repository."""
+    if os.path.isdir(where):
+        with open(os.path.join(where, SOURCE)) as f:
+            return f.read()
+    return subprocess.run(["git", "show", f"{where}:{SOURCE}"], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def build(names=None, parent=None):
     """{variant: (ctypes library, ptxas report)} for the named variants
-    (every one by default), all nvcc in parallel."""
+    (every one by default) and, given the ``parent`` source, "parent";
+    all nvcc in parallel."""
     with open(os.path.join(_build.CSRC, "decode_attention.cu")) as f:
         src = f.read()
     out = os.path.join(_build.BUILD_DIR, "probe_decode")
     os.makedirs(out, exist_ok=True)
-    procs = {}
+    codes = {}
     for name in names or EDITS:
         code = src
         for old, new in EDITS[name]:
@@ -186,9 +176,14 @@ def build(names=None):
                 raise RuntimeError(f"{name}: the source no longer holds "
                                    f"{old.strip()!r}")
             code = code.replace(old, new)
+        codes[name] = code
+    if parent is not None:
+        codes["parent"] = parent
+    procs = {}
+    for name, code in codes.items():
         path = os.path.join(out, name)
         with open(f"{path}.cu", "w") as f:
-            f.write(code + PARENT_ENTRIES)
+            f.write(code)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-o",
              f"{path}.so", f"{path}.cu"],
@@ -206,24 +201,28 @@ def build(names=None):
 
 class Case:
     """One kernel's inputs at one shape, its plain result, and a call of
-    a variant's C entry on them (the parent's entry takes no scratch)."""
+    a variant's C entry on them (``tq1``: the Tq=1 kernel, one query a
+    row at chunk_qpos' last positions; else the chunked one)."""
 
-    def __init__(self, cs, dev, rng, paged, int8, t):
+    def __init__(self, cs, dev, rng, paged, int8, t, tq1):
         s, kk, d, h = 8, cs.CHUNK, cs.D_MODEL, cs.HEADS
-        self.paged, self.int8 = paged, int8
+        self.paged, self.int8, self.tq1 = paged, int8, tq1
         self.h, self.dh = h, d // h
         qpos_np = cs.chunk_qpos(t)
-        self.q = torch.tensor(cs.normal(rng, (s, kk, d)), device=dev)
+        if tq1:
+            qpos_np = qpos_np[:, -1].copy()
+            self.q = torch.tensor(cs.normal(rng, (s, d)), device=dev)
+        else:
+            self.q = torch.tensor(cs.normal(rng, (s, kk, d)), device=dev)
         self.qpos = torch.tensor(qpos_np, device=dev)
+        last = qpos_np if tq1 else qpos_np[:, -1]
         shape = (cs.PAGE_BLOCKS, cs.PAGE_BS, d) if paged else (s, t, d)
+        self.span = t
         if paged:
             self.tables = torch.tensor(cs.paged_tables(
-                rng, qpos_np[:, -1].astype(np.int64), t // cs.PAGE_BS,
+                rng, last.astype(np.int64), t // cs.PAGE_BS,
                 cs.PAGE_BLOCKS), device=dev)
             self.bs, self.nb_row = cs.PAGE_BS, t // cs.PAGE_BS
-            self.span = t
-        else:
-            self.span = t
         if int8:
             (self.k, self.ks), (self.v, self.vs) = (
                 cs.quantized(torch, dev, rng, shape, h) for _ in range(2))
@@ -234,19 +233,20 @@ class Case:
                               for _ in range(2))
         kw = self.kw if int8 else self.k
         vw = self.vw if int8 else self.v
-        if paged:
-            self.ref = dk.decode_attention_paged_chunk_plain(
-                self.q, kw, vw, self.qpos, self.tables, h)
-        else:
-            self.ref = dk.decode_attention_slab_chunk_plain(
-                self.q, kw, vw, self.qpos, h)
+        plain = {(False, False): dk.decode_attention_slab_chunk_plain,
+                 (False, True): dk.decode_attention_slab_plain,
+                 (True, False): dk.decode_attention_paged_chunk_plain,
+                 (True, True): dk.decode_attention_paged_plain}[paged, tq1]
+        args = (self.tables,) if paged else ()
+        self.ref = plain(self.q, kw, vw, self.qpos, *args, h)
         self.out = torch.empty_like(self.q)
         self._ops = {}
 
     def _operands(self, lib):
         """(scratch, tickets) sized by this variant's own split."""
         if id(lib) not in self._ops:
-            s, kk = self.q.shape[:2]
+            s = self.q.shape[0]
+            kk = 1 if self.tq1 else self.q.shape[1]
             scr = lib.decode_attention_chunk_scratch
             scr.argtypes = [ctypes.c_int] * 6
             scr.restype = ctypes.c_longlong
@@ -261,23 +261,23 @@ class Case:
         return self._ops[id(lib)]
 
     def call(self, lib, parent=False, widened=False):
-        """One launch of the variant's entry (``parent``: attn_kernel at
-        K lanes; ``widened``: the float32 entry on the dequantized
-        cache)."""
+        """One launch of the variant's entry (``parent``: the parent's
+        library, whose Tq=1 entries take no scratch; ``widened``: the
+        float32 entry on the dequantized cache)."""
         int8 = self.int8 and not widened
         k, v = (self.kw, self.vw) if widened else (self.k, self.v)
         kind = "paged" if self.paged else "slab"
-        suffix = "i8" if int8 else "f32"
-        name = (f"parent_{kind}_chunk_{suffix}" if parent
-                else f"decode_attention_{kind}_chunk_{suffix}")
+        name = (f"decode_attention_{kind}{'' if self.tq1 else '_chunk'}_"
+                f"{'i8' if int8 else 'f32'}")
         ptrs = [self.q, k, v] + ([self.ks, self.vs] if int8 else []) \
             + [self.qpos] + ([self.tables] if self.paged else []) \
             + [self.out]
-        if not parent:
+        if not (parent and self.tq1):
             ptrs += list(self._operands(lib))
-        s, kk = self.q.shape[:2]
-        ints = [s, kk] + ([self.bs, self.nb_row] if self.paged
-                          else [self.span]) + [self.h, self.h, self.dh]
+        s = self.q.shape[0]
+        ints = [s] + ([] if self.tq1 else [self.q.shape[1]]) \
+            + ([self.bs, self.nb_row] if self.paged else [self.span]) \
+            + [self.h, self.h, self.dh]
         fn = _typed(lib, name, len(ptrs), len(ints))
         _build.check(name, fn(*(p.data_ptr() for p in ptrs), *ints,
                               1.0 / np.sqrt(self.dh),
@@ -297,22 +297,30 @@ class Case:
         return err, bool(torch.equal(got, self.out))
 
 
-def main():
+def main(argv=None):
+    import argparse
     import chip_smoke as cs
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", default="HEAD",
+                    help="the parent: a git revision or a checkout's root")
+    ap.add_argument("--rounds", type=int, default=ROUNDS)
+    args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
-    libs = build()
+    libs = build(parent=parent_source(args.parent))
     print(json.dumps({"card": _device.card(), "ptxas": {
         name: rep for name, (_, rep) in libs.items()}}), flush=True)
     rng = np.random.RandomState(0)
+    t = cs.SERVE_MAX_LEN
     cases = {
-        "slab_f32": Case(cs, dev, rng, False, False, cs.SERVE_MAX_LEN),
-        "slab_i8": Case(cs, dev, rng, False, True, cs.SERVE_MAX_LEN),
-        "paged_f32": Case(cs, dev, rng, True, False, cs.SERVE_MAX_LEN),
-        "paged_i8": Case(cs, dev, rng, True, True, cs.SERVE_MAX_LEN),
-        f"slab_f32_T{LONG_T}": Case(cs, dev, rng, False, False, LONG_T)}
-    # (variant, library, parent?) in the order timed
-    runs = [(name, lib, False) for name, (lib, _) in libs.items()]
-    runs.append(("parent", libs["kernel"][0], True))
+        "tq1_slab_f32": Case(cs, dev, rng, False, False, t, True),
+        "tq1_slab_i8": Case(cs, dev, rng, False, True, t, True),
+        "tq1_paged_f32": Case(cs, dev, rng, True, False, t, True),
+        "tq1_paged_i8": Case(cs, dev, rng, True, True, t, True),
+        f"tq1_slab_f32_T{LONG_T}": Case(cs, dev, rng, False, False, LONG_T,
+                                         True),
+        "chunk_slab_f32": Case(cs, dev, rng, False, False, t, False),
+        "chunk_paged_f32": Case(cs, dev, rng, True, False, t, False)}
+    runs = [(name, lib, name == "parent") for name, (lib, _) in libs.items()]
     errs = {name: {c: case.error(lib, parent)
                    for c, case in cases.items()}
             for name, lib, parent in runs}
@@ -322,7 +330,7 @@ def main():
             graphs[name, c] = (lambda case=case, lib=lib, parent=parent:
                                case.call(lib, parent))
     times = {key: [] for key in graphs}
-    for r in range(ROUNDS):
+    for r in range(args.rounds):
         for name, _, _ in (runs if r % 2 == 0 else runs[::-1]):
             for c in cases:
                 times[name, c].append(

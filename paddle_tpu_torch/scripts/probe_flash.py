@@ -112,7 +112,8 @@ EDITS = {
 }
 SHAPES = (("train", 32, 8, 256, 64, False), ("train", 32, 8, 256, 64, True),
           ("prefill", 32, 8, 32, 64, True))
-_KERNEL = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_kernelILi(\d+)E(Lb([01])E)?")
+_KERNEL = re.compile(
+    r"flash_(fwd|bwd_dkv|bwd_dq)(_wide)?_kernelILi(\d+)E(Lb([01])E)?")
 
 
 def _ptxas(log):
@@ -124,8 +125,8 @@ def _ptxas(log):
         if m:
             k = _KERNEL.search(m.group(1))
             name = None if k is None else (
-                f"{k.group(1)}/dh{k.group(2)}"
-                + ("/int8" if k.group(4) == "1" else ""))
+                f"{k.group(1)}/dh{k.group(3)}"
+                + ("/int8" if k.group(5) == "1" else ""))
             if name:
                 out[name] = {}
             continue
@@ -143,16 +144,17 @@ def _ptxas(log):
     return out
 
 
-def build():
-    """{variant: (CDLL, ptxas report)}, all nvcc in parallel."""
+def build(names=None):
+    """{variant: (CDLL, ptxas report)} for the named variants (every one
+    by default), all nvcc in parallel."""
     with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
         src = f.read()
     out = os.path.join(_build.BUILD_DIR, "probe_flash")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, edits in EDITS.items():
+    for name in names or EDITS:
         code = src
-        for old, new in edits:
+        for old, new in EDITS[name]:
             if old not in code:
                 raise RuntimeError(f"{name}: the source no longer holds "
                                    f"{old!r}")
@@ -212,7 +214,7 @@ def main(argv=None):
             name: {f"{kind}/dh{dh}": smem(which, dh)
                    for which, kind in ((0, "fwd"), (1, "bwd_dkv"),
                                        (2, "bwd_dq"))
-                   for dh in (16, 32, 64, 128)}
+                   for dh in (16, 32, 64, 128, 256, 384, 512)}
             for name, (_, _, _, smem) in calls.items()}}), flush=True)
 
     rng = np.random.RandomState(0)

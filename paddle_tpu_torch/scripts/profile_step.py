@@ -1,7 +1,7 @@
 """Where the serving step's time goes on the card.
 
     python -m paddle_tpu_torch.scripts.profile_step [--seed N] [--steps N]
-        [--kv-layout slab|paged] [--kv-dtype float32|int8]
+        [--kv-layout slab|paged] [--kv-dtype float32|int8] [--ladder]
 
 Builds the full-width Transformer-base trunk (vocab 32000, d_model 512,
 8 heads, dff 2048, 6 layers; random weights from --seed) behind the
@@ -13,7 +13,10 @@ private chain covering its positions, and a step is the engine's
 ``prepare_step`` (the host's block provisioning) plus the step with its
 block tables uploaded.  ``--kv-dtype int8`` runs the same step over an
 int8 KV cache (the int8 kernels; the paged auto pool then has 257
-blocks).  Prints one JSON line with,
+blocks).  ``--ladder`` runs the legacy ladder's step instead
+(``prefill_chunk=0``: one token a slot through the Tq=1 kernels), all
+eight slots decode rows at the mix's positions.  Prints one JSON line
+with,
 per step: the host wall time (the step ends in its one host sync), the
 device time between two CUDA events around it, the device time the
 profiler attributes to kernels, the device's idle share (1 - kernel
@@ -137,6 +140,8 @@ def main(argv=None):
     ap.add_argument("--kv-layout", default="slab", choices=("slab", "paged"))
     ap.add_argument("--kv-dtype", default="float32",
                     choices=("float32", "int8"))
+    ap.add_argument("--ladder", action="store_true",
+                    help="the ladder's Tq=1 step (prefill_chunk=0)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
     params = transformer.init_lm(
@@ -145,29 +150,35 @@ def main(argv=None):
         BASE_LM["layers"], MAX_LEN, device=dev)
     engine = DecodeEngine(params, num_heads=BASE_LM["num_heads"],
                           num_slots=SLOTS, max_len=MAX_LEN,
-                          prefill_chunk=CHUNK, kv_layout=args.kv_layout,
+                          prefill_chunk=0 if args.ladder else CHUNK,
+                          kv_layout=args.kv_layout,
                           kv_block_size=BLOCK_SIZE, kv_dtype=args.kv_dtype,
                           device=dev)
     tokens, pos, lens = slot_mix()
+    if args.ladder:             # one token a slot, no lanes
+        tokens, lens = tokens[:, 0].copy(), np.ones(SLOTS, np.int32)
     # every slot active at the mix's positions (paged: a private chain
     # covering the positions this step writes)
     engine._free = []
     engine._pos[:] = pos
-    engine._len[:] = lens
+    if not args.ladder:         # the ladder's engine keeps no lengths
+        engine._len[:] = lens
     if engine._paged is not None:
         for slot in range(SLOTS):
             engine._paged.seat_fresh(slot, int(pos[slot] + lens[slot]))
 
     def step():
         engine.prepare_step()
-        engine._run(tokens, pos, lens)
+        engine._run(tokens, pos, None if args.ladder else lens)
 
     for _ in range(10):
         step()
     print(json.dumps({
-        "slots": SLOTS, "max_len": MAX_LEN, "chunk": CHUNK,
+        "slots": SLOTS, "max_len": MAX_LEN,
+        "chunk": 0 if args.ladder else CHUNK,
         "kv_layout": args.kv_layout, "kv_dtype": args.kv_dtype,
-        "mix": "6 decode rows + 2 rows of 8 prompt lanes",
+        "mix": ("8 decode rows (the ladder's Tq=1 step)" if args.ladder
+                else "6 decode rows + 2 rows of 8 prompt lanes"),
         **measure(step, args.steps),
     }), flush=True)
     return 0

@@ -125,7 +125,7 @@ def test_reset_launches_clears_the_backward_counters():
     (lambda a: dict(a, do=a["do"].double()), TypeError),
     (lambda a: dict(a, lse=a["lse"][:, :, :5].contiguous()), ValueError),
     (lambda a: dict(a, o=a["o"][:, :1].contiguous()), ValueError),
-    (lambda a: {n: torch.cat([x] * 16, -1) if x.dim() == 4 else x
+    (lambda a: {n: torch.cat([x] * 40, -1) if x.dim() == 4 else x
                 for n, x in a.items()}, ValueError),
     (lambda a: dict(a, do=a["do"].transpose(2, 3).contiguous()
                     .transpose(2, 3)), ValueError),
@@ -133,8 +133,8 @@ def test_reset_launches_clears_the_backward_counters():
                     v=a["v"][:, :, :5].contiguous()), ValueError),
 ])
 def test_bad_arguments_raise(np_rng, bad, exc):
-    """dtype, lse/o shapes, a head dim the kernels do not take (256; any
-    up to 128 is padded to a compiled one), a non-contiguous do (the
+    """dtype, lse/o shapes, a head dim the kernels do not take (640; any
+    up to 128 is padded to a compiled one, 256, 384 and 512 compiled), a non-contiguous do (the
     wrapper does not copy; FlashAttention does), and causal with Tq !=
     Tk."""
     q, k, v, do = (torch.tensor(a) for a in _inputs(np_rng, 1, 2, 9, 9, 16))
@@ -193,31 +193,40 @@ def test_dot_product_attention_refusals(np_rng):
                                    key_mask=km)
     with pytest.raises(ValueError, match="no mask support"):
         attn.dot_product_attention(q, k, v, key_mask=km, use_flash=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.dot_product_attention(q, k, v, q_segment_ids=km)
+    # segment ids (packed rows) and chunked_attention run now, as in JAX;
+    # what JAX refuses of them, the port refuses
+    seg = torch.ones((1, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no mask support"):
+        attn.dot_product_attention(q, k, v, q_segment_ids=seg,
+                                   use_flash=True)
+    with pytest.raises(ValueError, match="kv_segment_ids without"):
+        attn.dot_product_attention(q, k, v, kv_segment_ids=seg)
     big = torch.zeros((1, 1, 2048, 16))
-    with pytest.raises(NotImplementedError, match="chunked_attention"):
-        attn.dot_product_attention(big, big, big, use_flash=False)
+    with pytest.raises(ValueError, match="kv_segment_ids without"):
+        attn.chunked_attention(big, big, big,
+                               kv_segment_ids=torch.ones((1, 2048)))
 
 
 @pytest.mark.parametrize("dh", [48, 80, 96, 112])
 def test_flash_route_raises_at_head_dims_the_kernels_lack(np_rng,
                                                           flash_calls, dh):
     """What the flash route does at head dims the kernels lack.  They are
-    compiled at 16, 32, 64 and 128; JAX's rule names no head dim and its
-    TPU kernel takes any dh up to 128, so the route takes a dh between
-    them padded to the next (equal to JAX's masked path), and raises
-    (ROADMAP B8) at a multiple of 128 above 128 (here 256), which the TPU
-    kernel takes and the padding cannot reach."""
+    compiled at 16, 32, 64 and 128 and at 256, 384 and 512; JAX's rule
+    names no head dim and its TPU kernel takes any dh up to 128, so the
+    route takes a dh between them padded to the next (equal to JAX's
+    masked path).  The kernel wrappers raise at a width they do not
+    compile (here 640), which the route sends to the dense path."""
     q, k, v, _ = _inputs(np_rng, 1, 1, 128, 128, dh)
     want = jax_attn.dot_product_attention(*map(jnp.asarray, (q, k, v)),
                                           use_flash=False)
     got = attn.dot_product_attention(*map(torch.tensor, (q, k, v)))
     assert len(flash_calls) == 1
     _close(got, want)
-    wide = torch.zeros((1, 1, 128, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        attn.dot_product_attention(wide, wide, wide)
+    wide = torch.zeros((1, 1, 128, 640))
+    with pytest.raises(ValueError, match="not one the kernels take"):
+        fk.flash_attention_fwd(wide, wide, wide)
+    attn.dot_product_attention(wide, wide, wide)
+    assert len(flash_calls) == 1
 
 
 @pytest.mark.parametrize("kind", ["mha", "gqa_rope", "cross_key_mask"])

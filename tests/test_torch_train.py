@@ -297,7 +297,8 @@ def test_profile_attributes_the_port_kernels_by_their_sources(key, port):
     profiler's form of a template and of a plain function alike."""
     from paddle_tpu_torch.scripts import profile_step
     names = profile_step.port_kernels()
-    assert {"attn_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
-            "flash_bwd_dq_kernel", "lstm_fwd_kernel", "lstm_bwd_kernel",
-            "lstm_dwr_kernel"} <= names
+    assert {"split_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
+            "flash_bwd_dq_kernel", "flash_fwd_wide_kernel",
+            "lstm_fwd_kernel", "lstm_bwd_kernel", "lstm_dwr_kernel"} <= names
+    assert "attn_kernel" not in names
     assert profile_step._is_port(key, names) == port
