@@ -121,6 +121,28 @@ non-zero exit code and no final "ok" line:
   ladder_int8  the ladder phase over an int8 KV cache, both layouts:
             flash_attention_quant once per layer per prefill batch, the
             int8 Tq=1 slab / paged kernel once per layer per step
+  serve_w8  the LM's int8 trunk (quant/weights.quantize_lm) behind the
+            server in a slab engine over float32 KV and a paged engine
+            over int8 KV (the full-quant engine): 12 staggered requests
+            each, the chunk kernel of the cache once per layer per step,
+            every stream held against lm_generate over the same int8
+            tree (whose prefill launches the flash kernel once per layer
+            per call); first, the card's int8 tree is held against the
+            CPU's on the same weights (codes and scales bit for bit)
+            and its prefill logits within 1e-3 of the CPU's; the logit
+            error against the float32 tree is reported on both devices
+            beside quant/kv's budget (0.06)
+  serve_spec  speculative serving (k 4, a 2-layer draft sharing the
+            target's embedding) on the slab over float32 KV and the
+            paged layout over int8 KV, each beside its non-speculating
+            twin, then with another seed's draft and an adversarial one
+            (that trunk's embedding scaled by 0.01), and the int8 trunk
+            speculating (--quant-weights 1 --speculate-k 4): streams held
+            against the twin and lm_generate; every verify run delivers
+            a token; the target's chunk kernel once per layer per step,
+            the draft's chunk kernel once and its Tq=1 kernel 3 times per
+            draft layer per rollout; acceptance rate, tokens a verify
+            step and tokens/s beside the twin's
   ladder_dh256, ladder_dh256_int8  the ladder on the slab layout for an
             LM at D 512 over 2 heads (dh 256; 2 layers), float32 and int8
             KV: the wide flash instance (flash_attention_quant) once per
@@ -250,6 +272,20 @@ SPLIT_MIN_SPLITS = 16
 DEVICE_KEYS = ("device_ms", "library_device_ms")
 PREAMBLE = 64
 LADDER_PROMPTS, LADDER_TOKENS = (5, 17, 32, 40, 64, 9, 50, 23), 24
+# serve_w8: the card's quantize_lm against the CPU's on the same weights,
+# bit for bit (amax / 127 and w / s are correctly rounded divisions on
+# both devices), and its prefill logits against the CPU's plain prefill
+# of the same int8 tree.  Both devices compute in float32 with TF32 off
+# (the card's flash prefill in 3xTF32), so the logits agree to ~1e-6 (the
+# float32 tree's difference is reported beside); 1e-3 bounds that with
+# room, while five codes off by one (scales an ulp off: a division by a
+# Python scalar on the card) moved a logit by 2.7e-3 there, and a wrong
+# scale or dequantization moves them by far more
+W8_CPU_TOL = 1e-3
+# speculative serving: bench.py's bench_serving_speculative defaults
+# (bench.py:2601-2604); the step's lane width max(CHUNK, SPEC_K + 1)
+# stays CHUNK, the K the split kernels are checked at
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
 
 # The LSTM kernels at the train path's shape (bench_lstm: T=100, B=64,
 # h=512) against their plain versions on the same inputs, at the JAX
@@ -2814,6 +2850,285 @@ def run_serve_paged_int8(torch, dev, transformer, kernels, params, rng):
     return launches
 
 
+def serve_prompts(rng):
+    """The serve phase's 12 prompts (3 to 120 tokens) and starts."""
+    lengths = np.linspace(3, 120, 12).astype(int)
+    return ([rng.randint(3, VOCAB, n).tolist() for n in lengths],
+            [0.03 * i for i in range(12)])
+
+
+def compare_twin(torch, transformer, params, prompts, outs, ref_outs, what,
+                 kv_dtype=None):
+    """Each stream against another engine's stream of the same request,
+    up to the first margin below MARGIN_TOL over the reference stream;
+    returns the tokens compared."""
+    checked = 0
+    for i, (prompt, toks, ref) in enumerate(zip(prompts, outs, ref_outs)):
+        ids = np.asarray([list(prompt) + list(ref)], np.int32)
+        marg = margins(torch, transformer, params, ids, kv_dtype)[0]
+        n, ok = compare(toks, ref, marg[len(prompt) - 1:])
+        if not ok:
+            fail(f"{what}: request {i} disagrees with the non-speculating "
+                 f"engine within its first {n + 1} tokens above margin "
+                 f"{MARGIN_TOL}")
+        checked += n
+    return checked
+
+
+def step_line(run, n_tok):
+    """A serve run's timing line with the launches a step beside it."""
+    steps = max(run["steps"], 1)
+    rec = serve_record(run, n_tok)
+    rec["launches"] = {k: n for k, n in rec["launches"].items() if n}
+    rec["launches_per_step"] = {k: n / steps
+                                for k, n in rec["launches"].items()}
+    return rec
+
+
+def w8_prompt(seed):
+    """serve_w8's prefill prompts: 8 of GEN_PROMPT tokens from their own
+    seed, so that a CPU run can read the same prefill on the same weights
+    (``init_lm(torch.Generator().manual_seed(seed), ...)``: the weights
+    are drawn on the CPU and moved)."""
+    return np.random.RandomState(seed).randint(
+        3, VOCAB, (8, GEN_PROMPT)).astype(np.int32)
+
+
+def run_serve_w8(torch, dev, transformer, kernels, params, seed, rng):
+    """The LM's int8 trunk (quant/weights.quantize_lm) behind the server
+    in two engines: slab chunked over float32 KV, and paged chunked over
+    int8 KV with the auto pool (the full-quant engine).  12 staggered
+    requests each; the chunk kernel of the cache once per layer per
+    step; every stream against lm_generate over the same int8 tree.
+
+    Before serving, the card's int8 tree and its prefill are held against
+    the CPU's on the same weights: quantize_lm's codes and scales bit
+    for bit, and the int8 tree's prefill logits
+    (w8_prompt) within W8_CPU_TOL of the port's plain CPU prefill, which
+    tests/test_torch_quant_weights.py holds against the JAX package's on
+    these inputs.  The logit error against the float32 tree is reported
+    per stream on both devices beside quant/kv's LOGIT_ERR_BUDGET (0.06),
+    the budget the JAX package's tests/test_quant.py holds its int8 trees
+    to on small trunks; at this width the JAX package's own quantize_lm
+    exceeds it on some streams (ROADMAP C6)."""
+    from paddle_tpu_torch.quant import kv as kvq
+    from paddle_tpu_torch.quant.weights import param_bytes, quantize_lm
+    from paddle_tpu_torch.serving import DecodeEngine
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+    dk = kernels.decode_attention
+    qparams = quantize_lm(params)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    qcpu = quantize_lm(cpu_params)
+    code_diff, scale_rel, n_codes = 0, 0.0, 0
+    for got, want in zip(tree_leaves(qparams), tree_leaves(qcpu),
+                         strict=True):
+        got = got.cpu()
+        if want.dtype == torch.int8:
+            code_diff = max(code_diff, int(
+                (got.int() - want.int()).abs().max()))
+            n_codes += int((got != want).sum())
+        else:
+            scale_rel = max(scale_rel, float(
+                ((got - want).abs() / want.abs().clamp_min(1e-30)).max()))
+    prompt = w8_prompt(seed)
+
+    def prefill_logits(p):
+        h, _ = transformer.lm_prefill(p, prompt, GEN_PROMPT, HEADS)
+        return transformer._lm_project(p, h).cpu()
+
+    l8, l32 = prefill_logits(qparams), prefill_logits(params)
+    l8_cpu, l32_cpu = prefill_logits(qcpu), prefill_logits(cpu_params)
+    del cpu_params, qcpu
+    d8 = float((l8 - l8_cpu).abs().max())
+    d32 = float((l32 - l32_cpu).abs().max())
+    if n_codes or scale_rel or not d8 <= W8_CPU_TOL:
+        fail(f"serve_w8: the card's int8 tree against the CPU's: codes "
+             f"differ by up to {code_diff} ({n_codes} codes), scales by "
+             f"{scale_rel} relative, the prefill logits by {d8} (the "
+             f"float32 tree's by {d32}); want codes and scales bit for "
+             f"bit, logits within {W8_CPU_TOL}")
+    err = kvq.logit_err(l32, l8)
+    err_cpu = kvq.logit_err(l32_cpu, l8_cpu)
+    record = {"phase": "serve_w8", "param_bytes": {
+                  "float32": param_bytes(params), "int8": param_bytes(qparams)},
+              "vs_cpu": {"code_diff_max": code_diff,
+                         "codes_differing": n_codes,
+                         "scale_rel_diff_max": scale_rel,
+                         "w8_prefill_logits_max_abs_diff": d8,
+                         "f32_prefill_logits_max_abs_diff": d32,
+                         "tolerance": W8_CPU_TOL},
+              "prefill_logit_err_vs_f32": {
+                  "card": err.tolist(), "cpu": err_cpu.tolist(),
+                  "max": float(err.max()), "streams": len(err),
+                  "within_budget": int(
+                      (err <= kvq.LOGIT_ERR_BUDGET).sum()),
+                  "budget": kvq.LOGIT_ERR_BUDGET}}
+    n_tok = 32
+    launches = {}
+    for name, kw, kernel in (
+            ("slab_f32kv", dict(kv_dtype="float32"), dk.NAME),
+            ("paged_i8kv", dict(kv_layout="paged", kv_block_size=PAGE_BS,
+                                kv_dtype="int8"), dk.NAME_PAGED_CHUNK_I8)):
+        engine = DecodeEngine(qparams, num_heads=HEADS, num_slots=SLOTS,
+                              max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                              name=f"w8_{name}", device=dev, **kw)
+        prompts, starts = serve_prompts(rng)
+        run = serve_http(torch, kernels, engine, prompts, n_tok, starts)
+        run["gen"].close()
+        check_served(run, n_tok, f"serve_w8 ({name})")
+        got, steps = run["launches"], run["steps"]
+        if got[kernel] != LAYERS * steps \
+                or any(n for k, n in got.items() if k != kernel):
+            fail(f"serve_w8 ({name}): launches {got} over {steps} steps, "
+                 f"want {kernel} {LAYERS * steps} and no other")
+        if engine._paged is not None:
+            engine._paged.check()
+        # the oracle: lm_generate's prefill (the flash kernel, or its
+        # int8 instance) and the margins' prefill, LAYERS launches each
+        kernels.reset_launches()
+        checked = check_streams(torch, transformer, qparams, prompts,
+                                [r[1] for r in run["results"]],
+                                f"serve_w8 ({name})", kw["kv_dtype"])
+        torch.cuda.synchronize()
+        flash = launch_counts(kernels)[
+            "flash_attention" if kw["kv_dtype"] == "float32"
+            else kernels.flash_attention.NAME_QUANT]
+        if flash != 2 * LAYERS * len(prompts):
+            fail(f"serve_w8 ({name}): the oracle launched the prefill's "
+                 f"flash kernel {flash} times, want "
+                 f"{2 * LAYERS * len(prompts)}")
+        record[name] = {**step_line(run, n_tok),
+                        "tokens_checked_vs_lm_generate": checked,
+                        "tokens_total": len(prompts) * n_tok,
+                        "oracle_flash_launches": flash}
+        launches[name] = dict(got, oracle_flash=flash)
+    emit(record)
+    return launches
+
+
+def run_serve_spec(torch, dev, transformer, kernels, params, seed, rng):
+    """Speculative serving (speculate_k SPEC_K, a draft of the target's
+    first SPEC_DRAFT_LAYERS blocks) behind the server: slab over float32
+    KV and paged over int8 KV, each beside its non-speculating twin on
+    the same 12 staggered requests, then the slab twice more with other
+    drafts: another seed's trunk of the same shape, and an adversarial
+    one.  A random trunk at this width mostly repeats a token its tied
+    embedding favours, so another seed's draft agrees with the target
+    about as often as the target's own; the adversarial draft is that
+    trunk with its embedding scaled by 0.01, whose blocks, not its
+    embedding, then pick the token: it (almost) never agrees.  Last, the
+    server's --quant-weights 1 --speculate-k engine: the slab over the
+    int8 trunk (quant/weights.quantize_lm), its draft the quantized
+    target's first blocks, beside a non-speculating twin over the same
+    int8 trunk, streams against lm_generate over that trunk.  Every
+    stream equals its twin's and lm_generate's up to its margin; every
+    verify step nets at least one token; the launches are exact: the
+    target's chunk kernel LAYERS a step, the draft's chunk kernel
+    SPEC_DRAFT_LAYERS a rollout and its Tq=1 kernel SPEC_DRAFT_LAYERS x
+    (SPEC_K - 1) a rollout."""
+    from paddle_tpu_torch.quant.weights import quantize_lm
+    from paddle_tpu_torch.serving import DecodeEngine
+    from paddle_tpu_torch.serving.speculative import make_draft
+    dk = kernels.decode_attention
+    n_tok = 32
+    other = transformer.init_lm(
+        torch.Generator().manual_seed(seed + 7), VOCAB, D_MODEL, HEADS,
+        DFF, LAYERS, SERVE_MAX_LEN, device=dev)
+    adversarial = dict(other, src_emb=other["src_emb"] * 0.01)
+    qparams = quantize_lm(params)
+    record = {"phase": "serve_spec", "speculate_k": SPEC_K,
+              "draft_layers": SPEC_DRAFT_LAYERS}
+    launches, slab_ref = {}, None
+    for name, kw, target_kernel, target, draft_params in (
+            ("slab_f32kv", dict(kv_dtype="float32"), dk.NAME, params,
+             params),
+            ("paged_i8kv", dict(kv_layout="paged", kv_block_size=PAGE_BS,
+                                kv_dtype="int8"), dk.NAME_PAGED_CHUNK_I8,
+             params, params),
+            ("slab_f32kv_other_seed", dict(kv_dtype="float32"), dk.NAME,
+             params, other),
+            ("slab_f32kv_adversarial", dict(kv_dtype="float32"), dk.NAME,
+             params, adversarial),
+            ("w8_slab_f32kv", dict(kv_dtype="float32"), dk.NAME, qparams,
+             qparams)):
+        if name.startswith("slab_f32kv_"):
+            # the slab run's requests, so its twin stands
+            prompts, starts, twin_outs = slab_ref
+            record[name] = {}
+        else:
+            prompts, starts = serve_prompts(rng)
+            twin = DecodeEngine(target, num_heads=HEADS, num_slots=SLOTS,
+                                max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                                name=f"twin_{name}", device=dev, **kw)
+            twin_run = serve_http(torch, kernels, twin, prompts, n_tok,
+                                  starts)
+            twin_run["gen"].close()
+            check_served(twin_run, n_tok, f"serve_spec twin ({name})")
+            record[name] = {"twin": step_line(twin_run, n_tok)}
+            twin_outs = [r[1] for r in twin_run["results"]]
+            slab_ref = slab_ref or (prompts, starts, twin_outs)
+        engine = DecodeEngine(
+            target, num_heads=HEADS, num_slots=SLOTS,
+            max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK, speculate_k=SPEC_K,
+            draft=make_draft(draft_params, SPEC_DRAFT_LAYERS),
+            name=f"spec_{name}", device=dev, **kw)
+        if engine._kk != CHUNK:
+            fail(f"serve_spec: the step's lane width {engine._kk} is not "
+                 f"the checked chunk K {CHUNK}: check the split kernels at "
+                 "that K")
+        r0 = engine.draft.rollouts
+        run = serve_http(torch, kernels, engine, prompts, n_tok, starts)
+        run["gen"].close()
+        rollouts = engine.draft.rollouts - r0
+        check_served(run, n_tok, f"serve_spec ({name})")
+        got, steps = run["launches"], run["steps"]
+        want = {target_kernel: LAYERS * steps}
+        want[dk.NAME] = want.get(dk.NAME, 0) + SPEC_DRAFT_LAYERS * rollouts
+        want[dk.NAME_SLAB] = SPEC_DRAFT_LAYERS * (SPEC_K - 1) * rollouts
+        if any(got[k] != want.get(k, 0) for k in got):
+            fail(f"serve_spec ({name}): launches {got} over {steps} steps "
+                 f"and {rollouts} rollouts, want {want} and no other")
+        if engine._paged is not None:
+            engine._paged.check()
+        outs = [r[1] for r in run["results"]]
+        snap = run["snapshot"]
+        # tokens each verify run delivered -> runs: one run for each
+        # speculating slot-step, each netting at least one token
+        runs = run["gen"].verify_runs
+        if not (snap["drafted_tokens_total"] > 0 and runs
+                and min(runs) >= 1
+                and sum(runs.values()) == snap["spec_slot_steps_total"]):
+            fail(f"serve_spec ({name}): no draft lanes scored, or verify "
+                 f"runs {dict(runs)} do not each net a token over "
+                 f"{snap['spec_slot_steps_total']} speculating slot-steps")
+        if name.endswith("_adversarial") \
+                and not snap["spec_acceptance_rate"] < 0.5:
+            fail(f"serve_spec ({name}): the adversarial draft accepted "
+                 f"{snap['spec_acceptance_rate']} of its lanes")
+        what = f"serve_spec ({name})"
+        line = {**step_line(run, n_tok), "rollouts": rollouts,
+                "launches_per_rollout": {
+                    dk.NAME_SLAB: got[dk.NAME_SLAB] / max(rollouts, 1)},
+                "spec_acceptance_rate": snap["spec_acceptance_rate"],
+                "spec_tokens_per_step": snap["spec_tokens_per_step"],
+                "spec_steps": snap["spec_steps_total"],
+                "verify_runs_by_tokens": dict(sorted(runs.items())),
+                "tokens_checked_vs_twin": compare_twin(
+                    torch, transformer, target, prompts, outs, twin_outs,
+                    what, kw["kv_dtype"]),
+                "tokens_checked_vs_lm_generate": check_streams(
+                    torch, transformer, target, prompts, outs, what,
+                    kw["kv_dtype"]),
+                "tokens_total": len(prompts) * n_tok}
+        if "twin" in record[name]:
+            line["tokens_per_s_vs_twin"] = (
+                line["tokens_per_s"] / record[name]["twin"]["tokens_per_s"])
+        record[name].update(spec=line)
+        launches[name] = got
+    emit(record)
+    return launches
+
+
 def run_train(torch, dev, kernels, hidden=LSTM_D, check_batch=None):
     """bench_lstm at ``hidden`` on the card: the first step against the
     CPU (at ``check_batch`` rows, the bench's 64 unless given: the route
@@ -3646,6 +3961,10 @@ def main(argv=None):
                                            params, rng)
     ladder8_launches = run_ladder(torch, dev, transformer, kernels, params,
                                   rng, kv_dtype="int8")
+    w8_launches = run_serve_w8(torch, dev, transformer, kernels, params,
+                               args.seed, rng)
+    spec_launches = run_serve_spec(torch, dev, transformer, kernels, params,
+                                   args.seed, rng)
     del params
     # the same ladder at D 512 over 2 heads (dh 256: the wide flash
     # instances in the prefill, the Tq=1 kernels at that width), depth cut
@@ -3857,6 +4176,21 @@ def main(argv=None):
     summary[-1]["dh256"] = {key: flash_q_wide[key] for key in (
         "shape", "max_abs_err", "ms", "f32_kernel_ms", "plain_ms",
         "bound_ms", "bound_by")}
+    # the int8-weight and speculative serving phases' launches, by row
+    for row in summary:
+        extra = {}
+        for phase, runs in (("serve_w8", w8_launches),
+                            ("serve_spec", spec_launches)):
+            n = sum(got.get(row["name"], 0) for got in runs.values())
+            if phase == "serve_w8" and row["name"] in (
+                    fk.NAME, fk.NAME_QUANT):
+                # the oracle's prefill: float32 KV (slab), int8 (paged)
+                n = w8_launches["slab_f32kv" if row["name"] == fk.NAME
+                                else "paged_i8kv"]["oracle_flash"]
+            if n:
+                extra[phase] = n
+        if extra:
+            row["launches_serving_variants"] = extra
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -140,8 +140,10 @@ def packed(reader, max_len, buffer_size=256, pad_value=0):
     """Pack a reader of ragged token sequences into (data, segment_ids,
     positions) rows of width max_len (core.sequence.pack_sequences):
     several short sequences share a row, and the segment ids keep
-    attention block-diagonal per segment (the port's attention takes no
-    segment ids yet: ROADMAP A2).  Buffers `buffer_size` sequences per packing round
+    attention block-diagonal per segment (``ops/attention``'s
+    ``segment_mask`` / ``chunked_attention``; the LM's packed-row entry,
+    ``models/transformer.encode(segment_ids=)``, is ROADMAP A2).  Buffers
+    `buffer_size` sequences per packing round
     so first-fit has material to work with; yields one packed ROW per
     item (compose with batch() for [B, max_len] feeds).  Sequences longer
     than max_len are TRUNCATED to it (warned once per stream — split long

@@ -34,13 +34,15 @@ sidecars as they are, at the head widths ``decode_attention.covers``
 admits (elsewhere the step attends through ``_attend``, as JAX's model
 does) — and ``flash_attention`` (``flash_attention_quant`` on an int8
 cache) in the prefill's batched causal pass; each dispatches on the
-device of the tensors it is handed.  The training path
+device of the tensors it is handed.  Every ``lm_*`` entry point also
+takes an int8 weight tree (``quant/weights.quantize_lm``): it
+dequantizes at the matmul boundary inside the call, so the float32
+weights are a transient of the call, as in the JAX package's step.  The training path
 (``encode``/``decode`` with ``full_seq=True``) attends through
 ``ops/attention.dot_product_attention``'s flash route: the flash forward
 and its dK/dV and dQ kernels, through ``FlashAttention``.
 
-Not ported (ROADMAP): MoE blocks, int8 weights, tensor-parallel
-``shard_axis``, ``remat``, the sequence-parallel ring (``mesh``,
+Not ported (ROADMAP): MoE blocks, tensor-parallel ``shard_axis``, ``remat``, the sequence-parallel ring (``mesh``,
 ``zigzag``), packed rows (``segment_ids``/``positions``) and beam-search
 generation.
 """
@@ -58,7 +60,9 @@ from paddle_tpu_torch.ops.kernels import decode_attention as _decode_kernel
 from paddle_tpu_torch.ops.kernels import flash_attention as _flash_kernel
 from paddle_tpu_torch.ops.norm import layer_norm
 from paddle_tpu_torch.quant import kv as kvq
-from paddle_tpu_torch.quant.weights import (is_quantized_tree as _quantized,
+from paddle_tpu_torch.quant.weights import (dequantize_leaf as _dequant_leaf,
+                                            is_quantized_leaf as _w_quantized,
+                                            map_leaves as _map_leaves,
                                             maybe_dequant as _maybe_dequant,
                                             weight_shape as _w_shape)
 from paddle_tpu_torch.utils.tree import tree_map
@@ -163,10 +167,10 @@ def params_from_numpy(tree, device=None):
     out]`` layout, float32 on ``device``.  An LM tree (empty ``dec``)
     drops the unused ``trg_emb``/``out`` leaves; a seq2seq tree keeps
     them and its decoder blocks, each of which must carry ``ln_x`` and
-    ``xattn``.  ``moe`` blocks and int8 leaves raise."""
+    ``xattn``.  A quantized weight (``quant/weights``: ``{"q", "s"}``
+    or ``{"__int8__", "__scale__"}``) keeps its keys, its codes as int8
+    and its scales as float32 ``[1, dout]``.  ``moe`` blocks raise."""
     dev = _device.resolve(device)
-    if _quantized(tree):
-        raise NotImplementedError(f"int8 weight trees are {_ROADMAP}")
     for i, blk in enumerate(tree["enc"]):
         if "moe" in blk:
             raise NotImplementedError(f"enc[{i}] is a MoE block; MoE is "
@@ -185,8 +189,19 @@ def params_from_numpy(tree, device=None):
         keep["dec"] = [{k: blk[k] for k in _DEC_KEYS} for blk in tree["dec"]]
         keep["trg_emb"] = tree["trg_emb"]
         keep["out"] = tree["out"]
-    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
-                                       device=dev), keep)
+    def leaf(a):
+        if not _w_quantized(a):
+            return torch.tensor(np.asarray(a, np.float32), device=dev)
+        out = {}
+        for key, val in a.items():
+            if key in ("q", "__int8__"):
+                out[key] = torch.tensor(np.asarray(val, np.int8), device=dev)
+            else:
+                out[key] = torch.tensor(np.asarray(val, np.float32).reshape(
+                    1, -1), device=dev)
+        return out
+
+    return _map_leaves(leaf, keep)
 
 
 # ------------------------------------------------------------- blocks
@@ -207,9 +222,16 @@ def _block_ffn(blk, h):
     return _ffn(blk["ffn"], h)
 
 
+def _weight(leaf):
+    """A weight leaf as float32 (an int8 leaf dequantized)."""
+    return _dequant_leaf(leaf) if _w_quantized(leaf) else leaf
+
+
 def _lm_project(params, h):
-    """Final LN + tied-embedding projection -> logits [..., V]."""
-    return linear.matmul(_ln(params["ln_f"], h), params["src_emb"].T)
+    """Final LN + tied-embedding projection -> logits [..., V]; takes a
+    quantized tree too (the engine's prefill ladder hands it the raw
+    engine params)."""
+    return linear.matmul(_ln(params["ln_f"], h), _weight(params["src_emb"]).T)
 
 
 def _lm_embed(params, ids):
@@ -310,6 +332,9 @@ def _kv_layer_buffers(params, lead_shape, kv_dtype, num_heads):
         raise ValueError(f"kv_dtype={kv_dtype!r} (supported: "
                          f"{kvq.KV_DTYPES})")
     emb = params["src_emb"]
+    # a quantized trunk's float cache is float32, on its codes' device
+    ref = next(iter(emb.values())) if _w_quantized(emb) else emb
+    fdt = torch.float32 if _w_quantized(emb) else emb.dtype
     d = _w_shape(emb)[1]
     int8 = kv_dtype == "int8"
     if int8:
@@ -325,11 +350,11 @@ def _kv_layer_buffers(params, lead_shape, kv_dtype, num_heads):
     for blk in params["enc"]:
         dkv = _w_shape(blk["attn"]["wk"])[1]
         dkv_v = _w_shape(blk["attn"]["wv"])[1]
-        dt = torch.int8 if int8 else emb.dtype
+        dt = torch.int8 if int8 else fdt
         c = {"k": torch.zeros(lead_shape + (dkv,), dtype=dt,
-                              device=emb.device),
+                              device=ref.device),
              "v": torch.zeros(lead_shape + (dkv_v,), dtype=dt,
-                              device=emb.device)}
+                              device=ref.device)}
         if int8:
             dh = d // num_heads
             if dkv % dh or dkv_v % dh:
@@ -337,9 +362,9 @@ def _kv_layer_buffers(params, lead_shape, kv_dtype, num_heads):
                     f"head_dim {dh} (d_model {d} / num_heads {num_heads}) "
                     f"does not divide Dkv {dkv}/{dkv_v}")
             c["ks"] = torch.zeros(lead_shape + (dkv // dh,),
-                                  dtype=torch.float32, device=emb.device)
+                                  dtype=torch.float32, device=ref.device)
             c["vs"] = torch.zeros(lead_shape + (dkv_v // dh,),
-                                  dtype=torch.float32, device=emb.device)
+                                  dtype=torch.float32, device=ref.device)
         layers.append(c)
     return layers
 
@@ -752,15 +777,13 @@ def lm_decode_chunk_paged(params, tokens, positions, lengths, cache, tables,
     """The block-pool twin of ``lm_decode_chunk_slots`` (same lane
     semantics): cache as ``init_lm_cache_paged``, written in place;
     tables [S, blocks_per_row] int32 -> (logits [S, V] at each row's last
-    fed lane, cache).  ``all_lanes`` (the speculative verify surface) is
-    not ported and raises."""
+    fed lane, cache).  ``all_lanes=True`` (the speculative verify
+    surface) projects every lane -> logits [S, K, V], as the slab
+    twin."""
     del moe_top_k
-    if all_lanes:
-        raise NotImplementedError(f"all_lanes on the paged step is "
-                                  f"{_ROADMAP}")
     tables = _ids(tables, cache[0]["k"].device)
     return _chunk_step(
-        params, tokens, positions, lengths, cache, pos_type, False,
+        params, tokens, positions, lengths, cache, pos_type, all_lanes,
         lambda blk, x, c, li, qpos, rope: _cached_self_attn_chunk_paged(
             blk, x, c, li, qpos, tables, num_heads, rope))
 
@@ -978,6 +1001,7 @@ def lm_logits(params, tokens, num_heads=8, **encode_kw):
     """Full-sequence LM logits [B, T, V]: ``encode(causal=True)`` and the
     tied-embedding projection.  ``full_seq=True`` takes the flash route
     where T allows it."""
+    params = _maybe_dequant(params)
     return _lm_project(params, encode(params, tokens, num_heads,
                                       causal=True, **encode_kw))
 

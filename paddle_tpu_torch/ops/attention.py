@@ -41,14 +41,24 @@ def attention_context(scores, values: SequenceBatch):
     return torch.einsum("bt,btd->bd", w, values.data)
 
 
+def _logits_dtype(q):
+    """JAX's ``preferred_element_type`` for the logits: the promotion of
+    q's dtype and float32 (bf16 / f16 logits are formed in float32)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
 def online_softmax_block(q, k, v, m_prev, l_prev, acc, mask=None,
-                         scale=1.0):
+                         scale=1.0, acc_dtype=None):
     """One K/V block of the online softmax (JAX's
     ``online_softmax_block``): q [..., Tq, D], k/v [..., Tk, D], m/l
     [..., Tq], acc [..., Tq, D], mask optional bool [..., Tq, Tk] ->
-    the updated (m, l, acc).  A fully masked block's exp underflows to
-    0 and leaves the carry as it was."""
-    s = torch.einsum("...qd,...kd->...qk", q, k) * scale
+    the updated (m, l, acc).  The logits are formed in ``acc_dtype``
+    (default: q's dtype promoted with float32), the weights cast to
+    v's dtype before P.V, as JAX does.  A fully masked block's exp
+    underflows to 0 and leaves the carry as it was."""
+    acc_dtype = acc_dtype or _logits_dtype(q)
+    s = torch.einsum("...qd,...kd->...qk", q.to(acc_dtype),
+                     k.to(acc_dtype)) * scale
     if mask is not None:
         s = torch.where(mask, s, s.new_tensor(_NEG))
     m_new = torch.maximum(m_prev, s.amax(-1))
@@ -114,7 +124,8 @@ def chunked_attention(q, k, v, scale=None, causal=False, key_mask=None,
 
     def update(m, l, acc, q_blk, k_blk, v_blk, keep):
         return online_softmax_block(q_blk, k_blk, v_blk, m, l, acc,
-                                    mask=keep, scale=scale)
+                                    mask=keep, scale=scale,
+                                    acc_dtype=acc_dtype)
 
     outs = []
     for qi in range(nq):
@@ -204,7 +215,8 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
     elif key_mask is not None:
         mask = key_mask[:, None, None, :] > 0
     scale = scale if scale is not None else 1.0 / math.sqrt(float(dh))
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    acc = _logits_dtype(q)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     neg = logits.new_tensor(_NEG)
     if causal:
         tq, tk = logits.shape[-2:]
@@ -214,7 +226,7 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
     if mask is not None:
         logits = torch.where(mask, logits, neg)
     w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", w, v)
+    return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
 
 
 def repeat_kv_heads(kv, num_heads):

@@ -1,9 +1,12 @@
 """The training benchmarks of ``bench.py``, ported: ``bench_lstm`` (the
-headline), ``bench_transformer`` and ``bench_seq2seq``; and ``bench_rnn``,
-the layer-DSL slice through ``trainer.SGD``.
+headline), ``bench_transformer`` and ``bench_seq2seq``; ``bench_rnn``,
+the layer-DSL slice through ``trainer.SGD``; and the measurement legs
+of two serving benchmarks, ``bench_serving_quant`` and
+``bench_serving_speculative``.
 
     python -m paddle_tpu_torch.scripts.bench
-        [--model lstm|transformer|seq2seq|rnn] [--hidden 512|1280|2048]
+        [--model lstm|transformer|seq2seq|rnn|serving_quant|
+                 serving_speculative] [--hidden 512|1280|2048]
 
 ``lstm`` (the default) trains the LSTM text classifier at the
 reference's benchmark config (vocab 30000, embedding 128, 2 stacked LSTMs
@@ -28,6 +31,16 @@ median of STEPS timed steps after WARMUP (and, for the transformer and
 seq2seq, tokens/s = batch * target length / s, the bench's headline), the
 card's name and power limit as nvidia-smi gives them, and the kernel
 launches.  Runs on the card and raises without one.
+
+``serving_quant`` and ``serving_speculative`` serve the full-width
+Transformer-base LM (``serving/server.BASE_LM``: vocab 32000, d_model
+512, 8 heads, dff 2048, 6 layers; random weights from seed 0) to
+closed-loop client threads on ``GenerationBatcher``s, with the traffic
+shapes of ``bench.py``'s ``bench_serving_quant`` (``bench.py:2044``)
+and ``bench_serving_speculative`` (``bench.py:2601``); each prints one
+JSON line.  Their HLO and analytic legs (the compiled step's int8
+operands, the predicted step bytes, the all-lanes projection in the
+compiled HLO) inspect XLA programs and have no torch counterpart.
 """
 
 import argparse
@@ -277,6 +290,178 @@ def step_split(trainer, feeder, batches, steps):
     return {name: float(np.median(v)) for name, v in parts.items()}
 
 
+def _closed_loop(engine, reqs, n_clients):
+    """``n_clients`` threads each submitting the next of ``reqs``
+    ((prompt, max_tokens) pairs) until none is left: tokens/s over the
+    wall, TTFT p99, TPOT p50 / p99, mean active slots a step, the
+    metrics snapshot and every stream (by request index)."""
+    import threading
+    from paddle_tpu_torch.serving import GenerationBatcher, ServingMetrics
+    engine.metrics = ServingMetrics()
+    bat = GenerationBatcher(engine, queue_size=4096)
+    lock, nxt, outs = threading.Lock(), [0], {}
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                if i >= len(reqs):
+                    return
+                nxt[0] += 1
+            prompt, mt = reqs[i]
+            out = bat.submit(prompt, max_tokens=mt).result(600)
+            with lock:
+                outs[i] = out["tokens"]
+
+    ts = [threading.Thread(target=client) for _ in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    dt = time.perf_counter() - t0
+    bat.close()
+    snap = engine.metrics.snapshot()
+    return {"clients": n_clients, "seconds": dt,
+            "tokens_per_s": sum(len(o) for o in outs.values()) / dt,
+            "ttft_p99_ms": snap["ttft_ms"]["p99"],
+            "tpot_p50_ms": snap["tpot_ms"]["p50"],
+            "tpot_p99_ms": snap["tpot_ms"]["p99"],
+            "effective_streams": snap["mean_slot_occupancy"],
+            "snapshot": snap, "outs": [outs[i] for i in range(len(reqs))]}
+
+
+def _card(dev):
+    return _device.card() if dev.type == "cuda" else None
+
+
+def _serving_params(seed, max_len, dev):
+    from paddle_tpu_torch.serving.server import BASE_LM
+    return transformer.init_lm(
+        torch.Generator().manual_seed(seed), BASE_LM["vocab"],
+        BASE_LM["d_model"], BASE_LM["num_heads"], BASE_LM["dff"],
+        BASE_LM["layers"], max_len, device=dev), BASE_LM
+
+
+def bench_serving_quant(slots=8, n_requests=48, block_size=16, chunk=8,
+                        seed=0, device=None):
+    """float32 KV vs int8 KV vs int8 KV + int8 weights at one KV byte
+    budget (``bench.py:2044``'s measurement leg): the float32 paged
+    engine gets ``slots * ceil(max_len / block_size)`` blocks, the int8
+    engines twice the blocks and twice the slots in about the same
+    bytes (an int8 block plus its per-head scales costs 1/4 + 1/dh of a
+    float32 one).  Closed-loop mixed traffic at 48 clients (prompts of
+    3-8 tokens; the first ``slots // 2`` requests emit 48 tokens, the
+    rest 6).  Per variant: tokens/s, TTFT p99, TPOT, effective streams,
+    the pool's blocks and bytes; for the int8 variants each stream's
+    greedy prefix shared with the float32 engine's stream (the quality
+    evidence; ``quant/kv.greedy_prefix_len``)."""
+    from paddle_tpu_torch.quant import kv as kvq
+    from paddle_tpu_torch.quant.weights import param_bytes, quantize_lm
+    from paddle_tpu_torch.serving.decode_engine import DecodeEngine
+    dev = _device.resolve(device)
+    gen_short, gen_long = 6, 48
+    max_len = 16 + gen_long
+    budget = slots * -(-max_len // block_size)
+    params, cfg = _serving_params(seed, max_len, dev)
+    qparams = quantize_lm(params)
+    rng = np.random.RandomState(seed)
+    reqs = [(rng.randint(1, cfg["vocab"], rng.randint(3, 9))
+             .astype(np.int32), gen_long if i < slots // 2 else gen_short)
+            for i in range(n_requests)]
+    out = {"bench": "serving_quant", "card": _card(dev),
+           "config": dict(cfg, max_len=max_len, block_size=block_size,
+                          chunk=chunk, requests=n_requests, clients=48),
+           "param_bytes": {"float32": param_bytes(params),
+                           "int8": param_bytes(qparams)}}
+    streams = {}
+    for name, p, kv_dtype, n_slots, n_blocks in (
+            ("f32", params, "float32", slots, budget),
+            ("i8kv", params, "int8", 2 * slots, 2 * budget),
+            ("i8kv_w", qparams, "int8", 2 * slots, 2 * budget)):
+        engine = DecodeEngine(p, num_heads=cfg["num_heads"],
+                              num_slots=n_slots, max_len=max_len,
+                              prefill_chunk=chunk, kv_layout="paged",
+                              kv_block_size=block_size,
+                              kv_num_blocks=n_blocks + 1, kv_dtype=kv_dtype,
+                              name=f"bench_q_{name}", device=dev)
+        r = _closed_loop(engine, reqs, 48)
+        streams[name] = r.pop("outs")
+        snap = r.pop("snapshot")
+        r["kv_blocks_total"] = snap["kv_blocks_total"]
+        r["pool_kv_bytes"] = sum(t.numel() * t.element_size()
+                                 for c in engine._cache for t in c.values())
+        if name != "f32":
+            prefix = [kvq.greedy_prefix_len(a, b) for a, b in
+                      zip(streams[name], streams["f32"])]
+            r["greedy_prefix_vs_f32"] = {
+                "min": min(prefix), "median": float(np.median(prefix)),
+                "exact_streams": sum(a == b for a, b in zip(
+                    streams[name], streams["f32"]))}
+        out[name] = r
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def bench_serving_speculative(slots=8, n_requests=32, chunk=8,
+                              speculate_k=4, draft_layers=2, seed=0,
+                              clients=(8, 32), device=None):
+    """Speculative decoding against the same chunked engine without a
+    draft, at 8 and 32 clients (``bench.py:2601``'s measurement leg):
+    prompts of 4-11 tokens, 12-20 tokens each, max_len 96.  Per mode
+    and client count: tokens/s, TTFT p99, TPOT p50 / p99, and with a
+    draft the acceptance rate and emitted tokens per speculating
+    slot-step.  Two more drafts: another seed's trunk of the same shape
+    (``bench.py``'s adversarial draft; a random trunk at this width
+    mostly repeats a token its tied embedding favours, so it agrees with
+    the target about as often as the target's own draft), and an
+    adversarial one, that trunk with its embedding scaled by 0.01 (its
+    blocks then pick the token): it sets the floor, every verify step
+    still netting one token.  Each speculating drive reports how many of
+    its streams equal the plain engine's at the same client count
+    (``chip_smoke.py``'s serve_spec holds them up to margin)."""
+    from paddle_tpu_torch.serving.decode_engine import DecodeEngine
+    from paddle_tpu_torch.serving.speculative import make_draft
+    dev = _device.resolve(device)
+    max_len = 96
+    params, cfg = _serving_params(seed, max_len, dev)
+    other, _ = _serving_params(seed + 7, max_len, dev)
+    adversarial = dict(other, src_emb=other["src_emb"] * 0.01)
+    rng = np.random.RandomState(seed)
+    reqs = [(rng.randint(1, cfg["vocab"], rng.randint(4, 12))
+             .astype(np.int32), int(rng.randint(12, 21)))
+            for _ in range(n_requests)]
+    out = {"bench": "serving_speculative", "card": _card(dev),
+           "config": dict(cfg, max_len=max_len, chunk=chunk,
+                          speculate_k=speculate_k, draft_layers=draft_layers,
+                          requests=n_requests), "drives": []}
+    for n_clients in clients:
+        plain = None
+        for mode, draft_from in (("plain", None), ("spec", params),
+                                 ("other_seed", other),
+                                 ("adversarial", adversarial)):
+            engine = DecodeEngine(
+                params, num_heads=cfg["num_heads"], num_slots=slots,
+                max_len=max_len, prefill_chunk=chunk,
+                speculate_k=speculate_k if draft_from else 0,
+                draft=(make_draft(draft_from, draft_layers)
+                       if draft_from else None),
+                name=f"bench_spec_{mode}", device=dev)
+            r = _closed_loop(engine, reqs, n_clients)
+            snap, outs = r.pop("snapshot"), r.pop("outs")
+            r["mode"] = mode
+            if mode == "plain":
+                plain = outs
+            else:
+                r["spec_acceptance_rate"] = snap["spec_acceptance_rate"]
+                r["spec_tokens_per_step"] = snap["spec_tokens_per_step"]
+                r["streams_equal_to_plain"] = sum(
+                    a == b for a, b in zip(outs, plain))
+            out["drives"].append(r)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _timed(train_step):
     """WARMUP steps, then STEPS timed ones (each ending in a synchronize)
     with the launch counters reset before them: (times ms, losses)."""
@@ -297,11 +482,19 @@ def _timed(train_step):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq",
-                                        "rnn"), default="lstm")
+                                        "rnn", "serving_quant",
+                                        "serving_speculative"),
+                    default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
                     help="the LSTM's hidden size (--model lstm)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
+    if args.model == "serving_quant":
+        bench_serving_quant(device=dev)
+        return 0
+    if args.model == "serving_speculative":
+        bench_serving_speculative(device=dev)
+        return 0
     if args.model == "rnn":
         bench = bench_rnn(device=dev)
         times, losses = _timed(bench.train_step)

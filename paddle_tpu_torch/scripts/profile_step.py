@@ -2,6 +2,7 @@
 
     python -m paddle_tpu_torch.scripts.profile_step [--seed N] [--steps N]
         [--kv-layout slab|paged] [--kv-dtype float32|int8] [--ladder]
+        [--quant-weights] [--speculate-k K [--draft-layers N]]
 
 Builds the full-width Transformer-base trunk (vocab 32000, d_model 512,
 8 heads, dff 2048, 6 layers; random weights from --seed) behind the
@@ -15,8 +16,15 @@ block tables uploaded.  ``--kv-dtype int8`` runs the same step over an
 int8 KV cache (the int8 kernels; the paged auto pool then has 257
 blocks).  ``--ladder`` runs the legacy ladder's step instead
 (``prefill_chunk=0``: one token a slot through the Tq=1 kernels), all
-eight slots decode rows at the mix's positions.  Prints one JSON line
-with,
+eight slots decode rows at the mix's positions.  ``--quant-weights``
+serves the trunk's int8 weights (``quant/weights.quantize_lm``: each
+step dequantizes them).  ``--speculate-k K`` makes each step a
+speculating one: the draft (the target's first ``--draft-layers``
+blocks, default 2) ingests each decode row's last token and rolls K
+drafts out (``DecodeEngine.speculate``: one chunk and K - 1 Tq=1 passes
+of the draft, ending in the drafts' copy to the host), then the target
+verifies every lane (``all_lanes``); the prompt rows' chunk feeds the
+draft too.  Prints one JSON line with,
 per step: the host wall time (the step ends in its one host sync), the
 device time between two CUDA events around it, the device time the
 profiler attributes to kernels, the device's idle share (1 - kernel
@@ -37,8 +45,10 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.quant.weights import quantize_lm
 from paddle_tpu_torch.serving.server import BASE_LM
 from paddle_tpu_torch.serving.decode_engine import DecodeEngine
+from paddle_tpu_torch.serving.speculative import make_draft
 
 SLOTS, MAX_LEN, CHUNK, BLOCK_SIZE = 8, 256, 8, 16
 
@@ -142,17 +152,30 @@ def main(argv=None):
                     choices=("float32", "int8"))
     ap.add_argument("--ladder", action="store_true",
                     help="the ladder's Tq=1 step (prefill_chunk=0)")
+    ap.add_argument("--quant-weights", action="store_true",
+                    help="serve the trunk's int8 weights")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="draft lanes a decode row (0 = no speculation)")
+    ap.add_argument("--draft-layers", type=int, default=2)
     args = ap.parse_args(argv)
+    if args.speculate_k and args.ladder:
+        ap.error("--speculate-k needs the chunked step (drop --ladder)")
     dev = _device.resolve("cuda")
     params = transformer.init_lm(
         torch.Generator().manual_seed(args.seed), BASE_LM["vocab"],
         BASE_LM["d_model"], BASE_LM["num_heads"], BASE_LM["dff"],
         BASE_LM["layers"], MAX_LEN, device=dev)
+    if args.quant_weights:
+        params = quantize_lm(params)
+    spec = args.speculate_k
     engine = DecodeEngine(params, num_heads=BASE_LM["num_heads"],
                           num_slots=SLOTS, max_len=MAX_LEN,
                           prefill_chunk=0 if args.ladder else CHUNK,
                           kv_layout=args.kv_layout,
                           kv_block_size=BLOCK_SIZE, kv_dtype=args.kv_dtype,
+                          speculate_k=spec,
+                          draft=(make_draft(params, args.draft_layers)
+                                 if spec else None),
                           device=dev)
     tokens, pos, lens = slot_mix()
     if args.ladder:             # one token a slot, no lanes
@@ -167,9 +190,27 @@ def main(argv=None):
         for slot in range(SLOTS):
             engine._paged.seat_fresh(slot, int(pos[slot] + lens[slot]))
 
+    decode_rows = [s for s in range(SLOTS) if lens[s] == 1]
+
     def step():
         engine.prepare_step()
         engine._run(tokens, pos, None if args.ladder else lens)
+
+    def spec_step():
+        # the same mix each step: a decode row's draft feed is its last
+        # committed token, a prompt row's its chunk
+        engine._tokens[:] = 0
+        engine._tokens[:, :CHUNK] = tokens
+        engine._len[:] = lens
+        for slot in range(SLOTS):
+            engine._d_pos[slot] = pos[slot]
+            engine._d_feed[slot] = tokens[slot, :lens[slot]].tolist()
+        engine.speculate({slot: MAX_LEN for slot in decode_rows})
+        engine.prepare_step()
+        engine._run(engine._tokens, pos, engine._len)
+
+    if spec:
+        step = spec_step
 
     for _ in range(10):
         step()
@@ -177,8 +218,12 @@ def main(argv=None):
         "slots": SLOTS, "max_len": MAX_LEN,
         "chunk": 0 if args.ladder else CHUNK,
         "kv_layout": args.kv_layout, "kv_dtype": args.kv_dtype,
+        "quant_weights": args.quant_weights, "speculate_k": spec,
+        **({"draft_layers": args.draft_layers} if spec else {}),
         "mix": ("8 decode rows (the ladder's Tq=1 step)" if args.ladder
-                else "6 decode rows + 2 rows of 8 prompt lanes"),
+                else "6 decode rows + 2 rows of 8 prompt lanes"
+                + (f", each decode row verifying {spec} draft lanes"
+                   if spec else "")),
         **measure(step, args.steps),
     }), flush=True)
     return 0

@@ -39,12 +39,22 @@ and its request front (``paddle_tpu/serving/decode_engine.py``).
 Either layout and either ingestion stores K/V as float32 or, with
 ``kv_dtype="int8"``, as int8 codes with per-(position, KV head) f32
 scales (``quant/kv.py``); every cache copy (admission rows, block
-writes, copy-on-write forks) carries the scales with their codes.
+writes, copy-on-write forks) carries the scales with their codes.  The
+params may be an int8 weight tree (``quant/weights.quantize_lm``): each
+step dequantizes it inside the call.
+
+Speculative decoding (``speculate_k > 0`` with a ``draft``, chunked
+only): a draft trunk (``serving/speculative.DraftTrunk``) proposes up to
+``speculate_k`` tokens a slot between steps, the one chunked step scores
+them all as verify lanes (every lane projected), and the host accepts
+the longest greedily matched prefix plus the target's own token at the
+first mismatch, advancing the slot past the whole run at once.  A
+stream is the non-speculating engine's whatever the draft proposes.
 
 Greedy decode only (argmax inside the step).  Not ported yet (ROADMAP),
-each raising ``ConfigError`` where it is an option: speculative
-decoding, tensor-parallel meshes, the host KV tier, supervised recovery,
-continuation replay; and fault injection and trace spans.
+each raising ``ConfigError`` where it is an option: tensor-parallel
+meshes, the host KV tier, supervised recovery, continuation replay; and
+fault injection and trace spans.
 """
 
 import collections
@@ -112,6 +122,11 @@ class DecodeEngine:
     kv_dtype: ``"float32"`` or ``"int8"`` (quantized KV on either layout
     and either ingestion; the int8 kernels read the codes and scales).
 
+    speculate_k: draft lanes a slot a verify step (0 = off; needs
+    ``prefill_chunk > 0`` and a ``draft``); draft: a ``DraftTrunk``, or
+    a params tree to build one from (``speculative.make_draft``).  The
+    step's lane width is ``max(prefill_chunk, speculate_k + 1)``.
+
     Slot lifecycle: FREE -> seated (chunked: at position 0 with the
     prompt as its feed; ladder: prefilled, at position len(prompt)) ->
     one emitted token per step -> EVICTED (eos | length | error |
@@ -132,8 +147,6 @@ class DecodeEngine:
         if kv_dtype not in KV_DTYPES:
             raise ConfigError(f"kv_dtype={kv_dtype!r} (supported: "
                               f"{KV_DTYPES})")
-        if speculate_k or draft is not None:
-            raise _not_ported("speculative decoding (speculate_k, draft) is")
         if mesh is not None:
             raise _not_ported("tensor-parallel decode (mesh) is")
         if kv_host_bytes:
@@ -159,6 +172,28 @@ class DecodeEngine:
         if not 0 <= self.prefill_chunk <= self.max_len:
             raise ConfigError(f"prefill_chunk={prefill_chunk} must be in "
                               f"[0, max_len={self.max_len}]")
+        self.speculate_k = int(speculate_k or 0)
+        if not 0 <= self.speculate_k < self.max_len:
+            raise ConfigError(
+                f"speculate_k={speculate_k} must be in "
+                f"[0, max_len={self.max_len})")
+        if self.speculate_k and not self.prefill_chunk:
+            raise ConfigError(
+                "speculate_k needs the unified chunked step "
+                "(prefill_chunk > 0): the verify step IS the chunk "
+                "step scoring draft lanes")
+        if draft is not None and not self.speculate_k:
+            raise ConfigError("a draft trunk without speculate_k > 0 "
+                              "would never run")
+        if self.speculate_k and draft is None:
+            raise ConfigError(
+                "speculate_k > 0 needs a draft (a DraftTrunk, or a "
+                "params tree to build one from — serving/speculative."
+                "make_draft derives one from the target's)")
+        # the step's lane width holds a prefill chunk and a whole verify
+        # span (the committed token + speculate_k draft lanes)
+        self._kk = (max(self.prefill_chunk, self.speculate_k + 1)
+                    if self.prefill_chunk else 0)
         self.prefill_buckets = _buckets("prefill ladder", prefill_buckets)
         self.prefill_batch_buckets = _buckets("prefill batch ladder",
                                               prefill_batch_buckets)
@@ -170,8 +205,6 @@ class DecodeEngine:
         if self.num_slots < 1:
             raise ConfigError("num_slots must be >= 1")
         self.metrics = metrics or ServingMetrics()
-        self.metrics.set_prefill_chunk(self.prefill_chunk)
-        self.metrics.set_kv_dtype(kv_dtype)
         self._paged = None
         if kv_layout == "paged":
             self.block_size = int(kv_block_size)
@@ -191,12 +224,40 @@ class DecodeEngine:
         # feeds (chunked), and lane 0's position.  Free slots idle at
         # (token 0, position 0, 1 lane): their compute is discarded.
         if self.prefill_chunk:
-            self._tokens = np.zeros((self.num_slots, self.prefill_chunk),
-                                    np.int32)
+            self._tokens = np.zeros((self.num_slots, self._kk), np.int32)
             self._len = np.ones((self.num_slots,), np.int32)
         else:
             self._tokens = np.zeros((self.num_slots,), np.int32)
             self._len = None
+        # the draft's host bookkeeping (speculating).  Per active slot:
+        # _d_pos + len(_d_feed) == _pos + 1 — every committed token (and
+        # nothing else) is either in the draft cache or waits in the feed
+        self._draft = None
+        if self.speculate_k:
+            from paddle_tpu_torch.serving.speculative import DraftTrunk
+            if not isinstance(draft, DraftTrunk):
+                draft = DraftTrunk(
+                    draft, k=self.speculate_k, num_slots=self.num_slots,
+                    max_len=self.max_len,
+                    chunk=max(self.speculate_k + 2, self.prefill_chunk),
+                    num_heads=self.num_heads, moe_top_k=self.moe_top_k,
+                    pos_type=self.pos_type, device=self.device)
+            elif (draft.k != self.speculate_k
+                  or draft.num_slots != self.num_slots
+                  or draft.max_len < self.max_len
+                  or draft.device != self.device):
+                raise ConfigError(
+                    f"draft trunk (k={draft.k}, slots={draft.num_slots}, "
+                    f"max_len={draft.max_len}, {draft.device}) does not "
+                    f"match the engine (k={self.speculate_k}, "
+                    f"slots={self.num_slots}, max_len={self.max_len}, "
+                    f"{self.device})")
+            self._draft = draft
+            self._d_feed = [[] for _ in range(self.num_slots)]
+            self._d_pos = np.zeros((self.num_slots,), np.int32)
+            self._d_last = np.zeros((self.num_slots,), np.int32)
+            self._spec_armed = {}     # slot -> k_eff armed for the next step
+            self._spec_result = {}    # slot -> the last step's accepted run
         self._pos = np.zeros((self.num_slots,), np.int32)
         self._free = list(range(self.num_slots))[::-1]   # pop() -> slot 0
         self._warm = False
@@ -218,6 +279,18 @@ class DecodeEngine:
             num_heads=self.num_heads)
 
     # ------------------------------------------------------------ slots
+
+    @property
+    def metrics(self):
+        return self._metrics
+
+    @metrics.setter
+    def metrics(self, m):
+        # the config gauges travel with a swapped-in metrics object
+        self._metrics = m
+        m.set_prefill_chunk(self.prefill_chunk)
+        m.set_kv_dtype(self.kv_dtype)
+        m.set_speculate_k(self.speculate_k)
 
     @property
     def chunked(self):
@@ -265,6 +338,7 @@ class DecodeEngine:
                 self._free.append(slot)
                 raise
         self._arm(slot, full[0], 0)
+        self._draft_seed(slot, full[:1])
         return slot, [int(t) for t in full[1:]]
 
     def seat_cached(self, full, covered, chain):
@@ -286,6 +360,9 @@ class DecodeEngine:
             self._free.append(slot)
             raise
         self._arm(slot, full[pre], pre)
+        # the draft cache holds nothing for this slot (the prefix index
+        # is the target's): the covered prefix joins the draft's feed
+        self._draft_seed(slot, full[:pre + 1])
         return slot, [int(t) for t in full[pre + 1:]]
 
     def load_chunk(self, slot, toks):
@@ -304,6 +381,95 @@ class DecodeEngine:
         """Lanes the next/current step feeds for ``slot`` (1 = decode)."""
         return int(self._len[slot]) if self.prefill_chunk else 1
 
+    # ------------------------------------------------------------ speculation
+
+    @property
+    def speculating(self):
+        """True when a draft trunk is attached (``speculate_k > 0``)."""
+        return self._draft is not None
+
+    @property
+    def draft(self):
+        """The attached ``DraftTrunk`` (None unless speculating)."""
+        return self._draft
+
+    def _draft_seed(self, slot, toks):
+        """(Re)start a slot's draft bookkeeping: the draft cache holds
+        nothing for it yet, so ``toks`` (its committed context so far)
+        becomes the feed the next ``speculate`` calls drain through the
+        draft's chunk ingest.  Called at every seat and eviction."""
+        if self._draft is None:
+            return
+        self._d_feed[slot] = [int(t) for t in toks]
+        self._d_pos[slot] = 0
+        self._d_last[slot] = 0
+        self._spec_armed.pop(slot, None)
+        self._spec_result.pop(slot, None)
+
+    def speculate(self, budgets):
+        """One batched draft rollout, between steps: drain up to a chunk
+        of every active slot's committed-token feed into the draft
+        cache, then arm draft lanes for each slot in ``budgets`` (slot ->
+        remaining emission allowance) whose feed drained fully in this
+        call (the rollout's candidates are fresh only for those).  Lanes
+        1..k_eff of the verify span take the drafts (lane 0 stays the
+        committed token), ``k_eff = min(speculate_k, budget - 1, room to
+        max_len)``.  Returns {slot: k_eff}.  The drafts' copy to the host
+        is this call's one synchronization."""
+        if self._draft is None:
+            return {}
+        chunk = self._draft.chunk
+        tokens = np.zeros((self.num_slots, chunk), np.int32)
+        positions = np.zeros((self.num_slots,), np.int32)
+        lengths = np.ones((self.num_slots,), np.int32)
+        fed = {}
+        free_set = set(self._free)
+        for slot in range(self.num_slots):
+            if slot in free_set:
+                continue
+            feed = self._d_feed[slot]
+            take = min(chunk, len(feed))
+            if take:
+                tokens[slot, :take] = feed[:take]
+                positions[slot] = self._d_pos[slot]
+                lengths[slot] = take
+                fed[slot] = take
+            else:
+                # nothing pending: re-feed the last ingested token (an
+                # identical K/V rewrite) rather than leave the row out
+                tokens[slot, 0] = self._d_last[slot]
+                positions[slot] = max(int(self._d_pos[slot]) - 1, 0)
+        drafts = self._draft.rollout(tokens, positions, lengths)
+        if drafts is None:
+            return {}       # reset() raced the rollout: arm nothing
+        for slot, take in fed.items():
+            self._d_last[slot] = self._d_feed[slot][take - 1]
+            del self._d_feed[slot][:take]
+            self._d_pos[slot] += take
+        armed = {}
+        for slot, budget in budgets.items():
+            if fed.get(slot) is None or self._d_feed[slot]:
+                continue    # feed not fully drained: candidates stale
+            k_eff = min(self.speculate_k, int(budget) - 1,
+                        self.max_len - 1 - int(self._pos[slot]))
+            if k_eff < 1:
+                continue
+            self._tokens[slot, 1:1 + k_eff] = drafts[slot, :k_eff]
+            self._tokens[slot, 1 + k_eff:] = 0
+            self._len[slot] = 1 + k_eff
+            self._spec_armed[slot] = k_eff
+            armed[slot] = k_eff
+        return armed
+
+    def take_spec_result(self, slot):
+        """Pop the last step's accepted run for ``slot``: the matched
+        draft tokens followed by the target's own argmax at the first
+        mismatch (never empty: a verify step nets at least the token a
+        plain step would).  None if the slot did not speculate."""
+        if self._draft is None:
+            return None
+        return self._spec_result.pop(slot, None)
+
     def register_context(self, slot, tokens):
         """Publish a fully ingested prompt's prefixes into the paged
         prefix index (no-op on the slab or with the cache off)."""
@@ -318,6 +484,7 @@ class DecodeEngine:
         if self._paged is not None:
             self._paged.evict(slot)
         self._arm(slot, 0, 0)
+        self._draft_seed(slot, [])
         self._free.append(slot)
         self.metrics.evict_slot(reason)
 
@@ -591,8 +758,9 @@ class DecodeEngine:
 
     def _run(self, tokens, pos, lens):
         """The step on the device: next token per slot as a host array
-        (lens is None on the ladder).  The one host synchronization is
-        the argmax result's copy."""
+        (lens is None on the ladder); speculating, every lane's argmax
+        [S, K].  The one host synchronization is the argmax result's
+        copy."""
         dev = self.device
 
         def put(a):
@@ -601,14 +769,15 @@ class DecodeEngine:
         tables = (put(self._paged.tables.copy()) if self._paged is not None
                   else None)
         common = (self.num_heads, self.moe_top_k, self.pos_type)
+        spec = self._draft is not None
         if self.prefill_chunk and tables is not None:
             logits, self._cache = transformer.lm_decode_chunk_paged(
                 self.params, put(tokens), put(pos), put(lens), self._cache,
-                tables, *common)
+                tables, *common, all_lanes=spec)
         elif self.prefill_chunk:
             logits, self._cache = transformer.lm_decode_chunk_slots(
                 self.params, put(tokens), put(pos), put(lens), self._cache,
-                *common)
+                *common, all_lanes=spec)
         elif tables is not None:
             logits, self._cache = transformer.lm_decode_step_paged(
                 self.params, put(tokens), put(pos), self._cache, tables,
@@ -621,15 +790,43 @@ class DecodeEngine:
     def step(self):
         """Advance EVERY slot (free slots compute too — fixed shape);
         returns the next token per slot ([num_slots] np.int32).  Callers
-        then bump their active slots via ``advance``."""
+        then bump their active slots via ``advance``; a speculating
+        slot's accepted run waits in ``take_spec_result``."""
         tokens, pos = self._tokens.copy(), self._pos.copy()
         lens = self._len.copy() if self.prefill_chunk else None
+        spec_armed = {}
+        if self._draft is not None:
+            spec_armed, self._spec_armed = self._spec_armed, {}
         t0 = time.perf_counter()
         nxt = self._run(tokens, pos, lens)
+        chunk_lanes = (int(lens.sum() - self.num_slots)
+                       if lens is not None else 0)
+        kw = {}
+        if self._draft is not None:
+            # row[i] is the target's greedy pick after lane i.  Lanes
+            # 1..k_eff held drafts d_1..d_k; the matched prefix is the
+            # run of d_{i+1} == row[i], and row[j] at the first mismatch
+            # is the target's own next token, so the run row[:j + 1] is
+            # what sequential greedy decode emits.  A row that did not
+            # speculate reduces to its last fed lane
+            rows = nxt
+            nxt = rows[np.arange(self.num_slots), lens - 1]
+            accepted = drafted = 0
+            for slot, k_eff in spec_armed.items():
+                row, want = rows[slot], tokens[slot, 1:1 + k_eff]
+                j = 0
+                while j < k_eff and int(row[j]) == int(want[j]):
+                    j += 1
+                self._spec_result[slot] = [int(t) for t in row[:j + 1]]
+                accepted += j
+                drafted += k_eff
+            # draft lanes are speculation, not prompt ingestion
+            chunk_lanes -= drafted
+            kw = dict(accepted_tokens=accepted, drafted_tokens=drafted,
+                      spec_slots=len(spec_armed))
         self.metrics.observe_decode_step(
             self.num_active, self.num_slots, time.perf_counter() - t0,
-            prefill_lanes=(int(lens.sum() - self.num_slots)
-                           if lens is not None else 0))
+            prefill_lanes=chunk_lanes, **kw)
         if self._paged is not None:
             self.metrics.set_kv_pool(self._paged.pool.num_free,
                                      self._paged.pool.num_allocatable)
@@ -637,13 +834,24 @@ class DecodeEngine:
 
     def advance(self, slot, token, consumed=1):
         """Record the token fed at the next step for ``slot``, advanced
-        past the ``consumed`` lanes the last step processed."""
+        past the ``consumed`` lanes the last step processed.
+        Speculating, the committed tokens join the draft's feed and, on
+        the paged layout, the blocks the verify span provisioned past
+        the committed stream go back to the pool."""
+        if self._draft is not None:
+            # lanes 1..consumed-1 are read before lane 0 is overwritten
+            self._d_feed[slot].extend(
+                [int(t) for t in self._tokens[slot, 1:consumed]]
+                + [int(token)])
         if self.prefill_chunk:
             self._tokens[slot, 0] = token
             self._len[slot] = 1
         else:
             self._tokens[slot] = token
         self._pos[slot] += consumed
+        if self._draft is not None and self._paged is not None:
+            # keep the block the next write lands in
+            self._paged.truncate(slot, int(self._pos[slot]) + 1)
 
     def reset(self):
         """Drop all slot state and re-zero the cache (the batch-failure
@@ -661,6 +869,14 @@ class DecodeEngine:
         if self.prefill_chunk:
             self._len[:] = 1
         self._free = list(range(self.num_slots))[::-1]
+        if self._draft is not None:
+            # both caches rebuild; re-seats re-feed the draft
+            self._draft.reset()
+            self._d_feed = [[] for _ in range(self.num_slots)]
+            self._d_pos[:] = 0
+            self._d_last[:] = 0
+            self._spec_armed.clear()
+            self._spec_result.clear()
 
     def warmup(self):
         """Run the step once on the idle cache (and, on the ladder, one
@@ -669,6 +885,8 @@ class DecodeEngine:
         metrics are recorded."""
         if self._warm:
             return
+        if self._draft is not None:
+            self._draft.warmup()
         if not self.prefill_chunk:
             b = self.prefill_batch_buckets[0]
             self._prefill_batch(
@@ -679,7 +897,8 @@ class DecodeEngine:
         logger.info("decode[%s]: warm on %s (%d slots, max_len %d, kv %s "
                     "%s, %s)", self.name, self.device, self.num_slots,
                     self.max_len, self.kv_layout, self.kv_dtype,
-                    f"chunk K={self.prefill_chunk}" if self.prefill_chunk
+                    (f"chunk K={self.prefill_chunk}, speculate_k="
+                     f"{self.speculate_k}") if self.prefill_chunk
                     else f"prefill ladder {list(self.prefill_buckets)}")
 
     # ------------------------------------------------------------ validate
@@ -786,8 +1005,10 @@ class GenerationBatcher:
     ONE worker thread runs the loop: seat queued requests into free slots
     (on the ladder, prefilling same-bucket prompts together and emitting
     their first token), arm each ingesting slot's next prompt chunk,
-    provision the paged blocks (``prepare_step``), run one step, deliver
-    each emitting slot's token, evict finished slots.  Admission happens
+    run the draft's rollout and arm verify lanes (speculating), provision
+    the paged blocks (``prepare_step``), run one step, deliver each
+    emitting slot's token (a speculating slot's accepted run), evict
+    finished slots.  Admission happens
     strictly between steps, so the step never changes shape.  The worker
     issues all device work.  ``supervisor`` must be None: supervised
     recovery is not ported yet (ROADMAP)."""
@@ -818,6 +1039,8 @@ class GenerationBatcher:
         # pool pressure — they re-seat from prompt + delivered tokens
         self._waiting = collections.deque()
         self._preempted = []
+        # speculating: tokens delivered by a verify run -> number of runs
+        self.verify_runs = collections.Counter()
         self.name = name or f"gen_batcher[{engine.name}]"
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=self.name)
@@ -1111,6 +1334,18 @@ class GenerationBatcher:
             self.engine.load_chunk(slot, req.feed[:n])
             used += n
 
+    def _load_spec(self):
+        """Speculating, between steps (after ``_load_chunks``): one
+        batched draft rollout drains every active slot's committed-token
+        feed, then draft lanes arm for the slots that are purely
+        decoding — a slot still ingesting its prompt keeps its prefill
+        lanes and joins speculation once its feed drains.  Each verify
+        span is capped at the request's remaining emission allowance."""
+        budgets = {slot: req.max_tokens - len(req.tokens)
+                   for slot, req in self._by_slot.items()
+                   if not req.feed and not req.abandoned}
+        self.engine.speculate(budgets)
+
     def _fail_all_inflight(self, e, extra=()):
         """A device operation failed: fail every in-flight request (plus
         ``extra`` ones caught mid-admission) with the cause, reset the
@@ -1128,6 +1363,12 @@ class GenerationBatcher:
         self.engine.reset()
 
     def _deliver(self, nxt):
+        """Deliver each slot's emission: a plain step's one token, or a
+        verify step's accepted run (matched drafts, then the target's own
+        token at the first mismatch) token by token.  An EOS ends the
+        stream there (the engine never advances past what was delivered)
+        and ``max_tokens`` can end it mid-run; a surviving stream
+        advances past the run in one ``advance``."""
         for slot, req in list(self._by_slot.items()):
             if self._flag_abandoned(req):
                 self._finish(req, "abandoned")
@@ -1142,22 +1383,37 @@ class GenerationBatcher:
             # the feed drained at this step's last lane: its emission is
             # a real one
             del req.feed[:]
-            tok = int(nxt[slot])
-            first = req.t_first is None
-            req.emit(tok, self.name)
-            if first:
-                self.metrics.observe_ttft(req.t_first - req.t_submit)
-                if self.engine.chunked:
-                    # the prompt's K/V is fully resident exactly now:
-                    # publish it to the paged prefix index (no-op on slab)
-                    self.engine.register_context(slot, req.prompt)
-            self.metrics.observe_gen_tokens(1)
-            if req.eos_id is not None and tok == req.eos_id:
-                self._finish(req, "eos")
-            elif len(req.tokens) >= req.max_tokens:
-                self._finish(req, "length")
+            run = self.engine.take_spec_result(slot)
+            verify = run is not None
+            if verify:
+                consumed = len(run)
             else:
-                self.engine.advance(slot, tok, consumed)
+                run = [int(nxt[slot])]
+            n, done = 0, None
+            for tok in run:
+                first = req.t_first is None
+                req.emit(tok, self.name)
+                n += 1
+                if first:
+                    self.metrics.observe_ttft(req.t_first - req.t_submit)
+                    if self.engine.chunked:
+                        # the prompt's K/V is fully resident exactly now:
+                        # publish it to the paged prefix index (no-op on
+                        # slab)
+                        self.engine.register_context(slot, req.prompt)
+                self.metrics.observe_gen_tokens(1)
+                if req.eos_id is not None and tok == req.eos_id:
+                    done = "eos"
+                elif len(req.tokens) >= req.max_tokens:
+                    done = "length"
+                if done:
+                    break
+            if verify:
+                self.verify_runs[n] += 1
+            if done:
+                self._finish(req, done)
+            else:
+                self.engine.advance(slot, run[-1], consumed)
 
     def _loop(self):
         while True:
@@ -1183,6 +1439,8 @@ class GenerationBatcher:
             if self.engine.chunked:
                 self._load_chunks()
             try:
+                if self.engine.speculating:
+                    self._load_spec()
                 # paged: provision every active slot's write blocks
                 # (growth + copy-on-write); a dry pool preempts the
                 # youngest slots, whose requests re-seat later

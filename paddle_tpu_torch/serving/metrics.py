@@ -2,8 +2,8 @@
 metrics.py::ServingMetrics`` that the port's engine, batcher and
 ``/metrics`` use: request/response/rejection counters, TTFT, per-step
 time (TPOT), slot occupancy, chunked-prefill lanes, slot evictions, the
-paged KV pool's gauges and prefix-sharing counters, and the KV cache's
-storage dtype.
+paged KV pool's gauges and prefix-sharing counters, the KV cache's
+storage dtype, and speculative decoding's draft lanes and acceptance.
 
 One instance is shared by the engine, the batcher and the HTTP front-end.
 ``render_prometheus()`` is the ``/metrics`` text; ``snapshot()`` the same
@@ -53,6 +53,13 @@ class ServingMetrics:
         self.prefill_lane_steps_total = 0   # sum of per-step chunk lanes
         self.prefill_chunk_size = 0      # gauge: engine K
         self.evictions = {r: 0 for r in EVICT_REASONS}
+        # speculative decoding (serving/speculative.py): draft lanes
+        # scored by verify steps and how many the target accepted
+        self.speculate_k = 0             # gauge: draft lanes a slot (0=off)
+        self.drafted_tokens_total = 0    # draft lanes scored
+        self.accepted_tokens_total = 0   # draft lanes accepted (matched)
+        self.spec_steps_total = 0        # steps that verified >= 1 span
+        self.spec_slot_steps_total = 0   # speculating slots summed over steps
         # paged KV cache: block-pool gauges (set by the engine after each
         # step) and prefix-sharing / copy-on-write counters
         self.kv_blocks_total = 0         # gauge: allocatable pool blocks
@@ -91,15 +98,23 @@ class ServingMetrics:
             self.ttft.add(seconds)
 
     def observe_decode_step(self, n_active, n_slots, seconds,
-                            prefill_lanes=0):
+                            prefill_lanes=0, accepted_tokens=0,
+                            drafted_tokens=0, spec_slots=0):
         """One slab step: n_active of n_slots held live requests;
         prefill_lanes = teacher-forced lanes fed beyond each slot's own
-        token."""
+        token.  A speculating engine adds drafted_tokens (draft lanes
+        the step scored), accepted_tokens (lanes the target matched) and
+        spec_slots (slots that speculated)."""
         with self._lock:
             self.decode_steps_total += 1
             self.active_slot_steps_total += int(n_active)
             self.slot_count = int(n_slots)
             self.prefill_lane_steps_total += int(prefill_lanes)
+            self.drafted_tokens_total += int(drafted_tokens)
+            self.accepted_tokens_total += int(accepted_tokens)
+            if spec_slots:
+                self.spec_steps_total += 1
+                self.spec_slot_steps_total += int(spec_slots)
             self.tpot.add(seconds)
 
     def observe_prefill_chunk(self, lanes):
@@ -110,6 +125,12 @@ class ServingMetrics:
     def set_prefill_chunk(self, k):
         with self._lock:
             self.prefill_chunk_size = int(k)
+
+    def set_speculate_k(self, k):
+        """Gauge: the engine's draft lanes a slot (0 = speculation
+        off)."""
+        with self._lock:
+            self.speculate_k = int(k)
 
     def observe_gen_tokens(self, n=1):
         with self._lock:
@@ -166,6 +187,24 @@ class ServingMetrics:
                    * max(0, self.prefill_chunk_size - 1))
             return (self.prefill_lane_steps_total / cap) if cap else 0.0
 
+    @property
+    def spec_acceptance_rate(self):
+        """Fraction of drafted lanes the target accepted (0.0 with no
+        drafts scored)."""
+        with self._lock:
+            return (self.accepted_tokens_total / self.drafted_tokens_total
+                    if self.drafted_tokens_total else 0.0)
+
+    @property
+    def spec_tokens_per_step(self):
+        """Mean emitted tokens per speculating slot-step: each verify
+        span emits its accepted run plus the target's own token, so this
+        is >= 1.0 whenever speculation ran; 0.0 without speculation."""
+        with self._lock:
+            return ((self.accepted_tokens_total + self.spec_slot_steps_total)
+                    / self.spec_slot_steps_total
+                    if self.spec_slot_steps_total else 0.0)
+
     def queue_depth(self):
         return sum(int(fn()) for fn in list(self.queue_depth_fns))
 
@@ -202,11 +241,18 @@ class ServingMetrics:
                 "prefix_cache_misses_total": self.prefix_cache_misses,
                 "cow_forks_total": self.cow_forks,
                 "slot_reprefills_total": self.slot_reprefills_total,
+                "speculate_k": self.speculate_k,
+                "drafted_tokens_total": self.drafted_tokens_total,
+                "accepted_tokens_total": self.accepted_tokens_total,
+                "spec_steps_total": self.spec_steps_total,
+                "spec_slot_steps_total": self.spec_slot_steps_total,
             }
         out["queue_depth"] = self.queue_depth()
         out["mean_slot_occupancy"] = self.mean_slot_occupancy
         out["mean_prefill_chunk_occupancy"] = \
             self.mean_prefill_chunk_occupancy
+        out["spec_acceptance_rate"] = round(self.spec_acceptance_rate, 4)
+        out["spec_tokens_per_step"] = round(self.spec_tokens_per_step, 4)
         out["latency_ms"] = self._percentiles_ms(self.latency)
         out["ttft_ms"] = self._percentiles_ms(self.ttft)
         out["tpot_ms"] = self._percentiles_ms(self.tpot)
@@ -243,7 +289,17 @@ class ServingMetrics:
                 ("cow_forks_total",
                  "copy-on-write KV block forks (paged KV cache)"),
                 ("slot_reprefills_total",
-                 "preempted decode slots re-seated")):
+                 "preempted decode slots re-seated"),
+                ("drafted_tokens_total",
+                 "draft lanes scored by verify steps (speculative "
+                 "decoding)"),
+                ("accepted_tokens_total",
+                 "draft lanes the target accepted (speculative decoding)"),
+                ("spec_steps_total",
+                 "decode steps that verified at least one draft span"),
+                ("spec_slot_steps_total",
+                 "per-slot verify spans scored (speculating slots summed "
+                 "over steps)")):
             emit(metric, snap[metric], help_, mtype="counter")
         for label, counts, help_ in (
                 ("rejected_total", snap["rejected"],
@@ -264,6 +320,13 @@ class ServingMetrics:
         emit("prefill_chunk_occupancy_mean",
              f"{snap['mean_prefill_chunk_occupancy']:.6f}",
              "fraction of per-step chunk-lane capacity fed")
+        emit("speculate_k", snap["speculate_k"],
+             "draft lanes per slot per verify step (0 = speculation off)")
+        emit("spec_acceptance_rate", f"{self.spec_acceptance_rate:.6f}",
+             "fraction of drafted lanes the target accepted")
+        emit("spec_tokens_per_step", f"{self.spec_tokens_per_step:.6f}",
+             "mean emitted tokens per speculating slot-step (>= 1 when "
+             "speculation runs)")
         emit("kv_blocks_total", snap["kv_blocks_total"],
              "allocatable KV blocks in the paged pool (0 = slab layout)")
         emit("kv_blocks_free", snap["kv_blocks_free"],

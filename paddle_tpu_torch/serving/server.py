@@ -26,7 +26,11 @@ chunk K = 8 by default (``--prefill-chunk 0``: the legacy prefill
 ladder), over the slab KV layout or, with ``--kv-layout paged``, the
 paged block pool (``--kv-block-size``, ``--kv-num-blocks``,
 ``--kv-prefix-cache``), with a float32 or (``--kv-dtype int8``) an int8
-KV cache.  SIGTERM/SIGINT drain gracefully.
+KV cache; ``--quant-weights 1`` serves the trunk's per-channel int8
+weights (``quant/weights.quantize_lm``), and ``--speculate-k K`` decodes
+speculatively with a draft of the target's first ``--draft-layers``
+blocks (derived from the quantized target when both are given).
+SIGTERM/SIGINT drain gracefully.
 """
 
 import argparse
@@ -202,33 +206,44 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
                       max_tokens=64, queue_size=256, device=None,
                       metrics=None, kv_layout="slab", kv_block_size=16,
                       kv_num_blocks=0, kv_prefix_cache=True,
-                      kv_dtype="float32", **model):
+                      kv_dtype="float32", quant_weights=False,
+                      speculate_k=0, draft_layers=1, **model):
     """The full-width trunk from ``seed`` behind a ``DecodeEngine`` +
     ``GenerationBatcher`` (``model`` overrides ``BASE_LM`` keys;
     ``prefill_chunk=0`` selects the legacy prefill ladder; ``kv_dtype=
-    "int8"`` the quantized KV cache)."""
+    "int8"`` the quantized KV cache; ``quant_weights`` the int8 trunk;
+    ``speculate_k`` > 0 speculative decoding with a ``draft_layers``-deep
+    draft of the (quantized) target)."""
     from paddle_tpu_torch import device as _device
     from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.quant.weights import quantize_lm
     from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                         GenerationBatcher)
+    from paddle_tpu_torch.serving.speculative import make_draft
     dev = _device.resolve(device)
     cfg = dict(BASE_LM, **model)
     params = transformer.init_lm(torch.Generator().manual_seed(seed),
                                  cfg["vocab"], cfg["d_model"],
                                  cfg["num_heads"], cfg["dff"], cfg["layers"],
                                  max_len, device=dev)
+    if quant_weights:
+        params = quantize_lm(params)
+    # the draft shares the target's (quantized) embedding and vocab
+    draft = make_draft(params, layers=draft_layers) if speculate_k else None
     engine = DecodeEngine(params, num_heads=cfg["num_heads"],
                           num_slots=slots, max_len=max_len,
                           prefill_chunk=prefill_chunk, metrics=metrics,
                           kv_layout=kv_layout, kv_block_size=kv_block_size,
                           kv_num_blocks=kv_num_blocks,
                           prefix_cache=kv_prefix_cache, kv_dtype=kv_dtype,
+                          speculate_k=speculate_k, draft=draft,
                           name="base_lm", device=dev)
     return GenerationBatcher(engine, queue_size=queue_size,
                              default_max_tokens=max_tokens)
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The CLI's flags (the JAX CLI's names and defaults)."""
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.serving",
         description="Serve the Transformer-base decoder-only LM (random "
@@ -259,20 +274,42 @@ def main(argv=None):
                     choices=("float32", "int8"),
                     help="KV-cache storage: int8 codes + per-(position, "
                          "head) f32 scales, or float32")
+    ap.add_argument("--quant-weights", type=int, default=0,
+                    help="1 = serve per-channel int8 trunk weights "
+                         "(quant/weights.py)")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="draft tokens per slot per step (0 = no "
+                         "speculative decoding; needs --prefill-chunk > 0)")
+    ap.add_argument("--draft-layers", type=int, default=1,
+                    help="trunk depth of the draft derived from the "
+                         "target (--speculate-k)")
     ap.add_argument("--max-tokens", type=int, default=64,
                     help="default per-request emission cap")
     ap.add_argument("--queue-size", type=int, default=256)
-    args = ap.parse_args(argv)
-    gen = build_gen_batcher(seed=args.seed, slots=args.slots,
-                            max_len=args.max_len,
-                            prefill_chunk=args.prefill_chunk,
-                            max_tokens=args.max_tokens,
-                            queue_size=args.queue_size, device=args.device,
-                            kv_layout=args.kv_layout,
-                            kv_block_size=args.kv_block_size,
-                            kv_num_blocks=args.kv_num_blocks,
-                            kv_prefix_cache=args.kv_prefix_cache,
-                            kv_dtype=args.kv_dtype)
+    return ap.parse_args(argv)
+
+
+def batcher_from_args(args, **model):
+    """``build_gen_batcher`` as the flags ``args`` ask (``model``
+    overrides ``BASE_LM`` keys)."""
+    return build_gen_batcher(seed=args.seed, slots=args.slots,
+                             max_len=args.max_len,
+                             prefill_chunk=args.prefill_chunk,
+                             max_tokens=args.max_tokens,
+                             queue_size=args.queue_size, device=args.device,
+                             kv_layout=args.kv_layout,
+                             kv_block_size=args.kv_block_size,
+                             kv_num_blocks=args.kv_num_blocks,
+                             kv_prefix_cache=args.kv_prefix_cache,
+                             kv_dtype=args.kv_dtype,
+                             quant_weights=bool(args.quant_weights),
+                             speculate_k=args.speculate_k,
+                             draft_layers=args.draft_layers, **model)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    gen = batcher_from_args(args)
     httpd = make_server(gen, host=args.host, port=args.port)
     logger.info("serving on http://%s:%d (/v1/generate)", args.host,
                 httpd.port)

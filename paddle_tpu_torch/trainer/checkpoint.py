@@ -11,7 +11,7 @@ for lists, tuples and None) and ``meta.json`` (``pass_id``,
 Writes are synchronous and crash-atomic: everything lands in a hidden
 ``.tmp-`` dir first and is renamed into place, so a crash mid-save
 never leaves a partial pass dir for the latest-pass pick to trip on.
-The JAX trainer's background writer waits for ROADMAP A item 3.
+The JAX trainer's background writer waits for ROADMAP A9·c.
 """
 
 import json

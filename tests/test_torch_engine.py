@@ -241,9 +241,10 @@ def test_close_drains_inflight_then_rejects(params):
 
 @pytest.mark.parametrize("kw", [dict(kv_layout="paged",
                                      kv_host_bytes=1 << 20),
-                                dict(kv_layout="paged", speculate_k=2),
+                                dict(kv_layout="paged", speculate_k=2,
+                                     kv_host_bytes=1 << 20),
                                 dict(kv_dtype="int8", mesh=object()),
-                                dict(speculate_k=2),
+                                dict(speculate_k=2, mesh=object()),
                                 dict(mesh=object()),
                                 dict(kv_host_bytes=1 << 20)])
 def test_options_not_yet_ported_raise_config_error(params, kw):

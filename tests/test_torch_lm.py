@@ -80,9 +80,18 @@ def test_params_from_numpy_round_trip_and_rejections():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_tf.params_from_numpy(
             dict(tree, enc=[dict(tree["enc"][0], moe={})]), device="cpu")
+    # an int8 tree round-trips: codes int8 and scales float32, bit for bit
     q = jax.tree_util.tree_map(np.asarray, quantize_lm(jp, min_size=64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_tf.params_from_numpy(q, device="cpu")
+    tq = torch_tf.params_from_numpy(q, device="cpu")
+    for got, want in ((tq["src_emb"], q["src_emb"]),
+                      (tq["enc"][0]["attn"]["wq"], q["enc"][0]["attn"]["wq"]),
+                      (tq["enc"][1]["ffn"]["w1"], q["enc"][1]["ffn"]["w1"])):
+        assert set(got) == {"q", "s"}
+        assert got["q"].dtype == torch.int8
+        assert got["s"].dtype == torch.float32
+        np.testing.assert_array_equal(got["q"].numpy(), want["q"])
+        np.testing.assert_array_equal(got["s"].numpy(), want["s"])
+    np.testing.assert_array_equal(tq["pos"].numpy(), q["pos"])
 
 
 def test_prefill_then_decode_step_match_jax(pair, np_rng):

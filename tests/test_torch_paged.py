@@ -418,10 +418,28 @@ def test_chunk_fed_pool_matches_own_prefill(pair, np_rng):
     np.testing.assert_allclose(
         logits.numpy(), torch_tf._lm_project(tp, hidden[:, -1]).numpy(),
         atol=TOL, rtol=TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_tf.lm_decode_chunk_paged(tp, toks, [0], [1], pool, tables,
-                                       heads, pos_type=pos_type,
-                                       all_lanes=True)
+    # all_lanes (the speculative verify surface): every fed lane's
+    # logits equal the slab twin's over the same prompt, lane by lane
+    slab = torch_tf.init_lm_cache(tp, 1, MAX_LEN)
+    pool = torch_tf.init_lm_cache_paged(tp, 20, BS, max_len=MAX_LEN)
+    for start in range(0, n, K):
+        piece = prompt[start:start + K]
+        toks = np.zeros((1, K), np.int32)
+        toks[0, :piece.size] = piece
+        got, pool = torch_tf.lm_decode_chunk_paged(
+            tp, toks, [start], [piece.size], pool, tables, heads,
+            pos_type=pos_type, all_lanes=True)
+        want, slab = torch_tf.lm_decode_chunk_slots(
+            tp, toks, [start], [piece.size], slab, heads,
+            pos_type=pos_type, all_lanes=True)
+        assert got.shape == (1, K, VOCAB)
+        np.testing.assert_allclose(got[0, :piece.size].numpy(),
+                                   want[0, :piece.size].numpy(), atol=TOL,
+                                   rtol=TOL)
+        np.testing.assert_allclose(
+            got[0, :piece.size].numpy(),
+            torch_tf._lm_project(tp, hidden[0, start:start + piece.size])
+            .numpy(), atol=TOL, rtol=TOL)
 
 
 # ------------------------------------------------------------ engine
