@@ -110,7 +110,12 @@ non-zero exit code and no final "ok" line:
             shape: flash_attention_quant launches once per layer; the int8
             prefill's logits within the budget (0.06) of the float32
             twin's; the greedy prefix shared with the float32 stream is
-            reported; two rows are held against the same call on the CPU
+            reported; two rows are held against the same call on the CPU;
+            the int8 KV quantizer (quant/kv.quantize_heads) on the card
+            against the CPU on the same inputs (the first layer's K and a
+            wide spread of random magnitudes), codes and scales bit for
+            bit, the Python-scalar division it no longer uses counted
+            beside it
   serve_int8  the serve phase over an int8 KV cache: the int8 chunk kernel
             once per layer per step, /metrics shows kv_cache_int8 1,
             streams held against the int8 lm_generate
@@ -143,6 +148,17 @@ non-zero exit code and no final "ok" line:
             the draft's chunk kernel once and its Tq=1 kernel 3 times per
             draft layer per rollout; acceptance rate, tokens a verify
             step and tokens/s beside the twin's
+  serve_moe  the LM's trunk with 8-expert top-2 FFNs (random from the
+            seed) behind the server in a slab engine over float32 KV and
+            a paged engine over int8 KV: 12 staggered requests each, the
+            chunk kernel of the cache once per layer per step, every
+            stream held against lm_generate over the same trunk (whose
+            prefill launches the flash kernel, or its int8 instance,
+            once per layer per call); first its prefill against a CPU
+            witness on the same inputs that routes by the card's expert
+            choices (logits, router probabilities, flips only at ties),
+            and the card's prefill under that probe bit for bit the one
+            without it
   ladder_dh256, ladder_dh256_int8  the ladder on the slab layout for an
             LM at D 512 over 2 heads (dh 256; 2 layers), float32 and int8
             KV: the wide flash instance (flash_attention_quant) once per
@@ -177,6 +193,26 @@ non-zero exit code and no final "ok" line:
             warm-up and timed steps at batch 32, each launching the flash
             forward, dK/dV and dQ kernels 18 times (6 encoder, 6 decoder
             self-, 6 cross-attentions); the loss is finite and falls
+  train_packed  bench.py's bench_transformer_packed ported: the
+            decoder-only trunk (vocab 32000, d_model 512, 8 heads, dff
+            2048, 6 layers) on 16 packed rows of 512 slots, lm_loss over
+            segment ids and within-segment positions, Adam lr 1e-4.  The
+            first step against a CPU witness on the same weights and
+            batch that keeps the card's ReLU decisions; warm-up and timed
+            steps, none launching a flash kernel (segmented attention is
+            the dense path); real tokens/s and the pack efficiency
+  train_moe  bench.py's bench_transformer_moe ported: that trunk with
+            8-expert top-2 FFNs at batch 16, length 512; the first step
+            (at MOE_CHECK_BATCH rows) against a CPU witness that keeps the
+            card's ReLU decisions and top-2 expert choices, the router's
+            probabilities, flips at ties only and the aux term checked;
+            timed steps at batch 16 launching no flash kernel
+  train_remat  the train_transformer step with remat=True (each block
+            recomputed in the backward) beside remat=False: the first
+            step's loss and gradients bit for bit equal, the flash
+            forward 36 times a step and dK/dV and dQ 18 (18 each
+            without), the step's memory peak lower with remat; ms/batch
+            of both
   train_seq2seq  bench.py's bench_seq2seq ported
             (scripts/bench.bench_seq2seq): the attention NMT model at
             vocab 30000 both sides, emb = hidden = attention 512, batch
@@ -206,6 +242,14 @@ non-zero exit code and no final "ok" line:
             forward, backward and update; then `python -m
             paddle_tpu_torch train` as a subprocess on a config file,
             whose pass dir SGD.load restores bit for bit
+  train_int8  bench.py's bench_trainer_int8 ported: SGD(quant_weights=True)
+            on an fc classifier (batch 64, dim 64, hidden 128): the first
+            step's int8 twin (initial and requantized after the update)
+            bit for bit the CPU's on the same masters; 24 batches beside
+            the float32 twin, the loss gap within quant/weights'
+            TRAIN_LOSS_BUDGET (0.05); between steps only int8 codes and
+            float32 scales of the quantized weight (and no widened
+            float32 copy) live; ms/batch of both
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -378,6 +422,40 @@ MT_PRE_TOL = 2e-5
 MT_GRAD_TOL = 4e-3
 MT_WARMUP, MT_STEPS = 2, 10
 MT_ATTENTIONS = 18
+# train_remat: the MT step with every block recomputed in the backward
+# (torch.utils.checkpoint, as JAX's jax.checkpoint): each attention's
+# flash forward runs twice a step (the forward and the recompute), its
+# dK/dV and dQ once; the first step's loss and gradients bit for bit
+# those of the step without remat (the same kernels on the same inputs)
+REMAT_FWD = 2 * MT_ATTENTIONS
+# The packed and MoE LM train phases: bench.py's bench_transformer_packed
+# and bench_transformer_moe at their defaults (B 16 x 512; the serving
+# LM's widths, 6 layers; the MoE FFNs MOE_EXPERTS experts, top
+# MOE_TOP_K).  JAX routes their segmented or key-masked attention to the
+# dense path, so neither launches a flash kernel.  The first step is held
+# as train_transformer's: the pre-activations within MT_PRE_TOL of the
+# CPU's (their ReLU flips counted), then loss, every gradient leaf and
+# Adam slot within TRAIN_REL_TOL of the largest entry of a CPU witness
+# step on the same weights and batch that keeps the card's ReLU
+# decisions and, for the mixture, its top-2 expert choices: a router
+# probability near-tied with the next may rank the other way on the CPU,
+# which moves a whole expert's share of that token.  The router's
+# probabilities are held within MT_PRE_TOL, and each row whose choice
+# flipped must be a tie on the CPU (its k-th and (k+1)-th probabilities
+# within MOE_TIE_TOL).  The MoE check runs at MOE_CHECK_BATCH rows (every
+# expert runs on every token, on the host's cores too), the timed steps
+# at the defaults.
+LM_WARMUP, LM_STEPS = 2, 10
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_CHECK_BATCH = 4
+MOE_TIE_TOL = 1e-5
+# serve_moe: the MoE trunk's prefill logits on the card against a CPU
+# witness that routes by the card's expert choices; float32 with TF32 off
+# on both sides, so they agree to ~1e-6, and 1e-3 bounds that with room
+# while a wrong expert, gate or product moves them by far more
+MOE_CPU_TOL = 1e-3
+# train_int8: the int8 trainer's and its float32 twin's timed steps
+INT8_TRAIN_STEPS = 20
 # The flash route at a head dim between the compiled ones (JAX's kernel
 # takes any up to 128; the port's wrappers pad it to the next compiled
 # width), held like the train shape's checks.
@@ -2721,7 +2799,9 @@ def run_generate_int8(torch, dev, transformer, kernels, params, rng):
     flash_attention_quant once per layer (the float32 flash kernel not
     at all); the int8 prefill's logits within LOGIT_ERR_BUDGET of its
     float32 twin's; the greedy prefix each stream shares with the float32
-    stream reported; two rows held against the same call on the CPU."""
+    stream reported; two rows held against the same call on the CPU; and
+    the int8 KV quantizer on the card against the CPU's on the same
+    inputs, bit for bit (check_kv_quantizer)."""
     from paddle_tpu_torch.quant import kv as kvq
     fk = kernels.flash_attention
     prompt = rng.randint(3, VOCAB, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
@@ -2771,6 +2851,8 @@ def run_generate_int8(torch, dev, transformer, kernels, params, rng):
                  f"disagree within the first {n + 1} tokens above margin "
                  f"{MARGIN_TOL}")
         checked += n
+    quantizer = check_kv_quantizer(torch, dev, transformer, params,
+                                   prompt[:8], rng)
     emit({"phase": "generate_int8", "batch": GEN_BATCH, "prompt": GEN_PROMPT,
           "max_len": GEN_MAX_LEN, "seconds": dt,
           "emitted_tokens_per_s": GEN_BATCH * (GEN_MAX_LEN - GEN_PROMPT)
@@ -2783,7 +2865,8 @@ def run_generate_int8(torch, dev, transformer, kernels, params, rng):
                                    "max": max(prefix),
                                    "of": GEN_MAX_LEN - GEN_PROMPT},
           "cpu_tokens_checked": checked,
-          "cpu_tokens_total": 2 * (GEN_MAX_LEN - GEN_PROMPT)})
+          "cpu_tokens_total": 2 * (GEN_MAX_LEN - GEN_PROMPT),
+          "quantize_heads_vs_cpu": quantizer})
     return launches
 
 
@@ -3815,6 +3898,479 @@ def run_train_rnn(torch, dev, kernels, seed):
     return launches
 
 
+@contextlib.contextmanager
+def moe_probe(torch, moe, record, given=None):
+    """Within it, ``ops/moe.moe_ffn`` (the MoE blocks' FFN) appends per
+    call, in call order, to ``record``: its own top-k mask (on the CPU),
+    the router probabilities, the experts' pre-activations and the aux
+    term.  With ``given`` [(mask, signs or None), ...] in the same order,
+    each call routes by the given mask instead of its own and, where
+    signs are given, keeps the given ReLU decisions (pre * signs: relu's
+    value and gradient wherever the two agree): the CPU witness of the
+    card's decisions.  The arithmetic is ``moe_ffn``'s own, which the
+    phases show by comparing a run under the probe with one without it."""
+    plain = moe.moe_ffn
+    given = None if given is None else iter(given)
+
+    def moe_ffn(x, params, top_k=2, act=None, return_aux=False, valid=None):
+        probs = moe.router_probs(x, params["wg"])
+        own = moe.top_k_mask(probs, top_k)
+        mask, signs = (own, None) if given is None else next(given)
+        kept = probs * mask.to(probs.device, probs.dtype)
+        gates = kept / torch.clamp(kept.sum(-1, keepdim=True), min=1e-9)
+        pre = torch.einsum("btd,edf->btef", x, params["w1"])
+        h = act(pre) if signs is None else pre * signs.to(pre.device)
+        y = torch.einsum("btef,efd->bted", h, params["w2"])
+        out = torch.einsum("bted,bte->btd", y, gates)
+        aux = moe.aux_load_balance_loss(probs, gates, top_k, valid)
+        record.append({"mask": own.bool().cpu(),
+                       "probs": probs.detach().cpu(),
+                       "pre": pre.detach().cpu(), "aux": aux.detach().cpu()})
+        return (out, aux) if return_aux else out
+
+    moe.moe_ffn = moe_ffn
+    try:
+        yield
+    finally:
+        moe.moe_ffn = plain
+
+
+def moe_first_step(torch, moe, run, record, given=None):
+    """One train step of ``run`` under ``moe_probe``: (loss, grads on the
+    CPU, m slots, v slots)."""
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    with moe_probe(torch, moe, record, given):
+        loss = float(run.train_step())
+    slots = run.opt_state["slots"]
+    return (loss, [p.grad.cpu() for p in tree_leaves(run.params)],
+            [m.cpu() for m in tree_leaves(slots["m"])],
+            [v.cpu() for v in tree_leaves(slots["v"])])
+
+
+def largest_err(got, want):
+    """Each pair's max abs difference over the reference's largest
+    magnitude."""
+    return [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+def router_check(card_rec, cpu_rec, top_k):
+    """The card's router against the CPU's on the same inputs: the
+    probabilities' largest error, the rows whose top-k set differs (the
+    flips) and, on the CPU, the largest gap between a flipped row's k-th
+    and (k+1)-th probability (a flip within rounding is a tie)."""
+    probs_err = max(largest_err([r["probs"] for r in card_rec],
+                                [r["probs"] for r in cpu_rec]))
+    flips, tie_gap = 0, 0.0
+    for a, b in zip(card_rec, cpu_rec):
+        rows = (a["mask"] != b["mask"]).any(-1)
+        if rows.any():
+            flips += int(rows.sum())
+            top = b["probs"][rows].sort(dim=-1, descending=True).values
+            tie_gap = max(tie_gap, float(
+                (top[:, top_k - 1] - top[:, top_k]).max()))
+    return probs_err, flips, tie_gap
+
+
+def run_train_lm(torch, dev, kernels, kind):
+    """bench_transformer_packed (phase "train_packed") or
+    bench_transformer_moe ("train_moe") on the card.  The first step is
+    held against a CPU witness on the same weights and batch that keeps
+    the card's ReLU decisions (and its top-2 expert choices), the
+    packed one at the bench's defaults, the MoE one at MOE_CHECK_BATCH
+    rows; then LM_WARMUP + LM_STEPS steps at the defaults, each
+    launching no flash kernel (the segmented / key-masked attention is
+    the dense path, as JAX routes it), the loss finite and falling."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import moe
+    from paddle_tpu_torch.scripts import bench
+    fk = kernels.flash_attention
+    phase = f"train_{kind}"
+    is_moe = kind == "moe"
+    make = (bench.bench_transformer_moe if is_moe
+            else bench.bench_transformer_packed)
+    kw = {"batch": MOE_CHECK_BATCH} if is_moe else {}
+    card_run = make(device=dev, **kw)
+    cpu_run = make(device="cpu", **kw)
+    names = leaf_names(cpu_run.params)
+    card_rec, cpu_rec = [], []
+    check = {"batch": MOE_CHECK_BATCH if is_moe else card_run.tokens.data
+             .shape[0]}
+    if is_moe:
+        # the port's moe_ffn and the probe's arithmetic: the same loss
+        with torch.no_grad():
+            unprobed = float(transformer.lm_loss(
+                card_run.params, card_run.tokens, HEADS))
+        card = moe_first_step(torch, moe, card_run, card_rec)
+        witness = moe_first_step(torch, moe, cpu_run, cpu_rec,
+                                 [(r["mask"], r["pre"] > 0)
+                                  for r in card_rec])
+        probs_err, router_flips, tie_gap = router_check(card_rec, cpu_rec,
+                                                        MOE_TOP_K)
+        card_pre = [r["pre"] for r in card_rec]
+        cpu_pre = [r["pre"] for r in cpu_rec]
+        aux = float(sum(r["aux"] for r in card_rec))
+        aux_cpu = float(sum(r["aux"] for r in cpu_rec))
+        aux_err = abs(aux - aux_cpu) / abs(aux_cpu)
+        check.update({"probe_vs_port_loss": [card[0], unprobed],
+                      "router_probs_rel_err_max": probs_err,
+                      "router_flips": router_flips,
+                      "router_flip_tie_gap_max": tie_gap,
+                      "router_tie_bound": MOE_TIE_TOL,
+                      "aux_card": aux, "aux_witness": aux_cpu,
+                      "aux_rel_err": aux_err})
+        if card[0] != unprobed or not probs_err <= MT_PRE_TOL \
+                or not tie_gap <= MOE_TIE_TOL \
+                or not aux_err <= TRAIN_REL_TOL or not math.isfinite(aux):
+            fail(f"{phase}: first step's router and aux vs the CPU witness: "
+                 f"{check} (bounds: probs {MT_PRE_TOL}, aux "
+                 f"{TRAIN_REL_TOL})")
+    else:
+        card_pre, cpu_pre = [], []
+        card = first_step(torch, transformer, card_run, card_pre)
+        witness = first_step(torch, transformer, cpu_run, cpu_pre,
+                             [p > 0 for p in card_pre])
+    del cpu_run
+    pre_err = largest_err(card_pre, cpu_pre)
+    flips = sum(int(((a > 0) != (b > 0)).sum())
+                for a, b in zip(card_pre, cpu_pre))
+    del card_pre, cpu_pre, card_rec, cpu_rec
+    loss_err = abs(card[0] - witness[0]) / abs(witness[0])
+    leaf_err = largest_err(card[1] + card[2] + card[3],
+                           witness[1] + witness[2] + witness[3])
+    slot_names = [f"{k} {n}" for k in ("grad", "m", "v") for n in names]
+    check.update({"loss_rel_err": loss_err, "ffn_pre_rel_err_max":
+                  max(pre_err), "ffn_pre_bound": MT_PRE_TOL,
+                  "relu_flips": flips,
+                  "vs_witness_largest_entry_rel_err_max": max(leaf_err),
+                  "bound": TRAIN_REL_TOL})
+    if not max(pre_err) <= MT_PRE_TOL \
+            or not max(leaf_err + [loss_err]) <= TRAIN_REL_TOL:
+        fail(f"{phase}: first step on the card vs the CPU witness: "
+             f"{check}; per leaf {dict(zip(slot_names, leaf_err))}")
+    del witness, card
+    if is_moe:
+        del card_run
+        card_run = make(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    for i in range(LM_WARMUP + LM_STEPS):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss = card_run.train_step()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        per_step.append((fk.launches, fk.launches_bwd_dkv,
+                         fk.launches_bwd_dq))
+        if i >= LM_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if any(n != (0, 0, 0) for n in per_step):
+        fail(f"{phase}: flash kernels launched {per_step} (forward, dK/dV, "
+             "dQ a step), want none: the attention is the dense path")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"{phase}: loss not finite or not falling: {losses}")
+    ms = float(np.median(times))
+    batch = card_run.tokens.data.shape[0]
+    emit({"phase": phase, "config": {
+        "vocab": VOCAB, "d_model": D_MODEL, "heads": HEADS, "dff": DFF,
+        "layers": LAYERS, "batch": batch,
+        "slots" if not is_moe else "seq_len": card_run.tokens.data.shape[1],
+        **({"experts": MOE_EXPERTS, "moe_top_k": MOE_TOP_K} if is_moe
+           else {}), "optimizer": "Adam lr 1e-4", "remat": card_run.remat},
+        "warmup": LM_WARMUP, "steps": LM_STEPS, "ms_per_batch": ms,
+        "ms_per_batch_min_max": [min(times), max(times)],
+        "real_tokens_per_s" if not is_moe else "tokens_per_s":
+            card_run.tokens_per_step / (ms / 1e3),
+        **({} if is_moe else {"real_tokens_per_step":
+                              card_run.tokens_per_step,
+                              "pack_efficiency": card_run.pack_efficiency}),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "flash_launches": 0, "loss_first": losses[0],
+        "loss_last": losses[-1], "first_step_vs_cpu_witness": check})
+    return {fk.NAME: 0, fk.NAME_BWD_DKV: 0, fk.NAME_BWD_DQ: 0}
+
+
+def run_train_remat(torch, dev, kernels):
+    """bench_transformer (the MT step at its shape) with remat=False and
+    remat=True on the card: the first step's loss and every gradient
+    bit for bit equal, the step's memory peak above what was allocated
+    before it lower with remat; then MT_WARMUP + MT_STEPS timed steps of
+    each with the flash launches read every step (the forward twice per
+    attention under remat, the backward pair once)."""
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    fk = kernels.flash_attention
+    runs = {}
+    for remat in (False, True):
+        run = bench.bench_transformer(remat=remat, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        loss = run.train_step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        first = (loss.clone(), [p.grad.clone()
+                                for p in tree_leaves(run.params)],
+                 (fk.launches, fk.launches_bwd_dkv, fk.launches_bwd_dq))
+        times, per_step, losses = [], [], [float(loss)]
+        for i in range(MT_WARMUP + MT_STEPS):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            loss = run.train_step()
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            per_step.append((fk.launches, fk.launches_bwd_dkv,
+                             fk.launches_bwd_dq))
+            if i >= MT_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+        runs[remat] = {"first": first, "peak": peak, "times": times,
+                       "per_step": [first[2]] + per_step, "losses": losses}
+        del run
+    off, on = runs[False], runs[True]
+    loss_equal = bool(torch.equal(on["first"][0], off["first"][0]))
+    grads_differing = [i for i, (a, b) in enumerate(zip(on["first"][1],
+                                                        off["first"][1]))
+                       if not torch.equal(a, b)]
+    want = {False: (MT_ATTENTIONS,) * 3,
+            True: (REMAT_FWD, MT_ATTENTIONS, MT_ATTENTIONS)}
+    for remat, r in runs.items():
+        if any(n != want[remat] for n in r["per_step"]):
+            fail(f"train_remat: remat={remat}: per-step (forward, dK/dV, "
+                 f"dQ) launches {r['per_step']}, want {want[remat]}")
+        if not all(math.isfinite(x) for x in r["losses"]) \
+                or not r["losses"][-1] < r["losses"][0]:
+            fail(f"train_remat: remat={remat}: loss not finite or not "
+                 f"falling: {r['losses']}")
+    if not loss_equal or grads_differing:
+        fail(f"train_remat: the first step with remat is not bit for bit "
+             f"the step without: loss equal {loss_equal}, gradient leaves "
+             f"differing {grads_differing}")
+    if not on["peak"] < off["peak"]:
+        fail(f"train_remat: the step's memory peak with remat "
+             f"{on['peak']} is not below the peak without {off['peak']}")
+    ms = {r: float(np.median(v["times"])) for r, v in runs.items()}
+    emit({"phase": "train_remat", "config": {
+        "vocab": VOCAB, "d_model": D_MODEL, "heads": MT_HEADS, "dff": DFF,
+        "layers": "6+6", "batch": MT_BATCH, "seq_len": MT_SEQ,
+        "optimizer": "Adam lr 1e-4", "label_smoothing": 0.1,
+        "full_seq": True},
+        "warmup": MT_WARMUP, "steps": MT_STEPS,
+        "first_step_bit_for_bit": {"loss": loss_equal,
+                                   "gradient_leaves": len(on["first"][1]),
+                                   "differing": len(grads_differing)},
+        "launches_per_step": {str(r): dict(zip(
+            (fk.NAME, fk.NAME_BWD_DKV, fk.NAME_BWD_DQ), want[r]))
+            for r in runs},
+        "step_memory_peak_bytes": {"remat_false": off["peak"],
+                                   "remat_true": on["peak"]},
+        "ms_per_batch": {"remat_false": ms[False], "remat_true": ms[True]},
+        "tokens_per_s": {str(r): MT_BATCH * MT_SEQ / (m / 1e3)
+                         for r, m in ms.items()},
+        "loss_first_last": {str(r): [v["losses"][0], v["losses"][-1]]
+                            for r, v in runs.items()}})
+    steps = 1 + MT_WARMUP + MT_STEPS
+    return {fk.NAME: REMAT_FWD * steps, fk.NAME_BWD_DKV: MT_ATTENTIONS * steps,
+            fk.NAME_BWD_DQ: MT_ATTENTIONS * steps}
+
+
+def qtree_diff(got, want):
+    """(codes differing, scales differing) between two int8 twins."""
+    codes = scales = 0
+    for key in want:
+        codes += int((got[key]["q"].cpu() != want[key]["q"].cpu()).sum())
+        scales += int((got[key]["s"].cpu() != want[key]["s"].cpu()).sum())
+    if set(got) != set(want):
+        codes += 1
+    return codes, scales
+
+
+def run_train_int8(torch, dev, kernels):
+    """bench_trainer_int8 on the card: the first step against the CPU's
+    (the int8 twin of the initial masters, and the card's requantization
+    of its updated masters against the CPU's of the same masters, codes
+    and scales bit for bit; the loss and masters within TRAIN_REL_TOL);
+    then the int8 trainer beside its float32 twin over 24 batches, the
+    loss gap within quant/weights.TRAIN_LOSS_BUDGET, what the trainer
+    keeps between steps (bench.weights_quantized), and the step's ms."""
+    from paddle_tpu_torch.quant.weights import TRAIN_LOSS_BUDGET
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+    card = bench.bench_trainer_int8(device=dev)
+    cpu = bench.bench_trainer_int8(device="cpu")
+    q0 = qtree_diff(card.trainer._qtree, cpu.trainer._qtree)
+    first = float(card.trainer.train_one_batch(card.batches[0], card.feeder))
+    first_cpu = float(cpu.trainer.train_one_batch(cpu.batches[0],
+                                                  cpu.feeder))
+    masters = tree_map(lambda t: t.detach().cpu(), card.trainer.parameters)
+    q1 = qtree_diff(card.trainer._qtree,
+                    cpu.trainer._requant(masters))
+    master_err = max(largest_err(tree_leaves(masters), [
+        t.detach() for t in tree_leaves(cpu.trainer.parameters)]))
+    loss_err = abs(first - first_cpu) / abs(first_cpu)
+    first_check = {"initial_twin_codes_scales_differing": q0,
+                   "requantized_codes_scales_differing": q1,
+                   "loss_rel_err": loss_err,
+                   "master_largest_entry_rel_err_max": master_err,
+                   "bound": TRAIN_REL_TOL}
+    if q0 != (0, 0) or q1 != (0, 0) \
+            or not max(loss_err, master_err) <= TRAIN_REL_TOL:
+        fail(f"train_int8: the first step on the card vs the CPU: "
+             f"{first_check}")
+    del card, cpu, masters
+    run = bench.bench_trainer_int8(device=dev)
+    gap, q_losses, f_losses = bench.int8_loss_gap(run)
+    if not gap <= TRAIN_LOSS_BUDGET or not all(
+            math.isfinite(x) for x in q_losses) \
+            or not q_losses[-1] < q_losses[0]:
+        fail(f"train_int8: loss gap {gap} (budget {TRAIN_LOSS_BUDGET}); "
+             f"int8 losses {q_losses}")
+    shapes = bench.weights_quantized(run.trainer, others=(run.twin,))
+    ms = {}
+    for name, trainer in (("int8", run.trainer), ("float32", run.twin)):
+        times = []
+        for i in range(INT8_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            trainer.train_one_batch(run.batches[i % len(run.batches)],
+                                    run.feeder)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(times))
+    emit({"phase": "train_int8", "config": {
+        "batch": 64, "dim": 64, "hidden": 128, "batches": len(run.batches),
+        "quant_min_size": 1024, "optimizer": "Momentum lr 0.01 m 0.9",
+        "entry": "trainer.SGD(quant_weights=True).train_one_batch"},
+        "first_step_vs_cpu": first_check,
+        "loss_gap_max": gap, "loss_gap_budget": TRAIN_LOSS_BUDGET,
+        "loss_int8_first_last": [q_losses[0], q_losses[-1]],
+        "loss_f32_first_last": [f_losses[0], f_losses[-1]],
+        "quantized_weight_shapes": [list(s) for s in shapes],
+        "weights_between_steps": "int8 codes + float32 scales; no widened "
+                                 "float32 copy live",
+        "ms_per_batch": ms})
+
+
+def run_serve_moe(torch, dev, transformer, kernels, seed, rng):
+    """The LM's trunk with MOE_EXPERTS-expert top-MOE_TOP_K FFNs, random
+    from ``seed``, behind the server in a slab engine over float32 KV and
+    a paged engine over int8 KV: 12 staggered requests each, the chunk
+    kernel of the cache once per layer per step, every stream against
+    lm_generate over the same trunk.  First its prefill (w8_prompt) on
+    the card against a CPU witness on the same inputs that routes by the
+    card's expert choices: logits within MOE_CPU_TOL, the router's
+    probabilities within MT_PRE_TOL, every flipped choice a tie; and the
+    card's prefill under the probe bit for bit the one without it."""
+    from paddle_tpu_torch.ops import moe
+    from paddle_tpu_torch.serving import DecodeEngine
+    from paddle_tpu_torch.utils.tree import tree_map
+    dk = kernels.decode_attention
+    params = transformer.init_lm(
+        torch.Generator().manual_seed(seed), VOCAB, D_MODEL, HEADS, DFF,
+        LAYERS, SERVE_MAX_LEN, moe_experts=MOE_EXPERTS, device=dev)
+    prompt = w8_prompt(seed)
+
+    def prefill_logits(p):
+        h, _ = transformer.lm_prefill(p, prompt, GEN_PROMPT, HEADS)
+        return transformer._lm_project(p, h).cpu()
+
+    card_rec, cpu_rec = [], []
+    plain = prefill_logits(params)
+    with moe_probe(torch, moe, card_rec):
+        probed = prefill_logits(params)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    with moe_probe(torch, moe, cpu_rec, [(r["mask"], None)
+                                         for r in card_rec]):
+        witness = prefill_logits(cpu_params)
+    del cpu_params
+    probs_err, flips, tie_gap = router_check(card_rec, cpu_rec, MOE_TOP_K)
+    del card_rec, cpu_rec
+    diff = float((probed - witness).abs().max())
+    check = {"logits_max_abs_diff": diff, "tolerance": MOE_CPU_TOL,
+             "router_probs_rel_err_max": probs_err, "router_flips": flips,
+             "router_flip_tie_gap_max": tie_gap,
+             "probe_bit_for_bit": bool(torch.equal(plain, probed))}
+    if not check["probe_bit_for_bit"] or not diff <= MOE_CPU_TOL \
+            or not probs_err <= MT_PRE_TOL or not tie_gap <= MOE_TIE_TOL:
+        fail(f"serve_moe: the card's prefill vs the CPU witness: {check}")
+    record = {"phase": "serve_moe", "config": {
+        "vocab": VOCAB, "d_model": D_MODEL, "heads": HEADS, "dff": DFF,
+        "layers": LAYERS, "experts": MOE_EXPERTS, "moe_top_k": MOE_TOP_K,
+        "slots": SLOTS, "max_len": SERVE_MAX_LEN, "chunk": CHUNK},
+        "prefill_vs_cpu_witness": check}
+    n_tok = 32
+    launches = {}
+    for name, kw, kernel in (
+            ("slab_f32kv", dict(kv_dtype="float32"), dk.NAME),
+            ("paged_i8kv", dict(kv_layout="paged", kv_block_size=PAGE_BS,
+                                kv_dtype="int8"), dk.NAME_PAGED_CHUNK_I8)):
+        engine = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                              max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                              name=f"moe_{name}", device=dev, **kw)
+        prompts, starts = serve_prompts(rng)
+        run = serve_http(torch, kernels, engine, prompts, n_tok, starts)
+        run["gen"].close()
+        check_served(run, n_tok, f"serve_moe ({name})")
+        got, steps = run["launches"], run["steps"]
+        if got[kernel] != LAYERS * steps \
+                or any(n for k, n in got.items() if k != kernel):
+            fail(f"serve_moe ({name}): launches {got} over {steps} steps, "
+                 f"want {kernel} {LAYERS * steps} and no other")
+        if engine._paged is not None:
+            engine._paged.check()
+        kernels.reset_launches()
+        checked = check_streams(torch, transformer, params, prompts,
+                                [r[1] for r in run["results"]],
+                                f"serve_moe ({name})", kw["kv_dtype"])
+        torch.cuda.synchronize()
+        flash = launch_counts(kernels)[
+            "flash_attention" if kw["kv_dtype"] == "float32"
+            else kernels.flash_attention.NAME_QUANT]
+        if flash != 2 * LAYERS * len(prompts):
+            fail(f"serve_moe ({name}): the oracle launched the prefill's "
+                 f"flash kernel {flash} times, want "
+                 f"{2 * LAYERS * len(prompts)}")
+        record[name] = {**step_line(run, n_tok),
+                        "tokens_checked_vs_lm_generate": checked,
+                        "tokens_total": len(prompts) * n_tok,
+                        "oracle_flash_launches": flash}
+        launches[name] = dict(got, oracle_flash=flash)
+    emit(record)
+    return launches
+
+
+def check_kv_quantizer(torch, dev, transformer, params, prompt, rng):
+    """quant/kv.quantize_heads on the card against the CPU on the same
+    inputs (ROADMAP C7): the first layer's K of ``prompt`` and a wide
+    spread of random magnitudes, codes and scales bit for bit.  The
+    scalar division the quantizer no longer uses (PyTorch's CUDA div
+    multiplies by a Python scalar's reciprocal) is counted beside it."""
+    from paddle_tpu_torch.quant import kv as kvq
+    blk = params["enc"][0]
+    x = transformer._lm_embed(params, transformer._ids(prompt, dev))
+    x = x * math.sqrt(D_MODEL) + params["pos"][:prompt.shape[1]][None]
+    k = transformer.linear.matmul(transformer._ln(blk["ln1"], x),
+                                  blk["attn"]["wk"])
+    wide = torch.tensor(normal(rng, (64, 256, D_MODEL))
+                        * np.exp(2 * normal(rng, (64, 256, 1))),
+                        device=dev)
+    out = {}
+    for name, t in (("layer0_k", k), ("random", wide)):
+        q, s = kvq.quantize_heads(t, HEADS)
+        qc, sc = kvq.quantize_heads(t.cpu(), HEADS)
+        scalar = t.reshape(t.shape[:-1] + (HEADS, -1)).abs().amax(-1) / 127.0
+        out[name] = {"values": t.numel(), "scales": s.numel(),
+                     "codes_differing": int((q.cpu() != qc).sum()),
+                     "scales_differing": int((s.cpu() != sc).sum()),
+                     "scalar_division_scales_differing": int(
+                         (scalar.cpu() != sc).sum())}
+    if any(r["codes_differing"] or r["scales_differing"]
+           for r in out.values()):
+        fail(f"quantize_heads on the card vs the CPU: {out}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3966,6 +4522,8 @@ def main(argv=None):
     spec_launches = run_serve_spec(torch, dev, transformer, kernels, params,
                                    args.seed, rng)
     del params
+    moe_launches = run_serve_moe(torch, dev, transformer, kernels, args.seed,
+                                 rng)
     # the same ladder at D 512 over 2 heads (dh 256: the wide flash
     # instances in the prefill, the Tq=1 kernels at that width), depth cut
     params = transformer.init_lm(
@@ -3982,8 +4540,13 @@ def main(argv=None):
                                  check_batch=b)
                     for h, b in ((1280, None), (2048, 8))}
     mt_launches = run_train_transformer(torch, dev, kernels)
+    lm_train_launches = {f"train_{kind}": run_train_lm(torch, dev, kernels,
+                                                       kind)
+                         for kind in ("packed", "moe")}
+    lm_train_launches["train_remat"] = run_train_remat(torch, dev, kernels)
     s2s_launches = run_train_seq2seq(torch, dev, kernels)
     rnn_launches = run_train_rnn(torch, dev, kernels, args.seed)
+    run_train_int8(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -4176,21 +4739,27 @@ def main(argv=None):
     summary[-1]["dh256"] = {key: flash_q_wide[key] for key in (
         "shape", "max_abs_err", "ms", "f32_kernel_ms", "plain_ms",
         "bound_ms", "bound_by")}
-    # the int8-weight and speculative serving phases' launches, by row
+    # the int8-weight, speculative and MoE serving phases' launches, by
+    # row, and the packed, MoE and remat train phases' flash launches
     for row in summary:
         extra = {}
         for phase, runs in (("serve_w8", w8_launches),
-                            ("serve_spec", spec_launches)):
+                            ("serve_spec", spec_launches),
+                            ("serve_moe", moe_launches)):
             n = sum(got.get(row["name"], 0) for got in runs.values())
-            if phase == "serve_w8" and row["name"] in (
+            if phase in ("serve_w8", "serve_moe") and row["name"] in (
                     fk.NAME, fk.NAME_QUANT):
                 # the oracle's prefill: float32 KV (slab), int8 (paged)
-                n = w8_launches["slab_f32kv" if row["name"] == fk.NAME
-                                else "paged_i8kv"]["oracle_flash"]
+                n = runs["slab_f32kv" if row["name"] == fk.NAME
+                         else "paged_i8kv"]["oracle_flash"]
             if n:
                 extra[phase] = n
         if extra:
             row["launches_serving_variants"] = extra
+        if row["name"] in (fk.NAME, fk.NAME_BWD_DKV, fk.NAME_BWD_DQ):
+            row["launches_train_variants"] = {
+                phase: got[row["name"]]
+                for phase, got in lm_train_launches.items()}
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -141,8 +141,9 @@ def packed(reader, max_len, buffer_size=256, pad_value=0):
     positions) rows of width max_len (core.sequence.pack_sequences):
     several short sequences share a row, and the segment ids keep
     attention block-diagonal per segment (``ops/attention``'s
-    ``segment_mask`` / ``chunked_attention``; the LM's packed-row entry,
-    ``models/transformer.encode(segment_ids=)``, is ROADMAP A2).  Buffers
+    ``segment_mask`` / ``chunked_attention``; the LM trains such rows
+    through ``models/transformer.lm_loss(segment_ids=, positions=)``).
+    Buffers
     `buffer_size` sequences per packing round
     so first-fit has material to work with; yields one packed ROW per
     item (compose with batch() for [B, max_len] feeds).  Sequences longer

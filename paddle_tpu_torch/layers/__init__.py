@@ -4,8 +4,8 @@ graph IR (``paddle_tpu/layers``), under the JAX names: a config written
 
 Ported: the graph (``Topology``, ``LayerOutput``, ``Context``,
 ``params_from_numpy``), the data / fc / embedding / concat / pooling
-layers and the classification cost (``api.py``), and the whole-sequence
-recurrent layers (``recurrent.py``).  The vision, networks and
+layers, the classification cost and ``moe_layer`` (``api.py``), and the
+whole-sequence recurrent layers (``recurrent.py``).  The vision, networks and
 generation modules, ``recurrent_group`` and the layer arithmetic wait
 for ROADMAP A10·b.
 """

@@ -1,9 +1,9 @@
 """v1-DSL layer ctors (``paddle_tpu/layers/api.py``): the data, fc and
 embedding layers, sequence pooling, concat and the classification cost —
 the layers of the reference's RNN text classifier and the two DSL demos
-(quick_start, sentiment).  The rest of ``api.py`` (mixed layers and
-projections, the elementwise and cost zoo, crf, ctc, nce, hsigmoid)
-waits for ROADMAP A10·b.
+(quick_start, sentiment) — and the mixture-of-experts ``moe_layer``.
+The rest of ``api.py`` (mixed layers and projections, the elementwise
+and cost zoo, crf, ctc, nce, hsigmoid) waits for ROADMAP A10·b.
 
 Every ctor returns a LayerOutput graph node; ``graph.Topology`` runs it.
 Initializers follow the JAX package's rules (weights normal with std
@@ -20,12 +20,14 @@ from paddle_tpu_torch.layers.graph import (
     LayerOutput, register_layer, auto_name, map_rows, as_seq, value_data,
     dropout)
 from paddle_tpu_torch.ops import activations, linear, losses
+from paddle_tpu_torch.ops import moe as moe_ops
 from paddle_tpu_torch.ops import embedding as emb_ops
 from paddle_tpu_torch.ops import sequence as seq_ops
 from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = [
-    "data_layer", "fc_layer", "embedding_layer", "concat_layer",
+    "data_layer", "fc_layer", "moe_layer", "embedding_layer",
+    "concat_layer",
     "pooling_layer", "pooling", "last_seq", "first_seq",
     "classification_cost",
 ]
@@ -137,6 +139,45 @@ class _FcImpl:
 
 
 register_layer("fc")(_FcImpl)
+
+
+# ---------------------------------------------------------------- moe
+
+class _MoeImpl:
+    """Mixture-of-experts FFN over the row dimension (``ops/moe.py``)."""
+
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def init(self, gen, cfg, in_sizes):
+        return moe_ops.init_moe(gen, in_sizes[0], cfg["expert_dim"],
+                                cfg["n_experts"], device=gen.device)
+
+    def apply(self, ctx, cfg, params, x):
+        def fn(d):
+            # moe_ffn takes [B, T, D]: any leading dims (a dense [B, D],
+            # a sequence's [B, T, D]) flatten to one row and come back
+            lead = d.shape[:-1]
+            out = moe_ops.moe_ffn(d.reshape(1, -1, d.shape[-1]), params,
+                                  top_k=cfg["top_k"])
+            return out.reshape(*lead, d.shape[-1])
+        return map_rows(fn, x)
+
+
+register_layer("moe")(_MoeImpl)
+
+
+def moe_layer(input, n_experts, expert_dim=None, top_k=2, name=None):
+    """Gated mixture-of-experts FFN: ``n_experts`` experts of hidden width
+    ``expert_dim`` (default 4x the input size), top_k-gated (tanh-GELU
+    experts), residual-free.  Output size == input size."""
+    ins = _inputs_list(input)
+    if len(ins) != 1:
+        raise ConfigError("moe_layer takes a single input (got "
+                          f"{len(ins)}); concat upstream if needed")
+    cfg = {"n_experts": n_experts, "top_k": top_k,
+           "expert_dim": expert_dim or 4 * ins[0].size}
+    return LayerOutput(name or auto_name("moe"), "moe", ins[0].size, ins, cfg)
 
 
 def fc_layer(input, size, act="tanh", name=None, bias_attr=True,

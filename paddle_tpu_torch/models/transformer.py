@@ -42,20 +42,30 @@ weights are a transient of the call, as in the JAX package's step.  The training
 ``ops/attention.dot_product_attention``'s flash route: the flash forward
 and its dK/dV and dQ kernels, through ``FlashAttention``.
 
-Not ported (ROADMAP): MoE blocks, tensor-parallel ``shard_axis``, ``remat``, the sequence-parallel ring (``mesh``,
-``zigzag``), packed rows (``segment_ids``/``positions``) and beam-search
-generation.
+A block's FFN is dense (``"ffn"``) or, with ``moe_experts``, a top-k
+mixture of experts (``"moe": {"wg", "w1", "w2"}``, ``ops/moe.py``), which
+every entry point takes (``moe_top_k``); the training entries add the
+mixture's load-balance loss (``moe_aux_weight``).  ``encode`` /
+``lm_loss`` train packed rows (``segment_ids`` / ``positions``), and
+``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` does).
+
+Not ported (ROADMAP): tensor-parallel ``shard_axis`` and the
+sequence-parallel ring (``mesh``, ``zigzag``; A12), and beam-search
+generation (A7).
 """
 
 import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops import embedding as emb_ops
 from paddle_tpu_torch.ops import linear, losses
+from paddle_tpu_torch.ops import moe as moe_ops
 from paddle_tpu_torch.ops.kernels import decode_attention as _decode_kernel
 from paddle_tpu_torch.ops.kernels import flash_attention as _flash_kernel
 from paddle_tpu_torch.ops.norm import layer_norm
@@ -67,7 +77,7 @@ from paddle_tpu_torch.quant.weights import (dequantize_leaf as _dequant_leaf,
                                             weight_shape as _w_shape)
 from paddle_tpu_torch.utils.tree import tree_map
 
-_ROADMAP = "not yet ported to paddle_tpu_torch (ROADMAP)"
+_ROADMAP_A12 = "not yet ported to paddle_tpu_torch (ROADMAP A12)"
 
 
 # ------------------------------------------------------------- params
@@ -93,18 +103,25 @@ def _kv_width(d_model, num_heads, num_kv_heads):
     return (d_model // num_heads) * num_kv_heads
 
 
-def _block(gen, d, dff, d_kv, cross=False):
-    """One pre-LN block drawn from ``gen``: self-attention and dense FFN,
-    plus ``ln_x``/``xattn`` (cross-attention) for a decoder block."""
+def _block(gen, d, dff, d_kv, cross=False, moe_experts=0):
+    """One pre-LN block drawn from ``gen``: self-attention and a dense
+    FFN, or with ``moe_experts`` > 1 a mixture of that many expert FFNs
+    (``moe``), plus ``ln_x``/``xattn`` (cross-attention) for a decoder
+    block."""
     dev = gen.device
     blk = {
         "ln1": _norm(d, dev),
         "attn": {"wq": _dense(gen, d, d), "wk": _dense(gen, d, d_kv),
                  "wv": _dense(gen, d, d_kv), "wo": _dense(gen, d, d)},
         "ln2": _norm(d, dev),
-        "ffn": {"w1": _dense(gen, d, dff), "b1": torch.zeros(dff, device=dev),
-                "w2": _dense(gen, dff, d), "b2": torch.zeros(d, device=dev)},
     }
+    if moe_experts and moe_experts > 1:
+        blk["moe"] = moe_ops.init_moe(gen, d, dff, moe_experts, device=dev)
+    else:
+        blk["ffn"] = {"w1": _dense(gen, d, dff),
+                      "b1": torch.zeros(dff, device=dev),
+                      "w2": _dense(gen, dff, d),
+                      "b2": torch.zeros(d, device=dev)}
     if cross:
         blk["ln_x"] = _norm(d, dev)
         blk["xattn"] = {key: _dense(gen, d, d)
@@ -113,12 +130,14 @@ def _block(gen, d, dff, d_kv, cross=False):
 
 
 def init_lm(generator, vocab, d_model, num_heads, dff, layers, max_len,
-            num_kv_heads=None, pos_type="learned", device=None):
+            num_kv_heads=None, pos_type="learned", moe_experts=0,
+            device=None):
     """Random decoder-only trunk drawn from ``generator`` (the port's own
     init — it does not reproduce JAX's random bits).  Normal weights
     scaled 1/sqrt(fan_in), embedding and learned positions at 0.02, layer
     norms at (1, 0), biases 0 — the JAX ``init`` scheme with
-    ``dec_layers=0``."""
+    ``dec_layers=0``.  ``moe_experts`` > 1 makes every block's FFN a
+    mixture of that many experts (``ops/moe.init_moe``)."""
     dev = _device.resolve(device)
     if pos_type not in ("learned", "rope"):
         raise ValueError(f"pos_type must be 'learned' or 'rope', got "
@@ -129,19 +148,23 @@ def init_lm(generator, vocab, d_model, num_heads, dff, layers, max_len,
     if pos_type == "learned":
         params["pos"] = 0.02 * torch.randn((max_len, d_model), generator=gen,
                                            device=gen.device)
-    params["enc"] = [_block(gen, d_model, dff, d_kv) for _ in range(layers)]
+    params["enc"] = [_block(gen, d_model, dff, d_kv, moe_experts=moe_experts)
+                     for _ in range(layers)]
     params["ln_f"] = _norm(d_model, gen.device)
     return tree_map(lambda t: t.to(dev), params)
 
 
 def init(generator, src_vocab=30000, trg_vocab=30000, d_model=512,
          num_heads=8, dff=2048, enc_layers=6, dec_layers=6, max_len=512,
-         device=None):
+         moe_experts=0, device=None):
     """Random seq2seq tree drawn from ``generator`` (the port's own init,
     as ``init_lm``): source and target embeddings, learned positions,
     ``enc_layers`` encoder and ``dec_layers`` decoder blocks, the final
-    norm and the output projection.  (A JAX tree with GQA encoder blocks
-    or rope positions runs too, through ``params_from_numpy``.)"""
+    norm and the output projection.  ``moe_experts`` > 1 gives every
+    ENCODER block a mixture of experts in place of its dense FFN (the
+    decoder blocks keep theirs), as JAX's ``init``.  (A JAX tree with
+    GQA encoder blocks or rope positions runs too, through
+    ``params_from_numpy``.)"""
     dev = _device.resolve(device)
     _kv_width(d_model, num_heads, None)
     gen = generator
@@ -149,7 +172,8 @@ def init(generator, src_vocab=30000, trg_vocab=30000, d_model=512,
               "trg_emb": _dense(gen, trg_vocab, d_model, scale=0.02),
               "pos": 0.02 * torch.randn((max_len, d_model), generator=gen,
                                         device=gen.device)}
-    params["enc"] = [_block(gen, d_model, dff, d_model)
+    params["enc"] = [_block(gen, d_model, dff, d_model,
+                            moe_experts=moe_experts)
                      for _ in range(enc_layers)]
     params["dec"] = [_block(gen, d_model, dff, d_model, cross=True)
                      for _ in range(dec_layers)]
@@ -169,15 +193,20 @@ def params_from_numpy(tree, device=None):
     them and its decoder blocks, each of which must carry ``ln_x`` and
     ``xattn``.  A quantized weight (``quant/weights``: ``{"q", "s"}``
     or ``{"__int8__", "__scale__"}``) keeps its keys, its codes as int8
-    and its scales as float32 ``[1, dout]``.  ``moe`` blocks raise."""
+    and its scales as float32 ``[1, dout]``.  A mixture-of-experts block
+    carries ``moe``: ``wg`` [D, E], ``w1`` [E, D, F], ``w2`` [E, F, D]."""
     dev = _device.resolve(device)
-    for i, blk in enumerate(tree["enc"]):
-        if "moe" in blk:
-            raise NotImplementedError(f"enc[{i}] is a MoE block; MoE is "
-                                      f"{_ROADMAP}")
-    keep = {"src_emb": tree["src_emb"], "enc": [
-        {k: blk[k] for k in ("ln1", "attn", "ln2", "ffn")}
-        for blk in tree["enc"]], "ln_f": tree["ln_f"]}
+
+    def enc_block(i, blk):
+        ffn = [k for k in ("ffn", "moe") if k in blk]
+        if len(ffn) != 1:
+            raise ValueError(f"enc[{i}] needs exactly one of 'ffn' and "
+                             f"'moe', has {ffn}")
+        return {k: blk[k] for k in ("ln1", "attn", "ln2", *ffn)}
+
+    keep = {"src_emb": tree["src_emb"],
+            "enc": [enc_block(i, blk) for i, blk in enumerate(tree["enc"])],
+            "ln_f": tree["ln_f"]}
     if "pos" in tree:
         keep["pos"] = tree["pos"]
     if tree.get("dec"):
@@ -215,10 +244,23 @@ def _ffn(blk, x):
     return linear.matmul(h, blk["w2"]) + blk["b2"]
 
 
-def _block_ffn(blk, h):
-    """The block's dense FFN (a MoE block raises)."""
+def _block_ffn(blk, h, moe_top_k=2, valid=None):
+    """The block's dense or mixture FFN -> (output, load-balance aux),
+    aux 0.0 for a dense block.  The experts are ReLUs, as JAX's model
+    makes them (a mixture of identical experts is then the dense block).
+    ``valid`` [B, T]: the real tokens the aux statistics count."""
     if "moe" in blk:
-        raise NotImplementedError(f"MoE blocks are {_ROADMAP}")
+        return moe_ops.moe_ffn(h, blk["moe"], top_k=moe_top_k,
+                               act=torch.relu, return_aux=True, valid=valid)
+    return _ffn(blk["ffn"], h), 0.0
+
+
+def _ffn_out(blk, h, moe_top_k):
+    """``_block_ffn``'s output alone: the serving steps, which drop the
+    aux (JAX's compiled step drops it too), compute none."""
+    if "moe" in blk:
+        return moe_ops.moe_ffn(h, blk["moe"], top_k=moe_top_k,
+                               act=torch.relu)
     return _ffn(blk["ffn"], h)
 
 
@@ -441,7 +483,6 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
     dequantized values on the float32 route: the quantize -> dequantize
     round trip that sequential int8 steps attend, so the cache equals
     theirs."""
-    del moe_top_k     # MoE blocks raise in _block_ffn
     params = _maybe_dequant(params)
     _check_pos_type(params, pos_type)
     dev = params["src_emb"].device
@@ -486,7 +527,7 @@ def lm_prefill(params, prompt, max_len, num_heads=8, moe_top_k=2,
                 causal=True, use_flash=True)
         att = att.transpose(1, 2).reshape(b, tp, d)
         x = x + linear.matmul(att, blk["attn"]["wo"])
-        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+        x = x + _ffn_out(blk, _ln(blk["ln2"], x), moe_top_k)
         _kv_commit(c, lambda buf, val: buf[:, :tp].copy_(val),
                    k_set, v_set, sk, sv)
     return x, cache
@@ -521,7 +562,6 @@ def lm_decode_step(params, prev_ids, t, cache, num_heads=8, moe_top_k=2,
     cache (float32 or int8, ``init_lm_cache``) written in place.  The
     attention is the masked plain path over ``_kv_view``, as in the JAX
     package (no kernel)."""
-    del moe_top_k
     params = _maybe_dequant(params)
     dev = params["src_emb"].device
     prev_ids = _ids(prev_ids, dev)
@@ -537,7 +577,7 @@ def lm_decode_step(params, prev_ids, t, cache, num_heads=8, moe_top_k=2,
         b, max_len)
     for blk, c in zip(params["enc"], cache):
         x = _cached_self_attn(blk, x, c, t, pos_mask, num_heads, rope_pos)
-        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+        x = x + _ffn_out(blk, _ln(blk["ln2"], x), moe_top_k)
     return _lm_project(params, x)[:, 0], cache
 
 
@@ -592,7 +632,6 @@ def lm_decode_step_slots(params, prev_ids, positions, cache, num_heads=8,
     (the legacy ladder engine's step).  prev_ids [S], positions [S];
     cache as ``init_lm_cache``, written in place -> (logits [S, V],
     cache)."""
-    del moe_top_k
     params = _maybe_dequant(params)
     dev = params["src_emb"].device
     prev_ids = _ids(prev_ids, dev)
@@ -602,7 +641,7 @@ def lm_decode_step_slots(params, prev_ids, positions, cache, num_heads=8,
     for blk, c in zip(params["enc"], cache):
         x = _cached_self_attn_slots(blk, x, c, positions, num_heads,
                                     rope_pos)
-        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+        x = x + _ffn_out(blk, _ln(blk["ln2"], x), moe_top_k)
     return _lm_project(params, x)[:, 0], cache
 
 
@@ -648,7 +687,6 @@ def lm_decode_step_paged(params, prev_ids, positions, cache, tables,
     Row r computes exactly ``lm_decode_step_slots``'s result at
     t = positions[r]; the table is data, so admission, eviction and
     copy-on-write churn between steps change no shape."""
-    del moe_top_k
     params = _maybe_dequant(params)
     dev = params["src_emb"].device
     prev_ids = _ids(prev_ids, dev)
@@ -659,7 +697,7 @@ def lm_decode_step_paged(params, prev_ids, positions, cache, tables,
     for blk, c in zip(params["enc"], cache):
         x = _cached_self_attn_paged(blk, x, c, positions, tables, num_heads,
                                     rope_pos)
-        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+        x = x + _ffn_out(blk, _ln(blk["ln2"], x), moe_top_k)
     return _lm_project(params, x)[:, 0], cache
 
 
@@ -732,8 +770,8 @@ def _cached_self_attn_chunk_paged(blk, x, c, li, qpos, tables, num_heads,
     return x + linear.matmul(att, blk["attn"]["wo"])
 
 
-def _chunk_step(params, tokens, positions, lengths, cache, pos_type,
-                all_lanes, attn):
+def _chunk_step(params, tokens, positions, lengths, cache, moe_top_k,
+                pos_type, all_lanes, attn):
     """The chunked step around ``attn(blk, x, c, li, qpos, rope_pos)``,
     one layer's cached self-attention (slab or paged)."""
     params = _maybe_dequant(params)
@@ -747,7 +785,7 @@ def _chunk_step(params, tokens, positions, lengths, cache, pos_type,
     rope_pos = qpos if pos_type == "rope" else None
     for blk, c in zip(params["enc"], cache):
         x = attn(blk, x, c, li, qpos, rope_pos)
-        x = x + _block_ffn(blk, _ln(blk["ln2"], x))
+        x = x + _ffn_out(blk, _ln(blk["ln2"], x), moe_top_k)
     if all_lanes:
         return _lm_project(params, x), cache
     h_last = x[torch.arange(s, device=dev), (lengths - 1).long()]
@@ -764,9 +802,9 @@ def lm_decode_chunk_slots(params, tokens, positions, lengths, cache,
     ``all_lanes=True`` projects every lane -> logits [S, K, V]; lanes
     past a row's ``lengths`` are not meaningful there (a decode row's
     dead lanes attend to the kernel's zeros)."""
-    del moe_top_k
     return _chunk_step(
-        params, tokens, positions, lengths, cache, pos_type, all_lanes,
+        params, tokens, positions, lengths, cache, moe_top_k, pos_type,
+        all_lanes,
         lambda blk, x, c, li, qpos, rope: _cached_self_attn_chunk(
             blk, x, c, li, qpos, num_heads, rope))
 
@@ -780,10 +818,10 @@ def lm_decode_chunk_paged(params, tokens, positions, lengths, cache, tables,
     fed lane, cache).  ``all_lanes=True`` (the speculative verify
     surface) projects every lane -> logits [S, K, V], as the slab
     twin."""
-    del moe_top_k
     tables = _ids(tables, cache[0]["k"].device)
     return _chunk_step(
-        params, tokens, positions, lengths, cache, pos_type, all_lanes,
+        params, tokens, positions, lengths, cache, moe_top_k, pos_type,
+        all_lanes,
         lambda blk, x, c, li, qpos, rope: _cached_self_attn_chunk_paged(
             blk, x, c, li, qpos, tables, num_heads, rope))
 
@@ -874,7 +912,7 @@ def lm_generate(params, prompt, max_len, num_heads=8, temperature=0.0,
 def _not_ported(**options):
     for name, value in options.items():
         if value is not None and value is not False:
-            raise NotImplementedError(f"{name}= is {_ROADMAP}")
+            raise NotImplementedError(f"{name}= is {_ROADMAP_A12}")
 
 
 def _check_full(seq):
@@ -888,18 +926,42 @@ def _check_full(seq):
             "drop full_seq or pack the batch")
 
 
+def _remat(fn, remat):
+    """``fn`` itself, or with ``remat`` a twin that recomputes it in the
+    backward (``jax.checkpoint``): the non-reentrant checkpoint stores
+    none of the block's activations and re-runs its forward, kernels
+    included, when the backward first needs one.  The blocks draw no
+    random numbers, so no RNG state is stashed."""
+    if not remat:
+        return fn
+
+    def block(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block
+
+
 def _mha(blk, xq, xkv, num_heads, key_mask=None, causal=False,
-         rope_positions=None):
+         q_segment_ids=None, rope_positions=None):
     return attn_ops.multi_head_attention(
         xq, xkv, blk["wq"], blk["wk"], blk["wv"], blk["wo"], num_heads,
-        key_mask=key_mask, causal=causal, rope_positions=rope_positions)
+        key_mask=key_mask, causal=causal, q_segment_ids=q_segment_ids,
+        rope_positions=rope_positions)
 
 
-def _enc_block(blk, x, key_mask, num_heads, causal=False, rope_pos=None):
+def _enc_block(blk, x, key_mask, num_heads, segment_ids=None, causal=False,
+               moe_top_k=2, rope_pos=None):
+    """One encoder block -> (x, the FFN's load-balance aux)."""
     h = _ln(blk["ln1"], x)
     x = x + _mha(blk["attn"], h, h, num_heads, key_mask=key_mask,
-                 causal=causal, rope_positions=rope_pos)
-    return x + _block_ffn(blk, _ln(blk["ln2"], x))
+                 causal=causal, q_segment_ids=segment_ids,
+                 rope_positions=rope_pos)
+    # the aux counts real tokens: packed rows label padding 0, unpacked
+    # rows carry the key mask, full_seq has no padding
+    valid = (segment_ids > 0 if segment_ids is not None
+             else (key_mask > 0 if key_mask is not None else None))
+    y, aux = _block_ffn(blk, _ln(blk["ln2"], x), moe_top_k, valid)
+    return x + y, aux
 
 
 def _dec_block(blk, x, enc_out, self_km, cross_km, num_heads):
@@ -913,32 +975,58 @@ def _dec_block(blk, x, enc_out, self_km, cross_km, num_heads):
 
 def encode(params, src, num_heads=8, remat=False, full_seq=False, mesh=None,
            segment_ids=None, positions=None, causal=False, zigzag=False,
-           pos_type="learned"):
+           moe_top_k=2, return_aux=False, pos_type="learned"):
     """Encoder stack over ``src`` (a ``SequenceBatch`` of ids [B, T]) ->
-    hidden states [B, T, d].  ``causal=True`` is the decoder-only trunk
-    (``lm_logits``).  ``full_seq=True`` promises every row is T long
-    (checked) and drops the key mask, so the attention takes the flash
-    route where T allows it; otherwise keys are masked by ``src``'s
-    lengths.  ``remat``, ``mesh``, ``zigzag`` and packed rows
-    (``segment_ids``/``positions``) raise."""
+    hidden states [B, T, d], and with ``return_aux`` the blocks' summed
+    MoE load-balance aux (0.0 for a dense trunk).  ``causal=True`` is
+    the decoder-only trunk (``lm_logits``).  ``full_seq=True`` promises
+    every row is T long (checked) and drops the key mask, so the
+    attention takes the flash route where T allows it; otherwise keys
+    are masked by ``src``'s lengths.
+
+    ``segment_ids`` / ``positions`` [B, T] (``core.sequence.
+    pack_sequences``: both or neither) train PACKED rows: the attention
+    is block-diagonal per segment (the key mask is dropped; label 0 is
+    padding) and each token's positional row, or its rope position, is
+    its index within its segment.  ``remat=True`` recomputes each block
+    in the backward.  ``mesh`` and ``zigzag`` raise (ROADMAP A12)."""
     params = _maybe_dequant(params)
     _check_pos_type(params, pos_type)
-    _not_ported(remat=remat, mesh=mesh, zigzag=zigzag,
-                segment_ids=segment_ids, positions=positions)
+    _not_ported(mesh=mesh, zigzag=zigzag)
+    if (segment_ids is None) != (positions is None):
+        raise ValueError("packed encode needs BOTH segment_ids and "
+                         "positions (pack_sequences returns them together)")
+    block = _remat(_enc_block, remat)
     t = src.data.shape[1]
     x = emb_ops.embedding_lookup(params["src_emb"], src.data)
+    dev = x.device
     x = x * math.sqrt(x.shape[-1])
+    if positions is not None:
+        segment_ids, positions = _ids(segment_ids, dev), _ids(positions, dev)
+        if pos_type == "learned":
+            max_pos = int(positions.max())
+            if max_pos >= params["pos"].shape[0]:
+                raise ValueError(
+                    f"packed position {max_pos} exceeds the positional "
+                    f"table ({params['pos'].shape[0]}); re-init with a "
+                    "larger max_len or pack shorter rows")
     rope_pos = None
     if pos_type == "rope":
-        rope_pos = torch.arange(t, device=x.device)
+        rope_pos = (positions if positions is not None
+                    else torch.arange(t, device=dev))
+    elif positions is not None:
+        x = x + params["pos"][positions.long()]
     else:
         x = x + params["pos"][:t][None]
-    key_mask = None if full_seq else src.mask()
+    key_mask = None if full_seq or segment_ids is not None else src.mask()
     if full_seq:
         _check_full(src)
+    aux_total = 0.0
     for blk in params["enc"]:
-        x = _enc_block(blk, x, key_mask, num_heads, causal, rope_pos)
-    return x
+        x, aux = block(blk, x, key_mask, num_heads, segment_ids, causal,
+                       moe_top_k, rope_pos)
+        aux_total = aux_total + aux
+    return (x, aux_total) if return_aux else x
 
 
 def decode(params, enc_out, src_mask, trg_in, num_heads=8, remat=False,
@@ -946,8 +1034,10 @@ def decode(params, enc_out, src_mask, trg_in, num_heads=8, remat=False,
     """Decoder stack: target ids ``trg_in`` (teacher forcing) against
     ``enc_out`` under the source key mask ``src_mask`` [B, Ts] -> logits
     [B, T, V_trg].  Causal self-attention, cross-attention, final norm
-    and output projection; ``full_seq`` as in ``encode``."""
-    _not_ported(remat=remat, mesh=mesh, zigzag=zigzag)
+    and output projection; ``full_seq`` and ``remat`` as in
+    ``encode``."""
+    _not_ported(mesh=mesh, zigzag=zigzag)
+    block = _remat(_dec_block, remat)
     t = trg_in.data.shape[1]
     x = emb_ops.embedding_lookup(params["trg_emb"], trg_in.data)
     x = x * math.sqrt(x.shape[-1]) + params["pos"][:t][None]
@@ -956,16 +1046,18 @@ def decode(params, enc_out, src_mask, trg_in, num_heads=8, remat=False,
     if full_seq:
         _check_full(trg_in)
     for blk in params["dec"]:
-        x = _dec_block(blk, x, enc_out, self_km, cross_km, num_heads)
+        x = block(blk, x, enc_out, self_km, cross_km, num_heads)
     return linear.matmul(_ln(params["ln_f"], x), params["out"])
 
 
 def forward(params, src, trg_in, num_heads=8, remat=False, full_seq=False,
-            mesh=None, zigzag=False):
-    enc_out = encode(params, src, num_heads, remat=remat, full_seq=full_seq,
-                     mesh=mesh)
-    return decode(params, enc_out, src.mask(), trg_in, num_heads,
-                  remat=remat, full_seq=full_seq, mesh=mesh, zigzag=zigzag)
+            mesh=None, zigzag=False, return_aux=False, moe_top_k=2):
+    enc_out, aux = encode(params, src, num_heads, remat=remat,
+                          full_seq=full_seq, mesh=mesh, moe_top_k=moe_top_k,
+                          return_aux=True)
+    logits = decode(params, enc_out, src.mask(), trg_in, num_heads,
+                    remat=remat, full_seq=full_seq, mesh=mesh, zigzag=zigzag)
+    return (logits, aux) if return_aux else logits
 
 
 def _token_ce(logits, labels, label_smoothing):
@@ -982,44 +1074,60 @@ def _token_ce(logits, labels, label_smoothing):
 
 
 def loss(params, src, trg_in, trg_next, num_heads=8, label_smoothing=0.1,
-         remat=False, full_seq=False, mesh=None, zigzag=False):
+         remat=False, full_seq=False, mesh=None, zigzag=False,
+         moe_aux_weight=0.01, moe_top_k=2):
     """Label-smoothed cross-entropy of ``forward``'s logits against
     ``trg_next``, averaged over each row's valid target tokens, then over
-    the batch (a scalar)."""
-    logits = forward(params, src, trg_in, num_heads, remat=remat,
-                     full_seq=full_seq, mesh=mesh, zigzag=zigzag)
+    the batch, plus ``moe_aux_weight`` times the encoder's MoE aux (0 for
+    a dense trunk): a scalar."""
+    logits, aux = forward(params, src, trg_in, num_heads, remat=remat,
+                          full_seq=full_seq, mesh=mesh, zigzag=zigzag,
+                          return_aux=True, moe_top_k=moe_top_k)
     labels = trg_next.data
     if labels.dim() == 3:
         labels = labels[..., 0]
     per_tok = _token_ce(logits, labels, label_smoothing)
     per_seq = losses.masked_seq_mean(per_tok,
                                      trg_in.mask(per_tok.dtype))
-    return per_seq.mean()
+    return per_seq.mean() + moe_aux_weight * aux
 
 
-def lm_logits(params, tokens, num_heads=8, **encode_kw):
+def lm_logits(params, tokens, num_heads=8, return_aux=False, **encode_kw):
     """Full-sequence LM logits [B, T, V]: ``encode(causal=True)`` and the
-    tied-embedding projection.  ``full_seq=True`` takes the flash route
-    where T allows it."""
+    tied-embedding projection, and with ``return_aux`` the MoE aux (0.0
+    for a dense trunk).  ``full_seq=True`` takes the flash route where T
+    allows it."""
     params = _maybe_dequant(params)
-    return _lm_project(params, encode(params, tokens, num_heads,
-                                      causal=True, **encode_kw))
+    h, aux = encode(params, tokens, num_heads, causal=True, return_aux=True,
+                    **encode_kw)
+    logits = _lm_project(params, h)
+    return (logits, aux) if return_aux else logits
 
 
 def lm_loss(params, tokens, num_heads=8, segment_ids=None, positions=None,
             mesh=None, zigzag=False, remat=False, label_smoothing=0.0,
-            pos_type="learned"):
+            moe_aux_weight=0.01, moe_top_k=2, pos_type="learned"):
     """Next-token cross-entropy of the decoder-only trunk, a token mean:
-    label t is token t + 1, which must be a real token."""
+    label t is token t + 1, which must be a real token -- with
+    ``segment_ids`` / ``positions`` (packed rows), a token of the SAME
+    segment, so a segment's last token and padding carry no label.  Plus
+    ``moe_aux_weight`` times the MoE aux (0 for a dense trunk)."""
     ids = tokens.data
     b = ids.shape[0]
-    m = tokens.bool_mask()
-    valid = torch.cat([m[:, 1:], torch.zeros((b, 1), dtype=torch.bool,
-                                             device=m.device)], dim=1)
+    if segment_ids is not None:
+        seg = _ids(segment_ids, ids.device)
+        same = (seg[:, :-1] > 0) & (seg[:, :-1] == seg[:, 1:])
+    else:
+        m = tokens.bool_mask()
+        same = m[:, 1:]
+    valid = torch.cat([same, torch.zeros((b, 1), dtype=torch.bool,
+                                         device=ids.device)], dim=1)
     labels = torch.roll(ids, -1, dims=1)     # the wrap at T-1 is masked
-    logits = lm_logits(params, tokens, num_heads, remat=remat, mesh=mesh,
-                       segment_ids=segment_ids, positions=positions,
-                       zigzag=zigzag, pos_type=pos_type)
+    logits, aux = lm_logits(params, tokens, num_heads, return_aux=True,
+                            remat=remat, mesh=mesh, segment_ids=segment_ids,
+                            positions=positions, zigzag=zigzag,
+                            moe_top_k=moe_top_k, pos_type=pos_type)
     per_tok = _token_ce(logits, labels, label_smoothing)
     w = valid.to(per_tok.dtype)
-    return (per_tok * w).sum() / torch.clamp(w.sum(), min=1.0)
+    ce = (per_tok * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return ce + moe_aux_weight * aux

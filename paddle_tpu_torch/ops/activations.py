@@ -1,6 +1,5 @@
 """Activation registry (``paddle_tpu/ops/activations.py``; reference:
-ActivationFunction.cpp).  ``sequence_softmax`` is not ported yet
-(ROADMAP)."""
+ActivationFunction.cpp) and ``sequence_softmax``."""
 
 import torch
 
@@ -65,3 +64,18 @@ def softrelu(x):
 def stanh(x):
     # reference STanhActivation: 1.7159 * tanh(2/3 x)
     return 1.7159 * torch.tanh((2.0 / 3.0) * x)
+
+
+def sequence_softmax(x, mask):
+    """Softmax over the time axis of a padded [B, T] (or [B, T, 1]) batch
+    (reference SequenceSoftmaxActivation): padding is masked out before
+    the softmax and comes out exactly 0; a row that is all padding comes
+    out all 0, as JAX's ``jnp.where`` makes it, not NaN."""
+    squeeze = x.dim() == 3 and x.shape[-1] == 1
+    if squeeze:
+        x = x[..., 0]
+    keep = mask > 0
+    out = torch.softmax(torch.where(keep, x, x.new_tensor(float("-inf"))),
+                        dim=-1)
+    out = torch.where(keep, out, out.new_zeros(()))
+    return out[..., None] if squeeze else out

@@ -34,11 +34,27 @@ def _split_heads(x, hkv):
     return x.reshape(x.shape[:-1] + (hkv, dkv // hkv))
 
 
+_DIVISORS = {}
+
+
+def _divisor_127(device):
+    """127 as a 0-dim float32 tensor on ``device``, made once per device.
+    PyTorch's CUDA ``div`` turns a Python-scalar divisor (or a 0-dim CPU
+    tensor) into a product with its reciprocal, which can be an ulp off
+    the division; a device tensor keeps the correctly rounded division,
+    as JAX's ``amax / 127`` is, without a fill launch per call."""
+    t = _DIVISORS.get(device)
+    if t is None:
+        t = _DIVISORS[device] = torch.tensor(127.0, dtype=torch.float32,
+                                             device=device)
+    return t
+
+
 def quantize_heads(x, hkv):
     """``x`` [..., Dkv] float32 -> ``(codes int8 [..., Dkv], scales
     float32 [..., Hkv])``, one scale per (leading index, KV head)."""
     xh = _split_heads(x, hkv)
-    s = xh.abs().amax(dim=-1) / 127.0
+    s = xh.abs().amax(dim=-1) / _divisor_127(xh.device)
     safe = torch.where(s > 0, s, torch.ones_like(s))[..., None]
     q = torch.clamp(torch.round(xh / safe), -127, 127).to(torch.int8)
     return q.reshape(x.shape), s.to(torch.float32)

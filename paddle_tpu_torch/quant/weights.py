@@ -24,10 +24,10 @@ import torch
 # export.quantize_params {"__int8__", "__scale__"}
 _LEAF_KEYS = (("q", "s"), ("__int8__", "__scale__"))
 
-# Committed training-quality budget of the JAX package's int8 weight-
-# streaming step: max per-step |loss_int8 - loss_f32| / max(|loss_f32|,
-# 1) over a short run.  The port's trainer does not take int8 weights
-# yet (ROADMAP A3); the constant is kept with the scheme it budgets.
+# Committed training-quality budget of the int8 weight-streaming step
+# (``trainer.SGD(quant_weights=True)``): max per-step |loss_int8 -
+# loss_f32| / max(|loss_f32|, 1) over a short run against the float32
+# twin, the JAX package's number (``scripts/bench.bench_trainer_int8``).
 TRAIN_LOSS_BUDGET = 0.05
 
 

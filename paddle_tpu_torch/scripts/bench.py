@@ -1,12 +1,15 @@
 """The training benchmarks of ``bench.py``, ported: ``bench_lstm`` (the
-headline), ``bench_transformer`` and ``bench_seq2seq``; ``bench_rnn``,
-the layer-DSL slice through ``trainer.SGD``; and the measurement legs
-of two serving benchmarks, ``bench_serving_quant`` and
-``bench_serving_speculative``.
+headline), ``bench_transformer`` (with ``remat``),
+``bench_transformer_packed``, ``bench_transformer_moe`` and
+``bench_seq2seq``; ``bench_rnn``, the layer-DSL slice through
+``trainer.SGD``, and ``bench_trainer_int8``, its int8 weight-streaming
+mode; and the measurement legs of two serving benchmarks,
+``bench_serving_quant`` and ``bench_serving_speculative``.
 
     python -m paddle_tpu_torch.scripts.bench
-        [--model lstm|transformer|seq2seq|rnn|serving_quant|
-                 serving_speculative] [--hidden 512|1280|2048]
+        [--model lstm|transformer|transformer_packed|transformer_moe|
+                 seq2seq|rnn|trainer_int8|serving_quant|
+                 serving_speculative] [--hidden 512|1280|2048] [--remat]
 
 ``lstm`` (the default) trains the LSTM text classifier at the
 reference's benchmark config (vocab 30000, embedding 128, 2 stacked LSTMs
@@ -25,7 +28,18 @@ two vanilla-RNN layers h=512 through the simple-RNN kernels, Momentum)
 through ``SGD.train_one_batch`` on a new batch each step, the feed
 included, and adds bench.py's FLOP convention (3 x the forward's
 products) and the step's split into feed, forward, backward and update.
-The others run on one fixed random batch.  Each prints one JSON line:
+``transformer_packed`` trains the decoder-only trunk of the same widths
+(6 layers) on packed rows (B 16 x 512 slots of ragged sequences, Adam
+lr 1e-4) and reports REAL tokens/s and the pack efficiency;
+``transformer_moe`` the same trunk with 8-expert top-2 FFNs at B 16, T
+512; ``--remat`` recomputes their blocks (and the MT model's) in the
+backward.  ``trainer_int8`` trains ``SGD(quant_weights=True)`` (an fc
+classifier, B 64, dim 64, hidden 128) beside its float32 twin over 24
+batches, holds the loss gap within ``quant/weights.TRAIN_LOSS_BUDGET``
+and checks that only int8 codes of the quantized weights persist
+between steps (``weights_quantized``, in place of the JAX bench's HLO
+gate).  The others run on one fixed random batch.  Each prints one JSON
+line:
 ms/batch as the
 median of STEPS timed steps after WARMUP (and, for the transformer and
 seq2seq, tokens/s = batch * target length / s, the bench's headline), the
@@ -52,11 +66,12 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import device as _device
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import SequenceBatch, pack_sequences
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.models import seq2seq, text_lstm, text_rnn, transformer
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optim import Adam, Momentum
+from paddle_tpu_torch.quant.weights import TRAIN_LOSS_BUDGET
 from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
 
 NUM_LAYERS, EMB_DIM = 2, 128
@@ -126,16 +141,25 @@ class TransformerBench(NamedTuple):
     tokens_per_step: int
 
 
+def _remat(remat, default):
+    """``remat`` as given, else the model's own rule (what ``bench.py``'s
+    ``_env_remat`` falls back to without ``BENCH_REMAT``)."""
+    return default if remat is None else bool(remat)
+
+
 def bench_transformer(batch=32, seq_len=256, vocab=32000, d_model=512,
-                      dff=2048, layers=6, heads=8, device=None):
+                      dff=2048, layers=6, heads=8, remat=None, device=None):
     """The config, data and optimizer of ``bench.py:485-542``: source and
     target ids from ``np.random.RandomState(0)`` in [3, vocab), every row
     full length, params from a generator seeded 0, Adam lr 1e-4.
     ``train_step()`` zeroes the grads, runs ``transformer.loss(...,
     full_seq=True)`` with ``trg`` as both the decoder input and the
     labels (as ``bench.py:522`` passes it), calls ``backward()``, applies
-    Adam in place and returns the loss."""
+    Adam in place and returns the loss.  ``remat`` recomputes each block
+    in the backward; None takes ``bench.py``'s rule (batch * seq_len >=
+    32768 or seq_len >= 4096: off at the defaults)."""
     dev = _device.resolve(device)
+    remat = _remat(remat, batch * seq_len >= 32768 or seq_len >= 4096)
     params = transformer.init(torch.Generator().manual_seed(0),
                               src_vocab=vocab, trg_vocab=vocab,
                               d_model=d_model, num_heads=heads, dff=dff,
@@ -160,13 +184,242 @@ def bench_transformer(batch=32, seq_len=256, vocab=32000, d_model=512,
     def train_step():
         for p in leaves:
             p.grad = None
-        loss = transformer.loss(params, src, trg, trg, heads, full_seq=True)
+        loss = transformer.loss(params, src, trg, trg, heads, remat=remat,
+                                full_seq=True)
         loss.backward()
         opt.update(tree_map(lambda p: p.grad, params), opt_state, params)
         return loss.detach()
 
     return TransformerBench(train_step, params, opt_state, src, trg,
                             batch * seq_len)
+
+
+class LmBench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    params: dict
+    opt_state: dict
+    tokens: SequenceBatch
+    tokens_per_step: int
+    pack_efficiency: float
+    remat: bool
+
+
+def _lm_train_step(params, loss_fn):
+    """(params with grads on, Adam lr 1e-4 state, train_step): the step
+    zeroes the grads, runs ``loss_fn(params)``, calls ``backward()``,
+    applies Adam in place and returns the loss."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = Adam(learning_rate=1e-4)
+    opt_state = opt.init(params)
+
+    def train_step():
+        for p in leaves:
+            p.grad = None
+        loss = loss_fn(params)
+        loss.backward()
+        opt.update(tree_map(lambda p: p.grad, params), opt_state, params)
+        return loss.detach()
+
+    return opt_state, train_step
+
+
+def bench_transformer_packed(batch=16, max_len=512, vocab=32000,
+                             d_model=512, dff=2048, layers=6, heads=8,
+                             remat=None, device=None):
+    """Packed causal-LM training (``bench.py:545-619``): ragged sequences
+    (lengths geometric with mean max_len / 3, clipped to [8, max_len],
+    ids in [3, vocab), all from ``np.random.RandomState(0)``) packed
+    first-fit into ``batch`` rows of ``max_len`` slots
+    (``core.sequence.pack_sequences``); ``lm_loss`` with the rows'
+    ``segment_ids`` / ``positions`` (block-diagonal attention: the
+    segmented dense path, no flash kernel, as JAX routes it), Adam lr
+    1e-4, on the decoder-only trunk (``init_lm``, a generator seeded 0:
+    the parameters the loss trains, which JAX's bench gets from ``init``
+    with no decoder and a one-row target vocabulary).  The headline is
+    REAL tokens/s (``tokens_per_step`` counts segment tokens);
+    ``pack_efficiency`` is real over slot tokens.  ``remat`` None takes
+    ``bench.py``'s rule (batch * max_len >= 32768: off at the
+    defaults)."""
+    dev = _device.resolve(device)
+    params = transformer.init_lm(torch.Generator().manual_seed(0), vocab,
+                                 d_model, heads, dff, layers, max_len,
+                                 device=dev)
+    rng = np.random.RandomState(0)
+    n_seqs = batch * 3 * 2
+    while True:
+        lens = np.clip(rng.geometric(1.0 / (max_len // 3), size=n_seqs),
+                       8, max_len)
+        seqs = [rng.randint(3, vocab, int(n)) for n in lens]
+        rows = pack_sequences(seqs, max_len)
+        if rows[0].shape[0] >= batch:
+            break
+        n_seqs *= 2
+    data, seg, pos = (torch.tensor(a[:batch], dtype=torch.int32, device=dev)
+                      for a in rows)
+    tokens = SequenceBatch(data=data, lengths=torch.full(
+        (batch,), max_len, dtype=torch.int32, device=dev))
+    real = int((seg > 0).sum())
+    remat = _remat(remat, batch * max_len >= 32768)
+    opt_state, train_step = _lm_train_step(params, lambda p: transformer.
+                                           lm_loss(p, tokens, heads,
+                                                   segment_ids=seg,
+                                                   positions=pos,
+                                                   remat=remat))
+    return LmBench(train_step, params, opt_state, tokens, real,
+                   real / (batch * max_len), remat)
+
+
+def bench_transformer_moe(batch=16, seq_len=512, vocab=32000, d_model=512,
+                          dff=2048, layers=6, heads=8, experts=8,
+                          moe_top_k=2, remat=None, device=None):
+    """Sparse-expert causal-LM training (``bench.py:622-678``): the
+    decoder-only trunk with every block's FFN an ``experts``-expert
+    top-``moe_top_k`` mixture (``init_lm(moe_experts=)``, a generator
+    seeded 0), ids from ``np.random.RandomState(0)`` in [3, vocab),
+    every row full length, ``lm_loss`` (the key-masked dense attention
+    path, no flash kernel, as JAX routes it; the load-balance aux at
+    weight 0.01), Adam lr 1e-4.  Every expert runs on every token (the
+    dense dispatch).  ``remat`` as ``bench_transformer_packed``."""
+    dev = _device.resolve(device)
+    params = transformer.init_lm(torch.Generator().manual_seed(0), vocab,
+                                 d_model, heads, dff, layers, seq_len,
+                                 moe_experts=experts, device=dev)
+    rng = np.random.RandomState(0)
+    tokens = SequenceBatch(
+        data=torch.tensor(rng.randint(3, vocab, (batch, seq_len)),
+                          dtype=torch.int32, device=dev),
+        lengths=torch.full((batch,), seq_len, dtype=torch.int32,
+                           device=dev))
+    remat = _remat(remat, batch * seq_len >= 32768)
+    opt_state, train_step = _lm_train_step(params, lambda p: transformer.
+                                           lm_loss(p, tokens, heads,
+                                                   moe_top_k=moe_top_k,
+                                                   remat=remat))
+    return LmBench(train_step, params, opt_state, tokens, batch * seq_len,
+                   1.0, remat)
+
+
+class TrainerInt8Bench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    trainer: object
+    twin: object
+    feeder: DataFeeder
+    batches: list
+    flops_per_step: float
+
+
+def bench_trainer_int8(batch=64, dim=64, hidden=128, n_batches=24, seed=0,
+                       device=None):
+    """Int8 weight-streaming training (``bench.py:2481-2597``): an
+    fc(tanh) -> fc(softmax) classifier on ``dim``-wide dense inputs
+    (labels: the sign of the row sum), ``n_batches`` batches from
+    ``np.random.RandomState(seed)``, ``trainer.SGD(quant_weights=True,
+    quant_min_size=1024)`` (the hidden layer's weight streams int8) and
+    its float32 twin from the same weights (SGD's seed), Momentum lr
+    0.01 m 0.9.  ``int8_loss_gap`` trains both side by side;
+    ``weights_quantized`` checks what the int8 trainer keeps between
+    steps; ``train_step()`` is one int8 step on the next batch."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.data import dense_vector, integer_value
+    from paddle_tpu_torch.trainer import SGD
+    dev = _device.resolve(device)
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(n_batches, batch, dim).astype(np.float32)
+    ys = (xs.sum(-1) > 0).astype(np.int64)
+    feeder = DataFeeder({"x": dense_vector(dim), "lab": integer_value(2)},
+                        device=dev)
+
+    def build(quant):
+        L.reset_names()
+        x = L.data_layer("x", size=dim)
+        lab = L.data_layer("lab", size=1)
+        h = L.fc_layer(x, size=hidden, act="tanh")
+        y = L.fc_layer(h, size=2, act="softmax")
+        return SGD(cost=L.classification_cost(y, lab),
+                   update_equation=Momentum(learning_rate=0.01,
+                                            momentum=0.9),
+                   quant_weights=quant, quant_min_size=1024, device=dev)
+
+    trainer, twin = build(True), build(False)
+    if not trainer._qtree:
+        raise AssertionError("the int8 trainer must quantize the fc weights")
+    batches = [[(xs[i, j], int(ys[i, j])) for j in range(batch)]
+               for i in range(n_batches)]
+    count = [0]
+
+    def train_step():
+        i = count[0] % n_batches
+        count[0] += 1
+        return trainer.train_one_batch(batches[i], feeder)
+
+    return TrainerInt8Bench(train_step, trainer, twin, feeder, batches,
+                            3.0 * 2.0 * (dim * hidden + hidden * 2) * batch)
+
+
+def int8_loss_gap(bench):
+    """Trains the int8 trainer and its float32 twin over every batch, one
+    step each on the same batch: (max per-step |loss_int8 - loss_f32| /
+    max(|loss_f32|, 1), the int8 losses, the float32 losses), against
+    ``quant/weights.TRAIN_LOSS_BUDGET``."""
+    q_losses, f_losses = [], []
+    for b in bench.batches:
+        q_losses.append(float(bench.trainer.train_one_batch(b,
+                                                            bench.feeder)))
+        f_losses.append(float(bench.twin.train_one_batch(b, bench.feeder)))
+    gap = max(abs(q - f) / max(abs(f), 1.0)
+              for q, f in zip(q_losses, f_losses))
+    return gap, q_losses, f_losses
+
+
+def weights_quantized(trainer, others=()):
+    """The direct check that takes the place of ``bench.py``'s HLO gate:
+    every weight the int8 trainer keeps quantized is int8 codes [din,
+    dout] with float32 scales [1, dout] on its device, equal to its
+    float32 master's requantization, and no widened float32 copy of it
+    stays live: every float32 tensor of a quantized weight's shape that
+    the garbage collector can reach is the master or one of its
+    optimizer slots (or a param, slot or gradient of ``others``, e.g.
+    the float32 twin trainer).  Raises AssertionError; returns the
+    quantized shapes."""
+    import gc
+    from paddle_tpu_torch.quant import weights as qw
+    if trainer._view is not None:
+        raise AssertionError("the step's dequantized view outlived the step")
+    # the masters' own device ("cuda:0", where the trainer says "cuda")
+    dev = tree_leaves(trainer.parameters)[0].device
+    allowed = {t.data_ptr() for t in tree_leaves(trainer.parameters)
+               + tree_leaves(trainer.opt_state["slots"])}
+    for other in others:
+        held = tree_leaves(other.parameters)
+        allowed |= {t.data_ptr() for t in held
+                    + tree_leaves(other.opt_state["slots"])
+                    + [p.grad for p in held if p.grad is not None]}
+    shapes = set()
+    for key, leaf in trainer._qtree.items():
+        q, s = leaf["q"], leaf["s"]
+        if q.dtype != torch.int8 or s.dtype != torch.float32 \
+                or q.dim() != 2 or tuple(s.shape) != (1, q.shape[1]) \
+                or q.device != dev or s.device != dev:
+            raise AssertionError(f"{key}: codes {q.dtype} {tuple(q.shape)}, "
+                                 f"scales {s.dtype} {tuple(s.shape)}")
+        layer, name = key[2:-2].split("']['")
+        again = qw.quantize_leaf(trainer.parameters[layer][name].detach())
+        if not (torch.equal(again["q"], q) and torch.equal(again["s"], s)):
+            raise AssertionError(f"{key}: the twin is not its master's "
+                                 "requantization")
+        shapes.add(tuple(q.shape))
+    gc.collect()
+    widened = [tuple(t.shape) for t in gc.get_objects()
+               if issubclass(type(t), torch.Tensor)
+               and t.dtype == torch.float32
+               and t.device == dev and tuple(t.shape) in shapes
+               and t.data_ptr() not in allowed]
+    if widened:
+        raise AssertionError(f"float32 copies of quantized weights stay "
+                             f"live between steps: {widened}")
+    return sorted(shapes)
 
 
 class Seq2SeqBench(NamedTuple):
@@ -481,14 +734,68 @@ def _timed(train_step):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq",
-                                        "rnn", "serving_quant",
+    ap.add_argument("--model", choices=("lstm", "transformer",
+                                        "transformer_packed",
+                                        "transformer_moe", "seq2seq", "rnn",
+                                        "trainer_int8", "serving_quant",
                                         "serving_speculative"),
                     default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
                     help="the LSTM's hidden size (--model lstm)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each block in the backward (the "
+                         "transformer models)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
+    remat = True if args.remat else None
+    if args.model in ("transformer_packed", "transformer_moe"):
+        moe = args.model == "transformer_moe"
+        bench = (bench_transformer_moe if moe
+                 else bench_transformer_packed)(remat=remat, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = _timed(bench.train_step)
+        ms = float(np.median(times))
+        fk = kernels.flash_attention
+        print(json.dumps({
+            "bench": args.model, "card": _device.card(),
+            "config": {"vocab": 32000, "d_model": 512, "heads": 8,
+                       "dff": 2048, "layers": 6, "batch": 16,
+                       "slots" if not moe else "seq_len": 512,
+                       **({"experts": 8, "moe_top_k": 2} if moe else {}),
+                       "optimizer": "Adam lr 1e-4", "remat": bench.remat},
+            "steps": STEPS, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "real_tokens_per_s" if not moe else "tokens_per_s":
+                bench.tokens_per_step / (ms / 1e3),
+            **({} if moe else {"pack_efficiency": bench.pack_efficiency}),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "loss_first_last": [losses[0], losses[-1]],
+            "launches": {fk.NAME: fk.launches,
+                         fk.NAME_BWD_DKV: fk.launches_bwd_dkv,
+                         fk.NAME_BWD_DQ: fk.launches_bwd_dq},
+        }), flush=True)
+        return 0
+    if args.model == "trainer_int8":
+        bench = bench_trainer_int8(device=dev)
+        gap, q_losses, f_losses = int8_loss_gap(bench)
+        if gap > TRAIN_LOSS_BUDGET:
+            raise AssertionError(f"int8 trainer loss gap {gap} exceeds the "
+                                 f"budget {TRAIN_LOSS_BUDGET}")
+        shapes = weights_quantized(bench.trainer, others=(bench.twin,))
+        times, _ = _timed(bench.train_step)
+        ms = float(np.median(times))
+        print(json.dumps({
+            "bench": "trainer_int8", "card": _device.card(),
+            "config": {"batch": 64, "dim": 64, "hidden": 128,
+                       "batches": len(bench.batches), "quant_min_size": 1024,
+                       "optimizer": "Momentum lr 0.01 m 0.9"},
+            "loss_gap_max": gap, "loss_gap_budget": TRAIN_LOSS_BUDGET,
+            "final_loss_int8": q_losses[-1], "final_loss_f32": f_losses[-1],
+            "quantized_weight_shapes": [list(x) for x in shapes],
+            "steps": STEPS, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+        }), flush=True)
+        return 0
     if args.model == "serving_quant":
         bench_serving_quant(device=dev)
         return 0
@@ -561,7 +868,8 @@ def main(argv=None):
                if bench.hidden == 512 else {}),
         }), flush=True)
         return 0
-    bench = bench_transformer(device=dev)
+    bench = bench_transformer(remat=remat, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     times, losses = _timed(bench.train_step)
     ms = float(np.median(times))
     fk = kernels.flash_attention
@@ -570,8 +878,9 @@ def main(argv=None):
         "config": {"vocab": 32000, "d_model": 512, "heads": 8, "dff": 2048,
                    "layers": "6+6", "batch": 32, "seq_len": 256,
                    "optimizer": "Adam lr 1e-4", "label_smoothing": 0.1,
-                   "full_seq": True},
+                   "full_seq": True, "remat": bool(args.remat)},
         "steps": STEPS, "ms_per_batch": ms,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "ms_per_batch_p90": float(np.percentile(times, 90)),
         "tokens_per_s": bench.tokens_per_step / (ms / 1e3),
         "loss_first_last": [losses[0], losses[-1]],

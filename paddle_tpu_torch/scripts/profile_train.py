@@ -1,14 +1,19 @@
 """Where a train step's time goes on the card.
 
     python -m paddle_tpu_torch.scripts.profile_train \
-        [--model lstm|transformer|seq2seq|rnn] [--hidden 512|1280|2048]
+        [--model lstm|transformer|transformer_packed|transformer_moe|
+                 seq2seq|rnn] [--hidden 512|1280|2048] [--remat]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
 embedding 128, 2 x LSTM h=512 or ``--hidden``, batch 64, length 100,
 Momentum; the default), ``scripts/bench.bench_transformer`` at the bench's config
 (vocab 32000, d_model 512, 8 heads, dff 2048, 6+6 layers, batch 32,
-length 256, Adam, full_seq), ``scripts/bench.bench_seq2seq`` (vocab
-30000, emb = h = att 512, batch 64, lengths 30 / 30, Momentum) or
+length 256, Adam, full_seq), ``scripts/bench.bench_transformer_packed``
+(the decoder-only trunk, 6 layers of the same widths, B 16 packed rows
+of 512 slots, Adam), ``scripts/bench.bench_transformer_moe`` (that
+trunk with 8-expert top-2 FFNs, B 16, T 512), ``--remat`` recomputing
+the transformer models' blocks in the backward,
+``scripts/bench.bench_seq2seq`` (vocab 30000, emb = h = att 512, batch 64, lengths 30 / 30, Momentum) or
 ``scripts/bench.bench_rnn`` (``models/text_rnn``'s DSL config through
 ``trainer.SGD``: 2 x vanilla RNN h=512, batch 64, length 100, a new
 batch each step, the feed included) and runs its train step: WARMUP
@@ -30,23 +35,27 @@ import json
 import torch
 
 from paddle_tpu_torch import device as _device
-from paddle_tpu_torch.scripts.bench import (bench_lstm, bench_rnn,
-                                            bench_seq2seq, bench_transformer,
-                                            step_split)
+from paddle_tpu_torch.scripts.bench import (
+    bench_lstm, bench_rnn, bench_seq2seq, bench_transformer,
+    bench_transformer_moe, bench_transformer_packed, step_split)
 from paddle_tpu_torch.scripts.profile_step import measure
 
 WARMUP = 5
-STEPS = {"lstm": 20, "transformer": 10, "seq2seq": 10, "rnn": 20}
+STEPS = {"lstm": 20, "transformer": 10, "transformer_packed": 10,
+         "transformer_moe": 10, "seq2seq": 10, "rnn": 20}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("lstm", "transformer", "seq2seq",
-                                        "rnn"), default="lstm")
+    ap.add_argument("--model", choices=tuple(STEPS), default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
                     help="the LSTM's hidden size (--model lstm)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each block in the backward (the "
+                         "transformer models)")
     args = ap.parse_args(argv)
     dev = _device.resolve("cuda")
+    remat = True if args.remat else None
     if args.model == "lstm":
         bench = bench_lstm(hidden=args.hidden, device=dev)
         config = (f"text_lstm vocab 30000, emb 128, 2 x LSTM h={args.hidden}, "
@@ -59,10 +68,21 @@ def main(argv=None):
         bench = bench_seq2seq(device=dev)
         config = ("seq2seq attention NMT vocab 30000, emb = h = att 512, "
                   "bi-GRU encoder, batch 64, lengths 30 / 30, Momentum")
+    elif args.model == "transformer_packed":
+        bench = bench_transformer_packed(remat=remat, device=dev)
+        config = ("packed causal LM vocab 32000, d_model 512, 8 heads, dff "
+                  "2048, 6 layers, batch 16 x 512 slots, pack efficiency "
+                  f"{bench.pack_efficiency:.3f}, Adam, remat {bench.remat}")
+    elif args.model == "transformer_moe":
+        bench = bench_transformer_moe(remat=remat, device=dev)
+        config = ("MoE causal LM vocab 32000, d_model 512, 8 heads, 8 "
+                  "experts top 2 of dff 2048, 6 layers, batch 16, length "
+                  f"512, Adam, remat {bench.remat}")
     else:
-        bench = bench_transformer(device=dev)
+        bench = bench_transformer(remat=remat, device=dev)
         config = ("transformer MT vocab 32000, d_model 512, 8 heads, dff "
-                  "2048, 6+6 layers, batch 32, length 256, Adam, full_seq")
+                  "2048, 6+6 layers, batch 32, length 256, Adam, full_seq, "
+                  f"remat {bool(args.remat)}")
     for _ in range(WARMUP):
         bench.train_step()
     torch.cuda.synchronize()

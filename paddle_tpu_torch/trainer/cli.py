@@ -4,6 +4,7 @@
 Usage:
   python -m paddle_tpu_torch train --config my_config.py [--num_passes N]
        [--save_dir DIR] [--config_args k=v,...] [--device cpu|cuda]
+       [--quant-train]
   python -m paddle_tpu_torch test --config my_config.py --model_dir DIR
 
 The config file is a Python script defining ``get_config()`` returning a
@@ -75,6 +76,10 @@ def main(argv=None):
     t.add_argument("--log_period", type=int, default=100)
     t.add_argument("--test_period", type=int, default=0)
     t.add_argument("--show_parameter_stats_period", type=int, default=0)
+    t.add_argument("--quant-train", dest="quant_train", action="store_true",
+                   help="int8 weight-streaming training (SGD(quant_weights="
+                        "True)); checkpoints carry the masters and their "
+                        "int8 twin")
 
     te = sub.add_parser("test")
     add_common(te)
@@ -92,7 +97,9 @@ def main(argv=None):
         optimizer = optim.Momentum(learning_rate=1e-3, momentum=0.0)
     trainer = SGD(cost=cfg["cost"], update_equation=optimizer,
                   sharding_rules=cfg.get("sharding_rules"),
-                  evaluators=cfg.get("evaluators"), device=args.device)
+                  evaluators=cfg.get("evaluators"),
+                  quant_weights=getattr(args, "quant_train", False),
+                  device=args.device)
 
     if args.job == "train":
         save_dir = args.save_dir or cfg.get("save_dir")

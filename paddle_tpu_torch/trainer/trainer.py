@@ -13,12 +13,22 @@ seeded with ``seed`` so that a CPU and a CUDA trainer start from the
 same weights.  Checkpoints use the JAX trainer's format
 (``trainer/checkpoint.py``), so either package reads the other's.
 
+``quant_weights=True`` trains with int8 weight streaming, as the JAX
+trainer does: every 2-D float32 weight of at least ``quant_min_size``
+elements keeps an int8 twin (``quant/weights.quantize_tree``'s codes and
+per-column scales); the step's forward and backward read the dequantized
+twin, the gradients update the float32 masters, and the masters are
+requantized (deterministically) before the step returns.  Checkpoints
+carry the ``{"master", "q"}`` bundle, and either kind of checkpoint loads
+into either kind of trainer.  The combinations the JAX trainer refuses
+(with sparse-update embeddings, a mesh, ``grad_accum_steps > 1`` or
+``compute_dtype``) raise its ``ConfigError``.
+
 Settings whose machinery is not ported raise ``ConfigError`` naming
 their ROADMAP item: ``mesh`` / ``sharding_rules`` (A12), ``evaluators``
 (A9·c), ``compute_dtype`` (A2), ``grad_accum_steps > 1`` and pruning
-hooks (A9·c), ``quant_weights`` (A3), sparse-update embeddings and
-``prefetch > 0`` (A9·f), ``save_on_signal`` and resuming from a
-preemption checkpoint (A9·c).
+hooks (A9·c), sparse-update embeddings and ``prefetch > 0`` (A9·f),
+``save_on_signal`` and resuming from a preemption checkpoint (A9·c).
 """
 
 import time
@@ -32,6 +42,7 @@ from paddle_tpu_torch.data import reader as reader_mod
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.layers.graph import Topology, params_from_numpy, \
     value_data
+from paddle_tpu_torch.quant import weights as qw
 from paddle_tpu_torch.trainer import events
 from paddle_tpu_torch.trainer.checkpoint import save_checkpoint, \
     load_checkpoint
@@ -42,6 +53,13 @@ from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
 
 def _refuse(what, item):
     raise ConfigError(f"SGD: {what} is not ported yet (ROADMAP {item})")
+
+
+def _keystr(path):
+    """A tree path as ``jax.tree_util.keystr`` writes it ("['fc_0']['w0']"):
+    the keys of the int8 twin, so that the two packages' checkpoints
+    carry the same bundle."""
+    return "".join(f"[{k!r}]" for k in path)
 
 
 def _detach(v):
@@ -64,6 +82,24 @@ class SGD:
                  sharding_rules=None, seed=1, donate=True, evaluators=None,
                  compute_dtype=None, grad_accum_steps=1,
                  quant_weights=False, quant_min_size=1024, device=None):
+        self._quant = bool(quant_weights)
+        self._quant_min_size = int(quant_min_size)
+        if self._quant:
+            # the JAX trainer's refusals of the int8 mode, before the
+            # port's own of the unported settings
+            if mesh is not None:
+                raise ConfigError(
+                    "quant_weights=True is single-chip for now (sharding "
+                    "the int8+scale pair tree is the named residual)")
+            if int(grad_accum_steps) > 1:
+                raise ConfigError(
+                    "quant_weights=True with grad_accum_steps > 1 is "
+                    "unsupported (the held-grads window would read stale "
+                    "quantized weights)")
+            if compute_dtype is not None:
+                raise ConfigError(
+                    "quant_weights=True already streams int8 weights; "
+                    "combining it with compute_dtype is unsupported")
         if mesh is not None or sharding_rules is not None:
             _refuse("a mesh (sharded training)", "A12")
         if evaluators:
@@ -72,8 +108,6 @@ class SGD:
             _refuse("compute_dtype (bf16 compute)", "A2")
         if int(grad_accum_steps) != 1:
             _refuse("grad_accum_steps > 1", "A9·c")
-        if quant_weights:
-            _refuse("quant_weights (int8 weight training)", "A3")
         if update_equation is None:
             raise ValueError("SGD needs update_equation=, e.g. "
                              "optim.Momentum(learning_rate=0.01)")
@@ -84,6 +118,11 @@ class SGD:
         for node in self.topology.order:
             if node.layer_type == "embedding" \
                     and node.cfg.get("sparse_update"):
+                if self._quant:
+                    raise ConfigError(
+                        "quant_weights=True is unsupported with "
+                        "sparse_update embeddings (row-sliced tables have "
+                        "no per-out-channel scale home)")
                 _refuse(f"sparse_update embedding {node.name!r}", "A9·f")
             pas = node.cfg.get("param_attr")
             pas = pas if isinstance(pas, (list, tuple)) else [pas]
@@ -102,6 +141,12 @@ class SGD:
                     np.asarray(a, np.float32), device=self.device),
                 parameters)
         self._track()
+        # the int8 twin of the masters: only the quantized leaves, keyed
+        # by path; rebuilt from the masters after every update
+        self._qtree = self._requant(self.parameters) if self._quant \
+            else None
+        self._view = None       # the step's tree, between its forward and
+                                # its update
         self.opt_state = self.optimizer.init(self.parameters)
         self.model_state = self.topology.init_state()
         # draws of the layers that need them (dropout)
@@ -111,7 +156,44 @@ class SGD:
     def _track(self):
         self._leaves = tree_leaves(self.parameters)
         for p in self._leaves:
-            p.requires_grad_(True)
+            # in int8 mode the step differentiates its own view
+            p.requires_grad_(not self._quant)
+
+    def _requant(self, params):
+        """The masters' int8 twin: ``{tree path: {"q", "s"}}`` for every
+        leaf ``quantize_tree`` quantizes (2-D float32, at least
+        ``quant_min_size`` elements), and only those.  Deterministic,
+        so rebuilding it from the same masters gives the same codes."""
+        out = {}
+
+        def visit(tree, path):
+            if isinstance(tree, dict):
+                for key in sorted(tree):
+                    visit(tree[key], path + (key,))
+                return
+            q = qw.quantize_tree(tree.detach(), min_size=self._quant_min_size)
+            if qw.is_quantized_leaf(q):
+                out[_keystr(path)] = q
+
+        visit(params, ())
+        return out
+
+    def _step_view(self):
+        """The tree the step differentiates: in int8 mode each quantized
+        leaf's dequantized twin and the masters' other leaves, as fresh
+        leaf tensors (the masters stay out of the graph); else the
+        masters themselves."""
+        if not self._quant:
+            return self.parameters
+
+        def view(tree, path):
+            if isinstance(tree, dict):
+                return {k: view(v, path + (k,)) for k, v in tree.items()}
+            q = self._qtree.get(_keystr(path))
+            leaf = qw.dequantize_leaf(q) if q is not None else tree.detach()
+            return leaf.requires_grad_(True)
+
+        return view(self.parameters, ())
 
     # ------------------------------------------------------------ step
 
@@ -123,10 +205,12 @@ class SGD:
         return feeder(batch)
 
     def _forward(self, feed):
-        """(total cost, extras): the graph in train mode, the sum over
-        costs of each cost's batch mean, float32."""
+        """(total cost, extras): the graph in train mode over the step's
+        view of the params (``_step_view``), the sum over costs of each
+        cost's batch mean, float32."""
+        self._view = self._step_view()
         out, new_state = self.topology.apply(
-            self.parameters, feed, mode="train", generator=self.generator,
+            self._view, feed, mode="train", generator=self.generator,
             state=self.model_state, return_state=True)
         outs = out if isinstance(out, tuple) else (out,)
         n_cost = len(self.costs)
@@ -140,9 +224,15 @@ class SGD:
         total.backward()
 
     def _update(self):
+        """The optimizer on the masters with the view's gradients, in
+        place; in int8 mode then the masters' requantization.  The view
+        (and with it every dequantized weight) is dropped."""
         grads = tree_map(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), self.parameters)
+                         else torch.zeros_like(p), self._view)
+        self._view = None
         self.optimizer.update(grads, self.opt_state, self.parameters)
+        if self._quant:
+            self._qtree = self._requant(self.parameters)
 
     def _step(self, feed):
         total, extras = self._forward(feed)
@@ -267,7 +357,11 @@ class SGD:
         The write is synchronous, so ``block`` is met either way."""
         extra = dict(extra or {})
         extra.setdefault("grad_accum_steps", 1)
-        return save_checkpoint(save_dir, pass_id, self.parameters,
+        params = self.parameters
+        if self._quant and self._qtree:
+            # both trees: a resumed step reads the same int8 bytes
+            params = {"master": self.parameters, "q": self._qtree}
+        return save_checkpoint(save_dir, pass_id, params,
                                self.opt_state, self.model_state,
                                extra=extra, save_only_one=save_only_one)
 
@@ -278,11 +372,19 @@ class SGD:
                                                                pass_id)
         if meta.get("preempted"):
             _refuse("resuming a preemption checkpoint", "A9·c")
-        if set(params) == {"master", "q"}:
-            _refuse("an int8 weight-training checkpoint", "A3")
-        self.parameters = params_from_numpy(self.topology, params,
+        bundled = set(params) == {"master", "q"}
+        masters = params["master"] if bundled else params
+        self.parameters = params_from_numpy(self.topology, masters,
                                             self.device)
         self._track()
+        if self._quant:
+            # a bundle's int8 twin as saved; a plain checkpoint's masters
+            # requantized (deterministic: the same codes either way)
+            self._qtree = ({key: {k: torch.tensor(np.asarray(a),
+                                                  device=self.device)
+                                  for k, a in leaf.items()}
+                            for key, leaf in params["q"].items()}
+                           if bundled else self._requant(self.parameters))
         if opt_state is not None:
             if "inner" in opt_state:    # a grad-accumulation wrapper
                 if int(opt_state["tick"]):

@@ -291,11 +291,15 @@ def test_full_seq_refuses_padded_rows_and_options_not_ported(mt_pair,
         torch_tf.loss(tp, padded, full, full, HEADS, full_seq=True)
     with pytest.raises(ValueError, match="full_seq=True"):
         torch_tf.loss(tp, full, padded, padded, HEADS, full_seq=True)
-    for kw in (dict(remat=True), dict(mesh=object()), dict(zigzag=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # remat runs now (tests/test_torch_packed.py holds it); the
+    # sequence-parallel ring still raises
+    for kw in (dict(mesh=object()), dict(zigzag=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             torch_tf.loss(tp, full, full, full, HEADS, **kw)
+    # packed rows run now; a lone segment_ids or positions is the JAX
+    # package's ValueError
     for kw in (dict(segment_ids=ids), dict(positions=ids)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="BOTH"):
             torch_tf.lm_loss(tp, full, HEADS, **kw)
 
 

@@ -364,7 +364,10 @@ def test_feeder_packs_sequences_and_dense_slots():
     ({"mesh": object()}, "A12"), ({"sharding_rules": object()}, "A12"),
     ({"evaluators": [object()]}, "A9·c"),
     ({"compute_dtype": torch.bfloat16}, "A2"),
-    ({"grad_accum_steps": 2}, "A9·c"), ({"quant_weights": True}, "A3")])
+    ({"grad_accum_steps": 2}, "A9·c"),
+    # int8 training runs now (tests/test_torch_trainer_quant.py); with
+    # gradient accumulation JAX's trainer refuses it too
+    ({"quant_weights": True, "grad_accum_steps": 2}, "quant_weights")])
 def test_sgd_refuses_settings_not_ported(kw, item):
     with pytest.raises(ConfigError, match=item):
         SGD(_build(L, "rnn_max")[0], update_equation=optim.Momentum(),
