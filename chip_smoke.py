@@ -250,6 +250,43 @@ non-zero exit code and no final "ok" line:
             TRAIN_LOSS_BUDGET (0.05); between steps only int8 codes and
             float32 scales of the quantized weight (and no widened
             float32 copy) live; ms/batch of both
+  train_rnn_bf16  the train_rnn config under the bf16 compute policy
+            (SGD(compute_dtype=torch.bfloat16), core/dtypes.set_policy
+            bfloat16): the first step against a CPU witness from the same
+            weights that max-pools at the card's argmax (loss and every
+            gradient leaf within BF16_GRAD_TOL, which the same step with
+            its products' cotangent rounded to bf16 must fail), B11's
+            (float32 xs, bf16 W) instances launched 2 + 2; then
+            BF16_STEPS steps of
+            SGD.train on one batch (its loss falls), each launching them
+            2 + 2, ms/batch beside the same steps without the policy;
+            then `python -m paddle_tpu_torch train --dtype bfloat16` as a
+            subprocess, whose float32 pass dir SGD.load restores bit for
+            bit
+  train_dsl_bf16  the same for text_rnn's cell="lstm" at h 512 (B9's
+            instances) and h 1280 (B12's forward; its backward is plain
+            torch) and cell="gru" at h 512 (B10's), the first step at
+            BF16_CHECK_BATCH rows; then each family's recurrent layer fed
+            by an embedding (bf16 xs: the (bf16 xs, bf16 W) instances),
+            two steps each, launch counts exact
+  rnn_ops_bf16  the ops API's recurrent entry points (ops/rnn.simple_rnn,
+            lstm at h 512 and 1280, gru) called with bf16 xs and float32
+            weights at the kernel table's shapes, forward and backward:
+            the (bf16 xs, float32 W) instances launched once each way,
+            hs within one bf16 step of the CPU's, the gradients within
+            MIXED_GRAD_TOL
+  train_transformer_bf16  bench_transformer (B 32, T 256) under
+            set_policy("float32", "bfloat16"): the first step at batch 2
+            against a CPU witness that keeps the card's ReLU decisions
+            (loss, every gradient leaf within BF16_MT_GRAD_TOL, which the
+            rounded-cotangent control must fail), warm-up and timed steps
+            with the
+            flash kernels' launches, the loss falling, ms/batch beside
+            train_transformer's and the matmul route the card took
+The kernels phase also holds every bf16 instance of the recurrent
+kernels (float32 xs with bf16 W, bf16 xs and W, bf16 xs with float32 W)
+against its plain version on the same inputs at the kernel table's
+shapes (bf16_instances).
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -282,6 +319,10 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
+# the tensor cores' dense bf16 rate: the bf16 instances' products at it,
+# beside their 3xTF32 bound (they widen bf16 to float32 and multiply as
+# the float32 kernels do)
+PEAK_BF16_FLOPS = 989e12
 
 # Kernel vs plain version on the same inputs: float32 with TF32 off on
 # both sides, summed in different orders (tiled online softmax vs a
@@ -554,6 +595,66 @@ RNN_BATCHES, RNN_CLI_BATCHES = 20, 3
 #     of the largest entry of a CPU witness step that pools at the
 #     card's argmax; the plain CPU step's errors are reported.
 RNN_TIE_TOL = 1e-5
+# The bf16 instances of the recurrent kernels against their plain
+# versions on the same inputs (at the shapes of their float32 rows).  A
+# float32 output is held at the 3xTF32 gate, BF16_F32_FLOOR of its
+# largest entry.  A bf16 output element is held within one bf16 step
+# (2^-7 of its power of two) of the plain version's, plus that floor:
+# both round a float32 value once, and two float32 sums in other orders
+# that straddle a rounding boundary land one step apart; where the value
+# is near zero (a sum that cancels) the floor covers the float32 sums'
+# own difference.  The share of elements that differ at all is printed.
+BF16_F32_FLOOR = 1e-5
+# The first bf16 step on the card against the plain CPU step from the
+# same weights (JAX's arithmetic: float32 products of the bf16-rounded
+# operands, the float32 cotangent in the backward's products), keeping
+# the card's max-pool / ReLU decisions.  The card's products are
+# aten::mm.dtype (bf16 operands, float32 accumulator); their backward
+# (ops/linear._MmBf16) takes the cotangent as two bf16 terms, so what is
+# left is float32 summation order and the bf16 roundings it flips, which
+# compound through the layers.  Each limit lies between the sound step's
+# reading and a control's: the same step on the card whose products
+# round the float32 cotangent to bf16 (rounded_cotangent), a departure
+# from JAX's arithmetic the gate must see; every run checks that the
+# control fails its gate.  Readings (NVIDIA H100 80GB HBM3, 700 W; the
+# largest leaf's relative L2 error, sound / control): the DSL steps'
+# 0.50e-3-2.61e-3 / 5.95e-3-12.5e-3 (train_rnn's the closest pair,
+# 2.61e-3 / 5.95e-3), held at BF16_GRAD_TOL.  The MT step's largest leaf
+# reads 2.30e-2 / 2.43e-2: summation order alone moves its attention
+# projections as far as the control does (on the CPU a float64-
+# accumulated product moves them by up to 3.8e-2), so the MT step is held
+# on the leaves' median, 3.16e-3 / 5.00e-3, at BF16_MT_GRAD_TOL, its
+# largest leaf under BF16_MT_GRAD_MAX (a ceiling for gross faults, which
+# the control passes too), and one product of the step at its shapes
+# ([8192, 512] x [512, 2048]) on its own, where no layers compound:
+# dx, dW 1.2e-4, 2.2e-4 / 2.56e-3 at BF16_MM_GRAD_TOL.  The loss is held
+# at TRAIN_REL_TOL.
+BF16_GRAD_TOL = 4e-3
+BF16_MT_GRAD_TOL = 4e-3
+BF16_MT_GRAD_MAX = 5e-2
+BF16_MM_GRAD_TOL = 7e-4
+# The ops API's recurrent calls with bf16 xs and float32 weights on the
+# card against the same calls on the CPU: hs within one bf16 step (plus
+# BF16_F32_FLOOR) of the CPU's, as an instance is held; each gradient
+# within MIXED_GRAD_TOL relative L2 of the CPU's.  The backward reads each
+# device's own hs, of which 0.02-0.07 % of elements round one bf16 step
+# (2^-8) apart: ~1e-4 through the BPTT, the limit ten times that.
+MIXED_GRAD_TOL = 1e-3
+# text_rnn's cells under the policy (cell, hidden): the LSTM at 512
+# takes the resident kernels, at 1280 the gate-blocked forward, the GRU
+# at 512 its kernels; their first step on BF16_CHECK_BATCH rows.  Then
+# each family fed by an embedding (bf16 xs): (cell, hidden) at a small
+# vocabulary, the LSTM at 640 (B 64 fails the resident rule) for the
+# blocked forward.
+BF16_DSL = (("lstm", 512), ("lstm", 1280), ("gru", 512))
+BF16_EMB_FED = (("rnn", 128), ("lstm", 128), ("gru", 128), ("lstm", 640))
+BF16_EMB_VOCAB = 1000
+BF16_CHECK_BATCH = 16
+BF16_WARMUP, BF16_STEPS = 3, 20
+
+
+# ms/batch of the float32 train phases, beside their bf16 twins
+F32_MS = {}
 
 
 def emit(obj):
@@ -1794,12 +1895,13 @@ def check_lstm_tf32_control(torch, dev):
     shape inputs: the kernels pass LSTM_TC_TOL and the variant must not,
     or the gate could not tell one pass from 3xTF32."""
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import lstm as lk
     from paddle_tpu_torch.scripts import probe_lstm
     (control, _), = probe_lstm.build(["tf32_1x"]).values()
     case = probe_lstm.Case(dev, np.random.RandomState(1), LSTM_T, LSTM_B,
                            LSTM_D)
-    kernel = (_build.entry("lstm", "lstm_fwd_f32", 8, 4),
-              _build.entry("lstm", "lstm_bwd_f32", 14, 3),
+    kernel = (_build.entry("lstm", "lstm_fwd_f32", *lk.FWD_ARGS),
+              _build.entry("lstm", "lstm_bwd_f32", *lk.BWD_ARGS),
               _build.entry("lstm", "lstm_dwr_f32", 3, 3))
     errs = {"kernel": case.errors(kernel), "tf32_1x": case.errors(control)}
     worst = {name: max(e.values()) for name, e in errs.items()}
@@ -2110,11 +2212,12 @@ def check_gru_tf32_control(torch, dev, libs):
     shape inputs: the kernels pass GRU_TC_TOL and the variant must not,
     or the gate could not tell one pass from 3xTF32."""
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import gru as gk
     from paddle_tpu_torch.scripts import probe_gru
     case = probe_gru.Case(dev, np.random.RandomState(1), GRU_T, GRU_B,
                           GRU_D)
-    kernel = (_build.entry("gru", "gru_fwd_f32", 7, 4),
-              _build.entry("gru", "gru_bwd_f32", 12, 3))
+    kernel = (_build.entry("gru", "gru_fwd_f32", *gk.FWD_ARGS),
+              _build.entry("gru", "gru_bwd_f32", *gk.BWD_ARGS))
     errs = {"kernel": case.errors(kernel),
             "tf32_1x": case.errors(libs["tf32_1x"][0])}
     worst = {name: max(e.values()) for name, e in errs.items()}
@@ -2347,11 +2450,12 @@ def check_rnn_tf32_control(torch, dev, libs):
     set of train shape inputs: the kernels pass RNN_TC_TOL and the
     variant must not, or the gate could not tell one pass from 3xTF32."""
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import simple_rnn as rk
     from paddle_tpu_torch.scripts import probe_simple_rnn
     case = probe_simple_rnn.Case(dev, np.random.RandomState(1), RNN_T,
                                  RNN_B, RNN_D)
-    kernel = (_build.entry("simple_rnn", "simple_rnn_fwd_f32", 4, 3),
-              _build.entry("simple_rnn", "simple_rnn_bwd_f32", 7, 3))
+    kernel = (_build.entry("simple_rnn", f"{rk.NAME_FWD}_f32", *rk.FWD_ARGS),
+              _build.entry("simple_rnn", f"{rk.NAME_BWD}_f32", *rk.BWD_ARGS))
     errs = {"kernel": case.errors(kernel),
             "tf32_1x": case.errors(libs["tf32_1x"][0])}
     worst = {name: max(e.values()) for name, e in errs.items()}
@@ -3477,6 +3581,7 @@ def run_train_transformer(torch, dev, kernels):
             or not losses[-1] < losses[0]:
         fail(f"train_transformer: loss not finite or not falling: {losses}")
     ms = float(np.median(times))
+    F32_MS["train_transformer"] = ms
     launches = dict(zip((fk.NAME, fk.NAME_BWD_DKV, fk.NAME_BWD_DQ),
                         map(sum, zip(*per_step))))
     emit({"phase": "train_transformer", "config": {
@@ -3759,12 +3864,12 @@ def get_config():
 """
 
 
-def rnn_cli(torch, dev, seed, trainer):
+def rnn_cli(torch, dev, seed, trainer, dtype=None):
     """``python -m paddle_tpu_torch train`` as a subprocess on a config
     file written to a temp dir (the slice's config, RNN_CLI_BATCHES
-    batches, one pass): its pass dir must exist and ``SGD.load`` must
-    restore its parameters bit for bit; then ``trainer``'s own save and
-    load round trip, bit for bit too."""
+    batches, one pass; ``--dtype dtype`` where given): its pass dir must
+    exist and ``SGD.load`` must restore its parameters bit for bit; then
+    ``trainer``'s own save and load round trip, bit for bit too."""
     import os
     import subprocess
     import tempfile
@@ -3774,7 +3879,9 @@ def rnn_cli(torch, dev, seed, trainer):
 
     def fresh():
         return SGD(cost=text_rnn.build(), update_equation=text_rnn.optimizer(),
-                   device=dev)
+                   device=dev, compute_dtype=(torch.bfloat16
+                                              if dtype == "bfloat16"
+                                              else None))
 
     def equal(params, tree):
         return all(np.array_equal(params[k][n].detach().cpu().numpy(),
@@ -3793,7 +3900,7 @@ def rnn_cli(torch, dev, seed, trainer):
             [sys.executable, "-m", "paddle_tpu_torch", "train", "--config",
              cfg, "--config_args", f"seed={seed},batches={RNN_CLI_BATCHES}",
              "--num_passes", "1", "--save_dir", save, "--log_period", "1",
-             "--device", dev.type],
+             "--device", dev.type] + (["--dtype", dtype] if dtype else []),
             cwd=root, env=env, capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t0
         pass_dir = os.path.join(save, "pass-00000")
@@ -3821,6 +3928,7 @@ def rnn_cli(torch, dev, seed, trainer):
         cost_lines = [line for line in run.stderr.splitlines()
                       if " Cost " in line]
     return {"seconds": cli_s, "pass_dir": os.path.basename(pass_dir),
+            "dtype": dtype or "auto",
             "meta_pass_id": meta["pass_id"], "batches": RNN_CLI_BATCHES,
             "log": cost_lines[-1].split("] ", 1)[-1] if cost_lines else None,
             "load_bit_for_bit": True, "save_load_round_trip": True}
@@ -4371,6 +4479,675 @@ def check_kv_quantizer(torch, dev, transformer, params, prompt, rng):
     return out
 
 
+# ------------------------------------------------------------- bf16
+
+def bf16_compare(torch, what, got, ref):
+    """``got`` (a kernel's output) against ``ref`` (its plain version's)
+    as BF16_F32_FLOOR says; returns the row's error fields."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)}, the plain version "
+             f"{ref.dtype} {tuple(ref.shape)}")
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    scale = float(r.abs().max()) or 1.0
+    floor = BF16_F32_FLOOR * scale
+    out = {"dtype": str(got.dtype).replace("torch.", ""),
+           "max_abs_err": float(diff.max()),
+           "rel_err": float(diff.max()) / scale}
+    if got.dtype == torch.bfloat16:
+        step = torch.exp2(torch.floor(torch.log2(
+            r.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 7)
+        over = diff > step + floor
+        out["differ_share"] = float((diff > 0).float().mean())
+        out["max_err_in_bf16_steps"] = float((diff / step)[r != 0].max()) \
+            if bool((r != 0).any()) else 0.0
+        if over.any():
+            fail(f"{what}: {int(over.sum())} bf16 elements more than one "
+                 f"bf16 step (plus {BF16_F32_FLOOR} of the largest) from the "
+                 f"plain version's: {out}")
+    elif not out["rel_err"] <= BF16_F32_FLOOR:
+        fail(f"{what}: float32 output off its plain version by {out} "
+             f"(bound {BF16_F32_FLOOR} of the largest entry)")
+    return out
+
+
+@contextlib.contextmanager
+def rounded_cotangent(torch):
+    """The control of the bf16 first-step gates: within it, the card's
+    products under the bf16 policy (ops/linear._MmBf16) round the float32
+    cotangent to bf16 before one bf16 product each, where JAX's (and the
+    sound route's) keep it float32."""
+    from paddle_tpu_torch.ops import linear
+
+    class Rounded(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b):
+            ctx.save_for_backward(a, b)
+            return torch.mm(a, b, out_dtype=torch.float32)
+
+        @staticmethod
+        def backward(ctx, g):
+            a, b = ctx.saved_tensors
+            g = g.to(a.dtype)
+            return (torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype),
+                    torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype))
+
+    sound = linear._MmBf16
+    linear._MmBf16 = Rounded
+    try:
+        yield
+    finally:
+        linear._MmBf16 = sound
+
+
+def grad_rel_l2(got, want):
+    """Each leaf's relative L2 error of ``got`` against ``want``."""
+    return [float((g - w).norm() / w.norm()) if float(w.norm()) else
+            float(g.norm()) for g, w in zip(got, want)]
+
+
+def gate_with_control(what, sound, control, limit, stat=max):
+    """``stat`` (max or np.median) of ``sound`` (per-leaf errors) within
+    ``limit`` and the control's above it; returns the readings."""
+    out = {"grad_rel_l2_err_max": max(sound),
+           "grad_rel_l2_err_median": float(np.median(sound)),
+           "control_grad_rel_l2_err_max": max(control),
+           "control_grad_rel_l2_err_median": float(np.median(control)),
+           "gated": "max" if stat is max else "median", "limit": limit,
+           "control": "the same step, its products' cotangent rounded to "
+                      "bf16 (rounded_cotangent)"}
+    if not stat(sound) <= limit < stat(control):
+        fail(f"{what}: gradient leaves' relative L2 error vs the CPU step "
+             f"{out}; the step must pass {limit} and the control fail it")
+    return out
+
+
+def check_matmul_grads(torch, dev, rng):
+    """One product of the MT step at its shapes under the bf16 policy
+    (x [MT_BATCH * MT_SEQ, 512] float32, W [512, 2048]) on the card and
+    on the CPU from the same inputs: the gradients of x and W (relative
+    L2) within BF16_MM_GRAD_TOL, which the rounded-cotangent control must
+    fail."""
+    from paddle_tpu_torch.ops import linear
+    x = normal(rng, (MT_BATCH * MT_SEQ, 512))
+    w = normal(rng, (512, 2048)) / math.sqrt(512)
+    cot = normal(rng, (MT_BATCH * MT_SEQ, 2048))
+
+    def grads(device):
+        a = torch.tensor(x, device=device, requires_grad=True)
+        b = torch.tensor(w, device=device, requires_grad=True)
+        y = linear.matmul(a, b)
+        (y * torch.tensor(cot, device=device)).sum().backward()
+        return [a.grad.cpu(), b.grad.cpu()]
+
+    sound = grads(dev)
+    with rounded_cotangent(torch):
+        control = grads(dev)
+    want = grads("cpu")
+    return gate_with_control("train_transformer_bf16 product (dx, dW)",
+                             grad_rel_l2(sound, want),
+                             grad_rel_l2(control, want), BF16_MM_GRAD_TOL)
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bf16_row(torch, name, mod, replaces, kernel, plain, outs, inputs,
+             flops, shape):
+    """One bf16 instance against its plain version on the same inputs:
+    each output compared (bf16_compare), a second launch bit for bit,
+    times, and the bound on this run's bytes (the instance's dtypes: each
+    input read once, each output written once) and operations (float32
+    products: the 3xTF32 rate, and the bf16 tensor cores' beside it)."""
+    got, ref = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    errs = {o: bf16_compare(torch, f"{name} {o}", g, r)
+            for o, g, r in zip(outs, got, ref) if g is not None}
+    again = kernel()
+    again = again if isinstance(again, tuple) else (again,)
+    if not all(torch.equal(a, g) for a, g in zip(again, got)
+               if g is not None):
+        fail(f"{name}: a second launch on the same inputs differs")
+    nbytes = tensor_bytes(*inputs, *got)
+    row = {"name": name, "route": "cuda", "source": mod.SOURCE,
+           "replaces": replaces, "shape": shape, "outputs": errs,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "repeat": "bit for bit",
+           "ms": time_ms(torch, kernel, samples=10, reps=5),
+           "plain_ms": time_ms(torch, plain, samples=3, reps=1),
+           "library_ms": None,
+           "library_note": "none: no PyTorch call takes xs and W of "
+                           "different dtypes, and torch.nn.RNN / LSTM / GRU "
+                           "in bf16 keep their carry in bf16 (another "
+                           "function)",
+           "bytes": nbytes, "flops": flops,
+           "bound_bf16_tensor_core_ms": flops / PEAK_BF16_FLOPS * 1e3}
+    tc_bound(row, nbytes, flops)
+    return row
+
+
+def check_bf16_instances(torch, dev, rng):
+    """Every bf16 instance of the recurrent kernels at its family's
+    float32 train shape (full rows, as the train batch's): B11 simple
+    RNN T 100 B 64 D 512, B9 LSTM T 100 B 64 D 512, B10 GRU T 30 B 64
+    D 512, B12 blocked LSTM forward T 100 B 64 D 1280; (float32 xs,
+    bf16 W), (bf16 xs, bf16 W) and (bf16 xs, float32 W)."""
+    from paddle_tpu_torch.ops.kernels import _check
+    from paddle_tpu_torch.ops.kernels import gru as gk
+    from paddle_tpu_torch.ops.kernels import lstm as lk
+    from paddle_tpu_torch.ops.kernels import lstm_blocked as bk
+    from paddle_tpu_torch.ops.kernels import simple_rnn as rk
+    rows = []
+    f32, bf = torch.float32, torch.bfloat16
+    for xd, wd in ((f32, bf), (bf, bf), (bf, f32)):
+        sfx = _check.suffix(xd, wd)
+        # B11
+        t, b, d = RNN_T, RNN_B, RNN_D
+        lengths, xs, mask, w = rnn_inputs(torch, dev, rng, t, b, d, False)
+        xs, w = xs.to(xd), w.to(wd)
+        dh = torch.tensor(normal(rng, (t, b, d)), device=dev).to(xd)
+        hs = rk.simple_rnn_fwd_plain(xs, mask, w)
+        (_, ff), (_, bf) = rnn_cost(lengths, t, d)
+        shape = {"T": t, "B": b, "D": d}
+        rows.append(bf16_row(
+            torch, f"{rk.NAME_FWD}[{sfx}]", rk, rk.REPLACES_FWD,
+            lambda: rk.simple_rnn_fwd(xs, mask, w),
+            lambda: rk.simple_rnn_fwd_plain(xs, mask, w), ("hs",),
+            (xs, mask, w), ff, shape))
+        rows.append(bf16_row(
+            torch, f"{rk.NAME_BWD}[{sfx}]", rk, rk.REPLACES_BWD,
+            lambda: rk.simple_rnn_bwd(hs, w, mask, dh),
+            lambda: rk.simple_rnn_bwd_plain(hs, w, mask, dh), ("dxs", "dW"),
+            (hs, w, mask, dh), bf, shape))
+        # B9
+        t, b, d = LSTM_T, LSTM_B, LSTM_D
+        lengths, xs, mask, w_r, checks = lstm_inputs(torch, dev, rng, t, b,
+                                                     d, False)
+        xs, w_r = xs.to(xd), w_r.to(wd)
+        hs, _, cs, acts = lk.lstm_fwd_plain(xs, mask, w_r, checks, True)
+        dh = torch.tensor(normal(rng, (t, b, d)), device=dev).to(xd)
+        dcfin = torch.tensor(normal(rng, (b, d)), device=dev)
+        (_, ff), (_, bf) = lstm_cost(lengths, t, d)
+        shape = {"T": t, "B": b, "D": d}
+        rows.append(bf16_row(
+            torch, f"{lk.NAME_FWD}[{sfx}]", lk, lk.REPLACES_FWD,
+            lambda: lk.lstm_fwd(xs, mask, w_r, checks, True),
+            lambda: lk.lstm_fwd_plain(xs, mask, w_r, checks, True),
+            ("hs", "c_fin", "cs", "acts"), (xs, mask, w_r, checks), ff,
+            shape))
+        rows.append(bf16_row(
+            torch, f"{lk.NAME_BWD}[{sfx}]", lk, lk.REPLACES_BWD,
+            lambda: lk.lstm_bwd(acts, cs, hs, w_r, checks, mask, dh, dcfin),
+            lambda: lk.lstm_bwd_plain(acts, cs, hs, w_r, checks, mask, dh,
+                                      dcfin),
+            ("dxs", "dW_r", "dchecks"),
+            (acts, cs, hs, w_r, checks, mask, dh, dcfin), bf, shape))
+        # B10
+        t, b, d = GRU_T, GRU_B, GRU_D
+        lengths, xs, mask, wg, ws = gru_inputs(torch, dev, rng, t, b, d,
+                                               False)
+        xs, wg, ws = xs.to(xd), wg.to(wd), ws.to(wd)
+        hs, acts = gk.gru_fwd_plain(xs, mask, wg, ws, True)
+        dh = torch.tensor(normal(rng, (t, b, d)), device=dev).to(xd)
+        (_, ff), (_, bf) = gru_cost(lengths, t, d)
+        shape = {"T": t, "B": b, "D": d}
+        rows.append(bf16_row(
+            torch, f"{gk.NAME_FWD}[{sfx}]", gk, gk.REPLACES_FWD,
+            lambda: gk.gru_fwd(xs, mask, wg, ws, True),
+            lambda: gk.gru_fwd_plain(xs, mask, wg, ws, True),
+            ("hs", "acts"), (xs, mask, wg, ws), ff, shape))
+        rows.append(bf16_row(
+            torch, f"{gk.NAME_BWD}[{sfx}]", gk, gk.REPLACES_BWD,
+            lambda: gk.gru_bwd(acts, hs, wg, ws, mask, dh),
+            lambda: gk.gru_bwd_plain(acts, hs, wg, ws, mask, dh),
+            ("dxs", "dW_gate", "dW_state"), (acts, hs, wg, ws, mask, dh),
+            bf, shape))
+        # B12 forward
+        t, b, d = BLK_T, BLK_B, BLK_TIMED[0]
+        lengths, xs, mask, w_r, checks = lstm_inputs(
+            torch, dev, rng, t, b, d, False, w_scale=1.0 / math.sqrt(d))
+        xs, w_r = xs.to(xd), w_r.to(wd)
+        rows.append(bf16_row(
+            torch, f"{bk.NAME_FWD}[{sfx}]", bk, bk.REPLACES_FWD,
+            lambda: bk.lstm_blocked_fwd(xs, mask, w_r, checks, True),
+            lambda: lk.lstm_fwd_plain(xs, mask, w_r, checks, True),
+            ("hs", "c_fin", "cs", "acts"), (xs, mask, w_r, checks),
+            lstm_cost(lengths, t, d)[0][1], {"T": t, "B": b, "D": d}))
+        del xs, w_r, hs, acts, cs
+    return rows
+
+
+def bf16_launches(kernels):
+    """Every bf16 instance's launches since the last reset, by row name."""
+    return {k: n for mod in (kernels.simple_rnn, kernels.lstm, kernels.gru,
+                             kernels.lstm_blocked)
+            for k, n in mod.launches_bf16.items()}
+
+
+def recurrent_launches(kernels):
+    """Launches of every recurrent kernel since the last reset, every
+    instance (launches_fwd / launches_bwd count each launch)."""
+    return (kernels.simple_rnn.launches_fwd + kernels.simple_rnn.launches_bwd
+            + kernels.lstm.launches_fwd + kernels.lstm.launches_bwd
+            + kernels.gru.launches_fwd + kernels.gru.launches_bwd
+            + kernels.lstm_blocked.launches_fwd)
+
+
+@contextlib.contextmanager
+def bf16_policy():
+    """The bf16 compute policy for the phase, restored (to auto) at its
+    end, whether it passes or fails (a failure still fails the run)."""
+    from paddle_tpu_torch.core import dtypes
+    dtypes.set_policy("float32", "bfloat16")
+    try:
+        yield
+    finally:
+        dtypes.set_policy()
+
+
+def dsl_trainer(torch, device, cell, hidden, compute_dtype, vocab=None,
+                emb_fed=False):
+    """SGD over text_rnn's ``cell`` config (seed 1 weights), or with
+    ``emb_fed`` the same cell fed by the embedding itself (one recurrent
+    layer, bf16 xs under the policy)."""
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.trainer import SGD
+    vocab = vocab or text_rnn.VOCAB
+    if emb_fed:
+        L.reset_names()
+        width = {"rnn": 1, "lstm": 4, "gru": 3}[cell] * hidden
+        x = L.embedding_layer(L.data_layer("word", vocab, is_seq=True),
+                              size=width)
+        x = {"rnn": L.recurrent_layer, "lstm": L.lstmemory,
+             "gru": L.grumemory}[cell](x)
+        out = L.fc_layer(L.pooling_layer(x, pooling_type=L.pooling.Max),
+                         size=text_rnn.CLASSES, act="softmax")
+        cost = L.classification_cost(out, L.data_layer("label", 1))
+    else:
+        cost = text_rnn.build(vocab=vocab, hidden=hidden, cell=cell)
+    return SGD(cost=cost, update_equation=text_rnn.optimizer(),
+               compute_dtype=compute_dtype, device=device)
+
+
+def dsl_first_step(torch, dev, kernels, cell, hidden, batch, what):
+    """One SGD(compute_dtype=bf16) step of text_rnn's ``cell`` on the
+    card and on a CPU witness that max-pools at the card's argmax, from
+    the same weights on ``batch``: (card trainer, its bf16 launches,
+    record).  Held at TRAIN_REL_TOL (loss) and BF16_GRAD_TOL (each
+    gradient leaf, relative L2), which the same card step under
+    rounded_cotangent must fail; the update must lower the batch's
+    cost."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_rnn
+    feeding = text_rnn.feeding()
+
+    def step(device, record, argmax=None):
+        tr = dsl_trainer(torch, device, cell, hidden, torch.bfloat16)
+        with pool_probe(torch, record, argmax):
+            total, _ = tr._forward(DataFeeder(feeding,
+                                              device=tr.device)(batch))
+        tr._backward(total)
+        grads = [p.grad.detach().cpu() for p in tr._leaves]
+        tr._update()
+        return tr, float(total.detach()), grads
+
+    kernels.reset_launches()
+    rec_c, rec_w, rec_x = [], [], []
+    card, loss_c, grads_c = step(dev, rec_c)
+    launches = bf16_launches(kernels)
+    after = card.test(lambda: iter([batch]), feeding=feeding)
+    with rounded_cotangent(torch):
+        _, _, grads_x = step(dev, rec_x)
+    witness, loss_w, grads_w = step("cpu", rec_w,
+                                    [r["argmax"] for r in rec_c])
+    names = leaf_names(witness.parameters)
+    loss_err = abs(loss_c - loss_w) / abs(loss_w)
+    l2 = grad_rel_l2(grads_c, grads_w)
+    largest = [float((g - w).abs().max() / w.abs().max())
+               if float(w.abs().max()) else float(g.abs().max())
+               for g, w in zip(grads_c, grads_w)]
+    flips = sum(int((a["argmax"] != b["argmax"]).sum())
+                for a, b in zip(rec_c, rec_w))
+    if not loss_err <= TRAIN_REL_TOL or not after < loss_c:
+        fail(f"{what}: first bf16 step on the card vs the CPU: loss rel err "
+             f"{loss_err} (bound {TRAIN_REL_TOL}); the batch's cost {loss_c} "
+             f"before the update, {after} after (must fall)")
+    gates = gate_with_control(f"{what} ({dict(zip(names, l2))})", l2,
+                              grad_rel_l2(grads_x, grads_w), BF16_GRAD_TOL)
+    return card, launches, {
+        "rows": len(batch), "cost_before_after_update": [loss_c, after],
+        "loss_rel_err": loss_err, **gates,
+        "grad_largest_entry_rel_err_max": max(largest),
+        "bound": {"loss": TRAIN_REL_TOL, "grad_rel_l2": BF16_GRAD_TOL},
+        "pool_argmax_flips_card_vs_witness": flips}
+
+
+def dsl_steps(torch, kernels, trainer, batch, steps, what, want=None,
+              vocab=None):
+    """``steps`` steps of ``trainer.train`` on ``batch`` repeated: (step
+    ms after BF16_WARMUP, losses, per-step bf16 launches); with ``want``
+    each step's bf16 launches must equal it and no float32 instance may
+    launch."""
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.trainer import events
+    record = {"ms": [], "loss": [], "bf16": [], "all": []}
+
+    def handler(e):
+        if isinstance(e, events.BeginIteration):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            record["t0"] = time.perf_counter()
+        elif isinstance(e, events.EndIteration):
+            record["loss"].append(float(e.cost))     # a synchronize
+            record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
+            record["bf16"].append(bf16_launches(kernels))
+            record["all"].append(recurrent_launches(kernels))
+
+    trainer.train(lambda: iter([batch] * steps), num_passes=1,
+                  event_handler=handler,
+                  feeding=text_rnn.feeding(vocab or text_rnn.VOCAB),
+                  log_period=0)
+    if not all(math.isfinite(x) for x in record["loss"]):
+        fail(f"{what}: loss not finite: {record['loss']}")
+    if want is not None:
+        bad = [(got, n) for got, n in zip(record["bf16"], record["all"])
+               if got != want or n != sum(want.values())]
+        if bad or len(record["loss"]) != steps:
+            fail(f"{what}: per-step bf16 launches {record['bf16']} (all "
+                 f"recurrent launches {record['all']}), want {want} each "
+                 f"of {steps} steps and no float32 instance")
+    return record["ms"][BF16_WARMUP:], record["loss"], record["bf16"]
+
+
+def run_train_rnn_bf16(torch, dev, kernels, seed):
+    """train_rnn under the bf16 policy: the first step against the CPU
+    witness, BF16_STEPS steps on one batch (the loss falls; B11's
+    (float32 xs, bf16 W) instances 2 + 2 a step) beside the same steps
+    in float32, and the CLI's --dtype bfloat16 with SGD.load."""
+    from paddle_tpu_torch.models import text_rnn
+    rk = kernels.simple_rnn
+    batch = text_rnn.samples(seed, text_rnn.BATCH)
+    want = {f"{rk.NAME_FWD}[xf32_wbf16]": 2,
+            f"{rk.NAME_BWD}[xf32_wbf16]": 2}
+    with bf16_policy():
+        card, first_launches, first = dsl_first_step(
+            torch, dev, kernels, "rnn", text_rnn.HIDDEN, batch,
+            "train_rnn_bf16")
+        if first_launches != want:
+            fail(f"train_rnn_bf16: first step's bf16 launches "
+                 f"{first_launches}, want {want}")
+        ms, losses, per_step = dsl_steps(torch, kernels, card, batch,
+                                         BF16_STEPS, "train_rnn_bf16", want)
+        if not min(losses[-5:]) < losses[0]:
+            fail(f"train_rnn_bf16: the loss does not fall over {BF16_STEPS} "
+                 f"steps on one batch: {losses}")
+        cli = rnn_cli(torch, dev, seed, card, dtype="bfloat16")
+    f32 = dsl_trainer(torch, dev, "rnn", text_rnn.HIDDEN, None)
+    ms32, _, _ = dsl_steps(torch, kernels, f32, batch, BF16_STEPS,
+                           "train_rnn_bf16 (float32 twin)")
+    launches = {k: first_launches[k] + sum(n[k] for n in per_step)
+                for k in want}
+    emit({"phase": "train_rnn_bf16", "config": {
+        "model": "models/text_rnn (layer DSL)", "cell": "rnn",
+        "vocab": text_rnn.VOCAB, "emb": text_rnn.EMB,
+        "hidden": text_rnn.HIDDEN, "layers": text_rnn.LAYERS,
+        "batch": text_rnn.BATCH, "seq_len": text_rnn.SEQ_LEN,
+        "optimizer": "Momentum lr 0.01 m 0.9",
+        "compute_dtype": "bfloat16 (SGD(compute_dtype=) + set_policy)",
+        "steps": f"{BF16_STEPS} of SGD.train on one batch"},
+        "ms_per_batch": float(np.median(ms)),
+        "ms_per_batch_min_max": [min(ms), max(ms)],
+        "f32_ms_per_batch": float(np.median(ms32)),
+        "launches": launches, "launches_per_step": want, "losses": losses,
+        "first_step_vs_cpu": first, "cli": cli})
+    return launches
+
+
+def run_train_dsl_bf16(torch, dev, kernels, seed):
+    """text_rnn's LSTM (h 512: B9, h 1280: B12's forward) and GRU (h 512:
+    B10) under the bf16 policy, as run_train_rnn_bf16 without the CLI,
+    the first step at BF16_CHECK_BATCH rows; then each family fed by an
+    embedding (the (bf16 xs, bf16 W) instances), two steps each."""
+    from paddle_tpu_torch.models import text_rnn
+    batch = text_rnn.samples(seed, text_rnn.BATCH)
+    names = {"lstm": [kernels.lstm.NAME_FWD, kernels.lstm.NAME_BWD],
+             "lstm_blocked": [kernels.lstm_blocked.NAME_FWD],
+             "gru": [kernels.gru.NAME_FWD, kernels.gru.NAME_BWD],
+             "rnn": [kernels.simple_rnn.NAME_FWD,
+                     kernels.simple_rnn.NAME_BWD]}
+
+    def family(cell, hidden):
+        if cell == "lstm" and not kernels.lstm.supported(
+                text_rnn.BATCH, hidden, "tanh", "sigmoid", "tanh", None):
+            return "lstm_blocked"
+        return cell
+
+    out, launches = {}, {}
+    for cell, hidden in BF16_DSL:
+        what = f"train_dsl_bf16 {cell} h{hidden}"
+        want = {f"{n}[xf32_wbf16]": 2 for n in names[family(cell, hidden)]}
+        with bf16_policy():
+            card, first_launches, first = dsl_first_step(
+                torch, dev, kernels, cell, hidden,
+                batch[:BF16_CHECK_BATCH], what)
+            if first_launches != want:
+                fail(f"{what}: first step's bf16 launches {first_launches}, "
+                     f"want {want}")
+            ms, losses, per_step = dsl_steps(torch, kernels, card, batch,
+                                             BF16_STEPS, what, want)
+            if not min(losses[-5:]) < losses[0]:
+                fail(f"{what}: the loss does not fall over {BF16_STEPS} "
+                     f"steps on one batch: {losses}")
+        del card
+        f32 = dsl_trainer(torch, dev, cell, hidden, None)
+        ms32, _, _ = dsl_steps(torch, kernels, f32, batch, BF16_STEPS,
+                               f"{what} (float32 twin)")
+        del f32
+        got = {k: first_launches[k] + sum(n[k] for n in per_step)
+               for k in want}
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        out[f"{cell}_h{hidden}"] = {
+            "ms_per_batch": float(np.median(ms)),
+            "f32_ms_per_batch": float(np.median(ms32)),
+            "launches": got, "launches_per_step": want, "losses": losses,
+            "first_step_vs_cpu": first}
+    emb = {}
+    for cell, hidden in BF16_EMB_FED:
+        what = f"train_dsl_bf16 embedding-fed {cell} h{hidden}"
+        want = {f"{n}[xbf16_wbf16]": 1 for n in names[family(cell, hidden)]}
+        ids = text_rnn.samples(seed, text_rnn.BATCH,
+                               vocab=BF16_EMB_VOCAB)
+        with bf16_policy():
+            tr = dsl_trainer(torch, dev, cell, hidden, torch.bfloat16,
+                             vocab=BF16_EMB_VOCAB, emb_fed=True)
+            _, losses, per_step = dsl_steps(torch, kernels, tr, ids, 2, what,
+                                            want, vocab=BF16_EMB_VOCAB)
+        del tr
+        for k in want:
+            launches[k] = launches.get(k, 0) + sum(n[k] for n in per_step)
+        emb[f"{cell}_h{hidden}"] = {"launches_per_step": want,
+                                    "losses": losses}
+    emit({"phase": "train_dsl_bf16", "config": {
+        "model": "models/text_rnn (layer DSL)", "vocab": text_rnn.VOCAB,
+        "emb": text_rnn.EMB, "layers": text_rnn.LAYERS,
+        "batch": text_rnn.BATCH, "seq_len": text_rnn.SEQ_LEN,
+        "optimizer": "Momentum lr 0.01 m 0.9",
+        "compute_dtype": "bfloat16 (SGD(compute_dtype=) + set_policy)",
+        "steps": f"{BF16_STEPS} of SGD.train on one batch",
+        "first_step_rows": BF16_CHECK_BATCH,
+        "embedding_fed": {"vocab": BF16_EMB_VOCAB, "layers": 1,
+                          "steps": 2}},
+        "cells": out, "embedding_fed": emb, "launches": launches})
+    return launches
+
+
+def run_rnn_ops_bf16(torch, dev, kernels, rng):
+    """The ops API's recurrent entry points called with bf16 xs and
+    float32 weights (a direct caller's dtypes; the policy casts every
+    weight): ops/rnn.simple_rnn, lstm at h 512 (resident kernels) and
+    1280 (gate-blocked forward, plain backward) and gru, at the kernel
+    table's shapes on ragged rows, forward and backward, on the card and
+    on the CPU from the same inputs.  The (bf16 xs, float32 W) instances
+    launch once each way and no other recurrent kernel does; hs is held
+    as an instance's bf16 output (bf16_compare), each gradient within
+    MIXED_GRAD_TOL relative L2 of the CPU's."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.ops import rnn
+    cases = (("simple_rnn", kernels.simple_rnn, RNN_T, RNN_D, 1, (1,)),
+             ("lstm", kernels.lstm, LSTM_T, LSTM_D, 4, (4,)),
+             ("lstm", kernels.lstm_blocked, BLK_T, BLK_TIMED[0], 4, (4,)),
+             ("gru", kernels.gru, GRU_T, GRU_D, 3, (2, 1)))
+    b, out, launches = RNN_B, {}, {}
+    for op, mod, t, d, gates, widths in cases:
+        what = f"rnn_ops_bf16 {op} h{d}"
+        lengths = rng.randint(1, t + 1, b)
+        lengths[0], lengths[-1] = 0, t
+        x = normal(rng, (b, t, gates * d)) * 0.3
+        ws = [normal(rng, (d, k * d)) / math.sqrt(d) for k in widths]
+        cot = normal(rng, (b, t, d))
+
+        def call(device):
+            xs = torch.tensor(x, device=device).to(torch.bfloat16)
+            xs.requires_grad_(True)
+            w = [torch.tensor(a, device=device, requires_grad=True)
+                 for a in ws]
+            seq = SequenceBatch(xs, torch.tensor(lengths, device=device))
+            hs = getattr(rnn, op)(seq, *w)[0].data
+            (hs.float() * torch.tensor(cot, device=device)).sum().backward()
+            return hs.detach().cpu(), [v.grad.cpu() for v in (xs, *w)]
+
+        kernels.reset_launches()
+        hs_c, grads_c = call(dev)
+        torch.cuda.synchronize()
+        got = bf16_launches(kernels)
+        want = {f"{name}[xbf16_wf32]": 1 for name in
+                (mod.NAME_FWD, getattr(mod, "NAME_BWD", None)) if name}
+        if got != want or recurrent_launches(kernels) != len(want):
+            fail(f"{what}: bf16 launches {got} (recurrent "
+                 f"{recurrent_launches(kernels)}), want {want}")
+        hs_w, grads_w = call("cpu")
+        hs_err = bf16_compare(torch, f"{what} hs", hs_c, hs_w)
+        l2 = grad_rel_l2(grads_c, grads_w)
+        if not max(l2) <= MIXED_GRAD_TOL:
+            fail(f"{what}: gradients' relative L2 error vs the CPU "
+                 f"(xs, weights) {l2} (bound {MIXED_GRAD_TOL})")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        out[f"{op}_h{d}"] = {"T": t, "B": b, "D": d, "launches": got,
+                            "hs": hs_err, "grad_rel_l2_err": l2,
+                            "grad_dtypes": [str(g.dtype).replace("torch.", "")
+                                            for g in grads_c]}
+    emit({"phase": "rnn_ops_bf16", "xs": "bfloat16", "weights": "float32",
+          "bound": {"hs": "one bf16 step plus BF16_F32_FLOOR",
+                    "grad_rel_l2": MIXED_GRAD_TOL}, "cases": out})
+    return launches
+
+
+def run_train_transformer_bf16(torch, dev, kernels, f32_ms):
+    """bench_transformer under set_policy("float32", "bfloat16"): the
+    first step at batch 2 against a CPU witness that keeps the card's
+    ReLU decisions (each gradient leaf within BF16_MT_GRAD_TOL, which the
+    same card step under rounded_cotangent must fail), then MT_WARMUP +
+    MT_STEPS steps at batch 32 with the flash launches read and the loss
+    falling."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import linear
+    from paddle_tpu_torch.scripts import bench
+    fk = kernels.flash_attention
+    with bf16_policy():
+        probe = linear.matmul(torch.ones(2, 4, device=dev, requires_grad=True),
+                              torch.ones(4, 2, device=dev))
+        fns = [probe.grad_fn] + [f for f, _ in probe.grad_fn.next_functions]
+        route = {"grad_fn": [type(f).__name__ for f in fns if f is not None],
+                 "out_dtype": str(probe.dtype).replace("torch.", ""),
+                 "call": "torch.mm(a, b, out_dtype=torch.float32) "
+                         "(aten::mm.dtype: bf16 operands on the tensor "
+                         "cores, float32 accumulator), ops/linear._MmBf16"}
+        if "_MmBf16Backward" not in route["grad_fn"] or probe.dtype \
+                != torch.float32:
+            fail(f"train_transformer_bf16: matmul under the bf16 policy on "
+                 f"the card took {route}")
+        card_run = bench.bench_transformer(batch=2, device=dev)
+        names = leaf_names(card_run.params)
+        card_pre, control_pre, witness_pre = [], [], []
+        first, card_g, _, _ = first_step(torch, transformer, card_run,
+                                         card_pre)
+        del card_run
+        with rounded_cotangent(torch):
+            control_g = first_step(
+                torch, transformer, bench.bench_transformer(
+                    batch=2, device=dev), control_pre)[1]
+        witness = first_step(torch, transformer,
+                             bench.bench_transformer(batch=2, device="cpu"),
+                             witness_pre, [p > 0 for p in card_pre])
+        loss_err = abs(first - witness[0]) / abs(witness[0])
+        l2 = grad_rel_l2(card_g, witness[1])
+        flips = sum(int(((a > 0) != (b > 0)).sum())
+                    for a, b in zip(card_pre, witness_pre))
+        if len(witness_pre) != len(card_pre) \
+                or not loss_err <= TRAIN_REL_TOL:
+            fail(f"train_transformer_bf16: first step at batch 2 vs the CPU "
+                 f"witness: loss rel err {loss_err} (bound {TRAIN_REL_TOL})")
+        gates = gate_with_control(
+            f"train_transformer_bf16 ({dict(zip(names, l2))})", l2,
+            grad_rel_l2(control_g, witness[1]), BF16_MT_GRAD_TOL,
+            np.median)
+        if not max(l2) <= BF16_MT_GRAD_MAX:
+            fail(f"train_transformer_bf16: a gradient leaf's relative L2 "
+                 f"error {max(l2)} vs the CPU step (ceiling "
+                 f"{BF16_MT_GRAD_MAX})")
+        product = check_matmul_grads(torch, dev, np.random.RandomState(18))
+        del witness, card_pre, control_pre, witness_pre, card_g, control_g
+        run = bench.bench_transformer(device=dev)
+        losses, times, per_step = [], [], []
+        for i in range(MT_WARMUP + MT_STEPS):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            loss = run.train_step()
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            if i >= MT_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+                per_step.append((fk.launches, fk.launches_bwd_dkv,
+                                 fk.launches_bwd_dq))
+        del run
+    want = (MT_ATTENTIONS,) * 3
+    if any(n != want for n in per_step):
+        fail(f"train_transformer_bf16: per-step (forward, dK/dV, dQ) "
+             f"launches {per_step}, want {want} each step")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"train_transformer_bf16: loss not finite or not falling: "
+             f"{losses}")
+    ms = float(np.median(times))
+    emit({"phase": "train_transformer_bf16", "config": {
+        "vocab": 32000, "d_model": 512, "heads": MT_HEADS, "dff": 2048,
+        "layers": "6+6", "batch": MT_BATCH, "seq_len": MT_SEQ,
+        "optimizer": "Adam lr 1e-4", "label_smoothing": 0.1,
+        "full_seq": True, "policy": 'set_policy("float32", "bfloat16")'},
+        "matmul_route": route,
+        "warmup": MT_WARMUP, "steps": MT_STEPS, "ms_per_batch": ms,
+        "ms_per_batch_min_max": [min(times), max(times)],
+        "f32_ms_per_batch": f32_ms,
+        "tokens_per_s": MT_BATCH * MT_SEQ / (ms / 1e3),
+        "launches_per_step": dict(zip((fk.NAME, fk.NAME_BWD_DKV,
+                                       fk.NAME_BWD_DQ), want)),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "first_step_vs_cpu": {
+            "batch": 2, "loss_rel_err": loss_err, **gates,
+            "grad_rel_l2_ceiling": BF16_MT_GRAD_MAX,
+            "one_product_vs_cpu": product,
+            "relu_flips_vs_witness": flips,
+            "bound": {"loss": TRAIN_REL_TOL,
+                      "grad_rel_l2_median": BF16_MT_GRAD_TOL}}})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4456,6 +5233,10 @@ def main(argv=None):
     blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
     (rnn_fwd, rnn_bwd), rnn_other = check_rnn_kernels(torch, dev, rng,
                                                       rnn_libs)
+    # the bf16 instances, on their own draws (the phases above and below
+    # keep theirs)
+    bf16_rows = check_bf16_instances(torch, dev,
+                                     np.random.RandomState(args.seed + 18))
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "lstm_blocked_3xtf32_tolerance": BLK_TC_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
@@ -4494,7 +5275,8 @@ def main(argv=None):
           "simple_rnn_other": rnn_other,
           "simple_rnn_3xtf32_control": check_rnn_tf32_control(
               torch, dev, rnn_libs),
-          "simple_rnn_routes": check_rnn_routes(torch, dev, rng, kernels)})
+          "simple_rnn_routes": check_rnn_routes(torch, dev, rng, kernels),
+          "bf16_f32_floor": BF16_F32_FLOOR, "bf16_instances": bf16_rows})
 
     emit(check_flash_padded(torch, dev, rng, kernels))
 
@@ -4547,6 +5329,13 @@ def main(argv=None):
     s2s_launches = run_train_seq2seq(torch, dev, kernels)
     rnn_launches = run_train_rnn(torch, dev, kernels, args.seed)
     run_train_int8(torch, dev, kernels)
+    bf16_runs = {
+        "train_rnn_bf16": run_train_rnn_bf16(torch, dev, kernels, args.seed),
+        "train_dsl_bf16": run_train_dsl_bf16(torch, dev, kernels, args.seed),
+        "rnn_ops_bf16": run_rnn_ops_bf16(
+            torch, dev, kernels, np.random.RandomState(args.seed + 19))}
+    run_train_transformer_bf16(torch, dev, kernels,
+                               F32_MS["train_transformer"])
 
     summary = []
     for row, mod, launches in (
@@ -4760,6 +5549,24 @@ def main(argv=None):
             row["launches_train_variants"] = {
                 phase: got[row["name"]]
                 for phase, got in lm_train_launches.items()}
+    # the bf16 instances of the recurrent kernels, launched by the bf16
+    # train phases
+    for row in bf16_rows:
+        by_path = {phase: n[row["name"]] for phase, n in bf16_runs.items()
+                   if row["name"] in n}
+        summary.append({
+            **{key: row[key] for key in (
+                "name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_note", "shape")},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "bf16_outputs_differ_share": {
+                o: e["differ_share"] for o, e in row["outputs"].items()
+                if "differ_share" in e},
+            "bound_bf16_tensor_core_ms": row["bound_bf16_tensor_core_ms"]})
+        if not summary[-1]["launches"]:
+            fail(f"{row['name']}: the bf16 train phases never launched it")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

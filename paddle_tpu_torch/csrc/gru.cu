@@ -1,6 +1,7 @@
-// Fused whole-sequence GRU for Hopper (sm_90a), float32: forward (lean
-// and residual-saving), BPTT backward, and the dW_gate / dW_state
-// products, every recurrent product on the tensor cores in 3xTF32.
+// Fused whole-sequence GRU for Hopper (sm_90a): forward (lean and
+// residual-saving), BPTT backward, and the dW_gate / dW_state products,
+// every recurrent product on the tensor cores in 3xTF32, with an
+// instance for each pair of float32 or bf16 xs and W.
 //
 // Replaces: paddle_tpu/ops/pallas/gru.py :: gru_fused
 //   forward  pallas_call at :129 (body _fwd_kernel :36, step _step :25)
@@ -89,10 +90,29 @@
 //     a grid barrier between two, no atomics.
 //   Later work (ROADMAP B10): barriers over a b-group's CTAs alone,
 //   sharing a b-block's rows across a cluster, wgmma with TMA loads.
+//
+// Element types (the JAX kernel under the bf16 policy, gru.py:45-52,
+//   74-79, 102-104, 184): xs (and hs, dh_out, dxs) is XT, W_gate and
+//   W_state (and their gradients) WT, each float or bf16 (the policy
+//   casts every weight; a direct call may pass bf16 xs with float
+//   weights); mask and acts stay float32.  Every operand is widened to float32 on load (a bf16 W
+//   row 8 values a 16-byte load into the resident slices; hs in the
+//   cells and in dW_gate's ring) and the cells, carries and products
+//   are the float32 instance's.  The recurrence reads the float32 h
+//   (the TPU kernel's VMEM carry): a bf16 instance keeps it in hc
+//   ([T, B, D] float32) and writes hs rounded once; the backward keeps
+//   dgates float32 in dg (the step products' and dW's operand) and
+//   writes dxs rounded once.  dW sums in float32 (its K-splits' partial
+//   tiles in dwg32 / dws32) and the last split writes it rounded once to
+//   WT.  For float XT / WT those buffers are hs, dxs, dwg and dws
+//   themselves: the float32 instance.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -117,16 +137,21 @@ constexpr int kPP = kMaxNt * 8 + 4;          // partial tile row pitch
 constexpr int kPart = kWarps * kRows * kPP;  // the k-groups' partial tiles
 constexpr int kRegion = kStages * kStage > kPart ? kStages * kStage : kPart;  // ring, then tiles
 
+using bf16 = __nv_bfloat16;
+
+template <typename XT, typename WT>
 struct Args {
-  const float* xs;       // [T, B, 3D]
+  const XT* xs;          // [T, B, 3D]
   const float* mask;     // [T, B]
-  const float* w_gate;   // [D, 2D]
-  const float* w_state;  // [D, D]
-  float* hs;             // [T, B, D]
+  const WT* w_gate;      // [D, 2D]
+  const WT* w_state;     // [D, D]
+  XT* hs;                // [T, B, D]
+  float* hc;             // [T, B, D] float32 carried h (hs where XT is float)
   float* acts;           // [T, B, 3D]; null in the lean forward
   float* sbuf;           // [B, D]: the step's s = r h_{t-1}
-  const float* dh_out;   // [T, B, D]
-  float* dxs;            // [T, B, 3D]
+  const XT* dh_out;      // [T, B, D]
+  XT* dxs;               // [T, B, 3D]
+  float* dg;             // [T, B, 3D] float32 dgates (dxs where XT is float)
   float* dh_buf;         // [B, D]: the dh carry, own cells
   float* part;           // [B, D]: dh (1 - u) + ds r, own cells
   float* s_all;          // [T - 1, B, D]: r_t h_{t-1} for t >= 1
@@ -135,6 +160,53 @@ struct Args {
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
+__device__ __forceinline__ float wide(float x) { return x; }
+__device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// the 16 bytes at src (16-byte aligned) widened to 16 / sizeof(T) floats
+// at dst (16-byte aligned)
+__device__ __forceinline__ void widen16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void widen16(float* dst, const bf16* src) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// the CTA's columns n of W [K][ld] (column n0 + n at ld-offset col(n)),
+// k < K, widened into w[n][k] at pitch wp, one 16-byte load a V run of
+// columns (a run stays inside one 16-column group)
+template <typename WT, int NC>
+__device__ __forceinline__ void load_cols(float* w, int wp, const WT* W, int ld, int K, int D,
+                                          int u0) {
+  constexpr int V = 16 / sizeof(WT);
+  for (int e = threadIdx.x; e < K * (NC / V); e += kThreads) {
+    const int k = e / (NC / V), n0 = (e % (NC / V)) * V;
+    alignas(16) float v[V];
+    widen16(v, W + (size_t)k * ld + (n0 / kUnits) * D + u0 + n0 % kUnits);
+#pragma unroll
+    for (int j = 0; j < V; ++j) w[(n0 + j) * wp + k] = v[j];
+  }
+}
+// rows [u0, u0 + 16) of W [.][ld], K wide, widened into w[n][k] at pitch wp
+template <typename WT>
+__device__ __forceinline__ void load_rows(float* w, int wp, const WT* W, int ld, int K, int u0) {
+  constexpr int V = 16 / sizeof(WT);
+  for (int e = threadIdx.x; e < kUnits * (K / V); e += kThreads) {
+    const int n = e / (K / V), k = (e % (K / V)) * V;
+    widen16(w + n * wp + k, W + (size_t)(u0 + n) * ld + k);
+  }
+}
 
 // x = big + small as two TF32 operands (csrc/flash_attention.cu)
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
@@ -256,8 +328,8 @@ __device__ __forceinline__ float part_sum(const float* region, int r, int n) {
   return s;
 }
 
-template <bool kResid>
-__global__ void __launch_bounds__(kThreads) gru_fwd_kernel(Args p) {
+template <typename XT, typename WT, bool kResid>
+__global__ void __launch_bounds__(kThreads) gru_fwd_kernel(Args<XT, WT> p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int T = p.T, B = p.B, D = p.D, G = 3 * D;
@@ -268,20 +340,14 @@ __global__ void __launch_bounds__(kThreads) gru_fwd_kernel(Args p) {
   float* ws = wg + 2 * kUnits * wp;  // [16][D + 4]: ws[n][k] = W_state[k][u0 + n]
   float* region = ws + kUnits * wp;
   float* uslots = region + kRegion;  // [b-blocks the CTA walks][256]: u of its cells
-  for (int e = tid; e < D * 2 * kUnits; e += kThreads) {
-    const int k = e / (2 * kUnits), n = e % (2 * kUnits);
-    wg[n * wp + k] = p.w_gate[(size_t)k * 2 * D + (n / kUnits) * D + u0 + n % kUnits];
-  }
-  for (int e = tid; e < D * kUnits; e += kThreads) {
-    const int k = e / kUnits, n = e % kUnits;
-    ws[n * wp + k] = p.w_state[(size_t)k * D + u0 + n];
-  }
+  load_cols<WT, 2 * kUnits>(wg, wp, p.w_gate, 2 * D, D, D, u0);
+  load_cols<WT, kUnits>(ws, wp, p.w_state, D, D, D, u0);
   // this thread's cell in a b-block: (row cr, unit cu)
   const int cr = tid / kUnits, cu = tid % kUnits, col = u0 + cu;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    const float* hprev = p.hs + (size_t)(t > 0 ? t - 1 : 0) * B * D;
+    const float* hprev = p.hc + (size_t)(t > 0 ? t - 1 : 0) * B * D;
     // phase A: u and r of the CTA's cells, s = r h_{t-1} for its b-group
     for (int bb = bg; bb < nbb; bb += p.NG) {
       const int r0 = bb * kRows, rows = min(kRows, B - r0);
@@ -292,8 +358,8 @@ __global__ void __launch_bounds__(kThreads) gru_fwd_kernel(Args p) {
       // their latency
       float xu = 0.f, xr = 0.f, hp = 0.f;
       if (mine) {
-        xu = p.xs[xrow + col];
-        xr = p.xs[xrow + D + col];
+        xu = wide(p.xs[xrow + col]);
+        xr = wide(p.xs[xrow + D + col]);
         if (t > 0) hp = hprev[hidx];  // written by this thread at t - 1
       }
       if (t > 0) product<4>(hprev, D, D, r0, rows, wg, region);  // h_{-1} = 0 at t = 0
@@ -318,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) gru_fwd_kernel(Args p) {
       const size_t xrow = ((size_t)t * B + b) * G, hidx = (size_t)b * D + col;
       float xc = 0.f, m = 0.f, hp = 0.f, u = 0.f;
       if (mine) {
-        xc = p.xs[xrow + 2 * D + col];
+        xc = wide(p.xs[xrow + 2 * D + col]);
         m = p.mask[(size_t)t * B + b];
         if (t > 0) hp = hprev[hidx];
         u = uslots[(bb - bg) / p.NG * kThreads + tid];  // written by this thread in phase A
@@ -327,7 +393,9 @@ __global__ void __launch_bounds__(kThreads) gru_fwd_kernel(Args p) {
       if (mine) {
         const float cc = tanhf(xc + (t > 0 ? part_sum(region, cr, cu) : 0.f));
         const float hn = hp + u * (cc - hp);
-        p.hs[(size_t)t * B * D + hidx] = m * hn + (1.f - m) * hp;
+        const float h = m * hn + (1.f - m) * hp;
+        p.hc[(size_t)t * B * D + hidx] = h;
+        if constexpr (!is_f32<XT>()) put(p.hs + (size_t)t * B * D + hidx, h);
         if (kResid) p.acts[xrow + 2 * D + col] = cc;
       }
       __syncthreads();
@@ -339,20 +407,29 @@ __global__ void __launch_bounds__(kThreads) gru_fwd_kernel(Args p) {
 // step t's first half for one cell: dh = carry + dh_out[t], the update
 // and candidate columns of dxs[t] (drg = 0 at t = 0, where h_{-1} = 0),
 // dh into the carry.  Inputs loaded by the caller.
-__device__ __forceinline__ void bwd_phase1(const Args& p, int t, int b, int col, float carry,
-                                           float dho, float u, float cc, float hp, float m) {
+template <typename XT, typename WT>
+__device__ __forceinline__ void bwd_phase1(const Args<XT, WT>& p, int t, int b, int col,
+                                           float carry, float dho, float u, float cc, float hp,
+                                           float m) {
   const int D = p.D, G = 3 * D;
   const float dh = carry + dho;
   const float dug = dh * (cc - hp) * u * (1.f - u);
   const float dccg = dh * u * (1.f - cc * cc);
-  float* dx = p.dxs + ((size_t)t * p.B + b) * G;
+  const size_t row = ((size_t)t * p.B + b) * G;
+  float* dx = p.dg + row;
   dx[col] = dug * m;
   dx[2 * D + col] = dccg * m;
   if (t == 0) dx[D + col] = 0.f;
+  if constexpr (!is_f32<XT>()) {
+    put(p.dxs + row + col, dug * m);
+    put(p.dxs + row + 2 * D + col, dccg * m);
+    if (t == 0) put(p.dxs + row + D + col, 0.f);
+  }
   p.dh_buf[(size_t)b * D + col] = dh;
 }
 
-__global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args p) {
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args<XT, WT> p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int T = p.T, B = p.B, D = p.D, G = 3 * D;
@@ -362,16 +439,8 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args p) {
   float* wgr = smem;                // [16][2D + 4]: wgr[n][k] = W_gate[u0 + n][k]
   float* wsr = wgr + kUnits * gp;   // [16][D + 4]: wsr[n][k] = W_state[u0 + n][k]
   float* region = wsr + kUnits * sp;
-  for (int e = tid; e < kUnits * (2 * D / 4); e += kThreads) {
-    const int n = e / (2 * D / 4), k = (e % (2 * D / 4)) * 4;
-    *reinterpret_cast<float4*>(wgr + n * gp + k) =
-        *reinterpret_cast<const float4*>(p.w_gate + (size_t)(u0 + n) * 2 * D + k);
-  }
-  for (int e = tid; e < kUnits * (D / 4); e += kThreads) {
-    const int n = e / (D / 4), k = (e % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(wsr + n * sp + k) =
-        *reinterpret_cast<const float4*>(p.w_state + (size_t)(u0 + n) * D + k);
-  }
+  load_rows(wgr, gp, p.w_gate, 2 * D, 2 * D, u0);
+  load_rows(wsr, sp, p.w_state, D, D, u0);
   const int cr = tid / kUnits, cu = tid % kUnits, col = u0 + cu;
   const size_t BD = (size_t)B * D;
   __syncthreads();
@@ -381,14 +450,14 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args p) {
     const int b = bb * kRows + cr;
     if (b < B) {
       const size_t arow = ((size_t)(T - 1) * B + b) * G, hidx = (size_t)b * D + col;
-      bwd_phase1(p, T - 1, b, col, 0.f, p.dh_out[(T - 1) * BD + hidx], p.acts[arow + col],
-                 p.acts[arow + 2 * D + col], T > 1 ? p.hs[(T - 2) * BD + hidx] : 0.f,
-                 p.mask[(size_t)(T - 1) * B + b]);
+      bwd_phase1(p, T - 1, b, col, 0.f, wide(p.dh_out[(T - 1) * BD + hidx]),
+                 p.acts[arow + col], p.acts[arow + 2 * D + col],
+                 T > 1 ? wide(p.hs[(T - 2) * BD + hidx]) : 0.f, p.mask[(size_t)(T - 1) * B + b]);
     }
   }
   for (int t = T - 1; t > 0; --t) {  // dh_{-1} is not needed
     grid.sync();                     // dug m and dccg m of step t complete on every SM
-    float* dx = p.dxs + (size_t)t * B * G;
+    float* dx = p.dg + (size_t)t * B * G;
     // phase 2: ds = dccg m W_state^T for the CTA's units; the reset columns
     for (int bb = bg; bb < nbb; bb += p.NG) {
       const int r0 = bb * kRows, rows = min(kRows, B - r0);
@@ -399,7 +468,7 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args p) {
       if (mine) {
         u = p.acts[arow + col];
         r = p.acts[arow + D + col];
-        hp = p.hs[(t - 1) * BD + hidx];
+        hp = wide(p.hs[(t - 1) * BD + hidx]);
         m = p.mask[(size_t)t * B + b];
         dh = p.dh_buf[hidx];
       }
@@ -408,6 +477,7 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args p) {
         const float ds = part_sum(region, cr, cu);
         const float drg = ds * hp * r * (1.f - r);
         dx[(size_t)b * G + D + col] = drg * m;
+        if constexpr (!is_f32<XT>()) put(p.dxs + ((size_t)t * B + b) * G + D + col, drg * m);
         p.part[hidx] = dh * (1.f - u) + ds * r;
         p.s_all[(t - 1) * BD + hidx] = r * hp;
       }
@@ -428,10 +498,10 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args p) {
         m = p.mask[(size_t)t * B + b];
         dh = p.dh_buf[hidx];
         pt = p.part[hidx];
-        dho = p.dh_out[(t - 1) * BD + hidx];
+        dho = wide(p.dh_out[(t - 1) * BD + hidx]);
         u1 = p.acts[arow + col];
         cc1 = p.acts[arow + 2 * D + col];
-        if (t > 1) hp1 = p.hs[(t - 2) * BD + hidx];
+        if (t > 1) hp1 = wide(p.hs[(t - 2) * BD + hidx]);
         m1 = p.mask[(size_t)(t - 1) * B + b];
       }
       product<2>(dx, G, 2 * D, r0, rows, wgr, region);
@@ -449,35 +519,69 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(Args p) {
 // 3xTF32: 128 x 64 tiles, 8 warps of 32 x 32, 32-row k chunks through a
 // 3-stage ring (rows past K zero); M a multiple of 128, N of 64.  CTA i
 // takes tile i % tiles (product 0's tiles first) and split i / tiles of
-// KS: the chunks [s nk / KS, (s + 1) nk / KS).  Split 0 writes its tile,
-// then split s adds its own after the s-th grid barrier.
+// KS: the chunks [s nk / KS, (s + 1) nk / KS).  Split 0 writes its tile
+// into the float32 sum acc, then split s adds its own after the s-th
+// grid barrier; the last split writes the total to out in OT (acc and
+// out are one buffer where OT is float).  Product 0's a (hs) is AT,
+// product 1's (s_all) float.
 constexpr int kDwM = 128, kDwN = 64, kDwK = 32, kDwStages = 3;
 constexpr int kDwAP = kDwM + 8, kDwBP = kDwN + 8;  // pitches = 8 (mod 32): conflict-free fragments
 constexpr int kDwStage = kDwK * (kDwAP + kDwBP);
 constexpr size_t kDwSmem = sizeof(float) * kDwStages * kDwStage;
 constexpr int kDwSplits = 8;  // the most K-splits of a tile
 
+template <typename OT>
 struct DwProduct {
-  const float* a;  // [K][lda], columns [0, M)
+  const void* a;   // [K][lda], columns [0, M)
   const float* g;  // [K][ldg], columns [0, N)
-  float* out;      // [M][N]
+  float* acc;      // [M][N], the splits' float32 sum
+  OT* out;         // [M][N]
   int lda, ldg, M, N;
 };
 
+template <typename OT>
 struct DwArgs {
-  DwProduct prod[2];
+  DwProduct<OT> prod[2];
   int tiles0, tiles;  // product 0's tiles; both products'
   int K, KS;
 };
 
-__global__ void __launch_bounds__(256) gru_dw_kernel(DwArgs q) {
+// a ring slot's 16 source bytes: float rows asynchronously; bf16 rows
+// (written by an earlier launch) 8 values loaded, widened and stored,
+// visible to the CTA at the ring's next __syncthreads
+__device__ __forceinline__ void stage16(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void stage16(float* dst, const bf16* src, bool valid) {
+  if (valid) {
+    widen16(dst, src);
+  } else {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// rows [k0, k0 + kDwK) of a [K][lda] (rows past K zero), columns [m0,
+// m0 + kDwM), into a ring slot at pitch kDwAP
+template <typename T>
+__device__ __forceinline__ void stage_a(float* a, const T* src, int lda, int k0, int K, int m0) {
+  constexpr int V = 16 / sizeof(T);
+  for (int e = threadIdx.x; e < kDwK * (kDwM / V); e += 256) {
+    const int r = e / (kDwM / V), c = (e % (kDwM / V)) * V;
+    const bool ok = k0 + r < K;
+    stage16(a + r * kDwAP + c, src + (size_t)(ok ? k0 + r : 0) * lda + m0 + c, ok);
+  }
+}
+
+template <typename AT, typename OT>
+__global__ void __launch_bounds__(256) gru_dw_kernel(DwArgs<OT> q) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
   const int K = q.K, KS = q.KS;
   const int tile_all = blockIdx.x % q.tiles, split_id = blockIdx.x / q.tiles;
   const bool second = tile_all >= q.tiles0;
-  const DwProduct pr = second ? q.prod[1] : q.prod[0];
+  const DwProduct<OT> pr = second ? q.prod[1] : q.prod[0];
   const int tile = second ? tile_all - q.tiles0 : tile_all;
   const int tiles_n = pr.N / kDwN;
   const int m0 = (tile / tiles_n) * kDwM, n0 = (tile % tiles_n) * kDwN;
@@ -495,11 +599,10 @@ __global__ void __launch_bounds__(256) gru_dw_kernel(DwArgs q) {
     float* a = smem + ((kc - c0) % kDwStages) * kDwStage;
     float* b = a + kDwK * kDwAP;
     const int k0 = kc * kDwK;
-    for (int e = tid; e < kDwK * (kDwM / 4); e += 256) {
-      const int r = e / (kDwM / 4), c = (e % (kDwM / 4)) * 4;
-      const bool ok = k0 + r < K;
-      cp_async16(a + r * kDwAP + c, pr.a + (size_t)(ok ? k0 + r : 0) * pr.lda + m0 + c, ok);
-    }
+    if (is_f32<AT>() || second)  // one path for the float32 instance
+      stage_a(a, static_cast<const float*>(pr.a), pr.lda, k0, K, m0);
+    else
+      stage_a(a, static_cast<const AT*>(pr.a), pr.lda, k0, K, m0);
     for (int e = tid; e < kDwK * (kDwN / 4); e += 256) {
       const int r = e / (kDwN / 4), c = (e % (kDwN / 4)) * 4;
       const bool ok = k0 + r < K;
@@ -549,8 +652,9 @@ __global__ void __launch_bounds__(256) gru_dw_kernel(DwArgs q) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int row = m0 + wm + i * 16 + gq, c = n0 + wn + j * 8 + 2 * t4;
-          float2* o0 = reinterpret_cast<float2*>(pr.out + (size_t)row * pr.N + c);
-          float2* o1 = reinterpret_cast<float2*>(pr.out + (size_t)(row + 8) * pr.N + c);
+          const size_t i0 = (size_t)row * pr.N + c, i1 = (size_t)(row + 8) * pr.N + c;
+          float2* o0 = reinterpret_cast<float2*>(pr.acc + i0);
+          float2* o1 = reinterpret_cast<float2*>(pr.acc + i1);
           float2 v0 = make_float2(acc[i][j][0], acc[i][j][1]);
           float2 v1 = make_float2(acc[i][j][2], acc[i][j][3]);
           if (s > 0) {
@@ -558,8 +662,13 @@ __global__ void __launch_bounds__(256) gru_dw_kernel(DwArgs q) {
             v0 = make_float2(p0.x + v0.x, p0.y + v0.y);
             v1 = make_float2(p1.x + v1.x, p1.y + v1.y);
           }
-          *o0 = v0;
-          *o1 = v1;
+          if (is_f32<OT>() || s + 1 < KS) {
+            *o0 = v0;
+            *o1 = v1;
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(pr.out + i0) = __float22bfloat162_rn(v0);
+            *reinterpret_cast<__nv_bfloat162*>(pr.out + i1) = __float22bfloat162_rn(v1);
+          }
         }
     }
     if (s + 1 < KS) cg::this_grid().sync();  // split s's sum in dW before split s+1 adds
@@ -629,7 +738,8 @@ cudaError_t fwd_grid(const void* kern, int B, int D, int& ng, size_t& smem) {
 
 // One launch of D / 16 x p.NG CTAs; b_groups or fwd_grid checked that
 // they are co-resident, as a cooperative launch needs.
-cudaError_t coop_launch(const void* kern, size_t smem, Args& p, cudaStream_t st) {
+template <class A>
+cudaError_t coop_launch(const void* kern, size_t smem, A& p, cudaStream_t st) {
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(kern, dim3(p.D / kUnits * p.NG), dim3(kThreads),
                                               args, smem, st);
@@ -640,17 +750,18 @@ cudaError_t coop_launch(const void* kern, size_t smem, Args& p, cudaStream_t st)
 // dW_gate = hs[0 : T-1]^T dgates[1 : T] and dW_state = s_all^T
 // dccg_m[1 : T]: KS K-splits a tile, as many as stay co-resident up to
 // kDwSplits and the K chunks (one: a plain launch)
-int dw_product(const float* hs, const float* dxs, const float* s_all, float* dwg, float* dws,
-               int T, int B, int D, cudaStream_t st) {
-  const void* kern = reinterpret_cast<const void*>(gru_dw_kernel);
+template <typename AT, typename OT>
+int dw_product(const AT* hs, const float* dg, const float* s_all, float* dwg32, OT* dwg,
+               float* dws32, OT* dws, int T, int B, int D, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(gru_dw_kernel<AT, OT>);
   int sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = occupancy(kern, 256, kDwSmem, sms, coop, per_sm);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = 3 * D;
-  const float* g = dxs + (size_t)B * G;  // step 1's first row
-  DwArgs q{};
-  q.prod[0] = {hs, g, dwg, D, G, D, 2 * D};
-  q.prod[1] = {s_all, g + 2 * D, dws, D, G, D, D};
+  const float* g = dg + (size_t)B * G;  // step 1's first row
+  DwArgs<OT> q{};
+  q.prod[0] = {hs, g, dwg32, dwg, D, G, D, 2 * D};
+  q.prod[1] = {s_all, g + 2 * D, dws32, dws, D, G, D, D};
   q.tiles0 = (D / kDwM) * (2 * D / kDwN);
   q.tiles = q.tiles0 + (D / kDwM) * (D / kDwN);
   q.K = (T - 1) * B;
@@ -660,7 +771,7 @@ int dw_product(const float* hs, const float* dxs, const float* s_all, float* dwg
   KS = KS < nk ? KS : nk;
   q.KS = KS > 1 ? KS : 1;
   if (q.KS == 1) {
-    gru_dw_kernel<<<q.tiles, 256, kDwSmem, st>>>(q);
+    gru_dw_kernel<AT, OT><<<q.tiles, 256, kDwSmem, st>>>(q);
     return static_cast<int>(cudaGetLastError());
   }
   void* args[] = {&q};
@@ -669,46 +780,102 @@ int dw_product(const float* hs, const float* dxs, const float* s_all, float* dwg
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Each entry returns the first failing cudaError_t of its launches (0 =
-// launched).  D a multiple of 128 up to 768, any T, B >= 1; the caller
-// checks shapes.  sbuf is [B, D] scratch; acts may be null when
-// save_residuals is 0.
-extern "C" int gru_fwd_f32(const float* xs, const float* mask, const float* w_gate,
-                           const float* w_state, float* hs, float* acts, float* sbuf, int T,
-                           int B, int D, int save_residuals, void* stream) {
+template <typename XT, typename WT>
+int fwd(const XT* xs, const float* mask, const WT* w_gate, const WT* w_state, XT* hs, float* hc,
+        float* acts, float* sbuf, int T, int B, int D, int save_residuals, void* stream) {
   if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  Args p{};
+  Args<XT, WT> p{};
   p.xs = xs, p.mask = mask, p.w_gate = w_gate, p.w_state = w_state;
-  p.hs = hs, p.acts = acts, p.sbuf = sbuf;
+  p.hs = hs, p.hc = hc, p.acts = acts, p.sbuf = sbuf;
   p.T = T, p.B = B, p.D = D;
-  const void* kern = save_residuals ? reinterpret_cast<const void*>(gru_fwd_kernel<true>)
-                                    : reinterpret_cast<const void*>(gru_fwd_kernel<false>);
+  const void* kern = save_residuals
+                         ? reinterpret_cast<const void*>(gru_fwd_kernel<XT, WT, true>)
+                         : reinterpret_cast<const void*>(gru_fwd_kernel<XT, WT, false>);
   size_t smem = 0;
   const cudaError_t e = fwd_grid(kern, B, D, p.NG, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(coop_launch(kern, smem, p, static_cast<cudaStream_t>(stream)));
 }
 
-// BPTT over reversed time, then dW_gate and dW_state.  dh_buf / part are
-// [B, D] scratch, s_all [T - 1, B, D] scratch (dW_state's operand).
-extern "C" int gru_bwd_f32(const float* acts, const float* hs, const float* w_gate,
-                           const float* w_state, const float* mask, const float* dh_out,
-                           float* dxs, float* dwg, float* dws, float* dh_buf, float* part,
-                           float* s_all, int T, int B, int D, void* stream) {
+template <typename XT, typename WT>
+int bwd(const float* acts, const XT* hs, const WT* w_gate, const WT* w_state, const float* mask,
+        const XT* dh_out, XT* dxs, WT* dwg, WT* dws, float* dh_buf, float* part, float* s_all,
+        float* dg, float* dwg32, float* dws32, int T, int B, int D, void* stream) {
   if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args p{};
+  Args<XT, WT> p{};
   p.mask = mask, p.w_gate = w_gate, p.w_state = w_state;
-  p.hs = const_cast<float*>(hs), p.acts = const_cast<float*>(acts);
-  p.dh_out = dh_out, p.dxs = dxs, p.dh_buf = dh_buf, p.part = part, p.s_all = s_all;
+  p.hs = const_cast<XT*>(hs), p.acts = const_cast<float*>(acts);
+  p.dh_out = dh_out, p.dxs = dxs, p.dg = dg, p.dh_buf = dh_buf, p.part = part;
+  p.s_all = s_all;
   p.T = T, p.B = B, p.D = D;
-  const void* kern = reinterpret_cast<const void*>(gru_bwd_kernel);
+  const void* kern = reinterpret_cast<const void*>(gru_bwd_kernel<XT, WT>);
   cudaError_t e = b_groups(kern, bwd_smem(D), B, D, p.NG);
   if (e == cudaSuccess) e = coop_launch(kern, bwd_smem(D), p, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return dw_product(hs, dxs, s_all, dwg, dws, T, B, D, st);
+  return dw_product(hs, dg, s_all, dwg32, dwg, dws32, dws, T, B, D, st);
+}
+
+}  // namespace
+
+// Each entry returns the first failing cudaError_t of its launches (0 =
+// launched).  D a multiple of 128 up to 768, any T, B >= 1; the caller
+// checks shapes.  sbuf is [B, D] scratch; acts may be null when
+// save_residuals is 0.  One signature for every instance: the entries
+// named _f32 take float xs and W, those named _x<xs>_w<W> those element
+// types.  hc is [T, B, D] float32 scratch (hs itself for float xs), dg
+// [T, B, 3D] (dxs itself), dwg32 / dws32 float32 like dwg / dws
+// (themselves for a float W).
+extern "C" int gru_fwd_f32(const float* xs, const float* mask, const float* w_gate,
+    const float* w_state, float* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+extern "C" int gru_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w_gate,
+    const bf16* w_state, float* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+extern "C" int gru_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w_gate,
+    const bf16* w_state, bf16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+extern "C" int gru_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w_gate,
+    const float* w_state, bf16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+
+// BPTT over reversed time, then dW_gate and dW_state.  dh_buf / part are
+// [B, D] scratch, s_all [T - 1, B, D] scratch (dW_state's operand).
+extern "C" int gru_bwd_f32(const float* acts, const float* hs, const float* w_gate,
+    const float* w_state, const float* mask, const float* dh_out, float* dxs, float* dwg,
+    float* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+extern "C" int gru_bwd_xf32_wbf16(const float* acts, const float* hs, const bf16* w_gate,
+    const bf16* w_state, const float* mask, const float* dh_out, float* dxs, bf16* dwg,
+    bf16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+extern "C" int gru_bwd_xbf16_wbf16(const float* acts, const bf16* hs, const bf16* w_gate,
+    const bf16* w_state, const float* mask, const bf16* dh_out, bf16* dxs, bf16* dwg,
+    bf16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+extern "C" int gru_bwd_xbf16_wf32(const float* acts, const bf16* hs, const float* w_gate,
+    const float* w_state, const float* mask, const bf16* dh_out, bf16* dxs, float* dwg,
+    float* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
 }
 
 // `syncs` grid-wide barriers in one cooperative launch of the grid the
@@ -717,7 +884,8 @@ extern "C" int gru_barrier_probe(int syncs, int B, int D, void* stream) {
   if (!shape_ok(1, B, D)) return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
   int ng = 0;
-  cudaError_t e = fwd_grid(reinterpret_cast<const void*>(gru_fwd_kernel<true>), B, D, ng, smem);
+  const void* fwd = reinterpret_cast<const void*>(gru_fwd_kernel<float, float, true>);
+  cudaError_t e = fwd_grid(fwd, B, D, ng, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const void* kern = reinterpret_cast<const void*>(gru_barrier_kernel);
   if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

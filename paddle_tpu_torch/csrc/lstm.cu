@@ -1,6 +1,7 @@
-// Fused whole-sequence peephole LSTM for Hopper (sm_90a), float32:
-// forward (lean and residual-saving), BPTT backward, and the dW_r product,
-// every recurrent product on the tensor cores in 3xTF32.
+// Fused whole-sequence peephole LSTM for Hopper (sm_90a): forward (lean
+// and residual-saving), BPTT backward, and the dW_r product, every
+// recurrent product on the tensor cores in 3xTF32, with an instance for
+// each pair of float32 or bf16 xs and W_r.
 //
 // Replaces: paddle_tpu/ops/pallas/lstm.py :: lstm_fused
 //   forward  pallas_call at :177 (body _fwd_kernel :34)
@@ -75,10 +76,27 @@
 //     t=0), 128 x 64 tiles of 8 warps over 32-row chunks in a 3-stage ring.
 //   Later work (ROADMAP B9): wgmma with TMA loads, sharing a b-block's
 //   rows across the CTAs of a cluster, cheaper barriers.
+//
+// Element types (the JAX kernel under the bf16 policy, lstm.py:48-49,
+//   67, 138, 246): xs (and hs, dh_out, dxs) is XT, W_r (and dW_r) is WT,
+//   each float or bf16 (the policy casts every weight; a direct call may
+//   pass bf16 xs with a float W_r); checks, mask, c_fin, cs and acts stay
+//   float32.
+//   Every operand is widened to float32 on load (a bf16 W_r row 8 values
+//   a 16-byte load into the resident slice; hs in dW_r's ring) and the
+//   cell, carries and products are the float32 instance's.  The
+//   recurrence reads the float32 h (the TPU kernel's VMEM carry): a bf16
+//   instance keeps it in hc ([T, B, D] float32) and writes hs rounded
+//   once; the backward writes dgates float32 to dg (dW_r's operand) and
+//   rounded once to dxs; dW_r is rounded once to WT.  For float XT, hc
+//   and dg are hs and dxs themselves: the float32 instance.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -113,18 +131,23 @@ struct Prod {
 };
 using Fwd = Prod<8, 4, 128, 3>;
 
+using bf16 = __nv_bfloat16;
+
+template <typename XT, typename WT>
 struct Args {
-  const float* xs;      // [T, B, 4D]
+  const XT* xs;         // [T, B, 4D]
   const float* mask;    // [T, B]
-  const float* w_r;     // [D, 4D]
+  const WT* w_r;        // [D, 4D]
   const float* checks;  // [3, D]
-  float* hs;            // [T, B, D]
+  XT* hs;               // [T, B, D]
+  float* hc;            // [T, B, D] float32 carried h (hs where XT is float)
   float* cfin;          // [B, D], the c carry
   float* cs;            // [T, B, D] (residual variant; read by the backward)
   float* acts;          // [T, B, 4D] (residual variant; read by the backward)
-  const float* dh_out;  // [T, B, D]
+  const XT* dh_out;     // [T, B, D]
   const float* dcfin;   // [B, D]
-  float* dxs;           // [T, B, 4D]
+  XT* dxs;              // [T, B, 4D]
+  float* dg;            // [T, B, 4D] float32 dgates (dxs where XT is float)
   float* dchk;          // [B, 3D]
   float* dh_carry;      // [B, D]
   float* dc_carry;      // [B, D]
@@ -134,6 +157,28 @@ struct Args {
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
+__device__ __forceinline__ float wide(float x) { return x; }
+__device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// the 16 bytes at src (16-byte aligned) widened to 16 / sizeof(T) floats
+// at dst (16-byte aligned)
+__device__ __forceinline__ void widen16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void widen16(float* dst, const bf16* src) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
 
 // x = big + small as two TF32 operands (csrc/flash_attention.cu)
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
@@ -178,6 +223,20 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// a ring slot's 16 source bytes: float rows asynchronously; bf16 rows
+// (written by an earlier launch) 8 values loaded, widened and stored,
+// visible to the CTA at the ring's next __syncthreads
+__device__ __forceinline__ void stage16(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void stage16(float* dst, const bf16* src, bool valid) {
+  if (valid) {
+    widen16(dst, src);
+  } else {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 // The partial products of one b-block: part[q][r][n] (at region, pitch
@@ -257,8 +316,8 @@ __device__ __forceinline__ float part_sum(const float* region, int r, int n) {
   return s;
 }
 
-template <bool kResid>
-__global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(Args p) {
+template <typename XT, typename WT, bool kResid>
+__global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(Args<XT, WT> p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int T = p.T, B = p.B, D = p.D, G = 4 * D;
@@ -267,9 +326,13 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(Args p) {
   const int wp = D + 4, tid = threadIdx.x;
   float* w = smem;                    // [64][D + 4]: w[n][k] = W_r[k][(n / 16) D + u0 + n % 16]
   float* region = smem + 4 * kUnits * wp;
-  for (int e = tid; e < D * 4 * kUnits; e += kThreads) {
-    const int k = e / (4 * kUnits), n = e % (4 * kUnits);
-    w[n * wp + k] = p.w_r[(size_t)k * G + (n / kUnits) * D + u0 + n % kUnits];
+  constexpr int V = 16 / sizeof(WT);  // W_r values a 16-byte load
+  for (int e = tid; e < D * (4 * kUnits / V); e += kThreads) {
+    const int k = e / (4 * kUnits / V), n0 = (e % (4 * kUnits / V)) * V;
+    alignas(16) float v[V];
+    widen16(v, p.w_r + (size_t)k * G + (n0 / kUnits) * D + u0 + n0 % kUnits);
+#pragma unroll
+    for (int j = 0; j < V; ++j) w[(n0 + j) * wp + k] = v[j];
   }
   // this thread's cell in a b-block: (row cr, unit cu)
   const int cr = tid / kUnits, cu = tid % kUnits, col = u0 + cu;
@@ -278,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(Args p) {
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    const float* hprev = p.hs + (size_t)(t > 0 ? t - 1 : 0) * B * D;
+    const float* hprev = p.hc + (size_t)(t > 0 ? t - 1 : 0) * B * D;
     for (int bb = bg; bb < nbb; bb += p.NG) {
       const int r0 = bb * kRows, rows = min(kRows, B - r0);
       const bool mine = cell && cr < rows;
@@ -290,10 +353,10 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(Args p) {
       // their latency
       float xa = 0.f, xi = 0.f, xf = 0.f, xo = 0.f, m = 0.f, c = 0.f, hp = 0.f;
       if (mine) {
-        xa = p.xs[xrow + col];
-        xi = p.xs[xrow + D + col];
-        xf = p.xs[xrow + 2 * D + col];
-        xo = p.xs[xrow + 3 * D + col];
+        xa = wide(p.xs[xrow + col]);
+        xi = wide(p.xs[xrow + D + col]);
+        xf = wide(p.xs[xrow + 2 * D + col]);
+        xo = wide(p.xs[xrow + 3 * D + col]);
         m = p.mask[(size_t)t * B + b];
         if (t > 0) {
           c = p.cfin[hidx];
@@ -317,7 +380,8 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(Args p) {
         const float hn = o * tanhf(cn);
         const float h = m * hn + (1.f - m) * hp;
         const float cm = m * cn + (1.f - m) * c;
-        p.hs[tidx] = h;
+        p.hc[tidx] = h;
+        if constexpr (!is_f32<XT>()) put(p.hs + tidx, h);
         p.cfin[hidx] = cm;
         if (kResid) {
           p.cs[tidx] = cm;
@@ -334,8 +398,8 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(Args p) {
 }
 
 // NTW = D / 128: the n-tiles of the partial product a warp takes
-template <int NTW>
-__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(Args p) {
+template <typename XT, typename WT, int NTW>
+__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(Args<XT, WT> p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int T = p.T, B = p.B, D = p.D, G = 4 * D;
@@ -346,9 +410,10 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(Args p) {
   const int g = lane >> 2, t4 = lane & 3;
   float* w = smem;                  // [D][kKP]: w[j][k] = W_r[j][(k / 16) D + u0 + k % 16]
   float* at = smem + (size_t)D * kKP;  // [16][kKP]: the b-block's dgates of the owned columns
-  for (int e = tid; e < D * 4 * kUnits; e += kThreads) {
-    const int j = e / (4 * kUnits), k = e % (4 * kUnits);
-    w[j * kKP + k] = p.w_r[(size_t)j * G + (k / kUnits) * D + u0 + k % kUnits];
+  constexpr int V = 16 / sizeof(WT);  // W_r values a 16-byte load
+  for (int e = tid; e < D * (4 * kUnits / V); e += kThreads) {
+    const int j = e / (4 * kUnits / V), k0 = (e % (4 * kUnits / V)) * V;
+    widen16(w + j * kKP + k0, p.w_r + (size_t)j * G + (k0 / kUnits) * D + u0 + k0 % kUnits);
   }
   // this thread's cell in a b-block: (row cr, unit cu)
   const int cr = tid / kUnits, cu = tid % kUnits, col = u0 + cu;
@@ -375,7 +440,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(Args p) {
         const float ct = p.cs[tidx];
         const float cp = t > 0 ? p.cs[tidx - (size_t)B * D] : 0.f;
         const float m = p.mask[(size_t)t * B + b];
-        const float dho = p.dh_out[tidx];
+        const float dho = wide(p.dh_out[tidx]);
         const float dcm = s > 0 ? p.dc_carry[hidx] : p.dcfin[hidx];
         float dh = 0.f;
         if (s > 0) {
@@ -398,10 +463,16 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(Args p) {
         const float dag = dc * i * (1.f - a * a);
         const float dig = dc * a * i * (1.f - i);
         const float dfg = dc * cp * f * (1.f - f);
-        p.dxs[arow + col] = dag * m;
-        p.dxs[arow + D + col] = dig * m;
-        p.dxs[arow + 2 * D + col] = dfg * m;
-        p.dxs[arow + 3 * D + col] = dog * m;
+        p.dg[arow + col] = dag * m;
+        p.dg[arow + D + col] = dig * m;
+        p.dg[arow + 2 * D + col] = dfg * m;
+        p.dg[arow + 3 * D + col] = dog * m;
+        if constexpr (!is_f32<XT>()) {
+          put(p.dxs + arow + col, dag * m);
+          put(p.dxs + arow + D + col, dig * m);
+          put(p.dxs + arow + 2 * D + col, dfg * m);
+          put(p.dxs + arow + 3 * D + col, dog * m);
+        }
         float* ar = at + cr * kKP + cu;
         ar[0] = dag * m;
         ar[kUnits] = dig * m;
@@ -458,17 +529,19 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(Args p) {
 }
 
 // dwr[M][N] = sum_k h[k][m] g[k][n], both operands row-major over k (h =
-// hs[0:T-1] as [K, D], g = dxs[1:T] as [K, 4D]), in 3xTF32: 128 x 64
-// tiles, 8 warps of 32 x 32, 32-row k chunks through a 3-stage ring
-// (rows past K zero); M a multiple of 128, N of 64.
+// hs[0:T-1] as [K, D] of element type AT, g = dg[1:T] as [K, 4D]), in
+// 3xTF32: 128 x 64 tiles, 8 warps of 32 x 32, 32-row k chunks through a
+// 3-stage ring (rows past K zero); M a multiple of 128, N of 64; the
+// float32 sums written in OT.
 constexpr int kDwM = 128, kDwN = 64, kDwK = 32, kDwStages = 3;
 constexpr int kDwAP = kDwM + 8, kDwBP = kDwN + 8;  // pitches = 8 (mod 32): conflict-free fragments
 constexpr int kDwStage = kDwK * (kDwAP + kDwBP);
 constexpr size_t kDwSmem = sizeof(float) * kDwStages * kDwStage;
 
-__global__ void __launch_bounds__(256) lstm_dwr_kernel(const float* __restrict__ h,
+template <typename AT, typename OT>
+__global__ void __launch_bounds__(256) lstm_dwr_kernel(const AT* __restrict__ h,
                                                        const float* __restrict__ g,
-                                                       float* __restrict__ dwr, int K, int M,
+                                                       OT* __restrict__ dwr, int K, int M,
                                                        int N) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -486,10 +559,11 @@ __global__ void __launch_bounds__(256) lstm_dwr_kernel(const float* __restrict__
     float* a = smem + (kc % kDwStages) * kDwStage;
     float* b = a + kDwK * kDwAP;
     const int k0 = kc * kDwK;
-    for (int e = tid; e < kDwK * (kDwM / 4); e += 256) {
-      const int r = e / (kDwM / 4), c = (e % (kDwM / 4)) * 4;
+    constexpr int VA = 16 / sizeof(AT);  // h values a 16-byte load
+    for (int e = tid; e < kDwK * (kDwM / VA); e += 256) {
+      const int r = e / (kDwM / VA), c = (e % (kDwM / VA)) * VA;
       const bool ok = k0 + r < K;
-      cp_async16(a + r * kDwAP + c, h + (size_t)(ok ? k0 + r : 0) * M + m0 + c, ok);
+      stage16(a + r * kDwAP + c, h + (size_t)(ok ? k0 + r : 0) * M + m0 + c, ok);
     }
     for (int e = tid; e < kDwK * (kDwN / 4); e += 256) {
       const int r = e / (kDwN / 4), c = (e % (kDwN / 4)) * 4;
@@ -537,10 +611,16 @@ __global__ void __launch_bounds__(256) lstm_dwr_kernel(const float* __restrict__
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int row = m0 + wm + i * 16 + gq, c = n0 + wn + j * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(dwr + (size_t)row * N + c) =
-          make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(dwr + (size_t)(row + 8) * N + c) =
-          make_float2(acc[i][j][2], acc[i][j][3]);
+      const float2 v0 = make_float2(acc[i][j][0], acc[i][j][1]);
+      const float2 v1 = make_float2(acc[i][j][2], acc[i][j][3]);
+      if constexpr (is_f32<OT>()) {
+        *reinterpret_cast<float2*>(dwr + (size_t)row * N + c) = v0;
+        *reinterpret_cast<float2*>(dwr + (size_t)(row + 8) * N + c) = v1;
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dwr + (size_t)row * N + c) = __float22bfloat162_rn(v0);
+        *reinterpret_cast<__nv_bfloat162*>(dwr + (size_t)(row + 8) * N + c) =
+            __float22bfloat162_rn(v1);
+      }
     }
 }
 
@@ -555,7 +635,8 @@ bool shape_ok(int T, int B, int D) {
 // A cooperative launch fails unless every CTA can be resident at once:
 // D / 16 unit blocks times as many b-groups as then fit (up to the
 // batch's b-blocks).
-cudaError_t coop_launch(const void* kern, size_t smem, Args& p, cudaStream_t st) {
+template <class A>
+cudaError_t coop_launch(const void* kern, size_t smem, A& p, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -577,34 +658,85 @@ cudaError_t coop_launch(const void* kern, size_t smem, Args& p, cudaStream_t st)
   return cudaGetLastError();
 }
 
-int dwr(const float* hs, const float* dxs, float* out, int T, int B, int D, cudaStream_t st) {
-  const void* kern = reinterpret_cast<const void*>(lstm_dwr_kernel);
+template <typename AT, typename OT>
+int dwr(const AT* hs, const float* dg, OT* out, int T, int B, int D, cudaStream_t st) {
+  const void* kern = reinterpret_cast<const void*>(lstm_dwr_kernel<AT, OT>);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(kDwSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int G = 4 * D;
-  lstm_dwr_kernel<<<dim3(G / kDwN, D / kDwM), 256, kDwSmem, st>>>(hs, dxs + (size_t)B * G, out,
-                                                                   (T - 1) * B, D, G);
+  lstm_dwr_kernel<AT, OT><<<dim3(G / kDwN, D / kDwM), 256, kDwSmem, st>>>(
+      hs, dg + (size_t)B * G, out, (T - 1) * B, D, G);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename XT, typename WT>
+int fwd(const XT* xs, const float* mask, const WT* w_r, const float* checks, XT* hs, float* hc,
+        float* cfin, float* cs, float* acts, int T, int B, int D, int save_residuals,
+        void* stream) {
+  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
+  Args<XT, WT> p{};
+  p.xs = xs, p.mask = mask, p.w_r = w_r, p.checks = checks;
+  p.hs = hs, p.hc = hc, p.cfin = cfin, p.cs = cs, p.acts = acts;
+  p.T = T, p.B = B, p.D = D;
+  const void* kern = save_residuals
+                         ? reinterpret_cast<const void*>(lstm_fwd_kernel<XT, WT, true>)
+                         : reinterpret_cast<const void*>(lstm_fwd_kernel<XT, WT, false>);
+  return static_cast<int>(coop_launch(kern, fwd_smem(D), p, static_cast<cudaStream_t>(stream)));
+}
+
+template <typename XT, typename WT>
+int bwd(const float* acts, const float* cs, const XT* hs, const WT* w_r, const float* checks,
+        const float* mask, const XT* dh_out, const float* dcfin, XT* dxs, WT* dwr_out,
+        float* dchk, float* dh_carry, float* dc_carry, float* part, float* dg, int T, int B,
+        int D, void* stream) {
+  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args<XT, WT> p{};
+  p.mask = mask, p.w_r = w_r, p.checks = checks;
+  p.cs = const_cast<float*>(cs), p.acts = const_cast<float*>(acts);
+  p.dh_out = dh_out, p.dcfin = dcfin, p.dxs = dxs, p.dg = dg, p.dchk = dchk;
+  p.dh_carry = dh_carry, p.dc_carry = dc_carry, p.part = part;
+  p.T = T, p.B = B, p.D = D;
+  const void* kerns[kMaxNtw] = {
+      reinterpret_cast<const void*>(lstm_bwd_kernel<XT, WT, 1>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<XT, WT, 2>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<XT, WT, 3>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<XT, WT, 4>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<XT, WT, 5>)};
+  const int rc = static_cast<int>(coop_launch(kerns[D / 128 - 1], bwd_smem(D), p, st));
+  if (rc != 0) return rc;
+  return dwr(hs, dg, dwr_out, T, B, D, st);
 }
 
 }  // namespace
 
 // Each entry returns the first failing cudaError_t of its launches (0 =
 // launched).  D a multiple of 128 up to 640, any T, B >= 1; the caller
-// checks shapes.  cs / acts may be null when save_residuals is 0.
+// checks shapes.  cs / acts may be null when save_residuals is 0.  One
+// signature for every instance: the entries named _f32 take float xs and
+// W_r, those named _x<xs>_w<W_r> those element types.  hc is [T, B, D]
+// float32 scratch (hs itself for float xs), dg [T, B, 4D] float32
+// scratch (dxs itself for float xs).
 extern "C" int lstm_fwd_f32(const float* xs, const float* mask, const float* w_r,
-                            const float* checks, float* hs, float* cfin, float* cs,
-                            float* acts, int T, int B, int D, int save_residuals,
-                            void* stream) {
-  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  Args p{};
-  p.xs = xs, p.mask = mask, p.w_r = w_r, p.checks = checks;
-  p.hs = hs, p.cfin = cfin, p.cs = cs, p.acts = acts;
-  p.T = T, p.B = B, p.D = D;
-  const void* kern = save_residuals ? reinterpret_cast<const void*>(lstm_fwd_kernel<true>)
-                                    : reinterpret_cast<const void*>(lstm_fwd_kernel<false>);
-  return static_cast<int>(coop_launch(kern, fwd_smem(D), p, static_cast<cudaStream_t>(stream)));
+    const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+extern "C" int lstm_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w_r,
+    const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+extern "C" int lstm_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w_r,
+    const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+extern "C" int lstm_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w_r,
+    const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
 }
 
 // dW_r alone (the second launch of lstm_bwd_f32), from hs [T, B, D] and
@@ -619,25 +751,30 @@ extern "C" int lstm_dwr_f32(const float* hs, const float* dxs, float* dwr_out, i
 // scratch, part [2, D / 16, B, D] scratch; dchk is [B, 3D] per-row
 // partials.
 extern "C" int lstm_bwd_f32(const float* acts, const float* cs, const float* hs,
-                            const float* w_r, const float* checks, const float* mask,
-                            const float* dh_out, const float* dcfin, float* dxs, float* dwr_out,
-                            float* dchk, float* dh_carry, float* dc_carry, float* part, int T,
-                            int B, int D, void* stream) {
-  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args p{};
-  p.mask = mask, p.w_r = w_r, p.checks = checks;
-  p.cs = const_cast<float*>(cs), p.acts = const_cast<float*>(acts);
-  p.dh_out = dh_out, p.dcfin = dcfin, p.dxs = dxs, p.dchk = dchk;
-  p.dh_carry = dh_carry, p.dc_carry = dc_carry, p.part = part;
-  p.T = T, p.B = B, p.D = D;
-  const void* kerns[kMaxNtw] = {
-      reinterpret_cast<const void*>(lstm_bwd_kernel<1>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<2>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<3>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<4>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<5>)};
-  const int rc = static_cast<int>(coop_launch(kerns[D / 128 - 1], bwd_smem(D), p, st));
-  if (rc != 0) return rc;
-  return dwr(hs, dxs, dwr_out, T, B, D, st);
+    const float* w_r, const float* checks, const float* mask, const float* dh_out,
+    const float* dcfin, float* dxs, float* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+extern "C" int lstm_bwd_xf32_wbf16(const float* acts, const float* cs, const float* hs,
+    const bf16* w_r, const float* checks, const float* mask, const float* dh_out,
+    const float* dcfin, float* dxs, bf16* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+extern "C" int lstm_bwd_xbf16_wbf16(const float* acts, const float* cs, const bf16* hs,
+    const bf16* w_r, const float* checks, const float* mask, const bf16* dh_out,
+    const float* dcfin, bf16* dxs, bf16* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+extern "C" int lstm_bwd_xbf16_wf32(const float* acts, const float* cs, const bf16* hs,
+    const float* w_r, const float* checks, const float* mask, const bf16* dh_out,
+    const float* dcfin, bf16* dxs, float* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
 }

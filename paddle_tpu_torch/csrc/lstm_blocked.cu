@@ -1,6 +1,7 @@
-// Gate-blocked peephole LSTM forward for Hopper (sm_90a), float32, for
-// the hidden sizes whose W_r does not stay on chip (lean and
-// residual-saving variants).
+// Gate-blocked peephole LSTM forward for Hopper (sm_90a), for the hidden
+// sizes whose W_r does not stay on chip (lean and residual-saving
+// variants), with an instance for each pair of float32 or bf16 xs and
+// W_r.
 //
 // Replaces: paddle_tpu/ops/pallas/lstm_blocked.py :: lstm_fused_blocked
 //   forward pallas_call at :144 (body _fwd_kernel :61, cell _cell_block
@@ -69,10 +70,23 @@
 //     any B fits.  At t = 0, h_{-1} = 0 skips the product.
 //   Later work (ROADMAP B12): sharing the h_{t-1} chunk across a cluster
 //   instead of every CTA reading it, TMA loads, wgmma.
+//
+// Element types (the JAX kernel under the bf16 policy,
+//   lstm_blocked.py:73-74, 90): xs (and hs) is XT, W_r WT, each float
+//   or bf16; checks, mask, c_fin, cs and acts stay float32.  The prologue
+//   widens the CTA's W_r columns to float32 as it repacks them (runs of
+//   U columns, a value a load: U need not be a multiple of 8), the cell
+//   widens xs, and the products, carries and cell are the float32
+//   instance's.  The recurrence reads the float32 h (the TPU kernel's
+//   VMEM carry): a bf16 instance keeps it in hc ([T, B, D] float32) and
+//   writes hs rounded once; for float xs hc is hs itself.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -90,12 +104,16 @@ constexpr int kHP = KC + 4;       // h chunk row pitch: A fragment reads on 32 b
 constexpr int kStages = 2;        // cp.async ring depth
 constexpr int kSmemFloats = 232448 / 4;  // 227 KB, the opt-in maximum a block
 
+using bf16 = __nv_bfloat16;
+
+template <typename XT, typename WT>
 struct Args {
-  const float* xs;      // [T, B, 4D]
+  const XT* xs;         // [T, B, 4D]
   const float* mask;    // [T, B]
-  const float* w_r;     // [D, 4D]
+  const WT* w_r;        // [D, 4D]
   const float* checks;  // [3, D]
-  float* hs;            // [T, B, D]
+  XT* hs;               // [T, B, D]
+  float* hc;            // [T, B, D] float32 carried h (hs where XT is float)
   float* cfin;          // [B, D], the c carry
   float* cs;            // [T, B, D] (residual variant)
   float* acts;          // [T, B, 4D] (residual variant)
@@ -108,6 +126,14 @@ struct Args {
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
+__device__ __forceinline__ float wide(float x) { return x; }
+__device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // x = big + small as two TF32 operands (csrc/flash_attention.cu)
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
@@ -158,15 +184,16 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Shared memory of a launch, in floats: the resident rows, then the ring
 // (the gate tile over it).
-__host__ __device__ inline int ring_floats(const Args& p) {
+template <class A>
+__host__ __device__ inline int ring_floats(const A& p) {
   const int stage = 16 * p.MW * kHP + (p.KR < p.D ? KC * p.P : 0);
   const int gate = 16 * p.MW * p.GP;
   return kStages * stage > gate ? kStages * stage : gate;
 }
 
-template <int NTW, bool kResid>
+template <typename XT, typename WT, int NTW, bool kResid>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_blocked_fwd_kernel(Args p) {
+lstm_blocked_fwd_kernel(Args<XT, WT> p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int T = p.T, B = p.B, D = p.D, U = p.U, NC = 4 * U, G = 4 * D;
@@ -191,7 +218,7 @@ lstm_blocked_fwd_kernel(Args p) {
   float* wp = p.wpack + (size_t)blockIdx.x * D * NCp;
   for (int e = tid; e < D * NCp; e += kThreads) {
     const int k = e / NCp, n = e % NCp;
-    const float w = n < NC ? p.w_r[(size_t)k * G + (n / U) * D + j0 + n % U] : 0.f;
+    const float w = n < NC ? wide(p.w_r[(size_t)k * G + (n / U) * D + j0 + n % U]) : 0.f;
     if (k < p.KR)
       wres[(size_t)k * P + n] = w;
     else
@@ -200,7 +227,7 @@ lstm_blocked_fwd_kernel(Args p) {
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    const float* hprev = p.hs + (size_t)(t > 0 ? t - 1 : 0) * B * D;
+    const float* hprev = p.hc + (size_t)(t > 0 ? t - 1 : 0) * B * D;
     for (int r0 = 0; r0 < B; r0 += RP) {
       const int rows = min(RP, B - r0);
       if (t > 0) {  // h_{-1} = 0: step 0 is xs alone
@@ -294,16 +321,18 @@ lstm_blocked_fwd_kernel(Args p) {
         const float hp = t > 0 ? hprev[hidx] : 0.f;  // written by this thread at t - 1
         const float ga = t > 0 ? gg[0] : 0.f, gi = t > 0 ? gg[U] : 0.f;
         const float gf = t > 0 ? gg[2 * U] : 0.f, go = t > 0 ? gg[3 * U] : 0.f;
-        const float a = tanhf(p.xs[xrow + col] + ga);
-        const float ig = sigmoid(p.xs[xrow + D + col] + gi + cp * p.checks[col]);
-        const float fg = sigmoid(p.xs[xrow + 2 * D + col] + gf + cp * p.checks[D + col]);
+        const float a = tanhf(wide(p.xs[xrow + col]) + ga);
+        const float ig = sigmoid(wide(p.xs[xrow + D + col]) + gi + cp * p.checks[col]);
+        const float fg = sigmoid(wide(p.xs[xrow + 2 * D + col]) + gf + cp * p.checks[D + col]);
         const float cn = a * ig + cp * fg;
-        const float og = sigmoid(p.xs[xrow + 3 * D + col] + go + cn * p.checks[2 * D + col]);
+        const float og =
+            sigmoid(wide(p.xs[xrow + 3 * D + col]) + go + cn * p.checks[2 * D + col]);
         const float hn = og * tanhf(cn);
         const float m = p.mask[(size_t)t * B + b];
         const float hout = m * hn + (1.f - m) * hp;
         const float cout = m * cn + (1.f - m) * cp;
-        p.hs[(size_t)t * B * D + hidx] = hout;
+        p.hc[(size_t)t * B * D + hidx] = hout;
+        if constexpr (!is_f32<XT>()) put(p.hs + (size_t)t * B * D + hidx, hout);
         p.cfin[hidx] = cout;
         if (kResid) {
           p.cs[(size_t)t * B * D + hidx] = cout;
@@ -339,28 +368,23 @@ cudaError_t coop_launch(const void* kern, size_t smem, void** args, cudaStream_t
   return cudaGetLastError();
 }
 
-template <int NTW>
-int launch(Args p, int resid, cudaStream_t st) {
+template <int NTW, typename XT, typename WT>
+int launch(Args<XT, WT> p, int resid, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)p.KR * p.P + ring_floats(p));
   void* args[] = {&p};
-  const void* kern = resid ? reinterpret_cast<const void*>(lstm_blocked_fwd_kernel<NTW, true>)
-                           : reinterpret_cast<const void*>(lstm_blocked_fwd_kernel<NTW, false>);
+  const void* kern =
+      resid ? reinterpret_cast<const void*>(lstm_blocked_fwd_kernel<XT, WT, NTW, true>)
+            : reinterpret_cast<const void*>(lstm_blocked_fwd_kernel<XT, WT, NTW, false>);
   return static_cast<int>(coop_launch(kern, smem, args, st));
 }
 
-}  // namespace
-
-// Returns the cudaError_t of the launch (0 = launched).  D must be a
-// multiple of 128 up to 4096, any T, B >= 1; the caller checks shapes.
-// cs / acts may be null when save_residuals is 0.  wpack is scratch of
-// lstm_blocked_wpack_floats(D) floats; c_fin doubles as the c carry.
-extern "C" int lstm_blocked_fwd_f32(const float* xs, const float* mask, const float* w_r,
-                                    const float* checks, float* hs, float* cfin, float* cs,
-                                    float* acts, float* wpack, int T, int B, int D,
-                                    int save_residuals, void* stream) {
+template <typename XT, typename WT>
+int fwd(const XT* xs, const float* mask, const WT* w_r, const float* checks, XT* hs, float* hc,
+        float* cfin, float* cs, float* acts, float* wpack, int T, int B, int D,
+        int save_residuals, void* stream) {
   if (T < 1 || B < 1 || D < 128 || D % 128 != 0 || D / 128 > kMaxUnits)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args p{xs, mask, w_r, checks, hs, cfin, cs, acts, wpack, T, B, D, D / 128};
+  Args<XT, WT> p{xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, D / 128};
   p.NCp = (4 * p.U + 7) / 8 * 8;
   p.P = p.NCp + (40 - p.NCp % 32) % 32;   // = 8 (mod 32)
   p.GP = p.NCp + 4;
@@ -391,6 +415,40 @@ extern "C" int lstm_blocked_fwd_f32(const float* xs, const float* mask, const fl
   if (p.NTW <= 4) return launch<4>(p, save_residuals, st);
   if (p.NTW <= 8) return launch<8>(p, save_residuals, st);
   return launch<16>(p, save_residuals, st);
+}
+
+}  // namespace
+
+// Each entry returns the cudaError_t of the launch (0 = launched).  D
+// must be a multiple of 128 up to 4096, any T, B >= 1; the caller checks
+// shapes.  cs / acts may be null when save_residuals is 0.  wpack is
+// scratch of lstm_blocked_wpack_floats(D) floats; c_fin doubles as the c
+// carry.  One signature for every instance: the entries named _f32 take
+// float xs and W_r, those named _x<xs>_w<W_r> those element types.  hc
+// is [T, B, D] float32 scratch (hs itself for float xs).
+extern "C" int lstm_blocked_fwd_f32(const float* xs, const float* mask, const float* w_r,
+    const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+extern "C" int lstm_blocked_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w_r,
+    const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+extern "C" int lstm_blocked_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w_r,
+    const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+extern "C" int lstm_blocked_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w_r,
+    const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
 }
 
 // Floats of the wpack scratch lstm_blocked_fwd_f32 takes at hidden size D.

@@ -1,6 +1,6 @@
-// Fused whole-sequence vanilla RNN for Hopper (sm_90a), float32: the
-// forward, the BPTT backward and the dW product, every product on the
-// tensor cores in 3xTF32.
+// Fused whole-sequence vanilla RNN for Hopper (sm_90a): the forward, the
+// BPTT backward and the dW product, every product on the tensor cores in
+// 3xTF32, with an instance for each pair of float32 or bf16 xs and W.
 //
 // Replaces: paddle_tpu/ops/pallas/simple_rnn.py :: simple_rnn_fused
 //   forward  pallas_call at :74 (body _fwd_kernel :22)
@@ -76,10 +76,30 @@
 //     split order, a grid barrier between two, no atomics.
 //   Later work (ROADMAP B11): barriers over a b-group's CTAs alone,
 //   sharing a b-block's rows across a cluster, wgmma with TMA loads.
+//
+// Element types (the JAX kernels under the bf16 policy): xs (and with it
+//   hs, dh_out, dxs) is XT, W (and dW) is WT, each float or bf16 (the
+//   policy casts every weight: float or bf16 xs with a bf16 W; a direct
+//   call may pass bf16 xs with a float W).  Every
+//   operand is widened to float32 on load: W into the resident slice, a
+//   bf16 row 8 values a 16-byte load; xs, hs and dh_out in the cell; hs
+//   in dW's ring.  Carries, gates and products are float32 as in the
+//   float32 instance, whose arithmetic this is.  The recurrence reads
+//   the float32 h (the TPU kernel's VMEM carry), so a bf16 instance
+//   keeps it in hc ([T, B, D] float32) and writes hs rounded once; the
+//   backward keeps dg float32 in dg (the step product's and dW's
+//   operand) and writes dxs rounded once.  dW sums in float32 (its
+//   K-splits' partial tiles in dw32) and the last split writes it
+//   rounded once to WT.  For float XT / WT, hc, dg and dw32 are hs, dxs
+//   and dw themselves: the float32 instance.  Later work: a bf16 W is
+//   exact in TF32, so its small term in the 3xTF32 split is zero.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -103,17 +123,44 @@ constexpr int kPP = kUnits + 4;              // partial tile row pitch
 constexpr int kRegion = kStages * kStage;    // the ring, then the partial tiles
 static_assert(kRegion >= kWarps * kRows * kPP, "the partial tiles fit in the ring");
 
+using bf16 = __nv_bfloat16;
+
+template <typename XT, typename WT>
 struct Args {
-  const float* xs;      // [T, B, D]
+  const XT* xs;         // [T, B, D]
   const float* mask;    // [T, B]
-  const float* w;       // [D, D]
-  float* hs;            // [T, B, D]
-  const float* dh_out;  // [T, B, D]
-  float* dxs;           // [T, B, D]
+  const WT* w;          // [D, D]
+  XT* hs;               // [T, B, D]
+  float* hc;            // [T, B, D] float32 carried h (hs where XT is float)
+  const XT* dh_out;     // [T, B, D]
+  XT* dxs;              // [T, B, D]
+  float* dg;            // [T, B, D] float32 dg (dxs where XT is float)
   float* dh_buf;        // [B, D], the dh carry
   int T, B, D;
   int NG;               // b-groups
 };
+
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
+__device__ __forceinline__ float wide(float x) { return x; }
+__device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// the 16 bytes at src (16-byte aligned) widened to 16 / sizeof(T) floats
+// at dst (16-byte aligned)
+__device__ __forceinline__ void widen16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void widen16(float* dst, const bf16* src) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
 
 // x = big + small as two TF32 operands (csrc/flash_attention.cu)
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
@@ -151,6 +198,20 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
                : "memory");
+}
+// a ring slot's 16 source bytes: float rows asynchronously; bf16 rows
+// (written by an earlier launch) 8 values loaded, widened and stored,
+// visible to the CTA at the ring's next __syncthreads
+__device__ __forceinline__ void stage16(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void stage16(float* dst, const bf16* src, bool valid) {
+  if (valid) {
+    widen16(dst, src);
+  } else {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -234,7 +295,8 @@ __device__ __forceinline__ float part_sum(const float* region, int r, int n) {
   return s;
 }
 
-__global__ void __launch_bounds__(kThreads) simple_rnn_fwd_kernel(Args p) {
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(kThreads) simple_rnn_fwd_kernel(Args<XT, WT> p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int T = p.T, B = p.B, D = p.D;
@@ -243,9 +305,13 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_fwd_kernel(Args p) {
   const int wp = D + 4, tid = threadIdx.x;
   float* w = smem;                  // [16][D + 4]: w[n][k] = W[k][u0 + n]
   float* region = smem + kUnits * wp;
-  for (int e = tid; e < D * kUnits; e += kThreads) {
-    const int k = e / kUnits, n = e % kUnits;
-    w[n * wp + k] = p.w[(size_t)k * D + u0 + n];
+  constexpr int V = 16 / sizeof(WT);  // W values a 16-byte load
+  for (int e = tid; e < D * (kUnits / V); e += kThreads) {
+    const int k = e / (kUnits / V), n0 = (e % (kUnits / V)) * V;
+    alignas(16) float v[V];
+    widen16(v, p.w + (size_t)k * D + u0 + n0);
+#pragma unroll
+    for (int j = 0; j < V; ++j) w[(n0 + j) * wp + k] = v[j];
   }
   // this thread's cell in a b-block: (row cr, unit cu)
   const int cr = tid / kUnits, cu = tid % kUnits, col = u0 + cu;
@@ -253,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_fwd_kernel(Args p) {
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    const float* hprev = p.hs + (size_t)(t > 0 ? t - 1 : 0) * B * D;
+    const float* hprev = p.hc + (size_t)(t > 0 ? t - 1 : 0) * B * D;
     for (int bb = bg; bb < nbb; bb += p.NG) {
       const int r0 = bb * kRows, rows = min(kRows, B - r0);
       const bool mine = cell && cr < rows;
@@ -264,14 +330,16 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_fwd_kernel(Args p) {
       // their latency
       float x = 0.f, m = 0.f, hp = 0.f;
       if (mine) {
-        x = p.xs[tidx];
+        x = wide(p.xs[tidx]);
         m = p.mask[(size_t)t * B + b];
         if (t > 0) hp = hprev[hidx];  // written by this thread at t - 1
       }
       if (t > 0) product(hprev, D, D, r0, rows, w, region);  // h_{-1} = 0 at t = 0
       if (mine) {
         const float g = t > 0 ? part_sum(region, cr, cu) : 0.f;
-        p.hs[tidx] = m * tanhf(x + g) + (1.f - m) * hp;
+        const float h = m * tanhf(x + g) + (1.f - m) * hp;
+        p.hc[tidx] = h;
+        if constexpr (!is_f32<XT>()) put(p.hs + tidx, h);
       }
       __syncthreads();  // the partial tiles read before the next b-block's ring loads
     }
@@ -279,7 +347,8 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_fwd_kernel(Args p) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args p) {
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args<XT, WT> p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int T = p.T, B = p.B, D = p.D;
@@ -288,10 +357,10 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args p) {
   const int wp = D + 4, tid = threadIdx.x;
   float* w = smem;                  // [16][D + 4]: w[n][k] = W[u0 + n][k]
   float* region = smem + kUnits * wp;
-  for (int e = tid; e < kUnits * (D / 4); e += kThreads) {
-    const int n = e / (D / 4), k = (e % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(w + n * wp + k) =
-        *reinterpret_cast<const float4*>(p.w + (size_t)(u0 + n) * D + k);
+  constexpr int V = 16 / sizeof(WT);  // W values a 16-byte load
+  for (int e = tid; e < kUnits * (D / V); e += kThreads) {
+    const int n = e / (D / V), k = (e % (D / V)) * V;
+    widen16(w + n * wp + k, p.w + (size_t)(u0 + n) * D + k);
   }
   const int cr = tid / kUnits, cu = tid % kUnits, col = u0 + cu;
   const bool cell = tid < kRows * kUnits;
@@ -302,14 +371,16 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args p) {
     const int b = bb * kRows + cr;
     if (cell && b < B) {
       const size_t tidx = ((size_t)(T - 1) * B + b) * D + col;
-      const float dh = p.dh_out[tidx], h = p.hs[tidx];
-      p.dxs[tidx] = dh * (1.f - h * h) * p.mask[(size_t)(T - 1) * B + b];
+      const float dh = wide(p.dh_out[tidx]), h = wide(p.hs[tidx]);
+      const float dg = dh * (1.f - h * h) * p.mask[(size_t)(T - 1) * B + b];
+      p.dg[tidx] = dg;
+      if constexpr (!is_f32<XT>()) put(p.dxs + tidx, dg);
       p.dh_buf[(size_t)b * D + col] = dh;
     }
   }
   for (int t = T - 1; t > 0; --t) {  // dh_{-1} is not needed
-    grid.sync();                     // dg_t = dxs[t] complete on every SM
-    const float* dg = p.dxs + (size_t)t * B * D;
+    grid.sync();                     // dg_t complete on every SM
+    const float* dg = p.dg + (size_t)t * B * D;
     for (int bb = bg; bb < nbb; bb += p.NG) {
       const int r0 = bb * kRows, rows = min(kRows, B - r0);
       const bool mine = cell && cr < rows;
@@ -322,8 +393,8 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args p) {
       if (mine) {
         m = p.mask[(size_t)t * B + b];
         dh = p.dh_buf[hidx];
-        dho = p.dh_out[pidx];
-        h = p.hs[pidx];
+        dho = wide(p.dh_out[pidx]);
+        h = wide(p.hs[pidx]);
         m1 = p.mask[(size_t)(t - 1) * B + b];
       }
       product(dg, D, D, r0, rows, w, region);
@@ -331,7 +402,9 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args p) {
         // the carry into step t-1, then that step's first half
         const float carry = m * part_sum(region, cr, cu) + (1.f - m) * dh;
         const float dh1 = carry + dho;
-        p.dxs[pidx] = dh1 * (1.f - h * h) * m1;
+        const float dg1 = dh1 * (1.f - h * h) * m1;
+        p.dg[pidx] = dg1;
+        if constexpr (!is_f32<XT>()) put(p.dxs + pidx, dg1);
         p.dh_buf[hidx] = dh1;
       }
       __syncthreads();  // the partial tiles read before the next b-block's ring loads
@@ -340,20 +413,24 @@ __global__ void __launch_bounds__(kThreads) simple_rnn_bwd_kernel(Args p) {
 }
 
 // dw[M][N] = sum_k h[k][m] g[k][n], both operands row-major over k (h =
-// hs[0:T-1], g = dxs[1:T], each as [K, D]), in 3xTF32: 128 x 64 tiles, 8
-// warps of 32 x 32, 32-row k chunks through a 3-stage ring (rows past K
-// zero); D a multiple of 128.  CTA i takes tile i % tiles and split i /
-// tiles of KS: the chunks [s nk / KS, (s + 1) nk / KS).  Split 0 writes
-// its tile, then split s adds its own after the s-th grid barrier.
+// hs[0:T-1] of element type AT, g = dg[1:T], each as [K, D]), in 3xTF32:
+// 128 x 64 tiles, 8 warps of 32 x 32, 32-row k chunks through a 3-stage
+// ring (rows past K zero); D a multiple of 128.  CTA i takes tile i %
+// tiles and split i / tiles of KS: the chunks [s nk / KS, (s + 1) nk /
+// KS).  Split 0 writes its tile into the float32 sum acc, then split s
+// adds its own after the s-th grid barrier; the last split writes the
+// total to out in OT (acc and out are one buffer where OT is float).
 constexpr int kDwM = 128, kDwN = 64, kDwK = 32, kDwStages = 3;
 constexpr int kDwAP = kDwM + 8, kDwBP = kDwN + 8;  // pitches = 8 (mod 32): conflict-free fragments
 constexpr int kDwStage = kDwK * (kDwAP + kDwBP);
 constexpr size_t kDwSmem = sizeof(float) * kDwStages * kDwStage;
 constexpr int kDwSplits = 8;  // the most K-splits of a tile
 
-__global__ void __launch_bounds__(256) simple_rnn_dw_kernel(const float* __restrict__ h,
+template <typename AT, typename OT>
+__global__ void __launch_bounds__(256) simple_rnn_dw_kernel(const AT* __restrict__ h,
                                                             const float* __restrict__ g,
-                                                            float* dw, int K, int D, int KS) {
+                                                            float* acc_sum, OT* out, int K, int D,
+                                                            int KS) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
@@ -374,10 +451,11 @@ __global__ void __launch_bounds__(256) simple_rnn_dw_kernel(const float* __restr
     float* a = smem + ((kc - c0) % kDwStages) * kDwStage;
     float* b = a + kDwK * kDwAP;
     const int k0 = kc * kDwK;
-    for (int e = tid; e < kDwK * (kDwM / 4); e += 256) {
-      const int r = e / (kDwM / 4), c = (e % (kDwM / 4)) * 4;
+    constexpr int VA = 16 / sizeof(AT);  // h values a 16-byte load
+    for (int e = tid; e < kDwK * (kDwM / VA); e += 256) {
+      const int r = e / (kDwM / VA), c = (e % (kDwM / VA)) * VA;
       const bool ok = k0 + r < K;
-      cp_async16(a + r * kDwAP + c, h + (size_t)(ok ? k0 + r : 0) * D + m0 + c, ok);
+      stage16(a + r * kDwAP + c, h + (size_t)(ok ? k0 + r : 0) * D + m0 + c, ok);
     }
     for (int e = tid; e < kDwK * (kDwN / 4); e += 256) {
       const int r = e / (kDwN / 4), c = (e % (kDwN / 4)) * 4;
@@ -428,8 +506,9 @@ __global__ void __launch_bounds__(256) simple_rnn_dw_kernel(const float* __restr
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int row = m0 + wm + i * 16 + gq, c = n0 + wn + j * 8 + 2 * t4;
-          float2* o0 = reinterpret_cast<float2*>(dw + (size_t)row * D + c);
-          float2* o1 = reinterpret_cast<float2*>(dw + (size_t)(row + 8) * D + c);
+          const size_t i0 = (size_t)row * D + c, i1 = (size_t)(row + 8) * D + c;
+          float2* o0 = reinterpret_cast<float2*>(acc_sum + i0);
+          float2* o1 = reinterpret_cast<float2*>(acc_sum + i1);
           float2 v0 = make_float2(acc[i][j][0], acc[i][j][1]);
           float2 v1 = make_float2(acc[i][j][2], acc[i][j][3]);
           if (q > 0) {
@@ -437,8 +516,13 @@ __global__ void __launch_bounds__(256) simple_rnn_dw_kernel(const float* __restr
             v0 = make_float2(p0.x + v0.x, p0.y + v0.y);
             v1 = make_float2(p1.x + v1.x, p1.y + v1.y);
           }
-          *o0 = v0;
-          *o1 = v1;
+          if (is_f32<OT>() || q + 1 < KS) {
+            *o0 = v0;
+            *o1 = v1;
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(out + i0) = __float22bfloat162_rn(v0);
+            *reinterpret_cast<__nv_bfloat162*>(out + i1) = __float22bfloat162_rn(v1);
+          }
         }
     }
     if (q + 1 < KS) cg::this_grid().sync();  // split q's sum in dw before split q+1 adds
@@ -470,7 +554,8 @@ cudaError_t occupancy(const void* kern, int threads, size_t smem, int& sms, int&
 // A cooperative launch fails unless every CTA can be resident at once:
 // D / 16 unit blocks times as many b-groups as then fit (up to the
 // batch's b-blocks).
-cudaError_t coop_launch(const void* kern, Args& p, cudaStream_t st) {
+template <class A>
+cudaError_t coop_launch(const void* kern, A& p, cudaStream_t st) {
   const size_t smem = step_smem(p.D);
   int sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = occupancy(kern, kThreads, smem, sms, coop, per_sm);
@@ -484,11 +569,12 @@ cudaError_t coop_launch(const void* kern, Args& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// dW = hs[0 : T-1]^T dxs[1 : T]: KS K-splits a tile, as many as stay
+// dW = hs[0 : T-1]^T dg[1 : T]: KS K-splits a tile, as many as stay
 // co-resident up to kDwSplits and the K chunks (one: a plain launch)
-int dw_product(const float* hs, const float* dxs, float* out, int T, int B, int D,
+template <typename AT, typename OT>
+int dw_product(const AT* hs, const float* dg, float* acc, OT* out, int T, int B, int D,
                cudaStream_t st) {
-  const void* kern = reinterpret_cast<const void*>(simple_rnn_dw_kernel);
+  const void* kern = reinterpret_cast<const void*>(simple_rnn_dw_kernel<AT, OT>);
   int sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = occupancy(kern, 256, kDwSmem, sms, coop, per_sm);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -497,44 +583,93 @@ int dw_product(const float* hs, const float* dxs, float* out, int T, int B, int 
   KS = KS < kDwSplits ? KS : kDwSplits;
   KS = KS < nk ? KS : nk;
   KS = KS > 1 ? KS : 1;
-  const float* g = dxs + (size_t)B * D;
+  const float* g = dg + (size_t)B * D;
   if (KS == 1) {
-    simple_rnn_dw_kernel<<<tiles, 256, kDwSmem, st>>>(hs, g, out, K, D, 1);
+    simple_rnn_dw_kernel<AT, OT><<<tiles, 256, kDwSmem, st>>>(hs, g, acc, out, K, D, 1);
     return static_cast<int>(cudaGetLastError());
   }
-  void* args[] = {&hs, &g, &out, &K, &D, &KS};
+  void* args[] = {&hs, &g, &acc, &out, &K, &D, &KS};
   e = cudaLaunchCooperativeKernel(kern, dim3(tiles * KS), dim3(256), args, kDwSmem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename XT, typename WT>
+int fwd(const XT* xs, const float* mask, const WT* w, XT* hs, float* hc, int T, int B, int D,
+        void* stream) {
+  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
+  Args<XT, WT> p{};
+  p.xs = xs, p.mask = mask, p.w = w, p.hs = hs, p.hc = hc;
+  p.T = T, p.B = B, p.D = D;
+  return static_cast<int>(coop_launch(
+      reinterpret_cast<const void*>(simple_rnn_fwd_kernel<XT, WT>), p,
+      static_cast<cudaStream_t>(stream)));
+}
+
+template <typename XT, typename WT>
+int bwd(const XT* hs, const WT* w, const float* mask, const XT* dh_out, XT* dxs, WT* dw_out,
+        float* dh_buf, float* dg, float* dw32, int T, int B, int D, void* stream) {
+  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args<XT, WT> p{};
+  p.mask = mask, p.w = w, p.hs = const_cast<XT*>(hs);
+  p.dh_out = dh_out, p.dxs = dxs, p.dg = dg, p.dh_buf = dh_buf;
+  p.T = T, p.B = B, p.D = D;
+  const int rc = static_cast<int>(
+      coop_launch(reinterpret_cast<const void*>(simple_rnn_bwd_kernel<XT, WT>), p, st));
+  if (rc != 0) return rc;
+  return dw_product(hs, dg, dw32, dw_out, T, B, D, st);
 }
 
 }  // namespace
 
 // Each entry returns the first failing cudaError_t of its launches (0 =
 // launched).  D must be a multiple of 128 up to 1280; the caller checks
-// shapes.
+// shapes.  One signature for every instance: the entries named _f32 take
+// float xs and W, those named _x<xs>_w<W> those element types.  hc is
+// [T, B, D] float32 scratch (hs itself for float xs), dg likewise (dxs
+// itself), dw32 [D, D] float32 (dw itself for a float W).
 extern "C" int simple_rnn_fwd_f32(const float* xs, const float* mask, const float* w,
-                                  float* hs, int T, int B, int D, void* stream) {
-  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  Args p{};
-  p.xs = xs, p.mask = mask, p.w = w, p.hs = hs;
-  p.T = T, p.B = B, p.D = D;
-  return static_cast<int>(coop_launch(reinterpret_cast<const void*>(simple_rnn_fwd_kernel), p,
-                                      static_cast<cudaStream_t>(stream)));
+                                  float* hs, float* hc, int T, int B, int D, void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+extern "C" int simple_rnn_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w,
+                                         float* hs, float* hc, int T, int B, int D,
+                                         void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+extern "C" int simple_rnn_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w,
+                                          bf16* hs, float* hc, int T, int B, int D,
+                                          void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+extern "C" int simple_rnn_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w,
+                                         bf16* hs, float* hc, int T, int B, int D,
+                                         void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
 }
 
 // BPTT over reversed time, then dW.  dh_buf is [B, D] scratch.
 extern "C" int simple_rnn_bwd_f32(const float* hs, const float* w, const float* mask,
                                   const float* dh_out, float* dxs, float* dw_out, float* dh_buf,
-                                  int T, int B, int D, void* stream) {
-  if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args p{};
-  p.mask = mask, p.w = w, p.hs = const_cast<float*>(hs);
-  p.dh_out = dh_out, p.dxs = dxs, p.dh_buf = dh_buf;
-  p.T = T, p.B = B, p.D = D;
-  const int rc =
-      static_cast<int>(coop_launch(reinterpret_cast<const void*>(simple_rnn_bwd_kernel), p, st));
-  if (rc != 0) return rc;
-  return dw_product(hs, dxs, dw_out, T, B, D, st);
+                                  float* dg, float* dw32, int T, int B, int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+extern "C" int simple_rnn_bwd_xf32_wbf16(const float* hs, const bf16* w, const float* mask,
+                                         const float* dh_out, float* dxs, bf16* dw_out,
+                                         float* dh_buf, float* dg, float* dw32, int T, int B,
+                                         int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+extern "C" int simple_rnn_bwd_xbf16_wbf16(const bf16* hs, const bf16* w, const float* mask,
+                                          const bf16* dh_out, bf16* dxs, bf16* dw_out,
+                                          float* dh_buf, float* dg, float* dw32, int T, int B,
+                                          int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+extern "C" int simple_rnn_bwd_xbf16_wf32(const bf16* hs, const float* w, const float* mask,
+                                         const bf16* dh_out, bf16* dxs, float* dw_out,
+                                         float* dh_buf, float* dg, float* dw32, int T, int B,
+                                         int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
 }

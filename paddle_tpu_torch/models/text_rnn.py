@@ -14,6 +14,10 @@ the reference's RecurrentLayer instead of an LSTM:
 trained with Momentum (lr 0.01, momentum 0.9) on batches of 64 rows of
 100 token ids.  Both recurrent layers take the vanilla-RNN kernels on
 the card (``ops/kernels/simple_rnn.supported(64, 512, "tanh", None)``).
+``cell="lstm"`` puts ``lstmemory`` on ``fc_layer(4 hidden, act=None,
+bias_attr=False)`` in each recurrent layer's place (the LSTM kernels, or
+the gate-blocked forward at hidden 1280), ``cell="gru"`` ``grumemory``
+on ``fc_layer(3 hidden, act=None)`` (the GRU kernels).
 The data are random ids and labels drawn from a seed; the JAX package
 runs the same config unchanged (``tests/test_torch_trainer.py``).
 """
@@ -31,7 +35,23 @@ BATCH, SEQ_LEN = 64, 100
 TEST_BATCHES = 2
 
 
-def build(vocab=VOCAB, hidden=HIDDEN):
+CELLS = ("rnn", "lstm", "gru")
+
+
+def _recurrent(cell, x, hidden):
+    """One recurrent layer of ``cell`` over ``x``, fed by its projection."""
+    if cell == "rnn":
+        return L.recurrent_layer(L.fc_layer(x, size=hidden, act=None,
+                                            bias_attr=False), act="tanh")
+    if cell == "lstm":
+        return L.lstmemory(L.fc_layer(x, size=4 * hidden, act=None,
+                                      bias_attr=False))
+    if cell == "gru":
+        return L.grumemory(L.fc_layer(x, size=3 * hidden, act=None))
+    raise ValueError(f"cell must be one of {CELLS}, got {cell!r}")
+
+
+def build(vocab=VOCAB, hidden=HIDDEN, cell="rnn"):
     """The cost LayerOutput, with a fresh layer-name registry (so every
     build mints the same parameter keys)."""
     L.reset_names()
@@ -39,9 +59,7 @@ def build(vocab=VOCAB, hidden=HIDDEN):
     label = L.data_layer("label", 1)
     x = L.embedding_layer(word, size=EMB)
     for _ in range(LAYERS):
-        x = L.recurrent_layer(L.fc_layer(x, size=hidden, act=None,
-                                         bias_attr=False),
-                              act="tanh")
+        x = _recurrent(cell, x, hidden)
     pooled = L.pooling_layer(x, pooling_type=L.pooling.Max)
     out = L.fc_layer(pooled, size=CLASSES, act="softmax")
     return L.classification_cost(out, label)
@@ -72,12 +90,12 @@ def optimizer():
 
 
 def config(seed=0, n_batches=20, batch=BATCH, seq_len=SEQ_LEN, vocab=VOCAB,
-           hidden=HIDDEN):
+           hidden=HIDDEN, cell="rnn"):
     """The dict a ``get_config()`` returns for the trainer CLI: this
     model, its optimizer and feeding, and readers drawn from ``seed``
     (the test reader from ``seed + 1``)."""
     kw = dict(batch=batch, seq_len=seq_len, vocab=vocab)
-    return {"cost": build(vocab=vocab, hidden=hidden),
+    return {"cost": build(vocab=vocab, hidden=hidden, cell=cell),
             "optimizer": optimizer(), "feeding": feeding(vocab),
             "train_reader": batches(seed, n_batches, **kw),
             "test_reader": batches(seed + 1, TEST_BATCHES, **kw)}

@@ -36,15 +36,25 @@ def flash_head_dim(dh):
     return dh <= LANES or dh in WIDE_HEAD_DIMS
 
 
+# the dtypes the recurrent kernels read and write an operand in (each
+# pair of xs and weight dtypes has an instance, ``suffix`` names it)
+RNN_DTYPES = (torch.float32, torch.bfloat16)
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def tensors(name, dtypes, **named):
-    """Every tensor on one device, of its dtype, contiguous, 16-byte
-    aligned (the kernels load float4s).  Returns the device."""
+    """Every tensor on one device, of an admitted dtype (``dtypes[arg]``:
+    one dtype or a tuple of them), contiguous, 16-byte aligned (the
+    kernels load 16 bytes at a time).  Returns the device."""
     dev = None
     for arg, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {arg} must be a torch.Tensor")
-        if t.dtype != dtypes[arg]:
-            raise TypeError(f"{name}: {arg} must be {dtypes[arg]}, got "
+        ok = dtypes[arg] if isinstance(dtypes[arg], tuple) \
+            else (dtypes[arg],)
+        if t.dtype not in ok:
+            want = " or ".join(str(d) for d in ok)
+            raise TypeError(f"{name}: {arg} must be {want}, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
@@ -58,3 +68,40 @@ def tensors(name, dtypes, **named):
         raise ValueError(f"{name}: tensors on {dev} (takes cpu or cuda)")
     return dev
 
+
+def same_dtype(name, ref_arg, ref, **named):
+    """Each named tensor in ``ref``'s dtype (an output's cotangent or a
+    residual of the forward that took ``ref``)."""
+    for arg, t in named.items():
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name}: {arg} must be {ref_arg}'s dtype "
+                            f"{ref.dtype}, got {t.dtype}")
+
+
+def suffix(xs_dtype, w_dtype):
+    """The C entry suffix of a recurrent kernel's instance for (xs, W)'s
+    dtypes (each in RNN_DTYPES): ``f32`` for float32 with float32 (the
+    float32 kernels), else ``x<xs>_w<W>``.  Under the bf16 policy the
+    JAX kernels receive ``xf32_wbf16`` (behind an fc) and
+    ``xbf16_wbf16`` (fed by an embedding); ``xbf16_wf32`` is a direct
+    call's."""
+    if xs_dtype == w_dtype == torch.float32:
+        return "f32"
+    return f"x{_SHORT[xs_dtype]}_w{_SHORT[w_dtype]}"
+
+
+def f32_scratch(out):
+    """A float32 buffer the shape of ``out`` on its device: ``out`` itself
+    where it is float32 (the float32 instance computes in its outputs)."""
+    if out.dtype == torch.float32:
+        return out
+    return torch.empty(out.shape, dtype=torch.float32, device=out.device)
+
+
+def count_bf16(counts, name, sfx):
+    """One launch of the instance ``sfx`` of kernel ``name`` in
+    ``counts`` (a wrapper's ``launches_bf16``, by row name
+    ``<name>[<sfx>]``) unless it is the float32 one."""
+    if sfx != "f32":
+        key = f"{name}[{sfx}]"
+        counts[key] = counts.get(key, 0) + 1

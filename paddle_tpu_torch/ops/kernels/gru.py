@@ -10,9 +10,16 @@ that follow ``_fwd_kernel`` / ``_step`` and ``_bwd_kernel`` line for
 line.  The CPU takes them, and ``chip_smoke.py`` holds the kernels
 against them.
 
-Shapes (time-major, float32): xs [T, B, 3D] (input projection plus
-bias, gate order [update, reset, candidate]), mask [T, B] 0/1, w_gate
-[D, 2D] (update | reset), w_state [D, D].  The kernels take every (B, D)
+Shapes (time-major): xs [T, B, 3D] (input projection plus bias, gate
+order [update, reset, candidate]), mask [T, B] 0/1, w_gate [D, 2D]
+(update | reset), w_state [D, D].  Dtypes, as the JAX kernels take them:
+xs and the weights each float32 or bf16 (one dtype for both weights);
+hs, dh_out and dxs in xs's dtype, each weight's gradient in its dtype;
+mask and acts float32.  Every operand is widened to float32 on load,
+the carries, cells and products are float32, and outputs are rounded
+once to their dtype.  Each (xs, W) dtype pair has its own instance of
+the kernels (``_check.suffix``), all with one C signature; float32 with
+float32 is the float32 kernel.  The kernels take every (B, D)
 that ``supported`` admits under the default budget: any B, and D a
 multiple of 128 up to 768.  The plain versions take any D.
 """
@@ -39,6 +46,12 @@ MAX_HIDDEN = 6 * LANES
 # for its BPTT kernel and the dW_gate / dW_state product that follows it.
 launches_fwd = 0
 launches_bwd = 0
+# launches of the bf16 instances since the last reset, by row name
+# ("<NAME>[<instance>]", the instance as ``_check.suffix`` names it);
+# launches_* above count every instance's launches
+launches_bf16 = {}
+# the C entries' (pointers, ints) before the stream, every instance
+FWD_ARGS, BWD_ARGS = (8, 4), (15, 3)
 
 
 def vmem_bytes(b, d):
@@ -85,9 +98,12 @@ def _shapes(name, xs, mask, w_gate, w_state, dev):
 
 
 def gru_fwd_plain(xs, mask, w_gate, w_state, save_residuals):
-    """(hs [T, B, D], acts [T, B, 3D] or None): ``_fwd_kernel`` step by
-    step.  hs holds the carried h; acts the (u, r, c~) of the computed
-    step, also where the mask is 0."""
+    """(hs [T, B, D] in xs's dtype, acts [T, B, 3D] float32 or None):
+    ``_fwd_kernel`` step by step on the widened operands.  hs holds the
+    carried h; acts the (u, r, c~) of the computed step, also where the
+    mask is 0."""
+    dtype = xs.dtype
+    xs, w_gate, w_state = xs.float(), w_gate.float(), w_state.float()
     t_len, b, g = xs.shape
     d = g // 3
     h = xs.new_zeros((b, d))
@@ -105,12 +121,17 @@ def gru_fwd_plain(xs, mask, w_gate, w_state, save_residuals):
         hs.append(h)
         if save_residuals:
             acts.append(torch.cat([u, r, cc], dim=1))
-    return torch.stack(hs), (torch.stack(acts) if save_residuals else None)
+    return (torch.stack(hs).to(dtype),
+            torch.stack(acts) if save_residuals else None)
 
 
 def gru_bwd_plain(acts, hs, w_gate, w_state, mask, dh_out):
-    """(dxs [T, B, 3D], dW_gate [D, 2D], dW_state [D, D]):
-    ``_bwd_kernel`` over reversed time, h_prev = 0 at t = 0."""
+    """(dxs [T, B, 3D] in hs's dtype, dW_gate [D, 2D] and dW_state
+    [D, D] in theirs): ``_bwd_kernel`` over reversed time on the widened
+    operands, h_prev = 0 at t = 0."""
+    dtypes = hs.dtype, w_gate.dtype, w_state.dtype
+    hs, w_gate, w_state = hs.float(), w_gate.float(), w_state.float()
+    dh_out = dh_out.float()
     t_len, b, d = dh_out.shape
     dh_c = dh_out.new_zeros((b, d))
     dwg = torch.zeros_like(w_gate)
@@ -136,43 +157,53 @@ def gru_bwd_plain(acts, hs, w_gate, w_state, mask, dh_out):
         dwg = dwg + h_prev.T @ dgates
         dws = dws + (r * h_prev).T @ dccg_m
         dxs[t] = torch.cat([dgates, dccg_m], dim=1)
-    return torch.stack(dxs), dwg, dws
+    return (torch.stack(dxs).to(dtypes[0]), dwg.to(dtypes[1]),
+            dws.to(dtypes[2]))
 
 
 def gru_fwd(xs, mask, w_gate, w_state, save_residuals):
     """(hs, acts) as ``gru_fwd_plain``.  CUDA tensors launch the forward
-    kernel; CPU tensors take the plain version."""
+    kernel's instance for (xs, W)'s dtypes; CPU tensors take the plain
+    version."""
     global launches_fwd
-    f32 = torch.float32
-    dev = _check.tensors(NAME_FWD, dict.fromkeys(
-        ("xs", "mask", "w_gate", "w_state"), f32), xs=xs, mask=mask,
-        w_gate=w_gate, w_state=w_state)
+    f32, rd = torch.float32, _check.RNN_DTYPES
+    dev = _check.tensors(NAME_FWD, dict(xs=rd, mask=f32, w_gate=rd,
+                                        w_state=rd), xs=xs, mask=mask,
+                         w_gate=w_gate, w_state=w_state)
+    _check.same_dtype(NAME_FWD, "w_gate", w_gate, w_state=w_state)
     t, b, d = _shapes(NAME_FWD, xs, mask, w_gate, w_state, dev)
     if dev.type == "cpu":
         return gru_fwd_plain(xs, mask, w_gate, w_state, save_residuals)
-    hs = torch.empty((t, b, d), dtype=f32, device=dev)
-    acts = torch.empty_like(xs) if save_residuals else None
+    sfx = _check.suffix(xs.dtype, w_gate.dtype)
+    hs = torch.empty((t, b, d), dtype=xs.dtype, device=dev)
+    hc = _check.f32_scratch(hs)     # the float32 carry the products read
+    acts = torch.empty(xs.shape, dtype=f32, device=dev) if save_residuals \
+        else None
     sbuf = torch.empty((b, d), dtype=f32, device=dev)   # r h_{t-1}
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("gru", "gru_fwd_f32", 7, 4)(
+    rc = _build.entry("gru", f"{NAME_FWD}_{sfx}", *FWD_ARGS)(
         xs.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
-        w_state.data_ptr(), hs.data_ptr(),
+        w_state.data_ptr(), hs.data_ptr(), hc.data_ptr(),
         0 if acts is None else acts.data_ptr(), sbuf.data_ptr(), t, b, d,
-        int(save_residuals), stream)
+        int(save_residuals), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
+    _check.count_bf16(launches_bf16, NAME_FWD, sfx)
     return hs, acts
 
 
 def gru_bwd(acts, hs, w_gate, w_state, mask, dh_out):
     """(dxs, dW_gate, dW_state) as ``gru_bwd_plain``.  CUDA tensors
-    launch the BPTT kernel and the dW product; CPU tensors take the
-    plain version."""
+    launch the BPTT kernel and the dW product of the instance for (hs,
+    W)'s dtypes; CPU tensors take the plain version."""
     global launches_bwd
-    f32 = torch.float32
+    f32, rd = torch.float32, _check.RNN_DTYPES
     named = dict(acts=acts, hs=hs, w_gate=w_gate, w_state=w_state,
                  mask=mask, dh_out=dh_out)
-    dev = _check.tensors(NAME_BWD, dict.fromkeys(named, f32), **named)
+    dev = _check.tensors(NAME_BWD, dict(acts=f32, hs=rd, w_gate=rd,
+                                        w_state=rd, mask=f32, dh_out=rd),
+                         **named)
+    _check.same_dtype(NAME_BWD, "hs", hs, dh_out=dh_out)
+    _check.same_dtype(NAME_BWD, "w_gate", w_gate, w_state=w_state)
     t, b, d = _shapes(NAME_BWD, acts, mask, w_gate, w_state, dev)
     for arg, x in (("hs", hs), ("dh_out", dh_out)):
         if tuple(x.shape) != (t, b, d):
@@ -180,27 +211,31 @@ def gru_bwd(acts, hs, w_gate, w_state, mask, dh_out):
                              f"{(t, b, d)}, got {tuple(x.shape)}")
     if dev.type == "cpu":
         return gru_bwd_plain(acts, hs, w_gate, w_state, mask, dh_out)
-    dxs = torch.empty_like(acts)
+    sfx = _check.suffix(hs.dtype, w_gate.dtype)
+    dxs = torch.empty(acts.shape, dtype=hs.dtype, device=dev)
     dwg = torch.empty_like(w_gate)
     dws = torch.empty_like(w_state)
+    # float32 dgates (the products' operand) and dW's float32 sums
+    dg = _check.f32_scratch(dxs)
+    dwg32, dws32 = _check.f32_scratch(dwg), _check.f32_scratch(dws)
     # the dh carry, part, and r_t h_{t-1} of steps 1..T-1 (dW_state's
     # operand, written by the BPTT)
     scratch = torch.empty((t + 1, b, d), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("gru", "gru_bwd_f32", 12, 3)(
-        acts.data_ptr(), hs.data_ptr(), w_gate.data_ptr(),
-        w_state.data_ptr(), mask.data_ptr(), dh_out.data_ptr(),
-        dxs.data_ptr(), dwg.data_ptr(), dws.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(),
-        scratch[2:].data_ptr(), t, b, d, stream)
+    rc = _build.entry("gru", f"{NAME_BWD}_{sfx}", *BWD_ARGS)(
+        *(x.data_ptr() for x in (acts, hs, w_gate, w_state, mask, dh_out,
+                                 dxs, dwg, dws, scratch[0], scratch[1],
+                                 scratch[2:], dg, dwg32, dws32)),
+        t, b, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_BWD, rc)
     launches_bwd += 1
+    _check.count_bf16(launches_bf16, NAME_BWD, sfx)
     return dxs, dwg, dws
 
 
 class GruFused(torch.autograd.Function):
     """hs [T, B, D] = the residual-saving forward; its backward is the
-    BPTT kernel with the dW products (``gru.py:187-199``)."""
+    BPTT kernel with the dW products (``gru.py:187-199``), each gradient
+    in its input's dtype."""
 
     @staticmethod
     def forward(ctx, xs, w_gate, w_state, mask):

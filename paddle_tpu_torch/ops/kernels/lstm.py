@@ -9,13 +9,21 @@ here.  The kernels are ``csrc/lstm.cu``; ``lstm_fwd_plain`` and
 that follow ``_fwd_kernel`` / ``_bwd_kernel`` line for line.  The CPU
 takes them, and ``chip_smoke.py`` holds the kernels against them.
 
-Shapes (time-major, float32): xs [T, B, 4D] (input projection plus
-bias, gate order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks
-[3, D] (peepholes i, f, o).  ``supported`` is the route's rule, the JAX
-package's, and on a CUDA device the wrappers take exactly the (B, D) it
-admits (D 128 to 640: B up to 1448 at D 128, 168 at D 512, 32 at D 640)
-and raise ``ConfigError`` on any other; larger D go to the gate-blocked
-variant (``lstm_blocked``).  The plain versions take any D.
+Shapes (time-major): xs [T, B, 4D] (input projection plus bias, gate
+order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks [3, D]
+(peepholes i, f, o).  Dtypes, as the JAX kernels take them: xs and w_r
+each float32 or bf16; hs, dh_out and dxs in xs's dtype, dW_r in w_r's;
+mask, checks, c_fin, cs and acts float32.  Every operand is widened to
+float32 on load, the carries, cell and products are float32, and
+outputs are rounded once to their dtype.  Each (xs, w_r) dtype pair has
+its own instance of the kernels (``_check.suffix``), all with one C
+signature; float32 with float32 is the float32 kernel.
+
+``supported`` is the route's rule, the JAX package's, and on a CUDA
+device the wrappers take exactly the (B, D) it admits (D 128 to 640: B
+up to 1448 at D 128, 168 at D 512, 32 at D 640) and raise
+``ConfigError`` on any other; larger D go to the gate-blocked variant
+(``lstm_blocked``).  The plain versions take any D.
 """
 
 import torch
@@ -35,6 +43,12 @@ LANES = _check.LANES
 # for its BPTT kernel and the dW_r product that follows it.
 launches_fwd = 0
 launches_bwd = 0
+# launches of the bf16 instances since the last reset, by row name
+# ("<NAME>[<instance>]", the instance as ``_check.suffix`` names it);
+# launches_* above count every instance's launches
+launches_bf16 = {}
+# the C entries' (pointers, ints) before the stream, every instance
+FWD_ARGS, BWD_ARGS = (9, 4), (15, 3)
 
 
 def vmem_bytes(b, d):
@@ -86,8 +100,10 @@ def _shapes(name, xs, mask, w_r, checks, dev):
 
 
 def lstm_fwd_plain(xs, mask, w_r, checks, save_residuals):
-    """(hs [T, B, D], c_fin [B, D], cs, acts): ``_fwd_kernel`` step by
-    step; cs / acts are None in the lean variant."""
+    """(hs [T, B, D] in xs's dtype, c_fin [B, D], cs, acts float32):
+    ``_fwd_kernel`` step by step on the widened operands; cs / acts are
+    None in the lean variant."""
+    dtype, xs, w_r = xs.dtype, xs.float(), w_r.float()
     t_len, b, g = xs.shape
     d = g // 4
     h = xs.new_zeros((b, d))
@@ -109,15 +125,19 @@ def lstm_fwd_plain(xs, mask, w_r, checks, save_residuals):
         if save_residuals:
             cs.append(c)
             acts.append(torch.cat([a, i, f, o], dim=1))
+    hs = torch.stack(hs).to(dtype)
     if not save_residuals:
-        return torch.stack(hs), c, None, None
-    return torch.stack(hs), c, torch.stack(cs), torch.stack(acts)
+        return hs, c, None, None
+    return hs, c, torch.stack(cs), torch.stack(acts)
 
 
 def lstm_bwd_plain(acts, cs, hs, w_r, checks, mask, dh_out, dcfin):
-    """(dxs [T, B, 4D], dW_r [D, 4D], dchecks [3, D]): ``_bwd_kernel``
-    over reversed time, the peephole partials summed over B after the
-    loop as ``lstm.py:245`` does."""
+    """(dxs [T, B, 4D] in hs's dtype, dW_r [D, 4D] in w_r's, dchecks
+    [3, D] float32): ``_bwd_kernel`` over reversed time on the widened
+    operands, the peephole partials summed over B after the loop as
+    ``lstm.py:245`` does."""
+    dtypes = hs.dtype, w_r.dtype
+    hs, w_r, dh_out = hs.float(), w_r.float(), dh_out.float()
     t_len, b, d = dh_out.shape
     ci, cf, co = checks[0:1], checks[1:2], checks[2:3]
     dh_c = dh_out.new_zeros((b, d))
@@ -149,46 +169,52 @@ def lstm_bwd_plain(acts, cs, hs, w_r, checks, mask, dh_out, dcfin):
         dchk = dchk + torch.cat([m * dig * c_prev, m * dfg * c_prev,
                                  m * dog * c_t], dim=1)
         dxs[t] = dgates
-    return torch.stack(dxs), dwr, dchk.sum(0).reshape(3, d)
+    return (torch.stack(dxs).to(dtypes[0]), dwr.to(dtypes[1]),
+            dchk.sum(0).reshape(3, d))
 
 
 def lstm_fwd(xs, mask, w_r, checks, save_residuals):
     """(hs, c_fin, cs, acts) as ``lstm_fwd_plain``.  CUDA tensors launch
-    the forward kernel; CPU tensors take the plain version."""
+    the forward kernel's instance for (xs, w_r)'s dtypes; CPU tensors
+    take the plain version."""
     global launches_fwd
-    f32 = torch.float32
-    dev = _check.tensors(NAME_FWD, dict.fromkeys(
-        ("xs", "mask", "w_r", "checks"), f32), xs=xs, mask=mask, w_r=w_r,
-        checks=checks)
+    f32, rd = torch.float32, _check.RNN_DTYPES
+    dev = _check.tensors(NAME_FWD, dict(xs=rd, mask=f32, w_r=rd, checks=f32),
+                         xs=xs, mask=mask, w_r=w_r, checks=checks)
     t, b, d = _shapes(NAME_FWD, xs, mask, w_r, checks, dev)
     if dev.type == "cpu":
         return lstm_fwd_plain(xs, mask, w_r, checks, save_residuals)
-    hs = torch.empty((t, b, d), dtype=f32, device=dev)
+    sfx = _check.suffix(xs.dtype, w_r.dtype)
+    hs = torch.empty((t, b, d), dtype=xs.dtype, device=dev)
+    hc = _check.f32_scratch(hs)     # the float32 carry the products read
     cfin = torch.empty((b, d), dtype=f32, device=dev)
     cs = acts = None
     if save_residuals:
         cs = torch.empty((t, b, d), dtype=f32, device=dev)
-        acts = torch.empty_like(xs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("lstm", "lstm_fwd_f32", 8, 4)(
+        acts = torch.empty(xs.shape, dtype=f32, device=dev)
+    rc = _build.entry("lstm", f"{NAME_FWD}_{sfx}", *FWD_ARGS)(
         xs.data_ptr(), mask.data_ptr(), w_r.data_ptr(), checks.data_ptr(),
-        hs.data_ptr(), cfin.data_ptr(), 0 if cs is None else cs.data_ptr(),
-        0 if acts is None else acts.data_ptr(), t, b, d, int(save_residuals),
-        stream)
+        hs.data_ptr(), hc.data_ptr(), cfin.data_ptr(),
+        0 if cs is None else cs.data_ptr(),
+        0 if acts is None else acts.data_ptr(), t, b, d,
+        int(save_residuals), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
+    _check.count_bf16(launches_bf16, NAME_FWD, sfx)
     return hs, cfin, cs, acts
 
 
 def lstm_bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin):
     """(dxs, dW_r, dchecks) as ``lstm_bwd_plain``.  CUDA tensors launch
-    the BPTT kernel and the dW_r product; CPU tensors take the plain
-    version."""
+    the BPTT kernel and the dW_r product of the instance for (hs,
+    w_r)'s dtypes; CPU tensors take the plain version."""
     global launches_bwd
-    f32 = torch.float32
+    f32, rd = torch.float32, _check.RNN_DTYPES
     named = dict(acts=acts, cs=cs, hs=hs, w_r=w_r, checks=checks, mask=mask,
                  dh_out=dh_out, dcfin=dcfin)
-    dev = _check.tensors(NAME_BWD, dict.fromkeys(named, f32), **named)
+    dev = _check.tensors(NAME_BWD, dict(
+        dict.fromkeys(named, f32), hs=rd, w_r=rd, dh_out=rd), **named)
+    _check.same_dtype(NAME_BWD, "hs", hs, dh_out=dh_out)
     t, b, d = _shapes(NAME_BWD, acts, mask, w_r, checks, dev)
     for arg, x in (("cs", cs), ("hs", hs), ("dh_out", dh_out)):
         if tuple(x.shape) != (t, b, d):
@@ -199,27 +225,29 @@ def lstm_bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin):
                          f"{tuple(dcfin.shape)}")
     if dev.type == "cpu":
         return lstm_bwd_plain(acts, cs, hs, w_r, checks, mask, dh_out, dcfin)
-    dxs = torch.empty_like(acts)
+    sfx = _check.suffix(hs.dtype, w_r.dtype)
+    dxs = torch.empty(acts.shape, dtype=hs.dtype, device=dev)
+    dg = _check.f32_scratch(dxs)    # float32 dgates, dW_r's operand
     dwr = torch.empty_like(w_r)
     dchk = torch.empty((b, 3 * d), dtype=f32, device=dev)
     carry = torch.empty((2, b, d), dtype=f32, device=dev)
     # dh_prev's partial sums, one per 16-unit block, by step parity
     part = torch.empty((2, d // 16, b, d), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("lstm", "lstm_bwd_f32", 14, 3)(
-        acts.data_ptr(), cs.data_ptr(), hs.data_ptr(), w_r.data_ptr(),
-        checks.data_ptr(), mask.data_ptr(), dh_out.data_ptr(),
-        dcfin.data_ptr(), dxs.data_ptr(), dwr.data_ptr(), dchk.data_ptr(),
-        carry[0].data_ptr(), carry[1].data_ptr(), part.data_ptr(), t, b, d,
-        stream)
+    rc = _build.entry("lstm", f"{NAME_BWD}_{sfx}", *BWD_ARGS)(
+        *(x.data_ptr() for x in (acts, cs, hs, w_r, checks, mask, dh_out,
+                                 dcfin, dxs, dwr, dchk, carry[0], carry[1],
+                                 part, dg)),
+        t, b, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_BWD, rc)
     launches_bwd += 1
+    _check.count_bf16(launches_bf16, NAME_BWD, sfx)
     return dxs, dwr, dchk.sum(0).reshape(3, d)
 
 
 class LstmFused(torch.autograd.Function):
     """(hs [T, B, D], c_fin [B, D]) = the residual-saving forward; its
-    backward is the BPTT kernel (``lstm.py:249-262``)."""
+    backward is the BPTT kernel (``lstm.py:249-262``), each gradient in
+    its input's dtype."""
 
     @staticmethod
     def forward(ctx, xs, w_r, checks, mask):
@@ -243,12 +271,13 @@ def lstm_fused(xs_tm, mask_tm, w_r, check_i, check_f, check_o):
     xs_tm [T, B, 4D] time-major gate inputs (bias included), mask_tm
     [T, B] 0/1.  Returns (hs_tm [T, B, D], (h_fin, c_fin)); h_fin is
     ``hs[-1]``, the carried h (on a ragged batch, a row's last live h).
-    A missing peephole is zeros.  Without a gradient to take, the lean
-    forward runs and saves no residuals."""
+    A missing peephole is zeros; the peepholes enter float32 and c_fin
+    comes back in hs's dtype, as ``lstm.py:298-305`` casts them.  Without
+    a gradient to take, the lean forward runs and saves no residuals."""
     d = xs_tm.shape[-1] // 4
     checks = torch.stack([
-        xs_tm.new_zeros(d) if v is None else v.to(torch.float32)
-        for v in (check_i, check_f, check_o)])
+        xs_tm.new_zeros(d, dtype=torch.float32) if v is None
+        else v.to(torch.float32) for v in (check_i, check_f, check_o)])
     xs, w_r = xs_tm.contiguous(), w_r.contiguous()
     mask = mask_tm.to(torch.float32).contiguous()
     if torch.is_grad_enabled() and any(
@@ -256,4 +285,4 @@ def lstm_fused(xs_tm, mask_tm, w_r, check_i, check_f, check_o):
         hs, cfin = LstmFused.apply(xs, w_r, checks, mask)
     else:
         hs, cfin, _, _ = lstm_fwd(xs, mask, w_r, checks, False)
-    return hs, (hs[-1], cfin)
+    return hs, (hs[-1], cfin.to(hs.dtype))

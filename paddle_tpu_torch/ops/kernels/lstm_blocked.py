@@ -14,13 +14,16 @@ The plain forward is the same function as the resident kernel's, so
 ``lstm.lstm_fwd_plain`` serves as this kernel's plain version: the CPU
 takes it, and ``chip_smoke.py`` holds the kernel against it.
 
-Shapes (time-major, float32): xs [T, B, 4D] (input projection plus
-bias, gate order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks
-[3, D] (peepholes i, f, o).  The kernel takes D a multiple of 128 up to
-4096 and every B whose staging ring fits in shared memory (it raises
-on another), which covers every (B, D) that ``supported`` admits (B a
-multiple of 8 up to 1024, D up to 3456 at B = 8).  The plain versions
-take any D.
+Shapes (time-major): xs [T, B, 4D] (input projection plus bias, gate
+order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks [3, D]
+(peepholes i, f, o).  Dtypes as ``lstm``'s (xs and w_r each float32 or
+bf16), hs (and the backward's dxs) in xs's dtype, dW_r in w_r's, the
+rest float32; each (xs, w_r) dtype pair has its own instance of the
+kernel, all with one C signature, float32 with float32 the float32
+kernel.  The kernel takes D a multiple of 128 up to 4096 and every B whose staging ring
+fits in shared memory (it raises on another), which covers every (B, D)
+that ``supported`` admits (B a multiple of 8 up to 1024, D up to 3456
+at B = 8).  The plain versions take any D.
 """
 
 import ctypes
@@ -41,6 +44,12 @@ MAX_HIDDEN = 32 * LANES
 # kernel launches since the last reset (bumped only where the kernel is
 # launched; the plain versions never count)
 launches_fwd = 0
+# launches of the bf16 instances since the last reset, by row name
+# ("<NAME>[<instance>]", the instance as ``_check.suffix`` names it);
+# launches_* above count every instance's launches
+launches_bf16 = {}
+# the C entry's (pointers, ints) before the stream, every instance
+FWD_ARGS = (10, 4)
 
 
 def vmem_bytes(b, d):
@@ -100,36 +109,41 @@ def _wpack_floats(d):
 def lstm_blocked_fwd(xs, mask, w_r, checks, save_residuals):
     """(hs [T, B, D], c_fin [B, D], cs, acts) as ``lstm.lstm_fwd_plain``
     (cs / acts None in the lean variant).  CUDA tensors launch the
-    kernel; CPU tensors take the plain version."""
+    kernel's instance for (xs, w_r)'s dtypes; CPU tensors take the plain
+    version."""
     global launches_fwd
-    f32 = torch.float32
-    dev = _check.tensors(NAME_FWD, dict.fromkeys(
-        ("xs", "mask", "w_r", "checks"), f32), xs=xs, mask=mask, w_r=w_r,
-        checks=checks)
+    f32, rd = torch.float32, _check.RNN_DTYPES
+    dev = _check.tensors(NAME_FWD, dict(xs=rd, mask=f32, w_r=rd, checks=f32),
+                         xs=xs, mask=mask, w_r=w_r, checks=checks)
     t, b, d = _shapes(xs, mask, w_r, checks, dev)
     if dev.type == "cpu":
         return lstm_fwd_plain(xs, mask, w_r, checks, save_residuals)
-    hs = torch.empty((t, b, d), dtype=f32, device=dev)
+    sfx = _check.suffix(xs.dtype, w_r.dtype)
+    hs = torch.empty((t, b, d), dtype=xs.dtype, device=dev)
+    hc = _check.f32_scratch(hs)     # the float32 carry the products read
     cfin = torch.empty((b, d), dtype=f32, device=dev)
     wpack = torch.empty(_wpack_floats(d), dtype=f32, device=dev)
     cs = acts = None
     if save_residuals:
         cs = torch.empty((t, b, d), dtype=f32, device=dev)
-        acts = torch.empty_like(xs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.entry("lstm_blocked", "lstm_blocked_fwd_f32", 9, 4)(
+        acts = torch.empty(xs.shape, dtype=f32, device=dev)
+    rc = _build.entry("lstm_blocked", f"{NAME_FWD}_{sfx}", *FWD_ARGS)(
         xs.data_ptr(), mask.data_ptr(), w_r.data_ptr(), checks.data_ptr(),
-        hs.data_ptr(), cfin.data_ptr(), 0 if cs is None else cs.data_ptr(),
+        hs.data_ptr(), hc.data_ptr(), cfin.data_ptr(),
+        0 if cs is None else cs.data_ptr(),
         0 if acts is None else acts.data_ptr(), wpack.data_ptr(), t, b, d,
-        int(save_residuals), stream)
+        int(save_residuals), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
+    _check.count_bf16(launches_bf16, NAME_FWD, sfx)
     return hs, cfin, cs, acts
 
 
 def lstm_blocked_bwd_plain(w_r, checks, mask, hs, cs, acts, dh_out, dcfin):
-    """(dxs [T, B, 4D], dW_r [D, 4D], dchecks [3, D]): ``_bwd_scan``
-    (``lstm_blocked.py:167-224``) in PyTorch, on either device.
+    """(dxs [T, B, 4D] in hs's dtype, dW_r [D, 4D] in w_r's, dchecks
+    [3, D] float32): ``_bwd_scan`` (``lstm_blocked.py:167-224``) in
+    PyTorch, on either device, over hs, w_r and dh_out widened to
+    float32 as it widens them.
 
     The per-step math is ``_bwd_scan``'s; two things are arranged
     differently, each computing the same sums: the factors that depend
@@ -140,6 +154,8 @@ def lstm_blocked_bwd_plain(w_r, checks, mask, hs, cs, acts, dh_out, dcfin):
     (the JAX scan adds them up step by step).  Both move values by
     rounding only: the tests hold this against ``_bwd_scan`` at rtol
     2e-4, atol 2e-5."""
+    dtypes = hs.dtype, w_r.dtype
+    hs, w_r, dh_out = hs.float(), w_r.float(), dh_out.float()
     t_len, b, d = dh_out.shape
     ci, cf, co = checks[0], checks[1], checks[2]
     a, i, f, o = acts.view(t_len, b, 4, d).unbind(2)
@@ -172,7 +188,7 @@ def lstm_blocked_bwd_plain(w_r, checks, mask, hs, cs, acts, dh_out, dcfin):
     dchk = torch.stack([(dg[:, :, 1] * cs_prev).sum((0, 1)),
                         (dg[:, :, 2] * cs_prev).sum((0, 1)),
                         (dg[:, :, 3] * cs).sum((0, 1))])
-    return dxs, dwr, dchk
+    return dxs.to(dtypes[0]), dwr.to(dtypes[1]), dchk
 
 
 class LstmFusedBlocked(torch.autograd.Function):
@@ -206,8 +222,8 @@ def lstm_fused_blocked(xs_tm, mask_tm, w_r, check_i, check_f, check_o):
     take, the lean forward runs and saves no residuals."""
     d = xs_tm.shape[-1] // 4
     checks = torch.stack([
-        xs_tm.new_zeros(d) if v is None else v.to(torch.float32)
-        for v in (check_i, check_f, check_o)])
+        xs_tm.new_zeros(d, dtype=torch.float32) if v is None
+        else v.to(torch.float32) for v in (check_i, check_f, check_o)])
     xs, w_r = xs_tm.contiguous(), w_r.contiguous()
     mask = mask_tm.to(torch.float32).contiguous()
     if torch.is_grad_enabled() and any(
@@ -215,4 +231,4 @@ def lstm_fused_blocked(xs_tm, mask_tm, w_r, check_i, check_f, check_o):
         hs, cfin = LstmFusedBlocked.apply(xs, w_r, checks, mask)
     else:
         hs, cfin, _, _ = lstm_blocked_fwd(xs, mask, w_r, checks, False)
-    return hs, (hs[-1], cfin)
+    return hs, (hs[-1], cfin.to(hs.dtype))

@@ -43,8 +43,11 @@ line:
 ms/batch as the
 median of STEPS timed steps after WARMUP (and, for the transformer and
 seq2seq, tokens/s = batch * target length / s, the bench's headline), the
-card's name and power limit as nvidia-smi gives them, and the kernel
-launches.  Runs on the card and raises without one.
+card's name and power limit as nvidia-smi gives them, the compute
+dtype, and the kernel launches.  Runs on the card and raises without
+one.  ``BENCH_DTYPE=bfloat16`` sets the compute policy for the run
+(``core/dtypes.set_policy``), as ``bench.py`` reads it: the products of
+``ops/linear.matmul`` in bf16 with a float32 accumulator.
 
 ``serving_quant`` and ``serving_speculative`` serve the full-width
 Transformer-base LM (``serving/server.BASE_LM``: vocab 32000, d_model
@@ -59,6 +62,7 @@ compiled HLO) inspect XLA programs and have no torch counterpart.
 
 import argparse
 import json
+import os
 import time
 from typing import Callable, NamedTuple
 
@@ -66,6 +70,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.core.sequence import SequenceBatch, pack_sequences
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.models import seq2seq, text_lstm, text_rnn, transformer
@@ -494,16 +499,18 @@ def rnn_flops(batch, seq_len, hidden):
 
 def bench_rnn(batch=text_rnn.BATCH, seq_len=text_rnn.SEQ_LEN,
               hidden=text_rnn.HIDDEN, vocab=text_rnn.VOCAB, n_batches=8,
-              seed=0, device=None):
+              seed=0, compute_dtype=None, device=None):
     """``trainer.SGD`` over ``models/text_rnn``'s config (params from a
     generator seeded 1, SGD's default seed; ``n_batches`` batches of ids
-    drawn from ``seed``).  ``train_step()`` feeds the next batch through
+    drawn from ``seed``; ``compute_dtype`` as ``SGD`` takes it).
+    ``train_step()`` feeds the next batch through
     ``SGD.train_one_batch`` (DataFeeder, forward, ``backward()``,
     Momentum in place) and returns the loss."""
     from paddle_tpu_torch.trainer import SGD
     dev = _device.resolve(device)
     trainer = SGD(cost=text_rnn.build(vocab=vocab, hidden=hidden),
-                  update_equation=text_rnn.optimizer(), device=dev)
+                  update_equation=text_rnn.optimizer(),
+                  compute_dtype=compute_dtype, device=dev)
     feeder = DataFeeder(text_rnn.feeding(vocab), device=dev)
     batches = list(text_rnn.batches(seed, n_batches, batch=batch,
                                     seq_len=seq_len, vocab=vocab)())
@@ -715,6 +722,19 @@ def bench_serving_speculative(slots=8, n_requests=32, chunk=8,
     return out
 
 
+def _compute_dtype():
+    """The dtype policy's compute dtype, as its name ("bfloat16")."""
+    return str(dtypes.compute_dtype()).replace("torch.", "")
+
+
+def apply_bench_dtype():
+    """``BENCH_DTYPE`` (float32 | bfloat16 | ...), as ``bench.py:3764-3767``
+    reads it: the process's compute policy for the run
+    (``core/dtypes.set_policy``); unset keeps auto (float32)."""
+    if os.environ.get("BENCH_DTYPE"):
+        dtypes.set_policy(compute_dtype=os.environ["BENCH_DTYPE"])
+
+
 def _timed(train_step):
     """WARMUP steps, then STEPS timed ones (each ending in a synchronize)
     with the launch counters reset before them: (times ms, losses)."""
@@ -746,6 +766,7 @@ def main(argv=None):
                     help="recompute each block in the backward (the "
                          "transformer models)")
     args = ap.parse_args(argv)
+    apply_bench_dtype()
     dev = _device.resolve("cuda")
     remat = True if args.remat else None
     if args.model in ("transformer_packed", "transformer_moe"):
@@ -758,6 +779,7 @@ def main(argv=None):
         fk = kernels.flash_attention
         print(json.dumps({
             "bench": args.model, "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
             "config": {"vocab": 32000, "d_model": 512, "heads": 8,
                        "dff": 2048, "layers": 6, "batch": 16,
                        "slots" if not moe else "seq_len": 512,
@@ -786,6 +808,7 @@ def main(argv=None):
         ms = float(np.median(times))
         print(json.dumps({
             "bench": "trainer_int8", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
             "config": {"batch": 64, "dim": 64, "hidden": 128,
                        "batches": len(bench.batches), "quant_min_size": 1024,
                        "optimizer": "Momentum lr 0.01 m 0.9"},
@@ -803,12 +826,17 @@ def main(argv=None):
         bench_serving_speculative(device=dev)
         return 0
     if args.model == "rnn":
-        bench = bench_rnn(device=dev)
+        # the DSL trainer casts at the step boundary under bf16, as the
+        # trainer CLI's --dtype bfloat16 does
+        bench = bench_rnn(compute_dtype=(
+            torch.bfloat16 if dtypes.compute_dtype() == torch.bfloat16
+            else None), device=dev)
         times, losses = _timed(bench.train_step)
         ms = float(np.median(times))
         rk = kernels.simple_rnn
         print(json.dumps({
             "bench": "rnn_textclass_dsl", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
             "config": {"vocab": text_rnn.VOCAB, "emb": text_rnn.EMB,
                        "hidden": text_rnn.HIDDEN, "layers": text_rnn.LAYERS,
                        "batch": text_rnn.BATCH, "seq_len": text_rnn.SEQ_LEN,
@@ -833,6 +861,7 @@ def main(argv=None):
         gk = kernels.gru
         print(json.dumps({
             "bench": "seq2seq_attention_nmt", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
             "config": {"vocab": 30000, "emb": 512, "hidden": 512,
                        "att": 512, "batch": 64, "src_len": 30,
                        "trg_len": 30, "optimizer": "Momentum lr 0.01 m 0.9"},
@@ -851,6 +880,7 @@ def main(argv=None):
         lk, bk = kernels.lstm, kernels.lstm_blocked
         print(json.dumps({
             "bench": "lstm_textclass", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
             "config": {"vocab": 30000, "emb": EMB_DIM,
                        "hidden": bench.hidden, "layers": NUM_LAYERS,
                        "batch": 64, "seq_len": 100,
@@ -875,6 +905,7 @@ def main(argv=None):
     fk = kernels.flash_attention
     print(json.dumps({
         "bench": "transformer_mt", "card": _device.card(),
+        "compute_dtype": _compute_dtype(),
         "config": {"vocab": 32000, "d_model": 512, "heads": 8, "dff": 2048,
                    "layers": "6+6", "batch": 32, "seq_len": 256,
                    "optimizer": "Adam lr 1e-4", "label_smoothing": 0.1,

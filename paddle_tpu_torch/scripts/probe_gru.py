@@ -103,11 +103,12 @@ extern "C" int gru_dw_f32(const float* hs, const float* dxs, const float* s_all,
                           float* dwg, float* dws, int T, int B, int D,
                           void* stream) {
   if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  return dw_product(hs, dxs, s_all, dwg, dws, T, B, D,
+  return dw_product(hs, dxs, s_all, dwg, dwg, dws, dws, T, B, D,
                     static_cast<cudaStream_t>(stream));
 }
 """
-_KERNEL = re.compile(r"gru_(fwd|bwd|dw)_kernel")
+# the float32 instances (template arguments <float, float, ...>)
+_KERNEL = re.compile(r"gru_(fwd|bwd|dw)_kernel(?=Iff)")
 
 
 def _ptxas(log):
@@ -136,10 +137,10 @@ def _ptxas(log):
 def _typed(lib):
     """(fwd, bwd, dw): the C entries of one variant, typed."""
     fwd = lib.gru_fwd_f32
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     bwd = lib.gru_bwd_f32
-    bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
+    bwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     dw = lib.gru_dw_f32
     dw.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
@@ -213,8 +214,8 @@ class Case:
     def fwd(self, entries):
         _build.check("probe_gru", entries[0](
             *(x.data_ptr() for x in (self.xs, self.mask, self.w_gate,
-                                     self.w_state, self.hs, self.acts,
-                                     self.scratch[1])),
+                                     self.w_state, self.hs, self.hs,
+                                     self.acts, self.scratch[1])),
             self.t, self.b, self.d, 1, self.stream))
 
     def bwd(self, entries):
@@ -223,7 +224,8 @@ class Case:
                                      self.w_state, self.mask, self.dh_out,
                                      self.dxs, self.dwg, self.dws,
                                      self.scratch[0], self.scratch[1],
-                                     self.scratch[2:])),
+                                     self.scratch[2:], self.dxs, self.dwg,
+                                     self.dws)),
             self.t, self.b, self.d, self.stream))
 
     def dw(self, entries):

@@ -61,8 +61,9 @@ EDITS = {
     "fwd_kg8": (("using Fwd = Prod<8, 4, 128, 3>;",
                  "using Fwd = Prod<8, 8, 128, 3>;"),),
 }
+# the float32 instances (template arguments <float, float, ...>)
 _KERNEL = re.compile(r"(lstm_fwd_kernel|lstm_bwd_kernel|lstm_dwr_kernel)"
-                     r"(?:ILb([01])E)?")
+                     r"Iff(?:Lb([01])E)?")
 
 
 def _ptxas(log):
@@ -90,10 +91,10 @@ def _ptxas(log):
 def _typed(lib):
     """(fwd, bwd, dwr): the C entries of one variant, typed."""
     fwd = lib.lstm_fwd_f32
-    fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                     + [ctypes.c_void_p])
     bwd = lib.lstm_bwd_f32
-    bwd.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+    bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
                     + [ctypes.c_void_p])
     dwr = lib.lstm_dwr_f32
     dwr.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -168,7 +169,8 @@ class Case:
     def fwd(self, entries):
         _build.check("probe_lstm", entries[0](
             *(x.data_ptr() for x in (self.xs, self.mask, self.w_r,
-                                     self.checks, *self.fwd_out)),
+                                     self.checks, self.fwd_out[0],
+                                     *self.fwd_out)),
             self.t, self.b, self.d, 1, self.stream))
 
     def bwd(self, entries):
@@ -177,7 +179,7 @@ class Case:
         _build.check("probe_lstm", entries[1](
             *(x.data_ptr() for x in (acts, cs, hs, w_r, checks, mask, dh_out,
                                      dcfin, dxs, dwr, dchk, dh_c, dc_c,
-                                     self.part)),
+                                     self.part, dxs)),
             self.t, self.b, self.d, self.stream))
 
     def dwr(self, entries):

@@ -77,7 +77,8 @@ EDITS = {
     "tf32_1x": (("  mma_tf32(t, as, bb0, bb1);\n"
                  "  mma_tf32(t, ab, bs0, bs1);\n", ""),),
 }
-_KERNEL = re.compile(r"lstm_blocked_fwd_kernelILi(\d+)ELb([01])E")
+# the float32 instances (template arguments <float, float, ...>)
+_KERNEL = re.compile(r"lstm_blocked_fwd_kernelIffLi(\d+)ELb([01])E")
 
 
 def _ptxas(log):
@@ -132,7 +133,7 @@ def build():
             raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
         lib = ctypes.CDLL(os.path.join(out, f"{name}.so"))
         fn = lib.lstm_blocked_fwd_f32
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         size = lib.lstm_blocked_wpack_floats
         size.argtypes, size.restype = [ctypes.c_int], ctypes.c_longlong
@@ -161,8 +162,8 @@ def main():
 
         def call(name):
             _build.check("probe", libs[name][0](
-                *(x.data_ptr() for x in (xs, mask, w_r, checks, *outs,
-                                         wpack[name])),
+                *(x.data_ptr() for x in (xs, mask, w_r, checks, outs[0],
+                                         *outs, wpack[name])),
                 T, B, d, 1, stream))
 
         ref = lk.lstm_fwd_plain(xs, mask, w_r, checks, True)[0]

@@ -68,11 +68,12 @@ extern "C" int simple_rnn_dw_f32(const float* hs, const float* dxs,
                                  float* dw_out, int T, int B, int D,
                                  void* stream) {
   if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
-  return dw_product(hs, dxs, dw_out, T, B, D,
+  return dw_product(hs, dxs, dw_out, dw_out, T, B, D,
                     static_cast<cudaStream_t>(stream));
 }
 """
-_KERNEL = re.compile(r"simple_rnn_(fwd|bwd|dw)_kernel")
+# the float32 instances (template arguments <float, float, ...>)
+_KERNEL = re.compile(r"simple_rnn_(fwd|bwd|dw)_kernel(?=Iff)")
 
 
 def _ptxas(log):
@@ -98,10 +99,10 @@ def _ptxas(log):
 def _typed(lib):
     """(fwd, bwd, dw): the C entries of one variant, typed."""
     fwd = lib.simple_rnn_fwd_f32
-    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     bwd = lib.simple_rnn_bwd_f32
-    bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     dw = lib.simple_rnn_dw_f32
     dw.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
@@ -169,13 +170,14 @@ class Case:
     def fwd(self, entries):
         _build.check("probe_simple_rnn", entries[0](
             self.xs.data_ptr(), self.mask.data_ptr(), self.w.data_ptr(),
-            self.hs.data_ptr(), self.t, self.b, self.d, self.stream))
+            self.hs.data_ptr(), self.hs.data_ptr(), self.t, self.b, self.d,
+            self.stream))
 
     def bwd(self, entries):
         _build.check("probe_simple_rnn", entries[1](
             *(x.data_ptr() for x in (self.ref, self.w, self.mask,
                                      self.dh_out, self.dxs, self.dw_out,
-                                     self.dh_buf)),
+                                     self.dh_buf, self.dxs, self.dw_out)),
             self.t, self.b, self.d, self.stream))
 
     def dw(self, entries):

@@ -127,8 +127,10 @@ def measure(step, steps):
     by_origin = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
     names = port_kernels()
     for t, _, key in kernels:
+        # cuBLAS names its Hopper bf16 products nvjet_*
+        gemm = "gemm" in key or key.startswith("nvjet")
         by_origin["port_kernels" if _is_port(key, names)
-                  else "gemm" if "gemm" in key else "other"] += t
+                  else "gemm" if gemm else "other"] += t
     return {
         "card": _device.card(), "steps": steps,
         "step_wall_ms": {"p50": wall,

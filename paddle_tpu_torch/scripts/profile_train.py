@@ -3,6 +3,7 @@
     python -m paddle_tpu_torch.scripts.profile_train \
         [--model lstm|transformer|transformer_packed|transformer_moe|
                  seq2seq|rnn] [--hidden 512|1280|2048] [--remat]
+        [--dtype auto|float32|bfloat16]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
 embedding 128, 2 x LSTM h=512 or ``--hidden``, batch 64, length 100,
@@ -26,7 +27,10 @@ most device time, and the kernel time by origin: the port's kernels
 flash kernels for the transformer; the GRU kernels for seq2seq),
 the library's matrix products and the rest (``profile_step.measure``);
 for ``rnn`` also the step's split into feed, forward, backward and
-update (``bench.step_split``).  Needs a CUDA device.
+update (``bench.step_split``).  ``--dtype`` sets the compute policy
+(``core/dtypes.set_policy``); with ``bfloat16`` the rnn model's
+``SGD`` also casts at the step boundary (``compute_dtype``), as the
+trainer CLI's ``--dtype bfloat16`` does.  Needs a CUDA device.
 """
 
 import argparse
@@ -35,6 +39,7 @@ import json
 import torch
 
 from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.scripts.bench import (
     bench_lstm, bench_rnn, bench_seq2seq, bench_transformer,
     bench_transformer_moe, bench_transformer_packed, step_split)
@@ -53,7 +58,12 @@ def main(argv=None):
     ap.add_argument("--remat", action="store_true",
                     help="recompute each block in the backward (the "
                          "transformer models)")
+    ap.add_argument("--dtype", default="auto",
+                    choices=["auto", "float32", "bfloat16"],
+                    help="the compute policy (core/dtypes)")
     args = ap.parse_args(argv)
+    if args.dtype != "auto":
+        dtypes.set_policy(compute_dtype=args.dtype)
     dev = _device.resolve("cuda")
     remat = True if args.remat else None
     if args.model == "lstm":
@@ -61,7 +71,9 @@ def main(argv=None):
         config = (f"text_lstm vocab 30000, emb 128, 2 x LSTM h={args.hidden}, "
                   "batch 64, length 100, Momentum")
     elif args.model == "rnn":
-        bench = bench_rnn(device=dev)
+        bf16 = args.dtype == "bfloat16"
+        bench = bench_rnn(compute_dtype=torch.bfloat16 if bf16 else None,
+                          device=dev)
         config = ("text_rnn DSL config vocab 30000, emb 128, 2 x vanilla RNN "
                   "h=512, batch 64, length 100, Momentum, trainer.SGD")
     elif args.model == "seq2seq":
@@ -90,7 +102,7 @@ def main(argv=None):
                                     bench.batches, STEPS[args.model])} \
         if args.model == "rnn" else {}
     print(json.dumps({
-        "config": config,
+        "config": config, "dtype": args.dtype,
         **measure(bench.train_step, STEPS[args.model]), **split,
     }), flush=True)
     return 0

@@ -4,7 +4,7 @@
 Usage:
   python -m paddle_tpu_torch train --config my_config.py [--num_passes N]
        [--save_dir DIR] [--config_args k=v,...] [--device cpu|cuda]
-       [--quant-train]
+       [--dtype auto|float32|bfloat16] [--quant-train]
   python -m paddle_tpu_torch test --config my_config.py --model_dir DIR
 
 The config file is a Python script defining ``get_config()`` returning a
@@ -16,8 +16,12 @@ namespace:
 Layers are built with ``paddle_tpu_torch.layers``.  The job runs on the
 card unless ``--device cpu``.  v1 ``trainer_config_helpers`` configs
 (``settings()`` / ``outputs()``) wait for ROADMAP A11; the JAX CLI's
-mesh, dtype, prefetch, profiling and ``time`` / ``checkgrad`` /
-``merge_model`` jobs wait for their items.
+mesh, prefetch, profiling and ``time`` / ``checkgrad`` / ``merge_model``
+jobs wait for their items.  ``--dtype`` is the JAX CLI's: any value but
+auto sets the process's compute policy (``core/dtypes.set_policy``),
+and bfloat16 also casts the parameters and the feed at the step
+boundary (``SGD(compute_dtype=torch.bfloat16)``); the masters, the
+optimizer and the checkpoints stay float32.
 """
 
 import argparse
@@ -63,6 +67,14 @@ def main(argv=None):
                        help="k=v,k=v passed to the config script")
         p.add_argument("--device", default=None, choices=["cpu", "cuda"],
                        help="where the job runs (default: the card)")
+        p.add_argument("--dtype", default="auto",
+                       choices=["auto", "float32", "bfloat16"],
+                       help="compute dtype for forward+backward; master "
+                            "params and the optimizer stay float32.  auto "
+                            "= float32 here (the JAX package's auto picks "
+                            "bf16 on a TPU only); bfloat16 computes the "
+                            "products in bf16 with a float32 accumulator "
+                            "and casts params+feeds at the step boundary")
 
     t = sub.add_parser("train")
     add_common(t)
@@ -89,15 +101,24 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = _load_config(args.config, _parse_config_args(args.config_args))
 
+    import torch
+
     from paddle_tpu_torch import optim
     from paddle_tpu_torch.trainer.trainer import SGD
     optimizer = cfg.get("optimizer")
     if optimizer is None:
         # the JAX CLI's default (its v1 settings() default)
         optimizer = optim.Momentum(learning_rate=1e-3, momentum=0.0)
+    if args.dtype != "auto":
+        # the op-level policy; bfloat16 also casts params + feeds at the
+        # step boundary through SGD(compute_dtype=...)
+        from paddle_tpu_torch.core import dtypes
+        dtypes.set_policy(compute_dtype=args.dtype)
     trainer = SGD(cost=cfg["cost"], update_equation=optimizer,
                   sharding_rules=cfg.get("sharding_rules"),
                   evaluators=cfg.get("evaluators"),
+                  compute_dtype=(torch.bfloat16 if args.dtype == "bfloat16"
+                                 else None),
                   quant_weights=getattr(args, "quant_train", False),
                   device=args.device)
 

@@ -24,11 +24,21 @@ into either kind of trainer.  The combinations the JAX trainer refuses
 (with sparse-update embeddings, a mesh, ``grad_accum_steps > 1`` or
 ``compute_dtype``) raise its ``ConfigError``.
 
+``compute_dtype=torch.bfloat16`` is the JAX trainer's mixed precision:
+the step's forward (and ``test``) reads the parameters and the feed
+cast to bf16 (``core/dtypes.cast_tree``), each cost's batch mean is
+taken in float32, and autograd returns float32 gradients to the float32
+masters through the cast, so the optimizer, its state and the
+checkpoints stay float32 and unchanged.  The products of
+``ops/linear.matmul`` follow the process-wide policy
+(``core/dtypes.set_policy``), which the CLI's ``--dtype`` sets beside
+it, as the JAX CLI does.
+
 Settings whose machinery is not ported raise ``ConfigError`` naming
 their ROADMAP item: ``mesh`` / ``sharding_rules`` (A12), ``evaluators``
-(A9·c), ``compute_dtype`` (A2), ``grad_accum_steps > 1`` and pruning
-hooks (A9·c), sparse-update embeddings and ``prefetch > 0`` (A9·f),
-``save_on_signal`` and resuming from a preemption checkpoint (A9·c).
+(A9·c), ``grad_accum_steps > 1`` and pruning hooks (A9·c),
+sparse-update embeddings and ``prefetch > 0`` (A9·f), ``save_on_signal``
+and resuming from a preemption checkpoint (A9·c).
 """
 
 import time
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.core.dtypes import cast_tree
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.data import reader as reader_mod
 from paddle_tpu_torch.data.feeder import DataFeeder
@@ -104,13 +115,14 @@ class SGD:
             _refuse("a mesh (sharded training)", "A12")
         if evaluators:
             _refuse("evaluators", "A9·c")
-        if compute_dtype is not None:
-            _refuse("compute_dtype (bf16 compute)", "A2")
         if int(grad_accum_steps) != 1:
             _refuse("grad_accum_steps > 1", "A9·c")
         if update_equation is None:
             raise ValueError("SGD needs update_equation=, e.g. "
                              "optim.Momentum(learning_rate=0.01)")
+        # the step's compute dtype (JAX's SGD(compute_dtype=)): None keeps
+        # the float32 masters in the forward
+        self.compute_dtype = compute_dtype
         self.device = _device.resolve(device)
         self.costs = cost if isinstance(cost, (list, tuple)) else [cost]
         self.extra_layers = list(extra_layers or [])
@@ -204,13 +216,22 @@ class SGD:
             feeder = DataFeeder(feeder, device=self.device)
         return feeder(batch)
 
+    def _cast_compute(self, tree):
+        """float32 leaves -> compute_dtype (ids, masks, lengths
+        untouched); the identity without a compute_dtype."""
+        if self.compute_dtype is None:
+            return tree
+        return cast_tree(tree, self.compute_dtype)
+
     def _forward(self, feed):
         """(total cost, extras): the graph in train mode over the step's
-        view of the params (``_step_view``), the sum over costs of each
-        cost's batch mean, float32."""
+        view of the params (``_step_view``), cast with the feed to the
+        compute dtype, the sum over costs of each cost's batch mean,
+        float32."""
         self._view = self._step_view()
         out, new_state = self.topology.apply(
-            self._view, feed, mode="train", generator=self.generator,
+            self._cast_compute(self._view), self._cast_compute(feed),
+            mode="train", generator=self.generator,
             state=self.model_state, return_state=True)
         outs = out if isinstance(out, tuple) else (out,)
         n_cost = len(self.costs)
@@ -338,7 +359,8 @@ class SGD:
         with torch.no_grad():
             for batch in reader():
                 out = self.topology.apply(
-                    self.parameters, self._feed(batch, feeding),
+                    self._cast_compute(self.parameters),
+                    self._cast_compute(self._feed(batch, feeding)),
                     mode="test", state=self.model_state)
                 outs = out if isinstance(out, tuple) else (out,)
                 total += float(sum(torch.mean(value_data(c).float())

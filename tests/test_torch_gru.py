@@ -346,27 +346,40 @@ def test_c_entries_are_typed(monkeypatch):
 
 def test_gru_c_entries_match_the_source():
     """Each C entry of ``csrc/gru.cu`` is typed where it is called (the
-    wrapper, chip_smoke.py's barrier probe) as its signature reads: the
-    pointer and int counts handed to ``_build.entry`` match the declared
-    parameters (all but the trailing stream), so ctypes passes no
-    pointer as a 32-bit int."""
+    wrapper, chip_smoke.py's 3xTF32 control and barrier probe) as its
+    signature reads: one entry per kernel and instance
+    (``_check.suffix`` of every pair of ``RNN_DTYPES``) declaring the pointer and int counts
+    handed to ``_build.entry`` (FWD_ARGS, BWD_ARGS, or the literal
+    counts) before the trailing stream, so ctypes passes no pointer as a
+    32-bit int."""
     import os
     import re
+    from paddle_tpu_torch.ops.kernels import _check
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, kgru.SOURCE)) as f:
         decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', f.read()))
-    calls = []
-    for path in (kgru.__file__, os.path.join(root, "chip_smoke.py")):
-        with open(path) as f:
-            calls += re.findall(r'_build\.entry\("gru", "(\w+)", (\d+), '
-                                r'(\d+)\)', f.read())
-    assert sorted({name for name, _, _ in calls}) == sorted(decls) == [
-        "gru_barrier_probe", "gru_bwd_f32", "gru_fwd_f32"]
-    for name, n_ptr, n_int in calls:
+    want = {f"{name}_{s}": args
+            for name, args in ((kgru.NAME_FWD, kgru.FWD_ARGS),
+                               (kgru.NAME_BWD, kgru.BWD_ARGS))
+            for s in {_check.suffix(x, w) for x in _check.RNN_DTYPES
+                      for w in _check.RNN_DTYPES}}
+    with open(kgru.__file__) as f:
+        lookups = re.findall(r'_build\.entry\("gru", f"\{(NAME_\w+)\}_'
+                             r'\{sfx\}", \*(\w+)\)', f.read())
+    assert lookups == [("NAME_FWD", "FWD_ARGS"), ("NAME_BWD", "BWD_ARGS")]
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        smoke = f.read()
+    for name, args in re.findall(r'_build\.entry\("gru", "(\w+)", '
+                                 r'\*gk\.(\w+)\)', smoke):
+        assert want[name] == getattr(kgru, args), name
+    literal = {name: (int(p), int(i)) for name, p, i in re.findall(
+        r'_build\.entry\("gru", "(\w+)", (\d+), (\d+)\)', smoke)}
+    assert sorted(decls) == sorted({**want, **literal})
+    for name, (n_ptr, n_int) in {**want, **literal}.items():
         params = [p.strip() for p in decls[name].split(",")]
         assert params[-1] == "void* stream"
         kinds = ["ptr" if "*" in p else p.split()[0] for p in params[:-1]]
-        assert kinds == ["ptr"] * int(n_ptr) + ["int"] * int(n_int), name
+        assert kinds == ["ptr"] * n_ptr + ["int"] * n_int, name
 
 
 def test_cpu_takes_plain_versions_and_counts_no_launch():

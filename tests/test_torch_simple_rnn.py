@@ -30,6 +30,7 @@ from paddle_tpu.ops import rnn as jax_rnn
 from paddle_tpu.ops.pallas import simple_rnn as pl_rnn
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import rnn
+from paddle_tpu_torch.ops.kernels import _check
 from paddle_tpu_torch.ops.kernels import simple_rnn as krnn
 from paddle_tpu_torch.utils.error import ConfigError
 
@@ -305,21 +306,28 @@ def test_wrapper_checks_dtype_and_shapes():
 
 def test_c_entries_are_typed():
     """Each C entry the wrapper calls is typed as its signature in
-    ``csrc/simple_rnn.cu`` reads: the pointer and int counts handed to
-    ``_build.entry`` match the declared parameters (all but the trailing
-    stream), so ctypes passes no pointer as a 32-bit int."""
+    ``csrc/simple_rnn.cu`` reads: one entry per kernel and instance
+    (``_check.suffix`` of every pair of ``RNN_DTYPES``), each declaring the pointer and int
+    counts the wrapper hands ``_build.entry`` (FWD_ARGS, BWD_ARGS)
+    before the trailing stream, so ctypes passes no pointer as a 32-bit
+    int."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, krnn.SOURCE)) as f:
         src = f.read()
     with open(krnn.__file__) as f:
         wrapper = f.read()
     decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
-    calls = re.findall(r'_build\.entry\("simple_rnn", "(\w+)", (\d+), '
-                       r'(\d+)\)', wrapper)
-    assert sorted(name for name, _, _ in calls) == sorted(decls) == [
-        "simple_rnn_bwd_f32", "simple_rnn_fwd_f32"]
-    for name, n_ptr, n_int in calls:
+    want = {f"{name}_{s}": args
+            for name, args in ((krnn.NAME_FWD, krnn.FWD_ARGS),
+                               (krnn.NAME_BWD, krnn.BWD_ARGS))
+            for s in {_check.suffix(x, w) for x in _check.RNN_DTYPES
+                      for w in _check.RNN_DTYPES}}
+    assert sorted(decls) == sorted(want)
+    for name, (n_ptr, n_int) in want.items():
         params = [p.strip() for p in decls[name].split(",")]
         assert params[-1] == "void* stream"
         kinds = ["ptr" if "*" in p else p.split()[0] for p in params[:-1]]
-        assert kinds == ["ptr"] * int(n_ptr) + ["int"] * int(n_int), name
+        assert kinds == ["ptr"] * n_ptr + ["int"] * n_int, name
+    lookups = re.findall(r'_build\.entry\("simple_rnn", f"\{(NAME_\w+)\}_'
+                         r'\{sfx\}", \*(\w+)\)', wrapper)
+    assert lookups == [("NAME_FWD", "FWD_ARGS"), ("NAME_BWD", "BWD_ARGS")]

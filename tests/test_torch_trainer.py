@@ -363,7 +363,10 @@ def test_feeder_packs_sequences_and_dense_slots():
 @pytest.mark.parametrize("kw, item", [
     ({"mesh": object()}, "A12"), ({"sharding_rules": object()}, "A12"),
     ({"evaluators": [object()]}, "A9·c"),
-    ({"compute_dtype": torch.bfloat16}, "A2"),
+    # bf16 compute trains now (tests/test_torch_dtypes.py); beside int8
+    # weight streaming JAX's trainer refuses it too
+    ({"compute_dtype": torch.bfloat16, "quant_weights": True},
+     "compute_dtype"),
     ({"grad_accum_steps": 2}, "A9·c"),
     # int8 training runs now (tests/test_torch_trainer_quant.py); with
     # gradient accumulation JAX's trainer refuses it too
