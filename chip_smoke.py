@@ -283,10 +283,38 @@ non-zero exit code and no final "ok" line:
             with the
             flash kernels' launches, the loss falling, ms/batch beside
             train_transformer's and the matmul route the card took
-The kernels phase also holds every bf16 instance of the recurrent
-kernels (float32 xs with bf16 W, bf16 xs and W, bf16 xs with float32 W)
-against its plain version on the same inputs at the kernel table's
-shapes (bf16_instances).
+  train_dsl_f16  text_rnn's RNN, LSTM (h 512 and 1280) and GRU under the
+            float16 policy (SGD(compute_dtype=torch.float16)): each first
+            step against the plain CPU step (loss, every gradient leaf
+            within F16_GRAD_TOL), the (float32 xs, float16 W) instances'
+            launches exact; each family fed by an embedding (the
+            (float16 xs, float16 W) instances), one step each
+  rnn_ops_f16  rnn_ops_bf16's calls with the pairs no float16 policy
+            feeds ((float16 xs, float32 W) and the mixed bf16 / float16
+            pairs), F16_OPS_T steps
+  attention_ops_bf16  dot_product_attention's flash route (forward and
+            backward), flash_attention_quant and the four decode wrappers
+            called with bf16 operands in every combination JAX takes:
+            each bf16 instance launched as counted, every output within
+            one bf16 step of the CPU's, the gradients within
+            MIXED_GRAD_TOL
+  generate_mt  transformer.generate_cached at bench_transformer_decode's
+            widths (batch 32, sources of 128, 128 steps, beam 4, vocab
+            32000, 6 + 6 layers): no kernel launch (the encoder's key
+            mask takes the dense path, as JAX's route), held against the
+            full-recompute generate on the card and a CPU run of the
+            first rows up to each row's first near-tie (BEAM_MARGIN),
+            bit for bit on a repeat; ms per batch, emitted tokens/s
+  generate_seq2seq  seq2seq.generate (beam 5, 50 steps) at
+            bench_seq2seq's widths: the lean GRU forward twice, held
+            against a CPU run of the first rows as generate_mt is
+The kernels phase also holds every bf16 and float16 instance of the
+recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
+float32 / bf16 / float16 with a low-precision operand) and every bf16
+instance of the attention kernels (attention_bf16: each combination of
+float32 and bf16 q, k, v; bf16 q over int8 K/V) against its plain
+version on the same inputs at the kernel table's shapes, timed beside
+its float32 instance.
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -4481,9 +4509,11 @@ def check_kv_quantizer(torch, dev, transformer, params, prompt, rng):
 
 # ------------------------------------------------------------- bf16
 
-def bf16_compare(torch, what, got, ref):
+def low_compare(torch, what, got, ref):
     """``got`` (a kernel's output) against ``ref`` (its plain version's)
-    as BF16_F32_FLOOR says; returns the row's error fields."""
+    as BF16_F32_FLOOR says: a bf16 or float16 output within one step of
+    its dtype (2^-7 or 2^-10 of its power of two) plus the floor, a
+    float32 one within the floor; returns the row's error fields."""
     if got.dtype != ref.dtype or got.shape != ref.shape:
         fail(f"{what}: {got.dtype} {tuple(got.shape)}, the plain version "
              f"{ref.dtype} {tuple(ref.shape)}")
@@ -4491,20 +4521,21 @@ def bf16_compare(torch, what, got, ref):
     diff = (g - r).abs()
     scale = float(r.abs().max()) or 1.0
     floor = BF16_F32_FLOOR * scale
-    out = {"dtype": str(got.dtype).replace("torch.", ""),
-           "max_abs_err": float(diff.max()),
+    dtype = str(got.dtype).replace("torch.", "")
+    out = {"dtype": dtype, "max_abs_err": float(diff.max()),
            "rel_err": float(diff.max()) / scale}
-    if got.dtype == torch.bfloat16:
+    bits = {torch.bfloat16: 7, torch.float16: 10}.get(got.dtype)
+    if bits is not None:
         step = torch.exp2(torch.floor(torch.log2(
-            r.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 7)
+            r.abs().clamp(min=torch.finfo(torch.float32).tiny))) - bits)
         over = diff > step + floor
         out["differ_share"] = float((diff > 0).float().mean())
-        out["max_err_in_bf16_steps"] = float((diff / step)[r != 0].max()) \
+        out["max_err_in_steps"] = float((diff / step)[r != 0].max()) \
             if bool((r != 0).any()) else 0.0
         if over.any():
-            fail(f"{what}: {int(over.sum())} bf16 elements more than one "
-                 f"bf16 step (plus {BF16_F32_FLOOR} of the largest) from the "
-                 f"plain version's: {out}")
+            fail(f"{what}: {int(over.sum())} {dtype} elements more than one "
+                 f"{dtype} step (plus {BF16_F32_FLOOR} of the largest) from "
+                 f"the plain version's: {out}")
     elif not out["rel_err"] <= BF16_F32_FLOOR:
         fail(f"{what}: float32 output off its plain version by {out} "
              f"(bound {BF16_F32_FLOOR} of the largest entry)")
@@ -4541,9 +4572,11 @@ def rounded_cotangent(torch):
 
 
 def grad_rel_l2(got, want):
-    """Each leaf's relative L2 error of ``got`` against ``want``."""
+    """Each leaf's relative L2 error of ``got`` against ``want``, in
+    float32 (a float16 leaf's norm may pass its range)."""
+    pairs = [(g.float(), w.float()) for g, w in zip(got, want)]
     return [float((g - w).norm() / w.norm()) if float(w.norm()) else
-            float(g.norm()) for g, w in zip(got, want)]
+            float(g.norm()) for g, w in pairs]
 
 
 def gate_with_control(what, sound, control, limit, stat=max):
@@ -4594,18 +4627,26 @@ def tensor_bytes(*tensors):
                if t is not None)
 
 
-def bf16_row(torch, name, mod, replaces, kernel, plain, outs, inputs,
-             flops, shape):
-    """One bf16 instance against its plain version on the same inputs:
-    each output compared (bf16_compare), a second launch bit for bit,
-    times, and the bound on this run's bytes (the instance's dtypes: each
-    input read once, each output written once) and operations (float32
-    products: the 3xTF32 rate, and the bf16 tensor cores' beside it)."""
+RNN_LIBRARY_NOTE = ("none: no PyTorch call takes xs and W of different "
+                     "dtypes, and torch.nn.RNN / LSTM / GRU in bf16 or "
+                     "float16 keep their carry in that dtype (another "
+                     "function)")
+
+
+def low_row(torch, name, mod, replaces, kernel, plain, outs, inputs,
+            flops, shape, library=None, library_note=RNN_LIBRARY_NOTE):
+    """One bf16 or float16 instance against its plain version on the
+    same inputs: each output compared (low_compare), a second launch bit
+    for bit, times (and ``library``'s, a PyTorch call computing the same
+    function, where one exists), and the bound on this run's bytes (the
+    instance's dtypes: each input read once, each output written once)
+    and operations (float32 products: the 3xTF32 rate, and the bf16
+    tensor cores' beside it)."""
     got, ref = kernel(), plain()
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
-    errs = {o: bf16_compare(torch, f"{name} {o}", g, r)
+    errs = {o: low_compare(torch, f"{name} {o}", g, r)
             for o, g, r in zip(outs, got, ref) if g is not None}
     again = kernel()
     again = again if isinstance(again, tuple) else (again,)
@@ -4619,31 +4660,28 @@ def bf16_row(torch, name, mod, replaces, kernel, plain, outs, inputs,
            "repeat": "bit for bit",
            "ms": time_ms(torch, kernel, samples=10, reps=5),
            "plain_ms": time_ms(torch, plain, samples=3, reps=1),
-           "library_ms": None,
-           "library_note": "none: no PyTorch call takes xs and W of "
-                           "different dtypes, and torch.nn.RNN / LSTM / GRU "
-                           "in bf16 keep their carry in bf16 (another "
-                           "function)",
+           "library_ms": (time_ms(torch, library, samples=10, reps=5)
+                          if library else None),
+           **({} if library else {"library_note": library_note}),
            "bytes": nbytes, "flops": flops,
            "bound_bf16_tensor_core_ms": flops / PEAK_BF16_FLOPS * 1e3}
     tc_bound(row, nbytes, flops)
     return row
 
 
-def check_bf16_instances(torch, dev, rng):
-    """Every bf16 instance of the recurrent kernels at its family's
-    float32 train shape (full rows, as the train batch's): B11 simple
-    RNN T 100 B 64 D 512, B9 LSTM T 100 B 64 D 512, B10 GRU T 30 B 64
-    D 512, B12 blocked LSTM forward T 100 B 64 D 1280; (float32 xs,
-    bf16 W), (bf16 xs, bf16 W) and (bf16 xs, float32 W)."""
+def check_low_instances(torch, dev, rng, pairs):
+    """Every low-precision instance of the recurrent kernels named by
+    ``pairs`` ((xs, W) dtype names) at its family's float32 train shape
+    (full rows, as the train batch's): B11 simple RNN T 100 B 64 D 512,
+    B9 LSTM T 100 B 64 D 512, B10 GRU T 30 B 64 D 512, B12 blocked LSTM
+    forward T 100 B 64 D 1280."""
     from paddle_tpu_torch.ops.kernels import _check
     from paddle_tpu_torch.ops.kernels import gru as gk
     from paddle_tpu_torch.ops.kernels import lstm as lk
     from paddle_tpu_torch.ops.kernels import lstm_blocked as bk
     from paddle_tpu_torch.ops.kernels import simple_rnn as rk
     rows = []
-    f32, bf = torch.float32, torch.bfloat16
-    for xd, wd in ((f32, bf), (bf, bf), (bf, f32)):
+    for xd, wd in ((getattr(torch, x), getattr(torch, w)) for x, w in pairs):
         sfx = _check.suffix(xd, wd)
         # B11
         t, b, d = RNN_T, RNN_B, RNN_D
@@ -4653,12 +4691,12 @@ def check_bf16_instances(torch, dev, rng):
         hs = rk.simple_rnn_fwd_plain(xs, mask, w)
         (_, ff), (_, bf) = rnn_cost(lengths, t, d)
         shape = {"T": t, "B": b, "D": d}
-        rows.append(bf16_row(
+        rows.append(low_row(
             torch, f"{rk.NAME_FWD}[{sfx}]", rk, rk.REPLACES_FWD,
             lambda: rk.simple_rnn_fwd(xs, mask, w),
             lambda: rk.simple_rnn_fwd_plain(xs, mask, w), ("hs",),
             (xs, mask, w), ff, shape))
-        rows.append(bf16_row(
+        rows.append(low_row(
             torch, f"{rk.NAME_BWD}[{sfx}]", rk, rk.REPLACES_BWD,
             lambda: rk.simple_rnn_bwd(hs, w, mask, dh),
             lambda: rk.simple_rnn_bwd_plain(hs, w, mask, dh), ("dxs", "dW"),
@@ -4673,13 +4711,13 @@ def check_bf16_instances(torch, dev, rng):
         dcfin = torch.tensor(normal(rng, (b, d)), device=dev)
         (_, ff), (_, bf) = lstm_cost(lengths, t, d)
         shape = {"T": t, "B": b, "D": d}
-        rows.append(bf16_row(
+        rows.append(low_row(
             torch, f"{lk.NAME_FWD}[{sfx}]", lk, lk.REPLACES_FWD,
             lambda: lk.lstm_fwd(xs, mask, w_r, checks, True),
             lambda: lk.lstm_fwd_plain(xs, mask, w_r, checks, True),
             ("hs", "c_fin", "cs", "acts"), (xs, mask, w_r, checks), ff,
             shape))
-        rows.append(bf16_row(
+        rows.append(low_row(
             torch, f"{lk.NAME_BWD}[{sfx}]", lk, lk.REPLACES_BWD,
             lambda: lk.lstm_bwd(acts, cs, hs, w_r, checks, mask, dh, dcfin),
             lambda: lk.lstm_bwd_plain(acts, cs, hs, w_r, checks, mask, dh,
@@ -4695,12 +4733,12 @@ def check_bf16_instances(torch, dev, rng):
         dh = torch.tensor(normal(rng, (t, b, d)), device=dev).to(xd)
         (_, ff), (_, bf) = gru_cost(lengths, t, d)
         shape = {"T": t, "B": b, "D": d}
-        rows.append(bf16_row(
+        rows.append(low_row(
             torch, f"{gk.NAME_FWD}[{sfx}]", gk, gk.REPLACES_FWD,
             lambda: gk.gru_fwd(xs, mask, wg, ws, True),
             lambda: gk.gru_fwd_plain(xs, mask, wg, ws, True),
             ("hs", "acts"), (xs, mask, wg, ws), ff, shape))
-        rows.append(bf16_row(
+        rows.append(low_row(
             torch, f"{gk.NAME_BWD}[{sfx}]", gk, gk.REPLACES_BWD,
             lambda: gk.gru_bwd(acts, hs, wg, ws, mask, dh),
             lambda: gk.gru_bwd_plain(acts, hs, wg, ws, mask, dh),
@@ -4711,7 +4749,7 @@ def check_bf16_instances(torch, dev, rng):
         lengths, xs, mask, w_r, checks = lstm_inputs(
             torch, dev, rng, t, b, d, False, w_scale=1.0 / math.sqrt(d))
         xs, w_r = xs.to(xd), w_r.to(wd)
-        rows.append(bf16_row(
+        rows.append(low_row(
             torch, f"{bk.NAME_FWD}[{sfx}]", bk, bk.REPLACES_FWD,
             lambda: bk.lstm_blocked_fwd(xs, mask, w_r, checks, True),
             lambda: lk.lstm_fwd_plain(xs, mask, w_r, checks, True),
@@ -4721,11 +4759,12 @@ def check_bf16_instances(torch, dev, rng):
     return rows
 
 
-def bf16_launches(kernels):
-    """Every bf16 instance's launches since the last reset, by row name."""
+def low_launches(kernels):
+    """Every bf16 and float16 instance's launches of the recurrent
+    kernels since the last reset, by row name."""
     return {k: n for mod in (kernels.simple_rnn, kernels.lstm, kernels.gru,
                              kernels.lstm_blocked)
-            for k, n in mod.launches_bf16.items()}
+            for k, n in mod.launches_low.items()}
 
 
 def recurrent_launches(kernels):
@@ -4799,7 +4838,7 @@ def dsl_first_step(torch, dev, kernels, cell, hidden, batch, what):
     kernels.reset_launches()
     rec_c, rec_w, rec_x = [], [], []
     card, loss_c, grads_c = step(dev, rec_c)
-    launches = bf16_launches(kernels)
+    launches = low_launches(kernels)
     after = card.test(lambda: iter([batch]), feeding=feeding)
     with rounded_cotangent(torch):
         _, _, grads_x = step(dev, rec_x)
@@ -4845,7 +4884,7 @@ def dsl_steps(torch, kernels, trainer, batch, steps, what, want=None,
         elif isinstance(e, events.EndIteration):
             record["loss"].append(float(e.cost))     # a synchronize
             record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
-            record["bf16"].append(bf16_launches(kernels))
+            record["bf16"].append(low_launches(kernels))
             record["all"].append(recurrent_launches(kernels))
 
     trainer.train(lambda: iter([batch] * steps), num_passes=1,
@@ -4987,25 +5026,31 @@ def run_train_dsl_bf16(torch, dev, kernels, seed):
     return launches
 
 
-def run_rnn_ops_bf16(torch, dev, kernels, rng):
-    """The ops API's recurrent entry points called with bf16 xs and
-    float32 weights (a direct caller's dtypes; the policy casts every
-    weight): ops/rnn.simple_rnn, lstm at h 512 (resident kernels) and
-    1280 (gate-blocked forward, plain backward) and gru, at the kernel
-    table's shapes on ragged rows, forward and backward, on the card and
-    on the CPU from the same inputs.  The (bf16 xs, float32 W) instances
-    launch once each way and no other recurrent kernel does; hs is held
-    as an instance's bf16 output (bf16_compare), each gradient within
-    MIXED_GRAD_TOL relative L2 of the CPU's."""
+def run_rnn_ops_low(torch, dev, kernels, rng, pairs, phase, steps=None):
+    """The ops API's recurrent entry points called with xs and weights of
+    the (xs, W) dtype ``pairs`` (a direct caller's dtypes; the policies
+    cast every weight): ops/rnn.simple_rnn, lstm at h 512 (resident
+    kernels) and 1280 (gate-blocked forward, plain backward) and gru, at
+    the kernel table's shapes (``steps`` in place of their T where given)
+    on ragged rows, forward and backward, on the card and on the CPU from
+    the same inputs.  Each pair's instances launch once each way and no
+    other recurrent kernel does; hs is held as an instance's output
+    (low_compare), each gradient within MIXED_GRAD_TOL relative L2 of the
+    CPU's."""
     from paddle_tpu_torch.core.sequence import SequenceBatch
     from paddle_tpu_torch.ops import rnn
+    from paddle_tpu_torch.ops.kernels import _check
     cases = (("simple_rnn", kernels.simple_rnn, RNN_T, RNN_D, 1, (1,)),
              ("lstm", kernels.lstm, LSTM_T, LSTM_D, 4, (4,)),
              ("lstm", kernels.lstm_blocked, BLK_T, BLK_TIMED[0], 4, (4,)),
              ("gru", kernels.gru, GRU_T, GRU_D, 3, (2, 1)))
     b, out, launches = RNN_B, {}, {}
-    for op, mod, t, d, gates, widths in cases:
-        what = f"rnn_ops_bf16 {op} h{d}"
+    for (xd, wd), (op, mod, t, d, gates, widths) in (
+            ((getattr(torch, x), getattr(torch, w)), case)
+            for x, w in pairs for case in cases):
+        t = steps or t
+        sfx = _check.suffix(xd, wd)
+        what = f"{phase} {op} h{d} [{sfx}]"
         lengths = rng.randint(1, t + 1, b)
         lengths[0], lengths[-1] = 0, t
         x = normal(rng, (b, t, gates * d)) * 0.3
@@ -5013,9 +5058,9 @@ def run_rnn_ops_bf16(torch, dev, kernels, rng):
         cot = normal(rng, (b, t, d))
 
         def call(device):
-            xs = torch.tensor(x, device=device).to(torch.bfloat16)
+            xs = torch.tensor(x, device=device).to(xd)
             xs.requires_grad_(True)
-            w = [torch.tensor(a, device=device, requires_grad=True)
+            w = [torch.tensor(a, device=device).to(wd).requires_grad_(True)
                  for a in ws]
             seq = SequenceBatch(xs, torch.tensor(lengths, device=device))
             hs = getattr(rnn, op)(seq, *w)[0].data
@@ -5025,26 +5070,27 @@ def run_rnn_ops_bf16(torch, dev, kernels, rng):
         kernels.reset_launches()
         hs_c, grads_c = call(dev)
         torch.cuda.synchronize()
-        got = bf16_launches(kernels)
-        want = {f"{name}[xbf16_wf32]": 1 for name in
+        got = low_launches(kernels)
+        want = {f"{name}[{sfx}]": 1 for name in
                 (mod.NAME_FWD, getattr(mod, "NAME_BWD", None)) if name}
         if got != want or recurrent_launches(kernels) != len(want):
-            fail(f"{what}: bf16 launches {got} (recurrent "
+            fail(f"{what}: low-precision launches {got} (recurrent "
                  f"{recurrent_launches(kernels)}), want {want}")
         hs_w, grads_w = call("cpu")
-        hs_err = bf16_compare(torch, f"{what} hs", hs_c, hs_w)
+        hs_err = low_compare(torch, f"{what} hs", hs_c, hs_w)
         l2 = grad_rel_l2(grads_c, grads_w)
         if not max(l2) <= MIXED_GRAD_TOL:
             fail(f"{what}: gradients' relative L2 error vs the CPU "
                  f"(xs, weights) {l2} (bound {MIXED_GRAD_TOL})")
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
-        out[f"{op}_h{d}"] = {"T": t, "B": b, "D": d, "launches": got,
-                            "hs": hs_err, "grad_rel_l2_err": l2,
-                            "grad_dtypes": [str(g.dtype).replace("torch.", "")
-                                            for g in grads_c]}
-    emit({"phase": "rnn_ops_bf16", "xs": "bfloat16", "weights": "float32",
-          "bound": {"hs": "one bf16 step plus BF16_F32_FLOOR",
+        out[f"{op}_h{d}[{sfx}]"] = {
+            "T": t, "B": b, "D": d, "launches": got, "hs": hs_err,
+            "grad_rel_l2_err": l2,
+            "grad_dtypes": [str(g.dtype).replace("torch.", "")
+                            for g in grads_c]}
+    emit({"phase": phase, "pairs": [list(p) for p in pairs],
+          "bound": {"hs": "one step of its dtype plus BF16_F32_FLOOR",
                     "grad_rel_l2": MIXED_GRAD_TOL}, "cases": out})
     return launches
 
@@ -5148,6 +5194,805 @@ def run_train_transformer_bf16(torch, dev, kernels, f32_ms):
                       "grad_rel_l2_median": BF16_MT_GRAD_TOL}}})
 
 
+# ----------------------------- bf16 attention, float16 recurrences, beams
+
+# The recurrent kernels' (xs, W) pairs with a bf16 operand and with a
+# float16 one: the float16 policy's two (behind an fc, fed by an
+# embedding), a direct call's, and the two mixed pairs JAX admits too.
+BF16_PAIRS = (("float32", "bfloat16"), ("bfloat16", "bfloat16"),
+              ("bfloat16", "float32"))
+F16_PAIRS = (("float32", "float16"), ("float16", "float16"),
+             ("float16", "float32"), ("bfloat16", "float16"),
+             ("float16", "bfloat16"))
+# text_rnn's cells under the float16 policy (cell, hidden): their first
+# step on F16_CHECK_BATCH rows against the plain CPU step (the policy's
+# products multiply in float32 on both devices: ops/linear.matmul), the
+# card's max-pool argmax kept by the witness (pool_probe).  What is left
+# between the two is float32 summation order and the float16 roundings it
+# flips: of the operands at the step boundary and in the kernels' hs /
+# dxs, and of every product's cotangent, which the policy rounds to
+# float16 as JAX's transpose does.  Without loss scaling (neither package
+# scales) most cotangents lie below float16's normal range (6.1e-5),
+# where its spacing is absolute (6e-8), so a flip there moves a value by
+# percents.  Predicted within 1e-3 relative L2 on every gradient leaf
+# (PERF.md §6); read (NVIDIA H100 80GB HBM3, 700 W) below 7.5e-4 on the
+# RNN and both LSTMs, 2.2e-3 / 2.5e-3 on the two GRU layers' W_gate.
+# Held at F16_GRAD_TOL, BF16_GRAD_TOL's value; the loss at
+# TRAIN_REL_TOL.
+F16_DSL = (("rnn", 512), ("lstm", 512), ("lstm", 1280), ("gru", 512))
+F16_CHECK_BATCH = 16
+F16_GRAD_TOL = 4e-3
+# the direct ops calls' steps (the ops phase at the families' widths)
+F16_OPS_T = 20
+# The attention kernels' operand dtypes, as JAX's functions take them: q,
+# k and v each float32 or bf16 (the all-float32 combination is the
+# float32 instance's own rows); the wide head dims every combination
+# runs at, and the further ones the all-bf16 combination runs at.
+ATTN_COMBOS = tuple(c for c in ((q, k, v) for q in ("float32", "bfloat16")
+                                for k in ("float32", "bfloat16")
+                                for v in ("float32", "bfloat16"))
+                    if c != ("float32",) * 3)
+ATTN_WIDE_DH, ATTN_WIDE_ALL_BF16 = 256, (384, 512)
+# The MT model's KV-cached beam decode at bench_transformer_decode's
+# widths (bench.py:769-812: batch 32, sources of 128 tokens, 128 steps,
+# beam 4, vocab 32000, d 512, 8 heads, dff 2048, 6 + 6 layers; weights
+# from seed 0), held against the full-recompute generate on the card and
+# against a CPU run of its first MTD_CPU_ROWS rows.  Two runs agree on a
+# row's beams step by step (each survivor's source lane and token, its
+# score within BEAM_SCORE_RTOL) up to the first step where either run's
+# K-th and (K+1)-th candidates lie closer than BEAM_MARGIN; a row with
+# no such step must end with equal tokens, lengths and scores.  Random
+# weights leave the top candidates close (gaps of 1e-4..1e-2 among 4 x
+# 32000), so each run's beams are also re-scored by the full decode,
+# teacher-forced on the card (beam_rescore): the card's own beams and the
+# CPU run's, each score within BEAM_SCORE_RTOL.  The encoder attends
+# under the source's key mask, so JAX's route (and the
+# port's) is the dense path: the flash forward launches MTD_FLASH times,
+# and the cached steps attend on the plain path (no kernel).
+MTD_CPU_ROWS = 4
+MTD_TIMED = 2
+MTD_LENGTH_PENALTY = 0.6      # generate_cached's default, the bench's
+MTD_FLASH = 0
+BEAM_MARGIN = 2e-3
+BEAM_SCORE_RTOL = 1e-4
+# seq2seq's beam generate at bench_seq2seq's widths (vocab 30000, emb =
+# h = att 512, batch 64, sources of 30 tokens), beam 5, 50 steps (the
+# reference's demo settings, seq2seq.py:121), held against a CPU run of
+# its first MTD_CPU_ROWS rows as generate_mt is; the encoder's two GRUs
+# take the lean forward kernel once each.
+S2G_BEAM, S2G_MAX_LEN = 5, 50
+
+
+@contextlib.contextmanager
+def f16_policy():
+    """The float16 compute policy for the phase, restored at its end."""
+    from paddle_tpu_torch.core import dtypes
+    dtypes.set_policy("float32", "float16")
+    try:
+        yield
+    finally:
+        dtypes.set_policy()
+
+
+def attn_dtypes(torch, combo):
+    return tuple(getattr(torch, name) for name in combo)
+
+
+def attn_low_launches(kernels):
+    """The attention kernels' bf16 launches since the last reset, by row
+    name."""
+    return {**kernels.flash_attention.launches_low,
+            **kernels.decode_attention.launches_low}
+
+
+def check_attention_bf16(torch, dev, rng):
+    """Every bf16 instance of B1-B8 against its plain version: the flash
+    forward, dK/dV and dQ at the MT train shape (B 32, H 8, T 256, dh 64,
+    full) and at dh 256 (B 4, H 2, T 512, causal), the all-bf16
+    combination also at dh 384 and 512; flash_attention_quant's bf16 q
+    at the prefill shape (B 32, T 32, H = Hkv = 8) and at dh 256; the
+    four decode kernels at the serving shapes (S 8, K 8, T 256, D 512, H
+    = Hkv = 8; the paged pair over 129 shuffled blocks of 16) for every
+    combination, and over the int8 cache with bf16 q.  Each row as the
+    recurrent instances' (low_row: bf16 outputs within one bf16 step plus
+    BF16_F32_FLOOR of the largest, float32 ones within the floor, bit for
+    bit on a repeat), timed beside its float32 instance on the same
+    values widened.  Library: SDPA where every operand is bf16 (no
+    PyTorch call takes mixed operand dtypes)."""
+    from paddle_tpu_torch.ops.kernels import _check
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mixed = "none: no PyTorch call takes mixed operand dtypes"
+    rows = []
+
+    def row(name, mod, replaces, kernel, plain, outs, inputs, flops,
+            shape, f32_kernel, library=None, tc=True):
+        r = low_row(torch, name, mod, replaces, kernel, plain, outs,
+                    inputs, flops, shape, library=library,
+                    library_note=mixed)
+        r["f32_instance_ms"] = time_ms(torch, f32_kernel, samples=10,
+                                       reps=5)
+        if not tc:    # the decode kernels: float32 SIMT arithmetic
+            r.pop("bound_f32_simt_ms", None)
+        return r
+
+    def flash_rows(combo, b, h, t, dh, causal):
+        dts = attn_dtypes(torch, combo)
+        q, k, v, do = (torch.tensor(normal(rng, (b, h, t, dh)),
+                                    device=dev).to(d)
+                       for d in dts + (dts[0],))
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        sfx = _check.operand_suffix(q=q, k=k, v=v)
+        scale = 1.0 / math.sqrt(dh)
+        o, lse = fk.flash_attention_plain(q, k, v, scale, causal)
+        of, _ = fk.flash_attention_plain(qf, kf, vf, scale, causal)
+        _, delta = fk.bwd_dq_kernel(q, k, v, o, lse, do, scale, causal)
+        _, delta32 = fk.bwd_dq_kernel(qf, kf, vf, of, lse, dof, scale,
+                                      causal)
+        cost = flash_bwd_cost(b * h, t, t, dh, causal)
+        shape = {"B": b, "H": h, "T": t, "dh": dh, "causal": causal}
+        all_bf16 = all(d == torch.bfloat16 for d in dts)
+        lib_fwd = (lambda: sdpa(q, k, v, is_causal=causal)) \
+            if all_bf16 else None
+        lib_bwd = None
+        if all_bf16:
+            qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+            lib_out = sdpa(qg, kg, vg, is_causal=causal)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                           retain_graph=True)
+        def bwd_plain():
+            return fk.flash_attention_bwd_plain(q, k, v, o, lse, do, scale,
+                                                causal)
+        return [
+            row(f"{fk.NAME}[{sfx}]", fk, fk.REPLACES,
+                lambda: fk.flash_attention_fwd(q, k, v, scale, causal),
+                lambda: fk.flash_attention_plain(q, k, v, scale, causal),
+                ("o", "lse"), (q, k, v), cost["fwd"][1], shape,
+                lambda: fk.flash_attention_fwd(qf, kf, vf, scale, causal),
+                lib_fwd),
+            row(f"{fk.NAME_BWD_DKV}[{sfx}]", fk, fk.REPLACES_BWD_DKV,
+                lambda: fk.bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
+                                          causal),
+                lambda: bwd_plain()[1:], ("dk", "dv"),
+                (q, k, v, do, lse, delta), cost["dkv"][1], shape,
+                lambda: fk.bwd_dkv_kernel(qf, kf, vf, dof, lse, delta32,
+                                          scale, causal), lib_bwd),
+            row(f"{fk.NAME_BWD_DQ}[{sfx}]", fk, fk.REPLACES_BWD_DQ,
+                lambda: fk.bwd_dq_kernel(q, k, v, o, lse, do, scale,
+                                         causal)[0],
+                lambda: bwd_plain()[0], ("dq",), (q, k, v, do, o, lse),
+                cost["dq"][1], shape,
+                lambda: fk.bwd_dq_kernel(qf, kf, vf, of, lse, dof, scale,
+                                         causal), lib_bwd)]
+
+    flash = {}
+    for combo in ATTN_COMBOS:
+        train = flash_rows(combo, MT_BATCH, MT_HEADS, MT_SEQ, MT_DH, False)
+        wide = [flash_rows(combo, WIDE_B, WIDE_H, WIDE_T, dh, True)
+                for dh in (ATTN_WIDE_DH,) + (
+                    ATTN_WIDE_ALL_BF16 if combo == ("bfloat16",) * 3
+                    else ())]
+        for i, r in enumerate(train):
+            r["wide"] = [{key: w[i][key] for key in (
+                "shape", "max_abs_err", "outputs", "ms", "f32_instance_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for w in wide]
+            rows.append(r)
+        torch.cuda.empty_cache()
+
+    # flash_attention_quant: bf16 q over the int8 cache
+    from paddle_tpu_torch.quant.kv import quantize_heads
+    for b, t, h, dh, key in ((GEN_BATCH, GEN_PROMPT, HEADS, D_MODEL // HEADS,
+                              None), (WIDE_B, WIDE_T, WIDE_H, D_MODEL //
+                                      WIDE_HEADS, "dh256")):
+        d = h * dh
+        q = torch.tensor(normal(rng, (b, t, d)), device=dev).to(
+            torch.bfloat16)
+        (kc, ks), (vc, vs) = (quantize_heads(torch.tensor(
+            normal(rng, (b, t, d)), device=dev), h) for _ in range(2))
+        flops = 4 * dh * b * h * (t * (t + 1) // 2)
+        r = row(f"{fk.NAME_QUANT}[qbf16]", fk, fk.REPLACES_QUANT,
+                lambda: fk.flash_attention_quant(q, kc, vc, ks, vs, h),
+                lambda: fk.flash_attention_quant_plain(q, kc, vc, ks, vs, h),
+                ("o",), (q, kc, vc, ks, vs), flops,
+                {"B": b, "T": t, "H": h, "Hkv": h, "dh": dh,
+                 "causal": True},
+                lambda: fk.flash_attention_quant(q.float(), kc, vc, ks, vs,
+                                                 h))
+        r["library_note"] = ("none: no PyTorch call attends over int8 "
+                             "codes with per-(position, head) scales")
+        if key:
+            rows[-1][key] = {k2: r[k2] for k2 in (
+                "shape", "max_abs_err", "ms", "f32_instance_ms", "plain_ms",
+                "bound_ms", "bound_by")}
+        else:
+            rows.append(r)
+
+    # the four decode kernels at the serving shapes
+    s, kk, t, d, h = 8, CHUNK, SERVE_MAX_LEN, D_MODEL, HEADS
+    dh = d // h
+    qpos_np = chunk_qpos(t)
+    qpos = torch.tensor(qpos_np, device=dev)
+    pos = qpos[:, -1].contiguous()
+    nb_row = t // PAGE_BS
+    tables = torch.tensor(paged_tables(rng, qpos_np[:, -1], nb_row,
+                                       PAGE_BLOCKS), device=dev)
+    live = np.where((qpos_np[:, -1] == qpos_np[:, 0])[:, None],
+                    np.arange(kk)[None] == 0, True)
+    chunk_flops = 4 * dh * h * int(((qpos_np + 1) * live).sum())
+    tq1_flops = 4 * dh * h * int((qpos_np[:, -1] + 1).sum())
+    # this run's bytes, as check_decode_kernel counts them: q read, the
+    # live lanes' outputs written, the positions, and each row's K and V
+    # (and int8 scales) up to its furthest lane
+    span = int((qpos_np[:, -1] + 1).sum())
+
+    def decode_bytes(q, k, v, lanes, live_lanes, scaled):
+        return (q.element_size() * (lanes + live_lanes) * d + 4 * lanes
+                + (k.element_size() + v.element_size()) * span * d
+                + (8 * span * h if scaled else 0))
+    base = [normal(rng, shape) for shape in (
+        (s, kk, d), (s, t, d), (s, t, d), (PAGE_BLOCKS, PAGE_BS, d),
+        (PAGE_BLOCKS, PAGE_BS, d))]
+    mask = (torch.arange(t, device=dev)[None, None, :]
+            <= qpos.long()[:, :, None])[:, None]
+
+    def heads(x, n):
+        return x.reshape(x.shape[0], n, h, dh).transpose(1, 2).contiguous()
+
+    def decode_rows(combo, int8=False):
+        dq = getattr(torch, combo[0])
+        q = torch.tensor(base[0], device=dev).to(dq)
+        q1 = q[:, 0].contiguous()
+        if int8:
+            (k, ksc), (v, vsc) = (quantize_heads(torch.tensor(
+                a, device=dev), h) for a in base[1:3])
+            (pk, pks), (pv, pvs) = (quantize_heads(torch.tensor(
+                a, device=dev), h) for a in base[3:5])
+            kw, vw = dict(kscale=ksc, vscale=vsc), dict(kscale=pks,
+                                                      vscale=pvs)
+            names = (dk.NAME_I8, dk.NAME_SLAB_I8, dk.NAME_PAGED_CHUNK_I8,
+                     dk.NAME_PAGED_I8)
+        else:
+            dkd, dvd = getattr(torch, combo[1]), getattr(torch, combo[2])
+            k, v, pk, pv = (torch.tensor(a, device=dev).to(dt) for a, dt in
+                            zip(base[1:], (dkd, dvd, dkd, dvd)))
+            kw = vw = {}
+            names = (dk.NAME, dk.NAME_SLAB, dk.NAME_PAGED_CHUNK,
+                     dk.NAME_PAGED)
+        sfx = _check.operand_suffix(q=q, k=k, v=v)
+        lib = None
+        if not int8 and all(x == "bfloat16" for x in combo):
+            qh, kh, vh = heads(q, kk), heads(k, t), heads(v, t)
+
+            def lib():
+                return sdpa(qh, kh, vh, attn_mask=mask)
+        cases = (
+            (names[0], dk.REPLACES, dk.decode_attention_slab_chunk,
+             dk.decode_attention_slab_chunk_plain, (q, k, v, qpos), kw,
+             chunk_flops, lib),
+            (names[1], dk.REPLACES_SLAB, dk.decode_attention_slab,
+             dk.decode_attention_slab_plain, (q1, k, v, pos), kw, tq1_flops,
+             None),
+            (names[2], dk.REPLACES_PAGED_CHUNK,
+             dk.decode_attention_paged_chunk,
+             dk.decode_attention_paged_chunk_plain,
+             (q, pk, pv, qpos, tables), vw, chunk_flops, None),
+            (names[3], dk.REPLACES_PAGED, dk.decode_attention_paged,
+             dk.decode_attention_paged_plain, (q1, pk, pv, pos, tables), vw,
+             tq1_flops, None))
+        out = []
+        for name, replaces, fn, plain, args, extra, flops, library in cases:
+            wide = tuple(a.float() if a.dtype == torch.bfloat16 else a
+                         for a in args)
+            tq1 = args[0].dim() == 2
+            nbytes = decode_bytes(q, k, v, s if tq1 else s * kk,
+                                  s if tq1 else int(live.sum()), int8)
+            out.append(row(
+                f"{name}[{sfx}]", dk, replaces,
+                lambda fn=fn, args=args, extra=extra: fn(*args, h, **extra),
+                lambda plain=plain, args=args, extra=extra: plain(
+                    *args, h, **extra),
+                ("out",), tuple(args) + tuple(extra.values()), flops,
+                {"S": s, "K": 1 if args[0].dim() == 2 else kk, "T": t,
+                 "D": d, "H": h, "Hkv": h,
+                 "layout": "paged" if "paged" in name else "slab"},
+                lambda fn=fn, wide=wide, extra=extra: fn(*wide, h, **extra),
+                library, tc=False))
+            out[-1]["bytes"] = nbytes
+            out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes, flops)
+        return out
+
+    for combo in ATTN_COMBOS:
+        rows.extend(decode_rows(combo))
+    rows.extend(decode_rows(("bfloat16", "int8", "int8"), int8=True))
+    return rows
+
+
+def run_attention_ops_bf16(torch, dev, kernels, rng):
+    """The attention entry points called with bf16 operands, at small
+    shapes, on the card and on the CPU from the same values: ops/attention
+    .dot_product_attention's flash route (FlashAttention: the forward, dQ
+    and dK/dV kernels) for every combination of float32 and bf16 q, k, v,
+    causal at B 2, H 2, T 128, dh 64 and at dh 256, forward and backward;
+    flash_attention_quant with bf16 q; the four decode wrappers for every
+    combination and over the int8 cache with bf16 q.  No model path of
+    the port feeds these instances (JAX's has none: a trunk cast to bf16
+    is refused by both); this is their path.  Each bf16 instance must
+    launch exactly as counted below; each output within one bf16 step
+    (plus BF16_F32_FLOOR) of the CPU's, each gradient within
+    MIXED_GRAD_TOL relative L2."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops.kernels import _check
+    from paddle_tpu_torch.ops.kernels import decode_attention as dk
+    from paddle_tpu_torch.ops.kernels import flash_attention as fk
+    from paddle_tpu_torch.quant.kv import quantize_heads
+    kernels.reset_launches()
+    want, errs = {}, {}
+
+    def expect(name, n=1):
+        want[name] = want.get(name, 0) + n
+
+    for combo in ATTN_COMBOS:
+        dts = attn_dtypes(torch, combo)
+        for dh in (64, 256):
+            vals = [normal(rng, (2, 2, 128, dh)) for _ in range(4)]
+
+            def call(device):
+                q, k, v = (torch.tensor(a, device=device).to(dt)
+                           .requires_grad_(True)
+                           for a, dt in zip(vals, dts))
+                o = attn.dot_product_attention(q, k, v, causal=True)
+                o.backward(torch.tensor(vals[3], device=device).to(dts[0]))
+                return o.detach().cpu(), [x.grad.cpu() for x in (q, k, v)]
+
+            o_c, g_c = call(dev)
+            o_w, g_w = call("cpu")
+            sfx = _check.operand_suffix(**{n: torch.empty(0, dtype=dt)
+                                           for n, dt in zip("qkv", dts)})
+            for name in (fk.NAME, fk.NAME_BWD_DQ, fk.NAME_BWD_DKV):
+                expect(f"{name}[{sfx}]")
+            what = f"attention_ops_bf16 flash {sfx} dh{dh}"
+            l2 = grad_rel_l2(g_c, g_w)
+            if not max(l2) <= MIXED_GRAD_TOL:
+                fail(f"{what}: gradients' relative L2 vs the CPU {l2} "
+                     f"(bound {MIXED_GRAD_TOL})")
+            errs[what] = {"o": low_compare(torch, what, o_c, o_w),
+                          "grad_rel_l2": l2}
+    b, t, h, dh = 2, 64, 4, 64
+    q = normal(rng, (b, t, h * dh))
+    k, v = (torch.tensor(normal(rng, (b, t, h * dh)), device=dev)
+            for _ in range(2))
+    (kc, ks), (vc, vs) = quantize_heads(k, h), quantize_heads(v, h)
+    outs = [fk.flash_attention_quant(torch.tensor(q, device=device).to(
+        torch.bfloat16), *(x.to(device) for x in (kc, vc, ks, vs)), h).cpu()
+        for device in (dev, "cpu")]
+    expect(f"{fk.NAME_QUANT}[qbf16]")
+    errs["attention_ops_bf16 flash_attention_quant"] = low_compare(
+        torch, "flash_attention_quant bf16 q", *outs)
+    # the decode wrappers
+    s, kk, tt, hh, dhh = 4, 4, 48, 4, 32
+    qpos_np = np.asarray([[9] * kk, list(range(kk)), [20, 21, 22, 23],
+                          [tt - 1] * kk], np.int32)
+    nb_row = tt // PAGE_BS
+    tables = torch.tensor(np.arange(s * nb_row, dtype=np.int32)[::-1]
+                          .reshape(s, nb_row).copy())
+    base = [normal(rng, shape) for shape in (
+        (s, kk, hh * dhh), (s, tt, hh * dhh), (s, tt, hh * dhh),
+        (s * nb_row, PAGE_BS, hh * dhh), (s * nb_row, PAGE_BS, hh * dhh))]
+    for combo in ATTN_COMBOS + (("bfloat16", "int8", "int8"),):
+        int8 = combo[1] == "int8"
+        dq = getattr(torch, combo[0])
+
+        def calls(device):
+            q = torch.tensor(base[0], device=device).to(dq)
+            qpos = torch.tensor(qpos_np, device=device)
+            tbl = tables.to(device)
+            if int8:
+                (k, ksc), (v, vsc) = (quantize_heads(torch.tensor(
+                    a, device=device), hh) for a in base[1:3])
+                (pk, pks), (pv, pvs) = (quantize_heads(torch.tensor(
+                    a, device=device), hh) for a in base[3:5])
+                kw, pw = dict(kscale=ksc, vscale=vsc), dict(kscale=pks,
+                                                            vscale=pvs)
+            else:
+                dkd, dvd = getattr(torch, combo[1]), getattr(torch, combo[2])
+                k, v, pk, pv = (torch.tensor(a, device=device).to(dt)
+                                for a, dt in zip(base[1:],
+                                                 (dkd, dvd, dkd, dvd)))
+                kw = pw = {}
+            q1, pos = q[:, 0].contiguous(), qpos[:, -1].contiguous()
+            return q, k, v, [
+                dk.decode_attention_slab_chunk(q, k, v, qpos, hh, **kw),
+                dk.decode_attention_slab(q1, k, v, pos, hh, **kw),
+                dk.decode_attention_paged_chunk(q, pk, pv, qpos, tbl, hh,
+                                                **pw),
+                dk.decode_attention_paged(q1, pk, pv, pos, tbl, hh, **pw)]
+
+        q, k, v, got = calls(dev)
+        _, _, _, ref = calls("cpu")
+        sfx = _check.operand_suffix(q=q, k=k, v=v)
+        names = ((dk.NAME_I8, dk.NAME_SLAB_I8, dk.NAME_PAGED_CHUNK_I8,
+                  dk.NAME_PAGED_I8) if int8 else
+                 (dk.NAME, dk.NAME_SLAB, dk.NAME_PAGED_CHUNK, dk.NAME_PAGED))
+        for name, g, r in zip(names, got, ref):
+            expect(f"{name}[{sfx}]")
+            errs[f"attention_ops_bf16 {name}[{sfx}]"] = low_compare(
+                torch, f"{name}[{sfx}]", g.cpu(), r)
+    torch.cuda.synchronize()
+    got = attn_low_launches(kernels)
+    if got != want:
+        fail(f"attention_ops_bf16: bf16 launches {got}, want {want}")
+    emit({"phase": "attention_ops_bf16",
+          "bound": {"outputs": "one bf16 step plus BF16_F32_FLOOR",
+                    "grad_rel_l2": MIXED_GRAD_TOL},
+          "launches": got, "checks": errs})
+    return got
+
+
+def run_train_dsl_f16(torch, dev, kernels, seed):
+    """text_rnn's cells under the float16 policy (SGD(compute_dtype=
+    torch.float16)): the first step of each F16_DSL cell on the card
+    against the plain CPU step from the same weights (its max-pool at the
+    card's argmax), the loss at TRAIN_REL_TOL, every gradient leaf at
+    F16_GRAD_TOL relative L2, the update lowering the batch's cost, the
+    (float32 xs, float16 W) instances launched twice each (two layers);
+    then each family fed by an embedding (the (float16 xs, float16 W)
+    instances), one step each."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_rnn
+    feeding = text_rnn.feeding()
+    names = {"lstm": [kernels.lstm.NAME_FWD, kernels.lstm.NAME_BWD],
+             "lstm_blocked": [kernels.lstm_blocked.NAME_FWD],
+             "gru": [kernels.gru.NAME_FWD, kernels.gru.NAME_BWD],
+             "rnn": [kernels.simple_rnn.NAME_FWD,
+                     kernels.simple_rnn.NAME_BWD]}
+
+    def family(cell, hidden, b=text_rnn.BATCH):
+        if cell == "lstm" and not kernels.lstm.supported(
+                b, hidden, "tanh", "sigmoid", "tanh", None):
+            return "lstm_blocked"
+        return cell
+
+    batch = text_rnn.samples(seed, text_rnn.BATCH)[:F16_CHECK_BATCH]
+    out, launches = {}, {}
+    for cell, hidden in F16_DSL:
+        what = f"train_dsl_f16 {cell} h{hidden}"
+
+        def step(device, record, argmax=None):
+            tr = dsl_trainer(torch, device, cell, hidden, torch.float16)
+            with pool_probe(torch, record, argmax):
+                total, _ = tr._forward(DataFeeder(feeding,
+                                                  device=tr.device)(batch))
+            tr._backward(total)
+            grads = [p.grad.detach().cpu() for p in tr._leaves]
+            tr._update()
+            return tr, float(total.detach()), grads
+
+        with f16_policy():
+            kernels.reset_launches()
+            rec_c, rec_w = [], []
+            card, loss_c, grads_c = step(dev, rec_c)
+            got = low_launches(kernels)
+            after = card.test(lambda: iter([batch]), feeding=feeding)
+            witness, loss_w, grads_w = step("cpu", rec_w,
+                                            [r["argmax"] for r in rec_c])
+        want = {f"{n}[xf32_wf16]": 2
+                for n in names[family(cell, hidden, len(batch))]}
+        if got != want:
+            fail(f"{what}: float16 launches {got}, want {want}")
+        loss_err = abs(loss_c - loss_w) / abs(loss_w)
+        l2 = grad_rel_l2(grads_c, grads_w)
+        if not loss_err <= TRAIN_REL_TOL or not max(l2) <= F16_GRAD_TOL \
+                or not after < loss_c:
+            fail(f"{what}: first float16 step on the card vs the CPU: loss "
+                 f"rel err {loss_err} (bound {TRAIN_REL_TOL}), gradients' "
+                 f"relative L2 {dict(zip(leaf_names(witness.parameters), l2))}"
+                 f" (bound {F16_GRAD_TOL}); the batch's cost {loss_c} before "
+                 f"the update, {after} after (must fall)")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        out[f"{cell}_h{hidden}"] = {
+            "rows": len(batch), "loss_rel_err": loss_err,
+            "grad_rel_l2_max": max(l2), "cost_before_after_update":
+                [loss_c, after], "launches": got,
+            "pool_argmax_flips_card_vs_witness": sum(
+                int((a["argmax"] != b["argmax"]).sum())
+                for a, b in zip(rec_c, rec_w))}
+        del card, witness
+    emb = {}
+    for cell, hidden in BF16_EMB_FED:
+        what = f"train_dsl_f16 embedding-fed {cell} h{hidden}"
+        want = {f"{n}[xf16_wf16]": 1 for n in names[family(cell, hidden)]}
+        ids = text_rnn.samples(seed, text_rnn.BATCH, vocab=BF16_EMB_VOCAB)
+        with f16_policy():
+            tr = dsl_trainer(torch, dev, cell, hidden, torch.float16,
+                             vocab=BF16_EMB_VOCAB, emb_fed=True)
+            _, losses, per_step = dsl_steps(torch, kernels, tr, ids, 1, what,
+                                            want, vocab=BF16_EMB_VOCAB)
+        del tr
+        for k in want:
+            launches[k] = launches.get(k, 0) + sum(n[k] for n in per_step)
+        emb[f"{cell}_h{hidden}"] = {"launches_per_step": want,
+                                    "losses": losses}
+    emit({"phase": "train_dsl_f16", "config": {
+        "model": "models/text_rnn (layer DSL)", "vocab": text_rnn.VOCAB,
+        "emb": text_rnn.EMB, "layers": text_rnn.LAYERS,
+        "first_step_rows": F16_CHECK_BATCH, "seq_len": text_rnn.SEQ_LEN,
+        "optimizer": "Momentum lr 0.01 m 0.9",
+        "compute_dtype": "float16 (SGD(compute_dtype=) + set_policy)",
+        "embedding_fed": {"vocab": BF16_EMB_VOCAB, "layers": 1, "steps": 1,
+                          "batch": text_rnn.BATCH}},
+        "bound": {"loss": TRAIN_REL_TOL, "grad_rel_l2": F16_GRAD_TOL},
+        "cells": out, "embedding_fed": emb, "launches": launches})
+    return launches
+
+
+def beam_agreement(what, ref, got, ref_trace, got_trace, n):
+    """Two beam searches of the same first ``n`` rows (BeamResults and
+    their per-step traces) held as BEAM_MARGIN says: per row, every step
+    before the first near-tie (either run's K-th / (K+1)-th candidate gap
+    below BEAM_MARGIN) must pick the same source lanes and tokens with
+    scores within BEAM_SCORE_RTOL; a row with no near-tie must end with
+    equal tokens, lengths and scores.  Returns the counts."""
+    gaps = [np.stack([step["gap"].cpu().numpy()[:n] for step in trace])
+            for trace in (ref_trace, got_trace)]
+    steps = gaps[0].shape[0]
+    near = (gaps[0] < BEAM_MARGIN) | (gaps[1] < BEAM_MARGIN)   # [T, n]
+    cut = np.where(near.any(0), near.argmax(0), steps)
+    worst, full = 0.0, 0
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
+
+    for r in range(n):
+        for t in range(int(cut[r])):
+            a, b = ref_trace[t], got_trace[t]
+            same = all(torch_equal(a[key][r], b[key][r])
+                       for key in ("src", "tok"))
+            err = rel(a["top"][r], b["top"][r])
+            worst = max(worst, err)
+            if not same or not err <= BEAM_SCORE_RTOL:
+                fail(f"{what}: row {r} step {t} (before its first near-tie "
+                     f"at step {int(cut[r])}): lanes and tokens equal "
+                     f"{same}, score rel err {err} (bound "
+                     f"{BEAM_SCORE_RTOL})")
+        if cut[r] == steps:
+            full += 1
+            same = (torch_equal(ref.tokens[r], got.tokens[r])
+                    and torch_equal(ref.lengths[r], got.lengths[r]))
+            err = rel(ref.scores[r], got.scores[r])
+            worst = max(worst, err)
+            if not same or not err <= BEAM_SCORE_RTOL:
+                fail(f"{what}: row {r} (no near-tie): final tokens and "
+                     f"lengths equal {same}, score rel err {err}")
+    return {"rows": n, "rows_without_near_tie": full,
+            "steps_compared": int(cut.sum()), "steps": steps * n,
+            "score_rel_err_max": worst, "margin": BEAM_MARGIN,
+            "score_rtol": BEAM_SCORE_RTOL}
+
+
+def beam_rescore(torch, res, logits_fn, bos_id, length_penalty):
+    """Each beam of ``res`` scored again by teacher forcing: the sum of its
+    tokens' log-probs (``logits_fn(prev ids [B*K, T]) -> [B*K, T, V]``)
+    up to and including its eos, length-normalized as beam_search
+    normalizes -> [B, K] on the logits' device."""
+    b, k, t = res.tokens.shape
+    toks = res.tokens.reshape(b * k, t).long()
+    prev = torch.cat([torch.full_like(toks[:, :1], bos_id), toks[:, :-1]],
+                     dim=1)
+    with torch.no_grad():
+        lp = torch.log_softmax(logits_fn(prev.int()), dim=-1)
+    toks = toks.to(lp.device)
+    lp = lp.gather(-1, toks[..., None])[..., 0]
+    lengths = res.lengths.to(lp.device)
+    keep = torch.arange(t, device=lp.device)[None] \
+        <= lengths.reshape(-1, 1).long()
+    score = (lp * keep).sum(1).reshape(b, k)
+    if length_penalty:
+        norm = ((5.0 + lengths.float()) / 6.0) ** length_penalty
+        score = score / torch.clamp(norm, min=1e-6)
+    return score
+
+
+def rescore_check(torch, what, res, rescored):
+    """``res``'s scores against their teacher-forced rescoring: relative
+    error, bounded by BEAM_SCORE_RTOL."""
+    a, b = res.scores.double().cpu(), rescored.double().cpu()
+    err = float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
+    if not err <= BEAM_SCORE_RTOL:
+        fail(f"{what}: beam scores vs their teacher-forced rescoring: rel "
+             f"err {err} (bound {BEAM_SCORE_RTOL})")
+    return err
+
+
+def torch_equal(a, b):
+    return bool((a.cpu() == b.cpu()).all())
+
+
+def run_generate_mt(torch, dev, kernels):
+    """generate_mt: bench_transformer_decode's KV-cached beam search on
+    the card (seed 0 weights), its flash launches exactly MTD_FLASH,
+    held against the full-recompute generate on the card (every row) and
+    against a CPU run of its first MTD_CPU_ROWS rows (beam_agreement),
+    its beams and the CPU run's re-scored by the full decode on the card
+    (beam_rescore); MTD_TIMED timed decodes: ms per batch, emitted
+    tokens/s, bit for bit on a repeat."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_map
+    mt = bench.bench_transformer_decode(device=dev)
+    kw, b = mt.kw, mt.src.data.shape[0]
+    vocab = mt.params["out"].shape[1]
+    kernels.reset_launches()
+    trace = []
+    t0 = time.perf_counter()
+    res = transformer.generate_cached(mt.params, mt.src, trace=trace, **kw)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(kernels)
+    others = recurrent_launches(kernels)
+    if launches["flash_attention"] != MTD_FLASH or others \
+            or sum(launches.values()) != MTD_FLASH:
+        fail(f"generate_mt: kernel launches {launches} (recurrent {others}),"
+             f" want the flash forward {MTD_FLASH} times and no other")
+    tokens = res.tokens
+    if not bool(torch.isfinite(res.scores).all()) \
+            or tuple(tokens.shape) != (b, kw["beam_size"], kw["max_len"]) \
+            or not bool(((tokens >= 0) & (tokens < vocab)).all()):
+        fail(f"generate_mt: tokens {tuple(tokens.shape)} out of range or "
+             f"scores not finite")
+    times = []
+    for _ in range(MTD_TIMED):
+        t0 = time.perf_counter()
+        again = mt.run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(again.tokens, res.tokens) \
+            or not torch.equal(again.scores, res.scores):
+        fail("generate_mt: a second decode of the same batch differs")
+    oracle_trace = []
+    t0 = time.perf_counter()
+    oracle = transformer.generate(mt.params, mt.src, trace=oracle_trace,
+                                  **kw)
+    torch.cuda.synchronize()
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    vs_oracle = beam_agreement("generate_mt vs generate", oracle, res,
+                               oracle_trace, trace, b)
+    params_cpu = tree_map(lambda p: p.detach().cpu(), mt.params)
+    rows = list(range(MTD_CPU_ROWS))
+    src_cpu = SequenceBatch(mt.src.data[rows].cpu(),
+                            mt.src.lengths[rows].cpu())
+    cpu_trace = []
+    t0 = time.perf_counter()
+    cpu = transformer.generate_cached(params_cpu, src_cpu, trace=cpu_trace,
+                                      **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    vs_cpu = beam_agreement("generate_mt card vs CPU", cpu, res, cpu_trace,
+                            trace, MTD_CPU_ROWS)
+    # the beams re-scored on the card by the full decode, teacher-forced:
+    # the card's own, and the CPU run's (the card's numerics along the
+    # CPU's paths, where near-ties let the two searches part)
+    k, t = kw["beam_size"], kw["max_len"]
+
+    def mt_logits(src):
+        def fn(prev):
+            with torch.no_grad():
+                enc = transformer.encode(mt.params, src, kw["num_heads"])
+                return transformer.decode(
+                    mt.params, enc.repeat_interleave(k, dim=0),
+                    src.mask().repeat_interleave(k, dim=0),
+                    SequenceBatch(prev.to(dev), torch.full(
+                        (prev.shape[0],), t, dtype=torch.int32, device=dev)),
+                    kw["num_heads"])
+        return fn
+
+    rows_src = SequenceBatch(mt.src.data[rows], mt.src.lengths[rows])
+    rescored = {
+        "card_beams_on_card": rescore_check(
+            torch, "generate_mt", res, beam_rescore(
+                torch, res, mt_logits(mt.src), 0, MTD_LENGTH_PENALTY)),
+        "cpu_beams_on_card": rescore_check(
+            torch, "generate_mt (the CPU's beams)", cpu, beam_rescore(
+                torch, cpu, mt_logits(rows_src), 0, MTD_LENGTH_PENALTY))}
+    ms = float(np.median(times))
+    emit({"phase": "generate_mt", "config": {
+        "model": "Transformer-base MT (bench_transformer_decode)",
+        "vocab": 32000, "d_model": 512, "heads": 8, "dff": 2048,
+        "layers": "6+6", "batch": 32, "src_len": 128, "max_len": 128,
+        "beam": 4, "length_penalty": 0.6, "weights": "seed 0"},
+        "first_ms": first_ms, "ms_per_batch": ms,
+        "ms_per_batch_all": times, "ms_per_step": ms / kw["max_len"],
+        "tokens_per_s": mt.tokens_per_run / (ms / 1e3),
+        "tflop_per_s": mt.flops_per_run / (ms / 1e3) / 1e12,
+        "launches": launches, "repeat": "bit for bit",
+        "oracle_generate_ms": oracle_ms, "vs_generate": vs_oracle,
+        "cpu_rows_ms": cpu_ms, "vs_cpu": vs_cpu,
+        "rescored_score_rel_err": rescored, "score_rtol": BEAM_SCORE_RTOL,
+        "mean_best_score": float(res.scores[:, 0].mean())})
+    return {"flash_attention": launches["flash_attention"]}
+
+
+def run_generate_seq2seq(torch, dev, kernels):
+    """generate_seq2seq: seq2seq.generate (beam S2G_BEAM, S2G_MAX_LEN
+    steps) at bench_seq2seq's widths on its seed-0 weights and sources,
+    the GRU forward launched S2S_DIRECTIONS times (the lean forward, one
+    a direction) and nothing else, held against a CPU run of the first
+    MTD_CPU_ROWS rows (beam_agreement), its beams and the CPU run's
+    re-scored by the teacher-forced forward on the card (beam_rescore)."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.models import seq2seq
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_map
+    s2s = bench.bench_seq2seq(device=dev)
+    gk = kernels.gru
+    kw = dict(beam_size=S2G_BEAM, max_len=S2G_MAX_LEN)
+    seq2seq.generate(s2s.params, s2s.src, **kw)     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    trace = []
+    t0 = time.perf_counter()
+    res = seq2seq.generate(s2s.params, s2s.src, trace=trace, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {gk.NAME_FWD: gk.launches_fwd, gk.NAME_BWD: gk.launches_bwd}
+    if launches != {gk.NAME_FWD: S2S_DIRECTIONS, gk.NAME_BWD: 0} \
+            or recurrent_launches(kernels) != S2S_DIRECTIONS \
+            or sum(launch_counts(kernels).values()):
+        fail(f"generate_seq2seq: GRU launches {launches} (recurrent "
+             f"{recurrent_launches(kernels)}, attention "
+             f"{launch_counts(kernels)}), want the lean forward "
+             f"{S2S_DIRECTIONS} times and nothing else")
+    if tuple(res.tokens.shape) != (S2S_BATCH, S2G_BEAM, S2G_MAX_LEN) \
+            or not bool(torch.isfinite(res.scores).all()):
+        fail(f"generate_seq2seq: tokens {tuple(res.tokens.shape)}, scores "
+             f"finite {bool(torch.isfinite(res.scores).all())}")
+    rows = list(range(MTD_CPU_ROWS))
+    params_cpu = tree_map(lambda p: p.detach().cpu(), s2s.params)
+    src_cpu = SequenceBatch(s2s.src.data[rows].cpu(),
+                            s2s.src.lengths[rows].cpu())
+    cpu_trace = []
+    cpu = seq2seq.generate(params_cpu, src_cpu, trace=cpu_trace, **kw)
+    vs_cpu = beam_agreement("generate_seq2seq card vs CPU", cpu, res,
+                            cpu_trace, trace, MTD_CPU_ROWS)
+
+    def s2s_logits(src):
+        def fn(prev):
+            with torch.no_grad():
+                tile = lambda x: x.repeat_interleave(S2G_BEAM, dim=0)
+                return seq2seq.forward(
+                    s2s.params, SequenceBatch(tile(src.data),
+                                              tile(src.lengths)),
+                    SequenceBatch(prev.to(dev), torch.full(
+                        (prev.shape[0],), S2G_MAX_LEN, dtype=torch.int32,
+                        device=dev)))
+        return fn
+
+    rows_src = SequenceBatch(s2s.src.data[rows], s2s.src.lengths[rows])
+    rescored = {
+        "card_beams_on_card": rescore_check(
+            torch, "generate_seq2seq", res, beam_rescore(
+                torch, res, s2s_logits(s2s.src), 0, 0.0)),
+        "cpu_beams_on_card": rescore_check(
+            torch, "generate_seq2seq (the CPU's beams)", cpu, beam_rescore(
+                torch, cpu, s2s_logits(rows_src), 0, 0.0))}
+    emit({"phase": "generate_seq2seq", "config": {
+        "model": "attention NMT (bench_seq2seq)", "vocab": S2S_VOCAB,
+        "emb": S2S_HIDDEN, "hidden": S2S_HIDDEN, "batch": S2S_BATCH,
+        "src_len": S2S_LEN, "beam": S2G_BEAM, "max_len": S2G_MAX_LEN,
+        "length_penalty": 0.0, "weights": "seed 0"},
+        "ms_per_batch": ms, "ms_per_step": ms / S2G_MAX_LEN,
+        "tokens_per_s": S2S_BATCH * S2G_MAX_LEN / (ms / 1e3),
+        "launches": launches, "vs_cpu": vs_cpu,
+        "rescored_score_rel_err": rescored, "score_rtol": BEAM_SCORE_RTOL,
+        "mean_best_score": float(res.scores[:, 0].mean())})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5233,10 +6078,16 @@ def main(argv=None):
     blk_timed, blk_other, blk_probe = check_blocked_kernel(torch, dev, rng)
     (rnn_fwd, rnn_bwd), rnn_other = check_rnn_kernels(torch, dev, rng,
                                                       rnn_libs)
-    # the bf16 instances, on their own draws (the phases above and below
-    # keep theirs)
-    bf16_rows = check_bf16_instances(torch, dev,
-                                     np.random.RandomState(args.seed + 18))
+    # the bf16 and float16 instances, on their own draws (the phases
+    # above and below keep theirs)
+    bf16_rows = check_low_instances(torch, dev,
+                                    np.random.RandomState(args.seed + 18),
+                                    BF16_PAIRS)
+    f16_rows = check_low_instances(torch, dev,
+                                   np.random.RandomState(args.seed + 20),
+                                   F16_PAIRS)
+    attn_rows = check_attention_bf16(torch, dev,
+                                     np.random.RandomState(args.seed + 21))
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "lstm_blocked_3xtf32_tolerance": BLK_TC_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
@@ -5276,7 +6127,8 @@ def main(argv=None):
           "simple_rnn_3xtf32_control": check_rnn_tf32_control(
               torch, dev, rnn_libs),
           "simple_rnn_routes": check_rnn_routes(torch, dev, rng, kernels),
-          "bf16_f32_floor": BF16_F32_FLOOR, "bf16_instances": bf16_rows})
+          "bf16_f32_floor": BF16_F32_FLOOR, "bf16_instances": bf16_rows,
+          "rnn_f16": f16_rows, "attention_bf16": attn_rows})
 
     emit(check_flash_padded(torch, dev, rng, kernels))
 
@@ -5332,10 +6184,21 @@ def main(argv=None):
     bf16_runs = {
         "train_rnn_bf16": run_train_rnn_bf16(torch, dev, kernels, args.seed),
         "train_dsl_bf16": run_train_dsl_bf16(torch, dev, kernels, args.seed),
-        "rnn_ops_bf16": run_rnn_ops_bf16(
-            torch, dev, kernels, np.random.RandomState(args.seed + 19))}
+        "rnn_ops_bf16": run_rnn_ops_low(
+            torch, dev, kernels, np.random.RandomState(args.seed + 19),
+            (("bfloat16", "float32"),), "rnn_ops_bf16")}
     run_train_transformer_bf16(torch, dev, kernels,
                                F32_MS["train_transformer"])
+    f16_runs = {
+        "train_dsl_f16": run_train_dsl_f16(torch, dev, kernels, args.seed),
+        # the pairs no float16 policy feeds: direct calls
+        "rnn_ops_f16": run_rnn_ops_low(
+            torch, dev, kernels, np.random.RandomState(args.seed + 22),
+            F16_PAIRS[2:], "rnn_ops_f16", steps=F16_OPS_T)}
+    attn_launches = run_attention_ops_bf16(
+        torch, dev, kernels, np.random.RandomState(args.seed + 23))
+    mt_decode_launches = run_generate_mt(torch, dev, kernels)
+    s2g_launches = run_generate_seq2seq(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -5351,6 +6214,10 @@ def main(argv=None):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{key: row[key] for key in DEVICE_KEYS if key in row}})
     summary[-1]["launches_dh256"] = wide_launches["float32"]["flash_attention"]
+    # the MT beam decode's encoder attends under its key mask: the dense
+    # path, as JAX's (MTD_FLASH launches)
+    summary[-1]["launches_generate_mt"] = mt_decode_launches[
+        "flash_attention"]
     # the forward on the train path: its launches in train_transformer
     # and its non-causal time at the train shape beside the prefill row
     train_fwd = flash_train[False]
@@ -5434,9 +6301,10 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": kernels.gru.SOURCE,
             "replaces": replaces,
             "launches": s2s_launches["train"][name]
-            + s2s_launches["generate"][name],
-            "launches_by_path": {path: n[name]
-                                 for path, n in s2s_launches.items()},
+            + s2s_launches["generate"][name] + s2g_launches[name],
+            "launches_by_path": {
+                **{path: n[name] for path, n in s2s_launches.items()},
+                "generate_seq2seq": s2g_launches[name]},
             "max_abs_err": max([row["max_abs_err"]]
                                + [r["max_abs_err"] for r in gru_other
                                   if r["name"] == name]),
@@ -5549,24 +6417,29 @@ def main(argv=None):
             row["launches_train_variants"] = {
                 phase: got[row["name"]]
                 for phase, got in lm_train_launches.items()}
-    # the bf16 instances of the recurrent kernels, launched by the bf16
-    # train phases
-    for row in bf16_rows:
-        by_path = {phase: n[row["name"]] for phase, n in bf16_runs.items()
-                   if row["name"] in n}
-        summary.append({
-            **{key: row[key] for key in (
-                "name", "route", "source", "replaces", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_note", "shape")},
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "bf16_outputs_differ_share": {
-                o: e["differ_share"] for o, e in row["outputs"].items()
-                if "differ_share" in e},
-            "bound_bf16_tensor_core_ms": row["bound_bf16_tensor_core_ms"]})
-        if not summary[-1]["launches"]:
-            fail(f"{row['name']}: the bf16 train phases never launched it")
+    # the bf16 and float16 instances of the recurrent kernels, launched
+    # by the bf16 and float16 train and ops phases; the bf16 instances of
+    # the attention kernels, by attention_ops_bf16
+    for rows, runs in ((bf16_rows, bf16_runs), (f16_rows, f16_runs),
+                       (attn_rows, {"attention_ops_bf16": attn_launches})):
+        for row in rows:
+            by_path = {phase: n[row["name"]] for phase, n in runs.items()
+                       if row["name"] in n}
+            summary.append({
+                **{key: row[key] for key in (
+                    "name", "route", "source", "replaces", "max_abs_err",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "shape") + tuple(k for k in (
+                        "library_note", "f32_instance_ms", "wide", "dh256")
+                        if k in row)},
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "low_outputs_differ_share": {
+                    o: e["differ_share"] for o, e in row["outputs"].items()
+                    if "differ_share" in e},
+                "bound_bf16_tensor_core_ms": row["bound_bf16_tensor_core_ms"]})
+            if not summary[-1]["launches"]:
+                fail(f"{row['name']}: its phases never launched it")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -84,6 +84,19 @@
 //   kernels' (the probe timed 64 columns faster at T 256, slower at
 //   T 2048).
 //
+// Element types (JAX's kernels widen every operand on load,
+//   decode_attention.py:294-296, 342-343, and write out in q's dtype,
+//   :456, 532, 607, 677): q and out, k and v are each float32 or bf16, as
+//   the bits of a launch's dts say (kQ: q and out; kK: k; kV: v; int8
+//   K/V are the kInt8 instances').  A bf16 operand is read value by value
+//   and widened into the same float32 shared-memory rows the float32
+//   copies fill (no cp.async: it cannot widen), so the scores, softmax,
+//   P.V and merge are the float32 kernel's; out is rounded once to bf16.
+//   The flags are read at run time in every instance, beside the
+//   dh-dependent copy choices already there: a bf16 operand adds no
+//   instance (each width, layout and vector count is already one), and
+//   float32 operands take the copies they took before.
+//
 // Head dims: the template's DH is a compiled width (16, 32, 64, 128,
 //   256, 384, 512) and dh the head's own, any up to 128 or a multiple of
 //   128 up to 512 (the TPU kernel's lane-tileable widths).  A head
@@ -92,6 +105,7 @@
 //   exactly 0 to every score and are never written out.  A head of a
 //   compiled width runs the instance with dh = DH folded in.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,6 +115,9 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+// the bits of a launch's dts: bf16 q (and out), k, v
+constexpr int kQ = 1, kK = 2, kV = 4;
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -210,13 +227,13 @@ __device__ __forceinline__ float4 load4(const unsigned char* row, int ch,
 // query vectors a CTA (kVecs, or 1 where a row has one a KV head).
 template <int DH, bool kPaged, bool kInt8, bool kPad, int V>
 __global__ void __launch_bounds__(kThreads)
-split_kernel(const float* __restrict__ q, const void* __restrict__ k,
+split_kernel(const void* __restrict__ q, const void* __restrict__ k,
              const void* __restrict__ v, const float* __restrict__ kscale,
              const float* __restrict__ vscale, const int* __restrict__ qpos,
-             const int* __restrict__ tables, float* __restrict__ out,
+             const int* __restrict__ tables, void* __restrict__ out,
              float* __restrict__ part, int* __restrict__ tickets, int K,
              int span, int bs, int nb_row, int H, int Hkv, int dh_in,
-             float scale) {
+             float scale, int dts) {
   constexpr int L = kSplit<DH>;                // columns a split
   constexpr int kRow = kRowBytes<DH, kInt8>;
   constexpr int kVal = kInt8 ? 1 : 4;          // bytes a K/V value
@@ -306,10 +323,19 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k,
 
   // group 0: q, the K tile and the scales; group 1: the V tile
   // float32: 16-byte copies where dh % 4 == 0, else one value a copy;
-  // int8 codes: 4-byte copies where dh % 4 == 0, else one a load
+  // int8 codes: 4-byte copies where dh % 4 == 0, else one a load; bf16:
+  // one value a load, widened and stored
   const bool vec = !kInt8 && dh % 4 == 0;
   const bool quad = dh * kVal % 4 == 0;
-  {
+  if (dts & kQ) {
+    for (int e = tid; e < nv * dh; e += kThreads) {
+      const int vv = e / dh, x = e % dh;
+      const int jq = z * V + s_slot[vv];
+      const int h = g * group + jq % group;
+      qs[vv * DH + x] = __bfloat162float(static_cast<const bf16*>(
+          q)[((size_t)r * K + jq / group) * D + (size_t)h * dh + x]);
+    }
+  } else {
     const int n4 = dh / 4;
     for (int e = tid; e < nv * (dh % 4 == 0 ? n4 : dh); e += kThreads) {
       const int w = dh % 4 == 0 ? n4 : dh;
@@ -318,16 +344,24 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k,
       const int jq = z * V + u;
       const int i = jq / group;
       const int h = g * group + jq % group;
-      const float* qrow = q + ((size_t)r * K + i) * D + (size_t)h * dh;
+      const float* qrow =
+          static_cast<const float*>(q) + ((size_t)r * K + i) * D + (size_t)h * dh;
       if (dh % 4 == 0)
         cp_async16(qs + vv * DH + 4 * (e % w), qrow + 4 * (e % w));
       else
         cp_async4(qs + vv * DH + e % w, qrow + e % w);
     }
   }
-  auto copy_tile = [&](unsigned char* dst, const void* src) {
+  auto copy_tile = [&](unsigned char* dst, const void* src, bool bf) {
     const unsigned char* base = static_cast<const unsigned char*>(src);
-    if (vec) {
+    if (!kInt8 && bf) {
+      for (int e = tid; e < nin * dh; e += kThreads) {
+        const int c = e / dh, x = e % dh;
+        reinterpret_cast<float*>(dst + c * kRow)[x] = __bfloat162float(
+            static_cast<const bf16*>(src)[(size_t)srow[c] * Dkv +
+                                          (size_t)g * dh + x]);
+      }
+    } else if (vec) {
       const int n = dh * kVal / 16;
       for (int e = tid; e < nin * n; e += kThreads) {
         const int c = e / n, b = 16 * (e % n);
@@ -350,7 +384,7 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k,
       }
     }
   };
-  copy_tile(kt, k);
+  copy_tile(kt, k, dts & kK);
   if constexpr (kInt8) {
     if (tid < nin) {
       cp_async4(ksc + tid, kscale + (size_t)srow[tid] * Hkv + g);
@@ -358,7 +392,7 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k,
     }
   }
   cp_async_commit();
-  copy_tile(vt, v);
+  copy_tile(vt, v, dts & kV);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -484,7 +518,11 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k,
     const int jq = z * V + u;
     const int i = jq / group;
     const int h = g * group + jq % group;
-    out[((size_t)r * K + i) * D + (size_t)h * dh + d] = val;
+    const size_t at = ((size_t)r * K + i) * D + (size_t)h * dh + d;
+    if (dts & kQ)
+      static_cast<bf16*>(out)[at] = __float2bfloat16_rn(val);
+    else
+      static_cast<float*>(out)[at] = val;
   };
   if (nsplit == 1) {
     // the one split: finalize here (every vector of the group is in
@@ -564,12 +602,12 @@ split_kernel(const float* __restrict__ q, const void* __restrict__ k,
 // already set, as cudaFuncSetAttribute costs microseconds of host time a
 // launch.
 template <int DH, bool kPaged, bool kInt8, bool kPad, int V>
-cudaError_t start_split(dim3 grid, cudaStream_t st, const float* q,
+cudaError_t start_split(dim3 grid, cudaStream_t st, const void* q,
                         const void* k, const void* v, const float* kscale,
                         const float* vscale, const int* qpos,
-                        const int* tables, float* out, float* part,
+                        const int* tables, void* out, float* part,
                         int* tickets, int K, int span, int bs, int nb_row,
-                        int H, int Hkv, int dh, float scale) {
+                        int H, int Hkv, int dh, float scale, int dts) {
   constexpr size_t smem = split_smem_bytes<DH, kInt8, V>();
   if constexpr (smem > 48 * 1024) {
     static std::atomic<unsigned> raised{0u};
@@ -587,7 +625,7 @@ cudaError_t start_split(dim3 grid, cudaStream_t st, const float* q,
   }
   split_kernel<DH, kPaged, kInt8, kPad, V><<<grid, kThreads, smem, st>>>(
       q, k, v, kscale, vscale, qpos, tables, out, part, tickets, K, span, bs,
-      nb_row, H, Hkv, dh, scale);
+      nb_row, H, Hkv, dh, scale, dts);
   return cudaSuccess;
 }
 
@@ -604,11 +642,11 @@ inline int vec_groups(int K, int H, int Hkv) {
 }
 
 template <bool kPaged, bool kInt8, int V>
-int launch_split(const float* q, const void* k, const void* v,
+int launch_split(const void* q, const void* k, const void* v,
                  const float* kscale, const float* vscale, const int* qpos,
-                 const int* tables, float* out, float* part, int* tickets,
+                 const int* tables, void* out, float* part, int* tickets,
                  int S, int K, int span, int bs, int nb_row, int H, int Hkv,
-                 int dh, float scale, void* stream) {
+                 int dh, float scale, int dts, void* stream) {
   const int width = compiled_width(dh);
   if (width == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int nsplit = (span + split_cols(width) - 1) / split_cols(width);
@@ -622,7 +660,7 @@ int launch_split(const float* q, const void* k, const void* v,
 #define PT_START(W, P)                                                      \
   e = start_split<W, kPaged, kInt8, P, V>(                                  \
       grid, st, q, k, v, kscale, vscale, qpos, tables, out, part, tickets,  \
-      K, span, bs, nb_row, H, Hkv, dh, scale)
+      K, span, bs, nb_row, H, Hkv, dh, scale, dts)
 #define PT_WIDTH(W)           \
   if (dh == W)                \
     PT_START(W, false);       \
@@ -645,20 +683,20 @@ int launch_split(const float* q, const void* k, const void* v,
 
 // Every entry's launch: the instance of vecs_a_cta query vectors a CTA
 template <bool kPaged, bool kInt8>
-int launch(const float* q, const void* k, const void* v, const float* kscale,
+int launch(const void* q, const void* k, const void* v, const float* kscale,
            const float* vscale, const int* qpos, const int* tables,
-           float* out, float* part, int* tickets, int S, int K, int span,
-           int bs, int nb_row, int H, int Hkv, int dh, float scale,
+           void* out, float* part, int* tickets, int S, int K, int span,
+           int bs, int nb_row, int H, int Hkv, int dh, float scale, int dts,
            void* stream) {
   if (vecs_a_cta(K, H, Hkv) == 1)
     return launch_split<kPaged, kInt8, 1>(q, k, v, kscale, vscale, qpos,
                                           tables, out, part, tickets, S, K,
                                           span, bs, nb_row, H, Hkv, dh,
-                                          scale, stream);
+                                          scale, dts, stream);
   return launch_split<kPaged, kInt8, kVecs>(q, k, v, kscale, vscale, qpos,
                                             tables, out, part, tickets, S, K,
                                             span, bs, nb_row, H, Hkv, dh,
-                                            scale, stream);
+                                            scale, dts, stream);
 }
 
 }  // namespace
@@ -691,83 +729,87 @@ extern "C" long long decode_attention_chunk_tickets(int S, int K, int H,
   return static_cast<long long>(S) * vec_groups(K, H, Hkv) * Hkv;
 }
 
-// q [S, K, D], k/v [S, T, Dkv], qpos [S, K] -> out [S, K, D]
+// q [S, K, D], k/v [S, T, Dkv], qpos [S, K] -> out [S, K, D]; q/out, k
+// and v float32 or bf16 as dts says
 extern "C" int decode_attention_slab_chunk_f32(
-    const float* q, const float* k, const float* v, const int* qpos,
-    float* out, float* part, int* tickets, int S, int K, int T, int H,
-    int Hkv, int dh, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const int* qpos, void* out,
+    float* part, int* tickets, int S, int K, int T, int H, int Hkv, int dh,
+    int dts, float scale, void* stream) {
   return launch<false, false>(
       q, k, v, nullptr, nullptr, qpos, nullptr, out, part, tickets, S, K, T,
-      1, 1, H, Hkv, dh, scale, stream);
+      1, 1, H, Hkv, dh, scale, dts, stream);
 }
 
+// the int8 cache; q/out float32 or bf16 as dts says
 extern "C" int decode_attention_slab_chunk_i8(
-    const float* q, const int8_t* k, const int8_t* v, const float* ks,
-    const float* vs, const int* qpos, float* out, float* part, int* tickets,
-    int S, int K, int T, int H, int Hkv, int dh, float scale, void* stream) {
+    const void* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* qpos, void* out, float* part, int* tickets,
+    int S, int K, int T, int H, int Hkv, int dh, int dts, float scale,
+    void* stream) {
   return launch<false, true>(
       q, k, v, ks, vs, qpos, nullptr, out, part, tickets, S, K, T, 1, 1, H,
-      Hkv, dh, scale, stream);
+      Hkv, dh, scale, dts, stream);
 }
 
 // q [S, D], k/v [S, T, Dkv], positions [S] -> out [S, D]
 extern "C" int decode_attention_slab_f32(
-    const float* q, const float* k, const float* v, const int* positions,
-    float* out, float* part, int* tickets, int S, int T, int H, int Hkv,
-    int dh, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const int* positions,
+    void* out, float* part, int* tickets, int S, int T, int H, int Hkv,
+    int dh, int dts, float scale, void* stream) {
   return launch<false, false>(q, k, v, nullptr, nullptr, positions, nullptr,
                               out, part, tickets, S, 1, T, 1, 1, H, Hkv, dh,
-                              scale, stream);
+                              scale, dts, stream);
 }
 
 extern "C" int decode_attention_slab_i8(
-    const float* q, const int8_t* k, const int8_t* v, const float* ks,
-    const float* vs, const int* positions, float* out, float* part,
-    int* tickets, int S, int T, int H, int Hkv, int dh, float scale,
+    const void* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* positions, void* out, float* part,
+    int* tickets, int S, int T, int H, int Hkv, int dh, int dts, float scale,
     void* stream) {
   return launch<false, true>(q, k, v, ks, vs, positions, nullptr, out, part,
-                             tickets, S, 1, T, 1, 1, H, Hkv, dh, scale,
+                             tickets, S, 1, T, 1, 1, H, Hkv, dh, scale, dts,
                              stream);
 }
 
 // q [S, K, D], pool k/v [NB, bs, Dkv], qpos [S, K], tables [S, nb_row]
 // -> out [S, K, D]
 extern "C" int decode_attention_paged_chunk_f32(
-    const float* q, const float* k, const float* v, const int* qpos,
-    const int* tables, float* out, float* part, int* tickets, int S, int K,
-    int bs, int nb_row, int H, int Hkv, int dh, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const int* qpos,
+    const int* tables, void* out, float* part, int* tickets, int S, int K,
+    int bs, int nb_row, int H, int Hkv, int dh, int dts, float scale,
+    void* stream) {
   return launch<true, false>(
       q, k, v, nullptr, nullptr, qpos, tables, out, part, tickets, S, K,
-      nb_row * bs, bs, nb_row, H, Hkv, dh, scale, stream);
+      nb_row * bs, bs, nb_row, H, Hkv, dh, scale, dts, stream);
 }
 
 extern "C" int decode_attention_paged_chunk_i8(
-    const float* q, const int8_t* k, const int8_t* v, const float* ks,
-    const float* vs, const int* qpos, const int* tables, float* out,
+    const void* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* qpos, const int* tables, void* out,
     float* part, int* tickets, int S, int K, int bs, int nb_row, int H,
-    int Hkv, int dh, float scale, void* stream) {
+    int Hkv, int dh, int dts, float scale, void* stream) {
   return launch<true, true>(
       q, k, v, ks, vs, qpos, tables, out, part, tickets, S, K, nb_row * bs,
-      bs, nb_row, H, Hkv, dh, scale, stream);
+      bs, nb_row, H, Hkv, dh, scale, dts, stream);
 }
 
 // q [S, D], pool k/v [NB, bs, Dkv], positions [S], tables [S, nb_row]
 // -> out [S, D]
 extern "C" int decode_attention_paged_f32(
-    const float* q, const float* k, const float* v, const int* positions,
-    const int* tables, float* out, float* part, int* tickets, int S, int bs,
-    int nb_row, int H, int Hkv, int dh, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const int* positions,
+    const int* tables, void* out, float* part, int* tickets, int S, int bs,
+    int nb_row, int H, int Hkv, int dh, int dts, float scale, void* stream) {
   return launch<true, false>(q, k, v, nullptr, nullptr, positions, tables,
                              out, part, tickets, S, 1, nb_row * bs, bs,
-                             nb_row, H, Hkv, dh, scale, stream);
+                             nb_row, H, Hkv, dh, scale, dts, stream);
 }
 
 extern "C" int decode_attention_paged_i8(
-    const float* q, const int8_t* k, const int8_t* v, const float* ks,
-    const float* vs, const int* positions, const int* tables, float* out,
+    const void* q, const int8_t* k, const int8_t* v, const float* ks,
+    const float* vs, const int* positions, const int* tables, void* out,
     float* part, int* tickets, int S, int bs, int nb_row, int H, int Hkv,
-    int dh, float scale, void* stream) {
+    int dh, int dts, float scale, void* stream) {
   return launch<true, true>(q, k, v, ks, vs, positions, tables, out, part,
                             tickets, S, 1, nb_row * bs, bs, nb_row, H, Hkv,
-                            dh, scale, stream);
+                            dh, scale, dts, stream);
 }

@@ -1,6 +1,7 @@
 // Flash attention for Hopper (sm_90a): the forward over float32 K/V or
 // over an int8 KV cache with per-(position, KV head) scales, and the
-// float32 backward (dK/dV and dQ).
+// backward (dK/dV and dQ); float32 operands, or bf16 ones in each
+// kernel's kLow instance.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py ::
 //   flash_attention forward (pallas_call at :144 in _fwd; body _fwd_kernel
@@ -111,6 +112,19 @@
 //   A q row past Tq gets p = 0 and is not written; a K column past Tk
 //   is masked.
 //
+// Element types (JAX's kernels widen every operand on load,
+//   flash_attention.py:109-111, and store o, dq, dk and dv in their
+//   operand's dtype): each kernel also has a kLow instance, whose q (with
+//   o, dO and dq), k (with dk) and v (with dv) are each float32 or bf16
+//   as the launch's dts bits say (its C entries are the _bf16 ones).  A
+//   bf16 operand is widened to float32 as it is loaded: its K/V, q and dO
+//   tiles 4 values a thread through registers into the same float32
+//   shared-memory tiles cp.async fills for float32 (the int8 instance's
+//   route), its fragments and o rows value by value.  The products, the
+//   softmax, lse and delta are the float32 instance's, and each output is
+//   rounded once to its dtype.  The float32 and int8 instances (kLow =
+//   false) compile as they did and ignore dts.
+//
 // Head dims: the kernels above are compiled at dh 16, 32, 64 and 128 (the
 //   wrappers zero-pad any other dh up to 128 to the next); dh 256, 384 and
 //   512 run the _wide kernels below (the same three contracts, the
@@ -118,6 +132,7 @@
 //   the CTA's warps and sum the score tiles' partials through shared
 //   memory in warp order (their section says why and how).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -208,6 +223,79 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ------------------------------------------------------ operand types
+
+// The bits of a launch's `dts`: which operands are bf16 (q with o, dO
+// and dq; k with dk; v with dv).  Only a kLow instance reads them; every
+// other instance reads and writes float32 (or int8 K/V) and ignores dts.
+constexpr int kQ = 1, kK = 2, kV = 4;
+using bf16 = __nv_bfloat16;
+
+// A read-only operand as the kernels index it: float32, or bf16 in a
+// kLow instance whose flag says so (widened on load).  For kLow = false
+// it is the float pointer itself.
+template <bool kLow>
+struct In {
+  const void* p;
+  bool bf;
+  __device__ __forceinline__ float operator[](size_t i) const {
+    if constexpr (kLow)
+      if (bf) return __bfloat162float(static_cast<const bf16*>(p)[i]);
+    return static_cast<const float*>(p)[i];
+  }
+  __device__ __forceinline__ In operator+(size_t i) const {
+    if constexpr (kLow)
+      if (bf) return {static_cast<const bf16*>(p) + i, bf};
+    return {static_cast<const float*>(p) + i, bf};
+  }
+  // 4 values at i (16-byte aligned as float32, 8 as bf16)
+  __device__ __forceinline__ float4 ld4(size_t i) const {
+    if constexpr (kLow)
+      if (bf) {
+        const uint2 u =
+            *reinterpret_cast<const uint2*>(static_cast<const bf16*>(p) + i);
+        const float2 a =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 b =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        return make_float4(a.x, a.y, b.x, b.y);
+      }
+    return *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+  }
+};
+
+// An output operand: float32, or bf16 (each value rounded once to
+// nearest even) in a kLow instance whose flag says so.
+template <bool kLow>
+struct Out {
+  void* p;
+  bool bf;
+  // 2 adjacent values at i (8-byte aligned as float32)
+  __device__ __forceinline__ void st2(size_t i, float a, float b) const {
+    if constexpr (kLow)
+      if (bf) {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p) + i) =
+            __floats2bfloat162_rn(a, b);
+        return;
+      }
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
+  }
+};
+
+// 4 values of src (zero where !in) into dst (16-byte aligned shared
+// floats): float32 through cp.async, bf16 loaded, widened and stored
+// (visible, as cp.async's copy is, after the consumer's __syncthreads)
+template <bool kLow>
+__device__ __forceinline__ void stage4(float* dst, In<kLow> src, bool in) {
+  if constexpr (kLow)
+    if (src.bf) {
+      *reinterpret_cast<float4*>(dst) =
+          in ? src.ld4(0) : make_float4(0.f, 0.f, 0.f, 0.f);
+      return;
+    }
+  cp_async16(dst, static_cast<const float*>(src.p), in);
+}
+
 // ------------------------------------------------------------- forward
 
 constexpr int kKv = 64;           // K/V rows a tile (forward and dK/dV)
@@ -224,14 +312,14 @@ constexpr size_t fwd_smem_bytes() {
 // h * DH; K/V rows of (b, g = h / (H / Hkv)) at (b * Tk + t) * Dkv + g *
 // DH, in floats or, kInt8, in int8 codes with scales at (b * Tk + t) *
 // Hkv + g; o [B, H, Tq, DH].  lse may be null (not written).
-template <int DH, bool kInt8>
+template <int DH, bool kInt8, bool kLow>
 __global__ void __launch_bounds__(kFwdThreads)
-flash_fwd_kernel(const float* __restrict__ q, const void* __restrict__ k,
+flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
                  const void* __restrict__ v,
                  const float* __restrict__ kscale,
-                 const float* __restrict__ vscale, float* __restrict__ o,
+                 const float* __restrict__ vscale, void* __restrict__ o,
                  float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
-                 float scale, int causal) {
+                 float scale, int causal, int dts) {
   constexpr int kP = DH + 4;      // shared row pitch (floats)
   constexpr int kBq = kFwdWarps * 16;
   constexpr int kD8 = DH / 8;     // k-steps of S, n-tiles of O
@@ -251,6 +339,8 @@ flash_fwd_kernel(const float* __restrict__ q, const void* __restrict__ k,
   const size_t kv_row0 = (size_t)b * Tk;      // first K/V row of batch b
   const int last = causal ? min(q0 + kBq - 1, Tk - 1) : Tk - 1;
   const int n_tiles = last / kKv + 1;
+  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
+  const Out<kLow> oout{o, (dts & kQ) != 0};
 
   // K/V tile j into ring slot j % kFwdStages, zero past Tk
   auto stage = [&](int j) {
@@ -298,8 +388,8 @@ flash_fwd_kernel(const float* __restrict__ q, const void* __restrict__ k,
         const bool in = t < Tk;
         const size_t off = in ? (kv_row0 + t) * Dkv + (size_t)grp * DH + c
                               : 0;
-        cp_async16(ks + row * kP + c, static_cast<const float*>(k) + off, in);
-        cp_async16(vs + row * kP + c, static_cast<const float*>(v) + off, in);
+        stage4(ks + row * kP + c, kin + off, in);
+        stage4(vs + row * kP + c, vin + off, in);
       }
     }
   };
@@ -310,7 +400,7 @@ flash_fwd_kernel(const float* __restrict__ q, const void* __restrict__ k,
   }
 
   // the warp's 16 q rows as raw A fragments, zero past Tq
-  const float* qb = q + (size_t)b * Tq * D + (size_t)h * DH;
+  const In<kLow> qb = In<kLow>{q, (dts & kQ) != 0} + ((size_t)b * Tq * D + (size_t)h * DH);
   float qa[kD8][4];
 #pragma unroll
   for (int kk = 0; kk < kD8; ++kk) {
@@ -423,20 +513,18 @@ flash_fwd_kernel(const float* __restrict__ q, const void* __restrict__ k,
   }
   const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
   if (r_lo < Tq) {
-    float* orow = o + ((size_t)bh * Tq + r_lo) * DH + 2 * t4;
+    const size_t orow = ((size_t)bh * Tq + r_lo) * DH + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kD8; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8) =
-          make_float2(acc[n][0] / den_lo, acc[n][1] / den_lo);
+      oout.st2(orow + n * 8, acc[n][0] / den_lo, acc[n][1] / den_lo);
     if (lse != nullptr && t4 == 0)
       lse[(size_t)bh * Tq + r_lo] = m_lo + logf(den_lo);
   }
   if (r_hi < Tq) {
-    float* orow = o + ((size_t)bh * Tq + r_hi) * DH + 2 * t4;
+    const size_t orow = ((size_t)bh * Tq + r_hi) * DH + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kD8; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8) =
-          make_float2(acc[n][2] / den_hi, acc[n][3] / den_hi);
+      oout.st2(orow + n * 8, acc[n][2] / den_hi, acc[n][3] / den_hi);
     if (lse != nullptr && t4 == 0)
       lse[(size_t)bh * Tq + r_hi] = m_hi + logf(den_hi);
   }
@@ -491,15 +579,15 @@ constexpr size_t dkv_smem_bytes() {
 
 // blockIdx.x = b*h, blockIdx.y = K/V tile.  q/do [BH, Tq, DH], k/v/dk/dv
 // [BH, Tk, DH], lse/delta [BH, Tq].
-template <int DH>
+template <int DH, bool kLow>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                     const void* __restrict__ v,
+                     const void* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int Tq, int Tk, float scale,
-                     int causal) {
+                     const float* __restrict__ delta, void* __restrict__ dk,
+                     void* __restrict__ dv, int Tq, int Tk, float scale,
+                     int causal, int dts) {
   constexpr int kP = DH + 4;
   constexpr int kBq = bwd_q_rows<DH>();
   constexpr int kD8 = DH / 8;     // k-steps of S^T / dP^T, n-tiles of dK/dV
@@ -517,8 +605,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int kr_lo = k0 + warp * 16 + g, kr_hi = kr_lo + 8;   // K/V rows
-  const float* qb = q + bh * Tq * DH;
-  const float* dob = dout + bh * Tq * DH;
+  const In<kLow> qb = In<kLow>{q, (dts & kQ) != 0} + bh * Tq * DH;
+  const In<kLow> dob = In<kLow>{dout, (dts & kQ) != 0} + bh * Tq * DH;
+  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
+  const Out<kLow> dkout{dk, (dts & kK) != 0}, dvout{dv, (dts & kV) != 0};
   const float* lseb = lse + bh * Tq;
   const float* deltab = delta + bh * Tq;
 
@@ -527,8 +617,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = e / kChunks, c = (e % kChunks) * 4;
     const bool in = k0 + row < Tk;
     const size_t off = in ? (bh * Tk + k0 + row) * DH + c : 0;
-    cp_async16(ks + row * kP + c, k + off, in);
-    cp_async16(vs + row * kP + c, v + off, in);
+    stage4(ks + row * kP + c, kin + off, in);
+    stage4(vs + row * kP + c, vin + off, in);
   }
   cp_async_commit();
 
@@ -547,8 +637,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = e / kChunks, c = (e % kChunks) * 4;
       const bool in = q0 + row < Tq;
       const size_t off = in ? (size_t)(q0 + row) * DH + c : 0;
-      cp_async16(qs + row * kP + c, qb + off, in);
-      cp_async16(dos + row * kP + c, dob + off, in);
+      stage4(qs + row * kP + c, qb + off, in);
+      stage4(dos + row * kP + c, dob + off, in);
     }
     for (int e = threadIdx.x; e < kBq; e += kBwdThreads) {
       const bool in = q0 + e < Tq;
@@ -649,20 +739,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t off = (bh * Tk + kr_lo) * DH + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kD8; ++n) {
-      *reinterpret_cast<float2*>(dk + off + n * 8) =
-          make_float2(dka[n][0], dka[n][1]);
-      *reinterpret_cast<float2*>(dv + off + n * 8) =
-          make_float2(dva[n][0], dva[n][1]);
+      dkout.st2(off + n * 8, dka[n][0], dka[n][1]);
+      dvout.st2(off + n * 8, dva[n][0], dva[n][1]);
     }
   }
   if (kr_hi < Tk) {
     const size_t off = (bh * Tk + kr_hi) * DH + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kD8; ++n) {
-      *reinterpret_cast<float2*>(dk + off + n * 8) =
-          make_float2(dka[n][2], dka[n][3]);
-      *reinterpret_cast<float2*>(dv + off + n * 8) =
-          make_float2(dva[n][2], dva[n][3]);
+      dkout.st2(off + n * 8, dka[n][2], dka[n][3]);
+      dvout.st2(off + n * 8, dva[n][2], dva[n][3]);
     }
   }
 }
@@ -681,15 +767,15 @@ constexpr size_t dq_smem_bytes() {
 // blockIdx.x = b*h, blockIdx.y = q tile.  q/do/o/dq [BH, Tq, DH], k/v
 // [BH, Tk, DH], lse [BH, Tq]; writes delta [BH, Tq] = rowsum(do o) for
 // the dK/dV kernel launched after it.
-template <int DH>
+template <int DH, bool kLow>
 __global__ void __launch_bounds__(kDqThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ o,
+flash_bwd_dq_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                    const void* __restrict__ v,
+                    const void* __restrict__ dout,
+                    const void* __restrict__ o,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    float* __restrict__ dq, int Tq, int Tk, float scale,
-                    int causal) {
+                    void* __restrict__ dq, int Tq, int Tk, float scale,
+                    int causal, int dts) {
   constexpr int kP = DH + 4;
   constexpr int kBq = kDqWarps * 16;
   constexpr int kD8 = DH / 8;     // k-steps of S / dP, n-tiles of dQ
@@ -706,8 +792,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const int w0 = warp * 16;                   // the warp's rows in the tile
   const int r_lo = q0 + w0 + g, r_hi = r_lo + 8;
-  const float* kb = k + bh * Tk * DH;
-  const float* vb = v + bh * Tk * DH;
+  const In<kLow> kb = In<kLow>{k, (dts & kK) != 0} + bh * Tk * DH;
+  const In<kLow> vb = In<kLow>{v, (dts & kV) != 0} + bh * Tk * DH;
+  const In<kLow> qin{q, (dts & kQ) != 0}, doin{dout, (dts & kQ) != 0};
+  const In<kLow> oin{o, (dts & kQ) != 0};
+  const Out<kLow> dqout{dq, (dts & kQ) != 0};
   const int last = causal ? min(q0 + kBq - 1, Tk - 1) : Tk - 1;
   const int n_tiles = last / kKv + 1;
 
@@ -716,8 +805,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = e / kChunks, c = (e % kChunks) * 4;
     const bool in = q0 + row < Tq;
     const size_t off = in ? (bh * Tq + q0 + row) * DH + c : 0;
-    cp_async16(qs + row * kP + c, q + off, in);
-    cp_async16(dos + row * kP + c, dout + off, in);
+    stage4(qs + row * kP + c, qin + off, in);
+    stage4(dos + row * kP + c, doin + off, in);
   }
   cp_async_commit();
 
@@ -730,8 +819,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = e / kChunks, c = (e % kChunks) * 4, t = t0 + row;
       const bool in = t < Tk;
       const size_t off = in ? (size_t)t * DH + c : 0;
-      cp_async16(ks + row * kP + c, kb + off, in);
-      cp_async16(vs + row * kP + c, vb + off, in);
+      stage4(ks + row * kP + c, kb + off, in);
+      stage4(vs + row * kP + c, vb + off, in);
     }
   };
   for (int j = 0; j < kDqStages - 1; ++j) {
@@ -747,12 +836,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* dw = dos + (w0 + g) * kP + t4;
   float dl_lo = 0.f, dl_hi = 0.f;
   {
-    const float* o_lo = o + (bh * Tq + (r_lo < Tq ? r_lo : 0)) * DH;
-    const float* o_hi = o + (bh * Tq + (r_hi < Tq ? r_hi : 0)) * DH;
+    const In<kLow> o_lo = oin + (bh * Tq + (r_lo < Tq ? r_lo : 0)) * DH;
+    const In<kLow> o_hi = oin + (bh * Tq + (r_hi < Tq ? r_hi : 0)) * DH;
 #pragma unroll
     for (int c = 4 * t4; c < DH; c += 16) {
-      const float4 a = *reinterpret_cast<const float4*>(o_lo + c);
-      const float4 b = *reinterpret_cast<const float4*>(o_hi + c);
+      const float4 a = o_lo.ld4(c);
+      const float4 b = o_hi.ld4(c);
       const float* d_lo = dos + (w0 + g) * kP + c;
       const float* d_hi = d_lo + 8 * kP;
       dl_lo = fmaf(d_lo[0], a.x, dl_lo);
@@ -849,18 +938,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<0>();
 
   if (r_lo < Tq) {
-    float* out = dq + (bh * Tq + r_lo) * DH + 2 * t4;
+    const size_t out = (bh * Tq + r_lo) * DH + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kD8; ++n)
-      *reinterpret_cast<float2*>(out + n * 8) =
-          make_float2(acc[n][0], acc[n][1]);
+      dqout.st2(out + n * 8, acc[n][0], acc[n][1]);
   }
   if (r_hi < Tq) {
-    float* out = dq + (bh * Tq + r_hi) * DH + 2 * t4;
+    const size_t out = (bh * Tq + r_hi) * DH + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kD8; ++n)
-      *reinterpret_cast<float2*>(out + n * 8) =
-          make_float2(acc[n][2], acc[n][3]);
+      dqout.st2(out + n * 8, acc[n][2], acc[n][3]);
   }
 }
 
@@ -965,14 +1052,15 @@ __device__ __forceinline__ void wide_sum(float (&s)[kTiles][kN][4],
 
 // The forward at a wide head dim: flash_fwd_kernel's contract, one CTA
 // per (b * h, 16 q rows).
-template <int DH, bool kInt8>
+template <int DH, bool kInt8, bool kLow>
 __global__ void __launch_bounds__(kWideThreads)
-flash_fwd_wide_kernel(const float* __restrict__ q, const void* __restrict__ k,
+flash_fwd_wide_kernel(const void* __restrict__ q, const void* __restrict__ k,
                       const void* __restrict__ v,
                       const float* __restrict__ kscale,
                       const float* __restrict__ vscale,
-                      float* __restrict__ o, float* __restrict__ lse, int H,
-                      int Hkv, int Tq, int Tk, float scale, int causal) {
+                      void* __restrict__ o, float* __restrict__ lse, int H,
+                      int Hkv, int Tq, int Tk, float scale, int causal,
+                      int dts) {
   constexpr int kP = DH + 4;
   constexpr int kR = wide_rows<DH>();   // K/V rows a tile
   constexpr int kN = kR / 8;            // n-tiles of S, k-steps of P V
@@ -998,6 +1086,8 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const void* __restrict__ k,
   const size_t kv_row0 = (size_t)b * Tk;
   const int last = causal ? min(q0 + 15, Tk - 1) : Tk - 1;
   const int n_tiles = last / kR + 1;
+  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
+  const Out<kLow> oout{o, (dts & kQ) != 0};
 
   // K/V tile j into ring slot j % 2, zero past Tk
   auto stage = [&](int j) {
@@ -1044,8 +1134,8 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const void* __restrict__ k,
         const bool in = t < Tk;
         const size_t off = in ? (kv_row0 + t) * Dkv + (size_t)grp * DH + c
                               : 0;
-        cp_async16(ks + row * kP + c, static_cast<const float*>(k) + off, in);
-        cp_async16(vs + row * kP + c, static_cast<const float*>(v) + off, in);
+        stage4(ks + row * kP + c, kin + off, in);
+        stage4(vs + row * kP + c, vin + off, in);
       }
     }
   };
@@ -1053,7 +1143,8 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const void* __restrict__ k,
   cp_async_commit();
 
   // the warp's columns of the CTA's 16 q rows as raw A fragments
-  const float* qb = q + (size_t)b * Tq * D + (size_t)h * DH + c0;
+  const In<kLow> qb =
+      In<kLow>{q, (dts & kQ) != 0} + ((size_t)b * Tq * D + (size_t)h * DH + c0);
   float qa[kW8][4];
 #pragma unroll
   for (int kk = 0; kk < kW8; ++kk) {
@@ -1165,20 +1256,18 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const void* __restrict__ k,
   }
   const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
   if (r_lo < Tq) {
-    float* orow = o + ((size_t)bh * Tq + r_lo) * DH + c0 + 2 * t4;
+    const size_t orow = ((size_t)bh * Tq + r_lo) * DH + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kW8; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8) =
-          make_float2(acc[n][0] / den_lo, acc[n][1] / den_lo);
+      oout.st2(orow + n * 8, acc[n][0] / den_lo, acc[n][1] / den_lo);
     if (lse != nullptr && warp == 0 && t4 == 0)
       lse[(size_t)bh * Tq + r_lo] = m_lo + logf(den_lo);
   }
   if (r_hi < Tq) {
-    float* orow = o + ((size_t)bh * Tq + r_hi) * DH + c0 + 2 * t4;
+    const size_t orow = ((size_t)bh * Tq + r_hi) * DH + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kW8; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8) =
-          make_float2(acc[n][2] / den_hi, acc[n][3] / den_hi);
+      oout.st2(orow + n * 8, acc[n][2] / den_hi, acc[n][3] / den_hi);
     if (lse != nullptr && warp == 0 && t4 == 0)
       lse[(size_t)bh * Tq + r_hi] = m_hi + logf(den_hi);
   }
@@ -1186,16 +1275,16 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const void* __restrict__ k,
 
 // dQ at a wide head dim: flash_bwd_dq_kernel's contract (delta written
 // for the dK/dV launch after it), one CTA per (b * h, 16 q rows).
-template <int DH>
+template <int DH, bool kLow>
 __global__ void __launch_bounds__(kWideThreads)
-flash_bwd_dq_wide_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ o,
+flash_bwd_dq_wide_kernel(const void* __restrict__ q,
+                         const void* __restrict__ k,
+                         const void* __restrict__ v,
+                         const void* __restrict__ dout,
+                         const void* __restrict__ o,
                          const float* __restrict__ lse,
-                         float* __restrict__ delta, float* __restrict__ dq,
-                         int Tq, int Tk, float scale, int causal) {
+                         float* __restrict__ delta, void* __restrict__ dq,
+                         int Tq, int Tk, float scale, int causal, int dts) {
   constexpr int kP = DH + 4;
   constexpr int kR = wide_rows<DH>();
   constexpr int kN = kR / 8;
@@ -1215,8 +1304,11 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
   const int g = lane >> 2, t4 = lane & 3;
   const int c0 = warp * kW;
   const int r_lo = q0 + g, r_hi = r_lo + 8;
-  const float* kb = k + bh * Tk * DH;
-  const float* vb = v + bh * Tk * DH;
+  const In<kLow> kb = In<kLow>{k, (dts & kK) != 0} + bh * Tk * DH;
+  const In<kLow> vb = In<kLow>{v, (dts & kV) != 0} + bh * Tk * DH;
+  const In<kLow> qin{q, (dts & kQ) != 0}, doin{dout, (dts & kQ) != 0};
+  const In<kLow> oin{o, (dts & kQ) != 0};
+  const Out<kLow> dqout{dq, (dts & kQ) != 0};
   const int last = causal ? min(q0 + 15, Tk - 1) : Tk - 1;
   const int n_tiles = last / kR + 1;
 
@@ -1229,8 +1321,8 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
       const int row = e / kChunks, c = (e % kChunks) * 4, t = t0 + row;
       const bool in = t < Tk;
       const size_t off = in ? (size_t)t * DH + c : 0;
-      cp_async16(ks + row * kP + c, kb + off, in);
-      cp_async16(vs + row * kP + c, vb + off, in);
+      stage4(ks + row * kP + c, kb + off, in);
+      stage4(vs + row * kP + c, vb + off, in);
     }
   };
   stage(0);
@@ -1239,9 +1331,9 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
   // the warp's columns of q and dO as raw A fragments; delta = rowsum(dO
   // o) over the warp's columns and its row's 4 lanes, then the warps'
   // partials added in warp order
-  const float* qr = q + (bh * Tq) * DH + c0;
-  const float* dr = dout + (bh * Tq) * DH + c0;
-  const float* orw = o + (bh * Tq) * DH + c0;
+  const In<kLow> qr = qin + ((bh * Tq) * DH + c0);
+  const In<kLow> dr = doin + ((bh * Tq) * DH + c0);
+  const In<kLow> orw = oin + ((bh * Tq) * DH + c0);
   float qa[kW8][4], da[kW8][4];
   float dl_lo = 0.f, dl_hi = 0.f;
 #pragma unroll
@@ -1359,33 +1451,31 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
   cp_async_wait<0>();
 
   if (r_lo < Tq) {
-    float* out = dq + (bh * Tq + r_lo) * DH + c0 + 2 * t4;
+    const size_t out = (bh * Tq + r_lo) * DH + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kW8; ++n)
-      *reinterpret_cast<float2*>(out + n * 8) =
-          make_float2(acc[n][0], acc[n][1]);
+      dqout.st2(out + n * 8, acc[n][0], acc[n][1]);
   }
   if (r_hi < Tq) {
-    float* out = dq + (bh * Tq + r_hi) * DH + c0 + 2 * t4;
+    const size_t out = (bh * Tq + r_hi) * DH + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kW8; ++n)
-      *reinterpret_cast<float2*>(out + n * 8) =
-          make_float2(acc[n][2], acc[n][3]);
+      dqout.st2(out + n * 8, acc[n][2], acc[n][3]);
   }
 }
 
 // dK/dV at a wide head dim: flash_bwd_dkv_kernel's contract, one CTA
 // per (b * h, 16 K/V rows), q tiles of wide_rows<DH>() rows streamed.
-template <int DH>
+template <int DH, bool kLow>
 __global__ void __launch_bounds__(kWideThreads)
-flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
+flash_bwd_dkv_wide_kernel(const void* __restrict__ q,
+                          const void* __restrict__ k,
+                          const void* __restrict__ v,
+                          const void* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int Tq, int Tk, float scale, int causal) {
+                          void* __restrict__ dk, void* __restrict__ dv,
+                          int Tq, int Tk, float scale, int causal, int dts) {
   constexpr int kP = DH + 4;
   constexpr int kBq = wide_rows<DH>();    // q rows a tile
   constexpr int kN = kBq / 8;             // n-tiles of S^T, k-steps of dK/dV
@@ -1405,8 +1495,10 @@ flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
   const int g = lane >> 2, t4 = lane & 3;
   const int c0 = warp * kW;
   const int kr_lo = k0 + g, kr_hi = kr_lo + 8;
-  const float* qb = q + bh * Tq * DH;
-  const float* dob = dout + bh * Tq * DH;
+  const In<kLow> qb = In<kLow>{q, (dts & kQ) != 0} + bh * Tq * DH;
+  const In<kLow> dob = In<kLow>{dout, (dts & kQ) != 0} + bh * Tq * DH;
+  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
+  const Out<kLow> dkout{dk, (dts & kK) != 0}, dvout{dv, (dts & kV) != 0};
   const float* lseb = lse + bh * Tq;
   const float* deltab = delta + bh * Tq;
 
@@ -1425,8 +1517,8 @@ flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
       const int row = e / kChunks, c = (e % kChunks) * 4;
       const bool in = q0 + row < Tq;
       const size_t off = in ? (size_t)(q0 + row) * DH + c : 0;
-      cp_async16(qs + row * kP + c, qb + off, in);
-      cp_async16(dos + row * kP + c, dob + off, in);
+      stage4(qs + row * kP + c, qb + off, in);
+      stage4(dos + row * kP + c, dob + off, in);
     }
     for (int e = threadIdx.x; e < kBq; e += kWideThreads) {
       const bool in = q0 + e < Tq;
@@ -1438,8 +1530,8 @@ flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
   cp_async_commit();
 
   // the warp's columns of the CTA's 16 K and V rows as raw A fragments
-  const float* kw = k + bh * Tk * DH + c0;
-  const float* vw = v + bh * Tk * DH + c0;
+  const In<kLow> kw = kin + (bh * Tk * DH + c0);
+  const In<kLow> vw = vin + (bh * Tk * DH + c0);
   float ka[kW8][4], va[kW8][4];
 #pragma unroll
   for (int kk = 0; kk < kW8; ++kk) {
@@ -1538,109 +1630,146 @@ flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
     const size_t off = (bh * Tk + kr_lo) * DH + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kW8; ++n) {
-      *reinterpret_cast<float2*>(dk + off + n * 8) =
-          make_float2(dka[n][0], dka[n][1]);
-      *reinterpret_cast<float2*>(dv + off + n * 8) =
-          make_float2(dva[n][0], dva[n][1]);
+      dkout.st2(off + n * 8, dka[n][0], dka[n][1]);
+      dvout.st2(off + n * 8, dva[n][0], dva[n][1]);
     }
   }
   if (kr_hi < Tk) {
     const size_t off = (bh * Tk + kr_hi) * DH + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kW8; ++n) {
-      *reinterpret_cast<float2*>(dk + off + n * 8) =
-          make_float2(dka[n][2], dka[n][3]);
-      *reinterpret_cast<float2*>(dv + off + n * 8) =
-          make_float2(dva[n][2], dva[n][3]);
+      dkout.st2(off + n * 8, dka[n][2], dka[n][3]);
+      dvout.st2(off + n * 8, dva[n][2], dva[n][3]);
     }
   }
 }
 
-template <int DH, bool kInt8>
-int launch(const float* q, const void* k, const void* v, const float* ks,
-           const float* vs, float* o, float* lse, int B, int H, int Hkv,
-           int Tq, int Tk, float scale, int causal, cudaStream_t st) {
+template <int DH, bool kInt8, bool kLow>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, void* o, float* lse, int B, int H, int Hkv,
+           int Tq, int Tk, float scale, int causal, int dts, cudaStream_t st) {
   static std::atomic<unsigned> raised{0u};
   if constexpr (DH > 128) {
-    return launch_smem(flash_fwd_wide_kernel<DH, kInt8>,
+    return launch_smem(flash_fwd_wide_kernel<DH, kInt8, kLow>,
                        wide_fwd_smem_bytes<DH>(), raised,
                        dim3(B * H, (Tq + 15) / 16), kWideThreads, st, q, k,
-                       v, ks, vs, o, lse, H, Hkv, Tq, Tk, scale, causal);
+                       v, ks, vs, o, lse, H, Hkv, Tq, Tk, scale, causal, dts);
   } else {
     constexpr int kBq = kFwdWarps * 16;
-    return launch_smem(flash_fwd_kernel<DH, kInt8>, fwd_smem_bytes<DH>(),
-                       raised, dim3(B * H, (Tq + kBq - 1) / kBq),
-                       kFwdThreads, st, q, k, v, ks, vs, o, lse, H, Hkv, Tq,
-                       Tk, scale, causal);
+    return launch_smem(flash_fwd_kernel<DH, kInt8, kLow>,
+                       fwd_smem_bytes<DH>(), raised,
+                       dim3(B * H, (Tq + kBq - 1) / kBq), kFwdThreads, st, q,
+                       k, v, ks, vs, o, lse, H, Hkv, Tq, Tk, scale, causal,
+                       dts);
   }
 }
 
-template <bool kInt8>
-int dispatch(const float* q, const void* k, const void* v, const float* ks,
-             const float* vs, float* o, float* lse, int B, int H, int Hkv,
-             int Tq, int Tk, int dh, float scale, int causal, void* stream) {
+template <bool kInt8, bool kLow>
+int dispatch(const void* q, const void* k, const void* v, const float* ks,
+             const float* vs, void* o, float* lse, int B, int H, int Hkv,
+             int Tq, int Tk, int dh, float scale, int causal, int dts,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PT_FWD(W)                                                           \
+  case W:                                                                   \
+    return launch<W, kInt8, kLow>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq,   \
+                                  Tk, scale, causal, dts, st)
   switch (dh) {
-    case 16:
-      return launch<16, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                               scale, causal, st);
-    case 32:
-      return launch<32, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                               scale, causal, st);
-    case 64:
-      return launch<64, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                               scale, causal, st);
-    case 128:
-      return launch<128, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                                scale, causal, st);
-    case 256:
-      return launch<256, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                                scale, causal, st);
-    case 384:
-      return launch<384, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                                scale, causal, st);
-    case 512:
-      return launch<512, kInt8>(q, k, v, ks, vs, o, lse, B, H, Hkv, Tq, Tk,
-                                scale, causal, st);
+    PT_FWD(16);
+    PT_FWD(32);
+    PT_FWD(64);
+    PT_FWD(128);
+    PT_FWD(256);
+    PT_FWD(384);
+    PT_FWD(512);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PT_FWD
 }
 
-template <int DH>
-int bwd_dkv(const float* q, const float* k, const float* v,
-            const float* dout, const float* lse, const float* delta,
-            float* dk, float* dv, int BH, int Tq, int Tk, float scale,
-            int causal, cudaStream_t st) {
+template <int DH, bool kLow>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const float* lse, const float* delta, void* dk, void* dv, int BH,
+            int Tq, int Tk, float scale, int causal, int dts,
+            cudaStream_t st) {
   static std::atomic<unsigned> raised{0u};
   if constexpr (DH > 128) {
-    return launch_smem(flash_bwd_dkv_wide_kernel<DH>,
+    return launch_smem(flash_bwd_dkv_wide_kernel<DH, kLow>,
                        wide_dkv_smem_bytes<DH>(), raised,
                        dim3(BH, (Tk + 15) / 16), kWideThreads, st, q, k, v,
-                       dout, lse, delta, dk, dv, Tq, Tk, scale, causal);
+                       dout, lse, delta, dk, dv, Tq, Tk, scale, causal, dts);
   } else {
-    return launch_smem(flash_bwd_dkv_kernel<DH>, dkv_smem_bytes<DH>(),
+    return launch_smem(flash_bwd_dkv_kernel<DH, kLow>, dkv_smem_bytes<DH>(),
                        raised, dim3(BH, (Tk + kKv - 1) / kKv), kBwdThreads,
                        st, q, k, v, dout, lse, delta, dk, dv, Tq, Tk, scale,
-                       causal);
+                       causal, dts);
   }
 }
 
-template <int DH>
-int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
-           const float* o, const float* lse, float* delta, float* dq,
-           int BH, int Tq, int Tk, float scale, int causal,
+template <int DH, bool kLow>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const void* o, const float* lse, float* delta, void* dq, int BH,
+           int Tq, int Tk, float scale, int causal, int dts,
            cudaStream_t st) {
   static std::atomic<unsigned> raised{0u};
   if constexpr (DH > 128) {
-    return launch_smem(flash_bwd_dq_wide_kernel<DH>, wide_dq_smem_bytes<DH>(),
-                       raised, dim3(BH, (Tq + 15) / 16), kWideThreads, st, q,
-                       k, v, dout, o, lse, delta, dq, Tq, Tk, scale, causal);
+    return launch_smem(flash_bwd_dq_wide_kernel<DH, kLow>,
+                       wide_dq_smem_bytes<DH>(), raised,
+                       dim3(BH, (Tq + 15) / 16), kWideThreads, st, q, k, v,
+                       dout, o, lse, delta, dq, Tq, Tk, scale, causal, dts);
   } else {
     constexpr int kBq = kDqWarps * 16;
-    return launch_smem(flash_bwd_dq_kernel<DH>, dq_smem_bytes<DH>(), raised,
-                       dim3(BH, (Tq + kBq - 1) / kBq), kDqThreads, st, q, k,
-                       v, dout, o, lse, delta, dq, Tq, Tk, scale, causal);
+    return launch_smem(flash_bwd_dq_kernel<DH, kLow>, dq_smem_bytes<DH>(),
+                       raised, dim3(BH, (Tq + kBq - 1) / kBq), kDqThreads,
+                       st, q, k, v, dout, o, lse, delta, dq, Tq, Tk, scale,
+                       causal, dts);
   }
+}
+
+template <bool kLow>
+int dispatch_dkv(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dk, void* dv, int BH, int Tq, int Tk, int dh,
+                 float scale, int causal, int dts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PT_DKV(W)                                                           \
+  case W:                                                                   \
+    return bwd_dkv<W, kLow>(q, k, v, dout, lse, delta, dk, dv, BH, Tq, Tk,  \
+                            scale, causal, dts, st)
+  switch (dh) {
+    PT_DKV(16);
+    PT_DKV(32);
+    PT_DKV(64);
+    PT_DKV(128);
+    PT_DKV(256);
+    PT_DKV(384);
+    PT_DKV(512);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PT_DKV
+}
+
+template <bool kLow>
+int dispatch_dq(const void* q, const void* k, const void* v,
+                const void* dout, const void* o, const float* lse,
+                float* delta, void* dq, int BH, int Tq, int Tk, int dh,
+                float scale, int causal, int dts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PT_DQ(W)                                                            \
+  case W:                                                                   \
+    return bwd_dq<W, kLow>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk,    \
+                           scale, causal, dts, st)
+  switch (dh) {
+    PT_DQ(16);
+    PT_DQ(32);
+    PT_DQ(64);
+    PT_DQ(128);
+    PT_DQ(256);
+    PT_DQ(384);
+    PT_DQ(512);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PT_DQ
 }
 
 template <int DH>
@@ -1656,32 +1785,70 @@ int smem_bytes(int which) {
 
 }  // namespace
 
+// The entries build in parts, one nvcc each, linked into one library
+// (ops/kernels/_build.py passes -DPT_PART=k; a build without it defines
+// every entry): part 0 the float32 and int8 entries, 1 the bf16 (kLow) ones.
+#ifndef PT_PART
+#define PT_PART -1
+#endif
+#define PT_IN(k) (PT_PART < 0 || PT_PART == (k))
+
 // Each entry returns cudaGetLastError() after the launch (0 = launched).
+// The _f32 / _i8 entries are the float32 (and int8 K/V) instances; each
+// _bf16 entry is its kernel's kLow instance, whose operands are float32
+// or bf16 as the bits of dts (kQ: q with o, do and dq; kK: k with dk;
+// kV: v with dv) say.
 
 // q [BH, Tq, dh], k/v [BH, Tk, dh] -> o [BH, Tq, dh], lse [BH, Tq]
+#if PT_IN(0)
 extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
                                        const float* v, float* o, float* lse,
                                        int BH, int Tq, int Tk, int dh,
                                        float scale, int causal,
                                        void* stream) {
-  return dispatch<false>(q, k, v, nullptr, nullptr, o, lse, BH, 1, 1, Tq,
-                         Tk, dh, scale, causal, stream);
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, o, lse, BH, 1, 1,
+                                Tq, Tk, dh, scale, causal, 0, stream);
 }
+#endif
+#if PT_IN(1)
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+                                        const void* v, void* o, float* lse,
+                                        int BH, int Tq, int Tk, int dh,
+                                        int dts, float scale, int causal,
+                                        void* stream) {
+  return dispatch<false, true>(q, k, v, nullptr, nullptr, o, lse, BH, 1, 1,
+                               Tq, Tk, dh, scale, causal, dts, stream);
+}
+#endif
 
 // q [B, Tq, H * dh], k/v [B, Tk, Hkv * dh] int8, ks/vs [B, Tk, Hkv]
-// -> o [B, H, Tq, dh]
+// -> o [B, H, Tq, dh]; the _bf16 entry's q and o bf16
+#if PT_IN(0)
 extern "C" int flash_attention_quant_i8(const float* q, const int8_t* k,
                                         const int8_t* v, const float* ks,
                                         const float* vs, float* o, int B,
                                         int H, int Hkv, int Tq, int Tk,
                                         int dh, float scale, int causal,
                                         void* stream) {
-  return dispatch<true>(q, k, v, ks, vs, o, nullptr, B, H, Hkv, Tq, Tk, dh,
-                        scale, causal, stream);
+  return dispatch<true, false>(q, k, v, ks, vs, o, nullptr, B, H, Hkv, Tq,
+                               Tk, dh, scale, causal, 0, stream);
 }
+#endif
+#if PT_IN(1)
+extern "C" int flash_attention_quant_i8_bf16(const void* q, const int8_t* k,
+                                             const int8_t* v, const float* ks,
+                                             const float* vs, void* o, int B,
+                                             int H, int Hkv, int Tq, int Tk,
+                                             int dh, float scale, int causal,
+                                             void* stream) {
+  return dispatch<true, true>(q, k, v, ks, vs, o, nullptr, B, H, Hkv, Tq,
+                              Tk, dh, scale, causal, kQ, stream);
+}
+#endif
 
 // q/do [BH, Tq, dh], k/v [BH, Tk, dh], lse/delta [BH, Tq] -> dk/dv
 // [BH, Tk, dh]
+#if PT_IN(0)
 extern "C" int flash_attention_bwd_dkv_f32(const float* q, const float* k,
                                            const float* v, const float* dout,
                                            const float* lse,
@@ -1689,28 +1856,26 @@ extern "C" int flash_attention_bwd_dkv_f32(const float* q, const float* k,
                                            float* dv, int BH, int Tq, int Tk,
                                            int dh, float scale, int causal,
                                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return bwd_dkv<16>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
-                                Tk, scale, causal, st);
-    case 32: return bwd_dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
-                                Tk, scale, causal, st);
-    case 64: return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
-                                Tk, scale, causal, st);
-    case 128: return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
-                                  Tk, scale, causal, st);
-    case 256: return bwd_dkv<256>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
-                                  Tk, scale, causal, st);
-    case 384: return bwd_dkv<384>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
-                                  Tk, scale, causal, st);
-    case 512: return bwd_dkv<512>(q, k, v, dout, lse, delta, dk, dv, BH, Tq,
-                                  Tk, scale, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, BH, Tq, Tk,
+                             dh, scale, causal, 0, stream);
 }
+#endif
+#if PT_IN(1)
+extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const float* lse,
+                                            const float* delta, void* dk,
+                                            void* dv, int BH, int Tq, int Tk,
+                                            int dh, int dts, float scale,
+                                            int causal, void* stream) {
+  return dispatch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, BH, Tq, Tk,
+                            dh, scale, causal, dts, stream);
+}
+#endif
 
 // q/do/o [BH, Tq, dh], k/v [BH, Tk, dh], lse [BH, Tq] -> dq [BH, Tq, dh]
 // and delta = rowsum(do o) [BH, Tq], which the dK/dV launch then reads
+#if PT_IN(0)
 extern "C" int flash_attention_bwd_dq_f32(const float* q, const float* k,
                                           const float* v, const float* dout,
                                           const float* o, const float* lse,
@@ -1718,28 +1883,26 @@ extern "C" int flash_attention_bwd_dq_f32(const float* q, const float* k,
                                           int Tq, int Tk, int dh,
                                           float scale, int causal,
                                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return bwd_dq<16>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk,
-                               scale, causal, st);
-    case 32: return bwd_dq<32>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk,
-                               scale, causal, st);
-    case 64: return bwd_dq<64>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk,
-                               scale, causal, st);
-    case 128: return bwd_dq<128>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
-                                 Tk, scale, causal, st);
-    case 256: return bwd_dq<256>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
-                                 Tk, scale, causal, st);
-    case 384: return bwd_dq<384>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
-                                 Tk, scale, causal, st);
-    case 512: return bwd_dq<512>(q, k, v, dout, o, lse, delta, dq, BH, Tq,
-                                 Tk, scale, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dq<false>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk, dh,
+                            scale, causal, 0, stream);
 }
+#endif
+#if PT_IN(1)
+extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* o, const float* lse,
+                                           float* delta, void* dq, int BH,
+                                           int Tq, int Tk, int dh, int dts,
+                                           float scale, int causal,
+                                           void* stream) {
+  return dispatch_dq<true>(q, k, v, dout, o, lse, delta, dq, BH, Tq, Tk, dh,
+                           scale, causal, dts, stream);
+}
+#endif
 
 // Dynamic shared memory of one launch, in bytes: which 0 = the forward
-// (both instances), 1 = dK/dV, 2 = dQ; -1 for a head dim not taken.
+// (every instance), 1 = dK/dV, 2 = dQ; -1 for a head dim not taken.
+#if PT_IN(0)
 extern "C" int flash_attention_smem_bytes(int which, int dh) {
   switch (dh) {
     case 16: return smem_bytes<16>(which);
@@ -1752,3 +1915,4 @@ extern "C" int flash_attention_smem_bytes(int which, int dh) {
     default: return -1;
   }
 }
+#endif

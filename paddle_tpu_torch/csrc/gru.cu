@@ -1,7 +1,7 @@
 // Fused whole-sequence GRU for Hopper (sm_90a): forward (lean and
 // residual-saving), BPTT backward, and the dW_gate / dW_state products,
 // every recurrent product on the tensor cores in 3xTF32, with an
-// instance for each pair of float32 or bf16 xs and W.
+// instance for each pair of float32, bf16 or float16 xs and W.
 //
 // Replaces: paddle_tpu/ops/pallas/gru.py :: gru_fused
 //   forward  pallas_call at :129 (body _fwd_kernel :36, step _step :25)
@@ -91,9 +91,9 @@
 //   Later work (ROADMAP B10): barriers over a b-group's CTAs alone,
 //   sharing a b-block's rows across a cluster, wgmma with TMA loads.
 //
-// Element types (the JAX kernel under the bf16 policy, gru.py:45-52,
+// Element types (the JAX kernel under the bf16 or float16 policy, gru.py:45-52,
 //   74-79, 102-104, 184): xs (and hs, dh_out, dxs) is XT, W_gate and
-//   W_state (and their gradients) WT, each float or bf16 (the policy
+//   W_state (and their gradients) WT, each float, bf16 or float16 (the policy
 //   casts every weight; a direct call may pass bf16 xs with float
 //   weights); mask and acts stay float32.  Every operand is widened to float32 on load (a bf16 W
 //   row 8 values a 16-byte load into the resident slices; hs in the
@@ -109,6 +109,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,6 +139,7 @@ constexpr int kPart = kWarps * kRows * kPP;  // the k-groups' partial tiles
 constexpr int kRegion = kStages * kStage > kPart ? kStages * kStage : kPart;  // ring, then tiles
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 template <typename XT, typename WT>
 struct Args {
@@ -168,6 +170,16 @@ __host__ __device__ constexpr bool is_f32() {
 __device__ __forceinline__ float wide(float x) { return x; }
 __device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float wide(f16 x) { return __half2float(x); }
+__device__ __forceinline__ void put(f16* p, float v) { *p = __float2half_rn(v); }
+// two adjacent outputs rounded once to the element type
+__device__ __forceinline__ void put2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void put2(bf16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+__device__ __forceinline__ void put2(f16* p, float2 v) {
+  *reinterpret_cast<__half2*>(p) = __float22half2_rn(v);
+}
 
 // the 16 bytes at src (16-byte aligned) widened to 16 / sizeof(T) floats
 // at dst (16-byte aligned)
@@ -179,6 +191,14 @@ __device__ __forceinline__ void widen16(float* dst, const bf16* src) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
   const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+__device__ __forceinline__ void widen16(float* dst, const f16* src) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+  const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+  const float2 c = __half22float2(h[2]), d = __half22float2(h[3]);
   reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
@@ -552,7 +572,8 @@ struct DwArgs {
 __device__ __forceinline__ void stage16(float* dst, const float* src, bool valid) {
   cp_async16(dst, src, valid);
 }
-__device__ __forceinline__ void stage16(float* dst, const bf16* src, bool valid) {
+template <typename T>  // bf16 or float16
+__device__ __forceinline__ void stage16(float* dst, const T* src, bool valid) {
   if (valid) {
     widen16(dst, src);
   } else {
@@ -666,8 +687,8 @@ __global__ void __launch_bounds__(256) gru_dw_kernel(DwArgs<OT> q) {
             *o0 = v0;
             *o1 = v1;
           } else {
-            *reinterpret_cast<__nv_bfloat162*>(pr.out + i0) = __float22bfloat162_rn(v0);
-            *reinterpret_cast<__nv_bfloat162*>(pr.out + i1) = __float22bfloat162_rn(v1);
+            put2(pr.out + i0, v0);
+            put2(pr.out + i1, v1);
           }
         }
     }
@@ -818,6 +839,14 @@ int bwd(const float* acts, const XT* hs, const WT* w_gate, const WT* w_state, co
 
 }  // namespace
 
+// The entries build in parts, one nvcc each, linked into one library
+// (ops/kernels/_build.py passes -DPT_PART=k; a build without it defines
+// every entry): part 0 the float32 entries, 1 the (xs, W) pairs with a bf16 operand, 2 those with a float16 one and float32, 3 the mixed bf16 / float16 pairs.
+#ifndef PT_PART
+#define PT_PART -1
+#endif
+#define PT_IN(k) (PT_PART < 0 || PT_PART == (k))
+
 // Each entry returns the first failing cudaError_t of its launches (0 =
 // launched).  D a multiple of 128 up to 768, any T, B >= 1; the caller
 // checks shapes.  sbuf is [B, D] scratch; acts may be null when
@@ -826,29 +855,73 @@ int bwd(const float* acts, const XT* hs, const WT* w_gate, const WT* w_state, co
 // types.  hc is [T, B, D] float32 scratch (hs itself for float xs), dg
 // [T, B, 3D] (dxs itself), dwg32 / dws32 float32 like dwg / dws
 // (themselves for a float W).
+#if PT_IN(0)
 extern "C" int gru_fwd_f32(const float* xs, const float* mask, const float* w_gate,
     const float* w_state, float* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
     int save_residuals, void* stream) {
   return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int gru_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w_gate,
     const bf16* w_state, float* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
     int save_residuals, void* stream) {
   return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int gru_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w_gate,
     const bf16* w_state, bf16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
     int save_residuals, void* stream) {
   return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int gru_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w_gate,
     const float* w_state, bf16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
     int save_residuals, void* stream) {
   return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(2)
+extern "C" int gru_fwd_xf32_wf16(const float* xs, const float* mask, const f16* w_gate,
+    const f16* w_state, float* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int gru_fwd_xf16_wf16(const f16* xs, const float* mask, const f16* w_gate,
+    const f16* w_state, f16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int gru_fwd_xf16_wf32(const f16* xs, const float* mask, const float* w_gate,
+    const float* w_state, f16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int gru_fwd_xbf16_wf16(const bf16* xs, const float* mask, const f16* w_gate,
+    const f16* w_state, bf16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int gru_fwd_xf16_wbf16(const f16* xs, const float* mask, const bf16* w_gate,
+    const bf16* w_state, f16* hs, float* hc, float* acts, float* sbuf, int T, int B, int D,
+    int save_residuals, void* stream) {
+  return fwd(xs, mask, w_gate, w_state, hs, hc, acts, sbuf, T, B, D, save_residuals, stream);
+}
+#endif
 
 // BPTT over reversed time, then dW_gate and dW_state.  dh_buf / part are
 // [B, D] scratch, s_all [T - 1, B, D] scratch (dW_state's operand).
+#if PT_IN(0)
 extern "C" int gru_bwd_f32(const float* acts, const float* hs, const float* w_gate,
     const float* w_state, const float* mask, const float* dh_out, float* dxs, float* dwg,
     float* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
@@ -856,6 +929,8 @@ extern "C" int gru_bwd_f32(const float* acts, const float* hs, const float* w_ga
   return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
              dwg32, dws32, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int gru_bwd_xf32_wbf16(const float* acts, const float* hs, const bf16* w_gate,
     const bf16* w_state, const float* mask, const float* dh_out, float* dxs, bf16* dwg,
     bf16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
@@ -863,6 +938,8 @@ extern "C" int gru_bwd_xf32_wbf16(const float* acts, const float* hs, const bf16
   return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
              dwg32, dws32, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int gru_bwd_xbf16_wbf16(const float* acts, const bf16* hs, const bf16* w_gate,
     const bf16* w_state, const float* mask, const bf16* dh_out, bf16* dxs, bf16* dwg,
     bf16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
@@ -870,6 +947,8 @@ extern "C" int gru_bwd_xbf16_wbf16(const float* acts, const bf16* hs, const bf16
   return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
              dwg32, dws32, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int gru_bwd_xbf16_wf32(const float* acts, const bf16* hs, const float* w_gate,
     const float* w_state, const float* mask, const bf16* dh_out, bf16* dxs, float* dwg,
     float* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
@@ -877,9 +956,56 @@ extern "C" int gru_bwd_xbf16_wf32(const float* acts, const bf16* hs, const float
   return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
              dwg32, dws32, T, B, D, stream);
 }
+#endif
+#if PT_IN(2)
+extern "C" int gru_bwd_xf32_wf16(const float* acts, const float* hs, const f16* w_gate,
+    const f16* w_state, const float* mask, const float* dh_out, float* dxs, f16* dwg,
+    f16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int gru_bwd_xf16_wf16(const float* acts, const f16* hs, const f16* w_gate,
+    const f16* w_state, const float* mask, const f16* dh_out, f16* dxs, f16* dwg,
+    f16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int gru_bwd_xf16_wf32(const float* acts, const f16* hs, const float* w_gate,
+    const float* w_state, const float* mask, const f16* dh_out, f16* dxs, float* dwg,
+    float* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int gru_bwd_xbf16_wf16(const float* acts, const bf16* hs, const f16* w_gate,
+    const f16* w_state, const float* mask, const bf16* dh_out, bf16* dxs, f16* dwg,
+    f16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int gru_bwd_xf16_wbf16(const float* acts, const f16* hs, const bf16* w_gate,
+    const bf16* w_state, const float* mask, const f16* dh_out, f16* dxs, bf16* dwg,
+    bf16* dws, float* dh_buf, float* part, float* s_all, float* dg, float* dwg32,
+    float* dws32, int T, int B, int D, void* stream) {
+  return bwd(acts, hs, w_gate, w_state, mask, dh_out, dxs, dwg, dws, dh_buf, part, s_all, dg,
+             dwg32, dws32, T, B, D, stream);
+}
+#endif
 
 // `syncs` grid-wide barriers in one cooperative launch of the grid the
 // forward takes at (B, D): its CTA count, threads and shared memory.
+#if PT_IN(0)
 extern "C" int gru_barrier_probe(int syncs, int B, int D, void* stream) {
   if (!shape_ok(1, B, D)) return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
@@ -897,3 +1023,4 @@ extern "C" int gru_barrier_probe(int syncs, int B, int D, void* stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+#endif

@@ -1,7 +1,7 @@
 // Fused whole-sequence peephole LSTM for Hopper (sm_90a): forward (lean
 // and residual-saving), BPTT backward, and the dW_r product, every
 // recurrent product on the tensor cores in 3xTF32, with an instance for
-// each pair of float32 or bf16 xs and W_r.
+// each pair of float32, bf16 or float16 xs and W_r.
 //
 // Replaces: paddle_tpu/ops/pallas/lstm.py :: lstm_fused
 //   forward  pallas_call at :177 (body _fwd_kernel :34)
@@ -77,9 +77,9 @@
 //   Later work (ROADMAP B9): wgmma with TMA loads, sharing a b-block's
 //   rows across the CTAs of a cluster, cheaper barriers.
 //
-// Element types (the JAX kernel under the bf16 policy, lstm.py:48-49,
+// Element types (the JAX kernel under the bf16 or float16 policy, lstm.py:48-49,
 //   67, 138, 246): xs (and hs, dh_out, dxs) is XT, W_r (and dW_r) is WT,
-//   each float or bf16 (the policy casts every weight; a direct call may
+//   each float, bf16 or float16 (the policy casts every weight; a direct call may
 //   pass bf16 xs with a float W_r); checks, mask, c_fin, cs and acts stay
 //   float32.
 //   Every operand is widened to float32 on load (a bf16 W_r row 8 values
@@ -93,6 +93,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -132,6 +133,7 @@ struct Prod {
 using Fwd = Prod<8, 4, 128, 3>;
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 template <typename XT, typename WT>
 struct Args {
@@ -165,6 +167,16 @@ __host__ __device__ constexpr bool is_f32() {
 __device__ __forceinline__ float wide(float x) { return x; }
 __device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float wide(f16 x) { return __half2float(x); }
+__device__ __forceinline__ void put(f16* p, float v) { *p = __float2half_rn(v); }
+// two adjacent outputs rounded once to the element type
+__device__ __forceinline__ void put2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void put2(bf16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+__device__ __forceinline__ void put2(f16* p, float2 v) {
+  *reinterpret_cast<__half2*>(p) = __float22half2_rn(v);
+}
 
 // the 16 bytes at src (16-byte aligned) widened to 16 / sizeof(T) floats
 // at dst (16-byte aligned)
@@ -176,6 +188,14 @@ __device__ __forceinline__ void widen16(float* dst, const bf16* src) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
   const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+__device__ __forceinline__ void widen16(float* dst, const f16* src) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+  const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+  const float2 c = __half22float2(h[2]), d = __half22float2(h[3]);
   reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
@@ -230,7 +250,8 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void stage16(float* dst, const float* src, bool valid) {
   cp_async16(dst, src, valid);
 }
-__device__ __forceinline__ void stage16(float* dst, const bf16* src, bool valid) {
+template <typename T>  // bf16 or float16
+__device__ __forceinline__ void stage16(float* dst, const T* src, bool valid) {
   if (valid) {
     widen16(dst, src);
   } else {
@@ -617,9 +638,8 @@ __global__ void __launch_bounds__(256) lstm_dwr_kernel(const AT* __restrict__ h,
         *reinterpret_cast<float2*>(dwr + (size_t)row * N + c) = v0;
         *reinterpret_cast<float2*>(dwr + (size_t)(row + 8) * N + c) = v1;
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(dwr + (size_t)row * N + c) = __float22bfloat162_rn(v0);
-        *reinterpret_cast<__nv_bfloat162*>(dwr + (size_t)(row + 8) * N + c) =
-            __float22bfloat162_rn(v1);
+        put2(dwr + (size_t)row * N + c, v0);
+        put2(dwr + (size_t)(row + 8) * N + c, v1);
       }
     }
 }
@@ -711,6 +731,14 @@ int bwd(const float* acts, const float* cs, const XT* hs, const WT* w_r, const f
 
 }  // namespace
 
+// The entries build in parts, one nvcc each, linked into one library
+// (ops/kernels/_build.py passes -DPT_PART=k; a build without it defines
+// every entry): part 0 the float32 entries, 1 the (xs, W) pairs with a bf16 operand, 2 those with a float16 one and float32, 3 the mixed bf16 / float16 pairs.
+#ifndef PT_PART
+#define PT_PART -1
+#endif
+#define PT_IN(k) (PT_PART < 0 || PT_PART == (k))
+
 // Each entry returns the first failing cudaError_t of its launches (0 =
 // launched).  D a multiple of 128 up to 640, any T, B >= 1; the caller
 // checks shapes.  cs / acts may be null when save_residuals is 0.  One
@@ -718,38 +746,84 @@ int bwd(const float* acts, const float* cs, const XT* hs, const WT* w_r, const f
 // W_r, those named _x<xs>_w<W_r> those element types.  hc is [T, B, D]
 // float32 scratch (hs itself for float xs), dg [T, B, 4D] float32
 // scratch (dxs itself for float xs).
+#if PT_IN(0)
 extern "C" int lstm_fwd_f32(const float* xs, const float* mask, const float* w_r,
     const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts, int T,
     int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w_r,
     const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts, int T,
     int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w_r,
     const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
     int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w_r,
     const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
     int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
 }
+#endif
+#if PT_IN(2)
+extern "C" int lstm_fwd_xf32_wf16(const float* xs, const float* mask, const f16* w_r,
+    const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int lstm_fwd_xf16_wf16(const f16* xs, const float* mask, const f16* w_r,
+    const float* checks, f16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int lstm_fwd_xf16_wf32(const f16* xs, const float* mask, const float* w_r,
+    const float* checks, f16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int lstm_fwd_xbf16_wf16(const bf16* xs, const float* mask, const f16* w_r,
+    const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int lstm_fwd_xf16_wbf16(const f16* xs, const float* mask, const bf16* w_r,
+    const float* checks, f16* hs, float* hc, float* cfin, float* cs, float* acts, int T,
+    int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, T, B, D, save_residuals, stream);
+}
+#endif
 
 // dW_r alone (the second launch of lstm_bwd_f32), from hs [T, B, D] and
 // dxs [T, B, 4D].
+#if PT_IN(0)
 extern "C" int lstm_dwr_f32(const float* hs, const float* dxs, float* dwr_out, int T, int B,
                             int D, void* stream) {
   if (!shape_ok(T, B, D)) return static_cast<int>(cudaErrorInvalidValue);
   return dwr(hs, dxs, dwr_out, T, B, D, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 // BPTT over reversed time, then dW_r.  dh_carry / dc_carry are [B, D]
 // scratch, part [2, D / 16, B, D] scratch; dchk is [B, 3D] per-row
 // partials.
+#if PT_IN(0)
 extern "C" int lstm_bwd_f32(const float* acts, const float* cs, const float* hs,
     const float* w_r, const float* checks, const float* mask, const float* dh_out,
     const float* dcfin, float* dxs, float* dwr_out, float* dchk, float* dh_carry,
@@ -757,6 +831,8 @@ extern "C" int lstm_bwd_f32(const float* acts, const float* cs, const float* hs,
   return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
              dc_carry, part, dg, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_bwd_xf32_wbf16(const float* acts, const float* cs, const float* hs,
     const bf16* w_r, const float* checks, const float* mask, const float* dh_out,
     const float* dcfin, float* dxs, bf16* dwr_out, float* dchk, float* dh_carry,
@@ -764,6 +840,8 @@ extern "C" int lstm_bwd_xf32_wbf16(const float* acts, const float* cs, const flo
   return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
              dc_carry, part, dg, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_bwd_xbf16_wbf16(const float* acts, const float* cs, const bf16* hs,
     const bf16* w_r, const float* checks, const float* mask, const bf16* dh_out,
     const float* dcfin, bf16* dxs, bf16* dwr_out, float* dchk, float* dh_carry,
@@ -771,6 +849,8 @@ extern "C" int lstm_bwd_xbf16_wbf16(const float* acts, const float* cs, const bf
   return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
              dc_carry, part, dg, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_bwd_xbf16_wf32(const float* acts, const float* cs, const bf16* hs,
     const float* w_r, const float* checks, const float* mask, const bf16* dh_out,
     const float* dcfin, bf16* dxs, float* dwr_out, float* dchk, float* dh_carry,
@@ -778,3 +858,49 @@ extern "C" int lstm_bwd_xbf16_wf32(const float* acts, const float* cs, const bf1
   return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
              dc_carry, part, dg, T, B, D, stream);
 }
+#endif
+#if PT_IN(2)
+extern "C" int lstm_bwd_xf32_wf16(const float* acts, const float* cs, const float* hs,
+    const f16* w_r, const float* checks, const float* mask, const float* dh_out,
+    const float* dcfin, float* dxs, f16* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int lstm_bwd_xf16_wf16(const float* acts, const float* cs, const f16* hs,
+    const f16* w_r, const float* checks, const float* mask, const f16* dh_out,
+    const float* dcfin, f16* dxs, f16* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int lstm_bwd_xf16_wf32(const float* acts, const float* cs, const f16* hs,
+    const float* w_r, const float* checks, const float* mask, const f16* dh_out,
+    const float* dcfin, f16* dxs, float* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int lstm_bwd_xbf16_wf16(const float* acts, const float* cs, const bf16* hs,
+    const f16* w_r, const float* checks, const float* mask, const bf16* dh_out,
+    const float* dcfin, bf16* dxs, f16* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int lstm_bwd_xf16_wbf16(const float* acts, const float* cs, const f16* hs,
+    const bf16* w_r, const float* checks, const float* mask, const f16* dh_out,
+    const float* dcfin, f16* dxs, bf16* dwr_out, float* dchk, float* dh_carry,
+    float* dc_carry, float* part, float* dg, int T, int B, int D, void* stream) {
+  return bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin, dxs, dwr_out, dchk, dh_carry,
+             dc_carry, part, dg, T, B, D, stream);
+}
+#endif

@@ -1,6 +1,6 @@
 // Gate-blocked peephole LSTM forward for Hopper (sm_90a), for the hidden
 // sizes whose W_r does not stay on chip (lean and residual-saving
-// variants), with an instance for each pair of float32 or bf16 xs and
+// variants), with an instance for each pair of float32, bf16 or float16 xs and
 // W_r.
 //
 // Replaces: paddle_tpu/ops/pallas/lstm_blocked.py :: lstm_fused_blocked
@@ -72,8 +72,8 @@
 //   instead of every CTA reading it, TMA loads, wgmma.
 //
 // Element types (the JAX kernel under the bf16 policy,
-//   lstm_blocked.py:73-74, 90): xs (and hs) is XT, W_r WT, each float
-//   or bf16; checks, mask, c_fin, cs and acts stay float32.  The prologue
+//   lstm_blocked.py:73-74, 90; float16 alike): xs (and hs) is XT, W_r
+//   WT, each float, bf16 or float16; checks, mask, c_fin, cs and acts stay float32.  The prologue
 //   widens the CTA's W_r columns to float32 as it repacks them (runs of
 //   U columns, a value a load: U need not be a multiple of 8), the cell
 //   widens xs, and the products, carries and cell are the float32
@@ -83,6 +83,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,6 +106,7 @@ constexpr int kStages = 2;        // cp.async ring depth
 constexpr int kSmemFloats = 232448 / 4;  // 227 KB, the opt-in maximum a block
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 template <typename XT, typename WT>
 struct Args {
@@ -134,6 +136,8 @@ __host__ __device__ constexpr bool is_f32() {
 __device__ __forceinline__ float wide(float x) { return x; }
 __device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float wide(f16 x) { return __half2float(x); }
+__device__ __forceinline__ void put(f16* p, float v) { *p = __float2half_rn(v); }
 
 // x = big + small as two TF32 operands (csrc/flash_attention.cu)
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
@@ -419,6 +423,14 @@ int fwd(const XT* xs, const float* mask, const WT* w_r, const float* checks, XT*
 
 }  // namespace
 
+// The entries build in parts, one nvcc each, linked into one library
+// (ops/kernels/_build.py passes -DPT_PART=k; a build without it defines
+// every entry): part 0 the float32 entries, 1 the (xs, W) pairs with a bf16 operand, 2 those with a float16 one and float32, 3 the mixed bf16 / float16 pairs.
+#ifndef PT_PART
+#define PT_PART -1
+#endif
+#define PT_IN(k) (PT_PART < 0 || PT_PART == (k))
+
 // Each entry returns the cudaError_t of the launch (0 = launched).  D
 // must be a multiple of 128 up to 4096, any T, B >= 1; the caller checks
 // shapes.  cs / acts may be null when save_residuals is 0.  wpack is
@@ -426,33 +438,83 @@ int fwd(const XT* xs, const float* mask, const WT* w_r, const float* checks, XT*
 // carry.  One signature for every instance: the entries named _f32 take
 // float xs and W_r, those named _x<xs>_w<W_r> those element types.  hc
 // is [T, B, D] float32 scratch (hs itself for float xs).
+#if PT_IN(0)
 extern "C" int lstm_blocked_fwd_f32(const float* xs, const float* mask, const float* w_r,
     const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts,
     float* wpack, int T, int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
              stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_blocked_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w_r,
     const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts,
     float* wpack, int T, int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
              stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_blocked_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w_r,
     const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts,
     float* wpack, int T, int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
              stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int lstm_blocked_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w_r,
     const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts,
     float* wpack, int T, int B, int D, int save_residuals, void* stream) {
   return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
              stream);
 }
+#endif
+#if PT_IN(2)
+extern "C" int lstm_blocked_fwd_xf32_wf16(const float* xs, const float* mask, const f16* w_r,
+    const float* checks, float* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int lstm_blocked_fwd_xf16_wf16(const f16* xs, const float* mask, const f16* w_r,
+    const float* checks, f16* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int lstm_blocked_fwd_xf16_wf32(const f16* xs, const float* mask, const float* w_r,
+    const float* checks, f16* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int lstm_blocked_fwd_xbf16_wf16(const bf16* xs, const float* mask, const f16* w_r,
+    const float* checks, bf16* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int lstm_blocked_fwd_xf16_wbf16(const f16* xs, const float* mask, const bf16* w_r,
+    const float* checks, f16* hs, float* hc, float* cfin, float* cs, float* acts,
+    float* wpack, int T, int B, int D, int save_residuals, void* stream) {
+  return fwd(xs, mask, w_r, checks, hs, hc, cfin, cs, acts, wpack, T, B, D, save_residuals,
+             stream);
+}
+#endif
 
 // Floats of the wpack scratch lstm_blocked_fwd_f32 takes at hidden size D.
+#if PT_IN(0)
 extern "C" long long lstm_blocked_wpack_floats(int D) {
   const long long ncp = (4 * (D / 128) + 7) / 8 * 8;
   return (long long)kCtas * D * ncp;
 }
+#endif

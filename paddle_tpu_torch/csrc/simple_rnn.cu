@@ -1,6 +1,6 @@
 // Fused whole-sequence vanilla RNN for Hopper (sm_90a): the forward, the
 // BPTT backward and the dW product, every product on the tensor cores in
-// 3xTF32, with an instance for each pair of float32 or bf16 xs and W.
+// 3xTF32, with an instance for each pair of float32, bf16 or float16 xs and W.
 //
 // Replaces: paddle_tpu/ops/pallas/simple_rnn.py :: simple_rnn_fused
 //   forward  pallas_call at :74 (body _fwd_kernel :22)
@@ -77,8 +77,8 @@
 //   Later work (ROADMAP B11): barriers over a b-group's CTAs alone,
 //   sharing a b-block's rows across a cluster, wgmma with TMA loads.
 //
-// Element types (the JAX kernels under the bf16 policy): xs (and with it
-//   hs, dh_out, dxs) is XT, W (and dW) is WT, each float or bf16 (the
+// Element types (the JAX kernels under the bf16 or float16 policy): xs (and with it
+//   hs, dh_out, dxs) is XT, W (and dW) is WT, each float, bf16 or float16 (the
 //   policy casts every weight: float or bf16 xs with a bf16 W; a direct
 //   call may pass bf16 xs with a float W).  Every
 //   operand is widened to float32 on load: W into the resident slice, a
@@ -96,6 +96,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -124,6 +125,7 @@ constexpr int kRegion = kStages * kStage;    // the ring, then the partial tiles
 static_assert(kRegion >= kWarps * kRows * kPP, "the partial tiles fit in the ring");
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 template <typename XT, typename WT>
 struct Args {
@@ -147,6 +149,16 @@ __host__ __device__ constexpr bool is_f32() {
 __device__ __forceinline__ float wide(float x) { return x; }
 __device__ __forceinline__ float wide(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float wide(f16 x) { return __half2float(x); }
+__device__ __forceinline__ void put(f16* p, float v) { *p = __float2half_rn(v); }
+// two adjacent outputs rounded once to the element type
+__device__ __forceinline__ void put2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void put2(bf16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+__device__ __forceinline__ void put2(f16* p, float2 v) {
+  *reinterpret_cast<__half2*>(p) = __float22half2_rn(v);
+}
 
 // the 16 bytes at src (16-byte aligned) widened to 16 / sizeof(T) floats
 // at dst (16-byte aligned)
@@ -158,6 +170,14 @@ __device__ __forceinline__ void widen16(float* dst, const bf16* src) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
   const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+__device__ __forceinline__ void widen16(float* dst, const f16* src) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+  const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+  const float2 c = __half22float2(h[2]), d = __half22float2(h[3]);
   reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
@@ -205,7 +225,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 __device__ __forceinline__ void stage16(float* dst, const float* src, bool valid) {
   cp_async16(dst, src, valid);
 }
-__device__ __forceinline__ void stage16(float* dst, const bf16* src, bool valid) {
+template <typename T>  // bf16 or float16
+__device__ __forceinline__ void stage16(float* dst, const T* src, bool valid) {
   if (valid) {
     widen16(dst, src);
   } else {
@@ -520,8 +541,8 @@ __global__ void __launch_bounds__(256) simple_rnn_dw_kernel(const AT* __restrict
             *o0 = v0;
             *o1 = v1;
           } else {
-            *reinterpret_cast<__nv_bfloat162*>(out + i0) = __float22bfloat162_rn(v0);
-            *reinterpret_cast<__nv_bfloat162*>(out + i1) = __float22bfloat162_rn(v1);
+            put2(out + i0, v0);
+            put2(out + i1, v1);
           }
         }
     }
@@ -623,53 +644,152 @@ int bwd(const XT* hs, const WT* w, const float* mask, const XT* dh_out, XT* dxs,
 
 }  // namespace
 
+// The entries build in parts, one nvcc each, linked into one library
+// (ops/kernels/_build.py passes -DPT_PART=k; a build without it defines
+// every entry): part 0 the float32 entries, 1 the (xs, W) pairs with a bf16 operand, 2 those with a float16 one and float32, 3 the mixed bf16 / float16 pairs.
+#ifndef PT_PART
+#define PT_PART -1
+#endif
+#define PT_IN(k) (PT_PART < 0 || PT_PART == (k))
+
 // Each entry returns the first failing cudaError_t of its launches (0 =
 // launched).  D must be a multiple of 128 up to 1280; the caller checks
 // shapes.  One signature for every instance: the entries named _f32 take
 // float xs and W, those named _x<xs>_w<W> those element types.  hc is
 // [T, B, D] float32 scratch (hs itself for float xs), dg likewise (dxs
 // itself), dw32 [D, D] float32 (dw itself for a float W).
+#if PT_IN(0)
 extern "C" int simple_rnn_fwd_f32(const float* xs, const float* mask, const float* w,
                                   float* hs, float* hc, int T, int B, int D, void* stream) {
   return fwd(xs, mask, w, hs, hc, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int simple_rnn_fwd_xf32_wbf16(const float* xs, const float* mask, const bf16* w,
                                          float* hs, float* hc, int T, int B, int D,
                                          void* stream) {
   return fwd(xs, mask, w, hs, hc, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int simple_rnn_fwd_xbf16_wbf16(const bf16* xs, const float* mask, const bf16* w,
                                           bf16* hs, float* hc, int T, int B, int D,
                                           void* stream) {
   return fwd(xs, mask, w, hs, hc, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int simple_rnn_fwd_xbf16_wf32(const bf16* xs, const float* mask, const float* w,
                                          bf16* hs, float* hc, int T, int B, int D,
                                          void* stream) {
   return fwd(xs, mask, w, hs, hc, T, B, D, stream);
 }
+#endif
+#if PT_IN(2)
+extern "C" int simple_rnn_fwd_xf32_wf16(const float* xs, const float* mask, const f16* w,
+                                         float* hs, float* hc, int T, int B, int D,
+                                         void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int simple_rnn_fwd_xf16_wf16(const f16* xs, const float* mask, const f16* w,
+                                         f16* hs, float* hc, int T, int B, int D,
+                                         void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int simple_rnn_fwd_xf16_wf32(const f16* xs, const float* mask, const float* w,
+                                         f16* hs, float* hc, int T, int B, int D,
+                                         void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int simple_rnn_fwd_xbf16_wf16(const bf16* xs, const float* mask, const f16* w,
+                                         bf16* hs, float* hc, int T, int B, int D,
+                                         void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int simple_rnn_fwd_xf16_wbf16(const f16* xs, const float* mask, const bf16* w,
+                                         f16* hs, float* hc, int T, int B, int D,
+                                         void* stream) {
+  return fwd(xs, mask, w, hs, hc, T, B, D, stream);
+}
+#endif
 
 // BPTT over reversed time, then dW.  dh_buf is [B, D] scratch.
+#if PT_IN(0)
 extern "C" int simple_rnn_bwd_f32(const float* hs, const float* w, const float* mask,
                                   const float* dh_out, float* dxs, float* dw_out, float* dh_buf,
                                   float* dg, float* dw32, int T, int B, int D, void* stream) {
   return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int simple_rnn_bwd_xf32_wbf16(const float* hs, const bf16* w, const float* mask,
                                          const float* dh_out, float* dxs, bf16* dw_out,
                                          float* dh_buf, float* dg, float* dw32, int T, int B,
                                          int D, void* stream) {
   return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int simple_rnn_bwd_xbf16_wbf16(const bf16* hs, const bf16* w, const float* mask,
                                           const bf16* dh_out, bf16* dxs, bf16* dw_out,
                                           float* dh_buf, float* dg, float* dw32, int T, int B,
                                           int D, void* stream) {
   return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
 }
+#endif
+#if PT_IN(1)
 extern "C" int simple_rnn_bwd_xbf16_wf32(const bf16* hs, const float* w, const float* mask,
                                          const bf16* dh_out, bf16* dxs, float* dw_out,
                                          float* dh_buf, float* dg, float* dw32, int T, int B,
                                          int D, void* stream) {
   return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
 }
+#endif
+#if PT_IN(2)
+extern "C" int simple_rnn_bwd_xf32_wf16(const float* hs, const f16* w, const float* mask,
+                                         const float* dh_out, float* dxs, f16* dw_out,
+                                         float* dh_buf, float* dg, float* dw32, int T, int B,
+                                         int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int simple_rnn_bwd_xf16_wf16(const f16* hs, const f16* w, const float* mask,
+                                         const f16* dh_out, f16* dxs, f16* dw_out,
+                                         float* dh_buf, float* dg, float* dw32, int T, int B,
+                                         int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+#endif
+#if PT_IN(2)
+extern "C" int simple_rnn_bwd_xf16_wf32(const f16* hs, const float* w, const float* mask,
+                                         const f16* dh_out, f16* dxs, float* dw_out,
+                                         float* dh_buf, float* dg, float* dw32, int T, int B,
+                                         int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int simple_rnn_bwd_xbf16_wf16(const bf16* hs, const f16* w, const float* mask,
+                                         const bf16* dh_out, bf16* dxs, f16* dw_out,
+                                         float* dh_buf, float* dg, float* dw32, int T, int B,
+                                         int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+#endif
+#if PT_IN(3)
+extern "C" int simple_rnn_bwd_xf16_wbf16(const f16* hs, const bf16* w, const float* mask,
+                                         const f16* dh_out, f16* dxs, bf16* dw_out,
+                                         float* dh_buf, float* dg, float* dw32, int T, int B,
+                                         int D, void* stream) {
+  return bwd(hs, w, mask, dh_out, dxs, dw_out, dh_buf, dg, dw32, T, B, D, stream);
+}
+#endif

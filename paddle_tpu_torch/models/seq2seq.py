@@ -17,8 +17,8 @@ The encoder's two GRUs are ``ops/rnn.gru`` (the GRU kernels on the card
 where ``gru.supported`` holds).  The teacher-forced decoder is a Python
 loop over the target steps of ``gru_cell`` steps: in JAX it is a
 ``lax.scan`` that reaches no kernel, so it is plain PyTorch here.
-Beam-search ``generate`` waits for ``ops/beam.beam_search`` (ROADMAP
-A10).
+``generate`` decodes by ``ops/beam.beam_search``, ``greedy_generate`` by
+``greedy_search``, each step the same decoder step.
 """
 
 import numpy as np
@@ -152,12 +152,34 @@ def loss(params, src: SequenceBatch, trg_in: SequenceBatch,
 
 
 def generate(params, src: SequenceBatch, beam_size=5, max_len=50, bos_id=0,
-             eos_id=1, length_penalty=0.0):
-    """Beam-search translation: not yet ported (``ops/beam.beam_search``,
-    ROADMAP A10)."""
-    raise NotImplementedError("seq2seq.generate needs ops/beam.beam_search, "
-                              "not yet ported to paddle_tpu_torch "
-                              "(ROADMAP A10); greedy_generate is")
+             eos_id=1, length_penalty=0.0, trace=None):
+    """Beam-search translation (``seq2seq.py:121-139``; the reference's
+    gen_trans_file / SequenceGenerator) -> ``ops.beam.BeamResult``: the
+    encoder's states, projections and boot state tiled lane-major (each
+    row's K lanes together), the decoder step as the lane-major step
+    function.  Runs without autograd, so that the encoder takes the lean
+    GRU forward even on parameters that require gradients.  ``trace``:
+    as ``beam_search``'s."""
+    with torch.no_grad():
+        b = src.data.shape[0]
+        enc, enc_proj, boot = encode(params, src)
+
+        def tile(x):
+            return x.repeat_interleave(beam_size, dim=0)
+
+        enc_l = SequenceBatch(tile(enc.data), tile(enc.lengths))
+        proj_l = SequenceBatch(tile(enc_proj.data), tile(enc_proj.lengths))
+
+        def step_fn(state, prev_ids):
+            emb_t = emb_ops.embedding_lookup(params["trg_emb"], prev_ids)
+            new_state, logits = _dec_step(params, enc_l, proj_l, state,
+                                          emb_t)
+            return torch.log_softmax(logits, dim=-1), new_state
+
+        return beam_ops.beam_search(step_fn, tile(boot), b, beam_size,
+                                    max_len, bos_id, eos_id,
+                                    length_penalty=length_penalty,
+                                    trace=trace)
 
 
 def greedy_generate(params, src: SequenceBatch, max_len=50, bos_id=0,

@@ -50,9 +50,13 @@ mixture's load-balance loss (``moe_aux_weight``).  ``encode`` /
 ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` does).
 
+The MT model decodes by beam search (``generate_cached``, the serving
+path: an incremental step over per-layer K/V caches, the cross-attention
+K/V computed once; ``generate``, the full-recompute oracle), every
+attention on the masked plain path as in the JAX package.
+
 Not ported (ROADMAP): tensor-parallel ``shard_axis`` and the
-sequence-parallel ring (``mesh``, ``zigzag``; A12), and beam-search
-generation (A7).
+sequence-parallel ring (``mesh``, ``zigzag``; A12).
 """
 
 import math
@@ -62,7 +66,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import attention as attn_ops
+from paddle_tpu_torch.ops import beam as beam_ops
 from paddle_tpu_torch.ops import embedding as emb_ops
 from paddle_tpu_torch.ops import linear, losses
 from paddle_tpu_torch.ops import moe as moe_ops
@@ -357,7 +363,16 @@ def _kv_commit(c, upd, k_set, v_set, sk, sv):
     """Apply the K/V (and sidecar) writes through ``upd(buffer, value)``,
     which writes in place (the JAX callers donate the cache).  Readers
     then take the sidecars as ``c.get("ks")``/``c.get("vs")``, None on
-    the float path."""
+    the float path.  A write in another dtype than its buffer's raises
+    TypeError, as JAX's ``dynamic_update_slice`` does: a trunk cast to
+    bf16 sizes its cache in bf16 and writes ``matmul``'s float32 K/V
+    into it, which both packages refuse."""
+    for name, val in (("k", k_set), ("v", v_set)):
+        if c[name].dtype != val.dtype:
+            raise TypeError(
+                f"KV cache write: the {name} buffer is {c[name].dtype}, the "
+                f"values {val.dtype} (a cache write keeps its buffer's "
+                "dtype; a trunk cast to bf16 writes float32 K/V)")
     upd(c["k"], k_set)
     upd(c["v"], v_set)
     if sk is not None:
@@ -1131,3 +1146,131 @@ def lm_loss(params, tokens, num_heads=8, segment_ids=None, positions=None,
     w = valid.to(per_tok.dtype)
     ce = (per_tok * w).sum() / torch.clamp(w.sum(), min=1.0)
     return ce + moe_aux_weight * aux
+
+
+# ------------------------------------------- cached decode (MT beam search)
+
+def init_decode_cache(params, enc_out, max_len):
+    """Per-decoder-layer self-attention K/V buffers ([B, max_len, D]
+    zeros, written one position a step): a list of ``{"k", "v"}``, which
+    ``beam_search`` reindexes by surviving lane each step.  The
+    cross-attention K/V are not here (``cross_kv``: they never change
+    during decode).  ``max_len`` past the positional table raises, as the
+    full-decode oracle would."""
+    if max_len > params["pos"].shape[0]:
+        raise ValueError(
+            f"decode max_len {max_len} exceeds the positional table "
+            f"({params['pos'].shape[0]}); re-init the model with a larger "
+            "max_len")
+    b, _, d = enc_out.shape
+    return [{"k": enc_out.new_zeros((b, max_len, d)),
+             "v": enc_out.new_zeros((b, max_len, d))}
+            for _ in params["dec"]]
+
+
+def cross_kv(params, enc_out):
+    """Per-decoder-layer cross-attention K/V, computed once a source."""
+    return [{"xk": linear.matmul(enc_out, blk["xattn"]["wk"]),
+             "xv": linear.matmul(enc_out, blk["xattn"]["wv"])}
+            for blk in params["dec"]]
+
+
+def decode_step_cached(params, src_mask, prev_ids, t, cache, cross,
+                       num_heads=8):
+    """One incremental decode position ``t`` (a Python int) for the whole
+    batch: prev_ids [B] (the token at position t), ``cross`` from
+    ``cross_kv`` -> (logits [B, V_trg], cache), the cache written in
+    place.  Column t of the full ``decode`` over the same prefix.  Every
+    attention is the masked plain path (``_attend``), as in the JAX
+    package: no kernel."""
+    dev = params["trg_emb"].device
+    prev_ids = _ids(prev_ids, dev)
+    b = prev_ids.shape[0]
+    max_len = cache[0]["k"].shape[1]
+    x = emb_ops.embedding_lookup(params["trg_emb"], prev_ids)[:, None]
+    x = x * math.sqrt(x.shape[-1]) + params["pos"][t][None, None]
+    pos_mask = (torch.arange(max_len, device=dev) <= t)[None].expand(
+        b, max_len)
+    src_keys = src_mask > 0
+    for blk, c, cx in zip(params["dec"], cache, cross):
+        x = _cached_self_attn(blk, x, c, t, pos_mask, num_heads)
+        xq = linear.matmul(_ln(blk["ln_x"], x), blk["xattn"]["wq"])
+        xat = _attend(xq, cx["xk"], cx["xv"], num_heads, src_keys)
+        x = x + linear.matmul(xat, blk["xattn"]["wo"])
+        x = x + _ffn(blk["ffn"], _ln(blk["ln2"], x))
+    x = _ln(params["ln_f"], x)
+    return linear.matmul(x, params["out"])[:, 0], cache
+
+
+def _beam_setup(params, src, beam_size, num_heads, moe_top_k=2):
+    """The two beam decoders' preamble: the source on the parameters'
+    device, encoded once (its key mask makes every encoder attention the
+    masked plain path, as in the JAX package) and tiled lane-major ->
+    (B, B*K, encoder states [B*K, Ts, D], source mask [B*K, Ts])."""
+    dev = params["src_emb"].device
+    src = SequenceBatch(_ids(src.data, dev), _ids(src.lengths, dev))
+    b = src.data.shape[0]
+    enc_out = encode(params, src, num_heads, moe_top_k=moe_top_k)
+    return (b, b * beam_size, enc_out.repeat_interleave(beam_size, dim=0),
+            src.mask().repeat_interleave(beam_size, dim=0))
+
+
+def generate_cached(params, src, beam_size=4, max_len=64, bos_id=0,
+                    eos_id=1, num_heads=8, length_penalty=0.6, moe_top_k=2,
+                    trace=None):
+    """Beam decode with KV-cached incremental steps (``transformer.py:
+    579-601``), the serving-path decoder: each step attends its new
+    position over the cache, O(T) a token.  ``src`` is a
+    ``SequenceBatch`` of source ids [B, Ts]; returns ``ops.beam.
+    BeamResult``.  The cross-attention K/V are computed once and shared
+    by every step; the step's position is a host int (the beam state
+    carries only the cache).  Runs without autograd; an int8 weight tree
+    is dequantized once.  ``trace``: as ``beam_search``'s."""
+    params = _maybe_dequant(params)
+    with torch.no_grad():
+        b, bk, enc_l, src_mask_l = _beam_setup(params, src, beam_size,
+                                               num_heads, moe_top_k)
+        cross = cross_kv(params, enc_l)
+        pos = [0]
+
+        def step_fn(cache, prev_ids):
+            logits, cache = decode_step_cached(params, src_mask_l, prev_ids,
+                                               pos[0], cache, cross,
+                                               num_heads)
+            pos[0] += 1
+            return torch.log_softmax(logits, dim=-1), cache
+
+        return beam_ops.beam_search(
+            step_fn, init_decode_cache(params, enc_l, max_len), b,
+            beam_size, max_len, bos_id, eos_id,
+            length_penalty=length_penalty, trace=trace)
+
+
+def generate(params, src, beam_size=4, max_len=64, bos_id=0, eos_id=1,
+             num_heads=8, length_penalty=0.6, moe_top_k=2, trace=None):
+    """Beam decode whose every step re-runs the full decoder over the
+    whole prefix (``transformer.py:604-626``): the numerics oracle for
+    ``generate_cached``.  The beam state is the lanes' token rows [B*K,
+    max_len]; the step's position a host int."""
+    params = _maybe_dequant(params)
+    with torch.no_grad():
+        b, bk, enc_l, src_mask_l = _beam_setup(params, src, beam_size,
+                                               num_heads, moe_top_k)
+        pos = [0]
+
+        def step_fn(toks, prev_ids):
+            t = pos[0]
+            toks[:, t] = prev_ids
+            lengths = torch.full((bk,), t + 1, dtype=torch.int32,
+                                 device=toks.device)
+            logits = decode(params, enc_l, src_mask_l,
+                            SequenceBatch(toks, lengths), num_heads)
+            pos[0] += 1
+            return torch.log_softmax(logits[:, t], dim=-1), toks
+
+        init = torch.full((bk, max_len), eos_id, dtype=torch.int32,
+                          device=enc_l.device)
+        return beam_ops.beam_search(step_fn, init, b, beam_size, max_len,
+                                    bos_id, eos_id,
+                                    length_penalty=length_penalty,
+                                    trace=trace)

@@ -40,8 +40,9 @@ def reset_launches():
     lstm_blocked.launches_fwd = 0
     simple_rnn.launches_fwd = 0
     simple_rnn.launches_bwd = 0
-    for mod in (gru, lstm, lstm_blocked, simple_rnn):
-        mod.launches_bf16.clear()
+    for mod in (decode_attention, flash_attention, gru, lstm, lstm_blocked,
+                simple_rnn):
+        mod.launches_low.clear()
 
 
 __all__ = ["decode_attention", "flash_attention", "gru", "lstm",

@@ -8,7 +8,11 @@ take minutes to build; a plain C interface takes seconds.
 Libraries land in ``paddle_tpu_torch/_build/`` (git-ignored), named by a
 hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  ``build_all`` starts one ``nvcc`` per
-source together and waits for all of them.
+source together and waits for all of them.  A source in ``PARTS`` builds
+as that many objects, each by its own ``nvcc`` with ``-DPT_PART=k`` (the
+source defines part k's C entries, ``PT_IN(k)``), all at once, then
+linked into its one library: its instances take most of a build, and one
+``nvcc`` compiles on one core.
 """
 
 import ctypes
@@ -24,6 +28,13 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
+# sources built in parts: part 0 holds the float32 (and int8) entries,
+# the others the low-precision instances (the sources' PT_IN)
+PARTS = {"flash_attention": 2, "gru": 4, "lstm": 4, "lstm_blocked": 4,
+         "simple_rnn": 4}
+# the flags of a build of part 0 alone: the float32 entries, which the
+# probes (scripts/probe_*.py) build their variants from
+F32_PART = ("-DPT_PART=0",)
 
 _lock = threading.Lock()
 _libs = {}
@@ -44,30 +55,50 @@ def _nvcc():
 def _target(name):
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()
+                                + str(PARTS.get(name, 1)).encode())
     return src, os.path.join(BUILD_DIR,
                              f"{name}.{digest.hexdigest()[:16]}.so")
 
 
+def _nvcc_proc(args):
+    return subprocess.Popen([_nvcc(), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+
+def _wait(name, proc):
+    out = proc.communicate()[0].decode(errors="replace")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(rc {proc.returncode}):\n{out}")
+
+
 def _start(name):
-    """Start nvcc for ``name`` unless its library is built; returns
-    (process or None, temp path, final path)."""
+    """Start nvcc for ``name`` (one process, or one a part) unless its
+    library is built; returns (processes, temp path, final path)."""
     src, so = _target(name)
     if os.path.exists(so):
-        return None, None, so
+        return [], None, so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.Popen([_nvcc(), *FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, tmp, so
+    parts = PARTS.get(name)
+    if parts is None:
+        return [_nvcc_proc([*FLAGS, "-o", tmp, src])], tmp, so
+    compile_flags = [f for f in FLAGS if f != "-shared"]
+    return [_nvcc_proc([*compile_flags, f"-DPT_PART={k}", "-c", "-o",
+                        f"{tmp}.{k}.o", src]) for k in range(parts)], tmp, so
 
 
-def _finish(name, proc, tmp, so):
-    if proc is not None:
-        out = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(rc {proc.returncode}):\n{out}")
+def _finish(name, procs, tmp, so):
+    if tmp is not None:
+        for proc in procs:
+            _wait(name, proc)
+        parts = PARTS.get(name)
+        if parts is not None:     # link the parts into the library
+            objs = [f"{tmp}.{k}.o" for k in range(parts)]
+            _wait(name, _nvcc_proc([*FLAGS, "-o", tmp, *objs]))
+            for obj in objs:
+                os.remove(obj)
         os.replace(tmp, so)       # atomic: a concurrent loader sees all
     return so
 

@@ -38,8 +38,9 @@ def flash_head_dim(dh):
 
 # the dtypes the recurrent kernels read and write an operand in (each
 # pair of xs and weight dtypes has an instance, ``suffix`` names it)
-RNN_DTYPES = (torch.float32, torch.bfloat16)
-_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+RNN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16",
+          torch.float16: "f16"}
 
 
 def tensors(name, dtypes, **named):
@@ -83,11 +84,22 @@ def suffix(xs_dtype, w_dtype):
     dtypes (each in RNN_DTYPES): ``f32`` for float32 with float32 (the
     float32 kernels), else ``x<xs>_w<W>``.  Under the bf16 policy the
     JAX kernels receive ``xf32_wbf16`` (behind an fc) and
-    ``xbf16_wbf16`` (fed by an embedding); ``xbf16_wf32`` is a direct
+    ``xbf16_wbf16`` (fed by an embedding), under the float16 policy
+    ``xf32_wf16`` and ``xf16_wf16``; the other pairs are a direct
     call's."""
     if xs_dtype == w_dtype == torch.float32:
         return "f32"
     return f"x{_SHORT[xs_dtype]}_w{_SHORT[w_dtype]}"
+
+
+def operand_suffix(**operands):
+    """The row name of an attention kernel's instance for these operand
+    tensors: ``f32`` where every one is float32, else each operand's
+    name and dtype (``qbf16_kf32_vbf16``)."""
+    if all(t.dtype == torch.float32 for t in operands.values()):
+        return "f32"
+    short = {**_SHORT, torch.int8: "i8"}
+    return "_".join(f"{name}{short[t.dtype]}" for name, t in operands.items())
 
 
 def f32_scratch(out):
@@ -98,9 +110,9 @@ def f32_scratch(out):
     return torch.empty(out.shape, dtype=torch.float32, device=out.device)
 
 
-def count_bf16(counts, name, sfx):
+def count_low(counts, name, sfx):
     """One launch of the instance ``sfx`` of kernel ``name`` in
-    ``counts`` (a wrapper's ``launches_bf16``, by row name
+    ``counts`` (a wrapper's ``launches_low``, by row name
     ``<name>[<sfx>]``) unless it is the float32 one."""
     if sfx != "f32":
         key = f"{name}[{sfx}]"

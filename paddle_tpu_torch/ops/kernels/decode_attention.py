@@ -27,6 +27,13 @@ takes and which ``chip_smoke.py`` holds the kernel against on the card
 the product the int8 kernels form in registers).  Each kernel, float32
 and int8, has its own ``launches`` counter.
 
+Operand dtypes, as JAX's kernels take them: q, k and v each float32 or
+bf16 (q also bf16 over an int8 cache), the output in q's dtype.  The
+kernels widen a bf16 operand as they load it and compute as over
+float32; the operands' dtypes reach them as bits (``_dts``), and each
+combination with a bf16 operand counts as its own instance
+(``launches_low``).  The plain versions widen and round alike.
+
 Head dims: any up to 128 and the multiples of 128 up to ``MAX_HEAD_DIM``
 -- the TPU kernels' lane-tileable widths (JAX's ``_mosaic_ok``); the
 kernel pads a head to its compiled width.  ``covers`` is the route's
@@ -71,18 +78,27 @@ launches_i8 = 0              # decode_attention_slab_chunk, int8 cache
 launches_slab_i8 = 0
 launches_paged_i8 = 0
 launches_paged_chunk_i8 = 0
+# launches with a bf16 operand since the last reset, by row name
+# ("<NAME>[<operands>]", ``_check.operand_suffix``); the counters above
+# count every launch
+launches_low = {}
 
 # C entry -> (pointer args, int args): every entry ends (float scale,
 # cudaStream_t); an _i8 entry takes the two scale pointers after k/v,
-# every entry its scratch and tickets after out
-_SIGNATURES = {"decode_attention_slab_chunk_f32": (7, 6),
-               "decode_attention_slab_f32": (7, 5),
-               "decode_attention_paged_chunk_f32": (8, 7),
-               "decode_attention_paged_f32": (8, 6),
-               "decode_attention_slab_chunk_i8": (9, 6),
-               "decode_attention_slab_i8": (9, 5),
-               "decode_attention_paged_chunk_i8": (10, 7),
-               "decode_attention_paged_i8": (10, 6)}
+# every entry its scratch and tickets after out and the operands'
+# dtype bits as its last int.  The _f32 entries take a float32 or bf16
+# cache, the _i8 ones an int8 cache.
+_SIGNATURES = {"decode_attention_slab_chunk_f32": (7, 7),
+               "decode_attention_slab_f32": (7, 6),
+               "decode_attention_paged_chunk_f32": (8, 8),
+               "decode_attention_paged_f32": (8, 7),
+               "decode_attention_slab_chunk_i8": (9, 7),
+               "decode_attention_slab_i8": (9, 6),
+               "decode_attention_paged_chunk_i8": (10, 8),
+               "decode_attention_paged_i8": (10, 7)}
+# the bits of a launch's operand dtypes (csrc/decode_attention.cu: kQ,
+# kK, kV): bf16 q (and out), k, v
+_BITS = (1, 2, 4)
 
 
 # the widest head the kernels compile
@@ -196,9 +212,10 @@ def _check_scales(name, kscale, vscale, k, v, hkv):
 
 
 def _widen(k, v, kscale, vscale):
-    """The float32 K/V the kernels attend: an int8 cache dequantized."""
+    """The float32 K/V the kernels attend: an int8 cache dequantized, a
+    bf16 one widened."""
     if kscale is None:
-        return k, v
+        return k.float(), v.float()
     return dequantize_heads(k, kscale), dequantize_heads(v, vscale)
 
 
@@ -215,9 +232,11 @@ def _chain(pool, tables, span_end):
 
 
 def _masked(q, k, v, qpos, num_heads):
-    """Lane (r, i) of q [S, K, D] attends k/v [S, T, Dkv] at cols <=
-    qpos[r, i]; rows whose lanes all repeat lane 0's position (a decode
-    row) give exact zeros on lanes 1..K-1, as the kernel writes them."""
+    """Lane (r, i) of q [S, K, D] attends the float32 k/v [S, T, Dkv] at
+    cols <= qpos[r, i], in float32, rounded once to q's dtype; rows
+    whose lanes all repeat lane 0's position (a decode row) give exact
+    zeros on lanes 1..K-1, as the kernel writes them."""
+    dtype, q = q.dtype, q.float()
     s, kk, d = q.shape
     t, dkv = k.shape[1], k.shape[2]
     h = num_heads
@@ -235,7 +254,7 @@ def _masked(q, k, v, qpos, num_heads):
     decode_row = qpos[:, kk - 1] == qpos[:, 0]
     live = (torch.arange(kk, device=q.device)[None, :] == 0) \
         | ~decode_row[:, None]
-    return torch.where(live[..., None], out, torch.zeros_like(out))
+    return torch.where(live[..., None], out, torch.zeros_like(out)).to(dtype)
 
 
 # ------------------------------------------------------------- plain versions
@@ -287,17 +306,32 @@ def decode_attention_paged_plain(q, k, v, positions, tables, num_heads, *,
 # ------------------------------------------------------------- wrappers
 
 _F32, _I32 = torch.float32, torch.int32
-_DTYPES = {"q": _F32, "qpos": _I32, "positions": _I32, "tables": _I32,
+_FLOATS = (_F32, torch.bfloat16)
+_DTYPES = {"q": _FLOATS, "qpos": _I32, "positions": _I32, "tables": _I32,
            "kscale": _F32, "vscale": _F32}
 
 
 def _device(name, quant, **named):
     """Check every operand given (one device, dtype, contiguous, 16-byte
-    aligned): k/v int8 on an int8 cache, float32 otherwise.  Returns the
-    device."""
-    kv = torch.int8 if quant else _F32
+    aligned): k/v int8 on an int8 cache, float32 or bf16 otherwise.
+    Returns the device."""
+    kv = torch.int8 if quant else _FLOATS
     return _check.tensors(name, dict(_DTYPES, k=kv, v=kv),
                           **{a: t for a, t in named.items() if t is not None})
+
+
+def _dts(q, k, v):
+    """The bf16 bits of (q, k, v)'s dtypes: 0 for float32 (or int8)."""
+    return sum(bit for bit, x in zip(_BITS, (q, k, v))
+               if x.dtype == torch.bfloat16)
+
+
+def _count_low(name, q, k, v):
+    """One launch of ``name`` with these operands in ``launches_low``,
+    unless none is bf16."""
+    if _dts(q, k, v):
+        _check.count_low(launches_low, name,
+                         _check.operand_suffix(q=q, k=k, v=v))
 
 
 # The kernels' operands beside their inputs, one of each per device,
@@ -364,11 +398,11 @@ def _launch(entry, *args):
 
 def decode_attention_slab_chunk(q, k, v, qpos, num_heads, *, kscale=None,
                                 vscale=None):
-    """q [S, K, D] f32, k/v [S, T, Dkv] (the cache, already holding this
+    """q [S, K, D], k/v [S, T, Dkv] (the cache, already holding this
     step's writes), qpos [S, K] int32 per-lane positions (non-decreasing
-    per row) -> [S, K, D].  k/v float32, or int8 with kscale/vscale
-    [S, T, Hkv] f32.  CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
+    per row) -> [S, K, D] in q's dtype.  q float32 or bf16; k/v float32
+    or bf16, or int8 with kscale/vscale [S, T, Hkv] f32.  CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
     global launches, launches_i8
     s, kk, t, h, hkv, dh = _slab_shapes(NAME, q, k, v, qpos, num_heads)
     quant = _check_scales(NAME, kscale, vscale, k, v, hkv)
@@ -382,19 +416,21 @@ def decode_attention_slab_chunk(q, k, v, qpos, num_heads, *, kscale=None,
     scale = 1.0 / math.sqrt(dh)
     if quant:
         _launch("decode_attention_slab_chunk_i8", q, k, v, kscale, vscale,
-                qpos, out, part, tickets, s, kk, t, h, hkv, dh, scale)
+                qpos, out, part, tickets, s, kk, t, h, hkv, dh,
+                _dts(q, k, v), scale)
         launches_i8 += 1
     else:
         _launch("decode_attention_slab_chunk_f32", q, k, v, qpos, out, part,
-                tickets, s, kk, t, h, hkv, dh, scale)
+                tickets, s, kk, t, h, hkv, dh, _dts(q, k, v), scale)
         launches += 1
+    _count_low(NAME_I8 if quant else NAME, q, k, v)
     return out
 
 
 def decode_attention_slab(q, k, v, positions, num_heads, *, kscale=None,
                           vscale=None):
-    """q [S, D] f32, k/v [S, T, Dkv] (float32, or int8 with kscale/vscale
-    [S, T, Hkv]), positions [S] int32 -> [S, D]: row r's query attends
+    """q [S, D], k/v [S, T, Dkv] (float32 or bf16, or int8 with
+    kscale/vscale [S, T, Hkv]), positions [S] int32 -> [S, D]: row r's query attends
     its stripe at cols <= positions[r]."""
     global launches_slab, launches_slab_i8
     s, _kk, t, h, hkv, dh = _slab_shapes(NAME_SLAB, q, k, v, positions,
@@ -410,19 +446,22 @@ def decode_attention_slab(q, k, v, positions, num_heads, *, kscale=None,
     scale = 1.0 / math.sqrt(dh)
     if quant:
         _launch("decode_attention_slab_i8", q, k, v, kscale, vscale,
-                positions, out, part, tickets, s, t, h, hkv, dh, scale)
+                positions, out, part, tickets, s, t, h, hkv, dh,
+                _dts(q, k, v), scale)
         launches_slab_i8 += 1
     else:
         _launch("decode_attention_slab_f32", q, k, v, positions, out, part,
-                tickets, s, t, h, hkv, dh, scale)
+                tickets, s, t, h, hkv, dh, _dts(q, k, v), scale)
         launches_slab += 1
+    _count_low(NAME_SLAB_I8 if quant else NAME_SLAB, q, k, v)
     return out
 
 
 def decode_attention_paged_chunk(q, k, v, qpos, tables, num_heads, *,
                                  kscale=None, vscale=None):
-    """q [S, K, D] f32, the pool k/v [NB, bs, Dkv] (already holding this
-    step's writes; float32, or int8 with kscale/vscale [NB, bs, Hkv]),
+    """q [S, K, D], the pool k/v [NB, bs, Dkv] (already holding this
+    step's writes; float32 or bf16, or int8 with kscale/vscale [NB, bs,
+    Hkv]),
     qpos [S, K] int32, tables [S, blocks_per_row] int32 physical block
     ids -> [S, K, D].  Row r's position p lives at ``pool[tables[r, p //
     bs], p % bs]``; the kernel walks the table up to the row's furthest
@@ -443,18 +482,20 @@ def decode_attention_paged_chunk(q, k, v, qpos, tables, num_heads, *,
     if quant:
         _launch("decode_attention_paged_chunk_i8", q, k, v, kscale, vscale,
                 qpos, tables, out, part, tickets, s, kk, bs, nb_row, h, hkv,
-                dh, scale)
+                dh, _dts(q, k, v), scale)
         launches_paged_chunk_i8 += 1
     else:
         _launch("decode_attention_paged_chunk_f32", q, k, v, qpos, tables,
-                out, part, tickets, s, kk, bs, nb_row, h, hkv, dh, scale)
+                out, part, tickets, s, kk, bs, nb_row, h, hkv, dh,
+                _dts(q, k, v), scale)
         launches_paged_chunk += 1
+    _count_low(NAME_PAGED_CHUNK_I8 if quant else NAME_PAGED_CHUNK, q, k, v)
     return out
 
 
 def decode_attention_paged(q, k, v, positions, tables, num_heads, *,
                            kscale=None, vscale=None):
-    """q [S, D] f32, the pool k/v [NB, bs, Dkv] (float32, or int8 with
+    """q [S, D], the pool k/v [NB, bs, Dkv] (float32 or bf16, or int8 with
     kscale/vscale [NB, bs, Hkv]), positions [S] int32, tables [S,
     blocks_per_row] int32 -> [S, D]."""
     global launches_paged, launches_paged_i8
@@ -474,10 +515,12 @@ def decode_attention_paged(q, k, v, positions, tables, num_heads, *,
     if quant:
         _launch("decode_attention_paged_i8", q, k, v, kscale, vscale,
                 positions, tables, out, part, tickets, s, bs, nb_row, h, hkv,
-                dh, scale)
+                dh, _dts(q, k, v), scale)
         launches_paged_i8 += 1
     else:
         _launch("decode_attention_paged_f32", q, k, v, positions, tables,
-                out, part, tickets, s, bs, nb_row, h, hkv, dh, scale)
+                out, part, tickets, s, bs, nb_row, h, hkv, dh,
+                _dts(q, k, v), scale)
         launches_paged += 1
+    _count_low(NAME_PAGED_I8 if quant else NAME_PAGED, q, k, v)
     return out

@@ -22,6 +22,14 @@ takes and which ``chip_smoke.py`` holds the kernels against.  Unlike the
 TPU wrappers, no shape falls back to a masked path: the kernels mask
 ragged edges themselves and raise on what they do not take.
 
+Operand dtypes, as JAX's kernels take them: q, k and v each float32 or
+bf16 (and q bf16 over the int8 cache); o, dq, dk and dv in their
+operand's dtype, lse and the backward's delta float32.  Each kernel
+widens a bf16 operand on load and computes as its float32 instance;
+every combination with a bf16 operand launches the kernel's bf16
+instance (the ``_bf16`` C entries, the operands' dtypes passed as bits),
+and the plain versions widen and round alike.
+
 The kernels are compiled at head dims 16, 32, 64 and 128, and at the
 wide 256, 384 and 512 (their own tiling: the head dim split across a
 CTA's warps).  The wrappers take any other head dim up to 128, as the
@@ -57,14 +65,32 @@ launches = 0
 launches_quant = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
+# launches of the bf16 instances since the last reset, by row name
+# ("<NAME>[<operands>]", ``_check.operand_suffix``); the counters above
+# count every instance's launches
+launches_low = {}
 
 _NEG = -1e30
 # C entry -> (pointer args, int args before the float scale); each entry
 # then takes (float scale, int causal, cudaStream_t)
 _SIGNATURES = {"flash_attention_fwd_f32": (5, 4),
+               "flash_attention_fwd_bf16": (5, 5),
                "flash_attention_quant_i8": (6, 6),
+               "flash_attention_quant_i8_bf16": (6, 6),
                "flash_attention_bwd_dkv_f32": (8, 4),
-               "flash_attention_bwd_dq_f32": (8, 4)}
+               "flash_attention_bwd_dkv_bf16": (8, 5),
+               "flash_attention_bwd_dq_f32": (8, 4),
+               "flash_attention_bwd_dq_bf16": (8, 5)}
+_F32, _BF16 = torch.float32, torch.bfloat16
+_FLOATS = (_F32, _BF16)
+# the bits of a launch's operand dtypes (csrc/flash_attention.cu: kQ,
+# kK, kV): bf16 q (with o, do, dq), k (with dk), v (with dv)
+_BITS = (1, 2, 4)
+
+
+def _dts(q, k, v):
+    """The bf16 bits of (q, k, v)'s dtypes: 0 for all float32."""
+    return sum(bit for bit, x in zip(_BITS, (q, k, v)) if x.dtype == _BF16)
 
 
 def _entry(name):
@@ -109,11 +135,13 @@ def _shapes(q, k, v, causal):
 
 
 def flash_attention_plain(q, k, v, scale=None, causal=False):
-    """(o [B, H, Tq, D], lse [B, H, Tq]): softmax(q k^T * scale) v
-    materialized, masked at -1e30 above the diagonal when causal."""
+    """(o [B, H, Tq, D] in q's dtype, lse [B, H, Tq] float32):
+    softmax(q k^T * scale) v materialized on the widened operands,
+    masked at -1e30 above the diagonal when causal."""
     _shapes(q, k, v, causal)
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dtype, q, k, v = q.dtype, q.float(), k.float(), v.float()
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if causal:
         t = q.shape[2]
@@ -121,7 +149,7 @@ def flash_attention_plain(q, k, v, scale=None, causal=False):
         logits = torch.where(cm, logits, logits.new_tensor(_NEG))
     lse = torch.logsumexp(logits, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
-    return o, lse
+    return o.to(dtype), lse
 
 
 def flash_attention_fwd(q, k, v, scale=None, causal=False):
@@ -130,8 +158,7 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False):
     tensors take the plain version; a head dim between the compiled ones
     is padded to the next on both."""
     global launches
-    f32 = torch.float32
-    dev = _check.tensors(NAME, {"q": f32, "k": f32, "v": f32},
+    dev = _check.tensors(NAME, {"q": _FLOATS, "k": _FLOATS, "v": _FLOATS},
                          q=q, k=k, v=v)
     b, h, tq, tk, d = _shapes(q, k, v, causal)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -143,14 +170,27 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False):
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal)
     o = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=f32, device=dev)
+    lse = torch.empty((b, h, tq), dtype=_F32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _entry("flash_attention_fwd_f32")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, tq, tk, d, scale, int(causal), stream)
+    dts = _dts(q, k, v)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b * h, tq, tk, d)
+    if dts:
+        rc = _entry("flash_attention_fwd_bf16")(*args, dts, scale,
+                                                int(causal), stream)
+    else:
+        rc = _entry("flash_attention_fwd_f32")(*args, scale, int(causal),
+                                               stream)
     _build.check(NAME, rc)
     launches += 1
+    _count_low(NAME, q=q, k=k, v=v)
     return o, lse
+
+
+def _count_low(name, **operands):
+    """One launch of ``name``'s bf16 instance for these operands, unless
+    they are all float32 (``launches_low``)."""
+    _check.count_low(launches_low, name, _check.operand_suffix(**operands))
 
 
 def flash_attention(q, k, v, scale=None, causal=False):
@@ -177,9 +217,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale=None,
     TPU ``_bwd`` and its two kernel bodies line for line, materialized —
     delta = rowsum(do o); p = exp(s - lse) from the masked scores; dv =
     p^T do; dp = do v^T; ds = p (dp - delta) scale; dk = ds^T q; dq =
-    ds k."""
+    ds k, on the widened operands, each gradient rounded to its
+    operand's dtype."""
     _bwd_shapes(q, k, v, o, lse, do, causal)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    dtypes = q.dtype, k.dtype, v.dtype
+    q, k, v, o, do = (x.float() for x in (q, k, v, o, do))
     delta = (do * o).sum(-1)
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if causal:
@@ -192,7 +235,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale=None,
     ds = p * (dp - delta[..., None]) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k)
-    return dq, dk, dv
+    return dq.to(dtypes[0]), dk.to(dtypes[1]), dv.to(dtypes[2])
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False):
@@ -201,10 +244,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale=None, causal=False):
     the dK/dV kernel, which reads it.  CPU tensors take the plain
     version; a head dim between the compiled ones is padded to the next
     on both."""
-    f32 = torch.float32
-    dev = _check.tensors(NAME_BWD_DKV, {"q": f32, "k": f32, "v": f32,
-                                        "o": f32, "lse": f32, "do": f32},
+    dev = _check.tensors(NAME_BWD_DKV, {"q": _FLOATS, "k": _FLOATS,
+                                        "v": _FLOATS, "o": _FLOATS,
+                                        "lse": _F32, "do": _FLOATS},
                          q=q, k=k, v=v, o=o, lse=lse, do=do)
+    _check.same_dtype(NAME_BWD_DKV, "q", q, o=o, do=do)
     _bwd_shapes(q, k, v, o, lse, do, causal)
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -230,11 +274,16 @@ def bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal):
     global launches_bwd_dkv
     b, h, tq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _entry("flash_attention_bwd_dkv_f32")(
-        *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)), b * h,
-        tq, k.shape[2], d, scale, int(causal), _stream(q))
+    args = [*(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)),
+            b * h, tq, k.shape[2], d]
+    dts = _dts(q, k, v)
+    entry = ("flash_attention_bwd_dkv_bf16" if dts
+             else "flash_attention_bwd_dkv_f32")
+    rc = _entry(entry)(*args, *([dts] if dts else []), scale, int(causal),
+                       _stream(q))
     _build.check(NAME_BWD_DKV, rc)
     launches_bwd_dkv += 1
+    _count_low(NAME_BWD_DKV, q=q, k=k, v=v)
     return dk, dv
 
 
@@ -244,11 +293,16 @@ def bwd_dq_kernel(q, k, v, o, lse, do, scale, causal):
     global launches_bwd_dq
     b, h, tq, d = q.shape
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
-    rc = _entry("flash_attention_bwd_dq_f32")(
-        *(x.data_ptr() for x in (q, k, v, do, o, lse, delta, dq)), b * h, tq,
-        k.shape[2], d, scale, int(causal), _stream(q))
+    args = [*(x.data_ptr() for x in (q, k, v, do, o, lse, delta, dq)),
+            b * h, tq, k.shape[2], d]
+    dts = _dts(q, k, v)
+    entry = ("flash_attention_bwd_dq_bf16" if dts
+             else "flash_attention_bwd_dq_f32")
+    rc = _entry(entry)(*args, *([dts] if dts else []), scale, int(causal),
+                       _stream(q))
     _build.check(NAME_BWD_DQ, rc)
     launches_bwd_dq += 1
+    _count_low(NAME_BWD_DQ, q=q, k=k, v=v)
     return dq, delta
 
 
@@ -351,20 +405,19 @@ def flash_attention_quant_plain(q, k, v, kscale, vscale, num_heads,
 
 def flash_attention_quant(q, k, v, kscale, vscale, num_heads, scale=None,
                           causal=True):
-    """Int8-K/V flash prefill: q [B, Tq, D] f32 (the flat projection),
-    k/v [B, Tk, Dkv] int8 (the cache layout), kscale/vscale [B, Tk, Hkv]
-    f32 -> [B, H, Tq, dh].  Query head h reads KV head h // (H / Hkv) in
+    """Int8-K/V flash prefill: q [B, Tq, D] float32 or bf16 (the flat
+    projection), k/v [B, Tk, Dkv] int8 (the cache layout), kscale/vscale
+    [B, Tk, Hkv] f32 -> [B, H, Tq, dh] in q's dtype.  Query head h reads KV head h // (H / Hkv) in
     the kernel.  CUDA tensors launch the kernel; CPU tensors take the
     plain version; a head dim between the compiled ones is padded to the
     next on both (each head's codes and query zero-extended: zero codes
     dequantize to the float32 route's zero padding, bit for bit)."""
     global launches_quant
-    f32 = torch.float32
     b, tq, tk, h, hkv, dh = _quant_shapes(q, k, v, kscale, vscale,
                                           num_heads, causal)
-    dev = _check.tensors(NAME_QUANT, {"q": f32, "k": torch.int8,
-                                      "v": torch.int8, "kscale": f32,
-                                      "vscale": f32},
+    dev = _check.tensors(NAME_QUANT, {"q": _FLOATS, "k": torch.int8,
+                                      "v": torch.int8, "kscale": _F32,
+                                      "vscale": _F32},
                          q=q, k=k, v=v, kscale=kscale, vscale=vscale)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
     width = padded_head_dim(dh)
@@ -379,12 +432,15 @@ def flash_attention_quant(q, k, v, kscale, vscale, num_heads, scale=None,
     if dev.type == "cpu":
         return flash_attention_quant_plain(q, k, v, kscale, vscale,
                                            num_heads, scale, causal)
-    o = torch.empty((b, h, tq, dh), dtype=f32, device=dev)
+    o = torch.empty((b, h, tq, dh), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _entry("flash_attention_quant_i8")(
+    entry = ("flash_attention_quant_i8" if q.dtype == _F32
+             else "flash_attention_quant_i8_bf16")
+    rc = _entry(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kscale.data_ptr(),
         vscale.data_ptr(), o.data_ptr(), b, h, hkv, tq, tk, dh, scale,
         int(causal), stream)
     _build.check(NAME_QUANT, rc)
     launches_quant += 1
+    _count_low(NAME_QUANT, q=q)
     return o

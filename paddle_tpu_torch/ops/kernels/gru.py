@@ -13,7 +13,7 @@ against them.
 Shapes (time-major): xs [T, B, 3D] (input projection plus bias, gate
 order [update, reset, candidate]), mask [T, B] 0/1, w_gate [D, 2D]
 (update | reset), w_state [D, D].  Dtypes, as the JAX kernels take them:
-xs and the weights each float32 or bf16 (one dtype for both weights);
+xs and the weights each float32, bf16 or float16 (one dtype for both weights);
 hs, dh_out and dxs in xs's dtype, each weight's gradient in its dtype;
 mask and acts float32.  Every operand is widened to float32 on load,
 the carries, cells and products are float32, and outputs are rounded
@@ -46,10 +46,10 @@ MAX_HIDDEN = 6 * LANES
 # for its BPTT kernel and the dW_gate / dW_state product that follows it.
 launches_fwd = 0
 launches_bwd = 0
-# launches of the bf16 instances since the last reset, by row name
+# launches of the bf16 and float16 instances since the last reset, by row name
 # ("<NAME>[<instance>]", the instance as ``_check.suffix`` names it);
 # launches_* above count every instance's launches
-launches_bf16 = {}
+launches_low = {}
 # the C entries' (pointers, ints) before the stream, every instance
 FWD_ARGS, BWD_ARGS = (8, 4), (15, 3)
 
@@ -187,7 +187,7 @@ def gru_fwd(xs, mask, w_gate, w_state, save_residuals):
         int(save_residuals), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
-    _check.count_bf16(launches_bf16, NAME_FWD, sfx)
+    _check.count_low(launches_low, NAME_FWD, sfx)
     return hs, acts
 
 
@@ -228,7 +228,7 @@ def gru_bwd(acts, hs, w_gate, w_state, mask, dh_out):
         t, b, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_BWD, rc)
     launches_bwd += 1
-    _check.count_bf16(launches_bf16, NAME_BWD, sfx)
+    _check.count_low(launches_low, NAME_BWD, sfx)
     return dxs, dwg, dws
 
 

@@ -12,7 +12,7 @@ takes them, and ``chip_smoke.py`` holds the kernels against them.
 Shapes (time-major): xs [T, B, 4D] (input projection plus bias, gate
 order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks [3, D]
 (peepholes i, f, o).  Dtypes, as the JAX kernels take them: xs and w_r
-each float32 or bf16; hs, dh_out and dxs in xs's dtype, dW_r in w_r's;
+each float32, bf16 or float16; hs, dh_out and dxs in xs's dtype, dW_r in w_r's;
 mask, checks, c_fin, cs and acts float32.  Every operand is widened to
 float32 on load, the carries, cell and products are float32, and
 outputs are rounded once to their dtype.  Each (xs, w_r) dtype pair has
@@ -43,10 +43,10 @@ LANES = _check.LANES
 # for its BPTT kernel and the dW_r product that follows it.
 launches_fwd = 0
 launches_bwd = 0
-# launches of the bf16 instances since the last reset, by row name
+# launches of the bf16 and float16 instances since the last reset, by row name
 # ("<NAME>[<instance>]", the instance as ``_check.suffix`` names it);
 # launches_* above count every instance's launches
-launches_bf16 = {}
+launches_low = {}
 # the C entries' (pointers, ints) before the stream, every instance
 FWD_ARGS, BWD_ARGS = (9, 4), (15, 3)
 
@@ -200,7 +200,7 @@ def lstm_fwd(xs, mask, w_r, checks, save_residuals):
         int(save_residuals), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
-    _check.count_bf16(launches_bf16, NAME_FWD, sfx)
+    _check.count_low(launches_low, NAME_FWD, sfx)
     return hs, cfin, cs, acts
 
 
@@ -240,7 +240,7 @@ def lstm_bwd(acts, cs, hs, w_r, checks, mask, dh_out, dcfin):
         t, b, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_BWD, rc)
     launches_bwd += 1
-    _check.count_bf16(launches_bf16, NAME_BWD, sfx)
+    _check.count_low(launches_low, NAME_BWD, sfx)
     return dxs, dwr, dchk.sum(0).reshape(3, d)
 
 

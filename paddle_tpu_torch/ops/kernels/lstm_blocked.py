@@ -16,8 +16,8 @@ takes it, and ``chip_smoke.py`` holds the kernel against it.
 
 Shapes (time-major): xs [T, B, 4D] (input projection plus bias, gate
 order [a, i, f, o]), mask [T, B] 0/1, w_r [D, 4D], checks [3, D]
-(peepholes i, f, o).  Dtypes as ``lstm``'s (xs and w_r each float32 or
-bf16), hs (and the backward's dxs) in xs's dtype, dW_r in w_r's, the
+(peepholes i, f, o).  Dtypes as ``lstm``'s (xs and w_r each float32,
+bf16 or float16), hs (and the backward's dxs) in xs's dtype, dW_r in w_r's, the
 rest float32; each (xs, w_r) dtype pair has its own instance of the
 kernel, all with one C signature, float32 with float32 the float32
 kernel.  The kernel takes D a multiple of 128 up to 4096 and every B whose staging ring
@@ -44,10 +44,10 @@ MAX_HIDDEN = 32 * LANES
 # kernel launches since the last reset (bumped only where the kernel is
 # launched; the plain versions never count)
 launches_fwd = 0
-# launches of the bf16 instances since the last reset, by row name
+# launches of the bf16 and float16 instances since the last reset, by row name
 # ("<NAME>[<instance>]", the instance as ``_check.suffix`` names it);
 # launches_* above count every instance's launches
-launches_bf16 = {}
+launches_low = {}
 # the C entry's (pointers, ints) before the stream, every instance
 FWD_ARGS = (10, 4)
 
@@ -135,7 +135,7 @@ def lstm_blocked_fwd(xs, mask, w_r, checks, save_residuals):
         int(save_residuals), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
-    _check.count_bf16(launches_bf16, NAME_FWD, sfx)
+    _check.count_low(launches_low, NAME_FWD, sfx)
     return hs, cfin, cs, acts
 
 

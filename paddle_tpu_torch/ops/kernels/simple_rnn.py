@@ -14,7 +14,7 @@ them.
 Shapes (time-major): xs [T, B, D] (input projection plus bias), mask
 [T, B] 0/1 float32, W [D, D]; hs, dh_out and dxs [T, B, D].  hs is the
 output and the backward's only residual.  Dtypes, as the JAX kernels
-take them: xs and W each float32 or bf16; hs, dh_out and dxs in xs's
+take them: xs and W each float32, bf16 or float16; hs, dh_out and dxs in xs's
 dtype, dW in W's.  Every operand is widened to float32 on load, the h /
 dh carries and every product are float32, outputs are rounded once to
 their dtype (dW accumulated in float32 and rounded once).  Each (xs, W)
@@ -43,10 +43,10 @@ VMEM_BUDGET = _check.VMEM_BUDGET
 # for its BPTT kernel and the dW product that follows it.
 launches_fwd = 0
 launches_bwd = 0
-# launches of the bf16 instances since the last reset, by row name
+# launches of the bf16 and float16 instances since the last reset, by row name
 # ("<NAME>[<instance>]", the instance as ``_check.suffix`` names it);
 # launches_* above count every instance's launches
-launches_bf16 = {}
+launches_low = {}
 # the C entries' (pointers, ints) before the stream, every instance
 FWD_ARGS, BWD_ARGS = (5, 3), (9, 3)
 
@@ -145,7 +145,7 @@ def simple_rnn_fwd(xs, mask, w):
         hc.data_ptr(), t, b, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_FWD, rc)
     launches_fwd += 1
-    _check.count_bf16(launches_bf16, NAME_FWD, sfx)
+    _check.count_low(launches_low, NAME_FWD, sfx)
     return hs
 
 
@@ -177,7 +177,7 @@ def simple_rnn_bwd(hs, w, mask, dh_out):
         t, b, d, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(NAME_BWD, rc)
     launches_bwd += 1
-    _check.count_bf16(launches_bf16, NAME_BWD, sfx)
+    _check.count_low(launches_low, NAME_BWD, sfx)
     return dxs, dw
 
 

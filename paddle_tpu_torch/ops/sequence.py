@@ -12,9 +12,13 @@ _NEG = -1e30
 
 
 def seq_max_pool(seq: SequenceBatch):
-    """[B, T, D] -> [B, D] max over valid steps (reference MaxLayer)."""
+    """[B, T, D] -> [B, D] max over valid steps (reference MaxLayer).
+    The padding value is -1e30 cast to the data's dtype, as JAX casts
+    it: -inf in float16 (a Python scalar that overflows float16 would be
+    refused on a CUDA tensor)."""
     m = seq.mask(seq.data.dtype)[..., None]
-    out = torch.where(m > 0, seq.data, _NEG).max(dim=1).values
+    neg = torch.tensor(_NEG, device=seq.data.device).to(seq.data.dtype)
+    out = torch.where(m > 0, seq.data, neg).max(dim=1).values
     any_valid = (seq.lengths > 0)[:, None]
     return torch.where(any_valid, out, 0.0)
 

@@ -3,13 +3,15 @@ headline), ``bench_transformer`` (with ``remat``),
 ``bench_transformer_packed``, ``bench_transformer_moe`` and
 ``bench_seq2seq``; ``bench_rnn``, the layer-DSL slice through
 ``trainer.SGD``, and ``bench_trainer_int8``, its int8 weight-streaming
-mode; and the measurement legs of two serving benchmarks,
+mode; ``bench_transformer_decode``, the MT model's KV-cached beam
+search; and the measurement legs of two serving benchmarks,
 ``bench_serving_quant`` and ``bench_serving_speculative``.
 
     python -m paddle_tpu_torch.scripts.bench
         [--model lstm|transformer|transformer_packed|transformer_moe|
-                 seq2seq|rnn|trainer_int8|serving_quant|
-                 serving_speculative] [--hidden 512|1280|2048] [--remat]
+                 seq2seq|rnn|trainer_int8|transformer_decode|
+                 serving_quant|serving_speculative]
+        [--hidden 512|1280|2048] [--remat]
 
 ``lstm`` (the default) trains the LSTM text classifier at the
 reference's benchmark config (vocab 30000, embedding 128, 2 stacked LSTMs
@@ -49,6 +51,14 @@ one.  ``BENCH_DTYPE=bfloat16`` sets the compute policy for the run
 (``core/dtypes.set_policy``), as ``bench.py`` reads it: the products of
 ``ops/linear.matmul`` in bf16 with a float32 accumulator.
 
+``transformer_decode`` beam-decodes a batch with the MT model's KV
+cache (``generate_cached``: batch 32, sources of 128 tokens, 128 decode
+steps, beam 4, vocab 32000, d_model 512, 8 heads, dff 2048, 6+6 layers,
+random weights from seed 0; ``BENCH_QUANT=int8`` its int8 weight tree)
+and prints ms per decoded batch (DECODE_WARMUP, then DECODE_RUNS timed
+runs), emitted tokens/s (batch x steps per run), a step's ms and the
+FLOP/s of the bench's count.
+
 ``serving_quant`` and ``serving_speculative`` serve the full-width
 Transformer-base LM (``serving/server.BASE_LM``: vocab 32000, d_model
 512, 8 heads, dff 2048, 6 layers; random weights from seed 0) to
@@ -81,6 +91,8 @@ from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
 
 NUM_LAYERS, EMB_DIM = 2, 128
 WARMUP, STEPS = 5, 30
+# a beam decode runs 128 steps: fewer runs
+DECODE_WARMUP, DECODE_RUNS = 1, 5
 # the reference's own baseline for this config, on its K40m
 # (docs/perf.md:3-6, BASELINE.md) -- not a number of this port
 REFERENCE_K40M_MS = 184.0
@@ -480,6 +492,72 @@ def bench_seq2seq(batch=64, src_len=30, trg_len=30, vocab=30000, hidden=512,
                         batch * trg_len)
 
 
+class DecodeBench(NamedTuple):
+    run: Callable[[], object]
+    params: dict
+    src: SequenceBatch
+    kw: dict                 # generate_cached's beam_size, max_len, num_heads
+    tokens_per_run: int
+    flops_per_run: float
+    quant: object
+
+
+def decode_flops(batch, src_len, max_len, vocab, d_model, dff, layers,
+                 beam):
+    """Analytic FLOPs of one KV-cached beam decode of a batch
+    (``bench.py:741-753``, the bench's own count): per decoded position
+    and beam lane the self-attention q/k/v/o, the cross-attention q/o,
+    the FFN and the vocabulary projection; the encoder and the cross K/V
+    once a sequence.  Attention over the cache is left out, as there."""
+    dec_per_tok = layers * (6 * d_model ** 2 + 2 * d_model * dff) \
+        + d_model * vocab
+    per_seq = layers * (4 * d_model ** 2 + 2 * d_model * dff) * src_len \
+        + layers * 2 * d_model ** 2 * src_len * beam
+    return 2.0 * batch * (dec_per_tok * beam * max_len + per_seq)
+
+
+def bench_transformer_decode(batch=32, src_len=128, max_len=128,
+                             vocab=32000, d_model=512, dff=2048, layers=6,
+                             heads=8, beam=4, device=None):
+    """The serving decode of ``bench.py:769-812``: KV-cached beam search
+    (``transformer.generate_cached``, length penalty 0.6) on the
+    Transformer-base MT model, params from a generator seeded 0 (the
+    positional table ``src_len + max_len`` rows), a batch of full-length
+    sources from ``np.random.RandomState(0)`` in [3, vocab).  ``run()``
+    decodes the batch once.  ``BENCH_QUANT=int8`` serves the
+    ``quant/weights.quantize_lm`` tree (every 2-D float32 weight of at
+    least 1024 elements int8 with per-output scales; the call
+    dequantizes it once).  Emitted tokens/s (batch x max_len a run) is
+    the headline; there is no reference baseline."""
+    dev = _device.resolve(device)
+    params = transformer.init(torch.Generator().manual_seed(0),
+                              src_vocab=vocab, trg_vocab=vocab,
+                              d_model=d_model, num_heads=heads, dff=dff,
+                              enc_layers=layers, dec_layers=layers,
+                              max_len=src_len + max_len, device=dev)
+    quant = os.environ.get("BENCH_QUANT") or None
+    if quant not in (None, "int8"):
+        raise ValueError(f"BENCH_QUANT={quant!r} (takes int8)")
+    if quant:
+        from paddle_tpu_torch.quant.weights import quantize_lm
+        params = quantize_lm(params)
+    rng = np.random.RandomState(0)
+    src = SequenceBatch(
+        data=torch.tensor(rng.randint(3, vocab, (batch, src_len)),
+                          dtype=torch.int32, device=dev),
+        lengths=torch.full((batch,), src_len, dtype=torch.int32,
+                           device=dev))
+
+    kw = {"beam_size": beam, "max_len": max_len, "num_heads": heads}
+
+    def run():
+        return transformer.generate_cached(params, src, **kw)
+
+    return DecodeBench(run, params, src, kw, batch * max_len,
+                       decode_flops(batch, src_len, max_len, vocab, d_model,
+                                    dff, layers, beam), quant)
+
+
 class RnnBench(NamedTuple):
     train_step: Callable[[], torch.Tensor]
     trainer: object
@@ -757,7 +835,8 @@ def main(argv=None):
     ap.add_argument("--model", choices=("lstm", "transformer",
                                         "transformer_packed",
                                         "transformer_moe", "seq2seq", "rnn",
-                                        "trainer_int8", "serving_quant",
+                                        "trainer_int8", "transformer_decode",
+                                        "serving_quant",
                                         "serving_speculative"),
                     default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
@@ -817,6 +896,37 @@ def main(argv=None):
             "quantized_weight_shapes": [list(x) for x in shapes],
             "steps": STEPS, "ms_per_batch": ms,
             "ms_per_batch_p90": float(np.percentile(times, 90)),
+        }), flush=True)
+        return 0
+    if args.model == "transformer_decode":
+        bench = bench_transformer_decode(device=dev)
+        for _ in range(DECODE_WARMUP):
+            bench.run()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        times = []
+        for _ in range(DECODE_RUNS):
+            t0 = time.perf_counter()
+            res = bench.run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        fk = kernels.flash_attention
+        print(json.dumps({
+            "bench": "transformer_decode", "card": _device.card(),
+            "compute_dtype": _compute_dtype(), "quant": bench.quant,
+            "config": {"vocab": 32000, "d_model": 512, "heads": 8,
+                       "dff": 2048, "layers": "6+6", "batch": 32,
+                       "src_len": 128, "max_len": 128, "beam": 4,
+                       "length_penalty": 0.6},
+            "runs": DECODE_RUNS, "ms_per_batch": ms,
+            "ms_per_batch_all": times,
+            "ms_per_step": ms / 128,
+            "tokens_per_s": bench.tokens_per_run / (ms / 1e3),
+            "flops_per_run": bench.flops_per_run,
+            "tflop_per_s": bench.flops_per_run / (ms / 1e3) / 1e12,
+            "mean_best_score": float(res.scores[:, 0].mean()),
+            "launches": {fk.NAME: fk.launches},
         }), flush=True)
         return 0
     if args.model == "serving_quant":

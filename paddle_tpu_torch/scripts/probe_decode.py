@@ -194,8 +194,10 @@ def build(names=None, parent=None):
     for name, proc in procs.items():
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
-        libs[name] = (ctypes.CDLL(os.path.join(out, f"{name}.so")),
-                      _ptxas(logs[name]))
+        lib = ctypes.CDLL(os.path.join(out, f"{name}.so"))
+        # entries that take the operand dtypes' bits before the scale
+        lib.takes_dts = "int dts, float scale" in codes[name]
+        libs[name] = (lib, _ptxas(logs[name]))
     return libs
 
 
@@ -277,7 +279,7 @@ class Case:
         s = self.q.shape[0]
         ints = [s] + ([] if self.tq1 else [self.q.shape[1]]) \
             + ([self.bs, self.nb_row] if self.paged else [self.span]) \
-            + [self.h, self.h, self.dh]
+            + [self.h, self.h, self.dh] + ([0] if lib.takes_dts else [])
         fn = _typed(lib, name, len(ptrs), len(ints))
         _build.check(name, fn(*(p.data_ptr() for p in ptrs), *ints,
                               1.0 / np.sqrt(self.dh),

@@ -112,8 +112,11 @@ EDITS = {
 }
 SHAPES = (("train", 32, 8, 256, 64, False), ("train", 32, 8, 256, 64, True),
           ("prefill", 32, 8, 32, 64, True))
+# mangled instance names: the forward's <DH, kInt8, kLow>, the backward
+# kernels' <DH, kLow>
 _KERNEL = re.compile(
-    r"flash_(fwd|bwd_dkv|bwd_dq)(_wide)?_kernelILi(\d+)E(Lb([01])E)?")
+    r"flash_(fwd|bwd_dkv|bwd_dq)(_wide)?_kernelILi(\d+)E(Lb([01])E)?"
+    r"(Lb([01])E)?")
 
 
 def _ptxas(log):
@@ -124,9 +127,13 @@ def _ptxas(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = _KERNEL.search(m.group(1))
-            name = None if k is None else (
-                f"{k.group(1)}/dh{k.group(3)}"
-                + ("/int8" if k.group(5) == "1" else ""))
+            name = None
+            if k is not None:
+                bools = [b for b in (k.group(5), k.group(7)) if b]
+                int8 = k.group(1) == "fwd" and bools[0] == "1"
+                name = (f"{k.group(1)}/dh{k.group(3)}"
+                        + ("/int8" if int8 else "")
+                        + ("/bf16" if bools[-1] == "1" else ""))
             if name:
                 out[name] = {}
             continue
@@ -163,8 +170,8 @@ def build(names=None):
         with open(f"{path}.cu", "w") as f:
             f.write(code)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-o",
-             f"{path}.so", f"{path}.cu"],
+            [_build._nvcc(), *_build.FLAGS, *_build.F32_PART, "-Xptxas",
+             "-v", "-o", f"{path}.so", f"{path}.cu"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     logs = {name: proc.communicate()[0].decode(errors="replace")
             for name, proc in procs.items()}     # every nvcc ends first

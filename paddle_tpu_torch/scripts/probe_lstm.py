@@ -121,8 +121,8 @@ def build(names=None):
         with open(f"{path}.cu", "w") as f:
             f.write(code)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-o",
-             f"{path}.so", f"{path}.cu"],
+            [_build._nvcc(), *_build.FLAGS, *_build.F32_PART, "-Xptxas",
+             "-v", "-o", f"{path}.so", f"{path}.cu"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     logs = {name: proc.communicate()[0].decode(errors="replace")
             for name, proc in procs.items()}     # every nvcc ends first

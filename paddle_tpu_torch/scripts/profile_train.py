@@ -1,9 +1,9 @@
-"""Where a train step's time goes on the card.
+"""Where a train step's (or a beam decode's) time goes on the card.
 
     python -m paddle_tpu_torch.scripts.profile_train \
         [--model lstm|transformer|transformer_packed|transformer_moe|
-                 seq2seq|rnn] [--hidden 512|1280|2048] [--remat]
-        [--dtype auto|float32|bfloat16]
+                 seq2seq|rnn|transformer_decode] [--hidden 512|1280|2048]
+        [--remat] [--dtype auto|float32|bfloat16]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
 embedding 128, 2 x LSTM h=512 or ``--hidden``, batch 64, length 100,
@@ -27,7 +27,11 @@ most device time, and the kernel time by origin: the port's kernels
 flash kernels for the transformer; the GRU kernels for seq2seq),
 the library's matrix products and the rest (``profile_step.measure``);
 for ``rnn`` also the step's split into feed, forward, backward and
-update (``bench.step_split``).  ``--dtype`` sets the compute policy
+update (``bench.step_split``).  ``transformer_decode`` profiles one
+beam decode of ``scripts/bench.bench_transformer_decode`` (the MT
+model's KV-cached ``generate_cached``: batch 32, sources of 128 tokens,
+128 steps, beam 4) as its "step", and adds the launches and kernel time
+per decoded position.  ``--dtype`` sets the compute policy
 (``core/dtypes.set_policy``); with ``bfloat16`` the rnn model's
 ``SGD`` also casts at the step boundary (``compute_dtype``), as the
 trainer CLI's ``--dtype bfloat16`` does.  Needs a CUDA device.
@@ -42,12 +46,16 @@ from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.scripts.bench import (
     bench_lstm, bench_rnn, bench_seq2seq, bench_transformer,
-    bench_transformer_moe, bench_transformer_packed, step_split)
+    bench_transformer_decode, bench_transformer_moe,
+    bench_transformer_packed, step_split)
 from paddle_tpu_torch.scripts.profile_step import measure
 
 WARMUP = 5
 STEPS = {"lstm": 20, "transformer": 10, "transformer_packed": 10,
-         "transformer_moe": 10, "seq2seq": 10, "rnn": 20}
+         "transformer_moe": 10, "seq2seq": 10, "rnn": 20,
+         "transformer_decode": 2}
+# the decode positions of one transformer_decode "step" (its max_len)
+DECODE_POSITIONS = 128
 
 
 def main(argv=None):
@@ -85,6 +93,11 @@ def main(argv=None):
         config = ("packed causal LM vocab 32000, d_model 512, 8 heads, dff "
                   "2048, 6 layers, batch 16 x 512 slots, pack efficiency "
                   f"{bench.pack_efficiency:.3f}, Adam, remat {bench.remat}")
+    elif args.model == "transformer_decode":
+        bench = bench_transformer_decode(device=dev)
+        config = ("transformer MT beam decode (generate_cached) vocab 32000, "
+                  "d_model 512, 8 heads, dff 2048, 6+6 layers, batch 32, "
+                  "source 128, 128 steps, beam 4")
     elif args.model == "transformer_moe":
         bench = bench_transformer_moe(remat=remat, device=dev)
         config = ("MoE causal LM vocab 32000, d_model 512, 8 heads, 8 "
@@ -95,16 +108,24 @@ def main(argv=None):
         config = ("transformer MT vocab 32000, d_model 512, 8 heads, dff "
                   "2048, 6+6 layers, batch 32, length 256, Adam, full_seq, "
                   f"remat {bool(args.remat)}")
-    for _ in range(WARMUP):
-        bench.train_step()
+    step = bench.run if args.model == "transformer_decode" \
+        else bench.train_step
+    for _ in range(1 if args.model == "transformer_decode" else WARMUP):
+        step()
     torch.cuda.synchronize()
-    split = {"split_ms": step_split(bench.trainer, bench.feeder,
-                                    bench.batches, STEPS[args.model])} \
-        if args.model == "rnn" else {}
-    print(json.dumps({
-        "config": config, "dtype": args.dtype,
-        **measure(bench.train_step, STEPS[args.model]), **split,
-    }), flush=True)
+    out = measure(step, STEPS[args.model])
+    if args.model == "rnn":
+        out["split_ms"] = step_split(bench.trainer, bench.feeder,
+                                     bench.batches, STEPS[args.model])
+    if args.model == "transformer_decode":
+        out["per_position"] = {
+            "positions": DECODE_POSITIONS,
+            "wall_ms": out["step_wall_ms"]["p50"] / DECODE_POSITIONS,
+            "kernel_ms": out["kernel_ms_per_step"] / DECODE_POSITIONS,
+            "kernel_launches": out["kernel_launches_per_step"]
+            / DECODE_POSITIONS}
+    print(json.dumps({"config": config, "dtype": args.dtype, **out}),
+          flush=True)
     return 0
 
 

@@ -222,8 +222,13 @@ def test_greedy_generate_matches_jax():
     np.testing.assert_array_equal(lengths.numpy(), np.asarray(want_len))
     assert (np.asarray(want_len) < max_len).any()      # some rows finish
     assert (kgru.launches_fwd, kgru.launches_bwd) == (0, 0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        seq2seq.generate(port, _port_batch()[0])
+    # beam generate (ported since it first refused here) at one lane is
+    # this greedy decode
+    beam = seq2seq.generate(port, _port_batch()[0], beam_size=1,
+                            max_len=max_len, bos_id=0, eos_id=eos)
+    np.testing.assert_array_equal(beam.tokens[:, 0].numpy(), tok.numpy())
+    np.testing.assert_array_equal(beam.lengths[:, 0].numpy(),
+                                  lengths.numpy())
 
 
 def test_bench_step_matches_jax_bench_step_over_three_steps():
