@@ -292,12 +292,13 @@ non-zero exit code and no final "ok" line:
   rnn_ops_f16  rnn_ops_bf16's calls with the pairs no float16 policy
             feeds ((float16 xs, float32 W) and the mixed bf16 / float16
             pairs), F16_OPS_T steps
-  attention_ops_bf16  dot_product_attention's flash route (forward and
-            backward), flash_attention_quant and the four decode wrappers
-            called with bf16 operands in every combination JAX takes:
-            each bf16 instance launched as counted, every output within
-            one bf16 step of the CPU's, the gradients within
-            MIXED_GRAD_TOL
+  attention_ops_bf16, attention_ops_f16  dot_product_attention's flash
+            route (forward and backward), flash_attention_quant and the
+            four decode wrappers called with bf16 (float16) operands in
+            every combination with float32 JAX takes (the float16 run
+            also two that mix float16 with bf16): each instance launched
+            as counted, every output within one bf16 (float16) step of
+            the CPU's, the gradients within MIXED_GRAD_TOL
   generate_mt  transformer.generate_cached at bench_transformer_decode's
             widths (batch 32, sources of 128, 128 steps, beam 4, vocab
             32000, 6 + 6 layers): no kernel launch (the encoder's key
@@ -308,13 +309,41 @@ non-zero exit code and no final "ok" line:
   generate_seq2seq  seq2seq.generate (beam 5, 50 steps) at
             bench_seq2seq's widths: the lean GRU forward twice, held
             against a CPU run of the first rows as generate_mt is
+  train_resnet50  bench.py's bench_resnet50 ported: ResNet-50, batch 32
+            of 224x224x3, 1000 classes, Momentum lr 0.1.  The first step
+            at RESNET_CHECK_BATCH rows against a CPU witness from the
+            same weights that keeps the card's ReLU and max-pool
+            decisions (loss, every gradient leaf, the new moving stats),
+            which a step with cuDNN's TF32 on must fail; the plain CPU
+            step's readings and the decision flips reported; then
+            warm-up and timed steps (ms/batch, images/s), the loss
+            finite, the moving stats moved, features() against the
+            forward's pooled tensor, no counted kernel launched
+  train_lenet  demo/mnist's config rebuilt with paddle_tpu_torch.layers
+            (models/image_dsl.lenet) through SGD on the mnist loader's
+            batches of 128: the first step against the CPU witness, then
+            SGD.train (the loss falls), SGD.test, and `python -m
+            paddle_tpu_torch train` on a config file, whose pass dir
+            SGD.load restores bit for bit
+  train_image  bench.py's bench_image ported: SmallNet (64 x 32x32),
+            AlexNet (64 x 227x227) and GoogLeNet (64 x 224x224): each
+            first step at IMAGE_CHECK_BATCH rows against the CPU
+            witness, then timed steps, beside the reference's K40m time
+  train_resnet_cifar  demo/image_classification's DSL ResNet
+            (models/image_dsl.resnet_cifar: batch_norm_layer, addto_layer)
+            at depth 32 on CIFAR shapes through SGD: the first step at
+            DSL_RESNET_CHECK rows against the CPU witness (parameters,
+            momentum, moving stats), SGD.train over 8 batches of 128
+            with the moving stats threading through, SGD.test on them
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
 instance of the attention kernels (attention_bf16: each combination of
-float32 and bf16 q, k, v; bf16 q over int8 K/V) against its plain
-version on the same inputs at the kernel table's shapes, timed beside
-its float32 instance.
+float32 and bf16 q, k, v; bf16 q over int8 K/V) and every float16 one
+(attention_f16: each combination of float32 and float16, two mixing
+float16 with bf16; float16 q over int8 K/V) against its plain version on
+the same inputs at the kernel table's shapes, timed beside its float32
+instance.
 Then the kernel summary line, the nvidia-smi line, and last:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -3892,24 +3921,29 @@ def get_config():
 """
 
 
-def rnn_cli(torch, dev, seed, trainer, dtype=None):
+def rnn_cli(torch, dev, seed, trainer, dtype=None, what="train_rnn",
+            config=RNN_CLI_CONFIG, batches=RNN_CLI_BATCHES, fresh=None):
     """``python -m paddle_tpu_torch train`` as a subprocess on a config
-    file written to a temp dir (the slice's config, RNN_CLI_BATCHES
-    batches, one pass; ``--dtype dtype`` where given): its pass dir must
-    exist and ``SGD.load`` must restore its parameters bit for bit; then
-    ``trainer``'s own save and load round trip, bit for bit too."""
+    file written to a temp dir (``config``, the slice's by default,
+    ``batches`` batches, one pass; ``--dtype dtype`` where given): its
+    pass dir must exist and ``SGD.load`` (into ``fresh()``, a new trainer
+    of the same config) must restore its parameters (and model state)
+    bit for bit; then ``trainer``'s own save and load round trip, bit
+    for bit too."""
     import os
     import subprocess
     import tempfile
     from paddle_tpu_torch.models import text_rnn
     from paddle_tpu_torch.trainer import SGD, load_checkpoint
+    from paddle_tpu_torch.utils.tree import tree_leaves
     root = os.path.dirname(os.path.abspath(__file__))
 
-    def fresh():
+    def fresh_rnn():
         return SGD(cost=text_rnn.build(), update_equation=text_rnn.optimizer(),
                    device=dev, compute_dtype=(torch.bfloat16
                                               if dtype == "bfloat16"
                                               else None))
+    fresh = fresh or fresh_rnn
 
     def equal(params, tree):
         return all(np.array_equal(params[k][n].detach().cpu().numpy(),
@@ -3920,44 +3954,51 @@ def rnn_cli(torch, dev, seed, trainer, dtype=None):
         cfg, save = os.path.join(tmp, "rnn_config.py"), os.path.join(tmp,
                                                                     "out")
         with open(cfg, "w") as f:
-            f.write(RNN_CLI_CONFIG)
+            f.write(config)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
         t0 = time.perf_counter()
         run = subprocess.run(
             [sys.executable, "-m", "paddle_tpu_torch", "train", "--config",
-             cfg, "--config_args", f"seed={seed},batches={RNN_CLI_BATCHES}",
+             cfg, "--config_args", f"seed={seed},batches={batches}",
              "--num_passes", "1", "--save_dir", save, "--log_period", "1",
              "--device", dev.type] + (["--dtype", dtype] if dtype else []),
             cwd=root, env=env, capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t0
         pass_dir = os.path.join(save, "pass-00000")
         if run.returncode != 0 or not os.path.isdir(pass_dir):
-            fail(f"train_rnn: the CLI exited {run.returncode} and left "
+            fail(f"{what}: the CLI exited {run.returncode} and left "
                  f"{os.listdir(save) if os.path.isdir(save) else None}: "
                  f"{run.stderr[-3000:]}")
         loaded = fresh()
         meta = loaded.load(save)
-        params, opt_state, _, _ = load_checkpoint(save)
-        if not equal(loaded.parameters, params) \
-                or loaded.opt_state["step"] != RNN_CLI_BATCHES:
-            fail(f"train_rnn: SGD.load of the CLI's {pass_dir} does not "
-                 f"restore its parameters bit for bit (optimizer step "
-                 f"{loaded.opt_state['step']}, want {RNN_CLI_BATCHES})")
+        params, opt_state, model_state, _ = load_checkpoint(save)
+        state_equal = all(np.array_equal(a.cpu().numpy(), np.asarray(b))
+                          for a, b in zip(tree_leaves(loaded.model_state),
+                                          tree_leaves(model_state or {})))
+        if not equal(loaded.parameters, params) or not state_equal \
+                or loaded.opt_state["step"] != batches:
+            fail(f"{what}: SGD.load of the CLI's {pass_dir} does not "
+                 f"restore its parameters and model state bit for bit "
+                 f"(optimizer step {loaded.opt_state['step']}, want "
+                 f"{batches})")
         mine = os.path.join(tmp, "mine")
         trainer.save(mine, 0)
         again = fresh()
         again.load(mine)
         host = {k: {n: p.detach().cpu().numpy() for n, p in v.items()}
                 for k, v in trainer.parameters.items()}
-        if not equal(again.parameters, host):
-            fail("train_rnn: SGD.save then SGD.load does not restore the "
-                 "trained parameters bit for bit")
+        if not equal(again.parameters, host) or not all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(again.model_state),
+                    tree_leaves(trainer.model_state))):
+            fail(f"{what}: SGD.save then SGD.load does not restore the "
+                 "trained parameters and model state bit for bit")
         cost_lines = [line for line in run.stderr.splitlines()
                       if " Cost " in line]
     return {"seconds": cli_s, "pass_dir": os.path.basename(pass_dir),
             "dtype": dtype or "auto",
-            "meta_pass_id": meta["pass_id"], "batches": RNN_CLI_BATCHES,
+            "meta_pass_id": meta["pass_id"], "batches": batches,
             "log": cost_lines[-1].split("] ", 1)[-1] if cost_lines else None,
             "load_bit_for_bit": True, "save_load_round_trip": True}
 
@@ -5225,14 +5266,25 @@ F16_GRAD_TOL = 4e-3
 # the direct ops calls' steps (the ops phase at the families' widths)
 F16_OPS_T = 20
 # The attention kernels' operand dtypes, as JAX's functions take them: q,
-# k and v each float32 or bf16 (the all-float32 combination is the
-# float32 instance's own rows); the wide head dims every combination
-# runs at, and the further ones the all-bf16 combination runs at.
-ATTN_COMBOS = tuple(c for c in ((q, k, v) for q in ("float32", "bfloat16")
-                                for k in ("float32", "bfloat16")
-                                for v in ("float32", "bfloat16"))
-                    if c != ("float32",) * 3)
+# k and v each float32, bf16 or float16.  attn_combos(low) is every
+# combination of float32 and ``low`` (the all-float32 combination is the
+# float32 instance's own rows); the float16 rows add two that mix
+# float16 with bf16 (every dtype is read through the same run-time bits).
+# The wide head dims every combination runs at, and the further ones the
+# all-low combination runs at.
 ATTN_WIDE_DH, ATTN_WIDE_ALL_BF16 = 256, (384, 512)
+ATTN_F16_MIXED = (("float16", "bfloat16", "float32"),
+                  ("bfloat16", "float16", "float16"))
+SHORT_LOW = {"bfloat16": "bf16", "float16": "f16"}
+
+
+def attn_combos(low):
+    return tuple(c for c in ((q, k, v) for q in ("float32", low)
+                             for k in ("float32", low)
+                             for v in ("float32", low))
+                 if c != ("float32",) * 3) + (
+        ATTN_F16_MIXED if low == "float16" else ())
+
 # The MT model's KV-cached beam decode at bench_transformer_decode's
 # widths (bench.py:769-812: batch 32, sources of 128 tokens, 128 steps,
 # beam 4, vocab 32000, d 512, 8 heads, dff 2048, 6 + 6 layers; weights
@@ -5285,19 +5337,21 @@ def attn_low_launches(kernels):
             **kernels.decode_attention.launches_low}
 
 
-def check_attention_bf16(torch, dev, rng):
-    """Every bf16 instance of B1-B8 against its plain version: the flash
-    forward, dK/dV and dQ at the MT train shape (B 32, H 8, T 256, dh 64,
-    full) and at dh 256 (B 4, H 2, T 512, causal), the all-bf16
-    combination also at dh 384 and 512; flash_attention_quant's bf16 q
+def check_attention_low(torch, dev, rng, low="bfloat16"):
+    """Every bf16 (or, ``low="float16"``, float16) instance of B1-B8
+    against its plain version, the combinations of ``attn_combos(low)``:
+    the flash forward, dK/dV and dQ at the MT train shape (B 32, H 8, T
+    256, dh 64, full) and at dh 256 (B 4, H 2, T 512, causal), the
+    all-low combination also at dh 384 and 512; flash_attention_quant's
+    low q
     at the prefill shape (B 32, T 32, H = Hkv = 8) and at dh 256; the
     four decode kernels at the serving shapes (S 8, K 8, T 256, D 512, H
     = Hkv = 8; the paged pair over 129 shuffled blocks of 16) for every
-    combination, and over the int8 cache with bf16 q.  Each row as the
-    recurrent instances' (low_row: bf16 outputs within one bf16 step plus
+    combination, and over the int8 cache with low q.  Each row as the
+    recurrent instances' (low_row: low outputs within one step plus
     BF16_F32_FLOOR of the largest, float32 ones within the floor, bit for
     bit on a repeat), timed beside its float32 instance on the same
-    values widened.  Library: SDPA where every operand is bf16 (no
+    values widened.  Library: SDPA where every operand is low (no
     PyTorch call takes mixed operand dtypes)."""
     from paddle_tpu_torch.ops.kernels import _check
     from paddle_tpu_torch.ops.kernels import decode_attention as dk
@@ -5305,6 +5359,8 @@ def check_attention_bf16(torch, dev, rng):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mixed = "none: no PyTorch call takes mixed operand dtypes"
     rows = []
+    low_dt = getattr(torch, low)
+    combos = attn_combos(low)
 
     def row(name, mod, replaces, kernel, plain, outs, inputs, flops,
             shape, f32_kernel, library=None, tc=True):
@@ -5332,11 +5388,11 @@ def check_attention_bf16(torch, dev, rng):
                                       causal)
         cost = flash_bwd_cost(b * h, t, t, dh, causal)
         shape = {"B": b, "H": h, "T": t, "dh": dh, "causal": causal}
-        all_bf16 = all(d == torch.bfloat16 for d in dts)
+        all_low = all(d == low_dt for d in dts)
         lib_fwd = (lambda: sdpa(q, k, v, is_causal=causal)) \
-            if all_bf16 else None
+            if all_low else None
         lib_bwd = None
-        if all_bf16:
+        if all_low:
             qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
             lib_out = sdpa(qg, kg, vg, is_causal=causal)
 
@@ -5369,11 +5425,11 @@ def check_attention_bf16(torch, dev, rng):
                                          causal), lib_bwd)]
 
     flash = {}
-    for combo in ATTN_COMBOS:
+    for combo in combos:
         train = flash_rows(combo, MT_BATCH, MT_HEADS, MT_SEQ, MT_DH, False)
         wide = [flash_rows(combo, WIDE_B, WIDE_H, WIDE_T, dh, True)
                 for dh in (ATTN_WIDE_DH,) + (
-                    ATTN_WIDE_ALL_BF16 if combo == ("bfloat16",) * 3
+                    ATTN_WIDE_ALL_BF16 if combo == (low,) * 3
                     else ())]
         for i, r in enumerate(train):
             r["wide"] = [{key: w[i][key] for key in (
@@ -5383,18 +5439,18 @@ def check_attention_bf16(torch, dev, rng):
             rows.append(r)
         torch.cuda.empty_cache()
 
-    # flash_attention_quant: bf16 q over the int8 cache
+    # flash_attention_quant: low q over the int8 cache
     from paddle_tpu_torch.quant.kv import quantize_heads
     for b, t, h, dh, key in ((GEN_BATCH, GEN_PROMPT, HEADS, D_MODEL // HEADS,
                               None), (WIDE_B, WIDE_T, WIDE_H, D_MODEL //
                                       WIDE_HEADS, "dh256")):
         d = h * dh
-        q = torch.tensor(normal(rng, (b, t, d)), device=dev).to(
-            torch.bfloat16)
+        q = torch.tensor(normal(rng, (b, t, d)), device=dev).to(low_dt)
         (kc, ks), (vc, vs) = (quantize_heads(torch.tensor(
             normal(rng, (b, t, d)), device=dev), h) for _ in range(2))
         flops = 4 * dh * b * h * (t * (t + 1) // 2)
-        r = row(f"{fk.NAME_QUANT}[qbf16]", fk, fk.REPLACES_QUANT,
+        r = row(f"{fk.NAME_QUANT}[{_check.operand_suffix(q=q)}]", fk,
+                fk.REPLACES_QUANT,
                 lambda: fk.flash_attention_quant(q, kc, vc, ks, vs, h),
                 lambda: fk.flash_attention_quant_plain(q, kc, vc, ks, vs, h),
                 ("o",), (q, kc, vc, ks, vs), flops,
@@ -5464,7 +5520,7 @@ def check_attention_bf16(torch, dev, rng):
                      dk.NAME_PAGED)
         sfx = _check.operand_suffix(q=q, k=k, v=v)
         lib = None
-        if not int8 and all(x == "bfloat16" for x in combo):
+        if not int8 and all(x == low for x in combo):
             qh, kh, vh = heads(q, kk), heads(k, t), heads(v, t)
 
             def lib():
@@ -5485,7 +5541,7 @@ def check_attention_bf16(torch, dev, rng):
              tq1_flops, None))
         out = []
         for name, replaces, fn, plain, args, extra, flops, library in cases:
-            wide = tuple(a.float() if a.dtype == torch.bfloat16 else a
+            wide = tuple(a.float() if a.is_floating_point() else a
                          for a in args)
             tq1 = args[0].dim() == 2
             nbytes = decode_bytes(q, k, v, s if tq1 else s * kk,
@@ -5505,23 +5561,24 @@ def check_attention_bf16(torch, dev, rng):
             out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes, flops)
         return out
 
-    for combo in ATTN_COMBOS:
+    for combo in combos:
         rows.extend(decode_rows(combo))
-    rows.extend(decode_rows(("bfloat16", "int8", "int8"), int8=True))
+    rows.extend(decode_rows((low, "int8", "int8"), int8=True))
     return rows
 
 
-def run_attention_ops_bf16(torch, dev, kernels, rng):
-    """The attention entry points called with bf16 operands, at small
+def run_attention_ops_low(torch, dev, kernels, rng, low="bfloat16"):
+    """The attention entry points called with bf16 (or float16) operands,
+    in the combinations of ``attn_combos(low)``, at small
     shapes, on the card and on the CPU from the same values: ops/attention
     .dot_product_attention's flash route (FlashAttention: the forward, dQ
-    and dK/dV kernels) for every combination of float32 and bf16 q, k, v,
+    and dK/dV kernels) for every combination of q, k, v,
     causal at B 2, H 2, T 128, dh 64 and at dh 256, forward and backward;
-    flash_attention_quant with bf16 q; the four decode wrappers for every
-    combination and over the int8 cache with bf16 q.  No model path of
+    flash_attention_quant with low q; the four decode wrappers for every
+    combination and over the int8 cache with low q.  No model path of
     the port feeds these instances (JAX's has none: a trunk cast to bf16
-    is refused by both); this is their path.  Each bf16 instance must
-    launch exactly as counted below; each output within one bf16 step
+    is refused by both); this is their path.  Each instance must
+    launch exactly as counted below; each output within one step
     (plus BF16_F32_FLOOR) of the CPU's, each gradient within
     MIXED_GRAD_TOL relative L2."""
     from paddle_tpu_torch.ops import attention as attn
@@ -5531,11 +5588,13 @@ def run_attention_ops_bf16(torch, dev, kernels, rng):
     from paddle_tpu_torch.quant.kv import quantize_heads
     kernels.reset_launches()
     want, errs = {}, {}
+    low_dt = getattr(torch, low)
+    phase = f"attention_ops_{SHORT_LOW[low]}"
 
     def expect(name, n=1):
         want[name] = want.get(name, 0) + n
 
-    for combo in ATTN_COMBOS:
+    for combo in attn_combos(low):
         dts = attn_dtypes(torch, combo)
         for dh in (64, 256):
             vals = [normal(rng, (2, 2, 128, dh)) for _ in range(4)]
@@ -5554,7 +5613,7 @@ def run_attention_ops_bf16(torch, dev, kernels, rng):
                                            for n, dt in zip("qkv", dts)})
             for name in (fk.NAME, fk.NAME_BWD_DQ, fk.NAME_BWD_DKV):
                 expect(f"{name}[{sfx}]")
-            what = f"attention_ops_bf16 flash {sfx} dh{dh}"
+            what = f"{phase} flash {sfx} dh{dh}"
             l2 = grad_rel_l2(g_c, g_w)
             if not max(l2) <= MIXED_GRAD_TOL:
                 fail(f"{what}: gradients' relative L2 vs the CPU {l2} "
@@ -5567,11 +5626,11 @@ def run_attention_ops_bf16(torch, dev, kernels, rng):
             for _ in range(2))
     (kc, ks), (vc, vs) = quantize_heads(k, h), quantize_heads(v, h)
     outs = [fk.flash_attention_quant(torch.tensor(q, device=device).to(
-        torch.bfloat16), *(x.to(device) for x in (kc, vc, ks, vs)), h).cpu()
+        low_dt), *(x.to(device) for x in (kc, vc, ks, vs)), h).cpu()
         for device in (dev, "cpu")]
-    expect(f"{fk.NAME_QUANT}[qbf16]")
-    errs["attention_ops_bf16 flash_attention_quant"] = low_compare(
-        torch, "flash_attention_quant bf16 q", *outs)
+    expect(f"{fk.NAME_QUANT}[q{SHORT_LOW[low]}]")
+    errs[f"{phase} flash_attention_quant"] = low_compare(
+        torch, f"flash_attention_quant {low} q", *outs)
     # the decode wrappers
     s, kk, tt, hh, dhh = 4, 4, 48, 4, 32
     qpos_np = np.asarray([[9] * kk, list(range(kk)), [20, 21, 22, 23],
@@ -5582,7 +5641,7 @@ def run_attention_ops_bf16(torch, dev, kernels, rng):
     base = [normal(rng, shape) for shape in (
         (s, kk, hh * dhh), (s, tt, hh * dhh), (s, tt, hh * dhh),
         (s * nb_row, PAGE_BS, hh * dhh), (s * nb_row, PAGE_BS, hh * dhh))]
-    for combo in ATTN_COMBOS + (("bfloat16", "int8", "int8"),):
+    for combo in attn_combos(low) + ((low, "int8", "int8"),):
         int8 = combo[1] == "int8"
         dq = getattr(torch, combo[0])
 
@@ -5619,14 +5678,14 @@ def run_attention_ops_bf16(torch, dev, kernels, rng):
                  (dk.NAME, dk.NAME_SLAB, dk.NAME_PAGED_CHUNK, dk.NAME_PAGED))
         for name, g, r in zip(names, got, ref):
             expect(f"{name}[{sfx}]")
-            errs[f"attention_ops_bf16 {name}[{sfx}]"] = low_compare(
+            errs[f"{phase} {name}[{sfx}]"] = low_compare(
                 torch, f"{name}[{sfx}]", g.cpu(), r)
     torch.cuda.synchronize()
     got = attn_low_launches(kernels)
     if got != want:
-        fail(f"attention_ops_bf16: bf16 launches {got}, want {want}")
-    emit({"phase": "attention_ops_bf16",
-          "bound": {"outputs": "one bf16 step plus BF16_F32_FLOOR",
+        fail(f"{phase}: low-precision launches {got}, want {want}")
+    emit({"phase": phase,
+          "bound": {"outputs": f"one {low} step plus BF16_F32_FLOOR",
                     "grad_rel_l2": MIXED_GRAD_TOL},
           "launches": got, "checks": errs})
     return got
@@ -5993,6 +6052,452 @@ def run_generate_seq2seq(torch, dev, kernels):
     return launches
 
 
+# ------------------------------------------------------------- images
+
+# The image stack (ops/conv, ops/norm, layers/vision, models/lenet,
+# smallnet, alexnet, googlenet, resnet, image_dsl): no kernel of the
+# port's own on its path -- convolution, pooling and batch norm are
+# PyTorch's calls (cuDNN), as they are XLA's in JAX -- so its phases
+# launch none of the counted kernels; they hold each first step against
+# the CPU and time the rest.  Every first step on the card is held
+# against a CPU witness that keeps the card's ReLU and max-pool
+# decisions (image_probe: a value within rounding of a ReLU's kink or a
+# pool window's tie flips between devices, and each flip moves its
+# channel's gradients by O(1) where batch norm sees few values), and
+# reported beside the plain CPU step with the flips counted.  Readings
+# are per leaf: the max abs difference over the leaf's largest entry.
+# IMAGE_REL_TOL bounds the models without batch norm (LeNet, SmallNet,
+# AlexNet, GoogLeNet: float32 sums in other orders, ~1e-6 a layer) and
+# the loss of every model; RESNET_REL_TOL the models with batch norm,
+# whose normalization over the batch multiplies the two sides' rounding
+# differences through its depth (the CPU tests hold ResNet-50's train
+# step's stats at 64x64, batch 2, within 1e-4 of the largest entry).  A
+# control step with cuDNN's TF32 switched on and the card's decisions
+# replayed must fail ResNet-50's gate.  Readings (NVIDIA H100 80GB HBM3,
+# 700 W; the largest gradient / state leaf, sound / control): 1.35e-4 /
+# 0.191 and 6.4e-6 / 1.10e-2, the limit between them.
+IMAGE_REL_TOL = 1e-4
+RESNET_REL_TOL = 1e-3
+# A conv's bias ahead of a batch norm has no gradient in exact arithmetic
+# (the mean takes it out): after a step it and its momentum are float32
+# rounding, ~1e-9, on both devices.  The DSL steps' leaves are held at
+# tol times their largest entry plus IMAGE_NOISE.
+IMAGE_NOISE = 1e-7
+RESNET_CHECK_BATCH = 4         # ResNet-50's first step on the CPU
+IMAGE_CHECK_BATCH = 2          # SmallNet, AlexNet, GoogLeNet on the CPU
+IMAGE_WARMUP, IMAGE_STEPS = 2, 5
+LENET_BATCHES = 16             # demo/mnist batches of 128 through SGD
+LENET_CLI_BATCHES = 4
+DSL_RESNET_DEPTH, DSL_RESNET_BATCH = 32, 128
+DSL_RESNET_CHECK, DSL_RESNET_BATCHES = 16, 8
+LENET_CLI_CONFIG = """\
+from paddle_tpu_torch.models import image_dsl
+
+
+def get_config():
+    return image_dsl.mnist_config(n_batches=int(CONFIG_ARGS["batches"]))
+"""
+
+
+@contextlib.contextmanager
+def image_probe(torch, record, given=None):
+    """Within it, every ReLU of the image stack (``torch.relu``, which
+    the ResNet blocks call, and ops/activations' "relu", which the conv
+    and fc layers take) and every max pool (``ops/conv.max_pool2d``)
+    append their decisions to ``record`` in call order: ReLU's mask
+    (x > 0), the pool's argmax in its padded input.  With ``given`` (a
+    record of another run) they take those decisions instead, gradient
+    and all: a step that keeps another run's decisions."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import activations, conv
+    relu, act, pool = torch.relu, activations._REGISTRY["relu"], \
+        conv.max_pool2d
+    it = iter(given or ())
+
+    def probe_relu(x):
+        if given is None:
+            record.append((x > 0).cpu())
+            return relu(x)
+        mask = next(it).to(x.device)
+        record.append(mask.cpu())
+        return torch.where(mask, x, torch.zeros_like(x))
+
+    def probe_pool(x, window, stride=None, padding=(0, 0)):
+        stride = stride or window
+        pad = conv._pool_pad(padding)
+        xc = x.permute(0, 3, 1, 2)
+        if any(pad):
+            xc = F.pad(xc, pad, value=float("-inf"))
+        if given is None:
+            out, idx = F.max_pool2d(xc, tuple(window), tuple(stride),
+                                    return_indices=True)
+        else:
+            idx = next(it).to(x.device)
+            out = xc.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        record.append(idx.cpu())
+        return out.permute(0, 2, 3, 1)
+
+    torch.relu = activations._REGISTRY["relu"] = probe_relu
+    conv.max_pool2d = probe_pool
+    try:
+        yield
+    finally:
+        torch.relu, activations._REGISTRY["relu"] = relu, act
+        conv.max_pool2d = pool
+
+
+def image_first_step(torch, dev, what, loss_fn, params, state, tol,
+                     control=None):
+    """One step of ``loss_fn(params, state, device) -> (loss, new
+    state)`` from the same CPU ``params`` / ``state`` trees on the card
+    (under image_probe), on a CPU witness that keeps the card's decisions
+    and on the plain CPU: the loss and every gradient and new-state leaf
+    of the card within ``tol`` of the witness (largest_err; the loss
+    within IMAGE_REL_TOL), the plain step's readings and the flips
+    reported.  ``control``: a context under which the card's step, its
+    decisions replayed from the sound card step so that only precision
+    differs, must FAIL the same gate (cuDNN's TF32).  Returns the
+    readings."""
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    def step(device, record, given=None, ctx=None):
+        p = tree_map(lambda t: t.detach().to(device).clone()
+                     .requires_grad_(True), params)
+        st = tree_map(lambda t: t.to(device), state)
+        with (ctx or contextlib.nullcontext)(), image_probe(
+                torch, record, given):
+            loss, new_state = loss_fn(p, st, device)
+            loss.backward()
+        return (float(loss.detach()), [x.grad.cpu() for x in tree_leaves(p)],
+                [x.detach().cpu() for x in tree_leaves(new_state)])
+
+    def readings(got, ref):
+        return {"loss_rel_err": abs(got[0] - ref[0]) / abs(ref[0]),
+                "grad_rel_err_max": max(largest_err(got[1], ref[1])),
+                "state_rel_err_max": max(largest_err(got[2], ref[2]),
+                                         default=0.0)}
+
+    def passes(r):
+        return r["loss_rel_err"] <= IMAGE_REL_TOL \
+            and r["grad_rel_err_max"] <= tol and r["state_rel_err_max"] <= tol
+
+    t0 = time.perf_counter()
+    card_rec, wit_rec, plain_rec = [], [], []
+    card = step(dev, card_rec)
+    torch.cuda.synchronize()
+    witness = step("cpu", wit_rec, card_rec)
+    plain = step("cpu", plain_rec)
+    flips = sum(int((a != b).sum()) for a, b in zip(card_rec, plain_rec))
+    out = {"vs_witness": readings(card, witness),
+           "vs_plain_cpu_step": readings(card, plain),
+           "decision_flips_vs_plain_cpu": flips,
+           "decisions": sum(a.numel() for a in card_rec), "tolerance": tol,
+           "loss_tolerance": IMAGE_REL_TOL}
+    if not passes(out["vs_witness"]):
+        fail(f"{what}: the first step on the card against the CPU witness "
+             f"{out}")
+    if control is not None:
+        ctl = readings(step(dev, [], card_rec, ctx=control), witness)
+        out["control"] = {"what": "cuDNN TF32 on (allow_tf32=True), the "
+                          "card's decisions replayed", **ctl}
+        if passes(ctl):
+            fail(f"{what}: the TF32 control passes the first-step gate: "
+                 f"{out}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_tf32(torch):
+    """cuDNN's TF32 convolutions on for the block (``device.resolve``
+    keeps them off)."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def timed_steps(torch, step, warmup=IMAGE_WARMUP, steps=IMAGE_STEPS):
+    """``warmup`` then ``steps`` calls of ``step()`` -> loss, each ending
+    in a synchronize: (ms per step, losses)."""
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return times, losses
+
+
+def host_tree(tree):
+    from paddle_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+
+def run_train_resnet50(torch, dev, kernels):
+    """bench.py's bench_resnet50 ported (scripts/bench.bench_resnet50:
+    batch 32 of 224x224x3, 1000 classes, Momentum lr 0.1 m 0.9, remat
+    off): the first step at RESNET_CHECK_BATCH rows against the CPU
+    (image_first_step, with the TF32 control), then warm-up and timed
+    steps at batch 32 (ms/batch, images/s), the loss finite, the moving
+    stats moved, ``features`` against the forward's pooled tensor, and no
+    counted kernel launched."""
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.scripts import bench as bench_mod
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    b = bench_mod.bench_resnet50(device=dev)
+    params, state = host_tree(b.params), host_tree(b.state["state"])
+    images = b.images[:RESNET_CHECK_BATCH].cpu()
+    labels = b.labels[:RESNET_CHECK_BATCH].cpu()
+
+    def loss_fn(p, st, device):
+        return resnet.loss(p, st, images.to(device), labels.to(device),
+                           depth=50)
+    first = image_first_step(torch, dev, "train_resnet50", loss_fn, params,
+                             state, RESNET_REL_TOL,
+                             control=lambda: cudnn_tf32(torch))
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = timed_steps(torch, b.train_step)
+    ms = float(np.median(times))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_resnet50: loss not finite: {losses}")
+    moved = max(float((a.cpu() - c).abs().max()) for a, c in zip(
+        tree_leaves(b.state["state"]), tree_leaves(state)))
+    with torch.no_grad():
+        x = b.images[:8]
+        feats = resnet.features(b.params, b.state["state"], x, depth=50)
+        pooled, _ = resnet.forward(b.params, b.state["state"], x, depth=50,
+                                   train=False, return_pool=True)
+    feat_err = float((feats - pooled).abs().max())
+    if not moved > 0 or feat_err > 1e-6 * float(pooled.abs().max()):
+        fail(f"train_resnet50: moving stats moved by {moved}; features vs "
+             f"the forward's pooled tensor {feat_err}")
+    launches = {**launch_counts(kernels),
+                "recurrent": recurrent_launches(kernels)}
+    if any(launches.values()):
+        fail(f"train_resnet50: counted kernels launched {launches}")
+    emit({"phase": "train_resnet50", "config": {
+        "model": "models/resnet depth 50", "batch": 32,
+        "image": [224, 224, 3], "classes": 1000,
+        "optimizer": "Momentum lr 0.1 m 0.9", "remat": b.remat,
+        "cpu_check_batch": RESNET_CHECK_BATCH},
+        "steps_timed": len(times), "ms_per_batch": ms,
+        "ms_per_batch_min_max": [min(times), max(times)],
+        "images_per_s": 32 / (ms / 1e3),
+        "tflop_per_s": b.flops_per_step / (ms / 1e3) / 1e12,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "losses": losses, "moving_stats_moved_max": moved,
+        "features_vs_pooled_max_abs": feat_err,
+        "features_bit_for_bit": bool(torch.equal(feats, pooled)),
+        "first_step_vs_cpu": first})
+    F32_MS["train_resnet50"] = ms
+    return ms
+
+
+def run_train_image(torch, dev, kernels):
+    """bench.py's bench_image ported: SmallNet (batch 64, 32x32, 10
+    classes), AlexNet (64, 227x227, 1000) and GoogLeNet (64, 224x224,
+    1000), Momentum lr 0.01 m 0.9: each first step at IMAGE_CHECK_BATCH
+    rows against the CPU, then warm-up and timed steps at the bench's
+    batch, beside the reference's K40m time for the config."""
+    from paddle_tpu_torch.scripts import bench as bench_mod
+    out = {}
+    for name in ("smallnet", "alexnet", "googlenet"):
+        b = bench_mod.bench_image(name, device=dev)
+        mod = bench_mod._IMAGE_MODELS[name]
+        params = host_tree(b.params)
+        images = b.images[:IMAGE_CHECK_BATCH].cpu()
+        labels = b.labels[:IMAGE_CHECK_BATCH].cpu()
+
+        def loss_fn(p, st, device, mod=mod, images=images, labels=labels):
+            return mod.loss(p, st, images.to(device), labels.to(device))
+        first = image_first_step(torch, dev, f"train_image {name}", loss_fn,
+                                 params, {}, IMAGE_REL_TOL)
+        # the losses are reported, not gated: the bench's config (lr 0.01
+        # on random images and labels) may diverge within the steps
+        times, losses = timed_steps(torch, b.train_step)
+        ms = float(np.median(times))
+        batch, hw, classes, _ = bench_mod.IMAGE_CONFIGS[name]
+        out[name] = {"batch": batch, "image": [hw, hw, 3],
+                     "classes": classes, "steps_timed": len(times),
+                     "ms_per_batch": ms,
+                     "ms_per_batch_min_max": [min(times), max(times)],
+                     "images_per_s": batch / (ms / 1e3),
+                     "tflop_per_s": b.flops_per_step / (ms / 1e3) / 1e12,
+                     "reference_k40m_ms_per_batch":
+                         bench_mod.IMAGE_K40M_MS[name],
+                     "losses": losses, "first_step_vs_cpu": first}
+        F32_MS[f"train_{name}"] = ms
+        del b
+        torch.cuda.empty_cache()
+    emit({"phase": "train_image", "optimizer": "Momentum lr 0.01 m 0.9",
+          "cpu_check_batch": IMAGE_CHECK_BATCH, "models": out})
+
+
+def dsl_image_step(torch, dev, what, build, feeding, batch, optimizer,
+                   tol):
+    """The first ``SGD.train_one_batch`` of a DSL image config on the
+    card against a CPU trainer from the same weights and moving stats
+    under a witness that keeps the card's decisions: the loss (at
+    IMAGE_REL_TOL), every parameter, momentum and moving-stat leaf after
+    the update within ``tol`` of its largest entry plus IMAGE_NOISE.
+    Returns (the card's trainer, readings)."""
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    card = SGD(build(), update_equation=optimizer(), device=dev, seed=0)
+    start = host_tree(card.parameters)
+    rec = []
+    with image_probe(torch, rec):
+        loss_c = float(card.train_one_batch(batch, feeder=feeding))
+    twin = SGD(build(), parameters=start, update_equation=optimizer(),
+               device="cpu")
+    with image_probe(torch, [], given=rec):
+        loss_w = float(twin.train_one_batch(batch, feeder=feeding))
+    leaves = [tree_leaves(t.parameters) + tree_leaves(
+        t.opt_state["slots"]) + tree_leaves(t.model_state)
+        for t in (card, twin)]
+    pairs = [(x.detach().cpu(), y.detach())
+             for x, y in zip(leaves[0], leaves[1])]
+    errs = [float((g - w).abs().max()) for g, w in pairs]
+    bounds = [tol * float(w.abs().max()) + IMAGE_NOISE for _, w in pairs]
+    out = {"loss": [loss_c, loss_w],
+           "loss_rel_err": abs(loss_c - loss_w) / abs(loss_w),
+           "leaf_rel_err_max": max(largest_err(*zip(*[
+               p for p in pairs if float(p[1].abs().max()) > IMAGE_NOISE]))),
+           "leaf_err_over_bound_max": max(e / b for e, b in
+                                          zip(errs, bounds)),
+           "noise_leaves": sum(float(w.abs().max()) <= IMAGE_NOISE
+                               for _, w in pairs),
+           "leaves": len(errs),
+           "moving_stat_leaves": len(tree_leaves(card.model_state)),
+           "tolerance": tol, "noise": IMAGE_NOISE}
+    if out["loss_rel_err"] > IMAGE_REL_TOL \
+            or out["leaf_err_over_bound_max"] > 1.0:
+        fail(f"{what}: the first SGD step on the card against the CPU "
+             f"witness: {out}")
+    return card, out
+
+
+def run_train_lenet(torch, dev, seed):
+    """demo/mnist's config (models/image_dsl.lenet, rebuilt with
+    paddle_tpu_torch.layers) on the mnist loader's data (its synthetic
+    fallback): the first SGD step against the CPU, then SGD.train over
+    LENET_BATCHES batches of 128 (the loss falls), SGD.test, and `python
+    -m paddle_tpu_torch train` on a config file, whose pass dir SGD.load
+    restores bit for bit."""
+    from paddle_tpu_torch.models import image_dsl
+    from paddle_tpu_torch.optim import Momentum
+    from paddle_tpu_torch.trainer import SGD, events
+    cfg = image_dsl.mnist_config(n_batches=LENET_BATCHES)
+    data = list(cfg["train_reader"]())
+    feeding = cfg["feeding"]
+
+    def build():
+        return image_dsl.lenet()[0]
+
+    def optimizer():
+        return Momentum(learning_rate=0.01, momentum=0.9)
+    card, first = dsl_image_step(torch, dev, "train_lenet", build, feeding,
+                                 data[0], optimizer, IMAGE_REL_TOL)
+    record = {"ms": [], "loss": []}
+
+    def handler(e):
+        if isinstance(e, events.BeginIteration):
+            torch.cuda.synchronize()
+            record["t0"] = time.perf_counter()
+        elif isinstance(e, events.EndIteration):
+            record["loss"].append(float(e.cost))
+            record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
+    card.train(lambda: iter(data), num_passes=1, event_handler=handler,
+               feeding=feeding, log_period=0)
+    losses = record["loss"]
+    if not (all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        fail(f"train_lenet: the loss must be finite and fall: {losses}")
+    test_cost = card.test(cfg["test_reader"], feeding=feeding)
+    cli = rnn_cli(torch, dev, seed, card, what="train_lenet",
+                  config=LENET_CLI_CONFIG, batches=LENET_CLI_BATCHES,
+                  fresh=lambda: SGD(build(), update_equation=optimizer(),
+                                    device=dev))
+    ms = float(np.median(record["ms"][3:]))
+    emit({"phase": "train_lenet", "config": {
+        "model": "demo/mnist (models/image_dsl.lenet, layer DSL)",
+        "batch": image_dsl.MNIST_BATCH, "batches": LENET_BATCHES,
+        "data": "data.datasets.mnist (synthetic fallback unless "
+                "PADDLE_TPU_DATA_DIR holds the files)",
+        "optimizer": "Momentum lr 0.01 m 0.9",
+        "entry": "trainer.SGD.train"},
+        "ms_per_batch": ms, "images_per_s": image_dsl.MNIST_BATCH
+        / (ms / 1e3), "losses": losses, "test_cost": test_cost,
+        "first_step_vs_cpu": first, "cli": cli})
+    F32_MS["train_lenet"] = ms
+
+
+def run_train_resnet_cifar(torch, dev):
+    """demo/image_classification's DSL ResNet (models/image_dsl
+    .resnet_cifar: conv, batch_norm_layer and addto_layer) at depth 32 on
+    CIFAR shapes through SGD: the first step at DSL_RESNET_CHECK rows
+    against the CPU (parameters, momentum and moving stats), then
+    SGD.train over DSL_RESNET_BATCHES batches of 128 with the moving
+    stats threading through the steps, and SGD.test reading them."""
+    from paddle_tpu_torch.models import image_dsl
+    from paddle_tpu_torch.optim import Momentum
+    from paddle_tpu_torch.trainer import events
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    cfg = image_dsl.cifar_config(DSL_RESNET_DEPTH,
+                                 n_batches=DSL_RESNET_BATCHES,
+                                 batch=DSL_RESNET_BATCH)
+    data = list(cfg["train_reader"]())
+    feeding = cfg["feeding"]
+
+    def build():
+        return image_dsl.cifar_resnet(DSL_RESNET_DEPTH)[0]
+
+    def optimizer():
+        return Momentum(learning_rate=0.01, momentum=0.9, l2=1e-4)
+    card, first = dsl_image_step(torch, dev, "train_resnet_cifar", build,
+                                 feeding, data[0][:DSL_RESNET_CHECK],
+                                 optimizer, RESNET_REL_TOL)
+    before = host_tree(card.model_state)
+    record = {"ms": [], "loss": []}
+
+    def handler(e):
+        if isinstance(e, events.BeginIteration):
+            torch.cuda.synchronize()
+            record["t0"] = time.perf_counter()
+        elif isinstance(e, events.EndIteration):
+            record["loss"].append(float(e.cost))
+            record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
+    card.train(lambda: iter(data), num_passes=1, event_handler=handler,
+               feeding=feeding, log_period=0)
+    moved = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(card.model_state), tree_leaves(before)))
+    test_cost = card.test(cfg["test_reader"], feeding=feeding)
+    losses = record["loss"]
+    if not (all(math.isfinite(x) for x in losses + [test_cost])
+            and moved > 0):
+        fail(f"train_resnet_cifar: losses {losses}, test {test_cost}, "
+             f"moving stats moved {moved}")
+    ms = float(np.median(record["ms"][2:]))
+    emit({"phase": "train_resnet_cifar", "config": {
+        "model": "demo/image_classification resnet_cifar "
+                 "(models/image_dsl, layer DSL)",
+        "depth": DSL_RESNET_DEPTH, "batch": DSL_RESNET_BATCH,
+        "image": [32, 32, 3], "batches": DSL_RESNET_BATCHES,
+        "optimizer": "Momentum lr 0.01 m 0.9 l2 1e-4",
+        "entry": "trainer.SGD.train", "cpu_check_batch": DSL_RESNET_CHECK},
+        "ms_per_batch": ms, "images_per_s": DSL_RESNET_BATCH / (ms / 1e3),
+        "losses": losses, "test_cost": test_cost,
+        "moving_stat_layers": len(card.model_state),
+        "moving_stats_moved_max": moved, "first_step_vs_cpu": first})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6086,8 +6591,10 @@ def main(argv=None):
     f16_rows = check_low_instances(torch, dev,
                                    np.random.RandomState(args.seed + 20),
                                    F16_PAIRS)
-    attn_rows = check_attention_bf16(torch, dev,
-                                     np.random.RandomState(args.seed + 21))
+    attn_rows = check_attention_low(torch, dev,
+                                    np.random.RandomState(args.seed + 21))
+    attn_f16_rows = check_attention_low(
+        torch, dev, np.random.RandomState(args.seed + 24), "float16")
     emit({"phase": "kernels", "tolerance": KERNEL_TOL,
           "lstm_blocked_3xtf32_tolerance": BLK_TC_TOL,
           "int8_vs_f32_kernel_on_dequantized": "bit for bit (max abs err 0)",
@@ -6128,7 +6635,8 @@ def main(argv=None):
               torch, dev, rnn_libs),
           "simple_rnn_routes": check_rnn_routes(torch, dev, rng, kernels),
           "bf16_f32_floor": BF16_F32_FLOOR, "bf16_instances": bf16_rows,
-          "rnn_f16": f16_rows, "attention_bf16": attn_rows})
+          "rnn_f16": f16_rows, "attention_bf16": attn_rows,
+          "attention_f16": attn_f16_rows})
 
     emit(check_flash_padded(torch, dev, rng, kernels))
 
@@ -6195,10 +6703,17 @@ def main(argv=None):
         "rnn_ops_f16": run_rnn_ops_low(
             torch, dev, kernels, np.random.RandomState(args.seed + 22),
             F16_PAIRS[2:], "rnn_ops_f16", steps=F16_OPS_T)}
-    attn_launches = run_attention_ops_bf16(
+    attn_launches = run_attention_ops_low(
         torch, dev, kernels, np.random.RandomState(args.seed + 23))
+    attn_f16_launches = run_attention_ops_low(
+        torch, dev, kernels, np.random.RandomState(args.seed + 25),
+        "float16")
     mt_decode_launches = run_generate_mt(torch, dev, kernels)
     s2g_launches = run_generate_seq2seq(torch, dev, kernels)
+    run_train_resnet50(torch, dev, kernels)
+    run_train_lenet(torch, dev, args.seed)
+    run_train_image(torch, dev, kernels)
+    run_train_resnet_cifar(torch, dev)
 
     summary = []
     for row, mod, launches in (
@@ -6421,7 +6936,9 @@ def main(argv=None):
     # by the bf16 and float16 train and ops phases; the bf16 instances of
     # the attention kernels, by attention_ops_bf16
     for rows, runs in ((bf16_rows, bf16_runs), (f16_rows, f16_runs),
-                       (attn_rows, {"attention_ops_bf16": attn_launches})):
+                       (attn_rows, {"attention_ops_bf16": attn_launches}),
+                       (attn_f16_rows,
+                        {"attention_ops_f16": attn_f16_launches})):
         for row in rows:
             by_path = {phase: n[row["name"]] for phase, n in runs.items()
                        if row["name"] in n}

@@ -86,15 +86,16 @@
 //
 // Element types (JAX's kernels widen every operand on load,
 //   decode_attention.py:294-296, 342-343, and write out in q's dtype,
-//   :456, 532, 607, 677): q and out, k and v are each float32 or bf16, as
-//   the bits of a launch's dts say (kQ: q and out; kK: k; kV: v; int8
-//   K/V are the kInt8 instances').  A bf16 operand is read value by value
-//   and widened into the same float32 shared-memory rows the float32
-//   copies fill (no cp.async: it cannot widen), so the scores, softmax,
-//   P.V and merge are the float32 kernel's; out is rounded once to bf16.
+//   :456, 532, 607, 677): q and out, k and v are each float32, bf16 or
+//   float16, as the bits of a launch's dts say (kQ: q and out; kK: k; kV:
+//   v; each shifted by kHalf for float16; int8 K/V are the kInt8
+//   instances').  A bf16 or float16 operand is read value by value and
+//   widened into the same float32 shared-memory rows the float32 copies
+//   fill (no cp.async: it cannot widen), so the scores, softmax, P.V and
+//   merge are the float32 kernel's; out is rounded once to q's dtype.
 //   The flags are read at run time in every instance, beside the
-//   dh-dependent copy choices already there: a bf16 operand adds no
-//   instance (each width, layout and vector count is already one), and
+//   dh-dependent copy choices already there: a low-precision operand adds
+//   no instance (each width, layout and vector count is already one), and
 //   float32 operands take the copies they took before.
 //
 // Head dims: the template's DH is a compiled width (16, 32, 64, 128,
@@ -106,6 +107,7 @@
 //   compiled width runs the instance with dh = DH folded in.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,9 +117,18 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-// the bits of a launch's dts: bf16 q (and out), k, v
-constexpr int kQ = 1, kK = 2, kV = 4;
+// the bits of a launch's dts: bf16 q (and out), k, v; the same bits
+// shifted left by kHalf: float16
+constexpr int kQ = 1, kK = 2, kV = 4, kHalf = 3;
 using bf16 = __nv_bfloat16;
+
+// element i of a bf16 (bit set in dts) or float16 (bit << kHalf) operand,
+// widened
+__device__ __forceinline__ float low_at(const void* p, size_t i, int dts,
+                                        int bit) {
+  return (dts & bit) ? __bfloat162float(static_cast<const bf16*>(p)[i])
+                     : __half2float(static_cast<const __half*>(p)[i]);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -323,17 +334,17 @@ split_kernel(const void* __restrict__ q, const void* __restrict__ k,
 
   // group 0: q, the K tile and the scales; group 1: the V tile
   // float32: 16-byte copies where dh % 4 == 0, else one value a copy;
-  // int8 codes: 4-byte copies where dh % 4 == 0, else one a load; bf16:
-  // one value a load, widened and stored
+  // int8 codes: 4-byte copies where dh % 4 == 0, else one a load; bf16
+  // and float16: one value a load, widened and stored
   const bool vec = !kInt8 && dh % 4 == 0;
   const bool quad = dh * kVal % 4 == 0;
-  if (dts & kQ) {
+  if (dts & (kQ | kQ << kHalf)) {
     for (int e = tid; e < nv * dh; e += kThreads) {
       const int vv = e / dh, x = e % dh;
       const int jq = z * V + s_slot[vv];
       const int h = g * group + jq % group;
-      qs[vv * DH + x] = __bfloat162float(static_cast<const bf16*>(
-          q)[((size_t)r * K + jq / group) * D + (size_t)h * dh + x]);
+      qs[vv * DH + x] = low_at(
+          q, ((size_t)r * K + jq / group) * D + (size_t)h * dh + x, dts, kQ);
     }
   } else {
     const int n4 = dh / 4;
@@ -352,14 +363,13 @@ split_kernel(const void* __restrict__ q, const void* __restrict__ k,
         cp_async4(qs + vv * DH + e % w, qrow + e % w);
     }
   }
-  auto copy_tile = [&](unsigned char* dst, const void* src, bool bf) {
+  auto copy_tile = [&](unsigned char* dst, const void* src, int bit) {
     const unsigned char* base = static_cast<const unsigned char*>(src);
-    if (!kInt8 && bf) {
+    if (!kInt8 && (dts & (bit | bit << kHalf))) {
       for (int e = tid; e < nin * dh; e += kThreads) {
         const int c = e / dh, x = e % dh;
-        reinterpret_cast<float*>(dst + c * kRow)[x] = __bfloat162float(
-            static_cast<const bf16*>(src)[(size_t)srow[c] * Dkv +
-                                          (size_t)g * dh + x]);
+        reinterpret_cast<float*>(dst + c * kRow)[x] = low_at(
+            src, (size_t)srow[c] * Dkv + (size_t)g * dh + x, dts, bit);
       }
     } else if (vec) {
       const int n = dh * kVal / 16;
@@ -384,7 +394,7 @@ split_kernel(const void* __restrict__ q, const void* __restrict__ k,
       }
     }
   };
-  copy_tile(kt, k, dts & kK);
+  copy_tile(kt, k, kK);
   if constexpr (kInt8) {
     if (tid < nin) {
       cp_async4(ksc + tid, kscale + (size_t)srow[tid] * Hkv + g);
@@ -392,7 +402,7 @@ split_kernel(const void* __restrict__ q, const void* __restrict__ k,
     }
   }
   cp_async_commit();
-  copy_tile(vt, v, dts & kV);
+  copy_tile(vt, v, kV);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -521,6 +531,8 @@ split_kernel(const void* __restrict__ q, const void* __restrict__ k,
     const size_t at = ((size_t)r * K + i) * D + (size_t)h * dh + d;
     if (dts & kQ)
       static_cast<bf16*>(out)[at] = __float2bfloat16_rn(val);
+    else if (dts & kQ << kHalf)
+      static_cast<__half*>(out)[at] = __float2half_rn(val);
     else
       static_cast<float*>(out)[at] = val;
   };
@@ -730,7 +742,7 @@ extern "C" long long decode_attention_chunk_tickets(int S, int K, int H,
 }
 
 // q [S, K, D], k/v [S, T, Dkv], qpos [S, K] -> out [S, K, D]; q/out, k
-// and v float32 or bf16 as dts says
+// and v float32, bf16 or float16 as dts says
 extern "C" int decode_attention_slab_chunk_f32(
     const void* q, const void* k, const void* v, const int* qpos, void* out,
     float* part, int* tickets, int S, int K, int T, int H, int Hkv, int dh,
@@ -740,7 +752,7 @@ extern "C" int decode_attention_slab_chunk_f32(
       1, 1, H, Hkv, dh, scale, dts, stream);
 }
 
-// the int8 cache; q/out float32 or bf16 as dts says
+// the int8 cache; q/out float32, bf16 or float16 as dts says
 extern "C" int decode_attention_slab_chunk_i8(
     const void* q, const int8_t* k, const int8_t* v, const float* ks,
     const float* vs, const int* qpos, void* out, float* part, int* tickets,

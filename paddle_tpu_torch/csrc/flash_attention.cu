@@ -1,7 +1,7 @@
 // Flash attention for Hopper (sm_90a): the forward over float32 K/V or
 // over an int8 KV cache with per-(position, KV head) scales, and the
-// backward (dK/dV and dQ); float32 operands, or bf16 ones in each
-// kernel's kLow instance.
+// backward (dK/dV and dQ); float32 operands, or bf16 and float16 ones in
+// each kernel's kLow instance.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py ::
 //   flash_attention forward (pallas_call at :144 in _fwd; body _fwd_kernel
@@ -115,9 +115,10 @@
 // Element types (JAX's kernels widen every operand on load,
 //   flash_attention.py:109-111, and store o, dq, dk and dv in their
 //   operand's dtype): each kernel also has a kLow instance, whose q (with
-//   o, dO and dq), k (with dk) and v (with dv) are each float32 or bf16
-//   as the launch's dts bits say (its C entries are the _bf16 ones).  A
-//   bf16 operand is widened to float32 as it is loaded: its K/V, q and dO
+//   o, dO and dq), k (with dk) and v (with dv) are each float32, bf16 or
+//   float16 as the launch's dts bits say (its C entries are the _low
+//   ones; one instance, the dtypes read at run time).  A bf16 or float16
+//   operand is widened to float32 as it is loaded: its K/V, q and dO
 //   tiles 4 values a thread through registers into the same float32
 //   shared-memory tiles cp.async fills for float32 (the int8 instance's
 //   route), its fragments and o rows value by value.  The products, the
@@ -133,6 +134,7 @@
 //   memory in warp order (their section says why and how).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -225,70 +227,91 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ------------------------------------------------------ operand types
 
-// The bits of a launch's `dts`: which operands are bf16 (q with o, dO
-// and dq; k with dk; v with dv).  Only a kLow instance reads them; every
-// other instance reads and writes float32 (or int8 K/V) and ignores dts.
-constexpr int kQ = 1, kK = 2, kV = 4;
+// The bits of a launch's `dts`: which operands are bf16 (kQ: q with o,
+// dO and dq; kK: k with dk; kV: v with dv), and the same bits shifted
+// left by kHalf: which are float16.  Only a kLow instance reads them;
+// every other instance reads and writes float32 (or int8 K/V) and
+// ignores dts.
+constexpr int kQ = 1, kK = 2, kV = 4, kHalf = 3;
 using bf16 = __nv_bfloat16;
+// an operand's element type in a kLow instance
+enum : unsigned char { kF32 = 0, kBf16 = 1, kF16 = 2 };
 
-// A read-only operand as the kernels index it: float32, or bf16 in a
-// kLow instance whose flag says so (widened on load).  For kLow = false
-// it is the float pointer itself.
+__host__ __device__ constexpr unsigned char low_of(int dts, int bit) {
+  return (dts & bit) ? kBf16 : (dts & (bit << kHalf)) ? kF16 : kF32;
+}
+
+// A read-only operand as the kernels index it: float32, or bf16 or
+// float16 in a kLow instance whose type code says so (widened on load).
+// For kLow = false it is the float pointer itself.
 template <bool kLow>
 struct In {
   const void* p;
-  bool bf;
+  unsigned char t;
   __device__ __forceinline__ float operator[](size_t i) const {
-    if constexpr (kLow)
-      if (bf) return __bfloat162float(static_cast<const bf16*>(p)[i]);
+    if constexpr (kLow) {
+      if (t == kBf16) return __bfloat162float(static_cast<const bf16*>(p)[i]);
+      if (t == kF16) return __half2float(static_cast<const __half*>(p)[i]);
+    }
     return static_cast<const float*>(p)[i];
   }
   __device__ __forceinline__ In operator+(size_t i) const {
     if constexpr (kLow)
-      if (bf) return {static_cast<const bf16*>(p) + i, bf};
-    return {static_cast<const float*>(p) + i, bf};
+      if (t) return {static_cast<const unsigned short*>(p) + i, t};
+    return {static_cast<const float*>(p) + i, t};
   }
-  // 4 values at i (16-byte aligned as float32, 8 as bf16)
+  // 4 values at i (16-byte aligned as float32, 8 as bf16 or float16)
   __device__ __forceinline__ float4 ld4(size_t i) const {
     if constexpr (kLow)
-      if (bf) {
-        const uint2 u =
-            *reinterpret_cast<const uint2*>(static_cast<const bf16*>(p) + i);
-        const float2 a =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 b =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      if (t) {
+        const uint2 u = *reinterpret_cast<const uint2*>(
+            static_cast<const unsigned short*>(p) + i);
+        float2 a, b;
+        if (t == kBf16) {
+          a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+          b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        } else {
+          a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+          b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+        }
         return make_float4(a.x, a.y, b.x, b.y);
       }
     return *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
   }
 };
 
-// An output operand: float32, or bf16 (each value rounded once to
-// nearest even) in a kLow instance whose flag says so.
+// An output operand: float32, or bf16 or float16 (each value rounded once
+// to nearest even) in a kLow instance whose type code says so.
 template <bool kLow>
 struct Out {
   void* p;
-  bool bf;
+  unsigned char t;
   // 2 adjacent values at i (8-byte aligned as float32)
   __device__ __forceinline__ void st2(size_t i, float a, float b) const {
-    if constexpr (kLow)
-      if (bf) {
+    if constexpr (kLow) {
+      if (t == kBf16) {
         *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p) + i) =
             __floats2bfloat162_rn(a, b);
         return;
       }
+      if (t == kF16) {
+        *reinterpret_cast<__half2*>(static_cast<__half*>(p) + i) =
+            __floats2half2_rn(a, b);
+        return;
+      }
+    }
     *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
   }
 };
 
 // 4 values of src (zero where !in) into dst (16-byte aligned shared
-// floats): float32 through cp.async, bf16 loaded, widened and stored
-// (visible, as cp.async's copy is, after the consumer's __syncthreads)
+// floats): float32 through cp.async, bf16 and float16 loaded, widened and
+// stored (visible, as cp.async's copy is, after the consumer's
+// __syncthreads)
 template <bool kLow>
 __device__ __forceinline__ void stage4(float* dst, In<kLow> src, bool in) {
   if constexpr (kLow)
-    if (src.bf) {
+    if (src.t) {
       *reinterpret_cast<float4*>(dst) =
           in ? src.ld4(0) : make_float4(0.f, 0.f, 0.f, 0.f);
       return;
@@ -339,8 +362,8 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const size_t kv_row0 = (size_t)b * Tk;      // first K/V row of batch b
   const int last = causal ? min(q0 + kBq - 1, Tk - 1) : Tk - 1;
   const int n_tiles = last / kKv + 1;
-  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
-  const Out<kLow> oout{o, (dts & kQ) != 0};
+  const In<kLow> kin{k, low_of(dts, kK)}, vin{v, low_of(dts, kV)};
+  const Out<kLow> oout{o, low_of(dts, kQ)};
 
   // K/V tile j into ring slot j % kFwdStages, zero past Tk
   auto stage = [&](int j) {
@@ -400,7 +423,7 @@ flash_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
 
   // the warp's 16 q rows as raw A fragments, zero past Tq
-  const In<kLow> qb = In<kLow>{q, (dts & kQ) != 0} + ((size_t)b * Tq * D + (size_t)h * DH);
+  const In<kLow> qb = In<kLow>{q, low_of(dts, kQ)} + ((size_t)b * Tq * D + (size_t)h * DH);
   float qa[kD8][4];
 #pragma unroll
   for (int kk = 0; kk < kD8; ++kk) {
@@ -605,10 +628,10 @@ flash_bwd_dkv_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int kr_lo = k0 + warp * 16 + g, kr_hi = kr_lo + 8;   // K/V rows
-  const In<kLow> qb = In<kLow>{q, (dts & kQ) != 0} + bh * Tq * DH;
-  const In<kLow> dob = In<kLow>{dout, (dts & kQ) != 0} + bh * Tq * DH;
-  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
-  const Out<kLow> dkout{dk, (dts & kK) != 0}, dvout{dv, (dts & kV) != 0};
+  const In<kLow> qb = In<kLow>{q, low_of(dts, kQ)} + bh * Tq * DH;
+  const In<kLow> dob = In<kLow>{dout, low_of(dts, kQ)} + bh * Tq * DH;
+  const In<kLow> kin{k, low_of(dts, kK)}, vin{v, low_of(dts, kV)};
+  const Out<kLow> dkout{dk, low_of(dts, kK)}, dvout{dv, low_of(dts, kV)};
   const float* lseb = lse + bh * Tq;
   const float* deltab = delta + bh * Tq;
 
@@ -792,11 +815,11 @@ flash_bwd_dq_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const int w0 = warp * 16;                   // the warp's rows in the tile
   const int r_lo = q0 + w0 + g, r_hi = r_lo + 8;
-  const In<kLow> kb = In<kLow>{k, (dts & kK) != 0} + bh * Tk * DH;
-  const In<kLow> vb = In<kLow>{v, (dts & kV) != 0} + bh * Tk * DH;
-  const In<kLow> qin{q, (dts & kQ) != 0}, doin{dout, (dts & kQ) != 0};
-  const In<kLow> oin{o, (dts & kQ) != 0};
-  const Out<kLow> dqout{dq, (dts & kQ) != 0};
+  const In<kLow> kb = In<kLow>{k, low_of(dts, kK)} + bh * Tk * DH;
+  const In<kLow> vb = In<kLow>{v, low_of(dts, kV)} + bh * Tk * DH;
+  const In<kLow> qin{q, low_of(dts, kQ)}, doin{dout, low_of(dts, kQ)};
+  const In<kLow> oin{o, low_of(dts, kQ)};
+  const Out<kLow> dqout{dq, low_of(dts, kQ)};
   const int last = causal ? min(q0 + kBq - 1, Tk - 1) : Tk - 1;
   const int n_tiles = last / kKv + 1;
 
@@ -1086,8 +1109,8 @@ flash_fwd_wide_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const size_t kv_row0 = (size_t)b * Tk;
   const int last = causal ? min(q0 + 15, Tk - 1) : Tk - 1;
   const int n_tiles = last / kR + 1;
-  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
-  const Out<kLow> oout{o, (dts & kQ) != 0};
+  const In<kLow> kin{k, low_of(dts, kK)}, vin{v, low_of(dts, kV)};
+  const Out<kLow> oout{o, low_of(dts, kQ)};
 
   // K/V tile j into ring slot j % 2, zero past Tk
   auto stage = [&](int j) {
@@ -1144,7 +1167,7 @@ flash_fwd_wide_kernel(const void* __restrict__ q, const void* __restrict__ k,
 
   // the warp's columns of the CTA's 16 q rows as raw A fragments
   const In<kLow> qb =
-      In<kLow>{q, (dts & kQ) != 0} + ((size_t)b * Tq * D + (size_t)h * DH + c0);
+      In<kLow>{q, low_of(dts, kQ)} + ((size_t)b * Tq * D + (size_t)h * DH + c0);
   float qa[kW8][4];
 #pragma unroll
   for (int kk = 0; kk < kW8; ++kk) {
@@ -1304,11 +1327,11 @@ flash_bwd_dq_wide_kernel(const void* __restrict__ q,
   const int g = lane >> 2, t4 = lane & 3;
   const int c0 = warp * kW;
   const int r_lo = q0 + g, r_hi = r_lo + 8;
-  const In<kLow> kb = In<kLow>{k, (dts & kK) != 0} + bh * Tk * DH;
-  const In<kLow> vb = In<kLow>{v, (dts & kV) != 0} + bh * Tk * DH;
-  const In<kLow> qin{q, (dts & kQ) != 0}, doin{dout, (dts & kQ) != 0};
-  const In<kLow> oin{o, (dts & kQ) != 0};
-  const Out<kLow> dqout{dq, (dts & kQ) != 0};
+  const In<kLow> kb = In<kLow>{k, low_of(dts, kK)} + bh * Tk * DH;
+  const In<kLow> vb = In<kLow>{v, low_of(dts, kV)} + bh * Tk * DH;
+  const In<kLow> qin{q, low_of(dts, kQ)}, doin{dout, low_of(dts, kQ)};
+  const In<kLow> oin{o, low_of(dts, kQ)};
+  const Out<kLow> dqout{dq, low_of(dts, kQ)};
   const int last = causal ? min(q0 + 15, Tk - 1) : Tk - 1;
   const int n_tiles = last / kR + 1;
 
@@ -1495,10 +1518,10 @@ flash_bwd_dkv_wide_kernel(const void* __restrict__ q,
   const int g = lane >> 2, t4 = lane & 3;
   const int c0 = warp * kW;
   const int kr_lo = k0 + g, kr_hi = kr_lo + 8;
-  const In<kLow> qb = In<kLow>{q, (dts & kQ) != 0} + bh * Tq * DH;
-  const In<kLow> dob = In<kLow>{dout, (dts & kQ) != 0} + bh * Tq * DH;
-  const In<kLow> kin{k, (dts & kK) != 0}, vin{v, (dts & kV) != 0};
-  const Out<kLow> dkout{dk, (dts & kK) != 0}, dvout{dv, (dts & kV) != 0};
+  const In<kLow> qb = In<kLow>{q, low_of(dts, kQ)} + bh * Tq * DH;
+  const In<kLow> dob = In<kLow>{dout, low_of(dts, kQ)} + bh * Tq * DH;
+  const In<kLow> kin{k, low_of(dts, kK)}, vin{v, low_of(dts, kV)};
+  const Out<kLow> dkout{dk, low_of(dts, kK)}, dvout{dv, low_of(dts, kV)};
   const float* lseb = lse + bh * Tq;
   const float* deltab = delta + bh * Tq;
 
@@ -1787,7 +1810,7 @@ int smem_bytes(int which) {
 
 // The entries build in parts, one nvcc each, linked into one library
 // (ops/kernels/_build.py passes -DPT_PART=k; a build without it defines
-// every entry): part 0 the float32 and int8 entries, 1 the bf16 (kLow) ones.
+// every entry): part 0 the float32 and int8 entries, 1 the kLow ones.
 #ifndef PT_PART
 #define PT_PART -1
 #endif
@@ -1795,9 +1818,9 @@ int smem_bytes(int which) {
 
 // Each entry returns cudaGetLastError() after the launch (0 = launched).
 // The _f32 / _i8 entries are the float32 (and int8 K/V) instances; each
-// _bf16 entry is its kernel's kLow instance, whose operands are float32
-// or bf16 as the bits of dts (kQ: q with o, do and dq; kK: k with dk;
-// kV: v with dv) say.
+// _low entry is its kernel's kLow instance, whose operands are float32,
+// bf16 or float16 as the bits of dts (kQ: q with o, do and dq; kK: k with
+// dk; kV: v with dv; each shifted by kHalf for float16) say.
 
 // q [BH, Tq, dh], k/v [BH, Tk, dh] -> o [BH, Tq, dh], lse [BH, Tq]
 #if PT_IN(0)
@@ -1811,7 +1834,7 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
 }
 #endif
 #if PT_IN(1)
-extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+extern "C" int flash_attention_fwd_low(const void* q, const void* k,
                                         const void* v, void* o, float* lse,
                                         int BH, int Tq, int Tk, int dh,
                                         int dts, float scale, int causal,
@@ -1822,7 +1845,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
 #endif
 
 // q [B, Tq, H * dh], k/v [B, Tk, Hkv * dh] int8, ks/vs [B, Tk, Hkv]
-// -> o [B, H, Tq, dh]; the _bf16 entry's q and o bf16
+// -> o [B, H, Tq, dh]; the _low entry's q and o bf16 or float16 as dts's
+// kQ bit (or its float16 twin) says
 #if PT_IN(0)
 extern "C" int flash_attention_quant_i8(const float* q, const int8_t* k,
                                         const int8_t* v, const float* ks,
@@ -1835,14 +1859,15 @@ extern "C" int flash_attention_quant_i8(const float* q, const int8_t* k,
 }
 #endif
 #if PT_IN(1)
-extern "C" int flash_attention_quant_i8_bf16(const void* q, const int8_t* k,
-                                             const int8_t* v, const float* ks,
-                                             const float* vs, void* o, int B,
-                                             int H, int Hkv, int Tq, int Tk,
-                                             int dh, float scale, int causal,
-                                             void* stream) {
+extern "C" int flash_attention_quant_i8_low(const void* q, const int8_t* k,
+                                            const int8_t* v, const float* ks,
+                                            const float* vs, void* o, int B,
+                                            int H, int Hkv, int Tq, int Tk,
+                                            int dh, int dts, float scale,
+                                            int causal, void* stream) {
   return dispatch<true, true>(q, k, v, ks, vs, o, nullptr, B, H, Hkv, Tq,
-                              Tk, dh, scale, causal, kQ, stream);
+                              Tk, dh, scale, causal, dts & (kQ | kQ << kHalf),
+                              stream);
 }
 #endif
 
@@ -1861,7 +1886,7 @@ extern "C" int flash_attention_bwd_dkv_f32(const float* q, const float* k,
 }
 #endif
 #if PT_IN(1)
-extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
+extern "C" int flash_attention_bwd_dkv_low(const void* q, const void* k,
                                             const void* v, const void* dout,
                                             const float* lse,
                                             const float* delta, void* dk,
@@ -1888,7 +1913,7 @@ extern "C" int flash_attention_bwd_dq_f32(const float* q, const float* k,
 }
 #endif
 #if PT_IN(1)
-extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
+extern "C" int flash_attention_bwd_dq_low(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* o, const float* lse,
                                            float* delta, void* dq, int BH,

@@ -1,6 +1,7 @@
 """Data path (``paddle_tpu/data``): reader decorators, the input type
-declarations and the DataFeeder.  The ``@provider`` decorator, the
-prefetcher and the dataset zoo are not ported yet (ROADMAP A9·f)."""
+declarations, the DataFeeder and the image datasets of the zoo
+(``data.datasets``: mnist, cifar).  The ``@provider`` decorator, the
+prefetcher and the rest of the zoo are not ported yet (ROADMAP A9·f)."""
 
 from paddle_tpu_torch.data import reader
 from paddle_tpu_torch.data.feeder import DataFeeder

@@ -1,9 +1,11 @@
 """v1-DSL layer ctors (``paddle_tpu/layers/api.py``): the data, fc and
-embedding layers, sequence pooling, concat and the classification cost —
-the layers of the reference's RNN text classifier and the two DSL demos
-(quick_start, sentiment) — and the mixture-of-experts ``moe_layer``.
-The rest of ``api.py`` (mixed layers and projections, the elementwise
-and cost zoo, crf, ctc, nce, hsigmoid) waits for ROADMAP A10·b.
+embedding layers, sequence pooling, concat, addto and the
+classification cost — the layers of the reference's RNN text
+classifier, the two DSL demos (quick_start, sentiment) and the image
+demos' trunks (``layers/vision.py`` holds their conv stack) — and the
+mixture-of-experts ``moe_layer``.  The rest of ``api.py`` (mixed layers
+and projections, the elementwise and cost zoo, crf, ctc, nce, hsigmoid)
+waits for ROADMAP A10·b.
 
 Every ctor returns a LayerOutput graph node; ``graph.Topology`` runs it.
 Initializers follow the JAX package's rules (weights normal with std
@@ -27,7 +29,7 @@ from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = [
     "data_layer", "fc_layer", "moe_layer", "embedding_layer",
-    "concat_layer",
+    "concat_layer", "addto_layer",
     "pooling_layer", "pooling", "last_seq", "first_seq",
     "classification_cost",
 ]
@@ -99,12 +101,12 @@ register_layer("data")(_DataImpl)
 
 
 def data_layer(name, size, is_seq=False, height=None, width=None):
-    """Reference data_layer(name, size).  Image shapes (height, width)
-    wait for the vision layers (ROADMAP A10·b)."""
-    if height or width:
-        raise ConfigError("data_layer(height=, width=) feeds the vision "
-                          "layers, not ported yet (ROADMAP A10·b)")
-    return LayerOutput(name, "data", size, cfg={"size": size}, is_seq=is_seq)
+    """Reference data_layer(name, size) (layers.py DataLayer); height and
+    width carry the image shape for the conv stack (``layers/vision``),
+    which reads rows [B, C*H*W] channel-major."""
+    img = (height, width) if height and width else None
+    return LayerOutput(name, "data", size, cfg={"size": size}, is_seq=is_seq,
+                       img_shape=img)
 
 
 # ---------------------------------------------------------------- fc
@@ -241,6 +243,39 @@ def concat_layer(input, act=None, name=None, bias_attr=False,
     ins = _only_layers("concat_layer", _inputs_list(input))
     return LayerOutput(name or auto_name("concat"), "concat",
                        sum(i.size for i in ins), ins, {"act": act})
+
+
+# ------------------------------------------------------- addto
+
+class _AddtoImpl:
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def apply(self, ctx, cfg, params, *inputs):
+        return map_rows(lambda *ds: activations.get(cfg.get("act"))(
+            sum(ds[1:], ds[0])), *inputs)
+
+
+register_layer("addto")(_AddtoImpl)
+
+
+def addto_layer(input, act=None, name=None, bias_attr=False):
+    """The elementwise sum of the inputs, then ``act`` (reference
+    AddtoLayer; ``bias_attr`` is accepted and unused, as in the JAX
+    package).  The output keeps its inputs' image metadata (the last
+    input's ``num_filters`` and ``img_shape`` that are set), as the
+    reference's ``addto_layer`` passes ``num_filters`` on: a conv after a
+    residual sum then reads its channels and shape.  JAX's node drops
+    them, so its ``resnet_cifar`` demo needs ``num_channels=`` on the
+    layers after each sum (ROADMAP C11)."""
+    ins = _only_layers("addto_layer", _inputs_list(input))
+    num_filters = img_shape = None
+    for node in ins:
+        num_filters = node.num_filters or num_filters
+        img_shape = node.img_shape or img_shape
+    return LayerOutput(name or auto_name("addto"), "addto", ins[0].size, ins,
+                       {"act": act}, num_filters=num_filters,
+                       img_shape=img_shape)
 
 
 # ------------------------------------------------------- sequence pooling

@@ -79,10 +79,11 @@ class LayerOutput:
     """A node in the layer graph (reference: the LayerOutput returned by
     every trainer_config_helpers ctor)."""
 
-    __slots__ = ("name", "layer_type", "size", "inputs", "cfg", "is_seq")
+    __slots__ = ("name", "layer_type", "size", "inputs", "cfg", "is_seq",
+                 "num_filters", "img_shape")
 
     def __init__(self, name, layer_type, size, inputs=(), cfg=None,
-                 is_seq=None):
+                 is_seq=None, num_filters=None, img_shape=None):
         self.name = name
         self.layer_type = layer_type
         self.size = int(size)
@@ -92,6 +93,8 @@ class LayerOutput:
         if is_seq is None:
             is_seq = any(getattr(i, "is_seq", False) for i in self.inputs)
         self.is_seq = is_seq
+        self.num_filters = num_filters      # conv image metadata
+        self.img_shape = img_shape          # (h, w) after this layer
 
     def __repr__(self):
         return (f"LayerOutput({self.name}, {self.layer_type}, size={self.size}"
@@ -112,6 +115,14 @@ class Context:
 
     def is_train(self):
         return self.mode == "train"
+
+    def get_state(self, name, default_fn):
+        if name in self.state_in:
+            return self.state_in[name]
+        return default_fn()
+
+    def put_state(self, name, value):
+        self.state_out[name] = value
 
     def rand_like(self, x):
         """U[0, 1) of ``x``'s shape drawn from the context's generator,
@@ -274,10 +285,18 @@ class Topology:
             return result, ctx.state_out
         return result
 
-    def init_state(self):
-        """Initial mutable state for the layers that keep one (batch
-        norm's moving stats, not ported yet: none in the port's layers)."""
-        return {}
+    def init_state(self, device=None):
+        """Initial mutable state of the layers that keep one: each batch
+        norm layer's moving stats, (zeros, ones) of its stat size, as
+        JAX's; float32 on ``device`` (the card unless "cpu")."""
+        dev = _device.resolve(device)
+        state = {}
+        for node in self.order:
+            if node.layer_type == "batch_norm":
+                size = node.cfg["size"]
+                state[node.name] = (torch.zeros(size, device=dev),
+                                    torch.ones(size, device=dev))
+        return state
 
     def param_shapes(self):
         """{param_key: {param_name: shape}} of ``init``'s result (drawn

@@ -39,3 +39,33 @@ def uniform(scale=None):
                        device=gen.device)
         return (2.0 * u - 1.0) * s
     return init
+
+
+def xavier():
+    """U(-s, s), s = sqrt(6 / (fan_in + fan_out)): fan_in = shape[0],
+    fan_out = shape[-1]."""
+    def init(gen, shape, dtype=None):
+        fan_in = shape[0] if len(shape) >= 1 else 1
+        fan_out = shape[-1] if len(shape) >= 2 else fan_in
+        return uniform(math.sqrt(6.0 / (fan_in + fan_out)))(gen, shape,
+                                                             dtype)
+    return init
+
+
+def msra(fan_in_axis=0):
+    """Normal with std sqrt(2 / fan_in), fan_in = shape[fan_in_axis]."""
+    def init(gen, shape, dtype=None):
+        fan_in = shape[fan_in_axis] if shape else 1
+        return normal(math.sqrt(2.0 / max(fan_in, 1)))(gen, shape, dtype)
+    return init
+
+
+def conv_default():
+    """Reference conv init: normal with std 1/sqrt(fan_in), fan_in =
+    prod(kernel) * in_ch (shape [kh, kw, in_ch, out_ch])."""
+    def init(gen, shape, dtype=None):
+        fan_in = 1
+        for d in shape[:-1]:
+            fan_in *= d
+        return normal(1.0 / math.sqrt(max(fan_in, 1)))(gen, shape, dtype)
+    return init

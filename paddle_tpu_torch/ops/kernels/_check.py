@@ -102,6 +102,28 @@ def operand_suffix(**operands):
     return "_".join(f"{name}{short[t.dtype]}" for name, t in operands.items())
 
 
+# the bits of an attention launch's operand dtypes (csrc/flash_attention.cu
+# and csrc/decode_attention.cu: kQ, kK, kV): a bf16 operand sets its bit,
+# a float16 one its bit shifted by LOW_HALF_SHIFT (kHalf)
+ATTN_BITS = (1, 2, 4)
+LOW_HALF_SHIFT = 3
+
+
+def dtype_bits(*operands):
+    """The attention kernels' dtype bits of ``operands`` in (q, k, v)
+    order (None or a float32 / int8 operand adds none): 0 for all
+    float32."""
+    bits = 0
+    for bit, x in zip(ATTN_BITS, operands):
+        if x is None:
+            continue
+        if x.dtype == torch.bfloat16:
+            bits |= bit
+        elif x.dtype == torch.float16:
+            bits |= bit << LOW_HALF_SHIFT
+    return bits
+
+
 def f32_scratch(out):
     """A float32 buffer the shape of ``out`` on its device: ``out`` itself
     where it is float32 (the float32 instance computes in its outputs)."""

@@ -27,12 +27,12 @@ takes and which ``chip_smoke.py`` holds the kernel against on the card
 the product the int8 kernels form in registers).  Each kernel, float32
 and int8, has its own ``launches`` counter.
 
-Operand dtypes, as JAX's kernels take them: q, k and v each float32 or
-bf16 (q also bf16 over an int8 cache), the output in q's dtype.  The
-kernels widen a bf16 operand as they load it and compute as over
-float32; the operands' dtypes reach them as bits (``_dts``), and each
-combination with a bf16 operand counts as its own instance
-(``launches_low``).  The plain versions widen and round alike.
+Operand dtypes, as JAX's kernels take them: q, k and v each float32,
+bf16 or float16 (q also bf16 or float16 over an int8 cache), the output
+in q's dtype.  The kernels widen a bf16 or float16 operand as they load
+it and compute as over float32; the operands' dtypes reach them as bits
+(``_dts``), and each combination with a low-precision operand counts as
+its own instance (``launches_low``).  The plain versions widen and round alike.
 
 Head dims: any up to 128 and the multiples of 128 up to ``MAX_HEAD_DIM``
 -- the TPU kernels' lane-tileable widths (JAX's ``_mosaic_ok``); the
@@ -78,7 +78,8 @@ launches_i8 = 0              # decode_attention_slab_chunk, int8 cache
 launches_slab_i8 = 0
 launches_paged_i8 = 0
 launches_paged_chunk_i8 = 0
-# launches with a bf16 operand since the last reset, by row name
+# launches with a bf16 or float16 operand since the last reset, by row
+# name
 # ("<NAME>[<operands>]", ``_check.operand_suffix``); the counters above
 # count every launch
 launches_low = {}
@@ -86,8 +87,8 @@ launches_low = {}
 # C entry -> (pointer args, int args): every entry ends (float scale,
 # cudaStream_t); an _i8 entry takes the two scale pointers after k/v,
 # every entry its scratch and tickets after out and the operands'
-# dtype bits as its last int.  The _f32 entries take a float32 or bf16
-# cache, the _i8 ones an int8 cache.
+# dtype bits as its last int.  The _f32 entries take a float32, bf16 or
+# float16 cache, the _i8 ones an int8 cache.
 _SIGNATURES = {"decode_attention_slab_chunk_f32": (7, 7),
                "decode_attention_slab_f32": (7, 6),
                "decode_attention_paged_chunk_f32": (8, 8),
@@ -96,10 +97,6 @@ _SIGNATURES = {"decode_attention_slab_chunk_f32": (7, 7),
                "decode_attention_slab_i8": (9, 6),
                "decode_attention_paged_chunk_i8": (10, 8),
                "decode_attention_paged_i8": (10, 7)}
-# the bits of a launch's operand dtypes (csrc/decode_attention.cu: kQ,
-# kK, kV): bf16 q (and out), k, v
-_BITS = (1, 2, 4)
-
 
 # the widest head the kernels compile
 MAX_HEAD_DIM = 512
@@ -213,7 +210,7 @@ def _check_scales(name, kscale, vscale, k, v, hkv):
 
 def _widen(k, v, kscale, vscale):
     """The float32 K/V the kernels attend: an int8 cache dequantized, a
-    bf16 one widened."""
+    bf16 or float16 one widened."""
     if kscale is None:
         return k.float(), v.float()
     return dequantize_heads(k, kscale), dequantize_heads(v, vscale)
@@ -306,14 +303,15 @@ def decode_attention_paged_plain(q, k, v, positions, tables, num_heads, *,
 # ------------------------------------------------------------- wrappers
 
 _F32, _I32 = torch.float32, torch.int32
-_FLOATS = (_F32, torch.bfloat16)
+_FLOATS = (_F32, torch.bfloat16, torch.float16)
 _DTYPES = {"q": _FLOATS, "qpos": _I32, "positions": _I32, "tables": _I32,
            "kscale": _F32, "vscale": _F32}
 
 
 def _device(name, quant, **named):
     """Check every operand given (one device, dtype, contiguous, 16-byte
-    aligned): k/v int8 on an int8 cache, float32 or bf16 otherwise.
+    aligned): k/v int8 on an int8 cache, float32, bf16 or float16
+    otherwise.
     Returns the device."""
     kv = torch.int8 if quant else _FLOATS
     return _check.tensors(name, dict(_DTYPES, k=kv, v=kv),
@@ -321,14 +319,14 @@ def _device(name, quant, **named):
 
 
 def _dts(q, k, v):
-    """The bf16 bits of (q, k, v)'s dtypes: 0 for float32 (or int8)."""
-    return sum(bit for bit, x in zip(_BITS, (q, k, v))
-               if x.dtype == torch.bfloat16)
+    """The dtype bits of (q, k, v) (``_check.dtype_bits``): 0 for
+    float32 (or int8)."""
+    return _check.dtype_bits(q, k, v)
 
 
 def _count_low(name, q, k, v):
     """One launch of ``name`` with these operands in ``launches_low``,
-    unless none is bf16."""
+    unless none is bf16 or float16."""
     if _dts(q, k, v):
         _check.count_low(launches_low, name,
                          _check.operand_suffix(q=q, k=k, v=v))
@@ -400,8 +398,8 @@ def decode_attention_slab_chunk(q, k, v, qpos, num_heads, *, kscale=None,
                                 vscale=None):
     """q [S, K, D], k/v [S, T, Dkv] (the cache, already holding this
     step's writes), qpos [S, K] int32 per-lane positions (non-decreasing
-    per row) -> [S, K, D] in q's dtype.  q float32 or bf16; k/v float32
-    or bf16, or int8 with kscale/vscale [S, T, Hkv] f32.  CUDA tensors
+    per row) -> [S, K, D] in q's dtype.  q float32, bf16 or float16;
+    k/v float32, bf16 or float16, or int8 with kscale/vscale [S, T, Hkv] f32.  CUDA tensors
     launch the kernel; CPU tensors take the plain version."""
     global launches, launches_i8
     s, kk, t, h, hkv, dh = _slab_shapes(NAME, q, k, v, qpos, num_heads)
@@ -429,7 +427,7 @@ def decode_attention_slab_chunk(q, k, v, qpos, num_heads, *, kscale=None,
 
 def decode_attention_slab(q, k, v, positions, num_heads, *, kscale=None,
                           vscale=None):
-    """q [S, D], k/v [S, T, Dkv] (float32 or bf16, or int8 with
+    """q [S, D], k/v [S, T, Dkv] (float32, bf16 or float16, or int8 with
     kscale/vscale [S, T, Hkv]), positions [S] int32 -> [S, D]: row r's query attends
     its stripe at cols <= positions[r]."""
     global launches_slab, launches_slab_i8
@@ -460,7 +458,7 @@ def decode_attention_slab(q, k, v, positions, num_heads, *, kscale=None,
 def decode_attention_paged_chunk(q, k, v, qpos, tables, num_heads, *,
                                  kscale=None, vscale=None):
     """q [S, K, D], the pool k/v [NB, bs, Dkv] (already holding this
-    step's writes; float32 or bf16, or int8 with kscale/vscale [NB, bs,
+    step's writes; float32, bf16 or float16, or int8 with kscale/vscale [NB, bs,
     Hkv]),
     qpos [S, K] int32, tables [S, blocks_per_row] int32 physical block
     ids -> [S, K, D].  Row r's position p lives at ``pool[tables[r, p //
@@ -495,9 +493,9 @@ def decode_attention_paged_chunk(q, k, v, qpos, tables, num_heads, *,
 
 def decode_attention_paged(q, k, v, positions, tables, num_heads, *,
                            kscale=None, vscale=None):
-    """q [S, D], the pool k/v [NB, bs, Dkv] (float32 or bf16, or int8 with
-    kscale/vscale [NB, bs, Hkv]), positions [S] int32, tables [S,
-    blocks_per_row] int32 -> [S, D]."""
+    """q [S, D], the pool k/v [NB, bs, Dkv] (float32, bf16 or float16,
+    or int8 with kscale/vscale [NB, bs, Hkv]), positions [S] int32,
+    tables [S, blocks_per_row] int32 -> [S, D]."""
     global launches_paged, launches_paged_i8
     s, _kk, _nb, bs, nb_row, h, hkv, dh = _paged_shapes(
         NAME_PAGED, q, k, v, positions, tables, num_heads)

@@ -22,13 +22,14 @@ takes and which ``chip_smoke.py`` holds the kernels against.  Unlike the
 TPU wrappers, no shape falls back to a masked path: the kernels mask
 ragged edges themselves and raise on what they do not take.
 
-Operand dtypes, as JAX's kernels take them: q, k and v each float32 or
-bf16 (and q bf16 over the int8 cache); o, dq, dk and dv in their
-operand's dtype, lse and the backward's delta float32.  Each kernel
-widens a bf16 operand on load and computes as its float32 instance;
-every combination with a bf16 operand launches the kernel's bf16
-instance (the ``_bf16`` C entries, the operands' dtypes passed as bits),
-and the plain versions widen and round alike.
+Operand dtypes, as JAX's kernels take them: q, k and v each float32,
+bf16 or float16 (and q bf16 or float16 over the int8 cache); o, dq, dk
+and dv in their operand's dtype, lse and the backward's delta float32.
+Each kernel widens a bf16 or float16 operand on load and computes as
+its float32 instance; every combination with a low-precision operand
+launches the kernel's one low-precision instance (the ``_low`` C
+entries, the operands' dtypes passed as bits), and the plain versions
+widen and round alike.
 
 The kernels are compiled at head dims 16, 32, 64 and 128, and at the
 wide 256, 384 and 512 (their own tiling: the head dim split across a
@@ -65,7 +66,8 @@ launches = 0
 launches_quant = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
-# launches of the bf16 instances since the last reset, by row name
+# launches of the low-precision instances since the last reset, by row
+# name
 # ("<NAME>[<operands>]", ``_check.operand_suffix``); the counters above
 # count every instance's launches
 launches_low = {}
@@ -74,23 +76,22 @@ _NEG = -1e30
 # C entry -> (pointer args, int args before the float scale); each entry
 # then takes (float scale, int causal, cudaStream_t)
 _SIGNATURES = {"flash_attention_fwd_f32": (5, 4),
-               "flash_attention_fwd_bf16": (5, 5),
+               "flash_attention_fwd_low": (5, 5),
                "flash_attention_quant_i8": (6, 6),
-               "flash_attention_quant_i8_bf16": (6, 6),
+               "flash_attention_quant_i8_low": (6, 7),
                "flash_attention_bwd_dkv_f32": (8, 4),
-               "flash_attention_bwd_dkv_bf16": (8, 5),
+               "flash_attention_bwd_dkv_low": (8, 5),
                "flash_attention_bwd_dq_f32": (8, 4),
-               "flash_attention_bwd_dq_bf16": (8, 5)}
-_F32, _BF16 = torch.float32, torch.bfloat16
-_FLOATS = (_F32, _BF16)
-# the bits of a launch's operand dtypes (csrc/flash_attention.cu: kQ,
-# kK, kV): bf16 q (with o, do, dq), k (with dk), v (with dv)
-_BITS = (1, 2, 4)
+               "flash_attention_bwd_dq_low": (8, 5)}
+_F32 = torch.float32
+_FLOATS = (_F32, torch.bfloat16, torch.float16)
 
 
-def _dts(q, k, v):
-    """The bf16 bits of (q, k, v)'s dtypes: 0 for all float32."""
-    return sum(bit for bit, x in zip(_BITS, (q, k, v)) if x.dtype == _BF16)
+def _dts(q, k=None, v=None):
+    """The dtype bits of (q, k, v) (csrc/flash_attention.cu: kQ, kK, kV
+    for bf16 q with o, do and dq, k with dk, v with dv; the same bits
+    shifted by kHalf for float16): 0 for all float32."""
+    return _check.dtype_bits(q, k, v)
 
 
 def _entry(name):
@@ -176,7 +177,7 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b * h, tq, tk, d)
     if dts:
-        rc = _entry("flash_attention_fwd_bf16")(*args, dts, scale,
+        rc = _entry("flash_attention_fwd_low")(*args, dts, scale,
                                                 int(causal), stream)
     else:
         rc = _entry("flash_attention_fwd_f32")(*args, scale, int(causal),
@@ -188,8 +189,8 @@ def flash_attention_fwd(q, k, v, scale=None, causal=False):
 
 
 def _count_low(name, **operands):
-    """One launch of ``name``'s bf16 instance for these operands, unless
-    they are all float32 (``launches_low``)."""
+    """One launch of ``name``'s low-precision instance for these
+    operands, unless they are all float32 (``launches_low``)."""
     _check.count_low(launches_low, name, _check.operand_suffix(**operands))
 
 
@@ -277,7 +278,7 @@ def bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal):
     args = [*(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)),
             b * h, tq, k.shape[2], d]
     dts = _dts(q, k, v)
-    entry = ("flash_attention_bwd_dkv_bf16" if dts
+    entry = ("flash_attention_bwd_dkv_low" if dts
              else "flash_attention_bwd_dkv_f32")
     rc = _entry(entry)(*args, *([dts] if dts else []), scale, int(causal),
                        _stream(q))
@@ -296,7 +297,7 @@ def bwd_dq_kernel(q, k, v, o, lse, do, scale, causal):
     args = [*(x.data_ptr() for x in (q, k, v, do, o, lse, delta, dq)),
             b * h, tq, k.shape[2], d]
     dts = _dts(q, k, v)
-    entry = ("flash_attention_bwd_dq_bf16" if dts
+    entry = ("flash_attention_bwd_dq_low" if dts
              else "flash_attention_bwd_dq_f32")
     rc = _entry(entry)(*args, *([dts] if dts else []), scale, int(causal),
                        _stream(q))
@@ -405,8 +406,8 @@ def flash_attention_quant_plain(q, k, v, kscale, vscale, num_heads,
 
 def flash_attention_quant(q, k, v, kscale, vscale, num_heads, scale=None,
                           causal=True):
-    """Int8-K/V flash prefill: q [B, Tq, D] float32 or bf16 (the flat
-    projection), k/v [B, Tk, Dkv] int8 (the cache layout), kscale/vscale
+    """Int8-K/V flash prefill: q [B, Tq, D] float32, bf16 or float16 (the
+    flat projection), k/v [B, Tk, Dkv] int8 (the cache layout), kscale/vscale
     [B, Tk, Hkv] f32 -> [B, H, Tq, dh] in q's dtype.  Query head h reads KV head h // (H / Hkv) in
     the kernel.  CUDA tensors launch the kernel; CPU tensors take the
     plain version; a head dim between the compiled ones is padded to the
@@ -434,12 +435,14 @@ def flash_attention_quant(q, k, v, kscale, vscale, num_heads, scale=None,
                                            num_heads, scale, causal)
     o = torch.empty((b, h, tq, dh), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    entry = ("flash_attention_quant_i8" if q.dtype == _F32
-             else "flash_attention_quant_i8_bf16")
-    rc = _entry(entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kscale.data_ptr(),
-        vscale.data_ptr(), o.data_ptr(), b, h, hkv, tq, tk, dh, scale,
-        int(causal), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kscale.data_ptr(),
+            vscale.data_ptr(), o.data_ptr(), b, h, hkv, tq, tk, dh)
+    if q.dtype == _F32:
+        rc = _entry("flash_attention_quant_i8")(*args, scale, int(causal),
+                                                stream)
+    else:
+        rc = _entry("flash_attention_quant_i8_low")(*args, _dts(q), scale,
+                                                    int(causal), stream)
     _build.check(NAME_QUANT, rc)
     launches_quant += 1
     _count_low(NAME_QUANT, q=q)

@@ -4,14 +4,27 @@ headline), ``bench_transformer`` (with ``remat``),
 ``bench_seq2seq``; ``bench_rnn``, the layer-DSL slice through
 ``trainer.SGD``, and ``bench_trainer_int8``, its int8 weight-streaming
 mode; ``bench_transformer_decode``, the MT model's KV-cached beam
-search; and the measurement legs of two serving benchmarks,
-``bench_serving_quant`` and ``bench_serving_speculative``.
+search; the image benchmarks ``bench_resnet50`` and ``bench_image``
+(smallnet, alexnet, googlenet); and the measurement legs of two serving
+benchmarks, ``bench_serving_quant`` and ``bench_serving_speculative``.
 
     python -m paddle_tpu_torch.scripts.bench
         [--model lstm|transformer|transformer_packed|transformer_moe|
                  seq2seq|rnn|trainer_int8|transformer_decode|
-                 serving_quant|serving_speculative]
+                 serving_quant|serving_speculative|resnet50|smallnet|
+                 alexnet|googlenet]
         [--hidden 512|1280|2048] [--remat]
+
+``resnet50`` trains ResNet-50 at ``bench.py:358-395``'s config (batch
+32 of 224x224x3 images from ``np.random.RandomState(0)``, 1000 classes,
+Momentum lr 0.1 m 0.9, remat by ``--remat`` or the bench's rule: on
+from batch 512), the moving stats threaded through the steps;
+``smallnet`` / ``alexnet`` / ``googlenet`` train the reference's image
+benchmark configs at ``bench.py:3645-3647``'s batch sizes and shapes
+(64 at 32x32, 10 classes; 64 at 227x227 and 64 at 224x224, 1000
+classes; Momentum lr 0.01 m 0.9).  Each prints ms/batch, images/s and
+the FLOP count (3 x the forward's FLOPs per image, two to a
+multiply-add), beside the reference's K40m time for the same config where BASELINE.md has one.
 
 ``lstm`` (the default) trains the LSTM text classifier at the
 reference's benchmark config (vocab 30000, embedding 128, 2 stacked LSTMs
@@ -83,7 +96,9 @@ from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.core.sequence import SequenceBatch, pack_sequences
 from paddle_tpu_torch.data.feeder import DataFeeder
-from paddle_tpu_torch.models import seq2seq, text_lstm, text_rnn, transformer
+from paddle_tpu_torch.models import (alexnet, googlenet, resnet, seq2seq,
+                                     smallnet, text_lstm, text_rnn,
+                                     transformer)
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optim import Adam, Momentum
 from paddle_tpu_torch.quant.weights import TRAIN_LOSS_BUDGET
@@ -147,6 +162,98 @@ def bench_lstm(batch=64, seq_len=100, hidden=512, vocab=30000, device=None):
 
     return LstmBench(train_step, params, opt_state, ids, labels, hidden,
                      lstm_flops(batch, seq_len, hidden))
+
+
+class ImageBench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    # the step's parts, in order: forward() -> loss (the new moving stats
+    # kept), backward(loss), update()
+    parts: tuple
+    params: dict
+    state: dict                 # {"state": the moving stats}, per step
+    opt_state: dict
+    images: torch.Tensor
+    labels: torch.Tensor
+    flops_per_step: float
+    remat: bool
+
+
+# the image configs of bench.py:3644-3647: (batch, image side, classes,
+# forward FLOPs per image, two to a multiply-add; bench.py:391's 4.1e9
+# for ResNet-50 is its count of multiply-adds, the others' are FLOPs)
+IMAGE_CONFIGS = {"resnet50": (32, 224, 1000, 8.2e9),
+                 "smallnet": (64, 32, 10, 2.5e7),
+                 "alexnet": (64, 227, 1000, 1.4e9),
+                 "googlenet": (64, 224, 1000, 3.0e9)}
+# the reference's K40m ms/batch at those batches (BASELINE.md, the
+# reference's own GPU numbers; bench.py:3658-3662) -- not the port's
+IMAGE_K40M_MS = {"smallnet": 10.463, "alexnet": 195.0, "googlenet": 613.0}
+_IMAGE_MODELS = {"resnet50": resnet, "smallnet": smallnet,
+                 "alexnet": alexnet, "googlenet": googlenet}
+
+
+def bench_image(model_name, batch=None, remat=None, device=None, seed=0):
+    """``bench.py``'s ``bench_resnet50`` (model ``resnet50``) or
+    ``bench_image``: params from a generator seeded ``seed``, images and
+    labels from ``np.random.RandomState(seed)`` (NHWC), Momentum (lr 0.1
+    for ResNet-50, 0.01 for the others, m 0.9).  ``train_step()`` zeroes
+    the grads, runs the model's ``loss`` (ResNet-50 with ``remat``; None
+    takes the bench's rule, ``batch >= 512``), calls ``backward()``, applies
+    Momentum in place, keeps the new moving stats and returns the
+    loss."""
+    dev = _device.resolve(device)
+    default_batch, hw, classes, fwd_flops = IMAGE_CONFIGS[model_name]
+    batch = batch or default_batch
+    mod = _IMAGE_MODELS[model_name]
+    gen = torch.Generator().manual_seed(seed)
+    if model_name == "resnet50":
+        params, state = resnet.init(gen, depth=50, num_classes=classes,
+                                    device=dev)
+        remat = _remat(remat, batch >= 512)
+        lr = 0.1
+    else:
+        params, state = mod.init(gen, num_classes=classes, device=dev)
+        remat, lr = False, 0.01
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = Momentum(learning_rate=lr, momentum=0.9)
+    opt_state = opt.init(params)
+    rng = np.random.RandomState(seed)
+    images = torch.tensor(rng.randn(batch, hw, hw, 3), dtype=torch.float32,
+                          device=dev)
+    labels = torch.tensor(rng.randint(0, classes, (batch,)),
+                          dtype=torch.int32, device=dev)
+    live = {"state": state}
+
+    def forward():
+        for p in leaves:
+            p.grad = None
+        if model_name == "resnet50":
+            loss, new_state = resnet.loss(params, live["state"], images,
+                                          labels, depth=50, remat=remat)
+        else:
+            loss, new_state = mod.loss(params, live["state"], images, labels)
+        live["state"] = new_state
+        return loss
+
+    def update():
+        opt.update(tree_map(lambda p: p.grad, params), opt_state, params)
+
+    def train_step():
+        loss = forward()
+        loss.backward()
+        update()
+        return loss.detach()
+
+    return ImageBench(train_step, (forward, torch.Tensor.backward, update),
+                      params, live, opt_state, images, labels,
+                      3.0 * fwd_flops * batch, remat)
+
+
+def bench_resnet50(batch=32, remat=None, device=None, seed=0):
+    """``bench.py:358``'s ResNet-50 train step (``bench_image``)."""
+    return bench_image("resnet50", batch, remat, device, seed)
 
 
 class TransformerBench(NamedTuple):
@@ -603,6 +710,28 @@ def bench_rnn(batch=text_rnn.BATCH, seq_len=text_rnn.SEQ_LEN,
                     rnn_flops(batch, seq_len, hidden))
 
 
+def image_step_split(bench, steps):
+    """Median ms of an image bench's forward, ``backward()`` and
+    optimizer update over ``steps`` steps, each part ending in a
+    synchronize."""
+    forward, backward, update = bench.parts
+    parts = {"forward": [], "backward": [], "update": []}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        backward(loss)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, a, b in zip(parts, (t0, t1, t2), (t1, t2, t3)):
+            parts[name].append((b - a) * 1e3)
+    return {name: float(np.median(v)) for name, v in parts.items()}
+
+
 def step_split(trainer, feeder, batches, steps):
     """Median ms of each part of ``trainer``'s step over ``steps`` steps
     on ``batches`` in turn, each part ending in a synchronize: the feed
@@ -837,7 +966,8 @@ def main(argv=None):
                                         "transformer_moe", "seq2seq", "rnn",
                                         "trainer_int8", "transformer_decode",
                                         "serving_quant",
-                                        "serving_speculative"),
+                                        "serving_speculative",
+                                        *IMAGE_CONFIGS),
                     default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
                     help="the LSTM's hidden size (--model lstm)")
@@ -927,6 +1057,31 @@ def main(argv=None):
             "tflop_per_s": bench.flops_per_run / (ms / 1e3) / 1e12,
             "mean_best_score": float(res.scores[:, 0].mean()),
             "launches": {fk.NAME: fk.launches},
+        }), flush=True)
+        return 0
+    if args.model in IMAGE_CONFIGS:
+        bench = bench_image(args.model, remat=True if args.remat else None,
+                            device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = _timed(bench.train_step)
+        ms = float(np.median(times))
+        batch, hw, classes, _ = IMAGE_CONFIGS[args.model]
+        print(json.dumps({
+            "bench": f"{args.model}_train", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
+            "config": {"batch": batch, "image": [hw, hw, 3],
+                       "classes": classes, "remat": bench.remat,
+                       "optimizer": "Momentum lr "
+                       f"{0.1 if args.model == 'resnet50' else 0.01} m 0.9"},
+            "steps": STEPS, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "images_per_s": batch / (ms / 1e3),
+            "flops_per_step": bench.flops_per_step,
+            "tflop_per_s": bench.flops_per_step / (ms / 1e3) / 1e12,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "loss_first_last": [losses[0], losses[-1]],
+            **({"reference_k40m_ms_per_batch": IMAGE_K40M_MS[args.model]}
+               if args.model in IMAGE_K40M_MS else {}),
         }), flush=True)
         return 0
     if args.model == "serving_quant":

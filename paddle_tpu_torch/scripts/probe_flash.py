@@ -133,7 +133,7 @@ def _ptxas(log):
                 int8 = k.group(1) == "fwd" and bools[0] == "1"
                 name = (f"{k.group(1)}/dh{k.group(3)}"
                         + ("/int8" if int8 else "")
-                        + ("/bf16" if bools[-1] == "1" else ""))
+                        + ("/low" if bools[-1] == "1" else ""))
             if name:
                 out[name] = {}
             continue

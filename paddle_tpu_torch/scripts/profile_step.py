@@ -88,13 +88,14 @@ def _is_port(key, names):
     return m is not None and m.group(1) in names
 
 
-def measure(step, steps):
+def measure(step, steps, group=None):
     """Per-step timings of ``step()`` (already warmed up) over ``steps``
     calls, each ending in a synchronize: host wall p50/p99, device time
     between CUDA events, and — from a second, profiled run — the kernel
     time and launches by name, the kernel time by origin (the port's
     own kernels, ``port_kernels()``; the library's matrix products; the
-    rest) and the device's idle share."""
+    rest) and the device's idle share; with ``group`` (kernel name ->
+    group name) also the kernel time and launches by group."""
     walls, device_ms = [], []
     for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -131,7 +132,15 @@ def measure(step, steps):
         gemm = "gemm" in key or key.startswith("nvjet")
         by_origin["port_kernels" if _is_port(key, names)
                   else "gemm" if gemm else "other"] += t
+    by_group = {}
+    for t, n, key in kernels if group else ():
+        ms, count = by_group.get(group(key), (0.0, 0.0))
+        by_group[group(key)] = (ms + t, count + n)
     return {
+        **({"kernel_ms_per_step_by_group": {
+            g: {"ms": ms, "launches": n} for g, (ms, n) in sorted(
+                by_group.items(), key=lambda kv: -kv[1][0])}}
+           if group else {}),
         "card": _device.card(), "steps": steps,
         "step_wall_ms": {"p50": wall,
                          "p99": float(np.percentile(walls, 99))},

@@ -2,8 +2,8 @@
 
     python -m paddle_tpu_torch.scripts.profile_train \
         [--model lstm|transformer|transformer_packed|transformer_moe|
-                 seq2seq|rnn|transformer_decode] [--hidden 512|1280|2048]
-        [--remat] [--dtype auto|float32|bfloat16]
+                 seq2seq|rnn|transformer_decode|resnet50]
+        [--hidden 512|1280|2048] [--remat] [--dtype auto|float32|bfloat16]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
 embedding 128, 2 x LSTM h=512 or ``--hidden``, batch 64, length 100,
@@ -34,7 +34,15 @@ model's KV-cached ``generate_cached``: batch 32, sources of 128 tokens,
 per decoded position.  ``--dtype`` sets the compute policy
 (``core/dtypes.set_policy``); with ``bfloat16`` the rnn model's
 ``SGD`` also casts at the step boundary (``compute_dtype``), as the
-trainer CLI's ``--dtype bfloat16`` does.  Needs a CUDA device.
+trainer CLI's ``--dtype bfloat16`` does.  ``resnet50`` profiles
+``scripts/bench.bench_resnet50`` (batch 32, 224x224x3, 1000 classes,
+Momentum lr 0.1, remat by ``--remat`` or off) and adds the kernel
+time by group (``image_group``: cuDNN's convolutions, matrix products,
+reductions -- batch norm's statistics and the pools' means --,
+pooling, elementwise -- batch norm's normalization, ReLU, the residual
+sums and the optimizer's update -- and the rest) and the step's split
+into forward, backward and update (``bench.image_step_split``).  Needs
+a CUDA device.
 """
 
 import argparse
@@ -45,17 +53,37 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.scripts.bench import (
-    bench_lstm, bench_rnn, bench_seq2seq, bench_transformer,
+    bench_lstm, bench_resnet50, bench_rnn, bench_seq2seq, bench_transformer,
     bench_transformer_decode, bench_transformer_moe,
-    bench_transformer_packed, step_split)
+    bench_transformer_packed, image_step_split, step_split)
 from paddle_tpu_torch.scripts.profile_step import measure
 
 WARMUP = 5
 STEPS = {"lstm": 20, "transformer": 10, "transformer_packed": 10,
          "transformer_moe": 10, "seq2seq": 10, "rnn": 20,
-         "transformer_decode": 2}
+         "transformer_decode": 2, "resnet50": 10}
 # the decode positions of one transformer_decode "step" (its max_len)
 DECODE_POSITIONS = 128
+
+
+# kernel-name markers of each group of an image step (first match wins)
+_IMAGE_GROUPS = (
+    ("pooling", ("pool",)),
+    ("convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
+                     "fprop", "winograd", "cutlass", "nhwc", "nchw")),
+    ("gemm", ("gemm", "nvjet")),
+    ("reduction", ("reduce", "welford")),
+    ("elementwise", ("elementwise", "foreach", "multi_tensor")),
+)
+
+
+def image_group(name):
+    """The group of an image step's kernel, by its name."""
+    low = name.lower()
+    for group, marks in _IMAGE_GROUPS:
+        if any(m in low for m in marks):
+            return group
+    return "other"
 
 
 def main(argv=None):
@@ -98,6 +126,10 @@ def main(argv=None):
         config = ("transformer MT beam decode (generate_cached) vocab 32000, "
                   "d_model 512, 8 heads, dff 2048, 6+6 layers, batch 32, "
                   "source 128, 128 steps, beam 4")
+    elif args.model == "resnet50":
+        bench = bench_resnet50(remat=remat, device=dev)
+        config = ("ResNet-50 batch 32, 224x224x3, 1000 classes, Momentum "
+                  f"lr 0.1 m 0.9, remat {bench.remat}")
     elif args.model == "transformer_moe":
         bench = bench_transformer_moe(remat=remat, device=dev)
         config = ("MoE causal LM vocab 32000, d_model 512, 8 heads, 8 "
@@ -113,7 +145,10 @@ def main(argv=None):
     for _ in range(1 if args.model == "transformer_decode" else WARMUP):
         step()
     torch.cuda.synchronize()
-    out = measure(step, STEPS[args.model])
+    out = measure(step, STEPS[args.model],
+                  group=image_group if args.model == "resnet50" else None)
+    if args.model == "resnet50":
+        out["split_ms"] = image_step_split(bench, STEPS[args.model])
     if args.model == "rnn":
         out["split_ms"] = step_split(bench.trainer, bench.feeder,
                                      bench.batches, STEPS[args.model])

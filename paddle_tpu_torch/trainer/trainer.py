@@ -13,6 +13,12 @@ seeded with ``seed`` so that a CPU and a CUDA trainer start from the
 same weights.  Checkpoints use the JAX trainer's format
 (``trainer/checkpoint.py``), so either package reads the other's.
 
+The layers' mutable state (batch norm's moving stats: ``(mean, var)``
+per layer, from ``Topology.init_state``) threads through the steps as
+``model_state``: each train step's forward reads it and keeps what the
+layers put, ``test`` reads it in test mode, and checkpoints carry it
+both ways across the packages.
+
 ``quant_weights=True`` trains with int8 weight streaming, as the JAX
 trainer does: every 2-D float32 weight of at least ``quant_min_size``
 elements keeps an int8 twin (``quant/weights.quantize_tree``'s codes and
@@ -71,6 +77,16 @@ def _keystr(path):
     the keys of the int8 twin, so that the two packages' checkpoints
     carry the same bundle."""
     return "".join(f"[{k!r}]" for k in path)
+
+
+def _state_on(tree, device):
+    """A checkpoint's model state (numpy leaves) as tensors on
+    ``device``, keeping its tuples (batch norm's (mean, var)) tuples."""
+    if isinstance(tree, dict):
+        return {k: _state_on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_state_on(v, device) for v in tree)
+    return torch.tensor(np.asarray(tree), device=device)
 
 
 def _detach(v):
@@ -160,7 +176,8 @@ class SGD:
         self._view = None       # the step's tree, between its forward and
                                 # its update
         self.opt_state = self.optimizer.init(self.parameters)
-        self.model_state = self.topology.init_state()
+        # batch norm's moving stats, threaded through train and test
+        self.model_state = self.topology.init_state(self.device)
         # draws of the layers that need them (dropout)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed)
@@ -418,6 +435,5 @@ class SGD:
                     np.asarray(a, np.float32), device=self.device),
                     opt_state["slots"])}
         if model_state:
-            self.model_state = tree_map(
-                lambda a: torch.tensor(a, device=self.device), model_state)
+            self.model_state = _state_on(model_state, self.device)
         return meta

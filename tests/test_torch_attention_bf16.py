@@ -199,13 +199,15 @@ def test_decode_takes_bf16_q_over_an_int8_cache():
 
 def test_wrappers_admit_float32_and_bf16_only():
     """``_check.tensors`` admits float32 and bf16 q, k, v (and int8 K/V
-    beside scales) on both devices; float16 is refused as before, and the
-    backward's o and do must carry q's dtype."""
+    beside scales) on both devices (float16 too: test_torch_attention_f16)
+    and refuses complex64, which JAX's kernels refuse as well
+    (NotImplementedError); the backward's o and do must carry q's
+    dtype."""
     x = torch.zeros(1, 1, 16, 16)
     for dt in (F32, BF):
         fk.flash_attention_fwd(x.to(dt), x, x.to(BF))
     with pytest.raises(TypeError, match="q must be"):
-        fk.flash_attention_fwd(x.half(), x, x)
+        fk.flash_attention_fwd(x.to(torch.complex64), x, x)
     o, lse = fk.flash_attention_fwd(x.to(BF), x, x)
     with pytest.raises(TypeError, match="do must be q's dtype"):
         fk.flash_attention_bwd(x.to(BF), x, x, o, lse, x)
@@ -214,7 +216,8 @@ def test_wrappers_admit_float32_and_bf16_only():
     assert dk.decode_attention_slab_chunk(q.to(BF), kv, kv.to(BF), pos,
                                           2).dtype == BF
     with pytest.raises(TypeError, match="k must be"):
-        dk.decode_attention_slab_chunk(q, kv.half(), kv, pos, 2)
+        dk.decode_attention_slab_chunk(q, kv.to(torch.complex64), kv, pos,
+                                       2)
     assert _check.operand_suffix(q=q.to(BF), k=kv, v=kv) == "qbf16_kf32_vf32"
     assert _check.operand_suffix(q=q, k=kv, v=kv) == "f32"
 
