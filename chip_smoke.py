@@ -335,6 +335,34 @@ non-zero exit code and no final "ok" line:
             DSL_RESNET_CHECK rows against the CPU witness (parameters,
             momentum, moving stats), SGD.train over 8 batches of 128
             with the moving stats threading through, SGD.test on them
+  train_recommendation  demo/recommendation's step at full width
+            (scripts/bench.bench_recommendation: the MovieLens towers,
+            emb 256, hidden 256, batch 128 of the movielens loader, Adam
+            lr 1e-3): the first step against the same step on the CPU
+            (loss and every gradient leaf within REC_TOL of the largest,
+            every new parameter within REC_PARAM_TOL), which the step
+            with cuBLAS's TF32 on must fail; then one pass, the loss falling, no counted kernel
+            launched; ms/batch, samples/s
+  train_vgg_cifar  demo/image_classification's vgg (models/image_dsl
+            .vgg_bn_drop: networks.img_conv_group with batch norm and a
+            0.3 dropout_layer) through SGD at batch 128 of the cifar
+            loader: the first step at VGG_CHECK rows against the CPU
+            witness that replays the card's ReLU / max-pool decisions
+            and dropout masks, which cuDNN's TF32 must fail; SGD.train
+            over VGG_PASSES passes of VGG_BATCHES batches (the loss
+            falls below the first step's), SGD.test
+  train_sentiment  demo/sentiment's stacked_lstm_net (models/text_dsl:
+            three lstmemory of hid 128, the middle one reversed) through
+            SGD at batch 64 of the imdb loader's ragged reviews: the
+            first step against a CPU witness that max-pools at the
+            card's argmax (loss and every gradient leaf), which the same
+            step through the one-TF32-pass LSTM build must fail; the LSTM
+            kernels launched 3 + 3 a step over SENT_BATCHES steps (the
+            loss falls), SGD.test, and `python -m paddle_tpu_torch train
+            --config paddle_tpu_torch/models/text_dsl.py`, whose pass dir
+            SGD.load restores bit for bit; then quick_start's lstm config
+            (networks.simple_lstm), its first step likewise and 1 + 1
+            launches a step
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -1946,6 +1974,29 @@ def check_lstm_kernels(torch, dev, rng, t, b, d, timed):
     return rows
 
 
+# the one-TF32-pass builds of the kernels, kept for the train phases'
+# step-level controls: {"lstm": (fwd, bwd, dwr) C entries}
+TF32_1X = {}
+
+
+@contextlib.contextmanager
+def lstm_tf32_1x():
+    """Within it, the LSTM wrappers' float32 instances launch the
+    one-TF32-pass build of csrc/lstm.cu (``check_lstm_tf32_control``'s
+    control) in place of the kernels: a step whose LSTMs compute in
+    single-pass TF32 and nothing else differs."""
+    import types
+    from paddle_tpu_torch.ops.kernels import _build
+    fwd, bwd, _ = TF32_1X["lstm"]
+    lib = _build.load("lstm")
+    _build._libs["lstm"] = types.SimpleNamespace(lstm_fwd_f32=fwd,
+                                                 lstm_bwd_f32=bwd)
+    try:
+        yield
+    finally:
+        _build._libs["lstm"] = lib
+
+
 def check_lstm_tf32_control(torch, dev):
     """The tf32_1x variant of csrc/lstm.cu (one TF32 product a k-step,
     scripts/probe_lstm.py) and the kernels as built, on one set of train
@@ -1955,6 +2006,7 @@ def check_lstm_tf32_control(torch, dev):
     from paddle_tpu_torch.ops.kernels import lstm as lk
     from paddle_tpu_torch.scripts import probe_lstm
     (control, _), = probe_lstm.build(["tf32_1x"]).values()
+    TF32_1X["lstm"] = control
     case = probe_lstm.Case(dev, np.random.RandomState(1), LSTM_T, LSTM_B,
                            LSTM_D)
     kernel = (_build.entry("lstm", "lstm_fwd_f32", *lk.FWD_ARGS),
@@ -3922,10 +3974,13 @@ def get_config():
 
 
 def rnn_cli(torch, dev, seed, trainer, dtype=None, what="train_rnn",
-            config=RNN_CLI_CONFIG, batches=RNN_CLI_BATCHES, fresh=None):
+            config=RNN_CLI_CONFIG, batches=RNN_CLI_BATCHES, fresh=None,
+            config_file=None, config_args=None):
     """``python -m paddle_tpu_torch train`` as a subprocess on a config
     file written to a temp dir (``config``, the slice's by default,
-    ``batches`` batches, one pass; ``--dtype dtype`` where given): its
+    ``batches`` batches, one pass; ``--dtype dtype`` where given), or on
+    the repository's ``config_file`` with ``--config_args config_args``:
+    its
     pass dir must exist and ``SGD.load`` (into ``fresh()``, a new trainer
     of the same config) must restore its parameters (and model state)
     bit for bit; then ``trainer``'s own save and load round trip, bit
@@ -3953,14 +4008,18 @@ def rnn_cli(torch, dev, seed, trainer, dtype=None, what="train_rnn",
     with tempfile.TemporaryDirectory() as tmp:
         cfg, save = os.path.join(tmp, "rnn_config.py"), os.path.join(tmp,
                                                                     "out")
-        with open(cfg, "w") as f:
-            f.write(config)
+        if config_file is None:
+            with open(cfg, "w") as f:
+                f.write(config)
+        else:
+            cfg = os.path.join(root, config_file)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
         t0 = time.perf_counter()
         run = subprocess.run(
             [sys.executable, "-m", "paddle_tpu_torch", "train", "--config",
-             cfg, "--config_args", f"seed={seed},batches={batches}",
+             cfg, "--config_args",
+             config_args or f"seed={seed},batches={batches}",
              "--num_passes", "1", "--save_dir", save, "--log_period", "1",
              "--device", dev.type] + (["--dtype", dtype] if dtype else []),
             cwd=root, env=env, capture_output=True, text=True, timeout=600)
@@ -6340,51 +6399,103 @@ def run_train_image(torch, dev, kernels):
           "cpu_check_batch": IMAGE_CHECK_BATCH, "models": out})
 
 
+@contextlib.contextmanager
+def dropout_probe(record, given=None):
+    """Within it, every dropout draw of the layer DSL
+    (``layers/graph.Context.rand_like``: the uniforms a layer's mask
+    compares with 1 - rate) appends its draws to ``record`` on the host,
+    in call order.  With ``given`` (another run's record) it takes those
+    draws instead, on the input's device: a step that keeps another
+    run's masks, whatever generator it holds."""
+    from paddle_tpu_torch.layers import graph
+    plain, it = graph.Context.rand_like, iter(given or ())
+
+    def probe(ctx, x):
+        u = plain(ctx, x) if given is None else next(it).to(x.device)
+        record.append(u.cpu())
+        return u
+
+    graph.Context.rand_like = probe
+    try:
+        yield
+    finally:
+        graph.Context.rand_like = plain
+
+
 def dsl_image_step(torch, dev, what, build, feeding, batch, optimizer,
-                   tol):
+                   tol, control=None):
     """The first ``SGD.train_one_batch`` of a DSL image config on the
     card against a CPU trainer from the same weights and moving stats
-    under a witness that keeps the card's decisions: the loss (at
-    IMAGE_REL_TOL), every parameter, momentum and moving-stat leaf after
-    the update within ``tol`` of its largest entry plus IMAGE_NOISE.
-    Returns (the card's trainer, readings)."""
+    under a witness that keeps the card's decisions (ReLU, max pool) and
+    its dropout masks: the loss (at IMAGE_REL_TOL), every parameter,
+    momentum and moving-stat leaf after the update within ``tol`` of its
+    largest entry plus IMAGE_NOISE.  ``control``: a context under which
+    the same step on the card, the sound card step's decisions and masks
+    replayed so that only precision differs, must FAIL that gate
+    (cuDNN's TF32).  Returns (the card's trainer, readings)."""
+    from paddle_tpu_torch.data import DataFeeder
     from paddle_tpu_torch.trainer import SGD
     from paddle_tpu_torch.utils.tree import tree_leaves
     card = SGD(build(), update_equation=optimizer(), device=dev, seed=0)
     start = host_tree(card.parameters)
-    rec = []
-    with image_probe(torch, rec):
+    rec, drops = [], []
+    with image_probe(torch, rec), dropout_probe(drops):
         loss_c = float(card.train_one_batch(batch, feeder=feeding))
-    twin = SGD(build(), parameters=start, update_equation=optimizer(),
-               device="cpu")
-    with image_probe(torch, [], given=rec):
-        loss_w = float(twin.train_one_batch(batch, feeder=feeding))
-    leaves = [tree_leaves(t.parameters) + tree_leaves(
-        t.opt_state["slots"]) + tree_leaves(t.model_state)
-        for t in (card, twin)]
-    pairs = [(x.detach().cpu(), y.detach())
-             for x, y in zip(leaves[0], leaves[1])]
-    errs = [float((g - w).abs().max()) for g, w in pairs]
-    bounds = [tol * float(w.abs().max()) + IMAGE_NOISE for _, w in pairs]
-    out = {"loss": [loss_c, loss_w],
-           "loss_rel_err": abs(loss_c - loss_w) / abs(loss_w),
-           "leaf_rel_err_max": max(largest_err(*zip(*[
-               p for p in pairs if float(p[1].abs().max()) > IMAGE_NOISE]))),
-           "leaf_err_over_bound_max": max(e / b for e, b in
-                                          zip(errs, bounds)),
+
+    def replay(device, ctx=None):
+        tr = SGD(build(), parameters=start, update_equation=optimizer(),
+                 device=device)
+        # fed before the context: the feeder's device.resolve turns TF32
+        # off again
+        feed = DataFeeder(feeding, device=tr.device)(batch)
+        with (ctx or contextlib.nullcontext)(), image_probe(
+                torch, [], given=rec), dropout_probe([], given=drops):
+            loss = float(tr.train_one_batch(feed))
+        return tr, loss
+
+    twin, loss_w = replay("cpu")
+    want = [x.detach() for x in tree_leaves(twin.parameters) + tree_leaves(
+        twin.opt_state["slots"]) + tree_leaves(twin.model_state)]
+
+    def readings(tr, loss):
+        got = [x.detach().cpu() for x in tree_leaves(tr.parameters)
+               + tree_leaves(tr.opt_state["slots"])
+               + tree_leaves(tr.model_state)]
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        bounds = [tol * float(w.abs().max()) + IMAGE_NOISE for w in want]
+        return {"loss": [loss, loss_w],
+                "loss_rel_err": abs(loss - loss_w) / abs(loss_w),
+                "leaf_rel_err_max": max(largest_err(*zip(*[
+                    (g, w) for g, w in zip(got, want)
+                    if float(w.abs().max()) > IMAGE_NOISE]))),
+                "leaf_err_over_bound_max": max(e / b for e, b in
+                                               zip(errs, bounds))}
+
+    def passes(r):
+        return r["loss_rel_err"] <= IMAGE_REL_TOL \
+            and r["leaf_err_over_bound_max"] <= 1.0
+
+    out = {**readings(card, loss_c),
            "noise_leaves": sum(float(w.abs().max()) <= IMAGE_NOISE
-                               for _, w in pairs),
-           "leaves": len(errs),
+                               for w in want),
+           "leaves": len(want),
            "moving_stat_leaves": len(tree_leaves(card.model_state)),
+           "dropout_masks_replayed": len(drops),
            "tolerance": tol, "noise": IMAGE_NOISE}
-    if out["loss_rel_err"] > IMAGE_REL_TOL \
-            or out["leaf_err_over_bound_max"] > 1.0:
+    if not passes(out):
         fail(f"{what}: the first SGD step on the card against the CPU "
              f"witness: {out}")
+    if control is not None:
+        ctl = readings(*replay(dev, control))
+        out["control"] = {"what": "cuDNN TF32 on (allow_tf32=True), the "
+                          "card's decisions and masks replayed", **ctl}
+        if passes(ctl):
+            fail(f"{what}: the TF32 control passes the first-step gate: "
+                 f"{out}")
     return card, out
 
 
-def run_train_lenet(torch, dev, seed):
+def run_train_lenet(torch, dev, kernels, seed):
     """demo/mnist's config (models/image_dsl.lenet, rebuilt with
     paddle_tpu_torch.layers) on the mnist loader's data (its synthetic
     fallback): the first SGD step against the CPU, then SGD.train over
@@ -6393,7 +6504,7 @@ def run_train_lenet(torch, dev, seed):
     restores bit for bit."""
     from paddle_tpu_torch.models import image_dsl
     from paddle_tpu_torch.optim import Momentum
-    from paddle_tpu_torch.trainer import SGD, events
+    from paddle_tpu_torch.trainer import SGD
     cfg = image_dsl.mnist_config(n_batches=LENET_BATCHES)
     data = list(cfg["train_reader"]())
     feeding = cfg["feeding"]
@@ -6405,27 +6516,16 @@ def run_train_lenet(torch, dev, seed):
         return Momentum(learning_rate=0.01, momentum=0.9)
     card, first = dsl_image_step(torch, dev, "train_lenet", build, feeding,
                                  data[0], optimizer, IMAGE_REL_TOL)
-    record = {"ms": [], "loss": []}
-
-    def handler(e):
-        if isinstance(e, events.BeginIteration):
-            torch.cuda.synchronize()
-            record["t0"] = time.perf_counter()
-        elif isinstance(e, events.EndIteration):
-            record["loss"].append(float(e.cost))
-            record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
-    card.train(lambda: iter(data), num_passes=1, event_handler=handler,
-               feeding=feeding, log_period=0)
-    losses = record["loss"]
-    if not (all(math.isfinite(x) for x in losses)
-            and np.mean(losses[-3:]) < np.mean(losses[:3])):
-        fail(f"train_lenet: the loss must be finite and fall: {losses}")
+    times, losses, _ = sgd_pass(torch, kernels, card, data, feeding,
+                                "train_lenet")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"train_lenet: the loss must fall: {losses}")
     test_cost = card.test(cfg["test_reader"], feeding=feeding)
     cli = rnn_cli(torch, dev, seed, card, what="train_lenet",
                   config=LENET_CLI_CONFIG, batches=LENET_CLI_BATCHES,
                   fresh=lambda: SGD(build(), update_equation=optimizer(),
                                     device=dev))
-    ms = float(np.median(record["ms"][3:]))
+    ms = float(np.median(times[3:]))
     emit({"phase": "train_lenet", "config": {
         "model": "demo/mnist (models/image_dsl.lenet, layer DSL)",
         "batch": image_dsl.MNIST_BATCH, "batches": LENET_BATCHES,
@@ -6439,7 +6539,7 @@ def run_train_lenet(torch, dev, seed):
     F32_MS["train_lenet"] = ms
 
 
-def run_train_resnet_cifar(torch, dev):
+def run_train_resnet_cifar(torch, dev, kernels):
     """demo/image_classification's DSL ResNet (models/image_dsl
     .resnet_cifar: conv, batch_norm_layer and addto_layer) at depth 32 on
     CIFAR shapes through SGD: the first step at DSL_RESNET_CHECK rows
@@ -6448,7 +6548,6 @@ def run_train_resnet_cifar(torch, dev):
     stats threading through the steps, and SGD.test reading them."""
     from paddle_tpu_torch.models import image_dsl
     from paddle_tpu_torch.optim import Momentum
-    from paddle_tpu_torch.trainer import events
     from paddle_tpu_torch.utils.tree import tree_leaves
     cfg = image_dsl.cifar_config(DSL_RESNET_DEPTH,
                                  n_batches=DSL_RESNET_BATCHES,
@@ -6465,26 +6564,15 @@ def run_train_resnet_cifar(torch, dev):
                                  feeding, data[0][:DSL_RESNET_CHECK],
                                  optimizer, RESNET_REL_TOL)
     before = host_tree(card.model_state)
-    record = {"ms": [], "loss": []}
-
-    def handler(e):
-        if isinstance(e, events.BeginIteration):
-            torch.cuda.synchronize()
-            record["t0"] = time.perf_counter()
-        elif isinstance(e, events.EndIteration):
-            record["loss"].append(float(e.cost))
-            record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
-    card.train(lambda: iter(data), num_passes=1, event_handler=handler,
-               feeding=feeding, log_period=0)
+    times, losses, _ = sgd_pass(torch, kernels, card, data, feeding,
+                                "train_resnet_cifar")
     moved = max(float((a.cpu() - b).abs().max()) for a, b in zip(
         tree_leaves(card.model_state), tree_leaves(before)))
     test_cost = card.test(cfg["test_reader"], feeding=feeding)
-    losses = record["loss"]
-    if not (all(math.isfinite(x) for x in losses + [test_cost])
-            and moved > 0):
+    if not (math.isfinite(test_cost) and moved > 0):
         fail(f"train_resnet_cifar: losses {losses}, test {test_cost}, "
              f"moving stats moved {moved}")
-    ms = float(np.median(record["ms"][2:]))
+    ms = float(np.median(times[2:]))
     emit({"phase": "train_resnet_cifar", "config": {
         "model": "demo/image_classification resnet_cifar "
                  "(models/image_dsl, layer DSL)",
@@ -6496,6 +6584,360 @@ def run_train_resnet_cifar(torch, dev):
         "losses": losses, "test_cost": test_cost,
         "moving_stat_layers": len(card.model_state),
         "moving_stats_moved_max": moved, "first_step_vs_cpu": first})
+
+
+# The demos of the networks / recommendation / text slice.
+# train_recommendation: demo/recommendation's step at full width.  The
+# first step on the card and on the CPU from the same weights and batch
+# run the same float32 arithmetic (cuBLAS with TF32 off) in other
+# summation orders, the embedding tables' backward accumulating with
+# atomics on the card: the loss, every gradient leaf and every parameter
+# after the Adam step are held within REC_TOL (the parameters
+# REC_PARAM_TOL) of their largest entry, and the same step with cuBLAS's
+# TF32 on must fail that gate.
+REC_TOL = 1e-5
+# Adam's first step moves each entry by lr g / (|g| + eps): an entry
+# whose gradient lies within rounding of eps moves by a share of lr that
+# differs between the devices, so the new parameters are held at
+# REC_PARAM_TOL of their largest entry (on an H100: 1.8e-5 sound,
+# 3.9e-2 under TF32; PERF.md §6).
+REC_PARAM_TOL = 1e-3
+REC_WARMUP = 3                 # steps of the pass left out of ms/batch
+# train_vgg_cifar: the image_classification demo's vgg through SGD at
+# batch 128 of the cifar loader, the first step at VGG_CHECK rows
+# against the CPU witness (decisions and dropout masks replayed) at
+# VGG_REL_TOL, which cuDNN's TF32 must fail; then VGG_PASSES passes over
+# the loader's VGG_BATCHES batches.  The demo's lr 0.01 (momentum 0.9)
+# on its 16384-wide fc diverges over the first ~8 steps in both
+# packages (JAX's trainer on the same batches: 2.73 -> 122.95 by step
+# 7) before the loss comes back down, so the loss is held to fall over
+# the passes: the mean of the last VGG_TAIL steps below the first
+# step's.
+VGG_REL_TOL = 1e-5
+VGG_CHECK, VGG_BATCHES, VGG_PASSES, VGG_TAIL = 32, 32, 2, 8
+# train_sentiment: the sentiment demo's stacked LSTM through SGD at hid
+# 128, batch 64 of the imdb loader's ragged reviews.  Each step launches
+# B9's forward and its BPTT + dW_r once per lstmemory (3 + 3); the first
+# step's loss and every gradient leaf against a CPU witness that
+# max-pools at the card's argmax (the plain CPU step reported beside) at
+# SENT_TOL, which the same step through the one-TF32-pass LSTM build
+# must fail.  quick_start's lstm config: its first step likewise (1 + 1
+# launches) and QS_STEPS more.
+SENT_TOL = 2e-5
+SENT_BATCHES, SENT_CLI_BATCHES, QS_STEPS = 16, 2, 4
+SENTIMENT_CLI_CONFIG = "paddle_tpu_torch/models/text_dsl.py"
+
+
+@contextlib.contextmanager
+def cublas_tf32(torch):
+    """cuBLAS's TF32 products on for the block (``device.resolve`` keeps
+    them off)."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def run_train_recommendation(torch, dev, kernels):
+    """demo/recommendation's step (scripts/bench.bench_recommendation:
+    the MovieLens towers at emb 256, hidden 256, batch 128 of the
+    movielens loader, Adam lr 1e-3): the first step on the card against
+    the same step on the CPU (loss and gradients within REC_TOL, new
+    parameters within REC_PARAM_TOL of their largest entry), which the
+    step with cuBLAS's TF32 on must fail; then one pass over the loader (the loss falls, no
+    counted kernel launched), ms/batch and samples/s."""
+    from paddle_tpu_torch.models import recommendation
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.scripts import bench as bench_mod
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+    b = bench_mod.bench_recommendation(device=dev)
+    start, batch = host_tree(b.params), b.batches[0]
+
+    def step(device, ctx=None):
+        p = tree_map(lambda t: t.to(device).clone().requires_grad_(True),
+                     start)
+        opt = Adam(learning_rate=1e-3)
+        state = opt.init(p)
+        feed = recommendation.feed_batch(batch, device=device)
+        with (ctx or contextlib.nullcontext)():
+            loss = recommendation.loss(p, *feed)
+            loss.backward()
+            grads = [x.grad.detach().cpu() for x in tree_leaves(p)]
+            opt.update(tree_map(lambda x: x.grad, p), state, p)
+        return (float(loss.detach()), grads,
+                [x.detach().cpu() for x in tree_leaves(p)])
+
+    def readings(got, ref):
+        return {"loss_rel_err": abs(got[0] - ref[0]) / abs(ref[0]),
+                "grad_rel_err_max": max(largest_err(got[1], ref[1])),
+                "param_rel_err_max": max(largest_err(got[2], ref[2]))}
+
+    t0 = time.perf_counter()
+    cpu = step("cpu")
+    sound = readings(step(dev), cpu)
+    control = readings(step(dev, lambda: cublas_tf32(torch)), cpu)
+    first = {"vs_cpu": sound, "control": {
+        "what": "cuBLAS TF32 on (matmul.allow_tf32=True)", **control},
+        "tolerance": REC_TOL, "seconds": time.perf_counter() - t0}
+    def passes(r):
+        return max(r["loss_rel_err"], r["grad_rel_err_max"]) <= REC_TOL \
+            and r["param_rel_err_max"] <= REC_PARAM_TOL
+
+    first["param_tolerance"] = REC_PARAM_TOL
+    if not passes(sound) or passes(control):
+        fail(f"train_recommendation: the first step must pass the gate "
+             f"against the CPU and its TF32 control fail it: {first}")
+    kernels.reset_launches()
+    times, losses = [], []
+    for _ in b.batches:
+        t1 = time.perf_counter()
+        loss = b.train_step()
+        losses.append(float(loss))       # a synchronize
+        times.append((time.perf_counter() - t1) * 1e3)
+    launches = {**launch_counts(kernels),
+                "recurrent": recurrent_launches(kernels)}
+    if any(launches.values()):
+        fail(f"train_recommendation: counted kernels launched {launches}")
+    if not (all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-4:]) < np.mean(losses[:4])):
+        fail(f"train_recommendation: the loss must be finite and fall over "
+             f"the pass: {losses}")
+    ms = float(np.median(times[REC_WARMUP:]))
+    emit({"phase": "train_recommendation", "config": {
+        "model": "models/recommendation (demo/recommendation)",
+        "emb": 256, "hidden": 256, "batch": b.batch,
+        "batches": len(b.batches),
+        "data": "data.datasets.movielens train (synthetic fallback unless "
+                "PADDLE_TPU_DATA_DIR holds ml-1m), shuffled",
+        "optimizer": "Adam lr 1e-3", "entry": "the demo's step, "
+        "feed_batch included (scripts/bench.bench_recommendation)"},
+        "ms_per_batch": ms, "ms_per_batch_min_max": [min(times[REC_WARMUP:]),
+                                                     max(times[REC_WARMUP:])],
+        "samples_per_s": b.batch / (ms / 1e3), "losses": losses,
+        "first_step_vs_cpu": first})
+    F32_MS["train_recommendation"] = ms
+
+
+def sgd_pass(torch, kernels, trainer, data, feeding, what, per_step=(0, 0)):
+    """``trainer.train`` over ``data`` (a list of batches), one pass, the
+    launch counters reset before each step and read after it: each
+    step's wall time and loss from the events, its LSTM (forward,
+    backward) launches held to ``per_step`` and no other counted kernel
+    launched.  Returns (ms, losses, the LSTM launches of the pass)."""
+    from paddle_tpu_torch.trainer import events
+    lk = kernels.lstm
+    record = {"ms": [], "loss": [], "launches": []}
+
+    def handler(e):
+        if isinstance(e, events.BeginIteration):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            record["t0"] = time.perf_counter()
+        elif isinstance(e, events.EndIteration):
+            record["loss"].append(float(e.cost))     # a synchronize
+            record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
+            lstm = (lk.launches_fwd, lk.launches_bwd)
+            record["launches"].append(lstm + (
+                sum(launch_counts(kernels).values())
+                + recurrent_launches(kernels) - sum(lstm),))
+
+    trainer.train(lambda: iter(data), num_passes=1, event_handler=handler,
+                  feeding=feeding, log_period=0)
+    losses = record["loss"]
+    if len(losses) != len(data) or not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: {len(losses)} steps of {len(data)}, losses {losses}")
+    if any(n != (*per_step, 0) for n in record["launches"]):
+        fail(f"{what}: per-step (lstm forward, lstm backward, other counted "
+             f"kernels) launches {record['launches']}, want "
+             f"{(*per_step, 0)} every step")
+    return record["ms"], losses, {
+        lk.NAME_FWD: sum(n[0] for n in record["launches"]),
+        lk.NAME_BWD: sum(n[1] for n in record["launches"])}
+
+
+def run_train_vgg_cifar(torch, dev, kernels):
+    """demo/image_classification's vgg (models/image_dsl.vgg_bn_drop:
+    img_conv_group of 2 convs with batch norm and a 0.3 dropout, fc 10)
+    through SGD on the cifar loader's batches of 128: the first step at
+    VGG_CHECK rows against the CPU witness that replays the card's ReLU,
+    max-pool decisions and dropout masks (the TF32 control failing it),
+    then SGD.train over VGG_PASSES passes of VGG_BATCHES batches (the
+    loss falls below the first step's) and SGD.test."""
+    from paddle_tpu_torch.models import image_dsl
+    from paddle_tpu_torch.optim import Momentum
+    cfg = image_dsl.cifar_config(model="vgg", n_batches=VGG_BATCHES)
+    data = list(cfg["train_reader"]())
+    feeding = cfg["feeding"]
+
+    def build():
+        return image_dsl.cifar_vgg()[0]
+
+    def optimizer():
+        return Momentum(learning_rate=0.01, momentum=0.9, l2=1e-4)
+    card, first = dsl_image_step(torch, dev, "train_vgg_cifar", build,
+                                 feeding, data[0][:VGG_CHECK], optimizer,
+                                 VGG_REL_TOL,
+                                 control=lambda: cudnn_tf32(torch))
+    times, losses, _ = sgd_pass(torch, kernels, card, data * VGG_PASSES,
+                                feeding, "train_vgg_cifar")
+    start = first["loss"][0]
+    if not np.mean(losses[-VGG_TAIL:]) < start:
+        fail(f"train_vgg_cifar: the loss must fall below the first step's "
+             f"{start}: {losses}")
+    test_cost = card.test(cfg["test_reader"], feeding=feeding)
+    ms = float(np.median(times[2:]))
+    emit({"phase": "train_vgg_cifar", "config": {
+        "model": "demo/image_classification vgg_bn_drop (models/image_dsl,"
+                 " layer DSL: networks.img_conv_group, dropout_layer)",
+        "batch": image_dsl.CIFAR_BATCH, "image": [32, 32, 3],
+        "batches": VGG_BATCHES, "passes": VGG_PASSES,
+        "optimizer": "Momentum lr 0.01 m 0.9 "
+        "l2 1e-4", "entry": "trainer.SGD.train", "cpu_check_batch":
+        VGG_CHECK}, "ms_per_batch": ms,
+        "images_per_s": image_dsl.CIFAR_BATCH / (ms / 1e3),
+        "losses": losses, "test_cost": test_cost,
+        "first_step_vs_cpu": first})
+    F32_MS["train_vgg_cifar"] = ms
+
+
+def text_first_step(torch, dev, kernels, model, batch, control=None):
+    """One SGD step of a text_dsl config (``model``) on the card under
+    pool_probe, on a CPU witness from the same weights that max-pools at
+    the card's argmax, and on the plain CPU: the loss and every gradient
+    leaf of the card within SENT_TOL of the witness's largest entries;
+    with ``control`` (a context), the same card step with the card's
+    argmax replayed must fail that gate.  Returns (the card's trainer,
+    its (lstm forward, backward) launches, readings)."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_dsl
+    from paddle_tpu_torch.trainer import SGD
+    lk = kernels.lstm
+    feeding = text_dsl.feeding()
+    start = host_tree(SGD(cost=text_dsl.build(model)[0],
+                          update_equation=text_dsl.optimizer(model),
+                          device="cpu").parameters)
+
+    def step(device, record, argmax=None, ctx=None):
+        tr = SGD(cost=text_dsl.build(model)[0], parameters=start,
+                 update_equation=text_dsl.optimizer(model), device=device)
+        feed = DataFeeder(feeding, device=tr.device)(batch)
+        with (ctx or contextlib.nullcontext)(), pool_probe(torch, record,
+                                                           argmax):
+            total, _ = tr._forward(feed)
+            tr._backward(total)
+        grads = [p.grad.detach().cpu() for p in tr._leaves]
+        tr._update()
+        return tr, float(total.detach()), grads
+
+    def readings(got, ref):
+        return {"loss_rel_err": abs(got[1] - ref[1]) / abs(ref[1]),
+                "grad_rel_err_max": max(largest_err(got[2], ref[2]))}
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    rec_c = []
+    card = step(dev, rec_c)
+    launches = (lk.launches_fwd, lk.launches_bwd)
+    argmax = [r["argmax"] for r in rec_c]
+    rec_w, rec_r = [], []
+    witness = step("cpu", rec_w, argmax)
+    plain = step("cpu", rec_r)
+    flips = sum(int((c["argmax"] != r["argmax"]).sum())
+                for c, r in zip(rec_c, rec_r))
+    out = {"vs_witness": readings(card, witness),
+           "vs_plain_cpu_step": readings(card, plain),
+           "argmax_flips_vs_plain_cpu": flips,
+           "pooled_units": sum(r["argmax"].numel() for r in rec_c),
+           "tolerance": SENT_TOL}
+    if max(out["vs_witness"].values()) > SENT_TOL:
+        fail(f"train_sentiment {model}: the first step on the card against "
+             f"the CPU witness: {out}")
+    if control is not None:
+        ctl = readings(step(dev, [], argmax, ctx=control), witness)
+        out["control"] = {"what": "the LSTMs through the one-TF32-pass "
+                          "build of csrc/lstm.cu, the card's argmax "
+                          "replayed", **ctl}
+        if max(ctl.values()) <= SENT_TOL:
+            fail(f"train_sentiment {model}: the TF32 control passes the "
+                 f"first-step gate: {out}")
+    out["seconds"] = time.perf_counter() - t0
+    return card[0], launches, out
+
+
+def run_train_sentiment(torch, dev, kernels, seed):
+    """demo/sentiment's stacked_lstm_net (models/text_dsl: hid 128, three
+    lstmemory layers, the middle one reversed) through SGD on the imdb
+    loader's batches of 64 ragged reviews: the first step against the
+    CPU (text_first_step, with the one-TF32-pass control), SGD.train over
+    SENT_BATCHES batches launching B9's forward and BPTT + dW_r 3 + 3
+    times a step (the loss falls), SGD.test, and `python -m
+    paddle_tpu_torch train --config paddle_tpu_torch/models/text_dsl.py
+    --config_args model=sentiment,...`; then quick_start's lstm config:
+    its first step likewise (1 + 1 launches) and QS_STEPS steps."""
+    from paddle_tpu_torch.models import text_dsl
+    from paddle_tpu_torch.trainer import SGD
+    lk = kernels.lstm
+    cfg = text_dsl.config("sentiment", n_batches=SENT_BATCHES)
+    data, feeding = list(cfg["train_reader"]()), cfg["feeding"]
+    card, first_launches, first = text_first_step(
+        torch, dev, kernels, "sentiment", data[0], control=lstm_tf32_1x)
+    if first_launches != (3, 3):
+        fail(f"train_sentiment: the first step launched the LSTM kernels "
+             f"{first_launches} times, want (3, 3)")
+    times, losses, pass_launches = sgd_pass(
+        torch, kernels, card, data[1:], feeding, "train_sentiment",
+        per_step=(3, 3))
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"train_sentiment: the loss must fall: {losses}")
+    test_cost = card.test(cfg["test_reader"], feeding=feeding)
+    cli = rnn_cli(torch, dev, seed, card, what="train_sentiment",
+                  config_file=SENTIMENT_CLI_CONFIG,
+                  config_args=f"model=sentiment,batches={SENT_CLI_BATCHES}",
+                  batches=SENT_CLI_BATCHES,
+                  fresh=lambda: SGD(text_dsl.build()[0],
+                                    update_equation=text_dsl.optimizer(),
+                                    device=dev))
+    launches = {lk.NAME_FWD: first_launches[0] + pass_launches[lk.NAME_FWD],
+                lk.NAME_BWD: first_launches[1] + pass_launches[lk.NAME_BWD]}
+    ms = float(np.median(times[2:]))
+    qs_data = list(text_dsl.config("lstm", n_batches=1 + QS_STEPS)
+                   ["train_reader"]())
+    qs, qs_launches, qs_first = text_first_step(torch, dev, kernels, "lstm",
+                                                qs_data[0])
+    if qs_launches != (1, 1):
+        fail(f"train_sentiment quick_start lstm: the first step launched the "
+             f"LSTM kernels {qs_launches} times, want (1, 1)")
+    qs_times, qs_losses, qs_pass = sgd_pass(
+        torch, kernels, qs, qs_data[1:], feeding,
+        "train_sentiment quick_start lstm", per_step=(1, 1))
+    qs_launches = {lk.NAME_FWD: qs_launches[0] + qs_pass[lk.NAME_FWD],
+                   lk.NAME_BWD: qs_launches[1] + qs_pass[lk.NAME_BWD]}
+    emit({"phase": "train_sentiment", "config": {
+        "model": "demo/sentiment stacked_lstm_net (models/text_dsl, layer "
+                 "DSL)", "emb": 128, "hid": 128, "lstm_layers": 3,
+        "batch": text_dsl.BATCH, "batches": SENT_BATCHES,
+        "data": "data.datasets.imdb train (synthetic fallback unless "
+                "PADDLE_TPU_DATA_DIR holds aclImdb), 8-119 tokens",
+        "optimizer": "Adam lr 0.002 l2 1e-4 clip_norm 5",
+        "entry": "trainer.SGD.train"},
+        "ms_per_batch": ms, "ms_per_batch_min_max": [min(times[2:]),
+                                                     max(times[2:])],
+        "samples_per_s": text_dsl.BATCH / (ms / 1e3),
+        "launches": launches, "launches_per_step": {lk.NAME_FWD: 3,
+                                                    lk.NAME_BWD: 3},
+        "losses": losses, "test_cost": test_cost,
+        "first_step_vs_cpu": first, "cli": cli,
+        "quick_start_lstm": {
+            "model": "demo/quick_start lstm_net (models/text_dsl: "
+                     "networks.simple_lstm 128, max pool)",
+            "optimizer": "Adam lr 0.002", "steps": 1 + len(qs_losses),
+            "launches": qs_launches,
+            "ms_per_batch": float(np.median(qs_times)),
+            "losses": qs_losses, "first_step_vs_cpu": qs_first}})
+    F32_MS["train_sentiment"] = ms
+    return {"train_sentiment": launches,
+            "train_quick_start_lstm": qs_launches}
 
 
 def main(argv=None):
@@ -6711,9 +7153,12 @@ def main(argv=None):
     mt_decode_launches = run_generate_mt(torch, dev, kernels)
     s2g_launches = run_generate_seq2seq(torch, dev, kernels)
     run_train_resnet50(torch, dev, kernels)
-    run_train_lenet(torch, dev, args.seed)
+    run_train_lenet(torch, dev, kernels, args.seed)
     run_train_image(torch, dev, kernels)
-    run_train_resnet_cifar(torch, dev)
+    run_train_resnet_cifar(torch, dev, kernels)
+    run_train_recommendation(torch, dev, kernels)
+    run_train_vgg_cifar(torch, dev, kernels)
+    text_launches = run_train_sentiment(torch, dev, kernels, args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -6779,10 +7224,13 @@ def main(argv=None):
     for row, replaces in ((lstm_fwd, kernels.lstm.REPLACES_FWD),
                           (lstm_bwd, kernels.lstm.REPLACES_BWD)):
         name = row["name"]
+        by_path = {"train": train_launches[name],
+                   **{path: n[name] for path, n in text_launches.items()}}
         summary.append({
             "name": name, "route": "cuda",
             "source": kernels.lstm.SOURCE, "replaces": replaces,
-            "launches": train_launches[name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max([row["max_abs_err"]]
                                + [r["max_abs_err"] for r in lstm_other
                                   if r["name"] == name]),

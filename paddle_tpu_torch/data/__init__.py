@@ -1,6 +1,6 @@
 """Data path (``paddle_tpu/data``): reader decorators, the input type
-declarations, the DataFeeder and the image datasets of the zoo
-(``data.datasets``: mnist, cifar).  The ``@provider`` decorator, the
+declarations, the DataFeeder and four datasets of the zoo
+(``data.datasets``: mnist, cifar, imdb, movielens).  The ``@provider`` decorator, the
 prefetcher and the rest of the zoo are not ported yet (ROADMAP A9·f)."""
 
 from paddle_tpu_torch.data import reader

@@ -24,3 +24,15 @@ def rng_for(name, split):
 
 def local_path(*parts):
     return os.path.join(data_dir(), *parts)
+
+
+_TOKEN = None
+
+
+def tokenize(text):
+    """Lowercased word tokens (shared by the text datasets)."""
+    global _TOKEN
+    if _TOKEN is None:
+        import re
+        _TOKEN = re.compile(r"[A-Za-z0-9']+")
+    return [t.lower() for t in _TOKEN.findall(text)]

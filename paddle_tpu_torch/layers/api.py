@@ -1,5 +1,5 @@
 """v1-DSL layer ctors (``paddle_tpu/layers/api.py``): the data, fc and
-embedding layers, sequence pooling, concat, addto and the
+embedding layers, sequence pooling, concat, addto, dropout and the
 classification cost — the layers of the reference's RNN text
 classifier, the two DSL demos (quick_start, sentiment) and the image
 demos' trunks (``layers/vision.py`` holds their conv stack) — and the
@@ -29,7 +29,7 @@ from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = [
     "data_layer", "fc_layer", "moe_layer", "embedding_layer",
-    "concat_layer", "addto_layer",
+    "concat_layer", "addto_layer", "dropout_layer",
     "pooling_layer", "pooling", "last_seq", "first_seq",
     "classification_cost",
 ]
@@ -276,6 +276,30 @@ def addto_layer(input, act=None, name=None, bias_attr=False):
     return LayerOutput(name or auto_name("addto"), "addto", ins[0].size, ins,
                        {"act": act}, num_filters=num_filters,
                        img_shape=img_shape)
+
+
+# ------------------------------------------------------- dropout
+
+class _DropoutImpl:
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def apply(self, ctx, cfg, params, x):
+        return _dropout(ctx, cfg, x)
+
+
+register_layer("dropout")(_DropoutImpl)
+
+
+def dropout_layer(input, dropout_rate, name=None):
+    """Inverted dropout at ``dropout_rate`` in train mode (kept entries
+    scaled by 1 / (1 - rate)), the identity in test mode; the mask is
+    drawn from the apply's generator (``Context.rand_like``), so its
+    bits are PyTorch's, not JAX's."""
+    return LayerOutput(name or auto_name("dropout"), "dropout", input.size,
+                       [input], {"drop_rate": dropout_rate},
+                       num_filters=input.num_filters,
+                       img_shape=input.img_shape)
 
 
 # ------------------------------------------------------- sequence pooling

@@ -16,6 +16,22 @@ a strided 1x1 conv of it) by ``addto_layer`` -> 8x8 average pool -> fc
 trainer threads through its steps and checkpoints.  The JAX package
 runs both unchanged (its ``resnet_cifar`` with ``num_channels=`` on the
 layers after each sum: ROADMAP C11).
+
+``vgg_bn_drop`` is the same demo's vgg model
+(``demo/image_classification/train.py:14-17``):
+``networks.img_conv_group([64, 64], pool_size=2, num_channels=3,
+conv_with_batchnorm=True, conv_batchnorm_drop_rate=[0.3, 0.0])`` -- conv
+64@3 + batch norm relu + dropout 0.3, conv 64@3 + batch norm relu, max
+pool 2s2 -- then fc 10 softmax, with the resnet model's optimizer.  The
+port's ``dropout_layer`` keeps its input's image metadata, as the
+reference's does, so the second conv reads 64 channels of 32x32; JAX's
+drops it, and its second conv reads one channel of 256x256 (ROADMAP
+C13).
+
+``get_config()`` selects the model as the demo's does: ``python -m
+paddle_tpu_torch train --config paddle_tpu_torch/models/image_dsl.py
+--config_args model=vgg`` (or ``model=resnet``, the default;
+``batches=N`` stops a pass after N batches).
 """
 
 from paddle_tpu_torch import layers as L
@@ -80,15 +96,28 @@ def cifar_resnet(depth=32):
     return L.classification_cost(out, label), out
 
 
+def vgg_bn_drop(img, drop_rates=(0.3, 0.0)):
+    """The demo's vgg trunk over the image layer ``img``; ``drop_rates``
+    are the two convs' dropout rates (the demo's (0.3, 0.0))."""
+    return L.networks.img_conv_group(
+        img, [64, 64], pool_size=2, num_channels=3, conv_with_batchnorm=True,
+        conv_batchnorm_drop_rate=list(drop_rates))
+
+
+def cifar_vgg(drop_rates=(0.3, 0.0)):
+    """(cost, output) of the image_classification demo's vgg model, with
+    a fresh layer-name registry."""
+    L.reset_names()
+    img = L.data_layer("image", size=3 * 32 * 32, height=32, width=32)
+    label = L.data_layer("label", size=1)
+    out = L.fc_layer(vgg_bn_drop(img, drop_rates), size=10, act="softmax")
+    return L.classification_cost(out, label), out
+
+
 def _batched(reader, batch, n_batches):
     """The first ``n_batches`` batches of ``batch`` samples of
-    ``reader``."""
-    def limited():
-        for i, sample in enumerate(reader()):
-            if i >= n_batches * batch:
-                return
-            yield sample
-    return reader_mod.batch(limited, batch)
+    ``reader`` (all of them for None)."""
+    return reader_mod.firstn(reader_mod.batch(reader, batch), n_batches)
 
 
 def mnist_config(n_batches=8, batch=MNIST_BATCH):
@@ -104,10 +133,11 @@ def mnist_config(n_batches=8, batch=MNIST_BATCH):
             "test_reader": _batched(mnist.test(), batch, 2)}
 
 
-def cifar_config(depth=32, n_batches=8, batch=CIFAR_BATCH):
-    """The image_classification demo's resnet model as a trainer config
-    on the cifar loader's first ``n_batches`` batches."""
-    cost, out = cifar_resnet(depth)
+def cifar_config(depth=32, n_batches=8, batch=CIFAR_BATCH, model="resnet"):
+    """The image_classification demo's ``model`` (vgg, or else resnet at
+    ``depth``, as the demo selects) as a trainer config on the cifar
+    loader's first ``n_batches`` batches (all of them for None)."""
+    cost, out = cifar_vgg() if model == "vgg" else cifar_resnet(depth)
     return {"cost": cost, "output": out,
             "optimizer": Momentum(learning_rate=0.01, momentum=0.9,
                                   l2=1e-4),
@@ -115,3 +145,13 @@ def cifar_config(depth=32, n_batches=8, batch=CIFAR_BATCH):
                         "label": integer_value(10)},
             "train_reader": _batched(cifar.train10(), batch, n_batches),
             "test_reader": _batched(cifar.test10(), batch, 2)}
+
+
+def get_config():
+    """The demo's ``get_config`` (``demo/image_classification/train.py:
+    47-65``): ``CONFIG_ARGS`` ``model`` (resnet, the default, or vgg) and
+    ``batches`` (a pass's length; every batch of the loader by
+    default)."""
+    args = globals().get("CONFIG_ARGS", {})
+    n = int(args["batches"]) if "batches" in args else None
+    return cifar_config(model=args.get("model", "resnet"), n_batches=n)

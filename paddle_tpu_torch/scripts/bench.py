@@ -5,15 +5,27 @@ headline), ``bench_transformer`` (with ``remat``),
 ``trainer.SGD``, and ``bench_trainer_int8``, its int8 weight-streaming
 mode; ``bench_transformer_decode``, the MT model's KV-cached beam
 search; the image benchmarks ``bench_resnet50`` and ``bench_image``
-(smallnet, alexnet, googlenet); and the measurement legs of two serving
-benchmarks, ``bench_serving_quant`` and ``bench_serving_speculative``.
+(smallnet, alexnet, googlenet); the demos' steps ``bench_recommendation``
+(demo/recommendation) and ``bench_dsl`` (the image_classification demo's
+vgg and the sentiment demo, through ``trainer.SGD``); and the
+measurement legs of two serving benchmarks, ``bench_serving_quant`` and
+``bench_serving_speculative``.
 
     python -m paddle_tpu_torch.scripts.bench
         [--model lstm|transformer|transformer_packed|transformer_moe|
                  seq2seq|rnn|trainer_int8|transformer_decode|
                  serving_quant|serving_speculative|resnet50|smallnet|
-                 alexnet|googlenet]
+                 alexnet|googlenet|recommendation|vgg_cifar|sentiment]
         [--hidden 512|1280|2048] [--remat]
+
+``recommendation`` trains the MovieLens towers at the demo's config
+(emb 256, hidden 256, batch 128 of the movielens loader, Adam lr 1e-3),
+each step feeding its batch as the demo does, and prints ms/batch and
+samples/s; ``vgg_cifar`` and ``sentiment`` train those configs through
+``SGD.train_one_batch`` (vgg: batch 128 of the cifar loader, Momentum;
+sentiment: hid 128, batch 64 of the imdb loader's ragged reviews, Adam
+with l2 and clip_norm, its three LSTMs through the fused LSTM kernels),
+printing ms/batch, samples/s, the LSTM launches and the step's split.
 
 ``resnet50`` trains ResNet-50 at ``bench.py:358-395``'s config (batch
 32 of 224x224x3 images from ``np.random.RandomState(0)``, 1000 classes,
@@ -95,9 +107,12 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.core.sequence import SequenceBatch, pack_sequences
+from paddle_tpu_torch.data import reader as reader_mod
+from paddle_tpu_torch.data.datasets import movielens
 from paddle_tpu_torch.data.feeder import DataFeeder
-from paddle_tpu_torch.models import (alexnet, googlenet, resnet, seq2seq,
-                                     smallnet, text_lstm, text_rnn,
+from paddle_tpu_torch.models import (alexnet, googlenet, image_dsl,
+                                     recommendation, resnet, seq2seq,
+                                     smallnet, text_dsl, text_lstm, text_rnn,
                                      transformer)
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optim import Adam, Momentum
@@ -710,6 +725,93 @@ def bench_rnn(batch=text_rnn.BATCH, seq_len=text_rnn.SEQ_LEN,
                     rnn_flops(batch, seq_len, hidden))
 
 
+class RecBench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    params: dict
+    opt_state: dict
+    batches: list               # host batches of movielens samples
+    batch: int
+
+
+def bench_recommendation(batch=128, emb=256, hidden=256, seed=0,
+                         device=None):
+    """``demo/recommendation/train.py``'s step: the MovieLens towers at
+    ``emb`` / ``hidden`` (``models/recommendation``, params from a
+    generator seeded ``seed``), Adam lr 1e-3, the movielens train split
+    (its synthetic fallback: 4096 samples) shuffled in a buffer of 1024
+    with seed 0 and batched by ``batch``, as the demo reads it.
+    ``train_step()`` feeds the next batch (``feed_batch``: the 8 slots
+    to tensors on the device), zeroes the grads, runs the loss, calls
+    ``backward()``, applies Adam in place and returns the loss."""
+    dev = _device.resolve(device)
+    params = recommendation.init(torch.Generator().manual_seed(seed),
+                                 emb=emb, hidden=hidden, device=dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = Adam(learning_rate=1e-3)
+    opt_state = opt.init(params)
+    batches = list(reader_mod.batch(reader_mod.shuffle(
+        movielens.train(), 1024, seed=0), batch, drop_last=True)())
+    count = [0]
+
+    def train_step():
+        feed = recommendation.feed_batch(batches[count[0] % len(batches)],
+                                         device=dev)
+        count[0] += 1
+        for p in leaves:
+            p.grad = None
+        loss = recommendation.loss(params, *feed)
+        loss.backward()
+        opt.update(tree_map(lambda p: p.grad, params), opt_state, params)
+        return loss.detach()
+
+    return RecBench(train_step, params, opt_state, batches, batch)
+
+
+class DslBench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    trainer: object
+    feeder: DataFeeder
+    batches: list
+    samples_per_step: int
+
+
+def bench_dsl(model, n_batches=8, device=None):
+    """``trainer.SGD`` over a demo's layer-DSL config: ``vgg_cifar``
+    (``models/image_dsl.cifar_config(model="vgg")``: the
+    image_classification demo's vgg, batch 128 of the cifar loader,
+    Momentum lr 0.01 m 0.9 l2 1e-4) or ``sentiment``
+    (``models/text_dsl.config``: the sentiment demo's stacked LSTM, hid
+    128, batch 64 of the imdb loader's ragged reviews, Adam lr 0.002 l2
+    1e-4 clip_norm 5.0), over the loader's first ``n_batches`` batches
+    (params from SGD's seed).  ``train_step()`` feeds the next batch
+    through ``SGD.train_one_batch`` (DataFeeder, forward, ``backward()``,
+    the update) and returns the loss."""
+    from paddle_tpu_torch.trainer import SGD
+    dev = _device.resolve(device)
+    if model == "vgg_cifar":
+        cfg = image_dsl.cifar_config(model="vgg", n_batches=n_batches)
+        size = image_dsl.CIFAR_BATCH
+    elif model == "sentiment":
+        cfg = text_dsl.config("sentiment", n_batches=n_batches)
+        size = text_dsl.BATCH
+    else:
+        raise ValueError(f"bench_dsl: model {model!r}")
+    trainer = SGD(cost=cfg["cost"], update_equation=cfg["optimizer"],
+                  device=dev)
+    feeder = DataFeeder(cfg["feeding"], device=dev)
+    batches = list(cfg["train_reader"]())
+    count = [0]
+
+    def train_step():
+        i = count[0] % len(batches)
+        count[0] += 1
+        return trainer.train_one_batch(batches[i], feeder)
+
+    return DslBench(train_step, trainer, feeder, batches, size)
+
+
 def image_step_split(bench, steps):
     """Median ms of an image bench's forward, ``backward()`` and
     optimizer update over ``steps`` steps, each part ending in a
@@ -967,7 +1069,8 @@ def main(argv=None):
                                         "trainer_int8", "transformer_decode",
                                         "serving_quant",
                                         "serving_speculative",
-                                        *IMAGE_CONFIGS),
+                                        "recommendation", "vgg_cifar",
+                                        "sentiment", *IMAGE_CONFIGS),
                     default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
                     help="the LSTM's hidden size (--model lstm)")
@@ -1082,6 +1185,56 @@ def main(argv=None):
             "loss_first_last": [losses[0], losses[-1]],
             **({"reference_k40m_ms_per_batch": IMAGE_K40M_MS[args.model]}
                if args.model in IMAGE_K40M_MS else {}),
+        }), flush=True)
+        return 0
+    if args.model == "recommendation":
+        bench = bench_recommendation(device=dev)
+        times, losses = _timed(bench.train_step)
+        ms = float(np.median(times))
+        print(json.dumps({
+            "bench": "recommendation_movielens", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
+            "config": {"emb": 256, "hidden": 256, "batch": bench.batch,
+                       "data": "data.datasets.movielens train, shuffled "
+                               "(buffer 1024, seed 0)",
+                       "optimizer": "Adam lr 1e-3",
+                       "entry": "demo/recommendation's step, feed_batch "
+                                "included"},
+            "steps": STEPS, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "samples_per_s": bench.batch / (ms / 1e3),
+            "loss_first_last": [losses[0], losses[-1]],
+        }), flush=True)
+        return 0
+    if args.model in ("vgg_cifar", "sentiment"):
+        bench = bench_dsl(args.model, device=dev)
+        times, losses = _timed(bench.train_step)
+        ms = float(np.median(times))
+        lk = kernels.lstm
+        print(json.dumps({
+            "bench": f"{args.model}_dsl", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
+            "config": ({"model": "demo/image_classification vgg_bn_drop "
+                                 "(models/image_dsl)",
+                        "batch": bench.samples_per_step,
+                        "image": [32, 32, 3],
+                        "optimizer": "Momentum lr 0.01 m 0.9 l2 1e-4"}
+                       if args.model == "vgg_cifar" else
+                       {"model": "demo/sentiment stacked_lstm_net "
+                                 "(models/text_dsl)", "emb": 128,
+                        "hid": 128, "lstm_layers": 3,
+                        "batch": bench.samples_per_step,
+                        "data": "data.datasets.imdb train, 8-119 tokens",
+                        "optimizer": "Adam lr 0.002 l2 1e-4 clip_norm 5"}),
+            "entry": "trainer.SGD.train_one_batch",
+            "steps": STEPS, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "samples_per_s": bench.samples_per_step / (ms / 1e3),
+            "loss_first_last": [losses[0], losses[-1]],
+            "launches": {lk.NAME_FWD: lk.launches_fwd,
+                         lk.NAME_BWD: lk.launches_bwd},
+            "split_ms": step_split(bench.trainer, bench.feeder,
+                                   bench.batches, STEPS),
         }), flush=True)
         return 0
     if args.model == "serving_quant":

@@ -303,6 +303,41 @@ def test_forward_at_batch_1(name):
         assert not torch.equal(drop, got) and torch.isfinite(drop).all()
 
 
+@pytest.mark.parametrize("name", ["alexnet", "googlenet"])
+def test_train_step_float64(name):
+    """AlexNet's and GoogLeNet's train step at batch 2 (train mode with no
+    dropout generator, so dropout is the identity on both sides) in
+    float64 on both sides: the loss and every gradient leaf within
+    F64_TOL of their largest entry.  In float32 GoogLeNet's ReLU and
+    max-pool decisions flip between the packages (its worst leaf reads
+    ~3e-3), so the step is held in float64."""
+    jmod, tmod, hw = {"alexnet": (jax_alexnet, alexnet, 227),
+                      "googlenet": (jax_googlenet, googlenet, 224)}[name]
+    jp, js = _numpy_init(tmod, num_classes=10)
+    rng = np.random.RandomState(5)
+    x = rng.standard_normal((2, hw, hw, 3))
+    y = rng.randint(0, 10, 2).astype(np.int32)
+    with _float64():
+        (jl, _), jg = jax.jit(jax.value_and_grad(
+            lambda p: jmod.loss(p, js, x, y, train=True), has_aux=True))(
+            jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), jp))
+        tp = _leaves_require_grad(tree_map(
+            torch.Tensor.double,
+            tmod.params_from_numpy(jp, "cpu", num_classes=10)))
+        loss, _ = tmod.loss(tp, {}, torch.tensor(x), torch.tensor(y),
+                            train=True)
+        grads = _backward(loss, tp)
+    assert loss.dtype == torch.float64 and jl.dtype == np.float64
+    assert abs(float(loss.detach()) - float(jl)) <= F64_TOL * abs(float(jl))
+    leaves = tree_leaves(grads)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(jg))
+    for got, want in zip(leaves, jax.tree_util.tree_leaves(jg)):
+        want = np.asarray(want)
+        assert got.dtype == torch.float64
+        assert np.abs(got.detach().numpy() - want).max() \
+            <= F64_TOL * max(np.abs(want).max(), 1e-12)
+
+
 @pytest.mark.parametrize("loader", ["mnist.train", "mnist.test",
                                     "cifar.train10", "cifar.test100"])
 def test_loaders_give_jax_arrays(loader):
