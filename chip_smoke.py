@@ -363,6 +363,22 @@ non-zero exit code and no final "ok" line:
             SGD.load restores bit for bit; then quick_start's lstm config
             (networks.simple_lstm), its first step likewise and 1 + 1
             launches a step
+  trainer_a9c  the rest of the trainer at the text demos' widths: the
+            sentiment demo through SGD(evaluators=[classification error,
+            auc], grad_accum_steps=2), two passes of 8 micro-batches (B9
+            3 + 3 a micro-batch), the evaluators equal to a host recount
+            of the card's outputs, the first micro-batch holding the
+            parameters, the first applied update against a CPU witness
+            (its one-TF32-pass control failing), the pass-end saves in the
+            background reloading equal (pass seconds beside a pass with
+            blocking saves); a real SIGTERM mid-pass, its meta, and the
+            resume in a fresh SGD against the uninterrupted run (bit for
+            bit, or the spread of two uninterrupted runs); Inferencer at
+            float32, bf16 and int8 against the CPU's; quick_start's lstm
+            with a 0.5 pruning hook on both weights, its pruned entries
+            exactly 0.0 after 10 steps (1 + 1 launches a step); the CLI's
+            time, checkgrad (PASSED, B9 on its path), merge_model and
+            version jobs as subprocesses
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -6940,6 +6956,473 @@ def run_train_sentiment(torch, dev, kernels, seed):
             "train_quick_start_lstm": qs_launches}
 
 
+# trainer_a9c: the rest of the trainer (A9·c) on the card, at the text
+# demos' published widths.  The sentiment demo (hid 128, emb 128, batch
+# 64) through SGD(evaluators=[classification error, auc],
+# grad_accum_steps=2): A9C_PASSES passes of A9C_BATCHES micro-batches,
+# B9 3 + 3 launches a micro-batch; the first micro-batch leaves the
+# parameters bit for bit, and the first applied update (micro-batch 2)
+# is held against a CPU witness that replays the card's max-pool argmax:
+# the applied mean gradient within SENT_TOL of each leaf's largest entry
+# (the one-TF32-pass LSTM build must fail it), and the updated
+# parameters within SENT_TOL of the demo's Adam applied on the host to
+# the card's mean gradient (a9c_first_update).  A real SIGTERM after
+# A9C_PRE_AT (pass, batch), resumed in a fresh SGD; quick_start's
+# lstm_net with a 0.5 pruning hook on both weights for PRUNE_STEPS
+# steps (1 + 1);
+# Inferencer on the card against the CPU's at INFER_TOL; the CLI jobs as
+# subprocesses.
+A9C_BATCHES, A9C_PASSES = 8, 2
+A9C_PRE_AT = (1, 3)
+PRUNE_STEPS = 10
+# largest |card - CPU| of the demo's softmax outputs on one batch of 64:
+# float32 and int8 (dequantized float32 weights) as the first step's
+# kernels allow; bf16 a few bf16 steps (2^-8) of a probability, the
+# LSTM's outputs stored in bf16 on both devices
+INFER_TOL = {"float32": 1e-4, "bfloat16": 3e-2, "int8": 1e-4}
+CLI_TIME_BATCHES = 12
+
+
+def a9c_first_update(torch, dev, data, start):
+    """grad_accum_steps=2 on the sentiment demo, micro-batches by hand
+    (``_forward`` / ``_backward`` / ``_update``) on the card, on a CPU
+    witness replaying the card's argmax, and on the card through the
+    one-TF32-pass LSTM build (the control).  Gates: the first
+    micro-batch holds the parameters bit for bit; the applied mean
+    gradient against the witness's within SENT_TOL (the control must
+    fail it); the updated parameters against the demo's Adam applied on
+    the host to the card's own mean gradient, within SENT_TOL.  Against
+    the witness's parameters Adam's first step, lr * g / (|g| + eps),
+    turns the rounding of entries with |g| near eps into up to lr: that
+    reading is reported beside."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_dsl
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    first = tree_leaves(start)
+
+    def run(device, record, argmax=None, ctx=None):
+        tr = SGD(cost=text_dsl.build("sentiment")[0], parameters=start,
+                 update_equation=text_dsl.optimizer("sentiment"),
+                 grad_accum_steps=2, device=device)
+        feeder = DataFeeder(text_dsl.feeding(), device=tr.device)
+        with (ctx or contextlib.nullcontext)(), pool_probe(torch, record,
+                                                           argmax):
+            for i, batch in enumerate(data[:2]):
+                total, _ = tr._forward(feeder(batch))
+                tr._backward(total)
+                if i:
+                    mean = [((s + p.grad) / 2).detach().cpu() for s, p in
+                            zip(tree_leaves(tr.opt_state["gsum"]),
+                                tr._leaves)]
+                tr._update()
+                if not i:
+                    held = all(torch.equal(p.detach().cpu(), w)
+                               for p, w in zip(tr._leaves, first))
+        return [p.detach().cpu() for p in tr._leaves], mean, held
+
+    t0 = time.perf_counter()
+    rec = []
+    card = run(dev, rec)
+    argmax = [r["argmax"] for r in rec]
+    witness = run("cpu", [], argmax)
+    control = run(dev, [], argmax, ctx=lstm_tf32_1x)
+    applied = [w.clone() for w in first]
+    opt = text_dsl.optimizer("sentiment")
+    opt.update(card[1], opt.init(applied), applied)
+    out = {"mean_grad_vs_witness": max(largest_err(card[1], witness[1])),
+           "params_vs_host_adam_on_card_grad": max(largest_err(card[0],
+                                                               applied)),
+           "params_vs_witness": max(largest_err(card[0], witness[0])),
+           "control": {"what": "the LSTMs through the one-TF32-pass build "
+                               "of csrc/lstm.cu, the card's argmax replayed",
+                       "mean_grad_vs_witness":
+                       max(largest_err(control[1], witness[1])),
+                       "params_vs_witness":
+                       max(largest_err(control[0], witness[0]))},
+           "params_held_on_micro_batch_1": card[2], "tolerance": SENT_TOL,
+           "seconds": time.perf_counter() - t0}
+    if not card[2]:
+        fail(f"trainer_a9c: the first micro-batch moved the parameters: "
+             f"{out}")
+    if max(out["mean_grad_vs_witness"],
+           out["params_vs_host_adam_on_card_grad"]) > SENT_TOL \
+            or out["control"]["mean_grad_vs_witness"] <= SENT_TOL:
+        fail(f"trainer_a9c: the first applied update must pass {SENT_TOL} "
+             f"against the CPU and its TF32 control fail it: {out}")
+    return out
+
+
+def a9c_host_recount(torch, specs, states, outs, data):
+    """Each pass's classification error and AUC recounted on the host
+    (the port's evaluators on CPU copies of the card's outputs and the
+    batches' labels): equal to the card's state, exactly."""
+    from paddle_tpu_torch import evaluators as E
+    labels = [torch.tensor([s[1] for s in batch]) for batch in data]
+    got = []
+    for p, (pass_states, pass_outs) in enumerate(zip(states, outs)):
+        ce, auc = pass_states
+        ev = E.Auc()
+        st = ev.init()
+        for o, lab in zip(pass_outs, labels):
+            st = ev.update(st, pred=o, label=lab)
+        host = {"wrong": float(sum(int((o.argmax(-1) != lab).sum())
+                                   for o, lab in zip(pass_outs, labels))),
+                "total": float(sum(len(b) for b in data)),
+                "auc": ev.result(st)}
+        card = {"wrong": float(ce["wrong"]), "total": float(ce["total"]),
+                "auc": specs[1].impl.result(auc)}
+        if card != host:
+            fail(f"trainer_a9c: pass {p}'s evaluators on the card {card} "
+                 f"against the host recount {host}")
+        got.append({**card,
+                    "classification_error": specs[0].impl.result(ce)})
+    return got
+
+
+def run_trainer_a9c(torch, dev, kernels, seed):
+    """The rest of the trainer on the card (A9·c; see A9C_BATCHES):
+    evaluators with gradient accumulation and background pass-end saves,
+    preemption by a real SIGTERM and its resume, pruning, Inferencer,
+    and the CLI's time / checkgrad / merge_model / version jobs."""
+    import io
+    import os
+    import signal
+    import subprocess
+    import tempfile
+    from paddle_tpu_torch import evaluators as E
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_dsl
+    from paddle_tpu_torch.trainer import (SGD, Inferencer, cli, events,
+                                          load_checkpoint, load_merged)
+    from paddle_tpu_torch.version import __version__
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    lk = kernels.lstm
+    root = os.path.dirname(os.path.abspath(__file__))
+    feeding = text_dsl.feeding()
+    data = list(text_dsl.config("sentiment", n_batches=A9C_BATCHES)
+                ["train_reader"]())
+    start = host_tree(SGD(cost=text_dsl.build("sentiment")[0],
+                          update_equation=text_dsl.optimizer(),
+                          seed=seed, device="cpu").parameters)
+    first = a9c_first_update(torch, dev, data, start)
+
+    def lstm_launches():
+        return {lk.NAME_FWD: lk.launches_fwd, lk.NAME_BWD: lk.launches_bwd}
+
+    def leaves_host(tr):
+        return [p.detach().cpu().clone() for p in tree_leaves(tr.parameters)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # evaluators, accumulation and the background writer
+    cost, out = text_dsl.build("sentiment")
+    label = L.Topology(cost).data_layers["label"]
+    tr = SGD(cost, parameters=start, update_equation=text_dsl.optimizer(),
+             evaluators=[E.classification_error_evaluator(out, label),
+                         E.auc_evaluator(out, label)],
+             grad_accum_steps=2, device=dev)
+    rec = {"ms": [], "launches": [], "outs": [], "pass_s": [], "snap": [],
+           "states": []}
+
+    def handler(e):
+        if isinstance(e, events.BeginPass):
+            torch.cuda.synchronize()
+            rec["outs"].append([])
+            rec["t_pass"] = time.perf_counter()
+        elif isinstance(e, events.BeginIteration):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            rec["t0"] = time.perf_counter()
+        elif isinstance(e, events.EndIteration):
+            float(e.cost)                           # a synchronize
+            rec["ms"].append((time.perf_counter() - rec["t0"]) * 1e3)
+            lstm = (lk.launches_fwd, lk.launches_bwd)
+            rec["launches"].append(lstm + (
+                sum(launch_counts(kernels).values())
+                + recurrent_launches(kernels) - sum(lstm),))
+            rec["outs"][-1].append(e.evaluator_results["extra_0"].cpu())
+        elif isinstance(e, events.EndPass):
+            torch.cuda.synchronize()
+            rec["pass_s"].append(time.perf_counter() - rec["t_pass"])
+            rec["snap"].append(leaves_host(tr))
+            rec["states"].append([{k: v.clone() for k, v in s.state.items()}
+                                  for s in tr.evaluators])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "sentiment")
+        tr.train(lambda: iter(data), num_passes=A9C_PASSES,
+                 event_handler=handler, feeding=feeding, save_dir=save,
+                 log_period=A9C_BATCHES // 2)
+        if any(n != (3, 3, 0) for n in rec["launches"]):
+            fail(f"trainer_a9c: per-micro-batch (lstm forward, lstm "
+                 f"backward, other) launches {rec['launches']}, want (3, 3, "
+                 "0) every micro-batch")
+        if tr.opt_state["inner"]["step"] != A9C_PASSES * A9C_BATCHES // 2:
+            fail(f"trainer_a9c: {tr.opt_state['inner']['step']} optimizer "
+                 "steps after the passes")
+        recount = a9c_host_recount(torch, tr.evaluators, rec["states"],
+                                   rec["outs"], data)
+        # every pass dir, written in the background, reloads equal to the
+        # parameters at that pass end
+        for p, snap in enumerate(rec["snap"]):
+            params, _, _, meta = load_checkpoint(save, p)
+            host = [torch.tensor(np.asarray(a))
+                    for a in (params[k][n] for k in sorted(params)
+                              for n in sorted(params[k]))]
+            if not same(host, snap) or meta["grad_accum_steps"] != 2:
+                fail(f"trainer_a9c: pass dir {p} (background writer) does "
+                     "not reload equal to its pass end's parameters")
+        # one more pass with the pass-end save forced to block
+        async_save = tr.save
+        tr.save = lambda *a, **kw: async_save(*a, **{**kw, "block": True})
+        rec["outs"], async_pass_s = [], rec["pass_s"][-1]
+        tr.train(lambda: iter(data), num_passes=1, event_handler=handler,
+                 feeding=feeding, save_dir=os.path.join(tmp, "blocking"),
+                 log_period=0)
+        del tr.save
+        if any(n != (3, 3, 0) for n in rec["launches"]):
+            fail(f"trainer_a9c: the blocking pass's launches "
+                 f"{rec['launches']}")
+        accum_launches = {lk.NAME_FWD: sum(n[0] for n in rec["launches"]),
+                          lk.NAME_BWD: sum(n[1] for n in rec["launches"])}
+        ms = float(np.median(rec["ms"][2:A9C_PASSES * A9C_BATCHES]))
+        writer = {"pass_s_block_false": async_pass_s,
+                  "pass_s_block_true": rec["pass_s"][-1],
+                  "pass_dirs_reload_equal": True}
+
+        # the CLI jobs as subprocesses on the card
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+        def job(*argv):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "paddle_tpu_torch", *argv,
+                 "--device", dev.type], cwd=root, env=env,
+                capture_output=True, text=True, timeout=600)
+            return run, time.perf_counter() - t0
+
+        lstm_cfg = ("--config", os.path.join(root, SENTIMENT_CLI_CONFIG))
+        run, t_s = job("time", *lstm_cfg, "--config_args",
+                       f"model=lstm,batches={CLI_TIME_BATCHES}")
+        line = run.stdout.strip().splitlines()[-1] if run.stdout else ""
+        if run.returncode or not line.startswith(
+                f"time: {CLI_TIME_BATCHES - 2} batches"):
+            fail(f"trainer_a9c: the time job exited {run.returncode}: "
+                 f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+        cli_out = {"time": {"line": line, "seconds": t_s}}
+        run, t_s = job("checkgrad", *lstm_cfg, "--config_args",
+                       "model=lstm,batches=1")
+        if run.returncode or not run.stdout.endswith("checkgrad PASSED\n"):
+            fail(f"trainer_a9c: checkgrad exited {run.returncode}: "
+                 f"{run.stdout[-3000:]} {run.stderr[-2000:]}")
+        cli_out["checkgrad"] = {"lines": run.stdout.strip().splitlines(),
+                                "seconds": t_s}
+        # the same job in this process: B9 on its path, float32
+        kernels.reset_launches()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(["checkgrad", *lstm_cfg, "--config_args",
+                           "model=lstm,batches=1", "--device", dev.type])
+        checkgrad_launches = lstm_launches()
+        if rc or not all(checkgrad_launches.values()):
+            fail(f"trainer_a9c: checkgrad in process exited {rc}, LSTM "
+                 f"launches {checkgrad_launches}: {text.getvalue()}")
+        merged = os.path.join(tmp, "merged.npz")
+        run, t_s = job("merge_model", "--model_dir", save, "--out", merged)
+        params, _, meta = load_merged(merged) if not run.returncode \
+            else (None, None, None)
+        if run.returncode or not same(
+                [torch.tensor(np.asarray(params[k][n]))
+                 for k in sorted(params) for n in sorted(params[k])],
+                rec["snap"][A9C_PASSES - 1]):
+            fail(f"trainer_a9c: merge_model then load_merged does not give "
+                 f"back the trained parameters: {run.stderr[-2000:]}")
+        cli_out["merge_model"] = {"meta_pass_id": meta["pass_id"],
+                                  "seconds": t_s, "bit_for_bit": True}
+        run, t_s = job("version")
+        want = [f"paddle_tpu_torch {__version__} (torch {torch.__version__})",
+                f"devices: {torch.cuda.get_device_name(0)}"]
+        if run.returncode or run.stdout.strip().splitlines() != want:
+            fail(f"trainer_a9c: version printed {run.stdout!r}, want {want}")
+        cli_out["version"] = {"lines": want, "seconds": t_s}
+
+    # preemption by a real signal
+    def sentiment_sgd():
+        return SGD(text_dsl.build("sentiment")[0], parameters=start,
+                   update_equation=text_dsl.optimizer(), device=dev)
+
+    def train(t, **kw):
+        kernels.reset_launches()
+        t.train(lambda: iter(data), num_passes=A9C_PASSES, feeding=feeding,
+                log_period=0, **kw)
+        return lstm_launches()
+
+    def dist(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    # three uninterrupted runs: their largest pairwise distance is the
+    # card's own spread (0 where every op is deterministic)
+    pre_launches = []
+    whole = []
+    for _ in range(3):
+        t = sentiment_sgd()
+        pre_launches.append(train(t))
+        whole.append(leaves_host(t))
+    spread = max(dist(a, b) for i, a in enumerate(whole)
+                 for b in whole[i + 1:])
+    prev = signal.getsignal(signal.SIGTERM)
+
+    def sigterm(e):
+        if isinstance(e, events.EndIteration) \
+                and (e.pass_id, e.batch_id) == A9C_PRE_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cut = sentiment_sgd()
+        pre_launches.append(train(cut, save_dir=tmp, event_handler=sigterm))
+        with open(os.path.join(tmp, f"pass-{A9C_PRE_AT[0]:05d}",
+                               "meta.json")) as f:
+            meta = json.load(f)
+        want = {"preempted": True, "signal": int(signal.SIGTERM),
+                "batches_done": A9C_PRE_AT[1] + 1}
+        if {k: meta.get(k) for k in want} != want \
+                or signal.getsignal(signal.SIGTERM) != prev:
+            fail(f"trainer_a9c: the preemption checkpoint's meta {meta} "
+                 f"(want {want}), or the SIGTERM handler was not put back")
+        resumed = sentiment_sgd()
+        began = []
+        pre_launches.append(train(
+            resumed, save_dir=tmp, resume=True,
+            event_handler=lambda e: began.append((e.pass_id, e.batch_id))
+            if isinstance(e, events.BeginIteration) else None))
+    # the resume against the nearest uninterrupted run: bit for bit, or
+    # within the runs' own spread
+    resume_err = min(dist(leaves_host(resumed), w) for w in whole)
+    if began[:1] != [(A9C_PRE_AT[0], A9C_PRE_AT[1] + 1)] \
+            or resume_err > spread:
+        fail(f"trainer_a9c: the resume began at {began[:1]} and ends "
+             f"{resume_err} from the nearest uninterrupted run (their "
+             f"spread: {spread})")
+    preemption = {"meta": meta, "resumed_at": began[0],
+                  "uninterrupted_spread": spread,
+                  "resume_max_abs_diff": resume_err,
+                  "bit_for_bit": resume_err == 0.0 and spread == 0.0,
+                  "launches_per_run": pre_launches}
+    if spread:
+        # the leaves two first steps on the card already disagree on
+        grads = []
+        for _ in range(2):
+            t = sentiment_sgd()
+            total, _ = t._forward(DataFeeder(feeding, device=dev)(data[0]))
+            t._backward(total)
+            grads.append([p.grad.detach().cpu() for p in t._leaves])
+        names = [f"{k}/{n}" for k in sorted(start) for n in sorted(start[k])]
+        preemption["first_step_grads_differing"] = [
+            name for name, a, b in zip(names, *grads)
+            if not torch.equal(a, b)]
+
+    # inference on the card against the CPU, on the start's weights (the
+    # trained ones saturate the demo's softmax on these batches)
+    inference = {}
+    infer_launches = {lk.NAME_FWD: 0, lk.NAME_BWD: 0}
+    for mode, kw in (("float32", {}),
+                     ("bfloat16", {"compute_dtype": torch.bfloat16}),
+                     ("int8", {"quantize": "int8"})):
+        outl = text_dsl.build("sentiment")[1]
+        inf = Inferencer(outl, start, device=dev, **kw)
+        kernels.reset_launches()
+        card = inf.infer(data[0], feeding=feeding)
+        for k, n in lstm_launches().items():
+            infer_launches[k] += n
+        ref_inf = Inferencer(outl, start, device="cpu", **kw)
+        ref = ref_inf.infer(data[0], feeding=feeding)
+        err = float((card.cpu() - ref).abs().max())
+        inference[mode] = {"max_abs_err": err, "tolerance": INFER_TOL[mode],
+                           "dtype": str(card.dtype)}
+        if mode == "int8":
+            codes = all(torch.equal(a.cpu(), b) for a, b in zip(
+                tree_leaves(inf._exec_params),
+                tree_leaves(ref_inf._exec_params)))
+            inference[mode]["codes_scales_bit_for_bit"] = codes
+            if not codes:
+                fail("trainer_a9c: the int8 codes or scales differ between "
+                     "the card and the CPU")
+        if err > INFER_TOL[mode] or card.dtype != torch.float32:
+            fail(f"trainer_a9c: Inferencer {mode} on the card against the "
+                 f"CPU: {inference[mode]}")
+
+    # pruning: quick_start's lstm_net, both weights hooked
+    L.reset_names()
+    words = L.data_layer("words", size=text_dsl.DICT_DIM, is_seq=True)
+    qlabel = L.data_layer("label", size=1)
+
+    def hook():
+        return {"update_hooks": {"type": "pruning", "sparsity_ratio": 0.5}}
+    lstm = L.networks.simple_lstm(L.embedding_layer(words, size=128),
+                                  size=128, mat_param_attr=hook(),
+                                  inner_param_attr=hook())
+    qcost = L.classification_cost(L.fc_layer(L.pooling_layer(
+        lstm, pooling_type=L.pooling.Max), size=2, act="softmax"), qlabel)
+    pruned = SGD(qcost, update_equation=text_dsl.optimizer("lstm"),
+                 seed=seed, device=dev)
+    qs_data = list(text_dsl.config("lstm", n_batches=PRUNE_STEPS)
+                   ["train_reader"]())
+    qs_times, qs_losses, prune_launches = sgd_pass(
+        torch, kernels, pruned, qs_data, feeding, "trainer_a9c pruning",
+        per_step=(1, 1))
+    prune = {}
+    for key, mask in pruned._prune_masks.items():
+        for name, m in mask.items():
+            if bool((m == 1).all()):
+                continue
+            w = pruned.parameters[key][name].detach()
+            nonzero = int(torch.count_nonzero(w[m == 0]))
+            prune[f"{key}/{name}"] = {"shape": list(w.shape),
+                                      "pruned": int((m == 0).sum()),
+                                      "pruned_nonzero": nonzero}
+            if nonzero:
+                fail(f"trainer_a9c: {nonzero} pruned entries of {key}/{name} "
+                     f"are not 0.0 after {PRUNE_STEPS} steps")
+    if len(prune) != 2:
+        fail(f"trainer_a9c: pruning masks on {sorted(prune)}, want the "
+             "input projection and the LSTM's W_r")
+
+    launches = {
+        "trainer_a9c_accum": accum_launches,
+        "trainer_a9c_preemption": {k: sum(n[k] for n in pre_launches)
+                                   for k in (lk.NAME_FWD, lk.NAME_BWD)},
+        "trainer_a9c_pruning": prune_launches,
+        "trainer_a9c_inference": infer_launches,
+        "trainer_a9c_checkgrad": checkgrad_launches}
+    emit({"phase": "trainer_a9c", "config": {
+        "sentiment": "demo/sentiment stacked_lstm_net (models/text_dsl: hid "
+                     "128, emb 128), Adam lr 0.002 l2 1e-4 clip_norm 5, "
+                     f"batch {text_dsl.BATCH}",
+        "evaluators": ["classification_error_evaluator", "auc_evaluator"],
+        "grad_accum_steps": 2, "passes": A9C_PASSES,
+        "micro_batches_a_pass": A9C_BATCHES,
+        "pruning": "demo/quick_start lstm_net rebuilt with networks."
+                   "simple_lstm(mat_param_attr=, inner_param_attr=) "
+                   "{'type': 'pruning', 'sparsity_ratio': 0.5}, Adam lr 0.002",
+        "preempt_at": list(A9C_PRE_AT)},
+        "first_applied_update_vs_cpu": first,
+        "ms_per_batch": ms,
+        "ms_per_batch_train_sentiment": F32_MS.get("train_sentiment"),
+        "evaluators": recount, "background_writer": writer,
+        "preemption": preemption, "inference": inference,
+        "pruning": {"steps": PRUNE_STEPS, "weights": prune,
+                    "ms_per_batch": float(np.median(qs_times[2:])),
+                    "losses": qs_losses},
+        "cli": cli_out, "launches": launches,
+        "launches_per_micro_batch": {lk.NAME_FWD: 3, lk.NAME_BWD: 3},
+        "launches_per_pruned_step": {lk.NAME_FWD: 1, lk.NAME_BWD: 1}})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7159,6 +7642,7 @@ def main(argv=None):
     run_train_recommendation(torch, dev, kernels)
     run_train_vgg_cifar(torch, dev, kernels)
     text_launches = run_train_sentiment(torch, dev, kernels, args.seed)
+    a9c_launches = run_trainer_a9c(torch, dev, kernels, args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -7225,7 +7709,8 @@ def main(argv=None):
                           (lstm_bwd, kernels.lstm.REPLACES_BWD)):
         name = row["name"]
         by_path = {"train": train_launches[name],
-                   **{path: n[name] for path, n in text_launches.items()}}
+                   **{path: n[name] for path, n in text_launches.items()},
+                   **{path: n[name] for path, n in a9c_launches.items()}}
         summary.append({
             "name": name, "route": "cuda",
             "source": kernels.lstm.SOURCE, "replaces": replaces,

@@ -13,4 +13,4 @@ they are handed: a CUDA tensor launches the hand-written Hopper kernel
 (``ops/kernels``), a CPU tensor takes its plain PyTorch version.
 """
 
-__version__ = "0.1.0"
+from paddle_tpu_torch.version import __version__  # noqa: F401

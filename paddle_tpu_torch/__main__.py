@@ -1,5 +1,6 @@
-"""``python -m paddle_tpu_torch train|test --config cfg.py``: the
-trainer CLI (``trainer/cli.py``)."""
+"""``python -m paddle_tpu_torch
+train|test|time|checkgrad|merge_model|version``: the trainer CLI
+(``trainer/cli.py``)."""
 
 import sys
 

@@ -1,11 +1,14 @@
-"""Training driver (``paddle_tpu/trainer``): ``SGD``, its event stream,
-checkpoints in the JAX trainer's format, and the ``train`` / ``test``
-CLI.  ``Trainer``, ``Inferencer``, the pruning hooks and
-``merge_model`` wait for ROADMAP A9·c."""
+"""Training driver (``paddle_tpu/trainer``): ``SGD`` / ``Trainer``, its
+event stream, ``Inferencer`` / ``infer``, checkpoints in the JAX
+trainer's format (with its background writer and ``merge_model``), the
+pruning hooks and the ``train`` / ``test`` / ``time`` / ``checkgrad`` /
+``merge_model`` / ``version`` CLI."""
 
+from paddle_tpu_torch.trainer.trainer import SGD, Trainer, Inferencer, infer
 from paddle_tpu_torch.trainer import events
-from paddle_tpu_torch.trainer.checkpoint import (load_checkpoint,
-                                                 save_checkpoint)
-from paddle_tpu_torch.trainer.trainer import SGD
+from paddle_tpu_torch.trainer.checkpoint import (
+    save_checkpoint, load_checkpoint, merge_model, load_merged)
 
-__all__ = ["SGD", "events", "save_checkpoint", "load_checkpoint"]
+__all__ = ["SGD", "Trainer", "Inferencer", "infer", "events",
+           "save_checkpoint", "load_checkpoint", "merge_model",
+           "load_merged"]

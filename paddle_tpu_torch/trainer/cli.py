@@ -1,11 +1,18 @@
-"""CLI driver: ``python -m paddle_tpu_torch train|test``
+"""CLI driver: ``python -m paddle_tpu_torch
+train|test|time|checkgrad|merge_model|version``
 (``paddle_tpu/trainer/cli.py``; reference trainer/TrainerMain.cpp).
 
 Usage:
   python -m paddle_tpu_torch train --config my_config.py [--num_passes N]
        [--save_dir DIR] [--config_args k=v,...] [--device cpu|cuda]
        [--dtype auto|float32|bfloat16] [--quant-train]
+       [--grad_accum_steps N]
   python -m paddle_tpu_torch test --config my_config.py --model_dir DIR
+  python -m paddle_tpu_torch time --config my_config.py [--num_batches N]
+       [--warmup W]
+  python -m paddle_tpu_torch checkgrad --config my_config.py [--eps E]
+  python -m paddle_tpu_torch merge_model --model_dir DIR --out model.npz
+  python -m paddle_tpu_torch version
 
 The config file is a Python script defining ``get_config()`` returning a
 dict, with ``CONFIG_ARGS`` (the parsed ``--config_args``) in its
@@ -14,10 +21,12 @@ namespace:
    "train_reader": reader, "test_reader": reader (optional),
    "feeding": {name: InputType}, "save_dir": DIR (optional)}
 Layers are built with ``paddle_tpu_torch.layers``.  The job runs on the
-card unless ``--device cpu``.  v1 ``trainer_config_helpers`` configs
-(``settings()`` / ``outputs()``) wait for ROADMAP A11; the JAX CLI's
-mesh, prefetch, profiling and ``time`` / ``checkgrad`` / ``merge_model``
-jobs wait for their items.  ``--dtype`` is the JAX CLI's: any value but
+card unless ``--device cpu``, each job (``version`` names the device,
+``merge_model`` touches none) included.  v1 ``trainer_config_helpers``
+configs (``settings()`` / ``outputs()``) wait for ROADMAP A11; the JAX
+CLI's mesh, prefetch and profiling flags wait for their items.
+``time`` synchronizes the card after each step; ``checkgrad`` exits 1
+on a mismatch.  ``--dtype`` is the JAX CLI's: any value but
 auto sets the process's compute policy (``core/dtypes.set_policy``),
 and bfloat16 also casts the parameters and the feed at the step
 boundary (``SGD(compute_dtype=torch.bfloat16)``); the masters, the
@@ -27,6 +36,7 @@ optimizer and the checkpoints stay float32.
 import argparse
 import runpy
 import sys
+import time
 
 from paddle_tpu_torch.utils.error import ConfigError
 
@@ -61,12 +71,15 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch")
     sub = parser.add_subparsers(dest="job", required=True)
 
+    def add_device(p):
+        p.add_argument("--device", default=None, choices=["cpu", "cuda"],
+                       help="where the job runs (default: the card)")
+
     def add_common(p):
         p.add_argument("--config", required=True)
         p.add_argument("--config_args", default="",
                        help="k=v,k=v passed to the config script")
-        p.add_argument("--device", default=None, choices=["cpu", "cuda"],
-                       help="where the job runs (default: the card)")
+        add_device(p)
         p.add_argument("--dtype", default="auto",
                        choices=["auto", "float32", "bfloat16"],
                        help="compute dtype for forward+backward; master "
@@ -79,6 +92,10 @@ def main(argv=None):
     t = sub.add_parser("train")
     add_common(t)
     t.add_argument("--num_passes", type=int, default=1)
+    t.add_argument("--grad_accum_steps", type=int, default=1,
+                   help="sum grads over N micro-batches, apply their mean "
+                        "every Nth step (large effective batch in fixed "
+                        "memory)")
     t.add_argument("--save_dir", default=None)
     t.add_argument("--saving_period", type=int, default=1)
     t.add_argument("--save_only_one", action="store_true")
@@ -98,8 +115,78 @@ def main(argv=None):
     te.add_argument("--model_dir", required=True)
     te.add_argument("--test_pass", type=int, default=None)
 
+    tm = sub.add_parser("time",
+                        help="time the train step (reference --job=time, "
+                             "TrainerBenchmark.cpp): warm up, then report "
+                             "ms/batch over --num_batches")
+    add_common(tm)
+    tm.add_argument("--num_batches", type=int, default=20)
+    tm.add_argument("--warmup", type=int, default=2)
+
+    cg = sub.add_parser("checkgrad",
+                        help="finite-difference gradient check "
+                             "(reference --job=checkgrad)")
+    cg.add_argument("--config", required=True)
+    cg.add_argument("--config_args", default="")
+    add_device(cg)
+    cg.add_argument("--eps", type=float, default=1e-3)
+
+    m = sub.add_parser("merge_model")
+    m.add_argument("--model_dir", required=True)
+    m.add_argument("--out", required=True)
+    m.add_argument("--pass_id", type=int, default=None)
+    add_device(m)
+
+    v = sub.add_parser("version")
+    add_device(v)
+
     args = parser.parse_args(argv)
+
+    from paddle_tpu_torch import device as _device
+    dev = _device.resolve(args.device)
+
+    if args.job == "version":
+        import torch
+        from paddle_tpu_torch.version import __version__
+        print(f"paddle_tpu_torch {__version__} (torch {torch.__version__})",
+              flush=True)
+        print(f"devices: {torch.cuda.get_device_name(dev)}"
+              if dev.type == "cuda" else "devices: cpu")
+        return 0
+
+    if args.job == "merge_model":
+        from paddle_tpu_torch.trainer.checkpoint import merge_model
+        print("wrote", merge_model(args.model_dir, args.out, args.pass_id))
+        return 0
+
     cfg = _load_config(args.config, _parse_config_args(args.config_args))
+
+    from paddle_tpu_torch.data.feeder import DataFeeder
+
+    def feeder():
+        feeding = cfg.get("feeding")
+        if isinstance(feeding, DataFeeder) or not feeding:
+            return feeding
+        return DataFeeder(feeding, device=dev)
+
+    if args.job == "checkgrad":
+        from paddle_tpu_torch.layers.graph import Topology
+        from paddle_tpu_torch.testing import check_topology_grads
+        batch = next(iter(cfg["train_reader"]()))
+        fd = feeder()
+        costs = cfg["cost"]
+        topo = Topology(costs if isinstance(costs, (list, tuple))
+                        else [costs])
+        results = check_topology_grads(topo, fd(batch) if fd else batch,
+                                       device=dev, eps=args.eps,
+                                       raise_on_fail=False)
+        bad = False
+        for path, err, ok in results:
+            print(f"  {path}: max rel err {err:.3g}"
+                  + ("" if ok else "  MISMATCH"))
+            bad = bad or not ok
+        print("checkgrad FAILED" if bad else "checkgrad PASSED")
+        return 1 if bad else 0
 
     import torch
 
@@ -119,8 +206,9 @@ def main(argv=None):
                   evaluators=cfg.get("evaluators"),
                   compute_dtype=(torch.bfloat16 if args.dtype == "bfloat16"
                                  else None),
+                  grad_accum_steps=getattr(args, "grad_accum_steps", 1),
                   quant_weights=getattr(args, "quant_train", False),
-                  device=args.device)
+                  device=dev)
 
     if args.job == "train":
         save_dir = args.save_dir or cfg.get("save_dir")
@@ -130,7 +218,7 @@ def main(argv=None):
                                  "save_dir in the config)")
             trainer.load(save_dir, args.start_pass - 1)
         trainer.train(cfg["train_reader"], num_passes=args.num_passes,
-                      feeding=cfg.get("feeding"), save_dir=save_dir,
+                      feeding=feeder(), save_dir=save_dir,
                       saving_period=args.saving_period,
                       save_only_one=args.save_only_one,
                       test_reader=cfg.get("test_reader"),
@@ -140,10 +228,43 @@ def main(argv=None):
                       args.show_parameter_stats_period)
         return 0
 
-    trainer.load(args.model_dir, args.test_pass)
-    cost = trainer.test(cfg.get("test_reader") or cfg["train_reader"],
-                        feeding=cfg.get("feeding"))
-    print(f"test cost: {cost:.5f}")
+    if args.job == "test":
+        trainer.load(args.model_dir, args.test_pass)
+        cost = trainer.test(cfg.get("test_reader") or cfg["train_reader"],
+                            feeding=feeder())
+        print(f"test cost: {cost:.5f}")
+        return 0
+
+    # time
+    fd = feeder()
+    batches = []
+    for b in cfg["train_reader"]():
+        batches.append(b)
+        if len(batches) >= args.num_batches + args.warmup:
+            break
+    if len(batches) <= args.warmup:
+        print(f"time: need more than --warmup={args.warmup} batches, "
+              f"reader yielded {len(batches)}", file=sys.stderr)
+        return 2
+    durs = []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        trainer.train_one_batch(b, feeder=fd)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)     # real step time, not enqueue
+        if i >= args.warmup:
+            durs.append((time.perf_counter() - t0) * 1e3)
+    durs.sort()
+    n = len(durs)
+    if n < 100:
+        # with few samples a "p99" is just the max
+        print(f"time: {n} batches  min={durs[0]:.2f}ms  "
+              f"mean={sum(durs) / n:.2f}ms  max={durs[-1]:.2f}ms")
+    else:
+        import numpy as np
+        p50, p90, p99 = np.percentile(durs, [50, 90, 99])
+        print(f"time: {n} batches  p50={p50:.2f}ms  p90={p90:.2f}ms  "
+              f"p99={p99:.2f}ms  mean={sum(durs) / n:.2f}ms")
     return 0
 
 

@@ -40,13 +40,39 @@ checkpoints stay float32 and unchanged.  The products of
 (``core/dtypes.set_policy``), which the CLI's ``--dtype`` sets beside
 it, as the JAX CLI does.
 
+``evaluators=`` (``evaluators.dsl`` specs) fetch their bound layers as
+extra outputs; the specs update every batch from tensors on the device
+(no host sync), reset at each pass, and their ``result()`` rides on the
+log line every ``log_period`` and at pass end.  ``grad_accum_steps=N``
+wraps the optimizer state as JAX's does, ``{"inner", "gsum", "tick"}``:
+the gradients sum over N micro-batches and the optimizer applies their
+mean on every Nth, so checkpoints written mid-accumulation by either
+package resume in the other.  Pruning ``update_hooks`` (``hooks.py``)
+mask the parameter values at init and after ``load``, and every step's
+gradients before the optimizer (and before the accumulation).
+
+``train(save_on_signal=True)`` (with ``save_dir``, on the main thread)
+turns SIGTERM into a graceful stop: the current batch finishes, a
+blocking checkpoint with ``preempted`` and ``batches_done`` in its meta
+is written, and ``train`` returns; ``train(resume=True)`` re-enters that
+pass skipping exactly the trained batches (no step, no dropout draw).
+Pass-end saves run on the background writer
+(``checkpoint.save_checkpoint(block=False)``), landed before ``train``
+returns.  The port's dropout generator is not in the checkpoint (the
+meta's ``rng`` is JAX's PRNG key; the port writes null, which JAX
+skips), so a config with dropout resumes from its seed's stream.
+
+``Inferencer`` / ``infer`` run a topology in test mode, optionally in
+bf16 (``compute_dtype``; outputs returned float32) or over int8 weights
+(``quantize="int8"``, a copy of JAX's ``export.quantize_params``).
+``Trainer`` is ``SGD``.
+
 Settings whose machinery is not ported raise ``ConfigError`` naming
-their ROADMAP item: ``mesh`` / ``sharding_rules`` (A12), ``evaluators``
-(A9·c), ``grad_accum_steps > 1`` and pruning hooks (A9·c),
-sparse-update embeddings and ``prefetch > 0`` (A9·f), ``save_on_signal``
-and resuming from a preemption checkpoint (A9·c).
+their ROADMAP item: ``mesh`` / ``sharding_rules`` (A12), sparse-update
+embeddings and ``prefetch > 0`` (A9·f).
 """
 
+import signal
 import time
 
 import numpy as np
@@ -61,8 +87,9 @@ from paddle_tpu_torch.layers.graph import Topology, params_from_numpy, \
     value_data
 from paddle_tpu_torch.quant import weights as qw
 from paddle_tpu_torch.trainer import events
-from paddle_tpu_torch.trainer.checkpoint import save_checkpoint, \
-    load_checkpoint
+from paddle_tpu_torch.trainer import hooks as param_hooks
+from paddle_tpu_torch.trainer.checkpoint import load_checkpoint, \
+    save_checkpoint, wait_pending
 from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.logging import logger
 from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -101,7 +128,8 @@ class SGD:
     cost: LayerOutput (or list) whose value is a per-sample loss [B].
     update_equation: an ``optim`` optimizer (Momentum, Adam).
     extra_layers: more LayerOutputs to evaluate each batch; their values
-    ride on the EndIteration events.  device: the card unless "cpu".
+    ride on the EndIteration events.  evaluators: ``evaluators.dsl``
+    specs.  device: the card unless "cpu".
     """
 
     def __init__(self, cost, parameters=None, update_equation=None,
@@ -111,6 +139,9 @@ class SGD:
                  quant_weights=False, quant_min_size=1024, device=None):
         self._quant = bool(quant_weights)
         self._quant_min_size = int(quant_min_size)
+        self.grad_accum_steps = int(grad_accum_steps)
+        if self.grad_accum_steps < 1:
+            raise ConfigError("grad_accum_steps must be >= 1")
         if self._quant:
             # the JAX trainer's refusals of the int8 mode, before the
             # port's own of the unported settings
@@ -118,7 +149,7 @@ class SGD:
                 raise ConfigError(
                     "quant_weights=True is single-chip for now (sharding "
                     "the int8+scale pair tree is the named residual)")
-            if int(grad_accum_steps) > 1:
+            if self.grad_accum_steps > 1:
                 raise ConfigError(
                     "quant_weights=True with grad_accum_steps > 1 is "
                     "unsupported (the held-grads window would read stale "
@@ -129,10 +160,6 @@ class SGD:
                     "combining it with compute_dtype is unsupported")
         if mesh is not None or sharding_rules is not None:
             _refuse("a mesh (sharded training)", "A12")
-        if evaluators:
-            _refuse("evaluators", "A9·c")
-        if int(grad_accum_steps) != 1:
-            _refuse("grad_accum_steps > 1", "A9·c")
         if update_equation is None:
             raise ValueError("SGD needs update_equation=, e.g. "
                              "optim.Momentum(learning_rate=0.01)")
@@ -142,6 +169,25 @@ class SGD:
         self.device = _device.resolve(device)
         self.costs = cost if isinstance(cost, (list, tuple)) else [cost]
         self.extra_layers = list(extra_layers or [])
+        # evaluator specs: their bound layers are fetched as extra
+        # outputs; labels and weights come straight from the feed
+        self.evaluators = list(evaluators or [])
+        self._eval_slots = []
+        # per spec: {kw: ('feed', name) | ('extra', i)}
+        self._eval_extra_slots = []
+
+        def slot_for(layer):
+            if layer.layer_type == "data":
+                return ("feed", layer.name)
+            if layer in self.extra_layers:
+                return ("extra", self.extra_layers.index(layer))
+            self.extra_layers.append(layer)
+            return ("extra", len(self.extra_layers) - 1)
+
+        for spec in self.evaluators:
+            self._eval_slots.append(slot_for(spec.input))
+            self._eval_extra_slots.append(
+                {kw: slot_for(l) for kw, l in spec.extra_inputs.items()})
         self.topology = Topology(list(self.costs) + self.extra_layers)
         for node in self.topology.order:
             if node.layer_type == "embedding" \
@@ -152,11 +198,6 @@ class SGD:
                         "sparse_update embeddings (row-sliced tables have "
                         "no per-out-channel scale home)")
                 _refuse(f"sparse_update embedding {node.name!r}", "A9·f")
-            pas = node.cfg.get("param_attr")
-            pas = pas if isinstance(pas, (list, tuple)) else [pas]
-            if any(isinstance(p, dict) and p.get("update_hooks")
-                   for p in pas):
-                _refuse(f"update_hooks (pruning) on {node.name!r}", "A9·c")
         self.optimizer = update_equation
         if parameters is None:
             self.parameters = self.topology.init(
@@ -168,6 +209,11 @@ class SGD:
                 if isinstance(a, torch.Tensor) else torch.tensor(
                     np.asarray(a, np.float32), device=self.device),
                 parameters)
+        # static pruning hooks (reference ParameterUpdaterHook.cpp:36):
+        # the values masked once here, the gradients every step
+        self._prune_masks = param_hooks.build_masks(self.topology,
+                                                    self.parameters)
+        self._mask_values()
         self._track()
         # the int8 twin of the masters: only the quantized leaves, keyed
         # by path; rebuilt from the masters after every update
@@ -176,17 +222,38 @@ class SGD:
         self._view = None       # the step's tree, between its forward and
                                 # its update
         self.opt_state = self.optimizer.init(self.parameters)
+        if self.grad_accum_steps > 1:
+            # JAX's accumulation wrapper: the gradient sum and the count
+            # of micro-batches in it (a host int, as the inner "step")
+            self.opt_state = {"inner": self.opt_state,
+                              "gsum": self._zeros_like_params(),
+                              "tick": 0}
         # batch norm's moving stats, threaded through train and test
         self.model_state = self.topology.init_state(self.device)
         # draws of the layers that need them (dropout)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed)
+        self._stop_signal = None
 
     def _track(self):
         self._leaves = tree_leaves(self.parameters)
         for p in self._leaves:
             # in int8 mode the step differentiates its own view
             p.requires_grad_(not self._quant)
+
+    def _zeros_like_params(self):
+        return tree_map(lambda p: torch.zeros_like(p.detach()),
+                        self.parameters)
+
+    def _mask_values(self):
+        """The pruning masks on the parameter values, in place."""
+        if not self._prune_masks:
+            return
+        with torch.no_grad():
+            for key, mask in self._prune_masks.items():
+                for p, m in zip(tree_leaves(self.parameters[key]),
+                                tree_leaves(mask)):
+                    p.mul_(m)
 
     def _requant(self, params):
         """The masters' int8 twin: ``{tree path: {"q", "s"}}`` for every
@@ -263,11 +330,29 @@ class SGD:
 
     def _update(self):
         """The optimizer on the masters with the view's gradients, in
-        place; in int8 mode then the masters' requantization.  The view
+        place, after the pruning masks; under gradient accumulation the
+        gradients join the sum and every Nth micro-batch applies its
+        mean; in int8 mode then the masters' requantization.  The view
         (and with it every dequantized weight) is dropped."""
         grads = tree_map(lambda p: p.grad if p.grad is not None
                          else torch.zeros_like(p), self._view)
         self._view = None
+        grads = param_hooks.apply_masks(grads, self._prune_masks)
+        if self.grad_accum_steps > 1:
+            st = self.opt_state
+            with torch.no_grad():
+                torch._foreach_add_(tree_leaves(st["gsum"]),
+                                    tree_leaves(grads))
+            st["tick"] += 1
+            if st["tick"] < self.grad_accum_steps:
+                return
+            with torch.no_grad():
+                mean = tree_map(lambda s: s / self.grad_accum_steps,
+                                st["gsum"])
+            self.optimizer.update(mean, st["inner"], self.parameters)
+            torch._foreach_zero_(tree_leaves(st["gsum"]))
+            st["tick"] = 0
+            return
         self.optimizer.update(grads, self.opt_state, self.parameters)
         if self._quant:
             self._qtree = self._requant(self.parameters)
@@ -297,24 +382,34 @@ class SGD:
               save_dir=None, saving_period=1, save_only_one=False,
               test_reader=None, test_period=0, log_period=100,
               buffered_batches=4, show_parameter_stats_period=0,
-              save_on_signal=False, prefetch=0, resume=False):
+              save_on_signal=True, prefetch=0, resume=False):
         """reader: callable -> iterator of batches (lists of samples).
         feeding: {data_layer_name: InputType} or a DataFeeder.  A
         checkpoint is written every ``saving_period`` passes to
-        ``save_dir``; ``test_reader`` runs every ``test_period`` passes
-        (every pass at 0).  ``resume``: continue after the latest pass
-        dir in ``save_dir`` (a fresh run when there is none)."""
+        ``save_dir`` (in the background; landed before ``train``
+        returns); ``test_reader`` runs every ``test_period`` passes
+        (every pass at 0).
+
+        resume: continue from the latest pass dir in ``save_dir`` (a
+        fresh run when there is none): after it, or — for a preemption
+        checkpoint — inside its pass, skipping exactly the
+        ``batches_done`` batches it trained (no step, no draw), which is
+        bit-identical to an uninterrupted run when the reader replays
+        the same batches per pass.
+
+        save_on_signal: with ``save_dir`` and on the main thread, SIGTERM
+        requests a graceful stop: the current batch finishes, a blocking
+        checkpoint with ``preempted: true``, the signal and
+        ``batches_done`` is written, and ``train`` returns.  The previous
+        handler is put back on the way out."""
         if prefetch:
             _refuse("prefetch > 0 (the device-side input pipeline)",
                     "A9·f")
-        if save_on_signal:
-            _refuse("save_on_signal (SIGTERM preemption checkpoints)",
-                    "A9·c")
         event_handler = event_handler or (lambda e: None)
         if feeding is not None and not isinstance(feeding, DataFeeder):
             feeding = DataFeeder(feeding, device=self.device)
 
-        first_pass = 0
+        first_pass, resume_skip = 0, 0
         if resume:
             if not save_dir:
                 raise ConfigError("train(resume=True) needs save_dir=")
@@ -323,49 +418,147 @@ class SGD:
             except FileNotFoundError:
                 meta = None     # nothing saved yet: a fresh run
             if meta is not None:
-                first_pass = int(meta["pass_id"]) + 1
-                logger.info("resume: loaded pass %d from %s; continuing at "
-                            "pass %d", meta["pass_id"], save_dir, first_pass)
+                if meta.get("preempted") \
+                        and meta.get("batches_done") is not None:
+                    # MID-pass: re-enter that pass, skipping the trained
+                    # prefix, so the remainder replays bit-identically
+                    first_pass = int(meta["pass_id"])
+                    resume_skip = int(meta["batches_done"])
+                else:
+                    first_pass = int(meta["pass_id"]) + 1
+                logger.info("resume: loaded pass %d from %s%s; continuing "
+                            "at pass %d%s", meta["pass_id"], save_dir,
+                            " (preemption checkpoint)"
+                            if meta.get("preempted") else "", first_pass,
+                            f" batch {resume_skip}" if resume_skip else "")
 
-        for pass_id in range(first_pass, num_passes):
-            event_handler(events.BeginPass(pass_id))
-            batch_reader = reader_mod.buffered(reader, buffered_batches) \
-                if buffered_batches else reader
-            cost_sum = torch.zeros((), device=self.device)
-            n_batches, window = 0, []
-            t0 = time.time()
-            for batch_id, batch in enumerate(batch_reader()):
-                event_handler(events.BeginIteration(pass_id, batch_id))
-                cost, extras = self._step(self._feed(batch, feeding))
-                cost_sum = cost_sum + cost
-                n_batches += 1
-                if log_period:
-                    window.append(cost)
-                if log_period and (batch_id + 1) % log_period == 0:
-                    c = float(torch.stack(window).mean())
-                    window = []
-                    logger.info("Pass %d Batch %d Cost %.5f (%.1f ms/batch)",
-                                pass_id, batch_id + 1, c,
-                                (time.time() - t0) / log_period * 1e3)
-                    t0 = time.time()
-                if (show_parameter_stats_period and (batch_id + 1)
-                        % show_parameter_stats_period == 0):
-                    self.log_parameter_stats()
-                event_handler(events.EndIteration(
-                    pass_id, batch_id, cost=cost,
-                    evaluator_results={f"extra_{i}": e
-                                       for i, e in enumerate(extras)}))
-            pass_cost = float(cost_sum) / n_batches if n_batches \
-                else float("nan")
-            logger.info("Pass %d done, mean cost %.5f", pass_id, pass_cost)
-            if test_reader is not None and (
-                    not test_period or (pass_id + 1) % test_period == 0):
-                event_handler(events.EndTesting(
-                    pass_id, self.test(test_reader, feeding=feeding)))
-            if save_dir and (pass_id + 1) % saving_period == 0:
-                logger.info("saved checkpoint %s", self.save(
-                    save_dir, pass_id, save_only_one=save_only_one))
-            event_handler(events.EndPass(pass_id))
+        self._stop_signal = None
+        prev_handler, handler_armed = None, False
+        if save_on_signal and save_dir:
+            def request_stop(signum, frame):
+                self._stop_signal = signum
+                logger.info("SIGTERM: finishing current batch, then "
+                            "checkpointing to %s", save_dir)
+            try:
+                prev_handler = signal.signal(signal.SIGTERM, request_stop)
+                handler_armed = True
+            except ValueError:      # not the main thread: feature off
+                prev_handler = None
+
+        def resolve(slot, extras, feed):
+            kind, key = slot
+            return feed.get(key) if kind == "feed" else extras[key]
+
+        def update_evaluators(extras, feed):
+            for spec, slot, eslots in zip(self.evaluators, self._eval_slots,
+                                          self._eval_extra_slots):
+                lab = feed.get(spec.label.name) \
+                    if spec.label is not None else None
+                wgt = feed.get(spec.weight.name) \
+                    if spec.weight is not None else None
+                extra = {kw: resolve(s, extras, feed)
+                         for kw, s in eslots.items()}
+                spec.update(resolve(slot, extras, feed), lab, wgt,
+                            extra=extra)
+
+        def eval_log_suffix():
+            parts = []
+            for spec in self.evaluators:
+                r = spec.result()
+                if r is not None:
+                    parts.append(f"{spec.name}={r:.5f}"
+                                 if isinstance(r, float)
+                                 else f"{spec.name}={r}")
+            return (" Eval: " + " ".join(parts)) if parts else ""
+
+        try:
+            for pass_id in range(first_pass, num_passes):
+                event_handler(events.BeginPass(pass_id))
+                for spec in self.evaluators:
+                    spec.reset()
+                batch_reader = reader_mod.buffered(reader, buffered_batches) \
+                    if buffered_batches else reader
+                cost_sum = torch.zeros((), device=self.device)
+                n_batches, window = 0, []
+                # a preemption resume's first pass skips the batches the
+                # checkpoint already trained
+                skip_left, resume_skip = resume_skip, 0
+                pass_skip = skip_left
+                t0 = time.time()
+                batch_id = -1
+                for batch in batch_reader():
+                    batch_id += 1
+                    if skip_left > 0:
+                        skip_left -= 1
+                        continue
+                    event_handler(events.BeginIteration(pass_id, batch_id))
+                    feed = self._feed(batch, feeding)
+                    cost, extras = self._step(feed)
+                    cost_sum = cost_sum + cost
+                    n_batches += 1
+                    if log_period:
+                        window.append(cost)
+                    if self.evaluators:
+                        update_evaluators(extras, feed)
+                    if log_period and (batch_id + 1) % log_period == 0:
+                        c = float(torch.stack(window).mean())
+                        window = []
+                        logger.info("Pass %d Batch %d Cost %.5f (%.1f "
+                                    "ms/batch)%s", pass_id, batch_id + 1, c,
+                                    (time.time() - t0) / log_period * 1e3,
+                                    eval_log_suffix())
+                        t0 = time.time()
+                    if (show_parameter_stats_period and (batch_id + 1)
+                            % show_parameter_stats_period == 0):
+                        self.log_parameter_stats()
+                    event_handler(events.EndIteration(
+                        pass_id, batch_id, cost=cost,
+                        evaluator_results={f"extra_{i}": e
+                                           for i, e in enumerate(extras)}))
+                    if self._stop_signal is not None:
+                        break
+                pass_cost = float(cost_sum) / n_batches if n_batches \
+                    else float("nan")
+                logger.info("Pass %d done, mean cost %.5f%s", pass_id,
+                            pass_cost, eval_log_suffix())
+                if test_reader is not None and self._stop_signal is None \
+                        and (not test_period
+                             or (pass_id + 1) % test_period == 0):
+                    event_handler(events.EndTesting(
+                        pass_id, self.test(test_reader, feeding=feeding)))
+                if save_dir and self._stop_signal is not None:
+                    # the preemption checkpoint: blocking (the process is
+                    # about to be reaped), and batches_done lets
+                    # train(resume=True) re-enter this pass
+                    path = self.save(save_dir, pass_id,
+                                     save_only_one=save_only_one, block=True,
+                                     extra={"preempted": True,
+                                            "signal": int(self._stop_signal),
+                                            "batches_done":
+                                            pass_skip + n_batches})
+                    logger.info("preemption checkpoint %s; stopping after "
+                                "pass %d", path, pass_id)
+                elif save_dir and (pass_id + 1) % saving_period == 0:
+                    # the snapshot is taken now; the disk write overlaps
+                    # the next pass
+                    logger.info("saving checkpoint %s (async)", self.save(
+                        save_dir, pass_id, save_only_one=save_only_one,
+                        block=False))
+                event_handler(events.EndPass(pass_id))
+                if self._stop_signal is not None:
+                    break
+        finally:
+            # land the pending saves and put the handler back, also when
+            # an exception unwinds out of the loop (a leaked handler would
+            # make the process unkillable by SIGTERM)
+            try:
+                if save_dir:
+                    wait_pending(save_dir)
+            finally:
+                if handler_armed:
+                    signal.signal(signal.SIGTERM,
+                                  prev_handler if prev_handler is not None
+                                  else signal.SIG_DFL)
 
     # ------------------------------------------------------------ test
 
@@ -392,25 +585,30 @@ class SGD:
     def save(self, save_dir, pass_id=0, save_only_one=False, block=True,
              extra=None):
         """Write ``save_dir/pass-%05d`` (params, optimizer and model
-        state, meta) in the JAX trainer's format and return its path.
-        The write is synchronous, so ``block`` is met either way."""
+        state, meta) in the JAX trainer's format and return its path;
+        ``block=False`` returns once the host snapshot is taken and
+        writes in the background (``checkpoint.wait_pending``)."""
         extra = dict(extra or {})
-        extra.setdefault("grad_accum_steps", 1)
+        extra.setdefault("grad_accum_steps", self.grad_accum_steps)
+        # JAX's PRNG key: the port's draws come from a torch generator
+        extra.setdefault("rng", None)
         params = self.parameters
         if self._quant and self._qtree:
             # both trees: a resumed step reads the same int8 bytes
             params = {"master": self.parameters, "q": self._qtree}
-        return save_checkpoint(save_dir, pass_id, params,
-                               self.opt_state, self.model_state,
-                               extra=extra, save_only_one=save_only_one)
+        opt_state = self.opt_state
+        if self.grad_accum_steps > 1:
+            opt_state = {**opt_state,
+                         "tick": np.asarray(opt_state["tick"], np.int32)}
+        return save_checkpoint(save_dir, pass_id, params, opt_state,
+                               self.model_state, extra=extra,
+                               save_only_one=save_only_one, block=block)
 
     def load(self, save_dir, pass_id=None):
         """Load a pass dir (the latest if pass_id is None) written by this
         trainer or by the JAX package's; returns its meta."""
         params, opt_state, model_state, meta = load_checkpoint(save_dir,
                                                                pass_id)
-        if meta.get("preempted"):
-            _refuse("resuming a preemption checkpoint", "A9·c")
         bundled = set(params) == {"master", "q"}
         masters = params["master"] if bundled else params
         self.parameters = params_from_numpy(self.topology, masters,
@@ -425,15 +623,177 @@ class SGD:
                             for key, leaf in params["q"].items()}
                            if bundled else self._requant(self.parameters))
         if opt_state is not None:
-            if "inner" in opt_state:    # a grad-accumulation wrapper
-                if int(opt_state["tick"]):
-                    _refuse("resuming mid gradient accumulation", "A9·c")
-                opt_state = opt_state["inner"]
-            self.opt_state = {
-                "step": int(opt_state["step"]),
-                "slots": tree_map(lambda a: torch.tensor(
-                    np.asarray(a, np.float32), device=self.device),
-                    opt_state["slots"])}
+            self.opt_state = self._opt_on(
+                self._adapt_accum_state(opt_state, meta))
         if model_state:
             self.model_state = _state_on(model_state, self.device)
+        self._refresh_prune_masks()
         return meta
+
+    def _on_device(self, tree):
+        return tree_map(lambda a: a if isinstance(a, torch.Tensor)
+                        else torch.tensor(np.asarray(a, np.float32),
+                                          device=self.device), tree)
+
+    def _opt_on(self, opt_state):
+        """A checkpoint's optimizer state on the device: host ints for
+        the step (and the accumulation tick), float32 tensors for the
+        slots (and the gradient sum)."""
+        if "inner" in opt_state:
+            return {"inner": self._opt_on(opt_state["inner"]),
+                    "gsum": self._on_device(opt_state["gsum"]),
+                    "tick": int(opt_state["tick"])}
+        return {"step": int(opt_state["step"]),
+                "slots": self._on_device(opt_state["slots"])}
+
+    def _adapt_accum_state(self, opt_state, meta):
+        """Reconcile a checkpoint's grad-accumulation wrapper with this
+        trainer's grad_accum_steps, as JAX's does.  Clean boundaries
+        (tick 0) convert freely in both directions; only a checkpoint
+        holding mid-accumulation grads under a DIFFERENT accum value is
+        an error (replaying those grads at another denominator would
+        mis-scale the next step)."""
+        wrapped = isinstance(opt_state, dict) and "gsum" in opt_state
+        want = self.grad_accum_steps > 1
+        tick = int(opt_state["tick"]) if wrapped else 0
+        stored = meta.get("grad_accum_steps")
+        if wrapped and not want:
+            if tick:
+                logger.warning(
+                    "checkpoint holds %d accumulated micro-batch grads "
+                    "(grad_accum_steps=%s) — discarded, this trainer "
+                    "doesn't accumulate", tick, stored or ">1")
+            return opt_state["inner"]
+        if want and not wrapped:
+            return {"inner": opt_state, "gsum": self._zeros_like_params(),
+                    "tick": 0}
+        if wrapped and want and stored and stored != self.grad_accum_steps:
+            if tick:
+                raise ConfigError(
+                    f"checkpoint is mid-accumulation (tick={tick}) under "
+                    f"grad_accum_steps={stored}; this trainer has "
+                    f"{self.grad_accum_steps} — resume with the matching "
+                    "setting (or from a pass boundary)")
+            # clean boundary: gsum is zeros, the wrapper carries over
+        return opt_state
+
+    def _refresh_prune_masks(self):
+        """Re-derive the pruning masks after the parameters were replaced
+        (checkpoint load): a sparsity_ratio mask must reflect the LOADED
+        weights, not the discarded random init, and the value mask is
+        re-applied."""
+        if not self._prune_masks:
+            return
+        self._prune_masks = param_hooks.build_masks(self.topology,
+                                                    self.parameters)
+        self._mask_values()
+
+
+def _quantize_params(params, min_size=1024):
+    """A copy of JAX's ``export.quantize_params``: weight-only symmetric
+    int8 with per-output-channel scales (last axis) — float32 leaves of
+    at least ``min_size`` elements become ``{"__int8__", "__scale__"}``
+    pairs, the scale the max |w| over every other axis / 127 (at least
+    1e-12), the codes ``clip(round(w / s), -127, 127)``; small leaves
+    stay float32.  Returns (qtree, dequant)."""
+    def q(x):
+        if x.dtype != torch.float32 or x.numel() < min_size:
+            return x
+        axes = tuple(range(x.ndim - 1)) if x.ndim > 1 else (0,)
+        # a divisor tensor, not a Python scalar: CUDA turns a division by
+        # a scalar into a product with its reciprocal (ulps off JAX's)
+        s = torch.amax(torch.abs(x), dim=axes, keepdim=True) \
+            / torch.tensor(127.0, device=x.device)
+        s = torch.clamp(s, min=1e-12)
+        return {"__int8__": torch.clamp(torch.round(x / s), -127, 127)
+                .to(torch.int8), "__scale__": s}
+
+    def is_q(leaf):
+        return isinstance(leaf, dict) and "__int8__" in leaf
+
+    def walk(tree, fn):
+        if is_q(tree) or not isinstance(tree, dict):
+            return fn(tree)
+        return {k: walk(v, fn) for k, v in tree.items()}
+
+    def dequant(tree):
+        return walk(tree, lambda l: l["__int8__"].to(torch.float32)
+                    * l["__scale__"] if is_q(l) else l)
+
+    return walk(params, q), dequant
+
+
+def _to_float32(out, dtype):
+    """Outputs of ``dtype`` back to float32 (tuples and sequences kept)."""
+    if isinstance(out, SequenceBatch):
+        return SequenceBatch(_to_float32(out.data, dtype), out.lengths)
+    if isinstance(out, tuple):
+        return tuple(_to_float32(o, dtype) for o in out)
+    return out.float() if out.dtype == dtype else out
+
+
+class Inferencer:
+    """paddle.v2.inference: run a topology in test mode on the device
+    (the card unless "cpu").
+
+    compute_dtype=torch.bfloat16 runs the forward on the parameters and
+    feed cast to bf16 and returns float32 outputs; quantize="int8" keeps
+    the weights as int8 codes with per-channel scales (``_quantize_params``)
+    and dequantizes them at each call.  ``.parameters`` stays the
+    caller's float tree."""
+
+    def __init__(self, output_layer, parameters, model_state=None,
+                 compute_dtype=None, quantize=None, device=None):
+        outs = output_layer if isinstance(output_layer, (list, tuple)) \
+            else [output_layer]
+        self.device = _device.resolve(device)
+        self.topology = Topology(list(outs))
+        self.parameters = parameters
+        self.compute_dtype = compute_dtype
+        self._exec_params = tree_map(
+            lambda a: a.detach().to(self.device)
+            if isinstance(a, torch.Tensor)
+            else torch.tensor(np.asarray(a), device=self.device), parameters)
+        self._dequant = None
+        if quantize is not None:
+            if quantize != "int8":
+                raise ValueError(
+                    f"quantize={quantize!r} (supported: None, 'int8')")
+            self._exec_params, self._dequant = _quantize_params(
+                self._exec_params)
+        self.model_state = _state_on(model_state, self.device) \
+            if model_state else {}
+
+    def _fwd(self, p, s, feed):
+        if self._dequant is not None:
+            p = self._dequant(p)
+        if self.compute_dtype is not None:
+            p = cast_tree(p, self.compute_dtype)
+            feed = cast_tree(feed, self.compute_dtype)
+        out = self.topology.apply(p, feed, mode="test", state=s)
+        if self.compute_dtype is not None:
+            out = _to_float32(out, self.compute_dtype)
+        return out
+
+    def infer(self, feed_or_batch, feeding=None):
+        """The outputs on one batch: a feed dict, or host samples with
+        ``feeding`` ({data_layer_name: InputType} or a DataFeeder)."""
+        if feeding is not None and not isinstance(feed_or_batch, dict):
+            feeder = feeding if isinstance(feeding, DataFeeder) \
+                else DataFeeder(feeding, device=self.device)
+            feed = feeder(feed_or_batch)
+        else:
+            feed = {k: v if isinstance(v, (SequenceBatch, torch.Tensor))
+                    else torch.as_tensor(np.asarray(v), device=self.device)
+                    for k, v in feed_or_batch.items()}
+        with torch.no_grad():
+            return self._fwd(self._exec_params, self.model_state, feed)
+
+
+def infer(output_layer, parameters, input, feeding=None, device=None):
+    return Inferencer(output_layer, parameters, device=device).infer(
+        input, feeding=feeding)
+
+
+# the modern name for the training driver (SGD is the v2-compat spelling)
+Trainer = SGD

@@ -37,7 +37,7 @@ from paddle_tpu_torch.data import (DataFeeder, dense_vector, integer_value,
 from paddle_tpu_torch.models import text_rnn
 from paddle_tpu_torch.ops.kernels import simple_rnn as krnn
 from paddle_tpu_torch.scripts import bench
-from paddle_tpu_torch.trainer import SGD, cli, events
+from paddle_tpu_torch.trainer import SGD, Inferencer, cli, events, infer
 from paddle_tpu_torch.trainer.checkpoint import load_checkpoint
 from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.tree import tree_leaves
@@ -362,12 +362,16 @@ def test_feeder_packs_sequences_and_dense_slots():
 
 @pytest.mark.parametrize("kw, item", [
     ({"mesh": object()}, "A12"), ({"sharding_rules": object()}, "A12"),
-    ({"evaluators": [object()]}, "A9·c"),
+    # evaluators train now (tests/test_torch_trainer_a9c.py); int8
+    # weights on a mesh JAX's trainer refuses too
+    ({"quant_weights": True, "mesh": object()}, "single-chip"),
     # bf16 compute trains now (tests/test_torch_dtypes.py); beside int8
     # weight streaming JAX's trainer refuses it too
     ({"compute_dtype": torch.bfloat16, "quant_weights": True},
      "compute_dtype"),
-    ({"grad_accum_steps": 2}, "A9·c"),
+    # gradient accumulation trains now (tests/test_torch_trainer_a9c.py);
+    # fewer than one micro-batch JAX's trainer refuses too
+    ({"grad_accum_steps": 0}, "grad_accum_steps must be >= 1"),
     # int8 training runs now (tests/test_torch_trainer_quant.py); with
     # gradient accumulation JAX's trainer refuses it too
     ({"quant_weights": True, "grad_accum_steps": 2}, "quant_weights")])
@@ -386,10 +390,13 @@ def test_refusals_of_the_graph_and_the_train_loop(tmp_path):
     with pytest.raises(ConfigError, match="sparse_update.*A9·f"):
         SGD(L.classification_cost(out, label),
             update_equation=optim.Momentum(), device="cpu")
+    # pruning trains now (tests/test_torch_trainer_a9c.py); a hook with
+    # neither a ratio nor a mask file JAX's trainer refuses too
     hooked = L.fc_layer(L.pooling_layer(L.embedding_layer(word, size=E)),
                         size=2, act="softmax",
                         param_attr={"update_hooks": [{"type": "pruning"}]})
-    with pytest.raises(ConfigError, match="update_hooks"):
+    with pytest.raises(ConfigError,
+                       match="needs sparsity_ratio= or mask_filename="):
         SGD(L.classification_cost(hooked, label),
             update_equation=optim.Momentum(), device="cpu")
     with pytest.raises(ConfigError, match="prev_batch_state"):
@@ -398,13 +405,22 @@ def test_refusals_of_the_graph_and_the_train_loop(tmp_path):
     rd = reader.batch(lambda: iter(_batch(14)), B)
     with pytest.raises(ConfigError, match="prefetch.*A9·f"):
         trainer.train(rd, feeding=FEEDING, prefetch=2)
-    with pytest.raises(ConfigError, match="save_on_signal"):
-        trainer.train(rd, feeding=FEEDING, save_on_signal=True)
-    path = trainer.save(str(tmp_path), pass_id=2,
-                        extra={"preempted": True, "batches_done": 1})
-    with pytest.raises(ConfigError, match="preemption"):
-        trainer.train(rd, feeding=FEEDING, save_dir=os.path.dirname(path),
-                      resume=True)
+    # save_on_signal trains now (tests/test_torch_trainer_a9c.py); a
+    # resume without a save_dir JAX's trainer refuses too
+    with pytest.raises(ConfigError, match="needs save_dir"):
+        trainer.train(rd, feeding=FEEDING, save_on_signal=True, resume=True)
+    # a preemption checkpoint resumes now; one written mid-accumulation
+    # under another grad_accum_steps JAX's trainer refuses too
+    two = SGD(_build(L, "rnn_max")[0], update_equation=optim.Momentum(),
+              grad_accum_steps=2, device="cpu")
+    two.train_one_batch(_batch(14), feeder=FEEDING)
+    path = two.save(str(tmp_path), pass_id=2,
+                    extra={"preempted": True, "batches_done": 1})
+    three = SGD(_build(L, "rnn_max")[0], update_equation=optim.Momentum(),
+                grad_accum_steps=3, device="cpu")
+    with pytest.raises(ConfigError, match="mid-accumulation"):
+        three.train(rd, feeding=FEEDING, save_dir=os.path.dirname(path),
+                    resume=True)
     with pytest.raises(ConfigError, match="precomputed"):
         trainer.topology.apply(trainer.parameters, {}, precomputed={"a": 1})
 
@@ -421,6 +437,19 @@ def test_entry_points_run_on_the_card_unless_asked(tmp_path):
                    "seq_len=4, vocab=50, hidden=128)\n")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["train", "--config", str(cfg)])
+    for job in (["time", "--config", str(cfg)],
+                ["checkgrad", "--config", str(cfg)],
+                ["merge_model", "--model_dir", str(tmp_path), "--out",
+                 str(tmp_path / "m.npz")], ["version"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(job)
+    cost, pooled = _build(L, "rnn_max")
+    params = L.Topology(cost).init(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Inferencer(pooled, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer(pooled, params, _batch(1), feeding=FEEDING)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.bench_rnn(batch=8, seq_len=4, hidden=128, vocab=50)
     with pytest.raises(RuntimeError, match="device='cpu'"):
