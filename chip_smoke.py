@@ -379,6 +379,27 @@ non-zero exit code and no final "ok" line:
             exactly 0.0 after 10 steps (1 + 1 launches a step); the CLI's
             time, checkgrad (PASSED, B9 on its path), merge_model and
             version jobs as subprocesses
+  train_srl  demo/semantic_role_labeling's db-LSTM + CRF
+            (models/tagging_dsl: emb 32, eight lstmemory of hid 128
+            alternating in direction over 512-wide mixed layers, the
+            crf_layer cost) through SGD at batch 16 of the conll05
+            loader's ragged sentences: the first step against the CPU
+            (loss and every gradient leaf), which the same step through
+            the one-TF32-pass LSTM build must fail; the decoded paths
+            held by their score under the CPU's emissions; the LSTM
+            kernels launched 8 + 8 a step over SRL_BATCHES steps,
+            SGD.test's cost below the start weights', and `python -m
+            paddle_tpu_torch train
+            --config paddle_tpu_torch/models/tagging_dsl.py`, whose pass
+            dir SGD.load restores bit for bit
+  train_crf_demos  demo/sequence_tagging's linear CRF (its first step
+            against the CPU, the decoded paths by score, a pass after
+            which SGD.test's cost is below the start weights'),
+            quick_start's cnn (networks.sequence_conv_pool: its first
+            step against a witness that max-pools at the card's argmax,
+            a pass), the introduction's line (8 passes reach w 2,
+            b 0.3) and a ctc_layer graph's loss and gradients against
+            the CPU; no counted kernel launched
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -6817,26 +6838,26 @@ def run_train_vgg_cifar(torch, dev, kernels):
     F32_MS["train_vgg_cifar"] = ms
 
 
-def text_first_step(torch, dev, kernels, model, batch, control=None):
-    """One SGD step of a text_dsl config (``model``) on the card under
-    pool_probe, on a CPU witness from the same weights that max-pools at
-    the card's argmax, and on the plain CPU: the loss and every gradient
-    leaf of the card within SENT_TOL of the witness's largest entries;
+def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
+                     what, tol, control=None):
+    """One SGD step of the DSL cost ``build()`` on the card under
+    pool_probe and on a CPU witness from the same weights (SGD's seed,
+    drawn on the CPU) that max-pools at the card's argmax (for a graph
+    with no max pool, the plain CPU step): the loss and every gradient
+    leaf of the card within ``tol`` of the witness's largest entries;
     with ``control`` (a context), the same card step with the card's
-    argmax replayed must fail that gate.  Returns (the card's trainer,
-    its (lstm forward, backward) launches, readings)."""
+    argmax replayed must fail that gate.  Where the card pooled, its
+    readings against the plain CPU step and the argmax flips are
+    reported beside.  Returns (the card's trainer, the start parameters,
+    readings, the card step's LSTM (forward, backward) launches)."""
     from paddle_tpu_torch.data import DataFeeder
-    from paddle_tpu_torch.models import text_dsl
     from paddle_tpu_torch.trainer import SGD
-    lk = kernels.lstm
-    feeding = text_dsl.feeding()
-    start = host_tree(SGD(cost=text_dsl.build(model)[0],
-                          update_equation=text_dsl.optimizer(model),
+    start = host_tree(SGD(cost=build(), update_equation=optimizer(),
                           device="cpu").parameters)
 
     def step(device, record, argmax=None, ctx=None):
-        tr = SGD(cost=text_dsl.build(model)[0], parameters=start,
-                 update_equation=text_dsl.optimizer(model), device=device)
+        tr = SGD(cost=build(), parameters=start, update_equation=optimizer(),
+                 device=device)
         feed = DataFeeder(feeding, device=tr.device)(batch)
         with (ctx or contextlib.nullcontext)(), pool_probe(torch, record,
                                                            argmax):
@@ -6854,38 +6875,41 @@ def text_first_step(torch, dev, kernels, model, batch, control=None):
     kernels.reset_launches()
     rec_c = []
     card = step(dev, rec_c)
-    launches = (lk.launches_fwd, lk.launches_bwd)
+    launches = (kernels.lstm.launches_fwd, kernels.lstm.launches_bwd)
     argmax = [r["argmax"] for r in rec_c]
-    rec_w, rec_r = [], []
-    witness = step("cpu", rec_w, argmax)
-    plain = step("cpu", rec_r)
-    flips = sum(int((c["argmax"] != r["argmax"]).sum())
-                for c, r in zip(rec_c, rec_r))
-    out = {"vs_witness": readings(card, witness),
-           "vs_plain_cpu_step": readings(card, plain),
-           "argmax_flips_vs_plain_cpu": flips,
-           "pooled_units": sum(r["argmax"].numel() for r in rec_c),
-           "tolerance": SENT_TOL}
-    if max(out["vs_witness"].values()) > SENT_TOL:
-        fail(f"train_sentiment {model}: the first step on the card against "
-             f"the CPU witness: {out}")
+    witness = step("cpu", [], argmax)
+    out = {"vs_cpu": readings(card, witness), "tolerance": tol,
+           "loss": [card[1], witness[1]]}
+    if rec_c:
+        rec_r = []
+        plain = step("cpu", rec_r)
+        out.update({
+            "cpu": "a witness max-pooling at the card's argmax",
+            "vs_plain_cpu_step": readings(card, plain),
+            "argmax_flips_vs_plain_cpu": sum(
+                int((c["argmax"] != r["argmax"]).sum())
+                for c, r in zip(rec_c, rec_r)),
+            "pooled_units": sum(r["argmax"].numel() for r in rec_c)})
+    if max(out["vs_cpu"].values()) > tol:
+        fail(f"{what}: the first step on the card against the CPU: {out}")
     if control is not None:
         ctl = readings(step(dev, [], argmax, ctx=control), witness)
         out["control"] = {"what": "the LSTMs through the one-TF32-pass "
-                          "build of csrc/lstm.cu, the card's argmax "
-                          "replayed", **ctl}
-        if max(ctl.values()) <= SENT_TOL:
-            fail(f"train_sentiment {model}: the TF32 control passes the "
-                 f"first-step gate: {out}")
+                          "build of csrc/lstm.cu" + (
+                              ", the card's argmax replayed" if argmax
+                              else ""), **ctl}
+        if max(ctl.values()) <= tol:
+            fail(f"{what}: the TF32 control passes the first-step gate: "
+                 f"{out}")
     out["seconds"] = time.perf_counter() - t0
-    return card[0], launches, out
+    return card[0], start, out, launches
 
 
 def run_train_sentiment(torch, dev, kernels, seed):
     """demo/sentiment's stacked_lstm_net (models/text_dsl: hid 128, three
     lstmemory layers, the middle one reversed) through SGD on the imdb
     loader's batches of 64 ragged reviews: the first step against the
-    CPU (text_first_step, with the one-TF32-pass control), SGD.train over
+    CPU (graph_first_step, with the one-TF32-pass control), SGD.train over
     SENT_BATCHES batches launching B9's forward and BPTT + dW_r 3 + 3
     times a step (the loss falls), SGD.test, and `python -m
     paddle_tpu_torch train --config paddle_tpu_torch/models/text_dsl.py
@@ -6896,8 +6920,10 @@ def run_train_sentiment(torch, dev, kernels, seed):
     lk = kernels.lstm
     cfg = text_dsl.config("sentiment", n_batches=SENT_BATCHES)
     data, feeding = list(cfg["train_reader"]()), cfg["feeding"]
-    card, first_launches, first = text_first_step(
-        torch, dev, kernels, "sentiment", data[0], control=lstm_tf32_1x)
+    card, _, first, first_launches = graph_first_step(
+        torch, dev, kernels, lambda: text_dsl.build("sentiment")[0],
+        lambda: text_dsl.optimizer("sentiment"), feeding, data[0],
+        "train_sentiment", SENT_TOL, control=lstm_tf32_1x)
     if first_launches != (3, 3):
         fail(f"train_sentiment: the first step launched the LSTM kernels "
              f"{first_launches} times, want (3, 3)")
@@ -6919,8 +6945,10 @@ def run_train_sentiment(torch, dev, kernels, seed):
     ms = float(np.median(times[2:]))
     qs_data = list(text_dsl.config("lstm", n_batches=1 + QS_STEPS)
                    ["train_reader"]())
-    qs, qs_launches, qs_first = text_first_step(torch, dev, kernels, "lstm",
-                                                qs_data[0])
+    qs, _, qs_first, qs_launches = graph_first_step(
+        torch, dev, kernels, lambda: text_dsl.build("lstm")[0],
+        lambda: text_dsl.optimizer("lstm"), feeding, qs_data[0],
+        "train_sentiment quick_start lstm", SENT_TOL)
     if qs_launches != (1, 1):
         fail(f"train_sentiment quick_start lstm: the first step launched the "
              f"LSTM kernels {qs_launches} times, want (1, 1)")
@@ -7423,6 +7451,259 @@ def run_trainer_a9c(torch, dev, kernels, seed):
     return launches
 
 
+# The tagging demos (A10·b): models/tagging_dsl through SGD on the
+# conll05 loader.  train_srl: the SRL db-LSTM + CRF at emb 32, hid 128,
+# depth 8 (the reference's) and batch 16: every lstmemory passes JAX's
+# resident rule, so each step launches B9's forward and its BPTT + dW_r
+# once per LSTM (8 + 8, four of them reversed over the ragged
+# sentences).  Its first step's loss and every gradient leaf against a
+# CPU run on the same weights and batch at SRL_TOL, which the same step
+# through the one-TF32-pass LSTM build must fail; the decoded paths held
+# by score: the card's path, scored under the CPU's emissions and CRF
+# weight, within DECODE_SCORE_TOL of the CPU's best score (the count of
+# equal tags reported); then SRL_BATCHES steps (SGD.test's cost falls
+# from the start weights') and a CLI pass.  train_tagging (sequence_tagging's linear CRF,
+# batch 32), train_quick_start_cnn (quick_start's cnn, batch 64: its
+# witness max-pools at the card's argmax, graph_first_step) and
+# fit_a_line (the introduction, batch 64): the first step against the
+# CPU at TAG_TOL, then a pass; the line's 8 passes end within LINE_TOL of
+# w 2, b 0.3.  ctc: a ctc_layer graph (fc softmax over 128-wide
+# sequences of 20-50 steps, 32 classes, labels of 5-15) at batch 16, its
+# loss and every gradient leaf against the CPU at TAG_TOL.
+# SRL_TOL lies between the readings on an H100 (PERF.md §6):
+# the sound step 3.2e-6 of its largest gradient entry, the
+# one-TF32-pass LSTM control 2.9e-4
+SRL_TOL = 2e-5
+TAG_TOL = 1e-5
+DECODE_SCORE_TOL = 1e-5
+LINE_TOL = 0.05
+# SRL_BATCHES is the train split's whole pass: on its synthetic labels
+# the SRL test cost first rises under the demo's Adam and falls below
+# the start weights' only after a few dozen steps
+SRL_BATCHES, SRL_CLI_BATCHES, TAG_BATCHES, CNN_BATCHES = 64, 2, 16, 8
+LINE_PASSES = 8
+TAGGING_CLI_CONFIG = "paddle_tpu_torch/models/tagging_dsl.py"
+CTC_B, CTC_T, CTC_D, CTC_C = 16, 50, 128, 32
+
+
+def decode_by_score(torch, dev, build, start, batch, feeding, what):
+    """The CRF decoding output of ``build()`` (cost, decoded) on the
+    card and on the CPU from ``start``: the card's path, scored under
+    the CPU's emissions and CRF weight in float64, within
+    DECODE_SCORE_TOL of the CPU's best score."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.ops import crf as crf_ops
+    from paddle_tpu_torch.utils.tree import tree_map
+
+    def run(device):
+        cost, decoded = build()
+        topo = L.Topology([decoded, cost.inputs[0]])
+        params = tree_map(lambda t: t.to(device), start)
+        feed = DataFeeder(feeding, device=device)(batch)
+        with torch.no_grad():
+            tags, em = topo.apply(params, feed, mode="test")
+        return tags.data[..., 0].cpu(), em.data.cpu(), feed["words"].lengths
+    card_tags, _, _ = run(dev)
+    tags, em, lengths = run("cpu")
+    w = start["crf"]["w"].double()
+    em, lengths = em.double(), lengths.cpu()
+    best = crf_ops.crf_path_score(em, tags, lengths, w)
+    got = crf_ops.crf_path_score(em, card_tags, lengths, w)
+    err = float(((got - best).abs() / best.abs()).max())
+    mask = torch.arange(tags.shape[1])[None, :] < lengths[:, None]
+    out = {"score_rel_err_max": err, "tolerance": DECODE_SCORE_TOL,
+           "tags_equal": int((card_tags == tags)[mask].sum()),
+           "tags": int(mask.sum())}
+    if not err <= DECODE_SCORE_TOL:
+        fail(f"{what}: the card's decoded path does not reach the CPU's "
+             f"best score: {out}")
+    return out
+
+
+def test_cost_falls(cfg, card, start, what):
+    """SGD.test over the config's test reader at the start weights and
+    at the card trainer's: the cost must fall (a CRF cost sums over a
+    sentence's tokens, so the train batches' losses move with their
+    lengths).  Returns the two costs."""
+    from paddle_tpu_torch.trainer import SGD
+    before = SGD(cost=cfg["cost"], parameters=start,
+                 update_equation=cfg["optimizer"],
+                 device=card.device).test(cfg["test_reader"],
+                                          feeding=cfg["feeding"])
+    after = card.test(cfg["test_reader"], feeding=cfg["feeding"])
+    if not after < before:
+        fail(f"{what}: the test cost must fall over the pass: {before} at "
+             f"the start, {after} after")
+    return {"start": before, "after_pass": after}
+
+
+def run_train_srl(torch, dev, kernels, seed):
+    """The SRL demo's db-LSTM + CRF (models/tagging_dsl.db_lstm_net at
+    emb 32, hid 128, depth 8) through SGD on the conll05 loader's batches
+    of 16: the first step against the CPU (its one-TF32-pass control
+    failing), B9 8 + 8 a step, the decoded paths by score, SRL_BATCHES
+    steps, SGD.test's cost falling, the CLI on tagging_dsl.py
+    (model=srl)."""
+    from paddle_tpu_torch.models import tagging_dsl
+    from paddle_tpu_torch.trainer import SGD
+    lk = kernels.lstm
+    cfg = tagging_dsl.config("srl", n_batches=SRL_BATCHES)
+    data, feeding = list(cfg["train_reader"]()), cfg["feeding"]
+    card, start, first, first_launches = graph_first_step(
+        torch, dev, kernels, lambda: tagging_dsl.build("srl")[0],
+        lambda: tagging_dsl.optimizer("srl"), feeding, data[0], "train_srl",
+        SRL_TOL, control=lstm_tf32_1x)
+    if first_launches != (8, 8):
+        fail(f"train_srl: the first step launched the LSTM kernels "
+             f"{first_launches} times, want (8, 8)")
+    decode = decode_by_score(torch, dev, lambda: tagging_dsl.build("srl"),
+                             start, data[0], feeding, "train_srl")
+    times, losses, pass_launches = sgd_pass(
+        torch, kernels, card, data[1:], feeding, "train_srl", per_step=(8, 8))
+    test_cost = test_cost_falls(cfg, card, start, "train_srl")
+    cli = rnn_cli(torch, dev, seed, card, what="train_srl",
+                  config_file=TAGGING_CLI_CONFIG,
+                  config_args=f"model=srl,batches={SRL_CLI_BATCHES}",
+                  batches=SRL_CLI_BATCHES,
+                  fresh=lambda: SGD(tagging_dsl.build("srl")[0],
+                                    update_equation=tagging_dsl.optimizer(
+                                        "srl"), device=dev))
+    launches = {lk.NAME_FWD: first_launches[0] + pass_launches[lk.NAME_FWD],
+                lk.NAME_BWD: first_launches[1] + pass_launches[lk.NAME_BWD]}
+    ms = float(np.median(times[2:]))
+    batch = tagging_dsl.BATCH["srl"]
+    emit({"phase": "train_srl", "config": {
+        "model": "demo/semantic_role_labeling db_lstm (models/tagging_dsl."
+                 "db_lstm_net, layer DSL: mixed_layer, lstmemory, crf_layer)",
+        "emb": 32, "hid": 128, "depth": 8, "mixed_width": 512,
+        "batch": batch, "batches": SRL_BATCHES,
+        "data": "data.datasets.conll05 train (synthetic fallback unless "
+                "PADDLE_TPU_DATA_DIR holds conll05), 5-39 tokens",
+        "optimizer": "Adam lr 1e-3 clip_threshold 5",
+        "entry": "trainer.SGD.train"},
+        "ms_per_batch": ms, "ms_per_batch_min_max": [min(times[2:]),
+                                                     max(times[2:])],
+        "samples_per_s": batch / (ms / 1e3),
+        "launches": launches, "launches_per_step": {lk.NAME_FWD: 8,
+                                                    lk.NAME_BWD: 8},
+        "losses": losses, "test_cost": test_cost,
+        "first_step_vs_cpu": first, "decoded_vs_cpu": decode, "cli": cli})
+    F32_MS["train_srl"] = ms
+    return {"train_srl": launches}
+
+
+def run_train_crf_demos(torch, dev, kernels):
+    """train_tagging, train_quick_start_cnn, fit_a_line and ctc: each
+    first step (or the CTC graph's loss and gradients) against the CPU,
+    then a pass; no counted kernel launches."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.data.provider import (dense_vector_sequence,
+                                                integer_value_sequence)
+    from paddle_tpu_torch.models import tagging_dsl, text_dsl
+    from paddle_tpu_torch.optim import Momentum
+    out = {}
+    # sequence_tagging's linear CRF
+    cfg = tagging_dsl.config("tagging", n_batches=TAG_BATCHES)
+    data, feeding = list(cfg["train_reader"]()), cfg["feeding"]
+    card, start, first, _ = graph_first_step(
+        torch, dev, kernels, lambda: tagging_dsl.build("tagging")[0],
+        lambda: tagging_dsl.optimizer("tagging"), feeding, data[0],
+        "train_tagging", TAG_TOL)
+    decode = decode_by_score(torch, dev, lambda: tagging_dsl.build("tagging"),
+                             start, data[0], feeding, "train_tagging")
+    times, losses, _ = sgd_pass(torch, kernels, card, data[1:], feeding,
+                                "train_tagging")
+    test_cost = test_cost_falls(cfg, card, start, "train_tagging")
+    ms = float(np.median(times[2:]))
+    out["train_tagging"] = {
+        "config": {"model": "demo/sequence_tagging linear_crf (models/"
+                            "tagging_dsl.linear_crf_net: context window 3 in "
+                            "a 192-wide mixed layer, concat the predicate "
+                            "embedding, fc 128 tanh, crf_layer)",
+                   "batch": tagging_dsl.BATCH["tagging"],
+                   "batches": TAG_BATCHES,
+                   "optimizer": "Momentum lr 0.01 m 0.9 l2 1e-4"},
+        "ms_per_batch": ms,
+        "samples_per_s": tagging_dsl.BATCH["tagging"] / (ms / 1e3),
+        "losses": losses, "test_cost": test_cost,
+        "first_step_vs_cpu": first, "decoded_vs_cpu": decode}
+    # quick_start's cnn
+    qs = text_dsl.config("cnn", n_batches=CNN_BATCHES)
+    qs_data = list(qs["train_reader"]())
+    card, _, qs_first, qs_launches = graph_first_step(
+        torch, dev, kernels, lambda: text_dsl.build("cnn")[0],
+        lambda: text_dsl.optimizer("cnn"), qs["feeding"], qs_data[0],
+        "train_quick_start_cnn", SENT_TOL)
+    if qs_launches != (0, 0):
+        fail(f"train_quick_start_cnn: the first step launched the LSTM "
+             f"kernels {qs_launches} times")
+    times, losses, _ = sgd_pass(torch, kernels, card, qs_data[1:],
+                                qs["feeding"], "train_quick_start_cnn")
+    ms = float(np.median(times[2:]))
+    out["train_quick_start_cnn"] = {
+        "config": {"model": "demo/quick_start cnn_net (models/text_dsl: "
+                            "networks.sequence_conv_pool, window 3 in a "
+                            "384-wide mixed layer, fc 256 relu, max pool)",
+                   "batch": text_dsl.BATCH, "batches": CNN_BATCHES,
+                   "optimizer": "Adam lr 0.002"},
+        "ms_per_batch": ms, "samples_per_s": text_dsl.BATCH / (ms / 1e3),
+        "losses": losses, "first_step_vs_cpu": qs_first}
+    # the introduction's line
+    line = tagging_dsl.config("fit_a_line")
+    data = list(line["train_reader"]())
+    card, _, first, _ = graph_first_step(
+        torch, dev, kernels, lambda: tagging_dsl.build("fit_a_line")[0],
+        lambda: tagging_dsl.optimizer("fit_a_line"), line["feeding"],
+        data[0], "fit_a_line", TAG_TOL)
+    times, losses, _ = sgd_pass(torch, kernels, card,
+                                data[1:] + data * (LINE_PASSES - 1),
+                                line["feeding"], "fit_a_line")
+    w = float(card.parameters["fc"]["w0"].detach().reshape(-1)[0])
+    b = float(card.parameters["fc"]["b"].detach().reshape(-1)[0])
+    if abs(w - 2.0) > LINE_TOL or abs(b - 0.3) > LINE_TOL:
+        fail(f"fit_a_line: the line after {LINE_PASSES} passes is w {w}, "
+             f"b {b}; want 2, 0.3 within {LINE_TOL}")
+    out["fit_a_line"] = {
+        "config": {"model": "demo/introduction fit_a_line (models/"
+                            "tagging_dsl: fc 1, regression_cost)",
+                   "batch": tagging_dsl.BATCH["fit_a_line"],
+                   "passes": LINE_PASSES,
+                   "optimizer": "Momentum lr 0.1 m 0.9"},
+        "ms_per_batch": float(np.median(times[2:])), "w": w, "b": b,
+        "loss_first_last": [losses[0], losses[-1]],
+        "first_step_vs_cpu": first}
+    # a ctc_layer graph
+    rng = np.random.RandomState(7)
+    lengths = rng.randint(20, CTC_T + 1, CTC_B)
+    label_lengths = rng.randint(5, 16, CTC_B)
+    batch = [(rng.randn(n, CTC_D).astype(np.float32).tolist(),
+              rng.randint(0, CTC_C - 1, m).tolist())
+             for n, m in zip(lengths, label_lengths)]
+
+    def ctc_graph():
+        L.reset_names()
+        xs = L.data_layer("xs", size=CTC_D, is_seq=True)
+        lab = L.data_layer("lab", size=CTC_C, is_seq=True)
+        probs = L.fc_layer(xs, size=CTC_C, act="softmax")
+        return L.ctc_layer(probs, lab, size=CTC_C)
+    _, _, first, _ = graph_first_step(
+        torch, dev, kernels, ctc_graph, lambda: Momentum(learning_rate=0.01,
+                                                momentum=0.9),
+        {"xs": dense_vector_sequence(CTC_D),
+         "lab": integer_value_sequence(CTC_C)}, batch, "ctc", TAG_TOL)
+    out["ctc"] = {"config": {"graph": "fc softmax over the sequence -> "
+                             "ctc_layer (blank = size - 1)", "batch": CTC_B,
+                             "steps": [20, CTC_T], "dim": CTC_D,
+                             "classes": CTC_C, "label_lengths": [5, 15]},
+                  "loss_and_grads_vs_cpu": first}
+    launches = {**launch_counts(kernels),
+                "recurrent": recurrent_launches(kernels)}
+    if any(launches.values()):
+        fail(f"train_crf_demos: counted kernels launched {launches}")
+    emit({"phase": "train_crf_demos", **out})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7643,6 +7924,8 @@ def main(argv=None):
     run_train_vgg_cifar(torch, dev, kernels)
     text_launches = run_train_sentiment(torch, dev, kernels, args.seed)
     a9c_launches = run_trainer_a9c(torch, dev, kernels, args.seed)
+    srl_launches = run_train_srl(torch, dev, kernels, args.seed)
+    run_train_crf_demos(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -7710,7 +7993,8 @@ def main(argv=None):
         name = row["name"]
         by_path = {"train": train_launches[name],
                    **{path: n[name] for path, n in text_launches.items()},
-                   **{path: n[name] for path, n in a9c_launches.items()}}
+                   **{path: n[name] for path, n in a9c_launches.items()},
+                   **{path: n[name] for path, n in srl_launches.items()}}
         summary.append({
             "name": name, "route": "cuda",
             "source": kernels.lstm.SOURCE, "replaces": replaces,

@@ -4,15 +4,17 @@ graph IR (``paddle_tpu/layers``), under the JAX names: a config written
 
 Ported: the graph (``Topology``, ``LayerOutput``, ``Context``,
 ``params_from_numpy``), the data / fc / embedding / concat / addto /
-dropout / pooling layers, the classification cost and ``moe_layer``
+dropout / pooling layers, ``mixed_layer`` with its projections and
+operators, the cost zoo, the CRF and CTC layers and ``moe_layer``
 (``api.py``), the whole-sequence recurrent layers (``recurrent.py``),
-the conv stack (``vision.py``: conv, pool, batch norm, LRN and the
-image utility layers) and the composites of ``networks.py`` built on
-them (``L.networks.img_conv_group``, ``L.simple_lstm``, ...).  The
-generation module, ``mixed_layer`` (with its projections and
-``conv_projection`` / ``conv_operator``), ``recurrent_group`` with the
-networks built on them, and the layer arithmetic wait for ROADMAP
-A10·b.
+the conv stack (``vision.py``: conv, pool, batch norm, LRN, the image
+utility layers and the conv parts of ``mixed_layer``) and the
+composites of ``networks.py`` built on them
+(``L.networks.img_conv_group``, ``L.simple_lstm``,
+``L.networks.sequence_conv_pool``, ...).  The generation module,
+``recurrent_group`` with the networks built on it, the elementwise and
+sequence layers, ``nce_layer``, ``hsigmoid`` and the layer arithmetic
+wait for ROADMAP A10·b.
 """
 
 from paddle_tpu_torch.layers import api as _api

@@ -7,10 +7,11 @@ composites (``simple_lstm``, ``simple_gru``, ``simple_gru2``,
 ``simple_attention`` with its ``attention_context_layer``, and
 ``inputs`` / ``outputs``, under the JAX names and ``__all__``.
 
-The composites built on ``mixed_layer`` / ``context_projection``
-(``text_conv_pool`` = ``sequence_conv_pool``) or on ``recurrent_group``
-(``gru_unit``, ``gru_group``, ``lstmemory_unit``, ``lstmemory_group``)
-raise ``ConfigError`` naming ROADMAP A10·b, where those layers wait.
+``text_conv_pool`` = ``sequence_conv_pool`` builds the reference's
+context window, fc and pool (ROADMAP C14).  The composites built on
+``recurrent_group`` (``gru_unit``, ``gru_group``, ``lstmemory_unit``,
+``lstmemory_group``) raise ``ConfigError`` naming ROADMAP A10·b, where
+``recurrent_group`` waits.
 """
 
 from paddle_tpu_torch.layers import api
@@ -206,9 +207,21 @@ def lstmemory_group(input, size=None, name=None, **kwargs):
 
 def text_conv_pool(input, context_len, hidden_size, context_start=None,
                    pool_type=None, act="relu", name=None):
-    """Reference sequence_conv_pool / text_conv_pool: a context-window
-    projection in a mixed layer, then a sequence max pool."""
-    _not_ported("text_conv_pool", "mixed_layer and context_projection")
+    """Reference sequence_conv_pool / text_conv_pool: a context mixed
+    layer ``input.size * context_len`` wide (the window's rows, zero out
+    of range), an fc of ``hidden_size`` with a bias and ``act``, then the
+    sequence pool (max unless ``pool_type``).  JAX's puts the window into
+    a mixed layer of ``hidden_size`` with no weight, which fails at apply
+    (ROADMAP C14); this is the reference's network, under JAX's
+    signature."""
+    conv = api.mixed_layer(
+        size=input.size * context_len, name=name and f"{name}_conv_proj",
+        input=[api.context_projection(input, context_len=context_len,
+                                      context_start=context_start)])
+    fc = fc_layer(conv, size=hidden_size, act=act,
+                  name=name and f"{name}_conv_fc")
+    return api.pooling_layer(fc, pooling_type=pool_type or api.pooling.Max,
+                             name=name and f"{name}_pool")
 
 
 sequence_conv_pool = text_conv_pool

@@ -17,8 +17,8 @@ and the carried fc weights match; the (h, w) metadata rides on
 ``Topology.init_state``): per channel over an image, per feature over
 fc rows, the stats updated in train mode unless ``use_global_stats``,
 read in test mode.  ``conv_projection`` and ``conv_operator`` are
-``mixed_layer`` parts and raise ``ConfigError`` until it is ported
-(ROADMAP A10·b).
+``mixed_layer`` parts (``api._MixedImpl`` runs them through
+``ops/conv``).
 """
 
 import math
@@ -26,13 +26,14 @@ import math
 import torch
 
 from paddle_tpu_torch.core.sequence import SequenceBatch
-from paddle_tpu_torch.layers.api import _maybe_bias
+from paddle_tpu_torch.layers.api import _Part, _maybe_bias
 from paddle_tpu_torch.layers.graph import (
     LayerOutput, register_layer, auto_name, map_rows, value_data)
 from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops.norm import batch_norm_train, batch_norm_infer
 from paddle_tpu_torch.utils.error import ConfigError
+from paddle_tpu_torch.utils.logging import logger
 
 __all__ = [
     "img_conv_layer", "img_pool_layer", "batch_norm_layer",
@@ -519,15 +520,66 @@ def data_norm_layer(input, strategy="z-score", name=None):
                        [input], {"strategy": strategy})
 
 
-def conv_projection(input, filter_size, num_filters, *args, **kwargs):
-    """A learned-filter conv as a ``mixed_layer`` projection (reference
-    ConvProjection): ``mixed_layer`` is not ported yet."""
-    raise ConfigError("conv_projection is a mixed_layer part; mixed_layer "
-                      "is not ported yet (ROADMAP A10·b)")
+# (mixed_layer parts; reference ConvProjection / ConvOperator.cpp:58)
+
+def _xy(x_val, y_val):
+    """The reference's conv-geometry convention: a scalar or the tuple's
+    first element is the X (width) dimension, *_y (or the second
+    element) the height -> (h, w)."""
+    if isinstance(x_val, (tuple, list)):
+        x_val, y_val = x_val
+    return (y_val if y_val is not None else x_val), x_val
 
 
-def conv_operator(img, filter, filter_size, num_filters, *args, **kwargs):
-    """A per-sample conv as a ``mixed_layer`` operator (reference
-    ConvOperator): ``mixed_layer`` is not ported yet."""
-    raise ConfigError("conv_operator is a mixed_layer part; mixed_layer "
-                      "is not ported yet (ROADMAP A10·b)")
+def _conv_part_spec(img, filter_size, num_filters, num_channels, stride,
+                    padding, filter_size_y=None, stride_y=None,
+                    padding_y=None):
+    """(spec, output width) of a conv part over ``img``'s rows."""
+    channels = _channels(img, num_channels)
+    in_shape = _img_shape(img, channels)
+    fh, fw = _xy(filter_size, filter_size_y)
+    sh, sw = _xy(stride, stride_y)
+    ph, pw = _xy(padding, padding_y)
+    oh = conv_ops.conv_output_size(in_shape[0], fh, sh, ph)
+    ow = conv_ops.conv_output_size(in_shape[1], fw, sw, pw)
+    spec = {"filter_size": (fh, fw), "stride": (sh, sw), "padding": (ph, pw),
+            "channels": channels, "num_filters": num_filters,
+            "in_shape": in_shape}
+    return spec, num_filters * oh * ow
+
+
+def conv_projection(input, filter_size, num_filters, num_channels=None,
+                    stride=1, padding=0, param_attr=None,
+                    filter_size_y=None, stride_y=None, padding_y=None,
+                    groups=1, trans=False):
+    """A learned-filter conv (weight [fh, fw, C / groups, nf]) as a
+    ``mixed_layer`` projection (reference ConvProjection).
+    ``trans=True`` is accepted and runs the standard conv, as in the JAX
+    package (which logs a warning)."""
+    if trans:
+        logger.warning("conv_projection(trans=True): transposed projection "
+                       "runs as a standard conv projection; numerics differ "
+                       "until ConvTransProjection lands")
+    spec, out = _conv_part_spec(input, filter_size, num_filters,
+                                num_channels, stride, padding,
+                                filter_size_y, stride_y, padding_y)
+    spec["param_attr"] = param_attr
+    spec["groups"] = groups
+    return _Part("conv_proj", [input], spec, out)
+
+
+def conv_operator(img, filter, filter_size, num_filters, num_channels=None,
+                  stride=1, padding=0, filter_size_y=None, stride_y=None,
+                  padding_y=None, trans=False):
+    """A per-sample conv as a ``mixed_layer`` operator: each row of
+    ``filter`` is that sample's own filter bank, laid out (nf, C, fh, fw)
+    (reference ConvOperator.cpp:58-83).  ``trans=True`` is accepted and
+    runs the standard operator, as in the JAX package."""
+    if trans:
+        logger.warning("conv_operator(trans=True): transposed per-sample "
+                       "conv runs as a standard conv_operator graph node; "
+                       "numerics differ until ConvTransOperator lands")
+    spec, out = _conv_part_spec(img, filter_size, num_filters, num_channels,
+                                stride, padding, filter_size_y, stride_y,
+                                padding_y)
+    return _Part("conv_op", [img, filter], spec, out)

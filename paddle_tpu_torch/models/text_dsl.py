@@ -14,10 +14,11 @@ ragged reviews of 8-119 tokens.
 
 ``lr_net``, ``cnn_net`` and ``lstm_net`` are quick_start's
 (``demo/quick_start/train.py:17-36``): embedding 64 -> sum pool -> fc 2
-softmax; embedding 128 -> ``networks.sequence_conv_pool`` (which needs
-``mixed_layer`` and ``context_projection`` and raises, ROADMAP A10·b);
-embedding 128 -> ``networks.simple_lstm`` of 128 -> max pool -> fc 2
-softmax; each trained with Adam (lr 0.002) at batch 64.
+softmax; embedding 128 -> ``networks.sequence_conv_pool`` (a context
+window of 3 in a 384-wide mixed layer, fc 256 relu, max pool: the
+reference's network, ROADMAP C14) -> fc 2 softmax; embedding 128 ->
+``networks.simple_lstm`` of 128 -> max pool -> fc 2 softmax; each
+trained with Adam (lr 0.002) at batch 64.
 
 ``get_config()`` selects by ``CONFIG_ARGS`` ``model`` (sentiment, the
 default; lr, cnn or lstm) as the demos' ``get_config`` does:
@@ -67,8 +68,7 @@ def lr_net(words, label, emb=64):
 
 
 def cnn_net(words, label, emb=128):
-    """quick_start's cnn network: raises ``ConfigError`` naming A10·b in
-    ``networks.sequence_conv_pool``."""
+    """quick_start's cnn network: (cost, output)."""
     emb_l = L.embedding_layer(words, size=emb)
     conv = L.networks.sequence_conv_pool(emb_l, context_len=3,
                                          hidden_size=256)

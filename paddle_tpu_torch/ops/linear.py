@@ -1,4 +1,9 @@
-"""Dense matmul and fc (``paddle_tpu/ops/linear.py``).
+"""Dense matmul, fc and the projections that feed ``mixed_layer``
+(``paddle_tpu/ops/linear.py``; reference FullyConnectedLayer and the
+projection zoo: FullMatrixProjection, TransposedFullMatrixProjection,
+IdentityProjection, DotMulProjection, ScalingProjection, DotMulOperator,
+LinearCombinationLayer).  The projections' products go through
+``matmul``, so the dtype policy holds for them too.
 
 ``matmul`` follows the dtype policy (``core/dtypes``) as JAX's does: both
 operands are cast to ``compute_dtype()`` and the product comes back in
@@ -90,3 +95,40 @@ def fc(x, w, b=None, act=None):
     if b is not None:
         y = y + b
     return activations.get(act)(y)
+
+
+def full_matrix_projection(x, w):
+    return matmul(x, w)
+
+
+def trans_full_matrix_projection(x, w):
+    """w stored [out, in] (reference TransposedFullMatrixProjection)."""
+    return matmul(x, w.t())
+
+
+def identity_projection(x, offset=0, size=None):
+    if size is None:
+        return x
+    return x[..., offset:offset + size]
+
+
+def dotmul_projection(x, w):
+    """Elementwise scale by a learned vector: x * w, w [size]."""
+    return x * w
+
+
+def scaling_projection(x, w):
+    """Scale the whole input by a learned scalar w [1]."""
+    return x * w.reshape(())
+
+
+def dotmul_operator(a, b, scale=1.0):
+    return scale * a * b
+
+
+def linear_comb(x, w, size):
+    """LinearCombinationLayer / convex_comb: weights [..., K] over K
+    vectors [..., K*size] -> [..., size]."""
+    k = w.shape[-1]
+    xs = x.reshape(*x.shape[:-1], k, size)
+    return torch.einsum("...k,...ks->...s", w, xs)

@@ -1,8 +1,9 @@
-"""Pooling over the time axis of a padded sequence batch
-(``paddle_tpu/ops/sequence.py``; reference SequencePoolLayer family).
-Padding never leaks into a result: max pools pad at -1e30 and an empty
-sequence pools to 0.  The other sequence ops are not ported yet
-(ROADMAP)."""
+"""Pooling over the time axis of a padded sequence batch and the
+sliding-window ``context_projection`` (``paddle_tpu/ops/sequence.py``;
+reference SequencePoolLayer family, ContextProjection).  Padding never
+leaks into a result: max pools pad at -1e30 and an empty sequence pools
+to 0.  The other sequence ops (expand, concat, reshape, slices, maxid,
+eos, sampling) are not ported yet (ROADMAP A10·b)."""
 
 import torch
 
@@ -64,3 +65,43 @@ def seq_pool(seq: SequenceBatch, pooling: str):
         "last": seq_last,
         "first": seq_first,
     }[pooling](seq)
+
+
+def context_projection(seq: SequenceBatch, context_len: int,
+                       context_start: int, padding_weights=None):
+    """Sliding-window concat over time (reference ContextProjection,
+    function/ContextProjectionOp.cpp:392): step t gets
+    [x_{t+start}, ..., x_{t+start+len-1}] concatenated (D * len wide).
+    Out-of-range positions read zeros, or the trainable padding rows
+    ``padding_weights`` [pad_rows, D]: ``max(0, -start)`` head rows, then
+    the tail rows, indexed from each sequence's own length.  Steps past a
+    sequence's length are zero."""
+    b, t, d = seq.data.shape
+    lengths = seq.lengths
+    steps = torch.arange(t, device=seq.data.device)
+    cols = []
+    for k in range(context_len):
+        idx = steps + (context_start + k)
+        oob_head = idx < 0
+        oob_tail = idx[None, :] >= lengths[:, None]
+        col = seq.data[:, torch.clamp(idx, 0, t - 1), :]
+        if padding_weights is not None:
+            last_row = padding_weights.shape[0] - 1
+            n_head = max(0, -context_start)
+            if n_head:
+                head_row = torch.clamp(idx + n_head, 0, n_head - 1)
+                head_pad = padding_weights[torch.clamp(head_row, 0, last_row)]
+                col = torch.where(oob_head[None, :, None], head_pad[None], col)
+            n_tail = max(0, context_start + context_len - 1)
+            if n_tail:
+                tail_row = n_head + torch.clamp(
+                    idx[None, :] - lengths[:, None], 0, n_tail - 1)
+                tail_pad = padding_weights[torch.clamp(tail_row, 0, last_row)]
+                col = torch.where(oob_tail[..., None], tail_pad, col)
+        else:
+            col = torch.where(oob_head[None, :, None] | oob_tail[..., None],
+                              0.0, col)
+        cols.append(col)
+    out = torch.cat(cols, dim=-1)
+    return SequenceBatch(data=out * seq.mask(out.dtype)[..., None],
+                         lengths=lengths)

@@ -7,7 +7,8 @@ mode; ``bench_transformer_decode``, the MT model's KV-cached beam
 search; the image benchmarks ``bench_resnet50`` and ``bench_image``
 (smallnet, alexnet, googlenet); the demos' steps ``bench_recommendation``
 (demo/recommendation) and ``bench_dsl`` (the image_classification demo's
-vgg and the sentiment demo, through ``trainer.SGD``); and the
+vgg, the sentiment demo, quick_start's cnn and the SRL and
+sequence_tagging demos, through ``trainer.SGD``); and the
 measurement legs of two serving benchmarks, ``bench_serving_quant`` and
 ``bench_serving_speculative``.
 
@@ -15,17 +16,24 @@ measurement legs of two serving benchmarks, ``bench_serving_quant`` and
         [--model lstm|transformer|transformer_packed|transformer_moe|
                  seq2seq|rnn|trainer_int8|transformer_decode|
                  serving_quant|serving_speculative|resnet50|smallnet|
-                 alexnet|googlenet|recommendation|vgg_cifar|sentiment]
+                 alexnet|googlenet|recommendation|vgg_cifar|sentiment|
+                 quick_start_cnn|srl|tagging]
         [--hidden 512|1280|2048] [--remat]
 
 ``recommendation`` trains the MovieLens towers at the demo's config
 (emb 256, hidden 256, batch 128 of the movielens loader, Adam lr 1e-3),
 each step feeding its batch as the demo does, and prints ms/batch and
-samples/s; ``vgg_cifar`` and ``sentiment`` train those configs through
-``SGD.train_one_batch`` (vgg: batch 128 of the cifar loader, Momentum;
-sentiment: hid 128, batch 64 of the imdb loader's ragged reviews, Adam
-with l2 and clip_norm, its three LSTMs through the fused LSTM kernels),
-printing ms/batch, samples/s, the LSTM launches and the step's split.
+samples/s; ``vgg_cifar``, ``sentiment``, ``quick_start_cnn``, ``srl``
+and ``tagging`` train those configs through ``SGD.train_one_batch``
+(vgg: batch 128 of the cifar loader, Momentum; sentiment: hid 128,
+batch 64 of the imdb loader's ragged reviews, Adam with l2 and
+clip_norm, its three LSTMs through the fused LSTM kernels; quick_start's
+cnn at batch 64 of imdb; srl: the db-LSTM at hid 128, depth 8, batch 16
+of the conll05 loader, its eight LSTMs through the fused LSTM kernels,
+and the CRF; tagging: the linear CRF at batch 32 of conll05), printing
+ms/batch, samples/s, the LSTM launches and the step's split, and for
+the CRF configs the CRF's share of the step (``crf_split``: the step
+against the same step with the CRF cost summed away).
 
 ``resnet50`` trains ResNet-50 at ``bench.py:358-395``'s config (batch
 32 of 224x224x3 images from ``np.random.RandomState(0)``, 1000 classes,
@@ -112,8 +120,8 @@ from paddle_tpu_torch.data.datasets import movielens
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.models import (alexnet, googlenet, image_dsl,
                                      recommendation, resnet, seq2seq,
-                                     smallnet, text_dsl, text_lstm, text_rnn,
-                                     transformer)
+                                     smallnet, tagging_dsl, text_dsl,
+                                     text_lstm, text_rnn, transformer)
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optim import Adam, Momentum
 from paddle_tpu_torch.quant.weights import TRAIN_LOSS_BUDGET
@@ -777,27 +785,60 @@ class DslBench(NamedTuple):
     samples_per_step: int
 
 
+# bench_dsl's configs: model -> (the config's description, its dict)
+DSL_CONFIGS = {
+    "vgg_cifar": ({"model": "demo/image_classification vgg_bn_drop "
+                            "(models/image_dsl)", "image": [32, 32, 3],
+                   "optimizer": "Momentum lr 0.01 m 0.9 l2 1e-4"},
+                  lambda n: image_dsl.cifar_config(model="vgg", n_batches=n)),
+    "sentiment": ({"model": "demo/sentiment stacked_lstm_net "
+                            "(models/text_dsl)", "emb": 128, "hid": 128,
+                   "lstm_layers": 3,
+                   "data": "data.datasets.imdb train, 8-119 tokens",
+                   "optimizer": "Adam lr 0.002 l2 1e-4 clip_norm 5"},
+                  lambda n: text_dsl.config("sentiment", n_batches=n)),
+    "quick_start_cnn": ({"model": "demo/quick_start cnn_net "
+                                  "(models/text_dsl: networks."
+                                  "sequence_conv_pool, window 3, fc 256)",
+                         "emb": 128,
+                         "data": "data.datasets.imdb train, 8-119 tokens",
+                         "optimizer": "Adam lr 0.002"},
+                        lambda n: text_dsl.config("cnn", n_batches=n)),
+    "srl": ({"model": "demo/semantic_role_labeling db_lstm "
+                      "(models/tagging_dsl.db_lstm_net: mixed layers, "
+                      "lstmemory x 8 alternating, crf_layer)",
+             "emb": 32, "hid": 128, "depth": 8,
+             "data": "data.datasets.conll05 train, 5-39 tokens",
+             "optimizer": "Adam lr 1e-3 clip_threshold 5"},
+            lambda n: tagging_dsl.config("srl", n_batches=n)),
+    "tagging": ({"model": "demo/sequence_tagging linear_crf "
+                          "(models/tagging_dsl.linear_crf_net: context "
+                          "window 3, fc 128, crf_layer)",
+                 "word_emb": 64, "pred_emb": 32, "hidden": 128,
+                 "data": "data.datasets.conll05 train, shuffled, "
+                         "5-39 tokens",
+                 "optimizer": "Momentum lr 0.01 m 0.9 l2 1e-4"},
+                lambda n: tagging_dsl.config("tagging", n_batches=n)),
+}
+
+
 def bench_dsl(model, n_batches=8, device=None):
-    """``trainer.SGD`` over a demo's layer-DSL config: ``vgg_cifar``
-    (``models/image_dsl.cifar_config(model="vgg")``: the
-    image_classification demo's vgg, batch 128 of the cifar loader,
-    Momentum lr 0.01 m 0.9 l2 1e-4) or ``sentiment``
-    (``models/text_dsl.config``: the sentiment demo's stacked LSTM, hid
-    128, batch 64 of the imdb loader's ragged reviews, Adam lr 0.002 l2
-    1e-4 clip_norm 5.0), over the loader's first ``n_batches`` batches
+    """``trainer.SGD`` over a demo's layer-DSL config (``DSL_CONFIGS``):
+    ``vgg_cifar`` (the image_classification demo's vgg, batch 128 of the
+    cifar loader), ``sentiment`` (the sentiment demo's stacked LSTM, hid
+    128, batch 64 of the imdb loader's ragged reviews),
+    ``quick_start_cnn`` (quick_start's cnn, batch 64 of imdb), ``srl``
+    (the SRL demo's db-LSTM + CRF at hid 128, depth 8, batch 16 of the
+    conll05 loader) or ``tagging`` (sequence_tagging's linear CRF, batch
+    32 of conll05), over the loader's first ``n_batches`` batches
     (params from SGD's seed).  ``train_step()`` feeds the next batch
-    through ``SGD.train_one_batch`` (DataFeeder, forward, ``backward()``,
-    the update) and returns the loss."""
+    through ``SGD.train_one_batch`` (DataFeeder, forward,
+    ``backward()``, the update) and returns the loss."""
     from paddle_tpu_torch.trainer import SGD
     dev = _device.resolve(device)
-    if model == "vgg_cifar":
-        cfg = image_dsl.cifar_config(model="vgg", n_batches=n_batches)
-        size = image_dsl.CIFAR_BATCH
-    elif model == "sentiment":
-        cfg = text_dsl.config("sentiment", n_batches=n_batches)
-        size = text_dsl.BATCH
-    else:
+    if model not in DSL_CONFIGS:
         raise ValueError(f"bench_dsl: model {model!r}")
+    cfg = DSL_CONFIGS[model][1](n_batches)
     trainer = SGD(cost=cfg["cost"], update_equation=cfg["optimizer"],
                   device=dev)
     feeder = DataFeeder(cfg["feeding"], device=dev)
@@ -809,7 +850,50 @@ def bench_dsl(model, n_batches=8, device=None):
         count[0] += 1
         return trainer.train_one_batch(batches[i], feeder)
 
-    return DslBench(train_step, trainer, feeder, batches, size)
+    return DslBench(train_step, trainer, feeder, batches, len(batches[0]))
+
+
+def crf_split(bench, steps):
+    """The CRF cost's share of a CRF config's step (``bench_dsl``), by
+    ablation: ``steps`` pairs of steps on the same batch, one as it is
+    and one with ``ops/crf.crf_log_likelihood`` replaced by zero times
+    the sum of its emissions and weight (every other node, the backward
+    through the emissions and the update unchanged), after a warm-up
+    pair, each step ending in a synchronize.  Returns the two median ms,
+    their difference (the CRF's ms) and its share of the step; raises
+    unless each ablated step called the stand-in once (a step that
+    reached the CRF some other way would read a share of 0)."""
+    from paddle_tpu_torch.ops import crf as crf_ops
+    plain = crf_ops.crf_log_likelihood
+    calls = [0]
+
+    def stand_in(emissions, tags, lengths, w):
+        calls[0] += 1
+        # zero, so the parameters keep to the demo's path
+        return 0.0 * (emissions.sum(dim=(1, 2)) + w.sum())
+
+    times = ([], [])
+    try:
+        # a warm-up pair first
+        for i in range(2 * steps + 2):
+            crf_ops.crf_log_likelihood = stand_in if i % 2 else plain
+            batch = bench.batches[(i // 2) % len(bench.batches)]
+            before = calls[0]
+            t0 = time.perf_counter()
+            bench.trainer.train_one_batch(batch, bench.feeder)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[i % 2].append((time.perf_counter() - t0) * 1e3)
+            if calls[0] - before != i % 2:
+                raise RuntimeError(
+                    f"crf_split: step {i} called the stand-in "
+                    f"{calls[0] - before} times, not {i % 2}")
+    finally:
+        crf_ops.crf_log_likelihood = plain
+    with_crf, without = (float(np.median(t)) for t in times)
+    return {"step_ms": with_crf, "step_ms_crf_summed_away": without,
+            "crf_ms": with_crf - without,
+            "crf_share": (with_crf - without) / with_crf}
 
 
 def image_step_split(bench, steps):
@@ -1069,8 +1153,8 @@ def main(argv=None):
                                         "trainer_int8", "transformer_decode",
                                         "serving_quant",
                                         "serving_speculative",
-                                        "recommendation", "vgg_cifar",
-                                        "sentiment", *IMAGE_CONFIGS),
+                                        "recommendation", *DSL_CONFIGS,
+                                        *IMAGE_CONFIGS),
                     default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
                     help="the LSTM's hidden size (--model lstm)")
@@ -1206,26 +1290,17 @@ def main(argv=None):
             "loss_first_last": [losses[0], losses[-1]],
         }), flush=True)
         return 0
-    if args.model in ("vgg_cifar", "sentiment"):
+    if args.model in DSL_CONFIGS:
         bench = bench_dsl(args.model, device=dev)
         times, losses = _timed(bench.train_step)
         ms = float(np.median(times))
         lk = kernels.lstm
+        split = step_split(bench.trainer, bench.feeder, bench.batches, STEPS)
         print(json.dumps({
             "bench": f"{args.model}_dsl", "card": _device.card(),
             "compute_dtype": _compute_dtype(),
-            "config": ({"model": "demo/image_classification vgg_bn_drop "
-                                 "(models/image_dsl)",
-                        "batch": bench.samples_per_step,
-                        "image": [32, 32, 3],
-                        "optimizer": "Momentum lr 0.01 m 0.9 l2 1e-4"}
-                       if args.model == "vgg_cifar" else
-                       {"model": "demo/sentiment stacked_lstm_net "
-                                 "(models/text_dsl)", "emb": 128,
-                        "hid": 128, "lstm_layers": 3,
-                        "batch": bench.samples_per_step,
-                        "data": "data.datasets.imdb train, 8-119 tokens",
-                        "optimizer": "Adam lr 0.002 l2 1e-4 clip_norm 5"}),
+            "config": {**DSL_CONFIGS[args.model][0],
+                       "batch": bench.samples_per_step},
             "entry": "trainer.SGD.train_one_batch",
             "steps": STEPS, "ms_per_batch": ms,
             "ms_per_batch_p90": float(np.percentile(times, 90)),
@@ -1233,8 +1308,9 @@ def main(argv=None):
             "loss_first_last": [losses[0], losses[-1]],
             "launches": {lk.NAME_FWD: lk.launches_fwd,
                          lk.NAME_BWD: lk.launches_bwd},
-            "split_ms": step_split(bench.trainer, bench.feeder,
-                                   bench.batches, STEPS),
+            "split_ms": split,
+            **({"crf": crf_split(bench, STEPS)}
+               if args.model in ("srl", "tagging") else {}),
         }), flush=True)
         return 0
     if args.model == "serving_quant":

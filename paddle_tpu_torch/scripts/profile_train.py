@@ -2,7 +2,8 @@
 
     python -m paddle_tpu_torch.scripts.profile_train \
         [--model lstm|transformer|transformer_packed|transformer_moe|
-                 seq2seq|rnn|transformer_decode|resnet50]
+                 seq2seq|rnn|transformer_decode|resnet50|srl|tagging|
+                 quick_start_cnn]
         [--hidden 512|1280|2048] [--remat] [--dtype auto|float32|bfloat16]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
@@ -41,8 +42,15 @@ time by group (``image_group``: cuDNN's convolutions, matrix products,
 reductions -- batch norm's statistics and the pools' means --,
 pooling, elementwise -- batch norm's normalization, ReLU, the residual
 sums and the optimizer's update -- and the rest) and the step's split
-into forward, backward and update (``bench.image_step_split``).  Needs
-a CUDA device.
+into forward, backward and update (``bench.image_step_split``).
+``srl``, ``tagging`` and ``quick_start_cnn`` profile
+``scripts/bench.bench_dsl``'s step of those demos (the SRL db-LSTM at
+hid 128, depth 8, batch 16; the linear CRF at batch 32; quick_start's
+cnn at batch 64) and add the step's split (``bench.step_split``) and,
+for the CRF configs, the CRF's ms and share of the step by ablation
+(``bench.crf_split``: the step against the same step with the CRF cost
+summed away), both timed before the profiler runs.  Needs a CUDA
+device.
 """
 
 import argparse
@@ -53,15 +61,17 @@ import torch
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.scripts.bench import (
-    bench_lstm, bench_resnet50, bench_rnn, bench_seq2seq, bench_transformer,
-    bench_transformer_decode, bench_transformer_moe,
-    bench_transformer_packed, image_step_split, step_split)
+    DSL_CONFIGS, bench_dsl, bench_lstm, bench_resnet50, bench_rnn,
+    bench_seq2seq, bench_transformer, bench_transformer_decode,
+    bench_transformer_moe, bench_transformer_packed, crf_split,
+    image_step_split, step_split)
 from paddle_tpu_torch.scripts.profile_step import measure
 
 WARMUP = 5
 STEPS = {"lstm": 20, "transformer": 10, "transformer_packed": 10,
          "transformer_moe": 10, "seq2seq": 10, "rnn": 20,
-         "transformer_decode": 2, "resnet50": 10}
+         "transformer_decode": 2, "resnet50": 10, "srl": 10, "tagging": 10,
+         "quick_start_cnn": 10}
 # the decode positions of one transformer_decode "step" (its max_len)
 DECODE_POSITIONS = 128
 
@@ -135,6 +145,10 @@ def main(argv=None):
         config = ("MoE causal LM vocab 32000, d_model 512, 8 heads, 8 "
                   "experts top 2 of dff 2048, 6 layers, batch 16, length "
                   f"512, Adam, remat {bench.remat}")
+    elif args.model in DSL_CONFIGS:
+        bench = bench_dsl(args.model, device=dev)
+        config = json.dumps({**DSL_CONFIGS[args.model][0],
+                             "batch": bench.samples_per_step})
     else:
         bench = bench_transformer(remat=remat, device=dev)
         config = ("transformer MT vocab 32000, d_model 512, 8 heads, dff "
@@ -145,6 +159,13 @@ def main(argv=None):
     for _ in range(1 if args.model == "transformer_decode" else WARMUP):
         step()
     torch.cuda.synchronize()
+    # the DSL demos' split and CRF share, timed before the profiler runs
+    extra = {}
+    if args.model in DSL_CONFIGS:
+        extra["split_ms"] = step_split(bench.trainer, bench.feeder,
+                                       bench.batches, STEPS[args.model])
+    if args.model in ("srl", "tagging"):
+        extra["crf"] = crf_split(bench, STEPS[args.model])
     out = measure(step, STEPS[args.model],
                   group=image_group if args.model == "resnet50" else None)
     if args.model == "resnet50":
@@ -152,6 +173,7 @@ def main(argv=None):
     if args.model == "rnn":
         out["split_ms"] = step_split(bench.trainer, bench.feeder,
                                      bench.batches, STEPS[args.model])
+    out.update(extra)
     if args.model == "transformer_decode":
         out["per_position"] = {
             "positions": DECODE_POSITIONS,

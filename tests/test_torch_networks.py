@@ -11,8 +11,9 @@ JAX package's on the CPU, and the image_classification demo's vgg config
   the recurrent composites and ``simple_attention`` also the gradient of
   every parameter (of the sum of the valid outputs times a seeded
   cotangent), over ragged sequences.
-- The five composites built on ``mixed_layer`` or ``recurrent_group``
-  raise ``ConfigError`` naming ROADMAP A10·b.
+- The four composites built on ``recurrent_group`` raise
+  ``ConfigError`` naming ROADMAP A10·b (``sequence_conv_pool`` is held
+  in tests/test_torch_mixed.py).
 - ``vgg_bn_drop`` at the demo's rates in test mode, against the JAX DSL
   with ``num_channels=64`` given after the dropout (JAX's
   ``dropout_layer`` drops the image metadata: ROADMAP C13); and in train
@@ -241,18 +242,13 @@ def test_inputs_and_outputs():
     assert L.networks.__all__ == JL.networks.__all__
 
 
-@pytest.mark.parametrize("ctor", ["text_conv_pool", "sequence_conv_pool",
-                                  "gru_unit", "gru_group", "lstmemory_unit",
+@pytest.mark.parametrize("ctor", ["gru_unit", "gru_group", "lstmemory_unit",
                                   "lstmemory_group"])
 def test_refusals_name_a10b(ctor):
     L.reset_names()
     x = _seq(L)
-    fn = getattr(L.networks, ctor)
     with pytest.raises(ConfigError, match="A10·b"):
-        if ctor in ("text_conv_pool", "sequence_conv_pool"):
-            fn(x, context_len=3, hidden_size=8)
-        else:
-            fn(x, size=H)
+        getattr(L.networks, ctor)(x, size=H)
 
 
 # ------------------------------------------------------------ vgg_bn_drop

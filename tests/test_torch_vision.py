@@ -164,11 +164,19 @@ def test_vision_layers_match_jax(zoo_jax):
 
 
 def test_mixed_layer_parts_raise():
+    """The conv parts go into a mixed layer (their parity tests are in
+    tests/test_torch_mixed.py); the refusals JAX shares: an empty
+    ``with mixed_layer()`` block and ``+=`` after the block."""
     img = L.data_layer("image", size=3 * 8 * 8, height=8, width=8)
-    with pytest.raises(ConfigError, match="mixed_layer"):
-        L.conv_projection(img, filter_size=3, num_filters=4, num_channels=3)
-    with pytest.raises(ConfigError, match="mixed_layer"):
-        L.conv_operator(img, img, filter_size=3, num_filters=4)
+    with pytest.raises(ConfigError, match="empty mixed_layer"):
+        with L.mixed_layer(size=4 * 8 * 8):
+            pass
+    with L.mixed_layer(size=4 * 8 * 8) as m:
+        m += L.conv_projection(img, filter_size=3, num_filters=4,
+                               num_channels=3, padding=1)
+    with pytest.raises(ConfigError, match="already finalized"):
+        m += L.conv_projection(img, filter_size=3, num_filters=4,
+                               num_channels=3, padding=1)
 
 
 # ----------------------------------------------------------- mnist demo
