@@ -400,6 +400,28 @@ non-zero exit code and no final "ok" line:
             a pass), the introduction's line (8 passes reach w 2,
             b 0.3) and a ctc_layer graph's loss and gradients against
             the CPU; no counted kernel launched
+  layers_a10b  the elementwise, sequence and layer_math layers, nce_layer
+            and hsigmoid (2073 classes) and sampling_id_layer in one
+            graph at batch 64, width 256 over ragged sequences: every
+            output and gradient against the CPU within 1e-5 of its
+            largest entry, the card's draws replayed on the CPU; no
+            counted kernel launched
+  train_word2vec, train_word2vec_softmax  demo/word2vec
+            (models/word2vec_dsl: vocab 2073, four embeddings sharing one
+            table, fc 128, hsigmoid or a softmax fc) through SGD at batch
+            64 with AdaGrad: the first step against the CPU, three
+            passes of the imikolov loader (the first pass's loss falling,
+            SGD.test's cost below the start weights'), the CLI on
+            word2vec_dsl.py; no counted kernel launched
+  train_seqtoseq_demo  demo/seqToseq's training script
+            (models/seqtoseq_demo: hidden 256, batch 32 of the wmt14
+            loader's ragged sources, Adam with clip_norm): the encoder
+            before any step and the first step's loss and gradients
+            against the CPU, which the same step through the
+            one-TF32-pass GRU build must fail; the GRU kernels 2 + 2 a
+            step over a pass whose loss falls; beam generate (5 lanes,
+            40 steps) on 8 test sources, the lean forward once a
+            direction, against the CPU up to each row's first near-tie
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -2012,26 +2034,28 @@ def check_lstm_kernels(torch, dev, rng, t, b, d, timed):
 
 
 # the one-TF32-pass builds of the kernels, kept for the train phases'
-# step-level controls: {"lstm": (fwd, bwd, dwr) C entries}
+# step-level controls: {"lstm": (fwd, bwd, dwr), "gru": (fwd, bwd, _)}
+# C entries
 TF32_1X = {}
 
 
 @contextlib.contextmanager
-def lstm_tf32_1x():
-    """Within it, the LSTM wrappers' float32 instances launch the
-    one-TF32-pass build of csrc/lstm.cu (``check_lstm_tf32_control``'s
-    control) in place of the kernels: a step whose LSTMs compute in
-    single-pass TF32 and nothing else differs."""
+def tf32_1x(kind):
+    """Within it, the ``kind`` ("lstm" or "gru") wrappers' float32
+    instances launch the one-TF32-pass build of csrc/<kind>.cu
+    (``check_<kind>_tf32_control``'s control) in place of the kernels: a
+    step whose LSTMs or GRUs compute in single-pass TF32 and nothing else
+    differs."""
     import types
     from paddle_tpu_torch.ops.kernels import _build
-    fwd, bwd, _ = TF32_1X["lstm"]
-    lib = _build.load("lstm")
-    _build._libs["lstm"] = types.SimpleNamespace(lstm_fwd_f32=fwd,
-                                                 lstm_bwd_f32=bwd)
+    fwd, bwd = TF32_1X[kind][:2]
+    lib = _build.load(kind)
+    _build._libs[kind] = types.SimpleNamespace(
+        **{f"{kind}_fwd_f32": fwd, f"{kind}_bwd_f32": bwd})
     try:
         yield
     finally:
-        _build._libs["lstm"] = lib
+        _build._libs[kind] = lib
 
 
 def check_lstm_tf32_control(torch, dev):
@@ -2364,6 +2388,7 @@ def check_gru_tf32_control(torch, dev, libs):
                           GRU_D)
     kernel = (_build.entry("gru", "gru_fwd_f32", *gk.FWD_ARGS),
               _build.entry("gru", "gru_bwd_f32", *gk.BWD_ARGS))
+    TF32_1X["gru"] = libs["tf32_1x"][0]
     errs = {"kernel": case.errors(kernel),
             "tf32_1x": case.errors(libs["tf32_1x"][0])}
     worst = {name: max(e.values()) for name, e in errs.items()}
@@ -6437,26 +6462,26 @@ def run_train_image(torch, dev, kernels):
 
 
 @contextlib.contextmanager
-def dropout_probe(record, given=None):
-    """Within it, every dropout draw of the layer DSL
-    (``layers/graph.Context.rand_like``: the uniforms a layer's mask
-    compares with 1 - rate) appends its draws to ``record`` on the host,
-    in call order.  With ``given`` (another run's record) it takes those
-    draws instead, on the input's device: a step that keeps another
-    run's masks, whatever generator it holds."""
+def draw_probe(record, given=None):
+    """Within it, every draw of the layer DSL's ``Context.uniform`` (the
+    uniforms behind nce_layer's negatives, sampling_id_layer's ids and
+    dropout's masks) appends its draws to ``record`` on the host, in call
+    order; with ``given`` (another run's record) it takes those draws
+    instead, on the asked device."""
     from paddle_tpu_torch.layers import graph
-    plain, it = graph.Context.rand_like, iter(given or ())
+    plain, it = graph.Context.uniform, iter(given or ())
 
-    def probe(ctx, x):
-        u = plain(ctx, x) if given is None else next(it).to(x.device)
+    def probe(ctx, shape, device):
+        u = plain(ctx, shape, device) if given is None \
+            else next(it).to(device)
         record.append(u.cpu())
         return u
 
-    graph.Context.rand_like = probe
+    graph.Context.uniform = probe
     try:
         yield
     finally:
-        graph.Context.rand_like = plain
+        graph.Context.uniform = plain
 
 
 def dsl_image_step(torch, dev, what, build, feeding, batch, optimizer,
@@ -6476,7 +6501,7 @@ def dsl_image_step(torch, dev, what, build, feeding, batch, optimizer,
     card = SGD(build(), update_equation=optimizer(), device=dev, seed=0)
     start = host_tree(card.parameters)
     rec, drops = [], []
-    with image_probe(torch, rec), dropout_probe(drops):
+    with image_probe(torch, rec), draw_probe(drops):
         loss_c = float(card.train_one_batch(batch, feeder=feeding))
 
     def replay(device, ctx=None):
@@ -6486,7 +6511,7 @@ def dsl_image_step(torch, dev, what, build, feeding, batch, optimizer,
         # off again
         feed = DataFeeder(feeding, device=tr.device)(batch)
         with (ctx or contextlib.nullcontext)(), image_probe(
-                torch, [], given=rec), dropout_probe([], given=drops):
+                torch, [], given=rec), draw_probe([], given=drops):
             loss = float(tr.train_one_batch(feed))
         return tr, loss
 
@@ -6838,6 +6863,41 @@ def run_train_vgg_cifar(torch, dev, kernels):
     F32_MS["train_vgg_cifar"] = ms
 
 
+def step_readings(got, ref, names=None):
+    """``got`` against ``ref``, each (loss, [gradient leaves]) of one
+    step: the loss's relative error and the worst leaf's error against
+    its largest entry (largest_err), named where ``names`` are given."""
+    errs = largest_err(got[1], ref[1])
+    out = {"loss_rel_err": abs(got[0] - ref[0]) / abs(ref[0]),
+           "grad_rel_err_max": max(errs)}
+    if names is not None:
+        out["worst_leaf"] = names[int(np.argmax(errs))]
+    return out
+
+
+def gate_first_step(what, card, ref, tol, control=None, names=None,
+                    **extra):
+    """The train phases' first-step gate: ``card`` and ``ref``, (loss,
+    [gradient leaves]) of one step from the same weights on the card and
+    on the CPU, within ``tol`` (step_readings); ``control``, (what it is,
+    its (loss, leaves) on the card), must fail that gate, or the phase
+    fails with both readings beside the limit.  Returns the readings,
+    ``extra`` beside them."""
+    def passes(r):
+        return r["loss_rel_err"] <= tol and r["grad_rel_err_max"] <= tol
+
+    out = {"vs_cpu": step_readings(card, ref, names), "tolerance": tol,
+           "loss": [card[0], ref[0]], **extra}
+    if not passes(out["vs_cpu"]):
+        fail(f"{what}: the first step on the card against the CPU: {out}")
+    if control is not None:
+        out["control"] = {"what": control[0],
+                          **step_readings(control[1], ref, names)}
+        if passes(out["control"]):
+            fail(f"{what}: the control passes the first-step gate: {out}")
+    return out
+
+
 def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
                      what, tol, control=None):
     """One SGD step of the DSL cost ``build()`` on the card under
@@ -6867,10 +6927,6 @@ def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
         tr._update()
         return tr, float(total.detach()), grads
 
-    def readings(got, ref):
-        return {"loss_rel_err": abs(got[1] - ref[1]) / abs(ref[1]),
-                "grad_rel_err_max": max(largest_err(got[2], ref[2]))}
-
     t0 = time.perf_counter()
     kernels.reset_launches()
     rec_c = []
@@ -6878,29 +6934,23 @@ def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
     launches = (kernels.lstm.launches_fwd, kernels.lstm.launches_bwd)
     argmax = [r["argmax"] for r in rec_c]
     witness = step("cpu", [], argmax)
-    out = {"vs_cpu": readings(card, witness), "tolerance": tol,
-           "loss": [card[1], witness[1]]}
+    extra = {}
     if rec_c:
         rec_r = []
         plain = step("cpu", rec_r)
-        out.update({
+        extra = {
             "cpu": "a witness max-pooling at the card's argmax",
-            "vs_plain_cpu_step": readings(card, plain),
+            "vs_plain_cpu_step": step_readings(card[1:], plain[1:]),
             "argmax_flips_vs_plain_cpu": sum(
                 int((c["argmax"] != r["argmax"]).sum())
                 for c, r in zip(rec_c, rec_r)),
-            "pooled_units": sum(r["argmax"].numel() for r in rec_c)})
-    if max(out["vs_cpu"].values()) > tol:
-        fail(f"{what}: the first step on the card against the CPU: {out}")
+            "pooled_units": sum(r["argmax"].numel() for r in rec_c)}
+    ctl = None
     if control is not None:
-        ctl = readings(step(dev, [], argmax, ctx=control), witness)
-        out["control"] = {"what": "the LSTMs through the one-TF32-pass "
-                          "build of csrc/lstm.cu" + (
-                              ", the card's argmax replayed" if argmax
-                              else ""), **ctl}
-        if max(ctl.values()) <= tol:
-            fail(f"{what}: the TF32 control passes the first-step gate: "
-                 f"{out}")
+        ctl = ("the LSTMs through the one-TF32-pass build of csrc/lstm.cu"
+               + (", the card's argmax replayed" if argmax else ""),
+               step(dev, [], argmax, ctx=control)[1:])
+    out = gate_first_step(what, card[1:], witness[1:], tol, ctl, **extra)
     out["seconds"] = time.perf_counter() - t0
     return card[0], start, out, launches
 
@@ -6923,7 +6973,7 @@ def run_train_sentiment(torch, dev, kernels, seed):
     card, _, first, first_launches = graph_first_step(
         torch, dev, kernels, lambda: text_dsl.build("sentiment")[0],
         lambda: text_dsl.optimizer("sentiment"), feeding, data[0],
-        "train_sentiment", SENT_TOL, control=lstm_tf32_1x)
+        "train_sentiment", SENT_TOL, control=lambda: tf32_1x("lstm"))
     if first_launches != (3, 3):
         fail(f"train_sentiment: the first step launched the LSTM kernels "
              f"{first_launches} times, want (3, 3)")
@@ -7054,7 +7104,7 @@ def a9c_first_update(torch, dev, data, start):
     card = run(dev, rec)
     argmax = [r["argmax"] for r in rec]
     witness = run("cpu", [], argmax)
-    control = run(dev, [], argmax, ctx=lstm_tf32_1x)
+    control = run(dev, [], argmax, ctx=lambda: tf32_1x("lstm"))
     applied = [w.clone() for w in first]
     opt = text_dsl.optimizer("sentiment")
     opt.update(card[1], opt.init(applied), applied)
@@ -7553,7 +7603,7 @@ def run_train_srl(torch, dev, kernels, seed):
     card, start, first, first_launches = graph_first_step(
         torch, dev, kernels, lambda: tagging_dsl.build("srl")[0],
         lambda: tagging_dsl.optimizer("srl"), feeding, data[0], "train_srl",
-        SRL_TOL, control=lstm_tf32_1x)
+        SRL_TOL, control=lambda: tf32_1x("lstm"))
     if first_launches != (8, 8):
         fail(f"train_srl: the first step launched the LSTM kernels "
              f"{first_launches} times, want (8, 8)")
@@ -7702,6 +7752,450 @@ def run_train_crf_demos(torch, dev, kernels):
     if any(launches.values()):
         fail(f"train_crf_demos: counted kernels launched {launches}")
     emit({"phase": "train_crf_demos", **out})
+
+
+# ------------------------------------------------------------- A10·b
+
+# layers_a10b: the elementwise, sequence and layer_math layers of
+# tests/test_torch_{elementwise,sequence_layers}.py, with nce_layer and
+# hsigmoid over A10B_V classes and sampling_id_layer, in one graph at
+# batch A10B_B and width A10B_D (ragged sequences of up to A10B_T steps,
+# length 1 included): every output, and the gradients of the float
+# outputs summed against seeded cotangents with respect to every
+# parameter and float input, on the card against the CPU on the same
+# inputs and weights, each within A10B_TOL of the CPU's largest entry
+# (ids and lengths equal).  nce_layer's negatives and sampling_id_layer's
+# ids are drawn on the card (Context.uniform) and replayed on the CPU
+# (draw_probe).  No counted kernel is on this path: the ops are PyTorch
+# calls, as they are XLA's in JAX.
+A10B_B, A10B_D, A10B_T, A10B_V = 64, 256, 24, 2073
+A10B_TOL = 1e-5
+
+
+def a10b_feed(rng):
+    """The graph's numpy feed: {name: (array or (data, lengths), data
+    layer size)}."""
+    b, d, t, f = A10B_B, A10B_D, A10B_T, np.float32
+    lengths = rng.randint(1, t + 1, b).astype(np.int32)
+    lengths[:2] = (1, t)
+    ties = rng.randn(b, d).astype(f)
+    ties[:, 7] = ties[:, 3] = ties.max(axis=1) + 1.0    # first max at 3
+    off = (rng.randint(0, t, b) % lengths).astype(np.int32)
+    size = (rng.randint(0, t, b) % (lengths - off + 1)).astype(np.int32)
+
+    def normal(*shape):
+        return rng.randn(*shape).astype(f)
+
+    return {
+        "x": (normal(b, d), d), "y": (normal(b, d), d),
+        "z": (normal(b, d), d),
+        "pos": (rng.uniform(0.5, 2.0, (b, d)).astype(f), d),
+        "w01": (rng.uniform(0, 1, (b, 1)).astype(f), 1),
+        "p": (rng.uniform(0.5, 2.0, (b, 1)).astype(f), 1),
+        "s1": (normal(b, 1), 1), "k3": (normal(b, 3), 3),
+        "v3d": (normal(b, 3 * d), 3 * d), "a16": (normal(b, 16), 16),
+        "b16": (normal(b, 16), 16), "c5": (normal(b, 5), 5),
+        "img": (normal(b, d), d),
+        "idx": (rng.randint(0, 3, b).astype(np.int32), 1),
+        "sel": ((rng.uniform(0, 1, (b, d)) < 0.5).astype(f), d),
+        "ties": (ties, d),
+        "probs": (rng.dirichlet(np.ones(64), b).astype(f), 64),
+        "label": (rng.randint(0, A10B_V, b).astype(np.int32), 1),
+        "off": (off, 1), "size": (size, 1),
+        "start": (rng.randint(0, 4, b).astype(np.int32), 1),
+        "end": (rng.randint(4, t + 4, b).astype(np.int32), 1),
+        "xs": ((normal(b, t, d), lengths), d),
+        "ys": ((normal(b, t, d), lengths), d),
+        "ws": ((rng.uniform(0, 1, (b, t, 1)).astype(f), lengths), 1),
+        "bs": ((normal(b, 12, d), rng.randint(1, 13, b).astype(np.int32)),
+               d),
+        "ids": ((rng.randint(0, 6, (b, t)).astype(np.int32), lengths), 6)}
+
+
+def a10b_graph(L, feed):
+    """{name: LayerOutput} of every layer the phase holds, built with the
+    port's DSL over data layers named as ``feed``'s keys."""
+    d = A10B_D
+    data = {k: L.data_layer(k, size=size, is_seq=isinstance(v, tuple))
+            for k, (v, size) in feed.items()}
+
+    def fc(act="tanh"):
+        return L.fc_layer(data["x"], size=d, act=act)
+
+    xs = L.fc_layer(data["xs"], size=d, act="tanh")
+    out = {
+        "interpolation": L.interpolation_layer([fc(), data["y"]],
+                                               weight=data["w01"]),
+        "interpolation_seq": L.interpolation_layer(
+            [data["xs"], data["ys"]], weight=data["ws"]),
+        "power": L.power_layer(data["pos"], weight=data["p"]),
+        "scaling": L.scaling_layer(fc(), weight=data["s1"]),
+        "slope_intercept": L.slope_intercept_layer(fc(), slope=2.0,
+                                                   intercept=-0.5),
+        "linear_comb": L.linear_comb_layer(data["k3"], data["v3d"], size=d),
+        "sum_to_one_norm": L.sum_to_one_norm_layer(data["pos"]),
+        "cos_sim": L.cos_sim(fc(), data["y"], scale=5.0),
+        "cos_sim_vec_mat": L.cos_sim(data["x"], data["v3d"], size=3),
+        "out_prod": L.out_prod_layer(data["a16"], data["b16"]),
+        "trans": L.trans_layer(fc()),
+        "rotate": L.rotate_layer(data["img"], height=8, width=8),
+        "tensor": L.tensor_layer(data["a16"], data["b16"], size=d,
+                                 act="tanh"),
+        "multiplex": L.multiplex_layer([data["idx"], fc(), data["y"],
+                                        data["z"]]),
+        "conv_shift": L.conv_shift_layer(data["x"], data["c5"]),
+        "featmap_expand": L.featmap_expand_layer(data["a16"], 16),
+        "featmap_expand_elements": L.featmap_expand_layer(
+            data["a16"], 16, as_row_vector=False),
+        "resize": L.resize_layer(fc(), size=d // 2),
+        "repeat": L.repeat_layer(data["a16"], 16),
+        "repeat_seq": L.repeat_layer(xs, 2),
+        "prelu": L.prelu_layer(fc(act=None)),
+        "prelu_partial_sum": L.prelu_layer(fc(act=None), partial_sum=4),
+        "selective_fc": L.selective_fc_layer(data["x"], size=d),
+        "selective_fc_select": L.selective_fc_layer(
+            data["x"], size=d, select=data["sel"], act="sigmoid"),
+        "expand": L.expand_layer(fc(), expand_as=data["xs"]),
+        "seq_concat": L.seq_concat_layer(xs, data["bs"]),
+        "seq_reshape": L.seq_reshape_layer(xs, reshape_size=96),
+        "sub_seq": L.sub_seq_layer(xs, offsets=data["off"],
+                                   sizes=data["size"]),
+        "seq_slice": L.seq_slice_layer(xs, starts=data["start"],
+                                       ends=data["end"]),
+        "seq_slice_starts": L.seq_slice_layer(xs, starts=data["start"]),
+        "maxid": L.maxid_layer(data["ties"]),
+        "maxid_seq": L.maxid_layer(xs),
+        "eos": L.eos_layer(data["ids"], eos_id=3),
+        "last_seq_stride": L.last_seq(xs, stride=5),
+        "first_seq_stride": L.first_seq(xs, stride=5),
+        "sampling_id": L.sampling_id_layer(data["probs"]),
+        "nce": L.nce_layer(fc(), data["label"], num_classes=A10B_V),
+        "hsigmoid": L.hsigmoid(fc(act="sigmoid"), data["label"],
+                               num_classes=A10B_V),
+        "add_number": fc() + 2.0, "rsub_number": 1.5 - fc(),
+        "mul_number": 3.0 * fc(), "add_layer": fc() + data["y"],
+        "sub_layer": fc() - data["y"], "add_size1": data["s1"] + fc(),
+        "sub_size1": fc() - data["s1"], "mul_size1": data["s1"] * fc()}
+    for op in ("exp", "abs", "sigmoid", "tanh", "square", "relu"):
+        out[op] = getattr(L.layer_math, op)(fc(act=None))
+    for op in ("log", "sqrt"):
+        out[op] = getattr(L.layer_math, op)(data["pos"])
+    return out
+
+
+def a10b_run(torch, device, feed, start, given=None):
+    """The graph on ``device`` from the parameters ``start`` (host
+    tensors): ({name: (value, lengths or None)}, {parameter path or feed
+    name: gradient}, forward + backward ms, the draws), each on the host;
+    ``given`` replays another run's draws.  The float outputs' seeded
+    cotangents follow the graph's order, the same on every device."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.utils.tree import tree_map
+
+    def data_of(v):
+        return v.data if isinstance(v, SequenceBatch) else v
+
+    L.reset_names()
+    graph = a10b_graph(L, feed)
+    topo = L.Topology(list(graph.values()))
+    params = tree_map(lambda t: t.to(device).requires_grad_(True), start)
+    tensors = {k: torch.tensor(v[0] if isinstance(v, tuple) else v,
+                               device=device) for k, (v, _) in feed.items()}
+    for t in tensors.values():
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    tfeed = {k: SequenceBatch(tensors[k], torch.tensor(v[1], device=device))
+             if isinstance(v, tuple) else tensors[k]
+             for k, (v, _) in feed.items()}
+    draws, cots = [], np.random.RandomState(A10B_B + A10B_D)
+    gen = torch.Generator(device=device).manual_seed(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with draw_probe(draws, given):
+        outs = dict(zip(graph, topo.apply(params, tfeed, mode="train",
+                                          generator=gen)))
+    total = sum((data_of(o) * torch.tensor(cots.randn(
+        *data_of(o).shape).astype(np.float32), device=device)).sum()
+        for o in outs.values() if data_of(o).requires_grad)
+    total.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    values = {n: (data_of(o).detach().cpu(),
+                  o.lengths.cpu() if isinstance(o, SequenceBatch) else None)
+              for n, o in outs.items()}
+    grads = {f"{k}.{n}": p.grad.cpu() for k, v in params.items()
+             for n, p in v.items() if p.grad is not None}
+    grads.update({k: t.grad.cpu() for k, t in tensors.items()
+                  if t.grad is not None})
+    return values, grads, ms, draws
+
+
+def run_layers_a10b(torch, dev, kernels, seed):
+    """layers_a10b: the elementwise, sequence, layer_math and sampled-cost
+    layers on the card against the CPU (A10B_TOL), the card's draws
+    replayed on the CPU; no counted kernel launched."""
+    import paddle_tpu_torch.layers as L
+    feed = a10b_feed(np.random.RandomState(seed + 26))
+    L.reset_names()
+    start = L.Topology(list(a10b_graph(L, feed).values())).init(
+        torch.Generator().manual_seed(seed), device="cpu")
+    a10b_run(torch, dev, feed, start)              # warm-up
+    kernels.reset_launches()
+    card, card_g, ms, draws = a10b_run(torch, dev, feed, start)
+    launched = sum(launch_counts(kernels).values()) \
+        + recurrent_launches(kernels)
+    cpu, cpu_g, cpu_ms, _ = a10b_run(torch, "cpu", feed, start,
+                                     given=draws)
+    errs, unequal = {}, []
+    for n, (got, lens) in card.items():
+        want, want_lens = cpu[n]
+        if got.is_floating_point():
+            errs[n] = largest_err([got], [want])[0]
+        elif not torch.equal(got, want):
+            unequal.append(n)
+        if lens is not None and not torch.equal(lens, want_lens):
+            unequal.append(f"{n} lengths")
+    errs.update(zip((f"d {k}" for k in card_g), largest_err(
+        list(card_g.values()), [cpu_g[k] for k in card_g])))
+    out = {"phase": "layers_a10b", "config": {
+        "batch": A10B_B, "width": A10B_D, "seq_len_max": A10B_T,
+        "classes": A10B_V, "layers": sorted(card),
+        "entry": "layers.Topology.apply and autograd"},
+        "tolerance": A10B_TOL,
+        "rel_err_max": max(errs.values()),
+        "worst": sorted(errs.items(), key=lambda kv: -kv[1])[:6],
+        "outputs": len(card), "gradients": len(card_g),
+        "draws_replayed": [list(u.shape) for u in draws],
+        "ms_forward_backward": ms, "cpu_ms_forward_backward": cpu_ms,
+        "counted_kernel_launches": launched}
+    if max(errs.values()) > A10B_TOL or unequal or launched \
+            or set(card_g) != set(cpu_g) or len(draws) != 2:
+        fail(f"layers_a10b: card vs CPU (ids or lengths unequal at "
+             f"{unequal}): {out}")
+    emit(out)
+
+
+# train_word2vec: demo/word2vec (models/word2vec_dsl: a 5-gram over the
+# imikolov loader's 2073 words, four embeddings of 32 sharing "emb",
+# fc 128 sigmoid, then hsigmoid or a softmax fc of the vocab) through
+# SGD at batch 64 with AdaGrad lr 0.1, each variant: the first step's
+# loss and every gradient leaf on the card against the CPU from the
+# same weights within W2V_TOL of the CPU's largest entry, then
+# W2V_PASSES passes of the 64 train batches: the first pass's last 8
+# losses average below its first 8 (the demo's AdaGrad kicks the loss up
+# from 6.4 to 24 at its second step, hsigmoid, before it falls), and
+# SGD.test's cost after them below the start weights' (after one pass it
+# is not yet, on the synthetic stream); then the CLI on word2vec_dsl.py.
+# No counted kernel is on this path.
+W2V_TOL = 1e-5
+W2V_PASSES = 3
+W2V_CLI_CONFIG = "paddle_tpu_torch/models/word2vec_dsl.py"
+
+
+def run_train_word2vec(torch, dev, kernels, seed):
+    """train_word2vec and train_word2vec_softmax (see W2V_TOL)."""
+    from paddle_tpu_torch.models import word2vec_dsl
+    from paddle_tpu_torch.trainer import SGD
+    for use_hs in (True, False):
+        what = "train_word2vec" + ("" if use_hs else "_softmax")
+        cfg = word2vec_dsl.config(use_hs)
+        data, feeding = list(cfg["train_reader"]()), cfg["feeding"]
+
+        def build():
+            return word2vec_dsl.build(use_hs)[0]
+
+        card, start, first, first_launches = graph_first_step(
+            torch, dev, kernels, build, word2vec_dsl.optimizer, feeding,
+            data[0], what, W2V_TOL)
+        if first_launches != (0, 0):
+            fail(f"{what}: the first step launched the LSTM kernels "
+                 f"{first_launches} times")
+        times, losses = [], [first["loss"][0]]
+        for i in range(W2V_PASSES):
+            ms, ls, _ = sgd_pass(torch, kernels, card,
+                                 data[1:] if i == 0 else data, feeding, what)
+            times += ms
+            losses += ls
+        head, tail = np.mean(losses[:8]), np.mean(losses[len(data) - 8:
+                                                         len(data)])
+        if not tail < head:
+            fail(f"{what}: the first pass's last 8 losses average {tail}, "
+                 f"not below its first 8's {head}")
+        test_cost = test_cost_falls(cfg, card, start, what)
+        cli = rnn_cli(torch, dev, seed, card, what=what,
+                      config_file=W2V_CLI_CONFIG,
+                      config_args=("" if use_hs else "use_hsigmoid=0,")
+                      + "batches=2", batches=2,
+                      fresh=lambda: SGD(
+                          build(), update_equation=word2vec_dsl.optimizer(),
+                          device=dev))
+        ms = float(np.median(times[2:]))
+        emit({"phase": what, "config": {
+            "model": "demo/word2vec (models/word2vec_dsl, layer DSL: "
+                     "embedding_layer x 4 sharing 'emb', concat_layer, "
+                     "fc_layer, " + ("hsigmoid" if use_hs else
+                                     "fc_layer softmax + "
+                                     "classification_cost") + ")",
+            "vocab": word2vec_dsl.imikolov.WORD_DIM, "emb": word2vec_dsl.EMB,
+            "hidden": word2vec_dsl.HIDDEN, "ngram": word2vec_dsl.N,
+            "batch": word2vec_dsl.BATCH, "batches": len(data),
+            "passes": W2V_PASSES,
+            "data": "data.datasets.imikolov train (synthetic stream)",
+            "optimizer": "AdaGrad lr 0.1", "entry": "trainer.SGD.train"},
+            "ms_per_batch": ms,
+            "ms_per_batch_min_max": [min(times[2:]), max(times[2:])],
+            "samples_per_s": word2vec_dsl.BATCH / (ms / 1e3),
+            "loss_first_pass_first8_last8": [head, tail],
+            "loss_last": losses[-1], "test_cost": test_cost,
+            "first_step_vs_cpu": first, "cli": cli,
+            "counted_kernel_launches": 0})
+        F32_MS[what] = ms
+
+
+# train_seqtoseq_demo: demo/seqToseq's training script
+# (models/seqtoseq_demo: hidden = emb 256, batch 32 of the wmt14
+# loader's ragged sources of 3-29 tokens, Adam lr 5e-4 with clip_norm
+# 5.0; the encoder's two GRUs pass the fused rule at B 32, D 256).
+# Before any step the encoder's outputs on the first batch (the reverse
+# GRU over the time-flipped ragged rows) against the CPU; the first
+# step's loss and every gradient leaf against a CPU step from the same
+# weights within S2D_TOL of the CPU's largest entry, which the same step
+# with the GRUs through the one-TF32-pass build of csrc/gru.cu must fail
+# (both readings emitted beside the limit); the GRU kernels launched 2 +
+# 2 a step over the pass of 64 batches (the feed included in each step's
+# time), whose last 8 losses average below its first 8; then
+# seq2seq.generate (beam 5, 40 steps) on the first S2D_GEN_SRC test
+# sources, the lean forward launched once a direction, held against a
+# CPU run row by row up to each row's first near-tie (beam_agreement).
+# S2D_TOL lies between the readings on an H100 (PERF.md §6): the sound
+# step 2.7e-5 of its largest gradient entry (att_dec, the decoder's
+# attention projection summed over every target step and row), the
+# one-TF32-pass GRU control 3.1e-4 (enc_bwd.w_gate).
+S2D_HIDDEN, S2D_BATCH = 256, 32
+S2D_TOL = 1e-4
+S2D_GEN_BEAM, S2D_GEN_LEN, S2D_GEN_SRC = 5, 40, 8
+
+
+def run_train_seqtoseq_demo(torch, dev, kernels):
+    """train_seqtoseq_demo (see S2D_TOL) over scripts/bench.
+    bench_seqtoseq_demo's step and pass; returns the GRU launches of its
+    train pass and of its generate."""
+    import itertools
+    from paddle_tpu_torch.data.datasets import wmt14
+    from paddle_tpu_torch.models import seq2seq, seqtoseq_demo as sd
+    from paddle_tpu_torch.scripts import bench as bench_mod
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+    gk = kernels.gru
+    b = bench_mod.bench_seqtoseq_demo(device=dev)
+    batches, card_p = b.batches, b.params
+    start = tree_map(lambda t: t.detach().cpu().numpy().copy(), card_p)
+    cpu_p, _, cpu_step = sd.setup(S2D_HIDDEN, S2D_HIDDEN, "cpu",
+                                  params=start)
+    feed_c, feed_r = sd.feed_batch(batches[0], dev), sd.feed_batch(
+        batches[0], "cpu")
+    with torch.no_grad():
+        enc_c, enc_r = (seq2seq.encode(p, f[0]) for p, f in (
+            (card_p, feed_c), (cpu_p, feed_r)))
+    enc_err = dict(zip(("enc", "proj", "boot"), largest_err(
+        [enc_c[0].data.cpu(), enc_c[1].data.cpu(), enc_c[2].cpu()],
+        [enc_r[0].data, enc_r[1].data, enc_r[2]])))
+    if max(enc_err.values()) > S2D_TOL:
+        fail(f"train_seqtoseq_demo: the encoder on the card against the "
+             f"CPU {enc_err}, limit {S2D_TOL}")
+
+    def grads(params):
+        return [p.grad.detach().cpu() for p in tree_leaves(params)]
+
+    def launches():
+        return (gk.launches_fwd, gk.launches_bwd, recurrent_launches(kernels)
+                + sum(launch_counts(kernels).values()))
+
+    # the pass's first step (bench's train_step takes batches[0] first)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card = (float(b.train_step()), grads(card_p))
+    times, losses = [(time.perf_counter() - t0) * 1e3], [card[0]]
+    per_step = [launches()]
+    ref = (float(cpu_step(*feed_r)), grads(cpu_p))
+    ctl_p, _, ctl_step = sd.setup(S2D_HIDDEN, S2D_HIDDEN, dev, params=start)
+    ctl_feed = sd.feed_batch(batches[0], dev)
+    with tf32_1x("gru"):
+        ctl = (float(ctl_step(*ctl_feed)), grads(ctl_p))
+    first = gate_first_step(
+        "train_seqtoseq_demo", card, ref, S2D_TOL,
+        ("the encoder GRUs through the one-TF32-pass build of csrc/gru.cu",
+         ctl), leaf_names(cpu_p), encoder_rel_err=enc_err)
+    del ctl_p, cpu_p
+    for _ in batches[1:]:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(b.train_step()))
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(launches())
+    if any(n != (2, 2, 4) for n in per_step):
+        fail(f"train_seqtoseq_demo: per-step (GRU forward, GRU backward, "
+             f"every counted kernel) launches {per_step}, want (2, 2, 4) "
+             f"each step")
+    head, tail = np.mean(losses[:8]), np.mean(losses[-8:])
+    if not all(math.isfinite(x) for x in losses) or not tail < head:
+        fail(f"train_seqtoseq_demo: losses not finite or the last 8 not "
+             f"below the first 8: {losses}")
+
+    batch = list(itertools.islice(wmt14.test()(), S2D_GEN_SRC))
+    src = sd.feed_batch(batch, dev)[0]
+    kw = dict(beam_size=S2D_GEN_BEAM, max_len=S2D_GEN_LEN,
+              bos_id=wmt14.START, eos_id=wmt14.END)
+    seq2seq.generate(card_p, src, **kw)               # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    trace = []
+    t0 = time.perf_counter()
+    res = seq2seq.generate(card_p, src, trace=trace, **kw)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    gen_launches = {gk.NAME_FWD: gk.launches_fwd, gk.NAME_BWD: gk.launches_bwd}
+    if gen_launches != {gk.NAME_FWD: 2, gk.NAME_BWD: 0} \
+            or recurrent_launches(kernels) != 2 \
+            or sum(launch_counts(kernels).values()):
+        fail(f"train_seqtoseq_demo: generate launched {gen_launches} (every "
+             f"recurrent kernel {recurrent_launches(kernels)}), want the "
+             f"lean forward twice and nothing else")
+    params_cpu = tree_map(lambda p: p.detach().cpu(), card_p)
+    cpu_trace = []
+    cpu_res = seq2seq.generate(params_cpu, sd.feed_batch(batch, "cpu")[0],
+                               trace=cpu_trace, **kw)
+    vs_cpu = beam_agreement("train_seqtoseq_demo generate card vs CPU",
+                            cpu_res, res, cpu_trace, trace, S2D_GEN_SRC)
+    train = {gk.NAME_FWD: sum(n[0] for n in per_step),
+             gk.NAME_BWD: sum(n[1] for n in per_step)}
+    ms = float(np.median(times[3:]))
+    emit({"phase": "train_seqtoseq_demo", "config": {
+        "model": "demo/seqToseq (models/seqtoseq_demo over models/seq2seq: "
+                 "bi-GRU encoder, additive attention, GRU decoder)",
+        "vocab": [wmt14.SRC_DICT_SIZE, wmt14.TRG_DICT_SIZE],
+        "emb": S2D_HIDDEN, "hidden": S2D_HIDDEN, "batch": S2D_BATCH,
+        "batches": len(batches),
+        "data": "data.datasets.wmt14 train, shuffled (buffer 1024, seed 0), "
+                "sources of 3-29 tokens",
+        "optimizer": "Adam lr 5e-4 clip_norm 5",
+        "entry": "scripts/bench.bench_seqtoseq_demo's train_step "
+                 "(seqtoseq_demo.setup's step, feed_batch included)"},
+        "ms_per_batch": ms,
+        "ms_per_batch_min_max": [min(times[3:]), max(times[3:])],
+        "samples_per_s": S2D_BATCH / (ms / 1e3),
+        "target_tokens_per_s": b.target_tokens_per_step / (ms / 1e3),
+        "launches": train, "launches_per_step": dict(zip(train, (2, 2))),
+        "loss_first8_last8": [head, tail], "loss_last": losses[-1],
+        "first_step": first,
+        "generate": {"sources": S2D_GEN_SRC, "beam": S2D_GEN_BEAM,
+                     "max_len": S2D_GEN_LEN, "ms": gen_ms,
+                     "launches": gen_launches, "vs_cpu": vs_cpu,
+                     "mean_best_score": float(res.scores[:, 0].mean())}})
+    F32_MS["train_seqtoseq_demo"] = ms
+    return {"train": train, "generate": gen_launches}
 
 
 def main(argv=None):
@@ -7926,6 +8420,9 @@ def main(argv=None):
     a9c_launches = run_trainer_a9c(torch, dev, kernels, args.seed)
     srl_launches = run_train_srl(torch, dev, kernels, args.seed)
     run_train_crf_demos(torch, dev, kernels)
+    run_layers_a10b(torch, dev, kernels, args.seed)
+    run_train_word2vec(torch, dev, kernels, args.seed)
+    s2d_launches = run_train_seqtoseq_demo(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -8033,10 +8530,15 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": kernels.gru.SOURCE,
             "replaces": replaces,
             "launches": s2s_launches["train"][name]
-            + s2s_launches["generate"][name] + s2g_launches[name],
+            + s2s_launches["generate"][name] + s2g_launches[name]
+            + s2d_launches["train"][name] + s2d_launches["generate"][name],
             "launches_by_path": {
                 **{path: n[name] for path, n in s2s_launches.items()},
-                "generate_seq2seq": s2g_launches[name]},
+                "generate_seq2seq": s2g_launches[name],
+                **{f"{path}_seqtoseq_demo": n[name]
+                   for path, n in s2d_launches.items()}},
+            "shape_seqtoseq_demo": {"T": "3-29, ragged", "B": S2D_BATCH,
+                                    "D": S2D_HIDDEN},
             "max_abs_err": max([row["max_abs_err"]]
                                + [r["max_abs_err"] for r in gru_other
                                   if r["name"] == name]),

@@ -1,7 +1,7 @@
 """Data path (``paddle_tpu/data``): reader decorators, the input type
-declarations, the DataFeeder and four datasets of the zoo
-(``data.datasets``: mnist, cifar, imdb, movielens).  The ``@provider`` decorator, the
-prefetcher and the rest of the zoo are not ported yet (ROADMAP A9·f)."""
+declarations, the DataFeeder and the datasets of the zoo
+(``data.datasets``).  The ``@provider`` decorator and the prefetcher
+are not ported yet (ROADMAP A9·f)."""
 
 from paddle_tpu_torch.data import reader
 from paddle_tpu_torch.data.feeder import DataFeeder

@@ -1,12 +1,19 @@
-"""v1-DSL layer ctors (``paddle_tpu/layers/api.py``): the data, fc and
-embedding layers, ``mixed_layer`` with its projections and operators,
-sequence pooling, concat, addto, dropout, the cost zoo (classification,
-regression, self-normalized and binary cross-entropies, rank, lambda,
-huber, smooth-L1, sum), the structured costs (``crf_layer``,
-``crf_decoding_layer``, ``ctc_layer``, ``warp_ctc_layer``) and the
-mixture-of-experts ``moe_layer``.  ``layers/vision.py`` holds the conv
-stack and the conv parts of ``mixed_layer``.  The elementwise and
-sequence layers, ``nce_layer`` and ``hsigmoid`` wait for ROADMAP A10·b.
+"""v1-DSL layer ctors (``paddle_tpu/layers/api.py``, all 69 of its
+names): the data, fc and embedding layers, ``mixed_layer`` with its
+projections and operators, concat, addto, dropout, the elementwise
+layers over ``ops/math_ops`` (interpolation, power, scaling, cos_sim,
+tensor, prelu, selective_fc, ...), sequence pooling (strided too) and
+the sequence layers over ``ops/sequence`` (expand, seq_concat,
+seq_reshape, sub_seq, seq_slice, maxid, eos, sampling_id, print), the
+cost zoo (classification, regression, self-normalized and binary
+cross-entropies, rank, lambda, huber, smooth-L1, sum), the structured
+costs (``crf_layer``, ``crf_decoding_layer``, ``ctc_layer``,
+``warp_ctc_layer``), the sampled costs over ``ops/sampling``
+(``nce_layer``, ``hsigmoid``) and the mixture-of-experts ``moe_layer``.
+``layers/vision.py`` holds the conv stack and the conv parts of
+``mixed_layer``; ``layers/layer_math.py`` the arithmetic on
+``LayerOutput``.  Pooling over nested sequences (``agg_level="seq"``)
+waits for ``NestedSequenceBatch`` (ROADMAP A9·f).
 
 Every ctor returns a LayerOutput graph node; ``graph.Topology`` runs it.
 Initializers follow the JAX package's rules (weights normal with std
@@ -28,28 +35,39 @@ from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.layers.graph import (
     LayerOutput, register_layer, auto_name, map_rows, as_seq, value_data,
     dropout)
-from paddle_tpu_torch.ops import activations, linear, losses
+from paddle_tpu_torch.ops import activations, linear, losses, math_ops
 from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops import crf as crf_ops
 from paddle_tpu_torch.ops import ctc as ctc_ops
 from paddle_tpu_torch.ops import moe as moe_ops
+from paddle_tpu_torch.ops import sampling as sampling_ops
 from paddle_tpu_torch.ops import embedding as emb_ops
 from paddle_tpu_torch.ops import sequence as seq_ops
 from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = [
-    "data_layer", "fc_layer", "moe_layer", "embedding_layer",
-    "concat_layer", "addto_layer", "dropout_layer",
-    "pooling_layer", "pooling", "last_seq", "first_seq",
-    "mixed_layer", "full_matrix_projection", "trans_full_matrix_projection",
-    "identity_projection", "table_projection", "slice_projection",
+    "data_layer", "fc_layer", "embedding_layer", "dropout_layer",
+    "addto_layer", "concat_layer", "interpolation_layer", "power_layer",
+    "scaling_layer", "slope_intercept_layer", "linear_comb_layer",
+    "convex_comb_layer", "sum_to_one_norm_layer", "cos_sim",
+    "out_prod_layer", "trans_layer", "rotate_layer", "tensor_layer",
+    "multiplex_layer", "conv_shift_layer", "featmap_expand_layer",
+    "resize_layer", "prelu_layer", "selective_fc_layer",
+    "pooling_layer", "last_seq", "first_seq", "expand_layer",
+    "seq_concat_layer", "seq_reshape_layer", "sub_seq_layer",
+    "seq_slice_layer", "maxid_layer", "eos_layer", "sampling_id_layer",
+    "print_layer", "mixed_layer", "full_matrix_projection",
+    "trans_full_matrix_projection", "identity_projection", "table_projection",
     "dotmul_projection", "scaling_projection", "context_projection",
     "dotmul_operator",
     "classification_cost", "regression_cost", "mse_cost", "cross_entropy",
     "cross_entropy_with_selfnorm", "soft_binary_class_cross_entropy",
     "multi_binary_label_cross_entropy", "rank_cost", "lambda_cost",
     "huber_cost", "smooth_l1_cost", "sum_cost", "crf_layer",
-    "crf_decoding_layer", "ctc_layer", "warp_ctc_layer",
+    "crf_decoding_layer", "ctc_layer", "warp_ctc_layer", "nce_layer",
+    "hsigmoid", "pooling", "slice_projection",
+    "AggregateLevel", "ExpandLevel", "repeat_layer",
+    "moe_layer",
 ]
 
 
@@ -599,6 +617,304 @@ def addto_layer(input, act=None, name=None, bias_attr=False):
                        img_shape=img_shape)
 
 
+# ------------------------------------------------------- elementwise
+
+def _simple_layer(type_name, infer_fn, apply_fn):
+    """Register a parameter-free layer type from its size rule and its
+    apply (JAX's ``_simple_layer``)."""
+    class Impl:
+        def infer(self, cfg, in_sizes):
+            return infer_fn(cfg, in_sizes)
+
+        def apply(self, ctx, cfg, params, *inputs):
+            return apply_fn(ctx, cfg, *inputs)
+    register_layer(type_name)(Impl)
+
+
+_simple_layer("interpolation", lambda cfg, s: s[1],
+              lambda ctx, cfg, w, a, b: map_rows(math_ops.interpolation,
+                                                 w, a, b))
+
+
+def interpolation_layer(input, weight, name=None):
+    """weight * a + (1 - weight) * b, a per-row weight (reference
+    InterpolationLayer)."""
+    a, b = input
+    return LayerOutput(name or auto_name("interpolation"), "interpolation",
+                       a.size, [weight, a, b], {})
+
+
+_simple_layer("power", lambda cfg, s: s[1],
+              lambda ctx, cfg, p, x: map_rows(math_ops.power, p, x))
+
+
+def power_layer(input, weight, name=None):
+    """input ** weight, a per-row exponent (reference PowerLayer)."""
+    return LayerOutput(name or auto_name("power"), "power", input.size,
+                       [weight, input], {})
+
+
+_simple_layer("scaling", lambda cfg, s: s[1],
+              lambda ctx, cfg, w, x: map_rows(math_ops.scaling, w, x))
+
+
+def scaling_layer(input, weight, name=None):
+    """input times a per-row scalar weight (reference ScalingLayer)."""
+    return LayerOutput(name or auto_name("scaling"), "scaling", input.size,
+                       [weight, input], {})
+
+
+_simple_layer("slope_intercept", lambda cfg, s: s[0],
+              lambda ctx, cfg, x: map_rows(
+                  lambda d: math_ops.slope_intercept(d, cfg["slope"],
+                                                     cfg["intercept"]), x))
+
+
+def slope_intercept_layer(input, slope=1.0, intercept=0.0, name=None):
+    return LayerOutput(name or auto_name("slope_intercept"),
+                       "slope_intercept", input.size, [input],
+                       {"slope": slope, "intercept": intercept})
+
+
+_simple_layer("linear_comb", lambda cfg, s: cfg["size"],
+              lambda ctx, cfg, w, x: map_rows(
+                  lambda wd, xd: linear.linear_comb(xd, wd, cfg["size"]),
+                  w, x))
+
+
+def linear_comb_layer(weights, vectors, size=None, name=None):
+    """The weights [K] combine K vectors of ``size`` held in one row
+    [K * size] (reference LinearCombinationLayer); ``size`` defaults to
+    vectors.size / weights.size."""
+    if size is None:
+        if vectors.size % max(weights.size, 1) == 0:
+            size = vectors.size // weights.size
+        else:
+            raise ConfigError("linear_comb_layer needs size")
+    return LayerOutput(name or auto_name("linear_comb"), "linear_comb", size,
+                       [weights, vectors], {"size": size})
+
+
+convex_comb_layer = linear_comb_layer
+
+
+_simple_layer("sum_to_one_norm", lambda cfg, s: s[0],
+              lambda ctx, cfg, x: map_rows(math_ops.sum_to_one_norm, x))
+
+
+def sum_to_one_norm_layer(input, name=None):
+    return LayerOutput(name or auto_name("sum_to_one_norm"),
+                       "sum_to_one_norm", input.size, [input], {})
+
+
+_simple_layer("cos_sim", lambda cfg, s: 1,
+              lambda ctx, cfg, a, b: map_rows(
+                  lambda x, y: math_ops.cos_sim(x, y, cfg.get("scale", 1.0)),
+                  a, b))
+
+_simple_layer("cos_sim_vec_mat", lambda cfg, s: cfg["size"],
+              lambda ctx, cfg, a, b: map_rows(
+                  lambda v, m: math_ops.cos_sim_vec_mat(
+                      v, m.reshape(m.shape[0], cfg["size"], -1),
+                      cfg.get("scale", 1.0)), a, b))
+
+
+def cos_sim(a, b, scale=1.0, size=1, name=None):
+    """Row-wise cosine similarity times ``scale`` [B, 1]; with size > 1,
+    of the vector ``a`` against each of the ``size`` rows that ``b``
+    holds (reference CosSimVecMatLayer) [B, size]."""
+    if size > 1:
+        return LayerOutput(name or auto_name("cos_vm"), "cos_sim_vec_mat",
+                           size, [a, b], {"scale": scale, "size": size})
+    return LayerOutput(name or auto_name("cos_sim"), "cos_sim", 1, [a, b],
+                       {"scale": scale})
+
+
+_simple_layer("out_prod", lambda cfg, s: s[0] * s[1],
+              lambda ctx, cfg, a, b: map_rows(math_ops.outer_prod, a, b))
+
+
+def out_prod_layer(a, b, name=None):
+    return LayerOutput(name or auto_name("out_prod"), "out_prod",
+                       a.size * b.size, [a, b], {})
+
+
+# trans and resize reshape the whole batch matrix, across its rows, as
+# JAX's do: not row-local, so no map_rows
+_simple_layer("trans", lambda cfg, s: s[0],
+              lambda ctx, cfg, x: math_ops.trans(value_data(x)))
+
+
+def trans_layer(input, name=None):
+    """The batch matrix [B, D] transposed to [D, B] (reference
+    TransLayer); the node keeps the input's size, as JAX's does."""
+    return LayerOutput(name or auto_name("trans"), "trans", input.size,
+                       [input], {})
+
+
+_simple_layer("rotate", lambda cfg, s: s[0],
+              lambda ctx, cfg, x: map_rows(
+                  lambda d: math_ops.rotate(d, cfg["height"], cfg["width"]),
+                  x))
+
+
+def rotate_layer(input, height, width, name=None):
+    return LayerOutput(name or auto_name("rotate"), "rotate", input.size,
+                       [input], {"height": height, "width": width})
+
+
+class _TensorImpl:
+    def infer(self, cfg, in_sizes):
+        return cfg["size"]
+
+    def init(self, gen, cfg, in_sizes):
+        return {"w": _winit(cfg.get("param_attr"))(
+            gen, (cfg["size"], in_sizes[0], in_sizes[1]))}
+
+    def apply(self, ctx, cfg, params, a, b):
+        return map_rows(lambda x, y: math_ops.tensor_product(
+            x, y, params["w"], cfg.get("act")), a, b)
+
+
+register_layer("tensor")(_TensorImpl)
+
+
+def tensor_layer(a, b, size, act=None, name=None, param_attr=None,
+                 bias_attr=False):
+    """y_k = a W_k b^T for k < size, then ``act`` (reference TensorLayer;
+    w [size, a.size, b.size]; ``bias_attr`` is accepted and unused, as in
+    the JAX package)."""
+    return LayerOutput(name or auto_name("tensor"), "tensor", size, [a, b],
+                       {"size": size, "act": act, "param_attr": param_attr})
+
+
+_simple_layer("multiplex", lambda cfg, s: s[1],
+              lambda ctx, cfg, idx, *xs: map_rows(math_ops.multiplex,
+                                                  idx, *xs))
+
+
+def multiplex_layer(input, name=None):
+    """input = [index, x_0, x_1, ...]: row i of x_{index[i]} (reference
+    MultiplexLayer)."""
+    idx, *rest = input
+    return LayerOutput(name or auto_name("multiplex"), "multiplex",
+                       rest[0].size, [idx] + rest, {})
+
+
+_simple_layer("conv_shift", lambda cfg, s: s[0],
+              lambda ctx, cfg, a, b: map_rows(math_ops.conv_shift, a, b))
+
+
+def conv_shift_layer(a, b, name=None):
+    return LayerOutput(name or auto_name("conv_shift"), "conv_shift", a.size,
+                       [a, b], {})
+
+
+_simple_layer("featmap_expand", lambda cfg, s: s[0] * cfg["num_filters"],
+              lambda ctx, cfg, x: map_rows(
+                  lambda d: math_ops.feature_map_expand(
+                      d, cfg["num_filters"], cfg.get("as_row_vector", True)),
+                  x))
+
+
+def featmap_expand_layer(input, num_filters, as_row_vector=True, name=None):
+    return LayerOutput(name or auto_name("featmap_expand"), "featmap_expand",
+                       input.size * num_filters, [input],
+                       {"num_filters": num_filters,
+                        "as_row_vector": as_row_vector})
+
+
+_simple_layer("resize", lambda cfg, s: cfg["size"],
+              lambda ctx, cfg, x: math_ops.resize(value_data(x), cfg["size"]))
+
+
+def resize_layer(input, size, name=None):
+    """The batch's values re-read as rows of ``size`` (reference
+    ResizeLayer): [B, D] -> [B * D / size, size]."""
+    return LayerOutput(name or auto_name("resize"), "resize", size, [input],
+                       {"size": size}, is_seq=False)
+
+
+_simple_layer("repeat", lambda cfg, s: s[0] * cfg["n"],
+              lambda ctx, cfg, v: map_rows(
+                  lambda d: d.repeat((1,) * (d.dim() - 1) + (cfg["n"],)), v))
+
+
+def repeat_layer(input, num_repeats, name=None, layer_attr=None):
+    """y = [x, x, ..., x], ``num_repeats`` copies side by side (reference
+    repeat_layer, layers.py:1514)."""
+    return LayerOutput(name or auto_name("repeat"), "repeat",
+                       input.size * num_repeats, [input], {"n": num_repeats})
+
+
+class _PreluImpl:
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def init(self, gen, cfg, in_sizes):
+        n = cfg.get("partial_sum", 1)
+        return {"alpha": torch.full(
+            (in_sizes[0] // n if n else in_sizes[0],), 0.25,
+            device=gen.device)}
+
+    def apply(self, ctx, cfg, params, x):
+        n = cfg.get("partial_sum", 1)
+        alpha = torch.repeat_interleave(params["alpha"], n) if n > 1 \
+            else params["alpha"]
+        return map_rows(lambda d: math_ops.prelu(d, alpha), x)
+
+
+register_layer("prelu")(_PreluImpl)
+
+
+def prelu_layer(input, partial_sum=1, name=None, param_attr=None):
+    """Parametric ReLU (reference ParameterReluLayer): one learned slope
+    ``alpha`` (0.25 at init) for each ``partial_sum`` adjacent entries."""
+    return LayerOutput(name or auto_name("prelu"), "prelu", input.size,
+                       [input], {"partial_sum": partial_sum,
+                                 "param_attr": param_attr})
+
+
+class _SelectiveFcImpl:
+    """Reference SelectiveFullyConnectedLayer: the fc over the whole
+    class matrix, then, with a selection input, each row times its 0/1
+    selection (JAX's dense form)."""
+
+    def infer(self, cfg, in_sizes):
+        return cfg["size"]
+
+    def init(self, gen, cfg, in_sizes):
+        p = {"w": _winit(cfg.get("param_attr"))(gen,
+                                                (in_sizes[0], cfg["size"]))}
+        b = _maybe_bias(gen, cfg.get("bias_attr", True), cfg["size"])
+        if b is not None:
+            p["b"] = b
+        return p
+
+    def apply(self, ctx, cfg, params, x, sel=None):
+        def fn(d):
+            y = linear.matmul(d, params["w"])
+            if "b" in params:
+                y = y + params["b"]
+            return activations.get(cfg.get("act"))(y)
+        out = map_rows(fn, x)
+        if sel is not None:
+            out = map_rows(lambda o, s: o * s, out, sel)
+        return out
+
+
+register_layer("selective_fc")(_SelectiveFcImpl)
+
+
+def selective_fc_layer(input, size, select=None, act="tanh", name=None,
+                       param_attr=None, bias_attr=True):
+    ins = [input] + ([select] if select is not None else [])
+    return LayerOutput(name or auto_name("selective_fc"), "selective_fc",
+                       size, ins, {"size": size, "act": act,
+                                   "param_attr": param_attr,
+                                   "bias_attr": bias_attr})
+
+
 # ------------------------------------------------------- dropout
 
 class _DropoutImpl:
@@ -615,7 +931,7 @@ register_layer("dropout")(_DropoutImpl)
 def dropout_layer(input, dropout_rate, name=None):
     """Inverted dropout at ``dropout_rate`` in train mode (kept entries
     scaled by 1 / (1 - rate)), the identity in test mode; the mask is
-    drawn from the apply's generator (``Context.rand_like``), so its
+    drawn from the apply's generator (``Context.uniform``), so its
     bits are PyTorch's, not JAX's."""
     return LayerOutput(name or auto_name("dropout"), "dropout", input.size,
                        [input], {"drop_rate": dropout_rate},
@@ -630,6 +946,10 @@ class _SeqPoolImpl:
         return in_sizes[0]
 
     def apply(self, ctx, cfg, params, x):
+        stride = cfg.get("stride", -1)
+        if stride and stride > 0:
+            return seq_ops.seq_strided_pool(as_seq(x), cfg["pooling"],
+                                            int(stride))
         return seq_ops.seq_pool(as_seq(x), cfg["pooling"])
 
 
@@ -651,11 +971,11 @@ class pooling:
         name = "sqrt"
 
 
-def _whole_sequence(ctor, agg_level, stride=-1):
-    if agg_level == "seq" or (stride and stride > 0):
-        raise ConfigError(f"{ctor}: agg_level='seq' and stride > 0 pool "
-                          "nested or strided sequences, not ported yet "
-                          "(ROADMAP A10·b)")
+def _whole_sequence(ctor, agg_level):
+    if agg_level == "seq":
+        raise ConfigError(f"{ctor}: agg_level='seq' pools each sub-sequence "
+                          "of a nested sequence, which waits for "
+                          "NestedSequenceBatch (ROADMAP A9·f)")
 
 
 def pooling_layer(input, pooling_type=None, name=None, agg_level=None):
@@ -667,19 +987,179 @@ def pooling_layer(input, pooling_type=None, name=None, agg_level=None):
 
 
 def last_seq(input, name=None, agg_level=None, stride=-1):
-    _whole_sequence("last_seq", agg_level, stride)
+    """The last valid step of each sequence; with stride > 0 (reference
+    seqlastins stride) the last valid step of each window of ``stride``
+    steps, a shorter sequence (``ops/sequence.seq_strided_pool``)."""
+    _whole_sequence("last_seq", agg_level)
     return LayerOutput(name or auto_name("last_seq"), "seq_pool", input.size,
                        [input], {"pooling": "last", "stride": stride,
                                  "agg_level": agg_level},
-                       is_seq=False)
+                       is_seq=stride > 0)
 
 
 def first_seq(input, name=None, agg_level=None, stride=-1):
-    _whole_sequence("first_seq", agg_level, stride)
+    """The first step; with stride > 0 the first of each window."""
+    _whole_sequence("first_seq", agg_level)
     return LayerOutput(name or auto_name("first_seq"), "seq_pool", input.size,
                        [input], {"pooling": "first", "stride": stride,
                                  "agg_level": agg_level},
-                       is_seq=False)
+                       is_seq=stride > 0)
+
+
+class AggregateLevel:
+    """Reference AggregateLevel (layers.py:227)."""
+    EACH_TIMESTEP = "non-seq"
+    EACH_SEQUENCE = "seq"
+    TO_NO_SEQUENCE = "non-seq"
+    TO_SEQUENCE = "seq"
+
+
+class ExpandLevel:
+    """Reference ExpandLevel (layers.py:1456)."""
+    FROM_TIMESTEP = AggregateLevel.EACH_TIMESTEP
+    FROM_SEQUENCE = AggregateLevel.EACH_SEQUENCE
+    FROM_NO_SEQUENCE = AggregateLevel.EACH_TIMESTEP
+
+
+# ------------------------------------------------------- sequence layers
+
+_simple_layer("expand", lambda cfg, s: s[0],
+              lambda ctx, cfg, vec, like: seq_ops.expand(value_data(vec),
+                                                         as_seq(like)))
+
+
+def expand_layer(input, expand_as, name=None, expand_level=None):
+    """Each row of ``input`` repeated over the steps of its sequence in
+    ``expand_as`` (reference ExpandLayer; ``expand_level`` is accepted
+    and unused, as in the JAX package)."""
+    return LayerOutput(name or auto_name("expand"), "expand", input.size,
+                       [input, expand_as], {}, is_seq=True)
+
+
+_simple_layer("seq_concat", lambda cfg, s: s[0],
+              lambda ctx, cfg, a, b: seq_ops.seq_concat(as_seq(a),
+                                                        as_seq(b)))
+
+
+def seq_concat_layer(a, b, name=None):
+    return LayerOutput(name or auto_name("seq_concat"), "seq_concat", a.size,
+                       [a, b], {}, is_seq=True)
+
+
+_simple_layer("seq_reshape", lambda cfg, s: cfg["size"],
+              lambda ctx, cfg, x: seq_ops.seq_reshape(as_seq(x),
+                                                      cfg["size"]))
+
+
+def seq_reshape_layer(input, reshape_size, name=None):
+    return LayerOutput(name or auto_name("seq_reshape"), "seq_reshape",
+                       reshape_size, [input], {"size": reshape_size},
+                       is_seq=True)
+
+
+def _ids(v):
+    """A per-row integer input (offsets, sizes, starts, ends) as int32
+    [B]."""
+    return value_data(v).reshape(-1).to(torch.int32)
+
+
+class _SubSeqImpl:
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def apply(self, ctx, cfg, params, x, offsets, sizes):
+        sb = as_seq(x)
+        return seq_ops.sub_seq(sb, _ids(offsets), _ids(sizes), sb.max_len)
+
+
+register_layer("sub_seq")(_SubSeqImpl)
+
+
+def sub_seq_layer(input, offsets, sizes, name=None):
+    """Steps [offset, offset + size) of each sequence (reference
+    SubSequenceLayer)."""
+    return LayerOutput(name or auto_name("sub_seq"), "sub_seq", input.size,
+                       [input, offsets, sizes], {}, is_seq=True)
+
+
+class _SeqSliceImpl:
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def apply(self, ctx, cfg, params, x, *rest):
+        rest = list(rest)
+        starts = _ids(rest.pop(0)) if cfg["has_starts"] else None
+        ends = _ids(rest.pop(0)) if cfg["has_ends"] else None
+        return seq_ops.seq_slice(as_seq(x), starts, ends)
+
+
+register_layer("seq_slice")(_SeqSliceImpl)
+
+
+def seq_slice_layer(input, starts=None, ends=None, name=None):
+    """Steps [start, end) of each sequence, from 0 and to its length
+    where ``starts`` / ``ends`` are not given."""
+    ins = [input] + [x for x in (starts, ends) if x is not None]
+    return LayerOutput(name or auto_name("seq_slice"), "seq_slice",
+                       input.size, ins,
+                       {"has_starts": starts is not None,
+                        "has_ends": ends is not None}, is_seq=True)
+
+
+_simple_layer("maxid", lambda cfg, s: 1,
+              lambda ctx, cfg, x: map_rows(seq_ops.max_id, x))
+
+
+def maxid_layer(input, name=None):
+    return LayerOutput(name or auto_name("maxid"), "maxid", 1, [input], {})
+
+
+_simple_layer("eos", lambda cfg, s: 1,
+              lambda ctx, cfg, x: map_rows(
+                  lambda d: seq_ops.eos_check(d, cfg["eos_id"]), x))
+
+
+def eos_layer(input, eos_id, name=None):
+    return LayerOutput(name or auto_name("eos"), "eos", 1, [input],
+                       {"eos_id": eos_id})
+
+
+class _SamplingIdImpl:
+    def infer(self, cfg, in_sizes):
+        return 1
+
+    def apply(self, ctx, cfg, params, x):
+        return map_rows(lambda d: seq_ops.sampling_id(
+            ctx.uniform(d.shape[:-1], d.device), d), x)
+
+
+register_layer("sampling_id")(_SamplingIdImpl)
+
+
+def sampling_id_layer(input, name=None):
+    """An id per row drawn from the row's distribution, from the apply's
+    generator (``Context.uniform``), so its bits are PyTorch's."""
+    return LayerOutput(name or auto_name("sampling_id"), "sampling_id", 1,
+                       [input], {})
+
+
+class _PrintImpl:
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def apply(self, ctx, cfg, params, x):
+        print(cfg.get("format", "{}").format(value_data(x)), flush=True)
+        return x
+
+
+register_layer("print")(_PrintImpl)
+
+
+def print_layer(input, format=None, name=None):
+    """Prints its input's value on the host (a device sync) and returns
+    it."""
+    return LayerOutput(name or auto_name("print"), "print", input.size,
+                       [input], {"format": format or "{}"})
 
 
 # ------------------------------------------------------- cost layers
@@ -971,4 +1451,73 @@ def warp_ctc_layer(input, label, size=None, blank=0, norm_by_times=False,
     blank 0 unless given."""
     return LayerOutput(name or auto_name("warp_ctc"), "ctc", 1,
                        [input, label], {"blank": blank, "from_logits": True},
+                       is_seq=False)
+
+
+# ------------------------------------------------------- sampled costs
+
+class _NceImpl:
+    def infer(self, cfg, in_sizes):
+        return 1
+
+    def init(self, gen, cfg, in_sizes):
+        return {"w": _winit(cfg.get("param_attr"))(
+            gen, (cfg["num_classes"], in_sizes[0])),
+            "b": torch.zeros((cfg["num_classes"],), device=gen.device)}
+
+    def apply(self, ctx, cfg, params, x, label):
+        xd, ld = value_data(x), value_data(label)
+        ids = ld.reshape(ld.shape[0]).to(torch.int32)
+        n = cfg["num_classes"]
+        u = ctx.uniform((xd.shape[0], cfg.get("num_neg_samples", 10)),
+                        xd.device)
+        # uniform ids from the context's draws (floor(u * n): float32 u
+        # steps by 2^-24, so each id's share is 1/n within n * 2^-24)
+        neg = torch.clamp((u * n).long(), max=n - 1).to(torch.int32)
+        return sampling_ops.nce_loss(xd, params["w"], params["b"], ids, neg,
+                                     n)
+
+
+register_layer("nce")(_NceImpl)
+
+
+def nce_layer(input, label, num_classes, num_neg_samples=10, name=None,
+              param_attr=None):
+    """Noise-contrastive estimation over ``num_classes`` (reference
+    NCELayer): w [num_classes, input.size] and b; ``num_neg_samples``
+    uniform negatives a row, drawn from the apply's generator
+    (``Context.uniform``)."""
+    return LayerOutput(name or auto_name("nce"), "nce", 1, [input, label],
+                       {"num_classes": num_classes,
+                        "num_neg_samples": num_neg_samples,
+                        "param_attr": param_attr}, is_seq=False)
+
+
+class _HsigmoidImpl:
+    def infer(self, cfg, in_sizes):
+        return 1
+
+    def init(self, gen, cfg, in_sizes):
+        return {"w": _winit(cfg.get("param_attr"))(
+            gen, (cfg["num_classes"] - 1, in_sizes[0])),
+            "b": torch.zeros((cfg["num_classes"] - 1,), device=gen.device)}
+
+    def apply(self, ctx, cfg, params, x, label):
+        xd, ld = value_data(x), value_data(label)
+        ids = ld.reshape(ld.shape[0]).to(torch.int32)
+        return sampling_ops.hsigmoid_loss(xd, params["w"], params["b"], ids,
+                                          cfg["num_classes"])
+
+
+register_layer("hsigmoid")(_HsigmoidImpl)
+
+
+def hsigmoid(input, label, num_classes, name=None, param_attr=None,
+             bias_attr=True):
+    """The hierarchical sigmoid cost over ``num_classes`` (reference
+    HierarchicalSigmoidLayer): w [num_classes - 1, input.size] and b
+    (``bias_attr`` is accepted and unused, as in the JAX package)."""
+    return LayerOutput(name or auto_name("hsigmoid"), "hsigmoid", 1,
+                       [input, label],
+                       {"num_classes": num_classes, "param_attr": param_attr},
                        is_seq=False)

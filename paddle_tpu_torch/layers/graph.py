@@ -103,9 +103,10 @@ class LayerOutput:
 
 class Context:
     """Per-apply execution context: the mode, an explicit
-    ``torch.Generator`` for the layers that draw (dropout), and the
-    mutable-state collection a layer reads (``state_in``) and writes
-    (``state_out``, returned by ``Topology.apply(return_state=True)``)."""
+    ``torch.Generator`` for the layers that draw (dropout, nce,
+    sampling_id: ``uniform``), and the mutable-state collection a layer
+    reads (``state_in``) and writes (``state_out``, returned by
+    ``Topology.apply(return_state=True)``)."""
 
     def __init__(self, mode="train", generator=None, state=None):
         self.mode = mode                  # "train" | "test"
@@ -124,14 +125,16 @@ class Context:
     def put_state(self, name, value):
         self.state_out[name] = value
 
-    def rand_like(self, x):
-        """U[0, 1) of ``x``'s shape drawn from the context's generator,
-        on ``x``'s device."""
+    def uniform(self, shape, device):
+        """U[0, 1) of ``shape`` drawn from the context's generator, on
+        ``device``: dropout's masks, ``nce_layer``'s negatives and
+        ``sampling_id_layer``'s ids."""
         if self.generator is None:
-            raise ConfigError("this graph needs a generator (dropout); pass "
-                              "generator= to Topology.apply")
-        return torch.rand(x.shape, generator=self.generator,
-                          device=self.generator.device).to(x.device)
+            raise ConfigError("this graph draws (dropout, nce_layer, "
+                              "sampling_id_layer); pass generator= to "
+                              "Topology.apply")
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=self.generator.device).to(device)
 
 
 class _ErrorClip(torch.autograd.Function):
@@ -177,7 +180,7 @@ def dropout(ctx, rate, value):
         return value
 
     def drop(x):
-        keep = ctx.rand_like(x) < 1.0 - rate
+        keep = ctx.uniform(x.shape, x.device) < 1.0 - rate
         return torch.where(keep, x / (1.0 - rate), 0.0)
     return map_rows(drop, value)
 

@@ -1,10 +1,14 @@
-"""Pooling over the time axis of a padded sequence batch and the
-sliding-window ``context_projection`` (``paddle_tpu/ops/sequence.py``;
-reference SequencePoolLayer family, ContextProjection).  Padding never
-leaks into a result: max pools pad at -1e30 and an empty sequence pools
-to 0.  The other sequence ops (expand, concat, reshape, slices, maxid,
-eos, sampling) are not ported yet (ROADMAP A10·b)."""
+"""Variable-length sequence ops over padded batches
+(``paddle_tpu/ops/sequence.py``; reference SequencePoolLayer family,
+ExpandLayer, SequenceConcatLayer, SequenceReshapeLayer,
+SubSequenceLayer, ContextProjection, EosIdCheckLayer, MaxIdLayer,
+SamplingIdLayer).  Every op takes the padded data plus lengths and
+keeps padding out of its result: max pools pad at -1e30, an empty
+sequence pools to 0, and the ops that move steps zero every step past
+a sequence's new length.  ``nested_seq_pool`` waits for
+``NestedSequenceBatch`` (ROADMAP A9·f)."""
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.core.sequence import SequenceBatch
@@ -105,3 +109,130 @@ def context_projection(seq: SequenceBatch, context_len: int,
     out = torch.cat(cols, dim=-1)
     return SequenceBatch(data=out * seq.mask(out.dtype)[..., None],
                          lengths=lengths)
+
+
+def _take_steps(data, idx):
+    """data [B, T, ...] at per-row step indices idx [B, W] -> [B, W, ...]
+    (JAX's ``take_along_axis`` over the time axis)."""
+    rows = torch.arange(data.shape[0], device=data.device)[:, None]
+    return data[rows, idx.long()]
+
+
+def _zero_past(data, lengths):
+    """``data`` [B, W, ...] with every step at or past ``lengths`` zeroed:
+    a SequenceBatch of those lengths."""
+    out = SequenceBatch(data=data, lengths=lengths)
+    mask = out.mask(data.dtype).reshape(data.shape[:2]
+                                        + (1,) * (data.dim() - 2))
+    return SequenceBatch(data=data * mask, lengths=lengths)
+
+
+def expand(vec, like: SequenceBatch):
+    """[B, D] -> [B, T, D]: one row per sequence broadcast across its
+    steps, zero past its length (reference ExpandLayer)."""
+    data = vec[:, None, :].expand(vec.shape[0], like.max_len, vec.shape[-1])
+    data = data * like.mask(vec.dtype)[..., None]
+    return SequenceBatch(data=data, lengths=like.lengths)
+
+
+def seq_concat(a: SequenceBatch, b: SequenceBatch) -> SequenceBatch:
+    """Concatenate along time: [a_i ; b_i] per sample (reference
+    SequenceConcatLayer), padded to Ta + Tb."""
+    ta, tb = a.max_len, b.max_len
+    out_len = a.lengths + b.lengths
+    pos = torch.arange(ta + tb, device=a.data.device)[None, :]
+    in_a = pos < a.lengths[:, None]
+    ga = _take_steps(a.data, torch.clamp(pos, 0, ta - 1).expand(
+        a.batch_size, -1))
+    gb = _take_steps(b.data, torch.clamp(pos - a.lengths[:, None], 0,
+                                         tb - 1))
+    data = torch.where(in_a[..., None], ga, gb)
+    return _zero_past(data, out_len)
+
+
+def seq_reshape(seq: SequenceBatch, new_dim: int) -> SequenceBatch:
+    """Re-chunk each sequence's flattened valid tokens into rows of
+    ``new_dim`` (reference SequenceReshapeLayer): the payload past each
+    sequence's end is zeroed first and each new length is rounded up, so
+    the last row of a sequence whose len * d is not a multiple of
+    new_dim is zero-padded and the batch's padded length changes
+    nothing."""
+    b, t, d = seq.data.shape
+    data = seq.data * seq.mask(seq.data.dtype)[..., None]
+    rows = -(-(t * d) // new_dim)
+    flat = torch.nn.functional.pad(data.reshape(b, t * d),
+                                   (0, rows * new_dim - t * d))
+    new_len = -(-(seq.lengths.long() * d) // new_dim)
+    return SequenceBatch(data=flat.reshape(b, rows, new_dim),
+                         lengths=new_len.to(torch.int32))
+
+
+def sub_seq(seq: SequenceBatch, offsets, sizes, max_out: int
+            ) -> SequenceBatch:
+    """Per-sample slice [offset, offset + size) (reference
+    SubSequenceLayer), padded to ``max_out`` steps."""
+    pos = torch.arange(max_out, device=seq.data.device)[None, :]
+    idx = torch.clamp(offsets[:, None].long() + pos, 0, seq.max_len - 1)
+    return _zero_past(_take_steps(seq.data, idx), sizes.to(torch.int32))
+
+
+def seq_slice(seq: SequenceBatch, starts=None, ends=None) -> SequenceBatch:
+    """Steps [start, end) of each sequence; ``starts`` default to 0 and
+    ``ends`` to the lengths (and are cut to them)."""
+    starts = torch.zeros_like(seq.lengths) if starts is None else starts
+    ends = seq.lengths if ends is None else torch.minimum(
+        ends.to(seq.lengths.dtype), seq.lengths)
+    return sub_seq(seq, starts, ends - starts, seq.max_len)
+
+
+def max_id(x):
+    """argmax over the feature axis, the first maximum on a tie as
+    ``jnp.argmax`` takes it (reference MaxIdLayer)."""
+    return torch.argmax(x, dim=-1).to(torch.int32)
+
+
+def eos_check(ids, eos_id):
+    """1.0 where id == eos (reference EosIdCheckLayer)."""
+    return (ids == eos_id).to(torch.float32)
+
+
+def sampling_id(uniform, probs):
+    """One id per row drawn from the distribution ``probs`` [..., V]
+    (reference SamplingIdLayer) by its inverse CDF at ``uniform``, U[0,
+    1) draws of shape probs.shape[:-1].  Probabilities are floored at
+    1e-20 and need not sum to 1, as JAX's categorical over
+    log(max(p, 1e-20)) reads them."""
+    cdf = torch.cumsum(torch.clamp(probs.detach().float(), min=1e-20), -1)
+    target = (uniform.to(cdf.device).float() * cdf[..., -1])[..., None]
+    ids = torch.searchsorted(cdf.contiguous(), target.contiguous(),
+                             right=True)[..., 0]
+    return torch.clamp(ids, max=probs.shape[-1] - 1).to(torch.int32)
+
+
+def scatter_rows_to_steps(seq: SequenceBatch):
+    """[B, T, D] + lengths -> flat [sum_len, D] on the host (the inverse of
+    padding): a numpy array, for evaluation and I/O."""
+    data = seq.data.detach().cpu().numpy()
+    lens = seq.lengths.cpu().numpy()
+    return np.concatenate([data[i, :n] for i, n in enumerate(lens)], axis=0)
+
+
+def seq_strided_pool(seq: SequenceBatch, pooling: str, stride: int
+                     ) -> SequenceBatch:
+    """last / first over non-overlapping windows of ``stride`` steps: a
+    shorter sequence of ceil(len / stride) steps (reference
+    SequenceLastInstanceLayer / first with stride > 0).  "last" takes the
+    last valid step inside each window."""
+    b, t = seq.data.shape[:2]
+    n_win = -(-t // stride)
+    w = torch.arange(n_win, device=seq.data.device)[None, :]
+    if pooling == "first":
+        idx = (w * stride).expand(b, n_win)
+    elif pooling == "last":
+        end = torch.minimum((w + 1) * stride, seq.lengths[:, None].long())
+        idx = torch.clamp(end - 1, min=0)
+    else:
+        raise ValueError(f"strided seq pool supports last/first, "
+                         f"got {pooling!r}")
+    out_len = (-(-seq.lengths.long() // stride)).to(torch.int32)
+    return _zero_past(_take_steps(seq.data, idx), out_len)

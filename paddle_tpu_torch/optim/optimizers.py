@@ -6,9 +6,10 @@ with ``init(params) -> {"step", "slots"}`` and ``update(grads, state,
 params) -> (params, state)`` over nested dicts of tensors.  The JAX step
 donates params and optimizer state (``bench.py:335``), so here the update
 writes both in place, under ``torch.no_grad()``, and returns the same
-trees.  Momentum and Adam are ported; the other optimizers and the sparse
-``row_init`` / ``row_update`` path (with its caller-supplied
-``clip_scale``) are not yet (ROADMAP).
+trees.  All eight of JAX's optimizers are here (Momentum, AdaGrad,
+AdaDelta, RMSProp, DecayedAdaGrad, Adam, AdaMax, and ``get`` by name);
+the sparse ``row_init`` / ``row_update`` path (with its caller-supplied
+``clip_scale``) and averaging are not yet (ROADMAP A9·f).
 """
 
 from typing import Any, Callable, NamedTuple
@@ -129,3 +130,112 @@ def Adam(learning_rate=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8,
         torch._foreach_sub_(ps, num)
 
     return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)
+
+
+def _leaves(*trees):
+    """The leaves of same-shaped trees, zipped."""
+    return zip(*(tree_leaves(t) for t in trees))
+
+
+def AdaGrad(learning_rate=0.01, epsilon=1e-6, learning_rate_schedule=None,
+            **kw):
+    """Reference AdagradParameterOptimizer: accum += g^2;
+    w -= lr * g / (sqrt(accum) + eps)."""
+    def slots(params):
+        return {"accum": tree_map(torch.zeros_like, params)}
+
+    def upd(grads, s, params, lr, step):
+        for p, g, a in _leaves(params, grads, s["accum"]):
+            a.addcmul_(g, g)
+            p.sub_(lr * g / (torch.sqrt(a) + epsilon))
+
+    return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)
+
+
+def AdaDelta(learning_rate=1.0, rho=0.95, epsilon=1e-6,
+             learning_rate_schedule=None, **kw):
+    """Reference AdaDeltaParameterOptimizer: E[g2] = rho E[g2] + (1-rho)
+    g^2; dx = g sqrt((E[dx2] + eps) / (E[g2] + eps)); E[dx2] = rho E[dx2]
+    + (1-rho) dx^2; w -= lr dx."""
+    def slots(params):
+        return {"eg2": tree_map(torch.zeros_like, params),
+                "edx2": tree_map(torch.zeros_like, params)}
+
+    def upd(grads, s, params, lr, step):
+        for p, g, eg2, edx2 in _leaves(params, grads, s["eg2"], s["edx2"]):
+            eg2.copy_(rho * eg2 + (1 - rho) * g * g)
+            dx = g * torch.sqrt((edx2 + epsilon) / (eg2 + epsilon))
+            edx2.copy_(rho * edx2 + (1 - rho) * dx * dx)
+            p.sub_(lr * dx)
+
+    return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)
+
+
+def RMSProp(learning_rate=0.01, rho=0.95, epsilon=1e-6,
+            learning_rate_schedule=None, **kw):
+    """Reference RMSPropParameterOptimizer, the centered variant:
+    E[g2] = rho E[g2] + (1-rho) g^2; E[g] = rho E[g] + (1-rho) g;
+    w -= lr g / sqrt(E[g2] - E[g]^2 + eps)."""
+    def slots(params):
+        return {"eg2": tree_map(torch.zeros_like, params),
+                "eg": tree_map(torch.zeros_like, params)}
+
+    def upd(grads, s, params, lr, step):
+        for p, g, eg2, eg in _leaves(params, grads, s["eg2"], s["eg"]):
+            eg2.copy_(rho * eg2 + (1 - rho) * g * g)
+            eg.copy_(rho * eg + (1 - rho) * g)
+            p.sub_(lr * g / torch.sqrt(eg2 - eg * eg + epsilon))
+
+    return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)
+
+
+def DecayedAdaGrad(learning_rate=0.01, rho=0.95, epsilon=1e-6,
+                   learning_rate_schedule=None, **kw):
+    """Reference DecayedAdagradParameterOptimizer: RMSProp without the
+    mean term, accum = rho accum + (1-rho) g^2; w -= lr g / sqrt(accum +
+    eps)."""
+    def slots(params):
+        return {"accum": tree_map(torch.zeros_like, params)}
+
+    def upd(grads, s, params, lr, step):
+        for p, g, a in _leaves(params, grads, s["accum"]):
+            a.copy_(rho * a + (1 - rho) * g * g)
+            p.sub_(lr * g / torch.sqrt(a + epsilon))
+
+    return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)
+
+
+def AdaMax(learning_rate=2e-3, beta1=0.9, beta2=0.999,
+           learning_rate_schedule=None, **kw):
+    """Reference AdamaxParameterOptimizer: m = beta1 m + (1-beta1) g;
+    u = max(beta2 u, |g|); w -= lr / (1 - beta1^t) m / (u + 1e-12), with
+    t = step + 1 in float32 as the JAX package computes it."""
+    def slots(params):
+        return {"m": tree_map(torch.zeros_like, params),
+                "u": tree_map(torch.zeros_like, params)}
+
+    def upd(grads, s, params, lr, step):
+        t = torch.tensor(step + 1, dtype=torch.float32)
+        rate = float(lr / (1 - beta1 ** t))
+        for p, g, m, u in _leaves(params, grads, s["m"], s["u"]):
+            m.copy_(beta1 * m + (1 - beta1) * g)
+            u.copy_(torch.maximum(beta2 * u, torch.abs(g)))
+            p.sub_(rate * m / (u + 1e-12))
+
+    return _make(upd, slots, learning_rate, learning_rate_schedule, **kw)
+
+
+_REGISTRY = {
+    "momentum": Momentum, "sgd": Momentum, "adagrad": AdaGrad,
+    "adadelta": AdaDelta, "rmsprop": RMSProp,
+    "decayed_adagrad": DecayedAdaGrad, "adam": Adam, "adamax": AdaMax,
+}
+
+
+def get(name, **kw):
+    """The optimizer named ``name`` (case-insensitive), built with ``kw``."""
+    try:
+        return _REGISTRY[name.lower()](**kw)
+    except KeyError:
+        raise KeyError(f"unknown optimizer {name!r}; have "
+                       f"{sorted(_REGISTRY)}")

@@ -6,9 +6,10 @@ headline), ``bench_transformer`` (with ``remat``),
 mode; ``bench_transformer_decode``, the MT model's KV-cached beam
 search; the image benchmarks ``bench_resnet50`` and ``bench_image``
 (smallnet, alexnet, googlenet); the demos' steps ``bench_recommendation``
-(demo/recommendation) and ``bench_dsl`` (the image_classification demo's
-vgg, the sentiment demo, quick_start's cnn and the SRL and
-sequence_tagging demos, through ``trainer.SGD``); and the
+(demo/recommendation), ``bench_dsl`` (the image_classification demo's
+vgg, the sentiment demo, quick_start's cnn, the SRL and
+sequence_tagging demos and demo/word2vec in both variants, through
+``trainer.SGD``) and ``bench_seqtoseq_demo`` (demo/seqToseq); and the
 measurement legs of two serving benchmarks, ``bench_serving_quant`` and
 ``bench_serving_speculative``.
 
@@ -17,7 +18,8 @@ measurement legs of two serving benchmarks, ``bench_serving_quant`` and
                  seq2seq|rnn|trainer_int8|transformer_decode|
                  serving_quant|serving_speculative|resnet50|smallnet|
                  alexnet|googlenet|recommendation|vgg_cifar|sentiment|
-                 quick_start_cnn|srl|tagging]
+                 quick_start_cnn|srl|tagging|word2vec|word2vec_softmax|
+                 seqtoseq_demo]
         [--hidden 512|1280|2048] [--remat]
 
 ``recommendation`` trains the MovieLens towers at the demo's config
@@ -33,7 +35,18 @@ of the conll05 loader, its eight LSTMs through the fused LSTM kernels,
 and the CRF; tagging: the linear CRF at batch 32 of conll05), printing
 ms/batch, samples/s, the LSTM launches and the step's split, and for
 the CRF configs the CRF's share of the step (``crf_split``: the step
-against the same step with the CRF cost summed away).
+against the same step with the CRF cost summed away).  ``word2vec`` and
+``word2vec_softmax`` train demo/word2vec (vocab 2073, four embeddings
+of 32 sharing one table, fc 128 sigmoid, hsigmoid or a softmax fc of
+the vocab, AdaGrad lr 0.1, batch 64 of the imikolov loader) the same
+way.  ``seqtoseq_demo`` trains demo/seqToseq's script
+(``models/seqtoseq_demo``: hidden = emb 256, batch 32 of the wmt14
+loader's ragged sources, Adam lr 5e-4 clip_norm 5, the encoder's GRUs
+through the GRU kernels), each step feeding its batch as the demo does,
+one timed step a batch of the demo's whole pass (64), and prints
+ms/batch, samples/s, target tokens/s and the GRU launches a step.  The word2vec configs and ``seqtoseq_demo`` launch no host sync
+inside the step beyond reading the loss; ``print_layer`` is on none of
+the timed graphs.
 
 ``resnet50`` trains ResNet-50 at ``bench.py:358-395``'s config (batch
 32 of 224x224x3 images from ``np.random.RandomState(0)``, 1000 classes,
@@ -119,6 +132,7 @@ from paddle_tpu_torch.data import reader as reader_mod
 from paddle_tpu_torch.data.datasets import movielens
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.models import (alexnet, googlenet, image_dsl,
+                                     seqtoseq_demo, word2vec_dsl,
                                      recommendation, resnet, seq2seq,
                                      smallnet, tagging_dsl, text_dsl,
                                      text_lstm, text_rnn, transformer)
@@ -622,6 +636,37 @@ def bench_seq2seq(batch=64, src_len=30, trg_len=30, vocab=30000, hidden=512,
                         batch * trg_len)
 
 
+class Seq2SeqDemoBench(NamedTuple):
+    train_step: Callable[[], torch.Tensor]
+    params: dict
+    batches: list
+    batch: int
+    target_tokens_per_step: float
+
+
+def bench_seqtoseq_demo(device=None):
+    """demo/seqToseq's step (``models/seqtoseq_demo.setup``: hidden = emb
+    256, Adam lr 5e-4 clip_norm 5) over one pass of the demo's reader (64
+    batches of 32 wmt14 triples), in turn and then again.
+    ``train_step()`` feeds the next batch (``feed_batch``: padding and the
+    copy to the card, as the demo's loop does), steps and returns the
+    loss; ``target_tokens_per_step`` is the pass's mean count of target
+    tokens (eos included) a batch."""
+    dev = _device.resolve(device)
+    params, _, step = seqtoseq_demo.setup(device=dev)
+    batches = list(seqtoseq_demo.make_batches()())
+    count = [0]
+
+    def train_step():
+        batch = batches[count[0] % len(batches)]
+        count[0] += 1
+        return step(*seqtoseq_demo.feed_batch(batch, dev))
+
+    return Seq2SeqDemoBench(train_step, params, batches, len(batches[0]),
+                            float(np.mean([sum(len(s[2]) for s in b)
+                                           for b in batches])))
+
+
 class DecodeBench(NamedTuple):
     run: Callable[[], object]
     params: dict
@@ -819,6 +864,18 @@ DSL_CONFIGS = {
                          "5-39 tokens",
                  "optimizer": "Momentum lr 0.01 m 0.9 l2 1e-4"},
                 lambda n: tagging_dsl.config("tagging", n_batches=n)),
+    "word2vec": ({"model": "demo/word2vec hsigmoid (models/word2vec_dsl)",
+                  "vocab": 2073, "emb": 32, "hidden": 128, "ngram": 5,
+                  "data": "data.datasets.imikolov train",
+                  "optimizer": "AdaGrad lr 0.1"},
+                 lambda n: word2vec_dsl.config(True, n_batches=n)),
+    "word2vec_softmax": ({"model": "demo/word2vec softmax "
+                                   "(models/word2vec_dsl)",
+                          "vocab": 2073, "emb": 32, "hidden": 128,
+                          "ngram": 5,
+                          "data": "data.datasets.imikolov train",
+                          "optimizer": "AdaGrad lr 0.1"},
+                         lambda n: word2vec_dsl.config(False, n_batches=n)),
 }
 
 
@@ -1128,15 +1185,16 @@ def apply_bench_dtype():
         dtypes.set_policy(compute_dtype=os.environ["BENCH_DTYPE"])
 
 
-def _timed(train_step):
-    """WARMUP steps, then STEPS timed ones (each ending in a synchronize)
-    with the launch counters reset before them: (times ms, losses)."""
+def _timed(train_step, steps=STEPS):
+    """WARMUP steps, then ``steps`` timed ones (each ending in a
+    synchronize) with the launch counters reset before them: (times ms,
+    losses)."""
     for _ in range(WARMUP):
         train_step()
     torch.cuda.synchronize()
     kernels.reset_launches()
     times, losses = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         loss = train_step()
         torch.cuda.synchronize()
@@ -1153,7 +1211,8 @@ def main(argv=None):
                                         "trainer_int8", "transformer_decode",
                                         "serving_quant",
                                         "serving_speculative",
-                                        "recommendation", *DSL_CONFIGS,
+                                        "recommendation", "seqtoseq_demo",
+                                        *DSL_CONFIGS,
                                         *IMAGE_CONFIGS),
                     default="lstm")
     ap.add_argument("--hidden", type=int, default=512,
@@ -1346,6 +1405,32 @@ def main(argv=None):
                          rk.NAME_BWD: rk.launches_bwd},
             "split_ms": step_split(bench.trainer, bench.feeder,
                                    bench.batches, STEPS),
+        }), flush=True)
+        return 0
+    if args.model == "seqtoseq_demo":
+        # one timed step a batch of the pass: the batches' lengths vary
+        bench = bench_seqtoseq_demo(device=dev)
+        steps = len(bench.batches)
+        times, losses = _timed(bench.train_step, steps)
+        ms = float(np.median(times))
+        gk = kernels.gru
+        print(json.dumps({
+            "bench": "seqtoseq_demo", "card": _device.card(),
+            "compute_dtype": _compute_dtype(),
+            "config": {"vocab": 3000, "emb": 256, "hidden": 256,
+                       "batch": bench.batch, "batches": len(bench.batches),
+                       "data": "data.datasets.wmt14 train, shuffled "
+                               "(buffer 1024, seed 0), sources of 3-29 "
+                               "tokens",
+                       "optimizer": "Adam lr 5e-4 clip_norm 5",
+                       "entry": "demo/seqToseq's step, feed_batch included"},
+            "steps": steps, "ms_per_batch": ms,
+            "ms_per_batch_p90": float(np.percentile(times, 90)),
+            "samples_per_s": bench.batch / (ms / 1e3),
+            "target_tokens_per_s": bench.target_tokens_per_step / (ms / 1e3),
+            "loss_first_last": [losses[0], losses[-1]],
+            "launches_per_step": {gk.NAME_FWD: gk.launches_fwd / steps,
+                                  gk.NAME_BWD: gk.launches_bwd / steps},
         }), flush=True)
         return 0
     if args.model == "seq2seq":

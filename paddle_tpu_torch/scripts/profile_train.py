@@ -3,7 +3,7 @@
     python -m paddle_tpu_torch.scripts.profile_train \
         [--model lstm|transformer|transformer_packed|transformer_moe|
                  seq2seq|rnn|transformer_decode|resnet50|srl|tagging|
-                 quick_start_cnn]
+                 quick_start_cnn|word2vec|word2vec_softmax|seqtoseq_demo]
         [--hidden 512|1280|2048] [--remat] [--dtype auto|float32|bfloat16]
 
 Builds ``scripts/bench.bench_lstm`` at the reference config (vocab 30000,
@@ -49,8 +49,12 @@ hid 128, depth 8, batch 16; the linear CRF at batch 32; quick_start's
 cnn at batch 64) and add the step's split (``bench.step_split``) and,
 for the CRF configs, the CRF's ms and share of the step by ablation
 (``bench.crf_split``: the step against the same step with the CRF cost
-summed away), both timed before the profiler runs.  Needs a CUDA
-device.
+summed away), both timed before the profiler runs.  ``word2vec`` and
+``word2vec_softmax`` profile demo/word2vec's step the same way (with
+the split); ``seqtoseq_demo`` profiles ``scripts/bench.
+bench_seqtoseq_demo``'s step (demo/seqToseq at hidden 256, batch 32 of
+the wmt14 loader's ragged sources, the feed included), its kernels by
+origin with the GRU kernels as the port's.  Needs a CUDA device.
 """
 
 import argparse
@@ -62,16 +66,17 @@ from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.scripts.bench import (
     DSL_CONFIGS, bench_dsl, bench_lstm, bench_resnet50, bench_rnn,
-    bench_seq2seq, bench_transformer, bench_transformer_decode,
-    bench_transformer_moe, bench_transformer_packed, crf_split,
-    image_step_split, step_split)
+    bench_seq2seq, bench_seqtoseq_demo, bench_transformer,
+    bench_transformer_decode, bench_transformer_moe,
+    bench_transformer_packed, crf_split, image_step_split, step_split)
 from paddle_tpu_torch.scripts.profile_step import measure
 
 WARMUP = 5
 STEPS = {"lstm": 20, "transformer": 10, "transformer_packed": 10,
          "transformer_moe": 10, "seq2seq": 10, "rnn": 20,
          "transformer_decode": 2, "resnet50": 10, "srl": 10, "tagging": 10,
-         "quick_start_cnn": 10}
+         "quick_start_cnn": 10, "word2vec": 20, "word2vec_softmax": 20,
+         "seqtoseq_demo": 10}
 # the decode positions of one transformer_decode "step" (its max_len)
 DECODE_POSITIONS = 128
 
@@ -145,6 +150,11 @@ def main(argv=None):
         config = ("MoE causal LM vocab 32000, d_model 512, 8 heads, 8 "
                   "experts top 2 of dff 2048, 6 layers, batch 16, length "
                   f"512, Adam, remat {bench.remat}")
+    elif args.model == "seqtoseq_demo":
+        bench = bench_seqtoseq_demo(device=dev)
+        config = ("demo/seqToseq (models/seqtoseq_demo) vocab 3000, emb = h "
+                  "256, bi-GRU encoder, batch 32 of wmt14's ragged sources "
+                  "(3-29 tokens), Adam lr 5e-4 clip_norm 5, feed included")
     elif args.model in DSL_CONFIGS:
         bench = bench_dsl(args.model, device=dev)
         config = json.dumps({**DSL_CONFIGS[args.model][0],
