@@ -422,6 +422,22 @@ non-zero exit code and no final "ok" line:
             step over a pass whose loss falls; beam generate (5 lanes,
             40 steps) on 8 test sources, the lean forward once a
             direction, against the CPU up to each row's first near-tie
+  train_sparse  models/text_rnn's LSTM config (vocab 30000, emb 128, two
+            LSTMs of 512, batch 64 x 100, Momentum) with a sparse_update
+            embedding through SGD's sparse step: the first step against
+            the CPU (the row block's gradient; the one-TF32-pass LSTM
+            build must fail that gate) and against the card's dense step,
+            the catch-up rows (touched at step 1, not at step 2)
+            unchanged sparse and moved dense, B9 2 + 2 a step over 8
+            batches; ms/batch, samples/s and the host sync's share,
+            sparse and dense, at vocab 30000 and 1,000,000
+  nested_a9f  models/text_dsl's nested config (imdb reviews as 1-8
+            sub-sequences of at most 16 tokens, averaged within each, an
+            LSTM of 128 over them) at batch 64: the first step against
+            the CPU, B9 1 + 1 a step, two more Adam steps through SGD
+  trainer_prefetch  bench.py's bench_trainer_prefetch MLP through
+            SGD.train: a pass at prefetch=2 bit for bit prefetch=0;
+            steps/s at both depths and h2d_wait
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -6876,30 +6892,94 @@ def step_readings(got, ref, names=None):
 
 
 def gate_first_step(what, card, ref, tol, control=None, names=None,
-                    **extra):
+                    floors=None, **extra):
     """The train phases' first-step gate: ``card`` and ``ref``, (loss,
     [gradient leaves]) of one step from the same weights on the card and
-    on the CPU, within ``tol`` (step_readings); ``control``, (what it is,
-    its (loss, leaves) on the card), must fail that gate, or the phase
-    fails with both readings beside the limit.  Returns the readings,
-    ``extra`` beside them."""
-    def passes(r):
-        return r["loss_rel_err"] <= tol and r["grad_rel_err_max"] <= tol
+    on the CPU, within ``tol`` (step_readings); with ``floors`` (each
+    leaf's float32 noise, ``float64_floors``) each leaf within ``tol``
+    of its largest entry plus FLOOR_TIMES its floor.  ``control``, (what
+    it is, its (loss, leaves) on the card), must fail that gate, or the
+    phase fails with both readings beside the limit.  Returns the
+    readings, ``extra`` beside them."""
+    def readings(got):
+        r = step_readings(got, ref, names)
+        if floors is not None:
+            over = [float((g - w).abs().max())
+                    / (tol * float(w.abs().max()) + FLOOR_TIMES * f)
+                    for g, w, f in zip(got[1], ref[1], floors)]
+            r["grad_err_over_bound_max"] = max(over)
+            if names is not None:
+                r["worst_leaf_over_bound"] = names[int(np.argmax(over))]
+        return r
 
-    out = {"vs_cpu": step_readings(card, ref, names), "tolerance": tol,
+    def passes(r):
+        return r["loss_rel_err"] <= tol and (
+            r["grad_rel_err_max"] <= tol if floors is None
+            else r["grad_err_over_bound_max"] <= 1.0)
+
+    out = {"vs_cpu": readings(card), "tolerance": tol,
            "loss": [card[0], ref[0]], **extra}
+    if floors is not None:
+        out["float32_floor"] = {"times": FLOOR_TIMES, "largest": max(floors),
+                                "of_leaf": names[int(np.argmax(floors))]
+                                if names else None}
     if not passes(out["vs_cpu"]):
         fail(f"{what}: the first step on the card against the CPU: {out}")
     if control is not None:
-        out["control"] = {"what": control[0],
-                          **step_readings(control[1], ref, names)}
+        out["control"] = {"what": control[0], **readings(control[1])}
         if passes(out["control"]):
             fail(f"{what}: the control passes the first-step gate: {out}")
     return out
 
 
+# A gradient leaf that float32 cannot resolve to ``tol`` of its largest
+# entry: at init the output fc's bias gradient is the batch mean of
+# p - y, and on a balanced batch it cancels to ~4e-4 while each p sits
+# within 1e-4 of 0.5, where one float32 unit is 6e-8 (nested_a9f's first
+# batch: card vs CPU 1.2e-8 apart, 2.8e-5 of the entry on another
+# batch).  float64_floors measures each leaf's own float32 noise, the
+# CPU float32 witness against the same step in float64; the gate allows
+# FLOOR_TIMES of it beside ``tol`` (the card's error and the witness's
+# own each add up to one noise).
+FLOOR_TIMES = 4
+
+
+def float64_floors(torch, build, start, feeding, batch, argmax, witness):
+    """Each leaf's float32 noise: the largest difference between the CPU
+    float32 witness's gradient (``witness``) and the same step's in
+    float64 on the CPU (the dtype policy at float64, the weights
+    widened, the card's argmax replayed; the LSTMs through the masked
+    scan, the same function, as the kernels take no float64).  For a
+    single-cost graph with no sparse table (the view's leaves are the
+    parameters')."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.core import dtypes
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.layers.graph import value_data
+    from paddle_tpu_torch.ops.kernels import lstm as lk, lstm_blocked as bk
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+    prior = (dtypes.param_dtype(), dtypes.compute_dtype())
+    routes = (lk.supported, bk.supported)
+    dtypes.set_policy("float64", "float64")
+    lk.supported = bk.supported = lambda *rule: False
+    try:
+        topo = L.Topology(build())
+        params = tree_map(lambda t: t.detach().double().requires_grad_(True),
+                          start)
+        feed = dtypes.cast_tree(DataFeeder(feeding, device="cpu")(batch),
+                                torch.float64)
+        with pool_probe(torch, [], argmax):
+            total = torch.mean(value_data(topo.apply(params, feed)))
+        total.backward()
+    finally:
+        dtypes.set_policy(*prior)
+        lk.supported, bk.supported = routes
+    return [float((w.double() - p.grad).abs().max())
+            for w, p in zip(witness, tree_leaves(params))]
+
+
 def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
-                     what, tol, control=None):
+                     what, tol, control=None, floors=False):
     """One SGD step of the DSL cost ``build()`` on the card under
     pool_probe and on a CPU witness from the same weights (SGD's seed,
     drawn on the CPU) that max-pools at the card's argmax (for a graph
@@ -6908,10 +6988,13 @@ def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
     with ``control`` (a context), the same card step with the card's
     argmax replayed must fail that gate.  Where the card pooled, its
     readings against the plain CPU step and the argmax flips are
-    reported beside.  Returns (the card's trainer, the start parameters,
-    readings, the card step's LSTM (forward, backward) launches)."""
+    reported beside.  ``floors``: each leaf's bound also takes
+    FLOOR_TIMES its float32 noise (``float64_floors``).  Returns (the
+    card's trainer, the start parameters, readings, the card step's LSTM
+    (forward, backward) launches)."""
     from paddle_tpu_torch.data import DataFeeder
     from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
     start = host_tree(SGD(cost=build(), update_equation=optimizer(),
                           device="cpu").parameters)
 
@@ -6922,11 +7005,16 @@ def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
         with (ctx or contextlib.nullcontext)(), pool_probe(torch, record,
                                                            argmax):
             total, _ = tr._forward(feed)
+            view = tr._view
             tr._backward(total)
-        grads = [p.grad.detach().cpu() for p in tr._leaves]
+        # the leaves the step differentiates: the parameters, or with a
+        # sparse table its gathered row block in the table's place
+        grads = [p.grad.detach().cpu() for p in tree_leaves(view)]
+        names.extend(leaf_names(view)[len(names):])
         tr._update()
         return tr, float(total.detach()), grads
 
+    names = []      # the differentiated leaves' paths, for the readings
     t0 = time.perf_counter()
     kernels.reset_launches()
     rec_c = []
@@ -6950,7 +7038,10 @@ def graph_first_step(torch, dev, kernels, build, optimizer, feeding, batch,
         ctl = ("the LSTMs through the one-TF32-pass build of csrc/lstm.cu"
                + (", the card's argmax replayed" if argmax else ""),
                step(dev, [], argmax, ctx=control)[1:])
-    out = gate_first_step(what, card[1:], witness[1:], tol, ctl, **extra)
+    out = gate_first_step(
+        what, card[1:], witness[1:], tol, ctl, names=names,
+        floors=float64_floors(torch, build, start, feeding, batch, argmax,
+                              witness[2]) if floors else None, **extra)
     out["seconds"] = time.perf_counter() - t0
     return card[0], start, out, launches
 
@@ -8198,6 +8289,220 @@ def run_train_seqtoseq_demo(torch, dev, kernels):
     return {"train": train, "generate": gen_launches}
 
 
+# train_sparse: models/text_rnn's LSTM config (vocab 30000, emb 128, two
+# lstmemory layers of 512, batch 64 x 100 ids, Momentum lr 0.01 m 0.9)
+# with its embedding trained by its touched rows (SGD's sparse step):
+# the first step's loss and every gradient (the row block's, not the
+# table's) against a CPU witness within SPARSE_TOL of each one's largest
+# entry, which the same step through the one-TF32-pass LSTM build must
+# fail; the first step equal to the card's own dense step within
+# SPARSE_DENSE_TOL of each leaf's largest entry (momentum starts at 0, so
+# an untouched row moves under neither); after a second step the rows the
+# first touched and the second did not bit for bit unchanged under the
+# sparse path and moved under the dense one; B9 2 + 2 a step over
+# SPARSE_BATCHES batches.  Then ms/batch, samples/s and the host sync's
+# share (ops/sparse.unique_touched alone, bench.sparse_sync_ms), sparse
+# and dense, at vocab 30000 and SPARSE_BIG_VOCAB (JAX's capability
+# vocab, tests/test_sparse.py:121-145): printed, not gated.
+SPARSE_TOL = 2e-5
+SPARSE_DENSE_TOL = 1e-6
+SPARSE_BATCHES = 8
+SPARSE_BIG_VOCAB = 1_000_000
+SPARSE_TIMED = 10
+
+
+def sparse_rate(torch, dev, kernels, vocab, sparse):
+    """ms/batch (median of SPARSE_TIMED steps after 3 of warm-up),
+    samples/s, the LSTM launches a step and, sparse, the host sync alone
+    and its share, of text_rnn's LSTM config at ``vocab``."""
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.scripts import bench
+    b = bench.bench_rnn(cell="lstm", sparse_update=sparse, vocab=vocab,
+                        n_batches=4, device=dev)
+    for _ in range(3):
+        b.train_step()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    times = []
+    for _ in range(SPARSE_TIMED):
+        t0 = time.perf_counter()
+        b.train_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    lk = kernels.lstm
+    per_step = (lk.launches_fwd / SPARSE_TIMED, lk.launches_bwd / SPARSE_TIMED)
+    if per_step != (2, 2):
+        fail(f"train_sparse: vocab {vocab} sparse={sparse}: LSTM launches "
+             f"a step {per_step}, want (2, 2)")
+    ms = float(np.median(times))
+    out = {"ms_per_batch": ms, "ms_min_max": [min(times), max(times)],
+           "samples_per_s": text_rnn.BATCH / (ms / 1e3)}
+    if sparse:
+        sync = bench.sparse_sync_ms(b, SPARSE_TIMED)
+        out.update(host_sync_ms=sync, host_sync_share=sync / ms)
+    del b
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_sparse(torch, dev, kernels, seed):
+    """train_sparse (see SPARSE_TOL); returns the B9 launches of its
+    steps."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    lk = kernels.lstm
+    data = list(text_rnn.batches(seed + 27, SPARSE_BATCHES)())
+    feeding = text_rnn.feeding()
+
+    def build(sparse=True):
+        return text_rnn.build(cell="lstm", sparse_update=sparse)
+    card, start, first, first_launches = graph_first_step(
+        torch, dev, kernels, build, text_rnn.optimizer, feeding, data[0],
+        "train_sparse", SPARSE_TOL, control=lambda: tf32_1x("lstm"))
+    if first_launches != (2, 2):
+        fail(f"train_sparse: the first step launched the LSTM kernels "
+             f"{first_launches} times, want (2, 2)")
+    if not set(card.opt_state) == {"dense", "sparse"} or any(
+            p.requires_grad for p in tree_leaves(card.parameters[
+                next(iter(card._sparse_specs))])):
+        fail("train_sparse: the trainer did not take the sparse path")
+    # the card's dense step from the same weights on the same batch
+    dense = SGD(cost=build(False), parameters=start,
+                update_equation=text_rnn.optimizer(), device=dev)
+    feeder = DataFeeder(feeding, device=dev)
+    dense.train_one_batch(data[0], feeder)
+    errs = largest_err([p.detach().cpu() for p in tree_leaves(
+        card.parameters)], [p.detach().cpu() for p in tree_leaves(
+            dense.parameters)])
+    vs_dense = {"tolerance": SPARSE_DENSE_TOL, "rel_err_max": max(errs)}
+    if max(errs) > SPARSE_DENSE_TOL:
+        fail(f"train_sparse: the first sparse step against the card's "
+             f"dense step: {vs_dense}")
+    # the catch-up: rows touched at step 1 and not at step 2
+    key = next(iter(card._sparse_specs))
+    ids = [set(np.unique(np.concatenate([s[0] for s in batch])).tolist())
+           for batch in data[:2]]
+    only1 = torch.tensor(sorted(ids[0] - ids[1]), device=dev)
+    w1 = card.parameters[key]["w"].detach()[only1].clone()
+    kernels.reset_launches()
+    card.train_one_batch(data[1], feeder)
+    second = (lk.launches_fwd, lk.launches_bwd)
+    dense.train_one_batch(data[1], feeder)
+    sparse_same = bool(torch.equal(card.parameters[key]["w"].detach()[only1],
+                                   w1))
+    moved = int((dense.parameters[key]["w"].detach()[only1] != w1)
+                .any(dim=1).sum())
+    catch_up = {"rows_touched_at_1_not_2": int(only1.numel()),
+                "unchanged_sparse": sparse_same, "moved_dense": moved}
+    if not sparse_same or moved != only1.numel() or second != (2, 2):
+        fail(f"train_sparse: catch-up rows {catch_up}, the second step's "
+             f"LSTM launches {second}")
+    del dense
+    times, losses, pass_launches = sgd_pass(
+        torch, kernels, card, data[2:], feeding, "train_sparse",
+        per_step=(2, 2))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_sparse: losses {losses}")
+    launches = {lk.NAME_FWD: first_launches[0] + second[0]
+                + pass_launches[lk.NAME_FWD],
+                lk.NAME_BWD: first_launches[1] + second[1]
+                + pass_launches[lk.NAME_BWD]}
+    del card
+    torch.cuda.empty_cache()
+    rates = {str(vocab): {kind: sparse_rate(torch, dev, kernels, vocab,
+                                            kind == "sparse")
+                          for kind in ("sparse", "dense")}
+             for vocab in (text_rnn.VOCAB, SPARSE_BIG_VOCAB)}
+    emit({"phase": "train_sparse", "config": {
+        "model": "models/text_rnn cell=lstm sparse_update=True (the "
+                 "reference's benchmark/paddle/rnn/rnn.py)",
+        "vocab": text_rnn.VOCAB, "emb": text_rnn.EMB,
+        "hidden": text_rnn.HIDDEN, "layers": text_rnn.LAYERS,
+        "batch": text_rnn.BATCH, "seq_len": text_rnn.SEQ_LEN,
+        "batches": SPARSE_BATCHES, "optimizer": "Momentum lr 0.01 m 0.9",
+        "entry": "trainer.SGD.train"},
+        "first_step_vs_cpu": first, "first_step_vs_dense": vs_dense,
+        "catch_up": catch_up, "launches": launches,
+        "launches_per_step": {lk.NAME_FWD: 2, lk.NAME_BWD: 2},
+        "pass_ms": times, "losses": losses,
+        "rates_by_vocab": rates})
+    return {"train_sparse": launches}
+
+
+# nested_a9f: models/text_dsl's nested config (imdb reviews cut into
+# sub-sequences of at most 16 tokens, 1-8 of them; embedding 128, an
+# average within each sub-sequence, fc 512, lstmemory 128 over the
+# sentences, max pool, fc 2 softmax, Adam lr 0.002) at batch 64: the
+# first step's loss and every gradient against a CPU witness within
+# NESTED_TOL of each one's largest entry plus FLOOR_TIMES the leaf's own
+# float32 noise (the output bias: see FLOOR_TIMES), B9 1 + 1 a step,
+# then two more Adam steps through SGD.train.
+NESTED_TOL = 1e-5
+NESTED_BATCHES = 3
+
+
+def run_nested_a9f(torch, dev, kernels):
+    from paddle_tpu_torch.models import text_dsl
+    lk = kernels.lstm
+    cfg = text_dsl.config("nested", n_batches=NESTED_BATCHES)
+    data, feeding = list(cfg["train_reader"]()), cfg["feeding"]
+    card, _, first, first_launches = graph_first_step(
+        torch, dev, kernels, lambda: text_dsl.build("nested")[0],
+        lambda: text_dsl.optimizer("nested"), feeding, data[0],
+        "nested_a9f", NESTED_TOL, floors=True)
+    if first_launches != (1, 1):
+        fail(f"nested_a9f: the first step launched the LSTM kernels "
+             f"{first_launches} times, want (1, 1)")
+    times, losses, pass_launches = sgd_pass(
+        torch, kernels, card, data[1:], feeding, "nested_a9f",
+        per_step=(1, 1))
+    subs = [len(s) for batch in data for s, _ in batch]
+    launches = {lk.NAME_FWD: first_launches[0] + pass_launches[lk.NAME_FWD],
+                lk.NAME_BWD: first_launches[1] + pass_launches[lk.NAME_BWD]}
+    emit({"phase": "nested_a9f", "config": {
+        "model": "models/text_dsl nested_lstm_net (pooling_layer avg "
+                 "agg_level='seq', lstmemory over sub-sequences)",
+        "batch": text_dsl.BATCH, "sub_len": text_dsl.SUB_LEN,
+        "sub_sequences": [min(subs), max(subs)], "emb": 128, "hid": 128,
+        "optimizer": "Adam lr 0.002", "entry": "trainer.SGD.train",
+        "data": "data.datasets.imdb train (synthetic fallback unless "
+                "PADDLE_TPU_DATA_DIR holds aclImdb)"},
+        "first_step_vs_cpu": first, "launches": launches,
+        "launches_per_step": {lk.NAME_FWD: 1, lk.NAME_BWD: 1},
+        "ms_per_batch": times, "losses": losses})
+    return {"nested_a9f": launches}
+
+
+# trainer_prefetch: bench.bench_trainer_prefetch's config (bench.py's: an
+# MLP at batch 64, dim 256, hidden 512, 24 batches of 4 ms host cost,
+# Momentum): a pass at prefetch=2 and one at prefetch=0 from the same
+# weights give parameters bit for bit equal; steps/s at both depths,
+# the speedup and the prefetch-2 pass's mean h2d_wait, printed.
+def run_trainer_prefetch(torch, dev, kernels):
+    from paddle_tpu_torch.scripts import bench
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    b = bench.bench_trainer_prefetch(device=dev)
+    kernels.reset_launches()
+    sync = b.one_pass(0, b.trainer())
+    pre = b.one_pass(2, b.trainer())
+    equal = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(sync.parameters), tree_leaves(pre.parameters)))
+    launched = sum(launch_counts(kernels).values()) \
+        + recurrent_launches(kernels)
+    if not equal or launched:
+        fail(f"trainer_prefetch: prefetch=2 bit for bit prefetch=0: "
+             f"{equal}; counted kernel launches {launched}")
+    emit({"phase": "trainer_prefetch", "config": {
+        "model": "bench.py bench_trainer_prefetch: fc 512 tanh, fc 2 "
+                 "softmax over dense 256", "batch": 64, "batches": 24,
+        "host_ms": 4.0, "optimizer": "Momentum lr 0.01 m 0.9",
+        "entry": "trainer.SGD.train(prefetch=0 | 2)"},
+        "prefetch2_bit_for_bit_prefetch0": equal,
+        **bench.prefetch_rates(b)})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8423,6 +8728,9 @@ def main(argv=None):
     run_layers_a10b(torch, dev, kernels, args.seed)
     run_train_word2vec(torch, dev, kernels, args.seed)
     s2d_launches = run_train_seqtoseq_demo(torch, dev, kernels)
+    sparse_launches = run_train_sparse(torch, dev, kernels, args.seed)
+    nested_launches = run_nested_a9f(torch, dev, kernels)
+    run_trainer_prefetch(torch, dev, kernels)
 
     summary = []
     for row, mod, launches in (
@@ -8491,7 +8799,9 @@ def main(argv=None):
         by_path = {"train": train_launches[name],
                    **{path: n[name] for path, n in text_launches.items()},
                    **{path: n[name] for path, n in a9c_launches.items()},
-                   **{path: n[name] for path, n in srl_launches.items()}}
+                   **{path: n[name] for path, n in srl_launches.items()},
+                   **{path: n[name] for path, n in sparse_launches.items()},
+                   **{path: n[name] for path, n in nested_launches.items()}}
         summary.append({
             "name": name, "route": "cuda",
             "source": kernels.lstm.SOURCE, "replaces": replaces,

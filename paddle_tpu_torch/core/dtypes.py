@@ -11,7 +11,8 @@ process-global, as the reference's is."""
 
 import torch
 
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch
 
 _param_dtype = torch.float32
 # None = auto (float32: see the module docstring)
@@ -56,11 +57,13 @@ def to_param(x):
 
 def cast_tree(tree, dtype):
     """float32 tensors -> ``dtype`` over dicts, lists and tuples, and the
-    ``.data`` of a SequenceBatch; ids, lengths, masks and other dtypes
+    ``.data`` of a (nested) SequenceBatch; ids, lengths, masks and other dtypes
     pass through.  The trainer's mixed-precision boundary cast (its step
     and ``test``), as JAX's ``cast_tree``."""
     if isinstance(tree, SequenceBatch):
         return SequenceBatch(cast_tree(tree.data, dtype), tree.lengths)
+    if isinstance(tree, NestedSequenceBatch):
+        return tree._replace(data=cast_tree(tree.data, dtype))
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

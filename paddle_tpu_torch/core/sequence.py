@@ -2,8 +2,10 @@
 (``paddle_tpu/core/sequence.py``).
 
 ``SequenceBatch`` — data [B, T, ...] + lengths [B], one sequence level;
-``bucket_for`` and ``pack_sequences`` (host-side numpy) for the data
-path.  Nested batches are not ported yet (ROADMAP).
+``NestedSequenceBatch`` — data [B, S, T, ...] + outer lengths [B] and
+inner lengths [B, S], two levels (the reference's sub-sequences);
+``bucket_boundaries``, ``bucket_for`` and ``pack_sequences`` (host-side
+numpy) for the data path.  Lengths are int32, as JAX's are.
 """
 
 from typing import NamedTuple, Optional, Sequence
@@ -39,6 +41,33 @@ class SequenceBatch(NamedTuple):
         return SequenceBatch(data=data, lengths=self.lengths)
 
 
+class NestedSequenceBatch(NamedTuple):
+    data: torch.Tensor           # [B, S, T, ...]
+    outer_lengths: torch.Tensor  # [B]    number of valid sub-sequences
+    inner_lengths: torch.Tensor  # [B, S] length of each sub-sequence
+
+    def outer_mask(self, dtype=torch.float32):
+        """[B, S] 1 where the sub-sequence is valid."""
+        s = torch.arange(self.data.shape[1], device=self.outer_lengths.device)
+        return (s[None, :] < self.outer_lengths[:, None]).to(dtype)
+
+    def inner_mask(self, dtype=torch.float32):
+        """[B, S, T] 1 where the element is valid (inside a valid
+        sub-sequence)."""
+        t = torch.arange(self.data.shape[2], device=self.inner_lengths.device)
+        m = (t[None, None, :] < self.inner_lengths[:, :, None]).to(dtype)
+        return m * self.outer_mask(dtype)[:, :, None]
+
+    def flatten_outer(self) -> SequenceBatch:
+        """Each sub-sequence as a sequence of its own: [B*S, T, ...], the
+        sub-sequences past a sample's outer length at length 0."""
+        b, s = self.data.shape[:2]
+        data = self.data.reshape((b * s,) + tuple(self.data.shape[2:]))
+        lengths = torch.where(self.outer_mask(torch.int32).reshape(-1) > 0,
+                              self.inner_lengths.reshape(-1), 0)
+        return SequenceBatch(data=data, lengths=lengths.to(torch.int32))
+
+
 def pad_sequences(seqs: Sequence[np.ndarray], max_len: Optional[int] = None,
                   pad_value=0, dtype=None, device=None) -> SequenceBatch:
     """Host-side: list of per-sequence arrays -> padded SequenceBatch on
@@ -55,6 +84,51 @@ def pad_sequences(seqs: Sequence[np.ndarray], max_len: Optional[int] = None,
     return SequenceBatch(data=torch.tensor(out, device=dev),
                          lengths=torch.tensor(np.minimum(lengths, tmax),
                                               device=dev))
+
+
+def pad_nested_sequences(seqs, max_outer=None, max_inner=None, pad_value=0,
+                         dtype=None, device=None) -> NestedSequenceBatch:
+    """Host-side: a list (per sample) of lists (sub-sequences) of arrays
+    -> NestedSequenceBatch on ``device`` (the card unless "cpu")."""
+    dev = _device.resolve(device)
+    data, outer, inner = nested_arrays(seqs, max_outer, max_inner, pad_value,
+                                       dtype)
+    return NestedSequenceBatch(
+        data=torch.tensor(data, device=dev),
+        outer_lengths=torch.tensor(outer, device=dev),
+        inner_lengths=torch.tensor(inner, device=dev))
+
+
+def nested_arrays(seqs, max_outer=None, max_inner=None, pad_value=0,
+                  dtype=None):
+    """``pad_nested_sequences``' (data [B, S, T, ...], outer [B], inner
+    [B, S]) as numpy, int32 lengths: S and T the widest unless given
+    (at least 1), longer ones cut."""
+    outer = np.array([len(s) for s in seqs], dtype=np.int32)
+    smax = int(max_outer or max(outer.max(), 1))
+    inner = np.zeros((len(seqs), smax), dtype=np.int32)
+    for i, s in enumerate(seqs):
+        for j, sub in enumerate(s[:smax]):
+            inner[i, j] = len(sub)
+    tmax = int(max_inner or max(int(inner.max()), 1))
+    probe = np.asarray(seqs[0][0])
+    dtype = dtype or probe.dtype
+    out = np.full((len(seqs), smax, tmax) + probe.shape[1:], pad_value,
+                  dtype=dtype)
+    for i, s in enumerate(seqs):
+        for j, sub in enumerate(s[:smax]):
+            n = min(len(sub), tmax)
+            out[i, j, :n] = np.asarray(sub)[:n]
+    return out, np.minimum(outer, smax), np.minimum(inner, tmax)
+
+
+def bucket_boundaries(lengths, num_buckets=4, multiple=8):
+    """Padded-length buckets: the length quantiles rounded up to
+    ``multiple`` (one bucket per static shape, in place of the
+    reference's batch-shrinking dynamic shapes)."""
+    lengths = np.asarray(lengths)
+    qs = np.quantile(lengths, np.linspace(0, 1, num_buckets + 1)[1:])
+    return sorted({int(-(-q // multiple) * multiple) for q in qs})
 
 
 def bucket_for(length: int, bounds) -> int:

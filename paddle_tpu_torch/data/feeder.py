@@ -7,17 +7,18 @@ lands on the feeder's device (the card unless "cpu") as int32 / float32
 tensors.  ``bucket_bounds`` rounds each sequence slot's padded length up
 to a bound (sequences past the largest bound are truncated to it,
 warned once per slot); ``pad_batch_to`` repeats the last sample to fill
-a short final batch.  Sub-sequence slots wait for the port's nested
-batches (ROADMAP A9·f).
+a short final batch.  A sub-sequence slot becomes a
+``NestedSequenceBatch`` (padded [B, S, T, ...] with int32 outer and
+inner lengths, not bucketed), as JAX's feeder packs it.
 """
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch import device as _device
-from paddle_tpu_torch.core.sequence import SequenceBatch, bucket_for
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch, bucket_for, nested_arrays
 from paddle_tpu_torch.data.provider import InputType, SeqType
-from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.logging import logger
 
 
@@ -56,8 +57,9 @@ class DataFeeder:
         self._warned_truncate = set()   # slot names already warned
 
     def _convert_one(self, name, itype: InputType, columns):
-        """One slot of the batch as numpy: an array, or (data, lengths)
-        for a sequence slot."""
+        """One slot of the batch as numpy: an array, (data, lengths) for
+        a sequence slot, or a NestedSequenceBatch of numpy arrays for a
+        sub-sequence slot."""
         # py2-era providers yield lazy iterables (map objects etc.)
         columns = [list(c) if not isinstance(c, (list, tuple, np.ndarray,
                                                  int, float, np.integer))
@@ -69,9 +71,9 @@ class DataFeeder:
                 return np.asarray(columns, np.float32)
             return _dense_rows(itype, columns)
         if itype.seq_type == SeqType.SUB_SEQUENCE:
-            raise ConfigError(f"DataFeeder: sub-sequence slot {name!r} needs "
-                              "nested batches, not ported yet (ROADMAP "
-                              "A9·f)")
+            dtype = np.int32 if itype.kind == "index" else np.float32
+            return NestedSequenceBatch(*nested_arrays(
+                [[np.asarray(sub, dtype) for sub in s] for s in columns]))
         if itype.kind == "index":
             seqs = [np.asarray(s, np.int32) for s in columns]
         elif itype.kind == "dense":
@@ -93,7 +95,8 @@ class DataFeeder:
 
     def __call__(self, batch):
         """batch: list of dicts {name: sample} or tuples in feeding
-        order -> {name: tensor or SequenceBatch} on the device."""
+        order -> {name: tensor, SequenceBatch or NestedSequenceBatch} on
+        the device."""
         names = list(self.feeding)
         if self.pad_batch_to and len(batch) < self.pad_batch_to:
             batch = list(batch) + [batch[-1]] * (self.pad_batch_to - len(batch))
@@ -104,7 +107,10 @@ class DataFeeder:
             else:
                 columns = [b[idx] for b in batch]
             value = self._convert_one(name, self.feeding[name], columns)
-            if isinstance(value, tuple):
+            if isinstance(value, NestedSequenceBatch):
+                feed[name] = NestedSequenceBatch(
+                    *(torch.from_numpy(a).to(self.device) for a in value))
+            elif isinstance(value, tuple):
                 feed[name] = SequenceBatch(
                     data=torch.from_numpy(value[0]).to(self.device),
                     lengths=torch.from_numpy(value[1]).to(self.device))

@@ -12,8 +12,9 @@ costs (``crf_layer``, ``crf_decoding_layer``, ``ctc_layer``,
 (``nce_layer``, ``hsigmoid``) and the mixture-of-experts ``moe_layer``.
 ``layers/vision.py`` holds the conv stack and the conv parts of
 ``mixed_layer``; ``layers/layer_math.py`` the arithmetic on
-``LayerOutput``.  Pooling over nested sequences (``agg_level="seq"``)
-waits for ``NestedSequenceBatch`` (ROADMAP A9·f).
+``LayerOutput``.  Over a ``NestedSequenceBatch`` the pooling layers pool
+within each sub-sequence (``agg_level="seq"``) or over all of it
+(``ops/sequence.nested_seq_pool``).
 
 Every ctor returns a LayerOutput graph node; ``graph.Topology`` runs it.
 Initializers follow the JAX package's rules (weights normal with std
@@ -31,7 +32,8 @@ import math
 
 import torch
 
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch
 from paddle_tpu_torch.layers.graph import (
     LayerOutput, register_layer, auto_name, map_rows, as_seq, value_data,
     dropout)
@@ -248,8 +250,9 @@ register_layer("embedding")(_EmbeddingImpl)
 def embedding_layer(input, size, name=None, param_attr=None,
                     sparse_update=None, sparse_budget=None):
     """input: a data layer of integer ids (its .size = vocab size).
-    ``sparse_update`` is kept in the config; ``trainer.SGD`` refuses it
-    (the sparse row path is ROADMAP A9·f)."""
+    ``sparse_update``: ``trainer.SGD`` trains the table by its touched
+    rows (the row path, ``ops/sparse``), at most ``sparse_budget`` of
+    them a step (default: the next power of two of the batch's ids)."""
     if sparse_update is None and isinstance(param_attr, dict):
         sparse_update = param_attr.get("sparse_update", False)
     return LayerOutput(name or auto_name("embedding"), "embedding", size,
@@ -946,6 +949,11 @@ class _SeqPoolImpl:
         return in_sizes[0]
 
     def apply(self, ctx, cfg, params, x):
+        if isinstance(x, NestedSequenceBatch):
+            # within each sub-sequence at agg_level "seq", else over the
+            # whole (flattened) nested sequence
+            return seq_ops.nested_seq_pool(
+                x, cfg["pooling"], each_sequence=cfg.get("agg_level") == "seq")
         stride = cfg.get("stride", -1)
         if stride and stride > 0:
             return seq_ops.seq_strided_pool(as_seq(x), cfg["pooling"],
@@ -971,39 +979,32 @@ class pooling:
         name = "sqrt"
 
 
-def _whole_sequence(ctor, agg_level):
-    if agg_level == "seq":
-        raise ConfigError(f"{ctor}: agg_level='seq' pools each sub-sequence "
-                          "of a nested sequence, which waits for "
-                          "NestedSequenceBatch (ROADMAP A9·f)")
-
-
 def pooling_layer(input, pooling_type=None, name=None, agg_level=None):
-    _whole_sequence("pooling_layer", agg_level)
+    """Pool each sequence to one row; agg_level='seq' over a nested input
+    pools each sub-sequence (a sequence of pooled rows)."""
     pt = getattr(pooling_type, "name", pooling_type) or "max"
     return LayerOutput(name or auto_name("seq_pool"), "seq_pool", input.size,
                        [input], {"pooling": pt, "agg_level": agg_level},
-                       is_seq=False)
+                       is_seq=agg_level == "seq")
 
 
 def last_seq(input, name=None, agg_level=None, stride=-1):
     """The last valid step of each sequence; with stride > 0 (reference
     seqlastins stride) the last valid step of each window of ``stride``
-    steps, a shorter sequence (``ops/sequence.seq_strided_pool``)."""
-    _whole_sequence("last_seq", agg_level)
+    steps, a shorter sequence (``ops/sequence.seq_strided_pool``).
+    agg_level='seq' over a nested input: each sub-sequence's last."""
     return LayerOutput(name or auto_name("last_seq"), "seq_pool", input.size,
                        [input], {"pooling": "last", "stride": stride,
                                  "agg_level": agg_level},
-                       is_seq=stride > 0)
+                       is_seq=stride > 0 or agg_level == "seq")
 
 
 def first_seq(input, name=None, agg_level=None, stride=-1):
     """The first step; with stride > 0 the first of each window."""
-    _whole_sequence("first_seq", agg_level)
     return LayerOutput(name or auto_name("first_seq"), "seq_pool", input.size,
                        [input], {"pooling": "first", "stride": stride,
                                  "agg_level": agg_level},
-                       is_seq=stride > 0)
+                       is_seq=stride > 0 or agg_level == "seq")
 
 
 class AggregateLevel:

@@ -13,8 +13,9 @@ names ``auto_name`` mints follow the same counters, so one config gives
 the same keys in both packages and a JAX parameter tree or checkpoint
 maps onto the port's (``params_from_numpy``).  Values flowing between
 layers are tensors [B, D] (one row per sample) or ``SequenceBatch``es
-(padded [B, T, D] + lengths); row-wise layers accept both
-(``map_rows``).  Where JAX jits the whole graph, the port walks the
+(padded [B, T, D] + lengths) or ``NestedSequenceBatch``es (padded
+[B, S, T, D] + outer and inner lengths); row-wise layers accept all
+three (``map_rows``).  Where JAX jits the whole graph, the port walks the
 nodes in Python on every call; autograd takes the gradient.
 
 Each layer type registers a LayerImpl:
@@ -30,7 +31,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import device as _device
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch
 from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.tree import tree_map
 
@@ -153,14 +155,20 @@ class _ErrorClip(torch.autograd.Function):
 
 
 def value_data(v):
-    return v.data if isinstance(v, SequenceBatch) else v
+    return v.data if isinstance(v, (SequenceBatch, NestedSequenceBatch)) \
+        else v
 
 
 def map_rows(fn, *values):
-    """A row-wise fn over values that may be SequenceBatches or tensors;
-    if any input is a sequence, the output keeps its lengths."""
-    seq = next((v for v in values if isinstance(v, SequenceBatch)), None)
+    """A row-wise fn over values that may be (nested) SequenceBatches or
+    tensors; if any input is a sequence, the output keeps its lengths
+    (both levels of a nested one)."""
+    seq = next((v for v in values
+                if isinstance(v, (SequenceBatch, NestedSequenceBatch))), None)
     out = fn(*(value_data(v) for v in values))
+    if isinstance(seq, NestedSequenceBatch):
+        return NestedSequenceBatch(data=out, outer_lengths=seq.outer_lengths,
+                                   inner_lengths=seq.inner_lengths)
     if seq is not None:
         return SequenceBatch(data=out, lengths=seq.lengths)
     return out

@@ -11,10 +11,11 @@ Parameters are a nested dict with the JAX tree's keys:
      "title_emb": [title_vocab, E/2],
      "movie_fc": {"w": [E + E/4 + E/2, H], "b": [H]}}
 
-The tables are dense, as in JAX: the sparse row update is ROADMAP A9·f
-and the tables' sharding A12.  The JAX package leaves the towers to XLA,
-so they are PyTorch calls here; on the card the embedding backward
-accumulates its rows with atomics.
+The tables are dense in both packages (the recommender is a plain
+function, not a DSL config; the row path is ``trainer.SGD``'s, for DSL
+embeddings with ``sparse_update``); the tables' sharding is A12.  The
+JAX package leaves the towers to XLA, so they are PyTorch calls here; on
+the card the embedding backward accumulates its rows with atomics.
 """
 
 import numpy as np

@@ -18,6 +18,8 @@ the card (``ops/kernels/simple_rnn.supported(64, 512, "tanh", None)``).
 bias_attr=False)`` in each recurrent layer's place (the LSTM kernels, or
 the gate-blocked forward at hidden 1280), ``cell="gru"`` ``grumemory``
 on ``fc_layer(3 hidden, act=None)`` (the GRU kernels).
+``sparse_update=True`` trains the embedding table by its touched rows
+(``trainer.SGD``'s sparse step, the reference's large-vocab path).
 The data are random ids and labels drawn from a seed; the JAX package
 runs the same config unchanged (``tests/test_torch_trainer.py``).
 """
@@ -51,13 +53,13 @@ def _recurrent(cell, x, hidden):
     raise ValueError(f"cell must be one of {CELLS}, got {cell!r}")
 
 
-def build(vocab=VOCAB, hidden=HIDDEN, cell="rnn"):
+def build(vocab=VOCAB, hidden=HIDDEN, cell="rnn", sparse_update=False):
     """The cost LayerOutput, with a fresh layer-name registry (so every
     build mints the same parameter keys)."""
     L.reset_names()
     word = L.data_layer("word", vocab, is_seq=True)
     label = L.data_layer("label", 1)
-    x = L.embedding_layer(word, size=EMB)
+    x = L.embedding_layer(word, size=EMB, sparse_update=sparse_update)
     for _ in range(LAYERS):
         x = _recurrent(cell, x, hidden)
     pooled = L.pooling_layer(x, pooling_type=L.pooling.Max)

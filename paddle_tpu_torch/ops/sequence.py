@@ -5,13 +5,14 @@ SubSequenceLayer, ContextProjection, EosIdCheckLayer, MaxIdLayer,
 SamplingIdLayer).  Every op takes the padded data plus lengths and
 keeps padding out of its result: max pools pad at -1e30, an empty
 sequence pools to 0, and the ops that move steps zero every step past
-a sequence's new length.  ``nested_seq_pool`` waits for
-``NestedSequenceBatch`` (ROADMAP A9·f)."""
+a sequence's new length.  ``nested_seq_pool`` pools a
+``NestedSequenceBatch`` within each sub-sequence or over all of it."""
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch
 
 _NEG = -1e30
 
@@ -236,3 +237,46 @@ def seq_strided_pool(seq: SequenceBatch, pooling: str, stride: int
                          f"got {pooling!r}")
     out_len = (-(-seq.lengths.long() // stride)).to(torch.int32)
     return _zero_past(_take_steps(seq.data, idx), out_len)
+
+
+def nested_seq_pool(nested: NestedSequenceBatch, pooling: str,
+                    each_sequence: bool = False):
+    """Pooling over a NestedSequenceBatch (the reference's sequence
+    levels).  each_sequence (AggregateLevel.TO_SEQUENCE): pool within
+    each sub-sequence -> SequenceBatch [B, S, D] over the outer lengths,
+    the rows past them zero.  Otherwise pool over every valid element ->
+    [B, D], with JAX's choices kept: "first" reads element (0, 0) even
+    where the first sub-sequence is empty, "last" the last element of
+    the last valid sub-sequence, "max" over no valid element gives 0."""
+    b, s = nested.data.shape[:2]
+    if each_sequence:
+        pooled = seq_pool(nested.flatten_outer(), pooling)      # [B*S, D]
+        data = pooled.reshape((b, s) + tuple(pooled.shape[1:]))
+        data = data * nested.outer_mask(data.dtype).reshape(
+            (b, s) + (1,) * (data.ndim - 2))
+        return SequenceBatch(data=data, lengths=nested.outer_lengths)
+    if pooling == "last":
+        outer_idx = torch.clamp(nested.outer_lengths.long() - 1, min=0)
+        per_sub = nested_seq_pool(nested, "last", each_sequence=True)
+        return per_sub.data[torch.arange(b, device=outer_idx.device),
+                            outer_idx]
+    if pooling == "first":
+        return nested.data[:, 0, 0]
+    # max / avg / sum / sqrt over every valid element of both levels: the
+    # mask is not a prefix, so no flat pool applies
+    flat = nested.data.reshape((b, -1) + tuple(nested.data.shape[3:]))
+    mask = nested.inner_mask().reshape(b, -1)
+    m = mask.reshape(tuple(mask.shape) + (1,) * (flat.ndim - 2))
+    if pooling == "max":
+        neg = torch.tensor(_NEG, device=flat.device).to(flat.dtype)
+        out = torch.where(m > 0, flat, neg).max(dim=1).values
+        return torch.where((mask.sum(1) > 0)[:, None], out, 0.0)
+    total = (flat * m).sum(dim=1)
+    n = torch.clamp(mask.sum(dim=1), min=1.0)[:, None]
+    if pooling in ("avg", "average"):
+        return total / n
+    if pooling == "sqrt":
+        return total / torch.sqrt(n)
+    if pooling == "sum":
+        return total
+    raise ValueError(f"unsupported nested pooling {pooling!r}")

@@ -1,15 +1,24 @@
 """First-order optimizers (``paddle_tpu/optim/optimizers.py``; reference
 FirstOrderOptimizer + OptimizerWithRegularizer / WithGradientClipping).
 
-API as in the JAX package: ``factory(**cfg) -> Optimizer(init, update)``
-with ``init(params) -> {"step", "slots"}`` and ``update(grads, state,
-params) -> (params, state)`` over nested dicts of tensors.  The JAX step
-donates params and optimizer state (``bench.py:335``), so here the update
-writes both in place, under ``torch.no_grad()``, and returns the same
-trees.  All eight of JAX's optimizers are here (Momentum, AdaGrad,
-AdaDelta, RMSProp, DecayedAdaGrad, Adam, AdaMax, and ``get`` by name);
-the sparse ``row_init`` / ``row_update`` path (with its caller-supplied
-``clip_scale``) and averaging are not yet (ROADMAP A9·f).
+API as in the JAX package: ``factory(**cfg) -> Optimizer(init, update,
+row_init, row_update, clip_norm, clip_threshold)`` with ``init(params)
+-> {"step", "slots"}`` and ``update(grads, state, params, clip_scale=None)
+-> (params, state)`` over nested dicts of tensors.  The JAX step donates
+params and optimizer state (``bench.py:335``), so here the update writes
+both in place, under ``torch.no_grad()``, and returns the same trees.
+All eight of JAX's optimizers are here (Momentum, AdaGrad, AdaDelta,
+RMSProp, DecayedAdaGrad, Adam, AdaMax, and ``get`` by name).
+
+The sparse-row interface (reference SparseRowMatrix / sgdUpdateSparse):
+``row_init(rows_tree) -> slots`` and ``row_update(grads, slot_rows, rows,
+step, clip_scale=None) -> (rows, slot_rows)`` run the same rule on a
+gathered block of touched embedding rows (``trainer.SGD``'s sparse
+step), at the dense state's ``step``.  ``clip_scale`` takes the place of
+the global-norm scale, so a caller that splits the gradient tree across
+the two calls applies ONE norm to both (``clip_norm`` and
+``clip_threshold`` are exposed for it).  Schedules are
+``optim/schedules``', their keywords passed through ``sched_kw``.
 """
 
 from typing import Any, Callable, NamedTuple
@@ -23,12 +32,16 @@ from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Any]
+    row_init: Callable[[Any], Any] = None
+    row_update: Callable[..., Any] = None
+    clip_norm: float = None
+    clip_threshold: float = None
 
 
-def _resolve_sched(learning_rate, learning_rate_schedule):
+def _resolve_sched(learning_rate, learning_rate_schedule, **kw):
     if callable(learning_rate):
         return learning_rate
-    return schedules.get(learning_rate_schedule, learning_rate)
+    return schedules.get(learning_rate_schedule, learning_rate, **kw)
 
 
 def _apply_decay(params, grads, l2=0.0, l1=0.0):
@@ -46,13 +59,16 @@ def _apply_decay(params, grads, l2=0.0, l1=0.0):
     return tree_map(fold, grads, params)
 
 
-def _clip(grads, clip_threshold=None, clip_norm=None):
-    """Per-element value clip at clip_threshold, then global-norm
-    clipping at clip_norm."""
+def _clip(grads, clip_threshold=None, clip_norm=None, clip_scale=None):
+    """Per-element value clip at clip_threshold, then the global-norm
+    scale: ``clip_scale`` where the caller gives one, else the norm's
+    min(1, clip_norm / |g|)."""
     if clip_threshold:
         grads = tree_map(lambda g: torch.clamp(g, -clip_threshold,
                                                clip_threshold), grads)
-    if clip_norm:
+    if clip_scale is not None:
+        grads = tree_map(lambda g: g * clip_scale, grads)
+    elif clip_norm:
         gn = torch.sqrt(sum(torch.sum(torch.square(g))
                             for g in tree_leaves(grads)) + 1e-12)
         scale = torch.clamp(clip_norm / gn, max=1.0)
@@ -61,23 +77,34 @@ def _clip(grads, clip_threshold=None, clip_norm=None):
 
 
 def _make(update_one, extra_state_fn, learning_rate, learning_rate_schedule,
-          l1=0.0, l2=0.0, clip_threshold=None, clip_norm=None):
-    sched = _resolve_sched(learning_rate, learning_rate_schedule)
+          l1=0.0, l2=0.0, clip_threshold=None, clip_norm=None, sched_kw=None):
+    sched = _resolve_sched(learning_rate, learning_rate_schedule,
+                           **(sched_kw or {}))
 
     def init(params):
         return {"step": 0, "slots": extra_state_fn(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, clip_scale=None):
         step = state["step"]
         lr = float(sched(step))
         with torch.no_grad():
-            grads = _clip(grads, clip_threshold, clip_norm)
+            grads = _clip(grads, clip_threshold, clip_norm, clip_scale)
             grads = _apply_decay(params, grads, l2=l2, l1=l1)
             update_one(grads, state["slots"], params, lr, step)
         state["step"] = step + 1
         return params, state
 
-    return Optimizer(init=init, update=update)
+    def row_update(grads, slot_rows, rows, step, clip_scale=None):
+        lr = float(sched(step))
+        with torch.no_grad():
+            grads = _clip(grads, clip_threshold, clip_norm, clip_scale)
+            grads = _apply_decay(rows, grads, l2=l2, l1=l1)
+            update_one(grads, slot_rows, rows, lr, step)
+        return rows, slot_rows
+
+    return Optimizer(init=init, update=update, row_init=extra_state_fn,
+                     row_update=row_update, clip_norm=clip_norm,
+                     clip_threshold=clip_threshold)
 
 
 def Momentum(learning_rate=0.01, momentum=0.9, nesterov=False,

@@ -19,7 +19,7 @@ measurement legs of two serving benchmarks, ``bench_serving_quant`` and
                  serving_quant|serving_speculative|resnet50|smallnet|
                  alexnet|googlenet|recommendation|vgg_cifar|sentiment|
                  quick_start_cnn|srl|tagging|word2vec|word2vec_softmax|
-                 seqtoseq_demo]
+                 seqtoseq_demo|rnn_sparse|trainer_prefetch]
         [--hidden 512|1280|2048] [--remat]
 
 ``recommendation`` trains the MovieLens towers at the demo's config
@@ -44,7 +44,16 @@ way.  ``seqtoseq_demo`` trains demo/seqToseq's script
 loader's ragged sources, Adam lr 5e-4 clip_norm 5, the encoder's GRUs
 through the GRU kernels), each step feeding its batch as the demo does,
 one timed step a batch of the demo's whole pass (64), and prints
-ms/batch, samples/s, target tokens/s and the GRU launches a step.  The word2vec configs and ``seqtoseq_demo`` launch no host sync
+ms/batch, samples/s, target tokens/s and the GRU launches a step.
+``rnn_sparse`` trains ``models/text_rnn``'s LSTM config (vocab 30000,
+emb 128, two LSTMs of 512, batch 64 x 100 ids, Momentum) with its
+embedding trained by its touched rows, beside the same config dense:
+ms/batch, samples/s, the LSTM launches and the sparse step's host sync
+alone (``sparse_sync_ms``) with its share of the step.
+``trainer_prefetch`` is ``bench.py``'s ``bench_trainer_prefetch`` (an
+MLP at batch 64, dim 256, hidden 512, 24 batches of 4 ms host cost):
+steps/s through ``SGD.train`` at prefetch 0 and 2, the speedup and the
+prefetch-2 pass's mean ``h2d_wait``.  The word2vec configs and ``seqtoseq_demo`` launch no host sync
 inside the step beyond reading the loss; ``print_layer`` is on none of
 the timed graphs.
 
@@ -752,16 +761,20 @@ def rnn_flops(batch, seq_len, hidden):
 
 def bench_rnn(batch=text_rnn.BATCH, seq_len=text_rnn.SEQ_LEN,
               hidden=text_rnn.HIDDEN, vocab=text_rnn.VOCAB, n_batches=8,
-              seed=0, compute_dtype=None, device=None):
+              seed=0, compute_dtype=None, cell="rnn", sparse_update=False,
+              device=None):
     """``trainer.SGD`` over ``models/text_rnn``'s config (params from a
     generator seeded 1, SGD's default seed; ``n_batches`` batches of ids
-    drawn from ``seed``; ``compute_dtype`` as ``SGD`` takes it).
-    ``train_step()`` feeds the next batch through
+    drawn from ``seed``; ``compute_dtype`` as ``SGD`` takes it; ``cell``
+    "rnn" or "lstm"; ``sparse_update`` trains the embedding by its
+    touched rows).  ``train_step()`` feeds the next batch through
     ``SGD.train_one_batch`` (DataFeeder, forward, ``backward()``,
     Momentum in place) and returns the loss."""
     from paddle_tpu_torch.trainer import SGD
     dev = _device.resolve(device)
-    trainer = SGD(cost=text_rnn.build(vocab=vocab, hidden=hidden),
+    flops = {"rnn": rnn_flops, "lstm": lstm_flops}[cell]
+    trainer = SGD(cost=text_rnn.build(vocab=vocab, hidden=hidden, cell=cell,
+                                      sparse_update=sparse_update),
                   update_equation=text_rnn.optimizer(),
                   compute_dtype=compute_dtype, device=dev)
     feeder = DataFeeder(text_rnn.feeding(vocab), device=dev)
@@ -775,7 +788,98 @@ def bench_rnn(batch=text_rnn.BATCH, seq_len=text_rnn.SEQ_LEN,
         return trainer.train_one_batch(batches[i], feeder)
 
     return RnnBench(train_step, trainer, feeder, batches, batch * seq_len,
-                    rnn_flops(batch, seq_len, hidden))
+                    flops(batch, seq_len, hidden))
+
+
+def sparse_sync_ms(bench, steps):
+    """Median ms of the sparse step's host sync alone: ``ops/sparse.
+    unique_touched`` on a batch's ids (the unique kernel, the read of its
+    size and the padding), the card idle before and after."""
+    from paddle_tpu_torch.ops import sparse as sparse_ops
+    (key, spec), = bench.trainer._sparse_specs.items()
+    times = []
+    for i in range(steps):
+        ids = bench.feeder(bench.batches[i % len(bench.batches)])[
+            spec["feeds"][0]].data
+        budget = spec["budget"] or sparse_ops.default_row_budget(ids.numel())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sparse_ops.unique_touched(ids, budget, spec["vocab"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+class PrefetchBench(NamedTuple):
+    one_pass: Callable[[int], None]     # one pass at a prefetch depth
+    trainer: Callable[[], object]       # a fresh trainer, the same init
+    n_batches: int
+
+
+def bench_trainer_prefetch(batch=64, dim=256, hidden=512, n_batches=24,
+                           host_ms=4.0, device=None):
+    """``bench.py:3449-3535``: the trainer's input overlap on an
+    input-bound MLP (fc ``hidden`` tanh -> fc 2 softmax over dense
+    inputs of ``dim``, Momentum lr 0.01 m 0.9, ``batch`` rows), each host
+    batch costing ``host_ms`` of synthetic input latency.
+    ``one_pass(prefetch, trainer=None)`` trains one pass of
+    ``n_batches`` batches (``buffered_batches=0``) at that prefetch depth
+    and returns the trainer; ``prefetch_rates`` times both depths."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.data.provider import dense_vector, integer_value
+    from paddle_tpu_torch.trainer import SGD
+    dev = _device.resolve(device)
+    rng = np.random.RandomState(0)
+    xs = rng.randn(n_batches, batch, dim).astype(np.float32)
+    ys = (xs.sum(-1) > 0).astype(np.int64)
+
+    def reader():
+        for i in range(n_batches):
+            time.sleep(host_ms * 1e-3)      # synthetic host input cost
+            yield [(xs[i, j], int(ys[i, j])) for j in range(batch)]
+
+    feeding = {"x": dense_vector(dim), "lab": integer_value(2)}
+
+    def trainer():
+        L.reset_names()
+        x, lab = L.data_layer("x", size=dim), L.data_layer("lab", size=1)
+        y = L.fc_layer(L.fc_layer(x, size=hidden, act="tanh"), size=2,
+                       act="softmax")
+        return SGD(cost=L.classification_cost(y, lab),
+                   update_equation=Momentum(learning_rate=0.01,
+                                            momentum=0.9), device=dev)
+
+    shared = trainer()
+
+    def one_pass(prefetch, tr=None):
+        tr = tr or shared
+        tr.train(reader, num_passes=1, feeding=feeding, log_period=0,
+                 buffered_batches=0, prefetch=prefetch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return tr
+
+    return PrefetchBench(one_pass, trainer, n_batches)
+
+
+def prefetch_rates(bench):
+    """Steps/s of a pass at prefetch 0 and at 2 (each depth warmed by a
+    pass first), the speedup, and the mean ``h2d_wait`` of the prefetch-2
+    pass in ms."""
+    from paddle_tpu_torch.utils.stats import global_stats
+
+    def steps_per_s(prefetch):
+        t0 = time.perf_counter()
+        bench.one_pass(prefetch)
+        return bench.n_batches / (time.perf_counter() - t0)
+    steps_per_s(0)
+    steps_per_s(2)
+    sps0 = steps_per_s(0)
+    wait = global_stats.get("h2d_wait")
+    wait.reset()
+    sps2 = steps_per_s(2)
+    return {"steps_per_s_prefetch0": sps0, "steps_per_s_prefetch2": sps2,
+            "prefetch_speedup": sps2 / sps0, "h2d_wait_ms": wait.avg * 1e3}
 
 
 class RecBench(NamedTuple):
@@ -1212,6 +1316,7 @@ def main(argv=None):
                                         "serving_quant",
                                         "serving_speculative",
                                         "recommendation", "seqtoseq_demo",
+                                        "rnn_sparse", "trainer_prefetch",
                                         *DSL_CONFIGS,
                                         *IMAGE_CONFIGS),
                     default="lstm")
@@ -1374,6 +1479,45 @@ def main(argv=None):
         return 0
     if args.model == "serving_quant":
         bench_serving_quant(device=dev)
+        return 0
+    if args.model == "trainer_prefetch":
+        print(json.dumps({
+            "bench": "trainer_prefetch", "card": _device.card(),
+            "config": {"batch": 64, "dim": 256, "hidden": 512,
+                       "batches": 24, "host_ms": 4.0,
+                       "optimizer": "Momentum lr 0.01 m 0.9",
+                       "entry": "trainer.SGD.train(prefetch=0 | 2)"},
+            **prefetch_rates(bench_trainer_prefetch(device=dev))}),
+              flush=True)
+        return 0
+    if args.model == "rnn_sparse":
+        # text_rnn's LSTM config with the embedding trained by its touched
+        # rows, beside the same config dense
+        out = {}
+        for sparse in (True, False):
+            bench = bench_rnn(cell="lstm", sparse_update=sparse, device=dev)
+            times, losses = _timed(bench.train_step)
+            ms = float(np.median(times))
+            lk = kernels.lstm
+            sync = sparse_sync_ms(bench, STEPS) if sparse else None
+            out["sparse" if sparse else "dense"] = {
+                "ms_per_batch": ms,
+                "ms_per_batch_p90": float(np.percentile(times, 90)),
+                "samples_per_s": text_rnn.BATCH / (ms / 1e3),
+                "loss_first_last": [losses[0], losses[-1]],
+                "launches": {lk.NAME_FWD: lk.launches_fwd,
+                             lk.NAME_BWD: lk.launches_bwd},
+                **({"host_sync_ms": sync, "host_sync_share": sync / ms}
+                   if sparse else {})}
+        print(json.dumps({
+            "bench": "rnn_sparse", "card": _device.card(),
+            "config": {"vocab": text_rnn.VOCAB, "emb": text_rnn.EMB,
+                       "hidden": text_rnn.HIDDEN, "cell": "lstm",
+                       "layers": text_rnn.LAYERS, "batch": text_rnn.BATCH,
+                       "seq_len": text_rnn.SEQ_LEN,
+                       "optimizer": "Momentum lr 0.01 m 0.9",
+                       "entry": "trainer.SGD.train_one_batch"},
+            "steps": STEPS, **out}), flush=True)
         return 0
     if args.model == "serving_speculative":
         bench_serving_speculative(device=dev)

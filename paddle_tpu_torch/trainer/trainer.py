@@ -67,9 +67,30 @@ bf16 (``compute_dtype``; outputs returned float32) or over int8 weights
 (``quantize="int8"``, a copy of JAX's ``export.quantize_params``).
 ``Trainer`` is ``SGD``.
 
-Settings whose machinery is not ported raise ``ConfigError`` naming
-their ROADMAP item: ``mesh`` / ``sharding_rules`` (A12), sparse-update
-embeddings and ``prefetch > 0`` (A9·f).
+``sparse_update`` embeddings train by their touched rows, as JAX's
+sparse step does: each step gathers the rows its id feeds touch
+(``ops/sparse.unique_touched``, one host sync), rewrites the id feeds to
+positions in that row block, differentiates the block in place of the
+[V, D] table (which never requires grad), takes ONE global norm over the
+dense and row gradients for ``clip_norm``, applies ``update`` and
+``row_update`` (at the dense state's step, before its increment) and
+writes the valid rows and their optimizer slot rows back.  The
+optimizer state is JAX's ``{"dense": ..., "sparse": {key: slots}}``, so
+sparse checkpoints carry across the packages both ways.  JAX's
+refusals come with it: ids not straight from a data layer, an id feed
+with another consumer, a table shared with a non-sparse layer, a
+pruning hook on a sparse table, ``grad_accum_steps > 1`` and
+``quant_weights``; and a nested id feed, which JAX's step cannot read
+either, raises at the first step that meets it.  Pruning masks apply to
+the dense gradients on this path too (JAX's sparse step skips them:
+ROADMAP C16).
+
+``train(prefetch=N)`` runs the feeder conversion and the host-to-device
+copy on a background thread N batches ahead (``data/prefetch``); each
+step's wait for its feed adds to ``utils/stats.global_stats``'
+``h2d_wait``, with or without it.
+
+``mesh`` / ``sharding_rules`` raise ``ConfigError`` naming ROADMAP A12.
 """
 
 import signal
@@ -80,11 +101,13 @@ import torch
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.core.dtypes import cast_tree
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch
 from paddle_tpu_torch.data import reader as reader_mod
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.layers.graph import Topology, params_from_numpy, \
     value_data
+from paddle_tpu_torch.ops import sparse as sparse_ops
 from paddle_tpu_torch.quant import weights as qw
 from paddle_tpu_torch.trainer import events
 from paddle_tpu_torch.trainer import hooks as param_hooks
@@ -92,6 +115,7 @@ from paddle_tpu_torch.trainer.checkpoint import load_checkpoint, \
     save_checkpoint, wait_pending
 from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.logging import logger
+from paddle_tpu_torch.utils.stats import global_stats
 from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -117,8 +141,8 @@ def _state_on(tree, device):
 
 
 def _detach(v):
-    if isinstance(v, SequenceBatch):
-        return SequenceBatch(v.data.detach(), v.lengths)
+    if isinstance(v, (SequenceBatch, NestedSequenceBatch)):
+        return v._replace(data=v.data.detach())
     return v.detach()
 
 
@@ -189,15 +213,8 @@ class SGD:
             self._eval_extra_slots.append(
                 {kw: slot_for(l) for kw, l in spec.extra_inputs.items()})
         self.topology = Topology(list(self.costs) + self.extra_layers)
-        for node in self.topology.order:
-            if node.layer_type == "embedding" \
-                    and node.cfg.get("sparse_update"):
-                if self._quant:
-                    raise ConfigError(
-                        "quant_weights=True is unsupported with "
-                        "sparse_update embeddings (row-sliced tables have "
-                        "no per-out-channel scale home)")
-                _refuse(f"sparse_update embedding {node.name!r}", "A9·f")
+        self._sparse_specs = self._find_sparse_specs()
+        self._touched = {}      # the step's {key: (uids, valid count)}
         self.optimizer = update_equation
         if parameters is None:
             self.parameters = self.topology.init(
@@ -213,6 +230,20 @@ class SGD:
         # the values masked once here, the gradients every step
         self._prune_masks = param_hooks.build_masks(self.topology,
                                                     self.parameters)
+        for k in self._prune_masks:
+            if k in self._sparse_specs:
+                raise ConfigError(
+                    f"pruning hook on {k!r}: sparse_update tables can't be "
+                    "statically pruned (the row path rewrites the table)")
+        if self.grad_accum_steps > 1 and self._sparse_specs:
+            raise ConfigError(
+                "grad_accum_steps > 1 is unsupported with sparse_update "
+                "embeddings (touched-row sets differ per micro-batch)")
+        if self._quant and self._sparse_specs:
+            raise ConfigError(
+                "quant_weights=True is unsupported with sparse_update "
+                "embeddings (row-sliced tables have no per-out-channel "
+                "scale home)")
         self._mask_values()
         self._track()
         # the int8 twin of the masters: only the quantized leaves, keyed
@@ -221,7 +252,14 @@ class SGD:
             else None
         self._view = None       # the step's tree, between its forward and
                                 # its update
-        self.opt_state = self.optimizer.init(self.parameters)
+        self.opt_state = self.optimizer.init(self._dense(self.parameters))
+        if self._sparse_specs:
+            # whole-table slots for the sparse tables; a step gathers,
+            # updates and scatters back only the touched rows of them
+            self.opt_state = {
+                "dense": self.opt_state,
+                "sparse": {k: self.optimizer.row_init(self.parameters[k])
+                           for k in self._sparse_specs}}
         if self.grad_accum_steps > 1:
             # JAX's accumulation wrapper: the gradient sum and the count
             # of micro-batches in it (a host int, as the inner "step")
@@ -237,9 +275,93 @@ class SGD:
 
     def _track(self):
         self._leaves = tree_leaves(self.parameters)
-        for p in self._leaves:
-            # in int8 mode the step differentiates its own view
-            p.requires_grad_(not self._quant)
+        for key, tree in self.parameters.items():
+            # in int8 mode the step differentiates its own view, and a
+            # sparse table's step its gathered row block
+            for p in tree_leaves(tree):
+                p.requires_grad_(not self._quant
+                                 and key not in self._sparse_specs)
+
+    def _dense(self, tree):
+        """``tree`` without the sparse tables' keys."""
+        return {k: v for k, v in tree.items() if k not in self._sparse_specs}
+
+    def _find_sparse_specs(self):
+        """The embeddings flagged sparse_update whose ids come straight
+        from a data layer (the reference's sparse-remote-update
+        constraint), as JAX finds them: {param_key: {"feeds": [...],
+        "vocab": V, "budget": K or None}}."""
+        specs = {}
+        nodes = {}
+        order = self.topology.order
+        for node in order:
+            if node.layer_type != "embedding" \
+                    or not node.cfg.get("sparse_update"):
+                continue
+            src = node.inputs[0]
+            if src.layer_type != "data":
+                raise ConfigError(
+                    f"sparse_update embedding {node.name!r} needs a data "
+                    "layer input (ids straight from the feed)")
+            consumers = [n for n in order if src in n.inputs and n is not node]
+            if consumers:
+                raise ConfigError(
+                    f"sparse_update embedding {node.name!r}: its id input "
+                    f"{src.name!r} also feeds {consumers[0].name!r}; the "
+                    "sparse path rewrites that feed and would corrupt it")
+            key = self.topology._param_key(node)
+            spec = specs.setdefault(key, {"feeds": [],
+                                          "vocab": node.cfg["vocab"],
+                                          "budget": node.cfg.get(
+                                              "sparse_budget")})
+            spec["feeds"].append(src.name)
+            nodes.setdefault(key, set()).add(id(node))
+        # the step puts the gathered row block under the table's key, so
+        # no other kind of layer may read that key
+        for node in order:
+            key = self.topology._param_key(node)
+            if key in specs and id(node) not in nodes[key] \
+                    and node.layer_type != "data":
+                raise ConfigError(
+                    f"sparse_update table {key!r} is shared with layer "
+                    f"{node.name!r} ({node.layer_type}), which would read "
+                    "the gathered row block instead of the full table; "
+                    "share only among sparse_update embeddings")
+        return specs
+
+    def _sparse_feed(self, feed):
+        """The feed with each sparse table's id feeds rewritten to
+        positions in its row block, the touched rows kept for the step
+        (``self._touched``)."""
+        feed = dict(feed)
+        self._touched = {}
+        for key, spec in self._sparse_specs.items():
+            flats, places = [], []
+            for f in spec["feeds"]:
+                v = feed[f]
+                if isinstance(v, NestedSequenceBatch):
+                    raise ConfigError(
+                        f"sparse_update table {key!r}: its id feed {f!r} is "
+                        "a nested sequence; the sparse step reads plain or "
+                        "sequence id feeds only (JAX's sparse step cannot "
+                        "read a nested one either)")
+                d = v.data if isinstance(v, SequenceBatch) else v
+                flats.append(d.reshape(-1))
+                places.append((f, v, d.shape))
+            ids = torch.cat(flats) if len(flats) > 1 else flats[0]
+            budget = spec["budget"] or sparse_ops.default_row_budget(
+                ids.numel())
+            uids, inv, count = sparse_ops.unique_touched(
+                ids, budget, spec["vocab"], with_count=True)
+            off = 0
+            for f, v, shape in places:
+                n = int(np.prod(shape))
+                iv = inv[off:off + n].reshape(shape)
+                off += n
+                feed[f] = SequenceBatch(iv, v.lengths) \
+                    if isinstance(v, SequenceBatch) else iv
+            self._touched[key] = (uids, count)
+        return feed
 
     def _zeros_like_params(self):
         return tree_map(lambda p: torch.zeros_like(p.detach()),
@@ -277,8 +399,16 @@ class SGD:
     def _step_view(self):
         """The tree the step differentiates: in int8 mode each quantized
         leaf's dequantized twin and the masters' other leaves, as fresh
-        leaf tensors (the masters stay out of the graph); else the
-        masters themselves."""
+        leaf tensors (the masters stay out of the graph); with sparse
+        tables each table's gathered row block, a fresh leaf, in its
+        place; else the masters themselves."""
+        if self._sparse_specs:
+            view = dict(self.parameters)
+            for key, (uids, _) in self._touched.items():
+                view[key] = tree_map(
+                    lambda t, u=uids: sparse_ops.gather_rows(t, u)
+                    .requires_grad_(True), self.parameters[key])
+            return view
         if not self._quant:
             return self.parameters
 
@@ -312,6 +442,8 @@ class SGD:
         view of the params (``_step_view``), cast with the feed to the
         compute dtype, the sum over costs of each cost's batch mean,
         float32."""
+        if self._sparse_specs:
+            feed = self._sparse_feed(feed)
         self._view = self._step_view()
         out, new_state = self.topology.apply(
             self._cast_compute(self._view), self._cast_compute(feed),
@@ -334,10 +466,14 @@ class SGD:
         gradients join the sum and every Nth micro-batch applies its
         mean; in int8 mode then the masters' requantization.  The view
         (and with it every dequantized weight) is dropped."""
+        view = self._view
         grads = tree_map(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), self._view)
+                         else torch.zeros_like(p), view)
         self._view = None
         grads = param_hooks.apply_masks(grads, self._prune_masks)
+        if self._sparse_specs:
+            self._sparse_update(grads, view)
+            return
         if self.grad_accum_steps > 1:
             st = self.opt_state
             with torch.no_grad():
@@ -356,6 +492,43 @@ class SGD:
         self.optimizer.update(grads, self.opt_state, self.parameters)
         if self._quant:
             self._qtree = self._requant(self.parameters)
+
+    def _sparse_update(self, grads, view):
+        """The sparse step's update: one global-norm scale over the dense
+        and row gradients (after clip_threshold, as ``update`` measures
+        it), ``update`` on the dense parameters, ``row_update`` on each
+        table's row block at the dense state's step before its
+        increment, then the valid rows and slot rows written back."""
+        opt, specs = self.optimizer, self._sparse_specs
+        dense_grads = self._dense(grads)
+        row_grads = {k: grads[k] for k in specs}
+        clip_scale = None
+        if opt.clip_norm:
+            with torch.no_grad():
+                leaves = tree_leaves([dense_grads, row_grads])
+                if opt.clip_threshold:
+                    ct = opt.clip_threshold
+                    leaves = [torch.clamp(g, -ct, ct) for g in leaves]
+                gn = torch.sqrt(sum(torch.sum(torch.square(g))
+                                    for g in leaves) + 1e-12)
+                clip_scale = torch.clamp(opt.clip_norm / gn, max=1.0)
+        dstate = self.opt_state["dense"]
+        step = dstate["step"]
+        opt.update(dense_grads, dstate, self._dense(self.parameters),
+                   clip_scale=clip_scale)
+        for key in specs:
+            uids, count = self._touched[key]
+            slots = self.opt_state["sparse"][key]
+            slot_rows = tree_map(lambda t: sparse_ops.gather_rows(t, uids),
+                                 slots)
+            rows, slot_rows = opt.row_update(row_grads[key], slot_rows,
+                                             view[key], step,
+                                             clip_scale=clip_scale)
+            for tree, new in ((self.parameters[key], rows),
+                              (slots, slot_rows)):
+                for t, r in zip(tree_leaves(tree), tree_leaves(new)):
+                    sparse_ops.scatter_rows(t, uids, r, count)
+        self._touched = {}
 
     def _step(self, feed):
         total, extras = self._forward(feed)
@@ -401,10 +574,13 @@ class SGD:
         requests a graceful stop: the current batch finishes, a blocking
         checkpoint with ``preempted: true``, the signal and
         ``batches_done`` is written, and ``train`` returns.  The previous
-        handler is put back on the way out."""
-        if prefetch:
-            _refuse("prefetch > 0 (the device-side input pipeline)",
-                    "A9·f")
+        handler is put back on the way out.
+
+        prefetch: with N > 0 a background thread runs the reader, the
+        feeder conversion and the host-to-device copy N batches ahead
+        (``data/prefetch.ShardedPrefetcher``; ``buffered_batches`` is then
+        ignored); each step's wait for its feed is ``h2d_wait`` in
+        ``utils/stats.global_stats`` either way."""
         event_handler = event_handler or (lambda e: None)
         if feeding is not None and not isinstance(feeding, DataFeeder):
             feeding = DataFeeder(feeding, device=self.device)
@@ -476,8 +652,22 @@ class SGD:
                 event_handler(events.BeginPass(pass_id))
                 for spec in self.evaluators:
                     spec.reset()
-                batch_reader = reader_mod.buffered(reader, buffered_batches) \
-                    if buffered_batches else reader
+                batch_reader = reader
+                if buffered_batches and not prefetch:
+                    # host-only double buffering; with prefetch the
+                    # pipeline's own thread covers it
+                    batch_reader = reader_mod.buffered(reader,
+                                                       buffered_batches)
+                prefetcher = None
+                if prefetch:
+                    # the same conversion as the synchronous path, on the
+                    # producer thread
+                    from paddle_tpu_torch.data.prefetch import (
+                        ShardedPrefetcher, device_placer)
+                    prefetcher = ShardedPrefetcher(
+                        batch_reader, depth=prefetch,
+                        convert=lambda b: self._feed(b, feeding),
+                        place=device_placer(device=self.device))
                 cost_sum = torch.zeros((), device=self.device)
                 n_batches, window = 0, []
                 # a preemption resume's first pass skips the batches the
@@ -486,37 +676,57 @@ class SGD:
                 pass_skip = skip_left
                 t0 = time.time()
                 batch_id = -1
-                for batch in batch_reader():
-                    batch_id += 1
-                    if skip_left > 0:
-                        skip_left -= 1
-                        continue
-                    event_handler(events.BeginIteration(pass_id, batch_id))
-                    feed = self._feed(batch, feeding)
-                    cost, extras = self._step(feed)
-                    cost_sum = cost_sum + cost
-                    n_batches += 1
-                    if log_period:
-                        window.append(cost)
-                    if self.evaluators:
-                        update_evaluators(extras, feed)
-                    if log_period and (batch_id + 1) % log_period == 0:
-                        c = float(torch.stack(window).mean())
-                        window = []
-                        logger.info("Pass %d Batch %d Cost %.5f (%.1f "
-                                    "ms/batch)%s", pass_id, batch_id + 1, c,
-                                    (time.time() - t0) / log_period * 1e3,
-                                    eval_log_suffix())
-                        t0 = time.time()
-                    if (show_parameter_stats_period and (batch_id + 1)
-                            % show_parameter_stats_period == 0):
-                        self.log_parameter_stats()
-                    event_handler(events.EndIteration(
-                        pass_id, batch_id, cost=cost,
-                        evaluator_results={f"extra_{i}": e
-                                           for i, e in enumerate(extras)}))
-                    if self._stop_signal is not None:
-                        break
+                feed_iter = iter(prefetcher) if prefetcher is not None \
+                    else iter(batch_reader())
+                h2d_wait = global_stats.get("h2d_wait")
+                try:
+                    while True:
+                        # h2d_wait: the time blocked on the next device-
+                        # ready feed (the queue's wait with prefetch, the
+                        # reader and the conversion inline without)
+                        t_in = time.perf_counter()
+                        try:
+                            item = next(feed_iter)
+                        except StopIteration:
+                            break
+                        batch_id += 1
+                        if skip_left > 0:
+                            skip_left -= 1
+                            continue
+                        feed = item if prefetcher is not None \
+                            else self._feed(item, feeding)
+                        h2d_wait.add(time.perf_counter() - t_in)
+                        event_handler(events.BeginIteration(pass_id,
+                                                            batch_id))
+                        cost, extras = self._step(feed)
+                        cost_sum = cost_sum + cost
+                        n_batches += 1
+                        if log_period:
+                            window.append(cost)
+                        if self.evaluators:
+                            update_evaluators(extras, feed)
+                        if log_period and (batch_id + 1) % log_period == 0:
+                            c = float(torch.stack(window).mean())
+                            window = []
+                            logger.info(
+                                "Pass %d Batch %d Cost %.5f (%.1f "
+                                "ms/batch)%s", pass_id, batch_id + 1, c,
+                                (time.time() - t0) / log_period * 1e3,
+                                eval_log_suffix())
+                            t0 = time.time()
+                        if (show_parameter_stats_period and (batch_id + 1)
+                                % show_parameter_stats_period == 0):
+                            self.log_parameter_stats()
+                        event_handler(events.EndIteration(
+                            pass_id, batch_id, cost=cost,
+                            evaluator_results={
+                                f"extra_{i}": e
+                                for i, e in enumerate(extras)}))
+                        if self._stop_signal is not None:
+                            break
+                finally:
+                    if prefetcher is not None:
+                        prefetcher.close()
                 pass_cost = float(cost_sum) / n_batches if n_batches \
                     else float("nan")
                 logger.info("Pass %d done, mean cost %.5f%s", pass_id,
@@ -638,11 +848,15 @@ class SGD:
     def _opt_on(self, opt_state):
         """A checkpoint's optimizer state on the device: host ints for
         the step (and the accumulation tick), float32 tensors for the
-        slots (and the gradient sum)."""
+        slots (the sparse tables' too, and the gradient sum)."""
         if "inner" in opt_state:
             return {"inner": self._opt_on(opt_state["inner"]),
                     "gsum": self._on_device(opt_state["gsum"]),
                     "tick": int(opt_state["tick"])}
+        if "sparse" in opt_state:
+            # the sparse layout: the dense state and the tables' slots
+            return {"dense": self._opt_on(opt_state["dense"]),
+                    "sparse": self._on_device(opt_state["sparse"])}
         return {"step": int(opt_state["step"]),
                 "slots": self._on_device(opt_state["slots"])}
 
@@ -725,8 +939,8 @@ def _quantize_params(params, min_size=1024):
 
 def _to_float32(out, dtype):
     """Outputs of ``dtype`` back to float32 (tuples and sequences kept)."""
-    if isinstance(out, SequenceBatch):
-        return SequenceBatch(_to_float32(out.data, dtype), out.lengths)
+    if isinstance(out, (SequenceBatch, NestedSequenceBatch)):
+        return out._replace(data=_to_float32(out.data, dtype))
     if isinstance(out, tuple):
         return tuple(_to_float32(o, dtype) for o in out)
     return out.float() if out.dtype == dtype else out
@@ -783,7 +997,8 @@ class Inferencer:
                 else DataFeeder(feeding, device=self.device)
             feed = feeder(feed_or_batch)
         else:
-            feed = {k: v if isinstance(v, (SequenceBatch, torch.Tensor))
+            feed = {k: v if isinstance(v, (SequenceBatch, NestedSequenceBatch,
+                                           torch.Tensor))
                     else torch.as_tensor(np.asarray(v), device=self.device)
                     for k, v in feed_or_batch.items()}
         with torch.no_grad():

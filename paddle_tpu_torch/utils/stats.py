@@ -1,7 +1,65 @@
-"""Latency histogram (the ``keep="last"`` ring of
-``paddle_tpu/utils/stats.Histogram``, without its injectable clock)."""
+"""Timer / stat registry and a latency histogram
+(``paddle_tpu/utils/stats.py``; reference paddle/utils/Stat.h:70-241).
+
+``global_stats.get(name)`` is a host wall-clock ``Stat`` (total, count,
+max, avg) that the trainer feeds, as JAX's does: ``h2d_wait`` is the
+time each step waited for its device-ready feed.  ``Histogram`` is the
+``keep="last"`` ring of JAX's, without its injectable clock.
+"""
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
+
+
+class Stat:
+    __slots__ = ("name", "total", "count", "max", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.total = 0.0
+        self.count = 0
+        self.max = 0.0
+        self._lock = threading.Lock()
+
+    def add(self, seconds: float):
+        with self._lock:
+            self.total += seconds
+            self.count += 1
+            if seconds > self.max:
+                self.max = seconds
+
+    @property
+    def avg(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def reset(self):
+        with self._lock:
+            self.total = 0.0
+            self.count = 0
+            self.max = 0.0
+
+    def __repr__(self):
+        return (f"Stat({self.name}: total={self.total * 1e3:.2f}ms "
+                f"avg={self.avg * 1e3:.3f}ms max={self.max * 1e3:.3f}ms "
+                f"count={self.count})")
+
+
+class StatRegistry:
+    def __init__(self):
+        self._stats = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, name: str) -> Stat:
+        with self._lock:
+            stat = self._stats.get(name)
+            if stat is None:
+                stat = self._stats[name] = Stat(name)
+            return stat
+
+
+global_stats = StatRegistry()
 
 
 class Histogram:

@@ -28,6 +28,8 @@ import torch
 from paddle_tpu.core.sequence import SequenceBatch as JaxSeq
 from paddle_tpu.ops import sequence as jax_seq_ops
 import paddle_tpu.layers as JL
+from paddle_tpu.layers.graph import reset_names as jax_reset_names
+from paddle_tpu.utils.error import ConfigError as JaxConfigError
 import paddle_tpu_torch.layers as L
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops import sequence as seq_ops
@@ -189,12 +191,19 @@ def test_levels_match_jax():
 
 
 @pytest.mark.parametrize("ctor", ["pooling_layer", "last_seq", "first_seq"])
-def test_nested_pooling_raises_naming_a9f(ctor):
+def test_seq_level_pooling_of_a_non_sequence_raises_as_jax(ctor):
     """``agg_level="seq"`` pools each sub-sequence of a nested sequence
-    (JAX's ``nested_seq_pool``), which waits for NestedSequenceBatch;
-    strided pooling runs now (the cases above)."""
+    (``tests/test_torch_nested.py``); over a non-sequence input it raises
+    ConfigError at apply, as JAX's ``as_seq`` does.  Strided pooling
+    keeps a sequence (the cases above)."""
     L.reset_names()
-    with pytest.raises(ConfigError, match="A9·f"):
-        getattr(L, ctor)(_d(L, "xs", seq=True), agg_level="seq")
+    node = getattr(L, ctor)(_d(L, "x"), agg_level="seq")
+    assert node.is_seq
+    with pytest.raises(ConfigError, match="expected a sequence input"):
+        L.Topology(node).apply({}, {"x": torch.ones(2, D)})
+    jax_reset_names()
+    jnode = getattr(JL, ctor)(_d(JL, "x"), agg_level="seq")
+    with pytest.raises(JaxConfigError, match="expected a sequence input"):
+        JL.Topology(jnode).apply({}, {"x": jnp.ones((2, D))})
     assert L.last_seq(_d(L, "xs", seq=True), stride=2).is_seq
     assert not L.last_seq(_d(L, "xs", seq=True)).is_seq

@@ -157,10 +157,14 @@ def test_initializers_follow_the_jax_std_rules():
 
 
 def test_schedules_constant_only():
+    """The constant schedule; every other one runs now
+    (tests/test_torch_optim_a9f.py), and what JAX's ``get`` refuses the
+    port's refuses too: an unknown name, pass_manual without
+    steps_per_pass."""
     assert schedules.get(None, 0.1)(7) == pytest.approx(0.1)
     assert schedules.get("constant", 0.5)(0) == pytest.approx(0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schedules.get("poly", 0.1)
+    with pytest.raises(ValueError, match="steps_per_pass"):
+        schedules.get("pass_manual", 0.1, segments=[(0, 1.0)])
     with pytest.raises(KeyError, match="bogus"):
         schedules.get("bogus", 0.1)
 

@@ -385,9 +385,13 @@ def test_refusals_of_the_graph_and_the_train_loop(tmp_path):
     L.reset_names()
     word = L.data_layer("word", V, is_seq=True)
     label = L.data_layer("label", 1)
-    sparse = L.embedding_layer(word, size=E, sparse_update=True)
+    # sparse embeddings train now (tests/test_torch_sparse.py); one fed
+    # from a non-data layer JAX's trainer refuses too
+    sparse = L.embedding_layer(L.fc_layer(word, size=1, act=None), size=E,
+                               sparse_update=True)
     out = L.fc_layer(L.pooling_layer(sparse), size=2, act="softmax")
-    with pytest.raises(ConfigError, match="sparse_update.*A9·f"):
+    with pytest.raises(ConfigError,
+                       match="sparse_update.*needs a data layer input"):
         SGD(L.classification_cost(out, label),
             update_equation=optim.Momentum(), device="cpu")
     # pruning trains now (tests/test_torch_trainer_a9c.py); a hook with
@@ -403,8 +407,10 @@ def test_refusals_of_the_graph_and_the_train_loop(tmp_path):
         L.recurrent_layer(L.fc_layer(word, size=H), prev_batch_state=True)
     trainer = _port_trainer()
     rd = reader.batch(lambda: iter(_batch(14)), B)
-    with pytest.raises(ConfigError, match="prefetch.*A9·f"):
-        trainer.train(rd, feeding=FEEDING, prefetch=2)
+    # prefetch trains now (tests/test_torch_data_a9f.py); a negative depth
+    # JAX's prefetcher refuses too
+    with pytest.raises(ValueError, match="prefetch depth must be >= 1"):
+        trainer.train(rd, feeding=FEEDING, prefetch=-1)
     # save_on_signal trains now (tests/test_torch_trainer_a9c.py); a
     # resume without a save_dir JAX's trainer refuses too
     with pytest.raises(ConfigError, match="needs save_dir"):
