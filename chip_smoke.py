@@ -438,6 +438,19 @@ non-zero exit code and no final "ok" line:
   trainer_prefetch  bench.py's bench_trainer_prefetch MLP through
             SGD.train: a pass at prefetch=2 bit for bit prefetch=0;
             steps/s at both depths and h2d_wait
+  train_lstm_group  models/text_rnn with each LSTM a
+            networks.lstmemory_group (a recurrent_group of lstm_step
+            layers; vocab 30000, emb 128, two of h 512, batch 64 x 100,
+            Momentum) through SGD: the first step against the CPU (the
+            TF32 cuBLAS step must fail that gate), then a pass launching
+            no counted kernel; its lstmemory twin on the mapped weights
+            through SGD (B9 2 + 2 a step); on one batch the group's loss,
+            both layers' outputs and every gradient against the twin's,
+            which the twin with its peepholes zeroed must fail; the same
+            for networks.gru_group against grumemory at T 30 (B10 2 + 2);
+            ms/batch and peak memory of each; the scan hoist on and off
+            (values equal) on lstm_recurrent_layer_group and on a group
+            that projects its input inside the step
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -8503,6 +8516,314 @@ def run_trainer_prefetch(torch, dev, kernels):
         **bench.prefetch_rates(b)})
 
 
+# train_lstm_group: models/text_rnn's LSTM classifier (bench_lstm's
+# config: vocab 30000, emb 128, two layers of h 512 over fc 4h
+# projections, max pool, fc 2 softmax; batch 64 x 100, Momentum) with each
+# lstmemory a networks.lstmemory_group, through SGD.  The group runs
+# ops/rnn.lstm_cell in a Python loop over time (JAX's lax.scan of plain
+# ops): no kernel of its own.
+# - The first step on the card against the CPU witness at GROUP_TOL, as
+#   the other DSL LSTM configs are held (SENT_TOL, SPARSE_TOL), each leaf
+#   with FLOOR_TIMES its float32 noise beside (the output bias's gradient
+#   cancels at init: 1.25e-5 of its entry, card vs CPU, every other leaf
+#   far below); the same card step with cuBLAS's TF32 products on must
+#   fail it.  Then
+#   GROUP_BATCHES more steps through SGD.train, no counted kernel
+#   launched.
+# - Its twin, text_rnn cell="lstm" on text_rnn.twin_params of the same
+#   start, through SGD over the same batches (B9 2 + 2 a step).
+# - On one batch, from the group's start with its step biases drawn at
+#   N(0, 0.1) (so the peepholes carry weight): the group's loss, both
+#   recurrent layers' outputs and every gradient against the twin's on
+#   the card, the outputs within LSTM_TOL absolute, the loss and each
+#   gradient leaf within TRAIN_REL_TOL of its largest entry (the twin's
+#   B9 runs 3xTF32 products, the group cuBLAS float32, 2 x 100 steps in
+#   other orders); the twin with its peepholes zeroed must fail the gate.
+#   Peak memory of the group's step and of the twin's beside.
+# - networks.gru_group against grumemory the same way at the seq2seq
+#   shape (T GRU_GROUP_T, B 64, D 512; B10 2 + 2), its biases drawn at
+#   N(0, 0.1) and zeroed in the control.
+# - The scan hoist (layers/recurrent.HOIST_SCAN_INVARIANTS) on and off on
+#   lstm_recurrent_layer_group (its input transform is already outside
+#   the group: an empty frontier) and on a group that projects its input
+#   inside the step (fc 4h, then networks.lstmemory_unit: the frontier is
+#   that fc), at the same width: ms of a forward and backward each way
+#   after one untimed pass each, the two taken in turns (on, off, off,
+#   on, ...; median of HOIST_REPS each), loss and gradients equal within
+#   HOIST_TOL.  The twin checks' ms likewise: the median of TWIN_TIMED
+#   passes after the checked one.
+GROUP_TOL = 2e-5
+GROUP_BATCHES = 8
+GROUP_WARMUP = 2               # steps of the pass left out of ms/batch
+GRU_GROUP_T = 30
+HOIST_TOL = 1e-5
+HOIST_REPS = 4
+TWIN_TIMED = 3
+
+
+def fwd_bwd_ms(torch, topo, params, feed):
+    """ms of one forward and backward of ``topo``'s mean output on fresh
+    leaves of ``params``, synchronized; and the leaves and the loss."""
+    from paddle_tpu_torch.layers.graph import value_data
+    from paddle_tpu_torch.utils.tree import tree_map
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = torch.mean(value_data(topo.apply(leaves, feed)))
+    loss.backward()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, leaves, float(loss.detach())
+
+
+def twin_pass(torch, kernels, cell, params, feed):
+    """One forward and backward of text_rnn ``cell`` on ``params`` (fresh
+    leaves) and ``feed``: (loss, each recurrent layer's output, the
+    leaves with their grads, its (LSTM, GRU) kernel launches, peak MB),
+    then the median ms of TWIN_TIMED more."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.layers.graph import value_data
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.utils.tree import tree_map
+    cost = text_rnn.build(cell=cell)
+    rnns = [n for n in L.Topology(cost).order if n.layer_type in (
+        "recurrent_group", "lstmemory", "grumemory")]
+    topo = L.Topology([cost] + rnns)
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    outs = topo.apply(leaves, feed, mode="train")
+    loss = torch.mean(value_data(outs[0]))
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = (kernels.lstm.launches_fwd + kernels.lstm.launches_bwd,
+                kernels.gru.launches_fwd + kernels.gru.launches_bwd)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = [fwd_bwd_ms(torch, L.Topology(cost), params, feed)[0]
+          for _ in range(TWIN_TIMED)]
+    return {"loss": float(loss.detach()),
+            "outs": [value_data(o).detach() for o in outs[1:]],
+            "leaves": leaves, "launches": launches,
+            "ms": float(np.median(ms)), "peak_mb": peak}
+
+
+def group_twin_check(torch, dev, kernels, cell, batch, seed):
+    """text_rnn ``cell`` (a group cell) against its twin on the card, on
+    one batch, from the group's start with its step biases drawn at
+    N(0, 0.1); the control zeroes the twin's peepholes (LSTM) or its
+    bias (GRU).  Returns the readings; the phase fails unless the twin
+    passes and the control fails."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
+    twin_cell = text_rnn.TWINS[cell]
+    start = host_tree(SGD(cost=text_rnn.build(cell=cell),
+                          update_equation=text_rnn.optimizer(),
+                          device="cpu").parameters)
+    gen = torch.Generator().manual_seed(seed)
+    for key, p in start.items():
+        if key.startswith(("lstm", "gru")) and "b" in p:
+            p["b"] = 0.1 * torch.randn(p["b"].shape, generator=gen)
+    start = tree_map(lambda t: t.to(dev), start)
+    feed = DataFeeder(text_rnn.feeding(), device=dev)(batch)
+    group = twin_pass(torch, kernels, cell, start, feed)
+    if group["launches"] != (0, 0):
+        fail(f"train_lstm_group: the {cell} step launched the (LSTM, GRU) "
+             f"kernels {group['launches']} times, want none")
+    twin_params = text_rnn.twin_params(start, cell)
+
+    def readings(params):
+        twin = twin_pass(torch, kernels, twin_cell, params, feed)
+        grads = text_rnn.twin_params(
+            tree_map(lambda t: t.grad, group["leaves"]), cell)
+        want = tree_map(lambda t: t.grad, twin["leaves"])
+        return twin, {
+            "loss_rel_err": abs(group["loss"] - twin["loss"])
+            / abs(twin["loss"]),
+            "outputs_max_abs_err": max(float((g - w).abs().max()) for g, w
+                                       in zip(group["outs"], twin["outs"])),
+            "grad_rel_err_max": max(largest_err(tree_leaves(grads),
+                                                tree_leaves(want)))}
+
+    def passes(r):
+        return (r["loss_rel_err"] <= TRAIN_REL_TOL
+                and r["outputs_max_abs_err"] <= LSTM_TOL
+                and r["grad_rel_err_max"] <= TRAIN_REL_TOL)
+
+    twin, sound = readings(twin_params)
+    d = text_rnn.HIDDEN
+
+    def zeroed(key, p):
+        if not key.startswith(("__lstmemory", "__grumemory")):
+            return p
+        b = p["b"].clone()
+        b[4 * d if cell == "lstm_group" else 0:] = 0.0
+        return {**p, "b": b}
+    _, control = readings({k: zeroed(k, p) for k, p in twin_params.items()})
+    want = (2, 0) if cell == "lstm_group" else (0, 2)
+    per_pass = tuple(2 * n for n in want)       # forward and backward
+    out = {"vs_twin": sound, "control": {
+        "what": "the twin with its peepholes zeroed" if cell == "lstm_group"
+        else "the twin with its bias zeroed", **control},
+        "limits": {"loss_rel": TRAIN_REL_TOL, "outputs_abs": LSTM_TOL,
+                   "grad_rel": TRAIN_REL_TOL},
+        "twin_launches": {"lstm": twin["launches"][0],
+                          "gru": twin["launches"][1]},
+        "group_ms": group["ms"], "twin_ms": twin["ms"],
+        "group_peak_mb": group["peak_mb"], "twin_peak_mb": twin["peak_mb"]}
+    if not passes(sound) or passes(control) or twin["launches"] != per_pass:
+        fail(f"train_lstm_group: {cell} against its twin on the card "
+             f"(the twin must pass, the control fail, the twin launch "
+             f"{per_pass}): {out}")
+    return out
+
+
+def hoist_config(kind):
+    """The hoist's two graphs over text_rnn's embedding at its width:
+    lstm_recurrent_layer_group, or a group that projects its input
+    inside the step."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.models import text_rnn
+    L.reset_names()
+    word = L.data_layer("word", text_rnn.VOCAB, is_seq=True)
+    emb = L.embedding_layer(word, size=text_rnn.EMB)
+    h = text_rnn.HIDDEN
+    if kind == "lstm_recurrent_layer_group":
+        out = L.lstm_recurrent_layer_group(name="g", size=h, input=[emb])
+    else:
+        def step(x):
+            x4 = L.fc_layer(x, size=4 * h, act=None, bias_attr=False)
+            return L.networks.lstmemory_unit(x4, size=h, name="u")
+        out = L.recurrent_group(step, emb)
+    pooled = L.pooling_layer(out, pooling_type=L.pooling.Max)
+    return L.classification_cost(
+        L.fc_layer(pooled, size=text_rnn.CLASSES, act="softmax"),
+        L.data_layer("label", 1))
+
+
+def hoist_check(torch, dev, kernels, batch):
+    """HOIST_SCAN_INVARIANTS on and off on both hoist graphs: the frontier,
+    ms of a forward and backward each way, their loss and gradients."""
+    import paddle_tpu_torch.layers as L
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.layers import recurrent as R
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    feed = DataFeeder(text_rnn.feeding(), device=dev)(batch)
+    prior, out = R.HOIST_SCAN_INVARIANTS, {}
+    try:
+        for kind in ("lstm_recurrent_layer_group", "projected_in_step"):
+            topo = L.Topology(hoist_config(kind))
+            group = next(n for n in topo.order
+                         if n.layer_type == "recurrent_group")
+            frontier = R._hoistable_frontier(group.cfg["sub_topo"],
+                                             group.cfg["seq_phs"], "train")
+            params = topo.init(torch.Generator().manual_seed(1), device=dev)
+            kernels.reset_launches()
+            runs = {}
+            for on in (True, False):            # untimed: the readings
+                R.HOIST_SCAN_INVARIANTS = on
+                _, leaves, loss = fwd_bwd_ms(torch, topo, params, feed)
+                runs[on] = {"ms": [], "loss": loss,
+                            "grads": [t.grad for t in tree_leaves(leaves)]}
+            for i in range(HOIST_REPS):
+                for on in ((True, False) if i % 2 == 0 else (False, True)):
+                    R.HOIST_SCAN_INVARIANTS = on
+                    runs[on]["ms"].append(
+                        fwd_bwd_ms(torch, topo, params, feed)[0])
+            launched = sum(launch_counts(kernels).values()) \
+                + recurrent_launches(kernels)
+            if launched:
+                fail(f"train_lstm_group: the hoist's {kind} graph launched "
+                     f"{launched} counted kernels")
+            errs = largest_err(runs[True]["grads"], runs[False]["grads"])
+            loss_err = abs(runs[True]["loss"] - runs[False]["loss"]) \
+                / abs(runs[False]["loss"])
+            out[kind] = {
+                "frontier": [n.name for n in frontier],
+                "ms_hoisted": float(np.median(runs[True]["ms"])),
+                "ms_in_loop": float(np.median(runs[False]["ms"])),
+                "loss_rel_err": loss_err, "grad_rel_err_max": max(errs),
+                "tolerance": HOIST_TOL}
+            if max(errs + [loss_err]) > HOIST_TOL:
+                fail(f"train_lstm_group: hoisted against in-loop: {out}")
+    finally:
+        R.HOIST_SCAN_INVARIANTS = prior
+    if out["lstm_recurrent_layer_group"]["frontier"] or \
+            len(out["projected_in_step"]["frontier"]) != 1:
+        fail(f"train_lstm_group: hoist frontiers {out}")
+    return out
+
+
+def run_train_lstm_group(torch, dev, kernels, seed):
+    """train_lstm_group (see GROUP_TOL); returns the B9 and B10 launches
+    of its twins."""
+    from paddle_tpu_torch.models import text_rnn
+    from paddle_tpu_torch.trainer import SGD
+    lk, gk = kernels.lstm, kernels.gru
+    data = list(text_rnn.batches(seed + 28, GROUP_BATCHES + 1)())
+    feeding = text_rnn.feeding()
+    card, start, first, first_launches = graph_first_step(
+        torch, dev, kernels, lambda: text_rnn.build(cell="lstm_group"),
+        text_rnn.optimizer, feeding, data[0], "train_lstm_group", GROUP_TOL,
+        control=lambda: cublas_tf32(torch), floors=True)
+    first["control"]["what"] = ("the same card step with cuBLAS's TF32 "
+                                "products on, the card's argmax replayed")
+    if first_launches != (0, 0):
+        fail(f"train_lstm_group: the group's first step launched the LSTM "
+             f"kernels {first_launches} times, want none")
+    times, losses, _ = sgd_pass(torch, kernels, card, data[1:], feeding,
+                                "train_lstm_group")
+    del card
+    twin = SGD(cost=text_rnn.build(cell="lstm"),
+               parameters=text_rnn.twin_params(start, "lstm_group"),
+               update_equation=text_rnn.optimizer(), device=dev)
+    twin_times, twin_losses, twin_launches = sgd_pass(
+        torch, kernels, twin, data, feeding, "train_lstm_group twin",
+        per_step=(2, 2))
+    del twin
+    torch.cuda.empty_cache()
+    lstm_twin = group_twin_check(torch, dev, kernels, "lstm_group", data[0],
+                                 seed + 29)
+    gru_batch = next(iter(text_rnn.batches(seed + 30, 1,
+                                           seq_len=GRU_GROUP_T)()))
+    gru_twin = group_twin_check(torch, dev, kernels, "gru_group", gru_batch,
+                                seed + 31)
+    hoist = hoist_check(torch, dev, kernels, data[0])
+    torch.cuda.empty_cache()
+    ms = float(np.median(times[GROUP_WARMUP:]))
+    twin_ms = float(np.median(twin_times[1 + GROUP_WARMUP:]))
+    launches = {lk.NAME_FWD: twin_launches[lk.NAME_FWD]
+                + lstm_twin["twin_launches"]["lstm"] // 2,
+                lk.NAME_BWD: twin_launches[lk.NAME_BWD]
+                + lstm_twin["twin_launches"]["lstm"] // 2,
+                gk.NAME_FWD: gru_twin["twin_launches"]["gru"] // 2,
+                gk.NAME_BWD: gru_twin["twin_launches"]["gru"] // 2}
+    emit({"phase": "train_lstm_group", "config": {
+        "model": "models/text_rnn cell=lstm_group (networks.lstmemory_group "
+                 "over fc 4h; bench_lstm's config, the reference's "
+                 "benchmark/paddle/rnn/rnn.py)",
+        "vocab": text_rnn.VOCAB, "emb": text_rnn.EMB,
+        "hidden": text_rnn.HIDDEN, "layers": text_rnn.LAYERS,
+        "batch": text_rnn.BATCH, "seq_len": text_rnn.SEQ_LEN,
+        "batches": GROUP_BATCHES + 1, "optimizer": "Momentum lr 0.01 m 0.9",
+        "entry": "trainer.SGD.train", "gru_seq_len": GRU_GROUP_T},
+        "first_step_vs_cpu": first,
+        "ms_per_batch": ms, "ms_min_max": [min(times), max(times)],
+        "twin_ms_per_batch": twin_ms,
+        "launches_per_step": {"group": {lk.NAME_FWD: 0, lk.NAME_BWD: 0},
+                              "twin": {lk.NAME_FWD: 2, lk.NAME_BWD: 2}},
+        "losses": losses, "twin_losses": twin_losses[1:],
+        "losses_vs_twin_rel_err_max": max(
+            abs(a - b) / abs(b) for a, b in zip(losses, twin_losses[1:])),
+        "lstm_vs_twin": lstm_twin, "gru_vs_twin": gru_twin,
+        "hoist": hoist, "launches": launches})
+    return {"train_lstm_group": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8731,6 +9052,7 @@ def main(argv=None):
     sparse_launches = run_train_sparse(torch, dev, kernels, args.seed)
     nested_launches = run_nested_a9f(torch, dev, kernels)
     run_trainer_prefetch(torch, dev, kernels)
+    group_launches = run_train_lstm_group(torch, dev, kernels, args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -8801,7 +9123,8 @@ def main(argv=None):
                    **{path: n[name] for path, n in a9c_launches.items()},
                    **{path: n[name] for path, n in srl_launches.items()},
                    **{path: n[name] for path, n in sparse_launches.items()},
-                   **{path: n[name] for path, n in nested_launches.items()}}
+                   **{path: n[name] for path, n in nested_launches.items()},
+                   **{path: n[name] for path, n in group_launches.items()}}
         summary.append({
             "name": name, "route": "cuda",
             "source": kernels.lstm.SOURCE, "replaces": replaces,
@@ -8841,12 +9164,14 @@ def main(argv=None):
             "replaces": replaces,
             "launches": s2s_launches["train"][name]
             + s2s_launches["generate"][name] + s2g_launches[name]
-            + s2d_launches["train"][name] + s2d_launches["generate"][name],
+            + s2d_launches["train"][name] + s2d_launches["generate"][name]
+            + group_launches["train_lstm_group"][name],
             "launches_by_path": {
                 **{path: n[name] for path, n in s2s_launches.items()},
                 "generate_seq2seq": s2g_launches[name],
                 **{f"{path}_seqtoseq_demo": n[name]
-                   for path, n in s2d_launches.items()}},
+                   for path, n in s2d_launches.items()},
+                "train_lstm_group": group_launches["train_lstm_group"][name]},
             "shape_seqtoseq_demo": {"T": "3-29, ragged", "B": S2D_BATCH,
                                     "D": S2D_HIDDEN},
             "max_abs_err": max([row["max_abs_err"]]

@@ -18,6 +18,14 @@ layers are tensors [B, D] (one row per sample) or ``SequenceBatch``es
 three (``map_rows``).  Where JAX jits the whole graph, the port walks the
 nodes in Python on every call; autograd takes the gradient.
 
+Container layers (``recurrent_group``) hold a step sub-graph in
+``cfg["sub_topo"]``: ``init`` draws its parameters into the same
+top-level dict under their own sharing keys, as JAX's ``_init_into``
+does, the container applies it against ``Context.params`` on every
+step, and ``apply(precomputed=)`` takes the values the group hoisted
+out of its loop.  ``_NODE_OBSERVERS`` see every node built, so the
+group's tracer finds step nodes that are not ancestors of its outputs.
+
 Each layer type registers a LayerImpl:
   infer(cfg, in_sizes) -> output size
   init(generator, cfg, in_sizes) -> param dict (may be {})
@@ -38,6 +46,11 @@ from paddle_tpu_torch.utils.tree import tree_map
 
 _LAYER_IMPLS: Dict[str, "LayerImpl"] = {}
 _NAME_COUNTERS: Dict[str, int] = {}
+
+# called with every LayerOutput built: the recurrent_group tracer sees the
+# step nodes that CONSUME the step's outputs (a memory may link one, e.g.
+# last_seq(inner_out, name="outer_rnn_state"))
+_NODE_OBSERVERS: List[Callable] = []
 
 
 @dataclasses.dataclass
@@ -97,6 +110,8 @@ class LayerOutput:
         self.is_seq = is_seq
         self.num_filters = num_filters      # conv image metadata
         self.img_shape = img_shape          # (h, w) after this layer
+        for obs in _NODE_OBSERVERS:
+            obs(self)
 
     def __repr__(self):
         return (f"LayerOutput({self.name}, {self.layer_type}, size={self.size}"
@@ -106,15 +121,21 @@ class LayerOutput:
 class Context:
     """Per-apply execution context: the mode, an explicit
     ``torch.Generator`` for the layers that draw (dropout, nce,
-    sampling_id: ``uniform``), and the mutable-state collection a layer
+    sampling_id: ``uniform``), the mutable-state collection a layer
     reads (``state_in``) and writes (``state_out``, returned by
-    ``Topology.apply(return_state=True)``)."""
+    ``Topology.apply(return_state=True)``), a scratch dict (``aux``: a
+    recurrent_group's outputs for ``get_output_layer``) and the whole
+    top-level params (``params``), which a container layer applies its
+    step sub-graph against."""
 
-    def __init__(self, mode="train", generator=None, state=None):
+    def __init__(self, mode="train", generator=None, state=None,
+                 params=None):
         self.mode = mode                  # "train" | "test"
         self.generator = generator
         self.state_in = state or {}       # {layer_name: value}
         self.state_out = {}
+        self.aux = {}
+        self.params = params
 
     def is_train(self):
         return self.mode == "train"
@@ -233,12 +254,21 @@ class Topology:
         {param_name: tensor}}.  Layers sharing a key share the entry."""
         dev = _device.resolve(device)
         params = {}
+        self._init_into(params, generator)
+        return tree_map(lambda t: t.to(dev), params)
+
+    def _init_into(self, params, generator):
+        """Each node's params into ``params`` under its sharing key (the
+        first node of a key decides), a container's step sub-graph
+        before the container itself."""
         for node in self.order:
-            impl = get_impl(node.layer_type)
-            p = impl.init(generator, node.cfg, [i.size for i in node.inputs])
+            sub = node.cfg.get("sub_topo")
+            if isinstance(sub, Topology):
+                sub._init_into(params, generator)
+            p = get_impl(node.layer_type).init(
+                generator, node.cfg, [i.size for i in node.inputs])
             if p:
                 params.setdefault(self._param_key(node), p)
-        return tree_map(lambda t: t.to(dev), params)
 
     def _param_key(self, node):
         """Parameter-sharing key: explicit cfg['param_name'], else a
@@ -253,15 +283,29 @@ class Topology:
     def apply(self, params, feed, mode="train", generator=None, state=None,
               return_state=False, extra_outputs=(), precomputed=None):
         """Run the graph.  feed: {data_layer_name: tensor|SequenceBatch}.
-        Returns the outputs' values (one, or a tuple), and with
-        ``return_state`` also the state the layers put."""
-        if precomputed:
-            raise ConfigError("Topology.apply(precomputed=...) serves the "
-                              "recurrent_group hoist, not ported yet "
-                              "(ROADMAP A10·b)")
-        ctx = Context(mode=mode, generator=generator, state=state)
+        Returns the outputs' values (one, or a tuple), then the values of
+        those ``extra_outputs`` the graph computed, and with
+        ``return_state`` also the state the layers put.  precomputed:
+        {node_name: value}, nodes whose values were computed elsewhere
+        (the recurrent_group hoist), taken as they are."""
+        ctx = Context(mode=mode, generator=generator, state=state,
+                      params=params)
         cache = {}
+        # with precomputed values, only the nodes still needed run (the
+        # hoisted nodes' own ancestors are dead, as XLA drops them)
+        live = self._live(list(self.outputs) + list(extra_outputs),
+                          precomputed) if precomputed else None
         for node in self.order:
+            if precomputed and node.name in precomputed:
+                cache[id(node)] = precomputed[node.name]
+                continue
+            if live is not None and id(node) not in live:
+                continue
+            # recurrent_group feeds its step-input, memory and static
+            # placeholders by name on every step
+            if node.layer_type.startswith("__") and node.name in feed:
+                cache[id(node)] = feed[node.name]
+                continue
             if node.layer_type == "data":
                 if node.name not in feed:
                     raise ConfigError(
@@ -274,9 +318,9 @@ class Topology:
             try:
                 val = impl.apply(ctx, node.cfg, p, *ins)
                 # reference ExtraLayerAttribute(drop_rate=...) applies to
-                # any layer's output; fc and dropout apply it inside their
-                # impls, everything else here
-                if node.layer_type not in ("fc", "dropout"):
+                # any layer's output; fc, mixed and dropout apply it inside
+                # their impls, everything else here
+                if node.layer_type not in ("fc", "mixed", "dropout"):
                     val = dropout(ctx, node.cfg.get("drop_rate", 0.0), val)
                 ect = node.cfg.get("error_clipping_threshold")
                 if ect:
@@ -296,6 +340,20 @@ class Topology:
             return result, ctx.state_out
         return result
 
+    @staticmethod
+    def _live(outputs, precomputed):
+        """ids of the nodes ``outputs`` need, a precomputed node ending
+        its branch."""
+        live, stack = set(), list(outputs)
+        while stack:
+            node = stack.pop()
+            if id(node) in live:
+                continue
+            live.add(id(node))
+            if node.name not in precomputed:
+                stack.extend(node.inputs)
+        return live
+
     def init_state(self, device=None):
         """Initial mutable state of the layers that keep one: each batch
         norm layer's moving stats, (zeros, ones) of its stat size, as
@@ -312,18 +370,11 @@ class Topology:
     def param_shapes(self):
         """{param_key: {param_name: shape}} of ``init``'s result (drawn
         on the CPU from a throwaway generator): each key's first node
-        decides, as in ``init``."""
-        gen = torch.Generator().manual_seed(0)
-        shapes = {}
-        for node in self.order:
-            key = self._param_key(node)
-            if key in shapes:
-                continue
-            p = get_impl(node.layer_type).init(
-                gen, node.cfg, [i.size for i in node.inputs])
-            if p:
-                shapes[key] = {k: tuple(v.shape) for k, v in p.items()}
-        return shapes
+        decides, step sub-graphs included, as in ``init``."""
+        params = {}
+        self._init_into(params, torch.Generator().manual_seed(0))
+        return {key: {k: tuple(v.shape) for k, v in p.items()}
+                for key, p in params.items()}
 
 
 def params_from_numpy(topology, tree, device=None):

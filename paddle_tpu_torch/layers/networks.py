@@ -3,18 +3,20 @@ trainer_config_helpers/networks.py): the image blocks
 (``simple_img_conv_pool``, ``img_conv_group``, ``img_conv_bn_pool``,
 ``vgg_16_network``, ``small_vgg``), the whole-sequence recurrent
 composites (``simple_lstm``, ``simple_gru``, ``simple_gru2``,
-``bidirectional_lstm``, ``bidirectional_gru``), Bahdanau
-``simple_attention`` with its ``attention_context_layer``, and
+``bidirectional_lstm``, ``bidirectional_gru``), the step composites
+(``gru_unit``, ``gru_group``, ``lstmemory_unit``, ``lstmemory_group``),
+Bahdanau ``simple_attention`` with its ``attention_context_layer``, and
 ``inputs`` / ``outputs``, under the JAX names and ``__all__``.
 
 ``text_conv_pool`` = ``sequence_conv_pool`` builds the reference's
-context window, fc and pool (ROADMAP C14).  The composites built on
-``recurrent_group`` (``gru_unit``, ``gru_group``, ``lstmemory_unit``,
-``lstmemory_group``) raise ``ConfigError`` naming ROADMAP A10·b, where
-``recurrent_group`` waits.
+context window, fc and pool (ROADMAP C14).  The step composites on
+``recurrent_group`` (``gru_unit`` / ``gru_group`` over ``gru_step_layer``,
+``lstmemory_unit`` / ``lstmemory_group`` over a mixed layer and
+``lstm_step_layer``) compute what ``grumemory`` / ``lstmemory`` compute,
+one time step at a time, on the same weights.
 """
 
-from paddle_tpu_torch.layers import api
+from paddle_tpu_torch.layers import api, recurrent
 from paddle_tpu_torch.layers.api import (
     _winit, concat_layer, dropout_layer, fc_layer)
 from paddle_tpu_torch.layers.graph import (
@@ -23,7 +25,6 @@ from paddle_tpu_torch.layers.recurrent import grumemory, lstmemory
 from paddle_tpu_torch.layers.vision import (
     batch_norm_layer, img_conv_layer, img_pool_layer)
 from paddle_tpu_torch.ops import attention as attn_ops
-from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = [
     "simple_img_conv_pool", "img_conv_group", "img_conv_bn_pool",
@@ -33,11 +34,6 @@ __all__ = [
     "bidirectional_lstm", "bidirectional_gru", "simple_attention",
     "text_conv_pool", "sequence_conv_pool", "inputs", "outputs",
 ]
-
-
-def _not_ported(ctor, needs):
-    raise ConfigError(f"networks.{ctor} is built on {needs}, not ported "
-                      "yet (ROADMAP A10·b)")
 
 
 # ---------------------------------------------------------------- images
@@ -188,21 +184,94 @@ def bidirectional_gru(input, size, name=None, return_seq=False):
     return concat_layer([api.last_seq(fwd), api.first_seq(bwd)])
 
 
-def gru_unit(input, size=None, name=None, **kwargs):
-    _not_ported("gru_unit", "recurrent_group's memory and gru_step_layer")
+def gru_unit(input, size=None, name=None, act="tanh", gate_act="sigmoid",
+             memory_boot=None, gru_bias_attr=None, gru_param_attr=None,
+             naive=False, gru_layer_attr=None):
+    """One GRU step for custom recurrent groups (reference gru_unit):
+    creates the output memory link itself."""
+    size = size or input.size // 3
+    mem = recurrent.memory(name=name or "gru_unit_out", size=size,
+                           boot_layer=memory_boot)
+    step = (recurrent.gru_step_naive_layer if naive
+            else recurrent.gru_step_layer)
+    return step(input, mem, size=size, act=act, gate_act=gate_act,
+                bias_attr=True if gru_bias_attr is None else gru_bias_attr,
+                param_attr=gru_param_attr, name=name or "gru_unit_out")
 
 
-def gru_group(input, size=None, name=None, **kwargs):
-    _not_ported("gru_group", "recurrent_group")
+def gru_group(input, size=None, name=None, reverse=False, act="tanh",
+              gate_act="sigmoid", memory_boot=None, gru_bias_attr=None,
+              gru_param_attr=None, naive=False, gru_layer_attr=None):
+    """GRU as an explicit recurrent_group (reference gru_group) — same
+    numbers as grumemory, built from the step primitive."""
+    def step(x3):
+        return gru_unit(x3, size=size, name=name and f"{name}_out",
+                        act=act, gate_act=gate_act, memory_boot=memory_boot,
+                        gru_bias_attr=gru_bias_attr,
+                        gru_param_attr=gru_param_attr, naive=naive)
+    return recurrent.recurrent_group(step, input=input, reverse=reverse,
+                                     name=name)
 
 
-def lstmemory_unit(input, size=None, name=None, **kwargs):
-    _not_ported("lstmemory_unit", "recurrent_group's memory, mixed_layer "
-                "and lstm_step_layer")
+def lstmemory_unit(input, size=None, name=None, act="tanh",
+                   gate_act="sigmoid", state_act="tanh", memory_boot=None,
+                   param_attr=None, mixed_bias_attr=None,
+                   lstm_bias_attr=None, mixed_layer_attr=None,
+                   lstm_layer_attr=None, get_output_layer_attr=None):
+    """One LSTM step for custom groups (reference lstmemory_unit,
+    networks.py:616-723): gates = identity(input) + W_r @ h_prev via a step
+    mixed layer (param_attr names/shares W_r), then one lstm_step.  The
+    [h|c] pair rides in one memory of width 2*size.  A reference-style
+    memory_boot of width `size` boots h; c boots to zero (matching the
+    reference, whose state memory boots zero unless given its own layer)."""
+    size = size or input.size // 4
+    nm = name or "lstm_unit"
+    state_name = nm + "_state"
+    if memory_boot is not None and memory_boot.size == size:
+        # widen [B, size] h-boot to [B, 2*size] = [h | 0]
+        zeros = api.slope_intercept_layer(memory_boot, slope=0.0,
+                                          intercept=0.0)
+        memory_boot = concat_layer([memory_boot, zeros])
+    state = recurrent.memory(name=state_name, size=2 * size,
+                             boot_layer=memory_boot)
+    h_prev = api.mixed_layer(
+        size=size, input=[api.identity_projection(state, offset=0,
+                                                  size=size)],
+        act=None, bias_attr=False, name=nm + "_prev_h")
+    # the recurrent projection the reference puts in "%s_input_recurrent"
+    gates = api.mixed_layer(
+        size=4 * size,
+        input=[api.identity_projection(input),
+               api.full_matrix_projection(h_prev, param_attr=param_attr)],
+        act=None,
+        bias_attr=False if mixed_bias_attr is None else mixed_bias_attr,
+        name=nm + "_input_recurrent")
+    hc = recurrent.lstm_step_layer(
+        gates, state, size=size, act=act, gate_act=gate_act,
+        state_act=state_act,
+        bias_attr=True if lstm_bias_attr is None else lstm_bias_attr,
+        name=state_name)
+    return api.mixed_layer(
+        size=size, input=[api.identity_projection(hc, offset=0, size=size)],
+        act=None, bias_attr=False, name=nm)
 
 
-def lstmemory_group(input, size=None, name=None, **kwargs):
-    _not_ported("lstmemory_group", "recurrent_group")
+def lstmemory_group(input, size=None, name=None, reverse=False, act="tanh",
+                    gate_act="sigmoid", state_act="tanh", memory_boot=None,
+                    param_attr=None, mixed_bias_attr=None,
+                    lstm_bias_attr=None, mixed_layer_attr=None,
+                    lstm_layer_attr=None, get_output_layer_attr=None):
+    """LSTM as an explicit recurrent_group (reference lstmemory_group) —
+    exactly the lstmemory math with per-step state access."""
+    def step(x4):
+        return lstmemory_unit(x4, size=size, name=name and f"{name}_unit",
+                              act=act, gate_act=gate_act,
+                              state_act=state_act, memory_boot=memory_boot,
+                              param_attr=param_attr,
+                              mixed_bias_attr=mixed_bias_attr,
+                              lstm_bias_attr=lstm_bias_attr)
+    return recurrent.recurrent_group(step, input=input, reverse=reverse,
+                                     name=name)
 
 
 def text_conv_pool(input, context_len, hidden_size, context_start=None,

@@ -1,33 +1,54 @@
-"""Whole-sequence recurrent layers (``paddle_tpu/layers/recurrent.py``):
-``lstmemory``, ``grumemory`` and ``recurrent_layer``, thin on
-``ops/rnn.lstm``, ``.gru`` and ``.simple_rnn`` — whose fused routes run
-the LSTM, GRU and vanilla-RNN kernels on the card.
+"""Recurrent layers (``paddle_tpu/layers/recurrent.py``): the
+whole-sequence ``lstmemory``, ``grumemory`` and ``recurrent_layer``, and
+the ``recurrent_group`` / ``memory`` engine with its step layers.
 
 Reference: trainer_config_helpers layers.py lstmemory / grumemory /
-recurrent_layer (LstmLayer, GatedRecurrentLayer, RecurrentLayer).
-``recurrent_group``, ``memory`` and the step layers wait for ROADMAP
-A10·b; the ``prev_batch_state`` carry (the final state fed to the next
-batch) raises naming it.
+recurrent_layer / recurrent_group / memory / lstm_step_layer /
+gru_step_layer / get_output_layer (LstmLayer, GatedRecurrentLayer,
+RecurrentLayer, RecurrentGradientMachine).
+
+The whole-sequence layers are thin on ``ops/rnn.lstm``, ``.gru`` and
+``.simple_rnn``, whose fused routes run the LSTM, GRU and vanilla-RNN
+kernels on the card.  A ``recurrent_group``'s step function is traced
+once at config time into a sub-graph over placeholders (step inputs,
+memories, static inputs); ``ops/rnn.recurrent_group`` runs it once a
+time step, as JAX's ``lax.scan`` does, with finished rows' memories
+frozen.  The step layers call ``ops/rnn.lstm_cell`` / ``gru_cell``, so a
+group runs no kernel of its own, as JAX's runs none.  With
+``HOIST_SCAN_INVARIANTS`` the step graph's memory-free row-wise prefix
+runs once over the whole padded sequence before the loop (one product
+over [B·T, ·] in place of T small ones).
+
+Waiting for ROADMAP A10·b item 1b: ``SubsequenceInput`` groups (the
+nested engine), ``mdlstmemory`` and the ``prev_batch_state`` carry (the
+final state fed to the next batch), each of which raises naming it.
 """
 
 import math
 
 import torch
 
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch
+from paddle_tpu_torch.layers import graph as _graph
 from paddle_tpu_torch.layers.api import _winit
 from paddle_tpu_torch.layers.graph import (
-    LayerOutput, register_layer, auto_name, as_seq)
+    LayerOutput, Topology, register_layer, auto_name, as_seq, value_data)
 from paddle_tpu_torch.ops import rnn as rnn_ops
 from paddle_tpu_torch.utils.error import ConfigError
 
-__all__ = ["lstmemory", "grumemory", "recurrent_layer"]
+__all__ = [
+    "lstmemory", "grumemory", "recurrent_layer", "recurrent_group", "memory",
+    "StaticInput", "SubsequenceInput", "lstm_step_layer", "gru_step_layer",
+    "gru_step_naive_layer", "get_output_layer",
+]
 
 
 def _no_carry(prev_batch_state):
     if prev_batch_state:
         raise ConfigError("prev_batch_state=True (the final state carried "
                           "into the next batch) is not ported yet (ROADMAP "
-                          "A10·b)")
+                          "A10·b 1b)")
 
 
 def _zeros(gen, size):
@@ -161,3 +182,437 @@ def recurrent_layer(input, act="tanh", reverse=False, name=None,
                         "param_attr": param_attr,
                         "prev_batch_state": prev_batch_state},
                        is_seq=True)
+
+
+# ----------------------------------------------------- recurrent_group
+
+class StaticInput:
+    """A whole layer visible unchanged at every step (reference
+    StaticInput; the encoder context of simple_attention).  is_seq: the
+    step sees the whole sequence."""
+
+    def __init__(self, input, is_seq=False):
+        self.input = input
+        self.is_seq = is_seq
+
+
+class SubsequenceInput:
+    """A two-level sequence input whose sub-sequences a nested
+    recurrent_group iterates (reference SubsequenceInput).  Defined with
+    JAX's surface; ``recurrent_group`` refuses it until the nested engine
+    lands (ROADMAP A10·b 1b)."""
+
+    def __init__(self, input):
+        self.input = input
+
+
+class _GroupBuildCtx:
+    current = None
+
+    def __init__(self):
+        self.memories = []  # (placeholder, link name, boot, boot const)
+
+
+def resolve_memory_links(sub_topo, memories, extra_nodes=()):
+    """Match memory() links to step-graph layers by name.  extra_nodes:
+    nodes built during the step trace that are NOT ancestors of the step
+    outputs (a memory may link a consumer of an output)."""
+    by_name = {n.name: n for n in extra_nodes}
+    by_name.update({n.name: n for n in sub_topo.order})
+    links = []
+    for ph, link_name, boot, boot_const in memories:
+        if link_name not in by_name:
+            raise ConfigError(
+                f"memory(name={link_name!r}) has no matching layer in the "
+                f"step function (have {sorted(by_name)})")
+        links.append((ph, by_name[link_name], boot, boot_const))
+    return links
+
+
+class _MemoryPlaceholder(LayerOutput):
+    """memory()'s value; ``set_input(layer)`` binds a ``name=None``
+    memory late (the reference's memory(name=None) + set_input)."""
+
+    __slots__ = ()
+
+    def set_input(self, layer):
+        g = _GroupBuildCtx.current
+        if g is None:
+            raise ConfigError("set_input() must be called inside the step")
+        for i, (ph, _, boot, boot_const) in enumerate(g.memories):
+            if ph is self:
+                g.memories[i] = (ph, layer.name, boot, boot_const)
+                return
+        raise ConfigError("set_input on a memory not in this group")
+
+
+def memory(name, size, boot_layer=None, boot_with_const_id=None,
+           is_seq=False):
+    """The previous step's output of the step layer called ``name``
+    (reference memory(), RecurrentGradientMachine memory frames): zeros
+    at the first step, or ``boot_layer``'s value, or a float full of
+    ``boot_with_const_id``.  With name=None the link is bound later by
+    ``.set_input(layer)``."""
+    g = _GroupBuildCtx.current
+    if g is None:
+        raise ConfigError(
+            "memory() must be called inside recurrent_group's step")
+    ph = _MemoryPlaceholder(auto_name(f"mem_{name}"), "__memory__", size, [],
+                            {"link": name}, is_seq=False)
+    g.memories.append((ph, name, boot_layer, boot_with_const_id))
+    return ph
+
+
+def recurrent_group(step, input, reverse=False, name=None):
+    """Trace ``step`` once over placeholders into the group's sub-graph
+    (see the module doc).
+
+    input: one or a list of sequence LayerOutputs and/or StaticInputs.
+    step: fn(*step_inputs) -> a LayerOutput or a tuple of them; the
+    group's value is the first, ``get_output_layer`` reads the others.
+    reverse runs over the padded time axis from its end."""
+    ins = input if isinstance(input, (list, tuple)) else [input]
+    seq_inputs, static_inputs, step_args = [], [], []
+    for item in ins:
+        if isinstance(item, StaticInput):
+            ph = LayerOutput(auto_name("static_in"), "__static__",
+                             item.input.size, [], {}, is_seq=item.is_seq)
+            static_inputs.append((ph, item))
+        elif isinstance(item, SubsequenceInput):
+            raise ConfigError(
+                "recurrent_group over a SubsequenceInput (the nested "
+                "engine) is not ported yet (ROADMAP A10·b 1b)")
+        else:
+            if not item.is_seq:
+                raise ConfigError(
+                    f"recurrent_group input {item.name} is not a "
+                    "sequence; wrap non-sequence inputs in StaticInput (a "
+                    "v1 config's promotion of such an input waits for "
+                    "ROADMAP A11)")
+            ph = LayerOutput(auto_name("step_in"), "__step_input__",
+                             item.size, [], {}, is_seq=False)
+            seq_inputs.append((ph, item))
+        step_args.append(ph)
+    if not seq_inputs:
+        raise ConfigError("recurrent_group needs at least one sequence "
+                          "input to iterate")
+
+    g, prev = _GroupBuildCtx(), _GroupBuildCtx.current
+    _GroupBuildCtx.current = g
+    created = []
+    _graph._NODE_OBSERVERS.append(created.append)
+    try:
+        outs = step(*step_args)
+    finally:
+        _GroupBuildCtx.current = prev
+        _graph._NODE_OBSERVERS.remove(created.append)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+
+    sub_topo = Topology(outs)
+    links = resolve_memory_links(sub_topo, g.memories, extra_nodes=created)
+    # a link target that is not an ancestor of the outputs must still be
+    # computed every step: it joins the sub-graph's outputs
+    in_graph = {id(n) for n in sub_topo.order}
+    extra_outs = []
+    for _, ln, _, _ in links:
+        if id(ln) not in in_graph and all(ln is not e for e in extra_outs):
+            extra_outs.append(ln)
+    if extra_outs:
+        sub_topo = Topology(outs + extra_outs)
+
+    group_inputs = ([real for _, real in seq_inputs]
+                    + [s.input for _, s in static_inputs]
+                    + [b for _, _, b, _ in links
+                       if isinstance(b, LayerOutput)])
+    cfg = {
+        "sub_topo": sub_topo,
+        "outs": outs,
+        "seq_phs": [ph for ph, _ in seq_inputs],
+        "static_phs": [ph for ph, _ in static_inputs],
+        "links": links,
+        "reverse": reverse,
+        "n_seq": len(seq_inputs),
+        "n_static": len(static_inputs),
+    }
+    node = LayerOutput(name or auto_name("recurrent_group"),
+                       "recurrent_group", outs[0].size, group_inputs, cfg,
+                       is_seq=True)
+    node.cfg["self_name"] = node.name
+    return node
+
+
+# The scan hoist: the step-graph nodes that depend only on the per-step
+# sequence inputs (no memory, no static input) through row-wise layers
+# are computed ONCE over the whole padded sequence before the loop, one
+# product over [B·T, ·] in place of T small ones (the reference's
+# SequenceToBatch trick for whole-sequence layers, for any step graph).
+# Tests toggle it to hold the two equal.
+HOIST_SCAN_INVARIANTS = True
+
+# layer types whose apply maps rows independently, so [B, T, ...] data
+# gives what [B, ...] rows give; anything sequence-aware stays in the loop
+_ROW_WISE_TYPES = {"fc", "embedding", "mixed", "addto", "concat",
+                   "slope_intercept"}
+_ROW_WISE_MIXED_PARTS = {"full_matrix", "trans_full_matrix", "identity",
+                         "dotmul", "scaling", "table"}
+
+
+def _hoistable_frontier(sub_topo, seq_phs, mode):
+    """The maximal step-graph nodes computable before the loop: every
+    ancestor path ends in a per-step sequence placeholder and every node
+    on it is row-wise (and, in train mode, dropout-free, so masks stay
+    per step).  Only the frontier: the hoistable nodes a live node (or
+    an output) consumes."""
+    seq_ph_ids = {id(ph) for ph in seq_phs}
+    ok = {}
+    for node in sub_topo.order:
+        if id(node) in seq_ph_ids:
+            ok[id(node)] = True
+            continue
+        if node.layer_type.startswith("__") or node.layer_type == "data":
+            ok[id(node)] = False
+            continue
+        if not node.inputs or not all(ok.get(id(i), False)
+                                      for i in node.inputs):
+            ok[id(node)] = False
+            continue
+        row_wise = node.layer_type in _ROW_WISE_TYPES
+        if node.layer_type == "mixed":
+            row_wise = all(kind in _ROW_WISE_MIXED_PARTS
+                           for kind, _ in node.cfg["parts"])
+        if mode == "train" and (node.cfg.get("drop_rate")
+                                or node.layer_type == "dropout"):
+            row_wise = False
+        ok[id(node)] = row_wise
+    consumed_by_live = {id(out) for out in sub_topo.outputs}
+    for node in sub_topo.order:
+        if not ok.get(id(node), False):
+            consumed_by_live.update(id(i) for i in node.inputs)
+    return [n for n in sub_topo.order
+            if ok.get(id(n), False) and id(n) in consumed_by_live
+            and id(n) not in seq_ph_ids]
+
+
+def _is_plain_tuple(v):
+    # SequenceBatch and NestedSequenceBatch are NamedTuples: one
+    # sequence-valued value must not be unpacked field by field
+    return isinstance(v, tuple) and not isinstance(
+        v, (SequenceBatch, NestedSequenceBatch))
+
+
+class _RecurrentGroupImpl:
+    def infer(self, cfg, in_sizes):
+        return cfg["outs"][0].size
+
+    def init(self, gen, cfg, in_sizes):
+        # the step layers' params live at top level (Topology._init_into)
+        return {}
+
+    def apply(self, ctx, cfg, params, *inputs):
+        sub_topo = cfg["sub_topo"]
+        n_seq, n_static = cfg["n_seq"], cfg["n_static"]
+        seqs = [as_seq(v) for v in inputs[:n_seq]]
+        statics = list(inputs[n_seq:n_seq + n_static])
+        boots = iter(inputs[n_seq + n_static:])
+        sub_params = ctx.params
+        ref = seqs[0]
+        bsz, dev = ref.data.shape[0], ref.data.device
+
+        boot_vals = []
+        for ph, _, boot, boot_const in cfg["links"]:
+            if isinstance(boot, LayerOutput):
+                boot_vals.append(value_data(next(boots)))
+            elif boot_const is not None:
+                boot_vals.append(torch.full((bsz, ph.size), float(boot_const),
+                                            device=dev))
+            else:
+                boot_vals.append(torch.zeros((bsz, ph.size), device=dev))
+
+        mode = ctx.mode
+        link_nodes = [ln for _, ln, _, _ in cfg["links"]]
+        n_out, n_links = len(cfg["outs"]), len(cfg["links"])
+        seq_phs = cfg["seq_phs"]
+
+        # the hoist: the memory-free row-wise prefix over the whole padded
+        # sequence, its values scanned beside the step inputs; no
+        # generator, the frontier is dropout-free by construction
+        hoisted = []
+        if HOIST_SCAN_INVARIANTS:
+            frontier = _hoistable_frontier(sub_topo, seq_phs, mode)
+            if frontier:
+                pre = Topology(frontier).apply(
+                    sub_params, {ph.name: s for ph, s in zip(seq_phs, seqs)},
+                    mode=mode)
+                pre = pre if _is_plain_tuple(pre) else (pre,)
+                hoisted = [n.name for n in frontier]
+                seqs = seqs + [as_seq(v) for v in pre]
+
+        def step_fn(mems, frames, step_gen=None):
+            feed = {ph.name: f for ph, f in zip(seq_phs, frames)}
+            feed.update((ph.name, s)
+                        for ph, s in zip(cfg["static_phs"], statics))
+            feed.update((ph.name, m) for (ph, _, _, _), m in
+                        zip(cfg["links"], mems))
+            pre = dict(zip(hoisted, frames[len(seq_phs):]))
+            # the link values come back as extra outputs of the same apply
+            vals = sub_topo.apply(sub_params, feed, mode=mode,
+                                  generator=step_gen,
+                                  extra_outputs=link_nodes, precomputed=pre)
+            vals = vals if _is_plain_tuple(vals) else (vals,)
+            # layout: [step outputs | consumer-link outputs | link
+            # values]: the memories are always the last n_links entries
+            new_mems = tuple(value_data(v)
+                             for v in vals[len(vals) - n_links:]) \
+                if n_links else ()
+            return new_mems, tuple(value_data(v) for v in vals[:n_out])
+
+        outs, _ = rnn_ops.recurrent_group(
+            step_fn, tuple(seqs), tuple(boot_vals), reverse=cfg["reverse"],
+            generator=ctx.generator if _draws(sub_topo, mode) else None)
+        result = outs[0] if len(outs) == 1 else outs
+        ctx.aux[cfg["self_name"] + "/outputs"] = result
+        return result[0] if _is_plain_tuple(result) else result
+
+
+def _draws(sub_topo, mode):
+    """Whether a step of ``sub_topo`` draws random bits in ``mode``
+    (dropout in train mode; nce and sampling_id always): only then does
+    the engine split the context's generator into per-step streams."""
+    return any(n.layer_type in ("nce", "sampling_id")
+               or (mode == "train" and (n.cfg.get("drop_rate")
+                                        or n.layer_type == "dropout"))
+               for n in sub_topo.order)
+
+
+register_layer("recurrent_group")(_RecurrentGroupImpl)
+
+
+class _PlaceholderImpl:
+    def infer(self, cfg, in_sizes):
+        return 0
+
+    def apply(self, ctx, cfg, params, *ins):
+        raise RuntimeError("step placeholders are fed by the group engine")
+
+
+register_layer("__memory__")(_PlaceholderImpl)
+register_layer("__step_input__")(_PlaceholderImpl)
+register_layer("__static__")(_PlaceholderImpl)
+
+
+def get_output_layer(input, arg_name=None, name=None, index=1):
+    """A secondary output of a recurrent_group (reference
+    GetOutputLayer): ``index`` picks among the step's outputs."""
+    return LayerOutput(name or auto_name("get_output"), "get_output",
+                       input.cfg["outs"][index].size, [input],
+                       {"index": index, "group": input.cfg["self_name"]},
+                       is_seq=True)
+
+
+class _GetOutputImpl:
+    def infer(self, cfg, in_sizes):
+        return in_sizes[0]
+
+    def apply(self, ctx, cfg, params, group_out):
+        outs = ctx.aux.get(cfg["group"] + "/outputs")
+        if not _is_plain_tuple(outs):
+            raise ConfigError("get_output_layer: group has a single output")
+        return outs[cfg["index"]]
+
+
+register_layer("get_output")(_GetOutputImpl)
+
+
+# ----------------------------------------------------- step layers
+
+class _LstmStepImpl:
+    """One LSTM step as a layer (reference LstmStepLayer): inputs the
+    gate input [B, 4D], the recurrent product already in it, and the
+    previous state [B, 2D] = [h | c]; the output is the new [h | c]
+    (the node is 2D wide; JAX's ``infer`` says D, which its graph never
+    calls)."""
+
+    def infer(self, cfg, in_sizes):
+        return cfg["size"]
+
+    def init(self, gen, cfg, in_sizes):
+        if cfg.get("bias_attr", True) is False:
+            return {}
+        return {"b": _zeros(gen, 7 * cfg["size"])}
+
+    def apply(self, ctx, cfg, params, x4, prev_state):
+        d = cfg["size"]
+        b = params.get("b")
+        x4d, prev = value_data(x4), value_data(prev_state)
+        if b is not None:
+            x4d = x4d + b[:4 * d]
+        st = rnn_ops.lstm_cell(
+            x4d, rnn_ops.LstmState(h=prev[..., :d], c=prev[..., d:]), None,
+            check_i=b[4 * d:5 * d] if b is not None else None,
+            check_f=b[5 * d:6 * d] if b is not None else None,
+            check_o=b[6 * d:] if b is not None else None,
+            act=cfg.get("act", "tanh"), gate_act=cfg.get("gate_act",
+                                                         "sigmoid"),
+            state_act=cfg.get("state_act", "tanh"))
+        return torch.cat([st.h, st.c], dim=-1)
+
+
+register_layer("lstm_step")(_LstmStepImpl)
+
+
+def lstm_step_layer(input, state, size=None, act="tanh", gate_act="sigmoid",
+                    state_act="tanh", name=None, bias_attr=True):
+    d = size or input.size // 4
+    return LayerOutput(name or auto_name("lstm_step"), "lstm_step", 2 * d,
+                       [input, state],
+                       {"size": d, "act": act, "gate_act": gate_act,
+                        "state_act": state_act, "bias_attr": bias_attr})
+
+
+class _GruStepImpl:
+    """One GRU step as a layer (reference GruStepLayer): the gate input
+    [B, 3D] and the previous output [B, D]; w_gate [D, 2D], w_state
+    [D, D], b [3D]."""
+
+    def infer(self, cfg, in_sizes):
+        return cfg["size"]
+
+    def init(self, gen, cfg, in_sizes):
+        d = cfg["size"]
+        wi = _winit(cfg.get("param_attr"), 1.0 / math.sqrt(d))
+        p = {"w_gate": wi(gen, (d, 2 * d)), "w_state": wi(gen, (d, d))}
+        if cfg.get("bias_attr", True) is not False:
+            p["b"] = _zeros(gen, 3 * d)
+        return p
+
+    def apply(self, ctx, cfg, params, x3, prev):
+        x3d = value_data(x3)
+        if "b" in params:
+            x3d = x3d + params["b"]
+        return rnn_ops.gru_cell(x3d, value_data(prev), params["w_gate"],
+                                params["w_state"], act=cfg.get("act", "tanh"),
+                                gate_act=cfg.get("gate_act", "sigmoid"))
+
+
+register_layer("gru_step")(_GruStepImpl)
+
+
+def gru_step_layer(input, output_mem, size=None, act="tanh",
+                   gate_act="sigmoid", name=None, bias_attr=True,
+                   param_attr=None):
+    d = size or input.size // 3
+    return LayerOutput(name or auto_name("gru_step"), "gru_step", d,
+                       [input, output_mem],
+                       {"size": d, "act": act, "gate_act": gate_act,
+                        "bias_attr": bias_attr, "param_attr": param_attr})
+
+
+def gru_step_naive_layer(input, output_mem, size=None, act="tanh",
+                         gate_act="sigmoid", name=None, bias_attr=True,
+                         param_attr=None, layer_attr=None):
+    """Reference gru_step_naive_layer: the GRU step built from mixed
+    layers so that error clipping and dropout attributes apply; the same
+    computation as ``gru_step_layer``, as in JAX."""
+    return gru_step_layer(input, output_mem, size=size, act=act,
+                          gate_act=gate_act, name=name, bias_attr=bias_attr,
+                          param_attr=param_attr)

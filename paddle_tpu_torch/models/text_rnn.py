@@ -18,6 +18,12 @@ the card (``ops/kernels/simple_rnn.supported(64, 512, "tanh", None)``).
 bias_attr=False)`` in each recurrent layer's place (the LSTM kernels, or
 the gate-blocked forward at hidden 1280), ``cell="gru"`` ``grumemory``
 on ``fc_layer(3 hidden, act=None)`` (the GRU kernels).
+``cell="lstm_group"`` / ``"gru_group"`` put ``networks.lstmemory_group``
+/ ``networks.gru_group`` on the same projections: the same function as
+``"lstm"`` / ``"gru"`` computed one time step at a time by
+``recurrent_group`` (``ops/rnn.lstm_cell`` / ``gru_cell``, no kernel),
+on weights that ``twin_params`` maps onto their ``lstmemory`` /
+``grumemory`` twin.
 ``sparse_update=True`` trains the embedding table by its touched rows
 (``trainer.SGD``'s sparse step, the reference's large-vocab path).
 The data are random ids and labels drawn from a seed; the JAX package
@@ -37,11 +43,14 @@ BATCH, SEQ_LEN = 64, 100
 TEST_BATCHES = 2
 
 
-CELLS = ("rnn", "lstm", "gru")
+CELLS = ("rnn", "lstm", "gru", "lstm_group", "gru_group")
+# each step-by-step group cell and the whole-sequence cell it equals
+TWINS = {"lstm_group": "lstm", "gru_group": "gru"}
 
 
-def _recurrent(cell, x, hidden):
-    """One recurrent layer of ``cell`` over ``x``, fed by its projection."""
+def _recurrent(cell, x, hidden, i):
+    """Recurrent layer ``i`` of ``cell`` over ``x``, fed by its
+    projection."""
     if cell == "rnn":
         return L.recurrent_layer(L.fc_layer(x, size=hidden, act=None,
                                             bias_attr=False), act="tanh")
@@ -50,6 +59,14 @@ def _recurrent(cell, x, hidden):
                                       bias_attr=False))
     if cell == "gru":
         return L.grumemory(L.fc_layer(x, size=3 * hidden, act=None))
+    if cell == "lstm_group":
+        return L.networks.lstmemory_group(
+            L.fc_layer(x, size=4 * hidden, act=None, bias_attr=False),
+            size=hidden, name=f"lstm{i}")
+    if cell == "gru_group":
+        return L.networks.gru_group(
+            L.fc_layer(x, size=3 * hidden, act=None), size=hidden,
+            name=f"gru{i}")
     raise ValueError(f"cell must be one of {CELLS}, got {cell!r}")
 
 
@@ -60,11 +77,34 @@ def build(vocab=VOCAB, hidden=HIDDEN, cell="rnn", sparse_update=False):
     word = L.data_layer("word", vocab, is_seq=True)
     label = L.data_layer("label", 1)
     x = L.embedding_layer(word, size=EMB, sparse_update=sparse_update)
-    for _ in range(LAYERS):
-        x = _recurrent(cell, x, hidden)
+    for i in range(LAYERS):
+        x = _recurrent(cell, x, hidden, i)
     pooled = L.pooling_layer(x, pooling_type=L.pooling.Max)
     out = L.fc_layer(pooled, size=CLASSES, act="softmax")
     return L.classification_cost(out, label)
+
+
+def twin_params(params, cell):
+    """The parameters of ``build(cell=TWINS[cell])`` that compute what
+    ``params`` of ``build(cell=cell)`` compute: the embedding and the fc
+    layers under the same keys; layer i's ``lstmemory`` takes the
+    group's recurrent projection (its ``_input_recurrent`` mixed layer's
+    full-matrix part) as ``w`` and its ``lstm_step`` bias [4h gates | 3h
+    peepholes] as ``b``; its ``grumemory`` the ``gru_step`` layer's
+    ``w_gate``, ``w_state`` and ``b``.  The tensors are shared, not
+    copied."""
+    out = {k: v for k, v in params.items()
+           if not k.startswith(("lstm", "gru"))}
+    for i in range(LAYERS):
+        if cell == "lstm_group":
+            out[f"__lstmemory_{i}__"] = {
+                "w": params[f"lstm{i}_unit_input_recurrent"]["w1"],
+                "b": params[f"lstm{i}_unit_state"]["b"]}
+        elif cell == "gru_group":
+            out[f"__grumemory_{i}__"] = dict(params[f"gru{i}_out"])
+        else:
+            raise ValueError(f"cell {cell!r} has no twin (have {TWINS})")
+    return out
 
 
 def feeding(vocab=VOCAB):

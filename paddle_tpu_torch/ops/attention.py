@@ -3,7 +3,8 @@ scores and context of the attention NMT model, ``dot_product_attention``
 with its flash route, ``chunked_attention`` (the O(T)-memory online
 softmax over key chunks, with packed rows' segment ids) and its dense
 masked path, ``multi_head_attention`` for the local path,
-``repeat_kv_heads`` for grouped KV heads, and rotary positions.  The
+``repeat_kv_heads`` for grouped KV heads, the 2-D ``padding_mask`` and
+``segment_mask``, and rotary positions.  The
 sequence-parallel ring (``mesh``, ``zigzag``) is not ported (ROADMAP
 A12)."""
 
@@ -154,6 +155,14 @@ def chunked_attention(q, k, v, scale=None, causal=False, key_mask=None,
         outs.append((acc / torch.clamp(l[..., None], min=1e-20))
                     .to(q.dtype))
     return torch.cat(outs, dim=2)[:, :, :tq]
+
+
+def padding_mask(q_len_mask, k_len_mask):
+    """[B, Tq], [B, Tk] validity -> [B, 1, Tq, Tk] boolean mask (JAX's
+    ``padding_mask``).  O(T^2), and it takes the dense path: a [B, Tk]
+    ``key_mask`` to ``dot_product_attention`` is the O(T) form."""
+    return (q_len_mask[:, None, :, None] > 0) \
+        & (k_len_mask[:, None, None, :] > 0)
 
 
 def segment_mask(q_segment_ids, kv_segment_ids=None):

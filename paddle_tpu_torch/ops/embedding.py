@@ -1,4 +1,4 @@
-"""Embedding lookup (``paddle_tpu/ops/embedding.py``)."""
+"""Embedding lookup and one-hot rows (``paddle_tpu/ops/embedding.py``)."""
 
 import torch
 
@@ -10,3 +10,10 @@ def embedding_lookup(table, ids):
     safe = torch.clamp(ids, 0, table.shape[0] - 1).long()
     out = table[safe]
     return out * valid[..., None].to(out.dtype)
+
+
+def one_hot(ids, depth, dtype=torch.float32):
+    """Integer ids [...] -> [..., depth] one-hot rows; out-of-range ids
+    (padding) give all-zero rows, as ``embedding_lookup``'s do."""
+    return (ids[..., None] == torch.arange(depth, device=ids.device)) \
+        .to(dtype)

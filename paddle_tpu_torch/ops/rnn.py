@@ -22,7 +22,13 @@ supported`` (``SimpleRnnFused``), else the masked scan of
 ``simple_rnn_cell``.  A fused route runs its CUDA kernels on the card
 (which raise on a shape they do not take) and their plain versions on
 the CPU; the scans run on either device, as the reference routes them.
-``recurrent_group`` and ``md_lstm_2d`` are not ported yet (ROADMAP).
+
+``recurrent_group`` is the generic engine under the layer DSL's
+``recurrent_group``: a loop over time of a step function over memories,
+finished rows' memories frozen by a masked merge.  JAX's is one
+``lax.scan`` of plain ops, so the port's is a plain loop on both
+devices.  The nested engine and ``md_lstm_2d`` wait for ROADMAP A10·b
+item 1b.
 """
 
 from typing import NamedTuple
@@ -50,8 +56,10 @@ class _HCarry(NamedTuple):
 def lstm_cell(x4, state: LstmState, w_r, check_i=None, check_f=None,
               check_o=None, act="tanh", gate_act="sigmoid", state_act="tanh"):
     """One LSTM step.  x4 [B, 4D] is the projected input in gate order
-    [a, i, f, o]; w_r [D, 4D]; check_* [D] peepholes (optional)."""
-    gates = x4 + matmul(state.h, w_r)
+    [a, i, f, o]; w_r [D, 4D], or None where x4 already holds the
+    recurrent product (``lstm_step_layer``: JAX's zero w_r, whose product
+    adds nothing); check_* [D] peepholes (optional)."""
+    gates = x4 if w_r is None else x4 + matmul(state.h, w_r)
     a, ig, fg, og = torch.chunk(gates, 4, dim=-1)
     gate_f = activations.get(gate_act)
     a = activations.get(act)(a)
@@ -88,21 +96,89 @@ def simple_rnn_cell(x, h_prev, w_r, act="tanh"):
     return activations.get(act)(x + matmul(h_prev, w_r))
 
 
+def _merge(m, new, old):
+    """Row-wise: ``new`` where the step's mask ``m`` [B] is set, else
+    ``old`` (a finished row keeps its carry)."""
+    return torch.where(m.reshape((-1,) + (1,) * (new.dim() - 1)) > 0, new,
+                       old)
+
+
+def _time_order(t, reverse):
+    return range(t - 1, -1, -1) if reverse else range(t)
+
+
 def _masked_scan(step, init_carry, xs_tm, ms_tm, reverse=False):
     """Loop over time; where the mask is 0 the carry (a tuple of [B, ...]
     tensors) passes through unchanged.  Returns (final carry, carries
     stacked over time in their time order)."""
-    carry, outs = init_carry, [None] * xs_tm.shape[0]
-    order = range(xs_tm.shape[0] - 1, -1, -1) if reverse \
-        else range(xs_tm.shape[0])
-    for t in order:
-        new = step(carry, xs_tm[t])
-        m = ms_tm[t] > 0
-        carry = type(carry)(*(
-            torch.where(m.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
-            for n, o in zip(new, carry)))
+    # unbind: one view a step, whose backward stacks the steps' gradients
+    # once (indexing would zero-fill a [T, ...] gradient every step)
+    xs, carry, outs = xs_tm.unbind(0), init_carry, [None] * xs_tm.shape[0]
+    for t in _time_order(len(xs), reverse):
+        new = step(carry, xs[t])
+        carry = type(carry)(*(_merge(ms_tm[t], n, o)
+                              for n, o in zip(new, carry)))
         outs[t] = carry
     return carry, type(carry)(*(torch.stack(xs) for xs in zip(*outs)))
+
+
+def _step_generators(generator, t):
+    """T generators on ``generator``'s device, each its own stream,
+    seeded from one draw of ``generator`` (JAX splits one key T ways)."""
+    base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device))
+    return [torch.Generator(device=generator.device).manual_seed(base + i)
+            for i in range(t)]
+
+
+def recurrent_group(step_fn, inputs, boot_memories, reverse=False,
+                    generator=None):
+    """The generic dynamic-RNN engine (JAX's ``ops/rnn.recurrent_group``;
+    reference RecurrentGradientMachine forward :379).
+
+    inputs: a SequenceBatch or a tuple of them sharing lengths, sliced
+    time-major.  step_fn(memories, frames) -> (new_memories, outputs):
+    memories a tuple of [B, ...] tensors (booted by ``boot_memories``),
+    frames the inputs' slices at one step, outputs a tensor or a tuple
+    of [B, ...] tensors.  With a ``generator`` step_fn is called as
+    step_fn(memories, frames, step_generator), each time position t
+    drawing from its own stream, so dropout masks decorrelate across
+    time.  ``reverse`` runs t from T - 1 down to 0 over the padded time
+    axis, as ``lax.scan(reverse=True)`` does.
+
+    Where a row has finished its memories are frozen (the masking
+    equivalent of the reference's batch shrinking) and its outputs are
+    zeroed.  Returns (the outputs as SequenceBatches, in the step's
+    structure; the final memories)."""
+    seqs = (inputs,) if isinstance(inputs, SequenceBatch) else tuple(inputs)
+    ref = seqs[0]
+    t_len = ref.data.shape[1]
+    # one view a step, as _masked_scan takes them
+    xs_tm = [s.data.transpose(0, 1).unbind(0) for s in seqs]
+    ms_tm = ref.mask().transpose(0, 1)
+    gens = _step_generators(generator, t_len) if generator is not None \
+        else None
+    mems, outs = tuple(boot_memories), [None] * t_len
+    for t in _time_order(t_len, reverse):
+        frames = tuple(x[t] for x in xs_tm)
+        if gens is None:
+            new, out = step_fn(mems, frames)
+        else:
+            new, out = step_fn(mems, frames, gens[t])
+        mems = tuple(_merge(ms_tm[t], n, o) for n, o in zip(new, mems))
+        outs[t] = out
+
+    def collect(steps):
+        o = torch.stack(steps, dim=1)                   # [B, T, ...]
+        m = ref.mask(o.dtype).reshape(ref.data.shape[:2]
+                                      + (1,) * (o.dim() - 2))
+        return SequenceBatch(data=o * m, lengths=ref.lengths)
+
+    if isinstance(outs[0], tuple):
+        result = tuple(collect(list(steps)) for steps in zip(*outs))
+    else:
+        result = collect(outs)
+    return result, mems
 
 
 def _fused_seq_apply(seq, xs, ms, reverse, kernel_fn):

@@ -13,6 +13,13 @@ touching more than K distinct ids keeps the K smallest, as JAX's
 ``jnp.unique(size=K)`` does.  JAX drops the fill slots' writes
 (``mode="drop"``); torch's indexed writes do not drop, so
 ``scatter_rows`` writes back only the valid prefix of the block.
+
+An id outside [0, vocab) (padding -1, or ``vocab`` itself) reads a zero
+row on the dense path (``ops/embedding.embedding_lookup``).  Here it
+touches no row: it takes no slot of the block, its ``inv`` is -1, so
+the block lookup reads a zero row for it too, and nothing is written
+back for it.  JAX keeps -1 as a touched id and its ``mode="drop"``
+write wraps it into row vocab - 1 (ROADMAP C19).
 """
 
 import torch
@@ -29,18 +36,26 @@ def default_row_budget(n_ids):
 
 def unique_touched(ids, budget, vocab, with_count=False):
     """ids: integer tensor (any shape) -> (uids [budget], inv ids.shape),
-    both int32.  uids lists the distinct ids in ascending order, the
-    slots past them hold ``vocab``; ``rows[inv]`` equals ``table[ids]``
-    after ``rows = gather_rows(table, uids)``.  Past ``budget`` distinct
-    ids uids keeps the first ``budget`` and inv still counts on (its
-    positions past the block read as out of range).  with_count also
-    returns how many slots of uids are valid, a host int."""
+    both int32.  uids lists the distinct ids in [0, vocab) in ascending
+    order, the slots past them hold ``vocab``; ``rows[inv]`` equals
+    ``table[ids]`` after ``rows = gather_rows(table, uids)`` wherever an
+    id is in range, and an id out of range has inv -1.  Past ``budget``
+    distinct ids uids keeps the smallest ``budget`` and inv still counts
+    on (its positions past the block read as out of range).  with_count
+    also returns how many slots of uids are valid, a host int."""
     flat = ids.reshape(-1).to(torch.int32)
-    uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
-    n = min(int(uniq.numel()), budget)
+    valid = (flat >= 0) & (flat < vocab)
+    # every id out of range becomes vocab, which sorts after the rest;
+    # one vocab more keeps it the last unique id whatever the batch, so
+    # the valid count is the result's size less one, with no second sync
+    keyed = torch.cat([torch.where(valid, flat, vocab),
+                       flat.new_full((1,), vocab)])
+    uniq, inv = torch.unique(keyed, sorted=True, return_inverse=True)
+    n = min(int(uniq.numel()) - 1, budget)
     uids = torch.full((budget,), vocab, dtype=torch.int32, device=ids.device)
     uids[:n] = uniq[:n]
-    inv = inv.reshape(ids.shape).to(torch.int32)
+    inv = torch.where(valid, inv[:-1], -1).reshape(ids.shape) \
+        .to(torch.int32)
     return (uids, inv, n) if with_count else (uids, inv)
 
 

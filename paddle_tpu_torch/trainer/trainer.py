@@ -332,7 +332,9 @@ class SGD:
     def _sparse_feed(self, feed):
         """The feed with each sparse table's id feeds rewritten to
         positions in its row block, the touched rows kept for the step
-        (``self._touched``)."""
+        (``self._touched``).  An id outside [0, vocab) touches no row and
+        becomes position -1, which the block lookup reads as a zero row,
+        as the dense lookup reads the id itself (``unique_touched``)."""
         feed = dict(feed)
         self._touched = {}
         for key, spec in self._sparse_specs.items():

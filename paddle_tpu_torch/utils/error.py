@@ -8,3 +8,7 @@ class PaddleTpuError(Exception):
 
 class ConfigError(PaddleTpuError):
     """Invalid model / engine configuration."""
+
+
+class ShapeError(PaddleTpuError):
+    """Shape / size inference mismatch."""

@@ -3,11 +3,15 @@
 
 ``global_stats.get(name)`` is a host wall-clock ``Stat`` (total, count,
 max, avg) that the trainer feeds, as JAX's does: ``h2d_wait`` is the
-time each step waited for its device-ready feed.  ``Histogram`` is the
+time each step waited for its device-ready feed.  ``timer(name)`` is the
+reference's ``REGISTER_TIMER``: a ``with`` block timed into that stat;
+``print_all_stats`` logs every stat that counted.  ``Histogram`` is the
 ``keep="last"`` ring of JAX's, without its injectable clock.
 """
 
+import contextlib
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -58,8 +62,39 @@ class StatRegistry:
                 stat = self._stats[name] = Stat(name)
             return stat
 
+    def reset_all(self):
+        for stat in list(self._stats.values()):
+            stat.reset()
+
+    def print_all(self, log=None):
+        from paddle_tpu_torch.utils.logging import logger
+        log = log or logger
+        log.info("======= StatSet =======")
+        for stat in self._stats.values():
+            if stat.count:
+                log.info("  %s", stat)
+
+    def items(self):
+        return list(self._stats.items())
+
 
 global_stats = StatRegistry()
+
+
+@contextlib.contextmanager
+def timer(name: str, registry: StatRegistry = None):
+    """``with timer("forwardBackward"): ...`` adds the block's wall time
+    to the stat ``name`` (the reference's REGISTER_TIMER)."""
+    stat = (registry or global_stats).get(name)
+    start = time.perf_counter()
+    try:
+        yield stat
+    finally:
+        stat.add(time.perf_counter() - start)
+
+
+def print_all_stats():
+    global_stats.print_all()
 
 
 class Histogram:

@@ -11,9 +11,10 @@ JAX package's on the CPU, and the image_classification demo's vgg config
   the recurrent composites and ``simple_attention`` also the gradient of
   every parameter (of the sum of the valid outputs times a seeded
   cotangent), over ragged sequences.
-- The four composites built on ``recurrent_group`` raise
-  ``ConfigError`` naming ROADMAP A10·b (``sequence_conv_pool`` is held
-  in tests/test_torch_mixed.py).
+- The four composites built on ``recurrent_group`` run (held in
+  tests/test_torch_recurrent_units.py); over a ``SubsequenceInput``
+  they raise ``ConfigError`` naming ROADMAP A10·b 1b
+  (``sequence_conv_pool`` is held in tests/test_torch_mixed.py).
 - ``vgg_bn_drop`` at the demo's rates in test mode, against the JAX DSL
   with ``num_channels=64`` given after the dropout (JAX's
   ``dropout_layer`` drops the image metadata: ROADMAP C13); and in train
@@ -245,10 +246,17 @@ def test_inputs_and_outputs():
 @pytest.mark.parametrize("ctor", ["gru_unit", "gru_group", "lstmemory_unit",
                                   "lstmemory_group"])
 def test_refusals_name_a10b(ctor):
+    """The four composites run now (tests/test_torch_recurrent_units.py);
+    over a SubsequenceInput, whose nested engine is ROADMAP A10·b item
+    1b, each still refuses, naming it."""
     L.reset_names()
-    x = _seq(L)
-    with pytest.raises(ConfigError, match="A10·b"):
-        getattr(L.networks, ctor)(x, size=H)
+    sub = L.SubsequenceInput(_seq(L))
+    fn = getattr(L.networks, ctor)
+    with pytest.raises(ConfigError, match="A10·b 1b"):
+        if ctor.endswith("_group"):
+            fn(sub, size=H)
+        else:
+            L.recurrent_group(lambda x: fn(x, size=H), sub)
 
 
 # ------------------------------------------------------------ vgg_bn_drop

@@ -14,7 +14,8 @@ strided pools run at a stride that does not divide T.
 ``sampling_id_layer``'s draws are PyTorch's bits, so it is held by the
 frequency of its draws (within 5 binomial standard deviations of each
 probability).  Pooling over nested sequences (``agg_level="seq"``)
-still raises, naming ROADMAP A9·f.
+runs and is held in ``tests/test_torch_nested.py``; here only its
+refusal of a non-sequence input, JAX's too.
 
 Tolerances as in tests/test_torch_elementwise.py (1e-5 of the largest
 entry); ids and lengths exactly.

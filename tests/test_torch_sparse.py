@@ -346,6 +346,108 @@ def test_sparse_budget_truncates_as_jax():
     assert moved[:4].all() and not moved[4:].any()
 
 
+# ------------------------------------------- ids outside the vocabulary
+
+def _padded_feeds(pad, seed=4, n=2):
+    """n (port feed, JAX feed) pairs of B rows whose padding holds
+    ``pad`` and whose first valid position in every other row holds it
+    too: ids drawn from [1, V - 1), so rows 0 and V - 1 are never
+    touched."""
+    from paddle_tpu.core.sequence import SequenceBatch as JaxSeq
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = np.asarray([T] + list(rng.randint(1, T + 1, B - 1)), np.int32)
+        ids = rng.randint(1, V - 1, (B, T)).astype(np.int32)
+        ids[np.arange(T)[None, :] >= lens[:, None]] = pad
+        ids[::2, 0] = pad
+        lab = rng.randint(0, 2, B).astype(np.int32)
+        out.append(({"w": SequenceBatch(torch.tensor(ids), torch.tensor(lens)),
+                     "lab": torch.tensor(lab)},
+                    {"w": JaxSeq(jnp.asarray(ids), jnp.asarray(lens)),
+                     "lab": lab}))
+    return out
+
+
+def _feed_steps(model, start, opt, feeds):
+    tr = SGD(model, parameters=start, update_equation=opt, device="cpu")
+    losses = [float(tr.train_one_batch(f)) for f in feeds]
+    return tr, losses
+
+
+@pytest.mark.parametrize("pad", [-1, V], ids=["minus1", "vocab"])
+@pytest.mark.parametrize("opt", [
+    lambda M: M.Momentum(learning_rate=0.1, momentum=0.0),
+    lambda M: M.AdaGrad(learning_rate=0.1)], ids=["sgd", "adagrad"])
+def test_sparse_equals_dense_on_out_of_range_ids(opt, pad):
+    """ROADMAP C17: ids -1 or V (at padding and at valid positions) read
+    zero rows on the dense path; the sparse step runs on such feeds,
+    equals the port's dense step and JAX's dense step under a row-local
+    rule, and writes no row the batches did not touch."""
+    feeds = _padded_feeds(pad)
+    jt = JaxSGD(_model(JL, False), update_equation=opt(jax_optim), seed=3,
+                donate=False)
+    start = host(jt.parameters)
+    want = [float(jt.train_one_batch(f[1])) for f in feeds]
+    dense, dense_losses = _feed_steps(_model(L, False), start, opt(optim),
+                                      [f[0] for f in feeds])
+    sparse, sparse_losses = _feed_steps(_model(L, True), start, opt(optim),
+                                        [f[0] for f in feeds])
+    np.testing.assert_allclose(dense_losses, want, rtol=TOL)
+    np.testing.assert_allclose(sparse_losses, want, rtol=TOL)
+    _assert_tree(dense.parameters, jt.parameters, "port dense vs JAX dense")
+    _assert_tree(sparse.parameters, jt.parameters, "port sparse vs JAX dense")
+    touched = set()
+    for f in feeds:
+        w = f[0]["w"]
+        touched |= set(w.data[w.bool_mask()].tolist())
+    untouched = sorted(set(range(V)) - touched)
+    assert 0 in untouched and V - 1 in untouched
+    np.testing.assert_array_equal(
+        sparse.parameters["emb"]["w"].detach().numpy()[untouched],
+        start["emb"]["w"][untouched])
+
+
+def test_sparse_momentum_moves_only_in_range_rows():
+    """Momentum with its catch-up rule on a -1- and V-padded feed: the
+    rows the step moves are exactly the in-range ids of the batch."""
+    feed = _padded_feeds(-1, seed=6, n=1)[0][0]
+    w = feed["w"].data.clone()
+    w[1, -1] = V
+    feed["w"] = feed["w"].with_data(w)
+    start = _start()
+    tr, _ = _feed_steps(_model(L, True), start,
+                        optim.Momentum(learning_rate=0.1, momentum=0.9),
+                        [feed])
+    moved = np.nonzero((tr.parameters["emb"]["w"].detach().numpy()
+                        != start["emb"]["w"]).any(axis=1))[0]
+    ids = w[(w >= 0) & (w < V)]
+    assert moved.tolist() == sorted(set(ids.tolist()))
+
+
+def test_jax_sparse_step_wraps_negative_ids():
+    """ROADMAP C19: JAX's sparse step keeps -1 as a touched id; its
+    ``gather_rows`` clips it to row 0 and ``.at[-1].set(mode="drop")``
+    wraps it into row V - 1, so a row the batch never touched is
+    written (JAX's dense step leaves it).  The port touches no row for
+    it (test_sparse_equals_dense_on_out_of_range_ids)."""
+    feeds = [f[1] for f in _padded_feeds(-1, n=1)]
+    opt = lambda: jax_optim.Momentum(learning_rate=1.0,  # noqa: E731
+                                     momentum=0.0)
+    js = JaxSGD(_model(JL, True), update_equation=opt(), seed=3,
+                donate=False)
+    start = host(js.parameters)["emb"]["w"]
+    js.train_one_batch(feeds[0])
+    jd = JaxSGD(_model(JL, False), update_equation=opt(), seed=3,
+                donate=False)
+    jd.train_one_batch(feeds[0])
+    assert (np.asarray(js.parameters["emb"]["w"])[V - 1]
+            != start[V - 1]).any()
+    np.testing.assert_array_equal(np.asarray(jd.parameters["emb"]["w"])[V - 1],
+                                  start[V - 1])
+
+
 # -------------------------------------------------------------- refusals
 
 def _refusal(case, M):

@@ -427,8 +427,14 @@ def test_refusals_of_the_graph_and_the_train_loop(tmp_path):
     with pytest.raises(ConfigError, match="mid-accumulation"):
         three.train(rd, feeding=FEEDING, save_dir=os.path.dirname(path),
                     resume=True)
-    with pytest.raises(ConfigError, match="precomputed"):
-        trainer.topology.apply(trainer.parameters, {}, precomputed={"a": 1})
+    # precomputed= serves the recurrent_group hoist now
+    # (tests/test_torch_recurrent_group.py): a node's value is taken as
+    # it is
+    cost = trainer.topology.outputs[0]
+    value = torch.arange(3.0)
+    feed = DataFeeder(FEEDING, device="cpu")(_batch(14))
+    assert trainer.topology.apply(trainer.parameters, feed,
+                                  precomputed={cost.name: value}) is value
 
 
 def test_entry_points_run_on_the_card_unless_asked(tmp_path):
