@@ -451,6 +451,30 @@ non-zero exit code and no final "ok" line:
             ms/batch and peak memory of each; the scan hoist on and off
             (values equal) on lstm_recurrent_layer_group and on a group
             that projects its input inside the step
+  seqtoseq_v1  models/seqtoseq_dsl (demo/seqToseq/v1's attention GRU
+            encoder-decoder at train.conf's widths: dim 512, beam 3,
+            max_length 250, error clipping 50, Adam lr 5e-4; wmt14
+            vocabularies 3000 / 3000, batch 48) through SGD: the first
+            step against the CPU, B10 2 + 2 a step, the loss falling;
+            the trained weights decode by name in the beam_search graph
+            (B10 forward once a direction), held against a CPU decode
+            up to each row's first near-tie, every beam re-scored by
+            the training graph's decoder within 1e-4, greedy_generation
+            equal to beam 1; ms/batch and tokens/s of both
+  nested_group  models/text_dsl's nested_group classifier (a
+            recurrent_group over SubsequenceInput sentences, an
+            lstmemory of 128 in its step) through SGD: the first step
+            against the CPU, B9 once per padded outer step forward and
+            backward, the loss falling; sequence_nest_rnn equal to
+            sequence_rnn at width 128, which the unbooted inner memory
+            must fail
+  recurrence_1b  mdlstmemory (B 16, 16 x 16, D 64) forward and backward
+            against the CPU, timed; prev_batch_state: an lstmemory of
+            512 (B 64, T 100) over two carried halves equal to one
+            unbroken run (B9 on the first half, the scan on the second),
+            which the halves without the carry must fail; three carried
+            SGD steps (the carry requires no gradient, the step time
+            does not grow); the halves for grumemory (B10)
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -6810,14 +6834,40 @@ def run_train_recommendation(torch, dev, kernels):
     F32_MS["train_recommendation"] = ms
 
 
-def sgd_pass(torch, kernels, trainer, data, feeding, what, per_step=(0, 0)):
+def lstm_gru_launches(kernels):
+    lk, gk = kernels.lstm, kernels.gru
+    return {lk.NAME_FWD: lk.launches_fwd, lk.NAME_BWD: lk.launches_bwd,
+            gk.NAME_FWD: gk.launches_fwd, gk.NAME_BWD: gk.launches_bwd}
+
+
+def lstm_gru_counts(kernels):
+    """lstm_gru_launches since the last reset, and every other counted
+    kernel's launches under "other"."""
+    n = lstm_gru_launches(kernels)
+    n["other"] = (sum(launch_counts(kernels).values())
+                  + recurrent_launches(kernels) - sum(n.values()))
+    return n
+
+
+def want_counts(kernels, **named):
+    """lstm_gru_counts' shape with the given launches (fwd/bwd of "lstm" /
+    "gru"), every other count 0."""
+    lk, gk = kernels.lstm, kernels.gru
+    names = {"lstm_fwd": lk.NAME_FWD, "lstm_bwd": lk.NAME_BWD,
+             "gru_fwd": gk.NAME_FWD, "gru_bwd": gk.NAME_BWD}
+    out = {name: 0 for name in names.values()}
+    out.update({names[k]: v for k, v in named.items()})
+    out["other"] = 0
+    return out
+
+
+def counted_pass(torch, kernels, trainer, data, feeding, what, want):
     """``trainer.train`` over ``data`` (a list of batches), one pass, the
-    launch counters reset before each step and read after it: each
-    step's wall time and loss from the events, its LSTM (forward,
-    backward) launches held to ``per_step`` and no other counted kernel
-    launched.  Returns (ms, losses, the LSTM launches of the pass)."""
+    counters reset before each step and read after it: each step's wall
+    time and loss from the events, and its launches (lstm_gru_counts) held
+    to ``want`` (one want_counts a step).  Returns (ms, losses, the
+    pass's launches by kernel)."""
     from paddle_tpu_torch.trainer import events
-    lk = kernels.lstm
     record = {"ms": [], "loss": [], "launches": []}
 
     def handler(e):
@@ -6828,23 +6878,35 @@ def sgd_pass(torch, kernels, trainer, data, feeding, what, per_step=(0, 0)):
         elif isinstance(e, events.EndIteration):
             record["loss"].append(float(e.cost))     # a synchronize
             record["ms"].append((time.perf_counter() - record["t0"]) * 1e3)
-            lstm = (lk.launches_fwd, lk.launches_bwd)
-            record["launches"].append(lstm + (
-                sum(launch_counts(kernels).values())
-                + recurrent_launches(kernels) - sum(lstm),))
+            record["launches"].append(lstm_gru_counts(kernels))
 
     trainer.train(lambda: iter(data), num_passes=1, event_handler=handler,
                   feeding=feeding, log_period=0)
     losses = record["loss"]
     if len(losses) != len(data) or not all(math.isfinite(x) for x in losses):
         fail(f"{what}: {len(losses)} steps of {len(data)}, losses {losses}")
-    if any(n != (*per_step, 0) for n in record["launches"]):
-        fail(f"{what}: per-step (lstm forward, lstm backward, other counted "
-             f"kernels) launches {record['launches']}, want "
-             f"{(*per_step, 0)} every step")
+    if record["launches"] != want:
+        fail(f"{what}: per-step launches {record['launches']}, want {want}")
     return record["ms"], losses, {
-        lk.NAME_FWD: sum(n[0] for n in record["launches"]),
-        lk.NAME_BWD: sum(n[1] for n in record["launches"])}
+        k: sum(n[k] for n in record["launches"])
+        for k in lstm_gru_launches(kernels)}
+
+
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0] if k != "other"}
+
+
+def sgd_pass(torch, kernels, trainer, data, feeding, what, per_step=(0, 0)):
+    """counted_pass with each step's LSTM (forward, backward) launches
+    held to ``per_step`` and no other counted kernel launched.  Returns
+    (ms, losses, the LSTM launches of the pass)."""
+    lk = kernels.lstm
+    ms, losses, n = counted_pass(
+        torch, kernels, trainer, data, feeding, what,
+        [want_counts(kernels, lstm_fwd=per_step[0], lstm_bwd=per_step[1])]
+        * len(data))
+    return ms, losses, {lk.NAME_FWD: n[lk.NAME_FWD],
+                        lk.NAME_BWD: n[lk.NAME_BWD]}
 
 
 def run_train_vgg_cifar(torch, dev, kernels):
@@ -6961,20 +7023,21 @@ def float64_floors(torch, build, start, feeding, batch, argmax, witness):
     """Each leaf's float32 noise: the largest difference between the CPU
     float32 witness's gradient (``witness``) and the same step's in
     float64 on the CPU (the dtype policy at float64, the weights
-    widened, the card's argmax replayed; the LSTMs through the masked
-    scan, the same function, as the kernels take no float64).  For a
-    single-cost graph with no sparse table (the view's leaves are the
-    parameters')."""
+    widened, the card's argmax replayed; the LSTMs and GRUs through
+    their masked scans, the same functions, as the kernels take no
+    float64).  For a single-cost graph with no sparse table (the view's
+    leaves are the parameters')."""
     import paddle_tpu_torch.layers as L
     from paddle_tpu_torch.core import dtypes
     from paddle_tpu_torch.data import DataFeeder
     from paddle_tpu_torch.layers.graph import value_data
-    from paddle_tpu_torch.ops.kernels import lstm as lk, lstm_blocked as bk
+    from paddle_tpu_torch.ops.kernels import gru as gk, lstm as lk, \
+        lstm_blocked as bk
     from paddle_tpu_torch.utils.tree import tree_leaves, tree_map
     prior = (dtypes.param_dtype(), dtypes.compute_dtype())
-    routes = (lk.supported, bk.supported)
+    routes = (lk.supported, bk.supported, gk.supported)
     dtypes.set_policy("float64", "float64")
-    lk.supported = bk.supported = lambda *rule: False
+    lk.supported = bk.supported = gk.supported = lambda *rule: False
     try:
         topo = L.Topology(build())
         params = tree_map(lambda t: t.detach().double().requires_grad_(True),
@@ -6986,7 +7049,7 @@ def float64_floors(torch, build, start, feeding, batch, argmax, witness):
         total.backward()
     finally:
         dtypes.set_policy(*prior)
-        lk.supported, bk.supported = routes
+        lk.supported, bk.supported, gk.supported = routes
     return [float((w.double() - p.grad).abs().max())
             for w, p in zip(witness, tree_leaves(params))]
 
@@ -8824,6 +8887,566 @@ def run_train_lstm_group(torch, dev, kernels, seed):
     return {"train_lstm_group": launches}
 
 
+# ---------------------------------------------------------------- item 1b
+#
+# The three phases of the rest of recurrence: DSL generation over a
+# group, nested groups and mdlstmemory with the prev_batch_state carry.
+# Each counts the LSTM (B9) and GRU (B10) kernels' launches of its gated
+# runs (lstm_gru_counts), the counters reset just before each and read
+# just after.
+
+@contextlib.contextmanager
+def beam_traced(trace):
+    """Every ops/beam.beam_search call inside records its per-step trace
+    into ``trace`` (the DSL's beam_search layer passes none)."""
+    from paddle_tpu_torch.ops import beam as beam_ops
+    real = beam_ops.beam_search
+    beam_ops.beam_search = lambda *a, **kw: real(*a, trace=trace, **kw)
+    try:
+        yield trace
+    finally:
+        beam_ops.beam_search = real
+
+
+def floor_readings(card, cpu, cpu64, tol, names):
+    """Each of ``card`` (tensors) against ``cpu`` (the same on the CPU,
+    float32) over a bound of ``tol`` of the CPU's largest entry plus
+    FLOOR_TIMES its float32 noise (against ``cpu64``, the float64 run):
+    the worst ratio to that bound, which a sound run keeps at most 1."""
+    over, errs, floors = [], [], []
+    for g, w, w64 in zip(card, cpu, cpu64):
+        g, w = g.detach().cpu().double(), w.detach().double()
+        err = float((g - w).abs().max())
+        floor = float((w - w64.detach()).abs().max())
+        errs.append(err / max(float(w.abs().max()), 1e-30))
+        floors.append(floor)
+        over.append(err / (tol * float(w.abs().max()) + FLOOR_TIMES * floor))
+    worst = int(np.argmax(over))
+    return {"err_over_bound_max": max(over), "of": names[worst],
+            "rel_err_max": max(errs), "tolerance": tol,
+            "float32_floor": {"times": FLOOR_TIMES, "largest": max(floors)}}
+
+
+# seqtoseq_v1: models/seqtoseq_dsl, demo/seqToseq/v1's network in the DSL
+# at train.conf's widths (dim 512 for the embedding, encoder and decoder,
+# beam 3, max_length 250, error clipping 50, Adam lr 5e-4) over the wmt14
+# loader's vocabularies (3000 / 3000), batch seqtoseq_dsl.BATCH = 48 (at
+# train.conf's 50 the encoder GRUs take the scan in both packages; at 48
+# B10 runs forward and backward every step).  Training through
+# trainer.SGD: the first step against a CPU witness from the same weights
+# (graph_first_step, V1_TOL with the float32 floors), V1_STEPS more steps
+# with B10 2 + 2 launches each and nothing else counted, the last loss
+# below the first.  Decoding: the trained parameters copied into the
+# generation graph by name (the step layers' keys and
+# _target_language_embedding shared by both graphs); V1_GEN_ROWS wmt14
+# test sources decoded on the card (B10 forward once a direction) and on
+# the CPU, held row by row up to each row's first near-tie
+# (beam_agreement, BEAM_MARGIN; the CPU decodes the first V1_CPU_ROWS:
+# rows are independent); every returned beam re-scored by the training
+# graph's decoder_group teacher-forced on its tokens, the summed log-probs
+# within BEAM_SCORE_RTOL of the beam's score.  A few steps teach the
+# decoder eos's frequency and little else: its best beams end at once and
+# every other candidate of its near-uniform softmax over 3000 words lies
+# within BEAM_MARGIN of the next, so no step is compared.  The same decode
+# therefore runs again from the start weights with the softmax's
+# projection scaled by V1_SHARPEN, a confident decoder whose K-th and
+# (K+1)-th candidates stand apart; greedy_generation of the same step
+# there equals beam 1.
+V1_TOL = 1e-4
+V1_SHARPEN = 100.0
+V1_STEPS = 6
+V1_GEN_ROWS = 48
+V1_CPU_ROWS = 8
+
+
+def run_seqtoseq_v1(torch, dev, kernels):
+    """seqtoseq_v1 (see V1_TOL); returns the B9 / B10 launches of its
+    train and decode runs."""
+    import itertools
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.core.sequence import SequenceBatch, pad_sequences
+    from paddle_tpu_torch.data.datasets import wmt14
+    from paddle_tpu_torch.layers.graph import value_data
+    from paddle_tpu_torch.models import seqtoseq_dsl as sd
+    from paddle_tpu_torch.utils.tree import tree_map
+    data = list(sd.batches(V1_STEPS + 1)())
+    feeding = sd.feeding()
+    card, start, first, _ = graph_first_step(
+        torch, dev, kernels, sd.build, sd.optimizer, feeding, data[0],
+        "seqtoseq_v1", V1_TOL, floors=True)
+    per_step = want_counts(kernels, gru_fwd=2, gru_bwd=2)
+    first_launches = lstm_gru_counts(kernels)
+    if first_launches != per_step:
+        fail(f"seqtoseq_v1: the first step launched {first_launches}, "
+             f"want {per_step}")
+    times, losses, pass_launches = counted_pass(
+        torch, kernels, card, data[1:], feeding, "seqtoseq_v1",
+        [per_step] * V1_STEPS)
+    losses = [first["loss"][0]] + losses
+    if not losses[-1] < losses[0]:
+        fail(f"seqtoseq_v1: the loss did not fall: {losses}")
+    ms = float(np.median(times))
+    trg_tokens = float(np.mean([sum(len(s[2]) for s in b)
+                                for b in data[1:]]))
+
+    # decoding with the trained weights, shared by name
+    gen_topo = L.Topology(sd.build(True))
+    gen_keys, train_keys = set(gen_topo.param_shapes()), set(card.parameters)
+    decoder = next(n for n in card.topology.order
+                   if n.name == "decoder_group")
+    step_keys = set(decoder.cfg["sub_topo"].param_shapes())
+    shared = step_keys | {"_target_language_embedding"}
+    if not (gen_keys <= train_keys and shared <= gen_keys):
+        fail(f"seqtoseq_v1: the generation graph's keys {sorted(gen_keys)} "
+             f"do not share the training graph's step keys {sorted(shared)}")
+    batch = list(itertools.islice(wmt14.test()(), V1_GEN_ROWS))
+
+    def src(device, rows=V1_GEN_ROWS):
+        return {"source_language_word": pad_sequences(
+            [np.asarray(s[0], np.int32) for s in batch[:rows]],
+            device=device)}
+
+    def decode(topo, p, feed, trace=None):
+        with beam_traced([] if trace is None else trace), torch.no_grad():
+            return topo.apply(p, feed, mode="test")
+
+    def rescore(p, res, rows):
+        """Every beam's summed log-probs under the training graph's
+        decoder_group, teacher-forced on its tokens up to its eos."""
+        b, k, t = res.tokens.shape
+        toks = res.tokens.reshape(b * k, t).long()
+        n_tok = torch.clamp(res.lengths.reshape(-1).long() + 1, max=t)
+        prev = torch.cat([torch.full_like(toks[:, :1], wmt14.START),
+                          toks[:, :-1]], dim=1)
+        with torch.no_grad():
+            probs = value_data(L.Topology(decoder).apply(p, {
+                "source_language_word": SequenceBatch(
+                    rows.data.repeat_interleave(k, 0),
+                    rows.lengths.repeat_interleave(k, 0)),
+                "target_language_word": SequenceBatch(prev.int(),
+                                                      n_tok.int())},
+                mode="test"))
+        lp = torch.log(torch.clamp(probs, min=1e-20)).gather(
+            -1, toks[..., None])[..., 0]
+        keep = torch.arange(t, device=lp.device)[None] < n_tok[:, None]
+        return (lp * keep).sum(1).reshape(b, k)
+
+    feed = src(dev)
+    decodes, gen_launches = {}, None
+    # the trained weights, and the start's with the softmax's projection
+    # sharpened (see V1_SHARPEN)
+    out_key = decoder.cfg["sub_topo"]._param_key(decoder.cfg["outs"][0])
+    sharp = {**start, out_key: {n: t * V1_SHARPEN if n.startswith("w")
+                                else t for n, t in start[out_key].items()}}
+    for label, tree in (("trained", card.parameters), ("sharpened", sharp)):
+        params = {k: {n: t.detach().to(dev) for n, t in tree[k].items()}
+                  for k in gen_keys}
+        decode(gen_topo, params, feed)                 # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        trace = []
+        t0 = time.perf_counter()
+        res = decode(gen_topo, params, feed, trace)
+        torch.cuda.synchronize()
+        ms_ = (time.perf_counter() - t0) * 1e3
+        counts = lstm_gru_counts(kernels)
+        if counts != want_counts(kernels, gru_fwd=2):
+            fail(f"seqtoseq_v1: the decode launched {counts}, want B10's "
+                 f"forward once a direction and nothing else")
+        gen_launches = counts if gen_launches is None \
+            else add_counts(gen_launches, counts)
+        cpu_trace = []
+        cpu_res = decode(gen_topo, tree_map(lambda t: t.cpu(), params),
+                         src("cpu", V1_CPU_ROWS), cpu_trace)
+        best = int(res.lengths[:, 0].sum())
+        b, k, t = res.tokens.shape
+        decodes[label] = {
+            "ms": ms_, "best_beam_tokens": best,
+            "best_beam_lengths_min_max": [int(res.lengths[:, 0].min()),
+                                          int(res.lengths[:, 0].max())],
+            "emitted_tokens_per_s": best / (ms_ / 1e3),
+            "lane_steps_per_s": b * k * t / (ms_ / 1e3),
+            "launches": counts,
+            "vs_cpu": beam_agreement(
+                f"seqtoseq_v1 decode ({label}) card vs CPU", cpu_res, res,
+                cpu_trace, trace, V1_CPU_ROWS),
+            "rescore_rel_err": rescore_check(
+                torch, f"seqtoseq_v1 ({label})", res,
+                rescore(params, res, feed["source_language_word"]))}
+
+    # greedy_generation of the same step against beam 1, sharpened
+    greedy_topo = L.Topology(sd.build(True, greedy=True))
+    decode(greedy_topo, params, feed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = decode(greedy_topo, params, feed)
+    torch.cuda.synchronize()
+    greedy_ms = (time.perf_counter() - t0) * 1e3
+    one = decode(L.Topology(sd.build(True, beam_size=1)), params, feed)
+    if not (torch_equal(greedy.data, one.tokens[:, 0])
+            and torch_equal(greedy.lengths, one.lengths[:, 0])):
+        fail("seqtoseq_v1: greedy_generation differs from beam 1")
+    emit({"phase": "seqtoseq_v1", "config": {
+        "model": "models/seqtoseq_dsl (demo/seqToseq/v1 seqtoseq_net.py + "
+                 "train.conf in the DSL: bi-GRU encoder, attention, "
+                 "recurrent_group decoder / beam_search)",
+        "dim": sd.DIM, "vocab": [wmt14.SRC_DICT_SIZE, wmt14.TRG_DICT_SIZE],
+        "batch": sd.BATCH, "beam": sd.BEAM, "max_length": sd.MAX_LENGTH,
+        "error_clipping": sd.ERROR_CLIPPING,
+        "optimizer": "Adam lr 5e-4", "entry": "trainer.SGD.train; "
+        "Topology.apply of the beam_search graph",
+        "data": "data.datasets.wmt14 train / test (sources of 3-29 "
+                "tokens)"},
+        "first_step_vs_cpu": first,
+        "ms_per_batch": ms, "ms_min_max": [min(times), max(times)],
+        "target_tokens_per_batch": trg_tokens,
+        "target_tokens_per_s": trg_tokens / (ms / 1e3),
+        "losses": losses,
+        "launches_per_step": per_step,
+        "decode": {"rows": V1_GEN_ROWS, "cpu_rows": V1_CPU_ROWS,
+                   "shared_keys": sorted(shared), **decodes,
+                   "greedy_ms": greedy_ms, "greedy_equals_beam_1": True}})
+    return {"train_seqtoseq_v1": add_counts(first_launches, pass_launches),
+            "generate_seqtoseq_v1": gen_launches}
+
+
+# nested_group: models/text_dsl's nested_group classifier on nested_a9f's
+# data (imdb reviews as 1-8 sentences of <= 16 tokens, emb 128, hid 128,
+# batch 64, Adam lr 0.002): an outer recurrent_group over
+# SubsequenceInput(emb) whose step runs an fc of 4·128 and an lstmemory of
+# 128 over the sentence (JAX's resident rule: B9 once an outer step,
+# forward and backward), last_seq, an fc of 128 over [last, the outer
+# memory].  The first step against the CPU (graph_first_step, NESTED_TOL
+# with the float32 floors) and NG_STEPS more, each step's B9 launches
+# exactly its batch's padded outer length, forward and backward; the
+# mean loss of the pass's second half below its first half's.  Then the
+# sequence_nest_rnn / sequence_rnn pair of tests/test_nested_rnn.py at
+# width NG_PAIR_D: the nested group equals the flat one over the
+# concatenated words, values within NG_VAL_TOL and gradients within
+# NG_GRAD_TOL of each leaf's largest entry; the control (the inner memory
+# not booted from the outer one) must fail that gate.
+NG_STEPS = 9
+NG_PAIR_D, NG_PAIR_B = 128, 16
+NG_VAL_TOL, NG_GRAD_TOL = 1e-5, 1e-4
+
+
+def nest_pair_graphs(L, d, booted):
+    """(nested, flat): tests/test_nested_rnn.py's sequence_nest_rnn (the
+    inner memory booted from the outer one unless not ``booted``) and
+    sequence_rnn, sharing the fc "rnnfc"."""
+    L.reset_names()
+    x = L.data_layer("x", size=d, is_seq=True)
+
+    def outer_step(subseq):
+        outer_mem = L.memory(name="outer_state", size=d)
+
+        def inner_step(y):
+            inner_mem = L.memory(name="inner_state", size=d,
+                                 boot_layer=outer_mem if booted else None)
+            return L.fc_layer([y, inner_mem], size=d, act="tanh",
+                              name="inner_state",
+                              param_attr={"name": "rnnfc"})
+
+        return L.last_seq(L.recurrent_group(inner_step, subseq),
+                          name="outer_state")
+
+    nested = L.Topology(L.recurrent_group(outer_step, L.SubsequenceInput(x)))
+    L.reset_names()
+    xf = L.data_layer("x", size=d, is_seq=True)
+
+    def step(y):
+        mem = L.memory(name="state", size=d)
+        return L.fc_layer([y, mem], size=d, act="tanh", name="state",
+                          param_attr={"name": "rnnfc"})
+
+    return nested, L.Topology(L.recurrent_group(step, xf))
+
+
+def nest_pair_check(torch, dev, seed, booted):
+    """The nested group against the flat one on the card: (the values'
+    error at every sub-sequence end, the gradients' worst error), each
+    against its largest entry."""
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.core.sequence import (pad_nested_sequences,
+                                                pad_sequences)
+    from paddle_tpu_torch.layers.graph import value_data
+    rng = np.random.RandomState(seed)
+    subs = [[rng.randn(int(n), NG_PAIR_D).astype(np.float32)
+             for n in rng.randint(1, 17, size=int(s))]
+            for s in rng.randint(1, 9, size=NG_PAIR_B)]
+    nested, flat = nest_pair_graphs(L, NG_PAIR_D, booted)
+    params = flat.init(torch.Generator().manual_seed(seed), device=dev)
+    outs, grads = [], []
+    for topo, feed in (
+            (nested, pad_nested_sequences(subs, device=dev)),
+            (flat, pad_sequences([np.concatenate(s) for s in subs],
+                                 device=dev))):
+        p = {k: {n: t.clone().requires_grad_(True) for n, t in v.items()}
+             for k, v in params.items()}
+        out = topo.apply(p, {"x": feed}, mode="test")
+        d = value_data(out)
+        fin = d[torch.arange(d.shape[0], device=d.device),
+                out.lengths.long() - 1]
+        torch.sum(fin ** 2).backward()
+        outs.append(d.detach().cpu())
+        grads.append([t.grad.detach().cpu()
+                      for _, t in sorted(p["rnnfc"].items())])
+    dn, df = outs
+    ends = [np.cumsum([len(x) for x in s]) - 1 for s in subs]
+    got = torch.stack([dn[b, j] for b, e in enumerate(ends)
+                       for j in range(len(e))])
+    want = torch.stack([df[b, int(x)] for b, e in enumerate(ends)
+                        for x in e])
+    return largest_err([got], [want])[0], max(largest_err(*grads))
+
+
+def run_nested_group(torch, dev, kernels, seed):
+    """nested_group (see NG_STEPS); returns the B9 launches of its
+    train pass."""
+    from paddle_tpu_torch.models import text_dsl
+    cfg = text_dsl.config("nested_group", n_batches=NG_STEPS + 1)
+    data, feeding = list(cfg["train_reader"]()), cfg["feeding"]
+
+    def want(batch):
+        s = max(len(subs) for subs, _ in batch)
+        return want_counts(kernels, lstm_fwd=s, lstm_bwd=s)
+
+    card, _, first, _ = graph_first_step(
+        torch, dev, kernels, lambda: text_dsl.build("nested_group")[0],
+        lambda: text_dsl.optimizer("nested_group"), feeding, data[0],
+        "nested_group", NESTED_TOL, floors=True)
+    first_launches = lstm_gru_counts(kernels)
+    if first_launches != want(data[0]):
+        fail(f"nested_group: the first step launched {first_launches}, want "
+             f"{want(data[0])}")
+    times, losses, pass_launches = counted_pass(
+        torch, kernels, card, data[1:], feeding, "nested_group",
+        [want(b) for b in data[1:]])
+    losses = [first["loss"][0]] + losses
+    half = len(losses) // 2
+    if not np.mean(losses[half:]) < np.mean(losses[:half]):
+        fail(f"nested_group: the loss did not fall: {losses}")
+    val, grad = nest_pair_check(torch, dev, seed, booted=True)
+    ctl = nest_pair_check(torch, dev, seed, booted=False)
+    pair = {"values_rel_err": val, "grads_rel_err": grad,
+            "limits": [NG_VAL_TOL, NG_GRAD_TOL],
+            "control": {"what": "the inner memory not booted from the outer "
+                                "one", "values_rel_err": ctl[0],
+                        "grads_rel_err": ctl[1]},
+            "width": NG_PAIR_D, "batch": NG_PAIR_B}
+    if not (val <= NG_VAL_TOL and grad <= NG_GRAD_TOL):
+        fail(f"nested_group: nested differs from flat: {pair}")
+    if ctl[0] <= NG_VAL_TOL and ctl[1] <= NG_GRAD_TOL:
+        fail(f"nested_group: the control passes the nested = flat gate: "
+             f"{pair}")
+    outer = [max(len(s) for s, _ in b) for b in data]
+    ms = float(np.median(times))
+    emit({"phase": "nested_group", "config": {
+        "model": "models/text_dsl nested_group (recurrent_group over "
+                 "SubsequenceInput(emb): fc 4·128, lstmemory 128, last_seq, "
+                 "fc 128 over [last, outer memory])",
+        "batch": text_dsl.BATCH, "sub_len": text_dsl.SUB_LEN,
+        "max_subs": text_dsl.MAX_SUBS, "emb": 128, "hid": 128,
+        "optimizer": "Adam lr 0.002", "entry": "trainer.SGD.train",
+        "data": "data.datasets.imdb train as sentences (nested_a9f's)"},
+        "first_step_vs_cpu": first, "padded_outer_lengths": outer,
+        "ms_per_batch": ms, "ms_min_max": [min(times), max(times)],
+        "samples_per_s": text_dsl.BATCH / (ms / 1e3),
+        "losses": losses, "launches_rule": "B9 forward and backward once "
+        "per padded outer step", "nest_equals_flat": pair})
+    return {"nested_group": add_counts(first_launches, pass_launches)}
+
+
+# recurrence_1b: mdlstmemory at B MD_B, MD_H x MD_W, D MD_D, forward and
+# backward on the card against the CPU (MD_TOL of each leaf's largest
+# entry plus FLOOR_TIMES its float32 noise, a float64 CPU run), timed.
+# The control, the card's run with the five peepholes zeroed, must fail
+# that gate.  The prev_batch_state carry: lstmemory of CARRY_D at B CARRY_B, T
+# CARRY_T, split into two halves; the carried halves equal one unbroken
+# run within CARRY_TOL of its largest entry (the unbroken run and the
+# first half take B9, the second half, with a carried init_state, the
+# masked scan: 0 launches), and the same halves without the carry must
+# fail that gate; then CARRY_STEPS SGD steps of a carried classifier: the
+# carried state requires no gradient, B9 1 + 1 on the first step and 0
+# after, and the last step's time within CARRY_GROWTH of the second's
+# (a carry chained into autograd would re-run every earlier batch's
+# backward); the halves again for grumemory (B10 on the first half).
+MD_B, MD_H, MD_W, MD_D = 16, 16, 16, 64
+# the DSL train phases' relative gate (GROUP_TOL, SENT_TOL): at 1e-5 the
+# bias gradient (a sum over B·H·W cells of a 256-cell chain) read 0.95 of
+# its bound on an H100, card and CPU both float32 (PERF.md §6)
+MD_TOL = 2e-5
+CARRY_B, CARRY_T, CARRY_D = 64, 100, 512
+CARRY_TOL = 1e-5
+CARRY_STEPS = 3
+CARRY_GROWTH = 1.8
+CARRY_VOCAB = 1000
+
+
+def md_check(torch, dev, seed):
+    """mdlstmemory on the card and on the CPU from the same weights."""
+    from paddle_tpu_torch import layers as L
+    L.reset_names()
+    node = L.mdlstmemory(L.data_layer("img", size=5 * MD_D * MD_H * MD_W,
+                                      height=MD_H, width=MD_W), size=MD_D)
+    topo = L.Topology(node)
+    gen = torch.Generator().manual_seed(seed)
+    params = topo.init(gen, device="cpu")
+    # the zero bias and peepholes carry weight
+    params[node.name]["b"] = 0.1 * torch.randn(10 * MD_D, generator=gen)
+    x = torch.randn(MD_B, 5 * MD_D * MD_H * MD_W, generator=gen)
+    cot = torch.cos(0.37 * torch.arange(node.size, dtype=torch.float64))
+    names = ["out", "d_img"] + [f"d_{n}" for n in sorted(params[node.name])]
+
+    def run(device, dtype, peepholes=True):
+        p = {node.name: {n: t.detach().to(device, dtype).requires_grad_(True)
+                         for n, t in params[node.name].items()}}
+        if not peepholes:
+            with torch.no_grad():
+                p[node.name]["b"][5 * MD_D:] = 0.0
+        xx = x.detach().to(device, dtype).requires_grad_(True)
+        out = topo.apply(p, {"img": xx}, mode="test")
+        torch.sum(out * cot.to(device, dtype)).backward()
+        return [out, xx.grad] + [p[node.name][n].grad
+                                 for n in sorted(p[node.name])]
+
+    card = run(dev, torch.float32)
+    reps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(dev, torch.float32)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    cpu, cpu64 = run("cpu", torch.float32), run("cpu", torch.float64)
+    out = {"shape": {"B": MD_B, "H": MD_H, "W": MD_W, "D": MD_D},
+           "fwd_bwd_ms": float(np.median(reps)), "fwd_bwd_ms_all": reps,
+           **floor_readings(card, cpu, cpu64, MD_TOL, names),
+           "control": {"what": "the card's run with the peepholes zeroed",
+                       **floor_readings(run(dev, torch.float32, False), cpu,
+                                        cpu64, MD_TOL, names)}}
+    if not out["err_over_bound_max"] <= 1.0:
+        fail(f"recurrence_1b: mdlstmemory on the card against the CPU {out}")
+    if out["control"]["err_over_bound_max"] <= 1.0:
+        fail(f"recurrence_1b: the mdlstmemory control passes: {out}")
+    return out
+
+
+def carry_halves(torch, dev, kernels, cell, seed):
+    """``cell`` ("lstm" / "gru") of CARRY_D carried over two halves
+    against one unbroken run, and the control without the carry."""
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.layers.graph import value_data
+    ctor, width = ((L.lstmemory, 4 * CARRY_D) if cell == "lstm"
+                   else (L.grumemory, 3 * CARRY_D))
+
+    def graph(carry):
+        L.reset_names()
+        return L.Topology(ctor(L.data_layer("x", size=width, is_seq=True),
+                               size=CARRY_D, prev_batch_state=carry,
+                               name="carried"))
+
+    carried, plain = graph(True), graph(False)
+    params = carried.init(torch.Generator().manual_seed(seed), device=dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    full = torch.randn(CARRY_B, CARRY_T, width, generator=gen).to(dev)
+    mid = CARRY_T // 2
+
+    def seq(lo, hi):
+        return {"x": SequenceBatch(full[:, lo:hi], torch.full(
+            (CARRY_B,), hi - lo, dtype=torch.int32, device=dev))}
+
+    def counted(topo, feed, state=None):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with torch.no_grad():
+            out, st = topo.apply(params, feed, mode="test", state=state,
+                                 return_state=True)
+        torch.cuda.synchronize()
+        return value_data(out), st, lstm_gru_counts(kernels)
+
+    ref, _, unbroken = counted(carried, seq(0, CARRY_T))
+    h0, st, first = counted(carried, seq(0, mid))
+    h1, _, second = counted(carried, seq(mid, CARRY_T), st)
+    c0, _, _ = counted(plain, seq(0, mid))
+    c1, _, _ = counted(plain, seq(mid, CARRY_T))
+    err = largest_err([torch.cat([h0, h1], 1)], [ref])[0]
+    ctl = largest_err([torch.cat([c0, c1], 1)], [ref])[0]
+    one = want_counts(kernels, **{f"{cell}_fwd": 1})
+    out = {"cell": cell, "halves_vs_unbroken_rel_err": err,
+           "control_without_carry_rel_err": ctl, "limit": CARRY_TOL,
+           "launches": {"unbroken": unbroken, "first_half": first,
+                        "second_half": second}}
+    if not err <= CARRY_TOL:
+        fail(f"recurrence_1b: carried halves differ from one run: {out}")
+    if ctl <= CARRY_TOL:
+        fail(f"recurrence_1b: the halves without the carry pass: {out}")
+    if (unbroken, first, second) != (one, one, want_counts(kernels)):
+        fail(f"recurrence_1b: {cell} launches {out['launches']}, want the "
+             f"kernel forward on the unbroken run and the first half, none "
+             f"on the carried second half")
+    return out, add_counts(unbroken, first, second)
+
+
+def carry_sgd(torch, dev, kernels, seed):
+    """CARRY_STEPS SGD steps of a carried classifier (embedding 128, fc
+    4·CARRY_D, lstmemory CARRY_D with prev_batch_state, last_seq, fc 2
+    softmax) on seeded id batches."""
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.data.provider import (integer_value,
+                                                integer_value_sequence)
+    from paddle_tpu_torch.trainer import SGD
+    L.reset_names()
+    w = L.data_layer("w", size=CARRY_VOCAB, is_seq=True)
+    x4 = L.fc_layer(L.embedding_layer(w, size=128), size=4 * CARRY_D,
+                    act=None, bias_attr=False)
+    h = L.lstmemory(x4, size=CARRY_D, prev_batch_state=True, name="carried")
+    cost = L.classification_cost(
+        L.fc_layer(L.last_seq(h), size=2, act="softmax"),
+        L.data_layer("lab", size=1))
+    rng = np.random.RandomState(seed)
+    data = [[(rng.randint(0, CARRY_VOCAB, CARRY_T).tolist(),
+              int(rng.randint(2))) for _ in range(CARRY_B)]
+            for _ in range(CARRY_STEPS)]
+    trainer = SGD(cost, update_equation=optim.Adam(learning_rate=1e-3),
+                  device=dev)
+    first = want_counts(kernels, lstm_fwd=1, lstm_bwd=1)
+    times, losses, launches = counted_pass(
+        torch, kernels, trainer, data,
+        {"w": integer_value_sequence(CARRY_VOCAB), "lab": integer_value(2)},
+        "recurrence_1b carried SGD",
+        [first] + [want_counts(kernels)] * (CARRY_STEPS - 1))
+    carry = trainer.model_state["carried/carry"]
+    out = {"ms": times, "losses": losses,
+           "carry_shape": list(carry.shape),
+           "carry_requires_grad": carry.requires_grad,
+           "carry_has_grad_fn": carry.grad_fn is not None,
+           "growth_limit": CARRY_GROWTH}
+    if carry.requires_grad or carry.grad_fn is not None \
+            or tuple(carry.shape) != (CARRY_B, 2 * CARRY_D):
+        fail(f"recurrence_1b: the carried state {out}")
+    if not times[-1] <= CARRY_GROWTH * times[1]:
+        fail(f"recurrence_1b: the step time grows across carried steps: "
+             f"{out}")
+    return out, launches
+
+
+def run_recurrence_1b(torch, dev, kernels, seed):
+    """recurrence_1b (see MD_TOL); returns the B9 / B10 launches of its
+    carried runs."""
+    md = md_check(torch, dev, seed)
+    lstm, lstm_n = carry_halves(torch, dev, kernels, "lstm", seed + 1)
+    sgd, sgd_n = carry_sgd(torch, dev, kernels, seed + 2)
+    gru, gru_n = carry_halves(torch, dev, kernels, "gru", seed + 3)
+    emit({"phase": "recurrence_1b", "mdlstmemory": md,
+          "carry": {"shape": {"B": CARRY_B, "T": CARRY_T, "D": CARRY_D,
+                              "halves": [CARRY_T // 2] * 2},
+                    "lstm": lstm, "sgd_steps": sgd, "gru": gru}})
+    return {"recurrence_1b": add_counts(lstm_n, sgd_n, gru_n)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9053,6 +9676,9 @@ def main(argv=None):
     nested_launches = run_nested_a9f(torch, dev, kernels)
     run_trainer_prefetch(torch, dev, kernels)
     group_launches = run_train_lstm_group(torch, dev, kernels, args.seed)
+    item1b = {**run_seqtoseq_v1(torch, dev, kernels),
+              **run_nested_group(torch, dev, kernels, args.seed),
+              **run_recurrence_1b(torch, dev, kernels, args.seed)}
 
     summary = []
     for row, mod, launches in (
@@ -9124,7 +9750,9 @@ def main(argv=None):
                    **{path: n[name] for path, n in srl_launches.items()},
                    **{path: n[name] for path, n in sparse_launches.items()},
                    **{path: n[name] for path, n in nested_launches.items()},
-                   **{path: n[name] for path, n in group_launches.items()}}
+                   **{path: n[name] for path, n in group_launches.items()},
+                   **{path: n[name] for path, n in item1b.items()
+                      if n[name]}}
         summary.append({
             "name": name, "route": "cuda",
             "source": kernels.lstm.SOURCE, "replaces": replaces,
@@ -9165,13 +9793,15 @@ def main(argv=None):
             "launches": s2s_launches["train"][name]
             + s2s_launches["generate"][name] + s2g_launches[name]
             + s2d_launches["train"][name] + s2d_launches["generate"][name]
-            + group_launches["train_lstm_group"][name],
+            + group_launches["train_lstm_group"][name]
+            + sum(n[name] for n in item1b.values()),
             "launches_by_path": {
                 **{path: n[name] for path, n in s2s_launches.items()},
                 "generate_seq2seq": s2g_launches[name],
                 **{f"{path}_seqtoseq_demo": n[name]
                    for path, n in s2d_launches.items()},
-                "train_lstm_group": group_launches["train_lstm_group"][name]},
+                "train_lstm_group": group_launches["train_lstm_group"][name],
+                **{path: n[name] for path, n in item1b.items() if n[name]}},
             "shape_seqtoseq_demo": {"T": "3-29, ragged", "B": S2D_BATCH,
                                     "D": S2D_HIDDEN},
             "max_abs_err": max([row["max_abs_err"]]

@@ -1,11 +1,13 @@
 """Recurrent layers (``paddle_tpu/layers/recurrent.py``): the
-whole-sequence ``lstmemory``, ``grumemory`` and ``recurrent_layer``, and
-the ``recurrent_group`` / ``memory`` engine with its step layers.
+whole-sequence ``lstmemory``, ``grumemory`` and ``recurrent_layer``, the
+``recurrent_group`` / ``memory`` engine with its step layers, and the
+2-D ``mdlstmemory``.
 
 Reference: trainer_config_helpers layers.py lstmemory / grumemory /
 recurrent_layer / recurrent_group / memory / lstm_step_layer /
-gru_step_layer / get_output_layer (LstmLayer, GatedRecurrentLayer,
-RecurrentLayer, RecurrentGradientMachine).
+gru_step_layer / get_output_layer / mdlstmemory (LstmLayer,
+GatedRecurrentLayer, RecurrentLayer, RecurrentGradientMachine,
+MDLstmLayer).
 
 The whole-sequence layers are thin on ``ops/rnn.lstm``, ``.gru`` and
 ``.simple_rnn``, whose fused routes run the LSTM, GRU and vanilla-RNN
@@ -17,11 +19,18 @@ frozen.  The step layers call ``ops/rnn.lstm_cell`` / ``gru_cell``, so a
 group runs no kernel of its own, as JAX's runs none.  With
 ``HOIST_SCAN_INVARIANTS`` the step graph's memory-free row-wise prefix
 runs once over the whole padded sequence before the loop (one product
-over [B·T, ·] in place of T small ones).
+over [B·T, ·] in place of T small ones).  A group over
+``SubsequenceInput``s runs ``ops/rnn.nested_recurrent_group``: its step
+sees a whole sub-sequence, over which an inner group may run.
 
-Waiting for ROADMAP A10·b item 1b: ``SubsequenceInput`` groups (the
-nested engine), ``mdlstmemory`` and the ``prev_batch_state`` carry (the
-final state fed to the next batch), each of which raises naming it.
+``prev_batch_state=True`` on a whole-sequence layer carries its final
+state into the next batch through the context's state (the channel of
+batch norm's statistics, which ``trainer.SGD`` threads and checkpoints
+keep), detached, as JAX's functional state is a constant of the next
+step.  A carried LSTM takes the masked scan, as JAX's rule routes an
+``init_state``; the first batch, with nothing carried yet, may take
+the kernel.  JAX's global ``FLAGS.prev_batch_state`` waits for the
+port's ``utils/flags`` (ROADMAP A5).
 """
 
 import math
@@ -40,15 +49,39 @@ from paddle_tpu_torch.utils.error import ConfigError
 __all__ = [
     "lstmemory", "grumemory", "recurrent_layer", "recurrent_group", "memory",
     "StaticInput", "SubsequenceInput", "lstm_step_layer", "gru_step_layer",
-    "gru_step_naive_layer", "get_output_layer",
+    "gru_step_naive_layer", "get_output_layer", "mdlstmemory",
 ]
 
 
-def _no_carry(prev_batch_state):
-    if prev_batch_state:
-        raise ConfigError("prev_batch_state=True (the final state carried "
-                          "into the next batch) is not ported yet (ROADMAP "
-                          "A10·b 1b)")
+def _check_carry(name, reverse, prev_batch_state):
+    """The ctor's check of ``prev_batch_state`` (reference
+    --prev_batch_state, "batch is continue with next batch"): a reversed
+    layer's final state is its sequence's start, so carrying it is a
+    contradiction JAX refuses too."""
+    if prev_batch_state and reverse:
+        raise ConfigError(
+            f"{name}: prev_batch_state cannot carry state for a reverse "
+            "RNN (the final state of a reversed scan is the sequence "
+            "START)")
+
+
+def _prev_batch_init(ctx, cfg, bsz):
+    """The state the previous batch left (None on the first batch or
+    without ``prev_batch_state``)."""
+    if not cfg.get("prev_batch_state"):
+        return None
+    carry = ctx.state_in.get(cfg["name"] + "/carry")
+    if carry is not None and carry.shape[0] != bsz:
+        raise ConfigError(
+            f"{cfg['name']}: prev_batch_state carries a state of batch "
+            f"{carry.shape[0]} into a batch of {bsz}; carried batches "
+            "must keep their size")
+    return carry
+
+
+def _prev_batch_save(ctx, cfg, final):
+    if cfg.get("prev_batch_state"):
+        ctx.put_state(cfg["name"] + "/carry", final.detach())
 
 
 def _zeros(gen, size):
@@ -77,15 +110,20 @@ class _LstmImpl:
     def apply(self, ctx, cfg, params, x):
         d = cfg["size"]
         b = params.get("b")
-        out, _ = rnn_ops.lstm(
-            as_seq(x), params["w"],
+        x = as_seq(x)
+        init = _prev_batch_init(ctx, cfg, x.data.shape[0])
+        if init is not None:
+            init = rnn_ops.LstmState(h=init[..., :d], c=init[..., d:])
+        out, final = rnn_ops.lstm(
+            x, params["w"],
             bias=b[:4 * d] if b is not None else None,
             check_i=b[4 * d:5 * d] if b is not None else None,
             check_f=b[5 * d:6 * d] if b is not None else None,
             check_o=b[6 * d:] if b is not None else None,
             reverse=cfg.get("reverse", False), act=cfg.get("act", "tanh"),
             gate_act=cfg.get("gate_act", "sigmoid"),
-            state_act=cfg.get("state_act", "tanh"))
+            state_act=cfg.get("state_act", "tanh"), init_state=init)
+        _prev_batch_save(ctx, cfg, torch.cat([final.h, final.c], dim=-1))
         return out
 
 
@@ -95,9 +133,9 @@ register_layer("lstmemory")(_LstmImpl)
 def lstmemory(input, size=None, reverse=False, act="tanh",
               gate_act="sigmoid", state_act="tanh", name=None,
               bias_attr=True, param_attr=None, prev_batch_state=False):
-    _no_carry(prev_batch_state)
     d = size or input.size // 4
     nm = name or auto_name("lstmemory")
+    _check_carry(nm, reverse, prev_batch_state)
     return LayerOutput(nm, "lstmemory", d, [input],
                        {"size": d, "name": nm, "reverse": reverse,
                         "act": act, "gate_act": gate_act,
@@ -124,11 +162,13 @@ class _GruImpl:
         return p
 
     def apply(self, ctx, cfg, params, x):
-        out, _ = rnn_ops.gru(as_seq(x), params["w_gate"], params["w_state"],
-                             bias=params.get("b"),
-                             reverse=cfg.get("reverse", False),
-                             act=cfg.get("act", "tanh"),
-                             gate_act=cfg.get("gate_act", "sigmoid"))
+        x = as_seq(x)
+        out, final = rnn_ops.gru(
+            x, params["w_gate"], params["w_state"], bias=params.get("b"),
+            init_state=_prev_batch_init(ctx, cfg, x.data.shape[0]),
+            reverse=cfg.get("reverse", False), act=cfg.get("act", "tanh"),
+            gate_act=cfg.get("gate_act", "sigmoid"))
+        _prev_batch_save(ctx, cfg, final)
         return out
 
 
@@ -138,9 +178,9 @@ register_layer("grumemory")(_GruImpl)
 def grumemory(input, size=None, reverse=False, act="tanh",
               gate_act="sigmoid", name=None, bias_attr=True, param_attr=None,
               prev_batch_state=False):
-    _no_carry(prev_batch_state)
     d = size or input.size // 3
     nm = name or auto_name("grumemory")
+    _check_carry(nm, reverse, prev_batch_state)
     return LayerOutput(nm, "grumemory", d, [input],
                        {"size": d, "name": nm, "reverse": reverse,
                         "act": act, "gate_act": gate_act,
@@ -161,10 +201,12 @@ class _SimpleRnnImpl:
         return p
 
     def apply(self, ctx, cfg, params, x):
-        out, _ = rnn_ops.simple_rnn(as_seq(x), params["w"],
-                                    bias=params.get("b"),
-                                    reverse=cfg.get("reverse", False),
-                                    act=cfg.get("act", "tanh"))
+        x = as_seq(x)
+        out, final = rnn_ops.simple_rnn(
+            x, params["w"], bias=params.get("b"),
+            init_state=_prev_batch_init(ctx, cfg, x.data.shape[0]),
+            reverse=cfg.get("reverse", False), act=cfg.get("act", "tanh"))
+        _prev_batch_save(ctx, cfg, final)
         return out
 
 
@@ -174,8 +216,8 @@ register_layer("recurrent")(_SimpleRnnImpl)
 def recurrent_layer(input, act="tanh", reverse=False, name=None,
                     bias_attr=True, param_attr=None, prev_batch_state=False):
     """Reference RecurrentLayer: h_t = act(x_t + h_{t-1} W)."""
-    _no_carry(prev_batch_state)
     nm = name or auto_name("recurrent")
+    _check_carry(nm, reverse, prev_batch_state)
     return LayerOutput(nm, "recurrent", input.size, [input],
                        {"size": input.size, "name": nm, "act": act,
                         "reverse": reverse, "bias_attr": bias_attr,
@@ -198,9 +240,9 @@ class StaticInput:
 
 class SubsequenceInput:
     """A two-level sequence input whose sub-sequences a nested
-    recurrent_group iterates (reference SubsequenceInput).  Defined with
-    JAX's surface; ``recurrent_group`` refuses it until the nested engine
-    lands (ROADMAP A10·b 1b)."""
+    recurrent_group iterates (reference SubsequenceInput): the outer
+    group's step sees each sub-sequence as a whole SequenceBatch and
+    may run an inner recurrent_group over it."""
 
     def __init__(self, input):
         self.input = input
@@ -267,21 +309,24 @@ def recurrent_group(step, input, reverse=False, name=None):
     """Trace ``step`` once over placeholders into the group's sub-graph
     (see the module doc).
 
-    input: one or a list of sequence LayerOutputs and/or StaticInputs.
-    step: fn(*step_inputs) -> a LayerOutput or a tuple of them; the
-    group's value is the first, ``get_output_layer`` reads the others.
-    reverse runs over the padded time axis from its end."""
+    input: one or a list of sequence LayerOutputs and/or StaticInputs,
+    or SubsequenceInputs (a nested group; not mixed with flat sequence
+    inputs).  step: fn(*step_inputs) -> a LayerOutput or a tuple of
+    them; the group's value is the first, ``get_output_layer`` reads
+    the others.  reverse runs over the padded time (or outer) axis from
+    its end."""
     ins = input if isinstance(input, (list, tuple)) else [input]
-    seq_inputs, static_inputs, step_args = [], [], []
+    seq_inputs, sub_inputs, static_inputs, step_args = [], [], [], []
     for item in ins:
         if isinstance(item, StaticInput):
             ph = LayerOutput(auto_name("static_in"), "__static__",
                              item.input.size, [], {}, is_seq=item.is_seq)
             static_inputs.append((ph, item))
         elif isinstance(item, SubsequenceInput):
-            raise ConfigError(
-                "recurrent_group over a SubsequenceInput (the nested "
-                "engine) is not ported yet (ROADMAP A10·b 1b)")
+            # the step sees each sub-sequence as a whole SequenceBatch
+            ph = LayerOutput(auto_name("subseq_in"), "__step_input__",
+                             item.input.size, [], {}, is_seq=True)
+            sub_inputs.append((ph, item))
         else:
             if not item.is_seq:
                 raise ConfigError(
@@ -293,7 +338,11 @@ def recurrent_group(step, input, reverse=False, name=None):
                              item.size, [], {}, is_seq=False)
             seq_inputs.append((ph, item))
         step_args.append(ph)
-    if not seq_inputs:
+    if sub_inputs and seq_inputs:
+        raise ConfigError("recurrent_group cannot mix SubsequenceInput with "
+                          "flat sequence inputs (reference nested groups "
+                          "iterate subsequences only)")
+    if not seq_inputs and not sub_inputs:
         raise ConfigError("recurrent_group needs at least one sequence "
                           "input to iterate")
 
@@ -321,6 +370,7 @@ def recurrent_group(step, input, reverse=False, name=None):
         sub_topo = Topology(outs + extra_outs)
 
     group_inputs = ([real for _, real in seq_inputs]
+                    + [s.input for _, s in sub_inputs]
                     + [s.input for _, s in static_inputs]
                     + [b for _, _, b, _ in links
                        if isinstance(b, LayerOutput)])
@@ -328,10 +378,12 @@ def recurrent_group(step, input, reverse=False, name=None):
         "sub_topo": sub_topo,
         "outs": outs,
         "seq_phs": [ph for ph, _ in seq_inputs],
+        "sub_phs": [ph for ph, _ in sub_inputs],
         "static_phs": [ph for ph, _ in static_inputs],
         "links": links,
         "reverse": reverse,
         "n_seq": len(seq_inputs),
+        "n_sub": len(sub_inputs),
         "n_static": len(static_inputs),
     }
     node = LayerOutput(name or auto_name("recurrent_group"),
@@ -410,10 +462,20 @@ class _RecurrentGroupImpl:
 
     def apply(self, ctx, cfg, params, *inputs):
         sub_topo = cfg["sub_topo"]
-        n_seq, n_static = cfg["n_seq"], cfg["n_static"]
-        seqs = [as_seq(v) for v in inputs[:n_seq]]
-        statics = list(inputs[n_seq:n_seq + n_static])
-        boots = iter(inputs[n_seq + n_static:])
+        n_static, n_sub = cfg["n_static"], cfg.get("n_sub", 0)
+        nested = n_sub > 0
+        n_lead = n_sub if nested else cfg["n_seq"]
+        if nested:
+            for v in inputs[:n_sub]:
+                if not isinstance(v, NestedSequenceBatch):
+                    raise ConfigError(
+                        "SubsequenceInput needs a NestedSequenceBatch feed "
+                        f"(got {type(v).__name__})")
+            seqs = list(inputs[:n_sub])
+        else:
+            seqs = [as_seq(v) for v in inputs[:n_lead]]
+        statics = list(inputs[n_lead:n_lead + n_static])
+        boots = iter(inputs[n_lead + n_static:])
         sub_params = ctx.params
         ref = seqs[0]
         bsz, dev = ref.data.shape[0], ref.data.device
@@ -431,13 +493,14 @@ class _RecurrentGroupImpl:
         mode = ctx.mode
         link_nodes = [ln for _, ln, _, _ in cfg["links"]]
         n_out, n_links = len(cfg["outs"]), len(cfg["links"])
-        seq_phs = cfg["seq_phs"]
+        seq_phs = cfg["sub_phs"] if nested else cfg["seq_phs"]
 
-        # the hoist: the memory-free row-wise prefix over the whole padded
-        # sequence, its values scanned beside the step inputs; no
-        # generator, the frontier is dropout-free by construction
+        # the hoist (flat groups): the memory-free row-wise prefix over
+        # the whole padded sequence, its values scanned beside the step
+        # inputs; no generator, the frontier is dropout-free by
+        # construction
         hoisted = []
-        if HOIST_SCAN_INVARIANTS:
+        if not nested and HOIST_SCAN_INVARIANTS:
             frontier = _hoistable_frontier(sub_topo, seq_phs, mode)
             if frontier:
                 pre = Topology(frontier).apply(
@@ -464,9 +527,15 @@ class _RecurrentGroupImpl:
             new_mems = tuple(value_data(v)
                              for v in vals[len(vals) - n_links:]) \
                 if n_links else ()
-            return new_mems, tuple(value_data(v) for v in vals[:n_out])
+            # a nested group keeps sequence-valued step outputs whole,
+            # for the engine to stack into a NestedSequenceBatch
+            return new_mems, tuple(
+                v if nested and isinstance(v, SequenceBatch)
+                else value_data(v) for v in vals[:n_out])
 
-        outs, _ = rnn_ops.recurrent_group(
+        engine = (rnn_ops.nested_recurrent_group if nested
+                  else rnn_ops.recurrent_group)
+        outs, _ = engine(
             step_fn, tuple(seqs), tuple(boot_vals), reverse=cfg["reverse"],
             generator=ctx.generator if _draws(sub_topo, mode) else None)
         result = outs[0] if len(outs) == 1 else outs
@@ -476,11 +545,14 @@ class _RecurrentGroupImpl:
 
 def _draws(sub_topo, mode):
     """Whether a step of ``sub_topo`` draws random bits in ``mode``
-    (dropout in train mode; nce and sampling_id always): only then does
-    the engine split the context's generator into per-step streams."""
+    (dropout in train mode; nce and sampling_id always; an inner group's
+    step counts): only then does the engine split the context's
+    generator into per-step streams."""
     return any(n.layer_type in ("nce", "sampling_id")
                or (mode == "train" and (n.cfg.get("drop_rate")
                                         or n.layer_type == "dropout"))
+               or (isinstance(n.cfg.get("sub_topo"), Topology)
+                   and _draws(n.cfg["sub_topo"], mode))
                for n in sub_topo.order)
 
 
@@ -616,3 +688,61 @@ def gru_step_naive_layer(input, output_mem, size=None, act="tanh",
     return gru_step_layer(input, output_mem, size=size, act=act,
                           gate_act=gate_act, name=name, bias_attr=bias_attr,
                           param_attr=param_attr)
+
+
+# ----------------------------------------------------- mdlstmemory
+
+class _MDLstmImpl:
+    """The 2-D multi-dimensional LSTM over an image-shaped input
+    (reference MDLstmLayer): ``ops/rnn.md_lstm_2d``."""
+
+    def infer(self, cfg, in_sizes):
+        return cfg["size"] * cfg["h"] * cfg["w"]
+
+    def init(self, gen, cfg, in_sizes):
+        d = cfg["size"]
+        wi = _winit(cfg.get("param_attr"), 1.0 / math.sqrt(d))
+        p = {"w_row": wi(gen, (d, 5 * d)), "w_col": wi(gen, (d, 5 * d))}
+        if cfg.get("bias_attr", True) is not False:
+            # 5d gate bias + 5d peepholes (i_row, i_col, f_row, f_col, o)
+            p["b"] = _zeros(gen, 10 * d)
+        return p
+
+    def apply(self, ctx, cfg, params, x):
+        d, h, w = cfg["size"], cfg["h"], cfg["w"]
+        xd = value_data(x).reshape(-1, h, w, 5 * d)
+        b = params.get("b")
+        checks = [None] * 5
+        if b is not None:
+            xd = xd + b[:5 * d]
+            checks = [b[(5 + k) * d:(6 + k) * d] for k in range(5)]
+        out = rnn_ops.md_lstm_2d(
+            xd, params["w_row"], params["w_col"],
+            check_i_row=checks[0], check_i_col=checks[1],
+            check_f_row=checks[2], check_f_col=checks[3], check_o=checks[4],
+            act=cfg.get("act", "tanh"), gate_act=cfg.get("gate_act",
+                                                         "sigmoid"),
+            state_act=cfg.get("state_act", "tanh"))
+        return out.reshape(out.shape[0], -1)
+
+
+register_layer("mdlstmemory")(_MDLstmImpl)
+
+
+def mdlstmemory(input, size=None, height=None, width=None, act="tanh",
+                gate_act="sigmoid", state_act="tanh", name=None,
+                bias_attr=True, param_attr=None):
+    """input: an image-shaped layer of 5*size channels (the gates,
+    projected); height / width default to the input's img_shape."""
+    if height is None or width is None:
+        if input.img_shape is None:
+            raise ConfigError("mdlstmemory needs height/width (or an input "
+                              "with img_shape)")
+        height, width = input.img_shape
+    d = size or input.size // (5 * height * width)
+    return LayerOutput(name or auto_name("mdlstm"), "mdlstmemory",
+                       d * height * width, [input],
+                       {"size": d, "h": height, "w": width, "act": act,
+                        "gate_act": gate_act, "state_act": state_act,
+                        "bias_attr": bias_attr, "param_attr": param_attr},
+                       is_seq=False, num_filters=d, img_shape=(height, width))

@@ -28,8 +28,17 @@ a sequence of sentence vectors) -> fc of 4 hid -> ``lstmemory`` of hid
 0.002).  At hid 128 and batch 64 its LSTM runs the fused kernels over
 1-8 sentences.
 
+``nested_group_net`` reads the same sentences hierarchically, as a
+nested ``recurrent_group`` over a ``SubsequenceInput`` of the
+embedding: each outer step runs an fc of 4 hid and an ``lstmemory`` of
+hid over one sentence, takes its ``last_seq``, and an fc of hid (tanh)
+over it and the outer memory, the review's state so far; then
+``last_seq`` over the sentences and fc 2 softmax, with Adam (lr 0.002).
+The sentence LSTM passes JAX's resident rule at hid 128 and batch 64,
+so the card runs the fused LSTM kernels once an outer step.
+
 ``get_config()`` selects by ``CONFIG_ARGS`` ``model`` (sentiment, the
-default; lr, cnn, lstm or nested) as the demos' ``get_config`` does:
+default; lr, cnn, lstm, nested or nested_group) as the demos' ``get_config`` does:
 ``python -m paddle_tpu_torch train --config
 paddle_tpu_torch/models/text_dsl.py --config_args model=lstm``
 (``batches=N`` stops a pass after N batches).
@@ -45,7 +54,7 @@ from paddle_tpu_torch.optim import Adam
 
 DICT_DIM = imdb.WORD_DIM
 BATCH = 64
-MODELS = ("sentiment", "lr", "cnn", "lstm", "nested")
+MODELS = ("sentiment", "lr", "cnn", "lstm", "nested", "nested_group")
 SUB_LEN, MAX_SUBS = 16, 8
 
 
@@ -107,8 +116,27 @@ def nested_lstm_net(words, label, hid=128, emb=128):
     return L.classification_cost(out, label), out
 
 
+def nested_group_net(words, label, hid=128, emb=128):
+    """A hierarchical classifier, a nested recurrent_group over the
+    sentences: (cost, output)."""
+    emb_l = L.embedding_layer(words, size=emb)
+
+    def sentence_step(sentence):
+        doc = L.memory(name="doc_state", size=hid)
+        lstm = L.lstmemory(L.fc_layer(sentence, size=hid * 4, act=None,
+                                      bias_attr=False), size=hid)
+        return L.fc_layer([L.last_seq(lstm), doc], size=hid, act="tanh",
+                          name="doc_state")
+
+    doc = L.recurrent_group(sentence_step, L.SubsequenceInput(emb_l))
+    out = L.fc_layer(L.last_seq(doc), size=2, act="softmax")
+    return L.classification_cost(out, label), out
+
+
 _NETS = {"sentiment": stacked_lstm_net, "lr": lr_net, "cnn": cnn_net,
-         "lstm": lstm_net, "nested": nested_lstm_net}
+         "lstm": lstm_net, "nested": nested_lstm_net,
+         "nested_group": nested_group_net}
+_NESTED = ("nested", "nested_group")
 
 
 def sentences(reader, sub_len=SUB_LEN, max_subs=MAX_SUBS):
@@ -136,14 +164,15 @@ def build(model="sentiment", vocab=DICT_DIM, **sizes):
 
 def optimizer(model="sentiment"):
     """The demo's optimizer: sentiment's Adam (lr 0.002, l2 1e-4,
-    clip_norm 5.0), quick_start's (and nested's) Adam (lr 0.002)."""
+    clip_norm 5.0), quick_start's (and the nested ones') Adam (lr
+    0.002)."""
     if model == "sentiment":
         return Adam(learning_rate=0.002, l2=1e-4, clip_norm=5.0)
     return Adam(learning_rate=0.002)
 
 
 def feeding(vocab=DICT_DIM, model="sentiment"):
-    words = integer_value_sub_sequence if model == "nested" \
+    words = integer_value_sub_sequence if model in _NESTED \
         else integer_value_sequence
     return {"words": words(vocab), "label": integer_value(2)}
 
@@ -155,7 +184,7 @@ def config(model="sentiment", n_batches=None, batch=BATCH):
     ``batch``, each pass capped at ``n_batches`` batches (None: all)."""
     cost, out = build(model)
     train, test = imdb.train(), imdb.test()
-    if model == "nested":
+    if model in _NESTED:
         train, test = sentences(train), sentences(test)
     return {"cost": cost, "output": out, "optimizer": optimizer(model),
             "train_reader": reader_mod.firstn(reader_mod.batch(

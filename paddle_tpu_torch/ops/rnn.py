@@ -25,17 +25,20 @@ the CPU; the scans run on either device, as the reference routes them.
 
 ``recurrent_group`` is the generic engine under the layer DSL's
 ``recurrent_group``: a loop over time of a step function over memories,
-finished rows' memories frozen by a masked merge.  JAX's is one
-``lax.scan`` of plain ops, so the port's is a plain loop on both
-devices.  The nested engine and ``md_lstm_2d`` wait for ROADMAP A10·b
-item 1b.
+finished rows' memories frozen by a masked merge;
+``nested_recurrent_group`` is its two-level twin, an outer loop over
+sub-sequences.  ``md_lstm_2d`` is the 2-D LSTM of ``mdlstmemory``, a
+loop over rows with a loop over columns inside.  JAX's three are
+``lax.scan``s of plain ops, so the port's are plain loops on both
+devices.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, \
+    SequenceBatch
 from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops.kernels import gru as _gru_kernel
 from paddle_tpu_torch.ops.kernels import lstm as _kernel
@@ -181,6 +184,69 @@ def recurrent_group(step_fn, inputs, boot_memories, reverse=False,
     return result, mems
 
 
+def nested_recurrent_group(step_fn, inputs, boot_memories, reverse=False,
+                           generator=None):
+    """The two-level (sub-sequence) engine (JAX's ``ops/rnn.
+    nested_recurrent_group``; reference RecurrentGradientMachine
+    createInFrameInfo with sub-sequence inputs): the outer loop iterates
+    sub-sequences, and at outer step j step_fn sees each input's j-th
+    sub-sequence as a whole SequenceBatch, ``inner_lengths[:, j]`` its
+    lengths, so an inner ``recurrent_group`` in the step runs over it.
+
+    inputs: a tuple of NestedSequenceBatches sharing outer lengths.
+    step_fn(memories, frames[, step_generator]) -> (new_memories,
+    outputs), as for ``recurrent_group``; outer memories are frozen at
+    padded outer steps.  A [B, ...] step output stacks into a
+    SequenceBatch over the outer axis (zeroed at padded outer steps), a
+    SequenceBatch step output into a NestedSequenceBatch (its inner
+    lengths times the outer mask, its data zeroed by the inner mask).
+    Returns (the outputs in the step's structure, the final
+    memories)."""
+    nests = tuple(inputs)
+    ref = nests[0]
+    s_len = ref.data.shape[1]
+    # one view an outer step, as _masked_scan takes them
+    datas = [n.data.unbind(1) for n in nests]
+    ilens = [n.inner_lengths.unbind(1) for n in nests]
+    om = ref.outer_mask()
+    om_sm = om.unbind(1)
+    gens = _step_generators(generator, s_len) if generator is not None \
+        else None
+    mems, outs = tuple(boot_memories), [None] * s_len
+    for j in _time_order(s_len, reverse):
+        frames = tuple(SequenceBatch(data=d[j], lengths=ln[j])
+                       for d, ln in zip(datas, ilens))
+        if gens is None:
+            new, out = step_fn(mems, frames)
+        else:
+            new, out = step_fn(mems, frames, gens[j])
+        mems = tuple(_merge(om_sm[j], n, o) for n, o in zip(new, mems))
+        outs[j] = out
+
+    def collect(steps):
+        if isinstance(steps[0], SequenceBatch):
+            data = torch.stack([o.data for o in steps], dim=1)
+            inner = torch.stack([o.lengths for o in steps], dim=1) \
+                * ref.outer_mask(torch.int32)
+            nsb = NestedSequenceBatch(data=data,
+                                      outer_lengths=ref.outer_lengths,
+                                      inner_lengths=inner)
+            m = nsb.inner_mask(data.dtype)
+            return nsb._replace(
+                data=data * m.reshape(m.shape + (1,) * (data.dim() - 3)))
+        data = torch.stack(steps, dim=1)                 # [B, S, ...]
+        m = om.to(data.dtype)
+        return SequenceBatch(
+            data=data * m.reshape(m.shape + (1,) * (data.dim() - 2)),
+            lengths=ref.outer_lengths)
+
+    if isinstance(outs[0], tuple) and not isinstance(outs[0], SequenceBatch):
+        result = tuple(collect(list(steps)) for steps in zip(*outs))
+    else:
+        result = collect(outs)
+    return result, mems
+
+
 def _fused_seq_apply(seq, xs, ms, reverse, kernel_fn):
     """reverse = the forward kernel over time-flipped arrays, flipped back
     (valid because sequences are left-aligned and masked steps freeze the
@@ -293,3 +359,58 @@ def bidirectional(fwd_out: SequenceBatch, bwd_out: SequenceBatch):
     """Concat forward and reverse passes (reference bidirectional_lstm)."""
     return SequenceBatch(data=torch.cat([fwd_out.data, bwd_out.data], dim=-1),
                          lengths=fwd_out.lengths)
+
+
+def md_lstm_2d(x5, w_r_row, w_r_col, check_i_row=None, check_i_col=None,
+               check_f_row=None, check_f_col=None, check_o=None,
+               act="tanh", gate_act="sigmoid", state_act="tanh"):
+    """2-D multi-dimensional LSTM (JAX's ``ops/rnn.md_lstm_2d``;
+    reference MDLstmLayer): each cell sees its top and its left
+    neighbour, each with its own recurrent weight and forget gate:
+
+      gates = x5 + h_top @ w_r_row + h_left @ w_r_col (+ peepholes)
+      c = act(a) * gate(ig) + gate(fg_row) * c_top + gate(fg_col) * c_left
+
+    x5: [B, H, W, 5D] pre-projected in the order (a, ig, fg_row,
+    fg_col, og); w_r_row / w_r_col [D, 5D]; check_* [D] peepholes
+    (optional).  A loop over rows carrying the previous row's (h, c),
+    and inside it a loop over columns carrying (h_left, c_left); the
+    top neighbours' product is taken for a whole row at once, since the
+    previous row is done.  Returns h [B, H, W, D]."""
+    b, _, w, d5 = x5.shape
+    d = d5 // 5
+    act_f, gate_f, state_f = (activations.get(act), activations.get(gate_act),
+                              activations.get(state_act))
+    zeros = x5.new_zeros((b, d))
+
+    def cell(x, h_top, c_top, h_left, c_left):
+        gates = x + matmul(h_left, w_r_col)
+        a, ig, fg_r, fg_c, og = torch.chunk(gates, 5, dim=-1)
+        if check_i_row is not None:
+            ig = ig + c_top * check_i_row
+        if check_i_col is not None:
+            ig = ig + c_left * check_i_col
+        if check_f_row is not None:
+            fg_r = fg_r + c_top * check_f_row
+        if check_f_col is not None:
+            fg_c = fg_c + c_left * check_f_col
+        c = (act_f(a) * gate_f(ig) + gate_f(fg_r) * c_top
+             + gate_f(fg_c) * c_left)
+        if check_o is not None:
+            og = og + c * check_o
+        return gate_f(og) * state_f(c), c
+
+    h_top, c_top = [zeros] * w, [zeros] * w
+    rows = []
+    # unbind: one view a row and a column (see _masked_scan)
+    for x_row in x5.unbind(1):
+        top = x_row + matmul(torch.stack(h_top, dim=1), w_r_row)
+        h_left = c_left = zeros
+        hs, cs = [], []
+        for j, x in enumerate(top.unbind(1)):
+            h_left, c_left = cell(x, h_top[j], c_top[j], h_left, c_left)
+            hs.append(h_left)
+            cs.append(c_left)
+        h_top, c_top = hs, cs
+        rows.append(torch.stack(hs, dim=1))
+    return torch.stack(rows, dim=1)

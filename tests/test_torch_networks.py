@@ -13,8 +13,9 @@ JAX package's on the CPU, and the image_classification demo's vgg config
   cotangent), over ragged sequences.
 - The four composites built on ``recurrent_group`` run (held in
   tests/test_torch_recurrent_units.py); over a ``SubsequenceInput``
-  they raise ``ConfigError`` naming ROADMAP A10·b 1b
-  (``sequence_conv_pool`` is held in tests/test_torch_mixed.py).
+  they build JAX's nested group and, as JAX's, refuse a whole
+  sub-sequence at apply (``sequence_conv_pool`` is held in
+  tests/test_torch_mixed.py).
 - ``vgg_bn_drop`` at the demo's rates in test mode, against the JAX DSL
   with ``num_channels=64`` given after the dropout (JAX's
   ``dropout_layer`` drops the image metadata: ROADMAP C13); and in train
@@ -246,17 +247,41 @@ def test_inputs_and_outputs():
 @pytest.mark.parametrize("ctor", ["gru_unit", "gru_group", "lstmemory_unit",
                                   "lstmemory_group"])
 def test_refusals_name_a10b(ctor):
-    """The four composites run now (tests/test_torch_recurrent_units.py);
-    over a SubsequenceInput, whose nested engine is ROADMAP A10·b item
-    1b, each still refuses, naming it."""
-    L.reset_names()
-    sub = L.SubsequenceInput(_seq(L))
-    fn = getattr(L.networks, ctor)
-    with pytest.raises(ConfigError, match="A10·b 1b"):
-        if ctor.endswith("_group"):
-            fn(sub, size=H)
+    """The four composites run (tests/test_torch_recurrent_units.py).
+    Over a SubsequenceInput, since nested groups run (ROADMAP A10·b
+    item 1b), each builds the nested group JAX's builds, layer for
+    layer, and its step unit refuses a whole sub-sequence as JAX's
+    does: a shape error at apply."""
+    from paddle_tpu.core.sequence import NestedSequenceBatch as JaxNest
+    from paddle_tpu_torch.core.sequence import NestedSequenceBatch
+    width = (3 if ctor.startswith("gru") else 4) * H
+    data = np.ones((2, 3, 4, width), np.float32)
+    outer, inner = np.array([3, 2], np.int32), np.full((2, 3), 4, np.int32)
+    names = []
+    for M in (L, JL):
+        (L.reset_names if M is L else jax_reset_names)()
+        sub = M.SubsequenceInput(M.data_layer("x", size=width, is_seq=True))
+        fn = getattr(M.networks, ctor)
+        node = fn(sub, size=H) if ctor.endswith("_group") \
+            else M.recurrent_group(lambda x: fn(x, size=H), sub)
+        assert node.cfg["n_sub"] == 1 and node.cfg["n_seq"] == 0
+        topo = M.Topology(node)
+        names.append([n.name for n in topo.order]
+                     + [n.name for n in node.cfg["sub_topo"].order])
+        if M is L:
+            with pytest.raises(RuntimeError, match="must match the size"):
+                topo.apply(topo.init(torch.Generator().manual_seed(0),
+                                     device="cpu"),
+                           {"x": NestedSequenceBatch(
+                               torch.tensor(data), torch.tensor(outer),
+                               torch.tensor(inner))})
         else:
-            L.recurrent_group(lambda x: fn(x, size=H), sub)
+            with pytest.raises(ValueError, match="Incompatible shapes"):
+                topo.apply(topo.init(jax.random.PRNGKey(0)),
+                           {"x": JaxNest(jnp.asarray(data),
+                                         jnp.asarray(outer),
+                                         jnp.asarray(inner))})
+    assert names[0] == names[1]
 
 
 # ------------------------------------------------------------ vgg_bn_drop

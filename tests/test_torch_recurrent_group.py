@@ -484,8 +484,10 @@ def test_group_refusals_match_jax():
     x = L.data_layer("x", size=DIN, is_seq=True)
     with pytest.raises(ConfigError, match="A11"):
         L.recurrent_group(lambda s: s, L.data_layer("d", size=DIN))
-    with pytest.raises(ConfigError, match="A10·b 1b"):
-        L.recurrent_group(lambda s: s, L.SubsequenceInput(x))
+    # nested groups run now (tests/test_torch_nested_group.py); mixing a
+    # SubsequenceInput with a flat sequence JAX refuses too
+    with pytest.raises(ConfigError, match="cannot mix SubsequenceInput"):
+        L.recurrent_group(lambda s, y: y, [L.SubsequenceInput(x), x])
     with pytest.raises(ConfigError, match="no matching layer"):
         L.recurrent_group(lambda s: _fc_step(
             L, s, L.memory(name="nowhere", size=H)), x)

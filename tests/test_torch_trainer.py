@@ -403,8 +403,11 @@ def test_refusals_of_the_graph_and_the_train_loop(tmp_path):
                        match="needs sparsity_ratio= or mask_filename="):
         SGD(L.classification_cost(hooked, label),
             update_equation=optim.Momentum(), device="cpu")
+    # the carry runs now (tests/test_torch_prev_batch.py); on a reversed
+    # layer JAX refuses it too
     with pytest.raises(ConfigError, match="prev_batch_state"):
-        L.recurrent_layer(L.fc_layer(word, size=H), prev_batch_state=True)
+        L.recurrent_layer(L.fc_layer(word, size=H), reverse=True,
+                          prev_batch_state=True)
     trainer = _port_trainer()
     rd = reader.batch(lambda: iter(_batch(14)), B)
     # prefetch trains now (tests/test_torch_data_a9f.py); a negative depth
