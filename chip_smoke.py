@@ -475,6 +475,27 @@ non-zero exit code and no final "ok" line:
             which the halves without the carry must fail; three carried
             SGD steps (the carry requires no gradient, the step time
             does not grow); the halves for grumemory (B10)
+  demos_a14  the four demos with no earlier port config at their own
+            widths (models/traffic_dsl: 24 heads over a shared
+            _link_vec.w, RMSProp; moe_dsl: 4 experts top 2, Adam;
+            gan_dsl: two Topologies in turn, Adam; lm_demo: the packed
+            char LM, Adam, then lm_generate): each first step against
+            the CPU within 2e-5, which the same step with cuBLAS's TF32
+            on must fail; ms/step; the demos' own end checks (moe's
+            quadrant accuracy >= 0.9, gan's radius mean within 0.25 of
+            1, each with its untrained control missing; lm's greedy
+            continuations equal to a CPU run on the trained weights up
+            to the margin, a sentence of the grammar); lm_generate's
+            flash prefill and Tq=1 split-KV launches counted
+  host_a5   utils/flags, obs/trace and resilience/faults: the served LM
+            (slab, chunked) with tracing off and on through FLAGS,
+            tokens bit for bit, the span structure equal to the CPU's,
+            traceparent continued, the step wall of both; unsupervised
+            decode-step (chunked) and prefill (ladder) faults ending the
+            same requests as on the CPU, the rest bit for bit a clean
+            run; a trainer.step fault then train(resume=True) bit for
+            bit; FLAGS giving python -m paddle_tpu_torch train its
+            --prefetch default
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -2854,13 +2875,16 @@ def check_streams(torch, transformer, params, prompts, outs, what,
     return checked
 
 
-def serve_http(torch, kernels, engine, prompts, n_tok, starts):
+def serve_http(torch, kernels, engine, prompts, n_tok, starts,
+               headers=None):
     """Put ``engine`` behind the HTTP server and POST each prompt to
     /v1/generate from its own thread ``starts[i]`` seconds in, every
-    third streamed.  Returns the run's record: results [(status,
-    tokens)], inter-token gaps of the streamed ones (s), errors, seconds,
-    steps, launches (counts set to 0 just before), the metrics snapshot,
-    the /metrics text, and the batcher (still open)."""
+    third streamed (``headers[i]``, if given, added to request i).
+    Returns the run's record: results [(status, tokens)], inter-token
+    gaps of the streamed ones (s), errors, seconds, steps, launches
+    (counts set to 0 just before), the metrics snapshot, the /metrics
+    text, the X-Trace-Id of each response, and the batcher (still
+    open)."""
     from paddle_tpu_torch.serving import GenerationBatcher, make_server
     gen = GenerationBatcher(engine, default_max_tokens=n_tok)
     httpd = make_server(gen, port=0)
@@ -2868,6 +2892,7 @@ def serve_http(torch, kernels, engine, prompts, n_tok, starts):
     server.start()
     base = f"http://127.0.0.1:{httpd.port}/v1/generate"
     results, gaps, errors = [None] * len(prompts), [], []
+    trace_ids = [None] * len(prompts)
 
     def client(i):
         time.sleep(starts[i])
@@ -2875,9 +2900,12 @@ def serve_http(torch, kernels, engine, prompts, n_tok, starts):
                 "stream": i % 3 == 0}
         req = urllib.request.Request(base, data=json.dumps(body).encode(),
                                      headers={"Content-Type":
-                                              "application/json"})
+                                              "application/json",
+                                              **(headers[i] if headers
+                                                 else {})})
         try:
             with urllib.request.urlopen(req, timeout=300) as r:
+                trace_ids[i] = r.headers.get("X-Trace-Id")
                 if not body["stream"]:
                     results[i] = (r.status, json.loads(r.read())["tokens"])
                     return
@@ -2907,7 +2935,8 @@ def serve_http(torch, kernels, engine, prompts, n_tok, starts):
            "launches": launch_counts(kernels),
            "steps": engine.metrics.decode_steps_total - steps0,
            "snapshot": engine.metrics.snapshot(), "results": results,
-           "gaps": gaps, "errors": errors, "gen": gen}
+           "gaps": gaps, "errors": errors, "gen": gen,
+           "trace_ids": trace_ids}
     with urllib.request.urlopen(base.replace("/v1/generate", "/metrics"),
                                 timeout=60) as r:
         run["metrics_text"] = r.read().decode()
@@ -9447,6 +9476,617 @@ def run_recurrence_1b(torch, dev, kernels, seed):
     return {"recurrence_1b": add_counts(lstm_n, sgd_n, gru_n)}
 
 
+# demos_a14: the four demos with no earlier port config, each at its own
+# widths on the card (models/traffic_dsl, moe_dsl, gan_dsl, lm_demo):
+# - the first step on the card against the same step on the CPU from the
+#   same weights (loss and every gradient leaf within DEMO_TOL of its
+#   largest entry), which the same card step with cuBLAS's TF32 products
+#   on must fail (first_step_gate);
+# - then the demo's own run through its own entry: traffic one pass of
+#   SGD.train (66 batches of 128), moe its 4 passes (256 steps) then its
+#   quadrant accuracy on 512 fresh points (at least MOE_ACC_MIN; the
+#   untrained start must fall short), gan its 400 alternating Adam steps
+#   then the mean radius of 256 generated points (within GAN_RADIUS_TOL
+#   of 1; the untrained generator must miss), lm its 12 epochs of packed
+#   rows then greedy lm_generate from "cat " and "bird " equal to a CPU
+#   run on the card's trained weights up to the first top-1 / top-2
+#   margin below MARGIN_TOL, the greedy text a sentence of the grammar,
+#   and sampled continuations (temperature 0.7, top 8) in the vocab;
+# - ms/step of each; no counted kernel launches in training (lm's
+#   packed rows take the dense masked attention, as JAX's route does);
+#   lm_generate launches the flash forward once a layer a call (the
+#   prompt's prefill), counted into the kernel rows, and no decode
+#   kernel: its per-token steps (lm_decode_step) attend by the masked
+#   plain path, as JAX's lm_decode_step does.
+DEMO_TOL = 2e-5
+# the demos' own lengths: moe's passes, gan's steps, lm's epochs
+MOE_PASSES, GAN_STEPS, LM_EPOCHS = 4, 400, 12
+MOE_ACC_MIN = 0.9
+GAN_RADIUS_TOL = 0.25
+TF32_CONTROL = "the same card step with cuBLAS's TF32 products on"
+
+
+def first_step_gate(torch, dev, what, step, tol=DEMO_TOL):
+    """``step(device, ctx)`` -> (loss, [gradient leaves on the host]) of
+    one step from fixed weights: the card's against the CPU's within
+    ``tol``, the TF32 control failing it (gate_first_step)."""
+    cpu = step("cpu", None)
+    card = step(dev, None)
+    control = step(dev, lambda: cublas_tf32(torch))
+    return gate_first_step(what, card, cpu, tol,
+                           control=(TF32_CONTROL, control))
+
+
+def sgd_step_fn(torch, build, optimizer, feeding, batch):
+    """first_step_gate's step for a DSL cost through SGD (its seed's
+    weights, drawn on the CPU); the TF32 context enters after the feed
+    (device.resolve turns TF32 off)."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    start = host_tree(SGD(cost=build(), update_equation=optimizer(),
+                          device="cpu").parameters)
+
+    def step(device, ctx):
+        tr = SGD(cost=build(), parameters=start,
+                 update_equation=optimizer(), device=device)
+        feed = DataFeeder(feeding, device=tr.device)(batch)
+        with (ctx or contextlib.nullcontext)():
+            total, _ = tr._forward(feed)
+            tr._backward(total)
+        return float(total.detach()), [p.grad.detach().cpu()
+                                       for p in tree_leaves(tr._view)]
+    return step
+
+
+def timed_sgd_pass(torch, trainer, reader, feeding, passes=1):
+    """SGD.train over ``passes`` passes: (ms a step, feed included; the
+    costs of the steps)."""
+    costs = []
+
+    def handler(e):
+        from paddle_tpu_torch.trainer import events
+        if isinstance(e, events.EndIteration):
+            costs.append(e.cost)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(reader, num_passes=passes, feeding=feeding, log_period=0,
+                  event_handler=handler)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(costs)
+    return ms, [float(c) for c in costs]
+
+
+def check_falls(what, losses, k=8):
+    if not (all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-k:]) < np.mean(losses[:k])):
+        fail(f"{what}: the loss must be finite and fall: {losses}")
+
+
+def run_demo_traffic(torch, dev, kernels):
+    from paddle_tpu_torch.models import traffic_dsl as td
+    from paddle_tpu_torch.trainer import SGD
+    batch = next(iter(td.train_reader()()))
+    first = first_step_gate(torch, dev, "demos_a14 traffic", sgd_step_fn(
+        torch, lambda: td.build()[0], td.optimizer, td.feeding(), batch))
+    cfg = td.config()
+    tr = SGD(cost=cfg["cost"], update_equation=cfg["optimizer"], device=dev)
+    kernels.reset_launches()
+    ms, losses = timed_sgd_pass(torch, tr, cfg["train_reader"],
+                                cfg["feeding"])
+    check_falls("demos_a14 traffic", losses)
+    return {"config": {"heads": td.FORECASTING_NUM, "window": td.TERM_NUM,
+                       "emb": td.EMB_SIZE, "buckets": td.LABEL_VALUE_NUM,
+                       "batch": td.BATCH, "optimizer": "RMSProp lr 1e-3",
+                       "entry": "SGD.train, one pass"},
+            "first_step_vs_cpu": first, "steps": len(losses),
+            "ms_per_step": ms, "loss_first_last": [losses[0], losses[-1]],
+            "counted_launches": sum(launch_counts(kernels).values())
+            + recurrent_launches(kernels)}
+
+
+def run_demo_moe(torch, dev, kernels):
+    from paddle_tpu_torch.models import moe_dsl as md
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_map
+    batch = next(iter(md.train_reader()()))
+    first = first_step_gate(torch, dev, "demos_a14 moe", sgd_step_fn(
+        torch, lambda: md.build()[0], md.optimizer, md.feeding(), batch))
+    cfg = md.config()
+    tr = SGD(cost=cfg["cost"], update_equation=cfg["optimizer"], device=dev)
+    start = tree_map(lambda t: t.detach().clone(), tr.parameters)
+    kernels.reset_launches()
+    ms, losses = timed_sgd_pass(torch, tr, cfg["train_reader"],
+                                cfg["feeding"], passes=MOE_PASSES)
+    check_falls("demos_a14 moe", losses)
+    acc = md.quadrant_accuracy(cfg["output"], tr.parameters)
+    control = md.quadrant_accuracy(cfg["output"], start)
+    out = {"config": {"experts": 4, "top_k": 2, "expert_dim": 64,
+                      "batch": md.BATCH, "optimizer": "Adam lr 0.01",
+                      "entry": f"SGD.train, {MOE_PASSES} passes"},
+           "first_step_vs_cpu": first, "steps": len(losses),
+           "ms_per_step": ms, "loss_first_last": [losses[0], losses[-1]],
+           "quadrant_accuracy": {"trained": acc, "limit": MOE_ACC_MIN,
+                                 "control_untrained": control},
+           "counted_launches": sum(launch_counts(kernels).values())
+           + recurrent_launches(kernels)}
+    if not acc >= MOE_ACC_MIN > control:
+        fail(f"demos_a14 moe: the quadrant accuracy must reach "
+             f"{MOE_ACC_MIN} and the untrained control fall short: {out}")
+    return out
+
+
+def run_demo_gan(torch, dev, kernels):
+    from paddle_tpu_torch.models import gan_dsl as gd
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map, \
+        value_and_grad
+    g_topo, d_topo, _, _ = gd.build()
+    gen = torch.Generator().manual_seed(0)
+    start = (g_topo.init(gen, device="cpu"), d_topo.init(gen, device="cpu"))
+
+    def step(device, ctx):
+        gan = gd.Gan(*(tree_map(lambda t: t.clone().to(device), p)
+                       for p in start))
+        rng = np.random.RandomState(0)
+        z = torch.as_tensor(rng.randn(gd.BATCH, gd.Z).astype(np.float32),
+                            device=device)
+        real = torch.as_tensor(gd.real_batch(rng), device=device)
+        with (ctx or contextlib.nullcontext)():
+            dl, dg = value_and_grad(
+                lambda p: gan.d_loss(p, gan.g_params, z, real), gan.d_params)
+            gl, gg = value_and_grad(
+                lambda p: gan.g_loss(p, gan.d_params, z), gan.g_params)
+        return (float(dl) + float(gl),
+                [x.detach().cpu() for x in tree_leaves(dg) + tree_leaves(gg)])
+
+    first = first_step_gate(torch, dev, "demos_a14 gan", step)
+    gan = gd.Gan(*(tree_map(lambda t: t.clone().to(dev), p) for p in start))
+    rng = np.random.RandomState(0)
+    control = float(gan.radii(np.random.RandomState(5)).mean())
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [tuple(float(x) for x in gan.step(rng))
+              for _ in range(GAN_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(losses)
+    radii = gan.radii(rng)
+    out = {"config": {"z": gd.Z, "hidden": gd.H, "batch": gd.BATCH,
+                      "optimizer": "Adam lr 2e-3 (both)",
+                      "entry": f"gan_dsl.Gan.step (d then g), {GAN_STEPS} "
+                               "steps"},
+           "first_step_vs_cpu": first, "steps": len(losses),
+           "ms_per_step": ms, "d_g_loss_last": list(losses[-1]),
+           "radius_mean": {"trained": float(radii.mean()),
+                           "std": float(radii.std()), "target": 1.0,
+                           "limit": GAN_RADIUS_TOL,
+                           "control_untrained": control},
+           "counted_launches": sum(launch_counts(kernels).values())
+           + recurrent_launches(kernels)}
+    if not (all(math.isfinite(x) for pair in losses for x in pair)
+            and abs(radii.mean() - 1) <= GAN_RADIUS_TOL
+            < abs(control - 1)):
+        fail(f"demos_a14 gan: the radius mean must land within "
+             f"{GAN_RADIUS_TOL} of 1 and the untrained control miss: {out}")
+    return out
+
+
+LM_SENTENCE = r"^(cat|dog|bird) (sees|likes) (fish|seed|bone)\."
+
+
+def run_demo_lm(torch, dev, kernels):
+    import re
+    from paddle_tpu_torch.models import lm_demo as lm
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.utils.tree import tree_leaves, tree_map, \
+        value_and_grad
+    start = host_tree(lm.init(seed=0, device="cpu"))
+    batches = lm.packed_batches()
+    first_rows = next(iter(batches()))
+
+    def step(device, ctx):
+        p = tree_map(lambda t: t.clone().to(device), start)
+        data, seg, pos = (torch.as_tensor(a, device=device)
+                          for a in lm.stack(first_rows))
+        with (ctx or contextlib.nullcontext)():
+            value, g = value_and_grad(lambda q: lm.loss(q, data, seg, pos), p)
+        return float(value), [x.detach().cpu() for x in tree_leaves(g)]
+
+    first = first_step_gate(torch, dev, "demos_a14 lm", step)
+    tr = lm.Trainer(tree_map(lambda t: t.clone().to(dev), start))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(tr.step(rows)) for _ in range(LM_EPOCHS)
+              for rows in batches()]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(losses)
+    train_launches = sum(launch_counts(kernels).values())
+    check_falls("demos_a14 lm", losses)
+    trained_cpu = host_tree(tr.params)
+    kernels.reset_launches()
+    samples = {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for prompt_txt in lm.PROMPTS:
+        greedy = lm.generate(tr.params, prompt_txt)
+        sampled = lm.generate(tr.params, prompt_txt, gen)
+        samples[prompt_txt] = (greedy, sampled)
+    torch.cuda.synchronize()
+    gen_launches = launch_counts(kernels)
+    compared = {}
+    for prompt_txt, (greedy, sampled) in samples.items():
+        tp = lm.encode_prompt(prompt_txt).shape[1]
+        ref = lm.generate(trained_cpu, prompt_txt)
+        marg = margins(torch, transformer, trained_cpu,
+                       torch.as_tensor(ref[None]), heads=lm.HEADS)[0]
+        n, ok = compare(greedy[tp:].tolist(), ref[tp:].tolist(),
+                        marg[tp - 1:])
+        text = lm.decode(greedy)
+        compared[prompt_txt] = {"greedy": text,
+                                "sampled": lm.decode(sampled),
+                                "tokens_compared_vs_cpu": n}
+        if not ok or n < 1:
+            fail(f"demos_a14 lm: greedy {prompt_txt!r} on the card "
+                 f"{greedy.tolist()} against the CPU {ref.tolist()}")
+        if not re.match(LM_SENTENCE, text) or not (
+                0 <= sampled.min() and sampled.max() < lm.VOCAB):
+            fail(f"demos_a14 lm: {prompt_txt!r} -> {compared[prompt_txt]}")
+    launches = {key: n for key, n in gen_launches.items() if n}
+    out = {"config": {"d_model": lm.D_MODEL, "dff": lm.DFF,
+                      "layers": lm.LAYERS, "heads": lm.HEADS,
+                      "max_len": lm.MAX_LEN, "batch": lm.BATCH,
+                      "vocab": lm.VOCAB, "optimizer": "Adam lr 3e-3",
+                      "entry": "lm_demo.Trainer.step (lm_loss on packed "
+                               f"rows), {LM_EPOCHS} epochs; lm_generate"},
+           "first_step_vs_cpu": first, "steps": len(losses),
+           "ms_per_step": ms, "loss_first_last": [losses[0], losses[-1]],
+           "train_counted_launches": train_launches,
+           "generate": compared, "margin_tolerance": MARGIN_TOL,
+           "generate_launches": launches,
+           "want_launches": {"flash_attention": 4 * lm.LAYERS}}
+    if train_launches or launches != out["want_launches"]:
+        fail(f"demos_a14 lm: kernel launches {out}")
+    return out
+
+
+def run_demos_a14(torch, dev, kernels):
+    """demos_a14 (see DEMO_TOL); returns lm_generate's launches."""
+    t0 = time.perf_counter()
+    demos = {"traffic_prediction": run_demo_traffic(torch, dev, kernels),
+             "moe": run_demo_moe(torch, dev, kernels),
+             "gan": run_demo_gan(torch, dev, kernels)}
+    for name, d in demos.items():
+        if d["counted_launches"]:
+            fail(f"demos_a14 {name}: counted kernel launches {d}")
+    demos["lm"] = run_demo_lm(torch, dev, kernels)
+    emit({"phase": "demos_a14", "tolerance": DEMO_TOL,
+          "control": TF32_CONTROL, **demos,
+          "seconds": time.perf_counter() - t0})
+    return demos["lm"]["generate_launches"]
+
+
+# host_a5: utils/flags, obs/trace and resilience/faults on the card.
+# - The full-width LM served (slab, chunked K 8: the chunk kernel B1)
+#   twice over HTTP, 12 staggered requests of 32 tokens, every third
+#   carrying a traceparent: tracing off, then on at sample 1.0 through
+#   FLAGS (trainer.api.init + FLAGS.apply()).  The tokens bit for bit
+#   the same; no span recorded off; on, the span structure (each span's
+#   name, its parent's name, its attribute keys) equal to the same
+#   requests served on the CPU by a narrow trunk (the structure does not
+#   depend on the widths); the response's X-Trace-Id continuing the
+#   incoming trace; the chunk kernel LAYERS a step in both runs; the
+#   step wall (TPOT) of both printed.
+# - Fault plans through FLAGS (resilience_fault_spec), no supervisor, the
+#   first four prompts one after another: serving.decode_step:at=
+#   A5_DECODE_FAULT_AT on the chunked engine and serving.prefill:at=2 on
+#   the ladder (buckets 32 / 64: the flash prefill B3 and the Tq=1 step
+#   B2) end the same requests with the same error as on the CPU, and
+#   every other request streams the tokens of a clean run bit for bit
+#   (the chunked ones: the traced run's); fault_injections_total on
+#   /metrics; no span left active.
+# - trainer.step:at=5 on models/traffic_dsl (3 batches a pass, 2
+#   passes, checkpoints), then train(resume=True): parameters bit for
+#   bit an uninterrupted run on the card.
+# - FLAGS drives `python -m paddle_tpu_torch train`'s --prefetch default
+#   (cli.main in this process): prefetch_depth 3 when async_load_data,
+#   0 when not, an explicit --prefetch over both.
+A5_DECODE_FAULT_AT = 40
+A5_CPU_TRUNK = dict(d_model=32, num_heads=2, dff=64, layers=2)
+
+
+def span_structure(spans):
+    """The multiset of (name, parent span's name, attribute keys)."""
+    import collections
+    names = {s["span_id"]: s["name"] for s in spans}
+    return collections.Counter(
+        (s["name"], names.get(s["parent_id"]), tuple(sorted(s["attrs"])))
+        for s in spans)
+
+
+def finished_spans(n_requests):
+    from paddle_tpu_torch.obs import trace
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        spans = trace.snapshot(include_active=False)
+        if sum(s["name"] == "server.request" for s in spans) >= n_requests:
+            return spans
+        time.sleep(0.01)
+    fail("host_a5: the request spans did not end")
+
+
+def a5_engine(params, device, heads, chunk=CHUNK, metrics=None):
+    from paddle_tpu_torch.serving import DecodeEngine
+    return DecodeEngine(params, num_heads=heads, num_slots=SLOTS,
+                        max_len=SERVE_MAX_LEN, prefill_chunk=chunk,
+                        metrics=metrics, name="base_lm", device=device)
+
+
+def a5_cpu_params(torch, seed):
+    from paddle_tpu_torch.models import transformer
+    t = A5_CPU_TRUNK
+    return transformer.init_lm(torch.Generator().manual_seed(seed), VOCAB,
+                               t["d_model"], t["num_heads"], t["dff"],
+                               t["layers"], SERVE_MAX_LEN, device="cpu")
+
+
+def sequential_outcomes(engine, prompts, n_tok, spec):
+    """The prompts one after another through a fresh batcher with the
+    fault plan ``spec`` installed through FLAGS: per request ("ok",
+    streamed tokens) or its error's kind; and the fires by point."""
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import BatchExecutionError, \
+        GenerationBatcher
+    from paddle_tpu_torch.trainer import api
+    from paddle_tpu_torch.utils.flags import FLAGS
+    bat = GenerationBatcher(engine)
+    api.init(resilience_fault_spec=spec)
+    FLAGS.apply()
+    out = []
+    try:
+        for prompt in prompts:
+            toks = []
+            try:
+                fut = bat.submit(prompt, max_tokens=n_tok,
+                                 on_token=toks.append)
+                fut.result(300)
+                out.append(("ok", toks))
+            except (BatchExecutionError, faults.InjectedFault) as e:
+                out.append(type(e).__name__)
+        fired = faults.fired_counts()
+        metrics_text = engine.metrics.render_prometheus()
+    finally:
+        api.init(resilience_fault_spec="")
+        faults.clear()
+        bat.close()
+    return out, fired, metrics_text
+
+
+def a5_faults(torch, dev, kernels, params, cpu_params, prompts, clean):
+    """The unsupervised fault runs on the card and on the CPU."""
+    from paddle_tpu_torch.serving import ServingMetrics
+    n_tok = 32
+    out, launches = {}, {}
+    for name, spec, chunk in (
+            ("decode_step", f"serving.decode_step:at={A5_DECODE_FAULT_AT}",
+             CHUNK),
+            ("prefill", "serving.prefill:at=2", 0)):
+        metrics = ServingMetrics()
+        if chunk:
+            ref = clean
+        else:
+            ref_eng = a5_engine(params, dev, HEADS, chunk)
+            ref = [o[1] for o in sequential_outcomes(ref_eng, prompts,
+                                                     n_tok, "")[0]]
+        kernels.reset_launches()
+        card, fired, text = sequential_outcomes(
+            a5_engine(params, dev, HEADS, chunk, metrics), prompts, n_tok,
+            spec)
+        torch.cuda.synchronize()
+        launches[name] = launch_counts(kernels)
+        cpu, cpu_fired, _ = sequential_outcomes(
+            a5_engine(cpu_params, "cpu", A5_CPU_TRUNK["num_heads"], chunk),
+            prompts, n_tok, spec)
+        ended = [i for i, o in enumerate(card) if isinstance(o, str)]
+        row = {"spec": spec, "chunk": chunk,
+               "ended": {i: card[i] for i in ended},
+               "ended_on_cpu": {i: o for i, o in enumerate(cpu)
+                                if isinstance(o, str)},
+               "fired": fired,
+               "others_bit_for_bit_clean": all(
+                   card[i][1] == ref[i] for i in range(len(prompts))
+                   if i not in ended)}
+        point = spec.split(":")[0]
+        line = f'fault_injections_total{{point="{point}"}} 1'
+        row["metrics_line"] = line in text
+        out[name] = row
+        if not (0 < len(ended) < len(prompts)
+                and row["ended"] == row["ended_on_cpu"]
+                and fired == cpu_fired == {point: 1}
+                and row["others_bit_for_bit_clean"] and row["metrics_line"]):
+            fail(f"host_a5: fault {spec} on the card against the CPU: {row}")
+    if not launches["prefill"]["flash_attention"] \
+            or not launches["prefill"]["decode_attention_slab"]:
+        fail(f"host_a5: the ladder's fault run launched {launches}")
+    return out, launches
+
+
+def a5_trainer_resume(torch, dev, tmp):
+    """trainer.step:at=5 then train(resume=True), bit for bit."""
+    import os
+    from paddle_tpu_torch.models import traffic_dsl as td
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
+
+    def trainer():
+        cfg = td.config(n_batches=3)
+        return SGD(cost=cfg["cost"], update_equation=cfg["optimizer"],
+                   seed=7, device=dev), cfg
+
+    sd = os.path.join(tmp, "ckpt")
+    kw = dict(num_passes=2, log_period=0, buffered_batches=0)
+    t1, cfg = trainer()
+    faults.install_spec("trainer.step:at=5")
+    try:
+        t1.train(cfg["train_reader"], feeding=cfg["feeding"], save_dir=sd,
+                 **kw)
+        raised = False
+    except faults.InjectedFault:
+        raised = True
+    finally:
+        faults.clear()
+    passes = sorted(d for d in os.listdir(sd) if d.startswith("pass-"))
+    t2, cfg = trainer()
+    t2.train(cfg["train_reader"], feeding=cfg["feeding"], save_dir=sd,
+             resume=True, **kw)
+    t3, cfg = trainer()
+    t3.train(cfg["train_reader"], feeding=cfg["feeding"], **kw)
+    a, b = tree_leaves(t2.parameters), tree_leaves(t3.parameters)
+    out = {"config": "models/traffic_dsl, 3 batches of 128 a pass, 2 passes",
+           "fault": "trainer.step:at=5 (pass 1, batch 1)",
+           "raised": raised, "pass_dirs_after_fault": passes,
+           "resumed_bit_for_bit_uninterrupted": len(a) == len(b) and all(
+               torch.equal(x, y) for x, y in zip(a, b))}
+    if not (raised and passes == ["pass-00000"]
+            and out["resumed_bit_for_bit_uninterrupted"]):
+        fail(f"host_a5: trainer.step fault and resume {out}")
+    return out
+
+
+def a5_cli_prefetch(torch, dev):
+    """FLAGS -> the CLI's --prefetch default, cli.main in this process."""
+    import os
+    from paddle_tpu_torch.data import prefetch
+    from paddle_tpu_torch.trainer import api, cli
+    depths = []
+    real = prefetch.ShardedPrefetcher
+
+    class Recorded(real):
+        def __init__(self, source, depth=2, **kw):
+            depths.append(depth)
+            super().__init__(source, depth=depth, **kw)
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "paddle_tpu_torch", "models", "traffic_dsl.py")
+    argv = ["train", "--config", config, "--config_args", "batches=2",
+            "--device", dev.type, "--log_period", "0"]
+    out = {}
+    prefetch.ShardedPrefetcher = Recorded
+    try:
+        for what, flags_kw, extra in (
+                ("async_load_data, prefetch_depth 3",
+                 dict(async_load_data=True, prefetch_depth=3), []),
+                ("async_load_data off", dict(async_load_data=False), []),
+                ("--prefetch 1 over the flags",
+                 dict(async_load_data=True, prefetch_depth=3),
+                 ["--prefetch", "1"])):
+            api.init(**flags_kw)
+            del depths[:]
+            rc = cli.main(argv + extra)
+            out[what] = {"rc": rc, "prefetcher_depths": list(depths)}
+    finally:
+        prefetch.ShardedPrefetcher = real
+        api.init(async_load_data=True, prefetch_depth=2)
+    want = {"async_load_data, prefetch_depth 3": [3],
+            "async_load_data off": [], "--prefetch 1 over the flags": [1]}
+    if any(out[k] != {"rc": 0, "prefetcher_depths": v}
+           for k, v in want.items()):
+        fail(f"host_a5: FLAGS -> the CLI's prefetch default {out}")
+    return out
+
+
+def run_host_a5(torch, dev, kernels, seed):
+    """host_a5 (see A5_DECODE_FAULT_AT); returns the launches."""
+    import tempfile
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.obs import trace
+    from paddle_tpu_torch.trainer import api
+    from paddle_tpu_torch.utils.flags import FLAGS
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 28)
+    params = transformer.init_lm(torch.Generator().manual_seed(seed), VOCAB,
+                                 D_MODEL, HEADS, DFF, LAYERS, SERVE_MAX_LEN,
+                                 device=dev)
+    cpu_params = a5_cpu_params(torch, seed)
+    n_req, n_tok = 12, 32
+    lengths = np.linspace(3, 120, n_req).astype(int)
+    prompts = [rng.randint(3, VOCAB, n).tolist() for n in lengths]
+    parent_trace, parent_span = "5a" * 16, "a5" * 8
+    headers = [{"traceparent": f"00-{parent_trace}-{parent_span}-01"}
+               if i % 3 == 1 else {} for i in range(n_req)]
+    starts = [0.03 * i for i in range(n_req)]
+    runs, structures = {}, {}
+    try:
+        for on in (False, True):
+            api.init(obs_trace_enable=on, obs_trace_sample=1.0)
+            FLAGS.apply()
+            if not on:
+                trace.disable()
+            run = serve_http(torch, kernels, a5_engine(params, dev, HEADS),
+                             prompts, n_tok, starts, headers)
+            run["gen"].close()
+            check_served(run, n_tok, f"host_a5 tracing {on}")
+            runs[on] = run
+            if on:
+                structures["card"] = span_structure(finished_spans(n_req))
+                trace.enable(sample=1.0, capacity=FLAGS.obs_trace_ring)
+                cpu_run = serve_http(
+                    torch, kernels,
+                    a5_engine(cpu_params, "cpu", A5_CPU_TRUNK["num_heads"]),
+                    prompts, n_tok, starts, headers)
+                cpu_run["gen"].close()
+                check_served(cpu_run, n_tok, "host_a5 CPU structure run")
+                structures["cpu"] = span_structure(finished_spans(n_req))
+            else:
+                off_spans = trace.snapshot()
+        off, on = runs[False], runs[True]
+        tokens_equal = [r[1] for r in off["results"]] \
+            == [r[1] for r in on["results"]]
+        served = {}
+        for key, run in (("tracing_off", off), ("tracing_on", on)):
+            served[key] = {
+                "steps": run["steps"], "seconds": run["seconds"],
+                "step_wall_ms_mean": run["seconds"] * 1e3 / run["steps"],
+                "tpot_ms": run["snapshot"]["tpot_ms"],
+                "chunk_launches": run["launches"]["decode_attention_slab_"
+                                                  "chunk"]}
+        traced = {
+            "tokens_bit_for_bit": tokens_equal,
+            "spans_recorded_off": len(off_spans),
+            "structure_equals_cpu": structures["card"] == structures["cpu"],
+            "structure": {f"{k[0]} <- {k[1]}": v
+                          for k, v in sorted(structures["card"].items(),
+                                             key=str)},
+            "trace_id_continued": [on["trace_ids"][i] for i in range(n_req)
+                                   if headers[i]] == [parent_trace] * sum(
+                                       1 for h in headers if h),
+            "trace_ids_off": [t for t in off["trace_ids"] if t]}
+        if not (tokens_equal and not off_spans
+                and traced["structure_equals_cpu"]
+                and traced["trace_id_continued"]
+                and not traced["trace_ids_off"]
+                and all(r["chunk_launches"] == LAYERS * r["steps"]
+                        for r in served.values())):
+            fail(f"host_a5: traced serving {traced} {served}")
+        clean = [r[1] for r in on["results"][:4]]
+        fault_rows, fault_launches = a5_faults(
+            torch, dev, kernels, params, cpu_params, prompts[:4], clean)
+        if [s for s in trace.snapshot() if s["t_end"] is None]:
+            fail("host_a5: spans left active after the fault runs")
+        with tempfile.TemporaryDirectory() as tmp:
+            resume = a5_trainer_resume(torch, dev, tmp)
+        cli_prefetch = a5_cli_prefetch(torch, dev)
+    finally:
+        trace.disable()
+        api.init(obs_trace_enable=False)
+    emit({"phase": "host_a5", "served": served, "traced": traced,
+          "faults": fault_rows, "trainer_fault_resume": resume,
+          "flags_cli_prefetch": cli_prefetch,
+          "seconds": time.perf_counter() - t0})
+    return {"serve_off": off["launches"], "serve_on": on["launches"],
+            **{f"fault_{k}": v for k, v in fault_launches.items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9679,6 +10319,8 @@ def main(argv=None):
     item1b = {**run_seqtoseq_v1(torch, dev, kernels),
               **run_nested_group(torch, dev, kernels, args.seed),
               **run_recurrence_1b(torch, dev, kernels, args.seed)}
+    demo_launches = run_demos_a14(torch, dev, kernels)
+    a5_launches = run_host_a5(torch, dev, kernels, args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -9693,7 +10335,15 @@ def main(argv=None):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{key: row[key] for key in DEVICE_KEYS if key in row}})
+    summary[0]["launches_host_a5"] = {
+        run: n["decode_attention_slab_chunk"]
+        for run, n in a5_launches.items()
+        if n["decode_attention_slab_chunk"]}
     summary[-1]["launches_dh256"] = wide_launches["float32"]["flash_attention"]
+    summary[-1]["launches_demos_a14"] = demo_launches["flash_attention"]
+    summary[-1]["launches_host_a5"] = {
+        run: n["flash_attention"] for run, n in a5_launches.items()
+        if n["flash_attention"]}
     # the MT beam decode's encoder attends under its key mask: the dense
     # path, as JAX's (MTD_FLASH launches)
     summary[-1]["launches_generate_mt"] = mt_decode_launches[
@@ -9849,6 +10499,9 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": dk.SOURCE,
             "replaces": replaces, "launches": launches,
             **({"launches_dh256": wide_launches["float32"][name],
+                "launches_host_a5": {
+                    run: n[name] for run, n in a5_launches.items()
+                    if n[name]},
                 "dh256": {key: tq1_wide[name][key] for key in (
                     "max_abs_err", "device_ms")}}
                if name == dk.NAME_SLAB else {}),

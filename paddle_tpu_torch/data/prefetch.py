@@ -16,7 +16,10 @@ once a batch is queued (JAX's donation discipline), which is one reason
 
 Exceptions raised by the source, the conversion or the placement
 surface in the CONSUMER thread at its next ``__next__``; there is no
-fallback to the synchronous path.  ``close()`` (or exhausting the
+fallback to the synchronous path.  The fault point
+``data.prefetch.h2d`` (``resilience/faults.py``) sits before each
+placement, and the placement is the span ``data.h2d``
+(``obs/trace.py``), as in JAX's producer; both are no-ops when off.  ``close()`` (or exhausting the
 stream) joins the producer thread, and a prefetcher dropped without
 ``close()`` is stopped and drained by its GC finalizer.
 """
@@ -66,6 +69,8 @@ def _fill(source, convert, place, stream, stop, q):
     """Producer body.  Module-level (not a bound method) on purpose: a
     RUNNING thread holds its target, so a method target would keep the
     prefetcher alive and its GC finalizer from ever firing."""
+    from paddle_tpu_torch.obs import trace as obstrace
+    from paddle_tpu_torch.resilience import faults
     ctx = (lambda: torch.cuda.stream(stream)) if stream is not None \
         else contextlib.nullcontext
     try:
@@ -74,7 +79,12 @@ def _fill(source, convert, place, stream, stop, q):
                 return
             with ctx():
                 feed = convert(batch) if convert else batch
-                feed = place(feed)
+                # an injected failure at the H2D boundary crosses to the
+                # consumer like any real placement error
+                faults.hit("data.prefetch.h2d")
+                # the span times the copy's dispatch on this thread
+                with obstrace.span("data.h2d", root=False):
+                    feed = place(feed)
             if stream is not None:
                 # the copy is complete before the feed is queued
                 stream.synchronize()

@@ -2,8 +2,9 @@
 
 The JAX package picks its backend from the environment and falls back to
 the CPU; the port does not fall back.  An entry point runs on the card
-unless its caller asks for the CPU by name (the tests do), and with no
-card and no explicit ``device="cpu"`` it raises.
+unless its caller asks for the CPU by name (the tests do) or the process
+flag ``use_gpu`` (``utils/flags.FLAGS``, the reference's flag) is False,
+and with no card and no explicit CPU choice it raises.
 
 Numerics in this slice are float32 on both devices.  PyTorch would run
 float32 convolutions in TF32 through cuDNN by default, so both TF32
@@ -16,11 +17,15 @@ import torch
 
 
 def resolve(device=None):
-    """``torch.device`` for an entry point: ``None`` means the card.
+    """``torch.device`` for an entry point: ``None`` means the card, or
+    the CPU when ``FLAGS.use_gpu`` is False.
 
     Raises ``RuntimeError`` when the card is asked for (explicitly or by
     default) and ``torch.cuda.is_available()`` is false."""
-    dev = torch.device("cuda" if device is None else device)
+    if device is None:
+        from paddle_tpu_torch.utils.flags import FLAGS
+        device = "cuda" if FLAGS.use_gpu else "cpu"
+    dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

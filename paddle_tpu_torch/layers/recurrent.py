@@ -29,8 +29,9 @@ batch norm's statistics, which ``trainer.SGD`` threads and checkpoints
 keep), detached, as JAX's functional state is a constant of the next
 step.  A carried LSTM takes the masked scan, as JAX's rule routes an
 ``init_state``; the first batch, with nothing carried yet, may take
-the kernel.  JAX's global ``FLAGS.prev_batch_state`` waits for the
-port's ``utils/flags`` (ROADMAP A5).
+the kernel.  The process flag ``FLAGS.prev_batch_state``
+(``utils/flags``) carries every forward whole-sequence layer and skips
+reversed ones, as JAX's reading does.
 """
 
 import math
@@ -65,10 +66,21 @@ def _check_carry(name, reverse, prev_batch_state):
             "START)")
 
 
+def _prev_batch_carry(cfg):
+    """Whether this layer carries its state (JAX's reading): the layer's
+    own ``prev_batch_state=True``, or the global ``FLAGS.prev_batch_state``
+    for every forward layer (a reversed one is skipped; the ctor refuses
+    the per-layer request on it)."""
+    if cfg.get("prev_batch_state"):
+        return True
+    from paddle_tpu_torch.utils.flags import FLAGS
+    return bool(FLAGS.prev_batch_state) and not cfg.get("reverse", False)
+
+
 def _prev_batch_init(ctx, cfg, bsz):
     """The state the previous batch left (None on the first batch or
-    without ``prev_batch_state``)."""
-    if not cfg.get("prev_batch_state"):
+    when the layer does not carry)."""
+    if not _prev_batch_carry(cfg):
         return None
     carry = ctx.state_in.get(cfg["name"] + "/carry")
     if carry is not None and carry.shape[0] != bsz:
@@ -80,7 +92,7 @@ def _prev_batch_init(ctx, cfg, bsz):
 
 
 def _prev_batch_save(ctx, cfg, final):
-    if cfg.get("prev_batch_state"):
+    if _prev_batch_carry(cfg):
         ctx.put_state(cfg["name"] + "/carry", final.detach())
 
 

@@ -51,10 +51,23 @@ the longest greedily matched prefix plus the target's own token at the
 first mismatch, advancing the slot past the whole run at once.  A
 stream is the non-speculating engine's whatever the draft proposes.
 
+Fault points and spans (host-side, no-ops when off), where JAX has
+them: ``serving.prefill`` (``DecodeEngine.prefill``),
+``serving.decode_step`` (``step``) and ``batcher.submit`` (first thing
+in ``submit``); the spans ``gen.queue_wait`` (submit to pickup),
+``gen.prefill`` (a prefill batch) and ``slot`` (a request's slot
+lifetime, with ``first_token`` / ``prefill_chunk`` / ``preempted`` /
+``reseated`` / ``speculate`` / ``accept`` events), each parented to the
+submitting thread's span (the server's ``server.request``), and the
+instants ``kv.pool_exhausted_preempt`` and ``kv.cow_fork``.  With no
+supervisor, a fault ends the requests it reaches as JAX's unsupervised
+batcher ends them: a prefill fault fails its admission group, a step
+fault every request in flight (``BatchExecutionError``), a submit
+fault raises ``InjectedFault`` to the caller with nothing queued.
+
 Greedy decode only (argmax inside the step).  Not ported yet (ROADMAP),
 each raising ``ConfigError`` where it is an option: tensor-parallel
-meshes, the host KV tier, supervised recovery, continuation replay; and
-fault injection and trace spans.
+meshes, the host KV tier, supervised recovery, continuation replay.
 """
 
 import collections
@@ -68,8 +81,10 @@ import torch
 
 from paddle_tpu_torch import device as _device
 from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.obs import trace as obstrace
 from paddle_tpu_torch.quant.kv import KV_DTYPES
 from paddle_tpu_torch.quant.weights import weight_shape as _w_shape
+from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving.errors import (BatchExecutionError,
                                              DeadlineExceededError,
                                              InvalidRequestError,
@@ -529,6 +544,7 @@ class DecodeEngine:
         a list of n per-layer ``{"k", "v"}`` of [bucket, Dkv] on the
         device, with ``{"ks", "vs"}`` of [bucket, Hkv] on an int8 cache —
         what ``admit`` writes)."""
+        faults.hit("serving.prefill")
         prompts = np.asarray(prompts, np.int32)
         lengths = np.asarray(lengths, np.int32)
         n, t = prompts.shape
@@ -659,7 +675,11 @@ class DecodeEngine:
                 prompts[j, :pre] = full[:pre]
                 lengths[j] = pre
             try:
-                _first, rows = self.prefill(prompts, lengths)
+                # reconstruction prefill (prefix-hit or pool re-seat):
+                # one standalone span per bucket batch
+                with obstrace.span("gen.prefill", root=False,
+                                   bucket=int(bucket), n=len(items)):
+                    _first, rows = self.prefill(prompts, lengths)
             except Exception as e:      # noqa: BLE001 — crosses to the
                 for i, _full, _pre in items:    # caller per item
                     results[i] = e
@@ -743,6 +763,8 @@ class DecodeEngine:
                         if v is None:
                             raise     # one request outgrew the pool:
                             #           validate_request bounds this
+                        obstrace.instant("kv.pool_exhausted_preempt",
+                                         slot=v)
                         self.evict(v, "pool_exhausted")
                         victims.append(v)
                         continue
@@ -753,6 +775,8 @@ class DecodeEngine:
                     for c in self._cache:
                         for buf in c.values():
                             buf[dst].copy_(buf[src])
+                    obstrace.instant("kv.cow_fork", slot=slot,
+                                     src=int(src), dst=int(dst))
                     self.metrics.observe_cow_fork()
         return victims
 
@@ -797,6 +821,8 @@ class DecodeEngine:
         spec_armed = {}
         if self._draft is not None:
             spec_armed, self._spec_armed = self._spec_armed, {}
+        # the fault point sits at the device-step boundary
+        faults.hit("serving.decode_step")
         t0 = time.perf_counter()
         nxt = self._run(tokens, pos, lens)
         chunk_lanes = (int(lens.sum() - self.num_slots)
@@ -957,9 +983,16 @@ class _GenRequest:
     __slots__ = ("prompt", "max_tokens", "eos_id", "future", "deadline",
                  "t_submit", "t_first", "on_token", "tokens", "slot",
                  "abandoned", "feed", "started", "admit_covered",
-                 "prefix_counted")
+                 "prefix_counted", "trace_ctx", "queue_span", "slot_span")
 
     def __init__(self, prompt, max_tokens, eos_id, deadline, on_token):
+        # the submitting thread's trace context (the HTTP handler's
+        # request span), captured here: the worker that seats and decodes
+        # the request has none of its own.  queue_span runs from the
+        # enqueue to admission pickup, slot_span over the slot's lifetime
+        self.trace_ctx = obstrace.current()
+        self.queue_span = obstrace.NULL
+        self.slot_span = obstrace.NULL
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.eos_id = eos_id
@@ -980,6 +1013,11 @@ class _GenRequest:
         self.prefix_counted = False       # prefix hit/miss observed once
 
     def fail(self, exc):
+        # end both spans (idempotent): a failed request leaks no active
+        # span
+        self.queue_span.end()
+        self.slot_span.end(reason="failed", error=type(exc).__name__,
+                           tokens=len(self.tokens))
         try:
             self.future.set_exception(exc)
         except InvalidStateError:
@@ -1011,12 +1049,16 @@ class GenerationBatcher:
     finished slots.  Admission happens
     strictly between steps, so the step never changes shape.  The worker
     issues all device work.  ``supervisor`` must be None: supervised
-    recovery is not ported yet (ROADMAP)."""
+    recovery (``resilience/supervisor.py``) is ROADMAP A8; without it a
+    failed step fails the requests in flight and the batcher serves on,
+    as JAX's unsupervised batcher."""
 
     def __init__(self, engine, queue_size=256, default_deadline_ms=None,
                  default_max_tokens=64, name=None, supervisor=None):
         if supervisor is not None:
-            raise _not_ported("supervised recovery (supervisor) is")
+            raise ConfigError("supervised recovery (supervisor=, "
+                              "resilience/supervisor.py) is not yet ported "
+                              "to paddle_tpu_torch (ROADMAP A8)")
         if int(queue_size) < 1:
             raise ValueError("queue_size must be >= 1")
         self.engine = engine
@@ -1055,7 +1097,10 @@ class GenerationBatcher:
         "abandoned", "ttft_ms": float}``.  ``on_token`` is called per
         emitted token from the worker thread (exceptions are logged,
         never fatal).  Raises synchronously: ``InvalidRequestError``,
-        ``OverloadedError`` (queue full), ``ShutdownError`` (draining)."""
+        ``OverloadedError`` (queue full), ``ShutdownError`` (draining);
+        an injected ``batcher.submit`` fault raises before anything is
+        queued or counted."""
+        faults.hit("batcher.submit")
         if self._closed.is_set():
             self.metrics.reject("shutdown")
             raise ShutdownError(f"{self.name} is draining; submit rejected")
@@ -1072,14 +1117,20 @@ class GenerationBatcher:
                           self.engine.eos_id if eos_id is None else eos_id,
                           time.perf_counter() + dl_s if dl_s else None,
                           on_token)
+        # started before the enqueue (the worker may pull the request at
+        # once); a refused submit ends it
+        req.queue_span = obstrace.start_span("gen.queue_wait",
+                                             ctx=req.trace_ctx, root=False)
         with self._admit_lock:
             if self._closed.is_set():     # close() raced the check above
+                req.queue_span.end()
                 self.metrics.reject("shutdown")
                 raise ShutdownError(
                     f"{self.name} is draining; submit rejected")
             try:
                 self._q.put_nowait(req)
             except queue.Full:
+                req.queue_span.end()
                 self.metrics.reject("overload")
                 raise OverloadedError(
                     f"{self.name}: queue full ({self._q.maxsize} waiting)") \
@@ -1110,14 +1161,20 @@ class GenerationBatcher:
         if self._waiting:               # pool-deferred requests go first
             return self._waiting.popleft()
         try:
-            return (self._q.get(timeout=0.05) if block
-                    else self._q.get_nowait())
+            req = (self._q.get(timeout=0.05) if block
+                   else self._q.get_nowait())
         except queue.Empty:
             return None
+        req.queue_span.end()        # the queue wait ends at pickup
+        return req
 
     def _resolve(self, req, reason):
         self._abandoned.discard(req.future)
         ttft = (req.t_first - req.t_submit) if req.t_first else 0.0
+        # the slot span ends with the request (NULL for one that finished
+        # at prefill and never held a slot)
+        req.slot_span.end(reason=reason, tokens=len(req.tokens),
+                          ttft_ms=round(ttft * 1e3, 3))
         self.metrics.observe_response(time.perf_counter() - req.t_submit)
         try:
             req.future.set_result({"tokens": list(req.tokens),
@@ -1217,7 +1274,12 @@ class GenerationBatcher:
                 prompts[i, :req.prompt.size] = req.prompt
                 lengths[i] = req.prompt.size
             try:
-                first, rows = self.engine.prefill(prompts, lengths)
+                # one span per admission prefill batch, parented to its
+                # first rider's trace
+                with obstrace.span("gen.prefill", ctx=reqs[0].trace_ctx,
+                                   root=False, bucket=int(bucket),
+                                   n=len(reqs)):
+                    first, rows = self.engine.prefill(prompts, lengths)
             except Exception as e:    # noqa: BLE001 — isolate to THIS group
                 logger.warning("%s: prefill of %d failed: %s: %s",
                                self.name, len(reqs), type(e).__name__, e)
@@ -1254,12 +1316,18 @@ class GenerationBatcher:
                             e, extra=[req] + reqs[i + 1:])
                         break
                     self._by_slot[req.slot] = req
+                    req.slot_span = obstrace.start_span(
+                        "slot", ctx=req.trace_ctx, root=False,
+                        slot=int(req.slot), mode="prefill",
+                        bucket=int(bucket))
 
-    def _seat_outcomes(self, reqs, outcomes, deferred, what):
+    def _seat_outcomes(self, reqs, outcomes, deferred, what, reseat=False):
         """Apply ``seat_prefilled`` outcomes: seat, defer (space, not
         failure) into ``deferred``, or fail; a hard failure (a device op
         that may have left the cache half written) fails everything in
-        flight and resets the engine."""
+        flight and resets the engine.  A seated request's slot span
+        starts (or, re-seated after a preemption, takes a ``reseated``
+        event)."""
         hard, seated = None, []
         for req, out in zip(reqs, outcomes):
             if isinstance(out, InsufficientBlocksError):
@@ -1273,6 +1341,22 @@ class GenerationBatcher:
                 req.slot, req.feed = out
                 self._by_slot[req.slot] = req
                 seated.append(req)
+                if reseat and req.slot_span is not obstrace.NULL:
+                    req.slot_span.event("reseated", slot=int(req.slot),
+                                        teacher_forced=len(req.feed))
+                elif reseat:
+                    req.slot_span = obstrace.start_span(
+                        "slot", ctx=req.trace_ctx, root=False,
+                        slot=int(req.slot), mode="reseat",
+                        teacher_forced=len(req.feed))
+                else:
+                    req.slot_span = obstrace.start_span(
+                        "slot", ctx=req.trace_ctx, root=False,
+                        slot=int(req.slot),
+                        mode="prefix_hit" if not self.engine.chunked
+                        or req.admit_covered else "prefill",
+                        chunked=self.engine.chunked,
+                        teacher_forced=len(req.feed))
         if hard is not None:
             self._fail_all_inflight(hard)
         return seated
@@ -1312,7 +1396,8 @@ class GenerationBatcher:
                  for r in live]
         seated = self._seat_outcomes(live, self.engine.seat_prefilled(fulls),
                                      self._preempted,
-                                     "re-seat after pool preemption")
+                                     "re-seat after pool preemption",
+                                     reseat=True)
         if seated:
             self.metrics.observe_slot_reprefill(len(seated))
 
@@ -1333,6 +1418,8 @@ class GenerationBatcher:
                 continue
             self.engine.load_chunk(slot, req.feed[:n])
             used += n
+            req.slot_span.event("prefill_chunk", lanes=int(n),
+                                pos=int(self.engine._pos[slot]))
 
     def _load_spec(self):
         """Speculating, between steps (after ``_load_chunks``): one
@@ -1344,7 +1431,9 @@ class GenerationBatcher:
         budgets = {slot: req.max_tokens - len(req.tokens)
                    for slot, req in self._by_slot.items()
                    if not req.feed and not req.abandoned}
-        self.engine.speculate(budgets)
+        for slot, k_eff in self.engine.speculate(budgets).items():
+            self._by_slot[slot].slot_span.event(
+                "speculate", k=int(k_eff), pos=int(self.engine._pos[slot]))
 
     def _fail_all_inflight(self, e, extra=()):
         """A device operation failed: fail every in-flight request (plus
@@ -1395,6 +1484,7 @@ class GenerationBatcher:
                 req.emit(tok, self.name)
                 n += 1
                 if first:
+                    req.slot_span.event("first_token")
                     self.metrics.observe_ttft(req.t_first - req.t_submit)
                     if self.engine.chunked:
                         # the prompt's K/V is fully resident exactly now:
@@ -1410,6 +1500,9 @@ class GenerationBatcher:
                     break
             if verify:
                 self.verify_runs[n] += 1
+                req.slot_span.event("accept", accepted=len(run) - 1,
+                                    emitted=n,
+                                    **({"finish": done} if done else {}))
             if done:
                 self._finish(req, done)
             else:
@@ -1447,6 +1540,8 @@ class GenerationBatcher:
                 for slot in self.engine.prepare_step():
                     req = self._by_slot.pop(slot)
                     req.slot = None
+                    req.slot_span.event("preempted",
+                                        reason="pool_exhausted")
                     self._preempted.append(req)
                 if not self._by_slot:
                     continue

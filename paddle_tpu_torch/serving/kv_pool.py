@@ -24,14 +24,18 @@ sharing (``paddle_tpu/serving/kv_pool.py``).
   the table entry swaps to the private copy).
 
 Everything here is host-side numpy between steps; ``check()`` audits the
-refcount ledger (no leak, no double free).  Not ported (ROADMAP): the
-host spill tier, the chain wire format and the pending-restore ledger.
+refcount ledger (no leak, no double free).  Seating and truncation are
+the trace instants ``kv.seat``, ``kv.seat_shared`` and ``kv.truncate``
+(``obs/trace.py``; no-ops when tracing is off).  Not ported (ROADMAP
+A6·b): the host spill tier, the chain wire format and the
+pending-restore ledger.
 """
 
 import collections
 
 import numpy as np
 
+from paddle_tpu_torch.obs import trace as obstrace
 from paddle_tpu_torch.utils.error import ConfigError
 
 SCRATCH_BLOCK = 0
@@ -278,6 +282,8 @@ class PagedKVState:
                     f"{self.pool.num_free} free")
             chain.append(bid)
         self._install(slot, chain)
+        obstrace.instant("kv.seat", slot=slot, blocks=len(chain),
+                         free=self.pool.num_free)
         return chain
 
     def seat_shared(self, slot, chain, n_positions):
@@ -287,6 +293,8 @@ class PagedKVState:
         take = [self.pool.share(b)
                 for b in chain[:self.blocks_for(n_positions)]]
         self._install(slot, take)
+        obstrace.instant("kv.seat_shared", slot=slot, blocks=len(take),
+                         free=self.pool.num_free)
         return take
 
     def _install(self, slot, chain):
@@ -362,6 +370,9 @@ class PagedKVState:
             self.tables[slot, len(chain)] = SCRATCH_BLOCK
             self.pool.release(bid)
             dropped += 1
+        if dropped:
+            obstrace.instant("kv.truncate", slot=slot, blocks=dropped,
+                             free=self.pool.num_free)
         return dropped
 
     def victim(self, exclude):

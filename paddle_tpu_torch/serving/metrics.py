@@ -3,7 +3,9 @@ metrics.py::ServingMetrics`` that the port's engine, batcher and
 ``/metrics`` use: request/response/rejection counters, TTFT, per-step
 time (TPOT), slot occupancy, chunked-prefill lanes, slot evictions, the
 paged KV pool's gauges and prefix-sharing counters, the KV cache's
-storage dtype, and speculative decoding's draft lanes and acceptance.
+storage dtype, speculative decoding's draft lanes and acceptance, and
+the injected faults fired by point (``fault_injections_total``,
+``resilience/faults.fired_counts``).
 
 One instance is shared by the engine, the batcher and the HTTP front-end.
 ``render_prometheus()`` is the ``/metrics`` text; ``snapshot()`` the same
@@ -11,6 +13,7 @@ data as a dict."""
 
 import threading
 
+from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.utils.stats import Histogram
 
 # submit() rejection reasons — keys are part of the /metrics surface
@@ -247,6 +250,7 @@ class ServingMetrics:
                 "spec_steps_total": self.spec_steps_total,
                 "spec_slot_steps_total": self.spec_slot_steps_total,
             }
+        out["faults_fired"] = faults.fired_counts()
         out["queue_depth"] = self.queue_depth()
         out["mean_slot_occupancy"] = self.mean_slot_occupancy
         out["mean_prefill_chunk_occupancy"] = \
@@ -353,4 +357,11 @@ class ServingMetrics:
             for q, v in pct.items():
                 lines.append(f'{n}_{metric}{{quantile="0.{q}"}} {v:.6f}')
             lines.append(f"{n}_{metric}_count {count}")
+        fired = faults.fired_counts()
+        lines.append(f"# HELP {n}_fault_injections_total injected faults "
+                     "fired, by point (resilience/faults.py)")
+        lines.append(f"# TYPE {n}_fault_injections_total counter")
+        for point in sorted(fired):
+            lines.append(f'{n}_fault_injections_total{{point="{point}"}} '
+                         f"{fired[point]}")
         return "\n".join(lines) + "\n"

@@ -14,9 +14,16 @@ Endpoints:
                    body with "error"; 429/503 carry Retry-After.
   GET  /healthz    LIVENESS: 200 while the process can answer
   GET  /metrics    Prometheus text (serving/metrics.py)
+  GET  /debug/traces  recent request spans + the slowest recent requests'
+                   trace_ids (obs/trace.py; {"enabled": false, ...} when
+                   tracing is off)
 
 Each connection thread blocks on its request's Future while the one
-batcher thread runs the decode steps.
+batcher thread runs the decode steps.  With tracing on, every POST is a
+``server.request`` span that continues an incoming ``traceparent``
+header's trace (or starts one); its trace_id is echoed in the
+``X-Trace-Id`` header and the response body, and the batcher's spans
+parent to it.
 
 CLI (``python -m paddle_tpu_torch.serving``): serves the Transformer-base
 decoder-only LM (vocab 32000, d_model 512, 8 heads, dff 2048, 6 layers,
@@ -30,6 +37,10 @@ KV cache; ``--quant-weights 1`` serves the trunk's per-channel int8
 weights (``quant/weights.quantize_lm``), and ``--speculate-k K`` decodes
 speculatively with a draft of the target's first ``--draft-layers``
 blocks (derived from the quantized target when both are given).
+``--fault-spec`` installs a fault plan (``resilience/faults.py``) and
+``--obs-trace 1`` turns tracing on (``--obs-trace-sample``,
+``--obs-trace-ring``).  The options' defaults come from
+``utils/flags.FLAGS`` where JAX's CLI takes them from there.
 SIGTERM/SIGINT drain gracefully.
 """
 
@@ -44,10 +55,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from paddle_tpu_torch.obs import trace as obstrace
 from paddle_tpu_torch.serving.errors import (DeadlineExceededError,
                                              InvalidRequestError,
                                              OverloadedError, ShutdownError)
-from paddle_tpu_torch.utils.logging import logger
+from paddle_tpu_torch.utils.logging import log_context, logger
 
 _STATUS = ((InvalidRequestError, 400), (OverloadedError, 429),
            (ShutdownError, 503), (DeadlineExceededError, 504))
@@ -67,6 +79,9 @@ def _id_list(req, key):
 
 class ServingHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
+    # the request's root span, set by do_POST; GETs and disabled tracing
+    # leave the NULL singleton (empty trace_id)
+    _obs = obstrace.NULL
 
     def log_message(self, fmt, *args):   # route access logs to our logger
         logger.debug("http: " + fmt, *args)
@@ -78,6 +93,8 @@ class ServingHandler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        if self._obs.trace_id:
+            self.send_header("X-Trace-Id", self._obs.trace_id)
         for k, v in (headers or {}).items():
             self.send_header(k, str(v))
         self.end_headers()
@@ -94,6 +111,9 @@ class ServingHandler(BaseHTTPRequestHandler):
                     headers=headers)
 
     def do_GET(self):
+        # keep-alive: one handler serves several requests; drop a
+        # previous POST's span
+        self._obs = obstrace.NULL
         gen = self.server.gen_batcher
         if self.path == "/healthz":
             self._reply(200, {"status": "ok", "draining": gen.closed,
@@ -102,10 +122,23 @@ class ServingHandler(BaseHTTPRequestHandler):
         elif self.path == "/metrics":
             self._reply(200, gen.metrics.render_prometheus().encode(),
                         content_type="text/plain; version=0.0.4")
+        elif self.path == "/debug/traces":
+            self._reply(200, obstrace.debug_payload())
         else:
             self._reply(404, {"error": f"no route {self.path!r}"})
 
     def do_POST(self):
+        # the request's root span: a propagated traceparent continues
+        # that trace, a direct client starts one; the trace_id is also
+        # the log correlation id
+        ctx = obstrace.extract(self.headers.get("traceparent"))
+        with obstrace.span("server.request", ctx=ctx, root=True,
+                           route=self.path) as sp, \
+                log_context(trace_id=sp.trace_id, request_id=sp.span_id):
+            self._obs = sp
+            self._post()
+
+    def _post(self):
         if self.path != "/v1/generate":
             self._reply(404, {"error": f"no route {self.path!r}"})
             return
@@ -133,6 +166,9 @@ class ServingHandler(BaseHTTPRequestHandler):
                 return
             out = dict(gen.submit(prompt, **kw).result(timeout=600))
             out["latency_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+            if self._obs.trace_id:
+                out["trace_id"] = self._obs.trace_id
+            self._obs.set(ttft_ms=out.get("ttft_ms"))
             self._reply(200, out)
         except Exception as e:    # noqa: BLE001 — every error is a response
             self._error_reply(e)
@@ -150,6 +186,8 @@ class ServingHandler(BaseHTTPRequestHandler):
         self.send_response(200)
         self.send_header("Content-Type", "application/x-ndjson")
         self.send_header("Transfer-Encoding", "chunked")
+        if self._obs.trace_id:
+            self.send_header("X-Trace-Id", self._obs.trace_id)
         self.end_headers()
 
         def chunk(obj):
@@ -157,9 +195,13 @@ class ServingHandler(BaseHTTPRequestHandler):
             self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
 
         try:
+            streamed = 0
             while True:
                 kind, val = events.get(timeout=600)
                 if kind == "token":
+                    if streamed == 0:
+                        self._obs.event("first_token")
+                    streamed += 1
                     chunk({"token": int(val)})
                     continue
                 exc = val.exception()
@@ -170,6 +212,9 @@ class ServingHandler(BaseHTTPRequestHandler):
                     out["done"] = True
                     out["latency_ms"] = round(
                         (time.perf_counter() - t0) * 1e3, 3)
+                    if self._obs.trace_id:
+                        out["trace_id"] = self._obs.trace_id
+                    self._obs.set(ttft_ms=out.get("ttft_ms"))
                     chunk(out)
                 break
             self.wfile.write(b"0\r\n\r\n")
@@ -243,49 +288,71 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
 
 
 def parse_args(argv=None):
-    """The CLI's flags (the JAX CLI's names and defaults)."""
+    """The CLI's flags (the JAX CLI's names), their defaults from
+    ``utils/flags.FLAGS`` where JAX's take them from there."""
+    from paddle_tpu_torch.utils.flags import FLAGS
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.serving",
         description="Serve the Transformer-base decoder-only LM (random "
                     "weights from --seed) over /v1/generate")
     ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--port", type=int, default=FLAGS.serving_port)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    ap.add_argument("--slots", type=int, default=8)
-    ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--prefill-chunk", type=int, default=8,
+    ap.add_argument("--slots", type=int, default=FLAGS.serving_gen_slots)
+    ap.add_argument("--max-len", type=int, default=FLAGS.serving_gen_max_len)
+    ap.add_argument("--prefill-chunk", type=int,
+                    default=FLAGS.serving_prefill_chunk,
                     help="prompt lanes per slot per step (0 = the legacy "
                          "prefill ladder)")
-    ap.add_argument("--kv-layout", default="slab",
+    ap.add_argument("--kv-layout", default=FLAGS.serving_kv_layout,
                     choices=("slab", "paged"),
                     help="decode KV-cache layout: slab reserves max_len "
                          "per slot; paged packs a shared block pool with "
                          "prefix sharing")
-    ap.add_argument("--kv-block-size", type=int, default=16)
-    ap.add_argument("--kv-num-blocks", type=int, default=0,
+    ap.add_argument("--kv-block-size", type=int,
+                    default=FLAGS.serving_kv_block_size)
+    ap.add_argument("--kv-num-blocks", type=int,
+                    default=FLAGS.serving_kv_num_blocks,
                     help="paged pool size incl. the scratch block "
                          "(0 = the slab-equivalent byte budget)")
     ap.add_argument("--kv-prefix-cache",
                     type=lambda v: v.lower() in ("1", "true", "yes"),
-                    default=True)
-    ap.add_argument("--kv-dtype", default="float32",
+                    default=FLAGS.serving_kv_prefix_cache)
+    ap.add_argument("--kv-dtype", default=FLAGS.serving_kv_dtype,
                     choices=("float32", "int8"),
                     help="KV-cache storage: int8 codes + per-(position, "
                          "head) f32 scales, or float32")
-    ap.add_argument("--quant-weights", type=int, default=0,
+    ap.add_argument("--quant-weights", type=int,
+                    default=int(FLAGS.quant_weights),
                     help="1 = serve per-channel int8 trunk weights "
                          "(quant/weights.py)")
-    ap.add_argument("--speculate-k", type=int, default=0,
+    ap.add_argument("--speculate-k", type=int,
+                    default=FLAGS.serving_speculate_k,
                     help="draft tokens per slot per step (0 = no "
                          "speculative decoding; needs --prefill-chunk > 0)")
-    ap.add_argument("--draft-layers", type=int, default=1,
+    ap.add_argument("--draft-layers", type=int,
+                    default=FLAGS.serving_draft_layers,
                     help="trunk depth of the draft derived from the "
                          "target (--speculate-k)")
-    ap.add_argument("--max-tokens", type=int, default=64,
+    ap.add_argument("--max-tokens", type=int,
+                    default=FLAGS.serving_gen_max_tokens,
                     help="default per-request emission cap")
-    ap.add_argument("--queue-size", type=int, default=256)
+    ap.add_argument("--queue-size", type=int,
+                    default=FLAGS.serving_queue_size)
+    ap.add_argument("--fault-spec", default=FLAGS.resilience_fault_spec,
+                    help="deterministic fault-injection spec "
+                         "(resilience/faults.py; chaos testing only)")
+    ap.add_argument("--obs-trace",
+                    type=lambda v: v.lower() in ("1", "true", "yes"),
+                    default=FLAGS.obs_trace_enable,
+                    help="per-request span tracing: /debug/traces + "
+                         "trace_id propagation and echo")
+    ap.add_argument("--obs-trace-sample", type=float,
+                    default=FLAGS.obs_trace_sample)
+    ap.add_argument("--obs-trace-ring", type=int,
+                    default=FLAGS.obs_trace_ring)
     return ap.parse_args(argv)
 
 
@@ -309,8 +376,16 @@ def batcher_from_args(args, **model):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.fault_spec:
+        from paddle_tpu_torch.resilience import faults
+        faults.install_spec(args.fault_spec)
+        logger.warning("fault injection ACTIVE: %s", args.fault_spec)
+    if args.obs_trace:
+        obstrace.enable(sample=args.obs_trace_sample,
+                        capacity=args.obs_trace_ring)
     gen = batcher_from_args(args)
     httpd = make_server(gen, host=args.host, port=args.port)
+    obstrace.set_process(f"replica:{httpd.port}")
     logger.info("serving on http://%s:%d (/v1/generate)", args.host,
                 httpd.port)
 

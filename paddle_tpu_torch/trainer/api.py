@@ -1,14 +1,16 @@
 """v2-style top-level API (``paddle_tpu/trainer/api.py``: paddle.init /
 paddle.infer equivalents)."""
 
-from paddle_tpu_torch.utils.error import ConfigError
-
 
 def init(**kwargs):
-    """Reference: paddle.v2.init(use_gpu=, trainer_count=).  It sets the
-    process flags (``utils/flags``), which are not ported yet."""
-    raise ConfigError("trainer.api.init sets utils/flags, which is not "
-                      "ported yet (ROADMAP A5)")
+    """Reference: paddle.v2.init(use_gpu=, trainer_count=).  Sets each
+    known key of the process flags (``utils/flags.FLAGS``), ignores the
+    unknown ones and returns ``FLAGS``, as JAX's."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+    for k, v in kwargs.items():
+        if hasattr(FLAGS, k):
+            setattr(FLAGS, k, v)
+    return FLAGS
 
 
 def infer(output_layer=None, parameters=None, input=None, feeding=None,

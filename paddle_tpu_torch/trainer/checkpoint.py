@@ -10,7 +10,11 @@ for lists, tuples and None) and ``meta.json`` (``pass_id``,
 
 Writes are crash-atomic: everything lands in a hidden ``.tmp-`` dir
 first and is renamed into place, so a crash mid-save never leaves a
-partial pass dir for the latest-pass pick to trip on.
+partial pass dir for the latest-pass pick to trip on.  Each write is the
+span ``trainer.checkpoint.write`` (``obs/trace.py``), and the fault
+point ``trainer.checkpoint.write`` (``resilience/faults.py``) fires
+mid-write, after the parameters land in the ``.tmp-`` dir: an injected
+error leaves no pass dir and no ``.tmp-`` dir behind.
 
 ``save_checkpoint(block=False)`` is JAX's background writer: the
 snapshot to host memory is taken before the call returns (a copy of
@@ -31,6 +35,8 @@ import threading
 import numpy as np
 import torch
 
+from paddle_tpu_torch.obs import trace as obstrace
+from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.utils.logging import logger
 
 # single-flight async writer PER SAVE DIR: at most one background save in
@@ -151,14 +157,23 @@ def save_checkpoint(save_dir, pass_id, params, opt_state=None,
     meta.update(extra or {})
 
     def write():
-        os.makedirs(save_dir, exist_ok=True)
-        tmp = tempfile.mkdtemp(prefix=f".tmp-pass-{pass_id:05d}-",
-                               dir=save_dir)
-        # mkdtemp makes 0700; inherit the parent's perms
-        os.chmod(tmp, os.stat(save_dir).st_mode & 0o777)
+        span = obstrace.start_span("trainer.checkpoint.write", root=False,
+                                   pass_id=pass_id)
+        try:
+            os.makedirs(save_dir, exist_ok=True)
+            tmp = tempfile.mkdtemp(prefix=f".tmp-pass-{pass_id:05d}-",
+                                   dir=save_dir)
+            # mkdtemp makes 0700; inherit the parent's perms
+            os.chmod(tmp, os.stat(save_dir).st_mode & 0o777)
+        except BaseException as e:   # the span must not stay active
+            span.end(error=f"{type(e).__name__}: {e}")
+            raise
         try:
             np.savez(os.path.join(tmp, "params.npz"),
                      **_flatten(host_params))
+            # mid-write: the arrays are on disk under the hidden .tmp-
+            # name, which is never renamed into a pass dir on failure
+            faults.hit("trainer.checkpoint.write")
             if host_opt is not None:
                 np.savez(os.path.join(tmp, "opt_state.npz"),
                          **_flatten(host_opt))
@@ -180,9 +195,11 @@ def save_checkpoint(save_dir, pass_id, params, opt_state=None,
             os.rename(tmp, final)
             if old is not None:
                 shutil.rmtree(old, ignore_errors=True)
-        except BaseException:
+        except BaseException as e:
             shutil.rmtree(tmp, ignore_errors=True)
+            span.end(error=f"{type(e).__name__}: {e}")
             raise
+        span.end(path=final)
         if save_only_one:
             for name in os.listdir(save_dir):
                 if name.startswith("pass-") \

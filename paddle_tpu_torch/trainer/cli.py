@@ -6,7 +6,7 @@ Usage:
   python -m paddle_tpu_torch train --config my_config.py [--num_passes N]
        [--save_dir DIR] [--config_args k=v,...] [--device cpu|cuda]
        [--dtype auto|float32|bfloat16] [--quant-train]
-       [--grad_accum_steps N]
+       [--grad_accum_steps N] [--prefetch N]
   python -m paddle_tpu_torch test --config my_config.py --model_dir DIR
   python -m paddle_tpu_torch time --config my_config.py [--num_batches N]
        [--warmup W]
@@ -24,7 +24,10 @@ Layers are built with ``paddle_tpu_torch.layers``.  The job runs on the
 card unless ``--device cpu``, each job (``version`` names the device,
 ``merge_model`` touches none) included.  v1 ``trainer_config_helpers``
 configs (``settings()`` / ``outputs()``) wait for ROADMAP A11; the JAX
-CLI's mesh, prefetch and profiling flags wait for their items.
+CLI's mesh and profiling flags wait for their items.  ``--prefetch``
+defaults, as JAX's, to ``FLAGS.prefetch_depth`` when
+``FLAGS.async_load_data`` (else 0), and ``FLAGS.quant_train`` turns
+``--quant-train`` on (``utils/flags``; ``trainer.api.init`` sets them).
 ``time`` synchronizes the card after each step; ``checkgrad`` exits 1
 on a mismatch.  ``--dtype`` is the JAX CLI's: any value but
 auto sets the process's compute policy (``core/dtypes.set_policy``),
@@ -56,6 +59,16 @@ def _load_config(path, config_args):
     reset_names()
     ns = runpy.run_path(path, init_globals={"CONFIG_ARGS": config_args})
     return ns["get_config"]()
+
+
+def _resolve_prefetch(args):
+    """--prefetch, defaulting to the FLAGS pair the reference shipped:
+    async_load_data (DoubleBuffer on/off) x prefetch_depth."""
+    p = getattr(args, "prefetch", None)
+    if p is not None:
+        return p
+    from paddle_tpu_torch.utils.flags import FLAGS
+    return FLAGS.prefetch_depth if FLAGS.async_load_data else 0
 
 
 def _parse_config_args(s):
@@ -105,6 +118,12 @@ def main(argv=None):
     t.add_argument("--log_period", type=int, default=100)
     t.add_argument("--test_period", type=int, default=0)
     t.add_argument("--show_parameter_stats_period", type=int, default=0)
+    t.add_argument("--prefetch", type=int, default=None,
+                   help="overlapped input pipeline: convert + copy N "
+                        "batches ahead on a background thread (0 = off).  "
+                        "Default from FLAGS: prefetch_depth when "
+                        "async_load_data (the reference DoubleBuffer "
+                        "default), else 0")
     t.add_argument("--quant-train", dest="quant_train", action="store_true",
                    help="int8 weight-streaming training (SGD(quant_weights="
                         "True)); checkpoints carry the masters and their "
@@ -201,13 +220,18 @@ def main(argv=None):
         # step boundary through SGD(compute_dtype=...)
         from paddle_tpu_torch.core import dtypes
         dtypes.set_policy(compute_dtype=args.dtype)
+    from paddle_tpu_torch.utils.flags import FLAGS
+    quant_train = bool(getattr(args, "quant_train", False)
+                       or FLAGS.quant_train)
+    if quant_train:
+        FLAGS.quant_train = True
     trainer = SGD(cost=cfg["cost"], update_equation=optimizer,
                   sharding_rules=cfg.get("sharding_rules"),
                   evaluators=cfg.get("evaluators"),
                   compute_dtype=(torch.bfloat16 if args.dtype == "bfloat16"
                                  else None),
                   grad_accum_steps=getattr(args, "grad_accum_steps", 1),
-                  quant_weights=getattr(args, "quant_train", False),
+                  quant_weights=quant_train,
                   device=dev)
 
     if args.job == "train":
@@ -225,7 +249,8 @@ def main(argv=None):
                       test_period=args.test_period,
                       log_period=args.log_period,
                       show_parameter_stats_period=
-                      args.show_parameter_stats_period)
+                      args.show_parameter_stats_period,
+                      prefetch=_resolve_prefetch(args))
         return 0
 
     if args.job == "test":

@@ -19,6 +19,11 @@ per layer, from ``Topology.init_state``) threads through the steps as
 layers put, ``test`` reads it in test mode, and checkpoints carry it
 both ways across the packages.
 
+``train`` carries JAX's host-side hooks: the fault point
+``trainer.step`` (``resilience/faults.py``) before each step and the
+span ``trainer.step`` (``obs/trace.py``) over its dispatch, with
+``pass_id``, ``batch`` and ``h2d_wait_ms``; both are no-ops when off.
+
 ``quant_weights=True`` trains with int8 weight streaming, as the JAX
 trainer does: every 2-D float32 weight of at least ``quant_min_size``
 elements keeps an int8 twin (``quant/weights.quantize_tree``'s codes and
@@ -107,8 +112,10 @@ from paddle_tpu_torch.data import reader as reader_mod
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.layers.graph import Topology, params_from_numpy, \
     value_data
+from paddle_tpu_torch.obs import trace as _obstrace
 from paddle_tpu_torch.ops import sparse as sparse_ops
 from paddle_tpu_torch.quant import weights as qw
+from paddle_tpu_torch.resilience import faults as _faults
 from paddle_tpu_torch.trainer import events
 from paddle_tpu_torch.trainer import hooks as param_hooks
 from paddle_tpu_torch.trainer.checkpoint import load_checkpoint, \
@@ -697,10 +704,22 @@ class SGD:
                             continue
                         feed = item if prefetcher is not None \
                             else self._feed(item, feeding)
-                        h2d_wait.add(time.perf_counter() - t_in)
+                        h2d_dt = time.perf_counter() - t_in
+                        h2d_wait.add(h2d_dt)
                         event_handler(events.BeginIteration(pass_id,
                                                             batch_id))
-                        cost, extras = self._step(feed)
+                        # host-side hooks, as JAX's: the fault point
+                        # before the step's dispatch (an injected fault
+                        # unwinds like a real step crash: the finally
+                        # blocks close the prefetcher, land pending
+                        # saves, restore the handler), then the span over
+                        # the dispatch with this batch's input wait
+                        _faults.hit("trainer.step")
+                        with _obstrace.span(
+                                "trainer.step", root=False,
+                                pass_id=pass_id, batch=batch_id,
+                                h2d_wait_ms=round(h2d_dt * 1e3, 3)):
+                            cost, extras = self._step(feed)
                         cost_sum = cost_sum + cost
                         n_batches += 1
                         if log_period:

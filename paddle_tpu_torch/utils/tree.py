@@ -1,5 +1,7 @@
 """Nested dicts and lists of tensors (parameter, gradient, optimizer and
-cache trees): the two pytree helpers the port needs."""
+cache trees): the pytree helpers the port needs, and ``value_and_grad``
+for training steps written outside ``trainer.SGD`` (JAX's
+``jax.value_and_grad`` over a parameter tree)."""
 
 
 def tree_map(fn, tree, *rest):
@@ -21,3 +23,19 @@ def tree_leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def value_and_grad(fn, params):
+    """``(fn(params), gradient tree)``: the scalar ``fn`` of the tree and
+    its gradient with respect to every leaf, as ``jax.value_and_grad``
+    gives it -- zeros for a leaf ``fn`` does not read.  Marks the leaves
+    as requiring grad."""
+    import torch
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    value = fn(params)
+    grads = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, torch.autograd.grad(
+                 value, leaves, allow_unused=True))}
+    return value.detach(), tree_map(lambda p: grads[id(p)], params)

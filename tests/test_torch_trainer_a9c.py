@@ -538,7 +538,8 @@ def test_inferencer_matches_jax(jax_runs, mode, tol):
 
 def test_infer_and_api(jax_runs):
     """trainer.infer and trainer.api.infer on host samples with feeding=,
-    against JAX's infer; api.init names A5; Trainer is SGD."""
+    against JAX's infer; api.init sets the known FLAGS keys, ignores
+    unknown ones and returns FLAGS, as JAX's; Trainer is SGD."""
     start = jax_runs["start"]
     want = np.asarray(jax_infer(_build(JL)[1], jax.tree_util.tree_map(
         jnp.asarray, start), BATCHES[2], feeding=JAX_FEEDING))
@@ -548,8 +549,18 @@ def test_infer_and_api(jax_runs):
     got = api.infer(output_layer=_build(L)[1], parameters=start,
                     input=BATCHES[2], feeding=FEEDING, device="cpu")
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
-    with pytest.raises(ConfigError, match="A5"):
-        api.init(use_gpu=True)
+    from paddle_tpu.trainer import api as jax_api
+    from paddle_tpu.utils.flags import FLAGS as JAX_FLAGS
+    from paddle_tpu_torch.utils.flags import FLAGS
+    saved = (FLAGS.log_period, JAX_FLAGS.log_period)
+    try:
+        got = api.init(log_period=7, no_such_flag=1)
+        want = jax_api.init(log_period=7, no_such_flag=1)
+        assert got is FLAGS and want is JAX_FLAGS
+        assert got.log_period == want.log_period == 7
+        assert not hasattr(got, "no_such_flag")
+    finally:
+        FLAGS.log_period, JAX_FLAGS.log_period = saved
     assert Trainer is SGD
 
 

@@ -3,8 +3,8 @@ JAX's on the CPU: ``ops/attention.padding_mask``,
 ``ops/embedding.one_hot``, the ``optim`` namespace's ``schedules`` and
 ``averaging``, ``utils/error.ShapeError``, ``utils/stats.timer`` and
 ``print_all_stats``, ``utils/logging.log_context``, ``set_format`` and
-``context_fields``, and ``utils``' exports (JAX's, less ``FLAGS``,
-ROADMAP A5).  Masks and one-hot rows bit for bit; the log formats line
+``context_fields``, and ``utils``' exports (JAX's, ``FLAGS``
+included).  Masks and one-hot rows bit for bit; the log formats line
 for line."""
 
 import json
@@ -56,7 +56,9 @@ def test_optim_exports_schedules_and_averaging_as_jax():
 
 
 def test_utils_exports_are_jax_less_flags():
-    assert utils.__all__ == [n for n in jax_utils.__all__ if n != "FLAGS"]
+    assert utils.__all__ == jax_utils.__all__
+    from paddle_tpu_torch.utils.flags import FLAGS
+    assert utils.FLAGS is FLAGS
     assert issubclass(utils.ShapeError, utils.PaddleTpuError)
     assert not issubclass(utils.ShapeError, utils.ConfigError)
 
