@@ -496,6 +496,31 @@ non-zero exit code and no final "ok" line:
             run; a trainer.step fault then train(resume=True) bit for
             bit; FLAGS giving python -m paddle_tpu_torch train its
             --prefetch default
+  serve_a6b the host KV tier on the served LM (paged, chunked, a
+            41-block pool): two waves of 12 chained streams over three
+            shared 96-token prefixes with churn between, the second
+            restoring the spilled prefixes, on a float32 and an int8
+            pool: bit for bit a tier-off engine, the second wave against
+            the CPU, spills and restores counted, the ledger clean, B4 /
+            6d LAYERS a step; the pinned host-to-device rate and the step
+            wall (the h100 row of perf/roofline); restore against
+            recompute of a 16-block and a sub-chunk prefix, timed beside
+            the router's prediction, whose direction must hold both
+            ways; a handoff between a prefill and a decode server over
+            /v1/kv/export, bit for bit a single engine; continuation
+            replay on the slab and paged engines, bit for bit
+  serve_a7  supervised recovery on the chunked slab engine and the
+            ladder (B1; B3 and B2): 12 chained streams under two step
+            errors and a hang past the watchdog deadline, bit for bit
+            the clean run, the evictions and failed requests of the same
+            plan on the CPU, one watchdog trip, the late step discarded
+            by the epoch guard, the supervisor.recover stall; supervised
+            without faults equal to unsupervised; the breaker opening
+            after three failures (/readyz 503 with Retry-After) and a
+            probe closing it; /v1/infer on lenet (concurrent clients bit
+            for bit the direct forward) and the sentiment classifier's
+            sequence feeds (B9 3 a batch, against the CPU), ms a batch by
+            bucket, an engine.execute fault failing only its batch
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -2887,7 +2912,7 @@ def serve_http(torch, kernels, engine, prompts, n_tok, starts,
     open)."""
     from paddle_tpu_torch.serving import GenerationBatcher, make_server
     gen = GenerationBatcher(engine, default_max_tokens=n_tok)
-    httpd = make_server(gen, port=0)
+    httpd = make_server(None, port=0, gen_batcher=gen)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     base = f"http://127.0.0.1:{httpd.port}/v1/generate"
@@ -10087,6 +10112,775 @@ def run_host_a5(torch, dev, kernels, seed):
             **{f"fault_{k}": v for k, v in fault_launches.items()}}
 
 
+# serve_a6b: the host KV tier, the router's constants, the handoff and
+# continuation replay on the served LM (6 layers, 8 heads, vocab 32000,
+# D 512, DFF 2048; 8 slots, max_len 256, chunk 8).
+# - Host tier: a paged chunked engine (block 16) with a pool of
+#   A6B_POOL blocks: a first wave of 12 chained streams over 3 shared
+#   96-token prefixes (each submitted once its predecessor's first token
+#   is out, so the schedule is a function of the steps alone), churn
+#   that evicts the prefixes (spilling them), and a second wave over the
+#   same prefixes that restores them; on a float32 and an int8 pool.
+#   Every stream is the same requests on a tier-off engine bit for bit,
+#   the second wave equals lm_generate on the CPU up to MARGIN_TOL,
+#   spills and restores are both counted, the ledger is clean, and the
+#   paged chunk kernel (B4 / 6d) launches LAYERS a step.
+# - The router's constants: the pinned host-to-device copy rate
+#   (A6B_H2D_MB, CUDA events) and the engine's step wall (the p50 of the
+#   float32 tier run's steps) — the values the h100 row of perf/roofline
+#   carries.  Then restore and recompute of a long prefix (16 blocks of
+#   8) and a short one (one block of 4, below a chunk) are timed (first
+#   token of the prefix + 1 token, median of A6B_TIMED, the restore from
+#   a blob delivered to the tier; the short restore forced, since the
+#   router sends it to recompute) and printed beside the predictions;
+#   the predicted direction must be the measured one both ways.
+# - Handoff: a prefill server and a decode server (host tier) on the
+#   card; the decode server pulls the prompt's chain over /v1/kv/export
+#   and continues the stream, bit for bit a single paged engine's run;
+#   kv_handoffs_total counts "sent" and "received".
+# - Replay: 4 clean streams on the slab and paged engines, each continued
+#   from 4 replayed tokens: the tail of the stream bit for bit.
+A6B_PREFIX, A6B_WAVE, A6B_TOKENS = 96, 12, 16
+A6B_POOL = 41
+A6B_TIER_BYTES = 1 << 30
+A6B_H2D_MB = 256
+A6B_TIMED = 3
+A6B_LOAD = 4
+
+
+def chained(bat, cases):
+    """Submit ``cases`` ([(prompt, max_tokens)]) in a chain: request i+1
+    once request i has emitted its first token or ended (both on the
+    batcher's worker thread: the schedule depends on the steps alone).
+    Returns per request its tokens, or its error's class name."""
+    futs = [None] * len(cases)
+    all_in = threading.Event()
+
+    def submit(i):
+        if i == len(cases):
+            all_in.set()
+            return
+        fired = []
+
+        def nxt(*_):
+            if not fired:
+                fired.append(1)
+                submit(i + 1)
+
+        prompt, n = cases[i]
+        futs[i] = bat.submit(prompt, max_tokens=n, on_token=nxt)
+        futs[i].add_done_callback(nxt)
+
+    submit(0)
+    if not all_in.wait(600):
+        fail("a chained run stalled")
+    out = []
+    for f in futs:
+        try:
+            out.append(f.result(600)["tokens"])
+        except Exception as e:      # noqa: BLE001 — the caller compares
+            out.append(type(e).__name__)
+    return out
+
+
+def cpu_streams_check(torch, transformer, cpu_params, cases, outs, what,
+                      kv_dtype=None):
+    """Streams against lm_generate on the CPU (one ragged batch), each up
+    to its first reference margin below MARGIN_TOL; returns the tokens
+    compared."""
+    heads = HEADS
+    n_tok = max(n for _p, n in cases)
+    lengths = np.asarray([len(p) for p, _n in cases], np.int32)
+    prompt = np.zeros((len(cases), lengths.max()), np.int32)
+    for r, (p, _n) in enumerate(cases):
+        prompt[r, :len(p)] = p
+    ref = transformer.lm_generate(cpu_params, prompt,
+                                  int(lengths.max()) + n_tok, heads,
+                                  prompt_lengths=lengths, kv_dtype=kv_dtype)
+    marg = margins(torch, transformer, cpu_params, ref, kv_dtype, heads)
+    ref = ref.numpy()
+    checked = 0
+    for r, ((p, n), got) in enumerate(zip(cases, outs)):
+        ln = int(lengths[r])
+        k, ok = compare(got, ref[r, ln:ln + n].tolist(),
+                        marg[r, ln - 1:ln - 1 + n])
+        if not ok:
+            fail(f"{what}: request {r} disagrees with the CPU within its "
+                 f"first {k + 1} tokens above margin {MARGIN_TOL}")
+        checked += k
+    return checked
+
+
+def a6b_engine(params, dev, name, **kw):
+    from paddle_tpu_torch.serving import DecodeEngine
+    base = dict(num_heads=HEADS, num_slots=SLOTS, max_len=SERVE_MAX_LEN,
+                prefill_chunk=CHUNK, kv_layout="paged", kv_block_size=PAGE_BS,
+                name=name, device=dev)
+    return DecodeEngine(params, **dict(base, **kw))
+
+
+def a6b_tier_runs(torch, dev, transformer, kernels, params, cpu_params,
+                  rng):
+    """The host-tier waves on float32 and int8 pools (see serve_a6b)."""
+    from paddle_tpu_torch.serving import GenerationBatcher
+    dk = kernels.decode_attention
+    prefixes = [rng.randint(3, VOCAB, A6B_PREFIX).tolist() for _ in range(3)]
+    # the first wave's prompts are block-aligned (the shared prefix and
+    # one block of their own): a spilled chain is found again by a prompt
+    # that extends its key, here the same conversation's next turn
+    wave1 = [(prefixes[i % 3] + rng.randint(3, VOCAB, PAGE_BS).tolist(),
+              A6B_TOKENS) for i in range(A6B_WAVE)]
+    churn = [(rng.randint(3, VOCAB, 200).tolist(), 8) for _ in range(6)]
+    wave2 = [(p + rng.randint(3, VOCAB, 3 + i).tolist(), A6B_TOKENS)
+             for i, (p, _n) in enumerate(wave1)]
+    cases = wave1 + churn + wave2
+    rows, launches, step_ms = {}, {}, None
+    for kv_dtype, kernel in (("float32", dk.NAME_PAGED_CHUNK),
+                             ("int8", dk.NAME_PAGED_CHUNK_I8)):
+        outs, snaps = {}, {}
+        for tier in (True, False):
+            eng = a6b_engine(params, dev, f"a6b_{kv_dtype}_{int(tier)}",
+                             kv_num_blocks=A6B_POOL, kv_dtype=kv_dtype,
+                             kv_host_bytes=A6B_TIER_BYTES if tier else 0)
+            bat = GenerationBatcher(eng)
+            kernels.reset_launches()
+            steps0 = eng.metrics.decode_steps_total
+            t0 = time.perf_counter()
+            outs[tier] = (chained(bat, wave1) + chained(bat, churn)
+                          + chained(bat, wave2))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            bat.close()
+            got = launch_counts(kernels)
+            steps = eng.metrics.decode_steps_total - steps0
+            if got[kernel] != LAYERS * steps or sum(got.values()) \
+                    != got[kernel]:
+                fail(f"serve_a6b {kv_dtype} tier={tier}: launches {got} "
+                     f"over {steps} steps, want {kernel} {LAYERS * steps}")
+            eng._paged.check()
+            if eng._paged._pending or eng.free_slots != SLOTS:
+                fail(f"serve_a6b {kv_dtype}: pending claims or held slots")
+            snaps[tier] = dict(eng.metrics.snapshot(), seconds=dt,
+                               steps=steps, launches=got[kernel])
+            if tier:
+                launches[kv_dtype] = got
+                if kv_dtype == "float32":
+                    step_ms = snaps[tier]["tpot_ms"]["p50"]
+        snap = snaps[True]
+        if any(isinstance(o, str) for o in outs[True]) \
+                or outs[True] != outs[False]:
+            fail(f"serve_a6b {kv_dtype}: the tier run's streams differ from "
+                 "the tier-off engine's")
+        if not (snap["kv_spill_blocks_total"] > 0
+                and snap["kv_restore_hits_total"] > 0):
+            fail(f"serve_a6b {kv_dtype}: spills "
+                 f"{snap['kv_spill_blocks_total']}, restores "
+                 f"{snap['kv_restore_hits_total']}; want both above 0")
+        checked = cpu_streams_check(
+            torch, transformer, cpu_params, wave2,
+            outs[True][-len(wave2):], f"serve_a6b {kv_dtype}",
+            None if kv_dtype == "float32" else kv_dtype)
+        rows[kv_dtype] = {
+            "pool_blocks": A6B_POOL, "requests": len(cases),
+            "bit_for_bit_tier_off": True,
+            "spilled_blocks": snap["kv_spill_blocks_total"],
+            "restores": snap["kv_restore_hits_total"],
+            "restored_bytes": snap["kv_restore_bytes_total"],
+            "kv_restore_ms": snap["kv_restore_ms"],
+            "prefix_hits": snap["prefix_cache_hits_total"],
+            "preemptions": snap["evictions"]["pool_exhausted"],
+            "steps": {"tier": snap["steps"], "tier_off": snaps[False]["steps"]},
+            "seconds": {"tier": snap["seconds"],
+                        "tier_off": snaps[False]["seconds"]},
+            "step_ms": {"tier": snap["tpot_ms"],
+                        "tier_off": snaps[False]["tpot_ms"]},
+            "launches": snap["launches"],
+            "wave2_tokens_checked_vs_cpu": checked,
+            "wave2_tokens_total": len(wave2) * A6B_TOKENS}
+    return rows, launches, step_ms
+
+
+def h2d_gb_s(torch, dev, mb=A6B_H2D_MB, reps=10):
+    """The pinned host-to-device copy rate (GB/s), CUDA events."""
+    host = torch.empty(mb << 20, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(mb << 20, dtype=torch.uint8, device=dev)
+    for _ in range(3):
+        dst.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(host, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return reps * (mb << 20) / (start.elapsed_time(end) / 1e3) / 1e9
+
+
+def restore_vs_recompute(torch, dev, params, rng, block_size, blocks):
+    """Time the first token of (prefix + 1 token) with the prefix
+    restored from the host tier and recomputed, on an engine already
+    decoding A6B_LOAD other streams (the router prices a restore in steps
+    of a busy engine); median of A6B_TIMED each, the prediction beside.
+    The restore path is forced (the router may prefer recompute)."""
+    from paddle_tpu_torch.serving import GenerationBatcher
+    prefix = rng.randint(3, VOCAB, block_size * blocks).tolist()
+    prompt = prefix + [int(rng.randint(3, VOCAB))]
+    load = [rng.randint(3, VOCAB, 8).tolist() for _ in range(A6B_LOAD)]
+    kw = dict(kv_block_size=block_size)
+    tier = a6b_engine(params, dev, f"restore_b{block_size}",
+                      kv_host_bytes=A6B_TIER_BYTES, **kw)
+    twin = a6b_engine(params, dev, f"recompute_b{block_size}", **kw)
+    predicted = tier._restore_predicted_faster(len(prefix))
+    tier._restore_predicted_faster = lambda covered: (True,) + \
+        predicted[1:]
+    bat = GenerationBatcher(tier)
+    first = bat.submit(prompt, max_tokens=2).result(120)["tokens"]
+    _key, covered, blob = bat.export_chain(prefix)
+    bat.close()
+    if covered != len(prefix):
+        fail(f"serve_a6b: export covered {covered} of {len(prefix)}")
+    times = {"restore": [], "recompute": []}
+    for _ in range(A6B_TIMED):
+        for what, eng in (("restore", tier), ("recompute", twin)):
+            eng.reset()
+            if what == "restore":
+                eng.host_tier.clear()
+                eng.deliver_chain_blob(blob)
+            gen = GenerationBatcher(eng)
+            busy = threading.Event()
+            for p in load:
+                gen.submit(p, max_tokens=SERVE_MAX_LEN - 16,
+                           on_token=lambda _t: busy.set())
+            busy.wait(60)
+            out = gen.submit(prompt, max_tokens=1).result(120)
+            gen.close(drain=False)
+            if out["tokens"] != first[:1]:
+                fail(f"serve_a6b: the {what} of a {len(prefix)}-position "
+                     f"prefix changed the first token")
+            times[what].append(out["ttft_ms"])
+    restores = tier.metrics.snapshot()["kv_restore_hits_total"]
+    if restores != A6B_TIMED:
+        fail(f"serve_a6b: {restores} restores, want {A6B_TIMED}")
+    measured = {k: float(np.median(v)) for k, v in times.items()}
+    row = {"positions": len(prefix), "block_size": block_size,
+           "blocks": blocks, "chunk": CHUNK, "load_streams": A6B_LOAD,
+           "predicted_ms": {"restore": predicted[1],
+                            "recompute": predicted[2]},
+           "measured_ms": measured, "measured_all_ms": times,
+           "predicted_restore_faster": bool(predicted[0]),
+           "measured_restore_faster":
+               measured["restore"] < measured["recompute"]}
+    if row["predicted_restore_faster"] != row["measured_restore_faster"]:
+        fail(f"serve_a6b: the router's direction is wrong: {row}")
+    return row
+
+
+def a6b_handoff(torch, dev, params, rng):
+    """Prefill and decode servers on the card, a handoff over
+    /v1/kv/export (see serve_a6b)."""
+    from paddle_tpu_torch.serving import GenerationBatcher, make_server
+    prompt = rng.randint(3, VOCAB, 100).tolist()
+    n_tok = A6B_TOKENS
+    single = GenerationBatcher(a6b_engine(params, dev, "single"))
+    want = single.submit(prompt, max_tokens=n_tok).result(120)["tokens"]
+    single.close()
+    servers = {}
+    for role, kw in (("prefill", {}),
+                     ("decode", dict(kv_host_bytes=A6B_TIER_BYTES))):
+        gen = GenerationBatcher(a6b_engine(params, dev, role, **kw))
+        httpd = make_server(None, port=0, gen_batcher=gen)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers[role] = (gen, httpd, f"http://127.0.0.1:{httpd.port}")
+
+    def post(role, body):
+        req = urllib.request.Request(
+            f"{servers[role][2]}/v1/generate", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        t0 = time.perf_counter()
+        first = post("prefill", {"prompt": prompt, "max_tokens": 1})
+        out = post("decode", {"prompt": prompt, "replay": first["tokens"],
+                              "max_tokens": n_tok - 1,
+                              "kv_handoff": {"source": servers["prefill"][2],
+                                             "tokens": prompt
+                                             + first["tokens"]}})
+        wall = (time.perf_counter() - t0) * 1e3
+        stream = first["tokens"] + out["tokens"]
+        sent = servers["prefill"][0].metrics.snapshot()["kv_handoffs_total"]
+        dsnap = servers["decode"][0].metrics.snapshot()
+    finally:
+        for gen, httpd, _url in servers.values():
+            httpd.shutdown()
+            httpd.server_close()
+            gen.close()
+    row = {"prompt": len(prompt), "tokens": n_tok,
+           "handoff": out["kv_handoff"], "sent": sent["sent"],
+           "received": dsnap["kv_handoffs_total"]["received"],
+           "restores": dsnap["kv_restore_hits_total"],
+           "decode_ttft_ms": out["ttft_ms"], "wall_ms": wall,
+           "bit_for_bit_single_engine": stream == want}
+    if not (row["bit_for_bit_single_engine"] and row["sent"] == 1
+            and row["received"] == 1 and row["restores"] == 1
+            and out["kv_handoff"]["outcome"] == "received"):
+        fail(f"serve_a6b handoff: {row}")
+    return row
+
+
+def a6b_replay(torch, dev, kernels, params, rng):
+    """4 clean streams on the slab and paged engines, each continued from
+    4 replayed tokens (see serve_a6b)."""
+    from paddle_tpu_torch.serving import DecodeEngine, GenerationBatcher
+    prompts = [rng.randint(3, VOCAB, n).tolist() for n in (7, 33, 60, 101)]
+    rows, launches = {}, {}
+    for layout in ("slab", "paged"):
+        eng = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                           max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                           kv_layout=layout, kv_block_size=PAGE_BS,
+                           name=f"replay_{layout}", device=dev)
+        bat = GenerationBatcher(eng)
+        clean = [bat.submit(p, max_tokens=A6B_TOKENS).result(120)["tokens"]
+                 for p in prompts]
+        kernels.reset_launches()
+        tails = []
+        for p, s in zip(prompts, clean):
+            seen = []
+            out = bat.submit(p, max_tokens=A6B_TOKENS - 4, replay=s[:4],
+                             on_token=seen.append).result(120)["tokens"]
+            tails.append(out == s[4:] == seen)
+        torch.cuda.synchronize()
+        launches[layout] = launch_counts(kernels)
+        bat.close()
+        rows[layout] = {"bit_for_bit_tail": tails,
+                        "launches": {k: n for k, n in
+                                     launches[layout].items() if n}}
+        if not all(tails):
+            fail(f"serve_a6b replay ({layout}): {tails}")
+    return rows, launches
+
+
+def run_serve_a6b(torch, dev, transformer, kernels, seed):
+    """serve_a6b (see A6B_PREFIX); returns the launches by run."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 29)
+    params = transformer.init_lm(torch.Generator().manual_seed(seed), VOCAB,
+                                 D_MODEL, HEADS, DFF, LAYERS, SERVE_MAX_LEN,
+                                 device=dev)
+    cpu_params = transformer.tree_map(lambda x: x.cpu(), params)
+    tier, tier_launches, step_ms = a6b_tier_runs(
+        torch, dev, transformer, kernels, params, cpu_params, rng)
+    from paddle_tpu_torch.perf import roofline
+    spec = roofline.SPECS["h100"]
+    constants = {"h2d_pinned_gb_s": h2d_gb_s(torch, dev),
+                 "h2d_pinned_mb": A6B_H2D_MB,
+                 "step_wall_p50_ms": step_ms,
+                 "h100_row": {"host_link_gb_s":
+                              spec.host_link_bytes_per_s / 1e9,
+                              "step_dispatch_ms": spec.step_dispatch_ms}}
+    router = {"long": restore_vs_recompute(torch, dev, params, rng, 8, 16),
+              "short": restore_vs_recompute(torch, dev, params, rng, 4, 1)}
+    handoff = a6b_handoff(torch, dev, params, rng)
+    replay, replay_launches = a6b_replay(torch, dev, kernels, params, rng)
+    emit({"phase": "serve_a6b", "host_tier": tier,
+          "router_constants": constants, "router": router,
+          "handoff": handoff, "replay": replay,
+          "seconds": time.perf_counter() - t0})
+    return {"tier_f32": tier_launches["float32"],
+            "tier_int8": tier_launches["int8"],
+            **{f"replay_{k}": v for k, v in replay_launches.items()}}
+
+
+
+
+# serve_a7: supervised recovery, the breaker and /v1/infer.
+# - The served LM on the chunked slab engine (B1) and on the prefill
+#   ladder (buckets 32 / 64: the flash prefill B3, the Tq=1 step B2): 12
+#   chained streams unsupervised, supervised without faults (the same
+#   tokens and launches; both step walls), and supervised (watchdog
+#   A7_DEADLINE_S, tracing on for the supervisor.recover spans) under
+#   serving.decode_step:every=A7_ERROR_EVERY,times=2 — two errors —
+#   switched at the A7_HANG_STEP-th step to a hang of A7_HANG_S.  Every stream is the clean run bit for
+#   bit; the watchdog trips once and the late step reaches the epoch
+#   guard and commits nothing; evictions{recovered} and the failed
+#   requests equal the same plan on the CPU (A5_CPU_TRUNK: the schedule
+#   depends on lengths and steps, not widths); the step kernel launches
+#   LAYERS a committed step plus LAYERS for the discarded late one, the
+#   flash prefill LAYERS a prefill batch (recovery re-prefills
+#   included).  The recovery stall is the supervisor.recover span.
+# - The breaker: threshold 3, cooldown A7_COOLDOWN_S, recovery budget 2,
+#   over HTTP: a fault on every step fails a request after three
+#   consecutive failures, /readyz answers 503 breaker_open with
+#   Retry-After and a generate sheds 503; after the cooldown a probe
+#   closes it (/readyz 200).
+# - /v1/infer: models/image_dsl.lenet (weights from the seed) behind
+#   InferenceEngine (buckets A7_BUCKETS) + Batcher + the server,
+#   A7_CLIENTS concurrent clients, each output bit for bit the direct
+#   Inferencer forward of its row at one of the buckets; the sentiment
+#   classifier (models/text_dsl: three lstmemory of 128 on B9) through
+#   an in-process Batcher at padded lengths A7_SEQ_T, outputs within
+#   SENT_TOL of the CPU's, B9 forward launches 3 a batch; ms a batch and
+#   rows/s by bucket; a serving.engine.execute fault fails only its
+#   batch.
+A7_CASES, A7_TOKENS = 12, 16
+A7_DEADLINE_S, A7_HANG_S = 0.5, 1.2
+A7_ERROR_EVERY, A7_HANG_STEP = 9, 24
+A7_COOLDOWN_S = 1.0
+A7_BUCKETS, A7_CLIENTS = (4, 16, 64), 24
+A7_SEQ_T, A7_SEQ_BUCKETS, A7_SEQ_ROWS = (48, 120), (8, 32), 40
+
+
+def a7_run(engine, cases, supervised=False, faulted=False, traced=False):
+    """One chained run on a reset engine: (outcomes, metrics snapshot,
+    fires {"errors", "hang"}, late steps discarded by the epoch guard,
+    supervisor.recover spans in ms, the supervisor)."""
+    from paddle_tpu_torch.obs import trace
+    from paddle_tpu_torch.resilience import Supervisor, faults
+    from paddle_tpu_torch.serving import GenerationBatcher, ServingMetrics
+    engine.reset()
+    engine.metrics = ServingMetrics()
+    sup = (Supervisor(step_deadline_s=A7_DEADLINE_S if faulted else None,
+                      breaker_threshold=10) if supervised else None)
+    bat = GenerationBatcher(engine, supervisor=sup)
+    stale, fires, calls = [], {}, [0]
+    real_step = engine.step
+
+    def step():
+        calls[0] += 1
+        if faulted and calls[0] == A7_HANG_STEP:
+            fires["errors"] = faults.fired_counts()
+            faults.install_spec(f"serving.decode_step:at=1,action=hang,"
+                                f"hang_s={A7_HANG_S}")
+        try:
+            return real_step()
+        except RuntimeError as e:
+            if "reset mid-step" in str(e):
+                stale.append(1)
+            raise
+
+    engine.step = step
+    if faulted:
+        faults.install_spec(f"serving.decode_step:every={A7_ERROR_EVERY},"
+                            "times=2")
+    if traced:
+        trace.enable(sample=1.0)
+    try:
+        out = chained(bat, cases)
+        fires["hang"] = faults.fired_counts()
+        faults.clear()
+        until = time.time() + A7_HANG_S + 10
+        while faulted and not stale and time.time() < until:
+            time.sleep(0.05)
+        spans = ([s for s in trace.snapshot(include_active=False)
+                  if s["name"] == "supervisor.recover"] if traced else [])
+    finally:
+        faults.clear()
+        trace.disable()
+        del engine.step
+        bat.close()
+    return (out, engine.metrics.snapshot(), fires, len(stale),
+            [(s["t_end"] - s["t_start"]) * 1e3 for s in spans], sup)
+
+
+def a7_recovery(torch, dev, kernels, params, seed, rng):
+    """The chunked and ladder recovery runs on the card and the CPU."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    dk, fk = kernels.decode_attention, kernels.flash_attention
+    cases = [(rng.randint(3, VOCAB, n).tolist(), A7_TOKENS)
+             for n in rng.randint(5, 61, A7_CASES)]
+    cpu_params = a5_cpu_params(torch, seed)
+    rows, launches = {}, {}
+    for kind, chunk, step_kernel in (("chunked", CHUNK, dk.NAME),
+                                     ("ladder", 0, dk.NAME_SLAB)):
+        def engine(p, device, heads, name):
+            return DecodeEngine(p, num_heads=heads, num_slots=SLOTS,
+                                max_len=SERVE_MAX_LEN, prefill_chunk=chunk,
+                                name=name, device=device)
+        eng = engine(params, dev, HEADS, f"a7_{kind}")
+        runs = {}
+        for name, kw in (("unsupervised", {}),
+                         ("supervised", dict(supervised=True)),
+                         ("faulted", dict(supervised=True, faulted=True,
+                                          traced=True))):
+            kernels.reset_launches()
+            batches0 = eng.prefill_batches_total
+            t0 = time.perf_counter()
+            res = a7_run(eng, cases, **kw)
+            torch.cuda.synchronize()
+            runs[name] = res + (time.perf_counter() - t0,
+                                launch_counts(kernels),
+                                eng.prefill_batches_total - batches0)
+        cpu = a7_run(engine(cpu_params, "cpu", A5_CPU_TRUNK["num_heads"],
+                            f"a7_{kind}_cpu"), cases, supervised=True,
+                     faulted=True)
+        clean, cs = runs["unsupervised"][0], runs["unsupervised"][1]
+        out, snap, fires, stale, recover_ms, sup, dt, got, batches = \
+            runs["faulted"]
+        sout, ssnap, _f, _s, _r, _sup, sdt, sgot, _b = runs["supervised"]
+        failed = [i for i, o in enumerate(out) if isinstance(o, str)]
+        cpu_failed = [i for i, o in enumerate(cpu[0]) if isinstance(o, str)]
+        steps = snap["decode_steps_total"]
+        want = {step_kernel: LAYERS * (steps + stale),
+                "flash_attention": LAYERS * batches if not chunk else 0}
+        row = {
+            "requests": len(cases),
+            "plan": {"errors": f"every={A7_ERROR_EVERY},times=2",
+                     "hang": f"the {A7_HANG_STEP}th step, {A7_HANG_S} s "
+                             f"past a {A7_DEADLINE_S} s deadline"},
+            "fires": fires, "cpu_fires": cpu[2],
+            "bit_for_bit_clean": [o == c for o, c in zip(out, clean)],
+            "failed": failed, "cpu_failed": cpu_failed,
+            "evictions": snap["evictions"],
+            "cpu_evictions": cpu[1]["evictions"],
+            "watchdog_trips": sup.watchdog_trips,
+            "late_steps_discarded": stale,
+            "recover_span_ms": recover_ms,
+            "steps": steps, "prefill_batches": batches,
+            "launches": {k: n for k, n in got.items() if n},
+            "want_launches": want,
+            "no_fault_supervised_equal": sout == clean and sgot == runs[
+                "unsupervised"][7],
+            "step_wall_ms": {"unsupervised": cs["tpot_ms"],
+                             "supervised": ssnap["tpot_ms"],
+                             "faulted": snap["tpot_ms"]},
+            "seconds": {"unsupervised": runs["unsupervised"][6],
+                        "supervised": sdt, "faulted": dt}}
+        ok = (all(row["bit_for_bit_clean"]) and not failed
+              and failed == cpu_failed
+              and snap["evictions"] == cpu[1]["evictions"]
+              and snap["evictions"]["recovered"] > 0
+              and fires["errors"] == {"serving.decode_step": 2}
+              and fires["hang"] == {"serving.decode_step": 1}
+              and cpu[2] == fires and sup.watchdog_trips == 1
+              and stale == 1 and len(recover_ms) == 3
+              and row["no_fault_supervised_equal"]
+              and all(got[k] == want.get(k, 0) for k in got))
+        if not ok:
+            fail(f"serve_a7 {kind}: {row}")
+        rows[kind] = row
+        launches[kind] = got
+        launches[f"{kind}_clean"] = runs["unsupervised"][7]
+    return rows, launches
+
+
+def a7_breaker(torch, dev, params, rng):
+    """The breaker over HTTP (see serve_a7)."""
+    from paddle_tpu_torch.resilience import Supervisor, faults
+    from paddle_tpu_torch.serving import (DecodeEngine, GenerationBatcher,
+                                          make_server)
+    eng = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                       max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                       name="a7_breaker", device=dev)
+    sup = Supervisor(breaker_threshold=3, breaker_cooldown_s=A7_COOLDOWN_S,
+                     max_request_recoveries=2)
+    gen = GenerationBatcher(eng, supervisor=sup)
+    httpd = make_server(None, port=0, gen_batcher=gen)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.port}"
+    prompt = rng.randint(3, VOCAB, 20).tolist()
+    body = json.dumps({"prompt": prompt, "max_tokens": 4}).encode()
+
+    def call(path, data=None):
+        req = urllib.request.Request(base + path, data=data, headers={
+            "Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read()), r.headers
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), e.headers
+
+    try:
+        faults.install_spec("serving.decode_step:every=1")
+        failed = call("/v1/generate", body)
+        faults.clear()
+        opened = call("/readyz")
+        shed = call("/v1/generate", body)
+        time.sleep(A7_COOLDOWN_S + 0.1)
+        probe = call("/v1/generate", body)
+        until = time.time() + 10
+        while sup.breaker.state != "closed" and time.time() < until:
+            time.sleep(0.01)
+        ready = call("/readyz")
+    finally:
+        faults.clear()
+        httpd.shutdown()
+        httpd.server_close()
+        gen.close()
+    snap = eng.metrics.snapshot()
+    row = {"failed_request": failed[0],
+           "readyz_open": [opened[0], opened[1].get("reasons"),
+                           opened[2].get("Retry-After")],
+           "generate_shed": [shed[0], shed[2].get("Retry-After")],
+           "probe": probe[0], "readyz_after": ready[0],
+           "breaker_open_total": snap["breaker_open_total"],
+           "rejected_breaker": snap["rejected"]["breaker"],
+           "recovered": snap["evictions"]["recovered"]}
+    if not (failed[0] == 500 and opened[0] == 503
+            and opened[1].get("reasons") == ["breaker_open"]
+            and int(opened[2].get("Retry-After", 0)) >= 1
+            and shed[0] == 503 and int(shed[2].get("Retry-After", 0)) >= 1
+            and probe[0] == 200 and ready[0] == 200
+            and snap["breaker_open_total"] == 1
+            and sup.breaker.state == "closed"):
+        fail(f"serve_a7 breaker: {row}")
+    return row
+
+
+def infer_bucket_ms(torch, engine, feed_row, reps=10):
+    """ms a batch and rows/s at each bucket (full buckets)."""
+    from paddle_tpu_torch.serving.engine import stack_rows
+    out = {}
+    for b in engine.buckets:
+        feed = stack_rows([feed_row] * b)
+        engine.infer(feed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine.infer(feed)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        out[b] = {"ms": ms, "rows_per_s": b / ms * 1e3}
+    return out
+
+
+def a7_infer(torch, dev, kernels, seed, rng):
+    """/v1/infer on lenet and the sentiment Batcher (see serve_a7)."""
+    from paddle_tpu_torch.layers.graph import Topology
+    from paddle_tpu_torch.models import image_dsl, text_dsl
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import (BatchExecutionError, Batcher,
+                                          InferenceEngine, make_server)
+    from paddle_tpu_torch.serving.engine import ShapeDtype
+    from paddle_tpu_torch.trainer.trainer import Inferencer
+    lk = kernels.lstm
+    _cost, out = image_dsl.lenet()
+    params = Topology([out]).init(torch.Generator().manual_seed(seed),
+                                  device=dev)
+    inf = Inferencer(out, params, device=dev)
+    eng = InferenceEngine.from_inferencer(
+        inf, {"pixel": ShapeDtype((1, 784), np.dtype(np.float32))},
+        buckets=A7_BUCKETS, name="lenet")
+    bat = Batcher(eng, max_delay_ms=20.0)
+    httpd = make_server(bat, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    rows = rng.rand(A7_CLIENTS, 784).astype(np.float32)
+    results, errors = [None] * A7_CLIENTS, []
+
+    def client(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.port}/v1/infer",
+            data=json.dumps({"feed": {"pixel": rows[i].tolist()}}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                results[i] = np.asarray(json.loads(r.read())["outputs"],
+                                        np.float32)
+        except Exception as e:      # noqa: BLE001 — reported below
+            errors.append(f"{i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(A7_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    http_s = time.perf_counter() - t0
+    httpd.shutdown()
+    httpd.server_close()
+    lenet_batches = eng.metrics.snapshot()
+    matched = []
+    with torch.no_grad():
+        for i in range(A7_CLIENTS):
+            direct = [inf.infer({"pixel": np.repeat(rows[i:i + 1], b, 0)})
+                      .cpu().numpy()[0] for b in A7_BUCKETS]
+            matched.append(results[i] is not None and any(
+                np.array_equal(results[i], d) for d in direct))
+    faults.install_spec("serving.engine.execute:at=1")
+    try:
+        bat.submit({"pixel": rows[0]}).result(60)
+        fault_isolated = False
+    except BatchExecutionError:
+        fault_isolated = True
+    faults.clear()
+    after = bat.submit({"pixel": rows[1]}).result(60)
+    with torch.no_grad():
+        fault_isolated = fault_isolated and np.array_equal(after, inf.infer(
+            {"pixel": np.repeat(rows[1:2], A7_BUCKETS[0], 0)}).cpu().numpy()[0])
+    bat.close()
+    lenet = {"clients": A7_CLIENTS, "http_seconds": http_s,
+             "errors": errors, "bit_for_bit_direct": matched,
+             "batches": lenet_batches["batches_total"],
+             "mean_occupancy": lenet_batches["mean_occupancy"],
+             "padding_waste": lenet_batches["padding_waste"],
+             "batch_time_ms": lenet_batches["batch_time_ms"],
+             "by_bucket": infer_bucket_ms(torch, eng,
+                                          {"pixel": rows[0]}),
+             "engine_execute_fault_isolated": fault_isolated}
+    if errors or not all(matched) or not fault_isolated \
+            or lenet_batches["mean_occupancy"] <= 1.0:
+        fail(f"serve_a7 /v1/infer lenet: {lenet}")
+    # the sentiment classifier through an in-process Batcher
+    _cost, sout = text_dsl.build("sentiment")
+    sparams = Topology([sout]).init(torch.Generator().manual_seed(seed),
+                                    device=dev)
+    sinf = Inferencer(sout, sparams, device=dev)
+    cpu_inf = Inferencer(sout, sparams, device="cpu")
+    sentiment = {}
+    for t in A7_SEQ_T:
+        spec = {"words": SequenceBatch(ShapeDtype((1, t), np.dtype(np.int32)),
+                                       ShapeDtype((1,), np.dtype(np.int32)))}
+        seng = InferenceEngine.from_inferencer(
+            sinf, spec, buckets=A7_SEQ_BUCKETS, name=f"sentiment_T{t}")
+        sbat = Batcher(seng, max_delay_ms=20.0)
+        data = rng.randint(0, text_dsl.DICT_DIM, (A7_SEQ_ROWS, t)) \
+            .astype(np.int32)
+        lengths = rng.randint(1, t + 1, A7_SEQ_ROWS).astype(np.int32)
+        kernels.reset_launches()
+        futs = [sbat.submit({"words": SequenceBatch(data[i], lengths[i])})
+                for i in range(A7_SEQ_ROWS)]
+        got = np.stack([f.result(120) for f in futs])
+        torch.cuda.synchronize()
+        fwd, bwd = lk.launches_fwd, lk.launches_bwd
+        snap = seng.metrics.snapshot()
+        sbat.close()
+        with torch.no_grad():
+            want = cpu_inf.infer({"words": SequenceBatch(
+                torch.from_numpy(data), torch.from_numpy(lengths))}).numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        sentiment[t] = {"rows": A7_SEQ_ROWS, "batches": snap["batches_total"],
+                        "lstm_fwd_launches": fwd, "lstm_bwd_launches": bwd,
+                        "rel_err_vs_cpu": err, "tolerance": SENT_TOL,
+                        "mean_occupancy": snap["mean_occupancy"],
+                        "by_bucket": infer_bucket_ms(
+                            torch, seng, {"words": SequenceBatch(
+                                data[0], lengths[0])})}
+        if err > SENT_TOL or bwd or fwd != 3 * snap["batches_total"]:
+            fail(f"serve_a7 sentiment T {t}: {sentiment[t]}")
+    return {"lenet": lenet, "sentiment": sentiment}
+
+
+def run_serve_a7(torch, dev, transformer, kernels, seed):
+    """serve_a7 (see A7_TOKENS); returns the launches by run."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 30)
+    params = transformer.init_lm(torch.Generator().manual_seed(seed), VOCAB,
+                                 D_MODEL, HEADS, DFF, LAYERS, SERVE_MAX_LEN,
+                                 device=dev)
+    recovery, launches = a7_recovery(torch, dev, kernels, params, seed, rng)
+    breaker = a7_breaker(torch, dev, params, rng)
+    del params
+    kernels.reset_launches()
+    infer = a7_infer(torch, dev, kernels, seed, rng)
+    emit({"phase": "serve_a7", "recovery": recovery, "breaker": breaker,
+          "infer": infer, "seconds": time.perf_counter() - t0})
+    launches["infer_sentiment"] = {kernels.lstm.NAME_FWD: sum(
+        r["lstm_fwd_launches"] for r in infer["sentiment"].values())}
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10321,6 +11115,8 @@ def main(argv=None):
               **run_recurrence_1b(torch, dev, kernels, args.seed)}
     demo_launches = run_demos_a14(torch, dev, kernels)
     a5_launches = run_host_a5(torch, dev, kernels, args.seed)
+    a6b_launches = run_serve_a6b(torch, dev, transformer, kernels, args.seed)
+    a7_launches = run_serve_a7(torch, dev, transformer, kernels, args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -10594,6 +11390,21 @@ def main(argv=None):
                 "bound_bf16_tensor_core_ms": row["bound_bf16_tensor_core_ms"]})
             if not summary[-1]["launches"]:
                 fail(f"{row['name']}: its phases never launched it")
+    # the serving-substrate phases' launches, by run, on every row they
+    # launched; B1, B2, B3, B4, 6d and B9 must show
+    for row in summary:
+        for phase, runs in (("serve_a6b", a6b_launches),
+                            ("serve_a7", a7_launches)):
+            by_run = {run: n[row["name"]] for run, n in runs.items()
+                      if n.get(row["name"])}
+            if by_run:
+                row[f"launches_{phase}"] = by_run
+    for name in (dk.NAME, dk.NAME_SLAB, fk.NAME, dk.NAME_PAGED_CHUNK,
+                 dk.NAME_PAGED_CHUNK_I8, kernels.lstm.NAME_FWD):
+        row = next(r for r in summary if r["name"] == name)
+        if not (row.get("launches_serve_a6b") or row.get(
+                "launches_serve_a7")):
+            fail(f"{name}: serve_a6b / serve_a7 never launched it")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,16 @@
-"""Generation serving on the port: the slot-based decode engine, its
-continuous-batching request front and the HTTP server
-(``paddle_tpu/serving``'s generation plane)."""
+"""Serving on the port (``paddle_tpu/serving``, one server process's
+surface): the bucketed inference engine and its dynamic batcher (the
+``/v1/infer`` plane), the slot-based decode engine with its
+continuous-batching request front (the generation plane), the paged KV
+pool and its host tier, the cross-replica KV handoff, and the HTTP
+server.  The multi-process parts (``fleet``, ``router``, ``overload``,
+``autoscaler``) are ROADMAP A8."""
 
+from paddle_tpu_torch.resilience.supervisor import BreakerOpenError, Supervisor
+from paddle_tpu_torch.serving.batcher import Batcher
 from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
                                                     GenerationBatcher)
+from paddle_tpu_torch.serving.engine import DEFAULT_BUCKETS, InferenceEngine
 from paddle_tpu_torch.serving.errors import (BatchExecutionError,
                                              DeadlineExceededError,
                                              InvalidRequestError,
@@ -11,6 +18,8 @@ from paddle_tpu_torch.serving.errors import (BatchExecutionError,
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.serving.server import make_server
 
-__all__ = ["DecodeEngine", "GenerationBatcher", "ServingMetrics",
-           "make_server", "BatchExecutionError", "DeadlineExceededError",
-           "InvalidRequestError", "OverloadedError", "ShutdownError"]
+__all__ = ["Batcher", "BatchExecutionError", "BreakerOpenError",
+           "DeadlineExceededError", "DecodeEngine", "DEFAULT_BUCKETS",
+           "GenerationBatcher", "InferenceEngine", "InvalidRequestError",
+           "OverloadedError", "ServingMetrics", "ShutdownError",
+           "Supervisor", "make_server"]

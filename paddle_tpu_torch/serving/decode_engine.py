@@ -35,6 +35,22 @@ and its request front (``paddle_tpu/serving/decode_engine.py``).
   failed step fails only the requests in flight; the engine resets and
   keeps serving).  On the paged layout, requests the pool cannot hold
   yet wait (``_waiting``) and preempted ones re-seat (``_preempted``).
+  With a ``resilience.Supervisor`` a failed or hung step instead
+  rebuilds the cache and re-seats every request in flight from its
+  context plus its delivered tokens (streams continue unchanged), and
+  the circuit breaker sheds submits after repeated failures.  A
+  ``replay`` continues a stream another server began: those tokens are
+  teacher-forced, never re-emitted.
+
+The host KV tier (``kv_host_bytes > 0``, paged with the prefix cache):
+prefix chains the pool evicts under pressure spill to an LRU host-RAM
+tier as relocatable blobs (``kv_pool.serialize_chain``); a later prompt
+they cover restores one (claimed blocks, staged on the tier's transfer
+thread, committed between steps) when the analytic model
+(``perf/analytic.py``, at the spec of the engine's device) predicts that
+beats recomputing it.  The same blobs cross replicas:
+``export_chain`` serializes a resident chain for ``/v1/kv/export`` and
+``deliver_chain_blob`` parks a peer's blob in the tier.
 
 Either layout and either ingestion stores K/V as float32 or, with
 ``kv_dtype="int8"``, as int8 codes with per-(position, KV head) f32
@@ -57,17 +73,26 @@ them: ``serving.prefill`` (``DecodeEngine.prefill``),
 in ``submit``); the spans ``gen.queue_wait`` (submit to pickup),
 ``gen.prefill`` (a prefill batch) and ``slot`` (a request's slot
 lifetime, with ``first_token`` / ``prefill_chunk`` / ``preempted`` /
-``reseated`` / ``speculate`` / ``accept`` events), each parented to the
-submitting thread's span (the server's ``server.request``), and the
-instants ``kv.pool_exhausted_preempt`` and ``kv.cow_fork``.  With no
-supervisor, a fault ends the requests it reaches as JAX's unsupervised
-batcher ends them: a prefill fault fails its admission group, a step
-fault every request in flight (``BatchExecutionError``), a submit
-fault raises ``InjectedFault`` to the caller with nothing queued.
+``reseated`` / ``recovery_reprefill`` / ``speculate`` / ``accept``
+events), each parented to the submitting thread's span (the server's
+``server.request``), ``supervisor.recover`` (a supervised recovery's
+rebuild and re-seat), and the instants ``kv.pool_exhausted_preempt``,
+``kv.cow_fork``, ``kv.spill``, ``kv.restore_route``,
+``kv.restore_commit``, ``kv.restore_stale``, ``kv.handoff_export`` and
+``supervisor.watchdog_trip``.  With no supervisor, a fault ends the
+requests it reaches as JAX's unsupervised batcher ends them: a prefill
+fault fails its admission group, a step fault every request in flight
+(``BatchExecutionError``), a submit fault raises ``InjectedFault`` to
+the caller with nothing queued.
 
-Greedy decode only (argmax inside the step).  Not ported yet (ROADMAP),
-each raising ``ConfigError`` where it is an option: tensor-parallel
-meshes, the host KV tier, supervised recovery, continuation replay.
+The cache is written in place (JAX's is functional and donated), so the
+engine carries JAX's epoch guard: ``reset()`` bumps an epoch under a
+lock, and ``step``, ``advance`` and ``poll_restores`` refuse to commit
+across it — a step abandoned by the watchdog that finishes late writes
+only the orphaned cache it started on.
+
+Greedy decode only (argmax inside the step).  Not ported yet (ROADMAP
+A12): tensor-parallel meshes, which raise ``ConfigError``.
 """
 
 import collections
@@ -85,23 +110,26 @@ from paddle_tpu_torch.obs import trace as obstrace
 from paddle_tpu_torch.quant.kv import KV_DTYPES
 from paddle_tpu_torch.quant.weights import weight_shape as _w_shape
 from paddle_tpu_torch.resilience import faults
+from paddle_tpu_torch.resilience.supervisor import (BreakerOpenError,
+                                                    WatchdogTimeout)
 from paddle_tpu_torch.serving.errors import (BatchExecutionError,
                                              DeadlineExceededError,
                                              InvalidRequestError,
                                              OverloadedError, ShutdownError)
-from paddle_tpu_torch.serving.kv_pool import (InsufficientBlocksError,
+from paddle_tpu_torch.serving.kv_pool import (HostTier,
+                                              InsufficientBlocksError,
                                               PagedKVState,
+                                              RestorePendingError,
+                                              WireFormatError,
+                                              peek_chain_header,
+                                              restore_chain, serialize_chain,
                                               slab_equivalent_blocks)
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.utils.error import ConfigError
 from paddle_tpu_torch.utils.logging import logger
+from paddle_tpu_torch.utils.tree import tree_leaves
 
 DEFAULT_PREFILL_BUCKETS = (32, 64)
-
-
-def _not_ported(what):
-    return ConfigError(f"{what} not yet ported to paddle_tpu_torch "
-                       "(ROADMAP)")
 
 
 def _buckets(name, values):
@@ -132,7 +160,9 @@ class DecodeEngine:
     scratch block 0; 0 = the slab-equivalent ``num_slots * ceil(max_len
     / block_size) + 1``, doubled for int8 KV); prefix_cache (share
     resident prompt-prefix blocks across requests, copy-on-write on
-    divergence).
+    divergence); kv_host_bytes (> 0: the host tier's byte cap — evicted
+    prefix chains spill to host RAM and restore on their next hit; needs
+    the prefix cache).
 
     kv_dtype: ``"float32"`` or ``"int8"`` (quantized KV on either layout
     and either ingestion; the int8 kernels read the codes and scales).
@@ -163,9 +193,15 @@ class DecodeEngine:
             raise ConfigError(f"kv_dtype={kv_dtype!r} (supported: "
                               f"{KV_DTYPES})")
         if mesh is not None:
-            raise _not_ported("tensor-parallel decode (mesh) is")
-        if kv_host_bytes:
-            raise _not_ported("the host KV tier (kv_host_bytes) is")
+            raise ConfigError("tensor-parallel decode (mesh) is not yet "
+                              "ported to paddle_tpu_torch (ROADMAP A12)")
+        if int(kv_host_bytes) < 0:
+            raise ConfigError(
+                f"kv_host_bytes={kv_host_bytes} must be >= 0")
+        if int(kv_host_bytes) and kv_layout != "paged":
+            raise ConfigError(
+                "kv_host_bytes needs kv_layout='paged': the host tier "
+                "spills evicted prefix-chain blocks")
         if params.get("dec"):
             raise ConfigError(
                 "DecodeEngine serves the decoder-only LM trunk; this params "
@@ -221,6 +257,11 @@ class DecodeEngine:
             raise ConfigError("num_slots must be >= 1")
         self.metrics = metrics or ServingMetrics()
         self._paged = None
+        self._host_tier = None
+        # in-flight host-tier restores: prefix key -> (epoch at submit,
+        # t_submit); poll_restores drops a job whose epoch went stale
+        self._pending_restores = {}
+        self._copy_stream = None    # the restores' host-to-device stream
         if kv_layout == "paged":
             self.block_size = int(kv_block_size)
             if self.block_size < 1:
@@ -229,9 +270,42 @@ class DecodeEngine:
                           else slab_equivalent_blocks(
                               self.num_slots, self.max_len, self.block_size,
                               kv_dtype))
-            self._paged = PagedKVState(self.num_slots, num_blocks,
-                                       self.block_size, self.max_len,
-                                       prefix_cache=prefix_cache)
+            if int(kv_host_bytes):
+                if not prefix_cache:
+                    raise ConfigError(
+                        "kv_host_bytes needs the prefix cache: the host "
+                        "tier spills/restores prefix-index chains")
+                self._host_tier = HostTier(cap_bytes=int(kv_host_bytes))
+            self._paged = self._new_paged(num_blocks, prefix_cache)
+            # the blob's envelope: the trunk signature fences relocation
+            # to identical trunks, and the leaves are named as JAX's
+            # cache pytree paths (JAX's format, so blobs cross between
+            # the packages); the parameter count and bytes price recompute
+            enc = self.params.get("enc") or []
+            d = int(_w_shape(self.params["src_emb"])[1])
+            dkv = int(_w_shape(enc[0]["attn"]["wk"])[1]) if enc else 0
+            self._kv_dims = (len(enc), dkv)
+            self._trunk_sig = (f"L{len(enc)}.d{d}.dkv{dkv}"
+                               f".h{self.num_heads}.{kv_dtype}"
+                               f".b{self.block_size}")
+            leaves = tree_leaves(self.params)
+            self._param_count = sum(int(t.numel()) for t in leaves)
+            self._param_bytes = sum(int(t.numel()) * t.element_size()
+                                    for t in leaves)
+            keys = ("k", "ks", "v", "vs") if kv_dtype == "int8" \
+                else ("k", "v")
+            self._cache_leaf_keys = [(i, k) for i in range(len(enc))
+                                     for k in keys]
+            self._cache_leaf_names = [f"[{i}]['{k}']"
+                                      for i, k in self._cache_leaf_keys]
+        # epoch guard: reset() bumps it, and step / advance /
+        # poll_restores refuse to commit across a bump, so a step the
+        # watchdog abandoned that finishes late cannot touch the rebuilt
+        # state.  The lock makes {epoch check + commit} atomic against
+        # {epoch bump + rebuild}.
+        self._epoch = 0
+        self._step_epoch = 0        # epoch of the last committed step
+        self._epoch_lock = threading.Lock()
         self._cache = self._new_cache()
         self.prefill_batches_total = 0     # ladder lm_prefill calls
         # host-side slot state: the token(s) fed at the NEXT step ([S] on
@@ -278,6 +352,15 @@ class DecodeEngine:
         self._warm = False
         if warm:
             self.warmup()
+
+    def _new_paged(self, num_blocks, prefix_cache):
+        """The host allocator, with the spill hook when a tier is
+        attached."""
+        return PagedKVState(
+            self.num_slots, num_blocks, self.block_size, self.max_len,
+            prefix_cache=prefix_cache,
+            on_evict=self._spill_chain if self._host_tier is not None
+            else None)
 
     def _new_cache(self):
         """A zeroed slab, or a zeroed pool with the pool gauges set (a
@@ -491,6 +574,257 @@ class DecodeEngine:
         if self._paged is not None:
             self._paged.register_prefix(np.asarray(tokens, np.int32), slot)
 
+    # ------------------------------------------------------------ host tier
+
+    @property
+    def host_tier(self):
+        """The host-RAM spill tier (None unless ``kv_host_bytes > 0``)."""
+        return self._host_tier
+
+    def _gather_chain(self, chain):
+        """Each cache leaf's rows of blocks ``chain`` on the host, named
+        as the blob names them (the copies synchronize with the steps
+        that wrote them)."""
+        idx = torch.tensor(chain, dtype=torch.long, device=self.device)
+        return [(name, self._cache[i][k].index_select(0, idx).cpu().numpy())
+                for name, (i, k) in zip(self._cache_leaf_names,
+                                        self._cache_leaf_keys)]
+
+    def _spill_chain(self, key, covered, chain):
+        """``PrefixIndex`` eviction hook: serialize the chain's blocks
+        (still owned: the hook runs before the references release) and
+        park the blob in the host tier.  Runs on the batcher's worker
+        thread between steps.  Skipped while a LONGER entry of the same
+        stream is resident or parked: the index evicts a stream's
+        prefixes shortest first, and the longest one's spill carries
+        them all."""
+        tier = self._host_tier
+        key = tuple(key)
+        n = len(key)
+        if any(len(k) > n and k[:n] == key for k in self._paged.index.keys()):
+            return
+        if tier.covers(key):
+            return
+        blob = serialize_chain(key, covered, self._gather_chain(chain),
+                               self._trunk_sig)
+        dropped = tier.put(key, covered, blob)
+        self.metrics.observe_kv_spill(len(chain))
+        self.metrics.set_host_tier_bytes(tier.bytes)
+        obstrace.instant("kv.spill", blocks=len(chain), bytes=len(blob),
+                         covered=int(covered), lru_dropped=dropped)
+
+    def _recompute_ms(self, covered):
+        from paddle_tpu_torch.perf import analytic, roofline
+        # the ladder re-prefills in one call: one whole-prefix chunk step
+        k = self.prefill_chunk if self.prefill_chunk else int(covered) + 1
+        return analytic.predicted_recompute_ms(
+            covered, self._param_count, self._param_bytes, k,
+            roofline.spec_for(self.device))
+
+    def _restore_predicted_faster(self, covered):
+        """The restore-vs-recompute router (``perf/analytic.py``) at the
+        spec of this engine's device: ``(verdict, restore_ms,
+        recompute_ms)``."""
+        from paddle_tpu_torch.perf import analytic, roofline
+        layers, dkv = self._kv_dims
+        restore = analytic.predicted_restore_ms(
+            covered, layers, dkv, self.num_heads, self.kv_dtype,
+            roofline.spec_for(self.device))
+        recompute = self._recompute_ms(covered)
+        return restore < recompute, restore, recompute
+
+    def _handoff_predicted_faster(self, covered):
+        """The handoff-vs-recompute router: fetching ``covered``
+        positions from a peer (socket + host link) against recomputing
+        them here; ``(verdict, handoff_ms, recompute_ms)``."""
+        from paddle_tpu_torch.perf import analytic, roofline
+        layers, dkv = self._kv_dims
+        handoff = analytic.predicted_handoff_ms(
+            covered, layers, dkv, self.num_heads, self.kv_dtype,
+            roofline.spec_for(self.device))
+        recompute = self._recompute_ms(covered)
+        return handoff < recompute, handoff, recompute
+
+    def export_chain(self, tokens):
+        """The longest resident coverage of ``tokens`` as a wire-format
+        blob for a cross-replica handoff (``serving/transfer.py``).
+        Worker-thread only (it reads the committed cache): HTTP handlers
+        go through ``GenerationBatcher.export_chain``.  The resident
+        index first (a read-only lookup), else a blob already in the
+        host tier.  Returns ``(key, covered, blob)`` or ``(None, 0,
+        None)``."""
+        if self._paged is None:
+            return None, 0, None
+        full = np.asarray(tokens, np.int32)
+        covered, chain = self._paged.lookup_prefix(full)
+        if covered:
+            key = tuple(int(t) for t in full[:covered])
+            blob = serialize_chain(key, covered, self._gather_chain(chain),
+                                   self._trunk_sig)
+            obstrace.instant("kv.handoff_export", blocks=len(chain),
+                             bytes=len(blob), covered=int(covered))
+            return key, covered, blob
+        if self._host_tier is not None:
+            key, covered, blob = self._host_tier.lookup(full,
+                                                        self.block_size)
+            if key is not None:
+                obstrace.instant("kv.handoff_export", blocks=0,
+                                 bytes=len(blob), covered=int(covered),
+                                 from_tier=True)
+                return key, covered, blob
+        return None, 0, None
+
+    def deliver_chain_blob(self, blob, max_bytes=None):
+        """Park a peer's blob in the host tier (any thread) after checking
+        its envelope against this engine's trunk signature; the next
+        request it covers restores it through the ordinary restore path.
+        Returns ``(key, covered)``; raises ``WireFormatError`` (foreign,
+        garbled, or a header whose coverage lies) or ``ConfigError`` (no
+        host tier)."""
+        if self._host_tier is None:
+            raise ConfigError(
+                "handoff delivery needs the host tier: run the decode "
+                "replica with kv_host_bytes > 0")
+        header = peek_chain_header(blob, self._trunk_sig, max_bytes)
+        key = tuple(int(t) for t in header.get("tokens", ()))
+        covered = int(header.get("covered", 0))
+        # a header lying about its coverage could wedge receivers in an
+        # endless claim-defer or seat garbage past the key
+        if not key or covered != len(key) or covered > self.max_len:
+            raise WireFormatError(
+                f"handoff blob declares covered={covered} over a "
+                f"{len(key)}-token key (max_len {self.max_len}); "
+                "refusing to pool it")
+        self._host_tier.put(key, covered, blob)
+        self.metrics.set_host_tier_bytes(self._host_tier.bytes)
+        return key, covered
+
+    def _stage(self, blob):
+        """Transfer-thread body of a restore: deserialize the blob into
+        host tensors and, on the card, copy them on a side stream from
+        pinned memory.  Returns ``(covered, leaves, event)``: the leaves
+        in ``_cache_leaf_names`` order, the copy's event (None on the
+        CPU) that ``poll_restores`` waits on before writing them."""
+        _toks, cov, arrays = restore_chain(blob, self._trunk_sig)
+        named = dict(arrays)
+        host = [torch.from_numpy(np.array(named[n]))
+                for n in self._cache_leaf_names]
+        if self.device.type != "cuda":
+            return cov, host, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            leaves = [h.pin_memory().to(self.device, non_blocking=True)
+                      for h in host]
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return cov, leaves, event
+
+    def _maybe_begin_restore(self, full):
+        """After a resident miss, probe the host tier for a spilled
+        coverage of ``full``.  On a hit the router prefers: claim blocks
+        (``claim_pending``), submit the staging job to the tier's thread,
+        and return ``RestorePendingError`` (the batcher defers the
+        request; its retry after ``poll_restores`` commits seats an
+        ordinary resident hit).  None routes it as a plain miss."""
+        tier = self._host_tier
+        if tier is None:
+            return None
+        full = np.asarray(full, np.int32)
+        key, covered, blob = tier.lookup(full, self.block_size)
+        if key is None \
+                or not self.cached_seat_worthwhile(covered, full.size):
+            return None
+        if key in self._pending_restores:
+            return RestorePendingError(
+                f"host-tier restore of {covered} position(s) already "
+                "in flight")
+        faster, restore_ms, recompute_ms = \
+            self._restore_predicted_faster(covered)
+        obstrace.instant("kv.restore_route", covered=int(covered),
+                         restore_ms=round(restore_ms, 4),
+                         recompute_ms=round(recompute_ms, 4),
+                         restore=faster)
+        if not faster:
+            return None
+        try:
+            self._paged.claim_pending(key, covered)
+        except InsufficientBlocksError as e:
+            return e        # the pool must drain before the claim
+        self._pending_restores[key] = (self._epoch, time.perf_counter())
+        tier.submit(key, lambda blob=blob: self._stage(blob))
+        return RestorePendingError(
+            f"host-tier restore of {covered} position(s) started")
+
+    def poll_restores(self, timeout=0.0):
+        """Land completed restores, strictly between steps: wait on each
+        staged copy, write the leaves into the claimed blocks, publish the
+        chain into the prefix index (``commit_pending``) and drop the
+        blob.  A job submitted before a ``reset()`` is dropped (its claim
+        died with the replaced state; its blob stays for the next probe);
+        a failed job releases its claim and forgets the blob.  Returns
+        the number committed."""
+        tier = self._host_tier
+        if tier is None or not self._pending_restores:
+            return 0
+        from paddle_tpu_torch.data.prefetch import _Failure
+        landed = 0
+        while self._pending_restores:
+            job = tier.poll(timeout=timeout if not landed else 0.0)
+            if job is None:
+                break
+            key, result = job
+            info = self._pending_restores.pop(key, None)
+            if info is None:
+                continue        # marker cleared by a reset
+            epoch, t0 = info
+            if epoch != self._epoch:
+                obstrace.instant("kv.restore_stale")
+                continue
+            chain = list(self._paged._pending.get(key, ()))
+            if isinstance(result, _Failure):
+                self._paged.release_pending(key)
+                tier.pop(key)   # a blob that failed to stage must not
+                #                 retry forever
+                logger.warning(
+                    "%s: host-tier restore failed (prefix falls back to "
+                    "recompute): %s: %s", self.name,
+                    type(result.exc).__name__, result.exc)
+                continue
+            covered, leaves, event = result
+            n_blocks = int(leaves[0].shape[0]) if leaves else 0
+            if n_blocks != len(chain):
+                self._paged.release_pending(key)
+                tier.pop(key)
+                logger.warning(
+                    "%s: host-tier restore staged %d block(s) for a "
+                    "%d-block claim; dropped", self.name, n_blocks,
+                    len(chain))
+                continue
+            with self._epoch_lock:
+                if epoch != self._epoch:
+                    obstrace.instant("kv.restore_stale")
+                    continue
+                if event is not None:
+                    # the step stream waits for the side stream's copy
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(event)
+                    for t in leaves:
+                        t.record_stream(cur)
+                idx = torch.tensor(chain, dtype=torch.long,
+                                   device=self.device)
+                for (i, k), leaf in zip(self._cache_leaf_keys, leaves):
+                    self._cache[i][k].index_copy_(0, idx, leaf)
+                self._paged.commit_pending(key, covered)
+            ent = tier.pop(key)
+            self.metrics.observe_kv_restore(
+                len(ent[1]) if ent else 0, time.perf_counter() - t0)
+            self.metrics.set_host_tier_bytes(tier.bytes)
+            obstrace.instant("kv.restore_commit", blocks=len(chain),
+                             covered=int(covered))
+            landed += 1
+        return landed
+
     def evict(self, slot, reason):
         """Free a slot between steps.  Slab: the row is left as-is (the
         next occupant rewrites each position before unmasking it).
@@ -619,13 +953,15 @@ class DecodeEngine:
     # ------------------------------------------------------------ seating
 
     def seat_prefilled(self, fulls):
-        """THE seat-prefix helper (paged prefix-cache admission, pool-
-        pressure re-seating and every chunked admission): for each 1-D
-        ``full`` context, seat a slot holding K/V for its prefix with the
-        following token armed, WITHOUT re-emitting anything:
+        """THE seat-prefix helper (supervised recovery, continuation
+        ``replay``, paged prefix-cache admission, pool-pressure re-seating
+        and every chunked admission): for each 1-D ``full`` context, seat
+        a slot holding K/V for its prefix with the following token armed,
+        WITHOUT re-emitting anything:
 
         1. paged + prefix cache: a resident chain seats by REFERENCE
-           (``seat_cached``);
+           (``seat_cached``); on a miss a spilled chain may start a
+           host-tier restore (``RestorePendingError``: defer and retry);
         2. otherwise chunked: ``seat_chunked`` with the whole context as
            the feed; on the ladder: re-prefill the longest ladder-covered
            prefix ``full[:min(len(full) - 1, top)]`` (same-bucket items
@@ -651,6 +987,11 @@ class DecodeEngine:
                         results[i] = self.seat_cached(full, covered, chain)
                     except Exception as e:    # noqa: BLE001 — isolate
                         results[i] = e        # to this item
+                    continue
+                # a resident miss may be one host-tier restore away
+                pending = self._maybe_begin_restore(full)
+                if pending is not None:
+                    results[i] = pending
                     continue
                 # pool-dry fast path: defer before burning any work
                 if not self.can_admit(pre + 1):
@@ -780,51 +1121,69 @@ class DecodeEngine:
                     self.metrics.observe_cow_fork()
         return victims
 
-    def _run(self, tokens, pos, lens):
-        """The step on the device: next token per slot as a host array
-        (lens is None on the ladder); speculating, every lane's argmax
-        [S, K].  The one host synchronization is the argmax result's
-        copy."""
+    def _run(self, cache, tokens, pos, lens, tables):
+        """The step on the device over ``cache`` (written in place):
+        (next token per slot as a host array, the cache the step returns)
+        — lens is None on the ladder, tables None on the slab;
+        speculating, every lane's argmax [S, K].  The one host
+        synchronization is the argmax result's copy."""
         dev = self.device
 
         def put(a):
             return torch.from_numpy(a).to(dev)
 
-        tables = (put(self._paged.tables.copy()) if self._paged is not None
-                  else None)
         common = (self.num_heads, self.moe_top_k, self.pos_type)
         spec = self._draft is not None
+        if tables is not None:
+            tables = put(tables)
         if self.prefill_chunk and tables is not None:
-            logits, self._cache = transformer.lm_decode_chunk_paged(
-                self.params, put(tokens), put(pos), put(lens), self._cache,
+            logits, cache = transformer.lm_decode_chunk_paged(
+                self.params, put(tokens), put(pos), put(lens), cache,
                 tables, *common, all_lanes=spec)
         elif self.prefill_chunk:
-            logits, self._cache = transformer.lm_decode_chunk_slots(
-                self.params, put(tokens), put(pos), put(lens), self._cache,
+            logits, cache = transformer.lm_decode_chunk_slots(
+                self.params, put(tokens), put(pos), put(lens), cache,
                 *common, all_lanes=spec)
         elif tables is not None:
-            logits, self._cache = transformer.lm_decode_step_paged(
-                self.params, put(tokens), put(pos), self._cache, tables,
-                *common)
+            logits, cache = transformer.lm_decode_step_paged(
+                self.params, put(tokens), put(pos), cache, tables, *common)
         else:
-            logits, self._cache = transformer.lm_decode_step_slots(
-                self.params, put(tokens), put(pos), self._cache, *common)
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            logits, cache = transformer.lm_decode_step_slots(
+                self.params, put(tokens), put(pos), cache, *common)
+        return (torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy(),
+                cache)
 
     def step(self):
         """Advance EVERY slot (free slots compute too — fixed shape);
         returns the next token per slot ([num_slots] np.int32).  Callers
         then bump their active slots via ``advance``; a speculating
-        slot's accepted run waits in ``take_spec_result``."""
+        slot's accepted run waits in ``take_spec_result``.
+
+        Epoch-guarded: the cache, tables and slot state are taken before
+        the fault point, and the result commits only if no ``reset()``
+        came meanwhile — a watchdog-abandoned step that finishes late
+        writes only the orphaned cache it started on, then raises."""
+        epoch = self._epoch
+        cache = self._cache
+        tables = (self._paged.tables.copy() if self._paged is not None
+                  else None)
         tokens, pos = self._tokens.copy(), self._pos.copy()
         lens = self._len.copy() if self.prefill_chunk else None
         spec_armed = {}
         if self._draft is not None:
             spec_armed, self._spec_armed = self._spec_armed, {}
-        # the fault point sits at the device-step boundary
+        # the fault point sits at the device-step boundary: a hang here
+        # models a wedged step for the watchdog to catch
         faults.hit("serving.decode_step")
         t0 = time.perf_counter()
-        nxt = self._run(tokens, pos, lens)
+        nxt, cache = self._run(cache, tokens, pos, lens, tables)
+        with self._epoch_lock:
+            if epoch != self._epoch:
+                raise RuntimeError(
+                    f"{self.name}: engine was reset mid-step; stale step "
+                    "result discarded")
+            self._cache = cache
+            self._step_epoch = epoch
         chunk_lanes = (int(lens.sum() - self.num_slots)
                        if lens is not None else 0)
         kw = {}
@@ -863,7 +1222,12 @@ class DecodeEngine:
         past the ``consumed`` lanes the last step processed.
         Speculating, the committed tokens join the draft's feed and, on
         the paged layout, the blocks the verify span provisioned past
-        the committed stream go back to the pool."""
+        the committed stream go back to the pool.  Refused (RuntimeError)
+        when a ``reset()`` came after the last committed step: the slot
+        state it would advance is the rebuilt one."""
+        if self._step_epoch != self._epoch:
+            raise RuntimeError(f"{self.name}: advance across a reset; the "
+                               "step it follows was discarded")
         if self._draft is not None:
             # lanes 1..consumed-1 are read before lane 0 is overwritten
             self._d_feed[slot].extend(
@@ -883,13 +1247,18 @@ class DecodeEngine:
         """Drop all slot state and re-zero the cache (the batch-failure
         isolation path: a failed step must not leak a poisoned cache into
         the next batch).  Paged: a fresh allocator and an empty prefix
-        index, since every cached chain died with the old pool."""
-        if self._paged is not None:
-            old = self._paged
-            self._paged = PagedKVState(
-                self.num_slots, old.pool.num_blocks, self.block_size,
-                self.max_len, prefix_cache=old.index is not None)
-        self._cache = self._new_cache()
+        index, since every cached chain died with the old pool; restore
+        claims in flight die with it (their jobs are dropped when they
+        land, their blobs stay in the tier).  The epoch bump orphans a
+        step still running."""
+        with self._epoch_lock:
+            self._epoch += 1
+            if self._paged is not None:
+                old = self._paged
+                self._paged = self._new_paged(old.pool.num_blocks,
+                                              old.index is not None)
+                self._pending_restores.clear()
+            self._cache = self._new_cache()
         self._tokens[:] = 0
         self._pos[:] = 0
         if self.prefill_chunk:
@@ -918,7 +1287,9 @@ class DecodeEngine:
             self._prefill_batch(
                 np.zeros((b, self.prefill_buckets[0]), np.int32),
                 np.ones((b,), np.int32))
-        self._run(self._tokens, self._pos, self._len)
+        _, self._cache = self._run(
+            self._cache, self._tokens, self._pos, self._len,
+            self._paged.tables.copy() if self._paged is not None else None)
         self._warm = True
         logger.info("decode[%s]: warm on %s (%d slots, max_len %d, kv %s "
                     "%s, %s)", self.name, self.device, self.num_slots,
@@ -929,28 +1300,25 @@ class DecodeEngine:
 
     # ------------------------------------------------------------ validate
 
-    def validate_request(self, prompt, max_tokens):
-        """Admission checks, raised BEFORE the queue: a non-empty 1-D
-        in-vocab id sequence (at most the ladder top on the ladder), an
-        int max_tokens >= 1, ``len(prompt) + max_tokens <= max_len``, and
-        on the paged layout a request that fits the pool alone."""
-        ids = np.asarray(prompt)
+    def _validate_ids(self, name, ids):
+        """A non-empty 1-D integer id sequence within the vocab."""
+        ids = np.asarray(ids)
         if ids.ndim != 1 or ids.size < 1:
             raise InvalidRequestError(
-                f"prompt must be a non-empty 1-D id sequence, got shape "
+                f"{name} must be a non-empty 1-D id sequence, got shape "
                 f"{ids.shape}")
         if not np.issubdtype(ids.dtype, np.integer):
             raise InvalidRequestError(
-                f"prompt must be integer token ids, got {ids.dtype}")
+                f"{name} must be integer token ids, got {ids.dtype}")
         vocab = _w_shape(self.params["src_emb"])[0]
         if int(ids.min()) < 0 or int(ids.max()) >= vocab:
             raise InvalidRequestError(
-                f"prompt ids must be in [0, {vocab}); got "
+                f"{name} ids must be in [0, {vocab}); got "
                 f"[{int(ids.min())}, {int(ids.max())}]")
-        if not self.prefill_chunk and ids.size > self.prefill_buckets[-1]:
-            raise InvalidRequestError(
-                f"prompt length {ids.size} exceeds the prefill ladder top "
-                f"{self.prefill_buckets[-1]}")
+        return ids
+
+    @staticmethod
+    def _parse_max_tokens(max_tokens):
         try:
             max_tokens = int(max_tokens)
         except (TypeError, ValueError):
@@ -959,12 +1327,43 @@ class DecodeEngine:
         if max_tokens < 1:
             raise InvalidRequestError(f"max_tokens={max_tokens} must be "
                                       ">= 1")
+        return max_tokens
+
+    def validate_request(self, prompt, max_tokens):
+        """Admission checks, raised BEFORE the queue: a non-empty 1-D
+        in-vocab id sequence (at most the ladder top on the ladder), an
+        int max_tokens >= 1, ``len(prompt) + max_tokens <= max_len``, and
+        on the paged layout a request that fits the pool alone."""
+        ids = self._validate_ids("prompt", prompt)
+        if not self.prefill_chunk and ids.size > self.prefill_buckets[-1]:
+            raise InvalidRequestError(
+                f"prompt length {ids.size} exceeds the prefill ladder top "
+                f"{self.prefill_buckets[-1]}")
+        max_tokens = self._parse_max_tokens(max_tokens)
         if ids.size + max_tokens > self.max_len:
             raise InvalidRequestError(
                 f"prompt ({ids.size}) + max_tokens ({max_tokens}) exceeds "
                 f"the engine max_len ({self.max_len})")
         self._check_pool_fit(ids.size + max_tokens)
         return ids.astype(np.int32), max_tokens
+
+    def validate_continuation(self, prompt, replay, max_tokens):
+        """Admission checks for a CONTINUATION: ``replay`` holds tokens a
+        previous serving of this stream already delivered; they are
+        teacher-forced, never re-emitted.  The combined context may pass
+        the ladder top (seating re-prefills the longest covered prefix
+        and feeds the rest through the step), so only ``len(prompt) +
+        len(replay) + max_tokens <= max_len`` bounds it."""
+        prompt = self._validate_ids("prompt", prompt)
+        replay = self._validate_ids("replay", replay)
+        max_tokens = self._parse_max_tokens(max_tokens)
+        if prompt.size + replay.size + max_tokens > self.max_len:
+            raise InvalidRequestError(
+                f"prompt ({prompt.size}) + replay ({replay.size}) + "
+                f"max_tokens ({max_tokens}) exceeds the engine max_len "
+                f"({self.max_len})")
+        self._check_pool_fit(prompt.size + replay.size + max_tokens)
+        return prompt.astype(np.int32), replay.astype(np.int32), max_tokens
 
     def _check_pool_fit(self, n_positions):
         """Paged: one request must fit the pool ALONE (preemption can
@@ -983,9 +1382,11 @@ class _GenRequest:
     __slots__ = ("prompt", "max_tokens", "eos_id", "future", "deadline",
                  "t_submit", "t_first", "on_token", "tokens", "slot",
                  "abandoned", "feed", "started", "admit_covered",
-                 "prefix_counted", "trace_ctx", "queue_span", "slot_span")
+                 "prefix_counted", "recoveries", "replay_ctx", "trace_ctx",
+                 "queue_span", "slot_span")
 
-    def __init__(self, prompt, max_tokens, eos_id, deadline, on_token):
+    def __init__(self, prompt, max_tokens, eos_id, deadline, on_token,
+                 replay_ctx=None):
         # the submitting thread's trace context (the HTTP handler's
         # request span), captured here: the worker that seats and decodes
         # the request has none of its own.  queue_span runs from the
@@ -1011,6 +1412,17 @@ class _GenRequest:
         self.admit_covered = 0            # this admission pass's prefix-
         #                                   cache coverage
         self.prefix_counted = False       # prefix hit/miss observed once
+        self.recoveries = 0               # supervised re-seats so far
+        self.replay_ctx = replay_ctx      # a continuation's delivered
+        #                                   tokens (never re-emitted)
+
+    @property
+    def context(self):
+        """Every token the stream holds before its first new emission:
+        the prompt plus a continuation's replayed tokens."""
+        if self.replay_ctx is None:
+            return self.prompt
+        return np.concatenate([self.prompt, self.replay_ctx])
 
     def fail(self, exc):
         # end both spans (idempotent): a failed request leaks no active
@@ -1040,33 +1452,40 @@ class _GenRequest:
 class GenerationBatcher:
     """Continuous-batching front for a ``DecodeEngine``.
 
-    ONE worker thread runs the loop: seat queued requests into free slots
-    (on the ladder, prefilling same-bucket prompts together and emitting
-    their first token), arm each ingesting slot's next prompt chunk,
-    run the draft's rollout and arm verify lanes (speculating), provision
-    the paged blocks (``prepare_step``), run one step, deliver each
-    emitting slot's token (a speculating slot's accepted run), evict
-    finished slots.  Admission happens
-    strictly between steps, so the step never changes shape.  The worker
-    issues all device work.  ``supervisor`` must be None: supervised
-    recovery (``resilience/supervisor.py``) is ROADMAP A8; without it a
-    failed step fails the requests in flight and the batcher serves on,
-    as JAX's unsupervised batcher."""
+    ONE worker thread runs the loop: land finished host-tier restores and
+    serve queued KV exports, seat queued requests into free slots (on the
+    ladder, prefilling same-bucket prompts together and emitting their
+    first token), arm each ingesting slot's next prompt chunk, run the
+    draft's rollout and arm verify lanes (speculating), provision the
+    paged blocks (``prepare_step``), run one step, deliver each emitting
+    slot's token (a speculating slot's accepted run), evict finished
+    slots.  Admission happens strictly between steps, so the step never
+    changes shape.  The worker issues all device work.
+
+    supervisor: a ``resilience.Supervisor`` (None = a failed step fails
+    the requests in flight and the batcher serves on).  With one, the
+    step runs under its watchdog, a failed or hung step rebuilds the
+    cache and re-seats every request in flight from its context plus its
+    delivered tokens (``Supervisor.reprefill``; each stream continues
+    unchanged, ``evictions{reason="recovered"}``), and its circuit
+    breaker sheds submits (``BreakerOpenError``, HTTP 503) after
+    repeated failures."""
 
     def __init__(self, engine, queue_size=256, default_deadline_ms=None,
                  default_max_tokens=64, name=None, supervisor=None):
-        if supervisor is not None:
-            raise ConfigError("supervised recovery (supervisor=, "
-                              "resilience/supervisor.py) is not yet ported "
-                              "to paddle_tpu_torch (ROADMAP A8)")
         if int(queue_size) < 1:
             raise ValueError("queue_size must be >= 1")
         self.engine = engine
         self.metrics = engine.metrics
+        self.supervisor = supervisor
         self.default_deadline_s = (float(default_deadline_ms) / 1e3
                                    if default_deadline_ms else None)
         self.default_max_tokens = int(default_max_tokens)
         self._q = queue.Queue(maxsize=int(queue_size))
+        # cross-replica KV exports: HTTP handlers queue (tokens, box,
+        # done) here and the worker serves them between steps (the gather
+        # reads the committed cache, the worker's)
+        self._export_q = queue.Queue()
         self._depth_fn = self._q.qsize
         self.metrics.queue_depth_fns.append(self._depth_fn)
         self._closed = threading.Event()
@@ -1078,7 +1497,7 @@ class GenerationBatcher:
         # paged-layout overflow lanes (worker-thread only): _waiting holds
         # popped requests the pool cannot seat yet (retried ahead of the
         # queue); _preempted holds requests whose slot was evicted under
-        # pool pressure — they re-seat from prompt + delivered tokens
+        # pool pressure — they re-seat from context + delivered tokens
         self._waiting = collections.deque()
         self._preempted = []
         # speculating: tokens delivered by a verify run -> number of runs
@@ -1091,32 +1510,59 @@ class GenerationBatcher:
     # ------------------------------------------------------------ submit
 
     def submit(self, prompt, max_tokens=None, eos_id=None, deadline_ms=None,
-               on_token=None):
+               on_token=None, replay=None):
         """Admit one generation request; returns a Future resolving to
         ``{"tokens": [ids...], "finish_reason": "eos"|"length"|
         "abandoned", "ttft_ms": float}``.  ``on_token`` is called per
         emitted token from the worker thread (exceptions are logged,
-        never fatal).  Raises synchronously: ``InvalidRequestError``,
-        ``OverloadedError`` (queue full), ``ShutdownError`` (draining);
-        an injected ``batcher.submit`` fault raises before anything is
-        queued or counted."""
+        never fatal).
+
+        replay: a CONTINUATION — tokens a previous serving of this stream
+        already delivered (a router failing over off a dead replica).
+        They are teacher-forced with their emissions swallowed, so the
+        result's ``tokens`` are only the new ones and the concatenated
+        stream is the uninterrupted one; ``len(prompt) + len(replay) +
+        max_tokens <= engine.max_len``.
+
+        Raises synchronously: ``InvalidRequestError``,
+        ``OverloadedError`` (queue full), ``ShutdownError`` (draining),
+        ``BreakerOpenError`` (the breaker is shedding; carries
+        ``retry_after_s``); an injected ``batcher.submit`` fault raises
+        before anything is queued or counted."""
         faults.hit("batcher.submit")
         if self._closed.is_set():
             self.metrics.reject("shutdown")
             raise ShutdownError(f"{self.name} is draining; submit rejected")
+        n_tok = (max_tokens if max_tokens is not None
+                 else self.default_max_tokens)
         try:
-            prompt, max_tokens = self.engine.validate_request(
-                prompt, max_tokens if max_tokens is not None
-                else self.default_max_tokens)
+            if replay is None:
+                prompt, max_tokens = self.engine.validate_request(prompt,
+                                                                  n_tok)
+            else:
+                prompt, replay, max_tokens = \
+                    self.engine.validate_continuation(prompt, replay, n_tok)
         except InvalidRequestError:
             self.metrics.reject("invalid")
             raise
+        # the breaker after validation: a malformed request must not burn
+        # the half-open probe (it would never reach a step to resolve it)
+        sup = self.supervisor
+        if sup is not None:
+            ok, retry_after = sup.breaker.admit()
+            if not ok:
+                self.metrics.reject("breaker")
+                self._snap_breaker()
+                raise BreakerOpenError(
+                    f"{self.name}: circuit breaker open (engine recently "
+                    f"failed repeatedly); retry in {retry_after:.2f}s",
+                    retry_after_s=retry_after)
         dl_s = (float(deadline_ms) / 1e3 if deadline_ms
                 else self.default_deadline_s)
         req = _GenRequest(prompt, max_tokens,
                           self.engine.eos_id if eos_id is None else eos_id,
                           time.perf_counter() + dl_s if dl_s else None,
-                          on_token)
+                          on_token, replay_ctx=replay)
         # started before the enqueue (the worker may pull the request at
         # once); a refused submit ends it
         req.queue_span = obstrace.start_span("gen.queue_wait",
@@ -1125,6 +1571,8 @@ class GenerationBatcher:
             if self._closed.is_set():     # close() raced the check above
                 req.queue_span.end()
                 self.metrics.reject("shutdown")
+                if sup is not None:       # the request never ran: hand
+                    sup.breaker.release_probe()   # the probe back
                 raise ShutdownError(
                     f"{self.name} is draining; submit rejected")
             try:
@@ -1132,6 +1580,8 @@ class GenerationBatcher:
             except queue.Full:
                 req.queue_span.end()
                 self.metrics.reject("overload")
+                if sup is not None:
+                    sup.breaker.release_probe()
                 raise OverloadedError(
                     f"{self.name}: queue full ({self._q.maxsize} waiting)") \
                     from None
@@ -1141,6 +1591,18 @@ class GenerationBatcher:
     def generate(self, prompt, timeout=None, **kw):
         """submit() + block for the result."""
         return self.submit(prompt, **kw).result(timeout)
+
+    def export_chain(self, tokens, timeout=5.0):
+        """The longest resident KV coverage of ``tokens`` as a wire-format
+        blob (the ``/v1/kv/export`` route's path): queued for the worker,
+        which serializes it strictly between steps.  ``(key, covered,
+        blob)``, or ``(None, 0, None)`` on no coverage or a timeout."""
+        box = [None, 0, None]
+        done = threading.Event()
+        self._export_q.put((tokens, box, done))
+        if not done.wait(timeout):
+            return None, 0, None
+        return box[0], box[1], box[2]
 
     def abandon(self, future):
         """The caller behind ``future`` is gone: a still-queued request is
@@ -1156,6 +1618,22 @@ class GenerationBatcher:
         self._abandoned.add(future)
 
     # ------------------------------------------------------------ worker
+
+    def _serve_exports(self):
+        """Worker thread, between steps: answer queued exports.  A failed
+        export resolves empty (the peer recomputes)."""
+        while True:
+            try:
+                tokens, box, done = self._export_q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box[0], box[1], box[2] = self.engine.export_chain(tokens)
+            except Exception as e:      # noqa: BLE001 — isolate to this
+                # export; the requester serves a miss
+                logger.warning("%s: kv export failed: %s: %s",
+                               self.name, type(e).__name__, e)
+            done.set()
 
     def _pull(self, block):
         if self._waiting:               # pool-deferred requests go first
@@ -1202,11 +1680,12 @@ class GenerationBatcher:
         Expired or cancelled requests never take a slot.
 
         Chunked: every request seats through ``engine.seat_prefilled``
-        and its prompt drains through the step as chunks.  Ladder: fresh
+        and its context drains through the step as chunks.  Ladder: fresh
         prompts prefill WHOLE in same-bucket groups and their first token
-        is delivered at admission; paged prefix-cache hits seat through
-        ``seat_prefilled`` instead.  On the paged layout, requests the
-        pool cannot hold yet are DEFERRED (``_waiting``), never failed."""
+        is delivered at admission; continuations and paged prefix-cache
+        hits seat through ``seat_prefilled`` instead.  On the paged
+        layout, requests the pool cannot hold yet (or whose restore is in
+        flight) are DEFERRED (``_waiting``), never failed."""
         self._reseat_preempted()
         block = block and not self._preempted
         picked, stashed = [], []
@@ -1228,7 +1707,7 @@ class GenerationBatcher:
                     continue        # client cancelled while queued
                 req.started = True
             covered = 0
-            if kv_budget is not None:
+            if kv_budget is not None and req.replay_ctx is None:
                 covered = self.engine.prefix_lookup(req.prompt)[0]
                 if not self.engine.cached_seat_worthwhile(
                         covered, req.prompt.size):
@@ -1250,10 +1729,12 @@ class GenerationBatcher:
             return
         fresh, recon = [], []
         for req in picked:
-            if kv_budget is not None and not req.prefix_counted:
+            if kv_budget is not None and req.replay_ctx is None \
+                    and not req.prefix_counted:
                 req.prefix_counted = True
                 self.metrics.observe_prefix_cache(hit=req.admit_covered > 0)
-            if self.engine.chunked or req.admit_covered:
+            if self.engine.chunked or req.admit_covered \
+                    or req.replay_ctx is not None:
                 recon.append(req)
             else:
                 fresh.append(req)
@@ -1350,11 +1831,15 @@ class GenerationBatcher:
                         slot=int(req.slot), mode="reseat",
                         teacher_forced=len(req.feed))
                 else:
+                    if req.replay_ctx is not None:
+                        mode = "continuation"
+                    elif not self.engine.chunked or req.admit_covered:
+                        mode = "prefix_hit"
+                    else:
+                        mode = "prefill"
                     req.slot_span = obstrace.start_span(
                         "slot", ctx=req.trace_ctx, root=False,
-                        slot=int(req.slot),
-                        mode="prefix_hit" if not self.engine.chunked
-                        or req.admit_covered else "prefill",
+                        slot=int(req.slot), mode=mode,
                         chunked=self.engine.chunked,
                         teacher_forced=len(req.feed))
         if hard is not None:
@@ -1362,8 +1847,9 @@ class GenerationBatcher:
         return seated
 
     def _seat_reconstructed(self, reqs):
-        """Seat chunked admissions and paged prefix-cache hits through
-        ``engine.seat_prefilled``; pool-dry items defer to ``_waiting``."""
+        """Seat chunked admissions, continuations and paged prefix-cache
+        hits through ``engine.seat_prefilled``; deferred items go to
+        ``_waiting``."""
         live = []
         for req in reqs:
             if self._flag_abandoned(req):
@@ -1372,11 +1858,11 @@ class GenerationBatcher:
                 live.append(req)
         if live:
             self._seat_outcomes(
-                live, self.engine.seat_prefilled([r.prompt for r in live]),
+                live, self.engine.seat_prefilled([r.context for r in live]),
                 self._waiting, "seat")
 
     def _reseat_preempted(self):
-        """Re-seat pool-preempted requests (oldest first) from prompt +
+        """Re-seat pool-preempted requests (oldest first) from context +
         delivered tokens: the teacher-forced feed swallows every
         re-derived emission, so the client's stream continues unchanged.
         Items the pool still cannot hold stay preempted."""
@@ -1392,7 +1878,7 @@ class GenerationBatcher:
                 live.append(req)
         if not live:
             return
-        fulls = [np.concatenate([r.prompt, np.asarray(r.tokens, np.int32)])
+        fulls = [np.concatenate([r.context, np.asarray(r.tokens, np.int32)])
                  for r in live]
         seated = self._seat_outcomes(live, self.engine.seat_prefilled(fulls),
                                      self._preempted,
@@ -1402,9 +1888,10 @@ class GenerationBatcher:
             self.metrics.observe_slot_reprefill(len(seated))
 
     def _load_chunks(self):
-        """Arm each feeding slot's next up-to-(K-1)-token chunk, within
-        the engine's per-step chunk budget.  A slot that gets no lanes
-        still advances one token through its lane 0."""
+        """Arm each feeding slot's next up-to-(K-1)-token chunk (prompt
+        ingestion, continuation and recovery replay alike), within the
+        engine's per-step chunk budget.  A slot that gets no lanes still
+        advances one token through its lane 0."""
         kk = self.engine.prefill_chunk
         budget = self.engine.prefill_chunk_budget
         used = 0
@@ -1434,6 +1921,82 @@ class GenerationBatcher:
         for slot, k_eff in self.engine.speculate(budgets).items():
             self._by_slot[slot].slot_span.event(
                 "speculate", k=int(k_eff), pos=int(self.engine._pos[slot]))
+
+    def _snap_breaker(self):
+        """Mirror the breaker's state into the metrics gauge."""
+        b = self.supervisor.breaker
+        self.metrics.set_breaker_state(b.state, b.opened_total)
+
+    def _recover_inflight(self, e):
+        """The supervised step failed (an error or a watchdog trip):
+        rebuild the cache (``reset()``, which also bumps the epoch so a
+        hung step can never commit into the rebuilt state) and re-seat
+        every request in flight from context + delivered tokens
+        (``Supervisor.reprefill``); each greedy stream continues
+        unchanged.  A request past its recovery budget, or whose re-seat
+        fails, fails with the cause; one the pool cannot hold yet waits
+        as a preemption."""
+        sup = self.supervisor
+        victims = list(self._by_slot.values())
+        self._by_slot.clear()
+        logger.warning("%s: supervised step over %d request(s) failed: "
+                       "%s: %s — rebuilding the cache and re-seating",
+                       self.name, len(victims), type(e).__name__, e)
+        # the rebuild-and-reseat window as one span: a recovered stream's
+        # trace shows how long the failure stalled it
+        recover_sp = obstrace.start_span("supervisor.recover", root=False,
+                                         n=len(victims),
+                                         cause=type(e).__name__)
+        self.engine.reset()
+        # evictions counted per outcome: recovered, abandoned, error or
+        # pool_exhausted
+        recoverable = []
+        for req in victims:
+            if self._flag_abandoned(req):
+                self.metrics.evict_slot("abandoned")
+                self._resolve(req, "abandoned")
+                continue
+            req.recoveries += 1
+            if req.recoveries > sup.max_request_recoveries:
+                self.metrics.evict_slot("error")
+                self.metrics.observe_error(1)
+                req.fail(BatchExecutionError(
+                    f"request failed after {req.recoveries - 1} slot "
+                    f"recoveries: {type(e).__name__}: {e}"))
+                continue
+            recoverable.append(req)
+        if not recoverable:
+            recover_sp.end(recovered=0)
+            return
+        try:
+            outcomes = sup.reprefill(self.engine,
+                                     [(req.context, req.tokens)
+                                      for req in recoverable])
+        except Exception as re:    # noqa: BLE001 — a recovery crash must
+            # fail the victims, never the worker thread
+            outcomes = [re] * len(recoverable)
+        for req, out in zip(recoverable, outcomes):
+            if isinstance(out, InsufficientBlocksError):
+                # space, not failure: the rebuilt pool's prefix index is
+                # empty, so victims that shared blocks may not all fit at
+                # once; _reseat_preempted continues them later
+                self.metrics.evict_slot("pool_exhausted")
+                self._preempted.append(req)
+                continue
+            if isinstance(out, BaseException):
+                self.metrics.evict_slot("error")
+                self.metrics.observe_error(1)
+                req.fail(BatchExecutionError(
+                    f"slot recovery failed: {type(out).__name__}: {out} "
+                    f"(after step failure: {type(e).__name__}: {e})"))
+                continue
+            req.slot, req.feed = out
+            self._by_slot[req.slot] = req
+            req.slot_span.event("recovery_reprefill", slot=int(req.slot),
+                                teacher_forced=len(req.feed))
+            self.metrics.evict_slot("recovered")
+            self.metrics.observe_slot_reprefill()
+        recover_sp.end(recovered=len(self._by_slot))
 
     def _fail_all_inflight(self, e, extra=()):
         """A device operation failed: fail every in-flight request (plus
@@ -1486,7 +2049,7 @@ class GenerationBatcher:
                 if first:
                     req.slot_span.event("first_token")
                     self.metrics.observe_ttft(req.t_first - req.t_submit)
-                    if self.engine.chunked:
+                    if self.engine.chunked and req.replay_ctx is None:
                         # the prompt's K/V is fully resident exactly now:
                         # publish it to the paged prefix index (no-op on
                         # slab)
@@ -1508,6 +2071,21 @@ class GenerationBatcher:
             else:
                 self.engine.advance(slot, run[-1], consumed)
 
+    def _step(self):
+        """One step, under the supervisor's watchdog and breaker when
+        one is attached."""
+        sup = self.supervisor
+        if sup is None:
+            return self.engine.step()
+        try:
+            nxt = sup.run_step(self.engine)
+        except WatchdogTimeout:
+            self.metrics.observe_watchdog_trip()
+            raise
+        sup.breaker.record_success()
+        self._snap_breaker()
+        return nxt
+
     def _loop(self):
         while True:
             if self._closed.is_set() and not self._drain:
@@ -1521,13 +2099,22 @@ class GenerationBatcher:
                         "generation batcher closed without drain"))
                 self._preempted, self._waiting = [], collections.deque()
                 return
+            # host-tier restores and cross-replica exports land here,
+            # strictly between steps: both touch the committed cache
+            self.engine.poll_restores()
+            self._serve_exports()
             self._admit_from_queue(block=not self._by_slot)
             if not self._by_slot:
                 if self._closed.is_set() and self._q.empty() \
                         and not self._waiting and not self._preempted:
                     return
-                if self._waiting or self._preempted:
-                    time.sleep(0.005)   # all runnable work is deferred
+                if self._waiting:
+                    # every runnable request is deferred (a restore in
+                    # flight, or a dry pool): wait a tick on the transfer
+                    # thread rather than spin
+                    self.engine.poll_restores(timeout=0.005)
+                elif self._preempted:
+                    time.sleep(0.005)
                 continue
             if self.engine.chunked:
                 self._load_chunks()
@@ -1545,10 +2132,21 @@ class GenerationBatcher:
                     self._preempted.append(req)
                 if not self._by_slot:
                     continue
-                nxt = self.engine.step()
+                nxt = self._step()
             except Exception as e:    # noqa: BLE001 — isolate to the
                 # requests in flight; the loop keeps serving
-                self._fail_all_inflight(e)
+                sup = self.supervisor
+                if sup is None:
+                    self._fail_all_inflight(e)
+                    continue
+                if sup.breaker.record_failure():
+                    logger.warning(
+                        "%s: circuit breaker OPEN after %d consecutive "
+                        "step failures; shedding new admissions for "
+                        "%.1fs", self.name, sup.breaker.threshold,
+                        sup.breaker.cooldown_s)
+                self._snap_breaker()
+                self._recover_inflight(e)
                 continue
             self._deliver(nxt)
 
@@ -1580,7 +2178,13 @@ class GenerationBatcher:
 
     @property
     def ready(self):
-        return not self._closed.is_set() and self.engine.ready
+        """Readiness (/readyz): accepting work, the engine warm, and the
+        circuit breaker not OPEN (half-open counts ready: the probe that
+        would reclose it must be routable)."""
+        if self._closed.is_set() or not self.engine.ready:
+            return False
+        return self.supervisor is None \
+            or self.supervisor.breaker.state != "open"
 
     def __enter__(self):
         return self

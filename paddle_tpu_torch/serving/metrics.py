@@ -1,10 +1,14 @@
-"""Live generation-serving metrics — the parts of ``paddle_tpu/serving/
-metrics.py::ServingMetrics`` that the port's engine, batcher and
-``/metrics`` use: request/response/rejection counters, TTFT, per-step
+"""Live serving metrics — ``paddle_tpu/serving/metrics.py::
+ServingMetrics`` less the sharded-decode, fleet-role and engine-cache
+gauges: request/response/rejection counters; the inference plane's
+batches, occupancy and padding waste (``observe_batch``); TTFT, per-step
 time (TPOT), slot occupancy, chunked-prefill lanes, slot evictions, the
 paged KV pool's gauges and prefix-sharing counters, the KV cache's
-storage dtype, speculative decoding's draft lanes and acceptance, and
-the injected faults fired by point (``fault_injections_total``,
+storage dtype, speculative decoding's draft lanes and acceptance; the
+host tier's spills, restores and resident bytes, cross-replica handoffs
+by outcome; the resilience events (transient-submit retries, watchdog
+trips, re-seated slots, the circuit breaker's state) and the injected
+faults fired by point (``fault_injections_total``,
 ``resilience/faults.fired_counts``).
 
 One instance is shared by the engine, the batcher and the HTTP front-end.
@@ -16,16 +20,28 @@ import threading
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.utils.stats import Histogram
 
-# submit() rejection reasons — keys are part of the /metrics surface
-REJECT_REASONS = ("overload", "deadline", "invalid", "shutdown")
+# submit() rejection reasons — keys are part of the /metrics surface.
+# breaker = the circuit breaker is open (resilience/supervisor.py)
+REJECT_REASONS = ("overload", "deadline", "invalid", "shutdown", "breaker")
 
 # decode-slot eviction reasons: eos = the model emitted the stop token,
 # length = max_tokens reached, error = the slot's request failed with its
 # step, shutdown = close(drain=False), abandoned = the caller went away,
+# recovered = a failed step tore the slot down and supervised recovery
+# re-seated it on the rebuilt cache (resilience/supervisor.py),
 # pool_exhausted = the paged KV pool ran dry and the slot was preempted
 # (its request re-seats and continues)
 EVICT_REASONS = ("eos", "length", "error", "shutdown", "abandoned",
-                 "pool_exhausted")
+                 "recovered", "pool_exhausted")
+
+# cross-replica KV handoff outcomes (serving/transfer.py): sent = this
+# replica exported a chain, received = a peer's blob was fetched into the
+# host tier, fallback = the handoff was skipped or failed and the stream
+# recomputed its context (the same tokens either way)
+HANDOFF_OUTCOMES = ("sent", "received", "fallback")
+
+# circuit-breaker state gauge encoding (breaker_state)
+BREAKER_STATES = {"closed": 0, "half_open": 1, "open": 2}
 
 _QUANTILES = (50, 95, 99)
 
@@ -40,6 +56,12 @@ class ServingMetrics:
         self.responses_total = 0         # futures resolved with a result
         self.errors_total = 0            # futures failed by a step error
         self.rejected = {r: 0 for r in REJECT_REASONS}
+        # the inference plane (serving/engine.py): executed batches, their
+        # real rows and padded bucket slots, and each batch's time
+        self.batches_total = 0
+        self.batch_rows_total = 0
+        self.batch_slots_total = 0
+        self.batch_time = Histogram(f"{name}_batch_time", max_samples)
         # request wall latency submit -> future resolved (seconds)
         self.latency = Histogram(f"{name}_latency", max_samples)
         # time to first token: submit -> the request's first emission
@@ -73,7 +95,24 @@ class ServingMetrics:
         #                                  resident prefix blocks
         self.prefix_cache_misses = 0     # fresh admissions that prefilled
         self.cow_forks = 0               # copy-on-write block forks
-        self.slot_reprefills_total = 0   # preempted slots re-seated
+        self.slot_reprefills_total = 0   # preempted or recovered slots
+        #                                  re-seated
+        # the host KV tier (kv_host_bytes): prefix chains spilled to host
+        # RAM at eviction and restored instead of recomputed
+        self.kv_spill_blocks_total = 0   # blocks serialized to the tier
+        self.kv_restore_hits_total = 0   # spilled chains restored
+        self.kv_restore_bytes_total = 0  # payload bytes restored
+        self.host_tier_bytes = 0         # gauge: resident spilled bytes
+        self.kv_restore = Histogram(f"{name}_kv_restore", max_samples)
+        # cross-replica handoffs (serving/transfer.py)
+        self.kv_handoffs = {o: 0 for o in HANDOFF_OUTCOMES}
+        self.kv_handoff_bytes_total = 0  # blob bytes sent + received
+        self.kv_handoff = Histogram(f"{name}_kv_handoff", max_samples)
+        # resilience (resilience/supervisor.py)
+        self.retries_total = 0           # transient submit retries taken
+        self.watchdog_trips_total = 0    # step deadline misses
+        self.breaker_open_total = 0      # times the breaker tripped open
+        self.breaker_state = 0           # gauge: 0 closed/1 half-open/2 open
         # each batcher contributes a zero-arg callable -> its queue depth
         self.queue_depth_fns = []
 
@@ -86,6 +125,15 @@ class ServingMetrics:
     def reject(self, reason):
         with self._lock:
             self.rejected[reason] = self.rejected.get(reason, 0) + 1
+
+    def observe_batch(self, n_real, bucket, seconds):
+        """One inference-plane batch: ``n_real`` rows padded to
+        ``bucket``."""
+        with self._lock:
+            self.batches_total += 1
+            self.batch_rows_total += int(n_real)
+            self.batch_slots_total += int(bucket)
+            self.batch_time.add(seconds)
 
     def observe_response(self, latency_s):
         with self._lock:
@@ -172,7 +220,66 @@ class ServingMetrics:
         with self._lock:
             self.slot_reprefills_total += int(n)
 
+    def observe_kv_spill(self, blocks):
+        """One prefix chain spilled to the host tier at eviction."""
+        with self._lock:
+            self.kv_spill_blocks_total += int(blocks)
+
+    def observe_kv_restore(self, nbytes, seconds):
+        """One spilled chain restored and committed (``seconds`` = the
+        job's submit-to-commit wall time)."""
+        with self._lock:
+            self.kv_restore_hits_total += 1
+            self.kv_restore_bytes_total += int(nbytes)
+            self.kv_restore.add(seconds)
+
+    def set_host_tier_bytes(self, nbytes):
+        """Gauge: serialized payload bytes resident in the host tier."""
+        with self._lock:
+            self.host_tier_bytes = int(nbytes)
+
+    def observe_kv_handoff(self, outcome, nbytes=0, seconds=None):
+        """One cross-replica KV handoff event: ``outcome`` in
+        ``HANDOFF_OUTCOMES``, ``nbytes`` the blob's bytes, ``seconds`` the
+        receive side's decide-to-deliver wall time."""
+        with self._lock:
+            self.kv_handoffs[outcome] += 1
+            self.kv_handoff_bytes_total += int(nbytes)
+            if seconds is not None:
+                self.kv_handoff.add(seconds)
+
+    def observe_retry(self, n=1):
+        with self._lock:
+            self.retries_total += int(n)
+
+    def observe_watchdog_trip(self):
+        with self._lock:
+            self.watchdog_trips_total += 1
+
+    def set_breaker_state(self, state, opened_total=None):
+        """Snapshot the breaker's state ('closed' / 'half_open' / 'open')
+        and its cumulative open count."""
+        with self._lock:
+            self.breaker_state = BREAKER_STATES.get(state, 0)
+            if opened_total is not None:
+                self.breaker_open_total = int(opened_total)
+
     # ------------------------------------------------------------ derive
+
+    @property
+    def mean_occupancy(self):
+        """Real rows per executed inference batch (> 1.0 iff batching
+        happened)."""
+        with self._lock:
+            return (self.batch_rows_total / self.batches_total
+                    if self.batches_total else 0.0)
+
+    @property
+    def padding_waste(self):
+        """Fraction of executed bucket slots that held padding."""
+        with self._lock:
+            return (1.0 - self.batch_rows_total / self.batch_slots_total
+                    if self.batch_slots_total else 0.0)
 
     @property
     def mean_slot_occupancy(self):
@@ -244,6 +351,19 @@ class ServingMetrics:
                 "prefix_cache_misses_total": self.prefix_cache_misses,
                 "cow_forks_total": self.cow_forks,
                 "slot_reprefills_total": self.slot_reprefills_total,
+                "batches_total": self.batches_total,
+                "batch_rows_total": self.batch_rows_total,
+                "batch_slots_total": self.batch_slots_total,
+                "kv_spill_blocks_total": self.kv_spill_blocks_total,
+                "kv_restore_hits_total": self.kv_restore_hits_total,
+                "kv_restore_bytes_total": self.kv_restore_bytes_total,
+                "host_tier_bytes": self.host_tier_bytes,
+                "kv_handoffs_total": dict(self.kv_handoffs),
+                "kv_handoff_bytes_total": self.kv_handoff_bytes_total,
+                "retries_total": self.retries_total,
+                "watchdog_trips_total": self.watchdog_trips_total,
+                "breaker_open_total": self.breaker_open_total,
+                "breaker_state": self.breaker_state,
                 "speculate_k": self.speculate_k,
                 "drafted_tokens_total": self.drafted_tokens_total,
                 "accepted_tokens_total": self.accepted_tokens_total,
@@ -252,6 +372,8 @@ class ServingMetrics:
             }
         out["faults_fired"] = faults.fired_counts()
         out["queue_depth"] = self.queue_depth()
+        out["mean_occupancy"] = round(self.mean_occupancy, 3)
+        out["padding_waste"] = round(self.padding_waste, 3)
         out["mean_slot_occupancy"] = self.mean_slot_occupancy
         out["mean_prefill_chunk_occupancy"] = \
             self.mean_prefill_chunk_occupancy
@@ -260,6 +382,9 @@ class ServingMetrics:
         out["latency_ms"] = self._percentiles_ms(self.latency)
         out["ttft_ms"] = self._percentiles_ms(self.ttft)
         out["tpot_ms"] = self._percentiles_ms(self.tpot)
+        out["batch_time_ms"] = self._percentiles_ms(self.batch_time)
+        out["kv_restore_ms"] = self._percentiles_ms(self.kv_restore)
+        out["kv_handoff_ms"] = self._percentiles_ms(self.kv_handoff)
         return out
 
     # ------------------------------------------------------------ render
@@ -293,7 +418,27 @@ class ServingMetrics:
                 ("cow_forks_total",
                  "copy-on-write KV block forks (paged KV cache)"),
                 ("slot_reprefills_total",
-                 "preempted decode slots re-seated"),
+                 "decode slots re-seated (pool preemption or recovery)"),
+                ("batches_total", "inference-plane batches executed"),
+                ("batch_rows_total", "real request rows executed"),
+                ("batch_slots_total",
+                 "bucket slots executed (rows + padding)"),
+                ("kv_spill_blocks_total",
+                 "KV blocks serialized to the host tier at prefix "
+                 "eviction"),
+                ("kv_restore_hits_total",
+                 "spilled prefix chains restored from the host tier"),
+                ("kv_restore_bytes_total",
+                 "serialized payload bytes restored host to device"),
+                ("kv_handoff_bytes_total",
+                 "KV blob bytes crossing the cross-replica handoff, sent "
+                 "+ received"),
+                ("retries_total",
+                 "transient submit failures absorbed by bounded retry"),
+                ("watchdog_trips_total",
+                 "decode steps abandoned past the watchdog deadline"),
+                ("breaker_open_total",
+                 "times the circuit breaker tripped open"),
                 ("drafted_tokens_total",
                  "draft lanes scored by verify steps (speculative "
                  "decoding)"),
@@ -309,13 +454,25 @@ class ServingMetrics:
                 ("rejected_total", snap["rejected"],
                  "requests rejected before the queue, by reason"),
                 ("slot_evictions_total", snap["evictions"],
-                 "decode slots evicted, by reason")):
+                 "decode slots evicted, by reason"),
+                ("kv_handoffs_total", snap["kv_handoffs_total"],
+                 "cross-replica KV handoffs, by outcome")):
             lines.append(f"# HELP {n}_{label} {help_}")
             lines.append(f"# TYPE {n}_{label} counter")
+            key = "outcome" if label == "kv_handoffs_total" else "reason"
             for reason in sorted(counts):
-                lines.append(f'{n}_{label}{{reason="{reason}"}} '
+                lines.append(f'{n}_{label}{{{key}="{reason}"}} '
                              f"{counts[reason]}")
         emit("queue_depth", snap["queue_depth"], "requests waiting in queue")
+        emit("batch_occupancy_mean", f"{self.mean_occupancy:.6f}",
+             "mean real rows per executed batch")
+        emit("padding_waste_ratio", f"{self.padding_waste:.6f}",
+             "fraction of executed slots that held padding")
+        emit("host_tier_bytes", snap["host_tier_bytes"],
+             "serialized KV payload bytes resident in the host spill tier "
+             "(0 = tier off)")
+        emit("breaker_state", snap["breaker_state"],
+             "circuit breaker state (0 closed, 1 half-open, 2 open)")
         emit("slot_count", snap["slot_count"], "decode slots in the slab")
         emit("slot_occupancy_mean", f"{snap['mean_slot_occupancy']:.6f}",
              "mean active slots per decode step")
@@ -348,7 +505,13 @@ class ServingMetrics:
                 (self.ttft, "ttft_seconds",
                  "time to first token (submit to first token)"),
                 (self.tpot, "tpot_seconds",
-                 "per-output-token latency (one slab decode step)")):
+                 "per-output-token latency (one slab decode step)"),
+                (self.batch_time, "batch_time_seconds",
+                 "engine batch execution time"),
+                (self.kv_restore, "kv_restore_seconds",
+                 "host-tier restore submit-to-commit wall time"),
+                (self.kv_handoff, "kv_handoff_seconds",
+                 "receive-side handoff decide-to-deliver wall time")):
             with self._lock:
                 pct, count = hist.percentiles(_QUANTILES), hist.count
             lines.append(f"# HELP {n}_{metric} {help_}, recent-window "

@@ -239,23 +239,20 @@ def test_close_drains_inflight_then_rejects(params):
         gen.submit([1, 2], max_tokens=2)
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="paged",
-                                     kv_host_bytes=1 << 20),
-                                dict(kv_layout="paged", speculate_k=2,
-                                     kv_host_bytes=1 << 20),
-                                dict(kv_dtype="int8", mesh=object()),
-                                dict(speculate_k=2, mesh=object()),
-                                dict(mesh=object()),
-                                dict(kv_host_bytes=1 << 20)])
-def test_options_not_yet_ported_raise_config_error(params, kw):
-    with pytest.raises(ConfigError, match="not yet ported"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(kv_layout="paged", prefix_cache=False, kv_host_bytes=1 << 20),
+     "prefix cache"),
+    (dict(kv_layout="paged", kv_host_bytes=-1), ">= 0"),
+    (dict(kv_dtype="int8", mesh=object()), "not yet ported"),
+    (dict(speculate_k=2, mesh=object()), "not yet ported"),
+    (dict(mesh=object()), "not yet ported"),
+    (dict(kv_host_bytes=1 << 20), "kv_layout='paged'")])
+def test_options_not_yet_ported_raise_config_error(params, kw, match):
+    with pytest.raises(ConfigError, match=match):
         _engine(params, warm=False, **kw)
 
 
 def test_supervisor_not_yet_ported_and_no_silent_cpu_fallback(params):
-    eng = _engine(params, warm=False)
-    with pytest.raises(ConfigError, match="not yet ported"):
-        GenerationBatcher(eng, supervisor=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,

@@ -504,7 +504,7 @@ def test_http_generate_through_the_speculate_k_flag():
     assert eng.speculating and len(eng.draft.params["enc"]) == 1
     assert qw.is_quantized_leaf(eng.params["src_emb"])
     assert eng.draft.params["src_emb"]["q"] is eng.params["src_emb"]["q"]
-    httpd = make_server(gen)
+    httpd = make_server(None, gen_batcher=gen)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     base = f"http://127.0.0.1:{httpd.port}"
     rng = np.random.RandomState(8)

@@ -326,7 +326,8 @@ def test_served_lm_spans_match_jaxs_and_off_is_bit_identical(chunk):
         else:
             trace.disable()
         gen = GenerationBatcher(DecodeEngine(params, device="cpu", **kw))
-        runs[on] = _serve(gen, make_server(gen), prompts, headers)
+        runs[on] = _serve(gen, make_server(None, gen_batcher=gen), prompts,
+                          headers)
         if on:
             spans = _finished(trace, 2)
     (out, debug), (off, off_debug) = runs[True], runs[False]
