@@ -521,6 +521,21 @@ non-zero exit code and no final "ok" line:
             for bit the direct forward) and the sentiment classifier's
             sequence feeds (B9 3 a batch, against the CPU), ms a batch by
             bucket, an engine.execute fault failing only its batch
+  serve_a8  the multi-process tier on the served LM: two replica
+            subprocesses (python -m paddle_tpu_torch.serving) under
+            ReplicaSupervisor behind Router, 12 streaming clients, kill
+            -9 of one mid-stream: every stream bit for bit an in-process
+            engine from the same seed, the victim restarted on its
+            seeded backoff; the failover stall, kill -> ready and the
+            router's added TTFT / TPOT against direct clients; a drain
+            under load with no failed request; a prefill/decode pair
+            (paged, host tier) handing every stream off at its first
+            token, bit for bit a mixed engine, with the analytic and
+            dead-source recompute fallbacks (B4 LAYERS a step); AIMD
+            shedding by class (429 + Retry-After) and the brownout token
+            cap (a prefix of the uncapped stream); the autoscaler
+            scaling out on a TTFT breach and back in, no failed request,
+            its journal printed
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -543,6 +558,7 @@ import contextlib
 from concurrent.futures import ThreadPoolExecutor
 import json
 import math
+import signal
 import sys
 import threading
 import time
@@ -10881,6 +10897,614 @@ def run_serve_a7(torch, dev, transformer, kernels, seed):
     return launches
 
 
+# serve_a8: the multi-process serving tier on the served LM (BASE_LM, the
+# chip_smoke seed).
+# (a) Two subprocess replicas (python -m paddle_tpu_torch.serving: the
+#     chunked slab default, --port 0 --port-file, a decode-step hang of
+#     A8_PACE_S pacing tokens so a kill lands mid-stream) under
+#     ReplicaSupervisor, behind Router.  A8_CLIENTS staggered streaming
+#     clients; kill -9 of r0 once every stream has 2 tokens out.  Every
+#     stream is bit for bit an in-process engine on the card from the
+#     same seed (its run launches B1 LAYERS a step); midstream failovers
+#     >= 1; r0 restarted with the seeded backoff and ready again.  The
+#     stall a client sees at the failover (the largest gap between two
+#     tokens), kill -> ready, the first spawn -> ready, and the clients'
+#     TTFT and TPOT p50 through the router beside the same clients sent
+#     straight to the replicas (the pacing hang is inside both TPOTs).
+# (b) r1 is removed (SIGTERM drain) while clients loop through the
+#     router: zero failed requests, each bit for bit its stream's prefix.
+# (c) A prefill and a decode server in process (paged, block A8_BS,
+#     prefix cache, a host tier) behind a router: every stream handed
+#     off at its first token, bit for bit a mixed engine of the same
+#     configuration; the prompts the analytic model prices for a handoff
+#     are received, the short one falls back to recompute; sent /
+#     received / bytes / ms on both servers and the router; B4 LAYERS a
+#     step on both engines; after the prefill server closes, a handoff
+#     naming it falls back and stays bit for bit, and a stream through
+#     the router still completes.
+# (d) A router with an AIMD limit of 4 over a slab server (B1): a burst
+#     past the limit sheds background first (429 + Retry-After) while
+#     interactive is admitted, then standard past its slice; at brownout
+#     rung 2 a stream is capped to A8_CAP tokens, a prefix of the
+#     uncapped stream.
+# (e) The autoscaler over the one-replica fleet left by (b), a low TTFT
+#     target: a sustained breach under A8_LOAD_CLIENTS streaming clients
+#     scales out to 2 (spawn to readiness), the load stops and it scales
+#     back in to 1; zero failed requests; the journal is printed.
+A8_CLIENTS, A8_TOKENS = 12, 48
+A8_PACE_S = 0.01
+A8_BS = 8
+A8_TIER_BYTES = 1 << 30
+A8_HANDOFF_LENGTHS, A8_HANDOFF_TOKENS = (96, 128, 16, 64), 16
+A8_CAP = 8
+A8_LOAD_CLIENTS, A8_LOAD_TOKENS = 16, 24
+A8_TARGET_TTFT_MS = 100.0
+
+
+def a8_stream(port, prompt, n_tok, on_token=None, headers=None, **extra):
+    """One streaming /v1/generate: {"status", "tokens", "done", "times"
+    (arrival of each token), "t0", "retry_after"}."""
+    import http.client
+    body = {"prompt": [int(t) for t in prompt], "max_tokens": n_tok,
+            "stream": True, **extra}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(body).encode(),
+                     {"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "tokens": [], "done": None,
+               "times": [], "t0": t0,
+               "retry_after": resp.getheader("Retry-After")}
+        if resp.status != 200:
+            out["error"] = resp.read().decode(errors="replace")[:300]
+            return out
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            rec = json.loads(line)
+            if "token" in rec:
+                out["tokens"].append(rec["token"])
+                out["times"].append(time.perf_counter())
+                if on_token is not None:
+                    on_token(len(out["tokens"]))
+            if rec.get("done") or "error" in rec:
+                out["done"] = rec
+                break
+        return out
+    finally:
+        conn.close()
+
+
+def a8_ttft_tpot(runs):
+    """p50 of the clients' TTFT and of their inter-token gaps, in ms."""
+    ttft = [(r["times"][0] - r["t0"]) * 1e3 for r in runs if r["times"]]
+    gaps = [(b - a) * 1e3 for r in runs
+            for a, b in zip(r["times"], r["times"][1:])]
+    return {"ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "tpot_p50_ms": float(np.percentile(gaps, 50))}
+
+
+def a8_concurrent(fn, n, stagger_s=0.01):
+    """fn(i) on n threads started stagger_s apart; the results."""
+    out = [None] * n
+
+    def run(i):
+        try:
+            out[i] = fn(i)
+        except Exception as e:      # noqa: BLE001 — reported by the caller
+            out[i] = {"status": None, "error": f"{type(e).__name__}: {e}",
+                      "tokens": [], "times": [], "done": None}
+
+    threads = []
+    for i in range(n):
+        threads.append(threading.Thread(target=run, args=(i,)))
+        threads[-1].start()
+        time.sleep(stagger_s)
+    for t in threads:
+        t.join(300)
+    return out
+
+
+def a8_ok(run, want):
+    return (run is not None and run["status"] == 200
+            and run["tokens"] == want and run["done"] is not None
+            and run["done"].get("tokens") == want)
+
+
+def a8_replica_logs(sup):
+    import os
+    tails = {}
+    for rid in list(sup.replicas):
+        path = os.path.join(sup.base_dir, f"{rid}.log")
+        if os.path.exists(path):
+            with open(path, errors="replace") as f:
+                tails[rid] = f.read()[-1500:]
+    return tails
+
+
+def a8_wait(pred, timeout, every=0.05):
+    until = time.time() + timeout
+    while time.time() < until:
+        if pred():
+            return True
+        time.sleep(every)
+    return False
+
+
+def a8_fleet(torch, dev, kernels, seed, rng, sup, router, port):
+    """(a): the kill -9 failover, the restart, router against direct."""
+    from paddle_tpu_torch.serving import server
+    prompts = [rng.randint(3, VOCAB, n).tolist()
+               for n in rng.randint(5, 61, A8_CLIENTS)]
+    gen = server.build_gen_batcher(seed=seed, slots=SLOTS,
+                                   max_len=SERVE_MAX_LEN,
+                                   max_tokens=A8_TOKENS, device=dev,
+                                   name="a8_reference")
+    kernels.reset_launches()
+    futs = [gen.submit(p, max_tokens=A8_TOKENS) for p in prompts]
+    oracle = [f.result(300)["tokens"] for f in futs]
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    steps = gen.metrics.snapshot()["decode_steps_total"]
+    gen.close()
+    if launches[kernels.decode_attention.NAME] != LAYERS * steps:
+        fail(f"serve_a8 reference: {launches} for {steps} steps")
+    barrier = threading.Barrier(A8_CLIENTS + 1, timeout=120)
+
+    def client(i):
+        armed = [True]
+
+        def seen(n):
+            if armed[0] and n >= 2:
+                armed[0] = False
+                barrier.wait()
+
+        try:
+            return a8_stream(port, prompts[i], A8_TOKENS, on_token=seen)
+        finally:
+            if armed[0]:
+                try:
+                    barrier.wait()
+                except threading.BrokenBarrierError:
+                    pass
+
+    box = {}
+
+    def kill():
+        barrier.wait()
+        box["t_kill"] = time.perf_counter()
+        sup.kill("r0", signal.SIGKILL)
+
+    killer = threading.Thread(target=kill)
+    killer.start()
+    runs = a8_concurrent(client, A8_CLIENTS)
+    killer.join(120)
+    t_kill = box.get("t_kill")
+    if t_kill is None:
+        fail("serve_a8: the kill never happened")
+    ok = [a8_ok(r, o) for r, o in zip(runs, oracle)]
+    stalls = [max((b - a) * 1e3 for a, b in zip(r["times"], r["times"][1:])
+                  if b > t_kill) for r in runs if len(r["times"]) > 1
+              and r["times"][-1] > t_kill]
+    snap = router.metrics.snapshot()
+    ready = sup.wait_ready(timeout=300, rids=("r0",))
+    kill_to_ready = time.perf_counter() - t_kill
+    fsnap = sup.snapshot()["r0"]
+    import random
+    want_delay = round(min(0.3, 10.0) * (0.5 + 0.5 * random.Random(
+        seed * 7919).random()), 4)
+    row = {"clients": A8_CLIENTS, "tokens": A8_TOKENS,
+           "pace_hang_s": A8_PACE_S, "bit_for_bit_engine": ok,
+           "errors": [r.get("error") for r in runs if r.get("error")],
+           "midstream_failovers": snap["midstream_failovers_total"],
+           "failovers": snap["failovers_total"],
+           "failover_stall_ms": max(stalls) if stalls else None,
+           "kill_to_ready_s": kill_to_ready, "victim_ready": ready,
+           "victim_restarts": fsnap["restarts_total"],
+           "backoff_delays_s": fsnap["backoff_delays_s"],
+           "seeded_backoff_s": want_delay,
+           "reference_launches": {k: n for k, n in launches.items() if n}}
+    if not (all(ok) and snap["midstream_failovers_total"] >= 1 and ready
+            and fsnap["restarts_total"] == 1
+            and fsnap["backoff_delays_s"] == [want_delay]):
+        fail(f"serve_a8 fleet: {row} {a8_replica_logs(sup)}")
+    # the same clients through the router and straight to the replicas
+    if not a8_wait(lambda: sum(s["ready"] for s in
+                               router.replica_states().values()) == 2, 60):
+        fail(f"serve_a8: the router never saw r0 again "
+             f"{router.replica_states()}")
+    eps = dict(sup.endpoints())
+    ports = [int(eps[r].rsplit(":", 1)[1]) for r in ("r0", "r1")]
+    timing = {}
+    for via in ("router", "direct", "router_again", "direct_again"):
+        got = a8_concurrent(
+            lambda i: a8_stream(port if via.startswith("router")
+                                else ports[i % 2], prompts[i], A8_TOKENS),
+            A8_CLIENTS)
+        if not all(a8_ok(r, o) for r, o in zip(got, oracle)):
+            fail(f"serve_a8 {via}: streams differ from the engine's")
+        timing[via] = a8_ttft_tpot(got)
+    row["timing"] = timing
+    row["router_added"] = {
+        key: (timing["router"][key] + timing["router_again"][key]
+              - timing["direct"][key] - timing["direct_again"][key]) / 2
+        for key in ("ttft_p50_ms", "tpot_p50_ms")}
+    return row, launches, prompts, oracle
+
+
+def a8_drain(sup, router, port, prompts, oracle):
+    """(b): r1 removed under load, zero failed requests."""
+    import urllib.error
+    stop = threading.Event()
+    done, failed = [0], []
+
+    def client(i):
+        while not stop.is_set():
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/generate",
+                data=json.dumps({"prompt": prompts[i],
+                                 "max_tokens": 8}).encode(),
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    out = json.loads(r.read())
+                if out["tokens"] != oracle[i][:8]:
+                    failed.append((i, "tokens"))
+                done[0] += 1
+            except (urllib.error.URLError, OSError, ValueError) as e:
+                failed.append((i, f"{type(e).__name__}: {e}"))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    before = done[0]
+    sup.remove_replica("r1", drain_timeout=60)
+    drain_s = time.perf_counter() - t0
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join(300)
+    row = {"requests": done[0], "during_drain": done[0] - before,
+           "failed": failed[:5], "n_failed": len(failed),
+           "drain_s": drain_s, "fleet": sorted(sup.replicas)}
+    if failed or sorted(sup.replicas) != ["r0"] or not done[0]:
+        fail(f"serve_a8 drain: {row}")
+    return row
+
+
+def a8_autoscale(torch, sup, router, port, prompts, oracle, seed):
+    """(e): scale out on a sustained breach, back in when the load
+    stops, zero failed requests."""
+    from paddle_tpu_torch.serving import Autoscaler
+    scaler = Autoscaler(sup, router, poll_interval_s=0.25,
+                        target_ttft_ms=A8_TARGET_TTFT_MS, hysteresis=0.2,
+                        breach_polls=2, slack_polls=8, cooldown_out_s=2.0,
+                        cooldown_in_s=4.0, min_replicas=1, max_replicas=2,
+                        window_s=4.0, seed=seed, ready_timeout_s=240.0,
+                        name="a8_autoscaler")
+    stop = threading.Event()
+    results, lock = [], threading.Lock()
+
+    def client(i):
+        p = prompts[i % len(prompts)]
+        while not stop.is_set():
+            r = a8_stream(port, p, A8_LOAD_TOKENS)
+            with lock:
+                results.append((i % len(prompts), r))
+
+    scaler.start()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(A8_LOAD_CLIENTS)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        out_ok = a8_wait(lambda: len(sup.replicas) >= 2
+                         and scaler.scales_total["out"] >= 1, 300, 0.2)
+        scaled_out_s = time.perf_counter() - t0
+        time.sleep(1.0)             # both replicas serve the load
+        stop.set()
+        for t in threads:
+            t.join(300)
+        in_ok = a8_wait(lambda: len(sup.replicas) <= 1
+                        and scaler.scales_total["in"] >= 1, 120, 0.2)
+        scaled_in_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        scaler.close()
+    failed = [(i, r["status"], r.get("error")) for i, r in results
+              if not (a8_ok(r, oracle[i][:A8_LOAD_TOKENS])
+                      or (r["status"] == 429 and r["retry_after"]))]
+    journal = [[e["tick"], round(e["t"] - scaler.journal[0]["t"], 3),
+                e["decision"], e["reason"], e["signals"]["ttft_p99_ms"],
+                e["signals"]["replicas"], e.get("actuation")]
+               for e in scaler.journal]
+    row = {"clients": A8_LOAD_CLIENTS, "target_ttft_ms": A8_TARGET_TTFT_MS,
+           "requests": len(results), "failed": failed[:5],
+           "n_failed": len(failed), "scaled_out": out_ok,
+           "scaled_out_after_s": scaled_out_s, "scaled_in": in_ok,
+           "scaled_in_after_s": scaled_in_s,
+           "scales_total": dict(scaler.scales_total),
+           "scale_failures": scaler.scale_failures_total,
+           "fleet": sorted(sup.replicas), "journal": journal}
+    if failed or not (out_ok and in_ok):
+        fail(f"serve_a8 autoscaler: {row} {a8_replica_logs(sup)}")
+    return row
+
+
+def a8_disagg(torch, dev, kernels, params, rng):
+    """(c): the prefill/decode pair in process, both fallbacks."""
+    from paddle_tpu_torch.serving import (GenerationBatcher, Router,
+                                          make_server)
+    dk = kernels.decode_attention
+    kw = dict(kv_block_size=A8_BS, kv_host_bytes=A8_TIER_BYTES)
+    prompts = [rng.randint(3, VOCAB, n).tolist()
+               for n in A8_HANDOFF_LENGTHS + (96, 64)]
+    n_tok = A8_HANDOFF_TOKENS
+    ref_eng = a6b_engine(params, dev, "a8_mixed", **kw)
+    ref = GenerationBatcher(ref_eng)
+    oracle = [ref.submit(p, max_tokens=n_tok).result(300)["tokens"]
+              for p in prompts]
+    ref.close()
+    handed = [bool(ref_eng._handoff_predicted_faster(
+        n // A8_BS * A8_BS)[0]) for n in A8_HANDOFF_LENGTHS]
+    if all(handed) or not any(handed):
+        fail(f"serve_a8 disagg: the prompts {A8_HANDOFF_LENGTHS} do not "
+             f"straddle the analytic crossover: {handed}")
+    servers = {}
+    for role in ("prefill", "decode"):
+        gen = GenerationBatcher(a6b_engine(params, dev, f"a8_{role}", **kw))
+        gen.metrics.set_serving_role(role)
+        httpd = make_server(None, port=0, gen_batcher=gen)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers[role] = (gen, httpd, f"http://127.0.0.1:{httpd.port}")
+    router = Router(replicas=[servers["prefill"][2], servers["decode"][2]],
+                    poll_interval_s=0.05, retry_budget=3, hedge_ms=0,
+                    name="a8_disagg")
+    httpd = router.start(port=0)
+    try:
+        if not a8_wait(router.disagg_active, 30):
+            fail("serve_a8 disagg: the router never saw both roles")
+        steps0 = {r: s[0].metrics.snapshot()["decode_steps_total"]
+                  for r, s in servers.items()}
+        kernels.reset_launches()
+        runs = a8_concurrent(lambda i: a8_stream(httpd.port, prompts[i],
+                                                 n_tok),
+                             len(A8_HANDOFF_LENGTHS))
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        steps = {r: s[0].metrics.snapshot()["decode_steps_total"] - steps0[r]
+                 for r, s in servers.items()}
+        outcomes = [(r["done"] or {}).get("kv_handoff", {}).get("outcome")
+                    for r in runs]
+        psnap = servers["prefill"][0].metrics.snapshot()
+        dsnap = servers["decode"][0].metrics.snapshot()
+        rsnap = router.metrics.snapshot()
+        n_handed = sum(handed)
+        row = {"prompts": list(A8_HANDOFF_LENGTHS), "tokens": n_tok,
+               "block_size": A8_BS, "analytic_handoff": handed,
+               "outcomes": outcomes,
+               "bit_for_bit_mixed": [a8_ok(r, o)
+                                     for r, o in zip(runs, oracle)],
+               "prefill_handoffs": psnap["kv_handoffs_total"],
+               "decode_handoffs": dsnap["kv_handoffs_total"],
+               "decode_handoff_bytes": dsnap["kv_handoff_bytes_total"],
+               "decode_handoff_ms": dsnap["kv_handoff_ms"],
+               "decode_restores": dsnap["kv_restore_hits_total"],
+               "router_handoffs": rsnap["kv_handoffs_total"],
+               "router_handoff_bytes": rsnap["kv_handoff_bytes_total"],
+               "router_handoff_ms": rsnap["kv_handoff_ms"],
+               "steps": steps,
+               "launches": {k: n for k, n in launches.items() if n}}
+        if not (all(row["bit_for_bit_mixed"])
+                and outcomes == ["received" if h else "fallback"
+                                 for h in handed]
+                and psnap["kv_handoffs_total"]["sent"] == n_handed
+                and dsnap["kv_handoffs_total"]["received"] == n_handed
+                and dsnap["kv_handoffs_total"]["fallback"]
+                == len(handed) - n_handed
+                and rsnap["kv_handoffs_total"]["received"] == n_handed
+                and rsnap["kv_handoff_bytes_total"] > 0
+                and all(steps.values())
+                and launches[dk.NAME_PAGED_CHUNK]
+                == LAYERS * sum(steps.values())):
+            fail(f"serve_a8 disagg: {row}")
+        # the prefill server goes away: a handoff naming it falls back
+        gen, phttpd, purl = servers.pop("prefill")
+        phttpd.shutdown()
+        phttpd.server_close()
+        gen.close()
+        p, o = prompts[len(A8_HANDOFF_LENGTHS)], oracle[len(A8_HANDOFF_LENGTHS)]
+        dead = a8_stream(servers["decode"][1].port, p, n_tok - 1,
+                         replay=o[:1], kv_handoff={"source": purl,
+                                                   "tokens": p})
+        post_p, post_o = prompts[-1], oracle[-1]
+        post = a8_stream(httpd.port, post_p, n_tok)
+        row["dead_source"] = {
+            "handoff": (dead["done"] or {}).get("kv_handoff"),
+            "bit_for_bit_mixed": a8_ok(dead, o[1:])}
+        row["after_prefill_loss_bit_for_bit"] = a8_ok(post, post_o)
+        if not (row["dead_source"]["bit_for_bit_mixed"]
+                and row["dead_source"]["handoff"]["outcome"] == "fallback"
+                and row["after_prefill_loss_bit_for_bit"]):
+            fail(f"serve_a8 disagg after the prefill loss: {row}")
+    finally:
+        router.close()
+        for gen, shttpd, _url in servers.values():
+            shttpd.shutdown()
+            shttpd.server_close()
+            gen.close()
+    return row, launches
+
+
+def a8_overload(torch, dev, kernels, params, rng):
+    """(d): AIMD shedding by class and the brownout token cap."""
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import (AIMDLimiter, BrownoutLadder,
+                                          DecodeEngine, GenerationBatcher,
+                                          OverloadController, Router,
+                                          make_server)
+
+    class Clock:
+        t = 1000.0
+
+        def __call__(self):
+            return self.t
+
+    clk = Clock()
+    eng = DecodeEngine(params, num_heads=HEADS, num_slots=SLOTS,
+                       max_len=SERVE_MAX_LEN, prefill_chunk=CHUNK,
+                       name="a8_overload", device=dev)
+    gen = GenerationBatcher(eng)
+    shttpd = make_server(None, port=0, gen_batcher=gen)
+    threading.Thread(target=shttpd.serve_forever, daemon=True).start()
+    ladder = BrownoutLadder(slo_ttft_s=0.05, enter_hold_s=1.0,
+                            exit_hold_s=1.0, clock=clk)
+    ctl = OverloadController(
+        limiter=AIMDLimiter(initial=4, min_limit=1, max_limit=64, clock=clk),
+        ladder=ladder, brownout_max_tokens=A8_CAP, clock=clk)
+    router = Router(replicas=[f"http://127.0.0.1:{shttpd.port}"],
+                    poll_interval_s=0.05, hedge_ms=0, overload=ctl,
+                    name="a8_overload")
+    httpd = router.start(port=0)
+    prompt = rng.randint(3, VOCAB, 20).tolist()
+    try:
+        if not a8_wait(router.ready, 30):
+            fail("serve_a8 overload: the router never saw its replica")
+        uncapped = gen.submit(prompt, max_tokens=32).result(300)["tokens"]
+        kernels.reset_launches()
+        steps0 = eng.metrics.snapshot()["decode_steps_total"]
+        faults.install_spec("serving.decode_step:every=1,action=hang,"
+                            "hang_s=0.05")
+        held_runs = []
+        held = [threading.Thread(target=lambda: held_runs.append(a8_stream(
+            httpd.port, prompt, 32, headers={"X-Priority": "standard"})))
+            for _ in range(3)]
+        for t in held:
+            t.start()
+        if not a8_wait(lambda: ctl.limiter.inflight == 3, 30):
+            fail(f"serve_a8 overload: {ctl.snapshot()}")
+        bg = a8_stream(httpd.port, prompt, 32,
+                       headers={"X-Priority": "background"})
+        inter = [None]
+        ti = threading.Thread(target=lambda: inter.__setitem__(
+            0, a8_stream(httpd.port, prompt, 32,
+                         headers={"X-Priority": "interactive"})))
+        ti.start()
+        if not a8_wait(lambda: ctl.limiter.inflight == 4, 30):
+            fail(f"serve_a8 overload: {ctl.snapshot()}")
+        std = a8_stream(httpd.port, prompt, 32,
+                        headers={"X-Priority": "standard"})
+        for t in held + [ti]:
+            t.join(300)
+        faults.clear()
+        # brownout rung 2: the token cap
+        for _ in range(3):
+            ladder.observe(1.0)
+            clk.t += 1.0
+        rung = ladder.rung
+        capped = a8_stream(httpd.port, prompt, 32)
+        while ladder.rung:
+            ladder.observe(0.001)
+            clk.t += 1.0
+        full = a8_stream(httpd.port, prompt, 32)
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        steps = eng.metrics.snapshot()["decode_steps_total"] - steps0
+    finally:
+        faults.clear()
+        router.close()
+        shttpd.shutdown()
+        shttpd.server_close()
+        gen.close()
+    osnap = ctl.snapshot()
+    row = {"aimd_limit": 4,
+           "background_at_3_inflight": [bg["status"], bg["retry_after"]],
+           "interactive_at_3_inflight": inter[0]["status"],
+           "standard_at_4_inflight": [std["status"], std["retry_after"]],
+           "held_standard": [r["status"] for r in held_runs],
+           "shed_total": osnap["shed_total"],
+           "shed_reasons": osnap["shed_reasons"],
+           "brownout_rung": rung, "capped_tokens": len(capped["tokens"]),
+           "capped_is_prefix": capped["tokens"] == uncapped[:A8_CAP],
+           "full_after_recovery": full["tokens"] == uncapped,
+           "token_caps": osnap["token_caps_applied_total"],
+           "steps": steps,
+           "launches": {k: n for k, n in launches.items() if n}}
+    if not (bg["status"] == 429 and int(bg["retry_after"] or 0) >= 1
+            and inter[0]["status"] == 200
+            and inter[0]["tokens"] == uncapped
+            and std["status"] == 429 and int(std["retry_after"] or 0) >= 1
+            and all(a8_ok(r, uncapped) for r in held_runs)
+            and len(held_runs) == 3
+            and osnap["shed_total"] == {"interactive": 0, "standard": 1,
+                                        "background": 1}
+            and rung == 2 and row["capped_is_prefix"]
+            and capped["status"] == 200 and row["full_after_recovery"]
+            and launches[kernels.decode_attention.NAME] == LAYERS * steps):
+        fail(f"serve_a8 overload: {row}")
+    return row, launches
+
+
+def run_serve_a8(torch, dev, transformer, kernels, seed):
+    """serve_a8 (see A8_CLIENTS); returns the launches by run."""
+    from paddle_tpu_torch.serving import ReplicaSupervisor, Router
+    from paddle_tpu_torch.utils.flags import FLAGS
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 31)
+    # the replicas' default emission cap is the router's (a continuation
+    # that omits max_tokens is budgeted from the router's FLAGS)
+    replica_args = ["--device", dev.type, "--seed", str(seed),
+                    "--slots", str(SLOTS), "--max-len", str(SERVE_MAX_LEN),
+                    "--max-tokens", str(FLAGS.serving_gen_max_tokens),
+                    "--fault-spec", "serving.decode_step:every=1,"
+                    f"action=hang,hang_s={A8_PACE_S}"]
+    sup = ReplicaSupervisor(n_replicas=2,
+                            cmd=("-m", "paddle_tpu_torch.serving"),
+                            extra_args=replica_args, backoff_base_s=0.3,
+                            seed=seed, name="a8_fleet")
+    router = Router(supervisor=sup, poll_interval_s=0.1, eject_threshold=2,
+                    eject_cooldown_s=1.0, retry_budget=3, hedge_ms=0,
+                    name="a8_router")
+    launches = {}
+    try:
+        t_spawn = time.perf_counter()
+        sup.start()
+        if not sup.wait_ready(timeout=300):
+            fail(f"serve_a8: replicas never ready {a8_replica_logs(sup)}")
+        spawn_s = time.perf_counter() - t_spawn
+        httpd = router.start(port=0)
+        if not a8_wait(lambda: sum(s["ready"] for s in
+                                   router.replica_states().values()) == 2,
+                       60):
+            fail(f"serve_a8: router view {router.replica_states()}")
+        fleet, launches["reference"], prompts, oracle = a8_fleet(
+            torch, dev, kernels, seed, rng, sup, router, httpd.port)
+        fleet["spawn_to_ready_s"] = spawn_s
+        drain = a8_drain(sup, router, httpd.port, prompts, oracle)
+        params = transformer.init_lm(torch.Generator().manual_seed(seed),
+                                     VOCAB, D_MODEL, HEADS, DFF, LAYERS,
+                                     SERVE_MAX_LEN, device=dev)
+        disagg, launches["handoff_pair"] = a8_disagg(torch, dev, kernels,
+                                                     params, rng)
+        overload, launches["overload"] = a8_overload(torch, dev, kernels,
+                                                     params, rng)
+        del params
+        autoscale = a8_autoscale(torch, sup, router, httpd.port, prompts,
+                                 oracle, seed)
+    finally:
+        router.close()
+        sup.stop()
+    emit({"phase": "serve_a8", "fleet": fleet, "drain": drain,
+          "disagg": disagg, "overload": overload, "autoscaler": autoscale,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11117,6 +11741,7 @@ def main(argv=None):
     a5_launches = run_host_a5(torch, dev, kernels, args.seed)
     a6b_launches = run_serve_a6b(torch, dev, transformer, kernels, args.seed)
     a7_launches = run_serve_a7(torch, dev, transformer, kernels, args.seed)
+    a8_launches = run_serve_a8(torch, dev, transformer, kernels, args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -11394,7 +12019,8 @@ def main(argv=None):
     # launched; B1, B2, B3, B4, 6d and B9 must show
     for row in summary:
         for phase, runs in (("serve_a6b", a6b_launches),
-                            ("serve_a7", a7_launches)):
+                            ("serve_a7", a7_launches),
+                            ("serve_a8", a8_launches)):
             by_run = {run: n[row["name"]] for run, n in runs.items()
                       if n.get(row["name"])}
             if by_run:
@@ -11405,6 +12031,12 @@ def main(argv=None):
         if not (row.get("launches_serve_a6b") or row.get(
                 "launches_serve_a7")):
             fail(f"{name}: serve_a6b / serve_a7 never launched it")
+    # serve_a8: B1 by the in-process reference and slab engines, B4 by
+    # the prefill/decode pair
+    for name in (dk.NAME, dk.NAME_PAGED_CHUNK):
+        row = next(r for r in summary if r["name"] == name)
+        if not row.get("launches_serve_a8"):
+            fail(f"{name}: serve_a8 never launched it")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

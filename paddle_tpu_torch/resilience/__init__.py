@@ -3,8 +3,9 @@ injection (``faults.py``: named fault points in the serving engines and
 batchers, the prefetcher, the trainer's step and its checkpoint writer)
 and supervised recovery (``supervisor.py``: the step watchdog, slot
 re-seating onto a rebuilt cache, the circuit breaker and bounded retry
-of transient submits).  The chaos CLI (JAX's ``resilience/__main__.py``)
-is ROADMAP A8."""
+of transient submits), and the chaos CLI (``__main__.py``: ``python -m
+paddle_tpu_torch.resilience --smoke``, serving under an injected decode
+fault and a kill -9 trainer resumed bit for bit)."""
 
 from paddle_tpu_torch.resilience.faults import (FAULT_POINTS, FaultPlan,
                                                 InjectedFault,

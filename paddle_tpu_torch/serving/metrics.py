@@ -105,6 +105,7 @@ class ServingMetrics:
         self.host_tier_bytes = 0         # gauge: resident spilled bytes
         self.kv_restore = Histogram(f"{name}_kv_restore", max_samples)
         # cross-replica handoffs (serving/transfer.py)
+        self.serving_role = "mixed"      # gauge: this replica's fleet role
         self.kv_handoffs = {o: 0 for o in HANDOFF_OUTCOMES}
         self.kv_handoff_bytes_total = 0  # blob bytes sent + received
         self.kv_handoff = Histogram(f"{name}_kv_handoff", max_samples)
@@ -238,6 +239,12 @@ class ServingMetrics:
         with self._lock:
             self.host_tier_bytes = int(nbytes)
 
+    def set_serving_role(self, role):
+        """Gauge: this replica's fleet role ("prefill" | "decode" |
+        "mixed"); the router reads it off /metrics to build its pools."""
+        with self._lock:
+            self.serving_role = str(role)
+
     def observe_kv_handoff(self, outcome, nbytes=0, seconds=None):
         """One cross-replica KV handoff event: ``outcome`` in
         ``HANDOFF_OUTCOMES``, ``nbytes`` the blob's bytes, ``seconds`` the
@@ -358,6 +365,7 @@ class ServingMetrics:
                 "kv_restore_hits_total": self.kv_restore_hits_total,
                 "kv_restore_bytes_total": self.kv_restore_bytes_total,
                 "host_tier_bytes": self.host_tier_bytes,
+                "serving_role": self.serving_role,
                 "kv_handoffs_total": dict(self.kv_handoffs),
                 "kv_handoff_bytes_total": self.kv_handoff_bytes_total,
                 "retries_total": self.retries_total,
@@ -464,6 +472,11 @@ class ServingMetrics:
                 lines.append(f'{n}_{label}{{{key}="{reason}"}} '
                              f"{counts[reason]}")
         emit("queue_depth", snap["queue_depth"], "requests waiting in queue")
+        lines.append(f"# HELP {n}_serving_role this replica's role in a "
+                     "disaggregated fleet (the router builds its prefill "
+                     "and decode pools from it)")
+        lines.append(f"# TYPE {n}_serving_role gauge")
+        lines.append(f'{n}_serving_role{{role="{snap["serving_role"]}"}} 1')
         emit("batch_occupancy_mean", f"{self.mean_occupancy:.6f}",
              "mean real rows per executed batch")
         emit("padding_waste_ratio", f"{self.padding_waste:.6f}",

@@ -1,6 +1,5 @@
 """Stdlib HTTP front-end + CLI for the serving runtime
-(``paddle_tpu/serving/server.py``, less its ``--smoke-*`` self-tests and
-the disaggregated ``--role`` split).
+(``paddle_tpu/serving/server.py``, less its ``--smoke-*`` self-tests).
 
 Endpoints:
   POST /v1/infer   {"feed": {slot: array}, "deadline_ms": opt}
@@ -55,9 +54,15 @@ parent to it.
 CLI (``python -m paddle_tpu_torch.serving``): serves the Transformer-base
 decoder-only LM (vocab 32000, d_model 512, 8 heads, dff 2048, 6 layers,
 learned positions, tied embedding) with random weights drawn from
-``--seed``, on the card unless ``--device cpu``; 8 slots, max_len 256,
-chunk K = 8 by default (``--prefill-chunk 0``: the legacy prefill
-ladder), over the slab KV layout or, with ``--kv-layout paged``, the
+``--seed``, on the card unless ``--device cpu`` (a replica asked for the
+card on a machine without one raises: it never serves on the CPU);
+``--demo-generate`` serves JAX's tiny demo LM instead (vocab 256,
+d_model 32, 2 heads, dff 64, 2 layers; weights from ``--seed``), the
+fleet's default replica.  8 slots, max_len 256, chunk K = 8 by default
+(``--slots`` / ``--max-len`` / ``--max-tokens``, also under JAX's names
+``--gen-slots`` / ``--gen-max-len`` / ``--gen-max-tokens``;
+``--prefill-chunk 0``: the legacy prefill ladder over
+``--gen-prefill-buckets``), over the slab KV layout or, with ``--kv-layout paged``, the
 paged block pool (``--kv-block-size``, ``--kv-num-blocks``,
 ``--kv-prefix-cache``, ``--kv-host-bytes`` for the host spill tier),
 with a float32 or (``--kv-dtype int8``) an int8 KV cache;
@@ -66,7 +71,13 @@ with a float32 or (``--kv-dtype int8``) an int8 KV cache;
 speculatively with a draft of the target's first ``--draft-layers``
 blocks.  The generation plane is supervised (``--step-deadline-ms``
 arms the watchdog, ``--breaker-threshold`` / ``--breaker-cooldown-s``
-tune the breaker).  ``--demo`` also serves JAX's built-in MLP (16 -> 32
+tune the breaker).  ``--role prefill|decode|mixed`` names the replica's
+role in a disaggregated fleet (advertised on /metrics as
+``serving_role{role=...}``; the router sends new prompts to the prefill
+pool and hands each stream to a decode replica at its first token), and
+``--port-file PATH`` publishes the bound port atomically once listening
+(with ``--port 0``: the fleet supervisor's replicas).  ``--demo`` also
+serves JAX's built-in MLP (16 -> 32
 tanh -> 4 softmax) on /v1/infer (``--buckets``, ``--max-batch-size``,
 ``--max-delay-ms``), sharing one /metrics.  ``--deadline-ms`` sets the
 default per-request deadline; ``--fault-spec`` installs a fault plan
@@ -519,6 +530,9 @@ def make_server(batcher=None, host="127.0.0.1", port=0, gen_batcher=None):
 # Transformer-base decoder-only LM: paddle_tpu transformer.init defaults
 # with dec_layers=0 (the trunk bench.py's transformer_lm_decode runs)
 BASE_LM = dict(vocab=32000, d_model=512, num_heads=8, dff=2048, layers=6)
+# JAX's --demo-generate trunk (server.py _demo_gen_batcher): the fleet's
+# default replica
+DEMO_LM = dict(vocab=256, d_model=32, num_heads=2, dff=64, layers=2)
 
 
 def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
@@ -528,14 +542,17 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
                       kv_dtype="float32", quant_weights=False,
                       speculate_k=0, draft_layers=1, kv_host_bytes=0,
                       step_deadline_ms=None, breaker_threshold=None,
-                      breaker_cooldown_s=None, deadline_ms=None, **model):
+                      breaker_cooldown_s=None, deadline_ms=None,
+                      prefill_buckets=None, name="base_lm", **model):
     """The full-width trunk from ``seed`` behind a ``DecodeEngine`` +
     ``GenerationBatcher`` (``model`` overrides ``BASE_LM`` keys;
     ``prefill_chunk=0`` selects the legacy prefill ladder; ``kv_dtype=
     "int8"`` the quantized KV cache; ``quant_weights`` the int8 trunk;
     ``speculate_k`` > 0 speculative decoding with a ``draft_layers``-deep
     draft of the (quantized) target; ``kv_host_bytes`` the paged host
-    tier).  Supervised, as JAX's demo generation plane: the breaker and
+    tier; ``prefill_buckets`` the legacy ladder's prompt buckets, the
+    engine's default when None).  Supervised, as JAX's demo generation
+    plane: the breaker and
     recovery cost nothing absent failures, and the watchdog arms only
     with ``step_deadline_ms``; the breaker's defaults come from
     ``FLAGS``."""
@@ -556,6 +573,8 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
         params = quantize_lm(params)
     # the draft shares the target's (quantized) embedding and vocab
     draft = make_draft(params, layers=draft_layers) if speculate_k else None
+    ladder = {} if prefill_buckets is None else dict(
+        prefill_buckets=tuple(prefill_buckets))
     engine = DecodeEngine(params, num_heads=cfg["num_heads"],
                           num_slots=slots, max_len=max_len,
                           prefill_chunk=prefill_chunk, metrics=metrics,
@@ -563,8 +582,8 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
                           kv_num_blocks=kv_num_blocks,
                           prefix_cache=kv_prefix_cache, kv_dtype=kv_dtype,
                           speculate_k=speculate_k, draft=draft,
-                          kv_host_bytes=kv_host_bytes, name="base_lm",
-                          device=dev)
+                          kv_host_bytes=kv_host_bytes, name=name,
+                          device=dev, **ladder)
     sup = Supervisor(
         step_deadline_s=step_deadline_ms / 1e3 if step_deadline_ms else None,
         breaker_threshold=(breaker_threshold if breaker_threshold is not None
@@ -616,6 +635,21 @@ def parse_args(argv=None):
         prog="python -m paddle_tpu_torch.serving",
         description="Serve the Transformer-base decoder-only LM (random "
                     "weights from --seed) over /v1/generate")
+    ap.add_argument("--demo-generate", action="store_true",
+                    help="serve JAX's tiny demo LM (vocab 256, d_model 32, "
+                         "2 heads, dff 64, 2 layers) instead of the "
+                         "Transformer-base LM: the fleet's default replica")
+    ap.add_argument("--role", default=FLAGS.serving_role,
+                    choices=("prefill", "decode", "mixed"),
+                    help="disaggregated-serving role, advertised on "
+                         "/metrics as serving_role{role=...}: the router "
+                         "sends new prompts to the prefill pool and hands "
+                         "each stream to a decode replica at its first "
+                         "token; mixed (the default) serves both phases")
+    ap.add_argument("--port-file",
+                    help="write the bound port here once listening "
+                         "(atomic; with --port 0 for fleet-managed "
+                         "replicas)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=FLAGS.serving_port)
     ap.add_argument("--seed", type=int, default=0)
@@ -629,8 +663,14 @@ def parse_args(argv=None):
                     default=FLAGS.serving_max_batch_size or None)
     ap.add_argument("--max-delay-ms", type=float,
                     default=FLAGS.serving_max_delay_ms)
-    ap.add_argument("--slots", type=int, default=FLAGS.serving_gen_slots)
-    ap.add_argument("--max-len", type=int, default=FLAGS.serving_gen_max_len)
+    ap.add_argument("--slots", "--gen-slots", dest="slots", type=int,
+                    default=FLAGS.serving_gen_slots)
+    ap.add_argument("--max-len", "--gen-max-len", dest="max_len", type=int,
+                    default=FLAGS.serving_gen_max_len)
+    ap.add_argument("--gen-prefill-buckets", dest="prefill_buckets",
+                    default=FLAGS.serving_gen_prefill_buckets,
+                    help="prompt-length buckets of the legacy prefill "
+                         "ladder (--prefill-chunk 0)")
     ap.add_argument("--prefill-chunk", type=int,
                     default=FLAGS.serving_prefill_chunk,
                     help="prompt lanes per slot per step (0 = the legacy "
@@ -671,7 +711,8 @@ def parse_args(argv=None):
                     default=FLAGS.serving_draft_layers,
                     help="trunk depth of the draft derived from the "
                          "target (--speculate-k)")
-    ap.add_argument("--max-tokens", type=int,
+    ap.add_argument("--max-tokens", "--gen-max-tokens", dest="max_tokens",
+                    type=int,
                     default=FLAGS.serving_gen_max_tokens,
                     help="default per-request emission cap")
     ap.add_argument("--queue-size", type=int,
@@ -705,8 +746,11 @@ def parse_args(argv=None):
 
 def batcher_from_args(args, metrics=None, **model):
     """``build_gen_batcher`` as the flags ``args`` ask, supervised
-    (``model`` overrides ``BASE_LM`` keys)."""
-    return build_gen_batcher(seed=args.seed, slots=args.slots,
+    (``model`` overrides ``BASE_LM`` keys, or ``DEMO_LM``'s under
+    ``--demo-generate``); the metrics carry ``--role``."""
+    if args.demo_generate:
+        model = dict(DEMO_LM, name="demo_lm", **model)
+    gen = build_gen_batcher(seed=args.seed, slots=args.slots,
                              max_len=args.max_len,
                              prefill_chunk=args.prefill_chunk,
                              max_tokens=args.max_tokens,
@@ -723,7 +767,22 @@ def batcher_from_args(args, metrics=None, **model):
                              step_deadline_ms=args.step_deadline_ms,
                              breaker_threshold=args.breaker_threshold,
                              breaker_cooldown_s=args.breaker_cooldown_s,
-                             deadline_ms=args.deadline_ms, **model)
+                             deadline_ms=args.deadline_ms,
+                             prefill_buckets=tuple(
+                                 int(b) for b in
+                                 args.prefill_buckets.split(",")), **model)
+    gen.metrics.set_serving_role(args.role)
+    return gen
+
+
+def _write_port_file(path, port):
+    """Publish the bound port (meaningful with ``--port 0``) atomically:
+    the fleet supervisor discovers its replicas here, and a partial read
+    must be impossible."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(f"{port}\n")
+    os.replace(tmp, path)
 
 
 def _make_drain_handler(httpd, state, drain_timeout_s, force_exit):
@@ -800,6 +859,9 @@ def main(argv=None):
     httpd = make_server(batcher, host=args.host, port=args.port,
                         gen_batcher=gen)
     obstrace.set_process(f"replica:{httpd.port}")
-    logger.info("serving on http://%s:%d (/v1/generate%s)", args.host,
-                httpd.port, ", /v1/infer" if batcher else "")
+    if args.port_file:
+        _write_port_file(args.port_file, httpd.port)
+    logger.info("serving %s as %s on http://%s:%d (/v1/generate%s)",
+                gen.engine.name, args.role, args.host, httpd.port,
+                ", /v1/infer" if batcher else "")
     return _serve(httpd, args.drain_timeout_s)

@@ -6,7 +6,7 @@ max, avg) that the trainer feeds, as JAX's does: ``h2d_wait`` is the
 time each step waited for its device-ready feed.  ``timer(name)`` is the
 reference's ``REGISTER_TIMER``: a ``with`` block timed into that stat;
 ``print_all_stats`` logs every stat that counted.  ``Histogram`` is the
-``keep="last"`` ring of JAX's, without its injectable clock.
+``keep="last"`` ring of JAX's, with its injectable clock.
 """
 
 import contextlib
@@ -99,23 +99,51 @@ def print_all_stats():
 
 class Histogram:
     """The most recent ``max_samples`` observations and their
-    percentiles — a long-running server reports RECENT latency."""
+    percentiles — a long-running server reports RECENT latency.
 
-    def __init__(self, name, max_samples=10000):
+    clock: optional zero-arg monotonic clock.  When given, every sample
+    is stamped at ``add`` and ``percentiles(qs, window_s=W)`` /
+    ``recent_samples(W)`` read only the samples of the last W seconds of
+    ``clock()`` — the SLO windows of the router's overload control and
+    the autoscaler; a test injects a simulated clock."""
+
+    def __init__(self, name, max_samples=10000, clock=None):
         self.name = name
         self.samples = []
         self.max_samples = max_samples
         self.count = 0          # total observed, including overwritten
+        self.clock = clock
+        self.times = [] if clock is not None else None
 
     def add(self, seconds):
         self.count += 1
+        t = self.clock() if self.clock is not None else None
         if len(self.samples) < self.max_samples:
             self.samples.append(seconds)
+            if self.times is not None:
+                self.times.append(t)
         else:
-            self.samples[(self.count - 1) % self.max_samples] = seconds
+            i = (self.count - 1) % self.max_samples
+            self.samples[i] = seconds
+            if self.times is not None:
+                self.times[i] = t
 
-    def percentiles(self, qs=(50, 90, 99)):
-        if not self.samples:
+    def recent_samples(self, window_s=None):
+        """The retained samples inside the window (all of them when
+        ``window_s`` is None), read in one pass: a caller asking both
+        "is there a signal" and "what is its percentile" reads this once
+        rather than racing two clock reads against the window's edge."""
+        if window_s is None:
+            return list(self.samples)
+        if self.times is None:
+            raise ValueError(f"Histogram {self.name!r} has no clock; "
+                             "window_s needs Histogram(clock=...)")
+        cutoff = self.clock() - float(window_s)
+        return [s for s, t in zip(self.samples, self.times) if t >= cutoff]
+
+    def percentiles(self, qs=(50, 90, 99), window_s=None):
+        samples = self.recent_samples(window_s)
+        if not samples:
             return {q: 0.0 for q in qs}
-        arr = np.asarray(self.samples)
+        arr = np.asarray(samples)
         return {q: float(np.percentile(arr, q)) for q in qs}
