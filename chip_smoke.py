@@ -536,6 +536,16 @@ non-zero exit code and no final "ok" line:
             cap (a prefix of the uncapped stream); the autoscaler
             scaling out on a TTFT breach and back in, no failed request,
             its journal printed
+  api_a11   the API surfaces: demo/seqToseq/v1's train.conf through
+            the port's config compiler at dim 512, batch 48 (the parsed
+            graph is models/seqtoseq_dsl's, its first step on the card
+            that graph's from the same weights, 4 steps with B10 2 + 2,
+            the generation parse decoding 8 rows with B10 forward 2);
+            the same config through the trainer CLI (2 steps and the
+            pass-end test); a paddle_tpu_torch.v2 lstmemory classifier
+            (B9 1 + 1 a step, against the CPU, the parameters tar bit for
+            bit, v2.infer); --prefill-chunk-budget 4 on the served LM
+            (streams equal lm_generate, B1 6 a step)
 The kernels phase also holds every bf16 and float16 instance of the
 recurrent kernels (bf16_instances, rnn_f16: each (xs, W) pair of
 float32 / bf16 / float16 with a low-precision operand) and every bf16
@@ -11505,6 +11515,377 @@ def run_serve_a8(torch, dev, transformer, kernels, seed):
     return launches
 
 
+# api_a11: the API surfaces.  (a) demo/seqToseq/v1/train.conf
+# through the port's config compiler (compat.parse_config /
+# config_to_runtime) at dim 512, batch 48 (A11_ARGS; at train.conf's own
+# 50 the encoder GRUs take the scan in both packages), its data files
+# written from the wmt14 loader's triples (words s<id> / t<id> over
+# 3000-line dictionaries) into a temporary directory the phase works in:
+# the parsed graph's layer names and parameter shapes are
+# models/seqtoseq_dsl.build()'s; the parsed graph's first step on the
+# card and the DSL graph's, from the same weights on the same batch, run
+# the same kernels, so their loss and gradients are held to A11_SAME
+# (expected 0) and the largest difference reported; then A11_STEPS
+# steps, B10 2 + 2 a step and nothing else counted, the first batch's
+# loss in test mode after them below its first step's;
+# the is_generating=1 parse takes the trained weights by name and
+# decodes A11_GEN_ROWS sources (B10 forward 2).  (b) ``cli.main(["train",
+# --config train.conf ...])`` in process over a 2-batch list, its
+# pass-end test over one batch: B10 2 + 2 a step and 2 forward for the
+# test.  (c) a paddle_tpu_torch.v2 script: an lstmemory classifier at
+# D 128, B 32 (JAX's resident rule: B9), its first step against a CPU
+# run from the same weights within LSTM_REL_TOL, A11_V2_STEPS steps
+# through v2.trainer.SGD with B9 1 + 1 a step, parameters.to_tar /
+# from_tar bit for bit, v2.infer equal to the trained graph's forward.
+# (d) C21: batcher_from_args(parse_args(["--prefill-chunk-budget", "4"]))
+# at BASE_LM: 4 streams equal lm_generate up to their first margin below
+# MARGIN_TOL, at most 4 prompt lanes a step, B1 LAYERS a step.
+A11_DIM, A11_BATCH = 512, 48
+A11_ARGS = f"dim={A11_DIM},batch_size={A11_BATCH}"
+A11_SAME = 1e-6
+A11_STEPS = 3
+A11_GEN_ROWS = 8
+A11_V2 = dict(vocab=1000, emb=64, d=128, batch=32)
+A11_V2_STEPS = 4
+A11_BUDGET = 4
+A11_PROMPTS = (12, 29, 7, 41)
+A11_TOKENS = 16
+
+
+def a11_data(root):
+    """train.conf's data under ``root``: the dictionaries, ``a/`` with
+    A11_STEPS + 1 batches of wmt14 train pairs and ``b/`` with two
+    (train) and one of wmt14 test pairs (test)."""
+    import itertools
+    import os
+    from paddle_tpu_torch.data.datasets import wmt14
+
+    def lines(reader, n):
+        return ["{}\t{}".format(" ".join(f"s{i}" for i in src),
+                                " ".join(f"t{i}" for i in trg[1:]))
+                for src, trg, _ in itertools.islice(reader(), n)]
+
+    head = ["<s>", "<e>", "<unk>"]
+    batch = A11_BATCH
+    for sub, train_rows, test_rows in (
+            ("a", lines(wmt14.train(), (A11_STEPS + 1) * batch), None),
+            ("b", lines(wmt14.train(), 2 * batch),
+             lines(wmt14.test(), batch))):
+        d = os.path.join(root, sub)
+        os.makedirs(d)
+        for name, pre in (("src", "s"), ("trg", "t")):
+            with open(os.path.join(d, f"{name}.dict"), "w") as f:
+                f.write("\n".join(head + [f"{pre}{i}" for i in range(
+                    3, wmt14.SRC_DICT_SIZE)]) + "\n")
+        for name, rows in (("train", train_rows),
+                           ("test", test_rows or train_rows[:batch])):
+            with open(os.path.join(d, f"{name}-000"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+            with open(os.path.join(d, f"{name}.list"), "w") as f:
+                f.write(f"{sub}/{name}-000\n")
+
+
+def a11_grads(torch, dev, cost, optimizer, feeding, start, batch):
+    """One step's (trainer, loss, {leaf: gradient}) of ``cost`` from
+    ``start`` on ``dev``, the update applied."""
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    tr = SGD(cost=cost, parameters=start, update_equation=optimizer,
+             device=dev)
+    total, _ = tr._forward(DataFeeder(feeding, device=tr.device)(batch))
+    view = tr._view
+    tr._backward(total)
+    grads = dict(zip(leaf_names(view), (p.grad.detach().cpu()
+                                        for p in tree_leaves(view))))
+    tr._update()
+    return tr, float(total.detach()), grads
+
+
+def a11_diff(got, want):
+    """(the loss's relative difference, the worst leaf's difference
+    against its largest entry, that leaf)."""
+    errs = {n: float((got[2][n] - w).abs().max()) / max(
+        float(w.abs().max()), 1e-30) for n, w in want[2].items()}
+    worst = max(errs, key=errs.get)
+    return abs(got[1] - want[1]) / abs(want[1]), errs[worst], worst
+
+
+def a11_train_conf(torch, dev, kernels, conf):
+    """(a): see api_a11."""
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.compat import config_to_runtime, parse_config
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.models import seqtoseq_dsl as sd
+    from paddle_tpu_torch.trainer import SGD
+    t0 = time.perf_counter()
+    parsed = parse_config(conf, f"{A11_ARGS},data_dir=a")
+    cfg = config_to_runtime(parsed)
+    batches = list(cfg["train_reader"]())
+    topo, dsl = L.Topology(parsed.outputs), sd.build(dim=A11_DIM)
+    dtopo = L.Topology(dsl)
+    names = [n.name for n in topo.order]
+    if names != [n.name for n in dtopo.order] \
+            or topo.param_shapes() != dtopo.param_shapes():
+        fail(f"api_a11: train.conf's parsed graph is not seqtoseq_dsl's: "
+             f"{names} / {sorted(topo.param_shapes())}")
+    if len(batches) != A11_STEPS + 1 or cfg["batch_size"] != A11_BATCH:
+        fail(f"api_a11: the parsed reader gave {len(batches)} batches of "
+             f"{cfg['batch_size']}")
+    start = host_tree(SGD(cost=parsed.outputs[0],
+                          update_equation=cfg["optimizer"],
+                          device="cpu").parameters)
+    kernels.reset_launches()
+    card = a11_grads(torch, dev, parsed.outputs[0], cfg["optimizer"],
+                     cfg["feeding"], start, batches[0])
+    first_launches = lstm_gru_counts(kernels)
+    per_step = want_counts(kernels, gru_fwd=2, gru_bwd=2)
+    if first_launches != per_step:
+        fail(f"api_a11 train.conf: the first step launched "
+             f"{first_launches}, want {per_step}")
+    twin = a11_grads(torch, dev, dsl, sd.optimizer(), sd.feeding(), start,
+                     batches[0])
+    loss_diff, grad_diff, worst = a11_diff(card, twin)
+    if loss_diff > A11_SAME or grad_diff > A11_SAME:
+        fail(f"api_a11: the parsed graph's first step differs from "
+             f"seqtoseq_dsl's: loss {loss_diff}, {worst} {grad_diff}")
+    times, losses, pass_launches = counted_pass(
+        torch, kernels, card[0], batches[1:], cfg["feeding"],
+        "api_a11 train.conf", [per_step] * A11_STEPS)
+    losses = [card[1]] + losses
+    # the first batch's loss after the steps, against its loss before
+    after = card[0].test(lambda: iter(batches[:1]), feeding=cfg["feeding"])
+    if not after < losses[0]:
+        fail(f"api_a11 train.conf: the first batch's loss did not fall: "
+             f"{losses[0]} -> {after} (steps {losses})")
+    # the generation parse, the trained weights by name
+    gen = parse_config(conf, f"is_generating=1,{A11_ARGS},data_dir=a")
+    gtopo = L.Topology(gen.outputs)
+    keys = set(gtopo.param_shapes())
+    if not keys <= set(card[0].parameters):
+        fail(f"api_a11: the generation parse's keys {sorted(keys)} are not "
+             "the trained graph's")
+    params = {k: {n: t.detach() for n, t in card[0].parameters[k].items()}
+              for k in keys}
+    src_type = {"source_language_word": cfg["feeding"][
+        "source_language_word"]}
+    feed = DataFeeder(src_type, device=dev)(
+        [{"source_language_word": s["source_language_word"]}
+         for s in batches[0][:A11_GEN_ROWS]])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    g0 = time.perf_counter()
+    with torch.no_grad():
+        res = gtopo.apply(params, feed, mode="test")
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - g0) * 1e3
+    gen_launches = lstm_gru_counts(kernels)
+    if gen_launches != want_counts(kernels, gru_fwd=2):
+        fail(f"api_a11: the generation parse's decode launched "
+             f"{gen_launches}, want B10's forward once a direction")
+    b, k, t = res.tokens.shape
+    scores = res.scores.cpu()
+    if (b, k) != (A11_GEN_ROWS, 3) or t > 250 \
+            or int(res.tokens.min()) < 0 or int(res.tokens.max()) >= 3000 \
+            or not bool(torch.isfinite(scores).all()) \
+            or not bool((scores[:, :-1] >= scores[:, 1:]).all()):
+        fail(f"api_a11: the decode is malformed: tokens "
+             f"{tuple(res.tokens.shape)}, scores {scores}")
+    return {
+        "config": "demo/seqToseq/v1/train.conf, " + A11_ARGS,
+        "layers": len(names), "parameter_keys": len(topo.param_shapes()),
+        "parsed_vs_dsl_first_step": {"loss_rel_diff": loss_diff,
+                                     "grad_rel_diff_max": grad_diff,
+                                     "of": worst, "limit": A11_SAME},
+        "losses": losses, "first_batch_loss_after": after,
+        "ms_per_step": float(np.median(times)),
+        "ms_min_max": [min(times), max(times)],
+        "launches_per_step": per_step,
+        "decode": {"rows": b, "beam": k, "steps": t, "ms": gen_ms,
+                   "best_beam_lengths": res.lengths[:, 0].tolist(),
+                   "launches": gen_launches},
+        "seconds": time.perf_counter() - t0}, {
+        "train_api_a11": add_counts(first_launches, pass_launches),
+        "generate_api_a11": gen_launches}
+
+
+def a11_cli(torch, kernels, conf):
+    """(b): see api_a11."""
+    from paddle_tpu_torch.trainer import cli
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rc = cli.main(["train", "--config", conf, "--config_args",
+                   f"{A11_ARGS},data_dir=b", "--num_passes", "1",
+                   "--log_period", "1"])
+    torch.cuda.synchronize()
+    counts = lstm_gru_counts(kernels)
+    want = want_counts(kernels, gru_fwd=2 * 2 + 2, gru_bwd=2 * 2)
+    if rc != 0 or counts != want:
+        fail(f"api_a11 cli: exit {rc}, launches {counts}, want {want} "
+             "(2 steps of 2 + 2, the pass-end test's 2 forward)")
+    return {"exit": rc, "launches": counts,
+            "seconds": time.perf_counter() - t0}, counts
+
+
+def a11_v2(torch, dev, kernels, seed):
+    """(c): see api_a11."""
+    import io
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.layers.graph import Topology, reset_names
+    from paddle_tpu_torch.utils.tree import tree_leaves
+    t0 = time.perf_counter()
+    v, e, d, b = (A11_V2[k] for k in ("vocab", "emb", "d", "batch"))
+    rng = np.random.RandomState(seed + 43)
+    samples = []
+    for _ in range((A11_V2_STEPS + 1) * b):
+        ids = rng.randint(0, v, rng.randint(5, 41))
+        samples.append((ids.tolist(), int((ids < v // 20).any())))
+    batches = [samples[i * b:(i + 1) * b] for i in range(A11_V2_STEPS + 1)]
+    reset_names()
+    word = paddle.layer.data("word", size=v, is_seq=True)
+    emb = paddle.layer.embedding(word, size=e)
+    proj = paddle.layer.fc(emb, size=4 * d, act=None)
+    lstm = paddle.layer.lstmemory(proj)
+    pool = paddle.layer.pooling(lstm, pooling_type=paddle.pooling.Max)
+    prob = paddle.layer.fc(pool, size=2, act=paddle.activation.Softmax)
+    cost = paddle.layer.classification_cost(
+        prob, paddle.layer.data("label", size=2))
+    feeding = {"word": paddle.data_type.integer_value_sequence(v),
+               "label": paddle.data_type.integer_value(2)}
+    params = paddle.parameters.create(cost, seed=seed)
+    start = host_tree(params.tree)
+    kernels.reset_launches()
+    card = a11_grads(torch, dev, cost, paddle.optimizer.Adam(
+        learning_rate=2e-3), feeding, start, batches[0])
+    per_step = want_counts(kernels, lstm_fwd=1, lstm_bwd=1)
+    if lstm_gru_counts(kernels) != per_step:
+        fail(f"api_a11 v2: the first step launched "
+             f"{lstm_gru_counts(kernels)}, want {per_step}")
+    cpu = a11_grads(torch, "cpu", cost, paddle.optimizer.Adam(
+        learning_rate=2e-3), feeding, start, batches[0])
+    loss_diff, grad_diff, worst = a11_diff(card, cpu)
+    if loss_diff > LSTM_REL_TOL or grad_diff > LSTM_REL_TOL:
+        fail(f"api_a11 v2: the card's first step against the CPU: loss "
+             f"{loss_diff}, {worst} {grad_diff}")
+    trainer = paddle.trainer.SGD(cost, parameters=params,
+                                 update_equation=paddle.optimizer.Adam(
+                                     learning_rate=2e-3))
+    times, losses, step_launches = counted_pass(
+        torch, kernels, trainer, batches[:A11_V2_STEPS], feeding,
+        "api_a11 v2", [per_step] * A11_V2_STEPS)
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    buf.seek(0)
+    flat = paddle.parameters.Parameters.from_tar(buf)
+    buf.seek(0)
+    back = paddle.parameters.Parameters.from_tar(buf, like=params)
+    if sorted(flat) != sorted(params.names()) or not all(
+            np.array_equal(flat[n], params[n]) for n in params.names()) \
+            or not all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(back.tree), tree_leaves(trainer.parameters))):
+        fail("api_a11 v2: the parameters tar does not round-trip the "
+             "card's parameters bit for bit")
+    rows = [{"word": ids} for ids, _ in batches[-1]]
+    kernels.reset_launches()
+    out = paddle.infer(output_layer=prob, parameters=params, input=rows,
+                       feeding={"word": feeding["word"]})
+    infer_launches = lstm_gru_counts(kernels)
+    with torch.no_grad():
+        ref = Topology(prob).apply(params.tree, DataFeeder(
+            {"word": feeding["word"]}, device=dev)(rows), mode="test")
+    infer_diff = float((out - ref).abs().max())
+    if out.device.type != "cuda" or tuple(out.shape) != (b, 2) \
+            or infer_diff > A11_SAME \
+            or infer_launches != want_counts(kernels, lstm_fwd=1):
+        fail(f"api_a11 v2: infer {tuple(out.shape)} on {out.device}, "
+             f"{infer_diff} from the forward, launches {infer_launches}")
+    return {"shape": {"vocab": v, "emb": e, "D": d, "B": b},
+            "first_step_vs_cpu": {"loss_rel_err": loss_diff,
+                                  "grad_rel_err_max": grad_diff,
+                                  "of": worst, "tolerance": LSTM_REL_TOL},
+            "losses": losses, "ms_per_step": float(np.median(times)),
+            "launches_per_step": per_step,
+            "tar_round_trip_bit_for_bit": True, "tar_bytes": len(
+                buf.getvalue()),
+            "infer_max_abs_diff": infer_diff,
+            "infer_launches": infer_launches,
+            "seconds": time.perf_counter() - t0}, add_counts(
+                {**per_step}, step_launches)
+
+
+def a11_budget(torch, transformer, kernels, seed):
+    """(d): see api_a11; returns its readings and B1's launches."""
+    from paddle_tpu_torch.serving import server
+    t0 = time.perf_counter()
+    args = server.parse_args(["--prefill-chunk-budget", str(A11_BUDGET),
+                              "--max-tokens", str(A11_TOKENS),
+                              "--seed", str(seed)])
+    gen = server.batcher_from_args(args)
+    eng = gen.engine
+    rng = np.random.RandomState(seed + 47)
+    prompts = [rng.randint(3, VOCAB, n).tolist() for n in A11_PROMPTS]
+    try:
+        if (args.prefill_chunk_budget, eng.prefill_chunk_budget,
+                eng.prefill_chunk) != (A11_BUDGET, A11_BUDGET, CHUNK):
+            fail(f"api_a11: --prefill-chunk-budget did not reach the engine "
+                 f"({eng.prefill_chunk_budget})")
+        steps0 = eng.metrics.snapshot()["decode_steps_total"]
+        lanes0 = eng.metrics.prefill_lane_steps_total
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        futs = [gen.submit(p, max_tokens=A11_TOKENS) for p in prompts]
+        outs = [f.result(timeout=300)["tokens"] for f in futs]
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        others = sum(counts.values()) + recurrent_launches(kernels) \
+            - counts["decode_attention_slab_chunk"]
+        steps = eng.metrics.snapshot()["decode_steps_total"] - steps0
+        lanes = eng.metrics.prefill_lane_steps_total - lanes0
+        b1 = counts["decode_attention_slab_chunk"]
+        if b1 != LAYERS * steps or others:
+            fail(f"api_a11 budget: B1 {b1} in {steps} steps, want {LAYERS} "
+                 f"a step and nothing else ({others})")
+        if not 0 < lanes <= A11_BUDGET * steps:
+            fail(f"api_a11 budget: {lanes} prompt lanes in {steps} steps "
+                 f"over a budget of {A11_BUDGET}")
+        checked = check_streams(torch, transformer, eng.params, prompts,
+                                outs, "api_a11 budget")
+    finally:
+        gen.close()
+    return {"budget": A11_BUDGET, "prompts": list(A11_PROMPTS),
+            "tokens": A11_TOKENS, "steps": steps, "prompt_lanes": lanes,
+            "b1_launches": b1, "tokens_checked": checked,
+            "tokens_total": A11_TOKENS * len(prompts),
+            "seconds": time.perf_counter() - t0}, b1
+
+
+def run_api_a11(torch, dev, transformer, kernels, seed):
+    """api_a11 (see A11_ARGS); returns the B9 / B10 launches by run and
+    B1's."""
+    import os
+    import tempfile
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo",
+                        "seqToseq", "v1", "train.conf")
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        a11_data(tmp)
+        os.chdir(tmp)
+        try:
+            train, launches = a11_train_conf(torch, dev, kernels, conf)
+            cli_run, launches["cli_api_a11"] = a11_cli(torch, kernels, conf)
+        finally:
+            os.chdir(cwd)
+    v2_run, launches["v2_api_a11"] = a11_v2(torch, dev, kernels, seed)
+    budget, b1 = a11_budget(torch, transformer, kernels, seed)
+    emit({"phase": "api_a11", "train_conf": train, "cli": cli_run,
+          "v2": v2_run, "prefill_chunk_budget": budget,
+          "seconds": time.perf_counter() - t0})
+    return launches, b1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11742,6 +12123,8 @@ def main(argv=None):
     a6b_launches = run_serve_a6b(torch, dev, transformer, kernels, args.seed)
     a7_launches = run_serve_a7(torch, dev, transformer, kernels, args.seed)
     a8_launches = run_serve_a8(torch, dev, transformer, kernels, args.seed)
+    a11_launches, a11_b1 = run_api_a11(torch, dev, transformer, kernels,
+                                       args.seed)
 
     summary = []
     for row, mod, launches in (
@@ -11756,6 +12139,7 @@ def main(argv=None):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{key: row[key] for key in DEVICE_KEYS if key in row}})
+    summary[0]["launches_api_a11"] = a11_b1
     summary[0]["launches_host_a5"] = {
         run: n["decode_attention_slab_chunk"]
         for run, n in a5_launches.items()
@@ -11823,6 +12207,8 @@ def main(argv=None):
                    **{path: n[name] for path, n in nested_launches.items()},
                    **{path: n[name] for path, n in group_launches.items()},
                    **{path: n[name] for path, n in item1b.items()
+                      if n[name]},
+                   **{path: n[name] for path, n in a11_launches.items()
                       if n[name]}}
         summary.append({
             "name": name, "route": "cuda",
@@ -11865,14 +12251,17 @@ def main(argv=None):
             + s2s_launches["generate"][name] + s2g_launches[name]
             + s2d_launches["train"][name] + s2d_launches["generate"][name]
             + group_launches["train_lstm_group"][name]
-            + sum(n[name] for n in item1b.values()),
+            + sum(n[name] for n in item1b.values())
+            + sum(n[name] for n in a11_launches.values()),
             "launches_by_path": {
                 **{path: n[name] for path, n in s2s_launches.items()},
                 "generate_seq2seq": s2g_launches[name],
                 **{f"{path}_seqtoseq_demo": n[name]
                    for path, n in s2d_launches.items()},
                 "train_lstm_group": group_launches["train_lstm_group"][name],
-                **{path: n[name] for path, n in item1b.items() if n[name]}},
+                **{path: n[name] for path, n in item1b.items() if n[name]},
+                **{path: n[name] for path, n in a11_launches.items()
+                   if n[name]}},
             "shape_seqtoseq_demo": {"T": "3-29, ragged", "B": S2D_BATCH,
                                     "D": S2D_HIDDEN},
             "max_abs_err": max([row["max_abs_err"]]

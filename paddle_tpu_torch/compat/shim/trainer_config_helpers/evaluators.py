@@ -1,0 +1,3 @@
+"""A re-export of the trainer_config_helpers names (see the package)."""
+
+from paddle_tpu_torch.compat.shim.trainer_config_helpers import *  # noqa

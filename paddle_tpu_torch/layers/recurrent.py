@@ -260,6 +260,25 @@ class SubsequenceInput:
         self.input = input
 
 
+def _in_v1_parse():
+    """True while ``compat.config_parser`` executes a v1 config script
+    (there seq-ness is a data provider's property, not a layer's)."""
+    from paddle_tpu_torch.compat import config_parser
+    return config_parser.in_parse()
+
+
+def _promote_seq(node, _seen=None):
+    """Mark a layer chain as sequence-valued (the v1 promotion of JAX's
+    ``layers/recurrent._promote_seq``)."""
+    _seen = _seen if _seen is not None else set()
+    if id(node) in _seen:
+        return
+    _seen.add(id(node))
+    node.is_seq = True
+    for dep in node.inputs:
+        _promote_seq(dep, _seen)
+
+
 class _GroupBuildCtx:
     current = None
 
@@ -341,11 +360,16 @@ def recurrent_group(step, input, reverse=False, name=None):
             sub_inputs.append((ph, item))
         else:
             if not item.is_seq:
-                raise ConfigError(
-                    f"recurrent_group input {item.name} is not a "
-                    "sequence; wrap non-sequence inputs in StaticInput (a "
-                    "v1 config's promotion of such an input waits for "
-                    "ROADMAP A11)")
+                if _in_v1_parse():
+                    # a v1 config declares seq-ness in its data provider,
+                    # not on the layer: an input of a recurrent_group is
+                    # a sequence there.  The DSL keeps the strict check,
+                    # its data layers carry is_seq.
+                    _promote_seq(item)
+                else:
+                    raise ConfigError(
+                        f"recurrent_group input {item.name} is not a "
+                        "sequence; wrap non-sequence inputs in StaticInput")
             ph = LayerOutput(auto_name("step_in"), "__step_input__",
                              item.size, [], {}, is_seq=False)
             seq_inputs.append((ph, item))

@@ -62,9 +62,11 @@ fleet's default replica.  8 slots, max_len 256, chunk K = 8 by default
 (``--slots`` / ``--max-len`` / ``--max-tokens``, also under JAX's names
 ``--gen-slots`` / ``--gen-max-len`` / ``--gen-max-tokens``;
 ``--prefill-chunk 0``: the legacy prefill ladder over
-``--gen-prefill-buckets``), over the slab KV layout or, with ``--kv-layout paged``, the
-paged block pool (``--kv-block-size``, ``--kv-num-blocks``,
-``--kv-prefix-cache``, ``--kv-host-bytes`` for the host spill tier),
+``--gen-prefill-buckets``; ``--prefill-chunk-budget N`` caps the
+prompt lanes a step feeds across all slots), over the slab KV layout
+or, with ``--kv-layout paged``, the paged block pool
+(``--kv-block-size``, ``--kv-num-blocks``, ``--kv-prefix-cache``,
+``--kv-host-bytes`` for the host spill tier),
 with a float32 or (``--kv-dtype int8``) an int8 KV cache;
 ``--quant-weights 1`` serves the trunk's per-channel int8 weights
 (``quant/weights.quantize_lm``), and ``--speculate-k K`` decodes
@@ -536,7 +538,8 @@ DEMO_LM = dict(vocab=256, d_model=32, num_heads=2, dff=64, layers=2)
 
 
 def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
-                      max_tokens=64, queue_size=256, device=None,
+                      prefill_chunk_budget=0, max_tokens=64,
+                      queue_size=256, device=None,
                       metrics=None, kv_layout="slab", kv_block_size=16,
                       kv_num_blocks=0, kv_prefix_cache=True,
                       kv_dtype="float32", quant_weights=False,
@@ -546,7 +549,9 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
                       prefill_buckets=None, name="base_lm", **model):
     """The full-width trunk from ``seed`` behind a ``DecodeEngine`` +
     ``GenerationBatcher`` (``model`` overrides ``BASE_LM`` keys;
-    ``prefill_chunk=0`` selects the legacy prefill ladder; ``kv_dtype=
+    ``prefill_chunk=0`` selects the legacy prefill ladder;
+    ``prefill_chunk_budget`` caps the teacher-forced lanes a step feeds
+    across all slots (0 = unbounded); ``kv_dtype=
     "int8"`` the quantized KV cache; ``quant_weights`` the int8 trunk;
     ``speculate_k`` > 0 speculative decoding with a ``draft_layers``-deep
     draft of the (quantized) target; ``kv_host_bytes`` the paged host
@@ -577,7 +582,9 @@ def build_gen_batcher(seed=0, slots=8, max_len=256, prefill_chunk=8,
         prefill_buckets=tuple(prefill_buckets))
     engine = DecodeEngine(params, num_heads=cfg["num_heads"],
                           num_slots=slots, max_len=max_len,
-                          prefill_chunk=prefill_chunk, metrics=metrics,
+                          prefill_chunk=prefill_chunk,
+                          prefill_chunk_budget=prefill_chunk_budget,
+                          metrics=metrics,
                           kv_layout=kv_layout, kv_block_size=kv_block_size,
                           kv_num_blocks=kv_num_blocks,
                           prefix_cache=kv_prefix_cache, kv_dtype=kv_dtype,
@@ -675,6 +682,10 @@ def parse_args(argv=None):
                     default=FLAGS.serving_prefill_chunk,
                     help="prompt lanes per slot per step (0 = the legacy "
                          "prefill ladder)")
+    ap.add_argument("--prefill-chunk-budget", type=int,
+                    default=FLAGS.serving_prefill_chunk_budget,
+                    help="max teacher-forced chunk lanes per step across "
+                         "all slots (bounds TPOT jitter; 0 = unbounded)")
     ap.add_argument("--kv-layout", default=FLAGS.serving_kv_layout,
                     choices=("slab", "paged"),
                     help="decode KV-cache layout: slab reserves max_len "
@@ -753,6 +764,7 @@ def batcher_from_args(args, metrics=None, **model):
     gen = build_gen_batcher(seed=args.seed, slots=args.slots,
                              max_len=args.max_len,
                              prefill_chunk=args.prefill_chunk,
+                             prefill_chunk_budget=args.prefill_chunk_budget,
                              max_tokens=args.max_tokens,
                              queue_size=args.queue_size, device=args.device,
                              metrics=metrics, kv_layout=args.kv_layout,

@@ -19,12 +19,19 @@ dict, with ``CONFIG_ARGS`` (the parsed ``--config_args``) in its
 namespace:
   {"cost": LayerOutput, "optimizer": optim optimizer,
    "train_reader": reader, "test_reader": reader (optional),
-   "feeding": {name: InputType}, "save_dir": DIR (optional)}
-Layers are built with ``paddle_tpu_torch.layers``.  The job runs on the
-card unless ``--device cpu``, each job (``version`` names the device,
-``merge_model`` touches none) included.  v1 ``trainer_config_helpers``
-configs (``settings()`` / ``outputs()``) wait for ROADMAP A11; the JAX
-CLI's mesh and profiling flags wait for their items.  ``--prefetch``
+   "feeding": {name: InputType}, "save_dir": DIR (optional),
+   "evaluators": [EvaluatorSpec] (optional)}
+Layers are built with ``paddle_tpu_torch.layers``.  A reference-style
+v1 config (``from paddle.trainer_config_helpers import *``,
+``settings()``, ``define_py_data_sources2``, ``outputs()``) runs
+unchanged through ``compat.parse_config`` / ``config_to_runtime``, with
+``--config_args`` read by its ``get_config_arg`` and the dict's
+``batch_size`` that of its ``settings()`` (its reader is already
+batched).  The job runs on the card unless ``--device cpu``, each job
+(``version`` names the device, ``merge_model`` touches none) included.
+The JAX CLI's mesh and profiling flags wait for their items; its
+``--seq_buckets`` / ``--pad_batch``, which bound XLA's compiled shapes,
+have no counterpart in an eager port.  ``--prefetch``
 defaults, as JAX's, to ``FLAGS.prefetch_depth`` when
 ``FLAGS.async_load_data`` (else 0), and ``FLAGS.quant_train`` turns
 ``--quant-train`` on (``utils/flags``; ``trainer.api.init`` sets them).
@@ -41,24 +48,26 @@ import runpy
 import sys
 import time
 
-from paddle_tpu_torch.utils.error import ConfigError
-
 
 def _load_config(path, config_args):
-    """Run a config script defining ``get_config()``; return its dict."""
+    """A config script's dict: a native config's ``get_config()``, or a
+    reference-style v1 config (``from paddle.trainer_config_helpers
+    import *`` with ``settings()`` / ``outputs()``) through the config
+    compiler (``compat``), unchanged."""
     with open(path) as f:
         src = f.read()
-    if "def get_config" not in src:
-        raise ConfigError(f"{path}: no get_config(); v1 "
-                          "trainer_config_helpers configs are not ported "
-                          "yet (ROADMAP A11)")
-    # fresh layer-name registry per invocation: a second main() in the
-    # same process (train then test) must mint the SAME layer names, or
-    # loaded params won't match the rebuilt graph
-    from paddle_tpu_torch.layers.graph import reset_names
-    reset_names()
-    ns = runpy.run_path(path, init_globals={"CONFIG_ARGS": config_args})
-    return ns["get_config"]()
+    if "def get_config" in src:
+        # fresh layer-name registry per invocation: a second main() in
+        # the same process (train then test) must mint the SAME layer
+        # names, or loaded params won't match the rebuilt graph (the
+        # compat path resets inside parse_config)
+        from paddle_tpu_torch.layers.graph import reset_names
+        reset_names()
+        ns = runpy.run_path(path, init_globals={"CONFIG_ARGS": config_args})
+        if "get_config" in ns:
+            return ns["get_config"]()
+    from paddle_tpu_torch.compat import config_to_runtime, parse_config
+    return config_to_runtime(parse_config(path, config_args))
 
 
 def _resolve_prefetch(args):

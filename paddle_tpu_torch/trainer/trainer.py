@@ -967,6 +967,10 @@ def _to_float32(out, dtype):
     return out.float() if out.dtype == dtype else out
 
 
+def _canonical(a):
+    return a.astype(np.float32) if a.dtype == np.float64 else a
+
+
 class Inferencer:
     """paddle.v2.inference: run a topology in test mode on the device
     (the card unless "cpu").
@@ -1018,9 +1022,12 @@ class Inferencer:
                 else DataFeeder(feeding, device=self.device)
             feed = feeder(feed_or_batch)
         else:
+            # host values as JAX's jnp.asarray takes them: float64 (a
+            # Python list of floats) becomes float32
             feed = {k: v if isinstance(v, (SequenceBatch, NestedSequenceBatch,
                                            torch.Tensor))
-                    else torch.as_tensor(np.asarray(v), device=self.device)
+                    else torch.as_tensor(_canonical(np.asarray(v)),
+                                         device=self.device)
                     for k, v in feed_or_batch.items()}
         with torch.no_grad():
             return self._fwd(self._exec_params, self.model_state, feed)

@@ -482,7 +482,8 @@ def test_group_refusals_match_jax():
             M.memory(name="h", size=H)
     L.reset_names()
     x = L.data_layer("x", size=DIN, is_seq=True)
-    with pytest.raises(ConfigError, match="A11"):
+    # outside a v1 parse (where tests/test_torch_compat.py promotes it)
+    with pytest.raises(ConfigError, match="is not a sequence; wrap"):
         L.recurrent_group(lambda s: s, L.data_layer("d", size=DIN))
     # nested groups run now (tests/test_torch_nested_group.py); mixing a
     # SubsequenceInput with a flat sequence JAX refuses too

@@ -289,11 +289,18 @@ def test_cli_train_writes_a_pass_dir_and_test_reads_it(tmp_path, capsys):
 
 
 def test_cli_refuses_a_v1_config(tmp_path):
-    cfg = tmp_path / "v1.py"
+    """A v1 config runs through the config compiler now
+    (tests/test_torch_compat.py); one that declares no outputs() is
+    refused by both CLIs."""
+    from paddle_tpu.trainer import cli as jax_cli
+    from paddle_tpu.utils.error import ConfigError as JaxConfigError
+    cfg = tmp_path / "no_outputs.py"
     cfg.write_text("from paddle.trainer_config_helpers import *\n"
                    "settings(batch_size=8)\n")
-    with pytest.raises(ConfigError, match="A11"):
+    with pytest.raises(ConfigError, match="declared no outputs"):
         cli.main(["train", "--config", str(cfg), "--device", "cpu"])
+    with pytest.raises(JaxConfigError, match="declared no outputs"):
+        jax_cli.main(["train", "--config", str(cfg)])
 
 
 def test_a_jax_trainers_pass_dir_loads_in_the_port(tmp_path):
